@@ -1,0 +1,141 @@
+"""The slice as a whole: the port's flagship SceneForwardTracer against the
+live JAX tracer on CPU (accel="mt", batch 4096, path length 10,
+PhiloxRNG(key=42), the same icosphere in both packages).
+
+Tolerances and why:
+(a) final per-lane RNG dims equal on >= 99.5 % of lanes. The dims decide
+    which Philox words every later draw reads; they match bit for bit
+    until a lane takes another branch. Transcendentals (exp, log, sqrt,
+    sin, cos) differ by ulps between XLA and torch on CPU, and so does the
+    Moeller-Trumbore reciprocal (see test_torch_intersect_mt.py), so a few
+    lanes flip a comparison such as ``u_surf < r_coef``.
+(b) histogram sums within rtol 1e-3 and per-bin L1 difference at most 1 %
+    of the total: the same ulp differences move each lane's contribution
+    by ~1e-6, and the rare flipped lane moves its whole contribution.
+(c) a second run() advances the RNG offset by nRNGSamples, as JAX does,
+    and its histogram agrees with JAX's second batch within (b).
+(d) the port run with params_from_numpy(JAX params) equals the port run
+    with its own params bit for bit: the same tensors go in.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+import theia_tpu
+import theia_tpu_torch
+from theia_tpu_torch.interop import params_from_numpy
+from torch_flagship import build_flagship, icosphere
+
+BATCH = 4096
+MAX_PATH = 10
+
+
+def numpy_tree(x):
+    """Flatten a JAX params pytree into nested dicts of numpy arrays keyed
+    by field name, keeping static fields as Python values."""
+    if isinstance(x, dict):
+        return {k: numpy_tree(v) for k, v in x.items()}
+    if dataclasses.is_dataclass(x):
+        return {
+            f.name: numpy_tree(getattr(x, f.name))
+            for f in dataclasses.fields(x)
+            if getattr(x, f.name) is not None
+        }
+    if hasattr(x, "n_tri"):  # MTPack
+        return {k: numpy_tree(getattr(x, k)) for k in ("tri", "aabb", "lo", "hi", "n_tri")}
+    if isinstance(x, (str, bool, int, tuple)):
+        return x
+    return np.asarray(x)
+
+
+def _hist_stats(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return abs(got.sum() / want.sum() - 1.0), np.abs(got - want).sum() / want.sum()
+
+
+@pytest.fixture(scope="module")
+def runs():
+    mesh = icosphere(3)
+    jt = build_flagship(theia_tpu, mesh, BATCH, MAX_PATH)
+    jt._debug_rng = True
+    p = jt.params()
+    fn = jax.jit(jt._trace_batch)
+    streams = jt.streams()
+    j_state, _, j_dims = fn(p, jt.rng.counter_words, streams)
+    out = {"j_hist": np.asarray(jt.response.result(p["response"], j_state))}
+    out["j_dims"] = np.asarray(j_dims).astype(np.int64)
+    jt.rng.advance()  # what run() does after its batch
+    out["j_offset1"] = jt.rng.offset
+    j_state2, _, _ = fn(p, jt.rng.counter_words, streams)
+    out["j_hist2"] = np.asarray(jt.response.result(p["response"], j_state2))
+    jt.rng.advance()
+    out["j_offset2"] = jt.rng.offset
+
+    tt = build_flagship(theia_tpu_torch, mesh, BATCH, MAX_PATH, device="cpu")
+    assert tt.nRNGSamples == jt.nRNGSamples
+    tt._debug_rng = True
+    tp = tt.params()
+    with torch.no_grad():
+        t_state, _, t_dims = tt._trace_batch(tp, tt.rng.counter_words, tt.streams())
+    out["t_hist"] = tt.response.result(tp["response"], t_state).numpy()
+    out["t_dims"] = t_dims.numpy().astype(np.int64)
+    tt._debug_rng = False
+    hist, _ = tt.run(params=params_from_numpy(numpy_tree(p), "cpu"))
+    out["t_hist_interop"] = hist.numpy()
+    out["t_offset1"] = tt.rng.offset
+    hist2, _ = tt.run()
+    out["t_hist2"] = hist2.numpy()
+    out["t_offset2"] = tt.rng.offset
+    return out
+
+
+def test_rng_dims_match(runs):
+    same = runs["t_dims"] == runs["j_dims"]
+    assert runs["j_dims"].max() > 40  # paths really ran many segments
+    assert same.mean() >= 0.995, same.mean()
+
+
+def test_histogram_matches(runs):
+    assert np.isfinite(runs["t_hist"]).all() and runs["t_hist"].sum() > 0
+    d_sum, l1 = _hist_stats(runs["t_hist"], runs["j_hist"])
+    assert d_sum <= 1e-3, d_sum
+    assert l1 <= 1e-2, l1
+
+
+def test_second_run_advances_like_jax(runs):
+    assert runs["t_offset1"] == runs["j_offset1"] == 74
+    assert runs["t_offset2"] == runs["j_offset2"] == 148
+    d_sum, l1 = _hist_stats(runs["t_hist2"], runs["j_hist2"])
+    assert d_sum <= 1e-3, d_sum
+    assert l1 <= 1e-2, l1
+    assert not np.array_equal(runs["t_hist2"], runs["t_hist"])
+
+
+def test_params_from_numpy_bit_equal(runs):
+    np.testing.assert_array_equal(runs["t_hist_interop"], runs["t_hist"])
+
+
+def test_cpu_run_launches_no_kernel(runs):
+    from theia_tpu_torch.ops.intersect_mt import nearest_triangle_mt
+    from theia_tpu_torch.random import philox_uniform
+    from theia_tpu_torch.response import histogram_add
+
+    assert nearest_triangle_mt.launches == philox_uniform.launches == histogram_add.launches == 0
+
+
+def test_unported_configurations_raise():
+    mesh = icosphere(1)
+    with pytest.raises(NotImplementedError):
+        build_flagship(theia_tpu_torch, mesh, 64, 2, accel="brute", device="cpu")
+    tracer = build_flagship(theia_tpu_torch, mesh, 64, 2, device="cpu")
+    with pytest.raises(NotImplementedError):
+        type(tracer)(
+            64, tracer.source, tracer.wavelengthSource, tracer.response,
+            tracer.rng, tracer.scene, targetGuide=tracer.targetGuide,
+            polarized=True, device="cpu",
+        )
