@@ -67,3 +67,66 @@ def test_histogram_kernel(cuda):
         torch.zeros(bins * det, device=cuda), *(a.to(cuda) for a in args), bins, oid.to(cuda), det
     )
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)
+
+
+def _rays(n, seed, cuda):
+    rng = np.random.default_rng(seed)
+    o = torch.as_tensor(rng.uniform(-1, 4, (n, 3)).astype(np.float32), device=cuda)
+    d = torch.nn.functional.normalize(
+        torch.as_tensor(rng.normal(size=(n, 3)).astype(np.float32), device=cuda), dim=1
+    )
+    tmax = torch.as_tensor(
+        np.where(rng.uniform(size=n) < 0.5, rng.uniform(0.5, 5.0, n), np.inf).astype(np.float32),
+        device=cuda,
+    )
+    return o, d, tmax
+
+
+def test_woop_kernel_bit_equal(cuda):
+    """3840 triangles fill 7.5 tiles of 512: the last tile is half padding."""
+    import theia_tpu_torch
+    from theia_tpu_torch.ops.intersect_woop import WoopPack, nearest_triangle_woop, nearest_triangle_woop_plain
+    from torch_flagship import build_flagship, icosphere
+
+    pack = build_flagship(theia_tpu_torch, icosphere(3), 64, 2, accel="woop", device=cuda).scene.pack.woop
+    cpu_pack = WoopPack(pack.b.cpu(), pack.aabb, pack.lo, pack.hi, pack.n_tri, pack.chunk_box.cpu())
+    o, d, tmax = _rays(10_000, 1, cuda)
+    before = nearest_triangle_woop.launches
+    t, i = nearest_triangle_woop(pack, o, d, tmax)
+    torch.cuda.synchronize()
+    assert nearest_triangle_woop.launches == before + 1
+    t_p, i_p = nearest_triangle_woop_plain(cpu_pack, o.cpu(), d.cpu(), tmax.cpu())
+    assert (i_p >= 0).any()
+    assert torch.equal(i.cpu(), i_p) and torch.equal(t.cpu(), t_p)
+
+
+def test_mt_rows_kernel_bit_equal(cuda):
+    import theia_tpu_torch
+    from theia_tpu_torch.ops.intersect_mt import nearest_triangle_mt, nearest_triangle_mt_rows
+    from torch_flagship import build_flagship, icosphere
+
+    pack = build_flagship(theia_tpu_torch, icosphere(2), 64, 2, device=cuda).scene.pack
+    o, d, tmax = _rays(10_000, 2, cuda)
+    t, i, rows = nearest_triangle_mt_rows(pack.mt, pack.tri_data, o, d, tmax)
+    t_a, i_a = nearest_triangle_mt(pack.mt, o, d, tmax)
+    torch.cuda.synchronize()
+    assert torch.equal(t, t_a) and torch.equal(i, i_a)
+    assert torch.equal(rows, pack.tri_data[torch.clamp_min(i_a, 0).long()])
+
+
+def test_histogram_grad_kernel_bit_exact(cuda):
+    from theia_tpu_torch.response import histogram_grad, histogram_grad_plain
+
+    rng = np.random.default_rng(4)
+    n, bins, det = 20_000, 50, 3
+    args = [
+        torch.as_tensor(rng.uniform(-5, 260, n).astype(np.float32)),
+        torch.as_tensor(rng.uniform(size=n) < 0.6),
+        torch.tensor(0.0),
+        torch.tensor(5.0),
+    ]
+    oid = torch.as_tensor(rng.integers(-1, det + 1, n).astype(np.int32))
+    grad_state = torch.as_tensor(rng.normal(size=bins * det).astype(np.float32))
+    want = histogram_grad_plain(grad_state, *args, bins, oid, det)
+    got = histogram_grad(grad_state.to(cuda), *(a.to(cuda) for a in args), bins, oid.to(cuda), det)
+    assert torch.equal(got.cpu(), want)

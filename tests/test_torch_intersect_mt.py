@@ -25,6 +25,11 @@ from theia_tpu.ops import intersect_woop as jwoop
 from theia_tpu_torch.ops import intersect_mt as tmt
 from torch_flagship import build_flagship, icosphere
 
+# the suite runs several xdist workers on one shared CPU: torch's intra-op
+# threads in each of them oversubscribe it (the port's tests took 10x
+# longer with the default thread count than with one thread per worker)
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def scenes():
@@ -140,3 +145,19 @@ def test_wrapper_checks_shapes(scenes):
         tmt.nearest_triangle_mt(tp.mt, o, torch.zeros(8, 3, dtype=torch.float64), 1.0)
     with pytest.raises(ValueError):
         tmt.nearest_triangle_mt(tp.mt, o.T, torch.zeros(3, 8).T, 1.0)
+
+
+def test_mt_rows_plain(scenes):
+    """The winner-row variant (the port of tools/exp_mt_fused.py): (t, idx)
+    bit for bit the plain MT's, rows = tri_data[max(idx, 0)]."""
+    _, tp = scenes
+    o, d, tmax = (torch.as_tensor(a) for a in _rays(4096, 13, True))
+    t, i = tmt.nearest_triangle_mt(tp.mt, o, d, tmax)
+    t_r, i_r, rows = tmt.nearest_triangle_mt_rows(tp.mt, tp.tri_data, o, d, tmax)
+    assert torch.equal(t_r, t) and torch.equal(i_r, i)
+    assert (i >= 0).any() and (i < 0).any()
+    assert torch.equal(rows, tp.tri_data[torch.clamp_min(i, 0).long()])
+    assert rows.shape == (4096, 32)
+    assert tmt.nearest_triangle_mt_rows.launches == 0
+    with pytest.raises(ValueError):  # a table with fewer rows than triangles
+        tmt.nearest_triangle_mt_rows(tp.mt, tp.tri_data[:100], o, d, tmax)

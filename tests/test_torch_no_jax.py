@@ -12,8 +12,13 @@ import sys
 sys.path.insert(0, {str(TESTS)!r})
 sys.path.insert(0, {str(TESTS.parent)!r})
 import theia_tpu_torch
+import theia_tpu_torch.ops.intersect_woop
+import theia_tpu_torch.polarization
 from torch_flagship import build_flagship, icosphere
 tracer = build_flagship(theia_tpu_torch, icosphere(1), 64, 2, device="cpu")
+hist, _ = tracer.run()
+assert hist.shape == (100,)
+tracer = build_flagship(theia_tpu_torch, icosphere(1), 64, 2, accel="woop", device="cpu", polarized=True)
 hist, _ = tracer.run()
 assert hist.shape == (100,)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "theia_tpu"))

@@ -55,10 +55,15 @@ def test_histogram_record_matches_jax(n_det):
 
 
 def test_histogram_add_rejects_grad():
-    state = torch.zeros(10)
+    """The histogram takes a gradient in ``value`` only: an attached
+    ``time`` is refused (its bins come from a floor, as in JAX, where the
+    time is detached), while an attached ``value`` records and carries
+    its gradient."""
+    args = (torch.ones(4, dtype=torch.bool), torch.tensor(0.0), torch.tensor(1.0), 10)
     value = torch.ones(4, requires_grad=True)
-    with pytest.raises(NotImplementedError):
-        tresp.histogram_add(
-            state, value, torch.zeros(4), torch.ones(4, dtype=torch.bool),
-            torch.tensor(0.0), torch.tensor(1.0), 10,
-        )
+    with pytest.raises(ValueError, match="time"):
+        tresp.histogram_add(torch.zeros(10), value, torch.zeros(4, requires_grad=True), *args)
+    state = tresp.histogram_add(torch.zeros(10), value * 2.0, torch.arange(4.0), *args)
+    assert state.requires_grad and state[:4].tolist() == [2.0] * 4
+    state.sum().backward()
+    assert value.grad.tolist() == [2.0] * 4

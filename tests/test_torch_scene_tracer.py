@@ -18,8 +18,6 @@ Tolerances and why:
     with its own params bit for bit: the same tensors go in.
 """
 
-import dataclasses
-
 import numpy as np
 import pytest
 import torch
@@ -29,28 +27,15 @@ import jax
 import theia_tpu
 import theia_tpu_torch
 from theia_tpu_torch.interop import params_from_numpy
-from torch_flagship import build_flagship, icosphere
+from torch_flagship import build_flagship, icosphere, numpy_tree
+
+# the suite runs several xdist workers on one shared CPU: torch's intra-op
+# threads in each of them oversubscribe it (the port's tests took 10x
+# longer with the default thread count than with one thread per worker)
+torch.set_num_threads(1)
 
 BATCH = 4096
 MAX_PATH = 10
-
-
-def numpy_tree(x):
-    """Flatten a JAX params pytree into nested dicts of numpy arrays keyed
-    by field name, keeping static fields as Python values."""
-    if isinstance(x, dict):
-        return {k: numpy_tree(v) for k, v in x.items()}
-    if dataclasses.is_dataclass(x):
-        return {
-            f.name: numpy_tree(getattr(x, f.name))
-            for f in dataclasses.fields(x)
-            if getattr(x, f.name) is not None
-        }
-    if hasattr(x, "n_tri"):  # MTPack
-        return {k: numpy_tree(getattr(x, k)) for k in ("tri", "aabb", "lo", "hi", "n_tri")}
-    if isinstance(x, (str, bool, int, tuple)):
-        return x
-    return np.asarray(x)
 
 
 def _hist_stats(got, want):
@@ -129,13 +114,14 @@ def test_cpu_run_launches_no_kernel(runs):
 
 
 def test_unported_configurations_raise():
+    """What is still unported raises: the brute-force scan and a tracer
+    without a target guide (polarized tracing is ported now)."""
     mesh = icosphere(1)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="brute"):
         build_flagship(theia_tpu_torch, mesh, 64, 2, accel="brute", device="cpu")
     tracer = build_flagship(theia_tpu_torch, mesh, 64, 2, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="target guide"):
         type(tracer)(
             64, tracer.source, tracer.wavelengthSource, tracer.response,
-            tracer.rng, tracer.scene, targetGuide=tracer.targetGuide,
-            polarized=True, device="cpu",
+            tracer.rng, tracer.scene, polarized=True, device="cpu",
         )

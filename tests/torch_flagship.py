@@ -12,6 +12,7 @@ icosphere built in code, so no mesh file is needed.
 
 from __future__ import annotations
 
+import dataclasses
 import importlib
 
 import numpy as np
@@ -52,11 +53,18 @@ def icosphere(subdivisions: int = 3) -> tuple[np.ndarray, np.ndarray]:
     return np.stack(pos), np.asarray(faces, np.int64)
 
 
-def build_flagship(pkg, mesh, batch: int, max_path: int, accel: str = "mt", device=None):
+def build_flagship(
+    pkg, mesh, batch: int, max_path: int, accel: str = "mt", device=None, *,
+    polarized: bool = False, source_position=(3.0, 0.0, 0.0),
+):
     """The flagship tracer of package ``pkg`` (``theia_tpu`` or
     ``theia_tpu_torch``) on the sphere ``mesh`` = (positions, faces).
     ``device`` is required by ``theia_tpu_torch`` and must be None for
-    ``theia_tpu``."""
+    ``theia_tpu``. ``polarized`` is passed through as
+    ``_build_scene_tracer`` does. ``source_position`` moves the light
+    source alone; the glass shells stay centred at (3, 0, 0). Off centre,
+    direct rays meet the shells at oblique incidence, where the Fresnel
+    polarizers are not the identity."""
     mod = lambda name: importlib.import_module(f"{pkg.__name__}.{name}")
     u = mod("units")
     light, material, rnd = mod("light"), mod("material"), mod("random")
@@ -101,7 +109,9 @@ def build_flagship(pkg, mesh, batch: int, max_path: int, accel: str = "mt", devi
     scene = scene_mod.Scene(instances, mats, medium="water", accel=accel, **dev)
     return tracers.SceneForwardTracer(
         batch,
-        light.SphericalLightSource(position=light_pos, timeRange=(0.0, 10.0), budget=1e5),
+        light.SphericalLightSource(
+            position=tuple(source_position), timeRange=(0.0, 10.0), budget=1e5
+        ),
         light.UniformWavelengthSource(lambdaRange=(300.0, 700.0)),
         response.HistogramHitResponse(nBins=100, t0=0.0, binSize=5.0 * u.ns),
         rnd.PhiloxRNG(key=42),
@@ -111,5 +121,26 @@ def build_flagship(pkg, mesh, batch: int, max_path: int, accel: str = "mt", devi
         scatterCoefficient=0.05,
         targetId=1,
         targetGuide=target.SphereTargetGuide(position=det_pos, radius=0.6),
+        polarized=polarized,
         **dev,
     )
+
+
+def numpy_tree(x):
+    """Flatten a ``theia_tpu`` params pytree into nested dicts of numpy
+    arrays keyed by field name, keeping static fields as Python values
+    (the input of ``theia_tpu_torch.interop.params_from_numpy``)."""
+    if isinstance(x, dict):
+        return {k: numpy_tree(v) for k, v in x.items()}
+    if dataclasses.is_dataclass(x):
+        return {
+            f.name: numpy_tree(getattr(x, f.name))
+            for f in dataclasses.fields(x)
+            if getattr(x, f.name) is not None
+        }
+    if hasattr(x, "n_tri"):  # MTPack or WoopPack
+        table = "tri" if hasattr(x, "tri") else "b"
+        return {k: numpy_tree(getattr(x, k)) for k in (table, "aabb", "lo", "hi", "n_tri")}
+    if isinstance(x, (str, bool, int, tuple)):
+        return x
+    return np.asarray(x)

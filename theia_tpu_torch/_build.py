@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels of ``theia_tpu_torch``.
 
 The sources in ``csrc/`` are compiled with ``nvcc`` for Hopper
-(``-gencode arch=compute_90a,code=sm_90a``) into one shared library with a
+(``-gencode arch=compute_90a,code=sm_90a``), one ``nvcc`` process per
+source, all started together, and linked into one shared library with a
 plain C interface, loaded with ``ctypes``. The build happens at first use
 (never at import), goes to ``build/theia_tpu_torch/`` beside the package,
 and is reused until the sources or flags change (the file name carries
@@ -27,13 +28,13 @@ __all__ = ["KernelLibrary", "library", "check", "stream_handle"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "theia_tpu_torch"
-SOURCES = ("intersect_mt.cu", "philox.cu", "histogram.cu")
+SOURCES = ("intersect_mt.cu", "intersect_woop.cu", "philox.cu", "histogram.cu")
 #: -fmad=false: no contraction of a*b+c into FMAs, so every product and sum
 #: rounds exactly as the plain PyTorch versions' separate ops do
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -42,8 +43,11 @@ _U = ctypes.c_uint32
 #: argument types of each C entry point (pointers and the stream as void*)
 _SIGNATURES = {
     "theia_mt_nearest": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
+    "theia_mt_nearest_rows": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P),
+    "theia_woop_nearest": (_P, _P, _P, _P, _P, _I, _I, _P, _P, _P),
     "theia_philox_uniform": (_U, _U, _U, _U, _U, _U, _P, _P, _I, _I, _P, _P),
     "theia_histogram_add": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
+    "theia_histogram_grad": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
 }
 
 
@@ -92,18 +96,38 @@ def library() -> KernelLibrary:
     if out.is_file():
         return KernelLibrary(out, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
+    nvcc, tag = _nvcc(), f"{_digest()}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{Path(src).stem}-{tag}.o" for src in SOURCES]
     start = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - start
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n"
-            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+    # one nvcc per source, all running at once
+    compiles = [
+        (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for cmd in (
+            [nvcc, *NVCC_FLAGS, "-c", str(CSRC / src), "-o", str(obj)]
+            for src, obj in zip(SOURCES, objs)
         )
+    ]
+    # wait for every compile before raising on any
+    outputs = [(cmd, proc.communicate()[0], proc.returncode) for cmd, proc in compiles]
+    log = "".join(_finish(*o) for o in outputs)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    log += _finish(cmd, proc.stdout, proc.returncode)
+    seconds = time.perf_counter() - start
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, out)
-    return KernelLibrary(out, seconds, proc.stdout + proc.stderr)
+    return KernelLibrary(out, seconds, log)
+
+
+def _finish(cmd: list[str], output: str, returncode: int) -> str:
+    """The output of one nvcc call; raises if it failed."""
+    if returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed with exit code {returncode}:\n{' '.join(cmd)}\n{output}"
+        )
+    return output
 
 
 def check(err: int, name: str) -> None:

@@ -1,9 +1,9 @@
 """Ray/scene intersection and hit reconstruction.
 
 The nearest-hit selection goes through the scene's acceleration tables
-(so far the Moeller-Trumbore kernel, ``accel="mt"``) on detached
-tensors. The winner is then rebuilt from its two table rows in ordinary
-torch code — barycentrics, object-space position and normal, inward
+(so far the Moeller-Trumbore kernel, ``accel="mt"``, or the Woop kernel,
+``accel="woop"``) on detached tensors. The winner is then rebuilt from
+its two table rows in ordinary torch code — barycentrics, object-space position and normal, inward
 test, media-mismatch check, world position via object-to-world — the
 only part of intersection that autograd could differentiate, as with
 ``stop_gradient`` in ``theia_tpu.accel`` (reference:
@@ -17,6 +17,7 @@ from dataclasses import dataclass
 import torch
 
 from .ops.intersect_mt import nearest_triangle_mt
+from .ops.intersect_woop import nearest_triangle_woop
 from .ops.math3d import cross, dot, matvec, moeller_trumbore_rowwise, normalize, sign_bit, vec3
 from .scene import ScenePack
 from .trace.core import EventResultCode
@@ -73,9 +74,14 @@ def intersect_scene(
     mismatches against the hit material's expectation raise the
     media-mismatch error exactly like the reference."""
     t_max = torch.as_tensor(t_max, dtype=torch.float32, device=origin.device)
-    # (t, tri_data row) per lane, t=inf / row=-1 on miss
-    t_sel, tri = nearest_triangle_mt(
-        pack.mt,
+    # (t, tri_data row) per lane, t=inf / row=-1 on miss; the Pallas-ported
+    # backends share this contract (theia_tpu/accel.py:537-544)
+    if pack.mt is not None:
+        nearest, tables = nearest_triangle_mt, pack.mt
+    else:
+        nearest, tables = nearest_triangle_woop, pack.woop
+    t_sel, tri = nearest(
+        tables,
         origin.detach().contiguous(),
         direction.detach().contiguous(),
         t_max.detach(),
@@ -162,6 +168,7 @@ def intersect_target(
     """Shadow-ray query: nearest hit, whose detector flag the caller tests.
 
     ``theia_tpu`` splits this into a detector nearest-hit plus an
-    occluder any-hit on brute-force packs only; accelerated packs, the
-    only kind ported so far, run the full :func:`intersect_scene`."""
+    occluder any-hit on brute-force packs only; accelerated packs (``mt``
+    and ``woop``), the only kinds ported so far, run the full
+    :func:`intersect_scene`."""
     return intersect_scene(pack, medium_handle, origin, direction, t_max)

@@ -1,11 +1,14 @@
-// Moeller-Trumbore nearest hit over a triangle soup, one thread per ray.
+// Moeller-Trumbore nearest hit over a triangle soup, one thread per ray,
+// optionally with each winner's table row.
 //
 // Replaces theia_tpu/ops/intersect_mt_pallas.py (_call -> _kernel, with
 // the helpers rcp/safe/select_winner of ops/_intersect_tiles.py): the same
 // per-pair test in the same operation order, 1/det as a correctly rounded
 // reciprocal plus one Newton step r*(2-v*r), det cutoff 1e-12, barycentric
 // tolerance +-1e-6, t > 0, and a strict t < t_running update so a hit must
-// be closer than t_max and the lowest index wins ties.
+// be closer than t_max and the lowest index wins ties. The kRows variant
+// also replaces tools/exp_mt_fused.py (_call_rows -> _kernel_rows): after
+// the scan it writes table[max(idx, 0)], one 32-float row per ray.
 //
 // What bounds it on an H100: FP32 ALU issue. Each (ray, triangle) pair is
 // ~35 dependent multiplies/adds and one reciprocal; the triangle operands
@@ -13,7 +16,8 @@
 // built with -fmad=false so the products and sums round exactly like the
 // plain PyTorch version's separate ops (bit-equal t and idx); that gives
 // up the FMA's 2x issue rate, a trade for exactness that a later kernel
-// may revisit.
+// may revisit. The row copy adds 128 bytes written and read per ray, a
+// gather from an L2-resident table (3840 rows = 480 KB for the flagship).
 //
 // Design: a block of 256 rays keeps each ray's (t, idx) in registers and
 // walks the triangles in chunks of 256 (kChunk, equal to CHUNK in
@@ -25,7 +29,11 @@
 // kernel's per-(ray block, tile) AABB skip: the box margin is far above
 // rounding, so a skip never drops a hit, and the plain version skips with
 // the same float32 arithmetic. Padding triangles (index >= n_tri) are not
-// visited, as they can never hit.
+// visited, as they can never hit. With kRows the winners' indices go
+// through shared memory and the block copies its 256 rows together, 32
+// threads to a row, so every load and store is one coalesced 128-byte
+// line instead of one thread walking a row on its own. kRows is a template
+// flag: the scan is one body for both variants.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -60,11 +68,15 @@ __device__ __forceinline__ bool slab_hit(const float* __restrict__ box,
   return tn <= tf && tn < best_t;
 }
 
+constexpr int kRowWidth = 32;  // floats per table row (tri_data)
+
+template <bool kRows>
 __global__ void __launch_bounds__(kRaysPerBlock) mt_nearest(
     const float* __restrict__ origin, const float* __restrict__ direction,
     const float* __restrict__ t_max, const float* __restrict__ tri,
     const float* __restrict__ chunk_box, int n_rays, int n_tri, int bt,
-    float* __restrict__ t_out, int* __restrict__ idx_out) {
+    const float* __restrict__ table, float* __restrict__ t_out,
+    int* __restrict__ idx_out, float* __restrict__ rows_out) {
   __shared__ float s_tri[9][kChunk];
   const int ray = blockIdx.x * kRaysPerBlock + threadIdx.x;
   const bool live = ray < n_rays;
@@ -136,6 +148,33 @@ __global__ void __launch_bounds__(kRaysPerBlock) mt_nearest(
     t_out[ray] = best_i < 0 ? CUDART_INF_F : best_t;
     idx_out[ray] = best_i;
   }
+  if constexpr (kRows) {
+    __shared__ int s_row[kRaysPerBlock];
+    s_row[threadIdx.x] = max(best_i, 0);
+    __syncthreads();
+    const int first = blockIdx.x * kRaysPerBlock;
+    const int n_here = min(kRaysPerBlock, n_rays - first);
+    for (int k = threadIdx.x; k < n_here * kRowWidth; k += kRaysPerBlock) {
+      const int r = k / kRowWidth;
+      const int col = k - r * kRowWidth;
+      rows_out[(size_t)(first + r) * kRowWidth + col] =
+          table[(size_t)s_row[r] * kRowWidth + col];
+    }
+  }
+}
+
+template <bool kRows>
+int launch(const float* origin, const float* direction, const float* t_max,
+           const float* tri, const float* chunk_box, int n_rays, int n_tri,
+           int bt, const float* table, float* t_out, int* idx_out,
+           float* rows_out, cudaStream_t stream) {
+  if (n_rays > 0) {
+    const int blocks = (n_rays + kRaysPerBlock - 1) / kRaysPerBlock;
+    mt_nearest<kRows><<<blocks, kRaysPerBlock, 0, stream>>>(
+        origin, direction, t_max, tri, chunk_box, n_rays, n_tri, bt, table,
+        t_out, idx_out, rows_out);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -145,11 +184,18 @@ extern "C" int theia_mt_nearest(const float* origin, const float* direction,
                                 const float* chunk_box, int n_rays, int n_tri,
                                 int bt, float* t_out, int* idx_out,
                                 cudaStream_t stream) {
-  if (n_rays > 0) {
-    const int blocks = (n_rays + kRaysPerBlock - 1) / kRaysPerBlock;
-    mt_nearest<<<blocks, kRaysPerBlock, 0, stream>>>(
-        origin, direction, t_max, tri, chunk_box, n_rays, n_tri, bt, t_out,
-        idx_out);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(origin, direction, t_max, tri, chunk_box, n_rays,
+                       n_tri, bt, nullptr, t_out, idx_out, nullptr, stream);
+}
+
+// table: f32 (rows >= n_tri, 32); rows_out: f32 (n_rays, 32)
+extern "C" int theia_mt_nearest_rows(const float* origin,
+                                     const float* direction,
+                                     const float* t_max, const float* tri,
+                                     const float* chunk_box, int n_rays,
+                                     int n_tri, int bt, const float* table,
+                                     float* t_out, int* idx_out,
+                                     float* rows_out, cudaStream_t stream) {
+  return launch<true>(origin, direction, t_max, tri, chunk_box, n_rays, n_tri,
+                      bt, table, t_out, idx_out, rows_out, stream);
 }

@@ -2,10 +2,13 @@
 
 :func:`params_from_numpy` takes the JAX tracer's ``params()`` as a nested
 mapping of numpy arrays keyed by the JAX field names — for example
-``scene.tri_data``, ``scene.mt.tri``, ``scene.media.tables[kind]``,
-``lightSource._contribFwd`` and ``response.t0`` — with the static fields
-(``scene.media.names``, ``scene.media.const4_ok``, ``scene.mt.n_tri``) as
+``scene.tri_data``, ``scene.mt.tri`` or ``scene.woop.b``,
+``scene.media.tables[kind]``, ``lightSource._contribFwd`` and
+``response.t0`` — with the static fields (``scene.media.names``,
+``scene.media.const4_ok``, ``scene.mt.n_tri``, ``scene.woop.n_tri``) as
 plain Python values, and returns the port tracer's params on ``device``.
+The Woop pack's chunk-skip boxes come from the world triangles of
+``tri_data``, which are in the same Morton order.
 Fields the port does not use (the brute-force soup ``w_v0``/``w_e1``/
 ``w_e2``, ``shadow_split``) are ignored. It imports neither jax nor
 theia_tpu: flattening the JAX pytree is the caller's side.
@@ -17,7 +20,8 @@ import numpy as np
 import torch
 
 from .material import MediumStore
-from .ops.intersect_mt import MTPack
+from .ops.intersect_mt import MTPack, chunk_boxes
+from .ops.intersect_woop import WoopPack
 from .scene import ScenePack
 
 __all__ = ["params_from_numpy"]
@@ -36,8 +40,21 @@ def _tensors(tree, device):
     return _tensor(tree, device)
 
 
+def _accel_tables(s, device) -> dict:
+    """``{"mt": MTPack}`` or ``{"woop": WoopPack}`` from the JAX pack's."""
+    if "mt" in s:
+        mt = s["mt"]
+        tables = MTPack(_tensor(mt["tri"], device), mt["aabb"], mt["lo"], mt["hi"], int(mt["n_tri"]))
+        return {"mt": tables}
+    woop, rows = s["woop"], _tensor(s["tri_data"], device)
+    n_tri = int(woop["n_tri"])
+    boxes = chunk_boxes(*(rows[:n_tri, c : c + 3] for c in (18, 21, 24)))
+    tables = WoopPack(_tensor(woop["b"], device), woop["aabb"], woop["lo"], woop["hi"], n_tri, boxes)
+    return {"woop": tables}
+
+
 def _scene_pack(s, device) -> ScenePack:
-    media, mt = s["media"], s["mt"]
+    media = s["media"]
     store = MediumStore(
         lambda_min=_tensor(media["lambda_min"], device),
         lambda_max=_tensor(media["lambda_max"], device),
@@ -53,13 +70,7 @@ def _scene_pack(s, device) -> ScenePack:
         medium=_tensor(s["medium"], device).to(torch.int32),
         lower_bbox=_tensor(s["lower_bbox"], device),
         upper_bbox=_tensor(s["upper_bbox"], device),
-        mt=MTPack(
-            _tensor(mt["tri"], device),
-            mt["aabb"],
-            mt["lo"],
-            mt["hi"],
-            int(mt["n_tri"]),
-        ),
+        **_accel_tables(s, device),
     )
 
 

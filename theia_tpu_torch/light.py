@@ -30,12 +30,15 @@ __all__ = [
 
 @dataclass(frozen=True)
 class SourceRay:
-    """Light-source sample (reference: shader/lightsource.common.glsl:11-46)."""
+    """Light-source sample (reference: shader/lightsource.common.glsl:11-46).
+    ``stokes``/``pol_ref`` are None for unpolarized sources."""
 
     position: torch.Tensor  # f32[N,3]
     direction: torch.Tensor  # f32[N,3]
     start_time: torch.Tensor  # f32[N]
     contrib: torch.Tensor  # f32[N]
+    stokes: torch.Tensor | None = None  # f32[N,4]
+    pol_ref: torch.Tensor | None = None  # f32[N,3]
 
 
 class WavelengthSource(Component):

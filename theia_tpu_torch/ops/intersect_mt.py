@@ -13,7 +13,10 @@ port's path reads them until ``run_binned`` is ported.
 :func:`nearest_triangle_mt_plain` on CPU tensors. Both compute the JAX
 kernel's per-pair test in the same operation order, with 1/det as a
 correctly rounded reciprocal plus one Newton step, so they agree bit for
-bit. Both skip a run of 256 triangles for a ray that cannot reach its
+bit. :func:`nearest_triangle_mt_rows`, the port of
+``tools/exp_mt_fused.py``, also returns each winner's row of a (T, 32)
+table, through the kernel's variant that copies the rows itself; the
+tracer does not call it. Both skip a run of 256 triangles for a ray that cannot reach its
 (widened) box, the port's form of the TPU kernel's per-tile AABB skip.
 The kernel streams the table through a fixed shared-memory chunk, so no
 capacity check is needed where the TPU version checks its VMEM budget.
@@ -34,8 +37,11 @@ __all__ = [
     "pack_mt",
     "tile_aabbs",
     "scene_bounds",
+    "chunk_boxes",
     "nearest_triangle_mt",
     "nearest_triangle_mt_plain",
+    "nearest_triangle_mt_rows",
+    "nearest_triangle_mt_rows_plain",
 ]
 
 BT = 512  # triangles per tile for big scenes
@@ -46,15 +52,17 @@ SMALL_SCENE_MAX_TRI = 4 * SMALL_SCENE_BT
 CHUNK = 256
 #: rays per block of the plain version, which bounds its (rays, CHUNK) temporaries
 RAY_BLOCK = 4096
+#: floats per row of the table nearest_triangle_mt_rows reads (tri_data)
+ROW_WIDTH = 32
 
 
 class MTPack:
     """Tables of the nearest-hit query; ``n_tri`` is the count of real
     triangles (the rest of ``tri`` is padding). ``chunk_box`` holds the
     inflated bounds of each run of :data:`CHUNK` triangles, derived from
-    ``tri`` on its device. ``aabb``, ``lo`` and ``hi`` are the JAX pack's
-    per-tile AABBs and scene bounds as host numpy arrays; no query reads
-    them yet."""
+    ``tri`` on its device by :func:`chunk_boxes`. ``aabb``, ``lo`` and
+    ``hi`` are the JAX pack's per-tile AABBs and scene bounds as host
+    numpy arrays; no query reads them yet."""
 
     def __init__(self, tri, aabb, lo, hi, n_tri: int) -> None:
         self.tri = tri  # f32 (T_tiles, 9, BT): v0xyz, e1xyz, e2xyz rows
@@ -62,7 +70,9 @@ class MTPack:
         self.lo = np.asarray(lo, np.float32)  # (3,) tight scene bounds
         self.hi = np.asarray(hi, np.float32)
         self.n_tri = n_tri
-        self.chunk_box = chunk_boxes(tri, n_tri)  # f32 (n_chunks, 8)
+        rows = _rows(tri, n_tri)
+        # f32 (n_chunks, 8)
+        self.chunk_box = chunk_boxes(rows[0:3].T, rows[3:6].T, rows[6:9].T)
 
 
 def _rows(tri: torch.Tensor, n_tri: int) -> torch.Tensor:
@@ -70,23 +80,24 @@ def _rows(tri: torch.Tensor, n_tri: int) -> torch.Tensor:
     return tri.permute(1, 0, 2).reshape(9, -1)[:, :n_tri]
 
 
-def chunk_boxes(tri: torch.Tensor, n_tri: int) -> torch.Tensor:
+def chunk_boxes(v0: torch.Tensor, e1: torch.Tensor, e2: torch.Tensor) -> torch.Tensor:
     """(n_chunks, 8) bounds (lo xyz, 0, hi xyz, 0) of each run of
-    :data:`CHUNK` triangles over their float32 vertices v0, v0+e1, v0+e2,
-    widened by 1e-3 of the extent plus 1e-5 on each side. The margin is
-    far above float32 rounding, so a ray that misses the box cannot hit a
-    triangle in it: skipping the chunk never changes a result. The
-    values are exact min/max plus the same float32 ops on every device,
-    which keeps the kernel's skips identical to the plain version's."""
-    rows = _rows(tri, n_tri)
+    :data:`CHUNK` world triangles (v0, e1, e2: f32 (n_tri, 3)) over their
+    float32 vertices v0, v0+e1, v0+e2, widened by 1e-3 of the extent plus
+    1e-5 on each side. The margin is far above float32 rounding (and above
+    the Woop test's 1e-6 barycentric slack), so a ray that misses the box
+    cannot hit a triangle in it: skipping the chunk never changes a
+    result. The values are exact min/max plus the same float32 ops on
+    every device, which keeps a kernel's skips identical to its plain
+    version's. The MT and Woop packs both take their boxes from here."""
+    n_tri = v0.shape[0]
     n_chunks = -(-n_tri // CHUNK)
     pad = n_chunks * CHUNK - n_tri
-    v0, e1, e2 = rows[0:3], rows[3:6], rows[6:9]
-    pts = torch.stack([v0, v0 + e1, v0 + e2], dim=-1)  # (3, n_tri, 3)
+    pts = torch.stack([v0, v0 + e1, v0 + e2], dim=0)  # (3 points, n_tri, 3)
     # fill the last chunk with copies of its last triangle
     pts = torch.cat([pts, pts[:, -1:].expand(3, pad, 3)], dim=1)
-    pts = pts.reshape(3, n_chunks, CHUNK * 3)
-    lo, hi = pts.amin(dim=-1).T, pts.amax(dim=-1).T  # (n_chunks, 3)
+    pts = pts.reshape(3, n_chunks, CHUNK, 3)
+    lo, hi = pts.amin(dim=(0, 2)), pts.amax(dim=(0, 2))  # (n_chunks, 3)
     margin = (hi - lo) * 1e-3 + 1e-5
     zero = torch.zeros_like(lo[:, :1])
     return torch.cat([lo - margin, zero, hi + margin, zero], dim=1).contiguous()
@@ -261,19 +272,34 @@ def nearest_triangle_mt_plain(
     return t_out, i_out
 
 
-def _check_rays(pack: MTPack, origin, direction, t_max) -> None:
+def check_rays(origin, direction, t_max, tables) -> torch.Tensor:
+    """Raise unless the rays and the ``(name, tensor, shape)`` tables are
+    contiguous float32 of the stated shapes on the rays' device; returns
+    ``t_max`` (a scalar or (N,)) broadcast to a contiguous (N,) tensor."""
     n = origin.shape[0]
+    t_max = torch.broadcast_to(
+        torch.as_tensor(t_max, dtype=torch.float32, device=origin.device), (n,)
+    ).contiguous()
     for name, a, shape in (
         ("origin", origin, (n, 3)),
         ("direction", direction, (n, 3)),
         ("t_max", t_max, (n,)),
-        ("pack.tri", pack.tri, (pack.tri.shape[0], 9, pack.tri.shape[2])),
-        ("pack.chunk_box", pack.chunk_box, (-(-pack.n_tri // CHUNK), 8)),
+        *tables,
     ):
         if a.dtype != torch.float32 or tuple(a.shape) != shape:
             raise ValueError(f"{name} must be float32 of shape {shape}")
         if not a.is_contiguous() or a.device != origin.device:
             raise ValueError(f"{name} must be contiguous on {origin.device}")
+    if origin.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {origin.device}")
+    return t_max
+
+
+def _mt_tables(pack: MTPack):
+    return (
+        ("pack.tri", pack.tri, (pack.tri.shape[0], 9, pack.tri.shape[2])),
+        ("pack.chunk_box", pack.chunk_box, (-(-pack.n_tri // CHUNK), 8)),
+    )
 
 
 def nearest_triangle_mt(
@@ -286,14 +312,9 @@ def nearest_triangle_mt(
     wins ties. CUDA tensors launch ``csrc/intersect_mt.cu``, CPU tensors
     run the plain version."""
     n = origin.shape[0]
-    t_max = torch.broadcast_to(
-        torch.as_tensor(t_max, dtype=torch.float32, device=origin.device), (n,)
-    ).contiguous()
-    _check_rays(pack, origin, direction, t_max)
+    t_max = check_rays(origin, direction, t_max, _mt_tables(pack))
     if origin.device.type == "cpu":
         return nearest_triangle_mt_plain(pack, origin, direction, t_max)
-    if origin.device.type != "cuda":
-        raise ValueError(f"nearest_triangle_mt: unsupported device {origin.device}")
     t = torch.empty(n, dtype=torch.float32, device=origin.device)
     idx = torch.empty(n, dtype=torch.int32, device=origin.device)
     lib = _build.library()
@@ -309,3 +330,47 @@ def nearest_triangle_mt(
 
 
 nearest_triangle_mt.launches = 0
+
+
+def nearest_triangle_mt_rows_plain(
+    pack: MTPack, table: torch.Tensor, origin, direction, t_max
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`nearest_triangle_mt_rows`: the
+    plain query, then a gather of ``table[max(idx, 0)]``."""
+    t, idx = nearest_triangle_mt_plain(pack, origin, direction, t_max)
+    return t, idx, table[torch.clamp_min(idx, 0).to(torch.int64)]
+
+
+def nearest_triangle_mt_rows(
+    pack: MTPack, table: torch.Tensor, origin: torch.Tensor, direction: torch.Tensor, t_max
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`nearest_triangle_mt` plus each winner's table row: returns
+    (t, idx, rows) with rows f32 (N, 32) = ``table[max(idx, 0)]`` (row 0
+    on a miss), ``table`` f32 (R >= n_tri, 32), e.g. the scene's
+    ``tri_data``. The port of ``tools/exp_mt_fused.py``'s fused kernel:
+    CUDA tensors launch the row-copying variant of
+    ``csrc/intersect_mt.cu``, CPU tensors run the plain version."""
+    n = origin.shape[0]
+    if table.shape[0] < pack.n_tri:
+        raise ValueError(f"table has {table.shape[0]} rows, fewer than {pack.n_tri} triangles")
+    t_max = check_rays(
+        origin, direction, t_max,
+        (*_mt_tables(pack), ("table", table, (table.shape[0], ROW_WIDTH))),
+    )
+    if origin.device.type == "cpu":
+        return nearest_triangle_mt_rows_plain(pack, table, origin, direction, t_max)
+    t = torch.empty(n, dtype=torch.float32, device=origin.device)
+    idx = torch.empty(n, dtype=torch.int32, device=origin.device)
+    rows = torch.empty((n, ROW_WIDTH), dtype=torch.float32, device=origin.device)
+    err = _build.library().theia_mt_nearest_rows(
+        origin.data_ptr(), direction.data_ptr(), t_max.data_ptr(),
+        pack.tri.data_ptr(), pack.chunk_box.data_ptr(), n, pack.n_tri,
+        pack.tri.shape[2], table.data_ptr(), t.data_ptr(), idx.data_ptr(),
+        rows.data_ptr(), _build.stream_handle(origin.device),
+    )
+    _build.check(err, "nearest_triangle_mt_rows")
+    nearest_triangle_mt_rows.launches += 1
+    return t, idx, rows
+
+
+nearest_triangle_mt_rows.launches = 0

@@ -20,6 +20,8 @@ __all__ = [
     "distance",
     "sign_bit",
     "local_frame",
+    "perpendicular_to",
+    "perpendicular_to2",
     "matvec",
     "moeller_trumbore_rowwise",
 ]
@@ -73,6 +75,24 @@ def local_frame(vz: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     vx = vec3(1.0 + s * vz[..., 0] * vz[..., 0] * a, s * b, -s * vz[..., 0])
     vy = vec3(b, s + vz[..., 1] * vz[..., 1] * a, -vz[..., 1])
     return normalize(vx), normalize(vy)
+
+
+def perpendicular_to(v: torch.Tensor) -> torch.Tensor:
+    """A unit vector normal to unit vector v (the frame's vy)."""
+    s = sign_bit(v[..., 2])
+    a = -1.0 / (s + v[..., 2])
+    b = v[..., 0] * v[..., 1] * a
+    return vec3(b, s + v[..., 1] * v[..., 1] * a, -v[..., 1])
+
+
+def perpendicular_to2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Unit vector normal to both a and b; falls back to a vector
+    perpendicular to a when they are (nearly) parallel."""
+    c = cross(a, b)
+    length = norm(c)
+    degenerate = length < 1e-5
+    safe = c / torch.clamp_min(length, 1e-20)[..., None]
+    return torch.where(degenerate[..., None], perpendicular_to(a), safe)
 
 
 def matvec(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

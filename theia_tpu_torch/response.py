@@ -7,7 +7,10 @@ shader/response.histogram.glsl, estimator.reduce.glsl:17-35).
 
 :func:`histogram_add` is the histogram's accumulation: on CUDA tensors it
 launches the atomic-add kernel of ``csrc/histogram.cu``, on CPU tensors it
-runs :func:`histogram_add_plain`.
+runs :func:`histogram_add_plain`. It is differentiable in ``value``: its
+backward, :func:`histogram_grad`, gathers the state's gradient at each
+kept lane's bin (the gather kernel of ``csrc/histogram.cu`` on CUDA,
+:func:`histogram_grad_plain` on the CPU).
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ __all__ = [
     "HistogramHitResponse",
     "histogram_add",
     "histogram_add_plain",
+    "histogram_grad",
+    "histogram_grad_plain",
 ]
 
 
@@ -102,10 +107,13 @@ def histogram_add_plain(
     return state.index_add_(0, bins[keep], value[keep])
 
 
-def _check_hist(state, value, time, mask, t0, bin_size, n_bins, object_id, n_detectors):
-    n = value.shape[0]
-    expect = [
-        ("value", value, torch.float32, (n,)),
+def _check_hist(
+    state, value, time, mask, t0, bin_size, n_bins, object_id, n_detectors,
+    check_value: bool = True,
+):
+    n = time.shape[0]
+    expect = [("value", value, torch.float32, (n,))] if check_value else []
+    expect += [
         ("time", time, torch.float32, (n,)),
         ("mask", mask, torch.bool, (n,)),
         ("t0", t0, torch.float32, ()),
@@ -121,6 +129,49 @@ def _check_hist(state, value, time, mask, t0, bin_size, n_bins, object_id, n_det
             raise ValueError(f"{name} must be contiguous on {state.device}")
 
 
+class _HistogramAdd(torch.autograd.Function):
+    """``state += scatter(value)`` with its gradient in ``state`` (the
+    identity) and in ``value`` (:func:`histogram_grad`).
+
+    The state is updated in place and marked dirty (``mark_dirty``), so
+    autograd bumps its version and re-roots its history on this node; the
+    backward needs none of the state's values, and no other op of the
+    tracer saves the state, so the in-place update breaks no saved
+    tensor. That keeps one buffer per batch where an out-of-place add
+    would make a new one at every record."""
+
+    @staticmethod
+    def forward(ctx, state, value, time, mask, t0, bin_size, n_bins, object_id, n_detectors):
+        if state.device.type == "cpu":
+            histogram_add_plain(
+                state, value, time, mask, t0, bin_size, n_bins, object_id, n_detectors
+            )
+        else:
+            err = _build.library().theia_histogram_add(
+                value.data_ptr(), time.data_ptr(), mask.data_ptr(),
+                object_id.data_ptr() if n_detectors is not None else None,
+                t0.data_ptr(), bin_size.data_ptr(), value.shape[0], n_bins,
+                n_detectors or 0, state.data_ptr(), _build.stream_handle(state.device),
+            )
+            _build.check(err, "histogram_add")
+            histogram_add.launches += 1
+        ctx.mark_dirty(state)
+        ctx.save_for_backward(time, mask, t0, bin_size, object_id)
+        ctx.n_bins, ctx.n_detectors = n_bins, n_detectors
+        return state
+
+    @staticmethod
+    def backward(ctx, grad_state):
+        time, mask, t0, bin_size, object_id = ctx.saved_tensors
+        grad_value = None
+        if ctx.needs_input_grad[1]:
+            grad_value = histogram_grad(
+                grad_state.contiguous(), time, mask, t0, bin_size, ctx.n_bins,
+                object_id, ctx.n_detectors,
+            )
+        return (grad_state, grad_value) + (None,) * 7
+
+
 def histogram_add(
     state, value, time, mask, t0, bin_size, n_bins: int,
     object_id=None, n_detectors: int | None = None,
@@ -133,29 +184,63 @@ def histogram_add(
     (N,); ``mask``: bool (N,); ``t0``/``bin_size``: f32 0-d tensors on the
     state's device; ``object_id``: i32 (N,) when ``n_detectors`` is set.
     CUDA tensors launch ``csrc/histogram.cu``, CPU tensors run the plain
-    version. Gradients through the response are not ported yet."""
-    if value.requires_grad:
-        raise NotImplementedError("histogram_add takes no gradient yet")
+    version. Differentiable in ``value`` (and through ``state``); ``time``
+    takes no gradient, as in JAX where the bins come from a floor of the
+    detached time, so an attached ``time`` is refused."""
+    if time.requires_grad:
+        raise ValueError("histogram_add takes no gradient in time: pass time.detach()")
     _check_hist(state, value, time, mask, t0, bin_size, n_bins, object_id, n_detectors)
-    if state.device.type == "cpu":
-        return histogram_add_plain(
-            state, value, time, mask, t0, bin_size, n_bins, object_id, n_detectors
-        )
-    if state.device.type != "cuda":
+    if state.device.type not in ("cpu", "cuda"):
         raise ValueError(f"histogram_add: unsupported device {state.device}")
-    lib = _build.library()
-    err = lib.theia_histogram_add(
-        value.data_ptr(), time.data_ptr(), mask.data_ptr(),
-        object_id.data_ptr() if n_detectors is not None else None,
-        t0.data_ptr(), bin_size.data_ptr(), value.shape[0], n_bins,
-        n_detectors or 0, state.data_ptr(), _build.stream_handle(state.device),
+    return _HistogramAdd.apply(
+        state, value, time, mask, t0, bin_size, n_bins, object_id, n_detectors
     )
-    _build.check(err, "histogram_add")
-    histogram_add.launches += 1
-    return state
 
 
 histogram_add.launches = 0
+
+
+def histogram_grad_plain(
+    grad_state, time, mask, t0, bin_size, n_bins: int,
+    object_id=None, n_detectors: int | None = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`histogram_grad` (any device)."""
+    keep, bins = _hist_bins(time, mask, t0, bin_size, n_bins, object_id, n_detectors)
+    return torch.where(keep, grad_state[bins], 0.0)
+
+
+def histogram_grad(
+    grad_state, time, mask, t0, bin_size, n_bins: int,
+    object_id=None, n_detectors: int | None = None,
+) -> torch.Tensor:
+    """Backward of :func:`histogram_add` in ``value``: returns f32 (N,)
+    ``grad_state[det * n_bins + bin]`` on kept lanes and 0 on dropped
+    ones, with the forward's bins. CUDA tensors launch the gather kernel
+    of ``csrc/histogram.cu``, CPU tensors run the plain version."""
+    n = time.shape[0]
+    _check_hist(
+        grad_state, None, time, mask, t0, bin_size, n_bins, object_id, n_detectors,
+        check_value=False,
+    )
+    if grad_state.device.type == "cpu":
+        return histogram_grad_plain(
+            grad_state, time, mask, t0, bin_size, n_bins, object_id, n_detectors
+        )
+    if grad_state.device.type != "cuda":
+        raise ValueError(f"histogram_grad: unsupported device {grad_state.device}")
+    grad_value = torch.empty(n, dtype=torch.float32, device=grad_state.device)
+    err = _build.library().theia_histogram_grad(
+        grad_state.data_ptr(), time.data_ptr(), mask.data_ptr(),
+        object_id.data_ptr() if n_detectors is not None else None,
+        t0.data_ptr(), bin_size.data_ptr(), n, n_bins, n_detectors or 0,
+        grad_value.data_ptr(), _build.stream_handle(grad_state.device),
+    )
+    _build.check(err, "histogram_grad")
+    histogram_grad.launches += 1
+    return grad_value
+
+
+histogram_grad.launches = 0
 
 
 class HistogramHitResponse(HitResponse):

@@ -7,10 +7,11 @@ selected by a ``detectorId`` per instance, and hits are reported in
 object space. A :class:`Scene` packs into a :class:`ScenePack` of tensors
 on one device: per-triangle reconstruction rows (``tri_data``), per-
 instance rows (``inst_data``), the media tables and the tables of the
-nearest-hit kernel (``mt``).
+nearest-hit kernel (``mt`` or ``woop``).
 
-Only ``accel="mt"`` is ported so far; the brute-force scan with its
-shadow split and culling tables is the next item of ROADMAP.md.
+Only ``accel="mt"`` and ``accel="woop"`` are ported so far; the
+brute-force scan with its shadow split and culling tables is the next
+item of ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from . import units as u
 from .material import MaterialStore, MediumStore
 from .mesh import Mesh
 from .ops.intersect_mt import MTPack, morton_order, pack_mt
+from .ops.intersect_woop import WoopPack, pack_woop
 
 __all__ = [
     "Transform",
@@ -167,8 +169,9 @@ class ScenePack:
     normals n0/n1/n2 (9:18), world v0/e1/e2 (18:27), instance id (27).
     ``inst_data`` (K, 32) f32 rows: world_to_obj 3x4 (0:12), obj_to_world
     3x4 (12:24), inside/outside medium handle (24, 25), inward/outward
-    flags (26, 27), detector id (28). Triangles are in the Morton order of
-    the ``mt`` tables."""
+    flags (26, 27), detector id (28). Triangles are in the Morton order
+    that the kernel tables index; exactly one of ``mt`` and ``woop`` is
+    set, by the scene's ``accel``."""
 
     tri_data: torch.Tensor
     inst_data: torch.Tensor
@@ -176,7 +179,8 @@ class ScenePack:
     medium: torch.Tensor  # i32 handle of the surrounding medium
     lower_bbox: torch.Tensor  # f32 (3,)
     upper_bbox: torch.Tensor
-    mt: MTPack
+    mt: MTPack | None = None
+    woop: WoopPack | None = None
 
 
 class Scene:
@@ -194,10 +198,10 @@ class Scene:
         accel: str = "auto",
         device,
     ) -> None:
-        if accel != "mt":
+        if accel not in ("mt", "woop"):
             raise NotImplementedError(
-                f"accel={accel!r} is not ported yet; only accel='mt' is "
-                "(ROADMAP.md: 'The brute-force flagship')"
+                f"accel={accel!r} is not ported yet; only accel='mt' and "
+                "accel='woop' are (ROADMAP.md: 'The brute-force flagship')"
             )
         self.instances = instances
         self.materials = materials
@@ -251,7 +255,8 @@ class Scene:
         # Morton-order triangles so each kernel tile is spatially tight
         perm = morton_order(cat["w_v0"], cat["w_e1"], cat["w_e2"])
         cat = {k: v[perm] for k, v in cat.items()}
-        mt = pack_mt(cat["w_v0"], cat["w_e1"], cat["w_e2"], device=self.device)
+        pack = pack_mt if self.accel == "mt" else pack_woop
+        tables = pack(cat["w_v0"], cat["w_e1"], cat["w_e2"], device=self.device)
 
         tri_data = np.zeros((len(cat["inst"]), 32), np.float32)
         for c0, key in enumerate(
@@ -270,5 +275,5 @@ class Scene:
             medium=dev(store.media.handle(self.medium), torch.int32),
             lower_bbox=dev(self.bbox.lowerCorner),
             upper_bbox=dev(self.bbox.upperCorner),
-            mt=mt,
+            **{self.accel: tables},
         )

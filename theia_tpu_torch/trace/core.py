@@ -17,7 +17,8 @@ import torch
 
 from ..component import Component
 from ..material import MediumConstants
-from ..ops.math3d import dot, matvec, normalize
+from ..ops.math3d import dot, matvec, normalize, perpendicular_to2
+from ..polarization import apply_rotation, rotation_coeffs
 
 __all__ = [
     "EventResultCode",
@@ -110,6 +111,15 @@ class TracerBase(Component):
     def streams(self) -> torch.Tensor:
         """Lane ids for one batch — always ``capacity`` wide (int32)."""
         return torch.arange(self.capacity, dtype=torch.int32, device=self.device)
+
+    def trace_fn(self):
+        """Return ``(fn, (params, counter, streams))`` with
+        ``fn(params, counter, streams) -> (response_state, callback_state)``,
+        the raw step of one batch with autograd left on, so a caller can
+        differentiate its result with respect to tensors it patched into
+        ``params`` (``theia_tpu``'s ``trace_fn`` for ``jax.grad``). Unlike
+        :meth:`run` it neither advances the RNG nor normalizes."""
+        return self._trace_batch, (self.params(), self.rng.counter_words, self.streams())
 
     def run(self, params=None, *, advance: bool = True):
         """Trace one batch; returns (response result, callback result).
@@ -264,7 +274,8 @@ def reattach_geometry(
 @dataclass(frozen=True)
 class HitItem:
     """Detector hit in object space
-    (reference: src/theia/shader/response.common.glsl:4-20)."""
+    (reference: src/theia/shader/response.common.glsl:4-20).
+    ``stokes``/``pol_ref`` present only in polarized mode."""
 
     position: torch.Tensor  # f32[N,3] object space
     direction: torch.Tensor  # f32[N,3] object space
@@ -273,6 +284,8 @@ class HitItem:
     time: torch.Tensor  # f32[N]
     contrib: torch.Tensor  # f32[N]
     object_id: torch.Tensor  # i32[N]
+    stokes: torch.Tensor | None = None  # f32[N,4] normalized
+    pol_ref: torch.Tensor | None = None  # f32[N,3] object space
 
 
 def create_hit(
@@ -281,9 +294,14 @@ def create_hit(
     obj_normal: torch.Tensor,
     object_id,
     world_to_obj: torch.Tensor | None = None,
+    pol: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> HitItem:
-    """Build a HitItem from the ray's current state, unpolarized
-    (reference: src/theia/shader/ray.response.glsl:18-92)."""
+    """Build a HitItem from the ray's current state
+    (reference: src/theia/shader/ray.response.glsl:18-92).
+
+    ``pol=(stokes, pol_ref)`` in world space enables the polarized variant:
+    the reference frame is transformed to object space, aligned to the
+    plane of incidence, and S0 is folded into the contribution."""
     if world_to_obj is None:
         obj_dir = ray.direction
     else:
@@ -292,12 +310,32 @@ def create_hit(
         torch.as_tensor(object_id, dtype=torch.int32, device=ray.wavelength.device),
         ray.wavelength.shape,
     )
+    contrib = ray.contrib
+    stokes = pol_ref = None
+    if pol is not None:
+        w_stokes, w_ref = pol
+        hit_pol_ref = perpendicular_to2(obj_dir, obj_normal)
+        if world_to_obj is None:
+            obj_pol_ref = w_ref
+        else:
+            obj_pol_ref = normalize(matvec(world_to_obj, w_ref))
+        c, s = rotation_coeffs(obj_dir, obj_pol_ref, hit_pol_ref)
+        stokes = apply_rotation(w_stokes, c, s)
+        s0 = stokes[..., 0]
+        contrib = contrib * s0
+        # the guard keeps a zero-intensity lane finite: 0/0 there would
+        # poison every gradient through the wavefront
+        safe = torch.where(s0 != 0.0, s0, 1.0)
+        stokes = stokes / safe[..., None]
+        pol_ref = hit_pol_ref
     return HitItem(
         position=obj_pos,
         direction=obj_dir,
         normal=obj_normal,
         wavelength=ray.wavelength,
         time=ray.time,
-        contrib=ray.contrib,
+        contrib=contrib,
         object_id=object_id,
+        stokes=stokes,
+        pol_ref=pol_ref,
     )

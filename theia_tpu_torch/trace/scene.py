@@ -1,6 +1,7 @@
 """Scene forward tracer: full geometry with Fresnel media boundaries.
 
-The port of ``theia_tpu.trace.scene.SceneForwardTracer``, unpolarized.
+The port of ``theia_tpu.trace.scene.SceneForwardTracer``, unpolarized or
+polarized (a Stokes vector and its reference frame ride with each ray).
 Per segment: exponential distance sampling, the target-guide free-shadow-
 ray extension, scene intersection with media-mismatch checks, surface
 interaction (Fresnel reflect/transmit/volume-border/black-body by
@@ -11,10 +12,13 @@ shader/scene.traverse.glsl).
 The responses are fused as in the JAX package's default: the free-
 extension shadow response rides on the main surface record, and the two
 MIS shadow rays go through one 2N-lane intersection and one record. The
-final segment is peeled: it never scatters, so it skips the MIS shadow
-and scatter blocks. The whole batch runs eagerly; the nearest-hit query,
-the Philox draws and the histogram record are hand-written CUDA kernels
-on a CUDA device.
+JAX package fuses only unpolarized runs; the port fuses polarized runs
+too, carrying each lane's Stokes vector through the fused records, which
+adds the same hits in another order (float32 rounding apart, the same
+histogram). The final segment is peeled: it never scatters, so it skips
+the MIS shadow and scatter blocks. The whole batch runs eagerly; the
+nearest-hit query, the Philox draws and the histogram record (and its
+backward) are hand-written CUDA kernels on a CUDA device.
 """
 
 from __future__ import annotations
@@ -30,8 +34,16 @@ from ..callback import EmptyEventCallback, TraceEventCallback
 from ..component import TraceConfig
 from ..light import LightSource, WavelengthSource
 from ..material import MaterialFlags, MediumConstants, lookup_packed, packed_medium_constants
-from ..ops.math3d import dot, normalize
+from ..ops.math3d import dot, local_frame, normalize
 from ..ops.sampling import scatter_dir
+from ..polarization import (
+    apply_phase_matrix,
+    apply_polarizer,
+    apply_rotation,
+    polarizer_coeffs,
+    rotate_pol_ref,
+    unpolarized_stokes,
+)
 from ..random import PhiloxRNG, RNGState
 from ..scene import Scene, ScenePack
 from ..target import TargetGuide
@@ -58,6 +70,39 @@ _NO_R_FWD = int(MaterialFlags.NO_REFLECT_FWD)
 _NO_T_FWD = int(MaterialFlags.NO_TRANSMIT_FWD)
 _VOLUME = int(MaterialFlags.VOLUME_BORDER)
 _LOG_INV_4PI = float(np.log(np.float32(1.0 / (4.0 * np.pi))))
+
+
+def _phase_matrix_packed(store, handle, cos_theta):
+    """(m12, m22, m33, m34) from the packed per-medium tables
+    (reference: polarization.glsl:88-107)."""
+    t = 0.5 * (cos_theta + 1.0)
+    return tuple(
+        lookup_packed(store.tables[k], store.sizes[k], handle, t, 0.0)
+        for k in ("phase_m12", "phase_m22", "phase_m33", "phase_m34")
+    )
+
+
+def _pol_scatter_packed(store, handle, direction, new_dir, pol):
+    """Rotate to the scattering plane and apply the phase matrix
+    (reference: ray.scatter.glsl:46-69)."""
+    stokes, pol_ref = pol
+    m12, m22, m33, m34 = _phase_matrix_packed(store, handle, dot(direction, new_dir))
+    new_ref, c, s = rotate_pol_ref(direction, pol_ref, new_dir)
+    stokes = apply_phase_matrix(apply_rotation(stokes, c, s), m12, m22, m33, m34)
+    return stokes, new_ref
+
+
+def _pol_align(direction, pol, hit_normal):
+    """Rotate the frame perpendicular to the plane of incidence
+    (reference: ray.propagate.glsl:187-201 alignRayToHit)."""
+    stokes, pol_ref = pol
+    new_ref, c, s = rotate_pol_ref(direction, pol_ref, hit_normal)
+    return apply_rotation(stokes, c, s), new_ref
+
+
+def _where_pol(mask, a, b):
+    """Per-lane select of two (stokes, pol_ref) pairs."""
+    return tuple(torch.where(mask[..., None], x, y) for x, y in zip(a, b))
 
 
 def _merge_dim(after: RNGState, before: RNGState, take_after) -> RNGState:
@@ -124,10 +169,6 @@ class SceneForwardTracer(TracerBase):
         polarized: bool = False,
         device,
     ) -> None:
-        if polarized:
-            raise NotImplementedError(
-                "the polarized scene tracer is not ported yet (ROADMAP.md)"
-            )
         if targetGuide is None:
             raise NotImplementedError(
                 "scene tracing without a target guide is not ported yet"
@@ -265,16 +306,26 @@ class SceneForwardTracer(TracerBase):
         return direction, pdf, log_p
 
     def _create_response_item(
-        self, ray: RayState, hit: SurfaceHit, r_s, r_p, absorb
+        self, ray: RayState, hit: SurfaceHit, r_s, r_p, n_i, n_t, absorb, pol=None
     ) -> tuple[HitItem, torch.Tensor]:
         """Build the detector HitItem, emulating transmission where the
         surface is not absorbing (reference: scene.traverse.glsl:31-69).
         Returns (item, contrib>0 mask)."""
         transmittance = 1.0 - 0.5 * (r_s * r_s + r_p * r_p)
         lin = torch.where(absorb, ray.lin_contrib, ray.lin_contrib * transmittance)
+        if pol is not None:
+            # align perpendicular to the plane of incidence, then apply the
+            # transmission polarizer for non-absorbing detectors
+            # (reference: ray.surface.glsl transmitRay polarized)
+            stokes, pol_ref = _pol_align(ray.direction, pol, hit.ray_nrm)
+            t_s = r_s + 1.0
+            t_p = (r_p + 1.0) * (n_i / n_t)
+            _, m12, m33 = polarizer_coeffs(t_p, t_s)
+            stokes = torch.where(absorb[..., None], stokes, apply_polarizer(stokes, m12, m33))
+            pol = (stokes, pol_ref)
         item = create_hit(
             replace(ray, lin_contrib=lin),
-            hit.obj_pos, hit.obj_nrm, hit.custom_id, hit.world_to_obj,
+            hit.obj_pos, hit.obj_nrm, hit.custom_id, hit.world_to_obj, pol=pol,
         )
         return item, item.contrib > 0.0
 
@@ -285,7 +336,7 @@ class SceneForwardTracer(TracerBase):
         # deterministic connection distance: reattach its gradient
         return reattach_geometry(new, dist), code
 
-    def _shadow_item(self, p, ray: RayState, hit: SurfaceHit, mask, prop):
+    def _shadow_item(self, p, ray: RayState, hit: SurfaceHit, mask, prop, pol=None):
         """processShadowRay's item half: the detector HitItem + validity
         for a (batched) shadow wavefront
         (reference: scene.traverse.glsl:160-183)."""
@@ -298,7 +349,9 @@ class SceneForwardTracer(TracerBase):
         ok = ok & (code >= 0)
         n_i, n_t, r_s, r_p = self._fresnel(pack, moved, hit)
         absorb = (hit.flags & _BLACK) != 0
-        item, pos_mask = self._create_response_item(moved, hit, r_s, r_p, absorb)
+        item, pos_mask = self._create_response_item(
+            moved, hit, r_s, r_p, n_i, n_t, absorb, pol=pol
+        )
         return item, ok & pos_mask
 
     def _sample_initial(self, p, pack, streams, rng):
@@ -319,7 +372,17 @@ class SceneForwardTracer(TracerBase):
             log_contrib=torch.zeros_like(lam),
             constants=constants,
         )
-        return ray, src_medium, rng
+        pol = None
+        if self.polarized:
+            # unpolarized sources get a frame from the local basis
+            # (reference: lightsource.common.glsl createSourceRay)
+            stokes = (
+                src.stokes if src.stokes is not None
+                else unpolarized_stokes(lam.shape, device=lam.device)
+            )
+            pol_ref = src.pol_ref if src.pol_ref is not None else local_frame(src.direction)[0]
+            pol = (stokes, pol_ref)
+        return ray, src_medium, pol, rng
 
     # -- one segment -----------------------------------------------------
 
@@ -329,7 +392,7 @@ class SceneForwardTracer(TracerBase):
         block would only add zeros and restore their RNG dims; they are
         skipped (reference: the loop's last iteration never scatters,
         tracer.scene.forward.glsl loop bound)."""
-        ray, medium, alive, allow_response, rng, resp_state, cb_state = carry
+        ray, medium, alive, allow_response, pol, rng, resp_state, cb_state = carry
         sg = lambda a: a.detach()
 
         # health check (reference: scene.traverse.glsl:288-290)
@@ -383,10 +446,19 @@ class SceneForwardTracer(TracerBase):
         target_id = p["tracer"]["targetId"]
         correct = (target_id < 0) | (hit.custom_id == target_id)
         respond = surf & allow_response & is_target & correct
+        # align the polarization frame perpendicular to the plane of
+        # incidence on surface lanes (alignRayToHit); uses the incident
+        # direction, so it comes before the new direction is chosen
+        if pol is not None:
+            pol = _where_pol(surf, _pol_align(ray.direction, pol, hit.ray_nrm), pol)
         # extension lanes respond with their propagated-to-hit state; the
-        # masks are disjoint (ext lanes left ``surf`` above)
+        # masks are disjoint (ext lanes left ``surf`` above). Their frame is
+        # the unaligned one, which the response item aligns, as the JAX
+        # package's separate extension response does
         resp_ray = _where_ray(ext_ok, ext_ray, ray)
-        item, pos_ok = self._create_response_item(resp_ray, hit, r_s, r_p, is_abs)
+        item, pos_ok = self._create_response_item(
+            resp_ray, hit, r_s, r_p, n_i, n_t, is_abs, pol=pol
+        )
         rec_mask = (respond | (ext_ok & is_target & correct)) & pos_ok
         resp_state, rng_a = self.response.record(p["response"], resp_state, item, rec_mask, rng)
         rng = _merge_dim(rng_a, rng, rec_mask)
@@ -444,6 +516,20 @@ class SceneForwardTracer(TracerBase):
             sel_reflect, ray.log_contrib + refl_corr,
             torch.where(sel_transmit, ray.log_contrib + trans_corr, ray.log_contrib),
         )
+        if pol is not None:
+            # Fresnel polarizers in the (already aligned) incidence frame;
+            # the reference frame itself is kept by both outcomes
+            # (reference: ray.surface.glsl reflectRay/transmitRay)
+            stokes, pol_ref = pol
+            _, m12_r, m33_r = polarizer_coeffs(r_p, r_s)
+            _, m12_t, m33_t = polarizer_coeffs((r_p + 1.0) * eta, r_s + 1.0)
+            stokes = torch.where(
+                sel_reflect[..., None], apply_polarizer(stokes, m12_r, m33_r),
+                torch.where(
+                    sel_transmit[..., None], apply_polarizer(stokes, m12_t, m33_t), stokes
+                ),
+            )
+            pol = (stokes, pol_ref)
         medium = new_medium
         new_c = packed_medium_constants(pack.media, medium, ray.wavelength)
         old_c = ray.constants
@@ -463,7 +549,9 @@ class SceneForwardTracer(TracerBase):
         # ---- processInteraction: volume scatter (miss) ----
         if not last:
             miss = pre_alive & in_bounds & ~hit.valid
-            resp_state, rng = self._mis_shadow(p, pack, prop, ray, medium, miss, rng, resp_state)
+            resp_state, rng = self._mis_shadow(
+                p, pack, prop, ray, medium, miss, pol, rng, resp_state
+            )
             # scatter the real ray
             rng_b = rng
             (su1, su2), rng = rng.uniform2d()
@@ -471,6 +559,10 @@ class SceneForwardTracer(TracerBase):
                 pack, medium, ray.direction, su1, su2
             )
             scat_corr = scat_log_p - sg(scat_log_p)
+            if pol is not None:
+                pol = _where_pol(
+                    miss, _pol_scatter_packed(pack.media, medium, ray.direction, scat_dir, pol), pol
+                )
             ray = replace(
                 ray,
                 direction=torch.where(miss[..., None], scat_dir, ray.direction),
@@ -497,12 +589,13 @@ class SceneForwardTracer(TracerBase):
         alive = pre_alive & (code >= 0) & ~absorbed_surf
         cb_state = self.callback.on_event(p["callback"], cb_state, ray, code, pre_alive, i + 1)
         allow_response = code != int(E.RAY_SCATTERED)
-        return ray, medium, alive, allow_response, rng, resp_state, cb_state
+        return ray, medium, alive, allow_response, pol, rng, resp_state, cb_state
 
-    def _mis_shadow(self, p, pack, prop, ray, medium, miss, rng, resp_state):
+    def _mis_shadow(self, p, pack, prop, ray, medium, miss, pol, rng, resp_state):
         """The two MIS shadow rays of a scatter vertex (phase sample and
         guide sample), traced as one 2N-lane query and recorded in one
-        call; the RNG dims advance only on ``miss`` lanes."""
+        call; the RNG dims advance only on ``miss`` lanes. Polarized, each
+        shadow ray carries the Stokes vector scattered into its direction."""
         sg = lambda a: a.detach()
         rng_b = rng
         (u1, u2), rng = rng.uniform2d()
@@ -543,7 +636,14 @@ class SceneForwardTracer(TracerBase):
             ]),
             constants=_cat_constants(ray.constants),
         )
-        item2, ok2 = self._shadow_item(p, shadow2, hit2, tile(miss), prop)
+        pol2 = None
+        if pol is not None:
+            halves = (
+                _pol_scatter_packed(pack.media, medium, ray.direction, d, pol)
+                for d in (dir_phase, guide_sample.direction)
+            )
+            pol2 = tuple(torch.cat(pair) for pair in zip(*halves))
+        item2, ok2 = self._shadow_item(p, shadow2, hit2, tile(miss), prop, pol=pol2)
         resp_state, _ = self.response.record(p["response"], resp_state, item2, ok2, rng)
         return resp_state, _merge_dim(rng, rng_b, miss)
 
@@ -553,7 +653,7 @@ class SceneForwardTracer(TracerBase):
         pack: ScenePack = p["scene"]
         prop = self._propagation(p)
         rng = self.rng.state_for(counter, streams)
-        ray, medium, rng = self._sample_initial(p, pack, streams, rng)
+        ray, medium, pol, rng = self._sample_initial(p, pack, streams, rng)
 
         resp_state = self.response.init(streams.device)
         cb_state = self.callback.init(streams.shape[0], self.maxPathLength + 2)
@@ -563,10 +663,10 @@ class SceneForwardTracer(TracerBase):
         )
         alive = active_lanes(streams, p) & ~ray.is_bad()
         allow_response = torch.ones_like(alive)
-        carry = (ray, medium, alive, allow_response, rng, resp_state, cb_state)
+        carry = (ray, medium, alive, allow_response, pol, rng, resp_state, cb_state)
         for i in range(self.maxPathLength):
             carry = self._segment(p, pack, prop, carry, i, i == self.maxPathLength - 1)
-        ray, medium, alive, allow_response, rng, resp_state, cb_state = carry
+        ray, medium, alive, allow_response, pol, rng, resp_state, cb_state = carry
         max_iter = torch.full_like(streams, int(EventResultCode.MAX_ITER))
         cb_state = self.callback.on_event(
             p["callback"], cb_state, ray, max_iter, alive, self.maxPathLength + 1
