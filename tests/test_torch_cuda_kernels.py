@@ -2,7 +2,9 @@
 
 These need a CUDA device and nvcc; without them they skip. On a machine
 with a card: ``python -m pytest tests/test_torch_cuda_kernels.py -m cuda``.
-``chip_smoke.py`` runs the same comparisons at the main path's shapes."""
+``chip_smoke.py`` runs the same comparisons at the main path's shapes and
+lends its helpers: run ``python -m pytest`` from the repository root, which
+puts ``chip_smoke.py`` on the path."""
 
 import numpy as np
 import pytest
@@ -130,3 +132,37 @@ def test_histogram_grad_kernel_bit_exact(cuda):
     want = histogram_grad_plain(grad_state, *args, bins, oid, det)
     got = histogram_grad(grad_state.to(cuda), *(a.to(cuda) for a in args), bins, oid.to(cuda), det)
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("name", ["nearest_triangle_mt", "nearest_triangle_mt_rows", "nearest_triangle_woop"])
+def test_nearest_kernels_on_hard_rays(cuda, name):
+    """The three nearest-hit entry points against their plain versions, bit
+    for bit, where a wrong rejection would show: adversarial rays (through
+    vertices, along edges, in a triangle's plane, off a surface, with NaN
+    and huge rays among them) and every query of one recorded flagship
+    batch (batch 8192, path length 4)."""
+    import chip_smoke
+    import theia_tpu_torch
+    from torch_flagship import adversarial_rays, build_flagship, icosphere
+
+    woop = name == "nearest_triangle_woop"
+    kw = dict(accel="woop", polarized=True) if woop else {}
+    tracer = build_flagship(theia_tpu_torch, icosphere(3), 8192, 4, device=cuda, **kw)
+    nearest = chip_smoke.Nearest(name, tracer.scene.pack)
+    rows = tracer.scene.pack.tri_data[:, 18:27].cpu().numpy()
+    o, d = adversarial_rays(rows[:, 0:3], rows[:, 3:6], rows[:, 6:9], seed=3, per_kind=256)
+    o[5], d[6], o[7] = np.nan, np.inf, 3e38
+    hard = (torch.as_tensor(o, device=cuda), torch.as_tensor(d, device=cuda),
+            torch.full((o.shape[0],), float("inf"), device=cuda))
+    before = nearest.kernel.launches
+    _, hits, _ = nearest.check(hard, "adversarial rays", on_cpu=True)
+    assert nearest.kernel.launches == before + 1 and hits > 0.5
+    queries = chip_smoke.record_queries(
+        tracer, ("nearest_triangle_woop" if woop else "nearest_triangle_mt_rows",)
+    )
+    assert len(queries) == 7
+    for q in queries:
+        nearest.check(q, "a recorded flagship query", on_cpu=False)
+        # with t_max at the hit, that hit no longer counts
+        t_hit = nearest.run(nearest.kernel, nearest.pack, q)[0]
+        nearest.check((q[0], q[1], t_hit.contiguous()), "t_max at the hit", on_cpu=False)

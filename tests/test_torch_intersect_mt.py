@@ -161,3 +161,35 @@ def test_mt_rows_plain(scenes):
     assert tmt.nearest_triangle_mt_rows.launches == 0
     with pytest.raises(ValueError):  # a table with fewer rows than triangles
         tmt.nearest_triangle_mt_rows(tp.mt, tp.tri_data[:100], o, d, tmax)
+
+
+@pytest.mark.parametrize("n_tri", [1, 255, 256, 257, 3840])
+def test_tri_aos_round_trip(scenes, n_tri):
+    """The kernel's table: rows of v0, e1, e2 equal to the JAX-layout
+    ``tri`` bit for bit, n = e1 x e2, a bounding sphere, finite slack
+    coefficients, whole chunks, and padding rows (all zero) that the exact test never hits."""
+    v0, e1, e2 = _soup(scenes[0], n_tri)
+    tp = tmt.pack_mt(v0, e1, e2, device="cpu")
+    jp = jmt.pack_mt(v0, e1, e2, None)
+    np.testing.assert_array_equal(np.asarray(jp.tri), tp.tri.numpy())
+    aos = tp.tri_aos
+    assert aos.shape == (-(-n_tri // tmt.CHUNK) * tmt.CHUNK, tmt.ROW_AOS) and aos.is_contiguous()
+    exact_cols = list(range(12, 20)) + [10]  # v0, e1, e2 xy, and e2 z
+    assert torch.equal(aos[:n_tri, exact_cols].T, tmt._rows(tp.tri, n_tri))
+    np.testing.assert_array_equal(aos[:n_tri, exact_cols].numpy(), np.concatenate([v0, e1, e2], axis=1))
+    np.testing.assert_allclose(
+        aos[:n_tri, 4:7].numpy(), np.cross(e1.astype(np.float64), e2.astype(np.float64)), rtol=1e-6, atol=1e-12
+    )
+    # the bounding sphere holds the three vertices, with room to spare
+    verts = np.stack([v0, v0 + e1, v0 + e2]).astype(np.float64)
+    dist2 = ((verts - aos[:n_tri, 0:3].numpy().astype(np.float64)) ** 2).sum(-1).max(0)
+    assert (aos[:n_tri, 3].numpy() >= 1.69 * dist2).all()
+    assert torch.isfinite(aos).all() and (aos[:n_tri, 7:10] > 0).all()
+    assert (aos[n_tri:] == 0).all() and (aos[:, 11] == 0).all()
+    o, d, _ = (torch.as_tensor(a) for a in _rays(256, 17, False))
+    _, hit = tmt._mt_exact_plain(aos[n_tri:, exact_cols].T, o, d)
+    assert not hit.any()
+    # the query reads tri, not tri_aos: a pack of n_tri triangles equals the
+    # first n_tri of a larger soup only through the same rows
+    t, i = tmt.nearest_triangle_mt(tp, o, d, torch.full((256,), torch.inf))
+    assert int(i.max()) < n_tri

@@ -165,3 +165,38 @@ def test_cpu_launches_no_kernel_and_checks_shapes(scenes):
         twoop.nearest_triangle_woop(tp.woop, o, torch.zeros(8, 3, dtype=torch.float64), 1.0)
     with pytest.raises(ValueError):
         twoop.nearest_triangle_woop(tp.woop, o.T, torch.zeros(3, 8).T, 1.0)
+
+
+@pytest.mark.parametrize("n_tri", [1, 255, 256, 257, 3840])
+def test_tri_aos_round_trip(scenes, n_tri):
+    """The kernel's table: rows of m and f equal to the JAX-layout ``b``
+    bit for bit, a bounding sphere and finite slack coefficients for real
+    triangles, an infinite one for degenerate ones, whole chunks, and padding rows (all
+    zero) that the exact test never hits."""
+    v0, e1, e2 = (a[:n_tri].copy() for a in _soup(scenes[0]))
+    if n_tri > 100:
+        e2[::97] = 2.0 * e1[::97]  # degenerate: m = 0, f = 3e38
+    tp = twoop.pack_woop(v0, e1, e2, device="cpu")
+    _assert_packs_equal(jwoop.pack_woop(v0, e1, e2), tp)
+    aos = tp.tri_aos
+    assert aos.shape == (-(-n_tri // tmt.CHUNK) * tmt.CHUNK, tmt.ROW_AOS) and aos.is_contiguous()
+    m = twoop._transforms(tp.b, n_tri)
+    rows = torch.cat([aos[:, 12:20], aos[:, 4:8]], dim=1)  # m_b1 f_b1 m_b2 f_b2 m_z f_z
+    assert torch.equal(rows[:n_tri].T, m)
+    degenerate = m[3] == np.float32(3e38)
+    assert degenerate.any() == (n_tri > 100)
+    assert torch.isfinite(aos[:n_tri][~degenerate]).all()
+    assert torch.isinf(aos[:n_tri, 9][degenerate]).all()
+    assert (aos[:n_tri, 8:10][~degenerate] > 0).all()
+    # the bounding sphere holds the three world vertices, with room to spare
+    # (it is built from the float32 map, which moves them by rounding only)
+    verts = np.stack([v0, v0 + e1, v0 + e2]).astype(np.float64)
+    dist2 = ((verts - aos[:n_tri, 0:3].numpy().astype(np.float64)) ** 2).sum(-1).max(0)
+    keep = ~degenerate.numpy()
+    assert (aos[:n_tri, 3].numpy()[keep] >= 2.79 * dist2[keep]).all()
+    assert (aos[n_tri:] == 0).all() and (aos[:, 10:12] == 0).all()
+    o, d, _ = (torch.as_tensor(a) for a in _rays(256, 17, False))
+    _, hit = twoop._woop_exact_plain(rows[n_tri:].T, o, d)
+    assert not hit.any()
+    _, hit = twoop._woop_exact_plain(m[:, degenerate], o, d)
+    assert not hit.any()

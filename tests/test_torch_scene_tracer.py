@@ -26,6 +26,7 @@ import jax
 
 import theia_tpu
 import theia_tpu_torch
+from theia_tpu_torch import accel
 from theia_tpu_torch.interop import params_from_numpy
 from torch_flagship import build_flagship, icosphere, numpy_tree
 
@@ -65,8 +66,24 @@ def runs():
     assert tt.nRNGSamples == jt.nRNGSamples
     tt._debug_rng = True
     tp = tt.params()
-    with torch.no_grad():
-        t_state, _, t_dims = tt._trace_batch(tp, tt.rng.counter_words, tt.streams())
+    # count the batch's calls of the two Moeller-Trumbore queries
+    calls = out["t_query_calls"] = {"nearest_triangle_mt": 0, "nearest_triangle_mt_rows": 0}
+
+    def counting(name, fn):
+        def wrapper(*args):
+            calls[name] += 1
+            return fn(*args)
+        return wrapper
+
+    saved = {name: getattr(accel, name) for name in calls}
+    for name, fn in saved.items():
+        setattr(accel, name, counting(name, fn))
+    try:
+        with torch.no_grad():
+            t_state, _, t_dims = tt._trace_batch(tp, tt.rng.counter_words, tt.streams())
+    finally:
+        for name, fn in saved.items():
+            setattr(accel, name, fn)
     out["t_hist"] = tt.response.result(tp["response"], t_state).numpy()
     out["t_dims"] = t_dims.numpy().astype(np.int64)
     tt._debug_rng = False
@@ -106,11 +123,34 @@ def test_params_from_numpy_bit_equal(runs):
 
 
 def test_cpu_run_launches_no_kernel(runs):
-    from theia_tpu_torch.ops.intersect_mt import nearest_triangle_mt
+    from theia_tpu_torch.ops.intersect_mt import nearest_triangle_mt, nearest_triangle_mt_rows
     from theia_tpu_torch.random import philox_uniform
     from theia_tpu_torch.response import histogram_add
 
-    assert nearest_triangle_mt.launches == philox_uniform.launches == histogram_add.launches == 0
+    assert nearest_triangle_mt.launches == nearest_triangle_mt_rows.launches == 0
+    assert philox_uniform.launches == histogram_add.launches == 0
+
+
+def test_mt_path_takes_rows_from_the_query(runs):
+    """Every query of the batch (10 primary, 9 shadow) goes through the
+    query that also returns the winners' rows, none through the other;
+    with tri_data being differentiated the torch gather takes over, and
+    both give the same hit."""
+    assert runs["t_query_calls"] == {"nearest_triangle_mt": 0, "nearest_triangle_mt_rows": 2 * MAX_PATH - 1}
+    tracer = build_flagship(theia_tpu_torch, icosphere(1), 64, 2, device="cpu")
+    pack = tracer.scene.pack
+    rng = np.random.default_rng(5)
+    o = torch.as_tensor(rng.uniform(-1, 4, (512, 3)).astype(np.float32))
+    d = torch.nn.functional.normalize(torch.as_tensor(rng.normal(size=(512, 3)).astype(np.float32)), dim=1)
+    medium = torch.zeros(512, dtype=torch.int32)
+    from_query = accel.intersect_scene(pack, medium, o, d, torch.inf)
+    import dataclasses
+
+    leaf = dataclasses.replace(pack, tri_data=pack.tri_data.clone().requires_grad_(True))
+    gathered = accel.intersect_scene(leaf, medium, o, d, torch.inf)
+    assert from_query.valid.any() and gathered.world_pos.requires_grad
+    for f in dataclasses.fields(from_query):
+        assert torch.equal(getattr(from_query, f.name), getattr(gathered, f.name).detach()), f.name
 
 
 def test_unported_configurations_raise():

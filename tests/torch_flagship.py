@@ -8,6 +8,8 @@ two BK7 shells around a spherical source plus one detector sphere, in
 water with Henyey-Greenstein g = 0.9, ``SphereTargetGuide`` MIS, a 100-bin
 ``HistogramHitResponse`` and ``PhiloxRNG(key=42)``. The sphere mesh is an
 icosphere built in code, so no mesh file is needed.
+:func:`adversarial_rays` makes rays on the boundaries of the nearest-hit
+tests from a soup's triangles.
 """
 
 from __future__ import annotations
@@ -124,6 +126,55 @@ def build_flagship(
         polarized=polarized,
         **dev,
     )
+
+
+def adversarial_rays(v0, e1, e2, seed, per_kind=96):
+    """Rays that sit on the rejection test's boundaries, from a soup's
+    world triangles: through vertices, through points on edges, along
+    edges, inside a triangle's plane, and from a surface point pushed off
+    by ``offset_ray`` (towards, away and along the surface)."""
+    import torch
+
+    from theia_tpu_torch.accel import offset_ray
+
+    rng = np.random.default_rng(seed)
+    v0, e1, e2 = (np.asarray(a, np.float64) for a in (v0, e1, e2))
+    n = np.cross(e1, e2)
+    n /= np.maximum(np.linalg.norm(n, axis=1, keepdims=True), 1e-30)
+    pick = lambda: rng.integers(0, v0.shape[0], per_kind)
+    eye = lambda k: rng.uniform(-1.0, 4.0, size=(k, 3))
+    o, d = [], []
+    # through a vertex, and through a point on an edge
+    for w1, w2 in ((0.0, 0.0), (1.0, 0.0), (0.0, 1.0), (0.5, 0.0), (0.0, 0.3), (0.6, 0.4)):
+        i = pick()
+        target = v0[i] + w1 * e1[i] + w2 * e2[i]
+        o.append(eye(per_kind))
+        d.append(target - o[-1])
+    # along an edge, starting before it, on it and beside it by an ulp or so
+    i = pick()
+    for shift in (0.0, 1e-7, -1e-7):
+        o.append(v0[i] - 0.5 * e1[i] + shift * n[i])
+        d.append(e1[i])
+    # inside the triangle's plane, crossing it and passing it by
+    i = pick()
+    inplane = e1[i] * rng.normal(size=(per_kind, 1)) + e2[i] * rng.normal(size=(per_kind, 1))
+    o.append(v0[i] + 0.3 * e1[i] + 0.3 * e2[i] - 5.0 * inplane)
+    d.append(inplane)
+    o.append(v0[i] + 4.0 * e1[i] - 5.0 * inplane)
+    d.append(inplane)
+    # from the surface after offset_ray, as the tracer's next segment starts
+    i = pick()
+    on = v0[i] + 0.25 * e1[i] + 0.25 * e2[i]
+    for sign in (1.0, -1.0):
+        pushed = offset_ray(
+            torch.as_tensor(on, dtype=torch.float32), torch.as_tensor(sign * n[i], dtype=torch.float32)
+        ).numpy()
+        for dirs in (rng.normal(size=(per_kind, 3)), -sign * n[i], e1[i] + 1e-4 * sign * n[i]):
+            o.append(pushed)
+            d.append(dirs)
+    o, d = np.concatenate(o), np.concatenate(d)
+    d /= np.maximum(np.linalg.norm(d, axis=1, keepdims=True), 1e-30)
+    return o.astype(np.float32), d.astype(np.float32)
 
 
 def numpy_tree(x):

@@ -24,13 +24,14 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["KernelLibrary", "library", "check", "stream_handle"]
+__all__ = ["KernelLibrary", "library", "build", "check", "stream_handle"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "theia_tpu_torch"
 SOURCES = ("intersect_mt.cu", "intersect_woop.cu", "philox.cu", "histogram.cu")
 #: -fmad=false: no contraction of a*b+c into FMAs, so every product and sum
-#: rounds exactly as the plain PyTorch versions' separate ops do
+#: rounds exactly as the plain PyTorch versions' separate ops do (explicit
+#: fmaf intrinsics, as in the nearest-hit kernels' rejection tests, stay)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-fmad=false",
@@ -42,8 +43,8 @@ _I = ctypes.c_int
 _U = ctypes.c_uint32
 #: argument types of each C entry point (pointers and the stream as void*)
 _SIGNATURES = {
-    "theia_mt_nearest": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
-    "theia_mt_nearest_rows": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P),
+    "theia_mt_nearest": (_P, _P, _P, _P, _P, _I, _I, _P, _P, _P),
+    "theia_mt_nearest_rows": (_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P),
     "theia_woop_nearest": (_P, _P, _P, _P, _P, _I, _I, _P, _P, _P),
     "theia_philox_uniform": (_U, _U, _U, _U, _U, _U, _P, _P, _I, _I, _P, _P),
     "theia_histogram_add": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
@@ -61,9 +62,9 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(CSRC.iterdir()):
+def _digest(csrc: Path, flags: tuple[str, ...]) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for path in sorted(csrc.iterdir()):
         if path.suffix in (".cu", ".cuh"):
             h.update(path.name.encode())
             h.update(path.read_bytes())
@@ -73,37 +74,52 @@ def _digest() -> str:
 class KernelLibrary:
     """The loaded shared library plus how it was obtained."""
 
-    def __init__(self, path: Path, build_seconds: float, build_log: str) -> None:
+    def __init__(self, path: Path, build_seconds: float, build_log: str, signatures: dict) -> None:
         self.path = path
         self.build_seconds = build_seconds
         self.build_log = build_log  # nvcc/ptxas report (registers, smem)
         self._lib = ctypes.CDLL(str(path))
-        for name, argtypes in _SIGNATURES.items():
+        self._names = frozenset(signatures)
+        for name, argtypes in signatures.items():
             fn = getattr(self._lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
 
     def __getattr__(self, name):
-        if name in _SIGNATURES:
+        if name in self._names:
             return getattr(self._lib, name)
         raise AttributeError(name)
 
 
-@functools.cache
 def library() -> KernelLibrary:
-    """Build (if needed) and load the kernel library; cached per process."""
-    out = BUILD_DIR / f"libtheia_kernels-{_digest()}.so"
+    """The package's kernel library, built at first use; cached per process."""
+    return build()
+
+
+@functools.cache
+def build(
+    csrc: Path = CSRC, defines: tuple[str, ...] = (), signatures: tuple | None = None
+) -> KernelLibrary:
+    """Build (if needed) and load the sources of ``csrc`` with extra
+    ``-D`` flags ``defines``; cached per process. Only measurement scripts
+    pass arguments: another count of rays a block of the nearest-hit scan
+    (``THEIA_RAYS_PER_THREAD``), or the sources of an
+    earlier commit with their ``signatures`` as ``(name, argtypes)``
+    pairs, to time it beside the current kernels."""
+    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+    sigs = dict(signatures) if signatures is not None else _SIGNATURES
+    out = BUILD_DIR / f"libtheia_kernels-{_digest(csrc, flags)}.so"
     if out.is_file():
-        return KernelLibrary(out, 0.0, "")
+        return KernelLibrary(out, 0.0, "", sigs)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc, tag = _nvcc(), f"{_digest()}.{os.getpid()}"
+    nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
     objs = [BUILD_DIR / f"{Path(src).stem}-{tag}.o" for src in SOURCES]
     start = time.perf_counter()
     # one nvcc per source, all running at once
     compiles = [
         (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
         for cmd in (
-            [nvcc, *NVCC_FLAGS, "-c", str(CSRC / src), "-o", str(obj)]
+            [nvcc, *flags, "-c", str(csrc / src), "-o", str(obj)]
             for src, obj in zip(SOURCES, objs)
         )
     ]
@@ -118,7 +134,7 @@ def library() -> KernelLibrary:
     for obj in objs:
         obj.unlink()
     os.replace(tmp, out)
-    return KernelLibrary(out, seconds, log)
+    return KernelLibrary(out, seconds, log, sigs)
 
 
 def _finish(cmd: list[str], output: str, returncode: int) -> str:

@@ -2,7 +2,9 @@
 
 The nearest-hit selection goes through the scene's acceleration tables
 (so far the Moeller-Trumbore kernel, ``accel="mt"``, or the Woop kernel,
-``accel="woop"``) on detached tensors. The winner is then rebuilt from
+``accel="woop"``) on detached tensors. On ``mt`` packs the query also
+returns each winner's ``tri_data`` row (the kernel copies it), unless
+``tri_data`` is being differentiated. The winner is then rebuilt from
 its two table rows in ordinary torch code — barycentrics, object-space position and normal, inward
 test, media-mismatch check, world position via object-to-world — the
 only part of intersection that autograd could differentiate, as with
@@ -16,7 +18,7 @@ from dataclasses import dataclass
 
 import torch
 
-from .ops.intersect_mt import nearest_triangle_mt
+from .ops.intersect_mt import nearest_triangle_mt, nearest_triangle_mt_rows
 from .ops.intersect_woop import nearest_triangle_woop
 from .ops.math3d import cross, dot, matvec, moeller_trumbore_rowwise, normalize, sign_bit, vec3
 from .scene import ScenePack
@@ -52,6 +54,12 @@ class SurfaceHit:
     error: torch.Tensor  # i32[N] media-mismatch error code or 0
 
 
+#: whether ``mt`` packs take the winners' rows from the query
+#: (:func:`nearest_triangle_mt_rows`) or gather them in torch; a switch
+#: for measuring one against the other, nothing else sets it
+MT_ROWS_FROM_QUERY = True
+
+
 def offset_ray(p: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     """Self-intersection-safe offset of position ``p`` along normal ``n``
     ("Ray Tracing Gems" ch. 6; reference: ray.surface.glsl:22-36)."""
@@ -76,26 +84,26 @@ def intersect_scene(
     t_max = torch.as_tensor(t_max, dtype=torch.float32, device=origin.device)
     # (t, tri_data row) per lane, t=inf / row=-1 on miss; the Pallas-ported
     # backends share this contract (theia_tpu/accel.py:537-544)
-    if pack.mt is not None:
-        nearest, tables = nearest_triangle_mt, pack.mt
-    else:
-        nearest, tables = nearest_triangle_woop, pack.woop
-    t_sel, tri = nearest(
-        tables,
-        origin.detach().contiguous(),
-        direction.detach().contiguous(),
-        t_max.detach(),
-    )
-    return _reconstruct_hit(pack, medium_handle, origin, direction, t_sel, tri)
+    rays = (origin.detach().contiguous(), direction.detach().contiguous(), t_max.detach())
+    row = None
+    if pack.mt is None:
+        t_sel, tri = nearest_triangle_woop(pack.woop, *rays)
+    elif MT_ROWS_FROM_QUERY and not pack.tri_data.requires_grad:
+        t_sel, tri, row = nearest_triangle_mt_rows(pack.mt, pack.tri_data, *rays)
+    else:  # the query's rows carry no graph
+        t_sel, tri = nearest_triangle_mt(pack.mt, *rays)
+    return _reconstruct_hit(pack, medium_handle, origin, direction, t_sel, tri, row)
 
 
 def _reconstruct_hit(
-    pack: ScenePack, medium_handle, origin, direction, t_sel, tri
+    pack: ScenePack, medium_handle, origin, direction, t_sel, tri, row=None
 ) -> SurfaceHit:
     """Rebuild the full SurfaceHit for per-lane winning triangles ``tri``
-    (``tri_data`` rows, -1 on miss)."""
+    (``tri_data`` rows, -1 on miss); ``row`` is ``tri_data[max(tri, 0)]``
+    (N, 32) where the query already fetched it."""
     valid = tri >= 0
-    row = pack.tri_data[torch.clamp_min(tri, 0)]  # (N, 32)
+    if row is None:
+        row = pack.tri_data[torch.clamp_min(tri, 0)]  # (N, 32)
     o_v0, o_e1, o_e2 = row[:, 0:3], row[:, 3:6], row[:, 6:9]
     n0, n1, n2 = row[:, 9:12], row[:, 12:15], row[:, 15:18]
     wv0, we1, we2 = row[:, 18:21], row[:, 21:24], row[:, 24:27]

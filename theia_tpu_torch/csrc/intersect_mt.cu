@@ -1,5 +1,5 @@
-// Moeller-Trumbore nearest hit over a triangle soup, one thread per ray,
-// optionally with each winner's table row.
+// Moeller-Trumbore nearest hit over a triangle soup, optionally with each
+// winner's table row.
 //
 // Replaces theia_tpu/ops/intersect_mt_pallas.py (_call -> _kernel, with
 // the helpers rcp/safe/select_winner of ops/_intersect_tiles.py): the same
@@ -8,194 +8,148 @@
 // tolerance +-1e-6, t > 0, and a strict t < t_running update so a hit must
 // be closer than t_max and the lowest index wins ties. The kRows variant
 // also replaces tools/exp_mt_fused.py (_call_rows -> _kernel_rows): after
-// the scan it writes table[max(idx, 0)], one 32-float row per ray.
+// the scan it writes table[max(idx, 0)], one 32-float row per ray. kRows
+// is a template flag: the scan is one body for both variants.
 //
-// What bounds it on an H100: FP32 ALU issue. Each (ray, triangle) pair is
-// ~35 dependent multiplies/adds and one reciprocal; the triangle operands
-// are shared by every ray, so memory traffic is negligible. The file is
-// built with -fmad=false so the products and sums round exactly like the
-// plain PyTorch version's separate ops (bit-equal t and idx); that gives
-// up the FMA's 2x issue rate, a trade for exactness that a later kernel
-// may revisit. The row copy adds 128 bytes written and read per ray, a
-// gather from an L2-resident table (3840 rows = 480 KB for the flagship).
+// What bounds it on an H100: FP32 issue (see csrc/nearest_scan.cuh, which
+// holds the scan, the design notes and the bounding-sphere test that every
+// needed pair runs first). That test costs 27 flop a pair in ~21
+// instructions; the 1.03e8 pairs that 262,144 random rays need of the
+// flagship's 3840 triangles (a tenth of all pairs) make 0.042 ms at the
+// published 67 TFLOP/s. The row copy adds 128 bytes written and read per
+// ray, from an L2-resident table.
 //
-// Design: a block of 256 rays keeps each ray's (t, idx) in registers and
-// walks the triangles in chunks of 256 (kChunk, equal to CHUNK in
-// ops/intersect_mt.py). A ray tests a chunk only if its segment [0, t)
-// enters the chunk's widened box (chunk_box, built on the host side); a
-// block loads a chunk into shared memory (9 x 256 floats) only if one of
-// its rays needs it, and then every thread reads the same shared word, a
-// broadcast without bank conflicts. This is the port's form of the TPU
-// kernel's per-(ray block, tile) AABB skip: the box margin is far above
-// rounding, so a skip never drops a hit, and the plain version skips with
-// the same float32 arithmetic. Padding triangles (index >= n_tri) are not
-// visited, as they can never hit. With kRows the winners' indices go
-// through shared memory and the block copies its 256 rows together, 32
-// threads to a row, so every load and store is one coalesced 128-byte
-// line instead of one thread walking a row on its own. kRows is a template
-// flag: the scan is one body for both variants.
+// The table row (tri_aos of MTPack, 20 floats):
+//   c xyz, r2 | n xyz, alpha | beta_w, beta, e2 z, 0 | v0 xyz, e1 x |
+//   e1 yz, e2 xy
+// c is the centroid, r2 = 1.7 R0^2 with R0 the largest distance from c to
+// a vertex, n = e1 x e2 (float64, rounded to float32), and
+//   alpha = E1 + E2 + E1*E2,  beta = 3*E1*E2 + 1e-30,
+//   beta_w = beta + 1.75*R0*alpha,   E1 = max|e1_k|, E2 = max|e2_k|
+// (beta = beta_w = inf for a triangle with a coordinate of 1e9 or more).
+//
+// reject(): exact() accepts only if b1 = U/det, b2 = V/det and t = W/det,
+// as it rounds them, satisfy b1, b2 >= -1e-6, b1 + b2 <= 1 + 1e-6, t > 0,
+// with T = o - v0 and the triple products
+//   U = T.(d x e2) = e2.(T x d)      V = d.(T x e1) = -e1.(T x d)
+//   det = e1.(d x e2) = -d.n         W = e2.(T x e1) = T.n.
+// reject() forms the right-hand sides (one cross product and four dot
+// products in fmaf) and tests the same inequalities multiplied through by
+// |det|, with s = sign(det):
+//   s*U >= -lo,  s*V >= -lo,  s*(U + V) <= |det| + lo,
+//   s*W >= -S unless |det| <= S,       lo = 4e-6*|det| + S.
+// The slack S bounds the rounding that separates the two evaluations. Both
+// approximate the same real number (T is one rounded subtraction, the
+// same in both); a dot of cross products of float32 values carries an
+// error of at most 5.1u times the sum of the absolute values of its
+// terms (u = 2^-24), the rounded n adds 1u, and those sums are at most
+//   2 * |T|_1 * dmax * E   (U with E2, V with E1),   2 * |T|_1 * E1 * E2   (W),
+//   6 * dmax * E1 * E2   (det),              dmax = max|d_k|.
+// Adding both evaluations: eps_U <= 21u |T|_1 dmax E2, eps_V <= 21u |T|_1
+// dmax E1, eps_W <= 19u |T|_1 E1 E2, eps_det <= 56u dmax E1 E2. The
+// reciprocal and the products by it add a relative 5u, covered by testing
+// against 4e-6 |det| where exact() tests against 1e-6. If the two
+// evaluations disagree on sign(det), both |det| are below eps_det, an
+// accepted pair has |U|, |V| <= 1.1 eps_det, and the tests hold with
+// S >= eps_U + eps_V + 5 eps_det; the W test is skipped there. So
+//   S = 2^-17 * max(dmax, 1) * (|T|_1 * alpha + beta)
+// (128u, at least twice what the bounds ask) never rejects a pair that
+// exact() accepts. The sums of absolute values are bounded through norms
+// rather than carried, which costs 4 instructions a pair instead of ~12;
+// S stays far below |det| except for grazing rays, which is where the
+// exact test has to decide anyway. NaN fails every comparison and an
+// infinite S (wild rays, huge triangles) passes them all, so both go to
+// exact(). Padding rows are not visited (index >= n_tri). guard() is 4 S
+// with |T|_1 replaced by its bound |w|_1 + sqrt(3) R0 (w = c - o), for
+// the bounding-sphere test.
 
-#include <cuda_runtime.h>
-#include <math_constants.h>
+#include "nearest_scan.cuh"
 
 namespace {
 
-constexpr int kRaysPerBlock = 256;
-constexpr int kChunk = 256;  // triangles per skip chunk / shared-memory pass
+using theia::Ray;
 
-__device__ __forceinline__ float rcp_newton(float v) {
-  const float r = __frcp_rn(v);
-  return r * (2.0f - v * r);
-}
-
-// keep the reciprocal finite, preserving the sign (ops/_intersect_tiles.py:43)
-__device__ __forceinline__ float safe(float v) {
-  return fabsf(v) < 1e-20f ? (v < 0.0f ? -1e-20f : 1e-20f) : v;
-}
-
-// can the segment [0, best_t) of ray (o, 1/d) enter the box lo/hi?
-__device__ __forceinline__ bool slab_hit(const float* __restrict__ box,
-                                         float ox, float oy, float oz,
-                                         float ix, float iy, float iz,
-                                         float best_t) {
-  const float t1x = (box[0] - ox) * ix, t2x = (box[4] - ox) * ix;
-  const float t1y = (box[1] - oy) * iy, t2y = (box[5] - oy) * iy;
-  const float t1z = (box[2] - oz) * iz, t2z = (box[6] - oz) * iz;
-  const float tn = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)),
-                         fmaxf(fminf(t1z, t2z), 0.0f));
-  const float tf = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)),
-                         fmaxf(t1z, t2z));
-  return tn <= tf && tn < best_t;
-}
-
-constexpr int kRowWidth = 32;  // floats per table row (tri_data)
-
-template <bool kRows>
-__global__ void __launch_bounds__(kRaysPerBlock) mt_nearest(
-    const float* __restrict__ origin, const float* __restrict__ direction,
-    const float* __restrict__ t_max, const float* __restrict__ tri,
-    const float* __restrict__ chunk_box, int n_rays, int n_tri, int bt,
-    const float* __restrict__ table, float* __restrict__ t_out,
-    int* __restrict__ idx_out, float* __restrict__ rows_out) {
-  __shared__ float s_tri[9][kChunk];
-  const int ray = blockIdx.x * kRaysPerBlock + threadIdx.x;
-  const bool live = ray < n_rays;
-  float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f;
-  float best_t = 0.0f;
-  int best_i = -1;
-  if (live) {
-    ox = origin[3 * ray + 0];
-    oy = origin[3 * ray + 1];
-    oz = origin[3 * ray + 2];
-    dx = direction[3 * ray + 0];
-    dy = direction[3 * ray + 1];
-    dz = direction[3 * ray + 2];
-    best_t = t_max[ray];
+struct MollerTrumbore {
+  static __device__ __forceinline__ float guard(const Ray& r,
+                                                const float4 (&h)[3], float w1) {
+    return (4.0f * r.kd) * __fmaf_rn(w1, h[1].w, h[2].x);
   }
-  const float ix = rcp_newton(safe(dx));
-  const float iy = rcp_newton(safe(dy));
-  const float iz = rcp_newton(safe(dz));
-  for (int base = 0; base < n_tri; base += kChunk) {
-    const bool cand = live && slab_hit(chunk_box + 8 * (base / kChunk), ox, oy,
-                                       oz, ix, iy, iz, best_t);
-    // uniform branch: every thread of the block takes the same way
-    if (!__syncthreads_or(cand)) continue;
-    const int count = min(kChunk, n_tri - base);
-    // tri is (T_tiles, 9, bt): row r of triangle g sits at
-    // [(g / bt) * 9 + r] * bt + g % bt
-    for (int k = threadIdx.x; k < 9 * kChunk; k += kRaysPerBlock) {
-      const int row = k / kChunk;
-      const int col = k - row * kChunk;
-      if (col < count) {
-        const int g = base + col;
-        const int tile = g / bt;
-        s_tri[row][col] = tri[((size_t)tile * 9 + row) * bt + (g - tile * bt)];
-      }
-    }
-    __syncthreads();
-    if (cand) {
-#pragma unroll 4
-      for (int j = 0; j < count; ++j) {
-        const float v0x = s_tri[0][j], v0y = s_tri[1][j], v0z = s_tri[2][j];
-        const float e1x = s_tri[3][j], e1y = s_tri[4][j], e1z = s_tri[5][j];
-        const float e2x = s_tri[6][j], e2y = s_tri[7][j], e2z = s_tri[8][j];
-        const float px = dy * e2z - dz * e2y;
-        const float py = dz * e2x - dx * e2z;
-        const float pz = dx * e2y - dy * e2x;
-        const float det = e1x * px + e1y * py + e1z * pz;
-        const float inv = fabsf(det) > 1e-12f ? rcp_newton(safe(det)) : 0.0f;
-        const float tx = ox - v0x;
-        const float ty = oy - v0y;
-        const float tz = oz - v0z;
-        const float b1 = (tx * px + ty * py + tz * pz) * inv;
-        const float qx = ty * e1z - tz * e1y;
-        const float qy = tz * e1x - tx * e1z;
-        const float qz = tx * e1y - ty * e1x;
-        const float b2 = (dx * qx + dy * qy + dz * qz) * inv;
-        const float t = (e2x * qx + e2y * qy + e2z * qz) * inv;
-        // 1.000001f is float32(1.0 + 1e-6), the bound the JAX kernel uses
-        const bool hit = inv != 0.0f && b1 >= -1e-6f && b2 >= -1e-6f &&
-                         b1 + b2 <= 1.000001f && t > 0.0f;
-        if (hit && t < best_t) {
-          best_t = t;
-          best_i = base + j;
-        }
-      }
-    }
-    __syncthreads();
-  }
-  if (live) {
-    t_out[ray] = best_i < 0 ? CUDART_INF_F : best_t;
-    idx_out[ray] = best_i;
-  }
-  if constexpr (kRows) {
-    __shared__ int s_row[kRaysPerBlock];
-    s_row[threadIdx.x] = max(best_i, 0);
-    __syncthreads();
-    const int first = blockIdx.x * kRaysPerBlock;
-    const int n_here = min(kRaysPerBlock, n_rays - first);
-    for (int k = threadIdx.x; k < n_here * kRowWidth; k += kRaysPerBlock) {
-      const int r = k / kRowWidth;
-      const int col = k - r * kRowWidth;
-      rows_out[(size_t)(first + r) * kRowWidth + col] =
-          table[(size_t)s_row[r] * kRowWidth + col];
-    }
-  }
-}
 
-template <bool kRows>
-int launch(const float* origin, const float* direction, const float* t_max,
-           const float* tri, const float* chunk_box, int n_rays, int n_tri,
-           int bt, const float* table, float* t_out, int* idx_out,
-           float* rows_out, cudaStream_t stream) {
-  if (n_rays > 0) {
-    const int blocks = (n_rays + kRaysPerBlock - 1) / kRaysPerBlock;
-    mt_nearest<kRows><<<blocks, kRaysPerBlock, 0, stream>>>(
-        origin, direction, t_max, tri, chunk_box, n_rays, n_tri, bt, table,
-        t_out, idx_out, rows_out);
+  static __device__ __forceinline__ bool reject(const Ray& r,
+                                                const float4 (&w)[5]) {
+    const float e1x = w[3].w, e1y = w[4].x, e1z = w[4].y;
+    const float e2x = w[4].z, e2y = w[4].w, e2z = w[2].z;
+    const float nx = w[1].x, ny = w[1].y, nz = w[1].z;
+    const float tx = r.ox - w[3].x, ty = r.oy - w[3].y, tz = r.oz - w[3].z;
+    // c = T x d
+    const float cx = __fmaf_rn(ty, r.dz, -(tz * r.dy));
+    const float cy = __fmaf_rn(tz, r.dx, -(tx * r.dz));
+    const float cz = __fmaf_rn(tx, r.dy, -(ty * r.dx));
+    const float u = __fmaf_rn(e2z, cz, __fmaf_rn(e2y, cy, e2x * cx));
+    // vn = -V and dn = -det: the signs go into the flips below
+    const float vn = __fmaf_rn(e1z, cz, __fmaf_rn(e1y, cy, e1x * cx));
+    const float dn = __fmaf_rn(r.dz, nz, __fmaf_rn(r.dy, ny, r.dx * nx));
+    const float ww = __fmaf_rn(tz, nz, __fmaf_rn(ty, ny, tx * nx));
+    const float t1 = fabsf(tx) + fabsf(ty) + fabsf(tz);
+    const float s = r.kd * __fmaf_rn(t1, w[1].w, w[2].y);
+    const float adet = fabsf(dn);
+    const float lo = __fmaf_rn(adet, 4e-6f, s);
+    const unsigned neg = __float_as_uint(dn) & 0x80000000u;  // set where det > 0
+    const unsigned pos = neg ^ 0x80000000u;                  // set where det < 0
+    const float su = theia::flip(u, pos), sv = theia::flip(vn, neg);
+    return theia::rejected(su, sv, theia::flip(ww, pos), adet, lo, s);
   }
-  return static_cast<int>(cudaGetLastError());
-}
+
+  // the test of the first kernel, in its operation order (the contract
+  // with nearest_triangle_mt_plain); separate multiplies and adds
+  static __device__ __forceinline__ bool exact(const Ray& r,
+                                               const float4 (&w)[5], float& t) {
+    const float v0x = w[3].x, v0y = w[3].y, v0z = w[3].z;
+    const float e1x = w[3].w, e1y = w[4].x, e1z = w[4].y;
+    const float e2x = w[4].z, e2y = w[4].w, e2z = w[2].z;
+    const float px = r.dy * e2z - r.dz * e2y;
+    const float py = r.dz * e2x - r.dx * e2z;
+    const float pz = r.dx * e2y - r.dy * e2x;
+    const float det = e1x * px + e1y * py + e1z * pz;
+    const float inv =
+        fabsf(det) > 1e-12f ? theia::rcp_newton(theia::safe(det)) : 0.0f;
+    const float tx = r.ox - v0x;
+    const float ty = r.oy - v0y;
+    const float tz = r.oz - v0z;
+    const float b1 = (tx * px + ty * py + tz * pz) * inv;
+    const float qx = ty * e1z - tz * e1y;
+    const float qy = tz * e1x - tx * e1z;
+    const float qz = tx * e1y - ty * e1x;
+    const float b2 = (r.dx * qx + r.dy * qy + r.dz * qz) * inv;
+    t = (e2x * qx + e2y * qy + e2z * qz) * inv;
+    // 1.000001f is float32(1.0 + 1e-6), the bound the JAX kernel uses
+    return inv != 0.0f && b1 >= -1e-6f && b2 >= -1e-6f &&
+           b1 + b2 <= 1.000001f && t > 0.0f;
+  }
+};
 
 }  // namespace
 
+// aos: f32 (n_chunks * 256, 20), MTPack.tri_aos
 extern "C" int theia_mt_nearest(const float* origin, const float* direction,
-                                const float* t_max, const float* tri,
+                                const float* t_max, const float* aos,
                                 const float* chunk_box, int n_rays, int n_tri,
-                                int bt, float* t_out, int* idx_out,
+                                float* t_out, int* idx_out,
                                 cudaStream_t stream) {
-  return launch<false>(origin, direction, t_max, tri, chunk_box, n_rays,
-                       n_tri, bt, nullptr, t_out, idx_out, nullptr, stream);
+  return theia::launch_scan<MollerTrumbore, false>(
+      origin, direction, t_max, aos, chunk_box, n_rays, n_tri, nullptr, t_out,
+      idx_out, nullptr, stream);
 }
 
 // table: f32 (rows >= n_tri, 32); rows_out: f32 (n_rays, 32)
 extern "C" int theia_mt_nearest_rows(const float* origin,
                                      const float* direction,
-                                     const float* t_max, const float* tri,
+                                     const float* t_max, const float* aos,
                                      const float* chunk_box, int n_rays,
-                                     int n_tri, int bt, const float* table,
+                                     int n_tri, const float* table,
                                      float* t_out, int* idx_out,
                                      float* rows_out, cudaStream_t stream) {
-  return launch<true>(origin, direction, t_max, tri, chunk_box, n_rays, n_tri,
-                      bt, table, t_out, idx_out, rows_out, stream);
+  return theia::launch_scan<MollerTrumbore, true>(
+      origin, direction, t_max, aos, chunk_box, n_rays, n_tri, table, t_out,
+      idx_out, rows_out, stream);
 }

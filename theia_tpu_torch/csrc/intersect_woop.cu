@@ -1,4 +1,4 @@
-// Woop unit-triangle nearest hit over a triangle soup, one thread per ray.
+// Woop unit-triangle nearest hit over a triangle soup.
 //
 // Replaces theia_tpu/ops/intersect_woop.py (_call -> _kernel, with the
 // helpers rcp/safe/block_slab_hit/select_winner of ops/_intersect_tiles.py).
@@ -10,7 +10,7 @@
 // b1 + b2 <= 1 + 1e-6; a hit counts only if strictly closer than the
 // running t (which starts at t_max), so the lowest index wins ties.
 //
-// Summation order, the contract with the plain version
+// Summation order of exact(), the contract with the plain version
 // (nearest_triangle_woop_plain in ops/intersect_woop.py):
 //   o'_c = ((o_x * m_c0 + o_y * m_c1) + o_z * m_c2) + f_c
 //   d'_c = (d_x * m_c0 + d_y * m_c1) + d_z * m_c2
@@ -19,148 +19,126 @@
 // zeros (d against the o' columns, o and 1 against the d' columns, and the
 // trailing 0), which add nothing to a finite sum. The plain version leaves
 // out the same terms. rcp is __frcp_rn plus one Newton step r*(2-v*r), as
-// in kernel 1 (csrc/intersect_mt.cu); the file is built with -fmad=false,
-// so every product and sum rounds like the plain version's separate ops
+// in csrc/intersect_mt.cu; the file is built with -fmad=false, so every
+// product and sum of exact() rounds like the plain version's separate ops
 // and t and idx are bit-equal. Padding and degenerate triangles have m = 0
 // and f = 3e38: there d'_z = 0, rcp gives inf, the Newton step NaN, and
 // t > 0 is false in both versions. Padding past n_tri is not visited.
 //
-// What bounds it on an H100: FP32 ALU issue, ~25 dependent multiplies and
-// adds and one reciprocal per (ray, triangle) pair (against ~35 for
-// Moeller-Trumbore); the 12 transform floats of a triangle are shared by
-// every ray, so memory traffic is negligible. The TPU kernel puts the
-// transform on the MXU at precision "highest" (f32-exact); tensor cores in
-// TF32 fall short of that, so this kernel stays on the FP32 pipes.
+// What bounds it on an H100: FP32 issue (see csrc/nearest_scan.cuh, which
+// holds the scan, the design notes and the bounding-sphere test that every
+// needed pair runs first). That test costs 25 flop a pair in ~20
+// instructions; the 1.02e8 pairs that 262,144 random rays need of the
+// flagship's 3840 triangles (a tenth of all pairs) make 0.039 ms at the
+// published 67 TFLOP/s.
 //
-// Design: a block of 256 rays keeps each ray's (t, idx) in registers and
-// walks the triangles in chunks of 256 (kChunk, equal to CHUNK in
-// ops/intersect_mt.py). A ray tests a chunk only if its segment [0, t)
-// enters the chunk's widened box (chunk_box, the same boxes as kernel 1,
-// derived from the world triangles); a block stages a chunk's transforms
-// (12 x 256 floats) in shared memory only if one of its rays needs it, and
-// every thread then reads the same shared word, a broadcast.
+// Set aside: o' and d' on the tensor cores, as the TPU forms them on its
+// matrix unit. The product has depth 4 in real terms (8 with the
+// structural zeros), TF32 keeps 10 mantissa bits where the TPU kernel
+// asks for precision "highest" (float32-exact), and a 3xTF32 split sums in
+// another order than the plain version, so it is not bit-equal to it.
+//
+// The table row (tri_aos of WoopPack, 20 floats):
+//   c xyz, r2 | m_z (3), f_z | P, Q, 0, 0 | m_b1 (3), f_b1 | m_b2 (3), f_b2
+// The float32 map (m, f) defines the triangle that exact() tests: its
+// vertices are the preimages of (0,0), (1,0), (0,1) at z = 0 (float64
+// inverse of m); c is their centroid, r2 = 2.8 R0^2 with R0 the largest
+// distance from c to one of them, and with M_c = |m_c|_1, F_c = |f_c|
+//   P = 2 M_z (M_1 + M_2) + M_z
+//   Q = M_z (F_1 + F_2) + F_z (M_1 + M_2) + M_z + F_z + 1e-30
+// (Q = inf for padding, degenerate and huge triangles: |m| or |f| >= 1e9).
+//
+// reject(): exact()'s inequalities multiplied through by |d'_z|, with
+// s = sign(d'_z), U = o'_1 d'_z - o'_z d'_1, V = o'_2 d'_z - o'_z d'_2:
+//   s*U >= -lo,  s*V >= -lo,  s*(U + V) <= |d'_z| + lo,
+//   -s*o'_z >= -S unless |d'_z| <= S,     lo = 4e-6*|d'_z| + S.
+// o' and d' are formed in fmaf here and in separate operations in
+// exact(); each carries an error of at most 4.1u A_c (o') or 3.1u D_c (d')
+// with u = 2^-24, A_c = sum|o_k m_ck| + |f_c| <= omax M_c + F_c and
+// D_c = sum|d_k m_ck| <= dmax M_c. Carrying both errors, exact()'s
+// reciprocal (relative 5u) and the rounding of U and V through the
+// products gives eps_U <= 23u (A_1 D_z + A_z D_1), likewise eps_V,
+// eps_o'z <= 8.2u A_z and eps_d'z <= 6.2u D_z; where the two evaluations
+// disagree on sign(d'_z), both |d'_z| are below eps_d'z, an accepted pair
+// has |U|, |V| below 1.1 eps_d'z + 6.1u A_z D_c, and the o'_z test is
+// skipped. All of it is below
+//   S = 2^-17 * max(dmax, 1) * (omax * P + Q)
+// (128u against the 23u the bounds ask), so reject() never rejects a pair
+// that exact() accepts. The bound goes through norms of the ray (omax =
+// max|o_k|, dmax = max|d_k|) and of the triangle's rows rather than
+// carried absolute sums: 2 instructions a pair. NaN fails every
+// comparison and an infinite S passes them all, so both go to exact().
+// guard() is S itself, for the bounding-sphere test.
 
-#include <cuda_runtime.h>
-#include <math_constants.h>
+#include "nearest_scan.cuh"
 
 namespace {
 
-constexpr int kRaysPerBlock = 256;
-constexpr int kChunk = 256;   // triangles per skip chunk / shared-memory pass
-constexpr int kTile = 512;    // triangles per tile of the packed table (BT)
-constexpr int kRowsB = 8;     // rows of the packed table per tile
-constexpr int kFloats = 12;   // transform floats per triangle
+using theia::Ray;
 
-__device__ __forceinline__ float rcp_newton(float v) {
-  const float r = __frcp_rn(v);
-  return r * (2.0f - v * r);
-}
-
-// keep the reciprocal finite, preserving the sign (ops/_intersect_tiles.py:43)
-__device__ __forceinline__ float safe(float v) {
-  return fabsf(v) < 1e-20f ? (v < 0.0f ? -1e-20f : 1e-20f) : v;
-}
-
-// can the segment [0, best_t) of ray (o, 1/d) enter the box lo/hi?
-__device__ __forceinline__ bool slab_hit(const float* __restrict__ box,
-                                         float ox, float oy, float oz,
-                                         float ix, float iy, float iz,
-                                         float best_t) {
-  const float t1x = (box[0] - ox) * ix, t2x = (box[4] - ox) * ix;
-  const float t1y = (box[1] - oy) * iy, t2y = (box[5] - oy) * iy;
-  const float t1z = (box[2] - oz) * iz, t2z = (box[6] - oz) * iz;
-  const float tn = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)),
-                         fmaxf(fminf(t1z, t2z), 0.0f));
-  const float tf = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)),
-                         fmaxf(t1z, t2z));
-  return tn <= tf && tn < best_t;
-}
-
-// b is (T_tiles, 8, 6 * kTile): for triangle j of a tile, column c * kTile + j
-// holds rows (m_c0, m_c1, m_c2, f_c, 0, 0, 0, 0) and column (3 + c) * kTile + j
-// rows (0, 0, 0, 0, m_c0, m_c1, m_c2, 0). Shared row 4 * c + k takes row k of
-// column c * kTile + j, so s_m[4c..4c+2] = m_c and s_m[4c+3] = f_c.
-__global__ void __launch_bounds__(kRaysPerBlock) woop_nearest(
-    const float* __restrict__ origin, const float* __restrict__ direction,
-    const float* __restrict__ t_max, const float* __restrict__ b,
-    const float* __restrict__ chunk_box, int n_rays, int n_tri,
-    float* __restrict__ t_out, int* __restrict__ idx_out) {
-  __shared__ float s_m[kFloats][kChunk];
-  const int ray = blockIdx.x * kRaysPerBlock + threadIdx.x;
-  const bool live = ray < n_rays;
-  float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f;
-  float best_t = 0.0f;
-  int best_i = -1;
-  if (live) {
-    ox = origin[3 * ray + 0];
-    oy = origin[3 * ray + 1];
-    oz = origin[3 * ray + 2];
-    dx = direction[3 * ray + 0];
-    dy = direction[3 * ray + 1];
-    dz = direction[3 * ray + 2];
-    best_t = t_max[ray];
+struct Woop {
+  static __device__ __forceinline__ float guard(const Ray& r,
+                                                const float4 (&h)[3], float) {
+    return __fmaf_rn(r.ko, h[2].x, r.kd * h[2].y);
   }
-  const float ix = rcp_newton(safe(dx));
-  const float iy = rcp_newton(safe(dy));
-  const float iz = rcp_newton(safe(dz));
-  for (int base = 0; base < n_tri; base += kChunk) {
-    const bool cand = live && slab_hit(chunk_box + 8 * (base / kChunk), ox, oy,
-                                       oz, ix, iy, iz, best_t);
-    // uniform branch: every thread of the block takes the same way
-    if (!__syncthreads_or(cand)) continue;
-    const int count = min(kChunk, n_tri - base);
-    for (int k = threadIdx.x; k < kFloats * kChunk; k += kRaysPerBlock) {
-      const int row = k / kChunk;
-      const int col = k - row * kChunk;
-      if (col < count) {
-        const int g = base + col;
-        const int tile = g / kTile;
-        const int c = row / 4;
-        s_m[row][col] = b[((size_t)tile * kRowsB + (row - 4 * c)) * (6 * kTile) +
-                          c * kTile + (g - tile * kTile)];
-      }
-    }
-    __syncthreads();
-    if (cand) {
-#pragma unroll 4
-      for (int j = 0; j < count; ++j) {
-        const float o1 = ((ox * s_m[0][j] + oy * s_m[1][j]) + oz * s_m[2][j]) + s_m[3][j];
-        const float o2 = ((ox * s_m[4][j] + oy * s_m[5][j]) + oz * s_m[6][j]) + s_m[7][j];
-        const float o3 = ((ox * s_m[8][j] + oy * s_m[9][j]) + oz * s_m[10][j]) + s_m[11][j];
-        const float d1 = (dx * s_m[0][j] + dy * s_m[1][j]) + dz * s_m[2][j];
-        const float d2 = (dx * s_m[4][j] + dy * s_m[5][j]) + dz * s_m[6][j];
-        const float d3 = (dx * s_m[8][j] + dy * s_m[9][j]) + dz * s_m[10][j];
-        const float t = -o3 * rcp_newton(d3);
-        const float b1 = o1 + t * d1;
-        const float b2 = o2 + t * d2;
-        // 1.000001f is float32(1.0 + 1e-6), the bound the JAX kernel uses
-        const bool hit = t > 0.0f && b1 >= -1e-6f && b2 >= -1e-6f &&
-                         b1 + b2 <= 1.000001f;
-        if (hit && t < best_t) {
-          best_t = t;
-          best_i = base + j;
-        }
-      }
-    }
-    __syncthreads();
+
+  // m(c): row c of the map as (m_c0, m_c1, m_c2, f_c)
+  static __device__ __forceinline__ float to_unit(const float4& m, float x,
+                                                  float y, float z) {
+    return __fmaf_rn(x, m.x, __fmaf_rn(y, m.y, __fmaf_rn(z, m.z, m.w)));
   }
-  if (live) {
-    t_out[ray] = best_i < 0 ? CUDART_INF_F : best_t;
-    idx_out[ray] = best_i;
+  static __device__ __forceinline__ float turn(const float4& m, float x,
+                                               float y, float z) {
+    return __fmaf_rn(x, m.x, __fmaf_rn(y, m.y, z * m.z));
   }
-}
+
+  static __device__ __forceinline__ bool reject(const Ray& r,
+                                                const float4 (&w)[5]) {
+    const float o1 = to_unit(w[3], r.ox, r.oy, r.oz);
+    const float o2 = to_unit(w[4], r.ox, r.oy, r.oz);
+    const float o3 = to_unit(w[1], r.ox, r.oy, r.oz);
+    const float d1 = turn(w[3], r.dx, r.dy, r.dz);
+    const float d2 = turn(w[4], r.dx, r.dy, r.dz);
+    const float d3 = turn(w[1], r.dx, r.dy, r.dz);
+    const float u = __fmaf_rn(o1, d3, -(o3 * d1));
+    const float v = __fmaf_rn(o2, d3, -(o3 * d2));
+    const float s = __fmaf_rn(r.ko, w[2].x, r.kd * w[2].y);
+    const float adet = fabsf(d3);
+    const float lo = __fmaf_rn(adet, 4e-6f, s);
+    const unsigned sign = __float_as_uint(d3) & 0x80000000u;
+    const float su = theia::flip(u, sign), sv = theia::flip(v, sign);
+    // W = -o'_z
+    return theia::rejected(su, sv, theia::flip(o3, sign ^ 0x80000000u), adet, lo, s);
+  }
+
+  // the test of the first kernel, in its operation order; separate
+  // multiplies and adds
+  static __device__ __forceinline__ bool exact(const Ray& r,
+                                               const float4 (&w)[5], float& t) {
+    const float4 &m1 = w[3], &m2 = w[4], &m3 = w[1];
+    const float o1 = ((r.ox * m1.x + r.oy * m1.y) + r.oz * m1.z) + m1.w;
+    const float o2 = ((r.ox * m2.x + r.oy * m2.y) + r.oz * m2.z) + m2.w;
+    const float o3 = ((r.ox * m3.x + r.oy * m3.y) + r.oz * m3.z) + m3.w;
+    const float d1 = (r.dx * m1.x + r.dy * m1.y) + r.dz * m1.z;
+    const float d2 = (r.dx * m2.x + r.dy * m2.y) + r.dz * m2.z;
+    const float d3 = (r.dx * m3.x + r.dy * m3.y) + r.dz * m3.z;
+    t = -o3 * theia::rcp_newton(d3);
+    const float b1 = o1 + t * d1;
+    const float b2 = o2 + t * d2;
+    // 1.000001f is float32(1.0 + 1e-6), the bound the JAX kernel uses
+    return t > 0.0f && b1 >= -1e-6f && b2 >= -1e-6f && b1 + b2 <= 1.000001f;
+  }
+};
 
 }  // namespace
 
+// aos: f32 (n_chunks * 256, 20), WoopPack.tri_aos
 extern "C" int theia_woop_nearest(const float* origin, const float* direction,
-                                  const float* t_max, const float* b,
+                                  const float* t_max, const float* aos,
                                   const float* chunk_box, int n_rays,
                                   int n_tri, float* t_out, int* idx_out,
                                   cudaStream_t stream) {
-  if (n_rays > 0) {
-    const int blocks = (n_rays + kRaysPerBlock - 1) / kRaysPerBlock;
-    woop_nearest<<<blocks, kRaysPerBlock, 0, stream>>>(
-        origin, direction, t_max, b, chunk_box, n_rays, n_tri, t_out, idx_out);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return theia::launch_scan<Woop, false>(origin, direction, t_max, aos,
+                                         chunk_box, n_rays, n_tri, nullptr,
+                                         t_out, idx_out, nullptr, stream);
 }

@@ -6,7 +6,9 @@ triangles as (T_tiles, 9, BT) rows (v0xyz, e1xyz, e2xyz), padding with
 v0 = 3e38 that never hits, per-tile AABBs and tight scene bounds — so the
 two packages' packs compare equal. Only ``tri`` goes to the device: the
 per-tile AABBs and scene bounds stay host arrays, since nothing on the
-port's path reads them until ``run_binned`` is ported.
+port's path reads them until ``run_binned`` is ported. The kernel reads
+its own copy of the triangles, ``tri_aos``: one 20-float row a triangle
+(:func:`mt_aos`), derived from ``tri`` on its device.
 
 :func:`nearest_triangle_mt` launches the hand-written kernel of
 ``csrc/intersect_mt.cu`` on CUDA tensors and runs
@@ -15,11 +17,17 @@ kernel's per-pair test in the same operation order, with 1/det as a
 correctly rounded reciprocal plus one Newton step, so they agree bit for
 bit. :func:`nearest_triangle_mt_rows`, the port of
 ``tools/exp_mt_fused.py``, also returns each winner's row of a (T, 32)
-table, through the kernel's variant that copies the rows itself; the
-tracer does not call it. Both skip a run of 256 triangles for a ray that cannot reach its
-(widened) box, the port's form of the TPU kernel's per-tile AABB skip.
-The kernel streams the table through a fixed shared-memory chunk, so no
-capacity check is needed where the TPU version checks its VMEM budget.
+table, through the kernel's variant that copies the rows itself;
+``accel.intersect_scene`` calls it on ``mt`` packs. Both skip a run of
+256 triangles for a ray that cannot reach its (widened) box, the port's
+form of the TPU kernel's per-tile AABB skip. In front of the exact test
+the kernel runs two rejection tests that never reject a pair the exact
+test accepts (the ray's line against the triangle's bounding sphere, then
+the exact test's inequalities without the division);
+:func:`_mt_reject_plain` is their plain twin.
+The kernel walks the table 256 triangles at a time, one a thread, with a
+fixed block of rays in shared memory, so no capacity check is needed
+where the TPU version checks its VMEM budget.
 The wavefront binning of the TPU version (``run_binned``, for scenes of
 8192 triangles and more) is not ported yet.
 """
@@ -50,10 +58,25 @@ SMALL_SCENE_BT = 2048
 SMALL_SCENE_MAX_TRI = 4 * SMALL_SCENE_BT
 #: triangles per skip chunk; csrc/intersect_mt.cu's kChunk must equal it
 CHUNK = 256
-#: rays per block of the plain version, which bounds its (rays, CHUNK) temporaries
+#: rays per block of the plain version on the CPU, which bounds its (rays,
+#: CHUNK) temporaries; 16 times as many on other devices, where a block
+#: costs a host round trip per chunk
 RAY_BLOCK = 4096
 #: floats per row of the table nearest_triangle_mt_rows reads (tri_data)
 ROW_WIDTH = 32
+#: floats per row of the kernels' triangle tables (tri_aos); kRowFloat4 * 4
+#: in csrc/nearest_scan.cuh
+ROW_AOS = 20
+#: slack factor of the kernels' rejection tests, 128 float32 unit
+#: roundoffs; kSlack in csrc/nearest_scan.cuh
+SLACK = 2.0 ** -17
+#: r2 / R0^2 of the bounding spheres and the guard factor g of the kernels'
+#: first rejection test (csrc/nearest_scan.cuh says why these pairs)
+MT_SPHERE, MT_GUARD = 1.7, 4.0
+WOOP_SPHERE, WOOP_GUARD = 2.8, 1.0
+#: a ray or triangle with a coordinate this large gets an infinite slack;
+#: kWild in csrc/nearest_scan.cuh
+WILD = 1e9
 
 
 class MTPack:
@@ -62,7 +85,8 @@ class MTPack:
     inflated bounds of each run of :data:`CHUNK` triangles, derived from
     ``tri`` on its device by :func:`chunk_boxes`. ``aabb``, ``lo`` and
     ``hi`` are the JAX pack's per-tile AABBs and scene bounds as host
-    numpy arrays; no query reads them yet."""
+    numpy arrays; no query reads them yet. ``tri_aos`` is the kernel's
+    table (:func:`mt_aos`)."""
 
     def __init__(self, tri, aabb, lo, hi, n_tri: int) -> None:
         self.tri = tri  # f32 (T_tiles, 9, BT): v0xyz, e1xyz, e2xyz rows
@@ -73,11 +97,55 @@ class MTPack:
         rows = _rows(tri, n_tri)
         # f32 (n_chunks, 8)
         self.chunk_box = chunk_boxes(rows[0:3].T, rows[3:6].T, rows[6:9].T)
+        self.tri_aos = mt_aos(rows)  # f32 (n_chunks * CHUNK, ROW_AOS)
 
 
 def _rows(tri: torch.Tensor, n_tri: int) -> torch.Tensor:
     """(9, n_tri) component rows of the real triangles."""
     return tri.permute(1, 0, 2).reshape(9, -1)[:, :n_tri]
+
+
+def aos_rows(cols: torch.Tensor) -> torch.Tensor:
+    """(n_chunks * CHUNK, ROW_AOS) table from (k <= ROW_AOS, n_tri) column
+    rows: transposed, zero-filled to the row width and to whole chunks, so
+    a chunk is one contiguous span of 16-byte-aligned rows."""
+    k, n_tri = cols.shape
+    n_rows = -(-n_tri // CHUNK) * CHUNK
+    out = torch.zeros((n_rows, ROW_AOS), dtype=torch.float32, device=cols.device)
+    out[:n_tri, :k] = cols.T
+    return out
+
+
+def bounding_sphere(vertices: torch.Tensor, factor: float):
+    """(c, r2, R0): the float32 centroid c (3, n) of float64 ``vertices``
+    (3 vertices, 3, n), r2 (n,) = ``factor`` R0^2 rounded up, as the
+    kernels' bounding-sphere test wants them, and R0 in float64, the
+    largest distance from c to a vertex."""
+    c = vertices.mean(dim=0).float()
+    r0 = (vertices - c.double()).norm(dim=1).amax(dim=0)
+    return c, (factor * (1.0 + 1e-6) * r0 * r0).float(), r0
+
+
+def mt_aos(rows: torch.Tensor) -> torch.Tensor:
+    """The Moeller-Trumbore kernel's table from the (9, n_tri) component
+    rows; per triangle (see csrc/intersect_mt.cu): the bounding sphere c,
+    r2 = 1.7 R0^2; n = e1 x e2 (formed in float64, rounded once) and alpha; beta_w,
+    beta, e2 z, 0; v0, e1, e2 xy. alpha = E1 + E2 + E1 E2, beta =
+    3 E1 E2 + 1e-30 and beta_w = beta + 1.75 R0 alpha are the slack
+    coefficients of the rejection tests, with E1 = max|e1_k|, E2 =
+    max|e2_k| (beta = beta_w = inf where a coordinate reaches
+    :data:`WILD`)."""
+    v0, e1, e2 = rows[0:3].double(), rows[3:6].double(), rows[6:9].double()
+    n = torch.linalg.cross(e1, e2, dim=0).float()
+    c, r2, r0 = bounding_sphere(torch.stack([v0, v0 + e1, v0 + e2]), MT_SPHERE)
+    big1, big2 = rows[3:6].abs().amax(dim=0), rows[6:9].abs().amax(dim=0)
+    alpha = big1 + big2 + big1 * big2
+    tame = rows.abs().amax(dim=0) < WILD
+    beta = torch.where(tame, 3.0 * big1 * big2 + 1e-30, torch.inf)
+    beta_w = beta + 1.75 * r0.float() * alpha
+    zero = torch.zeros_like(alpha)
+    cols = [c, r2[None], n, alpha[None], beta_w[None], beta[None], rows[8:9], zero[None], rows[0:8]]
+    return aos_rows(torch.cat(cols, dim=0))
 
 
 def chunk_boxes(v0: torch.Tensor, e1: torch.Tensor, e2: torch.Tensor) -> torch.Tensor:
@@ -204,64 +272,39 @@ def _slab_candidates(box, o, inv, best_t) -> torch.Tensor:
     return (tn <= tf) & (tn < best_t)
 
 
-def nearest_triangle_mt_plain(
-    pack: MTPack,
-    origin: torch.Tensor,
-    direction: torch.Tensor,
-    t_max: torch.Tensor,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of :func:`nearest_triangle_mt` (any device).
-
-    Walks the triangles in :data:`CHUNK`-wide chunks, as the kernel does:
-    a ray tests a chunk only if it can enter the chunk's box before its
-    current winner (``chunk_box``); within a chunk the lowest index wins
-    ties, and a chunk's winner replaces the running one only if strictly
-    closer — the kernel's sequential strict update. Rays go in blocks so
-    the (rays, chunk) intermediates stay small."""
-    rows = _rows(pack.tri, pack.n_tri)
+def chunk_walk(n_tri: int, chunk_box, origin, direction, t_max, pair_test, stats=None):
+    """The chunked scan both plain versions share. Rays go in blocks (of
+    :data:`RAY_BLOCK` on the CPU); a ray tests a run of :data:`CHUNK` triangles only
+    if its segment [0, best_t) can enter the run's box. ``pair_test(o, d,
+    c0)`` gives (t, hit) of shape (lanes, chunk) for the rays ``o``, ``d``
+    (lanes, 3) against the triangles from ``c0``. Within a chunk the
+    lowest index wins ties, and a chunk's winner replaces the running one
+    only if strictly closer: the kernels' sequential strict update. With
+    a dict ``stats``, ``stats["pairs"]`` grows by the (ray, triangle)
+    pairs that were tested, and for every ``name: test`` in
+    ``stats["tests"]`` (if present) ``stats[name]`` grows by the pairs of
+    them for which ``test(o, d, c0)`` (bool (lanes, chunk)) holds."""
     n = origin.shape[0]
     t_out = torch.empty(n, dtype=torch.float32, device=origin.device)
     i_out = torch.empty(n, dtype=torch.int32, device=origin.device)
-    for r0 in range(0, n, RAY_BLOCK):
-        r1 = min(n, r0 + RAY_BLOCK)
+    block = RAY_BLOCK if origin.device.type == "cpu" else 16 * RAY_BLOCK
+    for r0 in range(0, n, block):
+        r1 = min(n, r0 + block)
         o_blk, d_blk = origin[r0:r1], direction[r0:r1]
         inv_d = _rcp(_safe(d_blk))
         best_t = t_max[r0:r1].clone()
         best_i = torch.full_like(best_t, -1, dtype=torch.int32)
-        for c, c0 in enumerate(range(0, pack.n_tri, CHUNK)):
+        for c, c0 in enumerate(range(0, n_tri, CHUNK)):
             lanes = torch.nonzero(
-                _slab_candidates(pack.chunk_box[c], o_blk, inv_d, best_t)
+                _slab_candidates(chunk_box[c], o_blk, inv_d, best_t)
             )[:, 0]
             if lanes.numel() == 0:
                 continue
-            o, d = o_blk[lanes], d_blk[lanes]
-            ox, oy, oz = (o[:, k : k + 1] for k in range(3))
-            dx, dy, dz = (d[:, k : k + 1] for k in range(3))
-            v = rows[:, c0 : c0 + CHUNK]
-            v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = (
-                v[k : k + 1] for k in range(9)
-            )
-            px = dy * e2z - dz * e2y
-            py = dz * e2x - dx * e2z
-            pz = dx * e2y - dy * e2x
-            det = e1x * px + e1y * py + e1z * pz
-            inv = torch.where(torch.abs(det) > 1e-12, _rcp(_safe(det)), 0.0)
-            tx = ox - v0x
-            ty = oy - v0y
-            tz = oz - v0z
-            b1 = (tx * px + ty * py + tz * pz) * inv
-            qx = ty * e1z - tz * e1y
-            qy = tz * e1x - tx * e1z
-            qz = tx * e1y - ty * e1x
-            b2 = (dx * qx + dy * qy + dz * qz) * inv
-            t = (e2x * qx + e2y * qy + e2z * qz) * inv
-            hit = (
-                (inv != 0.0)
-                & (b1 >= -1e-6)
-                & (b2 >= -1e-6)
-                & (b1 + b2 <= 1.0 + 1e-6)
-                & (t > 0.0)
-            )
+            if stats is not None:
+                stats["pairs"] = stats.get("pairs", 0) + lanes.numel() * min(CHUNK, n_tri - c0)
+                for name, test in stats.get("tests", {}).items():
+                    stats[name] = stats.get(name, 0) + int(test(o_blk[lanes], d_blk[lanes], c0).sum())
+            t, hit = pair_test(o_blk[lanes], d_blk[lanes], c0)
             tt, ic = torch.where(hit, t, torch.inf).min(dim=1)
             cur_t, cur_i = best_t[lanes], best_i[lanes]
             better = tt < cur_t
@@ -270,6 +313,138 @@ def nearest_triangle_mt_plain(
         t_out[r0:r1] = torch.where(best_i < 0, torch.inf, best_t)
         i_out[r0:r1] = best_i
     return t_out, i_out
+
+
+def _columns(o: torch.Tensor, d: torch.Tensor):
+    """The six (lanes, 1) component columns of rays (lanes, 3) x2."""
+    return (*(o[:, k : k + 1] for k in range(3)), *(d[:, k : k + 1] for k in range(3)))
+
+
+def _mt_exact_plain(rows: torch.Tensor, o: torch.Tensor, d: torch.Tensor):
+    """(t, hit), each (lanes, T), of rays against the (9, T) component
+    rows: the kernel's exact test, op for op."""
+    ox, oy, oz, dx, dy, dz = _columns(o, d)
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = (rows[k : k + 1] for k in range(9))
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    inv = torch.where(torch.abs(det) > 1e-12, _rcp(_safe(det)), 0.0)
+    tx = ox - v0x
+    ty = oy - v0y
+    tz = oz - v0z
+    b1 = (tx * px + ty * py + tz * pz) * inv
+    qx = ty * e1z - tz * e1y
+    qy = tz * e1x - tx * e1z
+    qz = tx * e1y - ty * e1x
+    b2 = (dx * qx + dy * qy + dz * qz) * inv
+    t = (e2x * qx + e2y * qy + e2z * qz) * inv
+    hit = (
+        (inv != 0.0)
+        & (b1 >= -1e-6)
+        & (b2 >= -1e-6)
+        & (b1 + b2 <= 1.0 + 1e-6)
+        & (t > 0.0)
+    )
+    return t, hit
+
+
+def nearest_triangle_mt_plain(
+    pack: MTPack,
+    origin: torch.Tensor,
+    direction: torch.Tensor,
+    t_max: torch.Tensor,
+    stats: dict | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`nearest_triangle_mt` (any device):
+    :func:`chunk_walk` over the kernel's exact test."""
+    rows = _rows(pack.tri, pack.n_tri)
+    return chunk_walk(
+        pack.n_tri, pack.chunk_box, origin, direction, t_max,
+        lambda o, d, c0: _mt_exact_plain(rows[:, c0 : c0 + CHUNK], o, d), stats,
+    )
+
+
+def _fma(a, b, c, fused: bool):
+    """a * b + c in float32: rounded once (through float64, where the
+    product of two float32 is exact) if ``fused``, else twice."""
+    if fused:
+        return (a.double() * b.double() + c.double()).float()
+    return a * b + c
+
+
+def ray_slack(o: torch.Tensor, d: torch.Tensor):
+    """Per-ray factors (kd, ko), each (lanes, 1), of the rejection tests'
+    slack: kd = SLACK * max(|d|_inf, 1) and ko = kd * |o|_inf, both inf
+    for a ray with a NaN or a coordinate that reaches :data:`WILD`."""
+    omax, dmax = o.abs().amax(dim=1, keepdim=True), d.abs().amax(dim=1, keepdim=True)
+    tame = (omax < WILD) & (dmax < WILD)  # false for NaN as well
+    kd = torch.where(tame, SLACK * torch.clamp_min(dmax, 1.0), torch.inf)
+    return kd, torch.where(tame, kd * omax, torch.inf)
+
+
+def reject_tests(u, v, w, det, s):
+    """The comparisons both rejection tests end in: with sg = sign(det),
+    reject unless sg u, sg v >= -lo, sg (u + v) <= |det| + lo and
+    (sg w >= -s or |det| <= s), lo = 4e-6 |det| + s. NaN rejects nothing."""
+    adet = det.abs()
+    lo = adet * 4e-6 + s
+    sg = torch.where(torch.signbit(det), -1.0, 1.0)
+    su, sv = sg * u, sg * v
+    return (su < -lo) | (sv < -lo) | (su + sv > adet + lo) | ((sg * w < -s) & (adet > s))
+
+
+def sphere_miss_plain(aos, o, d, det_cols, guard, fused: bool):
+    """Plain twin of ``sphere_miss`` in csrc/nearest_scan.cuh: true where
+    the ray's line misses the row's bounding sphere (columns 0-3 of
+    ``aos``) by more than the rounding, and |det| (the dot of d with
+    columns ``det_cols``) exceeds ``guard(|w|_1)`` = g S."""
+    ox, oy, oz, dx, dy, dz = _columns(o, d)
+    cx, cy, cz, r2 = (aos[:, k][None] for k in range(4))
+    n0, n1, n2 = (aos[:, k][None] for k in det_cols)
+    dd = _fma(dz, dz, _fma(dy, dy, dx * dx, fused), fused)
+    ddk = dd * (1.0 - 64.0 * 2.0**-24)
+    wx, wy, wz = cx - ox, cy - oy, cz - oz
+    p = _fma(wz, dz, _fma(wy, dy, wx * dx, fused), fused)
+    w2 = _fma(wz, wz, _fma(wy, wy, wx * wx, fused), fused)
+    q = _fma(w2, ddk, -(p * p), fused)
+    det = _fma(dz, n2, _fma(dy, n1, dx * n0, fused), fused)
+    return (q > r2 * dd) & (det.abs() > guard(wx.abs() + wy.abs() + wz.abs()))
+
+
+def _mt_sphere_miss_plain(aos: torch.Tensor, o: torch.Tensor, d: torch.Tensor, fused: bool = True):
+    """The first of the kernel's two rejection tests alone, with the
+    Moeller-Trumbore guard g S (|T|_1 bounded through |w|_1)."""
+    alpha, beta_w = aos[:, 7][None], aos[:, 8][None]
+    kd, _ = ray_slack(o, d)
+    return sphere_miss_plain(
+        aos, o, d, (4, 5, 6), lambda w1: (MT_GUARD * kd) * _fma(w1, alpha, beta_w, fused), fused
+    )
+
+
+def _mt_reject_plain(aos: torch.Tensor, o: torch.Tensor, d: torch.Tensor, fused: bool = True):
+    """Plain twin of the kernel's two rejection tests (``sphere_miss`` of
+    csrc/nearest_scan.cuh, then ``reject`` of csrc/intersect_mt.cu): bool
+    (lanes, T), true where the pair (ray, row of ``aos`` (T, ROW_AOS)) is
+    rejected without the exact test. Same formulas and slack; ``fused``
+    rounds each a*b+c once, as the kernel's fmaf does."""
+    ox, oy, oz, dx, dy, dz = _columns(o, d)
+    nx, ny, nz, alpha, _, beta = (aos[:, k][None] for k in range(4, 10))
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y = (aos[:, k][None] for k in range(12, 20))
+    e2z = aos[:, 10][None]
+    kd, _ = ray_slack(o, d)
+    miss = _mt_sphere_miss_plain(aos, o, d, fused)
+    tx, ty, tz = ox - v0x, oy - v0y, oz - v0z
+    cx = _fma(ty, dz, -(tz * dy), fused)
+    cy = _fma(tz, dx, -(tx * dz), fused)
+    cz = _fma(tx, dy, -(ty * dx), fused)
+    u = _fma(e2z, cz, _fma(e2y, cy, e2x * cx, fused), fused)
+    v = -_fma(e1z, cz, _fma(e1y, cy, e1x * cx, fused), fused)
+    det = -_fma(dz, nz, _fma(dy, ny, dx * nx, fused), fused)
+    w = _fma(tz, nz, _fma(ty, ny, tx * nx, fused), fused)
+    t1 = tx.abs() + ty.abs() + tz.abs()
+    s = kd * _fma(t1, alpha, beta, fused)
+    return miss | reject_tests(u, v, w, det, s)
 
 
 def check_rays(origin, direction, t_max, tables) -> torch.Tensor:
@@ -296,9 +471,11 @@ def check_rays(origin, direction, t_max, tables) -> torch.Tensor:
 
 
 def _mt_tables(pack: MTPack):
+    n_chunks = -(-pack.n_tri // CHUNK)
     return (
         ("pack.tri", pack.tri, (pack.tri.shape[0], 9, pack.tri.shape[2])),
-        ("pack.chunk_box", pack.chunk_box, (-(-pack.n_tri // CHUNK), 8)),
+        ("pack.tri_aos", pack.tri_aos, (n_chunks * CHUNK, ROW_AOS)),
+        ("pack.chunk_box", pack.chunk_box, (n_chunks, 8)),
     )
 
 
@@ -320,9 +497,8 @@ def nearest_triangle_mt(
     lib = _build.library()
     err = lib.theia_mt_nearest(
         origin.data_ptr(), direction.data_ptr(), t_max.data_ptr(),
-        pack.tri.data_ptr(), pack.chunk_box.data_ptr(), n, pack.n_tri,
-        pack.tri.shape[2], t.data_ptr(), idx.data_ptr(),
-        _build.stream_handle(origin.device),
+        pack.tri_aos.data_ptr(), pack.chunk_box.data_ptr(), n, pack.n_tri,
+        t.data_ptr(), idx.data_ptr(), _build.stream_handle(origin.device),
     )
     _build.check(err, "nearest_triangle_mt")
     nearest_triangle_mt.launches += 1
@@ -333,11 +509,11 @@ nearest_triangle_mt.launches = 0
 
 
 def nearest_triangle_mt_rows_plain(
-    pack: MTPack, table: torch.Tensor, origin, direction, t_max
+    pack: MTPack, table: torch.Tensor, origin, direction, t_max, stats: dict | None = None
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`nearest_triangle_mt_rows`: the
     plain query, then a gather of ``table[max(idx, 0)]``."""
-    t, idx = nearest_triangle_mt_plain(pack, origin, direction, t_max)
+    t, idx = nearest_triangle_mt_plain(pack, origin, direction, t_max, stats)
     return t, idx, table[torch.clamp_min(idx, 0).to(torch.int64)]
 
 
@@ -364,8 +540,8 @@ def nearest_triangle_mt_rows(
     rows = torch.empty((n, ROW_WIDTH), dtype=torch.float32, device=origin.device)
     err = _build.library().theia_mt_nearest_rows(
         origin.data_ptr(), direction.data_ptr(), t_max.data_ptr(),
-        pack.tri.data_ptr(), pack.chunk_box.data_ptr(), n, pack.n_tri,
-        pack.tri.shape[2], table.data_ptr(), t.data_ptr(), idx.data_ptr(),
+        pack.tri_aos.data_ptr(), pack.chunk_box.data_ptr(), n, pack.n_tri,
+        table.data_ptr(), t.data_ptr(), idx.data_ptr(),
         rows.data_ptr(), _build.stream_handle(origin.device),
     )
     _build.check(err, "nearest_triangle_mt_rows")

@@ -19,7 +19,9 @@ table ``b`` whose columns are the o' and d' parts of the TPU kernel's
 and offset 3e38 that never hit, per-tile AABBs and tight scene bounds —
 so the two packages' packs compare equal. Only ``b`` and the chunk-skip
 boxes go to the device; ``aabb``, ``lo`` and ``hi`` stay host arrays, as
-in :class:`~theia_tpu_torch.ops.intersect_mt.MTPack`.
+in :class:`~theia_tpu_torch.ops.intersect_mt.MTPack`. The kernel reads
+its own copy of the transforms, ``tri_aos``: one 20-float row a triangle
+(:func:`woop_aos`), derived from ``b`` on its device.
 
 :func:`nearest_triangle_woop` launches the hand-written kernel of
 ``csrc/intersect_woop.cu`` on CUDA tensors and runs
@@ -29,7 +31,11 @@ source note) and take rcp as a correctly rounded reciprocal plus one
 Newton step, so they agree bit for bit; do not rewrite the plain version
 with fused ops (``addcmul``, ``einsum``, ``matmul``). Both skip a run of
 :data:`~theia_tpu_torch.ops.intersect_mt.CHUNK` triangles for a ray that
-cannot reach its widened box, with the boxes the MT pack uses. The
+cannot reach its widened box, with the boxes the MT pack uses. In front
+of the exact test the kernel runs two rejection tests that never reject
+a pair the exact test accepts (the ray's line against the triangle's
+bounding sphere, then the exact test's inequalities without the
+division); :func:`_woop_reject_plain` is their plain twin. The
 wavefront binning of the TPU version (``run_binned``, for scenes of 8192
 triangles and more) is not ported yet.
 """
@@ -42,12 +48,21 @@ import torch
 from .. import _build
 from .intersect_mt import (
     CHUNK,
-    RAY_BLOCK,
+    WOOP_GUARD,
+    WOOP_SPHERE,
+    ROW_AOS,
+    WILD,
+    _columns,
+    _fma,
     _rcp,
-    _safe,
-    _slab_candidates,
+    aos_rows,
+    bounding_sphere,
     check_rays,
     chunk_boxes,
+    chunk_walk,
+    ray_slack,
+    reject_tests,
+    sphere_miss_plain,
     morton_order,
     scene_bounds,
     tile_aabbs,
@@ -71,7 +86,8 @@ class WoopPack:
     of each run of :data:`CHUNK` triangles (see
     :func:`~theia_tpu_torch.ops.intersect_mt.chunk_boxes`); ``aabb``,
     ``lo`` and ``hi`` are the JAX pack's per-tile AABBs and scene bounds
-    as host numpy arrays, which no query reads yet."""
+    as host numpy arrays, which no query reads yet. ``tri_aos`` is the
+    kernel's table (:func:`woop_aos`)."""
 
     def __init__(self, b, aabb, lo, hi, n_tri: int, chunk_box) -> None:
         self.b = b  # f32 (T_tiles, 8, 6*BT)
@@ -80,6 +96,8 @@ class WoopPack:
         self.hi = np.asarray(hi, np.float32)
         self.n_tri = n_tri
         self.chunk_box = chunk_box  # f32 (n_chunks, 8), on b's device
+        # f32 (n_chunks * CHUNK, ROW_AOS)
+        self.tri_aos = woop_aos(_transforms(b, n_tri))
 
 
 def pack_woop(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray, *, device) -> WoopPack:
@@ -141,59 +159,117 @@ def _transforms(b: torch.Tensor, n_tri: int) -> torch.Tensor:
     return o_cols.permute(2, 1, 0, 3).reshape(12, -1)[:, :n_tri]
 
 
+def woop_aos(m: torch.Tensor) -> torch.Tensor:
+    """The Woop kernel's table from the (12, n_tri) transform rows; per
+    triangle (see csrc/intersect_woop.cu): the bounding sphere c, r2 = 2.8
+    R0^2; m_z,
+    f_z; P, Q, 0, 0; m_b1, f_b1; m_b2, f_b2. The sphere bounds
+    the triangle that the float32 map itself defines (the preimages of
+    the unit triangle's corners, through a float64 inverse). P = 2 M_z
+    (M_1 + M_2) + M_z and Q = M_z (F_1 + F_2) + F_z (M_1 + M_2) + M_z +
+    F_z + 1e-30, with M_c = |m_c|_1 and F_c = |f_c|, are the slack
+    coefficients of the rejection tests; Q = inf where an entry reaches
+    :data:`~theia_tpu_torch.ops.intersect_mt.WILD` (padding and
+    degenerate triangles) or the inverse does not check out, and no
+    sphere test drops such a triangle."""
+    a = m.abs()
+    m1, m2, mz = (a[k : k + 3].sum(dim=0) for k in (0, 4, 8))
+    f1, f2, fz = a[3], a[7], a[11]
+    p = 2.0 * mz * (m1 + m2) + mz
+    q = mz * (f1 + f2) + fz * (m1 + m2) + mz + fz + 1e-30
+    # the vertices x_i with m x_i + f = corner_i, in float64
+    lin = torch.stack([m[0:3], m[4:7], m[8:11]], dim=0).double().permute(2, 0, 1)  # (n, c, k)
+    off = torch.stack([m[3], m[7], m[11]], dim=0).double().T  # (n, c)
+    wild = (a.amax(dim=0) >= WILD) | (torch.linalg.det(lin) == 0.0)
+    lin = torch.where(wild[:, None, None], torch.eye(3, dtype=torch.float64, device=m.device), lin)
+    corners = torch.tensor(
+        [[0.0, 0.0, 0.0], [1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], dtype=torch.float64, device=m.device
+    )
+    rhs = (corners[None] - off[:, None]).transpose(1, 2)  # (n, c, corner)
+    x = torch.linalg.solve(lin, rhs)  # (n, k, corner)
+    residual = (lin @ x - rhs).abs().amax(dim=(1, 2))
+    scale = (lin.abs() @ x.abs()).amax(dim=(1, 2)) + off.abs().amax(dim=1)
+    wild = wild | ~(residual <= 1e-9 * scale)
+    c, r2, _ = bounding_sphere(x.permute(2, 1, 0), WOOP_SPHERE)
+    tame = ~wild
+    q = torch.where(tame, q, torch.inf)
+    c, r2 = torch.where(tame, c, 0.0), torch.where(tame, r2, 0.0)
+    zero = torch.zeros_like(p)
+    cols = [c, r2[None], m[8:12], p[None], q[None], zero[None], zero[None], m[0:8]]
+    return aos_rows(torch.cat(cols, dim=0))
+
+
+def _woop_exact_plain(w: torch.Tensor, o: torch.Tensor, d: torch.Tensor):
+    """(t, hit), each (lanes, T), of rays against the (12, T) transform
+    rows: the kernel's exact test, op for op. o' and d' are the kernel's
+    sums in the kernel's order, with the structural zeros of the TPU
+    product left out."""
+    ox, oy, oz, dx, dy, dz = _columns(o, d)
+    o1, o2, o3 = (
+        ((ox * w[k] + oy * w[k + 1]) + oz * w[k + 2]) + w[k + 3]
+        for k in (0, 4, 8)
+    )
+    d1, d2, d3 = (
+        (dx * w[k] + dy * w[k + 1]) + dz * w[k + 2] for k in (0, 4, 8)
+    )
+    t = -o3 * _rcp(d3)
+    b1 = o1 + t * d1
+    b2 = o2 + t * d2
+    hit = (t > 0.0) & (b1 >= -_EPS) & (b2 >= -_EPS) & (b1 + b2 <= 1.0 + _EPS)
+    return t, hit
+
+
 def nearest_triangle_woop_plain(
     pack: WoopPack,
     origin: torch.Tensor,
     direction: torch.Tensor,
     t_max: torch.Tensor,
+    stats: dict | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of :func:`nearest_triangle_woop` (any device).
-
-    Walks the triangles in :data:`CHUNK`-wide chunks, as the kernel does:
-    a ray tests a chunk only if it can enter the chunk's box before its
-    current winner; within a chunk the lowest index wins ties, and a
-    chunk's winner replaces the running one only if strictly closer.
-    o' and d' are the kernel's sums in the kernel's order, with the
-    structural zeros of the TPU product left out."""
+    """Plain PyTorch version of :func:`nearest_triangle_woop` (any
+    device): :func:`~theia_tpu_torch.ops.intersect_mt.chunk_walk` over
+    the kernel's exact test."""
     m = _transforms(pack.b, pack.n_tri)
-    n = origin.shape[0]
-    t_out = torch.empty(n, dtype=torch.float32, device=origin.device)
-    i_out = torch.empty(n, dtype=torch.int32, device=origin.device)
-    for r0 in range(0, n, RAY_BLOCK):
-        r1 = min(n, r0 + RAY_BLOCK)
-        o_blk, d_blk = origin[r0:r1], direction[r0:r1]
-        inv_d = _rcp(_safe(d_blk))
-        best_t = t_max[r0:r1].clone()
-        best_i = torch.full_like(best_t, -1, dtype=torch.int32)
-        for c, c0 in enumerate(range(0, pack.n_tri, CHUNK)):
-            lanes = torch.nonzero(
-                _slab_candidates(pack.chunk_box[c], o_blk, inv_d, best_t)
-            )[:, 0]
-            if lanes.numel() == 0:
-                continue
-            o, d = o_blk[lanes], d_blk[lanes]
-            ox, oy, oz = (o[:, k : k + 1] for k in range(3))
-            dx, dy, dz = (d[:, k : k + 1] for k in range(3))
-            w = m[:, c0 : c0 + CHUNK]
-            o1, o2, o3 = (
-                ((ox * w[k] + oy * w[k + 1]) + oz * w[k + 2]) + w[k + 3]
-                for k in (0, 4, 8)
-            )
-            d1, d2, d3 = (
-                (dx * w[k] + dy * w[k + 1]) + dz * w[k + 2] for k in (0, 4, 8)
-            )
-            t = -o3 * _rcp(d3)
-            b1 = o1 + t * d1
-            b2 = o2 + t * d2
-            hit = (t > 0.0) & (b1 >= -_EPS) & (b2 >= -_EPS) & (b1 + b2 <= 1.0 + _EPS)
-            tt, ic = torch.where(hit, t, torch.inf).min(dim=1)
-            cur_t, cur_i = best_t[lanes], best_i[lanes]
-            better = tt < cur_t
-            best_i[lanes] = torch.where(better, ic.to(torch.int32) + c0, cur_i)
-            best_t[lanes] = torch.where(better, tt, cur_t)
-        t_out[r0:r1] = torch.where(best_i < 0, torch.inf, best_t)
-        i_out[r0:r1] = best_i
-    return t_out, i_out
+    return chunk_walk(
+        pack.n_tri, pack.chunk_box, origin, direction, t_max,
+        lambda o, d, c0: _woop_exact_plain(m[:, c0 : c0 + CHUNK], o, d), stats,
+    )
+
+
+def _woop_sphere_miss_plain(aos: torch.Tensor, o: torch.Tensor, d: torch.Tensor, fused: bool = True):
+    """The first of the kernel's two rejection tests alone, with the Woop
+    guard g S."""
+    big_p, big_q = aos[:, 8][None], aos[:, 9][None]
+    kd, ko = ray_slack(o, d)
+    return sphere_miss_plain(
+        aos, o, d, (4, 5, 6),
+        lambda w1: _fma(WOOP_GUARD * ko, big_p, (WOOP_GUARD * kd) * big_q, fused), fused,
+    )
+
+
+def _woop_reject_plain(aos: torch.Tensor, o: torch.Tensor, d: torch.Tensor, fused: bool = True):
+    """Plain twin of the kernel's two rejection tests (``sphere_miss`` of
+    csrc/nearest_scan.cuh, then ``reject`` of csrc/intersect_woop.cu):
+    bool (lanes, T), true where the pair (ray, row of ``aos`` (T,
+    ROW_AOS)) is rejected without the exact test. Same formulas and
+    slack; ``fused`` rounds each a*b+c once, as the kernel's fmaf does."""
+    ox, oy, oz, dx, dy, dz = _columns(o, d)
+    col = lambda k: aos[:, k][None]
+    big_p, big_q = col(8), col(9)
+    kd, ko = ray_slack(o, d)
+    miss = _woop_sphere_miss_plain(aos, o, d, fused)
+    # rows of the map: b1 at columns 12-15, b2 at 16-19, z at 4-7
+    o1, o2, o3 = (
+        _fma(ox, col(k), _fma(oy, col(k + 1), _fma(oz, col(k + 2), col(k + 3), fused), fused), fused)
+        for k in (12, 16, 4)
+    )
+    d1, d2, d3 = (
+        _fma(dx, col(k), _fma(dy, col(k + 1), dz * col(k + 2), fused), fused) for k in (12, 16, 4)
+    )
+    u = _fma(o1, d3, -(o3 * d1), fused)
+    v = _fma(o2, d3, -(o3 * d2), fused)
+    s = _fma(ko, big_p, kd * big_q, fused)
+    return miss | reject_tests(u, v, -o3, d3, s)
 
 
 def nearest_triangle_woop(
@@ -210,6 +286,7 @@ def nearest_triangle_woop(
         origin, direction, t_max,
         (
             ("pack.b", pack.b, (pack.b.shape[0], 8, 6 * BT)),
+            ("pack.tri_aos", pack.tri_aos, (-(-pack.n_tri // CHUNK) * CHUNK, ROW_AOS)),
             ("pack.chunk_box", pack.chunk_box, (-(-pack.n_tri // CHUNK), 8)),
         ),
     )
@@ -219,7 +296,7 @@ def nearest_triangle_woop(
     idx = torch.empty(n, dtype=torch.int32, device=origin.device)
     err = _build.library().theia_woop_nearest(
         origin.data_ptr(), direction.data_ptr(), t_max.data_ptr(),
-        pack.b.data_ptr(), pack.chunk_box.data_ptr(), n, pack.n_tri,
+        pack.tri_aos.data_ptr(), pack.chunk_box.data_ptr(), n, pack.n_tri,
         t.data_ptr(), idx.data_ptr(), _build.stream_handle(origin.device),
     )
     _build.check(err, "nearest_triangle_woop")
