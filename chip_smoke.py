@@ -14,7 +14,16 @@ Phases, one line each, any failure raises and exits non-zero:
    its bound (the larger of bytes over 3.35 TB/s and operations over 67
    TFLOP/s, counted from this run's inputs) and, where one PyTorch call
    computes the same function, that call's time as a yardstick. The
-   three nearest-hit kernels are also held bit for bit against their
+   small kernels are timed twice: as a caller sees them ("ms": host
+   enqueue and device in a pipeline) and queued behind a spin kernel, so
+   that only the device's time counts ("queued_ms"), beside an empty
+   launch timed both ways. The histogram record and its backward are
+   also held against their plain versions on odd sizes, offset views, a
+   detector axis, an all-masked record, a state above 48 KB and one
+   above what shared memory holds (the record's second variant), and on
+   the 19 recorded records of one flagship batch of each path, replayed
+   for the time and the bound that a batch sees. The three nearest-hit
+   kernels are also held bit for bit against their
    plain versions on adversarial rays (through vertices, along edges, in
    a triangle's plane, off a surface) and on the 19 queries of one
    recorded flagship batch, which are replayed for the time and bound
@@ -67,9 +76,30 @@ GRAD_BATCH = 2048
 GRAD_PATH = 3
 #: the light source off centre, where polarization changes the light curve
 OFF_CENTRE = (3.0, 0.6, 0.0)
-#: published peaks of one H100 SXM: HBM bytes/s, float32 flop/s outside the
-#: tensor cores, and int32 op/s (half the float32 lanes)
-PEAK_BYTES, PEAK_F32, PEAK_I32 = 3.35e12, 67e12, 33.5e12
+#: published peaks of one H100 SXM: HBM bytes/s and float32 flop/s outside
+#: the tensor cores (132 SMs x 128 lanes x 2 flop an FMA x 1.98 GHz)
+PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
+#: int32 instructions/s of one pipe: an SM issues 64 results a clock of
+#: 32-bit integer add, compare and logic, and 64 of integer multiply and
+#: multiply-add (NVIDIA's table of arithmetic throughput for compute
+#: capability 9.0), half the float32 lanes and one operation an
+#: instruction: 132 x 64 x 1.98 GHz
+PEAK_I32 = PEAK_F32 / 4
+#: int32 operations on the integer pipe that philox_uniform needs for one
+#: lane of a width-2 call, counted from the arithmetic of philox_draw() in
+#: csrc/philox.cu with a three-input xor as one. The two draws of a lane
+#: share the stream, so the key is set up and stepped once a lane: its
+#: 64-bit add with the carries 5, two adds a round 20, dim + 1 for the
+#: second draw 1. Each draw then takes 9 for the 128-bit counter add (four
+#: adds, four carries, the wrap-around; 4 * dim folds into the first add),
+#: two xors a round 20, 6 to pick the word and 1 conversion to float. A
+#: round's two 32x32 -> 64 products (20 a draw) go to the multiply-add
+#: pipe, which issues its own 64 a clock an SM beside the integer pipe's,
+#: so the integer pipe's larger count is what bounds.
+PHILOX_SHARED_OPS, PHILOX_DRAW_OPS = 5 + 20 + 1, 9 + 20 + 6 + 1
+PHILOX_PAIR_OPS = max(PHILOX_SHARED_OPS + 2 * PHILOX_DRAW_OPS, 2 * 20)
+#: cycles that torch.cuda._sleep spins in front of queued launches (~50 ms)
+SPIN_CYCLES = 100_000_000
 #: float32 operations a (ray, triangle) pair costs in the kernels' two
 #: rejection tests (an FMA counts two; recounted from sphere_miss() in
 #: csrc/nearest_scan.cuh and reject() in csrc/intersect_*.cu) and in their
@@ -91,6 +121,43 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_ms_queued(fn, reps: int) -> float:
+    """Mean milliseconds of ``fn``'s device work over ``reps`` calls with
+    the host's enqueue time taken out: the calls queue up behind a spin
+    kernel, so the device runs them back to back. ``reps`` times the
+    launches of ``fn`` must stay under the stream's queue (~1000)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    before, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    before.record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    host = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    end.record()
+    host = (time.perf_counter() - host) * 1e3
+    torch.cuda.synchronize()
+    spin = before.elapsed_time(start)
+    if host >= spin:
+        raise RuntimeError(f"queued timing: the host took {host:.1f} ms to enqueue, the spin {spin:.1f} ms")
+    return start.elapsed_time(end) / reps
+
+
+def empty_launch_ms() -> dict:
+    """An empty kernel (one warp) through the library's C entry point:
+    what a launch alone costs, as a caller sees it and queued."""
+    import torch
+
+    from theia_tpu_torch import _build
+
+    lib, stream = _build.library(), torch.cuda.current_stream().cuda_stream
+    launch = lambda: _build.check(lib.theia_empty_launch(stream), "empty_launch")
+    return dict(ms=cuda_ms(launch, 200), queued_ms=cuda_ms_queued(launch, 200))
 
 
 def random_rays(n: int, seed: int, device):
@@ -129,56 +196,246 @@ def check_philox(report):
         torch.cuda.synchronize()
         want = philox_uniform_plain(key, ctr, stream.cpu(), dim.cpu(), width)
         assert torch.equal(got.cpu(), want), f"philox width {width} differs"
-    ms = cuda_ms(lambda: philox_uniform(key, ctr, stream, dim, 2), 50)
+    draw = lambda: philox_uniform(key, ctr, stream, dim, 2)
+    ms, queued_ms = cuda_ms(draw, 50), cuda_ms_queued(draw, 50)
     plain_ms = cuda_ms(lambda: philox_uniform_plain(key, ctr, stream, dim, 2), 5)
-    # per lane: 8 bytes read, 8 written; ten rounds of 4 multiplies, 4 xors
-    # and 2 key adds, the counter set-up and two conversions: ~116 int32 ops.
-    # No library call: torch's Philox draws other words from the same key.
-    b = bound(16 * n, 116 * n, PEAK_I32)
-    print(f"kernel philox N={n}: bit-exact (width 1 and 2); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
-          f"bound {b['bound_ms']:.4f} ms by {b['bound_by']}, library call: none")
-    report.update(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
+    # per lane: 8 bytes read, 8 written, and two ciphers under one key, as
+    # dims d and d + 1 of the timed width-2 launch sit in different counter
+    # blocks of one stream. No library call: torch's Philox draws other
+    # words from the same key.
+    b = bound(16 * n, PHILOX_PAIR_OPS * n, PEAK_I32)
+    print(f"kernel philox N={n}: bit-exact (width 1 and 2); kernel {ms:.4f} ms ({queued_ms:.4f} queued), "
+          f"plain {plain_ms:.4f} ms; bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
+          f"({PHILOX_PAIR_OPS} int32 operations a lane at {PEAK_I32:.4g}/s), share of bound "
+          f"{b['bound_ms'] / ms:.3f} ({b['bound_ms'] / queued_ms:.3f} queued), library call: none")
+    report.update(max_abs_err=0.0, ms=ms, queued_ms=queued_ms, plain_ms=plain_ms, library_ms=None, **b)
 
 
-def check_histogram(report):
-    """Kernel 3 against the plain version, rtol 1e-4 per bin (atomic
-    order varies from run to run)."""
+def hist_case(n: int, seed: int, bins: int = 100, n_det=None, kept: float = 0.5, offset: int = 0):
+    """Seeded inputs of one record on the card: (value, time, mask, t0,
+    bin_size, bins, object_id, n_det). Times run from below t0 to past the
+    last bin (~94 % in range at 100 bins), ids from -1 to n_det. With
+    ``offset`` every lane array is a view that starts ``offset`` elements
+    into its storage, so no pointer is aligned for 16-byte loads."""
     import numpy as np
     import torch
 
-    from theia_tpu_torch.response import _hist_bins, histogram_add, histogram_add_plain
+    rng = np.random.default_rng(seed)
+    m = n + offset
+    dev = lambda a: torch.as_tensor(a, device="cuda")[offset:]
+    value = dev(rng.uniform(0.0, 2.0, size=m).astype(np.float32))
+    time_ = dev(rng.uniform(-10.0, 5.0 * bins + 20.0, size=m).astype(np.float32))
+    mask = dev(rng.uniform(size=m) < kept)
+    oid = None if n_det is None else dev(rng.integers(-1, n_det + 1, size=m).astype(np.int32))
+    return value, time_, mask, torch.tensor(0.0, device="cuda"), torch.tensor(5.0, device="cuda"), bins, oid, n_det
 
-    n, bins = 2 * BATCH, 100
-    rng = np.random.default_rng(3)
-    f32 = lambda a: torch.as_tensor(a.astype(np.float32), device="cuda")
-    value = f32(rng.uniform(0.0, 2.0, size=n))
-    time_ = f32(rng.uniform(-10.0, 520.0, size=n))
-    mask = torch.as_tensor(rng.uniform(size=n) < 0.5, device="cuda")
-    t0 = torch.tensor(0.0, device="cuda")
-    bin_size = torch.tensor(5.0, device="cuda")
-    got = histogram_add(torch.zeros(bins, device="cuda"), value, time_, mask, t0, bin_size, bins)
+
+def large_state_cases(n: int):
+    """Two records on a state of 64,000 flat bins (1000 bins, 64
+    detectors), past what the record's shared-memory variant takes: kept
+    lanes spread over all bins, and the same with every kept lane in bin 1
+    of detectors 0 to 3, so that whole warps share a bin."""
+    import torch
+
+    large = hist_case(n, 13, bins=1000, n_det=64)
+    hot = (large[0], torch.full_like(large[1], 7.0), *large[2:6], large[6] % 4, large[7])
+    return large, hot
+
+
+def cpu(case):
+    """``case`` with its tensors copied to the CPU."""
+    import torch
+
+    return tuple(a.cpu() if isinstance(a, torch.Tensor) else a for a in case)
+
+
+def hold_record(case, label) -> float:
+    """The record kernel and its backward on ``case`` against the plain
+    versions on the CPU copy of the inputs: the record within rtol 1e-4 a
+    bin (atomic adds land in an order that changes from run to run, the
+    plain version sums in lane order), the backward bit for bit (it sums
+    nothing). Returns the record's max abs error."""
+    import numpy as np
+    import torch
+
+    from theia_tpu_torch.response import histogram_add, histogram_add_plain, histogram_grad, histogram_grad_plain
+
+    n_state = case[5] * (case[7] or 1)
+    got = histogram_add(torch.zeros(n_state, device="cuda"), *case)
     torch.cuda.synchronize()
-    want = histogram_add_plain(
-        torch.zeros(bins), value.cpu(), time_.cpu(), mask.cpu(), t0.cpu(), bin_size.cpu(), bins
+    want = histogram_add_plain(torch.zeros(n_state), *cpu(case))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=0.0, msg=lambda m: f"histogram_add on {label}: {m}")
+    grad_state = torch.as_tensor(np.random.default_rng(n_state).normal(size=n_state).astype(np.float32))
+    got_grad = histogram_grad(grad_state.cuda(), *case[1:])
+    torch.cuda.synchronize()
+    assert torch.equal(got_grad.cpu(), histogram_grad_plain(grad_state, *cpu(case)[1:])), (
+        f"histogram_grad differs from plain on {label}"
     )
-    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=0.0)
-    state = torch.zeros(bins, device="cuda")
-    ms = cuda_ms(lambda: histogram_add(state, value, time_, mask, t0, bin_size, bins), 50)
-    plain_ms = cuda_ms(
-        lambda: histogram_add_plain(state, value, time_, mask, t0, bin_size, bins), 10
+    return float((got.cpu() - want).abs().max())
+
+
+def forced_bytes(case) -> dict:
+    """Bytes that the record and its backward must move for ``case`` on
+    this card, in 32-byte sectors: the mask of every lane, the time where
+    a sector holds an unmasked lane (it decides the bin), the value where
+    it holds a kept lane, the ids like the time, the state read and
+    written; the backward writes every lane. Also the kept and unmasked
+    shares, the bins in use and the kept lanes of the fullest bin."""
+    import torch
+
+    from theia_tpu_torch.response import _hist_bins
+
+    value, time_, mask, t0, bin_size, bins, oid, n_det = case
+    keep, flat = _hist_bins(time_, mask, t0, bin_size, bins, oid, n_det)
+    n, n_state = mask.shape[0], bins * (n_det or 1)
+    filling = torch.bincount(flat[keep], minlength=n_state)
+    sectors = lambda on: int(torch.nn.functional.pad(on.to(torch.uint8), (0, -n % 8)).reshape(-1, 8).any(1).sum())
+    lanes = 32 * sectors(mask) * (1 if n_det is None else 2)
+    return dict(
+        add=n + lanes + 32 * sectors(keep) + 8 * n_state,
+        grad=n + lanes + 4 * n + 4 * n_state,
+        kept=float(keep.float().mean()), unmasked=float(mask.float().mean()),
+        bins_in_use=int((filling > 0).sum()), fullest_bin=int(filling.max()),
     )
-    err = float((got.cpu() - want).abs().max())
-    # the yardstick: one index_add_ on bins and masked values made beforehand
-    # (the kernel also computes the bins and applies the mask)
-    keep, flat = _hist_bins(time_, mask, t0, bin_size, bins, None, None)
-    masked = torch.where(keep, value, 0.0)
-    library_ms = cuda_ms(lambda: state.index_add_(0, flat, masked), 50)
-    # per item: value, time and mask read (9 bytes); ~8 float32 operations
-    b = bound(9 * n + 8 * bins, 8 * n)
-    print(f"kernel histogram N={n} bins={bins}: rtol 1e-4 ok (max abs err {err:.3g}); "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ {library_ms:.4f} ms; "
-          f"bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
-    report.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, **b)
+
+
+def check_histogram(add_report, grad_report):
+    """The record and its backward (kernel C) against their plain
+    versions: the shapes and alignments a caller may hand in, then the
+    times at the mask-0.5 input and on a state that takes the record's
+    large-state variant."""
+    import torch
+
+    from theia_tpu_torch.response import (
+        SHARED_STATE_MAX, _hist_bins, histogram_add, histogram_add_plain, histogram_grad, histogram_grad_plain,
+    )
+
+    n = 2 * BATCH
+    main = hist_case(n, 3)
+    large, hot = large_state_cases(n)
+    assert large[5] * large[7] > SHARED_STATE_MAX
+    errors = {}
+    for label, case in (
+        (f"N={n}, mask 0.5", main),
+        ("N=1", hist_case(1, 4, kept=1.0)),
+        ("N=3", hist_case(3, 5)),
+        ("N=4099", hist_case(4099, 6)),
+        ("N=4099 with a detector axis", hist_case(4099, 7, bins=50, n_det=3)),
+        (f"views at element 1, N={n + 1}", hist_case(n + 1, 8, offset=1)),
+        ("views at element 3 with a detector axis", hist_case(100_003, 9, bins=50, n_det=3, offset=3)),
+        ("a state of 200 KB (shared memory past 48 KB)", hist_case(n, 10, bins=1000, n_det=50)),
+        ("sparse, 1 lane in 1000 kept", hist_case(n, 11, kept=1e-3)),
+        ("every lane kept", hist_case(n, 12, kept=1.0)),
+        ("the large-state variant", large),
+        ("the large-state variant, views at element 1", hist_case(100_001, 14, bins=1000, n_det=64, offset=1)),
+        ("the large-state variant, 4 bins of 64,000 in use", hot),
+    ):
+        errors[label] = hold_record(case, label)
+    # an all-masked record leaves the state as it was, bit for bit
+    for case in (main, large):
+        state = torch.rand(case[5] * (case[7] or 1), device="cuda") + 1.0
+        want = state.clone()
+        histogram_add(state, *case[:2], torch.zeros_like(case[2]), *case[3:])
+        torch.cuda.synchronize()
+        assert torch.equal(state, want), "an all-masked record changed the state"
+        # NaN and infinite times drop
+        bad = torch.full_like(case[1], float("nan"))
+        bad[1::3], bad[2::3] = float("inf"), float("-inf")
+        histogram_add(state, case[0], bad, *case[2:])
+        torch.cuda.synchronize()
+        assert torch.equal(state, want), "a NaN or infinite time was recorded"
+    # the errors kept are those at the main path's size (a bin there sums ~2,500 values around 1)
+    worst, large_err = errors[f"N={n}, mask 0.5"], errors["the large-state variant"]
+    print(f"kernels histogram_add / histogram_grad: rtol 1e-4 a bin / bit-exact on {len(errors)} cases (odd N, offset "
+          f"views, detector axis, 200 KB state, large-state variant) and on all-masked, NaN and infinite records; "
+          f"max abs err at N={n}, mask 0.5: {worst:.3g}, large-state variant {large_err:.3g}")
+
+    empty = empty_launch_ms()
+    print(f"empty launch: {empty['ms']:.4f} ms as a caller sees it, {empty['queued_ms']:.4f} ms queued")
+
+    def timed_add(label, case) -> dict:
+        value, time_, mask, t0, bin_size, bins, oid, n_det = case
+        n_state = bins * (n_det or 1)
+        state = torch.zeros(n_state, device="cuda")
+        add = lambda: histogram_add(state, *case)
+        ms, queued_ms = cuda_ms(add, 50), cuda_ms_queued(add, 50)
+        plain_ms = cuda_ms(lambda: histogram_add_plain(state, *case), 10)
+        # the yardstick: one index_add_ on bins and masked values made
+        # beforehand (the kernel also computes the bins and applies the mask)
+        keep, flat = _hist_bins(*case[1:])
+        masked = torch.where(keep, value, 0.0)
+        library_ms = cuda_ms(lambda: state.index_add_(0, flat, masked), 50)
+        # a lane: value, time and mask read (9 bytes, 13 with ids), ~8
+        # float32 operations; the state read and written
+        b = bound((9 if n_det is None else 13) * n + 8 * n_state, 8 * n)
+        print(f"kernel histogram_add{label} N={n} bins={n_state}: kernel {ms:.4f} ms ({queued_ms:.4f} queued), "
+              f"plain {plain_ms:.4f} ms, index_add_ {library_ms:.4f} ms; bound {b['bound_ms']:.4f} ms by {b['bound_by']}, "
+              f"share of bound {b['bound_ms'] / ms:.3f} ({b['bound_ms'] / queued_ms:.3f} queued)")
+        return dict(ms=ms, queued_ms=queued_ms, plain_ms=plain_ms, library_ms=library_ms, **b)
+
+    add_report.update(max_abs_err=worst, empty_launch=empty, **timed_add("", main))
+    add_report["large_state"] = dict(
+        n=n, bins=large[5] * large[7], max_abs_err=large_err, **timed_add(" large-state variant", large)
+    )
+
+    back, bins = main[1:], main[5]
+    grad_state = torch.randn(bins, device="cuda")
+    grad = lambda: histogram_grad(grad_state, *back)
+    ms, queued_ms = cuda_ms(grad, 50), cuda_ms_queued(grad, 50)
+    plain_ms = cuda_ms(lambda: histogram_grad_plain(grad_state, *back), 10)
+    # the yardstick: one index_select on bins made beforehand (the kernel
+    # also computes the bins and zeroes the dropped lanes)
+    _, flat = _hist_bins(*back)
+    select = lambda: torch.index_select(grad_state, 0, flat)
+    library_ms, library_queued_ms = cuda_ms(select, 50), cuda_ms_queued(select, 50)
+    # a lane: time and mask read, one float written (9 bytes); ~7 operations
+    b = bound(9 * n + 4 * bins, 7 * n)
+    print(f"kernel histogram_grad N={n} bins={bins}: bit-exact; kernel {ms:.4f} ms ({queued_ms:.4f} queued), "
+          f"plain {plain_ms:.4f} ms, index_select {library_ms:.4f} ms ({library_queued_ms:.4f} queued); "
+          f"bound {b['bound_ms']:.4f} ms by {b['bound_by']}, share of bound {b['bound_ms'] / ms:.3f} "
+          f"({b['bound_ms'] / queued_ms:.3f} queued)")
+    grad_report.update(max_abs_err=0.0, ms=ms, queued_ms=queued_ms, plain_ms=plain_ms, library_ms=library_ms,
+                       library_queued_ms=library_queued_ms, **b)
+
+
+def check_record_replay(records, path, add_report, grad_report):
+    """The recorded records of one flagship batch: the record held against
+    its plain version on each (rtol 1e-4 a bin) and the backward bit for
+    bit, then all of them replayed for the time a batch sees, beside the
+    bound from the bytes these inputs force."""
+    import torch
+
+    from theia_tpu_torch.response import histogram_add, histogram_grad
+
+    worst, forced = 0.0, []
+    for k, case in enumerate(records):
+        worst = max(worst, hold_record(case, f"record {k} of a {path} flagship batch"))
+        forced.append(forced_bytes(case))
+    bins = records[0][5]
+    state, grad_state = torch.zeros(bins, device="cuda"), torch.randn(bins, device="cuda")
+
+    def replay_add():
+        for case in records:
+            histogram_add(state, *case)
+
+    def replay_grad():
+        for case in records:
+            histogram_grad(grad_state, *case[1:])
+
+    lanes = sum(case[2].shape[0] for case in records)
+    for name, fn, report in (("add", replay_add, add_report), ("grad", replay_grad, grad_report)):
+        ms, queued_ms = cuda_ms(fn, 20), cuda_ms_queued(fn, 20)
+        b = bound(sum(f[name] for f in forced), 8 * lanes)
+        print(f"kernel histogram_{name}: the {len(records)} recorded records of a {path} flagship batch ({lanes} lanes) "
+              f"replayed {ms:.4f} ms a batch ({queued_ms:.4f} queued); bound {b['bound_ms']:.4f} ms by {b['bound_by']}, "
+              f"share of bound {b['bound_ms'] / ms:.3f} ({b['bound_ms'] / queued_ms:.3f} queued)")
+        report.setdefault("batch", {})[path] = dict(
+            records=len(records), lanes=lanes, ms=ms, queued_ms=queued_ms, **b,
+            **{key: [f[key] for f in forced] for key in ("kept", "unmasked", "bins_in_use", "fullest_bin")},
+        )
+    add_report["batch"][path]["max_abs_err"] = worst
+    for key, form in (("kept", ".4f"), ("unmasked", ".4f"), ("bins_in_use", "d"), ("fullest_bin", "d")):
+        print(f"    {key} of each record: " + " ".join(format(f[key], form) for f in forced))
 
 
 def bound(n_bytes: float, flop: float, peak: float = PEAK_F32) -> dict:
@@ -321,36 +578,61 @@ def check_nearest(nearest: Nearest, adversarial, queries, report):
     )
 
 
+def record_calls(tracer, module, names, keep):
+    """Run one batch of ``tracer`` and return ``keep(*args)`` of every call
+    it makes to ``module.<name>`` for ``name`` in ``names``, in order. The
+    RNG offset is put back, so the timed batches start where they always
+    did."""
+    import torch
+
+    kept = []
+
+    def recording(fn):
+        def wrapper(*args):
+            kept.append(keep(*args))
+            return fn(*args)
+        wrapper.launches = fn.launches  # a wrapper counts on the name it is called by
+        return wrapper
+
+    saved = {name: getattr(module, name) for name in names}
+    try:
+        for name, fn in saved.items():
+            setattr(module, name, recording(fn))
+        offset = tracer.rng.offset
+        tracer.run()
+        tracer.rng.offset = offset
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
+    torch.cuda.synchronize()
+    return kept
+
+
 def record_queries(tracer, names):
-    """Run one batch of ``tracer`` and return the (origin, direction,
-    t_max) of every call it makes to the nearest-hit wrapper
-    ``accel.<name>`` for ``name`` in ``names``, in order."""
+    """The (origin, direction, t_max) of every call that one batch of
+    ``tracer`` makes to the nearest-hit wrappers ``accel.<name>``."""
     import torch
 
     from theia_tpu_torch import accel
 
-    queries = []
+    def rays(*args):
+        o, d, t_max = args[-3:]
+        t_max = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32, device=o.device), o.shape[:1])
+        return o.clone(), d.clone(), t_max.clone().contiguous()
 
-    def recording(fn):
-        def wrapper(*args):
-            o, d, t_max = args[-3:]
-            t_max = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32, device=o.device), o.shape[:1])
-            queries.append((o.clone(), d.clone(), t_max.clone().contiguous()))
-            return fn(*args)
-        return wrapper
+    return record_calls(tracer, accel, names, rays)
 
-    saved = {name: getattr(accel, name) for name in names}
-    try:
-        for name, fn in saved.items():
-            setattr(accel, name, recording(fn))
-        offset = tracer.rng.offset
-        tracer.run()
-        tracer.rng.offset = offset  # the timed batches start where they always did
-    finally:
-        for name, fn in saved.items():
-            setattr(accel, name, fn)
-    torch.cuda.synchronize()
-    return queries
+
+def record_records(tracer):
+    """The inputs of every ``histogram_add`` call of one batch of
+    ``tracer``, as the tuples that ``hist_case`` makes."""
+    from theia_tpu_torch import response
+
+    def inputs(state, value, time_, mask, t0, bin_size, n_bins, object_id, n_det):
+        oid = None if object_id is None else object_id.clone()
+        return value.detach().clone(), time_.clone(), mask.clone(), t0, bin_size, n_bins, oid, n_det
+
+    return record_calls(tracer, response, ("histogram_add",), inputs)
 
 
 def abc_experiment(nearest_rows: Nearest, report):
@@ -380,38 +662,6 @@ def abc_experiment(nearest_rows: Nearest, report):
         f"B < C: {times['B'] < times['C']}"
     )
     report.update(experiment_ms=times)
-
-
-def check_histogram_grad(report):
-    """Kernel C against the plain version, bit-exact (it sums nothing)."""
-    import numpy as np
-    import torch
-
-    from theia_tpu_torch.response import _hist_bins, histogram_grad, histogram_grad_plain
-
-    n, bins = 2 * BATCH, 100
-    rng = np.random.default_rng(5)
-    f32 = lambda a: torch.as_tensor(a.astype(np.float32), device="cuda")
-    grad_state = f32(rng.normal(size=bins))
-    time_ = f32(rng.uniform(-10.0, 520.0, size=n))
-    mask = torch.as_tensor(rng.uniform(size=n) < 0.5, device="cuda")
-    t0 = torch.tensor(0.0, device="cuda")
-    bin_size = torch.tensor(5.0, device="cuda")
-    got = histogram_grad(grad_state, time_, mask, t0, bin_size, bins)
-    torch.cuda.synchronize()
-    want = histogram_grad_plain(grad_state.cpu(), time_.cpu(), mask.cpu(), t0.cpu(), bin_size.cpu(), bins)
-    assert torch.equal(got.cpu(), want), "histogram backward differs"
-    ms = cuda_ms(lambda: histogram_grad(grad_state, time_, mask, t0, bin_size, bins), 50)
-    plain_ms = cuda_ms(lambda: histogram_grad_plain(grad_state, time_, mask, t0, bin_size, bins), 10)
-    # the yardstick: one index_select on bins made beforehand (the kernel
-    # also computes the bins and zeroes the dropped lanes)
-    _, flat = _hist_bins(time_, mask, t0, bin_size, bins, None, None)
-    library_ms = cuda_ms(lambda: torch.index_select(grad_state, 0, flat), 50)
-    # per item: time and mask read, one float written (9 bytes); ~7 operations
-    b = bound(9 * n + 4 * bins, 7 * n)
-    print(f"kernel histogram_grad N={n} bins={bins}: bit-exact; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"index_select {library_ms:.4f} ms; bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
-    report.update(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=library_ms, **b)
 
 
 def timed_runs(tracer, wrappers, label):
@@ -531,6 +781,9 @@ def main() -> int:
     mt_queries = record_queries(tracer, ("nearest_triangle_mt_rows",))
     woop_queries = record_queries(pol_tracer, ("nearest_triangle_woop",))
     assert len(mt_queries) == len(woop_queries) == 2 * MAX_PATH - 1, (len(mt_queries), len(woop_queries))
+    mt_records, woop_records = record_records(tracer), record_records(pol_tracer)
+    for records in (mt_records, woop_records):  # 10 of N lanes, 9 of 2 N
+        assert sorted(r[2].shape[0] for r in records) == [BATCH] * MAX_PATH + [2 * BATCH] * (MAX_PATH - 1)
     for name, queries in (
         ("nearest_triangle_mt", mt_queries),
         ("nearest_triangle_woop", woop_queries),
@@ -543,8 +796,10 @@ def main() -> int:
             abc_experiment(nearest, kernels[name])
     del mt_queries, woop_queries, queries, nearest
     check_philox(kernels["philox_uniform"])
-    check_histogram(kernels["histogram_add"])
-    check_histogram_grad(kernels["histogram_grad"])
+    check_histogram(kernels["histogram_add"], kernels["histogram_grad"])
+    for path, records in (("mt", mt_records), ("polarized woop", woop_records)):
+        check_record_replay(records, path, kernels["histogram_add"], kernels["histogram_grad"])
+    del mt_records, woop_records, records
 
     # phase 3: the first main path (accel="mt") at full width
     wrappers = {
@@ -557,7 +812,7 @@ def main() -> int:
     seconds, sums, counts, peak = timed_runs(tracer, wrappers, "mt path")
     assert counts["nearest_triangle_mt_rows"] == 19 * 3, counts  # 10 primary + 9 shadow
     assert counts["nearest_triangle_mt"] == counts["nearest_triangle_woop"] == 0, counts
-    assert counts["philox_uniform"] > 0 and counts["histogram_add"] > 0, counts
+    assert counts["philox_uniform"] > 0 and counts["histogram_add"] == 19 * 3, counts
     med = statistics.median(seconds)
     print(
         f"main path (mt): batch {BATCH}, path length {MAX_PATH}, {tracer.scene.pack.mt.n_tri} triangles: "
@@ -596,7 +851,7 @@ def main() -> int:
     pol_seconds, pol_sums, pol_counts, pol_peak = timed_runs(pol_tracer, wrappers, "woop path")
     assert pol_counts["nearest_triangle_woop"] == 19 * 3, pol_counts
     assert pol_counts["nearest_triangle_mt"] == pol_counts["nearest_triangle_mt_rows"] == 0, pol_counts
-    assert pol_counts["philox_uniform"] > 0 and pol_counts["histogram_add"] > 0, pol_counts
+    assert pol_counts["philox_uniform"] > 0 and pol_counts["histogram_add"] == 19 * 3, pol_counts
     pol_med = statistics.median(pol_seconds)
     print(
         f"main path (woop, polarized): batch {BATCH}, path length {MAX_PATH}: "
@@ -633,7 +888,7 @@ def main() -> int:
     grad_peak = torch.cuda.max_memory_allocated()
     assert np.isfinite(grad).all() and np.isfinite(loss), "non-finite gradient"
     assert grad.sum() <= 0.0, f"d sum / d mu_a summed is {grad.sum()} > 0"
-    assert grad_launches > 0, "the histogram backward never launched"
+    assert grad_launches == 2 * MAX_PATH - 1, f"the histogram backward launched {grad_launches} times"
     print(
         f"gradient (woop, polarized): batch {grad_batch}{'' if grad_batch == BATCH else ' (largest that fits)'}, "
         f"path length {MAX_PATH}: forward + backward {grad_seconds:.4f} s, peak memory "

@@ -140,7 +140,8 @@ def test_nearest_kernels_on_hard_rays(cuda, name):
     for bit, where a wrong rejection would show: adversarial rays (through
     vertices, along edges, in a triangle's plane, off a surface, with NaN
     and huge rays among them) and every query of one recorded flagship
-    batch (batch 8192, path length 4)."""
+    batch (batch 8192, path length 4). The batch's records go through the
+    histogram kernels the same way."""
     import chip_smoke
     import theia_tpu_torch
     from torch_flagship import adversarial_rays, build_flagship, icosphere
@@ -161,8 +162,72 @@ def test_nearest_kernels_on_hard_rays(cuda, name):
         tracer, ("nearest_triangle_woop" if woop else "nearest_triangle_mt_rows",)
     )
     assert len(queries) == 7
+    records = chip_smoke.record_records(tracer)
+    assert len(records) == 7
+    for k, record in enumerate(records):
+        chip_smoke.hold_record(record, f"record {k} of a flagship batch")
     for q in queries:
         nearest.check(q, "a recorded flagship query", on_cpu=False)
         # with t_max at the hit, that hit no longer counts
         t_hit = nearest.run(nearest.kernel, nearest.pack, q)[0]
         nearest.check((q[0], q[1], t_hit.contiguous()), "t_max at the hit", on_cpu=False)
+
+
+#: arguments of ``chip_smoke.hist_case``: the sizes, states and alignments
+#: of the CPU tests of the record, and the states that take the record's
+#: other code paths on the card
+HIST_CASES = {
+    "n1": dict(n=1, kept=1.0),
+    "n3": dict(n=3),
+    "n5": dict(n=5),
+    "n1023": dict(n=1023),
+    "n4099": dict(n=4099),
+    "detector_axis": dict(n=4099, bins=50, n_det=3),
+    "above_1024_bins": dict(n=4099, bins=600, n_det=3),
+    "views_at_element_1": dict(n=20_001, offset=1),  # the bool mask starts at an odd byte
+    "views_at_element_3_detector_axis": dict(n=20_002, bins=50, n_det=3, offset=3),
+    "state_of_200_KB": dict(n=20_000, bins=1000, n_det=50),
+    "large_state": dict(n=20_000, bins=1000, n_det=64),
+    "large_state_views_at_element_1": dict(n=20_001, bins=1000, n_det=64, offset=1),
+    "large_state_all_kept": dict(n=20_000, bins=1000, n_det=64, kept=1.0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(HIST_CASES))
+def test_histogram_kernels_on_cases(cuda, name):
+    """The record (rtol 1e-4 a bin: atomic order) and its backward (bit for
+    bit) against their plain versions, with times on exact bin edges, NaN
+    and infinite times among the lanes."""
+    import chip_smoke
+    from theia_tpu_torch.response import SHARED_STATE_MAX, histogram_add, histogram_grad
+
+    kw = HIST_CASES[name]
+    value, time, mask, t0, bin_size, bins, oid, n_det = chip_smoke.hist_case(seed=len(name), **kw)
+    assert (bins * (n_det or 1) > SHARED_STATE_MAX) == name.startswith("large_state")
+    assert value.data_ptr() % 16 == 4 * kw.get("offset", 0) and mask.data_ptr() % 4 == kw.get("offset", 0)
+    lane = torch.arange(time.shape[0], device=cuda)
+    time[lane % 7 == 1] = 5.0 * (lane[lane % 7 == 1] % (bins + 3) - 1).float()  # edges, from below t0 to past the end
+    time[lane % 11 == 3] = float("nan")
+    time[lane % 13 == 5] = float("inf")
+    time[lane % 17 == 7] = float("-inf")
+    before = histogram_add.launches, histogram_grad.launches
+    chip_smoke.hold_record((value, time, mask, t0, bin_size, bins, oid, n_det), name)
+    assert (histogram_add.launches, histogram_grad.launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("name", ["n4099", "views_at_element_1", "large_state", "large_state_views_at_element_1"])
+def test_histogram_all_masked_leaves_state(cuda, name):
+    """A record whose lanes are all masked, or all out of range, leaves the
+    state bit-equal, and its backward is zero."""
+    import chip_smoke
+    from theia_tpu_torch.response import histogram_add, histogram_grad
+
+    value, time, mask, *rest = chip_smoke.hist_case(seed=1, **HIST_CASES[name])
+    state = torch.rand(rest[2] * (rest[4] or 1), device=cuda) + 1.0
+    want = state.clone()
+    nowhere = torch.full_like(time, float("nan"))
+    for t, m in ((time, torch.zeros_like(mask)), (nowhere, mask), (-1.0 - time.abs(), mask)):
+        histogram_add(state, value, t, m, *rest)
+        torch.cuda.synchronize()
+        assert torch.equal(state, want)
+        assert not histogram_grad(state, t, m, *rest).any()

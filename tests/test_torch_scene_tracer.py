@@ -165,3 +165,32 @@ def test_unported_configurations_raise():
             64, tracer.source, tracer.wavelengthSource, tracer.response,
             tracer.rng, tracer.scene, polarized=True, device="cpu",
         )
+
+
+def test_entry_points_default_to_the_card():
+    """``Scene``, ``SceneForwardTracer`` and ``MaterialStore.pack`` run on
+    the card unless the caller names another device: without a card the
+    default raises and names ``device="cpu"``; it never runs on the CPU
+    unasked."""
+    import torch
+
+    from theia_tpu_torch.component import resolve_device
+
+    mesh = icosphere(1)
+    if torch.cuda.is_available():
+        tracer = build_flagship(theia_tpu_torch, mesh, 64, 2)
+        assert tracer.device.type == tracer.scene.device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_flagship(theia_tpu_torch, mesh, 64, 2)  # MaterialStore.pack is the first to refuse
+    cpu = build_flagship(theia_tpu_torch, mesh, 64, 2, device="cpu")
+    for make in (
+        lambda: theia_tpu_torch.scene.Scene(cpu.scene.instances, cpu.scene.materials, medium="water", accel="mt"),
+        lambda: theia_tpu_torch.trace.scene.SceneForwardTracer(
+            64, cpu.source, cpu.wavelengthSource, cpu.response, cpu.rng, cpu.scene, targetGuide=cpu.targetGuide
+        ),
+        lambda: resolve_device("cuda:0"),
+    ):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    assert resolve_device("cpu") == torch.device("cpu")

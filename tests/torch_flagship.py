@@ -61,8 +61,8 @@ def build_flagship(
 ):
     """The flagship tracer of package ``pkg`` (``theia_tpu`` or
     ``theia_tpu_torch``) on the sphere ``mesh`` = (positions, faces).
-    ``device`` is required by ``theia_tpu_torch`` and must be None for
-    ``theia_tpu``. ``polarized`` is passed through as
+    ``device`` goes to ``theia_tpu_torch``'s constructors, which default
+    to the card when it is None; it must be None for ``theia_tpu``. ``polarized`` is passed through as
     ``_build_scene_tracer`` does. ``source_position`` moves the light
     source alone; the glass shells stay centred at (3, 0, 0). Off centre,
     direct rays meet the shells at oblique incidence, where the Fresnel

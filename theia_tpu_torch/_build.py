@@ -49,6 +49,7 @@ _SIGNATURES = {
     "theia_philox_uniform": (_U, _U, _U, _U, _U, _U, _P, _P, _I, _I, _P, _P),
     "theia_histogram_add": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
     "theia_histogram_grad": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
+    "theia_empty_launch": (_P,),
 }
 
 
@@ -103,7 +104,8 @@ def build(
     """Build (if needed) and load the sources of ``csrc`` with extra
     ``-D`` flags ``defines``; cached per process. Only measurement scripts
     pass arguments: another count of rays a block of the nearest-hit scan
-    (``THEIA_RAYS_PER_THREAD``), or the sources of an
+    (``THEIA_RAYS_PER_THREAD``), the record's large-state variant on every
+    state (``THEIA_HISTOGRAM_SHARED_MAX=0``), or the sources of an
     earlier commit with their ``signatures`` as ``(name, argtypes)``
     pairs, to time it beside the current kernels."""
     flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)

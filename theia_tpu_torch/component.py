@@ -13,7 +13,20 @@ from typing import Any
 import numpy as np
 import torch
 
-__all__ = ["Component", "TraceConfig"]
+__all__ = ["Component", "TraceConfig", "resolve_device"]
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``. Entry points default to the card
+    (``"cuda"``); asked for a card that is not there they raise here
+    rather than run on the CPU, which a caller gets with ``device="cpu"``."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={str(device)!r} needs a card (the default device is 'cuda'), but "
+            "torch.cuda.is_available() is false; pass device='cpu' to run on the CPU"
+        )
+    return device
 
 
 def _to_tensor(value, device):

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from . import units as u
+from .component import resolve_device
 
 __all__ = [
     "speed_of_light",
@@ -206,7 +207,8 @@ class MediumStore:
     const4_ok: bool = False
 
     @staticmethod
-    def pack(media: list[Medium], *, device) -> "MediumStore":
+    def pack(media: list[Medium], *, device="cuda") -> "MediumStore":
+        device = resolve_device(device)
         names = ["vacuum"] + [m.name for m in media]
         if len(set(names)) != len(names):
             raise ValueError("duplicate medium names")
@@ -338,7 +340,8 @@ class MaterialStore:
     material_names: tuple[str, ...] = field(default=())
 
     @staticmethod
-    def pack(materials: list[Material], *, device) -> "MaterialStore":
+    def pack(materials: list[Material], *, device="cuda") -> "MaterialStore":
+        device = resolve_device(device)
         med: dict[str, Medium] = {}
 
         def add(m):

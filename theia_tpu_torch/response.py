@@ -6,8 +6,10 @@ normalization (reference: src/theia/response.py,
 shader/response.histogram.glsl, estimator.reduce.glsl:17-35).
 
 :func:`histogram_add` is the histogram's accumulation: on CUDA tensors it
-launches the atomic-add kernel of ``csrc/histogram.cu``, on CPU tensors it
-runs :func:`histogram_add_plain`. It is differentiable in ``value``: its
+launches a kernel of ``csrc/histogram.cu`` (a block-private histogram in
+shared memory for states of up to :data:`SHARED_STATE_MAX` flat bins, adds
+merged by warp straight to the state above), on CPU tensors it runs
+:func:`histogram_add_plain`. It is differentiable in ``value``: its
 backward, :func:`histogram_grad`, gathers the state's gradient at each
 kept lane's bin (the gather kernel of ``csrc/histogram.cu`` on CUDA,
 :func:`histogram_grad_plain` on the CPU).
@@ -31,7 +33,13 @@ __all__ = [
     "histogram_add_plain",
     "histogram_grad",
     "histogram_grad_plain",
+    "SHARED_STATE_MAX",
 ]
+
+#: the largest state (flat bins) that the record's kernel keeps as a
+#: block-private histogram in shared memory: 226 KB of floats; equals
+#: kSharedMaxFloats of ``csrc/histogram.cu``
+SHARED_STATE_MAX = 57_856
 
 
 class ValueResponse(Component):
@@ -184,7 +192,15 @@ def histogram_add(
     (N,); ``mask``: bool (N,); ``t0``/``bin_size``: f32 0-d tensors on the
     state's device; ``object_id``: i32 (N,) when ``n_detectors`` is set.
     CUDA tensors launch ``csrc/histogram.cu``, CPU tensors run the plain
-    version. Differentiable in ``value`` (and through ``state``); ``time``
+    version. Which of the kernel's two variants runs follows from the
+    state's size alone: up to :data:`SHARED_STATE_MAX` flat bins each
+    block sums into a histogram of its own in shared memory and then adds
+    its non-zero bins to ``state``; above, lanes add straight to ``state``
+    after the lanes of a warp that share a bin are merged. The inputs may
+    be views at any offset (the kernel reads 16 bytes at a time only where
+    every pointer allows it). Atomic adds land in an order that changes
+    from run to run, so a bin agrees with a sequential sum to float32
+    rounding only. Differentiable in ``value`` (and through ``state``); ``time``
     takes no gradient, as in JAX where the bins come from a floor of the
     detached time, so an attached ``time`` is refused."""
     if time.requires_grad:
@@ -216,7 +232,8 @@ def histogram_grad(
     """Backward of :func:`histogram_add` in ``value``: returns f32 (N,)
     ``grad_state[det * n_bins + bin]`` on kept lanes and 0 on dropped
     ones, with the forward's bins. CUDA tensors launch the gather kernel
-    of ``csrc/histogram.cu``, CPU tensors run the plain version."""
+    of ``csrc/histogram.cu`` (bit-equal to the plain version: it sums
+    nothing), CPU tensors run the plain version."""
     n = time.shape[0]
     _check_hist(
         grad_state, None, time, mask, t0, bin_size, n_bins, object_id, n_detectors,

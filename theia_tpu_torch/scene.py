@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from . import units as u
+from .component import resolve_device
 from .material import MaterialStore, MediumStore
 from .mesh import Mesh
 from .ops.intersect_mt import MTPack, morton_order, pack_mt
@@ -186,7 +187,8 @@ class ScenePack:
 class Scene:
     """Scene = instances + material store + surrounding medium
     (reference: src/theia/scene.py:608-710). Tables are built on
-    ``device``."""
+    ``device``: the card unless the caller names another; without a card
+    the default raises, and ``device="cpu"`` runs on the CPU."""
 
     def __init__(
         self,
@@ -196,7 +198,7 @@ class Scene:
         medium: str | None = None,
         bbox: RectBBox | None = None,
         accel: str = "auto",
-        device,
+        device="cuda",
     ) -> None:
         if accel not in ("mt", "woop"):
             raise NotImplementedError(
@@ -207,7 +209,7 @@ class Scene:
         self.materials = materials
         self.medium = medium
         self.accel = accel
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.bbox = bbox if bbox is not None else RectBBox(
             (-1.0 * u.km,) * 3, (1.0 * u.km,) * 3
         )

@@ -31,7 +31,7 @@ import torch
 from .. import units as u
 from ..accel import SurfaceHit, intersect_scene, intersect_target, offset_ray
 from ..callback import EmptyEventCallback, TraceEventCallback
-from ..component import TraceConfig
+from ..component import TraceConfig, resolve_device
 from ..light import LightSource, WavelengthSource
 from ..material import MaterialFlags, MediumConstants, lookup_packed, packed_medium_constants
 from ..ops.math3d import dot, local_frame, normalize
@@ -144,7 +144,8 @@ def _refract(i, n, eta):
 class SceneForwardTracer(TracerBase):
     """Forward path tracing against a scene (reference:
     src/theia/trace.py:1048-1336). Lanes and parameters live on
-    ``device``."""
+    ``device``: the card unless the caller names another; without a card
+    the default raises, and ``device="cpu"`` runs on the CPU."""
 
     name = "Scene Forward Tracer"
     _param_names = ("targetId", "scatterCoefficient", "maxTime")
@@ -167,7 +168,7 @@ class SceneForwardTracer(TracerBase):
         sourceMedium: str | None = None,
         maxTime: float = 1000.0 * u.ns,
         polarized: bool = False,
-        device,
+        device="cuda",
     ) -> None:
         if targetGuide is None:
             raise NotImplementedError(
@@ -179,7 +180,7 @@ class SceneForwardTracer(TracerBase):
             raise NotImplementedError(
                 "responses that draw random numbers are not ported yet"
             )
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._init_batch(batchSize, capacity)
         self.source = source
         self.wavelengthSource = wavelengthSource
