@@ -31,7 +31,16 @@ Phases, one line each, any failure raises and exits non-zero:
    rejection tests is counted with their plain twins. The
    Moeller-Trumbore kernel with winner rows also runs the A/B/C
    experiment of ``tools/exp_mt_fused.py`` (kernel alone, kernel with
-   rows, kernel plus a torch gather);
+   rows, kernel plus a torch gather). The three soup entry points
+   (nearest hit over groups of the brute-force soup with a lane mask,
+   the same with winner rows, any hit) are held bit for bit against
+   their plain versions the same way: random rays at N = 262,144 and
+   524,288, with random lane masks and on group ranges, with per-lane
+   bounds at, just below and just above a hit, adversarial rays, soups
+   of 1, 255, 257 and 3840 triangles and groups that end inside a
+   chunk, and the recorded queries of one brute-force flagship batch
+   (rays, bounds, groups and masks as the tracer passed them), replayed
+   for ms a batch;
 3. the first main path at full width: the flagship scene tracer
    (262,144 lanes, path length 10, 3840 triangles, 100 bins,
    ``accel="mt"``) through ``run()``, one warm-up batch and three timed
@@ -41,10 +50,18 @@ Phases, one line each, any failure raises and exits non-zero:
    Woop query (``accel="woop", polarized=True``), the same way;
 3c. its gradient at full width: one ``trace_fn()`` forward and backward
    of sum(histogram state) with respect to the water absorption table;
+3d. the third main path at full width: the brute-force flagship, the
+   scene with no ``accel`` named (``"auto"`` resolves to ``"brute"``),
+   with its launches a batch (10 primary nearest hits and 9 nearest hits
+   over the detector, all with winner rows, 9 any-hits over the
+   occluders, none of the other nearest-hit kernels); then seconds per
+   batch with the winners' rows from the kernel and from a torch gather,
+   in turns; then the ``mt``, unpolarized ``woop`` and brute-force
+   flagships in turns, for seconds per batch that can be compared;
 4. the port on the CPU against the port on the card: the unpolarized
-   ``mt`` flagship and the polarized ``woop`` flagship with the source
-   off centre at batch 4096, and the gradient at batch 2048, path
-   length 3.
+   ``mt`` flagship, the brute-force flagship and the polarized ``woop``
+   flagship with the source off centre at batch 4096, and the gradient
+   at batch 2048, path length 3.
 
 Every path's launch counts are set to 0 just before it runs and read
 just after. Then one JSON line of kernels (name, route, source,
@@ -578,6 +595,196 @@ def check_nearest(nearest: Nearest, adversarial, queries, report):
     )
 
 
+#: the soup entry points of ops/intersect_soup.py and the JAX functions they replace
+SOUP_KERNELS = {
+    "nearest_in_table_rows": "theia_tpu/accel.py:73",
+    "nearest_in_table": "theia_tpu/accel.py:73",
+    "anyhit_in_table": "theia_tpu/accel.py:188",
+}
+
+
+class Soup:
+    """One of the three soup entry points with its plain version, the
+    scene's table on the card and one derived on the CPU."""
+
+    def __init__(self, name, scene_pack):
+        import torch
+
+        from theia_tpu_torch.ops import intersect_mt as tmt
+        from theia_tpu_torch.ops import intersect_soup as tsoup
+
+        self.name, self.any_hit = name, name.startswith("anyhit")
+        self.rows = scene_pack.tri_data if name.endswith("_rows") else None
+        self.kernel, self.plain = getattr(tsoup, name), getattr(tsoup, name + "_plain")
+        self.tables = (scene_pack.soup, scene_pack.soup.to("cpu"))
+        self.rejects = (tmt._mt_sphere_miss_plain, tmt._mt_reject_plain)
+        # the tables are derived on their device (see Nearest)
+        torch.testing.assert_close(self.tables[1].aos, self.tables[0].aos.cpu(), rtol=1e-6, atol=1e-7)
+        assert torch.equal(self.tables[1].chunk_box, self.tables[0].chunk_box.cpu()), "chunk boxes differ"
+
+    def run(self, fn, table, rays, groups=None, active=None, **kw):
+        head = (table,) if self.rows is None else (table, self.rows.to(rays[0].device))
+        out = fn(*head, *rays, groups=groups, active=active, **kw)
+        return (out,) if self.any_hit else out
+
+    def check(self, rays, label, on_cpu: bool, groups=None, active=None, count: bool = False, tables=None):
+        """Kernel against plain (on the CPU copy of the inputs and the CPU
+        table, or on the card), bit for bit; returns (share of lanes with
+        a hit, stats as ``Nearest.check`` counts them)."""
+        import torch
+
+        from theia_tpu_torch.ops.intersect_mt import CHUNK
+
+        card, host = tables or self.tables
+        got = self.run(self.kernel, card, rays, groups, active)
+        torch.cuda.synchronize()
+        table, stats = (host if on_cpu else card), {}
+        if count:
+            stats["tests"] = {
+                name: (lambda o, d, c0, reject=reject: ~reject(table.aos[c0 : c0 + CHUNK], o, d))
+                for name, reject in zip(("sphere", "both"), self.rejects)
+            }
+        if on_cpu:
+            rays, active = [r.cpu() for r in rays], None if active is None else active.cpu()
+            got = [g.cpu() for g in got]
+        want = self.run(self.plain, table, rays, groups, active, stats=stats)
+        for what, g, w in zip(("flag",) if self.any_hit else ("t", "idx", "rows"), got, want):
+            assert torch.equal(g, w), f"{self.name}: {what} differs from plain on {label}"
+        stats.pop("tests", None)
+        hit = want[0] if self.any_hit else want[1] >= 0
+        return float(hit.float().mean()), stats
+
+    def ray_bytes(self, n_rays: int, active=None) -> int:
+        """The bytes a query of ``n_rays`` lanes must move for its rays:
+        28 read for a ray that is asked for, a byte of the mask where there
+        is one, and every lane's answer written (a flag, or t and idx, and
+        the winner's row)."""
+        out = 1 if self.any_hit else 8 if self.rows is None else 8 + 128
+        if active is None:
+            return n_rays * (28 + out)
+        return int(active.sum()) * 28 + n_rays * (1 + out)
+
+    def bound(self, ray_bytes: int, n_chunks: int, stats: dict) -> dict:
+        """The least time for queries whose rays need ``ray_bytes`` in all
+        (:meth:`ray_bytes`) over ``n_chunks`` chunks in all, whose needed
+        pairs ``stats`` counts: besides the rays, each visited chunk's
+        rows and box read, and its rows of the winners' table."""
+        n_bytes = ray_bytes + n_chunks * (256 * 80 + 32 + 12)
+        if self.rows is not None:
+            n_bytes += n_chunks * 256 * 128
+        f0, f1, f2 = PAIR_FLOP["mt"]
+        flop = stats.get("pairs", 0) * f0 + stats.get("sphere", 0) * f1 + stats.get("both", 0) * f2
+        return bound(n_bytes, flop)
+
+
+def check_soup(soup: Soup, adversarial, queries, report):
+    """A soup kernel against its plain version, bit-equal: random rays at
+    N = 262,144 and 524,288 with times and bound, lane masks, group
+    ranges, bounds at and beside a hit, adversarial rays, small and oddly
+    cut soups, and the recorded queries of one brute-force flagship
+    batch, replayed for the time and bound a batch sees."""
+    import torch
+
+    from theia_tpu_torch.ops.intersect_soup import SoupTable, nearest_in_table
+
+    name, card = soup.name, soup.tables[0]
+    n_all = card.n_chunks
+    for n in (BATCH, 2 * BATCH):
+        rays = random_rays(n, n + len(name), "cuda")
+        hits, _ = soup.check(rays, f"random rays N={n}", on_cpu=(n == BATCH))
+        _, stats = soup.check(rays, f"random rays N={n} (plain on the card)", on_cpu=False, count=True)
+        ms = cuda_ms(lambda: soup.run(soup.kernel, card, rays), 20)
+        plain_ms = cuda_ms(lambda: soup.run(soup.plain, card, rays), 2)
+        b = soup.bound(soup.ray_bytes(n), n_all, stats)
+        print(
+            f"kernel {name} N={n}: bit-equal to plain, hits {hits:.4f}; kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms; {stats['pairs']} of {n * card.n_tri} pairs needed, "
+            f"{stats['sphere']} of them survive the sphere test and {stats['both']} both rejection tests; "
+            f"bound {b['bound_ms']:.4f} ms by {b['bound_by']}, share of bound {b['bound_ms'] / ms:.3f}"
+        )
+        if n == BATCH:
+            report.update(ms=ms, plain_ms=plain_ms, **b, n=n, **stats)
+        else:
+            report.update(double=dict(n=n, ms=ms, plain_ms=plain_ms, **b, **stats))
+    # lane masks and group ranges, and bounds at, just below and just above the nearest hit
+    rays = random_rays(BATCH, 5 + len(name), "cuda")
+    gen = torch.Generator("cuda").manual_seed(17)
+    cases = 0
+    for kept in (0.5, 0.02, 0.0):
+        active = torch.rand(BATCH, device="cuda", generator=gen) < kept
+        for groups in (None, [2], [0, 1], [1, 2]):
+            soup.check(rays, f"mask {kept}, groups {groups}", on_cpu=False, groups=groups, active=active)
+            cases += 1
+    # the plain version runs on the CPU for the rest: an eighth of the rays
+    rays = tuple(r[: BATCH // 8].contiguous() for r in rays)
+    t_hit = nearest_in_table(card, rays[0], rays[1], torch.inf)[0]
+    t_hit = torch.where(torch.isfinite(t_hit), t_hit, 3.0)
+    for label, t_max in (
+        ("at", t_hit),
+        ("just below", torch.nextafter(t_hit, torch.zeros_like(t_hit))),
+        ("just above", torch.nextafter(t_hit, torch.full_like(t_hit, torch.inf))),
+        ("zero, negative and NaN", torch.where(rays[2] < 2.0, torch.nan, rays[2] - 3.0)),
+    ):
+        soup.check((rays[0], rays[1], t_max.contiguous()), f"bounds {label} the hit", on_cpu=True)
+        cases += 1
+    # soups of 1, 255, 257 and 3840 triangles, and groups that end inside a chunk (one of them empty)
+    v0, e1, e2 = card.soup
+    for n_tri in (1, 255, 257, 3840):
+        small = SoupTable(v0[-n_tri:].contiguous(), e1[-n_tri:].contiguous(), e2[-n_tri:].contiguous())
+        if soup.rows is None:
+            soup.check(rays, f"a soup of {n_tri}", on_cpu=True, tables=(small, small.to("cpu")))
+            cases += 1
+    odd = SoupTable(v0, e1, e2, ((0, 100), (100, 100), (100, 1000), (1000, 2561), (2561, 3840)))
+    for groups in (None, [0, 2], [1], [3, 4]):
+        soup.check(rays, f"oddly cut groups {groups}", on_cpu=True, groups=groups, tables=(odd, odd.to("cpu")))
+        cases += 1
+    hits, _ = soup.check(adversarial, "adversarial rays", on_cpu=True)
+    print(f"kernel {name}: bit-equal to plain on {cases} cases of masks, groups, bounds beside a hit and small or "
+          f"oddly cut soups, and on {adversarial[0].shape[0]} adversarial rays (hits {hits:.4f})")
+    # the recorded batch: bit-equality (plain on the card), then a replay
+    total, n_rays, n_chunks, unmasked, ray_bytes = dict(pairs=0, sphere=0, both=0), 0, 0, 0, 0
+    for o, d, t_max, groups, active in queries:
+        _, stats = soup.check((o, d, t_max), "a recorded flagship query", on_cpu=False, groups=groups,
+                              active=active, count=True)
+        n_rays, n_chunks = n_rays + o.shape[0], n_chunks + len(card.visits(groups))
+        unmasked += o.shape[0] if active is None else int(active.sum())
+        ray_bytes += soup.ray_bytes(o.shape[0], active)
+        total = {k: v + stats.get(k, 0) for k, v in total.items()}
+
+    def replay():
+        for o, d, t_max, groups, active in queries:
+            soup.run(soup.kernel, card, (o, d, t_max), groups, active)
+
+    batch_ms, queued_ms = cuda_ms(replay, 5), cuda_ms_queued(replay, 5)
+    b = soup.bound(ray_bytes, n_chunks, total)
+    print(
+        f"kernel {name}: bit-equal to plain on the {len(queries)} recorded queries of a brute-force flagship batch "
+        f"({n_rays} rays, {unmasked} unmasked); replayed {batch_ms:.4f} ms a batch ({queued_ms:.4f} queued); "
+        f"{total['pairs']} pairs needed, "
+        f"{total['sphere']} / {total['both']} of them survive; "
+        f"bound {b['bound_ms']:.4f} ms by {b['bound_by']}, share of bound {b['bound_ms'] / batch_ms:.3f}"
+    )
+    report.update(
+        max_abs_err=0.0, library_ms=None,
+        batch=dict(queries=len(queries), rays=n_rays, unmasked=unmasked, ms=batch_ms, queued_ms=queued_ms, **total, **b),
+    )
+
+
+def record_soup_queries(tracer, name):
+    """(origin, direction, t_max, groups, active) of every call that one
+    batch of ``tracer`` makes to the soup wrapper ``accel.<name>``."""
+    import torch
+
+    from theia_tpu_torch import accel
+
+    def query(*args, groups=None, active=None):
+        o, d, t_max = args[-3:]
+        t_max = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32, device=o.device), o.shape[:1])
+        return o.clone(), d.clone(), t_max.clone().contiguous(), groups, None if active is None else active.clone()
+
+    return record_calls(tracer, accel, (name,), query)
+
+
 def record_calls(tracer, module, names, keep):
     """Run one batch of ``tracer`` and return ``keep(*args)`` of every call
     it makes to ``module.<name>`` for ``name`` in ``names``, in order. The
@@ -588,9 +795,9 @@ def record_calls(tracer, module, names, keep):
     kept = []
 
     def recording(fn):
-        def wrapper(*args):
-            kept.append(keep(*args))
-            return fn(*args)
+        def wrapper(*args, **kw):
+            kept.append(keep(*args, **kw))
+            return fn(*args, **kw)
         wrapper.launches = fn.launches  # a wrapper counts on the name it is called by
         return wrapper
 
@@ -720,6 +927,7 @@ def main() -> int:
     import theia_tpu_torch
     from theia_tpu_torch import _build, accel
     from theia_tpu_torch.ops.intersect_mt import nearest_triangle_mt, nearest_triangle_mt_rows
+    from theia_tpu_torch.ops.intersect_soup import anyhit_in_table, nearest_in_table, nearest_in_table_rows
     from theia_tpu_torch.ops.intersect_woop import nearest_triangle_woop
     from theia_tpu_torch.random import philox_uniform
     from theia_tpu_torch.response import histogram_add, histogram_grad
@@ -743,6 +951,8 @@ def main() -> int:
     # phase 2: kernels against their plain versions at the main path's shapes
     mesh = icosphere(3)
     tracer = build_flagship(theia_tpu_torch, mesh, BATCH, MAX_PATH, device="cuda")
+    brute_tracer = build_flagship(theia_tpu_torch, mesh, BATCH, MAX_PATH, accel="auto", device="cuda")
+    assert brute_tracer.scene.accel == "brute", brute_tracer.scene.accel
     pol_tracer = build_flagship(
         theia_tpu_torch, mesh, BATCH, MAX_PATH, accel="woop", polarized=True, device="cuda"
     )
@@ -771,6 +981,10 @@ def main() -> int:
             route="cuda", source="theia_tpu_torch/csrc/histogram.cu",
             replaces="theia_tpu/response.py:226",
         ),
+        **{
+            name: dict(route="cuda", source="theia_tpu_torch/csrc/intersect_soup.cu", replaces=replaces)
+            for name, replaces in SOUP_KERNELS.items()
+        },
     }
     rows = tracer.scene.pack.tri_data[:, 18:27].cpu().numpy()
     adversarial = tuple(
@@ -795,23 +1009,43 @@ def main() -> int:
         if name == "nearest_triangle_mt_rows":
             abc_experiment(nearest, kernels[name])
     del mt_queries, woop_queries, queries, nearest
+    soup_rows = brute_tracer.scene.pack.tri_data[:, 18:27].cpu().numpy()
+    assert (soup_rows[:, 0:3] != rows[:, 0:3]).any(), "the brute-force soup is in instance order, not Morton order"
+    # the 10 primary queries (every group, no mask) and the 9 detector queries of the shadow pairs
+    soup_queries = record_soup_queries(brute_tracer, "nearest_in_table_rows")
+    assert len(soup_queries) == 2 * MAX_PATH - 1, len(soup_queries)
+    assert sum(q[3] is not None and q[4] is not None for q in soup_queries) == MAX_PATH - 1
+    for name in SOUP_KERNELS:
+        queries = soup_queries
+        if name == "anyhit_in_table":
+            queries = record_soup_queries(brute_tracer, name)
+            assert len(queries) == MAX_PATH - 1, len(queries)
+        check_soup(Soup(name, brute_tracer.scene.pack), adversarial, queries, kernels[name])
+    del soup_queries
+    del queries
     check_philox(kernels["philox_uniform"])
     check_histogram(kernels["histogram_add"], kernels["histogram_grad"])
-    for path, records in (("mt", mt_records), ("polarized woop", woop_records)):
+    brute_records = record_records(brute_tracer)
+    assert sorted(r[2].shape[0] for r in brute_records) == [BATCH] * MAX_PATH + [2 * BATCH] * (MAX_PATH - 1)
+    for path, records in (("mt", mt_records), ("polarized woop", woop_records), ("brute", brute_records)):
         check_record_replay(records, path, kernels["histogram_add"], kernels["histogram_grad"])
-    del mt_records, woop_records, records
+    del mt_records, woop_records, brute_records, records
 
     # phase 3: the first main path (accel="mt") at full width
     wrappers = {
         "nearest_triangle_mt": nearest_triangle_mt,
         "nearest_triangle_mt_rows": nearest_triangle_mt_rows,
         "nearest_triangle_woop": nearest_triangle_woop,
+        "nearest_in_table_rows": nearest_in_table_rows,
+        "nearest_in_table": nearest_in_table,
+        "anyhit_in_table": anyhit_in_table,
         "philox_uniform": philox_uniform,
         "histogram_add": histogram_add,
     }
     seconds, sums, counts, peak = timed_runs(tracer, wrappers, "mt path")
     assert counts["nearest_triangle_mt_rows"] == 19 * 3, counts  # 10 primary + 9 shadow
     assert counts["nearest_triangle_mt"] == counts["nearest_triangle_woop"] == 0, counts
+    assert not any(counts[name] for name in SOUP_KERNELS), counts
     assert counts["philox_uniform"] > 0 and counts["histogram_add"] == 19 * 3, counts
     med = statistics.median(seconds)
     print(
@@ -827,7 +1061,7 @@ def main() -> int:
     # the winners' rows from the kernel and from a torch gather, in turns
     turns = []
     for from_query in (True, False, False, True):
-        accel.MT_ROWS_FROM_QUERY = from_query
+        accel.ROWS_FROM_QUERY = from_query
         turn_seconds, _, turn_counts, _ = timed_runs(tracer, wrappers, "mt path")
         own, other = "nearest_triangle_mt_rows", "nearest_triangle_mt"
         if not from_query:
@@ -839,7 +1073,7 @@ def main() -> int:
                 launches=turn_counts[own], launches_per_batch=19,
                 path="mt flagship with the torch gather, 3 batches",
             )
-    accel.MT_ROWS_FROM_QUERY = True
+    accel.ROWS_FROM_QUERY = True
     print("main path (mt), rows from the kernel / a torch gather, in turns: " + "; ".join(
         f"{'kernel' if t['rows_from_kernel'] else 'gather'} {statistics.median(t['seconds_per_batch']):.4f} s "
         f"{[round(x, 4) for x in t['seconds_per_batch']]}" for t in turns
@@ -851,6 +1085,7 @@ def main() -> int:
     pol_seconds, pol_sums, pol_counts, pol_peak = timed_runs(pol_tracer, wrappers, "woop path")
     assert pol_counts["nearest_triangle_woop"] == 19 * 3, pol_counts
     assert pol_counts["nearest_triangle_mt"] == pol_counts["nearest_triangle_mt_rows"] == 0, pol_counts
+    assert not any(pol_counts[name] for name in SOUP_KERNELS), pol_counts
     assert pol_counts["philox_uniform"] > 0 and pol_counts["histogram_add"] == 19 * 3, pol_counts
     pol_med = statistics.median(pol_seconds)
     print(
@@ -901,10 +1136,68 @@ def main() -> int:
     del pol_tracer
     torch.cuda.empty_cache()
 
+    # phase 3d: the third main path, the brute-force flagship (no accel named), at full width
+    brute_seconds, brute_sums, brute_counts, brute_peak = timed_runs(brute_tracer, wrappers, "brute path")
+    # 10 primary queries and the 9 detector queries of the shadow pairs, with rows; 9 any-hits
+    assert brute_counts["nearest_in_table_rows"] == 19 * 3 and brute_counts["nearest_in_table"] == 0, brute_counts
+    assert brute_counts["anyhit_in_table"] == (MAX_PATH - 1) * 3, brute_counts
+    for name in ("nearest_triangle_mt", "nearest_triangle_mt_rows", "nearest_triangle_woop"):
+        assert brute_counts[name] == 0, brute_counts
+    assert brute_counts["philox_uniform"] > 0 and brute_counts["histogram_add"] == 19 * 3, brute_counts
+    brute_med = statistics.median(brute_seconds)
+    print(
+        f"main path (brute, the default accel): batch {BATCH}, path length {MAX_PATH}, "
+        f"{brute_tracer.scene.pack.soup.n_tri} triangles: "
+        f"{brute_med:.4f} s/batch (median of {[round(s, 4) for s in brute_seconds]}), "
+        f"{BATCH * MAX_PATH / brute_med:.6g} bounces/s, peak memory {brute_peak / 2**20:.1f} MiB, "
+        f"launches per batch {{{', '.join(f'{k}: {v // 3}' for k, v in brute_counts.items())}}}, "
+        f"histogram sums {brute_sums}"
+    )
+    for name in ("nearest_in_table_rows", "anyhit_in_table"):
+        kernels[name].update(launches=brute_counts[name], launches_per_batch=brute_counts[name] // 3,
+                             path="brute-force flagship, 3 batches")
+    # the winners' rows from the kernel and from a torch gather, in turns
+    brute_turns = []
+    for from_query in (True, False, False, True):
+        accel.ROWS_FROM_QUERY = from_query
+        turn_seconds, _, turn_counts, _ = timed_runs(brute_tracer, wrappers, "brute path")
+        own, other = "nearest_in_table_rows", "nearest_in_table"
+        if not from_query:
+            own, other = other, own
+        assert turn_counts[own] == 19 * 3 and turn_counts[other] == 0, turn_counts
+        brute_turns.append(dict(rows_from_kernel=from_query, seconds_per_batch=turn_seconds))
+        if not from_query:
+            kernels["nearest_in_table"].update(
+                launches=turn_counts[own], launches_per_batch=19,
+                path="brute-force flagship with the torch gather, 3 batches",
+            )
+    accel.ROWS_FROM_QUERY = True
+    print("main path (brute), rows from the kernel / a torch gather, in turns: " + "; ".join(
+        f"{'kernel' if t['rows_from_kernel'] else 'gather'} {statistics.median(t['seconds_per_batch']):.4f} s "
+        f"{[round(x, 4) for x in t['seconds_per_batch']]}" for t in brute_turns
+    ))
+    # the three backends in turns, unpolarized: seconds per batch compare only inside one call
+    backends = {
+        "mt": build_flagship(theia_tpu_torch, mesh, BATCH, MAX_PATH, accel="mt", device="cuda"),
+        "woop": build_flagship(theia_tpu_torch, mesh, BATCH, MAX_PATH, accel="woop", device="cuda"),
+        "brute": brute_tracer,
+    }
+    backend_turns = []
+    for label in ("mt", "woop", "brute", "brute", "woop", "mt"):
+        turn_seconds, turn_sums, _, _ = timed_runs(backends[label], wrappers, f"{label} path")
+        backend_turns.append(dict(accel=label, seconds_per_batch=turn_seconds, histogram_sums=turn_sums))
+    print("main paths in turns, unpolarized: " + "; ".join(
+        f"{t['accel']} {statistics.median(t['seconds_per_batch']):.4f} s "
+        f"{[round(x, 4) for x in t['seconds_per_batch']]}" for t in backend_turns
+    ))
+    del backends, brute_tracer
+    torch.cuda.empty_cache()
+
     # phase 4: the port on the CPU against the port on the card
     cpu_vs_card = {}
     for label, kw in (
         ("mt", {}),
+        ("brute", dict(accel="auto")),
         ("woop polarized off centre", dict(accel="woop", polarized=True, source_position=OFF_CENTRE)),
     ):
         dims, hists = {}, {}
@@ -947,6 +1240,10 @@ def main() -> int:
         nvidia_smi=smi, build_seconds=lib.build_seconds,
         mt_path=dict(seconds_per_batch=seconds, bounces_per_s=BATCH * MAX_PATH / med,
                      peak_bytes=peak, histogram_sums=sums, launches=counts, row_source_turns=turns),
+        brute_path=dict(seconds_per_batch=brute_seconds, bounces_per_s=BATCH * MAX_PATH / brute_med,
+                        peak_bytes=brute_peak, histogram_sums=brute_sums, launches=brute_counts,
+                        row_source_turns=brute_turns),
+        backends_in_turns=backend_turns,
         woop_polarized_path=dict(seconds_per_batch=pol_seconds, bounces_per_s=BATCH * MAX_PATH / pol_med,
                                  peak_bytes=pol_peak, histogram_sums=pol_sums, launches=pol_counts),
         gradient=dict(batch=grad_batch, seconds=grad_seconds, peak_bytes=grad_peak, loss=loss,

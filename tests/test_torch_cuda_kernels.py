@@ -231,3 +231,46 @@ def test_histogram_all_masked_leaves_state(cuda, name):
         torch.cuda.synchronize()
         assert torch.equal(state, want)
         assert not histogram_grad(state, t, m, *rest).any()
+
+
+@pytest.mark.parametrize("name", ["nearest_in_table", "nearest_in_table_rows", "anyhit_in_table"])
+def test_soup_kernels_on_hard_rays(cuda, name):
+    """The three soup entry points against their plain versions, bit for
+    bit: adversarial rays (NaN and huge rays among them) over all groups
+    and over the detector or the occluders with a lane mask, groups that
+    end inside a chunk, and every query of one recorded brute-force
+    flagship batch (batch 8192, path length 4) with the groups, bounds and
+    masks the tracer passed; then with the bound at the hit."""
+    import chip_smoke
+    import theia_tpu_torch
+    from theia_tpu_torch.ops.intersect_soup import SoupTable, nearest_in_table
+    from torch_flagship import adversarial_rays, build_flagship, icosphere
+
+    tracer = build_flagship(theia_tpu_torch, icosphere(3), 8192, 4, accel="auto", device=cuda)
+    pack = tracer.scene.pack
+    soup = chip_smoke.Soup(name, pack)
+    rows = pack.tri_data[:, 18:27].cpu().numpy()
+    o, d = adversarial_rays(rows[:, 0:3], rows[:, 3:6], rows[:, 6:9], seed=3, per_kind=256)
+    o[5], d[6], o[7] = np.nan, np.inf, 3e38
+    hard = (torch.as_tensor(o, device=cuda), torch.as_tensor(d, device=cuda),
+            torch.full((o.shape[0],), float("inf"), device=cuda))
+    active = torch.as_tensor(np.random.default_rng(1).uniform(size=o.shape[0]) < 0.5, device=cuda)
+    before = soup.kernel.launches
+    hits, _ = soup.check(hard, "adversarial rays", on_cpu=True)
+    assert soup.kernel.launches == before + 1 and hits > 0.5
+    for groups in ([2], [0, 1]):
+        soup.check(hard, f"adversarial rays, groups {groups}, masked", on_cpu=True, groups=groups, active=active)
+    odd = SoupTable(pack.w_v0, pack.w_e1, pack.w_e2, ((0, 100), (100, 100), (100, 1000), (1000, 2561), (2561, 3840)))
+    for groups in (None, [0, 2], [1]):
+        soup.check(hard, f"oddly cut groups {groups}", on_cpu=True, groups=groups, active=active,
+                   tables=(odd, odd.to("cpu")))
+    # 4 primary queries (every group, no mask) and 3 shadow pairs; both nearest kernels take the nearest queries
+    recorded = "anyhit_in_table" if soup.any_hit else "nearest_in_table_rows"
+    queries = chip_smoke.record_soup_queries(tracer, recorded)
+    assert len(queries) == (3 if soup.any_hit else 7)
+    assert sum(groups is None and mask is None for *_, groups, mask in queries) == (0 if soup.any_hit else 4)
+    for q_o, q_d, t_max, groups, mask in queries:
+        soup.check((q_o, q_d, t_max), "a recorded flagship query", on_cpu=False, groups=groups, active=mask)
+        # with the bound at the nearest hit, that hit no longer counts
+        t_hit = nearest_in_table(soup.tables[0], q_o, q_d, t_max, groups=groups, active=mask)[0]
+        soup.check((q_o, q_d, t_hit.contiguous()), "the bound at the hit", on_cpu=False, groups=groups, active=mask)

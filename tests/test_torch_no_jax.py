@@ -1,5 +1,5 @@
 """theia_tpu_torch must run without jax: importing it and tracing a small
-flagship batch in a fresh interpreter leaves jax and theia_tpu unloaded."""
+flagship batch of each backend in a fresh interpreter leaves jax and theia_tpu unloaded."""
 
 import subprocess
 import sys
@@ -13,12 +13,17 @@ sys.path.insert(0, {str(TESTS)!r})
 sys.path.insert(0, {str(TESTS.parent)!r})
 import theia_tpu_torch
 import theia_tpu_torch.ops.intersect_woop
+import theia_tpu_torch.ops.intersect_soup
 import theia_tpu_torch.polarization
 from torch_flagship import build_flagship, icosphere
 tracer = build_flagship(theia_tpu_torch, icosphere(1), 64, 2, device="cpu")
 hist, _ = tracer.run()
 assert hist.shape == (100,)
 tracer = build_flagship(theia_tpu_torch, icosphere(1), 64, 2, accel="woop", device="cpu", polarized=True)
+hist, _ = tracer.run()
+assert hist.shape == (100,)
+tracer = build_flagship(theia_tpu_torch, icosphere(1), 64, 2, accel="auto", device="cpu")
+assert tracer.scene.accel == "brute" and tracer.scene.pack.cull is not None
 hist, _ = tracer.run()
 assert hist.shape == (100,)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "theia_tpu"))

@@ -16,6 +16,12 @@ Tolerances and why:
     and its histogram agrees with JAX's second batch within (b).
 (d) the port run with params_from_numpy(JAX params) equals the port run
     with its own params bit for bit: the same tensors go in.
+(e) the port's brute-force flagship (``accel="auto"``, the default)
+    against the port's own ``mt`` flagship, to the limits of (a) and (b):
+    the two backends run one exact test on the same triangles in another
+    order, so they differ only where a ray meets two triangles at one t
+    (a shared edge: the lowest row wins, and the rows are ordered
+    differently).
 """
 
 import numpy as np
@@ -93,6 +99,29 @@ def runs():
     hist2, _ = tt.run()
     out["t_hist2"] = hist2.numpy()
     out["t_offset2"] = tt.rng.offset
+
+    bt = build_flagship(theia_tpu_torch, mesh, BATCH, MAX_PATH, accel="auto", device="cpu")
+    assert bt.scene.accel == "brute"
+    bt._debug_rng = True
+    soup_calls = out["b_query_calls"] = {"nearest_in_table_rows": 0, "nearest_in_table": 0, "anyhit_in_table": 0}
+
+    def counting_kw(name, fn):
+        def wrapper(*args, **kw):
+            soup_calls[name] += 1
+            return fn(*args, **kw)
+        return wrapper
+
+    saved = {name: getattr(accel, name) for name in soup_calls}
+    for name, fn in saved.items():
+        setattr(accel, name, counting_kw(name, fn))
+    try:
+        with torch.no_grad():
+            b_state, _, b_dims = bt._trace_batch(bt.params(), bt.rng.counter_words, bt.streams())
+    finally:
+        for name, fn in saved.items():
+            setattr(accel, name, fn)
+    out["b_hist"] = bt.response.result(bt.params()["response"], b_state).numpy()
+    out["b_dims"] = b_dims.numpy().astype(np.int64)
     return out
 
 
@@ -153,12 +182,47 @@ def test_mt_path_takes_rows_from_the_query(runs):
         assert torch.equal(getattr(from_query, f.name), getattr(gathered, f.name).detach()), f.name
 
 
+def test_brute_flagship_matches_mt_flagship(runs):
+    same = runs["b_dims"] == runs["t_dims"]
+    assert same.mean() >= 0.995, same.mean()
+    d_sum, l1 = _hist_stats(runs["b_hist"], runs["t_hist"])
+    assert d_sum <= 1e-3, d_sum
+    assert l1 <= 1e-2, l1
+
+
+def test_brute_path_queries(runs):
+    """The default scene's batch: 10 primary queries and, for each of the
+    9 MIS shadow pairs, one nearest hit over the detector, all through
+    the query that also returns the winners' rows, and one any-hit over
+    the occluders a pair; no query of the ``mt`` path."""
+    assert runs["b_query_calls"] == {
+        "nearest_in_table_rows": 2 * MAX_PATH - 1, "nearest_in_table": 0, "anyhit_in_table": MAX_PATH - 1,
+    }
+    assert runs["t_query_calls"]["nearest_triangle_mt_rows"] == 2 * MAX_PATH - 1  # counted before the brute run
+
+
 def test_unported_configurations_raise():
-    """What is still unported raises: the brute-force scan and a tracer
-    without a target guide (polarized tracing is ported now)."""
+    """What is still unported raises: the BVH and the instanced traversal,
+    named or picked by ``accel="auto"`` for a large scene that instances
+    its meshes, and a tracer without a target guide (polarized tracing and
+    the brute-force scan are ported now). No other backend stands in."""
+    from theia_tpu_torch import material, scene as tscene
+    from theia_tpu_torch.mesh import Mesh
+
     mesh = icosphere(1)
-    with pytest.raises(NotImplementedError, match="brute"):
-        build_flagship(theia_tpu_torch, mesh, 64, 2, accel="brute", device="cpu")
+    for name in ("bvh", "instanced"):
+        with pytest.raises(NotImplementedError, match="Instanced and BVH"):
+            build_flagship(theia_tpu_torch, mesh, 64, 2, accel=name, device="cpu")
+    with pytest.raises(ValueError, match="accel must be"):
+        build_flagship(theia_tpu_torch, mesh, 64, 2, accel="octree", device="cpu")
+    # 7 instances of one 1280-triangle sphere: 8960 >= 8192 triangles, 7x the prototype
+    mats = material.MaterialStore.pack([material.Material("wall", None, None, flags="TR")], device="cpu")
+    meshes = tscene.MeshStore({"sphere": Mesh.from_geometry(*icosphere(3))})
+    many = [meshes.createInstance("sphere", "wall", tscene.Transform.Translation(3.0 * k, 0, 0)) for k in range(7)]
+    with pytest.raises(NotImplementedError, match="instanced"):
+        tscene.Scene(many, mats, device="cpu")
+    assert tscene.Scene(many[:6], mats, device="cpu").accel == "brute"  # 7680 triangles: below the threshold
+    assert tscene.Scene(many, mats, accel="brute", device="cpu").pack.soup.n_tri == 8960
     tracer = build_flagship(theia_tpu_torch, mesh, 64, 2, device="cpu")
     with pytest.raises(NotImplementedError, match="target guide"):
         type(tracer)(

@@ -3,13 +3,16 @@
 A second package beside ``theia_tpu`` (the JAX reference) with the same
 module layout and public names, so the same builder code drives either.
 Plain tensor code is PyTorch; the hot kernels of the scene tracer's main
-path (Moeller-Trumbore nearest hit, Philox draws, histogram record) are
-hand-written CUDA kernels for Hopper in ``csrc/``, built with nvcc at
-first use. On CPU tensors every kernel's plain PyTorch version runs
-instead. This package never imports jax or theia_tpu.
+path (the nearest-hit and any-hit scans over the triangle soup, Philox
+draws, the histogram record and its backward) are hand-written CUDA
+kernels for Hopper in ``csrc/``, built with nvcc at first use. On CPU
+tensors every kernel's plain PyTorch version runs instead. This package
+never imports jax or theia_tpu.
 
-Ported so far: the flagship scene forward tracer with ``accel="mt"``
-(see ROADMAP.md for what comes next).
+Ported so far: the flagship scene forward tracer, unpolarized and
+polarized, with its medium gradient, on the default brute-force scene
+(``accel="auto"``) and with ``accel="mt"`` or ``accel="woop"`` (see
+ROADMAP.md for what comes next).
 """
 
 from . import units

@@ -28,7 +28,7 @@ __all__ = ["KernelLibrary", "library", "build", "check", "stream_handle"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "theia_tpu_torch"
-SOURCES = ("intersect_mt.cu", "intersect_woop.cu", "philox.cu", "histogram.cu")
+SOURCES = ("intersect_mt.cu", "intersect_woop.cu", "intersect_soup.cu", "philox.cu", "histogram.cu")
 #: -fmad=false: no contraction of a*b+c into FMAs, so every product and sum
 #: rounds exactly as the plain PyTorch versions' separate ops do (explicit
 #: fmaf intrinsics, as in the nearest-hit kernels' rejection tests, stay)
@@ -46,6 +46,9 @@ _SIGNATURES = {
     "theia_mt_nearest": (_P, _P, _P, _P, _P, _I, _I, _P, _P, _P),
     "theia_mt_nearest_rows": (_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P),
     "theia_woop_nearest": (_P, _P, _P, _P, _P, _I, _I, _P, _P, _P),
+    "theia_soup_nearest": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P),
+    "theia_soup_nearest_rows": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P),
+    "theia_soup_anyhit": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P),
     "theia_philox_uniform": (_U, _U, _U, _U, _U, _U, _P, _P, _I, _I, _P, _P),
     "theia_histogram_add": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
     "theia_histogram_grad": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
@@ -115,14 +118,17 @@ def build(
         return KernelLibrary(out, 0.0, "", sigs)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
-    objs = [BUILD_DIR / f"{Path(src).stem}-{tag}.o" for src in SOURCES]
+    # the package's own build needs every source (nvcc fails on a missing
+    # one); an earlier commit's directory may lack the newer ones
+    sources = [src for src in SOURCES if signatures is None or (csrc / src).is_file()]
+    objs = [BUILD_DIR / f"{Path(src).stem}-{tag}.o" for src in sources]
     start = time.perf_counter()
     # one nvcc per source, all running at once
     compiles = [
         (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
         for cmd in (
             [nvcc, *flags, "-c", str(csrc / src), "-o", str(obj)]
-            for src, obj in zip(SOURCES, objs)
+            for src, obj in zip(sources, objs)
         )
     ]
     # wait for every compile before raising on any

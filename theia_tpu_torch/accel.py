@@ -1,15 +1,31 @@
 """Ray/scene intersection and hit reconstruction.
 
-The nearest-hit selection goes through the scene's acceleration tables
-(so far the Moeller-Trumbore kernel, ``accel="mt"``, or the Woop kernel,
-``accel="woop"``) on detached tensors. On ``mt`` packs the query also
-returns each winner's ``tri_data`` row (the kernel copies it), unless
-``tri_data`` is being differentiated. The winner is then rebuilt from
-its two table rows in ordinary torch code — barycentrics, object-space position and normal, inward
-test, media-mismatch check, world position via object-to-world — the
-only part of intersection that autograd could differentiate, as with
+The nearest-hit selection goes through the scene's tables (the soup
+kernels on brute-force packs, the Moeller-Trumbore kernel with
+``accel="mt"``, the Woop kernel with ``accel="woop"``) on detached
+tensors. On brute-force and ``mt`` packs the query also returns each
+winner's ``tri_data`` row (the kernel copies it), unless ``tri_data`` is
+being differentiated. The winner is then rebuilt from its two table rows
+in ordinary torch code — barycentrics, object-space position and normal,
+inward test, media-mismatch check, world position via object-to-world —
+the only part of intersection that autograd could differentiate, as with
 ``stop_gradient`` in ``theia_tpu.accel`` (reference:
 scene.intersect.glsl:47-99, ray.surface.glsl:22-36).
+
+On brute-force packs :func:`intersect_target` splits the MIS shadow query
+as ``theia_tpu`` does: the nearest hit on the detector instances, then an
+any-hit over the other instances bounded by it, both with the one exact
+test of ``csrc/moller_trumbore.cuh``, so the winner cannot occlude itself.
+:func:`nearest_culled` and :func:`anyhit_culled` are the queries over
+chosen instances (``groups``) and lanes (``active``). ``theia_tpu`` skips
+work there by a bounding-sphere test an instance
+(:func:`_seg_hits_sphere`) and a fixed-capacity lane compaction with a
+full-width fallback, because XLA needs static shapes; its results are
+pinned bit-identical to the full scan. The port carries the functions and
+their results, not that mechanism: the kernels skip per ray and per chunk
+of 256 triangles (a masked lane enters no chunk's list, and a chunk's box
+is tighter than its instance's sphere), so there is no capacity, no
+fallback and no knob.
 """
 
 from __future__ import annotations
@@ -19,6 +35,7 @@ from dataclasses import dataclass
 import torch
 
 from .ops.intersect_mt import nearest_triangle_mt, nearest_triangle_mt_rows
+from .ops.intersect_soup import anyhit_in_table, nearest_in_table, nearest_in_table_rows
 from .ops.intersect_woop import nearest_triangle_woop
 from .ops.math3d import cross, dot, matvec, moeller_trumbore_rowwise, normalize, sign_bit, vec3
 from .scene import ScenePack
@@ -26,8 +43,11 @@ from .trace.core import EventResultCode
 
 __all__ = [
     "SurfaceHit",
+    "anyhit_culled",
     "intersect_scene",
     "intersect_target",
+    "is_visible",
+    "nearest_culled",
     "offset_ray",
 ]
 
@@ -54,10 +74,78 @@ class SurfaceHit:
     error: torch.Tensor  # i32[N] media-mismatch error code or 0
 
 
-#: whether ``mt`` packs take the winners' rows from the query
-#: (:func:`nearest_triangle_mt_rows`) or gather them in torch; a switch
-#: for measuring one against the other, nothing else sets it
-MT_ROWS_FROM_QUERY = True
+#: whether brute-force and ``mt`` packs take the winners' rows from the
+#: query (:func:`nearest_in_table_rows`, :func:`nearest_triangle_mt_rows`)
+#: or gather them in torch; a switch for measuring one against the other,
+#: nothing else sets it
+ROWS_FROM_QUERY = True
+
+
+def _seg_hits_sphere(origin, direction, t_max, center, radius) -> torch.Tensor:
+    """Conservative: True unless the ray segment [0, t_max] provably
+    misses the sphere; ``direction`` need not be unit length. The slack
+    covers the float32 rounding of the closest-approach chain (error <=
+    ~1e-6 |oc|^2, margin 1e-5 |oc|^2). The rule by which ``theia_tpu``
+    culls an instance for a lane; the port's kernels cull by chunk boxes
+    instead and do not call it."""
+    oc = origin - center
+    b = torch.sum(oc * direction, dim=-1)
+    d2 = torch.sum(direction * direction, dim=-1)
+    tc = torch.minimum(torch.clamp_min(-b / torch.clamp_min(d2, 1e-30), 0.0), t_max)
+    p = oc + tc[..., None] * direction
+    s = torch.sum(p * p, dim=-1)
+    oc2 = torch.sum(oc * oc, dim=-1)
+    return s <= radius * radius * 1.003 + oc2 * 1e-5 + 1e-9
+
+
+def _brute_rays(pack: ScenePack, origin, direction, t_max, what: str):
+    """The detached, contiguous rays of a soup query, ``t_max`` (N,)."""
+    if pack.soup is None:
+        raise ValueError(f"{what} requires a brute-force pack (accel='brute')")
+    t_max = torch.as_tensor(t_max, dtype=torch.float32, device=origin.device).detach()
+    return (
+        origin.detach().contiguous(), direction.detach().contiguous(),
+        torch.broadcast_to(t_max, origin.shape[:1]).contiguous(),
+    )
+
+
+def nearest_culled(pack: ScenePack, origin, direction, t_max, *, groups=None, active=None):
+    """Nearest hit over the instances ``groups`` of a brute-force pack
+    (all by default) on the lanes ``active`` (bool (N,), all by default):
+    (t, tri) with ``tri`` the ``tri_data`` row, inf / -1 on a miss and on
+    inactive lanes. Bit-identical to the scan over the whole soup where
+    ``groups`` is None, as in ``theia_tpu``."""
+    rays = _brute_rays(pack, origin, direction, t_max, "nearest_culled")
+    return nearest_in_table(pack.soup, *rays, groups=groups, active=active)
+
+
+def anyhit_culled(pack: ScenePack, origin, direction, t_max, *, groups=None, active=None):
+    """Occlusion over the instances ``groups`` of a brute-force pack:
+    True where some triangle of them blocks the ray strictly before
+    ``t_max``; False on inactive lanes."""
+    rays = _brute_rays(pack, origin, direction, t_max, "anyhit_culled")
+    return anyhit_in_table(pack.soup, *rays, groups=groups, active=active)
+
+
+def _nearest(pack: ScenePack, origin, direction, t_max, rows: bool = False, *, groups=None, active=None):
+    """Nearest-hit query via the scene's backend: (t, tri, row) with t =
+    inf / tri = -1 on a miss, ``tri`` a row of the pack's ``tri_data`` and
+    ``row`` that row (row 0 on a miss) where the query fetched it (with
+    ``rows``, on backends that can), else None. The backends share this
+    contract (theia_tpu/accel.py:524-558); ``groups`` and ``active`` are
+    the brute-force pack's alone."""
+    t_max = torch.as_tensor(t_max, dtype=torch.float32, device=origin.device)
+    rays = (origin.detach().contiguous(), direction.detach().contiguous(), t_max.detach())
+    rows = rows and ROWS_FROM_QUERY
+    if pack.woop is not None:
+        return (*nearest_triangle_woop(pack.woop, *rays), None)
+    if pack.mt is not None:
+        if rows:
+            return nearest_triangle_mt_rows(pack.mt, pack.tri_data, *rays)
+        return (*nearest_triangle_mt(pack.mt, *rays), None)
+    if rows:
+        return nearest_in_table_rows(pack.soup, pack.tri_data, *rays, groups=groups, active=active)
+    return (*nearest_in_table(pack.soup, *rays, groups=groups, active=active), None)
 
 
 def offset_ray(p: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
@@ -81,17 +169,9 @@ def intersect_scene(
     ``medium_handle``: i32[N] — the medium each lane believes it is in;
     mismatches against the hit material's expectation raise the
     media-mismatch error exactly like the reference."""
-    t_max = torch.as_tensor(t_max, dtype=torch.float32, device=origin.device)
-    # (t, tri_data row) per lane, t=inf / row=-1 on miss; the Pallas-ported
-    # backends share this contract (theia_tpu/accel.py:537-544)
-    rays = (origin.detach().contiguous(), direction.detach().contiguous(), t_max.detach())
-    row = None
-    if pack.mt is None:
-        t_sel, tri = nearest_triangle_woop(pack.woop, *rays)
-    elif MT_ROWS_FROM_QUERY and not pack.tri_data.requires_grad:
-        t_sel, tri, row = nearest_triangle_mt_rows(pack.mt, pack.tri_data, *rays)
-    else:  # the query's rows carry no graph
-        t_sel, tri = nearest_triangle_mt(pack.mt, *rays)
+    # the query's rows carry no graph: where tri_data is differentiated,
+    # _reconstruct_hit gathers them
+    t_sel, tri, row = _nearest(pack, origin, direction, t_max, rows=not pack.tri_data.requires_grad)
     return _reconstruct_hit(pack, medium_handle, origin, direction, t_sel, tri, row)
 
 
@@ -172,11 +252,54 @@ def intersect_target(
     origin: torch.Tensor,
     direction: torch.Tensor,
     t_max,
+    *,
+    active: torch.Tensor | None = None,
 ) -> SurfaceHit:
-    """Shadow-ray query: nearest hit, whose detector flag the caller tests.
+    """Shadow-ray query: nearest hit *on a detector instance*, invalid if
+    any other geometry blocks the ray first.
 
-    ``theia_tpu`` splits this into a detector nearest-hit plus an
-    occluder any-hit on brute-force packs only; accelerated packs (``mt``
-    and ``woop``), the only kinds ported so far, run the full
-    :func:`intersect_scene`."""
-    return intersect_scene(pack, medium_handle, origin, direction, t_max)
+    MIS shadow rays respond on detector-flagged instances only (the
+    reference's volume-mode target+occlusion split,
+    scene.traverse.glsl:234-269), so on a brute-force pack the hits are
+    ordered over the detector instances alone, and the rest of the scene
+    is an any-hit query bounded by the winner's distance (strictly before:
+    the winner's own t is not < t). Both kernels run one exact test, which
+    is what makes the split exact; accelerated packs (``mt``, ``woop``)
+    compute t another way and run the full :func:`intersect_scene`, as
+    does a pack without a detector.
+
+    ``active``: optional bool[N] — lanes whose result is never consumed
+    downstream (e.g. non-miss lanes of the MIS block). Inactive lanes are
+    left out of both queries and report ``valid=False``. The any-hit asks
+    only for lanes with a detector hit: no other lane's answer is read.
+    ``theia_tpu`` takes three routes here (culled groups, the masked
+    group scan, the plain subsoup when the scene has no ``CullTables``);
+    they give one result, which this is."""
+    if pack.soup is None or not any(pack.soup_is_det):
+        return intersect_scene(pack, medium_handle, origin, direction, t_max)
+    og, dg, tg = _brute_rays(pack, origin, direction, t_max, "intersect_target")
+    det_groups = [k for k, d in enumerate(pack.soup_is_det) if d]
+    occ_groups = [k for k, d in enumerate(pack.soup_is_det) if not d]
+    t_t, tri_d, row = _nearest(
+        pack, og, dg, tg, rows=not pack.tri_data.requires_grad, groups=det_groups, active=active
+    )
+    found = tri_d >= 0
+    # bounded by the winner's t, which is below t_max wherever there is one
+    occ = anyhit_in_table(pack.soup, og, dg, t_t, groups=occ_groups, active=found)
+    valid = found & ~occ
+    tri = torch.where(valid, tri_d, -1)
+    t_sel = torch.where(valid, t_t, torch.inf)
+    if row is not None:  # an occluded lane reports what a miss reports: row 0
+        row = torch.where(valid[:, None], row, pack.tri_data[0])
+    return _reconstruct_hit(pack, medium_handle, origin, direction, t_sel, tri, row)
+
+
+def is_visible(pack: ScenePack, observer: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """True where observer and target see each other
+    (reference: scene.intersect.glsl:104-124)."""
+    d = (target - observer).detach()
+    dist = torch.sqrt(torch.clamp_min(dot(d, d), 1e-30))
+    direction = d / dist[:, None]
+    if pack.soup is not None:
+        return ~anyhit_culled(pack, observer, direction, dist)
+    return _nearest(pack, observer, direction, dist)[1] < 0

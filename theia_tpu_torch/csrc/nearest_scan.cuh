@@ -45,6 +45,22 @@
 //    memory between two barriers; here a thread loads its triangle's 48
 //    bytes while the block builds the list, so there is no copy to overlap
 //    and no double buffer.
+// 5. Soup queries (csrc/intersect_soup.cu) visit a list of chunks and a
+//    subset of the rays. The brute-force scene keeps its triangles in
+//    instance order and asks for the nearest hit over some instances only
+//    (the detector of a shadow ray) or for any hit over the others (its
+//    occluders), on the lanes that still need an answer. So a launch may
+//    name the chunks it visits (Visit::chunks; every instance starts on a
+//    chunk boundary of the table, and a chunk says how many of its 256 rows
+//    are real and which index its first triangle reports, so a hit's index
+//    is its row of the scene's tables, lowest first on ties), and a byte a
+//    ray that takes a lane out: its key starts at 0, so it never enters a
+//    chunk's list, costs no pair and reports a miss. The any-hit variant
+//    (kAny) keeps a flag where the nearest hit keeps a key: a pair that
+//    passes exact() with t below the ray's bound sets the key to 0, which
+//    leaves the ray out of every later chunk's list, and the launch reports
+//    one byte a ray. Both are template flags on the one body, so the scans
+//    over a whole table compile as they did.
 //
 // sphere_miss(). A row starts with a centre c, r2 = f R0^2 (R0 the largest
 // distance from c to a vertex, in float64 from the float32 table; f is 1.7
@@ -157,20 +173,42 @@ __device__ __forceinline__ bool slab_hit(const float* __restrict__ box,
   return tn <= tf && tn < best_t;
 }
 
+// What a soup query visits (design note 5); the scans over a whole table
+// (kSoup false) read none of it.
+struct Visit {
+  const int* chunks = nullptr;  // the chunks to visit, as chunks of the table
+  int n_visit = 0;              // how many
+  const int* first = nullptr;   // per chunk of the table: the index its first triangle reports
+  const int* count = nullptr;   // per chunk of the table: its real triangles
+  const unsigned char* active = nullptr;  // per ray, 0 takes it out; null: every ray
+};
+
+__device__ __forceinline__ float key_t(unsigned long long key) {
+  return __uint_as_float(static_cast<unsigned>(key >> 32));
+}
+
 // reject() and exact() on one surviving pair; a hit goes into the ray's
 // key, (t bits << 32 | index): the least key is the nearest hit, the lowest
 // index among equal t, whatever the order the pairs arrive in. A key starts
-// at (t_max bits << 32), so a hit at t == t_max never gets in.
-template <class Policy>
+// at (t_max bits << 32), so a hit at t == t_max never gets in. With kAny a
+// hit strictly below the key's bound sets the key to 0 (every writer writes
+// the same word, so the race is harmless).
+template <class Policy, bool kAny>
 __device__ __forceinline__ void test_pair(const Ray& r, const float4* row,
                                           unsigned long long* key, int index) {
   float4 w[kRowFloat4];
 #pragma unroll
   for (int c = 0; c < kRowFloat4; ++c) w[c] = row[c];
   float t;
-  if (!Policy::reject(r, w) && Policy::exact(r, w, t))
-    atomicMin(key, static_cast<unsigned long long>(__float_as_uint(t)) << 32 |
-                       static_cast<unsigned>(index));
+  if (!Policy::reject(r, w) && Policy::exact(r, w, t)) {
+    if constexpr (kAny) {
+      volatile unsigned long long* flag = key;
+      if (t < key_t(*flag)) *flag = 0ull;
+    } else {
+      atomicMin(key, static_cast<unsigned long long>(__float_as_uint(t)) << 32 |
+                         static_cast<unsigned>(index));
+    }
+  }
 }
 
 // A ray as the list loop and the pool read it from shared memory.
@@ -185,16 +223,32 @@ struct SharedRay {
   }
 };
 
+// The key a ray starts from: (t_max bits << 32), or 0 for a ray that takes
+// no part: nothing is closer than a t_max that is not positive (or is NaN),
+// and a soup query's mask takes lanes out.
+template <bool kSoup>
+__device__ __forceinline__ unsigned long long start_key(
+    float tm, const unsigned char* __restrict__ active, int g) {
+  bool on = tm > 0.0f;
+  if constexpr (kSoup) on = on && (active == nullptr || active[g] != 0);
+  return on ? static_cast<unsigned long long>(__float_as_uint(tm)) << 32 : 0ull;
+}
+
 // Policy: static float guard(const Ray&, const float4 (&h)[3], float w1),
 // static bool reject(const Ray&, const float4 (&w)[5]) and
 // static bool exact(const Ray&, const float4 (&w)[5], float& t).
-template <class Policy, bool kRows>
+// kRows: also copy each winner's row of `table`. kSoup: visit the chunks
+// and rays that `visit` names. kAny: report one byte a ray, whether some
+// triangle is hit strictly before t_max, and neither t nor index.
+template <class Policy, bool kRows, bool kSoup, bool kAny>
 __global__ void __launch_bounds__(kThreads) nearest_scan(
     const float* __restrict__ origin, const float* __restrict__ direction,
     const float* __restrict__ t_max, const float4* __restrict__ aos,
     const float* __restrict__ chunk_box, int n_rays, int n_tri,
     const float* __restrict__ table, float* __restrict__ t_out,
-    int* __restrict__ idx_out, float* __restrict__ rows_out) {
+    int* __restrict__ idx_out, float* __restrict__ rows_out,
+    unsigned char* __restrict__ any_out, const Visit visit) {
+  static_assert(!(kAny && kRows), "an any-hit query has no winner");
   __shared__ SharedRay s_ray[kRaysPerBlock];
   __shared__ unsigned long long s_key[kRaysPerBlock];
   __shared__ unsigned short s_list[kRaysPerBlock];  // the rays that need the chunk
@@ -234,35 +288,36 @@ __global__ void __launch_bounds__(kThreads) nearest_scan(
     s_ray[slot].o_kd = make_float4(r.ox, r.oy, r.oz, r.kd);
     s_ray[slot].d_ko = make_float4(r.dx, r.dy, r.dz, r.ko);
     s_ray[slot].dd_ddk = make_float4(r.dd, r.ddk, 0.0f, 0.0f);
-    // nothing is closer than a t_max that is not positive (or is NaN);
-    // a slot past the last ray never asks for a chunk either
-    const float tm = t_max[g];
-    s_key[slot] = live && tm > 0.0f
-                      ? static_cast<unsigned long long>(__float_as_uint(tm)) << 32
-                      : 0ull;
+    // a slot past the last ray never asks for a chunk
+    s_key[slot] = live ? start_key<kSoup>(t_max[g], visit.active, g) : 0ull;
   }
   __syncthreads();
-  for (int base = 0, parity = 0; base < n_tri; base += kChunk, parity ^= 1) {
+  const int n_visit = kSoup ? visit.n_visit : (n_tri + kChunk - 1) / kChunk;
+  for (int v = 0, parity = 0; v < n_visit; ++v, parity ^= 1) {
+    int chunk = v;
+    if constexpr (kSoup) chunk = visit.chunks[v];
+    const int base = chunk * kChunk;  // the chunk's first row of the table
+    int n_real = min(kChunk, n_tri - base), first_index = base;
+    if constexpr (kSoup) n_real = visit.count[chunk], first_index = visit.first[chunk];
     // list the rays whose segment [0, best_t) can enter the chunk's box
-    const float* box = chunk_box + 8 * (base / kChunk);
+    const float* box = chunk_box + 8 * chunk;
 #pragma unroll
     for (int k = 0; k < kR; ++k) {
       const int slot = k * kThreads + threadIdx.x;
-      const float best_t = __uint_as_float(static_cast<unsigned>(s_key[slot] >> 32));
+      const float best_t = key_t(s_key[slot]);
       if (slab_hit(box, ray[k], ix[k], iy[k], iz[k], best_t))
         s_list[atomicAdd(&s_listed[parity], 1)] = static_cast<unsigned short>(slot);
     }
     if (threadIdx.x == 0) s_listed[parity ^ 1] = 0;
     // this thread's triangle: the head of its row, for sphere_miss()
-    const int tri = base + threadIdx.x;
-    const float4* row = aos + (size_t)tri * kRowFloat4;
+    const float4* row = aos + (size_t)(base + threadIdx.x) * kRowFloat4;
     const float4 h[kHeadFloat4] = {row[0], row[1], row[2]};
     __syncthreads();
     const int listed = s_listed[parity];
     if (listed == 0) continue;  // uniform: every thread reads the same count
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const unsigned lanes_below = (1u << lane) - 1;
-    const bool real = tri < n_tri;
+    const bool real = threadIdx.x < n_real;
     // pairs in this warp's pool; every lane counts the same ballots, so
     // the count needs no atomic
     int pooled = 0;
@@ -278,7 +333,7 @@ __global__ void __launch_bounds__(kThreads) nearest_scan(
           if (at < kWarpPool)
             s_pool[warp][at] = static_cast<unsigned short>(slot << 5 | lane);
           else  // the pool is full: test the pair here and now
-            test_pair<Policy>(r, row, &s_key[slot], tri);
+            test_pair<Policy, kAny>(r, row, &s_key[slot], first_index + threadIdx.x);
         }
         pooled += __popc(mask);
       }
@@ -295,8 +350,9 @@ __global__ void __launch_bounds__(kThreads) nearest_scan(
       for (int v = 0; v < kWarps - 1; ++v)
         if (e >= upto[v]) w = v + 1, before = upto[v];
       const unsigned entry = s_pool[w][e - before];
-      const int slot = entry >> 5, j = base + 32 * w + (entry & 31);
-      test_pair<Policy>(s_ray[slot].load(), aos + (size_t)j * kRowFloat4, &s_key[slot], j);
+      const int slot = entry >> 5, j = 32 * w + (entry & 31);
+      test_pair<Policy, kAny>(s_ray[slot].load(), aos + (size_t)(base + j) * kRowFloat4,
+                              &s_key[slot], first_index + j);
     }
     __syncthreads();
   }
@@ -308,12 +364,15 @@ __global__ void __launch_bounds__(kThreads) nearest_scan(
     const unsigned long long key = s_key[slot];
     best_i[k] = -1;
     if (g < n_rays) {
-      const float tm = t_max[g];
-      const bool hit =
-          tm > 0.0f && key != static_cast<unsigned long long>(__float_as_uint(tm)) << 32;
-      best_i[k] = hit ? static_cast<int>(static_cast<unsigned>(key)) : -1;
-      t_out[g] = hit ? __uint_as_float(static_cast<unsigned>(key >> 32)) : CUDART_INF_F;
-      idx_out[g] = best_i[k];
+      // a key that left its start took a hit; a start of 0 never leaves
+      const bool hit = key != start_key<kSoup>(t_max[g], visit.active, g);
+      if constexpr (kAny) {
+        any_out[g] = hit;
+      } else {
+        best_i[k] = hit ? static_cast<int>(static_cast<unsigned>(key)) : -1;
+        t_out[g] = hit ? key_t(key) : CUDART_INF_F;
+        idx_out[g] = best_i[k];
+      }
     }
   }
   if constexpr (kRows) {
@@ -334,16 +393,17 @@ __global__ void __launch_bounds__(kThreads) nearest_scan(
   }
 }
 
-template <class Policy, bool kRows>
+template <class Policy, bool kRows, bool kSoup = false, bool kAny = false>
 int launch_scan(const float* origin, const float* direction,
                 const float* t_max, const float* aos, const float* chunk_box,
                 int n_rays, int n_tri, const float* table, float* t_out,
-                int* idx_out, float* rows_out, cudaStream_t stream) {
+                int* idx_out, float* rows_out, cudaStream_t stream,
+                unsigned char* any_out = nullptr, const Visit& visit = Visit()) {
   if (n_rays > 0) {
     const int blocks = (n_rays + kRaysPerBlock - 1) / kRaysPerBlock;
-    nearest_scan<Policy, kRows><<<blocks, kThreads, 0, stream>>>(
+    nearest_scan<Policy, kRows, kSoup, kAny><<<blocks, kThreads, 0, stream>>>(
         origin, direction, t_max, reinterpret_cast<const float4*>(aos),
-        chunk_box, n_rays, n_tri, table, t_out, idx_out, rows_out);
+        chunk_box, n_rays, n_tri, table, t_out, idx_out, rows_out, any_out, visit);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,13 +5,17 @@ mapping of numpy arrays keyed by the JAX field names — for example
 ``scene.tri_data``, ``scene.mt.tri`` or ``scene.woop.b``,
 ``scene.media.tables[kind]``, ``lightSource._contribFwd`` and
 ``response.t0`` — with the static fields (``scene.media.names``,
-``scene.media.const4_ok``, ``scene.mt.n_tri``, ``scene.woop.n_tri``) as
-plain Python values, and returns the port tracer's params on ``device``.
+``scene.media.const4_ok``, ``scene.mt.n_tri``, ``scene.woop.n_tri``,
+``scene.cull.spans``, ``scene.cull.is_det``) as plain Python values, and
+returns the port tracer's params on ``device``.
 The Woop pack's chunk-skip boxes come from the world triangles of
-``tri_data``, which are in the same Morton order.
-Fields the port does not use (the brute-force soup ``w_v0``/``w_e1``/
-``w_e2``, ``shadow_split``) are ignored. It imports neither jax nor
-theia_tpu: flattening the JAX pytree is the caller's side.
+``tri_data``, which are in the same Morton order. A pack with neither
+``mt`` nor ``woop`` is a brute-force pack: its soup ``w_v0``/``w_e1``/
+``w_e2``, ``shadow_split`` and ``cull`` come across as they are, and the
+soup kernels' table is derived from the soup with one group an instance.
+On accelerated packs those fields are ignored, as nothing reads them
+there. It imports neither jax nor theia_tpu: flattening the JAX pytree
+is the caller's side.
 """
 
 from __future__ import annotations
@@ -22,7 +26,8 @@ import torch
 from .material import MediumStore
 from .ops.intersect_mt import MTPack, chunk_boxes
 from .ops.intersect_woop import WoopPack
-from .scene import ScenePack
+from .ops.intersect_soup import SoupTable
+from .scene import CullTables, ScenePack, ShadowSplit, detector_instances, instance_spans
 
 __all__ = ["params_from_numpy"]
 
@@ -40,12 +45,35 @@ def _tensors(tree, device):
     return _tensor(tree, device)
 
 
+def _brute_tables(s, device) -> dict:
+    """The brute-force fields of the port's pack from the JAX pack's."""
+    w_v0, w_e1, w_e2 = (_tensor(s[k], device) for k in ("w_v0", "w_e1", "w_e2"))
+    inst_data = np.asarray(s["inst_data"])
+    spans = instance_spans(np.asarray(s["tri_data"])[:, 27], inst_data.shape[0])
+    split, cull = s.get("shadow_split"), s.get("cull")
+    if split is not None:
+        split = ShadowSplit(**{k: _tensor(v, device) for k, v in split.items()})
+    if cull is not None:
+        cull = CullTables(
+            _tensor(cull["centers"], device), _tensor(cull["radii"], device),
+            spans=tuple(tuple(int(x) for x in span) for span in cull["spans"]),
+            is_det=tuple(bool(d) for d in cull["is_det"]),
+        )
+    return dict(
+        w_v0=w_v0, w_e1=w_e1, w_e2=w_e2, soup=SoupTable(w_v0, w_e1, w_e2, spans),
+        soup_is_det=detector_instances(inst_data), shadow_split=split, cull=cull,
+    )
+
+
 def _accel_tables(s, device) -> dict:
-    """``{"mt": MTPack}`` or ``{"woop": WoopPack}`` from the JAX pack's."""
+    """``{"mt": MTPack}``, ``{"woop": WoopPack}`` or the brute-force
+    fields from the JAX pack's."""
     if "mt" in s:
         mt = s["mt"]
         tables = MTPack(_tensor(mt["tri"], device), mt["aabb"], mt["lo"], mt["hi"], int(mt["n_tri"]))
         return {"mt": tables}
+    if "woop" not in s:
+        return _brute_tables(s, device)
     woop, rows = s["woop"], _tensor(s["tri_data"], device)
     n_tri = int(woop["n_tri"])
     boxes = chunk_boxes(*(rows[:n_tri, c : c + 3] for c in (18, 21, 24)))

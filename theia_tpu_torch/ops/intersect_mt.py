@@ -272,47 +272,71 @@ def _slab_candidates(box, o, inv, best_t) -> torch.Tensor:
     return (tn <= tf) & (tn < best_t)
 
 
-def chunk_walk(n_tri: int, chunk_box, origin, direction, t_max, pair_test, stats=None):
-    """The chunked scan both plain versions share. Rays go in blocks (of
+def chunk_walk(
+    n_tri: int, chunk_box, origin, direction, t_max, pair_test, stats=None,
+    *, visits=None, active=None, any_hit: bool = False,
+):
+    """The chunked scan all plain versions share. Rays go in blocks (of
     :data:`RAY_BLOCK` on the CPU); a ray tests a run of :data:`CHUNK` triangles only
     if its segment [0, best_t) can enter the run's box. ``pair_test(o, d,
     c0)`` gives (t, hit) of shape (lanes, chunk) for the rays ``o``, ``d``
-    (lanes, 3) against the triangles from ``c0``. Within a chunk the
+    (lanes, 3) against the triangles from table row ``c0``. Within a chunk the
     lowest index wins ties, and a chunk's winner replaces the running one
     only if strictly closer: the kernels' sequential strict update. With
     a dict ``stats``, ``stats["pairs"]`` grows by the (ray, triangle)
     pairs that were tested, and for every ``name: test`` in
     ``stats["tests"]`` (if present) ``stats[name]`` grows by the pairs of
-    them for which ``test(o, d, c0)`` (bool (lanes, chunk)) holds."""
+    them for which ``test(o, d, c0)`` (bool (lanes, chunk)) holds.
+
+    The soup queries add three things. ``visits`` lists the chunks to
+    walk as ``(chunk, first, count)``: the chunk of the table (its rows
+    start at ``chunk * CHUNK``), the index that its first triangle
+    reports and how many of its rows are real; the default is every chunk
+    of a table of ``n_tri`` rows in one piece. ``active`` (bool (N,))
+    takes lanes out: they test nothing and report a miss. With
+    ``any_hit`` the walk returns one bool a ray, whether some triangle is
+    hit strictly before ``t_max``, and a ray leaves the walk at its first
+    hit."""
     n = origin.shape[0]
     t_out = torch.empty(n, dtype=torch.float32, device=origin.device)
     i_out = torch.empty(n, dtype=torch.int32, device=origin.device)
+    if visits is None:
+        visits = [(c, c0, min(CHUNK, n_tri - c0)) for c, c0 in enumerate(range(0, n_tri, CHUNK))]
     block = RAY_BLOCK if origin.device.type == "cpu" else 16 * RAY_BLOCK
     for r0 in range(0, n, block):
         r1 = min(n, r0 + block)
         o_blk, d_blk = origin[r0:r1], direction[r0:r1]
         inv_d = _rcp(_safe(d_blk))
         best_t = t_max[r0:r1].clone()
+        if active is not None:
+            best_t = torch.where(active[r0:r1], best_t, 0.0)
         best_i = torch.full_like(best_t, -1, dtype=torch.int32)
-        for c, c0 in enumerate(range(0, n_tri, CHUNK)):
+        for c, first, count in visits:
             lanes = torch.nonzero(
                 _slab_candidates(chunk_box[c], o_blk, inv_d, best_t)
             )[:, 0]
             if lanes.numel() == 0:
                 continue
+            c0 = c * CHUNK
             if stats is not None:
-                stats["pairs"] = stats.get("pairs", 0) + lanes.numel() * min(CHUNK, n_tri - c0)
+                stats["pairs"] = stats.get("pairs", 0) + lanes.numel() * count
                 for name, test in stats.get("tests", {}).items():
-                    stats[name] = stats.get(name, 0) + int(test(o_blk[lanes], d_blk[lanes], c0).sum())
+                    stats[name] = stats.get(name, 0) + int(test(o_blk[lanes], d_blk[lanes], c0)[:, :count].sum())
             t, hit = pair_test(o_blk[lanes], d_blk[lanes], c0)
-            tt, ic = torch.where(hit, t, torch.inf).min(dim=1)
+            t, hit = t[:, :count], hit[:, :count]
             cur_t, cur_i = best_t[lanes], best_i[lanes]
+            if any_hit:  # a hit below the bound ends the ray's walk
+                occluded = (hit & (t < cur_t[:, None])).any(dim=1)
+                best_i[lanes] = torch.where(occluded, 0, cur_i)
+                best_t[lanes] = torch.where(occluded, 0.0, cur_t)
+                continue
+            tt, ic = torch.where(hit, t, torch.inf).min(dim=1)
             better = tt < cur_t
-            best_i[lanes] = torch.where(better, ic.to(torch.int32) + c0, cur_i)
+            best_i[lanes] = torch.where(better, ic.to(torch.int32) + first, cur_i)
             best_t[lanes] = torch.where(better, tt, cur_t)
         t_out[r0:r1] = torch.where(best_i < 0, torch.inf, best_t)
         i_out[r0:r1] = best_i
-    return t_out, i_out
+    return i_out >= 0 if any_hit else (t_out, i_out)
 
 
 def _columns(o: torch.Tensor, d: torch.Tensor):

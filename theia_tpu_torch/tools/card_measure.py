@@ -39,11 +39,12 @@ state) against each other on states of 100 to 57,856 flat bins, with half, a hun
 all of the lanes kept and with every kept lane in one of four bins: the
 numbers behind the size at which ``theia_histogram_add`` changes variant.
 
-``profile`` traces one batch of the ``mt`` flagship and one of the
-polarized ``woop`` flagship (262,144 lanes, path length 10) with
-``torch.profiler``, and one gradient step of the latter, and prints
-device-busy time, kernel count, the largest items and the histogram
-kernels' device time.
+``profile`` traces one batch of the ``mt`` flagship, one of the
+brute-force flagship (``accel="auto"``) and one of the polarized ``woop``
+flagship (262,144 lanes, path length 10) with ``torch.profiler``, and one
+gradient step of the latter, and prints device-busy time, kernel count,
+the largest items and the hand-written kernels' device time (the scans,
+Philox, the histogram).
 
 Every mode prints the card's name and power limit first and writes its
 numbers to ``card_measure_<mode>.json`` (``card_measure_baseline_aos.json``
@@ -340,7 +341,8 @@ def _profiled(label: str, step, plain_seconds: float) -> dict:
         by_name.setdefault(e.name, []).append(e.device_time if hasattr(e, "device_time") else e.cuda_time)
     busy_ms = sum(map(sum, by_name.values())) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:12]
-    histogram = {name: times for name, times in by_name.items() if "histogram" in name}
+    histogram = {name: times for name, times in by_name.items()
+                 if any(own in name for own in ("histogram", "nearest_scan", "philox"))}
     print(f"{label}: {plain_seconds:.4f} s unprofiled, device busy {busy_ms:.2f} ms, "
           f"{len(events)} kernels and copies")
     for name, times in top + sorted(histogram.items()):
@@ -363,14 +365,14 @@ def _seconds(step) -> float:
 def profile() -> dict:
     mesh = icosphere(3)
     out = {}
-    for label, kw in (("mt", {}), ("woop polarized", dict(accel="woop", polarized=True))):
+    for label, kw in (("mt", {}), ("brute", dict(accel="auto")), ("woop polarized", dict(accel="woop", polarized=True))):
         tracer = build_flagship(
             theia_tpu_torch, mesh, chip_smoke.BATCH, chip_smoke.MAX_PATH, device="cuda", **kw
         )
         for _ in range(2):
             tracer.run()
         out[label] = _profiled(f"{label}, one batch", tracer.run, _seconds(tracer.run))
-        if kw:
+        if kw.get("polarized"):
             step = lambda: chip_smoke.absorption_grad(tracer)
             step()
             out[f"{label} gradient"] = _profiled(f"{label}, one gradient step", step, _seconds(step))

@@ -621,6 +621,7 @@ class SceneForwardTracer(TracerBase):
         hit2 = intersect_target(
             pack, tile(medium), tile(ray.position), directions,
             torch.cat([phase_eval.dist, guide_sample.dist]),
+            active=tile(miss),
         )
         shadow2 = RayState(
             position=tile(ray.position),
