@@ -31,16 +31,24 @@ Phases, one line each, any failure raises and exits non-zero:
    rejection tests is counted with their plain twins. The
    Moeller-Trumbore kernel with winner rows also runs the A/B/C
    experiment of ``tools/exp_mt_fused.py`` (kernel alone, kernel with
-   rows, kernel plus a torch gather). The three soup entry points
+   rows, kernel plus a torch gather). The four soup entry points
    (nearest hit over groups of the brute-force soup with a lane mask,
-   the same with winner rows, any hit) are held bit for bit against
-   their plain versions the same way: random rays at N = 262,144 and
-   524,288, with random lane masks and on group ranges, with per-lane
-   bounds at, just below and just above a hit, adversarial rays, soups
-   of 1, 255, 257 and 3840 triangles and groups that end inside a
-   chunk, and the recorded queries of one brute-force flagship batch
-   (rays, bounds, groups and masks as the tracer passed them), replayed
-   for ms a batch;
+   the same with winner rows, any hit, and the MIS shadow pair in one
+   launch) are held bit for bit against their plain versions the same
+   way: random rays at N = 262,144 and 524,288, with random lane masks
+   and on group ranges, with per-lane bounds at, just below and just
+   above a hit, adversarial rays, soups of 1, 255, 257 and 3840
+   triangles and groups that end inside a chunk, and the recorded
+   queries of one brute-force flagship batch (rays, bounds, groups and
+   masks as the tracer passed them: the 10 primary queries, the 9 shadow
+   pairs, their detector halves and, for the any-hit, their occluder
+   halves), replayed for ms a batch. Every scan's bound counts the work
+   that its own layout needs (``scan_stats``: the pairs under the
+   sub-box rule, their sphere and reject survivors, and the chunk and
+   sub-box tests); beside it, as ``yardstick``, the bound under the rule
+   that earlier measurements used (the chunk rule, the sphere test from
+   the ray's origin; for the soup, over the soup in instance order), so
+   that shares stay comparable;
 3. the first main path at full width: the flagship scene tracer
    (262,144 lanes, path length 10, 3840 triangles, 100 bins,
    ``accel="mt"``) through ``run()``, one warm-up batch and three timed
@@ -52,12 +60,14 @@ Phases, one line each, any failure raises and exits non-zero:
    of sum(histogram state) with respect to the water absorption table;
 3d. the third main path at full width: the brute-force flagship, the
    scene with no ``accel`` named (``"auto"`` resolves to ``"brute"``),
-   with its launches a batch (10 primary nearest hits and 9 nearest hits
-   over the detector, all with winner rows, 9 any-hits over the
-   occluders, none of the other nearest-hit kernels); then seconds per
+   with its launches a batch (10 primary nearest hits with winner rows,
+   9 shadow pairs, each one ``target_in_table`` launch, no separate
+   any-hit, none of the other nearest-hit kernels); then seconds per
    batch with the winners' rows from the kernel and from a torch gather,
    in turns; then the ``mt``, unpolarized ``woop`` and brute-force
    flagships in turns, for seconds per batch that can be compared;
+3e. ``accel.is_visible`` on the brute-force scene, the any-hit kernel's
+   path: 262,144 observer-target pairs, three calls;
 4. the port on the CPU against the port on the card: the unpolarized
    ``mt`` flagship, the brute-force flagship and the polarized ``woop``
    flagship with the source off centre at batch 4096, and the gradient
@@ -117,11 +127,18 @@ PHILOX_SHARED_OPS, PHILOX_DRAW_OPS = 5 + 20 + 1, 9 + 20 + 6 + 1
 PHILOX_PAIR_OPS = max(PHILOX_SHARED_OPS + 2 * PHILOX_DRAW_OPS, 2 * 20)
 #: cycles that torch.cuda._sleep spins in front of queued launches (~50 ms)
 SPIN_CYCLES = 100_000_000
-#: float32 operations a (ray, triangle) pair costs in the kernels' two
-#: rejection tests (an FMA counts two; recounted from sphere_miss() in
-#: csrc/nearest_scan.cuh and reject() in csrc/intersect_*.cu) and in their
-#: exact tests (the reciprocal and its Newton step as 4)
-PAIR_FLOP = {"mt": (27, 41, 48), "woop": (25, 46, 44)}
+#: float32 operations a (ray, triangle) pair costs in the scan's two
+#: rejection tests (an FMA counts two; counted from sphere_miss() in
+#: csrc/nearest_scan.cuh, less what it computes once a ray and sub-box,
+#: and reject() in csrc/moller_trumbore.cuh and csrc/intersect_woop.cu)
+#: and in the exact tests (the reciprocal and its Newton step as 4)
+PAIR_FLOP = {"mt": (30, 41, 48), "woop": (27, 46, 44)}
+#: float32 operations of one slab test of a ray against a box (a chunk's
+#: or a sub-box): 6 differences, 6 products, 11 minima and maxima
+BOX_FLOP = 23
+#: the yardstick's sphere test, from the ray's origin (the first kernels'),
+#: a pair
+FIRST_SPHERE_FLOP = {"mt": 27, "woop": 25}
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -462,9 +479,84 @@ def bound(n_bytes: float, flop: float, peak: float = PEAK_F32) -> dict:
     return dict(bound_ms=max(by_bytes, by_ops), bound_by="bytes" if by_bytes >= by_ops else "operations")
 
 
+def first_sphere_miss(policy: str, aos, o, d):
+    """The sphere test of the first kernels, from the ray's origin (the
+    yardstick's): bool (lanes, rows of ``aos``), true where the pair is
+    dropped; products rounded once, as those kernels' fmaf did."""
+    from theia_tpu_torch.ops.intersect_mt import MT_GUARD, WOOP_GUARD, _columns, _fma, ray_slack
+
+    ox, oy, oz, dx, dy, dz = _columns(o, d)
+    cx, cy, cz, r2 = (aos[:, k][None] for k in range(4))
+    n0, n1, n2 = (aos[:, k][None] for k in (4, 5, 6))
+    kd, ko = ray_slack(o, d)
+    dd = _fma(dz, dz, _fma(dy, dy, dx * dx, True), True)
+    wx, wy, wz = cx - ox, cy - oy, cz - oz
+    p = _fma(wz, dz, _fma(wy, dy, wx * dx, True), True)
+    w2 = _fma(wz, wz, _fma(wy, wy, wx * wx, True), True)
+    q = _fma(w2, dd * (1.0 - 64.0 * 2.0**-24), -(p * p), True)
+    det = _fma(dz, n2, _fma(dy, n1, dx * n0, True), True)
+    if policy == "mt":
+        g = (MT_GUARD * kd) * _fma(wx.abs() + wy.abs() + wz.abs(), aos[:, 7][None], aos[:, 8][None], True)
+    else:
+        g = _fma(WOOP_GUARD * ko, aos[:, 8][None], (WOOP_GUARD * kd) * aos[:, 9][None], True)
+    return (q > r2 * dd) & (det.abs() > g)
+
+
+def scan_stats(policy: str, aos, sub_box, walk, layout: bool = True) -> dict:
+    """The work a scan's query needs, counted by its plain walk
+    ``walk(stats, sub_box)`` over the table rows ``aos``: the pairs it
+    tests ("pairs"), how many of them pass the first rejection test
+    ("sphere") and both ("both"), and its box tests ("chunk_tests",
+    "sub_tests"). With ``layout`` the scan's own rule (sub-boxes, the
+    sphere test from the sub-box's entry); without, the yardstick's (the
+    chunk rule, the first kernels' sphere test from the ray's origin)."""
+    from theia_tpu_torch.ops import intersect_mt as tmt
+    from theia_tpu_torch.ops import intersect_woop as twoop
+
+    sphere, reject = {
+        "mt": (tmt._mt_sphere_miss_plain, tmt._mt_reject_plain),
+        "woop": (twoop._woop_sphere_miss_plain, twoop._woop_reject_plain),
+    }[policy]
+    if layout:
+        miss = lambda o, d, c0: sphere(*tmt.chunk_tables(aos, sub_box, c0), o, d)
+    else:
+        miss = lambda o, d, c0: first_sphere_miss(policy, aos[c0 : c0 + tmt.CHUNK], o, d)
+    stats = {"tests": {
+        "sphere": lambda o, d, c0: ~miss(o, d, c0),
+        "both": lambda o, d, c0: ~(miss(o, d, c0) | reject(aos[c0 : c0 + tmt.CHUNK], o, d)),
+    }}
+    walk(stats, sub_box if layout else None)
+    stats.pop("tests")
+    return stats
+
+
+def scan_bound(policy: str, n_bytes: int, stats: dict, layout: bool = True) -> dict:
+    """bound_ms and bound_by of queries that move ``n_bytes`` and do the
+    work that ``stats`` (:func:`scan_stats`) counts: the pairs' tests and,
+    on the scan's own layout, its box tests."""
+    f_sphere, f_reject, f_exact = PAIR_FLOP[policy]
+    if not layout:
+        f_sphere = FIRST_SPHERE_FLOP[policy]
+    flop = stats.get("pairs", 0) * f_sphere + stats.get("sphere", 0) * f_reject + stats.get("both", 0) * f_exact
+    if layout:
+        flop += (stats.get("chunk_tests", 0) + stats.get("sub_tests", 0)) * BOX_FLOP
+    return bound(n_bytes, flop)
+
+
+def add_stats(total: dict, stats: dict) -> None:
+    for k, v in stats.items():
+        total[k] = total.get(k, 0) + v
+
+
+def work_line(stats: dict) -> str:
+    """The counts of :func:`scan_stats`, for a printed line."""
+    return (f"{stats['pairs']} pairs, {stats['sphere']} / {stats['both']} survive"
+            + (f", {stats['chunk_tests']} chunk and {stats['sub_tests']} sub-box tests" if "sub_tests" in stats else ""))
+
+
 class Nearest:
     """One of the three nearest-hit entry points with its plain version,
-    its pack on the card and on the CPU, and its rejection twin."""
+    its pack on the card and on the CPU, and its policy."""
 
     def __init__(self, name, scene_pack):
         from theia_tpu_torch.ops import intersect_mt as tmt
@@ -473,17 +565,18 @@ class Nearest:
         self.name, self.table = name, None
         if name == "nearest_triangle_woop":
             p = self.pack = scene_pack.woop
-            self.cpu_pack = twoop.WoopPack(p.b.cpu(), p.aabb, p.lo, p.hi, p.n_tri, p.chunk_box.cpu())
+            self.cpu_pack = twoop.WoopPack(p.b.cpu(), p.aabb, p.lo, p.hi, p.n_tri, p.chunk_box.cpu(), p.sub_box.cpu())
             self.kernel, self.plain = twoop.nearest_triangle_woop, twoop.nearest_triangle_woop_plain
-            self.rejects = (twoop._woop_sphere_miss_plain, twoop._woop_reject_plain)
-            self.flop = PAIR_FLOP["woop"]
+            self.policy = "woop"
+            self.exact, self.cols = twoop._woop_exact_plain, twoop._transforms(p.b, p.n_tri)
         else:
             p = self.pack = scene_pack.mt
             self.cpu_pack = tmt.MTPack(p.tri.cpu(), p.aabb, p.lo, p.hi, p.n_tri)
             assert (self.cpu_pack.chunk_box == p.chunk_box.cpu()).all(), "chunk boxes differ"
+            assert (self.cpu_pack.sub_box == p.sub_box.cpu()).all(), "sub-boxes differ"
             self.kernel, self.plain = tmt.nearest_triangle_mt, tmt.nearest_triangle_mt_plain
-            self.rejects = (tmt._mt_sphere_miss_plain, tmt._mt_reject_plain)
-            self.flop = PAIR_FLOP["mt"]
+            self.policy = "mt"
+            self.exact, self.cols = tmt._mt_exact_plain, tmt._rows(p.tri, p.n_tri)
             if name == "nearest_triangle_mt_rows":
                 self.table = scene_pack.tri_data
                 self.kernel, self.plain = tmt.nearest_triangle_mt_rows, tmt.nearest_triangle_mt_rows_plain
@@ -497,47 +590,52 @@ class Nearest:
         tables = (pack,) if self.table is None else (pack, self.table.to(rays[0].device))
         return fn(*tables, *rays, **kw)
 
-    def check(self, rays, label, on_cpu: bool, count: bool = False):
+    def check(self, rays, label, on_cpu: bool):
         """Kernel against plain (on the CPU copy of the inputs, or on the
-        card), bit for bit; returns (max |t diff| over hits, hit share,
-        stats). With ``count``, stats holds the (ray, triangle) pairs that
-        the plain walk tested ("pairs") and how many of them pass the
-        twins of the first ("sphere") and of both ("both") rejection
-        tests: the work these rays need."""
+        card), bit for bit; returns (max |t diff| over hits, hit share)."""
         import torch
-
-        from theia_tpu_torch.ops.intersect_mt import CHUNK
 
         got = self.run(self.kernel, self.pack, rays)
         torch.cuda.synchronize()
         pack = self.cpu_pack if on_cpu else self.pack
-        stats = {}
-        if count:
-            aos = pack.tri_aos[: pack.n_tri]
-            stats["tests"] = {
-                name: (lambda o, d, c0, reject=reject: ~reject(aos[c0 : c0 + CHUNK], o, d))
-                for name, reject in zip(("sphere", "both"), self.rejects)
-            }
         if on_cpu:
-            want = self.run(self.plain, pack, [r.cpu() for r in rays], stats=stats)
+            want = self.run(self.plain, pack, [r.cpu() for r in rays])
             got = [g.cpu() for g in got]
         else:
-            want = self.run(self.plain, pack, rays, stats=stats)
+            want = self.run(self.plain, pack, rays)
         for what, g, w in zip(("t", "idx", "rows"), got, want):
             assert torch.equal(g, w), f"{self.name}: {what} differs from plain on {label}"
         hit = want[1] >= 0
         err = float((got[0][hit] - want[0][hit]).abs().max()) if bool(hit.any()) else 0.0
-        stats.pop("tests", None)
-        return err, float(hit.float().mean()), stats
+        return err, float(hit.float().mean())
 
-    def bound(self, n_rays: int, stats: dict) -> dict:
-        """The least time for queries of ``n_rays`` rays in all whose
-        needed pairs ``stats`` counts."""
+    def stats(self, rays, layout: bool = True) -> dict:
+        """:func:`scan_stats` of a query of ``rays`` (plain walk on the card)."""
+        from theia_tpu_torch.ops import intersect_mt as tmt
+
+        p = self.pack
+        pair_test = lambda o, d, c0: self.exact(self.cols[:, c0 : c0 + tmt.CHUNK], o, d)
+        walk = lambda stats, sub_box: tmt.chunk_walk(p.n_tri, p.chunk_box, *rays, pair_test, stats, sub_box=sub_box)
+        return scan_stats(self.policy, p.tri_aos, p.sub_box, walk, layout)
+
+    def bound(self, n_rays: int, stats: dict, layout: bool = True) -> dict:
+        """The least time for queries of ``n_rays`` rays in all whose work
+        ``stats`` counts."""
         n_bytes = n_rays * (28 + 8) + self.pack.tri_aos.numel() * 4 + self.pack.chunk_box.numel() * 4
+        n_bytes += self.pack.sub_box.numel() * 4 if layout else 0
         if self.table is not None:
             n_bytes += n_rays * 128 + self.pack.n_tri * 128
-        f0, f1, f2 = self.flop
-        return bound(n_bytes, stats["pairs"] * f0 + stats["sphere"] * f1 + stats["both"] * f2)
+        return scan_bound(self.policy, n_bytes, stats, layout)
+
+
+def yardstick(b: dict, ms: float, rule: str) -> dict:
+    """The bound under an earlier rule, for shares comparable with earlier
+    measurements."""
+    return dict(rule=rule, bound_ms=b["bound_ms"], bound_by=b["bound_by"], share_of_bound=b["bound_ms"] / ms)
+
+
+#: the rule of the whole-table scans' earlier bounds
+FIRST_SCAN_RULE = "chunk rule, sphere test from the ray's origin (the bounds of the first scans)"
 
 
 def check_nearest(nearest: Nearest, adversarial, queries, report):
@@ -545,53 +643,56 @@ def check_nearest(nearest: Nearest, adversarial, queries, report):
     (and rows): random rays at N = 262,144 and 524,288 with times and
     bound, adversarial rays, and the recorded queries of one flagship
     batch, replayed for the time and bound a batch sees."""
-    import torch
-
     name, worst = nearest.name, 0.0
     for n in (BATCH, 2 * BATCH):
         rays = random_rays(n, n + len(name), "cuda")
-        err, hits, _ = nearest.check(rays, f"random rays N={n}", on_cpu=True)
-        _, _, stats = nearest.check(rays, f"random rays N={n} (plain on the card)", on_cpu=False, count=True)
+        err, hits = nearest.check(rays, f"random rays N={n}", on_cpu=True)
+        nearest.check(rays, f"random rays N={n} (plain on the card)", on_cpu=False)
+        own, yard = nearest.stats(rays), nearest.stats(rays, layout=False)
         worst = max(worst, err)
         ms = cuda_ms(lambda: nearest.run(nearest.kernel, nearest.pack, rays), 20)
         plain_ms = cuda_ms(lambda: nearest.run(nearest.plain, nearest.pack, rays), 2)
-        b = nearest.bound(n, stats)
+        b, yb = nearest.bound(n, own), nearest.bound(n, yard, layout=False)
         print(
             f"kernel {name} N={n}: bit-equal to plain, hits {hits:.4f}; kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms; {stats['pairs']} of {n * nearest.pack.n_tri} pairs needed, "
-            f"{stats['sphere']} of them survive the sphere test and {stats['both']} both rejection tests; "
-            f"bound {b['bound_ms']:.4f} ms by {b['bound_by']}, share of bound {b['bound_ms'] / ms:.3f}"
+            f"plain {plain_ms:.4f} ms; of {n * nearest.pack.n_tri} pairs: this layout {work_line(own)}; "
+            f"bound {b['bound_ms']:.4f} ms by {b['bound_by']}, share of bound {b['bound_ms'] / ms:.3f}; "
+            f"yardstick ({FIRST_SCAN_RULE}) {work_line(yard)}, bound {yb['bound_ms']:.4f} ms, "
+            f"share {yb['bound_ms'] / ms:.3f}"
         )
+        entry = dict(ms=ms, plain_ms=plain_ms, **b, n=n, **own, yardstick=dict(yardstick(yb, ms, FIRST_SCAN_RULE), **yard))
         if n == BATCH:
-            report.update(ms=ms, plain_ms=plain_ms, **b, n=n, **stats)
+            report.update(entry)
         else:
-            report.update(double=dict(n=n, ms=ms, plain_ms=plain_ms, **b, **stats))
-    err, hits, _ = nearest.check(adversarial, "adversarial rays", on_cpu=True)
+            report.update(double=entry)
+    err, hits = nearest.check(adversarial, "adversarial rays", on_cpu=True)
     print(f"kernel {name}: bit-equal to plain on {adversarial[0].shape[0]} adversarial rays, hits {hits:.4f}")
     worst = max(worst, err)
     # the recorded batch: bit-equality (plain on the card), then a replay
-    total = dict(pairs=0, sphere=0, both=0)
-    n_rays = 0
+    own, yard, n_rays = {}, {}, 0
     for q in queries:
-        err, _, stats = nearest.check(q, "a recorded flagship query", on_cpu=False, count=True)
+        err, _ = nearest.check(q, "a recorded flagship query", on_cpu=False)
         worst, n_rays = max(worst, err), n_rays + q[0].shape[0]
-        total = {k: v + stats.get(k, 0) for k, v in total.items()}
+        add_stats(own, nearest.stats(q))
+        add_stats(yard, nearest.stats(q, layout=False))
 
     def replay():
         for q in queries:
             nearest.run(nearest.kernel, nearest.pack, q)
 
     batch_ms = cuda_ms(replay, 5)
-    b = nearest.bound(n_rays, total)
+    b, yb = nearest.bound(n_rays, own), nearest.bound(n_rays, yard, layout=False)
     print(
         f"kernel {name}: bit-equal to plain on the {len(queries)} recorded queries of a flagship batch "
-        f"({n_rays} rays); replayed {batch_ms:.4f} ms a batch; {total['pairs']} of "
-        f"{n_rays * nearest.pack.n_tri} pairs needed, {total['sphere']} / {total['both']} of them survive; "
-        f"bound {b['bound_ms']:.4f} ms by {b['bound_by']}, share of bound {b['bound_ms'] / batch_ms:.3f}"
+        f"({n_rays} rays); replayed {batch_ms:.4f} ms a batch; of {n_rays * nearest.pack.n_tri} pairs: "
+        f"this layout {work_line(own)}; bound {b['bound_ms']:.4f} ms by {b['bound_by']}, share of bound "
+        f"{b['bound_ms'] / batch_ms:.3f}; yardstick {work_line(yard)}, bound {yb['bound_ms']:.4f} ms, "
+        f"share {yb['bound_ms'] / batch_ms:.3f}"
     )
     report.update(
         max_abs_err=worst, library_ms=None,
-        batch=dict(queries=len(queries), rays=n_rays, ms=batch_ms, **total, **b),
+        batch=dict(queries=len(queries), rays=n_rays, ms=batch_ms, **own, **b,
+                   yardstick=dict(yardstick(yb, batch_ms, FIRST_SCAN_RULE), **yard)),
     )
 
 
@@ -600,59 +701,109 @@ SOUP_KERNELS = {
     "nearest_in_table_rows": "theia_tpu/accel.py:73",
     "nearest_in_table": "theia_tpu/accel.py:73",
     "anyhit_in_table": "theia_tpu/accel.py:188",
+    "target_in_table": "theia_tpu/accel.py:688",
 }
 
 
-class Soup:
-    """One of the three soup entry points with its plain version, the
-    scene's table on the card and one derived on the CPU."""
+def instance_order(table):
+    """The soup's table in the soup's own order (instance order, the
+    layout of the first soup kernels), on the same device."""
+    import numpy as np
 
-    def __init__(self, name, scene_pack):
+    from theia_tpu_torch.ops.intersect_soup import SoupTable
+
+    return SoupTable(*table.soup, table.spans, np.arange(table.n_tri))
+
+
+def soup_stats(table, query, rays, groups, active, occluders=None, layout: bool = True):
+    """:func:`scan_stats` of a soup query: with ``layout`` over ``table``
+    itself, without over ``instance_order(table)`` (the first soup
+    kernels' yardstick). A target query counts its nearest walk over
+    ``groups`` and its any-hit walk over ``occluders``."""
+    from theia_tpu_torch.ops import intersect_mt as tmt
+    from theia_tpu_torch.ops import intersect_soup as tsoup
+
+    if not layout:
+        table = instance_order(table)
+
+    def walks(stats, sub_box):
+        def walk(t_max, groups, active, any_hit):
+            return tmt.chunk_walk(
+                table.n_tri, table.chunk_box, *rays[:2], t_max, tsoup._pair_test(table), stats,
+                visits=table.visits(groups), active=active, any_hit=any_hit, index=table.index, sub_box=sub_box,
+            )
+
+        out = walk(rays[2], groups, active, query == "anyhit")
+        if query == "target":
+            walk(out[0], occluders, out[1] >= 0, True)
+
+    return scan_stats("mt", table.aos, table.sub_box, walks, layout)
+
+
+#: the rule of the soup kernels' earlier bounds
+FIRST_SOUP_RULE = "the soup in instance order, chunk rule, sphere test from the ray's origin (the first soup kernels')"
+
+
+class Soup:
+    """One of the four soup entry points with its plain version, the
+    scene's table on the card and one derived on the CPU. A target query
+    (``target_in_table``) takes ``groups`` as its detectors, the table's
+    last group by default, and every other group as its occluders."""
+
+    def __init__(self, name, scene_pack, rows: bool | None = None):
         import torch
 
-        from theia_tpu_torch.ops import intersect_mt as tmt
         from theia_tpu_torch.ops import intersect_soup as tsoup
 
-        self.name, self.any_hit = name, name.startswith("anyhit")
-        self.rows = scene_pack.tri_data if name.endswith("_rows") else None
+        self.name, self.any_hit, self.target = name, name.startswith("anyhit"), name.startswith("target")
+        rows = name.endswith("_rows") or self.target if rows is None else rows
+        self.rows = scene_pack.tri_data if rows else None
         self.kernel, self.plain = getattr(tsoup, name), getattr(tsoup, name + "_plain")
         self.tables = (scene_pack.soup, scene_pack.soup.to("cpu"))
-        self.rejects = (tmt._mt_sphere_miss_plain, tmt._mt_reject_plain)
         # the tables are derived on their device (see Nearest)
         torch.testing.assert_close(self.tables[1].aos, self.tables[0].aos.cpu(), rtol=1e-6, atol=1e-7)
         assert torch.equal(self.tables[1].chunk_box, self.tables[0].chunk_box.cpu()), "chunk boxes differ"
+        assert torch.equal(self.tables[1].sub_box, self.tables[0].sub_box.cpu()), "sub-boxes differ"
+
+    def groups(self, table, groups):
+        """(groups, occluders) of a target query over ``table``."""
+        n = len(table.spans)
+        det = [n - 1] if groups is None else list(groups)
+        return det, [k for k in range(n) if k not in det]
 
     def run(self, fn, table, rays, groups=None, active=None, **kw):
-        head = (table,) if self.rows is None else (table, self.rows.to(rays[0].device))
+        rows = None if self.rows is None else self.rows.to(rays[0].device)
+        if self.target:
+            det, occ = self.groups(table, groups)
+            return fn(table, *rays, groups=det, occluders=occ, active=active, rows_table=rows, **kw)
+        head = (table,) if rows is None else (table, rows)
         out = fn(*head, *rays, groups=groups, active=active, **kw)
         return (out,) if self.any_hit else out
 
-    def check(self, rays, label, on_cpu: bool, groups=None, active=None, count: bool = False, tables=None):
+    def check(self, rays, label, on_cpu: bool, groups=None, active=None, tables=None):
         """Kernel against plain (on the CPU copy of the inputs and the CPU
-        table, or on the card), bit for bit; returns (share of lanes with
-        a hit, stats as ``Nearest.check`` counts them)."""
+        table, or on the card), bit for bit; returns the share of lanes
+        with a hit."""
         import torch
-
-        from theia_tpu_torch.ops.intersect_mt import CHUNK
 
         card, host = tables or self.tables
         got = self.run(self.kernel, card, rays, groups, active)
         torch.cuda.synchronize()
-        table, stats = (host if on_cpu else card), {}
-        if count:
-            stats["tests"] = {
-                name: (lambda o, d, c0, reject=reject: ~reject(table.aos[c0 : c0 + CHUNK], o, d))
-                for name, reject in zip(("sphere", "both"), self.rejects)
-            }
+        table = host if on_cpu else card
         if on_cpu:
             rays, active = [r.cpu() for r in rays], None if active is None else active.cpu()
             got = [g.cpu() for g in got]
-        want = self.run(self.plain, table, rays, groups, active, stats=stats)
+        want = self.run(self.plain, table, rays, groups, active)
         for what, g, w in zip(("flag",) if self.any_hit else ("t", "idx", "rows"), got, want):
             assert torch.equal(g, w), f"{self.name}: {what} differs from plain on {label}"
-        stats.pop("tests", None)
         hit = want[0] if self.any_hit else want[1] >= 0
-        return float(hit.float().mean()), stats
+        return float(hit.float().mean())
+
+    def stats(self, table, rays, groups=None, active=None, layout: bool = True) -> dict:
+        """``soup_stats`` of this entry point's query."""
+        query = "target" if self.target else "anyhit" if self.any_hit else "nearest"
+        det, occ = self.groups(table, groups) if self.target else (groups, None)
+        return soup_stats(table, query, rays, det, active, occ, layout)
 
     def ray_bytes(self, n_rays: int, active=None) -> int:
         """The bytes a query of ``n_rays`` lanes must move for its rays:
@@ -664,17 +815,33 @@ class Soup:
             return n_rays * (28 + out)
         return int(active.sum()) * 28 + n_rays * (1 + out)
 
-    def bound(self, ray_bytes: int, n_chunks: int, stats: dict) -> dict:
+    def visited(self, table, groups) -> int:
+        """The chunks a query visits: both lists of a target query."""
+        if self.target:
+            return sum(len(table.visits(g)) for g in self.groups(table, groups))
+        return len(table.visits(groups))
+
+    def bound(self, ray_bytes: int, n_chunks: int, stats: dict, layout: bool = True) -> dict:
         """The least time for queries whose rays need ``ray_bytes`` in all
-        (:meth:`ray_bytes`) over ``n_chunks`` chunks in all, whose needed
-        pairs ``stats`` counts: besides the rays, each visited chunk's
-        rows and box read, and its rows of the winners' table."""
-        n_bytes = ray_bytes + n_chunks * (256 * 80 + 32 + 12)
+        (:meth:`ray_bytes`) over ``n_chunks`` chunks in all, whose work
+        ``stats`` counts: besides the rays, each visited chunk's rows, box
+        (and sub-boxes on the own layout) and count read, and its rows of
+        the winners' table."""
+        n_bytes = ray_bytes + n_chunks * (256 * 80 + 32 + 12 + (8 * 32 if layout else 0))
         if self.rows is not None:
             n_bytes += n_chunks * 256 * 128
-        f0, f1, f2 = PAIR_FLOP["mt"]
-        flop = stats.get("pairs", 0) * f0 + stats.get("sphere", 0) * f1 + stats.get("both", 0) * f2
-        return bound(n_bytes, flop)
+        return scan_bound("mt", n_bytes, stats, layout)
+
+
+def small_soups(table):
+    """Tables of 1, 255, 257 and 3840 triangles of ``table``'s soup, one
+    group each: a target query over them has no occluder."""
+    from theia_tpu_torch.ops.intersect_soup import SoupTable
+
+    v0, e1, e2 = table.soup
+    for n_tri in (1, 255, 257, 3840):
+        small = SoupTable(v0[-n_tri:].contiguous(), e1[-n_tri:].contiguous(), e2[-n_tri:].contiguous())
+        yield n_tri, (small, small.to("cpu"))
 
 
 def check_soup(soup: Soup, adversarial, queries, report):
@@ -682,30 +849,38 @@ def check_soup(soup: Soup, adversarial, queries, report):
     N = 262,144 and 524,288 with times and bound, lane masks, group
     ranges, bounds at and beside a hit, adversarial rays, small and oddly
     cut soups, and the recorded queries of one brute-force flagship
-    batch, replayed for the time and bound a batch sees."""
+    batch, replayed for the time and bound a batch sees. Bounds count the
+    work of the table's own layout; the first soup kernels' yardstick
+    (``soup_stats`` without ``layout``) is kept beside."""
     import torch
 
     from theia_tpu_torch.ops.intersect_soup import SoupTable, nearest_in_table
 
     name, card = soup.name, soup.tables[0]
-    n_all = card.n_chunks
     for n in (BATCH, 2 * BATCH):
         rays = random_rays(n, n + len(name), "cuda")
-        hits, _ = soup.check(rays, f"random rays N={n}", on_cpu=(n == BATCH))
-        _, stats = soup.check(rays, f"random rays N={n} (plain on the card)", on_cpu=False, count=True)
+        hits = soup.check(rays, f"random rays N={n}", on_cpu=(n == BATCH))
+        soup.check(rays, f"random rays N={n} (plain on the card)", on_cpu=False)
+        own, yard = soup.stats(card, rays), soup.stats(card, rays, layout=False)
         ms = cuda_ms(lambda: soup.run(soup.kernel, card, rays), 20)
+        queued_ms = cuda_ms_queued(lambda: soup.run(soup.kernel, card, rays), 20)
         plain_ms = cuda_ms(lambda: soup.run(soup.plain, card, rays), 2)
-        b = soup.bound(soup.ray_bytes(n), n_all, stats)
+        chunks = soup.visited(card, None)
+        b = soup.bound(soup.ray_bytes(n), chunks, own)
+        yb = soup.bound(soup.ray_bytes(n), chunks, yard, layout=False)
         print(
-            f"kernel {name} N={n}: bit-equal to plain, hits {hits:.4f}; kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms; {stats['pairs']} of {n * card.n_tri} pairs needed, "
-            f"{stats['sphere']} of them survive the sphere test and {stats['both']} both rejection tests; "
-            f"bound {b['bound_ms']:.4f} ms by {b['bound_by']}, share of bound {b['bound_ms'] / ms:.3f}"
+            f"kernel {name} N={n}: bit-equal to plain, hits {hits:.4f}; kernel {ms:.4f} ms ({queued_ms:.4f} queued), "
+            f"plain {plain_ms:.4f} ms; this layout {work_line(own)}; bound {b['bound_ms']:.4f} ms by "
+            f"{b['bound_by']}, share of bound {b['bound_ms'] / ms:.3f} ({b['bound_ms'] / queued_ms:.3f} queued); "
+            f"yardstick ({FIRST_SOUP_RULE}) {work_line(yard)}, bound {yb['bound_ms']:.4f} ms, share "
+            f"{yb['bound_ms'] / ms:.3f} ({yb['bound_ms'] / queued_ms:.3f} queued)"
         )
+        entry = dict(ms=ms, queued_ms=queued_ms, plain_ms=plain_ms, **b, n=n, **own,
+                     yardstick=dict(yardstick(yb, ms, FIRST_SOUP_RULE), **yard))
         if n == BATCH:
-            report.update(ms=ms, plain_ms=plain_ms, **b, n=n, **stats)
+            report.update(entry)
         else:
-            report.update(double=dict(n=n, ms=ms, plain_ms=plain_ms, **b, **stats))
+            report.update(double=entry)
     # lane masks and group ranges, and bounds at, just below and just above the nearest hit
     rays = random_rays(BATCH, 5 + len(name), "cuda")
     gen = torch.Generator("cuda").manual_seed(17)
@@ -727,46 +902,49 @@ def check_soup(soup: Soup, adversarial, queries, report):
     ):
         soup.check((rays[0], rays[1], t_max.contiguous()), f"bounds {label} the hit", on_cpu=True)
         cases += 1
-    # soups of 1, 255, 257 and 3840 triangles, and groups that end inside a chunk (one of them empty)
+    # soups of 1, 255, 257 and 3840 triangles (a target query there has no occluder) under a lane mask, and
+    # groups that end inside a chunk (one of them empty)
+    half = torch.rand(rays[0].shape[0], device="cuda", generator=gen) < 0.5
+    for n_tri, tables in small_soups(card):
+        soup.check(rays, f"a soup of {n_tri}", on_cpu=True, active=half, tables=tables)
+        cases += 1
     v0, e1, e2 = card.soup
-    for n_tri in (1, 255, 257, 3840):
-        small = SoupTable(v0[-n_tri:].contiguous(), e1[-n_tri:].contiguous(), e2[-n_tri:].contiguous())
-        if soup.rows is None:
-            soup.check(rays, f"a soup of {n_tri}", on_cpu=True, tables=(small, small.to("cpu")))
-            cases += 1
     odd = SoupTable(v0, e1, e2, ((0, 100), (100, 100), (100, 1000), (1000, 2561), (2561, 3840)))
     for groups in (None, [0, 2], [1], [3, 4]):
         soup.check(rays, f"oddly cut groups {groups}", on_cpu=True, groups=groups, tables=(odd, odd.to("cpu")))
         cases += 1
-    hits, _ = soup.check(adversarial, "adversarial rays", on_cpu=True)
+    hits = soup.check(adversarial, "adversarial rays", on_cpu=True)
     print(f"kernel {name}: bit-equal to plain on {cases} cases of masks, groups, bounds beside a hit and small or "
           f"oddly cut soups, and on {adversarial[0].shape[0]} adversarial rays (hits {hits:.4f})")
     # the recorded batch: bit-equality (plain on the card), then a replay
-    total, n_rays, n_chunks, unmasked, ray_bytes = dict(pairs=0, sphere=0, both=0), 0, 0, 0, 0
+    own, yard = {}, {}
+    n_rays, n_chunks, unmasked, ray_bytes = 0, 0, 0, 0
     for o, d, t_max, groups, active in queries:
-        _, stats = soup.check((o, d, t_max), "a recorded flagship query", on_cpu=False, groups=groups,
-                              active=active, count=True)
-        n_rays, n_chunks = n_rays + o.shape[0], n_chunks + len(card.visits(groups))
+        soup.check((o, d, t_max), "a recorded flagship query", on_cpu=False, groups=groups, active=active)
+        add_stats(own, soup.stats(card, (o, d, t_max), groups, active))
+        add_stats(yard, soup.stats(card, (o, d, t_max), groups, active, layout=False))
+        n_rays, n_chunks = n_rays + o.shape[0], n_chunks + soup.visited(card, groups)
         unmasked += o.shape[0] if active is None else int(active.sum())
         ray_bytes += soup.ray_bytes(o.shape[0], active)
-        total = {k: v + stats.get(k, 0) for k, v in total.items()}
 
     def replay():
         for o, d, t_max, groups, active in queries:
             soup.run(soup.kernel, card, (o, d, t_max), groups, active)
 
     batch_ms, queued_ms = cuda_ms(replay, 5), cuda_ms_queued(replay, 5)
-    b = soup.bound(ray_bytes, n_chunks, total)
+    b, yb = soup.bound(ray_bytes, n_chunks, own), soup.bound(ray_bytes, n_chunks, yard, layout=False)
     print(
         f"kernel {name}: bit-equal to plain on the {len(queries)} recorded queries of a brute-force flagship batch "
         f"({n_rays} rays, {unmasked} unmasked); replayed {batch_ms:.4f} ms a batch ({queued_ms:.4f} queued); "
-        f"{total['pairs']} pairs needed, "
-        f"{total['sphere']} / {total['both']} of them survive; "
-        f"bound {b['bound_ms']:.4f} ms by {b['bound_by']}, share of bound {b['bound_ms'] / batch_ms:.3f}"
+        f"this layout {work_line(own)}; bound {b['bound_ms']:.4f} ms by {b['bound_by']}, share of bound "
+        f"{b['bound_ms'] / batch_ms:.3f} ({b['bound_ms'] / queued_ms:.3f} queued); yardstick {work_line(yard)}, "
+        f"bound {yb['bound_ms']:.4f} ms by {yb['bound_by']}, share {yb['bound_ms'] / batch_ms:.3f} "
+        f"({yb['bound_ms'] / queued_ms:.3f} queued)"
     )
     report.update(
         max_abs_err=0.0, library_ms=None,
-        batch=dict(queries=len(queries), rays=n_rays, unmasked=unmasked, ms=batch_ms, queued_ms=queued_ms, **total, **b),
+        batch=dict(queries=len(queries), rays=n_rays, unmasked=unmasked, ms=batch_ms, queued_ms=queued_ms,
+                   **own, **b, yardstick=dict(yardstick(yb, batch_ms, FIRST_SOUP_RULE), **yard)),
     )
 
 
@@ -777,7 +955,7 @@ def record_soup_queries(tracer, name):
 
     from theia_tpu_torch import accel
 
-    def query(*args, groups=None, active=None):
+    def query(*args, groups=None, active=None, **kw):
         o, d, t_max = args[-3:]
         t_max = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32, device=o.device), o.shape[:1])
         return o.clone(), d.clone(), t_max.clone().contiguous(), groups, None if active is None else active.clone()
@@ -927,11 +1105,21 @@ def main() -> int:
     import theia_tpu_torch
     from theia_tpu_torch import _build, accel
     from theia_tpu_torch.ops.intersect_mt import nearest_triangle_mt, nearest_triangle_mt_rows
-    from theia_tpu_torch.ops.intersect_soup import anyhit_in_table, nearest_in_table, nearest_in_table_rows
+    from theia_tpu_torch.ops.intersect_soup import (
+        anyhit_in_table, nearest_in_table, nearest_in_table_rows, target_in_table,
+    )
     from theia_tpu_torch.ops.intersect_woop import nearest_triangle_woop
     from theia_tpu_torch.random import philox_uniform
     from theia_tpu_torch.response import histogram_add, histogram_grad
     from torch_flagship import adversarial_rays, build_flagship, icosphere
+
+    # the seconds of each phase, printed as it ends
+    clock = {"1": time.perf_counter()}
+
+    def phase(name: str) -> None:
+        last = list(clock)[-1]
+        clock[name] = time.perf_counter()
+        print(f"phase {last}: {clock[name] - clock[last]:.1f} s")
 
     # phase 1: the card and the build
     smi = subprocess.run(
@@ -948,6 +1136,7 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print("ptxas:", line.strip())
 
+    phase("2")
     # phase 2: kernels against their plain versions at the main path's shapes
     mesh = icosphere(3)
     tracer = build_flagship(theia_tpu_torch, mesh, BATCH, MAX_PATH, device="cuda")
@@ -958,7 +1147,7 @@ def main() -> int:
     )
     kernels = {
         "nearest_triangle_mt": dict(
-            route="cuda", source="theia_tpu_torch/csrc/intersect_mt.cu",
+            route="cuda", source="theia_tpu_torch/csrc/intersect_soup.cu",
             replaces="theia_tpu/ops/intersect_mt_pallas.py:158",
         ),
         "philox_uniform": dict(
@@ -974,7 +1163,7 @@ def main() -> int:
             replaces="theia_tpu/ops/intersect_woop.py:198",
         ),
         "nearest_triangle_mt_rows": dict(
-            route="cuda", source="theia_tpu_torch/csrc/intersect_mt.cu",
+            route="cuda", source="theia_tpu_torch/csrc/intersect_soup.cu",
             replaces="tools/exp_mt_fused.py:68",
         ),
         "histogram_grad": dict(
@@ -1011,18 +1200,31 @@ def main() -> int:
     del mt_queries, woop_queries, queries, nearest
     soup_rows = brute_tracer.scene.pack.tri_data[:, 18:27].cpu().numpy()
     assert (soup_rows[:, 0:3] != rows[:, 0:3]).any(), "the brute-force soup is in instance order, not Morton order"
-    # the 10 primary queries (every group, no mask) and the 9 detector queries of the shadow pairs
-    soup_queries = record_soup_queries(brute_tracer, "nearest_in_table_rows")
-    assert len(soup_queries) == 2 * MAX_PATH - 1, len(soup_queries)
-    assert sum(q[3] is not None and q[4] is not None for q in soup_queries) == MAX_PATH - 1
+    # the 10 primary queries (every group, no mask) and the 9 shadow pairs (the detector, masked)
+    primary = record_soup_queries(brute_tracer, "nearest_in_table_rows")
+    shadow = record_soup_queries(brute_tracer, "target_in_table")
+    assert len(primary) == MAX_PATH and all(q[3] is None and q[4] is None for q in primary), len(primary)
+    assert len(shadow) == MAX_PATH - 1 and all(q[3] == [2] and q[4] is not None for q in shadow), len(shadow)
+    # the nearest-hit kernels take the primary queries and the shadow pairs' detector halves; the
+    # any-hit takes the occluder halves with the bounds and masks that the detector halves give
+    occluder_halves = []
+    for o, d, t_max, groups, active in shadow:
+        t_det, idx_det = nearest_in_table(brute_tracer.scene.pack.soup, o, d, t_max, groups=groups, active=active)
+        occluder_halves.append((o, d, t_det, [0, 1], idx_det >= 0))
     for name in SOUP_KERNELS:
-        queries = soup_queries
-        if name == "anyhit_in_table":
-            queries = record_soup_queries(brute_tracer, name)
-            assert len(queries) == MAX_PATH - 1, len(queries)
+        queries = dict(nearest_in_table_rows=primary, anyhit_in_table=occluder_halves, target_in_table=shadow)
+        queries = queries.get(name, primary + shadow)
         check_soup(Soup(name, brute_tracer.scene.pack), adversarial, queries, kernels[name])
-    del soup_queries
-    del queries
+    # the shadow pair without the winners' rows, as the flagship takes it where tri_data is differentiated
+    bare = Soup("target_in_table", brute_tracer.scene.pack, rows=False)
+    for o, d, t_max, groups, active in shadow:
+        bare.check((o, d, t_max), "a recorded shadow pair without rows", on_cpu=False, groups=groups, active=active)
+    o, d, t_max, active = (q[: BATCH // 8].contiguous() for q in (*shadow[0][:3], shadow[0][4]))
+    for n_tri, tables in small_soups(bare.tables[0]):
+        bare.check((o, d, t_max), f"a soup of {n_tri} without rows", on_cpu=True, active=active, tables=tables)
+    print(f"kernel target_in_table: bit-equal to plain without rows on the {len(shadow)} recorded shadow pairs "
+          f"and on soups of 1, 255, 257 and 3840 triangles (no occluder)")
+    del primary, shadow, occluder_halves, queries
     check_philox(kernels["philox_uniform"])
     check_histogram(kernels["histogram_add"], kernels["histogram_grad"])
     brute_records = record_records(brute_tracer)
@@ -1031,6 +1233,7 @@ def main() -> int:
         check_record_replay(records, path, kernels["histogram_add"], kernels["histogram_grad"])
     del mt_records, woop_records, brute_records, records
 
+    phase("3")
     # phase 3: the first main path (accel="mt") at full width
     wrappers = {
         "nearest_triangle_mt": nearest_triangle_mt,
@@ -1039,6 +1242,7 @@ def main() -> int:
         "nearest_in_table_rows": nearest_in_table_rows,
         "nearest_in_table": nearest_in_table,
         "anyhit_in_table": anyhit_in_table,
+        "target_in_table": target_in_table,
         "philox_uniform": philox_uniform,
         "histogram_add": histogram_add,
     }
@@ -1081,6 +1285,7 @@ def main() -> int:
     del tracer
     torch.cuda.empty_cache()
 
+    phase("3b")
     # phase 3b: the second main path (accel="woop", polarized) at full width
     pol_seconds, pol_sums, pol_counts, pol_peak = timed_runs(pol_tracer, wrappers, "woop path")
     assert pol_counts["nearest_triangle_woop"] == 19 * 3, pol_counts
@@ -1100,6 +1305,7 @@ def main() -> int:
         path="polarized woop flagship, 3 batches",
     )
 
+    phase("3c")
     # phase 3c: the gradient at full width, on the same tracer (the
     # largest power-of-two batch that fits, should the full one not)
     grad_batch = BATCH
@@ -1136,11 +1342,12 @@ def main() -> int:
     del pol_tracer
     torch.cuda.empty_cache()
 
+    phase("3d")
     # phase 3d: the third main path, the brute-force flagship (no accel named), at full width
     brute_seconds, brute_sums, brute_counts, brute_peak = timed_runs(brute_tracer, wrappers, "brute path")
-    # 10 primary queries and the 9 detector queries of the shadow pairs, with rows; 9 any-hits
-    assert brute_counts["nearest_in_table_rows"] == 19 * 3 and brute_counts["nearest_in_table"] == 0, brute_counts
-    assert brute_counts["anyhit_in_table"] == (MAX_PATH - 1) * 3, brute_counts
+    # 10 primary queries with rows, and the 9 shadow pairs in one launch each; no separate any-hit
+    assert brute_counts["nearest_in_table_rows"] == MAX_PATH * 3 and brute_counts["nearest_in_table"] == 0, brute_counts
+    assert brute_counts["target_in_table"] == (MAX_PATH - 1) * 3 and brute_counts["anyhit_in_table"] == 0, brute_counts
     for name in ("nearest_triangle_mt", "nearest_triangle_mt_rows", "nearest_triangle_woop"):
         assert brute_counts[name] == 0, brute_counts
     assert brute_counts["philox_uniform"] > 0 and brute_counts["histogram_add"] == 19 * 3, brute_counts
@@ -1153,7 +1360,7 @@ def main() -> int:
         f"launches per batch {{{', '.join(f'{k}: {v // 3}' for k, v in brute_counts.items())}}}, "
         f"histogram sums {brute_sums}"
     )
-    for name in ("nearest_in_table_rows", "anyhit_in_table"):
+    for name in ("nearest_in_table_rows", "target_in_table"):
         kernels[name].update(launches=brute_counts[name], launches_per_batch=brute_counts[name] // 3,
                              path="brute-force flagship, 3 batches")
     # the winners' rows from the kernel and from a torch gather, in turns
@@ -1164,11 +1371,12 @@ def main() -> int:
         own, other = "nearest_in_table_rows", "nearest_in_table"
         if not from_query:
             own, other = other, own
-        assert turn_counts[own] == 19 * 3 and turn_counts[other] == 0, turn_counts
+        assert turn_counts[own] == MAX_PATH * 3 and turn_counts[other] == 0, turn_counts
+        assert turn_counts["target_in_table"] == (MAX_PATH - 1) * 3, turn_counts
         brute_turns.append(dict(rows_from_kernel=from_query, seconds_per_batch=turn_seconds))
         if not from_query:
             kernels["nearest_in_table"].update(
-                launches=turn_counts[own], launches_per_batch=19,
+                launches=turn_counts[own], launches_per_batch=MAX_PATH,
                 path="brute-force flagship with the torch gather, 3 batches",
             )
     accel.ROWS_FROM_QUERY = True
@@ -1190,9 +1398,26 @@ def main() -> int:
         f"{t['accel']} {statistics.median(t['seconds_per_batch']):.4f} s "
         f"{[round(x, 4) for x in t['seconds_per_batch']]}" for t in backend_turns
     ))
+    phase("3e")
+    # phase 3e: the visibility query on the brute-force scene, the any-hit's entry point since the
+    # shadow pair takes one launch: observers around the scene, targets up to 5 m along random rays
+    o, d, reach = random_rays(BATCH, 31, "cuda")
+    target = o + d * torch.where(torch.isfinite(reach), reach, 5.0)[:, None]
+    for w in wrappers.values():
+        w.launches = 0
+    seen = [accel.is_visible(brute_tracer.scene.pack, o, target) for _ in range(3)]
+    torch.cuda.synchronize()
+    vis_counts = {name: w.launches for name, w in wrappers.items()}
+    assert vis_counts["anyhit_in_table"] == 3 and sum(vis_counts.values()) == 3, vis_counts
+    assert all(torch.equal(v, seen[0]) for v in seen) and 0.0 < float(seen[0].float().mean()) < 1.0
+    print(f"is_visible (brute): {BATCH} observer-target pairs, visible {float(seen[0].float().mean()):.4f}, "
+          f"launches {vis_counts['anyhit_in_table']}")
+    kernels["anyhit_in_table"].update(launches=vis_counts["anyhit_in_table"], launches_per_batch=1,
+                                      path="is_visible on the brute-force scene, 3 calls")
     del backends, brute_tracer
     torch.cuda.empty_cache()
 
+    phase("4")
     # phase 4: the port on the CPU against the port on the card
     cpu_vs_card = {}
     for label, kw in (
@@ -1232,6 +1457,7 @@ def main() -> int:
     assert worst <= 1e-3 and sum_rel <= 1e-5, "cpu and card gradients disagree"
     cpu_vs_card["gradient"] = dict(worst_entry_rel=worst, sum_rel=sum_rel)
 
+    phase("end")
     for info in kernels.values():
         assert info["launches"] > 0, info
         info.update(card_ms=info["ms"], share_of_bound=info["bound_ms"] / info["ms"])
@@ -1248,7 +1474,8 @@ def main() -> int:
                                  peak_bytes=pol_peak, histogram_sums=pol_sums, launches=pol_counts),
         gradient=dict(batch=grad_batch, seconds=grad_seconds, peak_bytes=grad_peak, loss=loss,
                       grad_sum=float(grad.sum()), grad=grad.tolist(), histogram_grad_launches=grad_launches),
-        cpu_vs_card=cpu_vs_card, **line,
+        cpu_vs_card=cpu_vs_card, phase_seconds={k: clock[n] - clock[k] for k, n in zip(clock, list(clock)[1:])},
+        **line,
     ), indent=1))
     print(json.dumps(line))
     print(smi)

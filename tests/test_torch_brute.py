@@ -234,6 +234,15 @@ def test_soup_table_groups_and_padding(flagship_soup):
     assert table.n_chunks == 1 + 0 + 4 + 7 + 5
     assert table.chunk_count.tolist()[:5] == [100, 256, 256, 256, 132]
     assert table.chunk_first.tolist()[:6] == [0, 100, 356, 612, 868, 1000]
+    # each group's rows in Morton order among themselves, every row carrying its soup row, padding
+    # repeating the group's last row; a sub-box a run of 32 rows
+    for k, (start, end) in enumerate(spans):
+        c0, c1 = table.group_chunks[k]
+        rows = table.index[c0 * CHUNK : c1 * CHUNK].tolist()
+        real = end - start
+        assert sorted(rows[:real]) == list(range(start, end)) and set(rows[real:]) <= {rows[real - 1] if real else None}
+    assert torch.equal(table.aos[:, tsoup.INDEX_COLUMN].view(torch.int32), table.index)
+    assert table.sub_box.shape == (table.n_chunks * CHUNK // tsoup.SUB, 8)
     o, d, t = _tt(*_aimed_rays(N_RAYS, 3))
     active = torch.as_tensor(np.random.default_rng(4).uniform(size=N_RAYS) < 0.6)
     for groups in ([0], [2, 4], [1], [0, 1, 2, 3, 4], None):

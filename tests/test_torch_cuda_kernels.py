@@ -91,7 +91,7 @@ def test_woop_kernel_bit_equal(cuda):
     from torch_flagship import build_flagship, icosphere
 
     pack = build_flagship(theia_tpu_torch, icosphere(3), 64, 2, accel="woop", device=cuda).scene.pack.woop
-    cpu_pack = WoopPack(pack.b.cpu(), pack.aabb, pack.lo, pack.hi, pack.n_tri, pack.chunk_box.cpu())
+    cpu_pack = WoopPack(pack.b.cpu(), pack.aabb, pack.lo, pack.hi, pack.n_tri, pack.chunk_box.cpu(), pack.sub_box.cpu())
     o, d, tmax = _rays(10_000, 1, cuda)
     before = nearest_triangle_woop.launches
     t, i = nearest_triangle_woop(pack, o, d, tmax)
@@ -156,7 +156,7 @@ def test_nearest_kernels_on_hard_rays(cuda, name):
     hard = (torch.as_tensor(o, device=cuda), torch.as_tensor(d, device=cuda),
             torch.full((o.shape[0],), float("inf"), device=cuda))
     before = nearest.kernel.launches
-    _, hits, _ = nearest.check(hard, "adversarial rays", on_cpu=True)
+    _, hits = nearest.check(hard, "adversarial rays", on_cpu=True)
     assert nearest.kernel.launches == before + 1 and hits > 0.5
     queries = chip_smoke.record_queries(
         tracer, ("nearest_triangle_woop" if woop else "nearest_triangle_mt_rows",)
@@ -233,14 +233,15 @@ def test_histogram_all_masked_leaves_state(cuda, name):
         assert not histogram_grad(state, t, m, *rest).any()
 
 
-@pytest.mark.parametrize("name", ["nearest_in_table", "nearest_in_table_rows", "anyhit_in_table"])
+@pytest.mark.parametrize("name", ["nearest_in_table", "nearest_in_table_rows", "anyhit_in_table", "target_in_table"])
 def test_soup_kernels_on_hard_rays(cuda, name):
-    """The three soup entry points against their plain versions, bit for
+    """The four soup entry points against their plain versions, bit for
     bit: adversarial rays (NaN and huge rays among them) over all groups
     and over the detector or the occluders with a lane mask, groups that
     end inside a chunk, and every query of one recorded brute-force
     flagship batch (batch 8192, path length 4) with the groups, bounds and
-    masks the tracer passed; then with the bound at the hit."""
+    masks the tracer passed (the any-hit on the occluder halves of its
+    shadow pairs); then with the bound at the hit."""
     import chip_smoke
     import theia_tpu_torch
     from theia_tpu_torch.ops.intersect_soup import SoupTable, nearest_in_table
@@ -256,19 +257,28 @@ def test_soup_kernels_on_hard_rays(cuda, name):
             torch.full((o.shape[0],), float("inf"), device=cuda))
     active = torch.as_tensor(np.random.default_rng(1).uniform(size=o.shape[0]) < 0.5, device=cuda)
     before = soup.kernel.launches
-    hits, _ = soup.check(hard, "adversarial rays", on_cpu=True)
-    assert soup.kernel.launches == before + 1 and hits > 0.5
+    hits = soup.check(hard, "adversarial rays", on_cpu=True)
+    # a shadow pair answers on the detector's third of the soup alone
+    assert soup.kernel.launches == before + 1 and hits > (0.1 if soup.target else 0.5)
     for groups in ([2], [0, 1]):
         soup.check(hard, f"adversarial rays, groups {groups}, masked", on_cpu=True, groups=groups, active=active)
     odd = SoupTable(pack.w_v0, pack.w_e1, pack.w_e2, ((0, 100), (100, 100), (100, 1000), (1000, 2561), (2561, 3840)))
     for groups in (None, [0, 2], [1]):
         soup.check(hard, f"oddly cut groups {groups}", on_cpu=True, groups=groups, active=active,
                    tables=(odd, odd.to("cpu")))
-    # 4 primary queries (every group, no mask) and 3 shadow pairs; both nearest kernels take the nearest queries
-    recorded = "anyhit_in_table" if soup.any_hit else "nearest_in_table_rows"
-    queries = chip_smoke.record_soup_queries(tracer, recorded)
-    assert len(queries) == (3 if soup.any_hit else 7)
-    assert sum(groups is None and mask is None for *_, groups, mask in queries) == (0 if soup.any_hit else 4)
+    # 4 primary queries (every group, no mask) and 3 shadow pairs
+    primary = chip_smoke.record_soup_queries(tracer, "nearest_in_table_rows")
+    shadow = chip_smoke.record_soup_queries(tracer, "target_in_table")
+    assert len(primary) == 4 and all(groups is None and mask is None for *_, groups, mask in primary)
+    assert len(shadow) == 3 and all(groups == [2] and mask is not None for *_, groups, mask in shadow)
+    queries = primary + shadow
+    if soup.target:
+        queries = shadow
+    elif soup.any_hit:  # the occluder halves: bounded by the detector's hit, on the lanes that found one
+        queries = []
+        for q_o, q_d, t_max, groups, mask in shadow:
+            t_det, idx_det = nearest_in_table(soup.tables[0], q_o, q_d, t_max, groups=groups, active=mask)
+            queries.append((q_o, q_d, t_det, [0, 1], idx_det >= 0))
     for q_o, q_d, t_max, groups, mask in queries:
         soup.check((q_o, q_d, t_max), "a recorded flagship query", on_cpu=False, groups=groups, active=mask)
         # with the bound at the nearest hit, that hit no longer counts

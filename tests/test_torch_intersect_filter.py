@@ -1,9 +1,11 @@
 """The two rejection tests that the nearest-hit kernels run in front of
-their exact tests (the bounding-sphere test of ``csrc/nearest_scan.cuh``,
-then the division-free test of ``csrc/intersect_mt.cu`` and
-``csrc/intersect_woop.cu``), through their plain PyTorch twins
-(``_mt_reject_plain``, ``_woop_reject_plain``: the same formulas and
-slack), held against the exact plain tests.
+their exact tests (the bounding-sphere test of ``csrc/nearest_scan.cuh``
+from where a ray enters a sub-box, then the division-free test of
+``csrc/moller_trumbore.cuh`` and ``csrc/intersect_woop.cu``), through
+their plain PyTorch twins (``_mt_sphere_miss_plain`` and
+``_mt_reject_plain``, ``_woop_sphere_miss_plain`` and
+``_woop_reject_plain``: the same formulas and slack), held against the
+exact plain tests.
 
 The one property that bit-equality of the kernels rests on: **no pair
 that the exact test accepts is rejected**. It is checked with the
@@ -46,16 +48,29 @@ def _pack(kind, v0, e1, e2):
     return pack(*(np.asarray(a, np.float32) for a in (v0, e1, e2)), device="cpu")
 
 
+def _twins(kind):
+    if kind == "mt":
+        return tmt._mt_sphere_miss_plain, tmt._mt_reject_plain
+    return twoop._woop_sphere_miss_plain, twoop._woop_reject_plain
+
+
+def _rejected(kind, aos, sub_box, o, d, fused=True):
+    """Both rejection twins on the rows ``aos`` (whole sub-boxes from the
+    first, each bounded by its row of ``sub_box``): bool (rays, rows)."""
+    sphere_miss, reject = _twins(kind)
+    return sphere_miss(aos, sub_box, o, d, fused) | reject(aos, o, d, fused)
+
+
 def _exact_and_reject(kind, pack, o, d, fused):
     """(hit, reject), each (rays, n_tri): the exact plain test and the
-    rejection twin on every pair."""
+    rejection twins on every pair."""
     o, d = torch.as_tensor(o, dtype=torch.float32), torch.as_tensor(d, dtype=torch.float32)
-    aos = pack.tri_aos[: pack.n_tri]
+    reject = _rejected(kind, pack.tri_aos, pack.sub_box, o, d, fused)[:, : pack.n_tri]
     if kind == "mt":
         _, hit = tmt._mt_exact_plain(tmt._rows(pack.tri, pack.n_tri), o, d)
-        return hit, tmt._mt_reject_plain(aos, o, d, fused)
-    _, hit = twoop._woop_exact_plain(twoop._transforms(pack.b, pack.n_tri), o, d)
-    return hit, twoop._woop_reject_plain(aos, o, d, fused)
+    else:
+        _, hit = twoop._woop_exact_plain(twoop._transforms(pack.b, pack.n_tri), o, d)
+    return hit, reject
 
 
 def _assert_no_false_reject(kind, pack, o, d):
@@ -162,15 +177,15 @@ def test_filtered_walk_equals_plain(flagship, kind):
     o = torch.as_tensor(np.concatenate([o_r, o_a]))
     d = torch.as_tensor(np.concatenate([d_r, d_a]))
     if kind == "mt":
-        plain, cols = tmt.nearest_triangle_mt_plain, tmt._rows(pack.tri, pack.n_tri)
-        exact, reject = tmt._mt_exact_plain, tmt._mt_reject_plain
+        plain, cols, exact = tmt.nearest_triangle_mt_plain, tmt._rows(pack.tri, pack.n_tri), tmt._mt_exact_plain
     else:
         plain, cols = twoop.nearest_triangle_woop_plain, twoop._transforms(pack.b, pack.n_tri)
-        exact, reject = twoop._woop_exact_plain, twoop._woop_reject_plain
+        exact = twoop._woop_exact_plain
 
     def pair_test(oo, dd, c0):
         t, hit = exact(cols[:, c0 : c0 + tmt.CHUNK], oo, dd)
-        return t, hit & ~reject(pack.tri_aos[c0 : c0 + tmt.CHUNK][: hit.shape[1]], oo, dd)
+        rejected = _rejected(kind, *tmt.chunk_tables(pack.tri_aos, pack.sub_box, c0), oo, dd)
+        return t, hit & ~rejected[:, : hit.shape[1]]
 
     t_hit, _ = plain(pack, o, d, torch.full((o.shape[0],), torch.inf))
     assert torch.isfinite(t_hit).float().mean() > 0.3
@@ -182,7 +197,7 @@ def test_filtered_walk_equals_plain(flagship, kind):
         torch.nextafter(t_hit, -inf),
     ):
         want = plain(pack, o, d, t_max)
-        got = tmt.chunk_walk(pack.n_tri, pack.chunk_box, o, d, t_max, pair_test)
+        got = tmt.chunk_walk(pack.n_tri, pack.chunk_box, o, d, t_max, pair_test, sub_box=pack.sub_box)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     stats = {}
     plain(pack, o, d, t_hit, stats)

@@ -119,8 +119,9 @@ def test_nearest_matches_jax(scenes, finite):
 
 
 def test_chunk_skip_changes_nothing(scenes):
-    """With unbounded chunk boxes nothing is skipped; the result must be
-    bit-identical to the skipping walk, grazing rays included."""
+    """With unbounded chunk boxes and sub-boxes nothing is skipped; the
+    result must be bit-identical to the skipping walk, grazing rays
+    included."""
     _, tp = scenes
     o, d, tmax = _rays(4096, 9, False)
     # rays grazing the detector sphere's silhouette
@@ -130,8 +131,9 @@ def test_chunk_skip_changes_nothing(scenes):
     args = (torch.as_tensor(o), torch.as_tensor(d), torch.as_tensor(tmax))
     got = tmt.nearest_triangle_mt_plain(tp.mt, *args)
     open_pack = tmt.MTPack(tp.mt.tri, tp.mt.aabb, tp.mt.lo, tp.mt.hi, tp.mt.n_tri)
-    open_pack.chunk_box[:, 0:3] = -np.inf
-    open_pack.chunk_box[:, 4:7] = np.inf
+    for boxes in (open_pack.chunk_box, open_pack.sub_box):
+        boxes[:, 0:3] = -np.inf
+        boxes[:, 4:7] = np.inf
     want = tmt.nearest_triangle_mt_plain(open_pack, *args)
     assert (got[1] >= 0).any()
     for g, w in zip(got, want):
@@ -167,7 +169,8 @@ def test_mt_rows_plain(scenes):
 def test_tri_aos_round_trip(scenes, n_tri):
     """The kernel's table: rows of v0, e1, e2 equal to the JAX-layout
     ``tri`` bit for bit, n = e1 x e2, a bounding sphere, finite slack
-    coefficients, whole chunks, and padding rows (all zero) that the exact test never hits."""
+    coefficients, each row's index in the index column, whole chunks, and
+    padding rows (all zero) that the exact test never hits."""
     v0, e1, e2 = _soup(scenes[0], n_tri)
     tp = tmt.pack_mt(v0, e1, e2, device="cpu")
     jp = jmt.pack_mt(v0, e1, e2, None)
@@ -185,7 +188,11 @@ def test_tri_aos_round_trip(scenes, n_tri):
     dist2 = ((verts - aos[:n_tri, 0:3].numpy().astype(np.float64)) ** 2).sum(-1).max(0)
     assert (aos[:n_tri, 3].numpy() >= 1.69 * dist2).all()
     assert torch.isfinite(aos).all() and (aos[:n_tri, 7:10] > 0).all()
-    assert (aos[n_tri:] == 0).all() and (aos[:, 11] == 0).all()
+    assert torch.equal(aos.view(torch.int32)[:n_tri, tmt.INDEX_COLUMN], torch.arange(n_tri, dtype=torch.int32))
+    assert (aos[n_tri:] == 0).all()
+    assert tp.chunk_count.tolist() == [min(tmt.CHUNK, n_tri - c0) for c0 in range(0, n_tri, tmt.CHUNK)]
+    assert tp.chunks.tolist() == list(range(len(tp.chunk_count)))
+    assert tp.sub_box.shape == (aos.shape[0] // tmt.SUB, 8)
     o, d, _ = (torch.as_tensor(a) for a in _rays(256, 17, False))
     _, hit = tmt._mt_exact_plain(aos[n_tri:, exact_cols].T, o, d)
     assert not hit.any()

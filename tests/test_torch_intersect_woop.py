@@ -135,8 +135,9 @@ def test_woop_agrees_with_mt(scenes, degenerate):
 
 
 def test_chunk_skip_changes_nothing(scenes):
-    """With unbounded chunk boxes nothing is skipped; the result must be
-    bit-identical to the skipping walk, grazing rays included."""
+    """With unbounded chunk boxes and sub-boxes nothing is skipped; the
+    result must be bit-identical to the skipping walk, grazing rays
+    included."""
     _, tp = scenes
     o, d, tmax = _rays(4096, 9, False)
     c = np.asarray([0.0, 3.0, 0.0], np.float32)
@@ -145,11 +146,12 @@ def test_chunk_skip_changes_nothing(scenes):
     args = (torch.as_tensor(o), torch.as_tensor(d), torch.as_tensor(tmax))
     got = twoop.nearest_triangle_woop_plain(tp.woop, *args)
     w = tp.woop
-    open_box = w.chunk_box.clone()
-    open_box[:, 0:3] = -np.inf
-    open_box[:, 4:7] = np.inf
+    open_boxes = w.chunk_box.clone(), w.sub_box.clone()
+    for boxes in open_boxes:
+        boxes[:, 0:3] = -np.inf
+        boxes[:, 4:7] = np.inf
     want = twoop.nearest_triangle_woop_plain(
-        twoop.WoopPack(w.b, w.aabb, w.lo, w.hi, w.n_tri, open_box), *args
+        twoop.WoopPack(w.b, w.aabb, w.lo, w.hi, w.n_tri, *open_boxes), *args
     )
     assert (got[1] >= 0).any()
     for g, x in zip(got, want):
@@ -171,8 +173,9 @@ def test_cpu_launches_no_kernel_and_checks_shapes(scenes):
 def test_tri_aos_round_trip(scenes, n_tri):
     """The kernel's table: rows of m and f equal to the JAX-layout ``b``
     bit for bit, a bounding sphere and finite slack coefficients for real
-    triangles, an infinite one for degenerate ones, whole chunks, and padding rows (all
-    zero) that the exact test never hits."""
+    triangles, an infinite one for degenerate ones, each row's index in the
+    index column, whole chunks, and padding rows (all zero) that the exact
+    test never hits."""
     v0, e1, e2 = (a[:n_tri].copy() for a in _soup(scenes[0]))
     if n_tri > 100:
         e2[::97] = 2.0 * e1[::97]  # degenerate: m = 0, f = 3e38
@@ -194,7 +197,10 @@ def test_tri_aos_round_trip(scenes, n_tri):
     dist2 = ((verts - aos[:n_tri, 0:3].numpy().astype(np.float64)) ** 2).sum(-1).max(0)
     keep = ~degenerate.numpy()
     assert (aos[:n_tri, 3].numpy()[keep] >= 2.79 * dist2[keep]).all()
-    assert (aos[n_tri:] == 0).all() and (aos[:, 10:12] == 0).all()
+    assert (aos[n_tri:] == 0).all() and (aos[:, 10] == 0).all()
+    assert torch.equal(aos.view(torch.int32)[:n_tri, tmt.INDEX_COLUMN], torch.arange(n_tri, dtype=torch.int32))
+    assert tp.chunk_count.tolist() == [min(tmt.CHUNK, n_tri - c0) for c0 in range(0, n_tri, tmt.CHUNK)]
+    assert tp.sub_box.shape == (aos.shape[0] // tmt.SUB, 8)
     o, d, _ = (torch.as_tensor(a) for a in _rays(256, 17, False))
     _, hit = twoop._woop_exact_plain(rows[n_tri:].T, o, d)
     assert not hit.any()

@@ -113,8 +113,9 @@ def test_plain_record_on_edges_matches_jax(n_bins, n_det, n):
     against theia_tpu's record, rtol 1e-6 a bin: both sum a few thousand
     float32 values a bin at most, in another order. Unmasked NaN times are
     left out of the comparison: theia_tpu casts a NaN bin to an integer,
-    which lands in bin 0 on the CPU, while the port drops the lane; that
-    the port drops it is checked against itself."""
+    which lands in bin 0 on the CPU, while the port drops the lane
+    (``test_nan_time_is_a_deliberate_divergence``); that the port drops it
+    is checked against itself."""
     time, value, object_id, mask = edge_inputs(n, 100 * n + n_bins, n_bins, n_det)
     jr = jax_response(n, n_bins, n_det)
     jstate, _ = jr.record(jr.params(), jr.init(), jax_item(time, value, object_id), jnp.asarray(mask), None)
@@ -150,3 +151,32 @@ def test_shared_state_max_is_the_kernel_files():
     kib = int(re.search(r"constexpr int kSmemPerSm = (\d+) \* 1024;", source).group(1))
     assert "kSharedMaxFloats = (kSmemPerSm - 1024) / 4;" in source
     assert (kib * 1024 - 1024) // 4 == tresp.SHARED_STATE_MAX
+
+
+@pytest.mark.parametrize("n_bins,n_det", STATES)
+def test_nan_time_is_a_deliberate_divergence(n_bins, n_det):
+    """An unmasked lane with a NaN time, on the same inputs to both
+    packages: ``theia_tpu`` casts its NaN bin to an integer, which on the
+    CPU lands in bin 0 (of the lane's detector where the state has a
+    detector axis and the id is in range); the port drops the lane, in
+    its plain version and in its kernels alike, as ``response.py`` says.
+    The port's state equals the record with those lanes masked, and
+    ``theia_tpu``'s that plus their values in bin 0, rtol 1e-6 a bin (the
+    sums of ``test_plain_record_on_edges_matches_jax``)."""
+    time, value, object_id, mask = edge_inputs(4099, 7 + n_bins, n_bins, n_det)
+    nan = np.isnan(time)
+    assert nan.sum() > 100
+    mask = mask | nan  # the NaN lanes recorded, not masked
+    jr = jax_response(time.shape[0], n_bins, n_det)
+    jstate, _ = jr.record(jr.params(), jr.init(), jax_item(time, value, object_id), jnp.asarray(mask), None)
+    t = lambda a: torch.as_tensor(a)
+    args = (t(value), t(time), t(mask), torch.tensor(0.0), torch.tensor(5.0), n_bins,
+            t(object_id) if n_det else None, n_det)
+    port = tresp.histogram_add(torch.zeros(jr._size()), *args).numpy()
+    dropped = tresp.histogram_add_plain(torch.zeros(jr._size()), args[0], args[1], t(mask & ~nan), *args[3:]).numpy()
+    np.testing.assert_array_equal(port, dropped)
+    binned = dropped.astype(np.float64)
+    lanes = nan & ((object_id >= 0) & (object_id < n_det) if n_det else True)
+    np.add.at(binned, object_id[lanes] * n_bins if n_det else np.zeros(lanes.sum(), np.int64), value[lanes])
+    assert lanes.sum() > 50 and not np.allclose(port, np.asarray(jstate))
+    np.testing.assert_allclose(np.asarray(jstate), binned, rtol=1e-6, atol=0.0)

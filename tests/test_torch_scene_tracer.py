@@ -103,7 +103,9 @@ def runs():
     bt = build_flagship(theia_tpu_torch, mesh, BATCH, MAX_PATH, accel="auto", device="cpu")
     assert bt.scene.accel == "brute"
     bt._debug_rng = True
-    soup_calls = out["b_query_calls"] = {"nearest_in_table_rows": 0, "nearest_in_table": 0, "anyhit_in_table": 0}
+    soup_calls = out["b_query_calls"] = {
+        "nearest_in_table_rows": 0, "nearest_in_table": 0, "anyhit_in_table": 0, "target_in_table": 0,
+    }
 
     def counting_kw(name, fn):
         def wrapper(*args, **kw):
@@ -191,12 +193,14 @@ def test_brute_flagship_matches_mt_flagship(runs):
 
 
 def test_brute_path_queries(runs):
-    """The default scene's batch: 10 primary queries and, for each of the
-    9 MIS shadow pairs, one nearest hit over the detector, all through
-    the query that also returns the winners' rows, and one any-hit over
-    the occluders a pair; no query of the ``mt`` path."""
+    """The default scene's batch: 10 primary queries through the query
+    that also returns the winners' rows, and each of the 9 MIS shadow
+    pairs as one query (the nearest hit over the detector with its rows
+    and the any-hit over the occluders together); no separate any-hit and
+    no query of the ``mt`` path."""
     assert runs["b_query_calls"] == {
-        "nearest_in_table_rows": 2 * MAX_PATH - 1, "nearest_in_table": 0, "anyhit_in_table": MAX_PATH - 1,
+        "nearest_in_table_rows": MAX_PATH, "nearest_in_table": 0, "anyhit_in_table": 0,
+        "target_in_table": MAX_PATH - 1,
     }
     assert runs["t_query_calls"]["nearest_triangle_mt_rows"] == 2 * MAX_PATH - 1  # counted before the brute run
 

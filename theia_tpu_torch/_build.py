@@ -28,7 +28,7 @@ __all__ = ["KernelLibrary", "library", "build", "check", "stream_handle"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "theia_tpu_torch"
-SOURCES = ("intersect_mt.cu", "intersect_woop.cu", "intersect_soup.cu", "philox.cu", "histogram.cu")
+SOURCES = ("intersect_woop.cu", "intersect_soup.cu", "philox.cu", "histogram.cu")
 #: -fmad=false: no contraction of a*b+c into FMAs, so every product and sum
 #: rounds exactly as the plain PyTorch versions' separate ops do (explicit
 #: fmaf intrinsics, as in the nearest-hit kernels' rejection tests, stay)
@@ -43,12 +43,11 @@ _I = ctypes.c_int
 _U = ctypes.c_uint32
 #: argument types of each C entry point (pointers and the stream as void*)
 _SIGNATURES = {
-    "theia_mt_nearest": (_P, _P, _P, _P, _P, _I, _I, _P, _P, _P),
-    "theia_mt_nearest_rows": (_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P),
-    "theia_woop_nearest": (_P, _P, _P, _P, _P, _I, _I, _P, _P, _P),
+    "theia_woop_nearest": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P),
     "theia_soup_nearest": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P),
     "theia_soup_nearest_rows": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P),
     "theia_soup_anyhit": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P),
+    "theia_soup_target": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P),
     "theia_philox_uniform": (_U, _U, _U, _U, _U, _U, _P, _P, _I, _I, _P, _P),
     "theia_histogram_add": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
     "theia_histogram_grad": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
@@ -108,9 +107,9 @@ def build(
     ``-D`` flags ``defines``; cached per process. Only measurement scripts
     pass arguments: another count of rays a block of the nearest-hit scan
     (``THEIA_RAYS_PER_THREAD``), the record's large-state variant on every
-    state (``THEIA_HISTOGRAM_SHARED_MAX=0``), or the sources of an
-    earlier commit with their ``signatures`` as ``(name, argtypes)``
-    pairs, to time it beside the current kernels."""
+    state (``THEIA_HISTOGRAM_SHARED_MAX=0``), or the sources of an earlier
+    commit or of a patched copy with their ``signatures`` as ``(name,
+    argtypes)`` pairs, to time them beside the current kernels."""
     flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
     sigs = dict(signatures) if signatures is not None else _SIGNATURES
     out = BUILD_DIR / f"libtheia_kernels-{_digest(csrc, flags)}.so"
@@ -119,8 +118,8 @@ def build(
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
     # the package's own build needs every source (nvcc fails on a missing
-    # one); an earlier commit's directory may lack the newer ones
-    sources = [src for src in SOURCES if signatures is None or (csrc / src).is_file()]
+    # one); another directory (an earlier commit's) builds the sources it has
+    sources = SOURCES if signatures is None else sorted(path.name for path in csrc.glob("*.cu"))
     objs = [BUILD_DIR / f"{Path(src).stem}-{tag}.o" for src in sources]
     start = time.perf_counter()
     # one nvcc per source, all running at once

@@ -12,20 +12,24 @@ the only part of intersection that autograd could differentiate, as with
 ``stop_gradient`` in ``theia_tpu.accel`` (reference:
 scene.intersect.glsl:47-99, ray.surface.glsl:22-36).
 
-On brute-force packs :func:`intersect_target` splits the MIS shadow query
-as ``theia_tpu`` does: the nearest hit on the detector instances, then an
-any-hit over the other instances bounded by it, both with the one exact
-test of ``csrc/moller_trumbore.cuh``, so the winner cannot occlude itself.
+On brute-force packs :func:`intersect_target` answers the MIS shadow
+query with ``theia_tpu``'s split (the nearest hit on the detector
+instances, then an any-hit over the other instances bounded by it) in
+one launch, ``target_in_table``: the any-hit runs in the same blocks as
+the nearest hit, from the winners' t, on the lanes that found one. Both
+halves run the one exact test of ``csrc/moller_trumbore.cuh``, so the
+winner cannot occlude itself. The port's queries take ``theia_tpu``'s
+``chunk=`` keyword and ignore it: the kernels choose their own tiling.
 :func:`nearest_culled` and :func:`anyhit_culled` are the queries over
 chosen instances (``groups``) and lanes (``active``). ``theia_tpu`` skips
 work there by a bounding-sphere test an instance
 (:func:`_seg_hits_sphere`) and a fixed-capacity lane compaction with a
 full-width fallback, because XLA needs static shapes; its results are
 pinned bit-identical to the full scan. The port carries the functions and
-their results, not that mechanism: the kernels skip per ray and per chunk
-of 256 triangles (a masked lane enters no chunk's list, and a chunk's box
-is tighter than its instance's sphere), so there is no capacity, no
-fallback and no knob.
+their results, not that mechanism: the kernels skip per ray, per chunk
+of 256 triangles and per sub-box of 32 (a masked lane enters no chunk's
+list, and a chunk's box is tighter than its instance's sphere), so there
+is no capacity, no fallback and no knob.
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ from dataclasses import dataclass
 import torch
 
 from .ops.intersect_mt import nearest_triangle_mt, nearest_triangle_mt_rows
-from .ops.intersect_soup import anyhit_in_table, nearest_in_table, nearest_in_table_rows
+from .ops.intersect_soup import anyhit_in_table, nearest_in_table, nearest_in_table_rows, target_in_table
 from .ops.intersect_woop import nearest_triangle_woop
 from .ops.math3d import cross, dot, matvec, moeller_trumbore_rowwise, normalize, sign_bit, vec3
 from .scene import ScenePack
@@ -109,17 +113,18 @@ def _brute_rays(pack: ScenePack, origin, direction, t_max, what: str):
     )
 
 
-def nearest_culled(pack: ScenePack, origin, direction, t_max, *, groups=None, active=None):
+def nearest_culled(pack: ScenePack, origin, direction, t_max, chunk=None, *, groups=None, active=None):
     """Nearest hit over the instances ``groups`` of a brute-force pack
     (all by default) on the lanes ``active`` (bool (N,), all by default):
     (t, tri) with ``tri`` the ``tri_data`` row, inf / -1 on a miss and on
     inactive lanes. Bit-identical to the scan over the whole soup where
-    ``groups`` is None, as in ``theia_tpu``."""
+    ``groups`` is None, as in ``theia_tpu``. ``chunk`` is accepted and
+    ignored (the module docstring says why), here and below."""
     rays = _brute_rays(pack, origin, direction, t_max, "nearest_culled")
     return nearest_in_table(pack.soup, *rays, groups=groups, active=active)
 
 
-def anyhit_culled(pack: ScenePack, origin, direction, t_max, *, groups=None, active=None):
+def anyhit_culled(pack: ScenePack, origin, direction, t_max, chunk=None, *, groups=None, active=None):
     """Occlusion over the instances ``groups`` of a brute-force pack:
     True where some triangle of them blocks the ray strictly before
     ``t_max``; False on inactive lanes."""
@@ -127,13 +132,12 @@ def anyhit_culled(pack: ScenePack, origin, direction, t_max, *, groups=None, act
     return anyhit_in_table(pack.soup, *rays, groups=groups, active=active)
 
 
-def _nearest(pack: ScenePack, origin, direction, t_max, rows: bool = False, *, groups=None, active=None):
+def _nearest(pack: ScenePack, origin, direction, t_max, rows: bool = False):
     """Nearest-hit query via the scene's backend: (t, tri, row) with t =
     inf / tri = -1 on a miss, ``tri`` a row of the pack's ``tri_data`` and
     ``row`` that row (row 0 on a miss) where the query fetched it (with
     ``rows``, on backends that can), else None. The backends share this
-    contract (theia_tpu/accel.py:524-558); ``groups`` and ``active`` are
-    the brute-force pack's alone."""
+    contract (theia_tpu/accel.py:524-558)."""
     t_max = torch.as_tensor(t_max, dtype=torch.float32, device=origin.device)
     rays = (origin.detach().contiguous(), direction.detach().contiguous(), t_max.detach())
     rows = rows and ROWS_FROM_QUERY
@@ -144,8 +148,8 @@ def _nearest(pack: ScenePack, origin, direction, t_max, rows: bool = False, *, g
             return nearest_triangle_mt_rows(pack.mt, pack.tri_data, *rays)
         return (*nearest_triangle_mt(pack.mt, *rays), None)
     if rows:
-        return nearest_in_table_rows(pack.soup, pack.tri_data, *rays, groups=groups, active=active)
-    return (*nearest_in_table(pack.soup, *rays, groups=groups, active=active), None)
+        return nearest_in_table_rows(pack.soup, pack.tri_data, *rays)
+    return (*nearest_in_table(pack.soup, *rays), None)
 
 
 def offset_ray(p: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
@@ -163,6 +167,8 @@ def intersect_scene(
     origin: torch.Tensor,
     direction: torch.Tensor,
     t_max,
+    *,
+    chunk=None,
 ) -> SurfaceHit:
     """Trace the wavefront against the scene and reconstruct full hits.
 
@@ -253,6 +259,7 @@ def intersect_target(
     direction: torch.Tensor,
     t_max,
     *,
+    chunk=None,
     active: torch.Tensor | None = None,
 ) -> SurfaceHit:
     """Shadow-ray query: nearest hit *on a detector instance*, invalid if
@@ -263,38 +270,35 @@ def intersect_target(
     scene.traverse.glsl:234-269), so on a brute-force pack the hits are
     ordered over the detector instances alone, and the rest of the scene
     is an any-hit query bounded by the winner's distance (strictly before:
-    the winner's own t is not < t). Both kernels run one exact test, which
-    is what makes the split exact; accelerated packs (``mt``, ``woop``)
-    compute t another way and run the full :func:`intersect_scene`, as
-    does a pack without a detector.
+    the winner's own t is not < t). Both halves run in one launch,
+    ``target_in_table``, on one exact test, which is what makes the split
+    exact; accelerated packs (``mt``, ``woop``) compute t another way and
+    run the full :func:`intersect_scene`, as does a pack without a
+    detector.
 
     ``active``: optional bool[N] — lanes whose result is never consumed
     downstream (e.g. non-miss lanes of the MIS block). Inactive lanes are
-    left out of both queries and report ``valid=False``. The any-hit asks
-    only for lanes with a detector hit: no other lane's answer is read.
+    left out of both halves and report ``valid=False``. The any-hit half
+    runs only for lanes with a detector hit: no other lane's answer is
+    read.
     ``theia_tpu`` takes three routes here (culled groups, the masked
     group scan, the plain subsoup when the scene has no ``CullTables``);
     they give one result, which this is."""
     if pack.soup is None or not any(pack.soup_is_det):
         return intersect_scene(pack, medium_handle, origin, direction, t_max)
-    og, dg, tg = _brute_rays(pack, origin, direction, t_max, "intersect_target")
-    det_groups = [k for k, d in enumerate(pack.soup_is_det) if d]
-    occ_groups = [k for k, d in enumerate(pack.soup_is_det) if not d]
-    t_t, tri_d, row = _nearest(
-        pack, og, dg, tg, rows=not pack.tri_data.requires_grad, groups=det_groups, active=active
+    rays = _brute_rays(pack, origin, direction, t_max, "intersect_target")
+    # the query's rows carry no graph: where tri_data is differentiated,
+    # _reconstruct_hit gathers them
+    rows = ROWS_FROM_QUERY and not pack.tri_data.requires_grad
+    t_sel, tri, *row = target_in_table(
+        pack.soup, *rays, active=active, rows_table=pack.tri_data if rows else None,
+        groups=[k for k, d in enumerate(pack.soup_is_det) if d],
+        occluders=[k for k, d in enumerate(pack.soup_is_det) if not d],
     )
-    found = tri_d >= 0
-    # bounded by the winner's t, which is below t_max wherever there is one
-    occ = anyhit_in_table(pack.soup, og, dg, t_t, groups=occ_groups, active=found)
-    valid = found & ~occ
-    tri = torch.where(valid, tri_d, -1)
-    t_sel = torch.where(valid, t_t, torch.inf)
-    if row is not None:  # an occluded lane reports what a miss reports: row 0
-        row = torch.where(valid[:, None], row, pack.tri_data[0])
-    return _reconstruct_hit(pack, medium_handle, origin, direction, t_sel, tri, row)
+    return _reconstruct_hit(pack, medium_handle, origin, direction, t_sel, tri, *row)
 
 
-def is_visible(pack: ScenePack, observer: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+def is_visible(pack: ScenePack, observer: torch.Tensor, target: torch.Tensor, *, chunk=None) -> torch.Tensor:
     """True where observer and target see each other
     (reference: scene.intersect.glsl:104-124)."""
     d = (target - observer).detach()

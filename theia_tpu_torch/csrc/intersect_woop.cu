@@ -19,18 +19,16 @@
 // zeros (d against the o' columns, o and 1 against the d' columns, and the
 // trailing 0), which add nothing to a finite sum. The plain version leaves
 // out the same terms. rcp is __frcp_rn plus one Newton step r*(2-v*r), as
-// in csrc/intersect_mt.cu; the file is built with -fmad=false, so every
+// in csrc/moller_trumbore.cuh; the file is built with -fmad=false, so every
 // product and sum of exact() rounds like the plain version's separate ops
-// and t and idx are bit-equal. Padding and degenerate triangles have m = 0
-// and f = 3e38: there d'_z = 0, rcp gives inf, the Newton step NaN, and
-// t > 0 is false in both versions. Padding past n_tri is not visited.
+// and t and idx are bit-equal. Degenerate triangles have m = 0 and f =
+// 3e38: there d'_z = 0, rcp gives inf, the Newton step NaN, and t > 0 is
+// false in both versions. Padding rows are not visited (the chunk's count).
 //
-// What bounds it on an H100: FP32 issue (see csrc/nearest_scan.cuh, which
-// holds the scan, the design notes and the bounding-sphere test that every
-// needed pair runs first). That test costs 25 flop a pair in ~20
-// instructions; the 1.02e8 pairs that 262,144 random rays need of the
-// flagship's 3840 triangles (a tenth of all pairs) make 0.039 ms at the
-// published 67 TFLOP/s.
+// The query is the scan of csrc/nearest_scan.cuh (which holds the design
+// notes, what bounds it on an H100 and the bounding-sphere test that every
+// needed pair runs first) over every chunk of the pack's table, with this
+// policy; the index of a row is its place in the table.
 //
 // Set aside: o' and d' on the tensor cores, as the TPU forms them on its
 // matrix unit. The product has depth 4 in real terms (8 with the
@@ -39,7 +37,8 @@
 // another order than the plain version, so it is not bit-equal to it.
 //
 // The table row (tri_aos of WoopPack, 20 floats):
-//   c xyz, r2 | m_z (3), f_z | P, Q, 0, 0 | m_b1 (3), f_b1 | m_b2 (3), f_b2
+//   c xyz, r2 | m_z (3), f_z | P, Q, 0, index | m_b1 (3), f_b1 | m_b2 (3), f_b2
+// (index: the row's index as int32 bits, see csrc/nearest_scan.cuh)
 // The float32 map (m, f) defines the triangle that exact() tests: its
 // vertices are the preimages of (0,0), (1,0), (0,1) at z = 0 (float64
 // inverse of m); c is their centroid, r2 = 2.8 R0^2 with R0 the largest
@@ -132,13 +131,17 @@ struct Woop {
 
 }  // namespace
 
-// aos: f32 (n_chunks * 256, 20), WoopPack.tri_aos
+// aos: f32 (n_chunks * 256, 20), WoopPack.tri_aos; chunk_box: f32
+// (n_chunks, 8); sub_box: f32 (n_chunks * 8, 8); chunk_count, chunks: i32
+// (n_chunks,)
 extern "C" int theia_woop_nearest(const float* origin, const float* direction,
                                   const float* t_max, const float* aos,
-                                  const float* chunk_box, int n_rays,
-                                  int n_tri, float* t_out, int* idx_out,
-                                  cudaStream_t stream) {
-  return theia::launch_scan<Woop, false>(origin, direction, t_max, aos,
-                                         chunk_box, n_rays, n_tri, nullptr,
-                                         t_out, idx_out, nullptr, stream);
+                                  const float* chunk_box, const float* sub_box,
+                                  const int* chunk_count, const int* chunks,
+                                  int n_chunks, int n_rays, float* t_out,
+                                  int* idx_out, cudaStream_t stream) {
+  theia::Args a = theia::args(origin, direction, t_max, nullptr, aos, chunk_box, sub_box,
+                              chunk_count, chunks, n_chunks, n_rays);
+  a.t_out = t_out, a.idx_out = idx_out;
+  return theia::launch<Woop, false, theia::kNearest>(a, stream);
 }

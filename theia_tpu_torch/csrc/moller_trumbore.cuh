@@ -1,14 +1,16 @@
 // The Moeller-Trumbore policy of the scan in csrc/nearest_scan.cuh: the
-// per-pair arithmetic (guard, reject, exact) that csrc/intersect_mt.cu and
-// csrc/intersect_soup.cu share. One exact(): the nearest hit over a scene,
-// the nearest hit over a range of the brute soup and the any-hit query all
-// run the same operations in the same order, so a shadow ray's winner can
-// never occlude itself by an ulp.
+// per-pair arithmetic (guard, reject, exact) of every query that
+// csrc/intersect_soup.cu launches, over the MT pack's table and over the
+// brute-force soup's. One exact(): the nearest hit over a scene, the
+// nearest hit over some groups of the soup and the any-hit all run the
+// same operations in the same order, so a shadow ray's winner can never
+// occlude itself by an ulp.
 //
-// The table row (tri_aos of MTPack, 20 floats):
-//   c xyz, r2 | n xyz, alpha | beta_w, beta, e2 z, 0 | v0 xyz, e1 x |
+// The table row (ops/intersect_mt.mt_aos, 20 floats):
+//   c xyz, r2 | n xyz, alpha | beta_w, beta, e2 z, index | v0 xyz, e1 x |
 //   e1 yz, e2 xy
-// c is the centroid, r2 = 1.7 R0^2 with R0 the largest distance from c to
+// (index: the row's index as int32 bits, see csrc/nearest_scan.cuh). c is
+// the centroid, r2 = 1.7 R0^2 with R0 the largest distance from c to
 // a vertex, n = e1 x e2 (float64, rounded to float32), and
 //   alpha = E1 + E2 + E1*E2,  beta = 3*E1*E2 + 1e-30,
 //   beta_w = beta + 1.75*R0*alpha,   E1 = max|e1_k|, E2 = max|e2_k|
@@ -45,7 +47,7 @@
 // S stays far below |det| except for grazing rays, which is where the
 // exact test has to decide anyway. NaN fails every comparison and an
 // infinite S (wild rays, huge triangles) passes them all, so both go to
-// exact(). Padding rows are not visited (index >= n_tri). guard() is 4 S
+// exact(). Padding rows are not visited (the chunk's count). guard() is 4 S
 // with |T|_1 replaced by its bound |w|_1 + sqrt(3) R0 (w = c - o), for
 // the bounding-sphere test.
 

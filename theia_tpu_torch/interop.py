@@ -9,10 +9,12 @@ mapping of numpy arrays keyed by the JAX field names — for example
 ``scene.cull.spans``, ``scene.cull.is_det``) as plain Python values, and
 returns the port tracer's params on ``device``.
 The Woop pack's chunk-skip boxes come from the world triangles of
-``tri_data``, which are in the same Morton order. A pack with neither
-``mt`` nor ``woop`` is a brute-force pack: its soup ``w_v0``/``w_e1``/
-``w_e2``, ``shadow_split`` and ``cull`` come across as they are, and the
-soup kernels' table is derived from the soup with one group an instance.
+``tri_data``, which are in the same Morton order. A pack with ``bvh`` or
+``instanced`` tables raises ``NotImplementedError``: those traversals are
+not ported. A pack with none of ``mt``, ``woop``, ``bvh`` and
+``instanced`` is a brute-force pack: its soup ``w_v0``/``w_e1``/``w_e2``,
+``shadow_split`` and ``cull`` come across as they are, and the soup
+kernels' table is derived from the soup with one group an instance.
 On accelerated packs those fields are ignored, as nothing reads them
 there. It imports neither jax nor theia_tpu: flattening the JAX pytree
 is the caller's side.
@@ -24,7 +26,7 @@ import numpy as np
 import torch
 
 from .material import MediumStore
-from .ops.intersect_mt import MTPack, chunk_boxes
+from .ops.intersect_mt import MTPack, chunk_boxes, sub_boxes
 from .ops.intersect_woop import WoopPack
 from .ops.intersect_soup import SoupTable
 from .scene import CullTables, ScenePack, ShadowSplit, detector_instances, instance_spans
@@ -67,7 +69,14 @@ def _brute_tables(s, device) -> dict:
 
 def _accel_tables(s, device) -> dict:
     """``{"mt": MTPack}``, ``{"woop": WoopPack}`` or the brute-force
-    fields from the JAX pack's."""
+    fields from the JAX pack's; a ``bvh`` or ``instanced`` pack raises, as
+    ``Scene`` does for those names."""
+    for accel in ("bvh", "instanced"):
+        if s.get(accel) is not None:
+            raise NotImplementedError(
+                f"a theia_tpu pack with accel={accel!r} cannot be carried over: that traversal is not ported "
+                "yet (ROADMAP.md: 'Instanced and BVH traversal'); accel='brute', 'mt' and 'woop' are"
+            )
     if "mt" in s:
         mt = s["mt"]
         tables = MTPack(_tensor(mt["tri"], device), mt["aabb"], mt["lo"], mt["hi"], int(mt["n_tri"]))
@@ -76,8 +85,9 @@ def _accel_tables(s, device) -> dict:
         return _brute_tables(s, device)
     woop, rows = s["woop"], _tensor(s["tri_data"], device)
     n_tri = int(woop["n_tri"])
-    boxes = chunk_boxes(*(rows[:n_tri, c : c + 3] for c in (18, 21, 24)))
-    tables = WoopPack(_tensor(woop["b"], device), woop["aabb"], woop["lo"], woop["hi"], n_tri, boxes)
+    world = [rows[:n_tri, c : c + 3] for c in (18, 21, 24)]
+    boxes = chunk_boxes(*world), sub_boxes(*world)
+    tables = WoopPack(_tensor(woop["b"], device), woop["aabb"], woop["lo"], woop["hi"], n_tri, *boxes)
     return {"woop": tables}
 
 

@@ -8,23 +8,28 @@ two packages' packs compare equal. Only ``tri`` goes to the device: the
 per-tile AABBs and scene bounds stay host arrays, since nothing on the
 port's path reads them until ``run_binned`` is ported. The kernel reads
 its own copy of the triangles, ``tri_aos``: one 20-float row a triangle
-(:func:`mt_aos`), derived from ``tri`` on its device.
+(:func:`mt_aos`, with the row's index in column :data:`INDEX_COLUMN`),
+derived from ``tri`` on its device, with the boxes of its chunks and
+sub-boxes.
 
-:func:`nearest_triangle_mt` launches the hand-written kernel of
-``csrc/intersect_mt.cu`` on CUDA tensors and runs
-:func:`nearest_triangle_mt_plain` on CPU tensors. Both compute the JAX
-kernel's per-pair test in the same operation order, with 1/det as a
-correctly rounded reciprocal plus one Newton step, so they agree bit for
-bit. :func:`nearest_triangle_mt_rows`, the port of
-``tools/exp_mt_fused.py``, also returns each winner's row of a (T, 32)
-table, through the kernel's variant that copies the rows itself;
+:func:`nearest_triangle_mt` launches the hand-written scan of
+``csrc/nearest_scan.cuh`` with the Moeller-Trumbore test
+(``theia_soup_nearest`` of ``csrc/intersect_soup.cu``, over every chunk of
+the table) on CUDA tensors and runs :func:`nearest_triangle_mt_plain` on
+CPU tensors. Both compute the JAX kernel's per-pair test in the same
+operation order, with 1/det as a correctly rounded reciprocal plus one
+Newton step, so they agree bit for bit. :func:`nearest_triangle_mt_rows`,
+the port of ``tools/exp_mt_fused.py``, also returns each winner's row of
+a (T, 32) table, through the scan's variant that copies the rows itself;
 ``accel.intersect_scene`` calls it on ``mt`` packs. Both skip a run of
-256 triangles for a ray that cannot reach its (widened) box, the port's
-form of the TPU kernel's per-tile AABB skip. In front of the exact test
-the kernel runs two rejection tests that never reject a pair the exact
-test accepts (the ray's line against the triangle's bounding sphere, then
-the exact test's inequalities without the division);
-:func:`_mt_reject_plain` is their plain twin.
+:data:`CHUNK` triangles for a ray that cannot reach its (widened) box,
+the port's form of the TPU kernel's per-tile AABB skip, and within a run
+the triangles of every :data:`SUB` whose box the ray cannot reach
+(:func:`chunk_walk`). In front of the exact test the kernel runs two
+rejection tests that never reject a pair the exact test accepts (the
+ray's line against the triangle's bounding sphere, then the exact test's
+inequalities without the division); :func:`_mt_sphere_miss_plain` and
+:func:`_mt_reject_plain` are their plain twins.
 The kernel walks the table 256 triangles at a time, one a thread, with a
 fixed block of rays in shared memory, so no capacity check is needed
 where the TPU version checks its VMEM budget.
@@ -46,6 +51,7 @@ __all__ = [
     "tile_aabbs",
     "scene_bounds",
     "chunk_boxes",
+    "sub_boxes",
     "nearest_triangle_mt",
     "nearest_triangle_mt_plain",
     "nearest_triangle_mt_rows",
@@ -56,8 +62,14 @@ BT = 512  # triangles per tile for big scenes
 #: small scenes use wider tiles (same choice as the TPU pack)
 SMALL_SCENE_BT = 2048
 SMALL_SCENE_MAX_TRI = 4 * SMALL_SCENE_BT
-#: triangles per skip chunk; csrc/intersect_mt.cu's kChunk must equal it
+#: triangles per skip chunk; kChunk in csrc/nearest_scan.cuh
 CHUNK = 256
+#: triangles per sub-box of a chunk, a warp's share of it in the kernels;
+#: kSub in csrc/nearest_scan.cuh
+SUB = 32
+#: the column of a kernel table's row (of ROW_AOS floats) that holds the
+#: index a hit on it reports, as int32 bits; w[2].w in csrc/nearest_scan.cuh
+INDEX_COLUMN = 11
 #: rays per block of the plain version on the CPU, which bounds its (rays,
 #: CHUNK) temporaries; 16 times as many on other devices, where a block
 #: costs a host round trip per chunk
@@ -81,12 +93,15 @@ WILD = 1e9
 
 class MTPack:
     """Tables of the nearest-hit query; ``n_tri`` is the count of real
-    triangles (the rest of ``tri`` is padding). ``chunk_box`` holds the
-    inflated bounds of each run of :data:`CHUNK` triangles, derived from
-    ``tri`` on its device by :func:`chunk_boxes`. ``aabb``, ``lo`` and
-    ``hi`` are the JAX pack's per-tile AABBs and scene bounds as host
-    numpy arrays; no query reads them yet. ``tri_aos`` is the kernel's
-    table (:func:`mt_aos`)."""
+    triangles (the rest of ``tri`` is padding). ``chunk_box`` and
+    ``sub_box`` hold the inflated bounds of each run of :data:`CHUNK` and
+    of :data:`SUB` triangles, derived from ``tri`` on its device by
+    :func:`chunk_boxes`. ``aabb``, ``lo`` and ``hi`` are the JAX pack's
+    per-tile AABBs and scene bounds as host numpy arrays; no query reads
+    them yet. ``tri_aos`` is the kernel's table (:func:`mt_aos`, each
+    row's index in column :data:`INDEX_COLUMN`), ``chunk_count`` and
+    ``chunks`` the real rows of each chunk and the list of every chunk
+    (:func:`whole_table`)."""
 
     def __init__(self, tri, aabb, lo, hi, n_tri: int) -> None:
         self.tri = tri  # f32 (T_tiles, 9, BT): v0xyz, e1xyz, e2xyz rows
@@ -95,9 +110,11 @@ class MTPack:
         self.hi = np.asarray(hi, np.float32)
         self.n_tri = n_tri
         rows = _rows(tri, n_tri)
-        # f32 (n_chunks, 8)
-        self.chunk_box = chunk_boxes(rows[0:3].T, rows[3:6].T, rows[6:9].T)
+        world = (rows[0:3].T, rows[3:6].T, rows[6:9].T)
+        self.chunk_box = chunk_boxes(*world)  # f32 (n_chunks, 8)
+        self.sub_box = sub_boxes(*world)  # f32 (n_chunks * CHUNK / SUB, 8)
         self.tri_aos = mt_aos(rows)  # f32 (n_chunks * CHUNK, ROW_AOS)
+        self.chunk_count, self.chunks = whole_table(self.tri_aos, n_tri)
 
 
 def _rows(tri: torch.Tensor, n_tri: int) -> torch.Tensor:
@@ -116,6 +133,18 @@ def aos_rows(cols: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def whole_table(aos: torch.Tensor, n_tri: int):
+    """A pack's table as the kernels take it: writes each real row's index
+    (its place) into column :data:`INDEX_COLUMN` of ``aos`` (the padding
+    rows stay 0) and returns ``chunk_count`` (the real rows of each
+    chunk) and ``chunks`` (every chunk), both i32 on ``aos``'s device."""
+    n_chunks = aos.shape[0] // CHUNK
+    aos.view(torch.int32)[:n_tri, INDEX_COLUMN] = torch.arange(n_tri, dtype=torch.int32, device=aos.device)
+    starts = torch.arange(0, n_chunks * CHUNK, CHUNK, device=aos.device)
+    count = (n_tri - starts).clamp(max=CHUNK).to(torch.int32)
+    return count, torch.arange(n_chunks, dtype=torch.int32, device=aos.device)
+
+
 def bounding_sphere(vertices: torch.Tensor, factor: float):
     """(c, r2, R0): the float32 centroid c (3, n) of float64 ``vertices``
     (3 vertices, 3, n), r2 (n,) = ``factor`` R0^2 rounded up, as the
@@ -128,9 +157,9 @@ def bounding_sphere(vertices: torch.Tensor, factor: float):
 
 def mt_aos(rows: torch.Tensor) -> torch.Tensor:
     """The Moeller-Trumbore kernel's table from the (9, n_tri) component
-    rows; per triangle (see csrc/intersect_mt.cu): the bounding sphere c,
+    rows; per triangle (see csrc/moller_trumbore.cuh): the bounding sphere c,
     r2 = 1.7 R0^2; n = e1 x e2 (formed in float64, rounded once) and alpha; beta_w,
-    beta, e2 z, 0; v0, e1, e2 xy. alpha = E1 + E2 + E1 E2, beta =
+    beta, e2 z, 0 (the index column, which the caller fills); v0, e1, e2 xy. alpha = E1 + E2 + E1 E2, beta =
     3 E1 E2 + 1e-30 and beta_w = beta + 1.75 R0 alpha are the slack
     coefficients of the rejection tests, with E1 = max|e1_k|, E2 =
     max|e2_k| (beta = beta_w = inf where a coordinate reaches
@@ -148,27 +177,37 @@ def mt_aos(rows: torch.Tensor) -> torch.Tensor:
     return aos_rows(torch.cat(cols, dim=0))
 
 
-def chunk_boxes(v0: torch.Tensor, e1: torch.Tensor, e2: torch.Tensor) -> torch.Tensor:
-    """(n_chunks, 8) bounds (lo xyz, 0, hi xyz, 0) of each run of
-    :data:`CHUNK` world triangles (v0, e1, e2: f32 (n_tri, 3)) over their
+def chunk_boxes(v0: torch.Tensor, e1: torch.Tensor, e2: torch.Tensor, size: int = CHUNK) -> torch.Tensor:
+    """(n_chunks, 8) bounds (lo xyz, 0, hi xyz, 0) of each run of ``size``
+    (:data:`CHUNK` by default) world triangles (v0, e1, e2: f32 (n_tri, 3)) over their
     float32 vertices v0, v0+e1, v0+e2, widened by 1e-3 of the extent plus
     1e-5 on each side. The margin is far above float32 rounding (and above
     the Woop test's 1e-6 barycentric slack), so a ray that misses the box
     cannot hit a triangle in it: skipping the chunk never changes a
     result. The values are exact min/max plus the same float32 ops on
     every device, which keeps a kernel's skips identical to its plain
-    version's. The MT and Woop packs both take their boxes from here."""
+    version's. The MT and Woop packs both take their boxes from here, the
+    soup's table its chunks' boxes and its sub-boxes."""
     n_tri = v0.shape[0]
-    n_chunks = -(-n_tri // CHUNK)
-    pad = n_chunks * CHUNK - n_tri
+    n_chunks = -(-n_tri // size)
+    pad = n_chunks * size - n_tri
     pts = torch.stack([v0, v0 + e1, v0 + e2], dim=0)  # (3 points, n_tri, 3)
     # fill the last chunk with copies of its last triangle
     pts = torch.cat([pts, pts[:, -1:].expand(3, pad, 3)], dim=1)
-    pts = pts.reshape(3, n_chunks, CHUNK, 3)
+    pts = pts.reshape(3, n_chunks, size, 3)
     lo, hi = pts.amin(dim=(0, 2)), pts.amax(dim=(0, 2))  # (n_chunks, 3)
     margin = (hi - lo) * 1e-3 + 1e-5
     zero = torch.zeros_like(lo[:, :1])
     return torch.cat([lo - margin, zero, hi + margin, zero], dim=1).contiguous()
+
+
+def sub_boxes(v0: torch.Tensor, e1: torch.Tensor, e2: torch.Tensor) -> torch.Tensor:
+    """(n_chunks * CHUNK / SUB, 8) boxes of every run of :data:`SUB` world
+    triangles (:func:`chunk_boxes`), a chunk's eight; the last chunk's runs
+    past the last triangle repeat its last box (they hold no real row)."""
+    boxes = chunk_boxes(v0, e1, e2, SUB)
+    n = -(-v0.shape[0] // CHUNK) * (CHUNK // SUB)
+    return torch.cat([boxes, boxes[-1:].expand(n - boxes.shape[0], 8)]).contiguous()
 
 
 def morton_order(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray) -> np.ndarray:
@@ -260,8 +299,9 @@ def _safe(v: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.abs(v) < 1e-20, tiny, v)
 
 
-def _slab_candidates(box, o, inv, best_t) -> torch.Tensor:
-    """Rays (o, 1/d) whose segment [0, best_t) can enter the box."""
+def _slab(box, o, inv):
+    """(tn, tf): where rays (o, 1/d) enter the box (0 if o is inside) and
+    leave it, as the kernels' slab test computes them."""
     t1 = (box[0:3] - o) * inv
     t2 = (box[4:7] - o) * inv
     near, far = torch.minimum(t1, t2), torch.maximum(t1, t2)
@@ -269,12 +309,18 @@ def _slab_candidates(box, o, inv, best_t) -> torch.Tensor:
         torch.maximum(near[:, 0], near[:, 1]), torch.clamp_min(near[:, 2], 0.0)
     )
     tf = torch.minimum(torch.minimum(far[:, 0], far[:, 1]), far[:, 2])
+    return tn, tf
+
+
+def _slab_candidates(box, o, inv, best_t) -> torch.Tensor:
+    """Rays (o, 1/d) whose segment [0, best_t) can enter the box."""
+    tn, tf = _slab(box, o, inv)
     return (tn <= tf) & (tn < best_t)
 
 
 def chunk_walk(
     n_tri: int, chunk_box, origin, direction, t_max, pair_test, stats=None,
-    *, visits=None, active=None, any_hit: bool = False,
+    *, visits=None, active=None, any_hit: bool = False, index=None, sub_box=None,
 ):
     """The chunked scan all plain versions share. Rays go in blocks (of
     :data:`RAY_BLOCK` on the CPU); a ray tests a run of :data:`CHUNK` triangles only
@@ -283,12 +329,21 @@ def chunk_walk(
     (lanes, 3) against the triangles from table row ``c0``. Within a chunk the
     lowest index wins ties, and a chunk's winner replaces the running one
     only if strictly closer: the kernels' sequential strict update. With
-    a dict ``stats``, ``stats["pairs"]`` grows by the (ray, triangle)
-    pairs that were tested, and for every ``name: test`` in
-    ``stats["tests"]`` (if present) ``stats[name]`` grows by the pairs of
-    them for which ``test(o, d, c0)`` (bool (lanes, chunk)) holds.
+    ``sub_box`` (the boxes of every run of :data:`SUB` rows, (n_chunks *
+    CHUNK / SUB, 8)), as the kernels take it, a ray tests only the
+    triangles of the sub-boxes that its segment [0, best_t) enters, best_t
+    as at the chunk's start; without, every triangle of the chunk (the
+    rule of the first kernels, which measurements of them still use).
 
-    The soup queries add three things. ``visits`` lists the chunks to
+    With a dict ``stats``, ``stats["pairs"]`` grows by the (ray, triangle)
+    pairs that were tested, ``stats["chunk_tests"]`` by the (ray, chunk)
+    box tests of rays still in the walk and ``stats["sub_tests"]`` by the
+    (ray, sub-box) box tests of the rays that a chunk's box lets in; for
+    every ``name: test`` in ``stats["tests"]`` (if present) ``stats[name]``
+    grows by the pairs of them for which ``test(o, d, c0)`` (bool (lanes,
+    chunk)) holds.
+
+    The soup queries add four things. ``visits`` lists the chunks to
     walk as ``(chunk, first, count)``: the chunk of the table (its rows
     start at ``chunk * CHUNK``), the index that its first triangle
     reports and how many of its rows are real; the default is every chunk
@@ -296,7 +351,11 @@ def chunk_walk(
     takes lanes out: they test nothing and report a miss. With
     ``any_hit`` the walk returns one bool a ray, whether some triangle is
     hit strictly before ``t_max``, and a ray leaves the walk at its first
-    hit."""
+    hit. ``index`` (i32, a value a table row) gives the index that each row
+    reports, where the rows of a chunk are not consecutive indices (the
+    soup's table in Morton order); ties then go to the lowest index
+    whatever the order in which the chunks come, as the kernels' (t bits,
+    index) key does."""
     n = origin.shape[0]
     t_out = torch.empty(n, dtype=torch.float32, device=origin.device)
     i_out = torch.empty(n, dtype=torch.int32, device=origin.device)
@@ -315,24 +374,41 @@ def chunk_walk(
             lanes = torch.nonzero(
                 _slab_candidates(chunk_box[c], o_blk, inv_d, best_t)
             )[:, 0]
+            if stats is not None:
+                stats["chunk_tests"] = stats.get("chunk_tests", 0) + int((best_t > 0.0).sum())
             if lanes.numel() == 0:
                 continue
             c0 = c * CHUNK
-            if stats is not None:
-                stats["pairs"] = stats.get("pairs", 0) + lanes.numel() * count
-                for name, test in stats.get("tests", {}).items():
-                    stats[name] = stats.get(name, 0) + int(test(o_blk[lanes], d_blk[lanes], c0)[:, :count].sum())
-            t, hit = pair_test(o_blk[lanes], d_blk[lanes], c0)
-            t, hit = t[:, :count], hit[:, :count]
             cur_t, cur_i = best_t[lanes], best_i[lanes]
+            o_l, d_l = o_blk[lanes], d_blk[lanes]
+            needed = torch.ones((lanes.numel(), count), dtype=torch.bool, device=origin.device)
+            if sub_box is not None:
+                inv_l, k0 = inv_d[lanes], c0 // SUB
+                enter = [_slab_candidates(sub_box[k0 + k], o_l, inv_l, cur_t) for k in range(CHUNK // SUB)]
+                needed = torch.stack(enter, dim=1).repeat_interleave(SUB, dim=1)[:, :count]
+            if stats is not None:
+                stats["pairs"] = stats.get("pairs", 0) + int(needed.sum())
+                if sub_box is not None:
+                    stats["sub_tests"] = stats.get("sub_tests", 0) + lanes.numel() * (CHUNK // SUB)
+                for name, test in stats.get("tests", {}).items():
+                    stats[name] = stats.get(name, 0) + int((test(o_l, d_l, c0)[:, :count] & needed).sum())
+            t, hit = pair_test(o_l, d_l, c0)
+            t, hit = t[:, :count], hit[:, :count] & needed
             if any_hit:  # a hit below the bound ends the ray's walk
                 occluded = (hit & (t < cur_t[:, None])).any(dim=1)
                 best_i[lanes] = torch.where(occluded, 0, cur_i)
                 best_t[lanes] = torch.where(occluded, 0.0, cur_t)
                 continue
-            tt, ic = torch.where(hit, t, torch.inf).min(dim=1)
-            better = tt < cur_t
-            best_i[lanes] = torch.where(better, ic.to(torch.int32) + first, cur_i)
+            t = torch.where(hit, t, torch.inf)
+            tt, ic = t.min(dim=1)
+            if index is None:
+                win = ic.to(torch.int32) + first
+                better = tt < cur_t
+            else:  # the lowest index among the chunk's nearest, then (t, index) against the running one
+                ids = torch.where(t == tt[:, None], index[c0 : c0 + count][None], torch.iinfo(torch.int32).max)
+                win = ids.amin(dim=1)
+                better = (tt < cur_t) | ((tt == cur_t) & (win < cur_i))
+            best_i[lanes] = torch.where(better, win, cur_i)
             best_t[lanes] = torch.where(better, tt, cur_t)
         t_out[r0:r1] = torch.where(best_i < 0, torch.inf, best_t)
         i_out[r0:r1] = best_i
@@ -381,11 +457,12 @@ def nearest_triangle_mt_plain(
     stats: dict | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`nearest_triangle_mt` (any device):
-    :func:`chunk_walk` over the kernel's exact test."""
+    :func:`chunk_walk` over the kernel's exact test, with the pack's
+    sub-boxes."""
     rows = _rows(pack.tri, pack.n_tri)
     return chunk_walk(
         pack.n_tri, pack.chunk_box, origin, direction, t_max,
-        lambda o, d, c0: _mt_exact_plain(rows[:, c0 : c0 + CHUNK], o, d), stats,
+        lambda o, d, c0: _mt_exact_plain(rows[:, c0 : c0 + CHUNK], o, d), stats, sub_box=pack.sub_box,
     )
 
 
@@ -418,46 +495,71 @@ def reject_tests(u, v, w, det, s):
     return (su < -lo) | (sv < -lo) | (su + sv > adet + lo) | ((sg * w < -s) & (adet > s))
 
 
-def sphere_miss_plain(aos, o, d, det_cols, guard, fused: bool):
-    """Plain twin of ``sphere_miss`` in csrc/nearest_scan.cuh: true where
-    the ray's line misses the row's bounding sphere (columns 0-3 of
-    ``aos``) by more than the rounding, and |det| (the dot of d with
-    columns ``det_cols``) exceeds ``guard(|w|_1)`` = g S."""
-    ox, oy, oz, dx, dy, dz = _columns(o, d)
-    cx, cy, cz, r2 = (aos[:, k][None] for k in range(4))
-    n0, n1, n2 = (aos[:, k][None] for k in det_cols)
+def sphere_miss_plain(aos, sub_box, o, d, guard, fused: bool = True):
+    """Plain twin of ``sphere_miss`` in csrc/nearest_scan.cuh on the rows
+    ``aos`` (R, ROW_AOS) that the boxes ``sub_box`` (ceil(R / SUB), 8)
+    bound, :data:`SUB` rows each: bool (lanes, R), true where the pair is
+    dropped. Each ray's origin moves to where it enters the row's sub-box
+    (o' = o + s d), the line through o' is held against the row's bounding
+    sphere (columns 0-3) widened by the rounding of o', and |det| (d
+    dotted with columns 4-6) against ``guard(rows, w1, kd, ko)`` = g S,
+    with |w|_1 widened by |o - o'|_1 (csrc/nearest_scan.cuh has the
+    argument). ``fused`` rounds each a*b+c once, as the kernel's fmaf
+    does."""
+    kd, ko = ray_slack(o, d)
+    inv = _rcp(_safe(d))
+    d1k = (d[:, 0:1].abs() + d[:, 1:2].abs() + d[:, 2:3].abs()) * (1.0 + 2.0**-20)
+    dx, dy, dz = (d[:, k : k + 1] for k in range(3))
     dd = _fma(dz, dz, _fma(dy, dy, dx * dx, fused), fused)
     ddk = dd * (1.0 - 64.0 * 2.0**-24)
-    wx, wy, wz = cx - ox, cy - oy, cz - oz
-    p = _fma(wz, dz, _fma(wy, dy, wx * dx, fused), fused)
-    w2 = _fma(wz, wz, _fma(wy, wy, wx * wx, fused), fused)
-    q = _fma(w2, ddk, -(p * p), fused)
-    det = _fma(dz, n2, _fma(dy, n1, dx * n0, fused), fused)
-    return (q > r2 * dd) & (det.abs() > guard(wx.abs() + wy.abs() + wz.abs()))
+    out = []
+    for k in range(-(-aos.shape[0] // SUB)):
+        a = aos[k * SUB : (k + 1) * SUB]
+        s = _slab(sub_box[k], o, inv)[0][:, None]
+        o2 = _fma(s, d, o, fused)
+        delta = 2.0**-22 * (o2[:, 0:1].abs() + o2[:, 1:2].abs() + o2[:, 2:3].abs())
+        sigma = _fma(s, d1k, delta, fused)
+        ox, oy, oz = (o2[:, j : j + 1] for j in range(3))
+        cx, cy, cz, r2 = (a[:, j][None] for j in range(4))
+        n0, n1, n2 = (a[:, j][None] for j in (4, 5, 6))
+        wx, wy, wz = cx - ox, cy - oy, cz - oz
+        p = _fma(wz, dz, _fma(wy, dy, wx * dx, fused), fused)
+        w2 = _fma(wz, wz, _fma(wy, wy, wx * wx, fused), fused)
+        q = _fma(w2, ddk, -(p * p), fused)
+        det = _fma(dz, n2, _fma(dy, n1, dx * n0, fused), fused)
+        g = guard(a, wx.abs() + wy.abs() + wz.abs() + sigma, kd, ko)
+        rad = r2.sqrt() + delta
+        out.append((q > rad * rad * dd) & (det.abs() > g))
+    return torch.cat(out, dim=1)
 
 
-def _mt_sphere_miss_plain(aos: torch.Tensor, o: torch.Tensor, d: torch.Tensor, fused: bool = True):
-    """The first of the kernel's two rejection tests alone, with the
-    Moeller-Trumbore guard g S (|T|_1 bounded through |w|_1)."""
-    alpha, beta_w = aos[:, 7][None], aos[:, 8][None]
-    kd, _ = ray_slack(o, d)
+def chunk_tables(aos: torch.Tensor, sub_box: torch.Tensor, c0: int):
+    """The rows of a kernel table's chunk that starts at row ``c0``, and
+    their sub-boxes, as the rejection twins take them."""
+    return aos[c0 : c0 + CHUNK], sub_box[c0 // SUB : (c0 + CHUNK) // SUB]
+
+
+def _mt_sphere_miss_plain(aos: torch.Tensor, sub_box: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
+                          fused: bool = True):
+    """The first of the kernel's two rejection tests (:func:`sphere_miss_plain`)
+    with the Moeller-Trumbore guard g S (|T|_1 bounded through |w|_1)."""
     return sphere_miss_plain(
-        aos, o, d, (4, 5, 6), lambda w1: (MT_GUARD * kd) * _fma(w1, alpha, beta_w, fused), fused
+        aos, sub_box, o, d,
+        lambda a, w1, kd, ko: (MT_GUARD * kd) * _fma(w1, a[:, 7][None], a[:, 8][None], fused), fused,
     )
 
 
 def _mt_reject_plain(aos: torch.Tensor, o: torch.Tensor, d: torch.Tensor, fused: bool = True):
-    """Plain twin of the kernel's two rejection tests (``sphere_miss`` of
-    csrc/nearest_scan.cuh, then ``reject`` of csrc/intersect_mt.cu): bool
-    (lanes, T), true where the pair (ray, row of ``aos`` (T, ROW_AOS)) is
-    rejected without the exact test. Same formulas and slack; ``fused``
-    rounds each a*b+c once, as the kernel's fmaf does."""
+    """Plain twin of the kernel's second rejection test (``reject`` of
+    csrc/moller_trumbore.cuh): bool (lanes, T), true where the pair (ray,
+    row of ``aos`` (T, ROW_AOS)) is rejected without the exact test. Same
+    formulas and slack; ``fused`` rounds each a*b+c once, as the kernel's
+    fmaf does."""
     ox, oy, oz, dx, dy, dz = _columns(o, d)
     nx, ny, nz, alpha, _, beta = (aos[:, k][None] for k in range(4, 10))
     v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y = (aos[:, k][None] for k in range(12, 20))
     e2z = aos[:, 10][None]
     kd, _ = ray_slack(o, d)
-    miss = _mt_sphere_miss_plain(aos, o, d, fused)
     tx, ty, tz = ox - v0x, oy - v0y, oz - v0z
     cx = _fma(ty, dz, -(tz * dy), fused)
     cy = _fma(tz, dx, -(tx * dz), fused)
@@ -468,7 +570,7 @@ def _mt_reject_plain(aos: torch.Tensor, o: torch.Tensor, d: torch.Tensor, fused:
     w = _fma(tz, nz, _fma(ty, ny, tx * nx, fused), fused)
     t1 = tx.abs() + ty.abs() + tz.abs()
     s = kd * _fma(t1, alpha, beta, fused)
-    return miss | reject_tests(u, v, w, det, s)
+    return reject_tests(u, v, w, det, s)
 
 
 def check_rays(origin, direction, t_max, tables) -> torch.Tensor:
@@ -500,6 +602,16 @@ def _mt_tables(pack: MTPack):
         ("pack.tri", pack.tri, (pack.tri.shape[0], 9, pack.tri.shape[2])),
         ("pack.tri_aos", pack.tri_aos, (n_chunks * CHUNK, ROW_AOS)),
         ("pack.chunk_box", pack.chunk_box, (n_chunks, 8)),
+        ("pack.sub_box", pack.sub_box, (n_chunks * CHUNK // SUB, 8)),
+    )
+
+
+def scan_tables(pack) -> tuple:
+    """The table arguments of the scan's C entry points for an MT or Woop
+    pack: rows, boxes, counts and the list of every chunk."""
+    return (
+        pack.tri_aos.data_ptr(), pack.chunk_box.data_ptr(), pack.sub_box.data_ptr(),
+        pack.chunk_count.data_ptr(), pack.chunks.data_ptr(), pack.chunks.numel(),
     )
 
 
@@ -510,18 +622,16 @@ def nearest_triangle_mt(
 
     ``origin``/``direction``: f32 (N, 3); ``t_max``: scalar or f32 (N,).
     A hit counts only if strictly closer than ``t_max``; the lowest index
-    wins ties. CUDA tensors launch ``csrc/intersect_mt.cu``, CPU tensors
-    run the plain version."""
+    wins ties. CUDA tensors launch the scan (``theia_soup_nearest`` over
+    every chunk of the pack), CPU tensors run the plain version."""
     n = origin.shape[0]
     t_max = check_rays(origin, direction, t_max, _mt_tables(pack))
     if origin.device.type == "cpu":
         return nearest_triangle_mt_plain(pack, origin, direction, t_max)
     t = torch.empty(n, dtype=torch.float32, device=origin.device)
     idx = torch.empty(n, dtype=torch.int32, device=origin.device)
-    lib = _build.library()
-    err = lib.theia_mt_nearest(
-        origin.data_ptr(), direction.data_ptr(), t_max.data_ptr(),
-        pack.tri_aos.data_ptr(), pack.chunk_box.data_ptr(), n, pack.n_tri,
+    err = _build.library().theia_soup_nearest(
+        origin.data_ptr(), direction.data_ptr(), t_max.data_ptr(), None, *scan_tables(pack), n,
         t.data_ptr(), idx.data_ptr(), _build.stream_handle(origin.device),
     )
     _build.check(err, "nearest_triangle_mt")
@@ -548,8 +658,8 @@ def nearest_triangle_mt_rows(
     (t, idx, rows) with rows f32 (N, 32) = ``table[max(idx, 0)]`` (row 0
     on a miss), ``table`` f32 (R >= n_tri, 32), e.g. the scene's
     ``tri_data``. The port of ``tools/exp_mt_fused.py``'s fused kernel:
-    CUDA tensors launch the row-copying variant of
-    ``csrc/intersect_mt.cu``, CPU tensors run the plain version."""
+    CUDA tensors launch the row-copying variant of the scan
+    (``theia_soup_nearest_rows``), CPU tensors run the plain version."""
     n = origin.shape[0]
     if table.shape[0] < pack.n_tri:
         raise ValueError(f"table has {table.shape[0]} rows, fewer than {pack.n_tri} triangles")
@@ -562,11 +672,9 @@ def nearest_triangle_mt_rows(
     t = torch.empty(n, dtype=torch.float32, device=origin.device)
     idx = torch.empty(n, dtype=torch.int32, device=origin.device)
     rows = torch.empty((n, ROW_WIDTH), dtype=torch.float32, device=origin.device)
-    err = _build.library().theia_mt_nearest_rows(
-        origin.data_ptr(), direction.data_ptr(), t_max.data_ptr(),
-        pack.tri_aos.data_ptr(), pack.chunk_box.data_ptr(), n, pack.n_tri,
-        table.data_ptr(), t.data_ptr(), idx.data_ptr(),
-        rows.data_ptr(), _build.stream_handle(origin.device),
+    err = _build.library().theia_soup_nearest_rows(
+        origin.data_ptr(), direction.data_ptr(), t_max.data_ptr(), None, *scan_tables(pack), n,
+        table.data_ptr(), t.data_ptr(), idx.data_ptr(), rows.data_ptr(), _build.stream_handle(origin.device),
     )
     _build.check(err, "nearest_triangle_mt_rows")
     nearest_triangle_mt_rows.launches += 1

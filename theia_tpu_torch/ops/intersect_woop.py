@@ -17,25 +17,29 @@ The pack keeps the JAX layout — the transforms as a (T_tiles, 8, 6*BT)
 table ``b`` whose columns are the o' and d' parts of the TPU kernel's
 ``[o,1,d,0] @ B`` product, padding and degenerate triangles with M = 0
 and offset 3e38 that never hit, per-tile AABBs and tight scene bounds —
-so the two packages' packs compare equal. Only ``b`` and the chunk-skip
-boxes go to the device; ``aabb``, ``lo`` and ``hi`` stay host arrays, as
-in :class:`~theia_tpu_torch.ops.intersect_mt.MTPack`. The kernel reads
-its own copy of the transforms, ``tri_aos``: one 20-float row a triangle
-(:func:`woop_aos`), derived from ``b`` on its device.
+so the two packages' packs compare equal. Only ``b`` and the skip boxes
+go to the device; ``aabb``, ``lo`` and ``hi`` stay host arrays, as in
+:class:`~theia_tpu_torch.ops.intersect_mt.MTPack`. The kernel reads its
+own copy of the transforms, ``tri_aos``: one 20-float row a triangle
+(:func:`woop_aos`, with the row's index in the index column), derived
+from ``b`` on its device.
 
-:func:`nearest_triangle_woop` launches the hand-written kernel of
-``csrc/intersect_woop.cu`` on CUDA tensors and runs
-:func:`nearest_triangle_woop_plain` on CPU tensors. Both form o' and d'
+:func:`nearest_triangle_woop` launches the hand-written scan of
+``csrc/nearest_scan.cuh`` with the Woop test (``csrc/intersect_woop.cu``)
+on CUDA tensors and runs :func:`nearest_triangle_woop_plain` on CPU
+tensors. Both form o' and d'
 as the same float32 sums in the same order (written down in the kernel's
 source note) and take rcp as a correctly rounded reciprocal plus one
 Newton step, so they agree bit for bit; do not rewrite the plain version
 with fused ops (``addcmul``, ``einsum``, ``matmul``). Both skip a run of
-:data:`~theia_tpu_torch.ops.intersect_mt.CHUNK` triangles for a ray that
+:data:`~theia_tpu_torch.ops.intersect_mt.CHUNK` triangles, and within it
+each run of :data:`~theia_tpu_torch.ops.intersect_mt.SUB`, for a ray that
 cannot reach its widened box, with the boxes the MT pack uses. In front
 of the exact test the kernel runs two rejection tests that never reject
 a pair the exact test accepts (the ray's line against the triangle's
 bounding sphere, then the exact test's inequalities without the
-division); :func:`_woop_reject_plain` is their plain twin. The
+division); :func:`_woop_sphere_miss_plain` and :func:`_woop_reject_plain`
+are their plain twins. The
 wavefront binning of the TPU version (``run_binned``, for scenes of 8192
 triangles and more) is not ported yet.
 """
@@ -48,6 +52,7 @@ import torch
 from .. import _build
 from .intersect_mt import (
     CHUNK,
+    SUB,
     WOOP_GUARD,
     WOOP_SPHERE,
     ROW_AOS,
@@ -62,10 +67,13 @@ from .intersect_mt import (
     chunk_walk,
     ray_slack,
     reject_tests,
+    scan_tables,
     sphere_miss_plain,
     morton_order,
     scene_bounds,
+    sub_boxes,
     tile_aabbs,
+    whole_table,
 )
 
 __all__ = [
@@ -82,22 +90,27 @@ _EPS = 1e-6  # watertightness margin, matches the brute-force scan
 
 class WoopPack:
     """Tables of the Woop query; ``n_tri`` is the count of real triangles
-    (the rest of ``b`` is padding). ``chunk_box`` holds the widened bounds
-    of each run of :data:`CHUNK` triangles (see
-    :func:`~theia_tpu_torch.ops.intersect_mt.chunk_boxes`); ``aabb``,
-    ``lo`` and ``hi`` are the JAX pack's per-tile AABBs and scene bounds
-    as host numpy arrays, which no query reads yet. ``tri_aos`` is the
-    kernel's table (:func:`woop_aos`)."""
+    (the rest of ``b`` is padding). ``chunk_box`` and ``sub_box`` hold the
+    widened bounds of each run of :data:`CHUNK` and of :data:`SUB`
+    triangles (see :func:`~theia_tpu_torch.ops.intersect_mt.chunk_boxes`:
+    they come from the world triangles, which ``b`` does not hold);
+    ``aabb``, ``lo`` and ``hi`` are the JAX pack's per-tile AABBs and
+    scene bounds as host numpy arrays, which no query reads yet.
+    ``tri_aos`` is the kernel's table (:func:`woop_aos`), ``chunk_count``
+    and ``chunks`` the real rows of each chunk and the list of every chunk
+    (:func:`~theia_tpu_torch.ops.intersect_mt.whole_table`)."""
 
-    def __init__(self, b, aabb, lo, hi, n_tri: int, chunk_box) -> None:
+    def __init__(self, b, aabb, lo, hi, n_tri: int, chunk_box, sub_box) -> None:
         self.b = b  # f32 (T_tiles, 8, 6*BT)
         self.aabb = np.asarray(aabb, np.float32)  # (T_tiles, 8): lo xyz, pad, hi xyz, pad
         self.lo = np.asarray(lo, np.float32)  # (3,) tight scene bounds
         self.hi = np.asarray(hi, np.float32)
         self.n_tri = n_tri
         self.chunk_box = chunk_box  # f32 (n_chunks, 8), on b's device
+        self.sub_box = sub_box  # f32 (n_chunks * CHUNK / SUB, 8)
         # f32 (n_chunks * CHUNK, ROW_AOS)
         self.tri_aos = woop_aos(_transforms(b, n_tri))
+        self.chunk_count, self.chunks = whole_table(self.tri_aos, n_tri)
 
 
 def pack_woop(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray, *, device) -> WoopPack:
@@ -106,9 +119,8 @@ def pack_woop(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray, *, device) -> Woop
 
     Triangles (T, 3) x3 float32 must already be in their final (Morton)
     order; padded slots are unhittable (o' huge, d' = 0)."""
-    boxes = chunk_boxes(
-        *(torch.tensor(np.asarray(a, np.float32), device=device) for a in (v0, e1, e2))
-    )
+    world = [torch.tensor(np.asarray(a, np.float32), device=device) for a in (v0, e1, e2)]
+    boxes = chunk_boxes(*world), sub_boxes(*world)
     v0 = np.asarray(v0, np.float64)
     e1 = np.asarray(e1, np.float64)
     e2 = np.asarray(e2, np.float64)
@@ -148,7 +160,7 @@ def pack_woop(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray, *, device) -> Woop
 
     aabb = tile_aabbs(v0, e1, e2, n_tri, n_tiles, BT)
     lo, hi = scene_bounds(v0, e1, e2, n_tri)
-    return WoopPack(torch.as_tensor(b, device=device), aabb, lo, hi, n_tri, boxes)
+    return WoopPack(torch.as_tensor(b, device=device), aabb, lo, hi, n_tri, *boxes)
 
 
 def _transforms(b: torch.Tensor, n_tri: int) -> torch.Tensor:
@@ -162,8 +174,8 @@ def _transforms(b: torch.Tensor, n_tri: int) -> torch.Tensor:
 def woop_aos(m: torch.Tensor) -> torch.Tensor:
     """The Woop kernel's table from the (12, n_tri) transform rows; per
     triangle (see csrc/intersect_woop.cu): the bounding sphere c, r2 = 2.8
-    R0^2; m_z,
-    f_z; P, Q, 0, 0; m_b1, f_b1; m_b2, f_b2. The sphere bounds
+    R0^2; m_z, f_z; P, Q, 0, 0 (the index column, which the caller fills);
+    m_b1, f_b1; m_b2, f_b2. The sphere bounds
     the triangle that the float32 map itself defines (the preimages of
     the unit triangle's corners, through a float64 inverse). P = 2 M_z
     (M_1 + M_2) + M_z and Q = M_z (F_1 + F_2) + F_z (M_1 + M_2) + M_z +
@@ -228,36 +240,36 @@ def nearest_triangle_woop_plain(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`nearest_triangle_woop` (any
     device): :func:`~theia_tpu_torch.ops.intersect_mt.chunk_walk` over
-    the kernel's exact test."""
+    the kernel's exact test, with the pack's sub-boxes."""
     m = _transforms(pack.b, pack.n_tri)
     return chunk_walk(
         pack.n_tri, pack.chunk_box, origin, direction, t_max,
-        lambda o, d, c0: _woop_exact_plain(m[:, c0 : c0 + CHUNK], o, d), stats,
+        lambda o, d, c0: _woop_exact_plain(m[:, c0 : c0 + CHUNK], o, d), stats, sub_box=pack.sub_box,
     )
 
 
-def _woop_sphere_miss_plain(aos: torch.Tensor, o: torch.Tensor, d: torch.Tensor, fused: bool = True):
-    """The first of the kernel's two rejection tests alone, with the Woop
-    guard g S."""
-    big_p, big_q = aos[:, 8][None], aos[:, 9][None]
-    kd, ko = ray_slack(o, d)
+def _woop_sphere_miss_plain(aos: torch.Tensor, sub_box: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
+                            fused: bool = True):
+    """The first of the kernel's two rejection tests
+    (:func:`~theia_tpu_torch.ops.intersect_mt.sphere_miss_plain`) with the
+    Woop guard g S."""
     return sphere_miss_plain(
-        aos, o, d, (4, 5, 6),
-        lambda w1: _fma(WOOP_GUARD * ko, big_p, (WOOP_GUARD * kd) * big_q, fused), fused,
+        aos, sub_box, o, d,
+        lambda a, w1, kd, ko: _fma(WOOP_GUARD * ko, a[:, 8][None], (WOOP_GUARD * kd) * a[:, 9][None], fused),
+        fused,
     )
 
 
 def _woop_reject_plain(aos: torch.Tensor, o: torch.Tensor, d: torch.Tensor, fused: bool = True):
-    """Plain twin of the kernel's two rejection tests (``sphere_miss`` of
-    csrc/nearest_scan.cuh, then ``reject`` of csrc/intersect_woop.cu):
-    bool (lanes, T), true where the pair (ray, row of ``aos`` (T,
-    ROW_AOS)) is rejected without the exact test. Same formulas and
-    slack; ``fused`` rounds each a*b+c once, as the kernel's fmaf does."""
+    """Plain twin of the kernel's second rejection test (``reject`` of
+    csrc/intersect_woop.cu): bool (lanes, T), true where the pair (ray,
+    row of ``aos`` (T, ROW_AOS)) is rejected without the exact test. Same
+    formulas and slack; ``fused`` rounds each a*b+c once, as the kernel's
+    fmaf does."""
     ox, oy, oz, dx, dy, dz = _columns(o, d)
     col = lambda k: aos[:, k][None]
     big_p, big_q = col(8), col(9)
     kd, ko = ray_slack(o, d)
-    miss = _woop_sphere_miss_plain(aos, o, d, fused)
     # rows of the map: b1 at columns 12-15, b2 at 16-19, z at 4-7
     o1, o2, o3 = (
         _fma(ox, col(k), _fma(oy, col(k + 1), _fma(oz, col(k + 2), col(k + 3), fused), fused), fused)
@@ -269,7 +281,7 @@ def _woop_reject_plain(aos: torch.Tensor, o: torch.Tensor, d: torch.Tensor, fuse
     u = _fma(o1, d3, -(o3 * d1), fused)
     v = _fma(o2, d3, -(o3 * d2), fused)
     s = _fma(ko, big_p, kd * big_q, fused)
-    return miss | reject_tests(u, v, -o3, d3, s)
+    return reject_tests(u, v, -o3, d3, s)
 
 
 def nearest_triangle_woop(
@@ -279,15 +291,17 @@ def nearest_triangle_woop(
 
     ``origin``/``direction``: f32 (N, 3); ``t_max``: scalar or f32 (N,).
     A hit counts only if strictly closer than ``t_max``; the lowest index
-    wins ties. CUDA tensors launch ``csrc/intersect_woop.cu``, CPU tensors
-    run the plain version."""
+    wins ties. CUDA tensors launch ``theia_woop_nearest`` of
+    ``csrc/intersect_woop.cu``, CPU tensors run the plain version."""
     n = origin.shape[0]
+    n_chunks = -(-pack.n_tri // CHUNK)
     t_max = check_rays(
         origin, direction, t_max,
         (
             ("pack.b", pack.b, (pack.b.shape[0], 8, 6 * BT)),
-            ("pack.tri_aos", pack.tri_aos, (-(-pack.n_tri // CHUNK) * CHUNK, ROW_AOS)),
-            ("pack.chunk_box", pack.chunk_box, (-(-pack.n_tri // CHUNK), 8)),
+            ("pack.tri_aos", pack.tri_aos, (n_chunks * CHUNK, ROW_AOS)),
+            ("pack.chunk_box", pack.chunk_box, (n_chunks, 8)),
+            ("pack.sub_box", pack.sub_box, (n_chunks * CHUNK // SUB, 8)),
         ),
     )
     if origin.device.type == "cpu":
@@ -295,8 +309,7 @@ def nearest_triangle_woop(
     t = torch.empty(n, dtype=torch.float32, device=origin.device)
     idx = torch.empty(n, dtype=torch.int32, device=origin.device)
     err = _build.library().theia_woop_nearest(
-        origin.data_ptr(), direction.data_ptr(), t_max.data_ptr(),
-        pack.tri_aos.data_ptr(), pack.chunk_box.data_ptr(), n, pack.n_tri,
+        origin.data_ptr(), direction.data_ptr(), t_max.data_ptr(), *scan_tables(pack), n,
         t.data_ptr(), idx.data_ptr(), _build.stream_handle(origin.device),
     )
     _build.check(err, "nearest_triangle_woop")

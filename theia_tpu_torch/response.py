@@ -95,7 +95,12 @@ class HitResponse(Component):
 def _hist_bins(time, mask, t0, bin_size, n_bins, object_id, n_detectors):
     """(keep, flat bin) per lane: bin = floor((t - t0) / binSize); lanes
     masked, out of [0, nBins) or with a detector id out of range are not
-    kept (theia_tpu/response.py:226-234)."""
+    kept (theia_tpu/response.py:226-234). A NaN time is not kept either,
+    a deliberate divergence: ``theia_tpu`` casts the NaN bin to an
+    integer, which on the CPU lands in bin 0, so a lane that carries no
+    time would add its value to the first bin. The port (this rule and
+    the kernels of ``csrc/histogram.cu``) drops the lane
+    (tests/test_torch_response.py holds both behaviours)."""
     bin_f = torch.floor((time - t0) / bin_size)
     keep = mask & (bin_f >= 0) & (bin_f < n_bins)
     bins = torch.where(keep, bin_f, 0.0).to(torch.int64)

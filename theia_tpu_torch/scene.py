@@ -265,8 +265,13 @@ class ScenePack:
         (the soup, ``tri_data``'s world v0, the instance's transforms, the
         shadow split, the bounding sphere's centre and the kernels'
         table); accelerated packs bake world geometry into their own
-        tables and raise. The forward alone so far: the table of the soup
-        kernels is rebuilt without a graph."""
+        tables and raise. Differentiable in ``delta``, as in ``theia_tpu``:
+        ``tri_data`` and ``inst_data`` carry its graph, and where
+        ``tri_data`` requires a gradient the queries gather the winners'
+        rows from it in torch (``accel.intersect_scene``), while the
+        kernels' table, which only selects the winners, is rebuilt
+        detached (``stop_gradient`` in ``theia_tpu``), in the order of the
+        table it came from."""
         if self.mt is not None or self.woop is not None:
             raise ValueError(
                 "translate_instance requires accel='brute' (accelerated "
@@ -277,12 +282,13 @@ class ScenePack:
         w_v0 = self.w_v0 + tri_mask * delta
         tri_data = self.tri_data.clone()
         tri_data[:, 18:21] += tri_mask * delta
-        inst_data = self.inst_data.clone()
-        row = inst_data[instance_id]  # a view: the edits below land in inst_data
+        # out of place, so that autograd keeps the R' it multiplies delta by
+        at = lambda cols: (torch.full((3,), instance_id, device=delta.device), torch.as_tensor(cols, device=delta.device))
         # world_to_obj [R'|t'] rows flat at 0:12: new t' = t' - R' @ delta
-        row[[3, 7, 11]] -= row[0:12].reshape(3, 4)[:, :3] @ delta
+        shift = self.inst_data[instance_id, 0:12].reshape(3, 4)[:, :3] @ delta
+        inst_data = self.inst_data.index_put(at([3, 7, 11]), -shift, accumulate=True)
         # obj_to_world [R|t] rows flat at 12:24 -> t entries 15, 19, 23
-        row[[15, 19, 23]] += delta
+        inst_data = inst_data.index_put(at([15, 19, 23]), delta, accumulate=True)
         split = self.shadow_split
         if split is not None:
             dmask = (split.det_inst == float(instance_id))[:, None]
@@ -296,7 +302,7 @@ class ScenePack:
             cull = replace(cull, centers=centers)
         return replace(
             self, w_v0=w_v0, tri_data=tri_data, inst_data=inst_data, shadow_split=split, cull=cull,
-            soup=SoupTable(w_v0.detach(), self.w_e1.detach(), self.w_e2.detach(), self.soup.spans),
+            soup=SoupTable(w_v0.detach(), self.w_e1.detach(), self.w_e2.detach(), self.soup.spans, self.soup.order),
         )
 
 

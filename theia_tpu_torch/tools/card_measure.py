@@ -4,14 +4,16 @@
 
     python3 -m theia_tpu_torch.tools.card_measure tiles
     python3 -m theia_tpu_torch.tools.card_measure baseline DIR [aos]
+    python3 -m theia_tpu_torch.tools.card_measure soup DIR
+    python3 -m theia_tpu_torch.tools.card_measure soup-builds
     python3 -m theia_tpu_torch.tools.card_measure histogram
     python3 -m theia_tpu_torch.tools.card_measure profile
 
 ``tiles`` builds the scan of ``csrc/nearest_scan.cuh`` with 256 and 512
 rays a block, prints what ptxas reports for each (registers, shared
 memory, spills), checks each against the default build bit for bit and
-times the three entry points at N = 262,144 random rays over the
-flagship's 3840 triangles.
+times the three whole-table queries (MT, MT with rows, Woop) at N =
+262,144 random rays over the flagship's 3840 triangles.
 
 ``baseline DIR`` times the kernels of an earlier commit beside the current
 ones in turns (old, new, new, old) at N = 262,144 and 524,288. ``DIR``
@@ -19,8 +21,11 @@ holds that commit's ``csrc`` files, e.g. from
 ``git archive <commit> theia_tpu_torch/csrc | tar -x -C <dir>`` (pass
 ``<dir>/theia_tpu_torch/csrc``). Without ``aos`` they are the first
 kernels, which read the tiled tables ``MTPack.tri`` and ``WoopPack.b``;
-with it, an earlier form of the scan over the current tables
-(``tri_aos``) with the current entry points. Either way the histogram
+with it, the whole-table scan of a commit that reads ``tri_aos`` through
+``theia_mt_nearest``, ``theia_mt_nearest_rows`` and ``theia_woop_nearest``
+(from the one that added ``tri_aos`` to the parent of the one that made
+the whole-table queries the one-group case of the soup's scan), against
+the current queries on the same packs. Either way the histogram
 record and its backward of ``DIR`` are timed in turns with the current
 ones through their C entry points, as a caller sees them and queued
 behind a spin kernel (device time alone): at ``chip_smoke.py``'s
@@ -30,7 +35,28 @@ which take the current record's large-state variant (kept lanes spread
 over all bins, and in four bins);
 then the ``mt`` flagship's seconds per batch and the polarized ``woop``
 gradient step's seconds with the old and the current histogram kernels
-in turns.
+in turns. With ``aos`` the soup kernels of ``DIR`` are compared too, as
+``soup DIR`` does.
+
+``soup DIR`` times the soup entry points of a commit whose
+``intersect_soup.cu`` has the first soup kernels' C interface (a chunk
+list with ``chunk_first``, no sub-boxes, no ``theia_soup_target``; the
+commit that added them) in turns with the current ones (old, new, new,
+old), on the recorded queries of one brute-force flagship batch: the 10
+primary queries with rows, and the 9 shadow pairs, old as the nearest hit
+with rows over the detector, the any-hit over the occluders and the
+masks in torch (what ``accel.intersect_target`` ran), new as one
+``theia_soup_target`` launch; then the first 9 of those as separate
+detector and any-hit replays, and random rays at N = 262,144 and
+524,288. Each old query runs on the table in instance order, each new one
+on the scene's; the results are held equal first. As called and queued.
+
+``soup-builds`` times measurement builds of the soup kernels, each from
+a copy of ``csrc`` patched in the build directory (``SOUP_BUILDS``:
+another count of resident blocks, or the lists and the sphere test
+without reject() and exact(), whose results are then wrong), in turns
+with the package's, on the same recorded queries; then the shadow pairs'
+any-hit halves on masked wavefronts against compacted ones.
 
 ``histogram`` times the record's two variants (a block-private histogram
 in shared memory, adds merged by warp straight to the state; the second
@@ -81,10 +107,13 @@ OLD_SIGNATURES = (
 #: the histogram entry points that every commit since the backward has
 _HIST = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P)
 HIST_SIGNATURES = (("theia_histogram_add", _HIST), ("theia_histogram_grad", _HIST))
-#: the entry points of a commit that already reads ``tri_aos``
-AOS_SIGNATURES = tuple(
-    (name, _build._SIGNATURES[name])
-    for name in ("theia_mt_nearest", "theia_mt_nearest_rows", "theia_woop_nearest", "theia_philox_uniform")
+#: the entry points of a commit whose whole-table scan reads ``tri_aos``
+#: (rows, chunk boxes, ray and triangle counts)
+AOS_SIGNATURES = (
+    ("theia_mt_nearest", (_P, _P, _P, _P, _P, _I, _I, _P, _P, _P)),
+    ("theia_mt_nearest_rows", (_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P)),
+    ("theia_woop_nearest", (_P, _P, _P, _P, _P, _I, _I, _P, _P, _P)),
+    ("theia_philox_uniform", _build._SIGNATURES["theia_philox_uniform"]),
 ) + HIST_SIGNATURES
 #: rays a block, in units of its 256 threads; 3 needs more than 48 KiB of static shared memory
 TILES = (1, 2)
@@ -98,10 +127,14 @@ def _smi() -> str:
 
 
 class Calls:
-    """The three nearest-hit entry points of one built library on fixed
-    rays, each as a closure that returns its outputs."""
+    """The three whole-table nearest-hit queries of one built library on
+    fixed rays, each as a closure that returns its outputs, through the C
+    entry points of ``form``: "tiled" (the first kernels), "aos" (the
+    whole-table scan over ``tri_aos``) or "scan" (the package's)."""
 
-    def __init__(self, lib, packs, rays, old: bool) -> None:
+    def __init__(self, lib, packs, rays, form: str) -> None:
+        from theia_tpu_torch.ops.intersect_mt import scan_tables
+
         mt, woop, table = packs
         o, d, tmax = rays
         n = o.shape[0]
@@ -110,12 +143,6 @@ class Calls:
         rows = torch.empty((n, 32), device="cuda")
         stream = torch.cuda.current_stream().cuda_stream
         head = (o.data_ptr(), d.data_ptr(), tmax.data_ptr())
-        if old:  # the tiled tables, MT with its tile width
-            mt_tab = (mt.tri.data_ptr(), mt.chunk_box.data_ptr(), n, mt.n_tri, mt.tri.shape[2])
-            woop_tab = (woop.b.data_ptr(), woop.chunk_box.data_ptr(), n, woop.n_tri)
-        else:
-            mt_tab = (mt.tri_aos.data_ptr(), mt.chunk_box.data_ptr(), n, mt.n_tri)
-            woop_tab = (woop.tri_aos.data_ptr(), woop.chunk_box.data_ptr(), n, woop.n_tri)
         out = (t.data_ptr(), idx.data_ptr())
 
         def call(fn, *args):
@@ -124,6 +151,18 @@ class Calls:
                 return t, idx, rows
             return run
 
+        if form == "scan":
+            mt_head, woop_head = (*head, None, *scan_tables(mt), n), (*head, *scan_tables(woop), n)
+            self.mt = call(lib.theia_soup_nearest, *mt_head, *out, stream)
+            self.mt_rows = call(lib.theia_soup_nearest_rows, *mt_head, table.data_ptr(), *out, rows.data_ptr(), stream)
+            self.woop = call(lib.theia_woop_nearest, *woop_head, *out, stream)
+            return
+        if form == "tiled":  # the tiled tables, MT with its tile width
+            mt_tab = (mt.tri.data_ptr(), mt.chunk_box.data_ptr(), n, mt.n_tri, mt.tri.shape[2])
+            woop_tab = (woop.b.data_ptr(), woop.chunk_box.data_ptr(), n, woop.n_tri)
+        else:
+            mt_tab = (mt.tri_aos.data_ptr(), mt.chunk_box.data_ptr(), n, mt.n_tri)
+            woop_tab = (woop.tri_aos.data_ptr(), woop.chunk_box.data_ptr(), n, woop.n_tri)
         self.mt = call(lib.theia_mt_nearest, *head, *mt_tab, *out, stream)
         self.mt_rows = call(
             lib.theia_mt_nearest_rows, *head, *mt_tab, table.data_ptr(), *out, rows.data_ptr(), stream
@@ -156,20 +195,18 @@ def _same(a, b) -> bool:
 def tiles() -> dict:
     packs = _packs()
     rays = chip_smoke.random_rays(chip_smoke.BATCH, 11, "cuda")
-    want = Calls(_build.library(), packs, rays, old=False).results()
+    want = Calls(_build.library(), packs, rays, "scan").results()
     out = {}
     for r in TILES:
         lib = _build.build(defines=(f"THEIA_RAYS_PER_THREAD={r}",))
-        calls = Calls(lib, packs, rays, old=False)
+        calls = Calls(lib, packs, rays, "scan")
         assert _same(calls.results(), want), f"{256 * r} rays a block differ from the default build"
         ms = {name: chip_smoke.cuda_ms(getattr(calls, name), 20) for name in ("mt", "mt_rows", "woop")}
-        ptxas = [line.strip() for line in lib.build_log.splitlines()
-                 if ("registers" in line or "spill" in line) and "ptxas" in line]
+        ptxas = _scan_ptxas(lib.build_log)
         out[f"{256 * r} rays a block"] = dict(ms=ms, ptxas=ptxas)
         print(f"{256 * r} rays a block: " + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items()))
-        for line in lib.build_log.splitlines():
-            if "nearest_scan" in line or "registers" in line or "spill" in line:
-                print("   ", line.strip())
+        for line in ptxas:
+            print("   ", line)
     return out
 
 
@@ -310,14 +347,279 @@ def histogram_variants() -> dict:
     return out
 
 
+#: the first soup kernels' entry points: chunk_first, no sub-boxes
+_SOUP_HEAD = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I)
+OLD_SOUP_SIGNATURES = (
+    ("theia_soup_nearest", _SOUP_HEAD + (_P, _P, _P)),
+    ("theia_soup_nearest_rows", _SOUP_HEAD + (_P, _P, _P, _P, _P)),
+    ("theia_soup_anyhit", _SOUP_HEAD + (_P, _P)),
+)
+
+
+class SoupCalls:
+    """The soup queries of one built library on fixed recorded queries,
+    through the C entry points: ``primary()`` runs the primary queries with
+    rows, ``shadow()`` the shadow pairs, ``detector()`` and ``anyhit()``
+    their halves alone (the first soup kernels' two launches). ``old``: the
+    first kernels' interface, on ``table`` in instance order."""
+
+    def __init__(self, lib, table, rows_table, primary, shadow, old: bool) -> None:
+        self.lib, self.table, self.rows_table, self.old = lib, table, rows_table, old
+        self.stream = torch.cuda.current_stream().cuda_stream
+        self.det, self.occ = table.chunk_list([2]), table.chunk_list([0, 1])
+        every = table.chunk_list(None)
+        n = max(q[0].shape[0] for q in primary + shadow)
+        self.t, self.idx = torch.empty(n, device="cuda"), torch.empty(n, dtype=torch.int32, device="cuda")
+        self.rows = torch.empty((n, 32), device="cuda")
+        self.any = torch.empty(n, dtype=torch.bool, device="cuda")
+        self._primary = [(q, every) for q in primary]
+        self._shadow = shadow
+        # the occluder halves need the detector halves' answers: t and found, per shadow pair
+        self.halves = [(torch.empty(q[0].shape[0], device="cuda"), torch.empty(q[0].shape[0], dtype=torch.bool,
+                                                                                  device="cuda")) for q in shadow]
+
+    def _head(self, q, chunks, active=None, t_max=None):
+        o, d, tm = q[0], q[1], q[2] if t_max is None else t_max
+        tab = self.table
+        mid = (tab.chunk_first.data_ptr(),) if self.old else (tab.sub_box.data_ptr(),)
+        return (o.data_ptr(), d.data_ptr(), tm.data_ptr(), None if active is None else active.data_ptr(),
+                tab.aos.data_ptr(), tab.chunk_box.data_ptr(), *mid, tab.chunk_count.data_ptr(),
+                chunks.data_ptr(), chunks.numel())
+
+    def _nearest_rows(self, q, chunks, active=None):
+        n = q[0].shape[0]
+        err = self.lib.theia_soup_nearest_rows(*self._head(q, chunks, active), n, self.rows_table.data_ptr(),
+                                               self.t.data_ptr(), self.idx.data_ptr(), self.rows.data_ptr(),
+                                               self.stream)
+        _build.check(err, "theia_soup_nearest_rows")
+
+    def _anyhit(self, q, chunks, t_max, active):
+        err = self.lib.theia_soup_anyhit(*self._head(q, chunks, active, t_max), q[0].shape[0],
+                                         self.any.data_ptr(), self.stream)
+        _build.check(err, "theia_soup_anyhit")
+
+    def primary_one(self, k):
+        q, chunks = self._primary[k]
+        self._nearest_rows(q, chunks)
+        n = q[0].shape[0]
+        return self.t[:n].clone(), self.idx[:n].clone(), self.rows[:n].clone()
+
+    def primary(self):
+        for q, chunks in self._primary:
+            self._nearest_rows(q, chunks)
+
+    def shadow_one(self, k):
+        """One shadow pair as accel.intersect_target ran it (old) or runs it (new)."""
+        q = self._shadow[k]
+        n = q[0].shape[0]
+        if not self.old:
+            err = self.lib.theia_soup_target(*self._head(q, self.det, q[4]), self.occ.data_ptr(), self.occ.numel(),
+                                             n, self.rows_table.data_ptr(), self.t.data_ptr(), self.idx.data_ptr(),
+                                             self.rows.data_ptr(), self.stream)
+            _build.check(err, "theia_soup_target")
+            return self.t[:n], self.idx[:n], self.rows[:n]
+        self._nearest_rows(q, self.det, q[4])
+        t, idx, rows = self.t[:n], self.idx[:n], self.rows[:n]
+        found = idx >= 0
+        self._anyhit(q, self.occ, t, found)
+        valid = found & ~self.any[:n]
+        return (torch.where(valid, t, torch.inf), torch.where(valid, idx, -1),
+                torch.where(valid[:, None], rows, self.rows_table[0]))
+
+    def shadow(self):
+        for k in range(len(self._shadow)):
+            self.shadow_one(k)
+
+    def detector(self):
+        for q in self._shadow:
+            self._nearest_rows(q, self.det, q[4])
+
+    def anyhit(self):
+        for q, (t, found) in zip(self._shadow, self.halves):
+            self._anyhit(q, self.occ, t, found)
+
+
+def baseline_soup(old_lib) -> dict:
+    """The soup kernels of ``old_lib`` in turns with the package's on the
+    recorded queries of a brute-force flagship batch and on random rays."""
+    from theia_tpu_torch.ops.intersect_soup import nearest_in_table
+
+    tracer = build_flagship(theia_tpu_torch, icosphere(3), chip_smoke.BATCH, chip_smoke.MAX_PATH, accel="auto",
+                            device="cuda")
+    pack = tracer.scene.pack
+    primary = chip_smoke.record_soup_queries(tracer, "nearest_in_table_rows")
+    shadow = chip_smoke.record_soup_queries(tracer, "target_in_table")
+    old = SoupCalls(old_lib, chip_smoke.instance_order(pack.soup), pack.tri_data, primary, shadow, old=True)
+    new = SoupCalls(_build.library(), pack.soup, pack.tri_data, primary, shadow, old=False)
+    for calls in (old, new):
+        for q, half in zip(shadow, calls.halves):
+            t, idx = nearest_in_table(pack.soup, q[0], q[1], q[2], groups=[2], active=q[4])
+            half[0].copy_(t)
+            half[1].copy_(idx >= 0)
+    for k in range(len(primary)):
+        assert all(torch.equal(a, b) for a, b in zip(old.primary_one(k), new.primary_one(k))), "primary differs"
+    for k in range(len(shadow)):
+        got_old = [a.clone() for a in old.shadow_one(k)]
+        assert all(torch.equal(a, b) for a, b in zip(got_old, new.shadow_one(k))), "shadow pair differs"
+    out = {}
+    for name in ("primary", "shadow", "detector", "anyhit"):
+        t = out[f"{name}, recorded brute batch"] = _in_turns(old, new, name, 5)
+        print(f"soup {name} ({len(primary) if name == 'primary' else len(shadow)} recorded queries of a brute batch): "
+              f"old {t['old_ms'][0]:.4f} / {t['old_ms'][1]:.4f} ms (queued {t['old_queued_ms'][0]:.4f} / "
+              f"{t['old_queued_ms'][1]:.4f}), new {t['new_ms'][0]:.4f} / {t['new_ms'][1]:.4f} ms (queued "
+              f"{t['new_queued_ms'][0]:.4f} / {t['new_queued_ms'][1]:.4f}) (old, new, new, old; bit-equal)")
+    for n in (chip_smoke.BATCH, 2 * chip_smoke.BATCH):
+        o, d, tmax = chip_smoke.random_rays(n, n, "cuda")
+        rays = [(o, d, tmax, None, None)]
+        old_r = SoupCalls(old_lib, chip_smoke.instance_order(pack.soup), pack.tri_data, rays, [], old=True)
+        new_r = SoupCalls(_build.library(), pack.soup, pack.tri_data, rays, [], old=False)
+        assert all(torch.equal(a, b) for a, b in zip(old_r.primary_one(0), new_r.primary_one(0))), "random rays differ"
+        t = out[f"nearest with rows N={n}"] = _in_turns(old_r, new_r, "primary", 20)
+        print(f"soup nearest with rows N={n}: old {t['old_ms'][0]:.4f} / {t['old_ms'][1]:.4f} ms, new "
+              f"{t['new_ms'][0]:.4f} / {t['new_ms'][1]:.4f} ms (old, new, new, old; bit-equal)")
+    return out
+
+
+#: measurement builds of the soup kernels, each against the package's: a
+#: copy of ``csrc`` with each (text, replacement) of ``csrc/nearest_scan.cuh``
+#: made, and whether the results stay those of the package
+_PAIR_TESTS = "__device__ __forceinline__ void test_row(const Ray& r, const float4* row, unsigned long long* key) {"
+SOUP_BUILDS = {
+    "3 blocks an SM": ((("constexpr int kMinBlocks = 4;", "constexpr int kMinBlocks = 3;"),), True),
+    "5 blocks an SM": ((("constexpr int kMinBlocks = 4;", "constexpr int kMinBlocks = 5;"),), True),
+    "lists and sphere test alone": (((_PAIR_TESTS, _PAIR_TESTS + "\n  return;"),), False),
+}
+
+
+def patched_build(label: str, patches):
+    """The package's kernels built from a copy of ``csrc`` in the build
+    directory with ``patches`` ((text, replacement) pairs of
+    ``nearest_scan.cuh``, each text found once) made."""
+    import shutil
+
+    copy = _build.BUILD_DIR / "patched" / label.replace(" ", "-")
+    shutil.rmtree(copy, ignore_errors=True)
+    shutil.copytree(_build.CSRC, copy)
+    header = copy / "nearest_scan.cuh"
+    text = header.read_text()
+    for old, new in patches:
+        assert text.count(old) == 1, f"{label}: {old!r} is not in nearest_scan.cuh once"
+        text = text.replace(old, new)
+    header.write_text(text)
+    return _build.build(copy, (), tuple(_build._SIGNATURES.items()))
+
+
+def _scan_ptxas(log: str) -> list:
+    """ptxas's registers, spills and shared memory of each instance of the scan."""
+    lines, out = log.splitlines(), []
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and "4scanI" in line:
+            tail = [x.strip() for x in lines[i + 1 : i + 4] if "bytes" in x or "registers" in x]
+            out.append(line.split("4scanI")[1][:40] + ": " + "; ".join(tail))
+    return out
+
+
+def soup_builds() -> dict:
+    """The soup kernels of each build of ``SOUP_BUILDS`` in turns with the
+    package's (package, build, build, package) on a brute batch's recorded
+    queries: what ptxas reports, bit-equality where the build keeps the
+    results, ms as called and queued."""
+    tracer = build_flagship(theia_tpu_torch, icosphere(3), chip_smoke.BATCH, chip_smoke.MAX_PATH, accel="auto",
+                            device="cuda")
+    pack = tracer.scene.pack
+    primary = chip_smoke.record_soup_queries(tracer, "nearest_in_table_rows")
+    shadow = chip_smoke.record_soup_queries(tracer, "target_in_table")
+    base = SoupCalls(_build.library(), pack.soup, pack.tri_data, primary, shadow, old=False)
+    for q, half in zip(shadow, base.halves):
+        t, idx = theia_tpu_torch.ops.intersect_soup.nearest_in_table(pack.soup, *q[:3], groups=[2], active=q[4])
+        half[0].copy_(t)
+        half[1].copy_(idx >= 0)
+    out = {"package": dict(ptxas=_scan_ptxas(_build.library().build_log))}
+    for line in out["package"]["ptxas"]:
+        print("    package:", line)
+    for label, (patches, same) in SOUP_BUILDS.items():
+        lib = patched_build(label, patches)
+        calls = SoupCalls(lib, pack.soup, pack.tri_data, primary, shadow, old=False)
+        calls.halves = base.halves
+        ptxas = _scan_ptxas(lib.build_log)
+        if same:
+            for k in range(len(primary)):
+                assert all(torch.equal(a, b) for a, b in zip(base.primary_one(k), calls.primary_one(k))), label
+            for k in range(len(shadow)):
+                want = [a.clone() for a in base.shadow_one(k)]
+                assert all(torch.equal(a, b) for a, b in zip(want, calls.shadow_one(k))), label
+        entry = out[label] = dict(patches=patches, ptxas=ptxas)
+        for name in ("primary", "shadow", "detector", "anyhit"):
+            t = entry[name] = _in_turns(base, calls, name, 5)
+            print(f"soup {name}, {label}: package {t['old_queued_ms'][0]:.4f} / "
+                  f"{t['old_queued_ms'][1]:.4f} ms, build {t['new_queued_ms'][0]:.4f} / {t['new_queued_ms'][1]:.4f} ms "
+                  f"(queued; package, build, build, package)")
+        for line in ptxas:
+            print("   ", line)
+    out["compacted any-hit"] = soup_compacted(base)
+    return out
+
+
+class CompactedAnyhit:
+    """The occluder halves of the shadow pairs of ``calls`` on their live
+    lanes alone (those with a detector hit): ``anyhit`` launches the
+    any-hit on wavefronts compacted beforehand, the kernel's time on live
+    lanes only; ``compacting`` also compacts in torch around each launch
+    and scatters the answers back, what compacting outside the kernel
+    costs."""
+
+    def __init__(self, calls: SoupCalls) -> None:
+        self.calls = calls
+        live = [torch.nonzero(found).squeeze(1) for _, found in calls.halves]
+        self.queries = [(q[0][i].contiguous(), q[1][i].contiguous(), t[i].contiguous())
+                        for q, (t, _), i in zip(calls._shadow, calls.halves, live)]
+        self.out = [torch.zeros(q[0].shape[0], dtype=torch.bool, device="cuda") for q in calls._shadow]
+
+    def anyhit(self):
+        for q in self.queries:
+            self.calls._anyhit(q, self.calls.occ, q[2], None)
+
+    def compacting(self):
+        for q, (t, found), out in zip(self.calls._shadow, self.calls.halves, self.out):
+            live = torch.nonzero(found).squeeze(1)
+            c = (q[0][live].contiguous(), q[1][live].contiguous(), t[live].contiguous())
+            self.calls._anyhit(c, self.calls.occ, c[2], None)
+            out.zero_()
+            out[live] = self.calls.any[: live.numel()]
+
+
+def soup_compacted(base: SoupCalls) -> dict:
+    """The any-hit halves of a brute batch's shadow pairs on masked
+    wavefronts (the package's way) against compacted ones, in turns: the
+    kernel alone on wavefronts compacted beforehand (as called and queued),
+    and with the compaction in torch (as called only: ``torch.nonzero``
+    waits for the device)."""
+    comp = CompactedAnyhit(base)
+    comp.compacting()
+    for k, (q, (t, found)) in enumerate(zip(base._shadow, base.halves)):
+        base._anyhit(q, base.occ, t, found)
+        assert torch.equal(comp.out[k], base.any[: q[0].shape[0]]), "compacted any-hit differs"
+    live = sum(q[0].shape[0] for q in comp.queries)
+    kernel = _in_turns(base, comp, "anyhit", 5)
+    with_torch = [chip_smoke.cuda_ms(f, 5) for f in (base.anyhit, comp.compacting, comp.compacting, base.anyhit)]
+    print(f"soup anyhit of {len(comp.queries)} shadow pairs ({live} live lanes): masked {kernel['old_queued_ms'][0]:.4f} "
+          f"/ {kernel['old_queued_ms'][1]:.4f} ms queued, compacted beforehand {kernel['new_queued_ms'][0]:.4f} / "
+          f"{kernel['new_queued_ms'][1]:.4f} ms queued; as called, masked {with_torch[0]:.4f} / {with_torch[3]:.4f} ms, "
+          f"compacting in torch {with_torch[1]:.4f} / {with_torch[2]:.4f} ms (equal answers)")
+    return dict(live_lanes=live, kernel=kernel, masked_ms=[with_torch[0], with_torch[3]],
+                compacting_ms=[with_torch[1], with_torch[2]])
+
+
 def baseline(csrc: Path, tiled: bool) -> dict:
     packs = _packs()
     old_lib = _build.build(csrc, (), OLD_SIGNATURES + HIST_SIGNATURES if tiled else AOS_SIGNATURES)
     out = baseline_histogram(old_lib)
+    if not tiled and (csrc / "intersect_soup.cu").exists():  # a commit with the first soup kernels
+        out["soup"] = baseline_soup(_build.build(csrc, (), OLD_SOUP_SIGNATURES))
     for n in (chip_smoke.BATCH, 2 * chip_smoke.BATCH):
         rays = chip_smoke.random_rays(n, n, "cuda")
-        old = Calls(old_lib, packs, rays, old=tiled)
-        new = Calls(_build.library(), packs, rays, old=False)
+        old = Calls(old_lib, packs, rays, "tiled" if tiled else "aos")
+        new = Calls(_build.library(), packs, rays, "scan")
         assert _same(old.results(), new.results()), "old and new kernels differ"
         for name in ("mt", "mt_rows", "woop"):
             ms = [chip_smoke.cuda_ms(getattr(c, name), 20) for c in (old, new, new, old)]
@@ -342,7 +644,7 @@ def _profiled(label: str, step, plain_seconds: float) -> dict:
     busy_ms = sum(map(sum, by_name.values())) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:12]
     histogram = {name: times for name, times in by_name.items()
-                 if any(own in name for own in ("histogram", "nearest_scan", "philox"))}
+                 if any(own in name for own in ("histogram", "theia::scan", "philox"))}
     print(f"{label}: {plain_seconds:.4f} s unprofiled, device busy {busy_ms:.2f} ms, "
           f"{len(events)} kernels and copies")
     for name, times in top + sorted(histogram.items()):
@@ -392,6 +694,10 @@ def main(argv: list[str]) -> int:
         result = tiles()
     elif mode == "baseline" and (len(argv) == 3 or argv[3:] == ["aos"]):
         result = baseline(Path(argv[2]).resolve(), tiled=len(argv) == 3)
+    elif mode == "soup-builds":
+        result = soup_builds()
+    elif mode == "soup" and len(argv) == 3:
+        result = baseline_soup(_build.build(Path(argv[2]).resolve(), (), OLD_SOUP_SIGNATURES))
     elif mode == "histogram":
         result = histogram_variants()
     elif mode == "profile":
