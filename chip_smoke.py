@@ -21,7 +21,8 @@ Phases, one line each, any failure raises and exits non-zero:
    also held against their plain versions on odd sizes, offset views, a
    detector axis, an all-masked record, a state above 48 KB and one
    above what shared memory holds (the record's second variant), and on
-   the 19 recorded records of one flagship batch of each path, replayed
+   the recorded records of one flagship batch of each path (19; 38 on
+   the polarized path, which records unfused), replayed
    for the time and the bound that a batch sees. The three nearest-hit
    kernels are also held bit for bit against their
    plain versions on adversarial rays (through vertices, along edges, in
@@ -68,10 +69,25 @@ Phases, one line each, any failure raises and exits non-zero:
    flagships in turns, for seconds per batch that can be compared;
 3e. ``accel.is_visible`` on the brute-force scene, the any-hit kernel's
    path: 262,144 observer-target pairs, three calls;
-4. the port on the CPU against the port on the card: the unpolarized
-   ``mt`` flagship, the brute-force flagship and the polarized ``woop``
-   flagship with the source off centre at batch 4096, and the gradient
-   at batch 2048, path length 3.
+3f. the volume flagship (``examples/01_volume_tracing.py``'s
+   ``VolumeForwardTracer``: water, a 5 m sphere target, 10 scatterings)
+   at 262,144 lanes: seconds per batch, bounces/s, peak memory, the
+   kernels' launches a batch (21 records, no triangle query) and one
+   batch under ``torch.profiler`` (device busy, kernels and copies);
+   phase 2 holds its 21 recorded records against the plain version;
+3g. the photon flagship (``ScenePhotonTracer`` on the brute-force scene,
+   3 runs of 2 segments) at 262,144 lanes: ``run_compacted()`` against
+   ``run()`` on the same streams (rtol 1e-6, atol 1e-4), then each timed
+   in turns (run, compacted, compacted, run; 6 primary queries and 6
+   records a batch, no shadow query) and profiled; phase 2 holds the
+   primary queries and records of both against the plain versions;
+4. the port on the CPU against the port on the card at batch 4096: the
+   unpolarized ``mt`` flagship, the brute-force flagship, the polarized
+   ``woop`` flagship with the source off centre, the volume flagship
+   unpolarized and polarized, a volume photon tracer, the photon
+   flagship and the unguided brute-force flagship with a
+   ``StoreTimeHitResponse`` (the same detections, times within 1e-5);
+   then the gradient at batch 2048, path length 3.
 
 Every path's launch counts are set to 0 just before it runs and read
 just after. Then one JSON line of kernels (name, route, source,
@@ -103,6 +119,17 @@ GRAD_BATCH = 2048
 GRAD_PATH = 3
 #: the light source off centre, where polarization changes the light curve
 OFF_CENTRE = (3.0, 0.6, 0.0)
+#: a polarized flagship batch's records: unfused, as theia_tpu records
+#: polarized runs, the extension and the surface record every segment and
+#: the two shadow halves every segment but the last
+POL_RECORDS = 4 * MAX_PATH - 2
+#: the volume flagship's records a batch: the direct extension, then the
+#: two MIS candidates of each of its 10 segments
+VOLUME_RECORDS = 21
+#: the photon flagship's segments a batch (3 runs of 2), one primary query
+#: and one record each; its wavefront shrinks between runs down to this
+PHOTON_PATH = 6
+PHOTON_MIN_LANES = 1024
 #: published peaks of one H100 SXM: HBM bytes/s and float32 flop/s outside
 #: the tensor cores (132 SMs x 128 lanes x 2 flop an FMA x 1.98 GHz)
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
@@ -948,9 +975,10 @@ def check_soup(soup: Soup, adversarial, queries, report):
     )
 
 
-def record_soup_queries(tracer, name):
+def record_soup_queries(tracer, name, step=None):
     """(origin, direction, t_max, groups, active) of every call that one
-    batch of ``tracer`` makes to the soup wrapper ``accel.<name>``."""
+    batch of ``tracer`` (or ``step``) makes to the soup wrapper
+    ``accel.<name>``."""
     import torch
 
     from theia_tpu_torch import accel
@@ -960,14 +988,14 @@ def record_soup_queries(tracer, name):
         t_max = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32, device=o.device), o.shape[:1])
         return o.clone(), d.clone(), t_max.clone().contiguous(), groups, None if active is None else active.clone()
 
-    return record_calls(tracer, accel, (name,), query)
+    return record_calls(tracer, accel, (name,), query, step)
 
 
-def record_calls(tracer, module, names, keep):
-    """Run one batch of ``tracer`` and return ``keep(*args)`` of every call
-    it makes to ``module.<name>`` for ``name`` in ``names``, in order. The
-    RNG offset is put back, so the timed batches start where they always
-    did."""
+def record_calls(tracer, module, names, keep, step=None):
+    """Run one batch of ``tracer`` (``tracer.run``, or ``step``) and return
+    ``keep(*args)`` of every call it makes to ``module.<name>`` for
+    ``name`` in ``names``, in order. The RNG offset is put back, so the
+    timed batches start where they always did."""
     import torch
 
     kept = []
@@ -984,7 +1012,7 @@ def record_calls(tracer, module, names, keep):
         for name, fn in saved.items():
             setattr(module, name, recording(fn))
         offset = tracer.rng.offset
-        tracer.run()
+        (step or tracer.run)()
         tracer.rng.offset = offset
     finally:
         for name, fn in saved.items():
@@ -1008,16 +1036,16 @@ def record_queries(tracer, names):
     return record_calls(tracer, accel, names, rays)
 
 
-def record_records(tracer):
+def record_records(tracer, step=None):
     """The inputs of every ``histogram_add`` call of one batch of
-    ``tracer``, as the tuples that ``hist_case`` makes."""
+    ``tracer`` (or ``step``), as the tuples that ``hist_case`` makes."""
     from theia_tpu_torch import response
 
     def inputs(state, value, time_, mask, t0, bin_size, n_bins, object_id, n_det):
         oid = None if object_id is None else object_id.clone()
         return value.detach().clone(), time_.clone(), mask.clone(), t0, bin_size, n_bins, oid, n_det
 
-    return record_calls(tracer, response, ("histogram_add",), inputs)
+    return record_calls(tracer, response, ("histogram_add",), inputs, step)
 
 
 def abc_experiment(nearest_rows: Nearest, report):
@@ -1073,6 +1101,29 @@ def timed_runs(tracer, wrappers, label):
     return seconds, sums, counts, torch.cuda.max_memory_allocated()
 
 
+def profile_step(step) -> dict:
+    """One call of ``step`` under ``torch.profiler``: the device's busy
+    time (the sum of its kernels' and copies' times), their count, the
+    twelve largest items and the hand-written kernels' items."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name: dict[str, list[float]] = {}
+    for e in events:
+        by_name.setdefault(e.name, []).append(e.device_time if hasattr(e, "device_time") else e.cuda_time)
+    item = lambda n, t: dict(name=n, ms=sum(t) / 1e3, count=len(t))
+    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:12]
+    own = sorted((n, t) for n, t in by_name.items() if any(k in n for k in ("histogram", "theia::scan", "philox")))
+    return dict(
+        device_busy_ms=sum(map(sum, by_name.values())) / 1e3, kernels=len(events),
+        top=[item(n, t) for n, t in top], own=[item(n, t) for n, t in own],
+    )
+
+
 def absorption_grad(tracer):
     """d sum(histogram state) / d (water absorption_coef row) through
     ``trace_fn()``; returns (loss, gradient) as float64 numpy."""
@@ -1111,7 +1162,10 @@ def main() -> int:
     from theia_tpu_torch.ops.intersect_woop import nearest_triangle_woop
     from theia_tpu_torch.random import philox_uniform
     from theia_tpu_torch.response import histogram_add, histogram_grad
-    from torch_flagship import adversarial_rays, build_flagship, icosphere
+    from theia_tpu_torch.response import StoreTimeHitResponse
+    from torch_flagship import (
+        adversarial_rays, build_flagship, build_photon_flagship, build_volume_flagship, build_volume_photon, icosphere,
+    )
 
     # the seconds of each phase, printed as it ends
     clock = {"1": time.perf_counter()}
@@ -1185,8 +1239,9 @@ def main() -> int:
     woop_queries = record_queries(pol_tracer, ("nearest_triangle_woop",))
     assert len(mt_queries) == len(woop_queries) == 2 * MAX_PATH - 1, (len(mt_queries), len(woop_queries))
     mt_records, woop_records = record_records(tracer), record_records(pol_tracer)
-    for records in (mt_records, woop_records):  # 10 of N lanes, 9 of 2 N
-        assert sorted(r[2].shape[0] for r in records) == [BATCH] * MAX_PATH + [2 * BATCH] * (MAX_PATH - 1)
+    # fused: 10 of N lanes, 9 of 2 N; polarized, unfused: the extension, the surface and two shadow halves
+    assert sorted(r[2].shape[0] for r in mt_records) == [BATCH] * MAX_PATH + [2 * BATCH] * (MAX_PATH - 1)
+    assert [r[2].shape[0] for r in woop_records] == [BATCH] * POL_RECORDS, len(woop_records)
     for name, queries in (
         ("nearest_triangle_mt", mt_queries),
         ("nearest_triangle_woop", woop_queries),
@@ -1232,6 +1287,26 @@ def main() -> int:
     for path, records in (("mt", mt_records), ("polarized woop", woop_records), ("brute", brute_records)):
         check_record_replay(records, path, kernels["histogram_add"], kernels["histogram_grad"])
     del mt_records, woop_records, brute_records, records
+    # the volume flagship's records (one direct extension, then two MIS candidates a segment) and the
+    # photon flagship's: its primary queries and records, of run() and of run_compacted()
+    volume_tracer = build_volume_flagship(theia_tpu_torch, BATCH, "cuda")
+    photon_tracer = build_photon_flagship(theia_tpu_torch, mesh, BATCH, "cuda")
+    volume_records = record_records(volume_tracer)
+    assert [r[2].shape[0] for r in volume_records] == [BATCH] * VOLUME_RECORDS, len(volume_records)
+    check_record_replay(volume_records, "volume", kernels["histogram_add"], kernels["histogram_grad"])
+    compacted = lambda: photon_tracer.run_compacted(advance=False, min_lanes=PHOTON_MIN_LANES)
+    photon_queries = record_soup_queries(photon_tracer, "nearest_in_table_rows")
+    photon_queries += record_soup_queries(photon_tracer, "nearest_in_table_rows", compacted)
+    assert len(photon_queries) == 2 * PHOTON_PATH, len(photon_queries)
+    photon_soup = Soup("nearest_in_table_rows", photon_tracer.scene.pack)
+    for o, d, t_max, groups, active in photon_queries:
+        photon_soup.check((o, d, t_max), "a recorded photon query", on_cpu=False, groups=groups, active=active)
+    print(f"kernel nearest_in_table_rows: bit-equal to plain on the {len(photon_queries)} recorded queries of a "
+          f"photon flagship batch, run() and run_compacted() (rays {[q[0].shape[0] for q in photon_queries]})")
+    photon_records = record_records(photon_tracer) + record_records(photon_tracer, compacted)
+    assert len(photon_records) == 2 * PHOTON_PATH, len(photon_records)
+    check_record_replay(photon_records, "photon", kernels["histogram_add"], kernels["histogram_grad"])
+    del volume_records, photon_queries, photon_records
 
     phase("3")
     # phase 3: the first main path (accel="mt") at full width
@@ -1291,7 +1366,7 @@ def main() -> int:
     assert pol_counts["nearest_triangle_woop"] == 19 * 3, pol_counts
     assert pol_counts["nearest_triangle_mt"] == pol_counts["nearest_triangle_mt_rows"] == 0, pol_counts
     assert not any(pol_counts[name] for name in SOUP_KERNELS), pol_counts
-    assert pol_counts["philox_uniform"] > 0 and pol_counts["histogram_add"] == 19 * 3, pol_counts
+    assert pol_counts["philox_uniform"] > 0 and pol_counts["histogram_add"] == POL_RECORDS * 3, pol_counts
     pol_med = statistics.median(pol_seconds)
     print(
         f"main path (woop, polarized): batch {BATCH}, path length {MAX_PATH}: "
@@ -1329,7 +1404,7 @@ def main() -> int:
     grad_peak = torch.cuda.max_memory_allocated()
     assert np.isfinite(grad).all() and np.isfinite(loss), "non-finite gradient"
     assert grad.sum() <= 0.0, f"d sum / d mu_a summed is {grad.sum()} > 0"
-    assert grad_launches == 2 * MAX_PATH - 1, f"the histogram backward launched {grad_launches} times"
+    assert grad_launches == POL_RECORDS, f"the histogram backward launched {grad_launches} times"
     print(
         f"gradient (woop, polarized): batch {grad_batch}{'' if grad_batch == BATCH else ' (largest that fits)'}, "
         f"path length {MAX_PATH}: forward + backward {grad_seconds:.4f} s, peak memory "
@@ -1417,24 +1492,109 @@ def main() -> int:
     del backends, brute_tracer
     torch.cuda.empty_cache()
 
+    phase("3f")
+    # phase 3f: the volume flagship (examples/01_volume_tracing.py's tracer) at the flagship's width
+    vol_seconds, vol_sums, vol_counts, vol_peak = timed_runs(volume_tracer, wrappers, "volume path")
+    assert vol_counts["histogram_add"] == VOLUME_RECORDS * 3 and vol_counts["philox_uniform"] > 0, vol_counts
+    assert not any(vol_counts[name] for name in wrappers if name not in ("histogram_add", "philox_uniform")), vol_counts
+    vol_med = statistics.median(vol_seconds)
+    vol_prof = profile_step(volume_tracer.run)
+    print(
+        f"volume path: batch {BATCH}, {volume_tracer.nScattering} scatterings: {vol_med:.4f} s/batch (median of "
+        f"{[round(x, 4) for x in vol_seconds]}), {BATCH * volume_tracer.nScattering / vol_med:.6g} bounces/s, "
+        f"peak memory {vol_peak / 2**20:.1f} MiB, launches per batch "
+        f"{{{', '.join(f'{k}: {v // 3}' for k, v in vol_counts.items() if v)}}}; one batch profiled: device busy "
+        f"{vol_prof['device_busy_ms']:.2f} ms, {vol_prof['kernels']} kernels and copies; histogram sums {vol_sums}"
+    )
+    for entry in vol_prof["top"][:6] + vol_prof["own"]:
+        print(f"    {entry['ms']:9.3f} ms {entry['count']:6d} x {entry['name'][:90]}")
+    del volume_tracer
+    torch.cuda.empty_cache()
+
+    phase("3g")
+    # phase 3g: the photon flagship (ScenePhotonTracer on the brute-force scene): run() and
+    # run_compacted() on the same streams, then each timed in turns, then each profiled
+    h_run = photon_tracer.run(advance=False)[0]
+    h_comp = photon_tracer.run_compacted(advance=False, min_lanes=PHOTON_MIN_LANES)
+    torch.testing.assert_close(h_comp, h_run, rtol=1e-6, atol=1e-4)  # the graft's limits
+    photon_rel = float((h_comp - h_run).abs().max() / h_run.abs().max())
+    assert h_run.shape == (50,) and float(h_run.sum()) > 0.0 and photon_tracer.compaction_overflow == 0
+    photon_lanes = photon_tracer.compacted_lanes
+    print(f"photon path: run_compacted() against run() on the same streams: max difference {photon_rel:.3g} of the "
+          f"largest bin; lanes after each run {photon_lanes}")
+    photon_turns = []
+    for kind in ("run", "compacted", "compacted", "run"):
+        step = (lambda: photon_tracer.run()[0]) if kind == "run" else (
+            lambda: photon_tracer.run_compacted(min_lanes=PHOTON_MIN_LANES))
+        step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for w in wrappers.values():
+            w.launches = 0
+        turn_seconds = []
+        for _ in range(3):
+            start = time.perf_counter()
+            hist = step()
+            torch.cuda.synchronize()
+            turn_seconds.append(time.perf_counter() - start)
+            assert bool(torch.isfinite(hist).all()) and float(hist.sum()) > 0.0, f"photon {kind}: bad histogram"
+        turn_counts = {name: w.launches for name, w in wrappers.items()}
+        assert turn_counts["nearest_in_table_rows"] == PHOTON_PATH * 3, turn_counts
+        assert turn_counts["histogram_add"] == PHOTON_PATH * 3 and turn_counts["philox_uniform"] > 0, turn_counts
+        assert turn_counts["target_in_table"] == turn_counts["anyhit_in_table"] == 0, turn_counts  # no guide
+        photon_turns.append(dict(kind=kind, seconds_per_batch=turn_seconds, launches=turn_counts,
+                                 peak_bytes=torch.cuda.max_memory_allocated()))
+    photon_prof = {
+        "run": profile_step(lambda: photon_tracer.run()),
+        "compacted": profile_step(lambda: photon_tracer.run_compacted(min_lanes=PHOTON_MIN_LANES)),
+    }
+    print("photon path: batch {}, {} segments, s/batch in turns: {}".format(BATCH, PHOTON_PATH, "; ".join(
+        f"{t['kind']} {statistics.median(t['seconds_per_batch']):.4f} s {[round(x, 4) for x in t['seconds_per_batch']]}"
+        f" (peak {t['peak_bytes'] / 2**20:.1f} MiB)" for t in photon_turns
+    )))
+    photon_launches = {k: v // 3 for k, v in photon_turns[0]["launches"].items() if v}
+    print(f"photon path: launches per batch {photon_launches}; profiled: " + "; ".join(
+        f"{kind} device busy {p['device_busy_ms']:.2f} ms, {p['kernels']} kernels and copies"
+        for kind, p in photon_prof.items()
+    ))
+    del photon_tracer
+    torch.cuda.empty_cache()
+
     phase("4")
     # phase 4: the port on the CPU against the port on the card
     cpu_vs_card = {}
-    for label, kw in (
-        ("mt", {}),
-        ("brute", dict(accel="auto")),
-        ("woop polarized off centre", dict(accel="woop", polarized=True, source_position=OFF_CENTRE)),
+    flagship = lambda **kw: lambda dev: build_flagship(theia_tpu_torch, mesh, SMALL_BATCH, MAX_PATH, device=dev, **kw)
+    for label, build in (
+        ("mt", flagship()),
+        ("brute", flagship(accel="auto")),
+        ("woop polarized off centre", flagship(accel="woop", polarized=True, source_position=OFF_CENTRE)),
+        ("volume", lambda dev: build_volume_flagship(theia_tpu_torch, SMALL_BATCH, dev)),
+        ("volume polarized", lambda dev: build_volume_flagship(theia_tpu_torch, SMALL_BATCH, dev, polarized=True)),
+        ("volume photon", lambda dev: build_volume_photon(theia_tpu_torch, SMALL_BATCH, dev)),
+        ("scene photon", lambda dev: build_photon_flagship(theia_tpu_torch, mesh, SMALL_BATCH, dev)),
+        ("unguided, StoreTimeHitResponse", flagship(accel="auto", guided=False, response=StoreTimeHitResponse())),
     ):
-        dims, hists = {}, {}
+        dims, results = {}, {}
         for dev in ("cpu", "cuda"):
-            small = build_flagship(theia_tpu_torch, mesh, SMALL_BATCH, MAX_PATH, device=dev, **kw)
+            small = build(dev)
             small._debug_rng = True
             p = small.params()
             with torch.no_grad():
                 state, _, dim = small._trace_batch(p, small.rng.counter_words, small.streams())
-            hists[dev] = small.response.result(p["response"], state).double().cpu()
+            results[dev] = small.response.result(p["response"], state)
             dims[dev] = dim.cpu()
         same = float((dims["cpu"] == dims["cuda"]).double().mean())
+        if isinstance(results["cpu"], dict):  # the stored detections
+            kept = {dev: r["time"][r["valid"]].cpu().sort().values for dev, r in results.items()}
+            n_kept = int(kept["cpu"].shape[0])
+            assert n_kept == kept["cuda"].shape[0] > 0, f"cpu and card accept other counts ({label})"
+            t_rel = float(((kept["cuda"] - kept["cpu"]).abs() / kept["cpu"].abs()).max())
+            print(f"cpu vs card ({label}) at batch {SMALL_BATCH}: rng dims equal {same:.6f}, {n_kept} detections "
+                  f"on both, sorted times within {t_rel:.3g} relative")
+            assert same >= 0.995 and t_rel <= 1e-5, f"cpu and card disagree ({label})"
+            cpu_vs_card[label] = dict(dims_equal=same, detections=n_kept, time_rel=t_rel)
+            continue
+        hists = {dev: r.double().cpu() for dev, r in results.items()}
         d_sum = abs(float(hists["cuda"].sum() / hists["cpu"].sum()) - 1.0)
         l1 = float((hists["cuda"] - hists["cpu"]).abs().sum() / hists["cpu"].sum())
         print(f"cpu vs card ({label}) at batch {SMALL_BATCH}: rng dims equal {same:.6f}, "
@@ -1472,6 +1632,10 @@ def main() -> int:
         backends_in_turns=backend_turns,
         woop_polarized_path=dict(seconds_per_batch=pol_seconds, bounces_per_s=BATCH * MAX_PATH / pol_med,
                                  peak_bytes=pol_peak, histogram_sums=pol_sums, launches=pol_counts),
+        volume_path=dict(seconds_per_batch=vol_seconds, bounces_per_s=BATCH * 10 / vol_med, peak_bytes=vol_peak,
+                         histogram_sums=vol_sums, launches=vol_counts, profile=vol_prof),
+        photon_path=dict(compacted_vs_run_rel=photon_rel, lanes_after_each_run=photon_lanes, turns=photon_turns,
+                         profile=photon_prof),
         gradient=dict(batch=grad_batch, seconds=grad_seconds, peak_bytes=grad_peak, loss=loss,
                       grad_sum=float(grad.sum()), grad=grad.tolist(), histogram_grad_launches=grad_launches),
         cpu_vs_card=cpu_vs_card, phase_seconds={k: clock[n] - clock[k] for k, n in zip(clock, list(clock)[1:])},

@@ -163,7 +163,9 @@ def test_nearest_kernels_on_hard_rays(cuda, name):
     )
     assert len(queries) == 7
     records = chip_smoke.record_records(tracer)
-    assert len(records) == 7
+    # polarized runs record unfused, as theia_tpu's: the extension and the
+    # surface record every segment, the two shadow halves all but the last
+    assert len(records) == (14 if woop else 7)
     for k, record in enumerate(records):
         chip_smoke.hold_record(record, f"record {k} of a flagship batch")
     for q in queries:

@@ -1,5 +1,7 @@
-"""theia_tpu_torch must run without jax: importing it and tracing a small
-flagship batch of each backend in a fresh interpreter leaves jax and theia_tpu unloaded."""
+"""theia_tpu_torch must run without jax: importing every module and
+tracing a small batch of each backend's flagship, the volume flagship,
+the volume photon tracer (run and run_compacted) and the photon flagship
+in a fresh interpreter leaves jax and theia_tpu unloaded."""
 
 import subprocess
 import sys
@@ -15,7 +17,23 @@ import theia_tpu_torch
 import theia_tpu_torch.ops.intersect_woop
 import theia_tpu_torch.ops.intersect_soup
 import theia_tpu_torch.polarization
-from torch_flagship import build_flagship, icosphere
+import theia_tpu_torch.callback, theia_tpu_torch.interop, theia_tpu_torch.light, theia_tpu_torch.lookup
+import theia_tpu_torch.target, theia_tpu_torch.response, theia_tpu_torch.material
+import theia_tpu_torch.trace.volume, theia_tpu_torch.trace.photon
+from torch_flagship import build_flagship, build_photon_flagship, build_volume_flagship, icosphere
+for pol in (False, True):
+    hist, _ = build_volume_flagship(theia_tpu_torch, 64, "cpu", polarized=pol).run()
+    assert hist.shape == (100,)
+P = theia_tpu_torch
+photons = P.trace.VolumePhotonTracer(
+    64, P.light.SphericalLightSource(), P.target.InnerSphereTarget(radius=50.0),
+    P.light.ConstWavelengthSource(450.0), P.response.HistogramHitResponse(nBins=10, binSize=50.0),
+    P.random.PhiloxRNG(key=1), medium=P.material.DispersionFreeMedium(mu_a=0.05, mu_s=0.02).createMedium(),
+    nScatteringPerRun=2, nRuns=2, device="cpu",
+)
+assert photons.run()[0].shape == photons.run_compacted(min_lanes=8).shape == (10,)
+hist, _ = build_photon_flagship(theia_tpu_torch, icosphere(1), 64, "cpu").run()
+assert hist.shape == (50,)
 tracer = build_flagship(theia_tpu_torch, icosphere(1), 64, 2, device="cpu")
 hist, _ = tracer.run()
 assert hist.shape == (100,)

@@ -208,8 +208,9 @@ def test_brute_path_queries(runs):
 def test_unported_configurations_raise():
     """What is still unported raises: the BVH and the instanced traversal,
     named or picked by ``accel="auto"`` for a large scene that instances
-    its meshes, and a tracer without a target guide (polarized tracing and
-    the brute-force scan are ported now). No other backend stands in."""
+    its meshes (polarized tracing, the brute-force scan and the tracer
+    without a target guide are ported now, the last with theia_tpu's
+    unguided draw budget). No other backend stands in."""
     from theia_tpu_torch import material, scene as tscene
     from theia_tpu_torch.mesh import Mesh
 
@@ -228,11 +229,11 @@ def test_unported_configurations_raise():
     assert tscene.Scene(many[:6], mats, device="cpu").accel == "brute"  # 7680 triangles: below the threshold
     assert tscene.Scene(many, mats, accel="brute", device="cpu").pack.soup.n_tri == 8960
     tracer = build_flagship(theia_tpu_torch, mesh, 64, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="target guide"):
-        type(tracer)(
-            64, tracer.source, tracer.wavelengthSource, tracer.response,
-            tracer.rng, tracer.scene, polarized=True, device="cpu",
-        )
+    unguided = type(tracer)(
+        64, tracer.source, tracer.wavelengthSource, tracer.response,
+        tracer.rng, tracer.scene, maxPathLength=2, polarized=True, device="cpu",
+    )
+    assert unguided.maxHitsPerThread == 2 and unguided.nRNGSamples == 3 + 1 + 4 * 2
 
 
 def test_entry_points_default_to_the_card():

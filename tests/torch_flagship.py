@@ -8,6 +8,11 @@ two BK7 shells around a spherical source plus one detector sphere, in
 water with Henyey-Greenstein g = 0.9, ``SphereTargetGuide`` MIS, a 100-bin
 ``HistogramHitResponse`` and ``PhiloxRNG(key=42)``. The sphere mesh is an
 icosphere built in code, so no mesh file is needed.
+:func:`build_volume_flagship` is ``examples/01_volume_tracing.py``'s
+volume tracer, :func:`build_volume_photon` a volume photon tracer of
+``tests/test_trace_photon.py`` and :func:`build_photon_flagship` the
+photon tracer of ``__graft_entry__._dryrun_photon_compacted`` on the
+flagship's scene.
 :func:`adversarial_rays` makes rays on the boundaries of the nearest-hit
 tests from a soup's triangles.
 """
@@ -57,7 +62,7 @@ def icosphere(subdivisions: int = 3) -> tuple[np.ndarray, np.ndarray]:
 
 def build_flagship(
     pkg, mesh, batch: int, max_path: int, accel: str = "mt", device=None, *,
-    polarized: bool = False, source_position=(3.0, 0.0, 0.0),
+    polarized: bool = False, source_position=(3.0, 0.0, 0.0), guided: bool = True, response=None,
 ):
     """The flagship tracer of package ``pkg`` (``theia_tpu`` or
     ``theia_tpu_torch``) on the sphere ``mesh`` = (positions, faces).
@@ -66,26 +71,17 @@ def build_flagship(
     ``_build_scene_tracer`` does. ``source_position`` moves the light
     source alone; the glass shells stay centred at (3, 0, 0). Off centre,
     direct rays meet the shells at oblique incidence, where the Fresnel
-    polarizers are not the identity."""
+    polarizers are not the identity. ``guided=False`` drops the
+    ``SphereTargetGuide`` (the unguided tracer); ``response`` replaces the
+    histogram."""
     mod = lambda name: importlib.import_module(f"{pkg.__name__}.{name}")
     u = mod("units")
     light, material, rnd = mod("light"), mod("material"), mod("random")
-    response, scene_mod, target = mod("response"), mod("scene"), mod("target")
+    scene_mod, target = mod("scene"), mod("target")
     tracers = mod("trace.scene")
     dev = {} if device is None else {"device": device}
 
-    class WaterModel(
-        material.WaterBaseModel,
-        material.HenyeyGreensteinPhaseFunction,
-        material.MediumModel,
-    ):
-        ModelName = "water"
-
-        def __init__(self):
-            material.WaterBaseModel.__init__(self, 10.0, 0.0, 35.0)
-            material.HenyeyGreensteinPhaseFunction.__init__(self, 0.9)
-
-    water = WaterModel().createMedium(num_lambda=256, num_theta=256)
+    water = water_medium(material, num_lambda=256, num_theta=256)
     glass = material.BK7Model().createMedium(num_lambda=256, num_theta=4)
     Material = material.Material
     mats = material.MaterialStore.pack(
@@ -115,15 +111,126 @@ def build_flagship(
             position=tuple(source_position), timeRange=(0.0, 10.0), budget=1e5
         ),
         light.UniformWavelengthSource(lambdaRange=(300.0, 700.0)),
-        response.HistogramHitResponse(nBins=100, t0=0.0, binSize=5.0 * u.ns),
+        response or mod("response").HistogramHitResponse(nBins=100, t0=0.0, binSize=5.0 * u.ns),
         rnd.PhiloxRNG(key=42),
         scene,
         maxPathLength=max_path,
         sourceMedium="vacuum",  # the source sits inside the air-filled shell
         scatterCoefficient=0.05,
         targetId=1,
-        targetGuide=target.SphereTargetGuide(position=det_pos, radius=0.6),
+        targetGuide=target.SphereTargetGuide(position=det_pos, radius=0.6) if guided else None,
         polarized=polarized,
+        **dev,
+    )
+
+
+def water_medium(material, **sizes):
+    """The flagship's water (10 degC, 35 PSU, HG g = 0.9) from ``material``,
+    ``theia_tpu.material`` or ``theia_tpu_torch.material``."""
+
+    class WaterModel(
+        material.WaterBaseModel,
+        material.HenyeyGreensteinPhaseFunction,
+        material.MediumModel,
+    ):
+        ModelName = "water"
+
+        def __init__(self):
+            material.WaterBaseModel.__init__(self, 10.0, 0.0, 35.0)
+            material.HenyeyGreensteinPhaseFunction.__init__(self, 0.9)
+
+    return WaterModel().createMedium(**sizes)
+
+
+def build_volume_flagship(pkg, batch: int, device=None, **kw):
+    """``examples/01_volume_tracing.py``'s ``VolumeForwardTracer`` (golden
+    c2's configuration without its ``refCompatRNG``): water at 10 degC and
+    35 PSU with Henyey-Greenstein g = 0.9 at the model's default table
+    sizes, a spherical source at (-1, -7, 0) m with budget 1e9, a 5 m
+    ``SphereTarget`` at the origin, 400-500 nm, 100 bins of 5 ns,
+    ``PhiloxRNG(key=0xC0FFEE)``, 10 scatterings, 500 ns. ``kw`` goes to
+    the tracer (``polarized``, the flags, ``medium`` or ``response`` to
+    replace the water or the histogram)."""
+    mod = lambda name: importlib.import_module(f"{pkg.__name__}.{name}")
+    light, rnd, response, target = mod("light"), mod("random"), mod("response"), mod("target")
+    dev = {} if device is None else {"device": device}
+    kw.setdefault("medium", water_medium(mod("material")))
+    resp = kw.pop("response", None) or response.HistogramHitResponse(nBins=100, binSize=5.0, t0=0.0)
+    return mod("trace.volume").VolumeForwardTracer(
+        batch,
+        light.SphericalLightSource(position=(-1.0, -7.0, 0.0), timeRange=(0.0, 0.0), budget=1e9),
+        target.SphereTarget(position=(0.0, 0.0, 0.0), radius=5.0),
+        light.UniformWavelengthSource(lambdaRange=(400.0, 500.0)),
+        resp,
+        rnd.PhiloxRNG(key=0xC0FFEE),
+        nScattering=10,
+        maxTime=500.0,
+        **kw,
+        **dev,
+    )
+
+
+def build_volume_photon(pkg, batch: int, device=None, **kw):
+    """``tests/test_trace_photon.py``'s ``VolumePhotonTracer`` of
+    ``test_run_compacted_matches_run``: a strongly absorbing medium
+    (mu_a 0.05, mu_s 0.02 /m, HG g = 0.3) around a source inside a 60 m
+    ``InnerSphereTarget``, 4 scatterings a run, 6 runs, a 40-bin
+    histogram of 25 ns. ``kw`` goes to the tracer (the response as
+    ``response=``)."""
+    mod = lambda name: importlib.import_module(f"{pkg.__name__}.{name}")
+    mat, light, response = mod("material"), mod("light"), mod("response")
+
+    class Model(mat.DispersionFreeMedium, mat.HenyeyGreensteinPhaseFunction, mat.MediumModel):
+        ModelName = "homogenous"
+
+        def __init__(self):
+            mat.DispersionFreeMedium.__init__(self, n=1.33, ng=1.33, mu_a=0.05, mu_s=0.02)
+            mat.HenyeyGreensteinPhaseFunction.__init__(self, 0.3)
+
+    dev = {} if device is None else {"device": device}
+    resp = kw.pop("response", None) or response.HistogramHitResponse(nBins=40, t0=0.0, binSize=25.0)
+    return mod("trace.photon").VolumePhotonTracer(
+        batch,
+        light.SphericalLightSource(position=(0.0, 0.0, 0.0), timeRange=(0.0, 0.0), budget=1.0),
+        mod("target").InnerSphereTarget(position=(0.0, 0.0, 0.0), radius=60.0),
+        light.UniformWavelengthSource(lambdaRange=(450.0, 450.0)),
+        resp,
+        mod("random").PhiloxRNG(key=0xFADE),
+        medium=Model().createMedium(),
+        nScatteringPerRun=4,
+        nRuns=6,
+        maxTime=float("inf"),
+        **kw,
+        **dev,
+    )
+
+
+def build_photon_flagship(pkg, mesh, batch: int, device=None, **kw):
+    """``ScenePhotonTracer`` on the flagship's scene with no ``accel``
+    named (the brute-force default), with
+    ``__graft_entry__._dryrun_photon_compacted``'s settings: the source at
+    (3, 0, 0) over 0-10 ns with budget 1e5, 300-700 nm, 50 bins of 10 ns,
+    ``PhiloxRNG(key=7)``, 2 scatterings a run, 3 runs, the source in
+    vacuum, scatter coefficient 0.05, target id 1. ``kw`` goes to the
+    tracer (the response as ``response=``)."""
+    mod = lambda name: importlib.import_module(f"{pkg.__name__}.{name}")
+    light, rnd, response = mod("light"), mod("random"), mod("response")
+    dev = {} if device is None else {"device": device}
+    scene = build_flagship(pkg, mesh, 1, 2, accel="auto", device=device).scene
+    resp = kw.pop("response", None) or response.HistogramHitResponse(nBins=50, t0=0.0, binSize=10.0)
+    return mod("trace.photon").ScenePhotonTracer(
+        batch,
+        light.SphericalLightSource(position=(3.0, 0.0, 0.0), timeRange=(0.0, 10.0), budget=1e5),
+        light.UniformWavelengthSource(lambdaRange=(300.0, 700.0)),
+        resp,
+        rnd.PhiloxRNG(key=7),
+        scene,
+        nScatteringPerRun=2,
+        nRuns=3,
+        sourceMedium="vacuum",
+        scatterCoefficient=0.05,
+        targetId=1,
+        **kw,
         **dev,
     )
 
@@ -181,6 +288,8 @@ def numpy_tree(x):
     """Flatten a ``theia_tpu`` params pytree into nested dicts of numpy
     arrays keyed by field name, keeping static fields as Python values
     (the input of ``theia_tpu_torch.interop.params_from_numpy``)."""
+    if x is None:  # a vacuum medium
+        return None
     if isinstance(x, dict):
         return {k: numpy_tree(v) for k, v in x.items()}
     if dataclasses.is_dataclass(x):

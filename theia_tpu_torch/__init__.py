@@ -9,10 +9,11 @@ kernels for Hopper in ``csrc/``, built with nvcc at first use. On CPU
 tensors every kernel's plain PyTorch version runs instead. This package
 never imports jax or theia_tpu.
 
-Ported so far: the flagship scene forward tracer, unpolarized and
+Ported so far: the scene forward tracer, guided or not, unpolarized and
 polarized, with its medium gradient, on the default brute-force scene
-(``accel="auto"``) and with ``accel="mt"`` or ``accel="woop"`` (see
-ROADMAP.md for what comes next).
+(``accel="auto"``) and with ``accel="mt"`` or ``accel="woop"``; the
+volume forward tracer and the two photon tracers on analytic targets and
+scenes (see ROADMAP.md for what comes next).
 """
 
 from . import units

@@ -7,7 +7,12 @@ mapping of numpy arrays keyed by the JAX field names — for example
 ``response.t0`` — with the static fields (``scene.media.names``,
 ``scene.media.const4_ok``, ``scene.mt.n_tri``, ``scene.woop.n_tri``,
 ``scene.cull.spans``, ``scene.cull.is_det``) as plain Python values, and
-returns the port tracer's params on ``device``.
+returns the port tracer's params on ``device``. A volume or photon
+tracer's ``medium`` comes as the mapping of a ``theia_tpu`` ``Medium``'s
+fields (its tables, ``lambda_min``, ``lambda_max`` and ``name``; None for
+vacuum) and becomes a :class:`~theia_tpu_torch.material.Medium` of
+tensors; every other stage (``tracer``, ``photons``, ``lightSource``,
+``target``, ``response``, ``callback``, ``guide``) maps to tensors.
 The Woop pack's chunk-skip boxes come from the world triangles of
 ``tri_data``, which are in the same Morton order. A pack with ``bvh`` or
 ``instanced`` tables raises ``NotImplementedError``: those traversals are
@@ -25,7 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .material import MediumStore
+from .material import Medium, MediumStore
 from .ops.intersect_mt import MTPack, chunk_boxes, sub_boxes
 from .ops.intersect_woop import WoopPack
 from .ops.intersect_soup import SoupTable
@@ -112,9 +117,16 @@ def _scene_pack(s, device) -> ScenePack:
     )
 
 
+def _medium(m, device) -> Medium | None:
+    if m is None:
+        return None
+    fields = {k: v for k, v in m.items() if k != "name"}
+    return Medium(**_tensors(fields, device), name=m.get("name", "unnamed"))
+
+
 def params_from_numpy(tree, device) -> dict:
     """The port's tracer params from a JAX tracer's params as numpy."""
+    convert = {"scene": _scene_pack, "medium": _medium}
     return {
-        stage: _scene_pack(sub, device) if stage == "scene" else _tensors(sub, device)
-        for stage, sub in tree.items()
+        stage: convert.get(stage, _tensors)(sub, device) for stage, sub in tree.items()
     }

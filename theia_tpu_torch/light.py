@@ -14,6 +14,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from . import units as u
 from .component import Component
 from .material import MediumConstants
 from .ops.sampling import sample_unit_sphere
@@ -22,9 +23,11 @@ from .random import RNGState
 __all__ = [
     "SourceRay",
     "WavelengthSource",
+    "ConstWavelengthSource",
     "UniformWavelengthSource",
     "LightSource",
     "SphericalLightSource",
+    "PencilLightSource",
 ]
 
 
@@ -50,6 +53,21 @@ class WavelengthSource(Component):
     def sample(self, params, rng: RNGState) -> tuple[tuple, RNGState]:
         """Returns ((wavelength, contrib), advanced rng)."""
         raise NotImplementedError
+
+
+class ConstWavelengthSource(WavelengthSource):
+    """Monochromatic source (reference: src/theia/light.py:258-283)."""
+
+    name = "Const Wavelength Source"
+    nRNGSamples = 0
+    _param_names = ("wavelength",)
+
+    def __init__(self, wavelength: float = 600.0 * u.nm) -> None:
+        self.wavelength = wavelength
+
+    def sample(self, params, rng: RNGState):
+        lam = torch.broadcast_to(params["wavelength"], rng.stream.shape)
+        return (lam, torch.ones_like(lam)), rng
 
 
 class UniformWavelengthSource(WavelengthSource):
@@ -142,3 +160,47 @@ class SphericalLightSource(LightSource):
         pos = torch.broadcast_to(params["position"], direction.shape)
         contrib = torch.broadcast_to(params["_contribFwd"], start.shape)
         return SourceRay(pos, direction, start, contrib), rng
+
+
+class PencilLightSource(LightSource):
+    """Delta beam, forward only (reference: src/theia/light.py:1024-1102,
+    shader/lightsource.pencil.glsl). ``stokes``/``polarizationRef``: an
+    optional constant polarization state."""
+
+    name = "Pencil Light Source"
+    supportForward = True
+    nRNGForward = 1
+    _param_names = ("position", "direction", "budget", "timeRange")
+    _extra_names = ("stokes", "polarizationRef")
+
+    def __init__(
+        self,
+        *,
+        position=(0.0, 0.0, 0.0),
+        direction=(0.0, 0.0, 1.0),
+        timeRange=(0.0, 100.0),
+        budget: float = 1.0,
+        stokes=None,
+        polarizationRef=None,
+    ) -> None:
+        self.position = position
+        self.direction = direction
+        self.timeRange = timeRange
+        self.budget = budget
+        self.stokes = stokes
+        self.polarizationRef = polarizationRef
+
+    def sample_forward(self, params, wavelength, constants, rng: RNGState):
+        uu, rng = rng.uniform()
+        t0, t1 = params["timeRange"][0], params["timeRange"][1]
+        start = t0 * (1.0 - uu) + t1 * uu
+        pos = torch.broadcast_to(params["position"], (*start.shape, 3))
+        direction = torch.broadcast_to(params["direction"], pos.shape)
+        contrib = torch.broadcast_to(params["budget"], start.shape)
+        stokes = pol_ref = None
+        if self.stokes is not None:
+            const = lambda v, n: torch.broadcast_to(
+                torch.tensor(v, dtype=torch.float32, device=start.device), (*start.shape, n)
+            )
+            stokes, pol_ref = const(self.stokes, 4), const(self.polarizationRef, 3)
+        return SourceRay(pos, direction, start, contrib, stokes, pol_ref), rng

@@ -1,9 +1,12 @@
-"""Host-side table building (numpy/scipy).
+"""Lookup tables: the device read and the host-side builders.
 
 Tables hold values at equidistant sample points over the normalized
-coordinate range [0, 1]; the device reads them through
-:func:`theia_tpu_torch.material.lookup_packed`. Same builders as
-``theia_tpu.lookup`` (reference: src/theia/lookup.py:147-277).
+coordinate range [0, 1]. :func:`lookup` interpolates one table per call
+on the device (a single medium's tables, ``theia_tpu.lookup.lookup``);
+a scene's packed tables are read through
+:func:`theia_tpu_torch.material.lookup_packed`. The builders are
+``theia_tpu.lookup``'s (reference: src/theia/shader/lookup.glsl:4-32,
+src/theia/lookup.py:147-277).
 """
 
 from __future__ import annotations
@@ -11,9 +14,28 @@ from __future__ import annotations
 from typing import Literal
 
 import numpy as np
+import torch
 from scipy.interpolate import CubicSpline
 
-__all__ = ["sample_table1d", "eval_table"]
+__all__ = ["lookup", "sample_table1d", "eval_table"]
+
+
+def lookup(table, u: torch.Tensor, null_value=0.0) -> torch.Tensor:
+    """Linearly interpolate ``table`` (``n`` equidistant samples over
+    [0, 1]; a tensor on ``u``'s device, differentiable in its values, or
+    a host array, which is copied there) at the normalized
+    coordinates ``u``, clamped to [0, 1]. ``None`` returns ``null_value``
+    (the reference's null-pointer convention). The same ops in the same
+    order as ``theia_tpu.lookup.lookup``: ``v_lo * (1 - l) + v_hi * l``."""
+    if table is None:
+        return torch.full_like(u, null_value)
+    table = torch.as_tensor(table, dtype=torch.float32, device=u.device)
+    x = torch.clamp(u, 0.0, 1.0) * float(table.shape[-1] - 1)
+    fl = torch.floor(x)
+    l = x - fl
+    v_lo = table[fl.to(torch.int64)]
+    v_hi = table[torch.ceil(x).to(torch.int64)]
+    return v_lo * (1.0 - l) + v_hi * l
 
 
 def _parse_boundary(data: np.ndarray, boundary, n: int) -> np.ndarray:

@@ -24,11 +24,14 @@ import torch
 
 from . import units as u
 from .component import resolve_device
+from .lookup import lookup
 
 __all__ = [
     "speed_of_light",
     "Medium",
     "MediumConstants",
+    "normalize_lambda",
+    "medium_constants",
     "MaterialFlags",
     "parseMaterialFlags",
     "Material",
@@ -40,6 +43,7 @@ __all__ = [
     "SellmeierEquation",
     "BK7Model",
     "HenyeyGreensteinPhaseFunction",
+    "DispersionFreeMedium",
     "WaterBaseModel",
 ]
 
@@ -62,9 +66,11 @@ _TABLE_PROPS = (
 
 @dataclass(frozen=True)
 class Medium:
-    """Optical properties of a medium as host tables over
-    [lambda_min, lambda_max]. ``None`` selects the physical default
-    (n=1, vg=c, mu_a=mu_s=0, isotropic phase function)."""
+    """Optical properties of a medium as tables over [lambda_min,
+    lambda_max]. ``None`` selects the physical default (n=1, vg=c,
+    mu_a=mu_s=0, isotropic phase function). Built on the host with numpy;
+    :meth:`to` gives the same medium with float32 tensors on a device,
+    which is what a single-medium tracer reads (and differentiates)."""
 
     lambda_min: float
     lambda_max: float
@@ -80,6 +86,21 @@ class Medium:
     phase_m34: np.ndarray | None = None
     name: str = "unnamed"
 
+    def to(self, device) -> "Medium":
+        """This medium with the wavelength range and every table as float32
+        tensors on ``device``."""
+        def f32(a):
+            if a is None:
+                return None
+            if not isinstance(a, torch.Tensor):
+                a = np.asarray(a, np.float32)
+            return torch.as_tensor(a, dtype=torch.float32, device=device)
+
+        return Medium(
+            f32(self.lambda_min), f32(self.lambda_max),
+            **{k: f32(getattr(self, k)) for k in _TABLE_PROPS}, name=self.name,
+        )
+
 
 @dataclass(frozen=True)
 class MediumConstants:
@@ -90,6 +111,30 @@ class MediumConstants:
     vg: torch.Tensor
     mu_s: torch.Tensor
     mu_e: torch.Tensor
+
+
+def normalize_lambda(medium: Medium, wavelength: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(
+        (wavelength - medium.lambda_min) / (medium.lambda_max - medium.lambda_min), 0.0, 1.0
+    )
+
+
+def medium_constants(medium: Medium | None, wavelength: torch.Tensor) -> MediumConstants:
+    """The medium's constants at each lane's wavelength; ``None`` means
+    vacuum (the reference's null-pointer medium). ``medium`` holds tensors
+    on the wavelengths' device (:meth:`Medium.to`)."""
+    if medium is None:
+        one, zero = torch.ones_like(wavelength), torch.zeros_like(wavelength)
+        return MediumConstants(n=one, vg=one * speed_of_light, mu_s=zero, mu_e=zero)
+    t = normalize_lambda(medium, wavelength)
+    mu_a = lookup(medium.absorption_coef, t, 0.0)
+    mu_s = lookup(medium.scattering_coef, t, 0.0)
+    return MediumConstants(
+        n=lookup(medium.refractive_index, t, 1.0),
+        vg=lookup(medium.group_velocity, t, speed_of_light),
+        mu_s=mu_s,
+        mu_e=mu_a + mu_s,
+    )
 
 
 #################################### MATERIAL ##################################
@@ -340,7 +385,11 @@ class MaterialStore:
     material_names: tuple[str, ...] = field(default=())
 
     @staticmethod
-    def pack(materials: list[Material], *, device="cuda") -> "MaterialStore":
+    def pack(
+        materials: list[Material], media: list[Medium] | None = None, *, device="cuda"
+    ) -> "MaterialStore":
+        """``media``: further media that no material names as an object,
+        only by name (or that the scene's medium names)."""
         device = resolve_device(device)
         med: dict[str, Medium] = {}
 
@@ -353,6 +402,8 @@ class MaterialStore:
         for mat in materials:
             add(mat.inside)
             add(mat.outside)
+        for m in media or []:
+            add(m)
         store = MediumStore.pack(list(med.values()), device=device)
 
         def handle_of(m) -> int:
@@ -546,6 +597,31 @@ class HenyeyGreensteinPhaseFunction:
         return (1.0 + g**2 - ((1.0 - g**2) / (1 + g - 2.0 * g * eta)) ** 2) / (
             2.0 * g
         )
+
+
+class DispersionFreeMedium(MediumModel):
+    """Constant optical properties regardless of wavelength (debugging)
+    (reference: src/theia/material.py:1517-1593)."""
+
+    ModelName = "dispersion-free"
+
+    def __init__(self, *, n=1.0, ng=1.0, mu_a=0.0, mu_s=0.0) -> None:
+        self.n = n
+        self.ng = ng
+        self.mu_a = mu_a
+        self.mu_s = mu_s
+
+    def refractive_index(self, wavelength):
+        return np.ones_like(wavelength) * self.n
+
+    def group_velocity(self, wavelength):
+        return np.ones_like(wavelength) / self.ng * u.c
+
+    def absorption_coef(self, wavelength):
+        return np.ones_like(wavelength) * self.mu_a
+
+    def scattering_coef(self, wavelength):
+        return np.ones_like(wavelength) * self.mu_s
 
 
 class WaterBaseModel:

@@ -22,6 +22,7 @@ __all__ = [
     "local_frame",
     "perpendicular_to",
     "perpendicular_to2",
+    "intersect_sphere",
     "matvec",
     "moeller_trumbore_rowwise",
 ]
@@ -93,6 +94,25 @@ def perpendicular_to2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     degenerate = length < 1e-5
     safe = c / torch.clamp_min(length, 1e-20)[..., None]
     return torch.where(degenerate[..., None], perpendicular_to(a), safe)
+
+
+def intersect_sphere(center, radius, origin: torch.Tensor, direction: torch.Tensor):
+    """Robust ray/sphere intersection ("Ray Tracing Gems" ch. 7), in the
+    op order of ``theia_tpu.ops.math3d.intersect_sphere``.
+
+    Returns (t_near, t_far), both +inf on miss; t_near <= t_far."""
+    f = origin - center
+    b2 = dot(f, direction)
+    r2 = radius * radius
+    fd = f - b2[..., None] * direction
+    discr = r2 - dot(fd, fd)
+    c = dot(f, f) - r2
+    q = -b2 - sign_bit(b2) * torch.sqrt(torch.clamp_min(discr, 0.0))
+    t1 = c / q
+    t_near = torch.minimum(t1, q)
+    t_far = torch.maximum(t1, q)
+    miss = discr < 0.0
+    return torch.where(miss, torch.inf, t_near), torch.where(miss, torch.inf, t_far)
 
 
 def matvec(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from .lookup import lookup
 from .material import Medium
 from .ops.math3d import cross, dot
 
@@ -82,31 +83,19 @@ def rotate_pol_ref(direction, ref, new_direction):
     return new_ref, c, s
 
 
-def _lookup(table, u: torch.Tensor, null_value: float) -> torch.Tensor:
-    """Linear interpolation of a host table at ``u`` in [0, 1]
-    (``theia_tpu.lookup.lookup``); a null table gives ``null_value``."""
-    if table is None:
-        return torch.full_like(u, null_value)
-    table = torch.as_tensor(table, dtype=torch.float32, device=u.device)
-    x = torch.clamp(u, 0.0, 1.0) * float(table.shape[-1] - 1)
-    l = x - torch.floor(x)
-    v_lo = table[torch.floor(x).to(torch.int64)]
-    v_hi = table[torch.ceil(x).to(torch.int64)]
-    return v_lo * (1.0 - l) + v_hi * l
-
-
 def phase_matrix_elements(medium: Medium | None, cos_theta: torch.Tensor):
     """(m12, m22, m33, m34) at the scattering angle
     (reference: polarization.glsl:88-107). A null *medium* yields the
     identity matrix; a medium with null tables yields the depolarizer
-    (lookUp null default 0), both as in the reference."""
+    (lookUp null default 0), both as in the reference. The medium's tables
+    are tensors on ``cos_theta``'s device (:meth:`Medium.to`)."""
     if medium is None:
         zeros = torch.zeros_like(cos_theta)
         ones = torch.ones_like(cos_theta)
         return zeros, ones, ones, zeros
     t = 0.5 * (cos_theta + 1.0)
     return tuple(
-        _lookup(getattr(medium, f"phase_{m}"), t, 0.0)
+        lookup(getattr(medium, f"phase_{m}"), t, 0.0)
         for m in ("m12", "m22", "m33", "m34")
     )
 

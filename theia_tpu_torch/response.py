@@ -17,6 +17,8 @@ kept lane's bin (the gather kernel of ``csrc/histogram.cu`` on CUDA,
 
 from __future__ import annotations
 
+import warnings
+
 import torch
 
 from . import _build
@@ -29,6 +31,8 @@ __all__ = [
     "UniformValueResponse",
     "HitResponse",
     "HistogramHitResponse",
+    "HitRecorder",
+    "StoreTimeHitResponse",
     "histogram_add",
     "histogram_add_plain",
     "histogram_grad",
@@ -345,3 +349,126 @@ class HistogramHitResponse(HitResponse):
         if self.nDetectors is not None:
             out = out.reshape(self.nDetectors, self.nBins)
         return out
+
+
+class _SlotQueue(HitResponse):
+    """Stores accepted hits in slots of a fixed buffer, record-call-major:
+    a record puts its accepted lanes at ``cursor + cumsum(accept) - 1`` in
+    lane order, as ``theia_tpu``'s queues do (the reference's atomic
+    counter queue, hephaistos.queue), and counts the hits past the
+    capacity as ``overflow``. Each buffer has one row more than the
+    capacity, the drop slot, which takes every rejected or overflowing
+    lane, so a record is an in-place scatter that never waits for the
+    device; :meth:`result` cuts the slot off."""
+
+    def _init_queue(self, device, fields) -> dict:
+        n = self._capacity + 1
+        state = dict(
+            cursor=torch.zeros((), dtype=torch.int64, device=device),
+            overflow=torch.zeros((), dtype=torch.int64, device=device),
+            valid=torch.zeros(n, dtype=torch.bool, device=device),
+        )
+        for name, (width, dtype) in fields.items():
+            state[name] = torch.zeros((n, *width), dtype=dtype, device=device)
+        return state
+
+    def _push(self, state, accept, values) -> dict:
+        cursor = state["cursor"]
+        slot = cursor + torch.cumsum(accept, 0, dtype=torch.int64) - 1
+        slot = torch.where(accept, torch.clamp_max(slot, self._capacity), self._capacity)
+        total = cursor + accept.sum(dtype=torch.int64)
+        new = dict(
+            cursor=torch.clamp_max(total, self._capacity),
+            overflow=state["overflow"] + torch.clamp_min(total - self._capacity, 0),
+        )
+        for name, value in dict(valid=accept, **values).items():
+            new[name] = state[name].index_copy_(0, slot, value.detach().to(state[name].dtype))
+        return new
+
+    def _result(self, state, what: str) -> dict:
+        dropped = int(state["overflow"])
+        if dropped > 0:
+            warnings.warn(
+                f"{type(self).__name__} overflow: {dropped} {what} dropped past the "
+                f"capacity of {self._capacity}; raise maxHitsPerThread"
+            )
+        return {k: v if v.dim() == 0 else v[: self._capacity] for k, v in state.items()}
+
+
+class HitRecorder(_SlotQueue):
+    """Stores raw hits for host retrieval; slots are deterministic
+    (record-call-major) rather than an atomic-counter queue
+    (reference: src/theia/response.py:191-275). The result is a dict of
+    (capacity, ...) tensors plus a ``valid`` mask, ``cursor`` and
+    ``overflow``."""
+
+    name = "Hit Recorder"
+
+    def __init__(self, *, polarized: bool = False) -> None:
+        self.polarized = polarized
+
+    def prepare(self, config: TraceConfig) -> None:
+        super().prepare(config)
+        self._capacity = config.capacity * config.max_hits_per_thread
+
+    def _fields(self) -> dict:
+        f32, i32 = torch.float32, torch.int32
+        fields = dict(
+            position=((3,), f32), direction=((3,), f32), normal=((3,), f32),
+            wavelength=((), f32), time=((), f32), contrib=((), f32), objectId=((), i32),
+        )
+        if self._config.polarized:
+            fields.update(stokes=((4,), f32), polRef=((3,), f32))
+        return fields
+
+    def init(self, device):
+        return self._init_queue(device, self._fields())
+
+    def record(self, params, state, item: HitItem, mask, rng: RNGState):
+        values = dict(
+            position=item.position, direction=item.direction, normal=item.normal,
+            wavelength=item.wavelength, time=item.time, contrib=item.contrib,
+            objectId=item.object_id,
+        )
+        if "stokes" in state:
+            values.update(stokes=item.stokes, polRef=item.pol_ref)
+        return self._push(state, mask, values), rng
+
+    def result(self, params, state):
+        return self._result(state, "hits")
+
+
+class StoreTimeHitResponse(_SlotQueue):
+    """Photon-mode sampler: accepts each hit with probability equal to its
+    response value (one draw a record) and stores its arrival time,
+    turning radiance contributions into discrete photon detections
+    (reference: src/theia/response.py:656-797,
+    shader/response.time.store.glsl)."""
+
+    name = "Store Time Hit Response"
+
+    def __init__(self, value_response: ValueResponse | None = None) -> None:
+        self.value_response = (
+            UniformValueResponse() if value_response is None else value_response
+        )
+        self.nRNGSamples = self.value_response.nRNGSamples + 1
+
+    def params(self, device):
+        return {"value": self.value_response.params(device)}
+
+    def prepare(self, config: TraceConfig) -> None:
+        super().prepare(config)
+        self.value_response.prepare(config)
+        self._capacity = config.capacity * config.max_hits_per_thread
+
+    def init(self, device):
+        return self._init_queue(device, dict(time=((), torch.float32), objectId=((), torch.int32)))
+
+    def record(self, params, state, item: HitItem, mask, rng: RNGState):
+        value, rng = self.value_response.value(params.get("value", {}), item, rng)
+        uu, rng = rng.uniform()
+        accept = mask & (uu < value)
+        return self._push(state, accept, dict(time=item.time, objectId=item.object_id)), rng
+
+    def result(self, params, state):
+        return self._result(state, "detections")

@@ -327,12 +327,15 @@ class Scene:
     ``device``: the card unless the caller names another; without a card
     the default raises, and ``device="cpu"`` runs on the CPU. ``cull`` is
     ``theia_tpu``'s keyword: it decides only whether the pack carries
-    :class:`CullTables`, which no query of the port reads."""
+    :class:`CullTables`, which no query of the port reads.
+
+    ``materials``: a :class:`MaterialStore`, or a dict of materials by
+    name, which is packed on ``device`` (as ``theia_tpu`` packs one)."""
 
     def __init__(
         self,
         instances: list[MeshInstance],
-        materials: MaterialStore,
+        materials: "MaterialStore | dict",
         *,
         medium: str | None = None,
         bbox: RectBBox | None = None,
@@ -340,6 +343,8 @@ class Scene:
         cull: bool = True,
         device="cuda",
     ) -> None:
+        if not isinstance(materials, MaterialStore):
+            materials = MaterialStore.pack(list(materials.values()), device=device)
         if accel not in ("auto", "brute", "bvh", "woop", "mt", "instanced"):
             raise ValueError(
                 "accel must be 'auto', 'brute', 'bvh', 'woop', 'mt' or 'instanced'"

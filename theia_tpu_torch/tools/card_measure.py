@@ -67,10 +67,11 @@ numbers behind the size at which ``theia_histogram_add`` changes variant.
 
 ``profile`` traces one batch of the ``mt`` flagship, one of the
 brute-force flagship (``accel="auto"``) and one of the polarized ``woop``
-flagship (262,144 lanes, path length 10) with ``torch.profiler``, and one
-gradient step of the latter, and prints device-busy time, kernel count,
-the largest items and the hand-written kernels' device time (the scans,
-Philox, the histogram).
+flagship (262,144 lanes, path length 10) with ``torch.profiler``, one
+gradient step of the latter, one batch of the volume flagship and one of
+the photon flagship by ``run()`` and by ``run_compacted()``, and prints
+device-busy time, kernel count, the largest items and the hand-written
+kernels' device time (the scans, Philox, the histogram).
 
 Every mode prints the card's name and power limit first and writes its
 numbers to ``card_measure_<mode>.json`` (``card_measure_baseline_aos.json``
@@ -95,7 +96,7 @@ sys.path.insert(0, str(ROOT / "tests"))
 import chip_smoke  # noqa: E402
 import theia_tpu_torch  # noqa: E402
 from theia_tpu_torch import _build  # noqa: E402
-from torch_flagship import build_flagship, icosphere  # noqa: E402
+from torch_flagship import build_flagship, build_photon_flagship, build_volume_flagship, icosphere  # noqa: E402
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: the entry points of the first kernels (tiled tables, MT with its tile width)
@@ -631,29 +632,12 @@ def baseline(csrc: Path, tiled: bool) -> dict:
 
 def _profiled(label: str, step, plain_seconds: float) -> dict:
     """Trace one call of ``step`` and print where its device time went."""
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
-
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    by_name: dict[str, list[float]] = {}
-    for e in events:
-        by_name.setdefault(e.name, []).append(e.device_time if hasattr(e, "device_time") else e.cuda_time)
-    busy_ms = sum(map(sum, by_name.values())) / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:12]
-    histogram = {name: times for name, times in by_name.items()
-                 if any(own in name for own in ("histogram", "theia::scan", "philox"))}
-    print(f"{label}: {plain_seconds:.4f} s unprofiled, device busy {busy_ms:.2f} ms, "
-          f"{len(events)} kernels and copies")
-    for name, times in top + sorted(histogram.items()):
-        print(f"    {sum(times) / 1e3:9.3f} ms  {len(times):6d} x  {name[:100]}")
-    item = lambda n, t: dict(name=n, ms=sum(t) / 1e3, count=len(t))
-    return dict(
-        unprofiled_seconds=plain_seconds, device_busy_ms=busy_ms, kernels=len(events),
-        top=[item(n, t) for n, t in top], histogram=[item(n, t) for n, t in sorted(histogram.items())],
-    )
+    prof = chip_smoke.profile_step(step)
+    print(f"{label}: {plain_seconds:.4f} s unprofiled, device busy {prof['device_busy_ms']:.2f} ms, "
+          f"{prof['kernels']} kernels and copies")
+    for entry in prof["top"] + prof["own"]:
+        print(f"    {entry['ms']:9.3f} ms  {entry['count']:6d} x  {entry['name'][:100]}")
+    return dict(unprofiled_seconds=plain_seconds, **prof)
 
 
 def _seconds(step) -> float:
@@ -680,6 +664,13 @@ def profile() -> dict:
             out[f"{label} gradient"] = _profiled(f"{label}, one gradient step", step, _seconds(step))
         del tracer
         torch.cuda.empty_cache()
+    volume = build_volume_flagship(theia_tpu_torch, chip_smoke.BATCH, "cuda")
+    photon = build_photon_flagship(theia_tpu_torch, mesh, chip_smoke.BATCH, "cuda")
+    compacted = lambda: photon.run_compacted(min_lanes=chip_smoke.PHOTON_MIN_LANES)
+    for label, step in (("volume", volume.run), ("photon run", photon.run), ("photon run_compacted", compacted)):
+        for _ in range(2):
+            step()
+        out[label] = _profiled(f"{label}, one batch", step, _seconds(step))
     return out
 
 

@@ -1,14 +1,29 @@
-"""Tracers of the PyTorch port (so far: the scene forward tracer)."""
+"""Tracers of the PyTorch port: the scene forward tracer, the volume
+forward tracer and the two photon tracers."""
 
 from .core import EventResultCode, TracerBase
 
-__all__ = ["EventResultCode", "TracerBase", "SceneForwardTracer"]
+__all__ = [
+    "EventResultCode",
+    "TracerBase",
+    "SceneForwardTracer",
+    "VolumeForwardTracer",
+    "VolumePhotonTracer",
+    "ScenePhotonTracer",
+]
+
+_LAZY = {
+    "SceneForwardTracer": "scene",
+    "VolumeForwardTracer": "volume",
+    "VolumePhotonTracer": "photon",
+    "ScenePhotonTracer": "photon",
+}
 
 
 def __getattr__(name: str):
-    # lazy: trace.scene imports accel, which imports trace.core
-    if name == "SceneForwardTracer":
-        from .scene import SceneForwardTracer
+    # lazy: trace.scene imports accel, and callback imports trace.core
+    if name in _LAZY:
+        import importlib
 
-        return SceneForwardTracer
+        return getattr(importlib.import_module(f".{_LAZY[name]}", __name__), name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

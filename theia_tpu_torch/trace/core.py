@@ -16,8 +16,10 @@ from enum import IntEnum
 import torch
 
 from ..component import Component
-from ..material import MediumConstants
+from ..lookup import lookup
+from ..material import Medium, MediumConstants
 from ..ops.math3d import dot, matvec, normalize, perpendicular_to2
+from ..ops.sampling import INV_4PI, TWO_PI, scatter_dir
 from ..polarization import apply_rotation, rotation_coeffs
 
 __all__ = [
@@ -30,7 +32,15 @@ __all__ = [
     "update_ray",
     "update_ray_is",
     "propagate_ray",
+    "propagate_ray_to_hit",
     "reattach_geometry",
+    "merge_dim",
+    "select_ray",
+    "sample_scatter_dir_medium",
+    "scatter_prob",
+    "scatter_ray",
+    "scatter_ray_is",
+    "scatter_ray_sampled",
     "create_hit",
     "HitItem",
 ]
@@ -269,6 +279,99 @@ def reattach_geometry(
         time=ray.time + dt / ray.constants.vg,
         log_contrib=ray.log_contrib - ray.constants.mu_e * dt,
     )
+
+
+def propagate_ray_to_hit(
+    ray: RayState, hit_pos: torch.Tensor, params: PropagateParams
+) -> tuple[RayState, torch.Tensor]:
+    """Propagate to a known hit position (reference:
+    ray.propagate.glsl:245-258). The distance to a known hit is
+    geometric, so its gradient is re-attached."""
+    delta = hit_pos - ray.position
+    dist = torch.sqrt(dot(delta, delta))
+    new, code = update_ray(replace(ray, position=hit_pos), dist, params)
+    return reattach_geometry(new, dist), code
+
+
+def merge_dim(after, before, take_after: torch.Tensor):
+    """``before`` (an ``RNGState``) with the dims of ``after`` on the lanes
+    of ``take_after``: a lane's dim advances only where the reference's
+    control flow would have drawn, though the wavefront drew everywhere."""
+    return replace(before, dim=torch.where(take_after, after.dim, before.dim))
+
+
+def select_ray(mask: torch.Tensor, a: RayState, b: RayState) -> RayState:
+    """Per lane, ``a`` where ``mask`` else ``b``, every field."""
+    pick = lambda x, y: torch.where(mask.reshape(mask.shape + (1,) * (x.dim() - mask.dim())), x, y)
+    return RayState(
+        position=pick(a.position, b.position),
+        direction=pick(a.direction, b.direction),
+        wavelength=pick(a.wavelength, b.wavelength),
+        time=pick(a.time, b.time),
+        lin_contrib=pick(a.lin_contrib, b.lin_contrib),
+        log_contrib=pick(a.log_contrib, b.log_contrib),
+        constants=MediumConstants(
+            *(pick(getattr(a.constants, f), getattr(b.constants, f)) for f in ("n", "vg", "mu_s", "mu_e"))
+        ),
+    )
+
+
+# ------------------------------ volume scattering ---------------------------
+
+
+def sample_scatter_dir_medium(medium: Medium | None, in_dir, wavelength, u1, u2):
+    """Importance sample the phase function; returns (cos_theta, phi, pdf).
+    With no sampling table: uniform sphere (reference:
+    scatter.volume.glsl:30-47). ``medium`` holds tensors (:meth:`Medium.to`)."""
+    phi = TWO_PI * u1
+    if medium is not None and medium.phase_sampling is not None:
+        cos_theta = torch.clamp(lookup(medium.phase_sampling, u2), -1.0, 1.0)
+        pdf = torch.exp(lookup(medium.log_phase_function, 0.5 * (cos_theta + 1.0)))
+    else:
+        cos_theta = 2.0 * u2 - 1.0
+        pdf = torch.full_like(cos_theta, INV_4PI)
+    return cos_theta, phi, pdf
+
+
+def scatter_prob(medium: Medium | None, in_dir, out_dir) -> torch.Tensor:
+    """Phase-function value for the given direction pair
+    (reference: scatter.volume.glsl:56-68)."""
+    if medium is None or medium.log_phase_function is None:
+        return torch.full(in_dir.shape[:-1], INV_4PI, dtype=torch.float32, device=in_dir.device)
+    cos_theta = dot(in_dir, out_dir)
+    return torch.exp(lookup(medium.log_phase_function, 0.5 * (cos_theta + 1.0)))
+
+
+def scatter_ray_is(ray: RayState, new_dir: torch.Tensor) -> RayState:
+    """Scatter into an importance-sampled direction: only the scattering
+    coefficient is applied, the phase function cancels against its pdf
+    (reference: ray.scatter.glsl:13-18)."""
+    return replace(ray, direction=new_dir, lin_contrib=ray.lin_contrib * ray.constants.mu_s)
+
+
+def scatter_ray(ray: RayState, medium: Medium | None, new_dir: torch.Tensor) -> RayState:
+    """Scatter into an arbitrary direction: phase function and mu_s
+    (reference: ray.scatter.glsl:24-30)."""
+    phase = scatter_prob(medium, ray.direction, new_dir)
+    return replace(
+        ray, direction=new_dir, lin_contrib=ray.lin_contrib * ray.constants.mu_s * phase
+    )
+
+
+def scatter_ray_sampled(ray: RayState, medium: Medium | None, u1, u2) -> RayState:
+    """Importance-sampled scatter (reference: ray.scatter.glsl:36-44). The
+    phase/pdf ratio is 1 in value but carries the phase function's
+    gradient with respect to the medium (the sampled angle is detached)."""
+    cos_theta, phi, _ = sample_scatter_dir_medium(medium, ray.direction, ray.wavelength, u1, u2)
+    cos_theta = cos_theta.detach()
+    ray = scatter_ray_is(ray, scatter_dir(ray.direction, cos_theta, phi).detach())
+    if medium is not None and medium.log_phase_function is not None:
+        log_p = lookup(medium.log_phase_function, 0.5 * (cos_theta + 1.0))
+        ray = replace(ray, log_contrib=ray.log_contrib + log_p - log_p.detach())
+    return ray
+
+
+# ------------------------------ hits ----------------------------------------
 
 
 @dataclass(frozen=True)

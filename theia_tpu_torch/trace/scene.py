@@ -1,28 +1,31 @@
 """Scene forward tracer: full geometry with Fresnel media boundaries.
 
 The port of ``theia_tpu.trace.scene.SceneForwardTracer``, unpolarized or
-polarized (a Stokes vector and its reference frame ride with each ray).
-Per segment: exponential distance sampling, the target-guide free-shadow-
-ray extension, scene intersection with media-mismatch checks, surface
-interaction (Fresnel reflect/transmit/volume-border/black-body by
-material flags) or volume scatter with guide MIS (reference:
-src/theia/trace.py:1048-1336, shader/tracer.scene.forward.glsl,
-shader/scene.traverse.glsl).
+polarized (a Stokes vector and its reference frame ride with each ray),
+guided by a target guide or not. Per segment: exponential distance
+sampling, the target-guide free-shadow-ray extension, scene intersection
+with media-mismatch checks, surface interaction (Fresnel reflect/
+transmit/volume-border/black-body by material flags) or volume scatter
+with guide MIS (reference: src/theia/trace.py:1048-1336,
+shader/tracer.scene.forward.glsl, shader/scene.traverse.glsl).
 
-The responses are fused as in the JAX package's default: the free-
-extension shadow response rides on the main surface record, and the two
-MIS shadow rays go through one 2N-lane intersection and one record. The
-JAX package fuses only unpolarized runs; the port fuses polarized runs
-too, carrying each lane's Stokes vector through the fused records, which
-adds the same hits in another order (float32 rounding apart, the same
-histogram). The final segment is peeled: it never scatters, so it skips
-the MIS shadow and scatter blocks. The whole batch runs eagerly; the
-nearest-hit query, the Philox draws and the histogram record (and its
-backward) are hand-written CUDA kernels on a CUDA device.
+The responses fuse exactly where ``theia_tpu`` fuses them by default:
+with a guide, a response that draws no random numbers and no
+polarization, the free-extension shadow response rides on the main
+surface record and the two MIS shadow rays go through one record.
+Otherwise every record is its own call in the reference's order, so a
+response that draws (``StoreTimeHitResponse``) draws in ``theia_tpu``'s
+order. Either way the two MIS shadow rays share one 2N-lane query. The
+final segment is peeled: it never scatters, so it skips the MIS shadow
+and scatter blocks. ``ScenePhotonTracer`` (``trace.photon``) runs this
+tracer in photon mode (``_photon_mode``). The whole batch runs eagerly;
+the intersection queries, the Philox draws and the histogram record
+(and its backward) are hand-written CUDA kernels on a CUDA device.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import replace
 
 import numpy as np
@@ -31,7 +34,7 @@ import torch
 from .. import units as u
 from ..accel import SurfaceHit, intersect_scene, intersect_target, offset_ray
 from ..callback import EmptyEventCallback, TraceEventCallback
-from ..component import TraceConfig, resolve_device
+from ..component import Component, TraceConfig, resolve_device
 from ..light import LightSource, WavelengthSource
 from ..material import MaterialFlags, MediumConstants, lookup_packed, packed_medium_constants
 from ..ops.math3d import dot, local_frame, normalize
@@ -44,7 +47,7 @@ from ..polarization import (
     rotate_pol_ref,
     unpolarized_stokes,
 )
-from ..random import PhiloxRNG, RNGState
+from ..random import PhiloxRNG
 from ..scene import Scene, ScenePack
 from ..target import TargetGuide
 from .core import (
@@ -55,9 +58,11 @@ from .core import (
     TracerBase,
     active_lanes,
     create_hit,
+    merge_dim,
     propagate_ray,
     reattach_geometry,
     sample_scatter_length,
+    select_ray,
     update_ray,
     update_ray_is,
 )
@@ -105,19 +110,10 @@ def _where_pol(mask, a, b):
     return tuple(torch.where(mask[..., None], x, y) for x, y in zip(a, b))
 
 
-def _merge_dim(after: RNGState, before: RNGState, take_after) -> RNGState:
-    return replace(before, dim=torch.where(take_after, after.dim, before.dim))
-
-
-def _where_ray(mask: torch.Tensor, a: RayState, b: RayState) -> RayState:
-    """Per-lane select of two ray states' position/time/contributions."""
-    return replace(
-        b,
-        position=torch.where(mask[..., None], a.position, b.position),
-        time=torch.where(mask, a.time, b.time),
-        lin_contrib=torch.where(mask, a.lin_contrib, b.lin_contrib),
-        log_contrib=torch.where(mask, a.log_contrib, b.log_contrib),
-    )
+def _split_hit(hit: SurfaceHit, n: int) -> tuple[SurfaceHit, SurfaceHit]:
+    """The two halves of a 2N-lane hit."""
+    fields = [f.name for f in dataclasses.fields(hit)]
+    return tuple(SurfaceHit(**{f: getattr(hit, f)[sl] for f in fields}) for sl in (slice(None, n), slice(n, None)))
 
 
 def _cat_constants(c: MediumConstants) -> MediumConstants:
@@ -149,6 +145,14 @@ class SceneForwardTracer(TracerBase):
 
     name = "Scene Forward Tracer"
     _param_names = ("targetId", "scatterCoefficient", "maxTime")
+    # direction hooks (theia_tpu's SceneBackwardTargetTracer flips these)
+    _target_bit = _DETECTOR
+    _no_r_bit = _NO_R_FWD
+    _no_t_bit = _NO_T_FWD
+    _transmit_eta2 = False  # backward radiance transport takes eta^2
+    #: photon mode (ScenePhotonTracer): contributions start at 1 and each
+    #: segment ends in Russian-roulette absorption
+    _photon_mode = False
 
     def __init__(
         self,
@@ -168,18 +172,15 @@ class SceneForwardTracer(TracerBase):
         sourceMedium: str | None = None,
         maxTime: float = 1000.0 * u.ns,
         polarized: bool = False,
+        disableDirectLighting: bool = False,
+        disableTransmission: bool = False,
+        disableVolumeBorder: bool = False,
+        useRefractedHitDir: bool = False,
+        refCompatRNG: bool = False,
         device="cuda",
     ) -> None:
-        if targetGuide is None:
-            raise NotImplementedError(
-                "scene tracing without a target guide is not ported yet"
-            )
         if not source.supportForward:
             raise ValueError("light source does not support forward mode")
-        if response.nRNGSamples != 0:
-            raise NotImplementedError(
-                "responses that draw random numbers are not ported yet"
-            )
         self.device = resolve_device(device)
         self._init_batch(batchSize, capacity)
         self.source = source
@@ -195,11 +196,23 @@ class SceneForwardTracer(TracerBase):
         self.sourceMedium = sourceMedium if sourceMedium is not None else scene.medium
         self.maxTime = maxTime
         self.polarized = polarized
+        self.disableDirectLighting = disableDirectLighting
+        self.disableTransmission = disableTransmission
+        self.disableVolumeBorder = disableVolumeBorder
+        self.useRefractedHitDir = useRefractedHitDir
 
         # draw budget per path, as theia_tpu.trace.scene: a guided miss
-        # segment draws dist(1) + phase(2) + guide(N) + scatter(2) = 5 + N
-        maxHits = 2 * (maxPathLength - 1) + 1
-        rngStride = 5 + targetGuide.nRNGSamples
+        # segment draws dist(1) + phase(2) + guide(N) + scatter(2) = 5 + N,
+        # where the reference's stride (4 + N, refCompatRNG=True) overlaps
+        # Philox streams between batches
+        self.refCompatRNG = refCompatRNG
+        maxHits = maxPathLength - 1
+        rngStride = 4
+        if targetGuide is not None:
+            maxHits *= 2
+            rngStride = (4 if refCompatRNG else 5) + targetGuide.nRNGSamples
+        if not disableDirectLighting:
+            maxHits += 1
         self.maxHitsPerThread = maxHits
         self.nRNGSamples = (
             source.nRNGForward
@@ -218,7 +231,20 @@ class SceneForwardTracer(TracerBase):
             )
         )
 
+    @property
+    def _fused(self) -> bool:
+        """Whether the responses fuse (``theia_tpu``'s default rule): a
+        guide, a response that draws nothing, no polarization."""
+        return self.targetGuide is not None and self.response.nRNGSamples == 0 and not self.polarized
+
     # -- params ----------------------------------------------------------
+
+    def collectStages(self) -> list[tuple[str, Component]]:
+        stages = [("photons", self.wavelengthSource), ("lightSource", self.source)]
+        if self.targetGuide is not None:
+            stages.append(("guide", self.targetGuide))
+        stages += [("tracer", self), ("callback", self.callback), ("response", self.response)]
+        return stages
 
     def params(self):
         dev = self.device
@@ -236,8 +262,9 @@ class SceneForwardTracer(TracerBase):
             "lightSource": self.source.params(dev),
             "response": self.response.params(dev),
             "callback": self.callback.params(dev),
-            "guide": self.targetGuide.params(dev),
         }
+        if self.targetGuide is not None:
+            p["guide"] = self.targetGuide.params(dev)
         return p
 
     def _propagation(self, p) -> PropagateParams:
@@ -324,9 +351,13 @@ class SceneForwardTracer(TracerBase):
             _, m12, m33 = polarizer_coeffs(t_p, t_s)
             stokes = torch.where(absorb[..., None], stokes, apply_polarizer(stokes, m12, m33))
             pol = (stokes, pol_ref)
+        ray = replace(ray, lin_contrib=lin)
+        if self.useRefractedHitDir:
+            # the direction is sampler state: detached from the IOR gradient
+            refr = normalize(_refract(ray.direction, hit.ray_nrm, (n_i / n_t).detach()))
+            ray = replace(ray, direction=torch.where(absorb[..., None], ray.direction, refr))
         item = create_hit(
-            replace(ray, lin_contrib=lin),
-            hit.obj_pos, hit.obj_nrm, hit.custom_id, hit.world_to_obj, pol=pol,
+            ray, hit.obj_pos, hit.obj_nrm, hit.custom_id, hit.world_to_obj, pol=pol
         )
         return item, item.contrib > 0.0
 
@@ -343,7 +374,7 @@ class SceneForwardTracer(TracerBase):
         (reference: scene.traverse.glsl:160-183)."""
         pack: ScenePack = p["scene"]
         target_id = p["tracer"]["targetId"]
-        is_target = (hit.flags & _DETECTOR) != 0
+        is_target = (hit.flags & self._target_bit) != 0
         correct = (target_id < 0) | (hit.custom_id == target_id)
         ok = mask & hit.valid & is_target & correct & (hit.error == 0)
         moved, code = self._propagate_to_hit(ray, hit, prop)
@@ -354,6 +385,14 @@ class SceneForwardTracer(TracerBase):
             moved, hit, r_s, r_p, n_i, n_t, absorb, pol=pol
         )
         return item, ok & pos_mask
+
+    def _shadow_response(self, p, resp_state, ray: RayState, hit: SurfaceHit, mask, rng, prop, pol=None):
+        """processShadowRay: the response if the shadow ray reached the
+        target, with the response's draws kept on recorded lanes only
+        (reference: scene.traverse.glsl:160-183)."""
+        item, ok = self._shadow_item(p, ray, hit, mask, prop, pol=pol)
+        resp_state, rng_after = self.response.record(p["response"], resp_state, item, ok, rng)
+        return resp_state, merge_dim(rng_after, rng, ok)
 
     def _sample_initial(self, p, pack, streams, rng):
         """Sample the initial rays (forward: wavelength + light source)."""
@@ -369,7 +408,7 @@ class SceneForwardTracer(TracerBase):
             direction=src.direction,
             wavelength=lam,
             time=src.start_time,
-            lin_contrib=src.contrib * lam_contrib,
+            lin_contrib=torch.ones_like(lam) if self._photon_mode else src.contrib * lam_contrib,
             log_contrib=torch.zeros_like(lam),
             constants=constants,
         )
@@ -395,6 +434,8 @@ class SceneForwardTracer(TracerBase):
         tracer.scene.forward.glsl loop bound)."""
         ray, medium, alive, allow_response, pol, rng, resp_state, cb_state = carry
         sg = lambda a: a.detach()
+        mis = self.targetGuide is not None
+        fused = self._fused
 
         # health check (reference: scene.traverse.glsl:288-290)
         alive = alive & ~ray.is_bad()
@@ -404,25 +445,32 @@ class SceneForwardTracer(TracerBase):
         uu, rng = rng.uniform()
         dist = sample_scatter_length(ray, prop, uu)
         sampled_dist = dist
-        guide_eval = self.targetGuide.eval(p["guide"], ray.position, ray.direction)
-        mis_ext = allow_response & (guide_eval.prob > 0.0) & (guide_eval.dist > dist)
-        dist = torch.where(mis_ext, torch.maximum(guide_eval.dist, dist), dist)
+        if mis:
+            guide_eval = self.targetGuide.eval(p["guide"], ray.position, ray.direction)
+            mis_ext = allow_response & (guide_eval.prob > 0.0) & (guide_eval.dist > dist)
+            dist = torch.where(mis_ext, torch.maximum(guide_eval.dist, dist), dist)
 
         hit = intersect_scene(pack, medium, ray.position, ray.direction, dist)
         travel = torch.where(hit.valid, hit.t, dist)
 
-        # a hit beyond the sampled distance is a free shadow ray; its
-        # response and the main surface response are per-lane exclusive and
-        # share the hit rows, so they fuse into ONE Fresnel + item + record
-        # at the main response site
-        ext_mask = (
-            pre_alive & mis_ext & hit.valid
-            & (travel > sampled_dist) & (hit.error == 0)
-        )
-        ext_ray, ext_code = self._propagate_to_hit(ray, hit, prop)
-        ext_ok = ext_mask & (ext_code >= 0)
-        hit = replace(hit, valid=hit.valid & ~ext_mask)
-        travel = torch.where(ext_mask, sampled_dist, travel)
+        ext_ok = None
+        if mis:
+            # a hit beyond the sampled distance is a free shadow ray. Fused,
+            # its response rides on the main record (the masks are per-lane
+            # exclusive and share the hit rows); else it is its own record
+            ext_mask = (
+                pre_alive & mis_ext & hit.valid
+                & (travel > sampled_dist) & (hit.error == 0)
+            )
+            if fused:
+                ext_ray, ext_code = self._propagate_to_hit(ray, hit, prop)
+                ext_ok = ext_mask & (ext_code >= 0)
+            else:
+                resp_state, rng = self._shadow_response(
+                    p, resp_state, ray, hit, ext_mask, rng, prop, pol=pol
+                )
+            hit = replace(hit, valid=hit.valid & ~ext_mask)
+            travel = torch.where(ext_mask, sampled_dist, travel)
 
         ray, code = propagate_ray(ray, travel, prop)
         ray = reattach_geometry(ray, travel, valid=hit.valid)
@@ -438,11 +486,12 @@ class SceneForwardTracer(TracerBase):
         )
         n_i, n_t, r_s, r_p = self._fresnel(pack, ray, hit)
         flags = hit.flags
+        no = torch.zeros_like(surf)
         is_abs = (flags & _BLACK) != 0
-        is_target = (flags & _DETECTOR) != 0
-        vol_border = (flags & _VOLUME) != 0
-        can_reflect = (flags & _NO_R_FWD) == 0
-        can_transmit = (flags & _NO_T_FWD) == 0
+        is_target = (flags & self._target_bit) != 0
+        vol_border = no if self.disableVolumeBorder else (flags & _VOLUME) != 0
+        can_reflect = (flags & self._no_r_bit) == 0
+        can_transmit = no if self.disableTransmission else (flags & self._no_t_bit) == 0
 
         target_id = p["tracer"]["targetId"]
         correct = (target_id < 0) | (hit.custom_id == target_id)
@@ -452,23 +501,24 @@ class SceneForwardTracer(TracerBase):
         # direction, so it comes before the new direction is chosen
         if pol is not None:
             pol = _where_pol(surf, _pol_align(ray.direction, pol, hit.ray_nrm), pol)
-        # extension lanes respond with their propagated-to-hit state; the
-        # masks are disjoint (ext lanes left ``surf`` above). Their frame is
-        # the unaligned one, which the response item aligns, as the JAX
-        # package's separate extension response does
-        resp_ray = _where_ray(ext_ok, ext_ray, ray)
+        resp_ray, rec_mask = ray, respond
+        if ext_ok is not None:
+            # extension lanes respond with their propagated-to-hit state;
+            # the masks are disjoint (ext lanes left ``surf`` above)
+            resp_ray = select_ray(ext_ok, ext_ray, ray)
+            rec_mask = rec_mask | (ext_ok & is_target & correct)
         item, pos_ok = self._create_response_item(
             resp_ray, hit, r_s, r_p, n_i, n_t, is_abs, pol=pol
         )
-        rec_mask = (respond | (ext_ok & is_target & correct)) & pos_ok
+        rec_mask = rec_mask & pos_ok
         resp_state, rng_a = self.response.record(p["response"], resp_state, item, rec_mask, rng)
-        rng = _merge_dim(rng_a, rng, rec_mask)
+        rng = merge_dim(rng_a, rng, rec_mask)
 
         # surface interaction outcome
         r_coef = 0.5 * (r_s * r_s + r_p * r_p)
         u_surf, rng_a = rng.uniform()
         both = surf & ~is_abs & ~vol_border & can_reflect & can_transmit
-        rng = _merge_dim(rng_a, rng, both)
+        rng = merge_dim(rng_a, rng, both)
         do_reflect = torch.where(both, u_surf < sg(r_coef), can_reflect)
         absorbed_surf = surf & (is_abs | (~can_reflect & ~can_transmit & ~vol_border))
 
@@ -482,6 +532,10 @@ class SceneForwardTracer(TracerBase):
         trans_dir = normalize(_refract(ray.direction, hit.ray_nrm, sg(eta)))
         trans_pos = offset_ray(hit.world_pos, -hit.ray_nrm)
         trans_factor = torch.where(both, 1.0, 1.0 - r_coef)
+        if self._transmit_eta2:
+            # backward rays transport radiance: eta^2 on transmission
+            # (reference: ray.surface.glsl transmitRayIS backward)
+            trans_factor = trans_factor * (eta * eta)
         trans_log = torch.where(
             both, torch.log(torch.clamp_min(1.0 - r_coef, 1e-30)), 0.0
         )
@@ -550,9 +604,10 @@ class SceneForwardTracer(TracerBase):
         # ---- processInteraction: volume scatter (miss) ----
         if not last:
             miss = pre_alive & in_bounds & ~hit.valid
-            resp_state, rng = self._mis_shadow(
-                p, pack, prop, ray, medium, miss, pol, rng, resp_state
-            )
+            if mis:
+                resp_state, rng = self._mis_shadow(
+                    p, pack, prop, ray, medium, miss, pol, rng, resp_state
+                )
             # scatter the real ray
             rng_b = rng
             (su1, su2), rng = rng.uniform2d()
@@ -572,7 +627,7 @@ class SceneForwardTracer(TracerBase):
                 ),
                 log_contrib=torch.where(miss, ray.log_contrib + scat_corr, ray.log_contrib),
             )
-            rng = _merge_dim(rng, rng_b, miss)
+            rng = merge_dim(rng, rng_b, miss)
 
         # ---- result codes + events ----
         E = EventResultCode
@@ -588,15 +643,35 @@ class SceneForwardTracer(TracerBase):
         )
         code = torch.where(absorbed_surf, int(E.RAY_ABSORBED), code).to(torch.int32)
         alive = pre_alive & (code >= 0) & ~absorbed_surf
-        cb_state = self.callback.on_event(p["callback"], cb_state, ray, code, pre_alive, i + 1)
-        allow_response = code != int(E.RAY_SCATTERED)
+        if self._photon_mode:
+            # Russian-roulette absorption every segment (no MIS in photon
+            # mode, so a segment's draws are fixed)
+            u_abs, rng_a = rng.uniform()
+            survive = ray.contrib > u_abs
+            rng = merge_dim(rng_a, rng, alive)
+            kept = alive & survive
+            ray = replace(
+                ray,
+                lin_contrib=torch.where(kept, 1.0, ray.lin_contrib),
+                log_contrib=torch.where(kept, 0.0, ray.log_contrib),
+            )
+            code = torch.where(alive & ~survive, int(E.RAY_ABSORBED), code).to(torch.int32)
+            alive = kept
+        cb_state = self.callback.on_event(
+            p["callback"], cb_state, ray, code, pre_alive, i + 1, pol=pol
+        )
+        if mis:
+            allow_response = code != int(E.RAY_SCATTERED)
+        else:
+            allow_response = torch.ones_like(allow_response)
         return ray, medium, alive, allow_response, pol, rng, resp_state, cb_state
 
     def _mis_shadow(self, p, pack, prop, ray, medium, miss, pol, rng, resp_state):
         """The two MIS shadow rays of a scatter vertex (phase sample and
-        guide sample), traced as one 2N-lane query and recorded in one
-        call; the RNG dims advance only on ``miss`` lanes. Polarized, each
-        shadow ray carries the Stokes vector scattered into its direction."""
+        guide sample), traced as one 2N-lane query. Fused, they are
+        recorded in one call; else each half is its own record, phase
+        sample first, each with its own Stokes vector scattered into its
+        direction. The RNG dims advance only on ``miss`` lanes."""
         sg = lambda a: a.detach()
         rng_b = rng
         (u1, u2), rng = rng.uniform2d()
@@ -623,6 +698,25 @@ class SceneForwardTracer(TracerBase):
             torch.cat([phase_eval.dist, guide_sample.dist]),
             active=tile(miss),
         )
+        if not self._fused:
+            halves = zip(
+                _split_hit(hit2, miss.shape[0]),
+                ((dir_phase, w_phase, log_p_pp), (guide_sample.direction, w_target, log_p_pt)),
+            )
+            for s_hit, (s_dir, w, corr) in halves:
+                shadow = replace(
+                    ray,
+                    direction=s_dir,
+                    lin_contrib=ray.lin_contrib * ray.constants.mu_s * sg(w),
+                    log_contrib=ray.log_contrib + corr - sg(corr),
+                )
+                shadow_pol = None
+                if pol is not None:
+                    shadow_pol = _pol_scatter_packed(pack.media, medium, ray.direction, s_dir, pol)
+                resp_state, rng = self._shadow_response(
+                    p, resp_state, shadow, s_hit, miss, rng, prop, pol=shadow_pol
+                )
+            return resp_state, merge_dim(rng, rng_b, miss)
         shadow2 = RayState(
             position=tile(ray.position),
             direction=directions,
@@ -638,40 +732,38 @@ class SceneForwardTracer(TracerBase):
             ]),
             constants=_cat_constants(ray.constants),
         )
-        pol2 = None
-        if pol is not None:
-            halves = (
-                _pol_scatter_packed(pack.media, medium, ray.direction, d, pol)
-                for d in (dir_phase, guide_sample.direction)
-            )
-            pol2 = tuple(torch.cat(pair) for pair in zip(*halves))
-        item2, ok2 = self._shadow_item(p, shadow2, hit2, tile(miss), prop, pol=pol2)
+        item2, ok2 = self._shadow_item(p, shadow2, hit2, tile(miss), prop)
         resp_state, _ = self.response.record(p["response"], resp_state, item2, ok2, rng)
-        return resp_state, _merge_dim(rng, rng_b, miss)
+        return resp_state, merge_dim(rng, rng_b, miss)
 
     # -- the batch -------------------------------------------------------
+
+    def _initial_carry(self, p, pack, streams, rng):
+        """(ray, medium, alive, allow_response, pol, rng) of a fresh batch."""
+        ray, medium, pol, rng = self._sample_initial(p, pack, streams, rng)
+        alive = active_lanes(streams, p) & ~ray.is_bad()
+        allow_response = torch.full_like(alive, not self.disableDirectLighting)
+        return ray, medium, alive, allow_response, pol, rng
 
     def _trace_batch(self, p, counter, streams):
         pack: ScenePack = p["scene"]
         prop = self._propagation(p)
         rng = self.rng.state_for(counter, streams)
-        ray, medium, pol, rng = self._sample_initial(p, pack, streams, rng)
+        ray, medium, alive, allow_response, pol, rng = self._initial_carry(p, pack, streams, rng)
 
         resp_state = self.response.init(streams.device)
-        cb_state = self.callback.init(streams.shape[0], self.maxPathLength + 2)
+        cb_state = self.callback.init(streams.shape[0], self.maxPathLength + 2, streams.device)
         created = torch.full_like(streams, int(EventResultCode.RAY_CREATED))
         cb_state = self.callback.on_event(
-            p["callback"], cb_state, ray, created, active_lanes(streams, p), 0
+            p["callback"], cb_state, ray, created, active_lanes(streams, p), 0, pol=pol
         )
-        alive = active_lanes(streams, p) & ~ray.is_bad()
-        allow_response = torch.ones_like(alive)
         carry = (ray, medium, alive, allow_response, pol, rng, resp_state, cb_state)
         for i in range(self.maxPathLength):
             carry = self._segment(p, pack, prop, carry, i, i == self.maxPathLength - 1)
         ray, medium, alive, allow_response, pol, rng, resp_state, cb_state = carry
         max_iter = torch.full_like(streams, int(EventResultCode.MAX_ITER))
         cb_state = self.callback.on_event(
-            p["callback"], cb_state, ray, max_iter, alive, self.maxPathLength + 1
+            p["callback"], cb_state, ray, max_iter, alive, self.maxPathLength + 1, pol=pol
         )
         if self._debug_rng:
             # conformance hook: expose each lane's final dim counter
