@@ -49,22 +49,33 @@ Phases, one line each, any failure raises and exits non-zero:
    sub-box tests); beside it, as ``yardstick``, the bound under the rule
    that earlier measurements used (the chunk rule, the sphere test from
    the ray's origin; for the soup, over the soup in instance order), so
-   that shares stay comparable;
+   that shares stay comparable. The gradient path's kernels: the kernel
+   histogram's record and backward (``csrc/kernel_histogram.cu``) at
+   524,288 items over 100 bins, with and without a detector axis, odd N,
+   offset views, a state past shared memory, an all-masked record and
+   NaN/inf times; the three table reads and their backward
+   (``csrc/table_read.cu``) on the flagship scene's packed tables and
+   const4 rows and on a 1024-sample volume table at N = 262,144 with
+   lanes at t = 0 and 1 (and a table of 100,000 samples); each timed as
+   called and queued beside its plain version, ``index_add_`` /
+   ``index_select`` on what it computes made beforehand, and its bound;
 3. the first main path at full width: the flagship scene tracer
    (262,144 lanes, path length 10, 3840 triangles, 100 bins,
    ``accel="mt"``) through ``run()``, one warm-up batch and three timed
    ones, with the kernels' launch counts; then seconds per batch with
-   the winners' rows from the kernel and from a torch gather, in turns;
+   the winners' rows from the kernel and from a separate gather, in turns;
 3b. the second main path at full width: the polarized flagship on the
    Woop query (``accel="woop", polarized=True``), the same way;
 3c. its gradient at full width: one ``trace_fn()`` forward and backward
-   of sum(histogram state) with respect to the water absorption table;
+   of sum(histogram state) with respect to the water absorption table,
+   then one step under the profiler (device busy, the table reads'
+   backward launches, no ``indexing_backward_kernel_small_stride``);
 3d. the third main path at full width: the brute-force flagship, the
    scene with no ``accel`` named (``"auto"`` resolves to ``"brute"``),
    with its launches a batch (10 primary nearest hits with winner rows,
    9 shadow pairs, each one ``target_in_table`` launch, no separate
    any-hit, none of the other nearest-hit kernels); then seconds per
-   batch with the winners' rows from the kernel and from a torch gather,
+   batch with the winners' rows from the kernel and from a separate gather,
    in turns; then the ``mt``, unpolarized ``woop`` and brute-force
    flagships in turns, for seconds per batch that can be compared;
 3e. ``accel.is_visible`` on the brute-force scene, the any-hit kernel's
@@ -81,13 +92,25 @@ Phases, one line each, any failure raises and exits non-zero:
    in turns (run, compacted, compacted, run; 6 primary queries and 6
    records a batch, no shadow query) and profiled; phase 2 holds the
    primary queries and records of both against the plain versions;
+3h. the volume flagship's gradient steps at 262,144 lanes: example 05's
+   loss in the absorption scale and example 06's, with a kernel
+   histogram (100 bins of 5 ns, bandwidth 5 ns), in the group
+   velocity's; seconds a step (median of 3), peak memory, the kernels'
+   launches a step and device busy of one profiled step;
+3i. the brute-force flagship's geometry step at 262,144 lanes, path
+   length 10, with a kernel histogram: the loss of example 10 in the
+   detector's shift (``translate_instance``), the source's position and
+   the packed ``log_phase_function`` and ``refractive_index`` tables,
+   reported the same way;
 4. the port on the CPU against the port on the card at batch 4096: the
    unpolarized ``mt`` flagship, the brute-force flagship, the polarized
    ``woop`` flagship with the source off centre, the volume flagship
    unpolarized and polarized, a volume photon tracer, the photon
    flagship and the unguided brute-force flagship with a
    ``StoreTimeHitResponse`` (the same detections, times within 1e-5);
-   then the gradient at batch 2048, path length 3.
+   then the gradients at batch 2048, path length 3: the polarized
+   medium gradient, the volume steps of 3h and the geometry step of 3i,
+   each by ``PERF.md``'s gradient agreement.
 
 Every path's launch counts are set to 0 just before it runs and read
 just after. Then one JSON line of kernels (name, route, source,
@@ -499,6 +522,387 @@ def check_record_replay(records, path, add_report, grad_report):
         print(f"    {key} of each record: " + " ".join(format(f[key], form) for f in forced))
 
 
+#: float32 operations of the kernel histogram a (lane, bin) pair in range:
+#: the bin centre 3, z 2, z^2 / 2 2, exp 4 (a MUFU op and its range
+#: reduction), the weight 1, the value 1, the add 1, the bin 3; the
+#: backward's: the same 12 to the weight, then 2 for d value, 4 for d t,
+#: 7 for d binSize and 5 for d bandwidth, and the read of g
+KDE_PAIR_FLOP, KDE_GRAD_PAIR_FLOP = 17, 31
+#: float32 operations of a lane's table read: the clip, the scale, floor,
+#: the fraction, the lerp and the null select (10); its backward's (14: the
+#: two shares of the table, d u and the clip's gradient); the rows' four
+#: values (16) and backward (22)
+READ_FLOP = {"read_table": 10, "read_packed": 10, "read_rows": 16}
+READ_GRAD_FLOP = {"read_table": 14, "read_packed": 14, "read_rows": 22}
+
+
+def kde_case(n: int, seed: int, bins: int = 100, n_det=None, kept: float = 0.5, offset: int = 0):
+    """``hist_case``'s lanes as a kernel histogram record's arguments:
+    (value, time, mask, t0, binSize, bandwidth, bins, support, object_id,
+    n_det), 5 ns bins and a 5 ns bandwidth."""
+    import torch
+
+    value, time_, mask, t0, bin_size, bins, oid, n_det = hist_case(n, seed, bins, n_det, kept, offset)
+    return value, time_, mask, t0, bin_size, torch.tensor(5.0, device="cuda"), bins, 4, oid, n_det
+
+
+def kde_pairs(case) -> tuple[int, int, int]:
+    """(unmasked lanes, kept lanes, (lane, bin) pairs in range) of a
+    kernel histogram record: what its work depends on."""
+    import torch
+
+    from theia_tpu_torch.response import _kde_terms
+
+    value, time_, mask, t0, bin_size, bandwidth, bins, support, oid, n_det = case
+    terms = _kde_terms(time_, mask, t0, bin_size, bandwidth, bins, support, oid, n_det)
+    kept = torch.stack([k for k, *_ in terms]).any(0)
+    return int(mask.sum()), int(kept.sum()), int(sum(int(k.sum()) for k, *_ in terms))
+
+
+def hold_kde(case, label) -> dict:
+    """The kernel histogram's record and backward on ``case`` against the
+    plain versions on the CPU copy of the inputs. Tolerances: the record
+    rtol 1e-4 a bin (atomic adds in an order that changes from run to run,
+    and the card's expf against the CPU's exp, an ulp apart); d value and
+    d time rtol 1e-5 of the largest lane (nine terms, the exponentials an
+    ulp apart); the three scalars rtol 1e-4 (a block's tree and one atomic
+    a block against a sequential sum over every lane). Returns the max
+    abs errors."""
+    import numpy as np
+    import torch
+
+    from theia_tpu_torch.response import (
+        kernel_histogram_add, kernel_histogram_add_plain, kernel_histogram_grad, kernel_histogram_grad_plain,
+    )
+
+    n_state = case[6] * (case[9] or 1)
+    got = kernel_histogram_add(torch.zeros(n_state, device="cuda"), *case)
+    torch.cuda.synchronize()
+    want = kernel_histogram_add_plain(torch.zeros(n_state), *cpu(case))
+    scale = float(want.abs().max()) or 1.0
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-6 * scale,
+                               msg=lambda m: f"kernel_histogram_add on {label}: {m}")
+    grad_state = torch.as_tensor(np.random.default_rng(n_state).normal(size=n_state).astype(np.float32))
+    got_g = kernel_histogram_grad(grad_state.cuda(), *case)
+    torch.cuda.synchronize()
+    want_g = kernel_histogram_grad_plain(grad_state, *cpu(case))
+    err = {"add": float((got.cpu() - want).abs().max())}
+    for name, a, b, rtol in zip(("d value", "d time", "d t0", "d binSize", "d bandwidth"), got_g, want_g,
+                                (1e-5, 1e-5, 1e-4, 1e-4, 1e-4)):
+        a = a.cpu()
+        atol = rtol * (float(b.abs().max()) or 1.0) if b.dim() else 0.0
+        torch.testing.assert_close(a, b, rtol=rtol, atol=atol, msg=lambda m: f"kernel_histogram_grad {name} on {label}: {m}")
+        err[name] = float((a - b).abs().max())
+    return err
+
+
+def check_kernel_histogram(add_report, grad_report):
+    """The kernel histogram's record and backward (K1) against their plain
+    versions: 524,288 items over 100 bins, with and without a detector
+    axis, odd N, offset views, a state past what shared memory holds, an
+    all-masked record and NaN or infinite times (dropped, exact zeros);
+    then their times at the main case beside the plain versions',
+    ``index_add_`` / ``index_select`` on the bins and weights made
+    beforehand, and the bounds from the pairs these inputs need."""
+    import torch
+
+    from theia_tpu_torch.response import (
+        SHARED_STATE_MAX, _kde_terms, kernel_histogram_add, kernel_histogram_add_plain, kernel_histogram_grad,
+        kernel_histogram_grad_plain,
+    )
+
+    n = 2 * BATCH
+    main = kde_case(n, 3)
+    errors = {}
+    for label, case in (
+        (f"N={n}, mask 0.5", main),
+        (f"N={n - 1}", kde_case(n - 1, 4)),
+        ("N=1", kde_case(1, 5, kept=1.0)),
+        ("a detector axis (3)", kde_case(n, 6, bins=100, n_det=3)),
+        (f"views at element 1, N={n + 1}", kde_case(n + 1, 7, offset=1)),
+        ("views at element 3 with a detector axis", kde_case(100_003, 8, bins=50, n_det=3, offset=3)),
+        ("a state past shared memory (64,000 flat bins)", kde_case(100_000, 9, bins=1000, n_det=64)),
+    ):
+        if label.startswith("a state past"):
+            assert case[6] * case[9] > SHARED_STATE_MAX
+        errors[label] = hold_kde(case, label)
+    # an all-masked record and NaN or infinite times leave the state as it was, with zero gradients
+    state = torch.rand(100, device="cuda") + 1.0
+    want = state.clone()
+    masked = (*main[:2], torch.zeros_like(main[2]), *main[3:])
+    bad = torch.full_like(main[1], float("nan"))
+    bad[1::3], bad[2::3] = float("inf"), float("-inf")
+    nonfinite = (main[0], bad, torch.ones_like(main[2]), *main[3:])
+    for case in (masked, nonfinite):
+        kernel_histogram_add(state, *case)
+        grads = kernel_histogram_grad(torch.randn(100, device="cuda"), *case)
+        torch.cuda.synchronize()
+        assert torch.equal(state, want), "an all-masked or non-finite record changed the state"
+        assert all(not bool(g.any()) for g in grads), "an all-masked or non-finite record has a gradient"
+    worst = errors[f"N={n}, mask 0.5"]
+    print(f"kernels kernel_histogram_add / kernel_histogram_grad: rtol 1e-4 a bin / 1e-5 a lane / 1e-4 a scalar on "
+          f"{len(errors)} cases and on all-masked and NaN/inf records (unchanged, zero gradients); max abs err at "
+          f"N={n}: {worst}")
+
+    value, time_, mask, t0, bin_size, bandwidth, bins, support, oid, n_det = main
+    unmasked, kept, pairs = kde_pairs(main)
+    state = torch.zeros(bins, device="cuda")
+    add = lambda: kernel_histogram_add(state, *main)
+    ms, queued_ms = cuda_ms(add, 50), cuda_ms_queued(add, 50)
+    plain_ms = cuda_ms(lambda: kernel_histogram_add_plain(state, *main), 10)
+    # the yardstick: one index_add_ of the pairs' weights on bins made beforehand
+    terms = _kde_terms(time_, mask, t0, bin_size, bandwidth, bins, support, oid, n_det)
+    norm = bin_size / (bandwidth * 2.5066282749176025)
+    flat = torch.cat([f[k] for k, f, *_ in terms])
+    weights = torch.cat([(value * e * norm)[k] for k, _, _, _, e in terms])
+    library_ms = cuda_ms(lambda: state.index_add_(0, flat, weights), 50)
+    # mask of every lane, time and value of the unmasked ones, the state read and written
+    b = bound(n + 8 * unmasked + 8 * bins, KDE_PAIR_FLOP * pairs + 4 * unmasked)
+    print(f"kernel kernel_histogram_add N={n} bins={bins}: {unmasked} unmasked, {kept} kept, {pairs} (lane, bin) pairs; "
+          f"kernel {ms:.4f} ms ({queued_ms:.4f} queued), plain {plain_ms:.4f} ms, index_add_ {library_ms:.4f} ms; "
+          f"bound {b['bound_ms']:.4f} ms by {b['bound_by']}, share {b['bound_ms'] / ms:.3f} "
+          f"({b['bound_ms'] / queued_ms:.3f} queued)")
+    add_report.update(max_abs_err=worst["add"], ms=ms, queued_ms=queued_ms, plain_ms=plain_ms,
+                      library_ms=library_ms, pairs=pairs, **b)
+    grad_state = torch.randn(bins, device="cuda")
+    grad = lambda: kernel_histogram_grad(grad_state, *main)
+    ms, queued_ms = cuda_ms(grad, 50), cuda_ms_queued(grad, 50)
+    plain_ms = cuda_ms(lambda: kernel_histogram_grad_plain(grad_state, *main), 10)
+    select = lambda: torch.index_select(grad_state, 0, flat)
+    library_ms = cuda_ms(select, 50)
+    # the add's reads, g read, two floats a lane and three scalars written
+    b = bound(n + 8 * unmasked + 4 * bins + 8 * n + 12, KDE_GRAD_PAIR_FLOP * pairs + 4 * unmasked)
+    print(f"kernel kernel_histogram_grad N={n} bins={bins}: kernel {ms:.4f} ms ({queued_ms:.4f} queued), plain "
+          f"{plain_ms:.4f} ms, index_select of the pairs' bins {library_ms:.4f} ms; bound {b['bound_ms']:.4f} ms by "
+          f"{b['bound_by']}, share {b['bound_ms'] / ms:.3f} ({b['bound_ms'] / queued_ms:.3f} queued)")
+    grad_report.update(max_abs_err=max(worst["d value"], worst["d time"]), ms=ms, queued_ms=queued_ms,
+                       plain_ms=plain_ms, library_ms=library_ms, scalar_errors=[worst[k] for k in
+                       ("d t0", "d binSize", "d bandwidth")], **b)
+
+
+def read_cases(store, table) -> dict:
+    """The three table reads' inputs at the main paths' shapes, N =
+    262,144 lanes, 1 % of them exactly at t = 0 and 1 % at t = 1: the
+    flagship scene's packed refractive indices (3 media, 256 columns), its
+    const4 rows (BK7's absorption is infinite below 235 nm, so rows there
+    read inf and NaN, as they would in the plain version) and a
+    1024-sample single table (``table``); each with the handles of every
+    medium, vacuum (null) included. Returns name -> (args, the plain
+    forward, the backward, its plain version)."""
+    import numpy as np
+    import torch
+
+    from theia_tpu_torch.material import const4_rows, _CONST4_NULLS
+    from theia_tpu_torch.ops import table_read as tr
+
+    rng = np.random.default_rng(41)
+    n = BATCH
+    u = rng.uniform(-0.05, 1.05, n)
+    u[: n // 100], u[n // 100 : n // 50] = 0.0, 1.0
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device="cuda")
+    handle = torch.as_tensor(rng.integers(0, store.sizes["refractive_index"].shape[0], n).astype(np.int32),
+                             device="cuda")
+    rows, n4, pad = const4_rows(store)
+    return {
+        "read_table": ((table, f32(u)), tr.read_table_plain, tr.read_table_grad, tr.read_table_grad_plain),
+        "read_packed": ((store.tables["refractive_index"], store.sizes["refractive_index"], handle, f32(u)),
+                        tr.read_packed_plain, tr.read_packed_grad, tr.read_packed_grad_plain),
+        "read_rows": ((rows, n4, handle, f32(np.clip(u, 0.0, 1.0)), pad),
+                      lambda *a: tr.read_rows_plain(*a, _CONST4_NULLS), tr.read_rows_grad, tr.read_rows_grad_plain),
+    }
+
+
+def hold_table_reads(store, table) -> dict:
+    """The three table reads (K2) against their plain versions on the
+    same card tensors (``read_cases``): the forward bit for bit (the same
+    float32 ops in the same order); the backward's d t bit for bit where
+    it is one chain of products (one table, packed), within rtol 1e-6 for
+    the rows (torch sums the row's four products in an order of its own),
+    and d table within 2e-5 of each entry's sum of absolute shares (the
+    plain version's backward run on |grad_out|): atomics in shared memory
+    and then in device memory against index_add_'s, each in an order that
+    changes from run to run. Also a table of 100,000 samples, whose
+    gradient takes the variant without shared memory. Returns the cases
+    and, per read, the max abs error of d table at the main shape."""
+    import numpy as np
+    import torch
+
+    from theia_tpu_torch.ops import table_read as tr
+
+    cases = read_cases(store, table)
+    big = torch.as_tensor(np.random.default_rng(5).normal(size=100_000).astype(np.float32), device="cuda")
+    assert big.numel() > tr.SHARED_TABLE_MAX
+    extra = {"read_table": [("a table of 100,000 samples", (big, cases["read_table"][0][1]))]}
+    errors = {}
+    for name, (args, plain, grad, grad_plain) in cases.items():
+        wrapper = read_wrapper(name)
+        for label, a in [("the main path's shape", args)] + extra.get(name, []):
+            got, want = wrapper(*a), plain(*a)
+            torch.cuda.synchronize()
+            assert same(got, want), f"{name} forward differs from plain on {label}"
+            g = torch.randn_like(want)
+            got_t, got_u = grad(*a, g)
+            want_t, want_u = grad_plain(*a, g)
+            abs_t, _ = grad_plain(*a, g.abs())
+            torch.cuda.synchronize()
+            if name == "read_rows":
+                finite = torch.isfinite(want_u)
+                torch.testing.assert_close(got_u, want_u, rtol=1e-6, equal_nan=True,
+                                           atol=1e-6 * float(want_u[finite].abs().max()))
+            else:
+                assert same(got_u, want_u), f"{name} backward d t differs from plain on {label}"
+            assert torch.equal(torch.isnan(got_t), torch.isnan(want_t)), f"{name} d table NaNs differ on {label}"
+            finite = torch.isfinite(want_t)
+            diff = (got_t - want_t)[finite].abs()
+            excess = float((diff - 2e-5 * abs_t[finite]).max())
+            assert excess <= 0.0, f"{name} backward d table off by {excess} on {label}"
+            err = float(diff.max())
+            errors.setdefault(name, err)
+            lanes = a[3].numel() if name != "read_table" else a[1].numel()
+            print(f"kernel {name} on {label} ({a[0].numel()} table floats, {lanes} lanes): forward bit-equal, d t "
+                  f"{'bit-equal' if name != 'read_rows' else 'rtol 1e-6'}, d table within 2e-5 of its absolute "
+                  f"sums (max abs err {err:.3g})")
+    return cases, errors
+
+
+def same(a, b) -> bool:
+    """``a`` and ``b`` equal entry for entry, a NaN equal to a NaN."""
+    import torch
+
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan])
+
+
+def read_wrapper(name):
+    """The read ``name`` of ``ops/table_read.py`` with the arguments of
+    ``read_cases`` (the rows' null values added)."""
+    from theia_tpu_torch.material import _CONST4_NULLS
+    from theia_tpu_torch.ops import table_read as tr
+
+    if name == "read_rows":
+        return lambda *a: tr.read_rows(*a, _CONST4_NULLS)
+    return getattr(tr, name)
+
+
+def check_table_read(reports, store, table):
+    """``hold_table_reads``, then each read's forward and backward timed at
+    the main shape beside the plain versions', index_add_ of the lanes'
+    shares on entries made beforehand (the backward's yardstick: what
+    autograd's index backward computes today) and the bounds."""
+    import torch
+
+    cases, errors = hold_table_reads(store, table)
+    for name, (args, plain, grad, grad_plain) in cases.items():
+        report, grad_report = reports[name], reports[name + "_grad"]
+        report.update(max_abs_err=0.0)
+        grad_report.update(max_abs_err=errors[name])
+        wrapper = read_wrapper(name)
+        g = torch.randn_like(plain(*args))
+        n = g.shape[0]
+        table_bytes = 4 * args[0].numel()
+        lane_bytes = 8 if name == "read_table" else 12  # coordinate (and handle), value
+        out_bytes = 16 if name == "read_rows" else 4
+        for rep, fn, plain_fn, flop, n_bytes in (
+            (report, lambda: wrapper(*args), lambda: plain(*args), READ_FLOP[name] * n,
+             n * (lane_bytes + out_bytes - 4) + table_bytes),
+            (grad_report, lambda: grad(*args, g), lambda: grad_plain(*args, g), READ_GRAD_FLOP[name] * n,
+             n * (lane_bytes - 4 + out_bytes + 4) + 2 * table_bytes),
+        ):
+            ms, queued_ms = cuda_ms(fn, 50), cuda_ms_queued(fn, 50)
+            plain_ms = cuda_ms(plain_fn, 10)
+            rep.update(ms=ms, queued_ms=queued_ms, plain_ms=plain_ms, library_ms=None, **bound(n_bytes, flop))
+        entries, shares = read_shares(name, args, g)
+        out = torch.zeros_like(args[0]).reshape(-1)
+        grad_report["library_ms"] = cuda_ms(lambda: out.index_add_(0, entries, shares), 50)
+        for rep, what in ((report, "forward"), (grad_report, "backward")):
+            lib = "none" if rep["library_ms"] is None else f"{rep['library_ms']:.4f} ms"
+            print(f"kernel {name} {what} N={n}: kernel {rep['ms']:.4f} ms ({rep['queued_ms']:.4f} queued), plain "
+                  f"{rep['plain_ms']:.4f} ms, index_add_ {lib}; bound {rep['bound_ms']:.4f} ms by {rep['bound_by']}, "
+                  f"share {rep['bound_ms'] / rep['ms']:.3f} ({rep['bound_ms'] / rep['queued_ms']:.3f} queued)")
+
+
+def check_gather_rows(report, grad_report, pack):
+    """The row gather of the hit reconstruction and its backward against
+    their plain versions (``table[index]`` and ``index_add_``) on the card:
+    the brute flagship's ``tri_data`` (3840 x 32, past shared memory: the
+    backward adds to device memory) and ``inst_data`` (3 x 32, in shared
+    memory) at N = 262,144, half the lanes on the detector's rows, as a
+    shadow query's winners are. The forward bit for bit (a copy); the
+    backward within 2e-5 of each entry's sum of absolute shares (atomics
+    against index_add_'s, both in an order that changes from run to run).
+    Then the times at ``tri_data`` beside the plain versions and the
+    bounds; the library call is the plain version itself (index_select,
+    index_add_), made once."""
+    import numpy as np
+    import torch
+
+    from theia_tpu_torch.ops.table_read import gather_rows, gather_rows_grad
+
+    rng = np.random.default_rng(43)
+    n = BATCH
+    det = np.nonzero(pack.tri_data[:, 27].cpu().numpy() == 2)[0]
+    rows = np.where(rng.uniform(size=n) < 0.5, rng.choice(det, n), rng.integers(0, pack.tri_data.shape[0], n))
+    cases = {
+        "tri_data": (pack.tri_data, torch.as_tensor(rows.astype(np.int32), device="cuda")),
+        "inst_data": (pack.inst_data, torch.as_tensor(rng.integers(0, 3, n).astype(np.int32), device="cuda")),
+    }
+    for label, (table, index) in cases.items():
+        got, want = gather_rows(table, index), table[index.long()]
+        g = torch.randn_like(want)
+        got_t = gather_rows_grad(table.shape[0], index, g)
+        want_t = torch.zeros_like(table).index_add_(0, index.long(), g)
+        abs_t = torch.zeros_like(table).index_add_(0, index.long(), g.abs())
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"gather_rows differs from plain on {label}"
+        excess = float(((got_t - want_t).abs() - 2e-5 * abs_t).max())
+        assert excess <= 0.0, f"gather_rows_grad off by {excess} on {label}"
+        err = float((got_t - want_t).abs().max())
+        print(f"kernel gather_rows on the flagship's {label} ({tuple(table.shape)}, {n} lanes): forward bit-equal, "
+              f"backward within 2e-5 of its absolute sums (max abs err {err:.3g})")
+        if label == "tri_data":
+            report.update(max_abs_err=0.0)
+            grad_report.update(max_abs_err=err)
+            table_, index_, g_ = table, index, g
+    width, n_rows = table_.shape[1], table_.shape[0]
+    long_index = index_.long()
+    for rep, fn, plain_fn, n_bytes in (
+        (report, lambda: gather_rows(table_, index_), lambda: table_[long_index],
+         4 * n + 4 * n * width + 4 * n_rows * width),
+        (grad_report, lambda: gather_rows_grad(n_rows, index_, g_),
+         lambda: torch.zeros_like(table_).index_add_(0, long_index, g_), 4 * n + 4 * n * width + 4 * n_rows * width),
+    ):
+        ms, queued_ms = cuda_ms(fn, 50), cuda_ms_queued(fn, 50)
+        plain_ms = cuda_ms(plain_fn, 10)
+        b = bound(n_bytes, n * width if rep is grad_report else 0)
+        rep.update(ms=ms, queued_ms=queued_ms, plain_ms=plain_ms, library_ms=plain_ms, **b)
+        print(f"kernel {'gather_rows_grad' if rep is grad_report else 'gather_rows'} on tri_data N={n}: kernel "
+              f"{ms:.4f} ms ({queued_ms:.4f} queued), plain = library ({'index_add_' if rep is grad_report else 'index'})"
+              f" {plain_ms:.4f} ms; bound {b['bound_ms']:.4f} ms by {b['bound_by']}, share "
+              f"{b['bound_ms'] / ms:.3f} ({b['bound_ms'] / queued_ms:.3f} queued)")
+
+
+def read_shares(name, args, g):
+    """(entries, shares) of a table read's backward: every lane's adds into
+    the table's gradient, made beforehand for the index_add_ yardstick."""
+    import torch
+
+    from theia_tpu_torch.ops import table_read as tr
+
+    if name == "read_table":
+        table, u = args
+        n = table.shape[0]
+        x, fl, l = tr._single_coords(n, u)
+        return torch.cat([tr._index(fl, n), tr._index(torch.ceil(x), n)]), torch.cat([g * (1.0 - l), g * l])
+    if name == "read_packed":
+        values, sizes, handle, t = args
+        _, _, flat, l, _ = tr._packed_coords(values, sizes, handle, t)
+        return torch.cat([flat, torch.clamp_max(flat + 1, values.numel() - 1)]), torch.cat([g - g * l, g * l])
+    rows, sizes, handle, t, pad = args
+    _, flat, l = tr._rows_coords(rows, sizes, handle, t, pad)
+    entries = (flat[:, None] * 8 + torch.arange(8, device=flat.device)).reshape(-1)
+    return entries, torch.cat([g, g * l], dim=1).reshape(-1)
+
+
 def bound(n_bytes: float, flop: float, peak: float = PEAK_F32) -> dict:
     """bound_ms and bound_by of a call that must move ``n_bytes`` and do
     ``flop`` operations of peak rate ``peak``."""
@@ -667,14 +1071,20 @@ FIRST_SCAN_RULE = "chunk rule, sphere test from the ray's origin (the bounds of 
 
 def check_nearest(nearest: Nearest, adversarial, queries, report):
     """A nearest-hit kernel against its plain version, bit-equal t and idx
-    (and rows): random rays at N = 262,144 and 524,288 with times and
-    bound, adversarial rays, and the recorded queries of one flagship
-    batch, replayed for the time and bound a batch sees."""
+    (and rows): random rays at N = 262,144 (plain on the card, and on
+    the CPU copy of its first 65,536) and 524,288 (plain on the card) with
+    times and bound,
+    adversarial rays, and the recorded queries of one flagship batch,
+    replayed for the time and bound a batch sees."""
     name, worst = nearest.name, 0.0
     for n in (BATCH, 2 * BATCH):
         rays = random_rays(n, n + len(name), "cuda")
-        err, hits = nearest.check(rays, f"random rays N={n}", on_cpu=True)
-        nearest.check(rays, f"random rays N={n} (plain on the card)", on_cpu=False)
+        # the CPU copy takes a quarter of the rays at the main path's width
+        # (its plain scan is the slowest part of the script), the card's
+        # plain version all of them
+        if n == BATCH:
+            nearest.check(tuple(r[: n // 4] for r in rays), f"random rays N={n // 4} (plain on the CPU)", on_cpu=True)
+        err, hits = nearest.check(rays, f"random rays N={n} (plain on the card)", on_cpu=False)
         own, yard = nearest.stats(rays), nearest.stats(rays, layout=False)
         worst = max(worst, err)
         ms = cuda_ms(lambda: nearest.run(nearest.kernel, nearest.pack, rays), 20)
@@ -723,6 +1133,20 @@ def check_nearest(nearest: Nearest, adversarial, queries, report):
     )
 
 
+#: the gradient path's kernels: (source, the theia_tpu function
+#: whose jnp code and VJP each replaces)
+GRADIENT_KERNELS = {
+    "kernel_histogram_add": ("theia_tpu_torch/csrc/kernel_histogram.cu", "theia_tpu/response.py:283"),
+    "kernel_histogram_grad": ("theia_tpu_torch/csrc/kernel_histogram.cu", "theia_tpu/response.py:283"),
+    "read_table": ("theia_tpu_torch/csrc/table_read.cu", "theia_tpu/lookup.py:43"),
+    "read_table_grad": ("theia_tpu_torch/csrc/table_read.cu", "theia_tpu/lookup.py:43"),
+    "read_packed": ("theia_tpu_torch/csrc/table_read.cu", "theia_tpu/material.py:355"),
+    "read_packed_grad": ("theia_tpu_torch/csrc/table_read.cu", "theia_tpu/material.py:355"),
+    "read_rows": ("theia_tpu_torch/csrc/table_read.cu", "theia_tpu/material.py:397"),
+    "read_rows_grad": ("theia_tpu_torch/csrc/table_read.cu", "theia_tpu/material.py:397"),
+    "gather_rows": ("theia_tpu_torch/csrc/table_read.cu", "theia_tpu/accel.py:614"),
+    "gather_rows_grad": ("theia_tpu_torch/csrc/table_read.cu", "theia_tpu/accel.py:614"),
+}
 #: the soup entry points of ops/intersect_soup.py and the JAX functions they replace
 SOUP_KERNELS = {
     "nearest_in_table_rows": "theia_tpu/accel.py:73",
@@ -886,8 +1310,9 @@ def check_soup(soup: Soup, adversarial, queries, report):
     name, card = soup.name, soup.tables[0]
     for n in (BATCH, 2 * BATCH):
         rays = random_rays(n, n + len(name), "cuda")
-        hits = soup.check(rays, f"random rays N={n}", on_cpu=(n == BATCH))
-        soup.check(rays, f"random rays N={n} (plain on the card)", on_cpu=False)
+        if n == BATCH:  # the CPU copy on a quarter of the rays, as check_nearest
+            soup.check(tuple(r[: n // 4] for r in rays), f"random rays N={n // 4} (plain on the CPU)", on_cpu=True)
+        hits = soup.check(rays, f"random rays N={n} (plain on the card)", on_cpu=False)
         own, yard = soup.stats(card, rays), soup.stats(card, rays, layout=False)
         ms = cuda_ms(lambda: soup.run(soup.kernel, card, rays), 20)
         queued_ms = cuda_ms_queued(lambda: soup.run(soup.kernel, card, rays), 20)
@@ -1101,10 +1526,11 @@ def timed_runs(tracer, wrappers, label):
     return seconds, sums, counts, torch.cuda.max_memory_allocated()
 
 
-def profile_step(step) -> dict:
+def profile_step(step, watch=()) -> dict:
     """One call of ``step`` under ``torch.profiler``: the device's busy
     time (the sum of its kernels' and copies' times), their count, the
-    twelve largest items and the hand-written kernels' items."""
+    twelve largest items, the hand-written kernels' items and, for each
+    name fragment in ``watch``, the items whose name holds it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1117,10 +1543,12 @@ def profile_step(step) -> dict:
         by_name.setdefault(e.name, []).append(e.device_time if hasattr(e, "device_time") else e.cuda_time)
     item = lambda n, t: dict(name=n, ms=sum(t) / 1e3, count=len(t))
     top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:12]
-    own = sorted((n, t) for n, t in by_name.items() if any(k in n for k in ("histogram", "theia::scan", "philox")))
+    mine = ("histogram", "theia::scan", "philox", "kde_", "read_", "::gather")
+    own = sorted((n, t) for n, t in by_name.items() if any(k in n for k in mine))
+    watched = {w: [item(n, t) for n, t in by_name.items() if w in n] for w in watch}
     return dict(
         device_busy_ms=sum(map(sum, by_name.values())) / 1e3, kernels=len(events),
-        top=[item(n, t) for n, t in top], own=[item(n, t) for n, t in own],
+        top=[item(n, t) for n, t in top], own=[item(n, t) for n, t in own], watched=watched,
     )
 
 
@@ -1144,6 +1572,150 @@ def absorption_grad(tracer):
     return loss.item(), leaf.grad.double().cpu().numpy()
 
 
+def time_weighted(curve):
+    """sum(curve * exp(-linspace(0, 2, nBins))): the time-weighted signal
+    of ``tools/ref_conformance._medium_params_loss``, linear in the light
+    curve. Phase 4 compares gradients of this loss: the examples' losses
+    are squared differences of two light curves, whose cancellation turns
+    the atomics' rounding of each bin into 1e-5 of the gradient."""
+    import torch
+
+    n_bins = curve.shape[-1]
+    return (curve * torch.exp(-torch.linspace(0.0, 2.0, n_bins, device=curve.device))).sum()
+
+
+def scale_step(tracer, table: str, truth: float | None):
+    """Examples 05 and 06 as one gradient step on ``tracer`` (a volume
+    tracer): the light curve with the medium table ``table`` scaled by
+    exp(s), the observation at s = ``truth`` made beforehand, and a step
+    that returns (loss, d loss / d s) at s = 0 through ``trace_fn()``:
+    loss = 1e6 * sum(((curve - observed) / (sum(observed) + 1))^2), or
+    ``time_weighted(curve)`` where ``truth`` is None."""
+    import torch
+
+    fn, (p, counter, streams) = tracer.trace_fn()
+    base = getattr(p["medium"], table)
+
+    def curve(s):
+        med = dataclasses.replace(p["medium"], **{table: base * torch.exp(s)})
+        state, _ = fn({**p, "medium": med}, counter, streams)
+        return tracer.response.result(p["response"], state)
+
+    if truth is not None:
+        with torch.no_grad():
+            observed = curve(torch.tensor(truth, device=base.device))
+
+    def step():
+        s = torch.zeros((), device=base.device, requires_grad=True)
+        if truth is None:
+            loss = time_weighted(curve(s))
+        else:
+            d = (curve(s) - observed) / (observed.sum() + 1.0)
+            loss = (d * d).sum() * 1e6
+        loss.backward()
+        return loss.item(), s.grad.double().cpu().numpy().reshape(1)
+
+    return step
+
+
+#: the geometry step's observation: the detector (instance 2 of the
+#: flagship) and the source moved by these, in metres
+GEOMETRY_TRUTH = ((0.05, -0.03, 0.0), (0.02, 0.0, 0.01))
+
+
+def geometry_step(tracer, fit: bool = True):
+    """Example 10's calibration as one gradient step on the brute-force
+    flagship ``tracer`` (with a ``KernelHistogramHitResponse``): the light
+    curve with the detector moved by ``translate_instance`` and the source
+    moved, the observation at ``GEOMETRY_TRUTH`` made beforehand, and a
+    step that returns (loss, gradient) at the nominal geometry, loss =
+    sum((curve - observed)^2) / sum(observed^2), the gradient in the
+    detector's shift, the source's position and the packed
+    ``log_phase_function`` and ``refractive_index`` tables (so that the
+    packed read's backward runs too), concatenated. Without ``fit`` the
+    loss is ``time_weighted(curve)``."""
+    import numpy as np
+    import torch
+
+    fn, (p, counter, streams) = tracer.trace_fn()
+    media = p["scene"].media
+    source = p["lightSource"]["position"]
+    dev = source.device
+
+    def curves(delta, src, tables):
+        pack = p["scene"].translate_instance(2, delta)
+        pack = dataclasses.replace(pack, media=dataclasses.replace(media, tables={**media.tables, **tables}))
+        return fn({**p, "scene": pack, "lightSource": {**p["lightSource"], "position": src}}, counter, streams)[0]
+
+    if fit:
+        with torch.no_grad():
+            det_shift, src_shift = (torch.tensor(v, device=dev) for v in GEOMETRY_TRUTH)
+            observed = curves(det_shift, source + src_shift, {})
+
+    def step():
+        leaves = [torch.zeros(3, device=dev), source.clone()] + [
+            media.tables[k].clone() for k in ("log_phase_function", "refractive_index")
+        ]
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+        c = curves(leaves[0], leaves[1], {"log_phase_function": leaves[2], "refractive_index": leaves[3]})
+        loss = ((c - observed) ** 2).sum() / (observed**2).sum() if fit else time_weighted(c)
+        loss.backward()
+        return loss.item(), np.concatenate([leaf.grad.double().cpu().numpy().reshape(-1) for leaf in leaves])
+
+    return step
+
+
+def time_step(step, wrappers, label, reps: int = 3) -> dict:
+    """``step`` once to warm up, then ``reps`` times on the host's clock
+    ending in a synchronize (the median is seconds per step), with the
+    peak memory over them and the launches of ``wrappers`` in the first
+    timed step; then one step under the profiler."""
+    import numpy as np
+    import torch
+
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    seconds, counts = [], None
+    for k in range(reps):
+        for w in wrappers.values():
+            w.launches = 0
+        start = time.perf_counter()
+        loss, grad = step()
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - start)
+        counts = counts or {name: w.launches for name, w in wrappers.items() if w.launches}
+        assert np.isfinite(grad).all() and np.isfinite(loss) and loss > 0.0, f"{label}: non-finite or zero loss"
+    peak = torch.cuda.max_memory_allocated()
+    prof = profile_step(step, watch=("indexing_backward",))
+    med = statistics.median(seconds)
+    print(f"{label}: {med:.4f} s a step (median of {[round(x, 4) for x in seconds]}), peak memory "
+          f"{peak / 2**20:.1f} MiB, launches a step {counts}; profiled: device busy {prof['device_busy_ms']:.2f} ms, "
+          f"{prof['kernels']} kernels and copies, index backward {prof['watched']['indexing_backward']}; loss {loss:.6g}, "
+          f"gradient {np.array2string(grad[:6], precision=6)}{' ...' if grad.size > 6 else ''}")
+    for entry in prof["top"][:6] + prof["own"]:
+        print(f"    {entry['ms']:9.3f} ms {entry['count']:6d} x {entry['name'][:90]}")
+    return dict(seconds_per_step=seconds, median_s=med, peak_bytes=peak, launches=counts, profile=prof,
+                loss=loss, grad=grad.tolist())
+
+
+def gradient_agreement(label, g_cpu, g_card) -> dict:
+    """``PERF.md``'s gradient agreement between the port on the CPU and on
+    the card: the same nonzero entries, each within rtol 1e-3, the sum
+    within 1e-5."""
+    import numpy as np
+
+    rel = np.abs(g_card - g_cpu) / np.maximum(np.abs(g_cpu), 1e-300)
+    worst = float(rel[g_cpu != 0].max())
+    sum_rel = abs(g_card.sum() / g_cpu.sum() - 1.0)
+    print(f"cpu vs card ({label}) at batch {GRAD_BATCH}, path length {GRAD_PATH}: "
+          f"{int((g_cpu != 0).sum())} nonzero entries, worst entry rel diff {worst:.3g}, sum rel diff {sum_rel:.3g}")
+    assert np.array_equal(g_cpu != 0, g_card != 0), f"gradient nonzero pattern differs ({label})"
+    assert worst <= 1e-3 and sum_rel <= 1e-5, f"cpu and card gradients disagree ({label})"
+    return dict(worst_entry_rel=worst, sum_rel=sum_rel)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1161,8 +1733,11 @@ def main() -> int:
     )
     from theia_tpu_torch.ops.intersect_woop import nearest_triangle_woop
     from theia_tpu_torch.random import philox_uniform
+    from theia_tpu_torch.ops import table_read
     from theia_tpu_torch.response import histogram_add, histogram_grad
-    from theia_tpu_torch.response import StoreTimeHitResponse
+    from theia_tpu_torch.response import (
+        KernelHistogramHitResponse, StoreTimeHitResponse, kernel_histogram_add, kernel_histogram_grad,
+    )
     from torch_flagship import (
         adversarial_rays, build_flagship, build_photon_flagship, build_volume_flagship, build_volume_photon, icosphere,
     )
@@ -1172,8 +1747,16 @@ def main() -> int:
 
     def phase(name: str) -> None:
         last = list(clock)[-1]
-        clock[name] = time.perf_counter()
+        clock[name] = lap_clock[0] = time.perf_counter()
         print(f"phase {last}: {clock[name] - clock[last]:.1f} s")
+
+    lap_clock = [time.perf_counter()]
+
+    def lap(what: str) -> None:
+        """The seconds since the last lap, inside a phase."""
+        now = time.perf_counter()
+        print(f"    ({what}: {now - lap_clock[0]:.1f} s)")
+        lap_clock[0] = now
 
     # phase 1: the card and the build
     smi = subprocess.run(
@@ -1228,6 +1811,10 @@ def main() -> int:
             name: dict(route="cuda", source="theia_tpu_torch/csrc/intersect_soup.cu", replaces=replaces)
             for name, replaces in SOUP_KERNELS.items()
         },
+        **{
+            name: dict(route="cuda", source=source, replaces=replaces)
+            for name, (source, replaces) in GRADIENT_KERNELS.items()
+        },
     }
     rows = tracer.scene.pack.tri_data[:, 18:27].cpu().numpy()
     adversarial = tuple(
@@ -1242,6 +1829,7 @@ def main() -> int:
     # fused: 10 of N lanes, 9 of 2 N; polarized, unfused: the extension, the surface and two shadow halves
     assert sorted(r[2].shape[0] for r in mt_records) == [BATCH] * MAX_PATH + [2 * BATCH] * (MAX_PATH - 1)
     assert [r[2].shape[0] for r in woop_records] == [BATCH] * POL_RECORDS, len(woop_records)
+    lap("recording the flagship batches")
     for name, queries in (
         ("nearest_triangle_mt", mt_queries),
         ("nearest_triangle_woop", woop_queries),
@@ -1253,6 +1841,7 @@ def main() -> int:
         if name == "nearest_triangle_mt_rows":
             abc_experiment(nearest, kernels[name])
     del mt_queries, woop_queries, queries, nearest
+    lap("the three nearest-hit kernels")
     soup_rows = brute_tracer.scene.pack.tri_data[:, 18:27].cpu().numpy()
     assert (soup_rows[:, 0:3] != rows[:, 0:3]).any(), "the brute-force soup is in instance order, not Morton order"
     # the 10 primary queries (every group, no mask) and the 9 shadow pairs (the detector, masked)
@@ -1280,6 +1869,7 @@ def main() -> int:
     print(f"kernel target_in_table: bit-equal to plain without rows on the {len(shadow)} recorded shadow pairs "
           f"and on soups of 1, 255, 257 and 3840 triangles (no occluder)")
     del primary, shadow, occluder_halves, queries
+    lap("the soup kernels")
     check_philox(kernels["philox_uniform"])
     check_histogram(kernels["histogram_add"], kernels["histogram_grad"])
     brute_records = record_records(brute_tracer)
@@ -1287,6 +1877,7 @@ def main() -> int:
     for path, records in (("mt", mt_records), ("polarized woop", woop_records), ("brute", brute_records)):
         check_record_replay(records, path, kernels["histogram_add"], kernels["histogram_grad"])
     del mt_records, woop_records, brute_records, records
+    lap("philox and the histogram")
     # the volume flagship's records (one direct extension, then two MIS candidates a segment) and the
     # photon flagship's: its primary queries and records, of run() and of run_compacted()
     volume_tracer = build_volume_flagship(theia_tpu_torch, BATCH, "cuda")
@@ -1307,6 +1898,13 @@ def main() -> int:
     assert len(photon_records) == 2 * PHOTON_PATH, len(photon_records)
     check_record_replay(photon_records, "photon", kernels["histogram_add"], kernels["histogram_grad"])
     del volume_records, photon_queries, photon_records
+    # the gradient path's kernels: the kernel histogram (K1) and the table reads (K2) on the flagship
+    # scene's packed tables and the volume flagship's 1024-sample table
+    lap("the volume and photon flagships' records and queries")
+    check_kernel_histogram(kernels["kernel_histogram_add"], kernels["kernel_histogram_grad"])
+    check_table_read(kernels, brute_tracer.scene.pack.media, volume_tracer.params()["medium"].absorption_coef)
+    check_gather_rows(kernels["gather_rows"], kernels["gather_rows_grad"], brute_tracer.scene.pack)
+    lap("the kernel histogram and the table reads")
 
     phase("3")
     # phase 3: the first main path (accel="mt") at full width
@@ -1320,12 +1918,28 @@ def main() -> int:
         "target_in_table": target_in_table,
         "philox_uniform": philox_uniform,
         "histogram_add": histogram_add,
+        "read_table": table_read.read_table,
+        "read_packed": table_read.read_packed,
+        "read_rows": table_read.read_rows,
+        "gather_rows": table_read.gather_rows,
+    }
+    # the gradient steps' launches: every wrapper, the backward kernels and the kernel histogram too
+    grad_wrappers = {
+        **wrappers,
+        "histogram_grad": histogram_grad,
+        "kernel_histogram_add": kernel_histogram_add,
+        "kernel_histogram_grad": kernel_histogram_grad,
+        "read_table_grad": table_read.read_table_grad,
+        "read_packed_grad": table_read.read_packed_grad,
+        "read_rows_grad": table_read.read_rows_grad,
+        "gather_rows_grad": table_read.gather_rows_grad,
     }
     seconds, sums, counts, peak = timed_runs(tracer, wrappers, "mt path")
     assert counts["nearest_triangle_mt_rows"] == 19 * 3, counts  # 10 primary + 9 shadow
     assert counts["nearest_triangle_mt"] == counts["nearest_triangle_woop"] == 0, counts
     assert not any(counts[name] for name in SOUP_KERNELS), counts
     assert counts["philox_uniform"] > 0 and counts["histogram_add"] == 19 * 3, counts
+    assert counts["read_rows"] > 0 and counts["read_packed"] > 0, counts
     med = statistics.median(seconds)
     print(
         f"main path (mt): batch {BATCH}, path length {MAX_PATH}, {tracer.scene.pack.mt.n_tri} triangles: "
@@ -1337,7 +1951,7 @@ def main() -> int:
     for name in ("nearest_triangle_mt_rows", "philox_uniform", "histogram_add"):
         kernels[name].update(launches=counts[name], launches_per_batch=counts[name] // 3,
                              path="mt flagship, 3 batches")
-    # the winners' rows from the kernel and from a torch gather, in turns
+    # the winners' rows from the kernel and from a separate gather (gather_rows), in turns
     turns = []
     for from_query in (True, False, False, True):
         accel.ROWS_FROM_QUERY = from_query
@@ -1350,10 +1964,10 @@ def main() -> int:
         if not from_query:
             kernels["nearest_triangle_mt"].update(
                 launches=turn_counts[own], launches_per_batch=19,
-                path="mt flagship with the torch gather, 3 batches",
+                path="mt flagship with the separate gather, 3 batches",
             )
     accel.ROWS_FROM_QUERY = True
-    print("main path (mt), rows from the kernel / a torch gather, in turns: " + "; ".join(
+    print("main path (mt), rows from the kernel / a separate gather, in turns: " + "; ".join(
         f"{'kernel' if t['rows_from_kernel'] else 'gather'} {statistics.median(t['seconds_per_batch']):.4f} s "
         f"{[round(x, 4) for x in t['seconds_per_batch']]}" for t in turns
     ))
@@ -1388,12 +2002,14 @@ def main() -> int:
         try:
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
-            histogram_grad.launches = 0
+            for w in grad_wrappers.values():
+                w.launches = 0
             start = time.perf_counter()
             loss, grad = absorption_grad(pol_tracer)
             torch.cuda.synchronize()
             grad_seconds = time.perf_counter() - start
             grad_launches = histogram_grad.launches
+            grad_counts = {name: w.launches for name, w in grad_wrappers.items() if w.launches}
             break
         except torch.cuda.OutOfMemoryError:
             grad_batch //= 2
@@ -1414,6 +2030,22 @@ def main() -> int:
     kernels["histogram_grad"].update(
         launches=grad_launches, launches_per_batch=grad_launches, path="polarized woop gradient, 1 step"
     )
+    # the table reads' backward replaces torch's sorting index backward (before it was a kernel:
+    # indexing_backward_kernel_small_stride, 10 launches, 51.0 of 168.1 ms of device time); one step profiled
+    assert grad_counts.get("read_rows_grad", 0) > 0, grad_counts
+    for name in ("read_rows", "read_rows_grad", "read_packed"):
+        kernels[name].update(launches=grad_counts.get(name, 0), launches_per_step=grad_counts.get(name, 0),
+                             path="polarized woop gradient, 1 step")
+    grad_prof = profile_step(lambda: absorption_grad(pol_tracer), watch=("indexing_backward",))
+    small_stride = [e for e in grad_prof["watched"]["indexing_backward"] if "small_stride" in e["name"]]
+    print(f"gradient (woop, polarized) profiled: device busy {grad_prof['device_busy_ms']:.2f} ms, "
+          f"{grad_prof['kernels']} kernels and copies; launches a step {grad_counts}; index backward kernels "
+          f"{grad_prof['watched']['indexing_backward']} (before the reads' backward kernel: "
+          f"indexing_backward_kernel_small_stride 10 launches, "
+          f"51.048 ms of 168.09 ms)")
+    for entry in grad_prof["top"][:8] + grad_prof["own"]:
+        print(f"    {entry['ms']:9.3f} ms {entry['count']:6d} x {entry['name'][:90]}")
+    assert not small_stride, f"the table reads' backward still runs torch's index backward: {small_stride}"
     del pol_tracer
     torch.cuda.empty_cache()
 
@@ -1438,7 +2070,7 @@ def main() -> int:
     for name in ("nearest_in_table_rows", "target_in_table"):
         kernels[name].update(launches=brute_counts[name], launches_per_batch=brute_counts[name] // 3,
                              path="brute-force flagship, 3 batches")
-    # the winners' rows from the kernel and from a torch gather, in turns
+    # the winners' rows from the kernel and from a separate gather (gather_rows), in turns
     brute_turns = []
     for from_query in (True, False, False, True):
         accel.ROWS_FROM_QUERY = from_query
@@ -1452,10 +2084,10 @@ def main() -> int:
         if not from_query:
             kernels["nearest_in_table"].update(
                 launches=turn_counts[own], launches_per_batch=MAX_PATH,
-                path="brute-force flagship with the torch gather, 3 batches",
+                path="brute-force flagship with the separate gather, 3 batches",
             )
     accel.ROWS_FROM_QUERY = True
-    print("main path (brute), rows from the kernel / a torch gather, in turns: " + "; ".join(
+    print("main path (brute), rows from the kernel / a separate gather, in turns: " + "; ".join(
         f"{'kernel' if t['rows_from_kernel'] else 'gather'} {statistics.median(t['seconds_per_batch']):.4f} s "
         f"{[round(x, 4) for x in t['seconds_per_batch']]}" for t in brute_turns
     ))
@@ -1496,7 +2128,8 @@ def main() -> int:
     # phase 3f: the volume flagship (examples/01_volume_tracing.py's tracer) at the flagship's width
     vol_seconds, vol_sums, vol_counts, vol_peak = timed_runs(volume_tracer, wrappers, "volume path")
     assert vol_counts["histogram_add"] == VOLUME_RECORDS * 3 and vol_counts["philox_uniform"] > 0, vol_counts
-    assert not any(vol_counts[name] for name in wrappers if name not in ("histogram_add", "philox_uniform")), vol_counts
+    assert vol_counts["read_table"] > 0, vol_counts
+    assert not any(vol_counts[name] for name in wrappers if name not in ("histogram_add", "philox_uniform", "read_table")), vol_counts
     vol_med = statistics.median(vol_seconds)
     vol_prof = profile_step(volume_tracer.run)
     print(
@@ -1560,6 +2193,50 @@ def main() -> int:
     del photon_tracer
     torch.cuda.empty_cache()
 
+    phase("3h")
+    # phase 3h: the volume flagship's gradient steps at full width: example 05's loss in the absorption
+    # scale, example 06's with a kernel histogram (100 bins of 5 ns, bandwidth 5 ns) in the group velocity's
+    kde = lambda: KernelHistogramHitResponse(nBins=100, t0=0.0, binSize=5.0, bandwidth=5.0)
+    volume_steps = {}
+    for label, build, table, truth in (
+        ("absorption (example 05)", lambda: build_volume_flagship(theia_tpu_torch, BATCH, "cuda"),
+         "absorption_coef", float(np.log(1.35))),
+        ("group velocity, kernel histogram (example 06)",
+         lambda: build_volume_flagship(theia_tpu_torch, BATCH, "cuda", response=kde()),
+         "group_velocity", float(np.log(0.92))),
+    ):
+        torch.cuda.empty_cache()
+        volume_steps[label] = time_step(scale_step(build(), table, truth), grad_wrappers,
+                                        f"volume gradient step, {label}: batch {BATCH}, 10 scatterings")
+    vol_abs, vol_vg = volume_steps.values()
+    assert vol_abs["launches"].get("read_table_grad", 0) > 0 and "kernel_histogram_add" not in vol_abs["launches"]
+    assert vol_vg["launches"]["kernel_histogram_add"] == VOLUME_RECORDS, vol_vg["launches"]
+    assert vol_vg["launches"]["kernel_histogram_grad"] == VOLUME_RECORDS, vol_vg["launches"]
+    for name in ("read_table", "read_table_grad"):
+        kernels[name].update(launches=vol_abs["launches"][name], launches_per_step=vol_abs["launches"][name],
+                             path="volume flagship gradient in the absorption scale, 1 step")
+    for name in ("kernel_histogram_add", "kernel_histogram_grad"):
+        kernels[name].update(launches=vol_vg["launches"][name], launches_per_step=vol_vg["launches"][name],
+                             path="volume flagship gradient in the group velocity, kernel histogram, 1 step")
+    torch.cuda.empty_cache()
+
+    phase("3i")
+    # phase 3i: the brute-force flagship's geometry gradient at full width, with a kernel histogram
+    # (100 bins of 5 ns, bandwidth 5 ns): the detector through translate_instance, the source's position,
+    # and the packed log_phase_function and refractive_index tables
+    geo_tracer = build_flagship(theia_tpu_torch, mesh, BATCH, MAX_PATH, accel="auto", device="cuda", response=kde())
+    assert geo_tracer.scene.accel == "brute"
+    geo = time_step(geometry_step(geo_tracer), grad_wrappers,
+                    f"brute geometry gradient step: batch {BATCH}, path length {MAX_PATH}")
+    assert geo["launches"]["kernel_histogram_grad"] == 19 and geo["launches"]["read_packed_grad"] > 0, geo["launches"]
+    # the hit reconstruction's rows of tri_data and inst_data, forward and backward, at each of the 19 queries
+    assert geo["launches"]["gather_rows"] == geo["launches"]["gather_rows_grad"] == 2 * 19, geo["launches"]
+    for name in ("read_packed_grad", "gather_rows", "gather_rows_grad"):
+        kernels[name].update(launches=geo["launches"][name], launches_per_step=geo["launches"][name],
+                             path="brute geometry gradient, 1 step")
+    del geo_tracer
+    torch.cuda.empty_cache()
+
     phase("4")
     # phase 4: the port on the CPU against the port on the card
     cpu_vs_card = {}
@@ -1616,6 +2293,20 @@ def main() -> int:
     assert np.array_equal(g_cpu != 0, g_card != 0), "gradient nonzero pattern differs"
     assert worst <= 1e-3 and sum_rel <= 1e-5, "cpu and card gradients disagree"
     cpu_vs_card["gradient"] = dict(worst_entry_rel=worst, sum_rel=sum_rel)
+    # the gradient path's steps, small, of their time-weighted signals (see time_weighted): the volume
+    # flagship's two (3 scatterings) and the geometry step
+    small_volume = lambda **kw: lambda dev: build_volume_flagship(
+        theia_tpu_torch, GRAD_BATCH, dev, nScattering=GRAD_PATH, **kw)
+    for label, build, make in (
+        ("volume, absorption", small_volume(), lambda t: scale_step(t, "absorption_coef", None)),
+        ("volume, group velocity, kernel histogram", small_volume(response=kde()),
+         lambda t: scale_step(t, "group_velocity", None)),
+        ("brute geometry", lambda dev: build_flagship(theia_tpu_torch, mesh, GRAD_BATCH, GRAD_PATH, accel="auto",
+                                                      device=dev, response=kde()),
+         lambda t: geometry_step(t, fit=False)),
+    ):
+        grads = {dev: make(build(dev))()[1] for dev in ("cpu", "cuda")}
+        cpu_vs_card[f"gradient, {label}"] = gradient_agreement(label, grads["cpu"], grads["cuda"])
 
     phase("end")
     for info in kernels.values():
@@ -1637,7 +2328,9 @@ def main() -> int:
         photon_path=dict(compacted_vs_run_rel=photon_rel, lanes_after_each_run=photon_lanes, turns=photon_turns,
                          profile=photon_prof),
         gradient=dict(batch=grad_batch, seconds=grad_seconds, peak_bytes=grad_peak, loss=loss,
-                      grad_sum=float(grad.sum()), grad=grad.tolist(), histogram_grad_launches=grad_launches),
+                      grad_sum=float(grad.sum()), grad=grad.tolist(), histogram_grad_launches=grad_launches,
+                      launches=grad_counts, profile=grad_prof),
+        volume_gradient_steps=volume_steps, geometry_gradient_step=geo,
         cpu_vs_card=cpu_vs_card, phase_seconds={k: clock[n] - clock[k] for k, n in zip(clock, list(clock)[1:])},
         **line,
     ), indent=1))

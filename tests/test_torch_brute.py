@@ -375,6 +375,29 @@ def test_flagship_tables_equal():
     assert torch.equal(carried.soup.aos, tp.soup.aos) and torch.equal(carried.shadow_split.nd_v0, tp.shadow_split.nd_v0)
 
 
+@pytest.mark.parametrize("accel", ["mt", "woop"])
+def test_accelerated_pack_soup_fields_equal(accel):
+    """``mt`` and ``woop`` packs carry ``theia_tpu``'s world soup and
+    detector split in their Morton order (``theia_tpu/scene.py:624-640``),
+    bit for bit, and ``interop`` carries them across."""
+    mesh = icosphere(2)
+    jp = build_flagship(theia_tpu, mesh, 64, 2, accel=accel).scene.pack
+    tp = build_flagship(theia_tpu_torch, mesh, 64, 2, accel=accel, device="cpu").scene.pack
+    assert getattr(tp, accel) is not None and tp.soup is None and tp.cull is None and jp.cull is None
+    carried = params_from_numpy({"scene": numpy_tree(jp)}, "cpu")["scene"]
+    for pack in (tp, carried):
+        for f in ("w_v0", "w_e1", "w_e2", "tri_data"):
+            np.testing.assert_array_equal(np.asarray(getattr(jp, f)), getattr(pack, f).numpy(), err_msg=f)
+        for f in dataclasses.fields(tp.shadow_split):
+            np.testing.assert_array_equal(
+                np.asarray(getattr(jp.shadow_split, f.name)), getattr(pack.shadow_split, f.name).numpy(),
+                err_msg=f.name,
+            )
+    assert tp.shadow_split.det_v0.shape == (320, 3) and tp.shadow_split.nd_v0.shape == (640, 3)
+    with pytest.raises(ValueError, match="brute"):
+        tp.translate_instance(2, torch.zeros(3))
+
+
 # -- the culled queries ----------------------------------------------------
 
 
@@ -504,7 +527,8 @@ def test_intersect_target_falls_back(packs):
     med = np.zeros(512, np.int32)
     active = torch.zeros(512, dtype=torch.bool)
     mt_pack = _scene(theia_tpu_torch, "three", accel="mt").pack
-    assert mt_pack.shadow_split is None and mt_pack.soup is None
+    # an mt pack carries theia_tpu's detector split, which only brute-force queries take
+    assert mt_pack.shadow_split is not None and mt_pack.soup is None
     a = taccel.intersect_target(mt_pack, *_tt(med, o, d, t), active=active)
     b = taccel.intersect_scene(mt_pack, *_tt(med, o, d, t))
     for f in dataclasses.fields(a):

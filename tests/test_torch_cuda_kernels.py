@@ -286,3 +286,56 @@ def test_soup_kernels_on_hard_rays(cuda, name):
         # with the bound at the nearest hit, that hit no longer counts
         t_hit = nearest_in_table(soup.tables[0], q_o, q_d, t_max, groups=groups, active=mask)[0]
         soup.check((q_o, q_d, t_hit.contiguous()), "the bound at the hit", on_cpu=False, groups=groups, active=mask)
+
+
+@pytest.mark.parametrize(
+    "label,args",
+    [
+        ("N=20000", dict(n=20_000, seed=1)),
+        ("odd N with a detector axis", dict(n=4099, seed=2, bins=50, n_det=3)),
+        ("views at element 1", dict(n=1001, seed=3, offset=1)),
+        ("a state past shared memory", dict(n=5000, seed=4, bins=1000, n_det=64)),
+    ],
+)
+def test_kernel_histogram_kernels(cuda, label, args):
+    """The kernel histogram's record and backward (``csrc/kernel_histogram.cu``)
+    against their plain versions, under ``chip_smoke.hold_kde``'s stated
+    tolerances."""
+    from chip_smoke import hold_kde, kde_case
+    from theia_tpu_torch.response import kernel_histogram_add, kernel_histogram_grad
+
+    before = kernel_histogram_add.launches, kernel_histogram_grad.launches
+    hold_kde(kde_case(**args), label)
+    assert (kernel_histogram_add.launches, kernel_histogram_grad.launches) == (before[0] + 1, before[1] + 1)
+
+
+def test_table_read_kernels(cuda):
+    """The three table reads (``csrc/table_read.cu``) on the flagship
+    scene's tables and a volume table against their plain versions, under
+    ``chip_smoke.hold_table_reads``' stated tolerances."""
+    import theia_tpu_torch
+    from chip_smoke import hold_table_reads
+    from theia_tpu_torch.ops import table_read
+    from torch_flagship import build_flagship, build_volume_flagship, icosphere
+
+    store = build_flagship(theia_tpu_torch, icosphere(1), 64, 2, accel="auto", device=cuda).scene.pack.media
+    table = build_volume_flagship(theia_tpu_torch, 64, cuda).params()["medium"].absorption_coef
+    before = table_read.read_rows.launches
+    hold_table_reads(store, table)
+    assert table_read.read_rows.launches > before and table_read.read_table_grad.launches > 0
+
+
+def test_gather_rows_kernels(cuda):
+    """The hit reconstruction's row gather and its backward
+    (``csrc/table_read.cu``) on the brute flagship's ``tri_data`` (the
+    backward in device memory) and ``inst_data`` (in shared memory), under
+    ``chip_smoke.check_gather_rows``' stated tolerances."""
+    import theia_tpu_torch
+    from chip_smoke import check_gather_rows
+    from theia_tpu_torch.ops.table_read import gather_rows
+    from torch_flagship import build_flagship, icosphere
+
+    pack = build_flagship(theia_tpu_torch, icosphere(3), 64, 2, accel="auto", device=cuda).scene.pack
+    before = gather_rows.launches
+    check_gather_rows({}, {}, pack)
+    assert gather_rows.launches > before

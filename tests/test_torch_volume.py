@@ -253,14 +253,29 @@ def _golden_tracer(name, batch):
     return build_volume_flagship(P, batch, "cpu", medium=water, refCompatRNG=True)
 
 
+def _medium_grads(tracer, tables):
+    """``tools/ref_conformance._medium_params_loss``'s gradients in the
+    port: d sum(result * exp(-linspace(0, 2, nBins))) / d table, each
+    medium table in ``tables`` a leaf, one backward for all."""
+    fn, (p, counter, streams) = tracer.trace_fn()
+    n_bins = tracer.response.nBins
+    weights = torch.exp(-torch.linspace(0.0, 2.0, n_bins))
+    leaves = {t: getattr(p["medium"], t).clone().requires_grad_(True) for t in tables}
+    p = {**p, "medium": dataclasses.replace(p["medium"], **leaves)}
+    hist = tracer.response.result(p["response"], fn(p, counter, streams)[0])
+    (hist.reshape(-1, n_bins) * weights).sum().backward()
+    return {f"grad_{t}": leaf.grad.double().numpy() for t, leaf in leaves.items()}
+
+
 @pytest.mark.parametrize("name", ["c1_volume_homogeneous", "c2_volume_hg"])
 def test_golden(name):
     """The port reproduces the mesh-free goldens at their own batch
     (16,384, ``tools/ref_conformance.py`` DEFAULT_BATCH): the mean and
     per-batch light curves of two batches, the final RNG dims of a
-    256-lane probe after them, and the raw Philox words of 16 streams.
-    c2's ``grad_*`` keys are left out: the gradients of the volume path
-    are the next item of the port (ROADMAP.md queue 1 item 3)."""
+    256-lane probe after them, the raw Philox words of 16 streams and,
+    for c2, its ``grad_*`` keys: d/d(water table) of the time-weighted
+    signal of a fresh tracer through ``trace_fn()``, under the golden's
+    own ``tol["grads"]``."""
     from theia_tpu_torch.random import philox_uniform
 
     with np.load(GOLDENS / f"{name}.npz", allow_pickle=False) as f:
@@ -278,6 +293,8 @@ def test_golden(name):
     dim = torch.arange(n, dtype=torch.int32).repeat(16)
     draws = philox_uniform(tracer.rng.key_words, (0, 0, 0, 0), stream, dim).reshape(16, n)
     fresh = dict(hist=runs.mean(0), hist_runs=runs, rng_dims=dims.numpy().astype(np.uint32), rng_draws=draws.numpy())
-    golden = {k: v for k, v in golden.items() if not k.startswith("grad_")}
+    tables = [k[len("grad_"):] for k in golden if k.startswith("grad_")]
+    if tables:
+        fresh.update(_medium_grads(_golden_tracer(name, meta["batch"]), tables))
     errors = compare(golden, fresh, name)
     assert not errors, "\n".join(errors)

@@ -149,8 +149,8 @@ def build_volume_flagship(pkg, batch: int, device=None, **kw):
     sizes, a spherical source at (-1, -7, 0) m with budget 1e9, a 5 m
     ``SphereTarget`` at the origin, 400-500 nm, 100 bins of 5 ns,
     ``PhiloxRNG(key=0xC0FFEE)``, 10 scatterings, 500 ns. ``kw`` goes to
-    the tracer (``polarized``, the flags, ``medium`` or ``response`` to
-    replace the water or the histogram)."""
+    the tracer (``polarized``, the flags, ``medium``, ``response`` or
+    ``nScattering`` to replace the water, the histogram or the depth)."""
     mod = lambda name: importlib.import_module(f"{pkg.__name__}.{name}")
     light, rnd, response, target = mod("light"), mod("random"), mod("response"), mod("target")
     dev = {} if device is None else {"device": device}
@@ -163,7 +163,7 @@ def build_volume_flagship(pkg, batch: int, device=None, **kw):
         light.UniformWavelengthSource(lambdaRange=(400.0, 500.0)),
         resp,
         rnd.PhiloxRNG(key=0xC0FFEE),
-        nScattering=10,
+        nScattering=kw.pop("nScattering", 10),
         maxTime=500.0,
         **kw,
         **dev,
@@ -304,3 +304,101 @@ def numpy_tree(x):
     if isinstance(x, (str, bool, int, tuple)):
         return x
     return np.asarray(x)
+
+
+def build_grad_scene(pkg, kind: str, batch: int, device=None, *, mesh=None, max_path=None):
+    """The scene tracers of ``tests/test_grad_scene.py`` (and golden c5's)
+    in package ``pkg``, on the in-code icosphere ``mesh`` (default
+    ``icosphere(2)``) where those load ``sphere.stl`` or ``suzanne.stl``:
+
+    - ``"medium"``: a 100 m detector sphere of HG water (mu_a 0.01, mu_s
+      0.008, g 0.4) around the source, fixed scatter coefficient, path
+      length 6 (``build_forward_tracer``: mu FD-exact, mu_a sign);
+    - ``"fresnel"``: a non-absorbing 60 m detector sphere in water (mu_s
+      0.01, g 0.3), path length 5 (``build_fresnel_tracer``: the IOR);
+    - ``"source"``: four 0.4 m detectors of ``WaterTestModel`` water
+      around the source, a ``KernelHistogramHitResponse`` with a detector
+      axis, path length 4 (``test_arrival_time_gradient_wrt_source_position``,
+      here on ``accel="brute"`` where the JAX test names ``"instanced"``);
+    - ``"detector"``: one 0.5 m detector at (3, 0, 0), brute force, a
+      ``KernelHistogramHitResponse``, path length 4
+      (``test_detector_position_gradient``);
+    - ``"c5"``: golden c5's polarized scene (a BK7 shell around the source
+      in water, the detector, which in c5 is suzanne, at (0, 4, 0), a
+      ``SphereTargetGuide``; ``tools/ref_conformance.c5_suzanne_polarized_grad``).
+
+    ``max_path`` replaces the path length. Scene media keep the names the
+    tests patch: ``homogenous``, ``water_test``, ``water`` and ``bk7``."""
+    mod = lambda name: importlib.import_module(f"{pkg.__name__}.{name}")
+    light, material, rnd, response = mod("light"), mod("material"), mod("random"), mod("response")
+    scene_mod, target, u = mod("scene"), mod("target"), mod("units")
+    tracers = mod("trace.scene")
+    dev = {} if device is None else {"device": device}
+    Material, T = material.Material, scene_mod.Transform
+    meshes = scene_mod.MeshStore({"sphere": mod("mesh").Mesh.from_geometry(*(mesh or icosphere(2)))})
+
+    class Model(material.DispersionFreeMedium, material.HenyeyGreensteinPhaseFunction, material.MediumModel):
+        ModelName = "homogenous"
+
+        def __init__(self, a, s, g):
+            material.DispersionFreeMedium.__init__(self, n=1.33, ng=1.33, mu_a=a, mu_s=s)
+            material.HenyeyGreensteinPhaseFunction.__init__(self, g)
+
+    def tracer(scene, source, resp, key, path, **kw):
+        return tracers.SceneForwardTracer(
+            batch, source, light.UniformWavelengthSource(lambdaRange=kw.pop("lam", (450.0, 450.0))), resp,
+            rnd.PhiloxRNG(key=key), scene, maxPathLength=max_path or path, **kw, **dev,
+        )
+
+    origin = lambda t0=0.0, budget=1e9: light.SphericalLightSource(
+        position=(0.0, 0.0, 0.0), timeRange=(t0, t0), budget=budget
+    )
+    if kind in ("medium", "fresnel"):
+        a, s, g, flags, scale = (0.01, 0.008, 0.4, "DB", 100.0) if kind == "medium" else (0.0, 0.01, 0.3, "D", 60.0)
+        mats = material.MaterialStore.pack([Material("det", Model(a, s, g).createMedium(), None, flags=flags)], **dev)
+        inst = meshes.createInstance("sphere", "det", T.TRS(scale=scale), detectorId=0)
+        scene = scene_mod.Scene([inst], mats, medium="homogenous", **dev)
+        hist = response.HistogramHitResponse(nBins=50, t0=0.0, binSize=25.0)
+        return tracer(
+            scene, origin(10.0 if kind == "medium" else 0.0), hist, 0xC0FFEE if kind == "medium" else 0xBEEF,
+            6 if kind == "medium" else 5, scatterCoefficient=0.02, maxTime=float("inf"),
+        )
+    if kind in ("source", "detector"):
+        medium = mod("testing").WaterTestModel(mu_a=0.01, mu_s=0.02, g=0.3).createMedium()
+        mats = material.MaterialStore.pack([Material("det", None, medium, flags="DB")], **dev)
+        if kind == "source":
+            insts = [
+                meshes.createInstance(
+                    "sphere", "det", T.TRS(scale=0.4, translate=(2.0 * i - 1.0, 2.0 * j - 1.0, 0.0)),
+                    detectorId=i * 2 + j,
+                )
+                for i in range(2) for j in range(2)
+            ]
+            resp = response.KernelHistogramHitResponse(nBins=30, t0=0.0, binSize=1.0, nDetectors=4)
+            key, lam, max_time = 0xBADA55, (420.0, 480.0), 30.0
+        else:
+            insts = [meshes.createInstance("sphere", "det", T.TRS(scale=0.5, translate=(3.0, 0.0, 0.0)), detectorId=0)]
+            resp = response.KernelHistogramHitResponse(nBins=30, t0=0.0, binSize=1.5)
+            key, lam, max_time = 0xD07, (450.0, 450.0), 40.0
+        scene = scene_mod.Scene(insts, mats, medium="water_test", accel="brute", **dev)
+        return tracer(scene, origin(0.0, 1e6), resp, key, 4, lam=lam, maxTime=max_time)
+    if kind == "c5":
+        water = water_medium(material, num_lambda=64, num_theta=256)
+        glass = material.BK7Model().createMedium(num_lambda=64, num_theta=4)
+        mats = material.MaterialStore.pack(
+            [Material("glass_water", glass, water, flags="TR"), Material("det_water", None, water, flags="DB")], **dev
+        )
+        src = (0.0, -2.0, 0.0)
+        insts = [
+            meshes.createInstance("sphere", "glass_water", T.TRS(scale=0.8, translate=src)),
+            meshes.createInstance("sphere", "det_water", T.TRS(scale=1.0, translate=(0.0, 4.0, 0.0)), detectorId=1),
+        ]
+        scene = scene_mod.Scene(insts, mats, medium="water", **dev)
+        return tracer(
+            scene, light.SphericalLightSource(position=src, timeRange=(0.0, 5.0), budget=1e6),
+            response.HistogramHitResponse(nBins=100, t0=0.0, binSize=2.0 * u.ns), 0x5A, 6,
+            lam=(400.0, 500.0), sourceMedium="bk7", targetId=1,
+            targetGuide=target.SphereTargetGuide(position=(0.0, 4.0, 0.0), radius=1.5),
+            polarized=True, refCompatRNG=True,
+        )
+    raise ValueError(f"unknown gradient scene {kind!r}")

@@ -28,7 +28,10 @@ __all__ = ["KernelLibrary", "library", "build", "check", "stream_handle"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "theia_tpu_torch"
-SOURCES = ("intersect_woop.cu", "intersect_soup.cu", "philox.cu", "histogram.cu")
+SOURCES = (
+    "intersect_woop.cu", "intersect_soup.cu", "philox.cu", "histogram.cu",
+    "kernel_histogram.cu", "table_read.cu",
+)
 #: -fmad=false: no contraction of a*b+c into FMAs, so every product and sum
 #: rounds exactly as the plain PyTorch versions' separate ops do (explicit
 #: fmaf intrinsics, as in the nearest-hit kernels' rejection tests, stay)
@@ -41,6 +44,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint32
+_F = ctypes.c_float
 #: argument types of each C entry point (pointers and the stream as void*)
 _SIGNATURES = {
     "theia_woop_nearest": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P),
@@ -52,6 +56,16 @@ _SIGNATURES = {
     "theia_histogram_add": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
     "theia_histogram_grad": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
     "theia_empty_launch": (_P,),
+    "theia_kde_add": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
+    "theia_kde_grad": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
+    "theia_table_read": (_P, _I, _P, _I, _P, _P),
+    "theia_table_read_grad": (_P, _I, _P, _P, _I, _P, _P, _P),
+    "theia_packed_read": (_P, _I, _I, _P, _P, _P, _F, _I, _P, _P),
+    "theia_packed_read_grad": (_P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P),
+    "theia_rows_read": (_P, _I, _I, _P, _P, _P, _F, _F, _F, _F, _I, _P, _P),
+    "theia_rows_read_grad": (_P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P),
+    "theia_gather_rows": (_P, _I, _P, _I, _P, _P),
+    "theia_gather_rows_grad": (_P, _I, _P, _I, _I, _P, _P),
 }
 
 

@@ -42,6 +42,7 @@ from .ops.intersect_mt import nearest_triangle_mt, nearest_triangle_mt_rows
 from .ops.intersect_soup import anyhit_in_table, nearest_in_table, nearest_in_table_rows, target_in_table
 from .ops.intersect_woop import nearest_triangle_woop
 from .ops.math3d import cross, dot, matvec, moeller_trumbore_rowwise, normalize, sign_bit, vec3
+from .ops.table_read import gather_rows
 from .scene import ScenePack
 from .trace.core import EventResultCode
 
@@ -80,8 +81,8 @@ class SurfaceHit:
 
 #: whether brute-force and ``mt`` packs take the winners' rows from the
 #: query (:func:`nearest_in_table_rows`, :func:`nearest_triangle_mt_rows`)
-#: or gather them in torch; a switch for measuring one against the other,
-#: nothing else sets it
+#: or gather them afterwards (``ops/table_read.gather_rows``); a switch
+#: for measuring one against the other, nothing else sets it
 ROWS_FROM_QUERY = True
 
 
@@ -189,7 +190,7 @@ def _reconstruct_hit(
     (N, 32) where the query already fetched it."""
     valid = tri >= 0
     if row is None:
-        row = pack.tri_data[torch.clamp_min(tri, 0)]  # (N, 32)
+        row = gather_rows(pack.tri_data, torch.clamp_min(tri, 0))  # (N, 32)
     o_v0, o_e1, o_e2 = row[:, 0:3], row[:, 3:6], row[:, 6:9]
     n0, n1, n2 = row[:, 9:12], row[:, 12:15], row[:, 15:18]
     wv0, we1, we2 = row[:, 18:21], row[:, 21:24], row[:, 24:27]
@@ -208,7 +209,7 @@ def _reconstruct_hit(
     # match sign of the geometric normal to the authored vertex normals
     obj_nrm = normalize(obj_nrm * sign_bit(dot(obj_nrm, int_nrm))[:, None])
 
-    irow = pack.inst_data[inst]  # (N, 32)
+    irow = gather_rows(pack.inst_data, inst)  # (N, 32)
     w2o = irow[:, 0:12].reshape(-1, 3, 4)
     o2w = irow[:, 12:24].reshape(-1, 3, 4)
     lin_w2o = w2o[:, :, :3]

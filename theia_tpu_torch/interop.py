@@ -17,12 +17,11 @@ The Woop pack's chunk-skip boxes come from the world triangles of
 ``tri_data``, which are in the same Morton order. A pack with ``bvh`` or
 ``instanced`` tables raises ``NotImplementedError``: those traversals are
 not ported. A pack with none of ``mt``, ``woop``, ``bvh`` and
-``instanced`` is a brute-force pack: its soup ``w_v0``/``w_e1``/``w_e2``,
-``shadow_split`` and ``cull`` come across as they are, and the soup
-kernels' table is derived from the soup with one group an instance.
-On accelerated packs those fields are ignored, as nothing reads them
-there. It imports neither jax nor theia_tpu: flattening the JAX pytree
-is the caller's side.
+``instanced`` is a brute-force pack: its ``cull`` comes across as it is,
+and the soup kernels' table is derived from the soup with one group an
+instance. Every pack's soup ``w_v0``/``w_e1``/``w_e2`` and
+``shadow_split`` come across as they are. It imports neither jax nor
+theia_tpu: flattening the JAX pytree is the caller's side.
 """
 
 from __future__ import annotations
@@ -52,14 +51,21 @@ def _tensors(tree, device):
     return _tensor(tree, device)
 
 
-def _brute_tables(s, device) -> dict:
-    """The brute-force fields of the port's pack from the JAX pack's."""
-    w_v0, w_e1, w_e2 = (_tensor(s[k], device) for k in ("w_v0", "w_e1", "w_e2"))
-    inst_data = np.asarray(s["inst_data"])
-    spans = instance_spans(np.asarray(s["tri_data"])[:, 27], inst_data.shape[0])
-    split, cull = s.get("shadow_split"), s.get("cull")
+def _soup_fields(s, device) -> dict:
+    """The world soup and the detector split, which every pack carries."""
+    split = s.get("shadow_split")
     if split is not None:
         split = ShadowSplit(**{k: _tensor(v, device) for k, v in split.items()})
+    fields = {k: _tensor(s[k], device) for k in ("w_v0", "w_e1", "w_e2")}
+    return dict(fields, shadow_split=split)
+
+
+def _brute_tables(s, device) -> dict:
+    """The brute-force fields of the port's pack from the JAX pack's."""
+    fields = _soup_fields(s, device)
+    inst_data = np.asarray(s["inst_data"])
+    spans = instance_spans(np.asarray(s["tri_data"])[:, 27], inst_data.shape[0])
+    cull = s.get("cull")
     if cull is not None:
         cull = CullTables(
             _tensor(cull["centers"], device), _tensor(cull["radii"], device),
@@ -67,8 +73,8 @@ def _brute_tables(s, device) -> dict:
             is_det=tuple(bool(d) for d in cull["is_det"]),
         )
     return dict(
-        w_v0=w_v0, w_e1=w_e1, w_e2=w_e2, soup=SoupTable(w_v0, w_e1, w_e2, spans),
-        soup_is_det=detector_instances(inst_data), shadow_split=split, cull=cull,
+        fields, soup=SoupTable(fields["w_v0"], fields["w_e1"], fields["w_e2"], spans),
+        soup_is_det=detector_instances(inst_data), cull=cull,
     )
 
 
@@ -85,7 +91,7 @@ def _accel_tables(s, device) -> dict:
     if "mt" in s:
         mt = s["mt"]
         tables = MTPack(_tensor(mt["tri"], device), mt["aabb"], mt["lo"], mt["hi"], int(mt["n_tri"]))
-        return {"mt": tables}
+        return dict(_soup_fields(s, device), mt=tables)
     if "woop" not in s:
         return _brute_tables(s, device)
     woop, rows = s["woop"], _tensor(s["tri_data"], device)
@@ -93,7 +99,7 @@ def _accel_tables(s, device) -> dict:
     world = [rows[:n_tri, c : c + 3] for c in (18, 21, 24)]
     boxes = chunk_boxes(*world), sub_boxes(*world)
     tables = WoopPack(_tensor(woop["b"], device), woop["aabb"], woop["lo"], woop["hi"], n_tri, *boxes)
-    return {"woop": tables}
+    return dict(_soup_fields(s, device), woop=tables)
 
 
 def _scene_pack(s, device) -> ScenePack:

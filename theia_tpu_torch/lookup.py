@@ -17,6 +17,8 @@ import numpy as np
 import torch
 from scipy.interpolate import CubicSpline
 
+from .ops.table_read import read_table
+
 __all__ = ["lookup", "sample_table1d", "eval_table"]
 
 
@@ -24,18 +26,18 @@ def lookup(table, u: torch.Tensor, null_value=0.0) -> torch.Tensor:
     """Linearly interpolate ``table`` (``n`` equidistant samples over
     [0, 1]; a tensor on ``u``'s device, differentiable in its values, or
     a host array, which is copied there) at the normalized
-    coordinates ``u``, clamped to [0, 1]. ``None`` returns ``null_value``
-    (the reference's null-pointer convention). The same ops in the same
-    order as ``theia_tpu.lookup.lookup``: ``v_lo * (1 - l) + v_hi * l``."""
+    coordinates ``u``, clamped to [0, 1]. ``None`` (or an empty table)
+    returns ``null_value`` (the reference's null-pointer convention). The
+    same ops in the same order as ``theia_tpu.lookup.lookup``: ``v_lo *
+    (1 - l) + v_hi * l``, through :func:`~theia_tpu_torch.ops.table_read.read_table`
+    (a kernel on the card, with its backward), differentiable in the
+    table and in ``u`` with ``jnp.clip``'s gradient at the bounds."""
     if table is None:
         return torch.full_like(u, null_value)
     table = torch.as_tensor(table, dtype=torch.float32, device=u.device)
-    x = torch.clamp(u, 0.0, 1.0) * float(table.shape[-1] - 1)
-    fl = torch.floor(x)
-    l = x - fl
-    v_lo = table[fl.to(torch.int64)]
-    v_hi = table[torch.ceil(x).to(torch.int64)]
-    return v_lo * (1.0 - l) + v_hi * l
+    if table.shape[-1] == 0:
+        return torch.full_like(u, null_value)
+    return read_table(table.contiguous(), u)
 
 
 def _parse_boundary(data: np.ndarray, boundary, n: int) -> np.ndarray:

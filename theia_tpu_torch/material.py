@@ -25,6 +25,7 @@ import torch
 from . import units as u
 from .component import resolve_device
 from .lookup import lookup
+from .ops.table_read import clip01, read_packed, read_rows
 
 __all__ = [
     "speed_of_light",
@@ -39,6 +40,7 @@ __all__ = [
     "MaterialStore",
     "packed_medium_constants",
     "lookup_packed",
+    "const4_rows",
     "MediumModel",
     "SellmeierEquation",
     "BK7Model",
@@ -114,9 +116,7 @@ class MediumConstants:
 
 
 def normalize_lambda(medium: Medium, wavelength: torch.Tensor) -> torch.Tensor:
-    return torch.clamp(
-        (wavelength - medium.lambda_min) / (medium.lambda_max - medium.lambda_min), 0.0, 1.0
-    )
+    return clip01((wavelength - medium.lambda_min) / (medium.lambda_max - medium.lambda_min))
 
 
 def medium_constants(medium: Medium | None, wavelength: torch.Tensor) -> MediumConstants:
@@ -308,20 +308,31 @@ def lookup_packed(
 
     values: f32[M, Lmax]; sizes: i32[M]; handle: integer tensor; t in [0,1].
     Lanes whose table is null (size 0) return ``null_value``. Each lane
-    reads one (value, slope) pair row, ``v_j + l * (v_{j+1} - v_j)``, as in
-    ``theia_tpu.material.lookup_packed``; indices are clamped where
-    ``jnp.take`` would clamp."""
-    n = sizes[handle]
-    tt = torch.clamp(t, 0.0, 1.0) * torch.clamp_min(n - 1, 1).to(torch.float32)
-    lo = torch.floor(tt).to(torch.int64)
-    l = tt - torch.floor(tt)
-    lmax = values.shape[-1]
-    # pair rows [v_j, v_{j+1} - v_j]; the last column's slope is 0
-    dv = torch.nn.functional.pad(torch.diff(values, dim=-1), (0, 1))
-    pairs = torch.stack([values, dv], dim=-1).reshape(-1, 2)
-    row = pairs[handle.to(torch.int64) * lmax + torch.clamp(lo, 0, lmax - 1)]
-    res = row[..., 0] + l * row[..., 1]
-    return torch.where(n == 0, null_value, res)
+    reads row ``j`` of its medium, ``v_j + l * (v_{j+1} - v_j)`` with the
+    slope of the last column 0, as ``theia_tpu.material.lookup_packed``
+    reads its (value, slope) pair rows; the read and its gradient are
+    :func:`~theia_tpu_torch.ops.table_read.read_packed` (kernels on the
+    card)."""
+    return read_packed(values, sizes, handle, t, null_value)
+
+
+def const4_rows(store: MediumStore) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """The four constants tables stacked into (M * pad, 8) value/slope
+    rows (null tables replaced by their defaults, the slope of the last
+    column 0), the longest of each medium's four sizes, and ``pad``: what
+    :func:`packed_medium_constants` reads with ``const4_ok``. Built from
+    the store's tensors every call, so gradients reach the tables."""
+    sz = [store.sizes[k] for k in _CONST4_KINDS]
+    eff = [
+        torch.where((s == 0)[:, None], null, store.tables[k])
+        for k, s, null in zip(_CONST4_KINDS, sz, _CONST4_NULLS)
+    ]
+    pad = max(e.shape[1] for e in eff)
+    eff = [torch.nn.functional.pad(e, (0, pad - e.shape[1])) for e in eff]
+    stacked = torch.stack(eff, dim=-1)  # (M, pad, 4)
+    dv = torch.nn.functional.pad(torch.diff(stacked, dim=1), (0, 0, 0, 1))
+    rows = torch.cat([stacked, dv], dim=-1).reshape(-1, 8)
+    return rows, reduce(torch.maximum, sz), pad
 
 
 def packed_medium_constants(
@@ -331,30 +342,16 @@ def packed_medium_constants(
 
     With ``const4_ok`` the four constants tables are stacked into one
     (M, Lmax, 8) value/slope table and each lane reads a single row, as
-    ``theia_tpu.material.packed_medium_constants`` does."""
+    ``theia_tpu.material.packed_medium_constants`` does
+    (:func:`~theia_tpu_torch.ops.table_read.read_rows`)."""
     lmin = store.lambda_min[handle]
     lmax = store.lambda_max[handle]
-    t = torch.clamp((wavelength - lmin) / (lmax - lmin), 0.0, 1.0)
+    t = clip01((wavelength - lmin) / (lmax - lmin))
     if store.const4_ok:
-        sz = [store.sizes[k] for k in _CONST4_KINDS]
-        eff = [
-            torch.where((s == 0)[:, None], null, store.tables[k])
-            for k, s, null in zip(_CONST4_KINDS, sz, _CONST4_NULLS)
-        ]
-        pad = max(e.shape[1] for e in eff)
-        eff = [torch.nn.functional.pad(e, (0, pad - e.shape[1])) for e in eff]
-        stacked = torch.stack(eff, dim=-1)  # (M, pad, 4)
-        dv = torch.nn.functional.pad(torch.diff(stacked, dim=1), (0, 0, 0, 1))
-        n4 = reduce(torch.maximum, sz)
-        n = n4[handle]
-        tt = t * torch.clamp_min(n - 1, 1).to(torch.float32)
-        lo = torch.floor(tt).to(torch.int64)
-        l = (tt - torch.floor(tt))[..., None]
-        rows = torch.cat([stacked, dv], dim=-1).reshape(-1, 8)
-        row = rows[handle.to(torch.int64) * pad + torch.clamp(lo, 0, pad - 1)]
-        res = row[..., :4] + l * row[..., 4:]
-        nulls = torch.tensor(_CONST4_NULLS, dtype=torch.float32, device=res.device)
-        res = torch.where((n == 0)[..., None], nulls, res)
+        rows, n4, pad = const4_rows(store)
+        shape = t.shape
+        res = read_rows(rows, n4, handle.reshape(-1), t.reshape(-1), pad, _CONST4_NULLS)
+        res = res.reshape(*shape, 4)
         mu_a, mu_s = res[..., 0], res[..., 1]
         return MediumConstants(
             n=res[..., 2], vg=res[..., 3], mu_s=mu_s, mu_e=mu_a + mu_s

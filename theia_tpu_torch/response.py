@@ -13,10 +13,18 @@ merged by warp straight to the state above), on CPU tensors it runs
 backward, :func:`histogram_grad`, gathers the state's gradient at each
 kept lane's bin (the gather kernel of ``csrc/histogram.cu`` on CUDA,
 :func:`histogram_grad_plain` on the CPU).
+
+:func:`kernel_histogram_add` is the kernel histogram's (binned KDE)
+accumulation, on ``csrc/kernel_histogram.cu``: each lane adds its value,
+weighted by a Gaussian of its time, to the ``2 * support + 1`` bins
+around its own. It is differentiable in the value, the time and the
+three parameters (``t0``, ``binSize``, ``bandwidth``); its backward is
+:func:`kernel_histogram_grad`.
 """
 
 from __future__ import annotations
 
+import math
 import warnings
 
 import torch
@@ -31,12 +39,17 @@ __all__ = [
     "UniformValueResponse",
     "HitResponse",
     "HistogramHitResponse",
+    "KernelHistogramHitResponse",
     "HitRecorder",
     "StoreTimeHitResponse",
     "histogram_add",
     "histogram_add_plain",
     "histogram_grad",
     "histogram_grad_plain",
+    "kernel_histogram_add",
+    "kernel_histogram_add_plain",
+    "kernel_histogram_grad",
+    "kernel_histogram_grad_plain",
     "SHARED_STATE_MAX",
 ]
 
@@ -349,6 +362,279 @@ class HistogramHitResponse(HitResponse):
         if self.nDetectors is not None:
             out = out.reshape(self.nDetectors, self.nBins)
         return out
+
+
+#: sqrt(2 pi) as float32, as ``jnp.sqrt(2.0 * jnp.pi)`` rounds it
+_SQRT_2PI = float(torch.tensor(2.0 * math.pi, dtype=torch.float32).sqrt())
+
+
+def _kde_terms(time, mask, t0, bin_size, bandwidth, n_bins, support, object_id, n_detectors):
+    """Per offset of the kernel's support: (kept, flat bin, bin centre,
+    z = (centre - t) / h, E = exp(-z^2 / 2)), in the ops and order of
+    ``theia_tpu``'s record. The bins come from the detached time; a lane
+    is dropped where it is masked, where its centre ``(t - t0) / binSize``
+    is not finite (a NaN or infinite time; ``theia_tpu`` casts such a
+    centre to an integer, see :func:`kernel_histogram_add`) or, with a
+    detector axis, where its id is out of range; a bin where it is out
+    of [0, nBins)."""
+    center = (time.detach() - t0) / bin_size
+    base = torch.floor(center)
+    lane = mask & torch.isfinite(center)
+    if n_detectors is not None:
+        det = object_id.to(torch.int64)
+        lane = lane & (det >= 0) & (det < n_detectors)
+        offset = torch.where(lane, det, 0) * n_bins
+    terms = []
+    for off in range(-support, support + 1):
+        bin_f = base + float(off)
+        keep = lane & (bin_f >= 0) & (bin_f < n_bins)
+        flat = torch.where(keep, bin_f, 0.0).to(torch.int64)
+        if n_detectors is not None:
+            flat = flat + offset
+        bc = (bin_f + 0.5) * bin_size + t0
+        z = (bc - time) / bandwidth
+        terms.append((keep, flat, bin_f, z, torch.exp(-0.5 * (z * z))))
+    return terms
+
+
+def kernel_histogram_add_plain(
+    state, value, time, mask, t0, bin_size, bandwidth, n_bins: int, support: int = 4,
+    object_id=None, n_detectors: int | None = None,
+) -> torch.Tensor:
+    """Plain version of :func:`kernel_histogram_add` (any device; adds in
+    place and returns ``state``)."""
+    norm = bin_size / (bandwidth * _SQRT_2PI)
+    for keep, flat, _, _, e in _kde_terms(
+        time, mask, t0, bin_size, bandwidth, n_bins, support, object_id, n_detectors
+    ):
+        state.index_add_(0, flat[keep], (value * (e * norm))[keep])
+    return state
+
+
+def kernel_histogram_grad_plain(
+    grad_state, value, time, mask, t0, bin_size, bandwidth, n_bins: int, support: int = 4,
+    object_id=None, n_detectors: int | None = None,
+):
+    """Plain version of :func:`kernel_histogram_grad`: (d value, d time,
+    d t0, d binSize, d bandwidth)."""
+    h = bandwidth
+    inv = 1.0 / (h * _SQRT_2PI)
+    norm = bin_size * inv
+    grad_value = torch.zeros_like(time)
+    grad_time = torch.zeros_like(time)
+    grad_bs = torch.zeros_like(time)
+    grad_h = torch.zeros_like(time)
+    for keep, flat, bin_f, z, e in _kde_terms(
+        time, mask, t0, bin_size, bandwidth, n_bins, support, object_id, n_detectors
+    ):
+        # a dropped lane's terms may be 0 * inf: select, never multiply by 0
+        kept = lambda a: torch.where(keep, a, 0.0)
+        g = grad_state[flat]
+        w = e * norm
+        gv = g * value
+        grad_value = grad_value + kept(g * w)
+        grad_time = grad_time + kept(gv * w * z / h)
+        grad_bs = grad_bs + kept(gv * (e * inv - w * z * (bin_f + 0.5) / h))
+        grad_h = grad_h + kept(gv * w * (z * z - 1.0) / h)
+    return grad_value, grad_time, -grad_time.sum(), grad_bs.sum(), grad_h.sum()
+
+
+def _check_kde(state, value, time, mask, params, n_bins, object_id, n_detectors):
+    _check_hist(state, value, time.detach(), mask, params[0], params[1], n_bins, object_id, n_detectors)
+    if params[2].dtype != torch.float32 or params[2].shape != () or params[2].device != state.device:
+        raise ValueError(f"bandwidth must be a 0-d torch.float32 tensor on {state.device}")
+
+
+def _kde_args(time, mask, object_id, n_detectors, t0, bin_size, bandwidth, n_bins, support):
+    """The lanes' part of the two C entry points' arguments."""
+    return (
+        time.data_ptr(), mask.data_ptr(),
+        object_id.data_ptr() if n_detectors is not None else None,
+        t0.data_ptr(), bin_size.data_ptr(), bandwidth.data_ptr(),
+        time.shape[0], n_bins, n_detectors or 0, support,
+    )
+
+
+def _kde_forward(state, value, time, mask, t0, bin_size, bandwidth, n_bins, support, object_id, n_detectors):
+    if state.device.type == "cpu":
+        return kernel_histogram_add_plain(
+            state, value, time, mask, t0, bin_size, bandwidth, n_bins, support, object_id, n_detectors
+        )
+    if time.shape[0]:
+        err = _build.library().theia_kde_add(
+            value.data_ptr(),
+            *_kde_args(time, mask, object_id, n_detectors, t0, bin_size, bandwidth, n_bins, support),
+            state.data_ptr(), _build.stream_handle(state.device),
+        )
+        _build.check(err, "kernel_histogram_add")
+        kernel_histogram_add.launches += 1
+    return state
+
+
+class _KernelHistogramAdd(torch.autograd.Function):
+    """``state += KDE(value, time)`` in place, marked dirty as in
+    :class:`_HistogramAdd`: the state's gradient passes through as the
+    identity, the other five come from :func:`kernel_histogram_grad`."""
+
+    @staticmethod
+    def forward(ctx, state, value, time, mask, t0, bin_size, bandwidth, n_bins, support, object_id, n_detectors):
+        _kde_forward(state, value, time.detach(), mask, t0, bin_size, bandwidth, n_bins, support, object_id, n_detectors)
+        ctx.mark_dirty(state)
+        ctx.save_for_backward(value, time, mask, t0, bin_size, bandwidth, object_id)
+        ctx.static = (n_bins, support, n_detectors)
+        return state
+
+    @staticmethod
+    def backward(ctx, grad_state):
+        value, time, mask, t0, bin_size, bandwidth, object_id = ctx.saved_tensors
+        n_bins, support, n_detectors = ctx.static
+        need = ctx.needs_input_grad
+        grads = kernel_histogram_grad(
+            grad_state.contiguous(), value, time.detach(), mask, t0, bin_size, bandwidth, n_bins, support,
+            object_id, n_detectors, need_lanes=need[1] or need[2], need_params=any(need[4:7]),
+        )
+        grads = [g if n else None for g, n in zip(grads, (need[1], need[2], *need[4:7]))]
+        return (grad_state, grads[0], grads[1], None, *grads[2:], None, None, None, None)
+
+
+def kernel_histogram_add(
+    state, value, time, mask, t0, bin_size, bandwidth, n_bins: int, support: int = 4,
+    object_id=None, n_detectors: int | None = None,
+) -> torch.Tensor:
+    """The kernel histogram's record: for each kept lane and each bin
+    ``b`` of ``floor(c) - support .. floor(c) + support``, ``c = (t - t0)
+    / binSize`` taken on the detached time, add ``value * w_b`` to
+    ``state[det * n_bins + b]`` in place, with ``w_b = exp(-((bc_b - t) /
+    h)^2 / 2) * binSize / (h * sqrt(2 pi))`` at the bin centre ``bc_b =
+    (b + 1/2) * binSize + t0``, as ``theia_tpu``'s record does in 2 *
+    support + 1 scatter-adds. Bins out of [0, n_bins), masked lanes and
+    ids out of [0, n_detectors) are dropped. A lane whose centre is not
+    finite (a NaN or infinite time) is dropped too, with a zero gradient:
+    ``theia_tpu`` casts such a centre to an integer, which on the CPU can
+    land in a bin (NaN) and makes its gradient 0 * inf (both behaviours
+    are held by tests/test_torch_kernel_histogram.py).
+
+    ``state``: f32 (n_bins * (n_detectors or 1),); ``value``/``time``: f32
+    (N,); ``mask``: bool (N,); ``t0``/``bin_size``/``bandwidth``: f32 0-d
+    tensors on the state's device; ``object_id``: i32 (N,) with
+    ``n_detectors``. Differentiable in ``value``, ``time``, ``t0``,
+    ``bin_size`` and ``bandwidth`` (and through ``state`` as the
+    identity); saves nothing where no gradient is asked for. CUDA tensors
+    launch ``csrc/kernel_histogram.cu`` (a block-private histogram in
+    shared memory for states up to :data:`SHARED_STATE_MAX` flat bins,
+    adds straight to the state above), CPU tensors run the plain version.
+    Atomic adds land in an order that changes from run to run, so a bin
+    agrees with a sequential sum to float32 rounding only."""
+    params = (t0, bin_size, bandwidth)
+    _check_kde(state, value, time, mask, params, n_bins, object_id, n_detectors)
+    if state.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"kernel_histogram_add: unsupported device {state.device}")
+    if torch.is_grad_enabled() and any(a.requires_grad for a in (value, time, *params)):
+        return _KernelHistogramAdd.apply(
+            state, value, time, mask, t0, bin_size, bandwidth, n_bins, support, object_id, n_detectors
+        )
+    return _kde_forward(
+        state, value, time.detach(), mask, t0, bin_size, bandwidth, n_bins, support, object_id, n_detectors
+    )
+
+
+kernel_histogram_add.launches = 0
+
+
+def kernel_histogram_grad(
+    grad_state, value, time, mask, t0, bin_size, bandwidth, n_bins: int, support: int = 4,
+    object_id=None, n_detectors: int | None = None, *, need_lanes: bool = True,
+    need_params: bool = True,
+):
+    """Backward of :func:`kernel_histogram_add`: (d value, d time, d t0,
+    d binSize, d bandwidth) for the state's gradient ``grad_state``, with
+    ``g_b = grad_state[flat bin]`` on kept bins: d value = sum_b g_b w_b,
+    d time = sum_b g_b value w_b z_b / h (z_b = (bc_b - t) / h), d t0 = -
+    sum of d time over the lanes, d binSize and d bandwidth the sums of
+    the weights' derivatives. Dropped lanes get exact zeros. The lanes'
+    two are None unless ``need_lanes``, the three scalars unless
+    ``need_params``. CUDA tensors launch ``theia_kde_grad`` (the state's
+    gradient staged in shared memory, a lane's two written without
+    atomics, the scalars summed a block and added with one atomic a
+    block each, so they agree with a sequential sum to float32 rounding
+    only), CPU tensors run the plain version."""
+    _check_kde(grad_state, value, time, mask, (t0, bin_size, bandwidth), n_bins, object_id, n_detectors)
+    if grad_state.device.type == "cpu":
+        grads = kernel_histogram_grad_plain(
+            grad_state, value, time, mask, t0, bin_size, bandwidth, n_bins, support, object_id, n_detectors
+        )
+        return (*(grads[:2] if need_lanes else (None, None)), *(grads[2:] if need_params else (None,) * 3))
+    if grad_state.device.type != "cuda":
+        raise ValueError(f"kernel_histogram_grad: unsupported device {grad_state.device}")
+    n = time.shape[0]
+    lanes = (torch.empty_like(time), torch.empty_like(time)) if need_lanes else (None, None)
+    scalars = torch.zeros(3, dtype=torch.float32, device=grad_state.device) if need_params else None
+    if n and (need_lanes or need_params):
+        err = _build.library().theia_kde_grad(
+            grad_state.data_ptr(), value.data_ptr(),
+            *_kde_args(time, mask, object_id, n_detectors, t0, bin_size, bandwidth, n_bins, support),
+            *(None if a is None else a.data_ptr() for a in (*lanes, scalars)),
+            _build.stream_handle(grad_state.device),
+        )
+        _build.check(err, "kernel_histogram_grad")
+        kernel_histogram_grad.launches += 1
+    elif need_lanes:
+        lanes = (torch.zeros_like(time), torch.zeros_like(time))
+    return (*lanes, *(scalars.unbind() if need_params else (None,) * 3))
+
+
+kernel_histogram_grad.launches = 0
+
+
+class KernelHistogramHitResponse(HistogramHitResponse):
+    """Histogram with Gaussian kernel smearing (binned KDE), which also
+    gives a smooth, differentiable dependence on arrival time
+    (reference: src/theia/response.py:1424-1673,
+    shader/response.histogram.kernel.glsl). ``support``: the kernel's
+    reach in bins on either side (static). Its record,
+    :func:`kernel_histogram_add`, is differentiable in the hit's value and
+    time and in ``t0``, ``binSize`` and ``bandwidth``."""
+
+    name = "Kernel Histogram Hit Response"
+    _param_names = ("t0", "binSize", "bandwidth")
+
+    def __init__(
+        self,
+        value_response: ValueResponse | None = None,
+        *,
+        nBins: int = 100,
+        t0: float = 0.0,
+        binSize: float = 1.0,
+        bandwidth: float = 1.0,
+        support: int = 4,
+        normalization: float | None = None,
+        nDetectors: int | None = None,
+    ) -> None:
+        super().__init__(
+            value_response, nBins=nBins, t0=t0, binSize=binSize,
+            normalization=normalization, nDetectors=nDetectors,
+        )
+        self.bandwidth = bandwidth
+        self.support = support
+
+    def record(self, params, state, item: HitItem, mask, rng: RNGState):
+        """Adds the masked hits into ``state`` in place; returns
+        (state, rng)."""
+        value, rng = self.value_response.value(params.get("value", {}), item, rng)
+        state = kernel_histogram_add(
+            state,
+            value.contiguous(),
+            item.time.contiguous(),
+            mask.contiguous(),
+            params["t0"],
+            params["binSize"],
+            params["bandwidth"],
+            self.nBins,
+            self.support,
+            item.object_id.contiguous() if self.nDetectors is not None else None,
+            self.nDetectors,
+        )
+        return state, rng
 
 
 class _SlotQueue(HitResponse):

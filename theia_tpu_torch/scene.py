@@ -235,13 +235,16 @@ class ScenePack:
     At most one of ``mt`` and ``woop`` is set, by the scene's ``accel``;
     the triangles are then in the Morton order that the kernel's tables
     index. A brute-force pack sets neither: its triangles are in instance
-    order, ``w_v0``/``w_e1``/``w_e2`` hold the world soup, ``soup`` the
-    soup kernels' table with one group an instance, ``soup_is_det`` which
-    of them are detectors. The queries read these. ``shadow_split`` (the
-    detector subsoup, None without a detector) and ``cull`` (the
-    instances' bounding spheres, None when the scene was built with
-    ``cull=False`` or has one instance) mirror ``theia_tpu``'s fields and
-    no query reads them."""
+    order, ``soup`` holds the soup kernels' table with one group an
+    instance, ``soup_is_det`` which of them are detectors. The queries
+    read these. Every pack carries the world soup ``w_v0``/``w_e1``/
+    ``w_e2`` and ``shadow_split`` (the detector subsoup, None without a
+    detector) in its own triangle order, as ``theia_tpu``'s do;
+    ``cull`` (the instances' bounding spheres, brute-force packs only,
+    None when the scene was built with ``cull=False`` or has one
+    instance) mirrors ``theia_tpu``'s field. No query of the port reads
+    ``w_v0``, ``shadow_split`` or ``cull`` (the brute-force queries read
+    ``soup``)."""
 
     tri_data: torch.Tensor
     inst_data: torch.Tensor
@@ -251,7 +254,7 @@ class ScenePack:
     upper_bbox: torch.Tensor
     mt: MTPack | None = None
     woop: WoopPack | None = None
-    w_v0: torch.Tensor | None = None  # (T, 3) world-space soup, brute packs
+    w_v0: torch.Tensor | None = None  # (T, 3) world-space soup
     w_e1: torch.Tensor | None = None  # v1 - v0
     w_e2: torch.Tensor | None = None  # v2 - v0
     soup: SoupTable | None = None
@@ -432,6 +435,7 @@ class Scene:
             cat = {k: v[perm] for k, v in cat.items()}
             pack = pack_mt if self.accel == "mt" else pack_woop
             tables = {self.accel: pack(cat["w_v0"], cat["w_e1"], cat["w_e2"], device=self.device)}
+            tables.update(self._soup_tables(cat, inst_data, dev))
 
         tri_data = np.zeros((len(cat["inst"]), 32), np.float32)
         for c0, key in enumerate(
@@ -450,15 +454,13 @@ class Scene:
             **tables,
         )
 
-    def _brute_tables(self, cat: dict, inst_data: np.ndarray, dev) -> dict:
-        """The brute-force pack's own fields from the soup in instance
-        order, built on the host as ``theia_tpu`` builds them."""
-        n_inst = len(self.instances)
+    def _soup_tables(self, cat: dict, inst_data: np.ndarray, dev) -> dict:
+        """The world soup (``w_v0``/``w_e1``/``w_e2``) and the detector
+        split of every pack, in the pack's triangle order, as
+        ``theia_tpu`` sets them on every pack (no query of an ``mt`` or
+        ``woop`` pack reads them)."""
         soup = [cat[k] for k in ("w_v0", "w_e1", "w_e2")]
-        w_v0, w_e1, w_e2 = (dev(a) for a in soup)
-        spans = instance_spans(cat["inst"], n_inst)
-        is_det = detector_instances(inst_data)
-        tri_is_det = np.asarray(is_det, bool)[cat["inst"]]
+        tri_is_det = np.asarray(detector_instances(inst_data), bool)[cat["inst"]]
         shadow_split = None
         if tri_is_det.any():
             didx = np.nonzero(tri_is_det)[0].astype(np.int32)
@@ -470,6 +472,17 @@ class Scene:
                 nd_v0=dev(soup[0][nidx]), nd_e1=dev(soup[1][nidx]), nd_e2=dev(soup[2][nidx]),
                 nd_inst=dev(cat["inst"][nidx].astype(np.float32)),
             )
+        w_v0, w_e1, w_e2 = (dev(a) for a in soup)
+        return dict(w_v0=w_v0, w_e1=w_e1, w_e2=w_e2, shadow_split=shadow_split)
+
+    def _brute_tables(self, cat: dict, inst_data: np.ndarray, dev) -> dict:
+        """The brute-force pack's own fields from the soup in instance
+        order, built on the host as ``theia_tpu`` builds them."""
+        n_inst = len(self.instances)
+        soup = [cat[k] for k in ("w_v0", "w_e1", "w_e2")]
+        tables = self._soup_tables(cat, inst_data, dev)
+        spans = instance_spans(cat["inst"], n_inst)
+        is_det = detector_instances(inst_data)
         cull = None
         if self.cullEnabled and n_inst >= 2:
             centers, radii = [], []
@@ -484,6 +497,6 @@ class Scene:
                 centers=dev(np.stack(centers)), radii=dev(np.asarray(radii)), spans=spans, is_det=is_det,
             )
         return dict(
-            w_v0=w_v0, w_e1=w_e1, w_e2=w_e2, soup=SoupTable(w_v0, w_e1, w_e2, spans),
-            soup_is_det=is_det, shadow_split=shadow_split, cull=cull,
+            tables, soup=SoupTable(tables["w_v0"], tables["w_e1"], tables["w_e2"], spans),
+            soup_is_det=is_det, cull=cull,
         )

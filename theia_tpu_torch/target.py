@@ -384,6 +384,18 @@ class TargetGuide(Component):
         raise NotImplementedError
 
 
+def _sqrt_positive(x: torch.Tensor) -> torch.Tensor:
+    """sqrt(max(x, 0)) with a zero gradient where x <= 0: the value of
+    ``theia_tpu``'s ``jnp.sqrt(jnp.maximum(x, 0))``, without its infinite
+    slope at 0, which turns the gradient of every lane behind it into
+    NaN (0 * inf). A deliberate divergence: in ``theia_tpu`` one guide
+    sample at cos theta = 1 (a narrow cone, or u = 0) makes d/d(source
+    position) and d/d(detector position) NaN
+    (tests/test_torch_grad_geometry.py holds both)."""
+    positive = x > 0.0
+    return torch.where(positive, torch.sqrt(torch.where(positive, x, 1.0)), 0.0)
+
+
 class SphereTargetGuide(TargetGuide):
     """Samples the cone subtending a sphere, weighted toward passing fully
     through it (reference: src/theia/target.py:470-527)."""
@@ -402,7 +414,7 @@ class SphereTargetGuide(TargetGuide):
         view_dir = normalize(center - observer)
         sin_max = params["radius"] / d
         sin2 = sin_max * sin_max
-        cos_min = 1.0 - torch.sqrt(torch.clamp_min(1.0 - sin2, 0.0))
+        cos_min = 1.0 - _sqrt_positive(1.0 - sin2)
         # Taylor fallback for narrow cones (f32 catastrophic cancellation)
         cos_min = torch.where(sin2 < 0.00068523, 0.5 * sin2, cos_min)
         prob = 1.0 / (2.0 * np.pi * cos_min)
@@ -413,7 +425,7 @@ class SphereTargetGuide(TargetGuide):
         view_dir, cos_min, prob, dist = self._cone(params, observer)
         (u1, u2), rng = rng.uniform2d()
         cos_theta = 1.0 - cos_min * u1
-        sin_theta = torch.sqrt(torch.clamp_min(1.0 - cos_theta * cos_theta, 0.0))
+        sin_theta = _sqrt_positive(1.0 - cos_theta * cos_theta)
         phi = 2.0 * np.pi * u2
         vx, vy = local_frame(view_dir)
         direction = (

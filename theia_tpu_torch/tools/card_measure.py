@@ -68,10 +68,13 @@ numbers behind the size at which ``theia_histogram_add`` changes variant.
 ``profile`` traces one batch of the ``mt`` flagship, one of the
 brute-force flagship (``accel="auto"``) and one of the polarized ``woop``
 flagship (262,144 lanes, path length 10) with ``torch.profiler``, one
-gradient step of the latter, one batch of the volume flagship and one of
-the photon flagship by ``run()`` and by ``run_compacted()``, and prints
-device-busy time, kernel count, the largest items and the hand-written
-kernels' device time (the scans, Philox, the histogram).
+gradient step of the latter, one step of each of ``chip_smoke.py``'s
+gradient phases 3h and 3i (the volume flagship in its absorption and,
+with a kernel histogram, its group velocity; the brute flagship's
+geometry), one batch of the volume flagship and one of the photon
+flagship by ``run()`` and by ``run_compacted()``, and prints device-busy
+time, kernel count, the largest items and the hand-written kernels'
+device time (the scans, Philox, the histograms, the table reads).
 
 Every mode prints the card's name and power limit first and writes its
 numbers to ``card_measure_<mode>.json`` (``card_measure_baseline_aos.json``
@@ -87,6 +90,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[2]
@@ -96,6 +100,7 @@ sys.path.insert(0, str(ROOT / "tests"))
 import chip_smoke  # noqa: E402
 import theia_tpu_torch  # noqa: E402
 from theia_tpu_torch import _build  # noqa: E402
+from theia_tpu_torch.response import KernelHistogramHitResponse  # noqa: E402
 from torch_flagship import build_flagship, build_photon_flagship, build_volume_flagship, icosphere  # noqa: E402
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -663,6 +668,22 @@ def profile() -> dict:
             step()
             out[f"{label} gradient"] = _profiled(f"{label}, one gradient step", step, _seconds(step))
         del tracer
+        torch.cuda.empty_cache()
+    kde = lambda: KernelHistogramHitResponse(nBins=100, t0=0.0, binSize=5.0, bandwidth=5.0)
+    for label, tracer, make in (
+        ("volume gradient, absorption", build_volume_flagship(theia_tpu_torch, chip_smoke.BATCH, "cuda"),
+         lambda t: chip_smoke.scale_step(t, "absorption_coef", float(np.log(1.35)))),
+        ("volume gradient, group velocity",
+         build_volume_flagship(theia_tpu_torch, chip_smoke.BATCH, "cuda", response=kde()),
+         lambda t: chip_smoke.scale_step(t, "group_velocity", float(np.log(0.92)))),
+        ("brute geometry gradient", build_flagship(theia_tpu_torch, mesh, chip_smoke.BATCH, chip_smoke.MAX_PATH,
+                                                    accel="auto", device="cuda", response=kde()),
+         chip_smoke.geometry_step),
+    ):
+        step = make(tracer)
+        step()
+        out[label] = _profiled(f"{label}, one step", step, _seconds(step))
+        del tracer, step
         torch.cuda.empty_cache()
     volume = build_volume_flagship(theia_tpu_torch, chip_smoke.BATCH, "cuda")
     photon = build_photon_flagship(theia_tpu_torch, mesh, chip_smoke.BATCH, "cuda")
