@@ -53,12 +53,19 @@ Phases, one line each, any failure raises and exits non-zero:
    histogram's record and backward (``csrc/kernel_histogram.cu``) at
    524,288 items over 100 bins, with and without a detector axis, odd N,
    offset views, a state past shared memory, an all-masked record and
-   NaN/inf times; the three table reads and their backward
-   (``csrc/table_read.cu``) on the flagship scene's packed tables and
-   const4 rows and on a 1024-sample volume table at N = 262,144 with
-   lanes at t = 0 and 1 (and a table of 100,000 samples); each timed as
-   called and queued beside its plain version, ``index_add_`` /
-   ``index_select`` on what it computes made beforehand, and its bound;
+   NaN/inf times; the table reads and their backward
+   (``csrc/table_read.cu``) on the flagship scene's packed refractive
+   indices, its four constants tables read at once (the const4 read)
+   and a 1024-sample volume table at N = 262,144 with lanes at t = 0
+   and 1 (and a table of 100,000 samples); the hit reconstruction's row
+   gather and its backward (``gather_rows``) on the flagship's
+   ``tri_data`` and ``inst_data``, and on ``tri_data`` with half the
+   lanes missed (row 0, zero gradient); each timed as called and queued
+   beside its plain version, its bound, and the library call that
+   computes the same on inputs made beforehand (``grid_sample`` for the
+   reads, ``index_add_`` for their backward, ``index_select`` of the
+   pairs' bins for the kernel histogram's, the plain versions for the
+   gather);
 3. the first main path at full width: the flagship scene tracer
    (262,144 lanes, path length 10, 3840 triangles, 100 bins,
    ``accel="mt"``) through ``run()``, one warm-up batch and three timed
@@ -528,12 +535,12 @@ def check_record_replay(records, path, add_report, grad_report):
 #: backward's: the same 12 to the weight, then 2 for d value, 4 for d t,
 #: 7 for d binSize and 5 for d bandwidth, and the read of g
 KDE_PAIR_FLOP, KDE_GRAD_PAIR_FLOP = 17, 31
-#: float32 operations of a lane's table read: the clip, the scale, floor,
-#: the fraction, the lerp and the null select (10); its backward's (14: the
-#: two shares of the table, d u and the clip's gradient); the rows' four
-#: values (16) and backward (22)
-READ_FLOP = {"read_table": 10, "read_packed": 10, "read_rows": 16}
-READ_GRAD_FLOP = {"read_table": 14, "read_packed": 14, "read_rows": 22}
+#: float32 operations of a lane's table read of C channels: the clip, the
+#: scale, floor and the fraction (6), then a channel's slope, lerp and null
+#: select (4); its backward's: the same 6, a channel's two shares of the
+#: table, its slope and its product into d u (8)
+READ_FLOP = lambda c: 6 + 4 * c
+READ_GRAD_FLOP = lambda c: 6 + 8 * c
 
 
 def kde_case(n: int, seed: int, bins: int = 100, n_det=None, kept: float = 0.5, offset: int = 0):
@@ -681,18 +688,19 @@ def check_kernel_histogram(add_report, grad_report):
 
 
 def read_cases(store, table) -> dict:
-    """The three table reads' inputs at the main paths' shapes, N =
-    262,144 lanes, 1 % of them exactly at t = 0 and 1 % at t = 1: the
-    flagship scene's packed refractive indices (3 media, 256 columns), its
-    const4 rows (BK7's absorption is infinite below 235 nm, so rows there
-    read inf and NaN, as they would in the plain version) and a
-    1024-sample single table (``table``); each with the handles of every
-    medium, vacuum (null) included. Returns name -> (args, the plain
-    forward, the backward, its plain version)."""
+    """The table reads' inputs at the main paths' shapes, N = 262,144
+    lanes, 1 % of them exactly at t = 0 and 1 % at t = 1: the flagship
+    scene's packed refractive indices (3 media, 256 columns), its four
+    constants tables read at once (``material.const4_table``; BK7's
+    absorption is infinite below 235 nm, so rows there read inf and NaN,
+    as they would in the plain version) and a 1024-sample single table
+    (``table``); each with the handles of every medium, vacuum (null)
+    included. Returns label -> dict(kernel=the wrapper's name, args,
+    forward, plain, grad, grad_plain, channels)."""
     import numpy as np
     import torch
 
-    from theia_tpu_torch.material import const4_rows, _CONST4_NULLS
+    from theia_tpu_torch.material import _CONST4_NULLS, const4_table
     from theia_tpu_torch.ops import table_read as tr
 
     rng = np.random.default_rng(41)
@@ -702,28 +710,31 @@ def read_cases(store, table) -> dict:
     f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device="cuda")
     handle = torch.as_tensor(rng.integers(0, store.sizes["refractive_index"].shape[0], n).astype(np.int32),
                              device="cuda")
-    rows, n4, pad = const4_rows(store)
+    const4, n4 = const4_table(store)
+    case = lambda kernel, args, forward, plain, channels: dict(
+        kernel=kernel, args=args, forward=forward, plain=plain, grad=getattr(tr, kernel + "_grad"),
+        grad_plain=getattr(tr, kernel + "_grad_plain"), channels=channels)
     return {
-        "read_table": ((table, f32(u)), tr.read_table_plain, tr.read_table_grad, tr.read_table_grad_plain),
-        "read_packed": ((store.tables["refractive_index"], store.sizes["refractive_index"], handle, f32(u)),
-                        tr.read_packed_plain, tr.read_packed_grad, tr.read_packed_grad_plain),
-        "read_rows": ((rows, n4, handle, f32(np.clip(u, 0.0, 1.0)), pad),
-                      lambda *a: tr.read_rows_plain(*a, _CONST4_NULLS), tr.read_rows_grad, tr.read_rows_grad_plain),
+        "read_table": case("read_table", (table, f32(u)), tr.read_table, tr.read_table_plain, 1),
+        "read_packed": case("read_packed", (store.tables["refractive_index"], store.sizes["refractive_index"],
+                                            handle, f32(u)), tr.read_packed, tr.read_packed_plain, 1),
+        "read_packed, const4": case("read_packed", (const4.contiguous(), n4, handle, f32(u)),
+                                    lambda *a: tr.read_packed(*a, _CONST4_NULLS),
+                                    lambda *a: tr.read_packed_plain(*a, _CONST4_NULLS), 4),
     }
 
 
 def hold_table_reads(store, table) -> dict:
-    """The three table reads (K2) against their plain versions on the
-    same card tensors (``read_cases``): the forward bit for bit (the same
-    float32 ops in the same order); the backward's d t bit for bit where
-    it is one chain of products (one table, packed), within rtol 1e-6 for
-    the rows (torch sums the row's four products in an order of its own),
-    and d table within 2e-5 of each entry's sum of absolute shares (the
-    plain version's backward run on |grad_out|): atomics in shared memory
-    and then in device memory against index_add_'s, each in an order that
-    changes from run to run. Also a table of 100,000 samples, whose
-    gradient takes the variant without shared memory. Returns the cases
-    and, per read, the max abs error of d table at the main shape."""
+    """The table reads (K2) against their plain versions on the same card
+    tensors (``read_cases``): the forward and the backward's d t bit for
+    bit (the same float32 ops in the same order, the channels' products
+    summed in the same order), and d table within 2e-5 of each entry's
+    sum of absolute shares (the plain version's backward run on
+    |grad_out|): atomics in shared memory and then in device memory
+    against index_add_'s, each in an order that changes from run to run.
+    Also a table of 100,000 samples, whose gradient takes the variant
+    without shared memory. Returns the cases and, per case, the max abs
+    error of d table at the main shape."""
     import numpy as np
     import torch
 
@@ -732,25 +743,19 @@ def hold_table_reads(store, table) -> dict:
     cases = read_cases(store, table)
     big = torch.as_tensor(np.random.default_rng(5).normal(size=100_000).astype(np.float32), device="cuda")
     assert big.numel() > tr.SHARED_TABLE_MAX
-    extra = {"read_table": [("a table of 100,000 samples", (big, cases["read_table"][0][1]))]}
+    extra = {"read_table": [("a table of 100,000 samples", (big, cases["read_table"]["args"][1]))]}
     errors = {}
-    for name, (args, plain, grad, grad_plain) in cases.items():
-        wrapper = read_wrapper(name)
-        for label, a in [("the main path's shape", args)] + extra.get(name, []):
-            got, want = wrapper(*a), plain(*a)
+    for name, c in cases.items():
+        for label, a in [("the main path's shape", c["args"])] + extra.get(name, []):
+            got, want = c["forward"](*a), c["plain"](*a)
             torch.cuda.synchronize()
             assert same(got, want), f"{name} forward differs from plain on {label}"
             g = torch.randn_like(want)
-            got_t, got_u = grad(*a, g)
-            want_t, want_u = grad_plain(*a, g)
-            abs_t, _ = grad_plain(*a, g.abs())
+            got_t, got_u = c["grad"](*a, g)
+            want_t, want_u = c["grad_plain"](*a, g)
+            abs_t, _ = c["grad_plain"](*a, g.abs())
             torch.cuda.synchronize()
-            if name == "read_rows":
-                finite = torch.isfinite(want_u)
-                torch.testing.assert_close(got_u, want_u, rtol=1e-6, equal_nan=True,
-                                           atol=1e-6 * float(want_u[finite].abs().max()))
-            else:
-                assert same(got_u, want_u), f"{name} backward d t differs from plain on {label}"
+            assert same(got_u, want_u), f"{name} backward d t differs from plain on {label}"
             assert torch.equal(torch.isnan(got_t), torch.isnan(want_t)), f"{name} d table NaNs differ on {label}"
             finite = torch.isfinite(want_t)
             diff = (got_t - want_t)[finite].abs()
@@ -758,10 +763,8 @@ def hold_table_reads(store, table) -> dict:
             assert excess <= 0.0, f"{name} backward d table off by {excess} on {label}"
             err = float(diff.max())
             errors.setdefault(name, err)
-            lanes = a[3].numel() if name != "read_table" else a[1].numel()
-            print(f"kernel {name} on {label} ({a[0].numel()} table floats, {lanes} lanes): forward bit-equal, d t "
-                  f"{'bit-equal' if name != 'read_rows' else 'rtol 1e-6'}, d table within 2e-5 of its absolute "
-                  f"sums (max abs err {err:.3g})")
+            print(f"kernel {name} on {label} ({a[0].numel()} table floats, {a[-1].numel()} lanes): forward "
+                  f"bit-equal, d t bit-equal, d table within 2e-5 of its absolute sums (max abs err {err:.3g})")
     return cases, errors
 
 
@@ -773,52 +776,85 @@ def same(a, b) -> bool:
     return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan])
 
 
-def read_wrapper(name):
-    """The read ``name`` of ``ops/table_read.py`` with the arguments of
-    ``read_cases`` (the rows' null values added)."""
-    from theia_tpu_torch.material import _CONST4_NULLS
-    from theia_tpu_torch.ops import table_read as tr
+def grid_sample_read(name, args):
+    """The library call that computes the read ``name`` of ``read_cases``:
+    one ``grid_sample`` (bilinear, ``align_corners=True``, border padding)
+    over the table seen as a (1, C, M, L) image, on a grid made
+    beforehand: x the clipped coordinate scaled by the table's own size,
+    y the lane's medium row. The null tables' select is left out.
+    Returns (call, the image and grid's bytes)."""
+    import torch
+    import torch.nn.functional as F
 
-    if name == "read_rows":
-        return lambda *a: tr.read_rows(*a, _CONST4_NULLS)
-    return getattr(tr, name)
+    if name == "read_table":
+        table, u = args
+        image = table.reshape(1, 1, 1, -1)
+        x, y = 2.0 * u.clamp(0.0, 1.0) - 1.0, torch.zeros_like(u)
+    else:
+        values, sizes, handle, t = args
+        m, length = values.shape[0], values.shape[1]
+        image = (values if values.dim() == 3 else values[..., None]).permute(2, 0, 1)[None].contiguous()
+        scale = torch.clamp_min(sizes[handle] - 1, 1).float()
+        x = 2.0 * (t.clamp(0.0, 1.0) * scale) / (length - 1) - 1.0
+        y = 2.0 * handle.float() / (m - 1) - 1.0
+    grid = torch.stack([x, y], dim=-1).reshape(1, 1, -1, 2).contiguous()
+    call = lambda: F.grid_sample(image, grid, mode="bilinear", padding_mode="border", align_corners=True)
+    return call, 4 * (image.numel() + grid.numel())
 
 
 def check_table_read(reports, store, table):
     """``hold_table_reads``, then each read's forward and backward timed at
-    the main shape beside the plain versions', index_add_ of the lanes'
-    shares on entries made beforehand (the backward's yardstick: what
-    autograd's index backward computes today) and the bounds."""
+    the main shape beside the plain versions', the library calls that
+    compute the same on inputs made beforehand (``grid_sample`` for the
+    forward, checked against the kernel on the lanes whose table is not
+    null; ``index_add_`` of the lanes' shares for the backward: what
+    autograd's index backward computes) and the bounds. The one-channel
+    packed read reports at ``read_packed``, the const4 read under its
+    ``const4`` key."""
     import torch
 
     cases, errors = hold_table_reads(store, table)
-    for name, (args, plain, grad, grad_plain) in cases.items():
-        report, grad_report = reports[name], reports[name + "_grad"]
+    for name, c in cases.items():
+        kernel, args, channels = c["kernel"], c["args"], c["channels"]
+        report, grad_report = reports[kernel], reports[kernel + "_grad"]
+        if name.endswith("const4"):
+            report, grad_report = report.setdefault("const4", {}), grad_report.setdefault("const4", {})
         report.update(max_abs_err=0.0)
         grad_report.update(max_abs_err=errors[name])
-        wrapper = read_wrapper(name)
-        g = torch.randn_like(plain(*args))
-        n = g.shape[0]
+        out = c["forward"](*args)
+        g = torch.randn_like(out)
+        n = args[-1].shape[0]
         table_bytes = 4 * args[0].numel()
-        lane_bytes = 8 if name == "read_table" else 12  # coordinate (and handle), value
-        out_bytes = 16 if name == "read_rows" else 4
+        lane_bytes = 4 if name == "read_table" else 8  # coordinate (and handle)
+        out_bytes = 4 * channels
         for rep, fn, plain_fn, flop, n_bytes in (
-            (report, lambda: wrapper(*args), lambda: plain(*args), READ_FLOP[name] * n,
-             n * (lane_bytes + out_bytes - 4) + table_bytes),
-            (grad_report, lambda: grad(*args, g), lambda: grad_plain(*args, g), READ_GRAD_FLOP[name] * n,
-             n * (lane_bytes - 4 + out_bytes + 4) + 2 * table_bytes),
+            (report, lambda: c["forward"](*args), lambda: c["plain"](*args), READ_FLOP(channels) * n,
+             n * (lane_bytes + out_bytes) + table_bytes),
+            (grad_report, lambda: c["grad"](*args, g), lambda: c["grad_plain"](*args, g),
+             READ_GRAD_FLOP(channels) * n, n * (lane_bytes + out_bytes + 4) + 2 * table_bytes),
         ):
             ms, queued_ms = cuda_ms(fn, 50), cuda_ms_queued(fn, 50)
             plain_ms = cuda_ms(plain_fn, 10)
-            rep.update(ms=ms, queued_ms=queued_ms, plain_ms=plain_ms, library_ms=None, **bound(n_bytes, flop))
-        entries, shares = read_shares(name, args, g)
-        out = torch.zeros_like(args[0]).reshape(-1)
-        grad_report["library_ms"] = cuda_ms(lambda: out.index_add_(0, entries, shares), 50)
-        for rep, what in ((report, "forward"), (grad_report, "backward")):
-            lib = "none" if rep["library_ms"] is None else f"{rep['library_ms']:.4f} ms"
+            rep.update(ms=ms, queued_ms=queued_ms, plain_ms=plain_ms, **bound(n_bytes, flop))
+        library, _ = grid_sample_read(kernel if name == "read_table" else "packed", args)
+        lib_out = library().reshape(channels, -1).t().reshape(out.shape)
+        kept = torch.isfinite(out) & torch.isfinite(lib_out)
+        if kernel == "read_packed":
+            nonnull = args[1][args[2]] > 0
+            kept &= nonnull[:, None] if channels > 1 else nonnull
+        scale = float(out[kept].abs().max())
+        lib_err = float((lib_out - out)[kept].abs().max()) / scale
+        assert lib_err <= 1e-4, f"grid_sample does not compute {name}: {lib_err}"
+        report["library_ms"] = cuda_ms(library, 50)
+        entries, shares = read_shares(args, g)
+        acc = torch.zeros_like(args[0]).reshape(-1)
+        grad_report["library_ms"] = cuda_ms(lambda: acc.index_add_(0, entries, shares), 50)
+        for rep, what, lib in ((report, "forward", "grid_sample"), (grad_report, "backward", "index_add_")):
             print(f"kernel {name} {what} N={n}: kernel {rep['ms']:.4f} ms ({rep['queued_ms']:.4f} queued), plain "
-                  f"{rep['plain_ms']:.4f} ms, index_add_ {lib}; bound {rep['bound_ms']:.4f} ms by {rep['bound_by']}, "
-                  f"share {rep['bound_ms'] / rep['ms']:.3f} ({rep['bound_ms'] / rep['queued_ms']:.3f} queued)")
+                  f"{rep['plain_ms']:.4f} ms, {lib} {rep['library_ms']:.4f} ms; bound {rep['bound_ms']:.4f} ms by "
+                  f"{rep['bound_by']}, share {rep['bound_ms'] / rep['ms']:.3f} "
+                  f"({rep['bound_ms'] / rep['queued_ms']:.3f} queued)")
+        print(f"kernel {name}: grid_sample within {lib_err:.3g} of the kernel's largest value on the lanes it computes")
 
 
 def check_gather_rows(report, grad_report, pack):
@@ -827,12 +863,15 @@ def check_gather_rows(report, grad_report, pack):
     the brute flagship's ``tri_data`` (3840 x 32, past shared memory: the
     backward adds to device memory) and ``inst_data`` (3 x 32, in shared
     memory) at N = 262,144, half the lanes on the detector's rows, as a
-    shadow query's winners are. The forward bit for bit (a copy); the
+    shadow query's winners are; and ``tri_data`` as the reconstruction
+    reads it, with half the lanes missed: they read row 0 (the clamp of
+    -1) and carry a zero gradient. The forward bit for bit (a copy); the
     backward within 2e-5 of each entry's sum of absolute shares (atomics
     against index_add_'s, both in an order that changes from run to run).
-    Then the times at ``tri_data`` beside the plain versions and the
-    bounds; the library call is the plain version itself (index_select,
-    index_add_), made once."""
+    Then the times on the case with misses beside the plain versions and
+    the bounds; the library call is the plain version itself
+    (index_select, index_add_), made once. The kernel skips a zero share,
+    index_add_ adds every one, all the misses' on row 0."""
     import numpy as np
     import torch
 
@@ -842,13 +881,19 @@ def check_gather_rows(report, grad_report, pack):
     n = BATCH
     det = np.nonzero(pack.tri_data[:, 27].cpu().numpy() == 2)[0]
     rows = np.where(rng.uniform(size=n) < 0.5, rng.choice(det, n), rng.integers(0, pack.tri_data.shape[0], n))
+    missed = rng.uniform(size=n) < 0.5
+    index = lambda a: torch.as_tensor(a.astype(np.int32), device="cuda")
     cases = {
-        "tri_data": (pack.tri_data, torch.as_tensor(rows.astype(np.int32), device="cuda")),
-        "inst_data": (pack.inst_data, torch.as_tensor(rng.integers(0, 3, n).astype(np.int32), device="cuda")),
+        "tri_data": (pack.tri_data, index(rows), None),
+        "inst_data": (pack.inst_data, index(rng.integers(0, 3, n)), None),
+        "tri_data with misses": (pack.tri_data, index(np.where(missed, 0, rows)),
+                                 torch.as_tensor(~missed, device="cuda")[:, None]),
     }
-    for label, (table, index) in cases.items():
+    for label, (table, index, hit) in cases.items():
         got, want = gather_rows(table, index), table[index.long()]
         g = torch.randn_like(want)
+        if hit is not None:
+            g = torch.where(hit, g, 0.0)
         got_t = gather_rows_grad(table.shape[0], index, g)
         want_t = torch.zeros_like(table).index_add_(0, index.long(), g)
         abs_t = torch.zeros_like(table).index_add_(0, index.long(), g.abs())
@@ -859,10 +904,9 @@ def check_gather_rows(report, grad_report, pack):
         err = float((got_t - want_t).abs().max())
         print(f"kernel gather_rows on the flagship's {label} ({tuple(table.shape)}, {n} lanes): forward bit-equal, "
               f"backward within 2e-5 of its absolute sums (max abs err {err:.3g})")
-        if label == "tri_data":
-            report.update(max_abs_err=0.0)
-            grad_report.update(max_abs_err=err)
-            table_, index_, g_ = table, index, g
+        report.update(max_abs_err=0.0)
+        grad_report["max_abs_err"] = max(grad_report.get("max_abs_err", 0.0), err)
+    table_, index_, g_ = table, index, g
     width, n_rows = table_.shape[1], table_.shape[0]
     long_index = index_.long()
     for rep, fn, plain_fn, n_bytes in (
@@ -875,32 +919,36 @@ def check_gather_rows(report, grad_report, pack):
         plain_ms = cuda_ms(plain_fn, 10)
         b = bound(n_bytes, n * width if rep is grad_report else 0)
         rep.update(ms=ms, queued_ms=queued_ms, plain_ms=plain_ms, library_ms=plain_ms, **b)
-        print(f"kernel {'gather_rows_grad' if rep is grad_report else 'gather_rows'} on tri_data N={n}: kernel "
-              f"{ms:.4f} ms ({queued_ms:.4f} queued), plain = library ({'index_add_' if rep is grad_report else 'index'})"
-              f" {plain_ms:.4f} ms; bound {b['bound_ms']:.4f} ms by {b['bound_by']}, share "
-              f"{b['bound_ms'] / ms:.3f} ({b['bound_ms'] / queued_ms:.3f} queued)")
+        print(f"kernel {'gather_rows_grad' if rep is grad_report else 'gather_rows'} on tri_data with misses N={n}: "
+              f"kernel {ms:.4f} ms ({queued_ms:.4f} queued), plain = library "
+              f"({'index_add_' if rep is grad_report else 'index'}) {plain_ms:.4f} ms; bound {b['bound_ms']:.4f} ms "
+              f"by {b['bound_by']}, share {b['bound_ms'] / ms:.3f} ({b['bound_ms'] / queued_ms:.3f} queued)")
+    select_ms = cuda_ms(lambda: torch.index_select(table_, 0, index_), 10)
+    print(f"index_select of the same rows {select_ms:.4f} ms (the forward the reconstruction would run without "
+          f"gather_rows; its backward is the index_add_ above)")
+    report["index_select_ms"] = select_ms
 
 
-def read_shares(name, args, g):
+def read_shares(args, g):
     """(entries, shares) of a table read's backward: every lane's adds into
     the table's gradient, made beforehand for the index_add_ yardstick."""
     import torch
 
     from theia_tpu_torch.ops import table_read as tr
 
-    if name == "read_table":
+    if len(args) == 2:
         table, u = args
         n = table.shape[0]
         x, fl, l = tr._single_coords(n, u)
         return torch.cat([tr._index(fl, n), tr._index(torch.ceil(x), n)]), torch.cat([g * (1.0 - l), g * l])
-    if name == "read_packed":
-        values, sizes, handle, t = args
-        _, _, flat, l, _ = tr._packed_coords(values, sizes, handle, t)
-        return torch.cat([flat, torch.clamp_max(flat + 1, values.numel() - 1)]), torch.cat([g - g * l, g * l])
-    rows, sizes, handle, t, pad = args
-    _, flat, l = tr._rows_coords(rows, sizes, handle, t, pad)
-    entries = (flat[:, None] * 8 + torch.arange(8, device=flat.device)).reshape(-1)
-    return entries, torch.cat([g, g * l], dim=1).reshape(-1)
+    values, sizes, handle, t = args
+    c = values.shape[2] if values.dim() == 3 else 1
+    _, j, flat, l, length = tr._packed_coords(values, sizes, handle, t)
+    g, l, last = g.reshape(-1, c), l[:, None], (j == length - 1)[:, None]
+    base = flat[:, None] * c + torch.arange(c, device=flat.device)
+    entries = torch.cat([base.reshape(-1), torch.clamp_max(base + c, values.numel() - 1).reshape(-1)])
+    shares = torch.cat([torch.where(last, g, g - g * l).reshape(-1), torch.where(last, 0.0, g * l).reshape(-1)])
+    return entries, shares
 
 
 def bound(n_bytes: float, flop: float, peak: float = PEAK_F32) -> dict:
@@ -1071,20 +1119,14 @@ FIRST_SCAN_RULE = "chunk rule, sphere test from the ray's origin (the bounds of 
 
 def check_nearest(nearest: Nearest, adversarial, queries, report):
     """A nearest-hit kernel against its plain version, bit-equal t and idx
-    (and rows): random rays at N = 262,144 (plain on the card, and on
-    the CPU copy of its first 65,536) and 524,288 (plain on the card) with
-    times and bound,
-    adversarial rays, and the recorded queries of one flagship batch,
-    replayed for the time and bound a batch sees."""
+    (and rows): random rays at N = 262,144 and 524,288 with times and
+    bound, adversarial rays, and the recorded queries of one flagship
+    batch, replayed for the time and bound a batch sees."""
     name, worst = nearest.name, 0.0
     for n in (BATCH, 2 * BATCH):
         rays = random_rays(n, n + len(name), "cuda")
-        # the CPU copy takes a quarter of the rays at the main path's width
-        # (its plain scan is the slowest part of the script), the card's
-        # plain version all of them
-        if n == BATCH:
-            nearest.check(tuple(r[: n // 4] for r in rays), f"random rays N={n // 4} (plain on the CPU)", on_cpu=True)
-        err, hits = nearest.check(rays, f"random rays N={n} (plain on the card)", on_cpu=False)
+        err, hits = nearest.check(rays, f"random rays N={n}", on_cpu=True)
+        nearest.check(rays, f"random rays N={n} (plain on the card)", on_cpu=False)
         own, yard = nearest.stats(rays), nearest.stats(rays, layout=False)
         worst = max(worst, err)
         ms = cuda_ms(lambda: nearest.run(nearest.kernel, nearest.pack, rays), 20)
@@ -1142,8 +1184,6 @@ GRADIENT_KERNELS = {
     "read_table_grad": ("theia_tpu_torch/csrc/table_read.cu", "theia_tpu/lookup.py:43"),
     "read_packed": ("theia_tpu_torch/csrc/table_read.cu", "theia_tpu/material.py:355"),
     "read_packed_grad": ("theia_tpu_torch/csrc/table_read.cu", "theia_tpu/material.py:355"),
-    "read_rows": ("theia_tpu_torch/csrc/table_read.cu", "theia_tpu/material.py:397"),
-    "read_rows_grad": ("theia_tpu_torch/csrc/table_read.cu", "theia_tpu/material.py:397"),
     "gather_rows": ("theia_tpu_torch/csrc/table_read.cu", "theia_tpu/accel.py:614"),
     "gather_rows_grad": ("theia_tpu_torch/csrc/table_read.cu", "theia_tpu/accel.py:614"),
 }
@@ -1310,9 +1350,8 @@ def check_soup(soup: Soup, adversarial, queries, report):
     name, card = soup.name, soup.tables[0]
     for n in (BATCH, 2 * BATCH):
         rays = random_rays(n, n + len(name), "cuda")
-        if n == BATCH:  # the CPU copy on a quarter of the rays, as check_nearest
-            soup.check(tuple(r[: n // 4] for r in rays), f"random rays N={n // 4} (plain on the CPU)", on_cpu=True)
-        hits = soup.check(rays, f"random rays N={n} (plain on the card)", on_cpu=False)
+        hits = soup.check(rays, f"random rays N={n}", on_cpu=(n == BATCH))
+        soup.check(rays, f"random rays N={n} (plain on the card)", on_cpu=False)
         own, yard = soup.stats(card, rays), soup.stats(card, rays, layout=False)
         ms = cuda_ms(lambda: soup.run(soup.kernel, card, rays), 20)
         queued_ms = cuda_ms_queued(lambda: soup.run(soup.kernel, card, rays), 20)
@@ -1920,7 +1959,6 @@ def main() -> int:
         "histogram_add": histogram_add,
         "read_table": table_read.read_table,
         "read_packed": table_read.read_packed,
-        "read_rows": table_read.read_rows,
         "gather_rows": table_read.gather_rows,
     }
     # the gradient steps' launches: every wrapper, the backward kernels and the kernel histogram too
@@ -1931,7 +1969,6 @@ def main() -> int:
         "kernel_histogram_grad": kernel_histogram_grad,
         "read_table_grad": table_read.read_table_grad,
         "read_packed_grad": table_read.read_packed_grad,
-        "read_rows_grad": table_read.read_rows_grad,
         "gather_rows_grad": table_read.gather_rows_grad,
     }
     seconds, sums, counts, peak = timed_runs(tracer, wrappers, "mt path")
@@ -1939,7 +1976,7 @@ def main() -> int:
     assert counts["nearest_triangle_mt"] == counts["nearest_triangle_woop"] == 0, counts
     assert not any(counts[name] for name in SOUP_KERNELS), counts
     assert counts["philox_uniform"] > 0 and counts["histogram_add"] == 19 * 3, counts
-    assert counts["read_rows"] > 0 and counts["read_packed"] > 0, counts
+    assert counts["read_packed"] > 0, counts
     med = statistics.median(seconds)
     print(
         f"main path (mt): batch {BATCH}, path length {MAX_PATH}, {tracer.scene.pack.mt.n_tri} triangles: "
@@ -2032,8 +2069,8 @@ def main() -> int:
     )
     # the table reads' backward replaces torch's sorting index backward (before it was a kernel:
     # indexing_backward_kernel_small_stride, 10 launches, 51.0 of 168.1 ms of device time); one step profiled
-    assert grad_counts.get("read_rows_grad", 0) > 0, grad_counts
-    for name in ("read_rows", "read_rows_grad", "read_packed"):
+    assert grad_counts.get("read_packed_grad", 0) > 0, grad_counts
+    for name in ("read_packed",):
         kernels[name].update(launches=grad_counts.get(name, 0), launches_per_step=grad_counts.get(name, 0),
                              path="polarized woop gradient, 1 step")
     grad_prof = profile_step(lambda: absorption_grad(pol_tracer), watch=("indexing_backward",))
@@ -2229,8 +2266,10 @@ def main() -> int:
     geo = time_step(geometry_step(geo_tracer), grad_wrappers,
                     f"brute geometry gradient step: batch {BATCH}, path length {MAX_PATH}")
     assert geo["launches"]["kernel_histogram_grad"] == 19 and geo["launches"]["read_packed_grad"] > 0, geo["launches"]
-    # the hit reconstruction's rows of tri_data and inst_data, forward and backward, at each of the 19 queries
+    # the hit reconstruction's rows of tri_data and inst_data, forward and backward, at each of the 19
+    # queries, leave no sorting index backward of rows (indexing_backward_kernel_small_stride)
     assert geo["launches"]["gather_rows"] == geo["launches"]["gather_rows_grad"] == 2 * 19, geo["launches"]
+    assert not [e for e in geo["profile"]["watched"]["indexing_backward"] if "small_stride" in e["name"]], geo
     for name in ("read_packed_grad", "gather_rows", "gather_rows_grad"):
         kernels[name].update(launches=geo["launches"][name], launches_per_step=geo["launches"][name],
                              path="brute geometry gradient, 1 step")

@@ -310,7 +310,7 @@ def test_kernel_histogram_kernels(cuda, label, args):
 
 
 def test_table_read_kernels(cuda):
-    """The three table reads (``csrc/table_read.cu``) on the flagship
+    """The table reads (``csrc/table_read.cu``) on the flagship
     scene's tables and a volume table against their plain versions, under
     ``chip_smoke.hold_table_reads``' stated tolerances."""
     import theia_tpu_torch
@@ -320,9 +320,9 @@ def test_table_read_kernels(cuda):
 
     store = build_flagship(theia_tpu_torch, icosphere(1), 64, 2, accel="auto", device=cuda).scene.pack.media
     table = build_volume_flagship(theia_tpu_torch, 64, cuda).params()["medium"].absorption_coef
-    before = table_read.read_rows.launches
+    before = table_read.read_packed.launches
     hold_table_reads(store, table)
-    assert table_read.read_rows.launches > before and table_read.read_table_grad.launches > 0
+    assert table_read.read_packed.launches > before and table_read.read_table_grad.launches > 0
 
 
 def test_gather_rows_kernels(cuda):

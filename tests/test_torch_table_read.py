@@ -1,6 +1,6 @@
-"""The port's three table reads (``ops/table_read.py``: ``read_table``
-behind ``lookup.lookup``, ``read_packed`` behind
-``material.lookup_packed``, ``read_rows`` behind the const4 read of
+"""The port's table reads (``ops/table_read.py``: ``read_table`` behind
+``lookup.lookup``, ``read_packed`` behind ``material.lookup_packed`` and,
+with four channels, the const4 read of
 ``material.packed_medium_constants``) against ``theia_tpu``'s functions,
 values and ``jax.vjp`` in the table and the coordinate. On CPU tensors
 the port runs the plain versions and their written-out backward, which
@@ -16,7 +16,7 @@ Tolerances and why:
 - values: bit-equal. The same float32 ops in the same order.
 - d coordinate: rtol 1e-6. One lane's chain of three or four products,
   which JAX may round in another order (the const4 read sums four
-  products over the row).
+  products, one a channel).
 - d table: rtol 1e-5 of the largest entry. Each entry sums every lane
   that reads it; JAX scatters the value and the slope parts separately,
   the port a lane's share at once, so the sums round differently.
@@ -186,22 +186,26 @@ def test_const4_read_matches_jax():
     assert not leaves["scattering_coef"].grad[2].any() and not leaves["group_velocity"].grad[2].any()
 
 
-def test_read_rows_grad_plain_matches_autograd():
-    """The rows read's written-out backward against torch's autograd
-    through its plain forward (a gather, a product, a where)."""
-    rng = np.random.default_rng(8)
+@pytest.mark.parametrize("channels", [1, 4])
+def test_read_packed_grad_plain_matches_autograd(channels):
+    """The packed read's written-out backward against torch's autograd
+    through its plain forward (gathers, a product, a where, the clip),
+    with one channel and with the const4 read's four."""
+    rng = np.random.default_rng(8 + channels)
     pad, sizes = 16, torch.tensor([0, 16, 5], dtype=torch.int32)
-    rows = torch.tensor(rng.normal(size=(3 * pad, 8)).astype(np.float32), requires_grad=True)
-    t = torch.tensor(np.concatenate([[0.0, 1.0], rng.uniform(0, 1, 200)]).astype(np.float32), requires_grad=True)
+    shape = (3, pad, channels) if channels > 1 else (3, pad)
+    values = torch.tensor(rng.normal(size=shape).astype(np.float32), requires_grad=True)
+    t = torch.tensor(np.concatenate([[-0.5, 0.0, 1.0, 1.5], rng.uniform(0, 1, 200)]).astype(np.float32),
+                     requires_grad=True)
     handle = torch.tensor(rng.integers(0, 3, t.shape[0]).astype(np.int32))
-    nulls = (0.0, 0.0, 1.0, 0.3)
-    ct = torch.tensor(rng.normal(size=(t.shape[0], 4)).astype(np.float32))
-    out = table_read.read_rows_plain(rows, sizes, handle, t, pad, nulls)
-    want = torch.autograd.grad(out, (rows, t), ct)
-    got = table_read.read_rows_grad_plain(rows.detach(), sizes, handle, t.detach(), pad, ct)
+    nulls = (0.0, 0.0, 1.0, 0.3)[:channels] if channels > 1 else 0.3
+    out = table_read.read_packed_plain(values, sizes, handle, t, nulls)
+    ct = torch.tensor(rng.normal(size=tuple(out.shape)).astype(np.float32))
+    want = torch.autograd.grad(out, (values, t), ct)
+    got = table_read.read_packed_grad_plain(values.detach(), sizes, handle, t.detach(), ct)
     _close(got[0].numpy(), want[0].numpy(), 1e-6)
     _close(got[1].numpy(), want[1].numpy(), 1e-6)
-    np.testing.assert_array_equal(table_read.read_rows(rows.detach(), sizes, handle, t.detach(), pad, nulls).numpy(),
+    np.testing.assert_array_equal(table_read.read_packed(values.detach(), sizes, handle, t.detach(), nulls).numpy(),
                                   out.detach().numpy())
 
 
@@ -212,7 +216,9 @@ def test_reads_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         table_read.read_packed(torch.zeros(2, 3), torch.zeros(2, dtype=torch.int64), torch.zeros(4), u)
     with pytest.raises(ValueError):
-        table_read.read_rows(torch.zeros(6, 8), torch.zeros(2, dtype=torch.int32), torch.zeros(4), u, 4, (0,) * 4)
+        table_read.read_packed(torch.zeros(2, 3, 5), torch.zeros(2, dtype=torch.int32), torch.zeros(4), u, (0.0,) * 5)
+    with pytest.raises(ValueError):
+        table_read.read_packed(torch.zeros(2, 3, 4), torch.zeros(2, dtype=torch.int32), torch.zeros(4), u, (0.0,) * 3)
     # a null table (None or empty) reads its null value, with no graph
     assert (tlookup.lookup(None, u, 2.0) == 2.0).all()
     assert (tlookup.lookup(torch.zeros(0, requires_grad=True), u, 3.0) == 3.0).all()

@@ -1,30 +1,32 @@
 // The table read: linear interpolation in lookup tables, and its backward.
 //
-// Replaces three reads that theia_tpu leaves to XLA, with the VJPs that JAX
+// Replaces the reads that theia_tpu leaves to XLA, with the VJPs that JAX
 // derives for them: theia_tpu/lookup.py lookup (l.43: one table of n
-// samples over [0, 1], v_lo * (1 - l) + v_hi * l), theia_tpu/material.py
+// samples over [0, 1], v_lo * (1 - l) + v_hi * l) and theia_tpu/material.py
 // lookup_packed (l.355: a medium's row of packed (M, L) tables, v_j + l *
 // (v_{j+1} - v_j), the last column's slope 0, null_value where the table
-// is null) and the const4 read of packed_medium_constants (l.397: one row
-// of eight floats a lane, four values and their four slopes). The
-// coordinate is clipped to [0, 1] with jnp.clip's gradient: 1/2 on a bound,
-// where JAX's max and min split a tie (the rows' coordinate comes clipped).
-// A fourth form reads whole rows, the gathers of theia_tpu/accel.py
+// is null), which takes C <= 4 tables stacked (M, L, C) for the const4 read
+// of packed_medium_constants (l.397: four values and their four slopes a
+// row; the slope here is the same float32 difference, taken in the kernel).
+// The coordinate is clipped to [0, 1] with jnp.clip's gradient: 1/2 on a
+// bound, where JAX's max and min split a tie.
+// A third form reads whole rows, the gathers of theia_tpu/accel.py
 // _reconstruct_hit (l.614, 640: a winner's 32-float tri_data row and its
 // instance's inst_data row), and adds their gradient back, which eager
-// PyTorch runs as the same sorting index backward (2.64 s of a 2.78 s
-// geometry gradient step on this card, where translate_instance gives
-// both tables a graph).
+// PyTorch runs as a sorting index backward (2.64 s of a 2.78 s geometry
+// gradient step on this card, where translate_instance gives both tables a
+// graph) or, through index_select, as index_add_ with an atomic for every
+// element, the zero shares of the lanes that missed included, all on row 0.
 //
 // What bounds them on an H100. The forward: bytes. A lane reads its
 // coordinate (and handle) and writes its value, 8 to 12 bytes against
-// some ten float operations; the tables, 4 KB to 24 KB on the port's
-// paths, stay in L1 and L2. The backward writes a lane's gradient of the
-// coordinate (4 bytes) and adds its share of the table's gradient to one
-// to sixteen table entries; what limits it is where those adds meet. On
-// the flagship's const4 rows 262,144 lanes add into 3 x 256 x 8 floats,
-// and the lanes of one wavelength add into the same row. Eager PyTorch
-// runs this backward as a sort of the indices and a segmented sum
+// some ten float operations a channel; the tables, 3 KB to 12 KB on the
+// port's paths, stay in L1 and L2. The backward writes a lane's gradient
+// of the coordinate (4 bytes) and adds its share of the table's gradient
+// to one to eight table entries; what limits it is where those adds meet.
+// On the flagship's const4 tables 262,144 lanes add into 3 x 256 x 4
+// floats, and the lanes of one wavelength add into the same rows. Eager
+// PyTorch runs this backward as a sort of the indices and a segmented sum
 // (indexing_backward_kernel_small_stride): 51 ms of a 168 ms polarized
 // gradient step on this card, for work that moves a few megabytes.
 //
@@ -110,16 +112,23 @@ struct Single {
   }
 };
 
-// ---- packed tables, one value a lane (material.lookup_packed) ----
+// ---- packed tables, C channels a lane (material.lookup_packed and the
+// const4 read) ----
+constexpr int kMaxChannels = 4;  // equals ops/table_read.py MAX_CHANNELS
+
+struct Nulls {
+  float v[kMaxChannels];
+};
+
 struct Packed {
-  const float* values;
-  int len;
+  const float* values;  // (M, len, channels)
+  int len, channels;
   const int* sizes;
   const int* handle;
   const float* t;
 
   struct Lane {
-    long long base;  // flat index of the lane's row j
+    long long row;  // the lane's row j of (M * len) rows
     int n, j;
     float l, scale;
   };
@@ -133,81 +142,49 @@ struct Packed {
     const float fl = floorf(tt);
     a.l = tt - fl;
     a.j = row_of(fl, len);
-    a.base = static_cast<long long>(h) * len + a.j;
+    a.row = static_cast<long long>(h) * len + a.j;
     return a;
   }
 
-  __device__ float slope(const Lane& a, float v) const {
-    return a.j < len - 1 ? __ldg(values + a.base + 1) - v : 0.0f;
+  __device__ float value(const Lane& a, int c) const {
+    return __ldg(values + a.row * channels + c);
   }
 
-  __device__ float forward(int i, float null_value) const {
+  __device__ float slope(const Lane& a, int c, float v) const {
+    return a.j < len - 1 ? __ldg(values + (a.row + 1) * channels + c) - v : 0.0f;
+  }
+
+  __device__ void forward(int i, const Nulls& nulls, float* out) const {
     const Lane a = locate(i);
-    const float v = __ldg(values + a.base);
-    const float res = v + a.l * slope(a, v);
-    return a.n == 0 ? null_value : res;
+    float* o = out + static_cast<long long>(i) * channels;
+    for (int c = 0; c < channels; ++c) {
+      const float v = value(a, c);
+      const float res = v + a.l * slope(a, c, v);
+      o[c] = a.n == 0 ? nulls.v[c] : res;
+    }
   }
 
   __device__ float backward(int i, const float* grad_out, float* acc) const {
     const Lane a = locate(i);
     if (a.n == 0) return 0.0f;
-    const float g = grad_out[i];
-    if (acc != nullptr) {
-      if (a.j < len - 1) {
-        add(acc, a.base, g - g * a.l);
-        add(acc, a.base + 1, g * a.l);
-      } else {
-        add(acc, a.base, g);
+    const float* go = grad_out + static_cast<long long>(i) * channels;
+    float dt = 0.0f;
+    for (int c = 0; c < channels; ++c) {
+      const float g = go[c];
+      const long long k = a.row * channels + c;
+      if (acc != nullptr) {
+        if (a.j < len - 1) {
+          add(acc, k, g - g * a.l);
+          add(acc, k + channels, g * a.l);
+        } else {
+          add(acc, k, g);
+        }
       }
+      // the channels' products summed in order, as the plain version does
+      const float p = g * slope(a, c, value(a, c));
+      dt = c == 0 ? p : dt + p;
     }
-    return g * slope(a, __ldg(values + a.base)) * a.scale * clip_grad(t[i]);
-  }
-};
-
-// ---- stacked value/slope rows (the const4 read) ----
-struct Rows {
-  const float* rows;
-  int pad;
-  const int* sizes;
-  const int* handle;
-  const float* t;
-
-  struct Lane {
-    const float* row;
-    long long base;
-    int n;
-    float l, scale;
-  };
-
-  __device__ Lane locate(int i) const {
-    const int h = handle[i];
-    Lane a;
-    a.n = __ldg(sizes + h);
-    a.scale = static_cast<float>(a.n - 1 > 1 ? a.n - 1 : 1);
-    const float tt = t[i] * a.scale;
-    const float fl = floorf(tt);
-    a.l = tt - fl;
-    a.base = (static_cast<long long>(h) * pad + row_of(fl, pad)) * 8;
-    a.row = rows + a.base;
-    return a;
-  }
-
-  __device__ float backward(int i, const float* grad_out, float* acc) const {
-    const Lane a = locate(i);
-    if (a.n == 0) return 0.0f;
-    const float* go = grad_out + 4 * static_cast<long long>(i);
-    const float g[4] = {go[0], go[1], go[2], go[3]};
-    if (acc != nullptr) {
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        add(acc, a.base + k, g[k]);
-        add(acc, a.base + 4 + k, g[k] * a.l);
-      }
-    }
-    const float* s = a.row + 4;
-    return (((g[0] * __ldg(s) + g[1] * __ldg(s + 1)) + g[2] * __ldg(s + 2)) +
-            g[3] * __ldg(s + 3)) *
-           a.scale;
+    return dt * a.scale * clip_grad(t[i]);
   }
 };
 
@@ -220,25 +197,10 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 __global__ void __launch_bounds__(kThreads)
-    read_packed(Packed f, float null_value, int count, float* __restrict__ out) {
+    read_packed(Packed f, Nulls nulls, int count, float* __restrict__ out) {
   const int stride = gridDim.x * kThreads;
   for (int i = blockIdx.x * kThreads + threadIdx.x; i < count; i += stride) {
-    out[i] = f.forward(i, null_value);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-    read_rows(Rows f, float4 nulls, int count, float* __restrict__ out) {
-  const int stride = gridDim.x * kThreads;
-  for (int i = blockIdx.x * kThreads + threadIdx.x; i < count; i += stride) {
-    const Rows::Lane a = f.locate(i);
-    float* o = out + 4 * static_cast<long long>(i);
-    if (a.n == 0) {
-      o[0] = nulls.x, o[1] = nulls.y, o[2] = nulls.z, o[3] = nulls.w;
-      continue;
-    }
-#pragma unroll
-    for (int k = 0; k < 4; ++k) o[k] = __ldg(a.row + k) + a.l * __ldg(a.row + 4 + k);
+    f.forward(i, nulls, out);
   }
 }
 
@@ -389,51 +351,37 @@ extern "C" int theia_table_read_grad(const float* table, int n, const float* u,
 }
 
 extern "C" int theia_packed_read(const float* values, int m, int len,
-                                 const int* sizes, const int* handle,
-                                 const float* t, float null_value, int count,
-                                 float* out, cudaStream_t stream) {
+                                 int channels, const int* sizes,
+                                 const int* handle, const float* t,
+                                 float null0, float null1, float null2,
+                                 float null3, int count, float* out,
+                                 cudaStream_t stream) {
   if (count <= 0) return static_cast<int>(cudaGetLastError());
+  if (channels < 1 || channels > kMaxChannels) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t err = cudaSuccess;
   const int grid = grid_for(count, kThreads, kBlocksPerSm, &err);
   if (err != cudaSuccess) return static_cast<int>(err);
-  read_packed<<<grid, kThreads, 0, stream>>>(Packed{values, len, sizes, handle, t},
-                                             null_value, count, out);
+  read_packed<<<grid, kThreads, 0, stream>>>(
+      Packed{values, len, channels, sizes, handle, t}, Nulls{{null0, null1, null2, null3}},
+      count, out);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int theia_packed_read_grad(const float* values, int m, int len,
-                                      const int* sizes, const int* handle,
-                                      const float* t, const float* grad_out,
-                                      int count, float* grad_values,
-                                      float* grad_t, cudaStream_t stream) {
-  return static_cast<int>(launch_grad(Packed{values, len, sizes, handle, t}, grad_out,
-                                      count, grad_values,
-                                      static_cast<long long>(m) * len, grad_t, stream));
-}
-
-extern "C" int theia_rows_read(const float* rows, int m, int pad,
-                               const int* sizes, const int* handle,
-                               const float* t, float null0, float null1,
-                               float null2, float null3, int count, float* out,
-                               cudaStream_t stream) {
-  if (count <= 0) return static_cast<int>(cudaGetLastError());
-  cudaError_t err = cudaSuccess;
-  const int grid = grid_for(count, kThreads, kBlocksPerSm, &err);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  read_rows<<<grid, kThreads, 0, stream>>>(Rows{rows, pad, sizes, handle, t},
-                                           make_float4(null0, null1, null2, null3),
-                                           count, out);
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int theia_rows_read_grad(const float* rows, int m, int pad,
-                                    const int* sizes, const int* handle,
-                                    const float* t, const float* grad_out,
-                                    int count, float* grad_rows, float* grad_t,
-                                    cudaStream_t stream) {
-  return static_cast<int>(launch_grad(Rows{rows, pad, sizes, handle, t}, grad_out, count,
-                                      grad_rows, static_cast<long long>(m) * pad * 8,
-                                      grad_t, stream));
+                                      int channels, const int* sizes,
+                                      const int* handle, const float* t,
+                                      const float* grad_out, int count,
+                                      float* grad_values, float* grad_t,
+                                      cudaStream_t stream) {
+  if (channels < 1 || channels > kMaxChannels) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(launch_grad(Packed{values, len, channels, sizes, handle, t},
+                                      grad_out, count, grad_values,
+                                      static_cast<long long>(m) * len * channels, grad_t,
+                                      stream));
 }
 
 extern "C" int theia_gather_rows(const float* table, int width, const int* index,

@@ -25,7 +25,7 @@ import torch
 from . import units as u
 from .component import resolve_device
 from .lookup import lookup
-from .ops.table_read import clip01, read_packed, read_rows
+from .ops.table_read import clip01, read_packed
 
 __all__ = [
     "speed_of_light",
@@ -40,7 +40,7 @@ __all__ = [
     "MaterialStore",
     "packed_medium_constants",
     "lookup_packed",
-    "const4_rows",
+    "const4_table",
     "MediumModel",
     "SellmeierEquation",
     "BK7Model",
@@ -316,12 +316,12 @@ def lookup_packed(
     return read_packed(values, sizes, handle, t, null_value)
 
 
-def const4_rows(store: MediumStore) -> tuple[torch.Tensor, torch.Tensor, int]:
-    """The four constants tables stacked into (M * pad, 8) value/slope
-    rows (null tables replaced by their defaults, the slope of the last
-    column 0), the longest of each medium's four sizes, and ``pad``: what
-    :func:`packed_medium_constants` reads with ``const4_ok``. Built from
-    the store's tensors every call, so gradients reach the tables."""
+def const4_table(store: MediumStore) -> tuple[torch.Tensor, torch.Tensor]:
+    """The four constants tables stacked into one (M, pad, 4) table (null
+    tables replaced by their defaults) and the longest of each medium's
+    four sizes: what :func:`packed_medium_constants` reads with
+    ``const4_ok``. Built from the store's tensors every call, so
+    gradients reach the tables."""
     sz = [store.sizes[k] for k in _CONST4_KINDS]
     eff = [
         torch.where((s == 0)[:, None], null, store.tables[k])
@@ -329,10 +329,7 @@ def const4_rows(store: MediumStore) -> tuple[torch.Tensor, torch.Tensor, int]:
     ]
     pad = max(e.shape[1] for e in eff)
     eff = [torch.nn.functional.pad(e, (0, pad - e.shape[1])) for e in eff]
-    stacked = torch.stack(eff, dim=-1)  # (M, pad, 4)
-    dv = torch.nn.functional.pad(torch.diff(stacked, dim=1), (0, 0, 0, 1))
-    rows = torch.cat([stacked, dv], dim=-1).reshape(-1, 8)
-    return rows, reduce(torch.maximum, sz), pad
+    return torch.stack(eff, dim=-1), reduce(torch.maximum, sz)
 
 
 def packed_medium_constants(
@@ -341,21 +338,22 @@ def packed_medium_constants(
     """Per-lane medium constants by handle (handle 0 = vacuum).
 
     With ``const4_ok`` the four constants tables are stacked into one
-    (M, Lmax, 8) value/slope table and each lane reads a single row, as
-    ``theia_tpu.material.packed_medium_constants`` does
-    (:func:`~theia_tpu_torch.ops.table_read.read_rows`)."""
+    (M, Lmax, 4) table and each lane reads its row of all four at once,
+    as ``theia_tpu.material.packed_medium_constants`` reads its (M, Lmax,
+    8) value/slope rows (:func:`~theia_tpu_torch.ops.table_read.read_packed`
+    with four channels, which clips the coordinate as JAX's clip here
+    does)."""
     lmin = store.lambda_min[handle]
     lmax = store.lambda_max[handle]
-    t = clip01((wavelength - lmin) / (lmax - lmin))
+    ratio = (wavelength - lmin) / (lmax - lmin)
     if store.const4_ok:
-        rows, n4, pad = const4_rows(store)
-        shape = t.shape
-        res = read_rows(rows, n4, handle.reshape(-1), t.reshape(-1), pad, _CONST4_NULLS)
-        res = res.reshape(*shape, 4)
+        table, n4 = const4_table(store)
+        res = read_packed(table, n4, handle, ratio, _CONST4_NULLS)
         mu_a, mu_s = res[..., 0], res[..., 1]
         return MediumConstants(
             n=res[..., 2], vg=res[..., 3], mu_s=mu_s, mu_e=mu_a + mu_s
         )
+    t = clip01(ratio)
     g = lambda kind, null: lookup_packed(
         store.tables[kind], store.sizes[kind], handle, t, null
     )

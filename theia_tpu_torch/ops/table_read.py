@@ -11,20 +11,20 @@ Three forms, each the read of a ``theia_tpu`` function, op for op:
   ``v_j + l * (v_{j+1} - v_j)`` with the slope of the last column 0, and
   ``null_value`` where the table is null (size 0)
   (``theia_tpu.material.lookup_packed``; the scene tracer's IOR and
-  phase reads);
-* :func:`read_rows` - the stacked (M * pad, 8) value/slope rows of the
-  four constants tables, four values a lane (the ``const4`` read of
-  ``theia_tpu.material.packed_medium_constants``);
+  phase reads), or of C such tables stacked (M, L, C) and read at once
+  (the four constants tables, the ``const4`` read of
+  ``theia_tpu.material.packed_medium_constants``, which stacks them as
+  value/slope rows: the kernel takes the same slope, ``v_{j+1} - v_j``,
+  in the same float32 op);
 * :func:`gather_rows` - whole rows of a table, ``table[index]``, the
   ``tri_data`` and ``inst_data`` rows that ``accel._reconstruct_hit``
   rebuilds a hit from (``jnp.take`` in ``theia_tpu.accel``).
 
-Each is differentiable in the table and (the first three) in the
+Each is differentiable in the table and (the first two) in the
 coordinate. The clip of
 the coordinate to [0, 1] takes ``jnp.clip``'s gradient: 1 inside, 0
 outside, and 1/2 on the bounds themselves, where JAX's max/min split a
-tie (torch's ``clamp`` would pass 1). ``read_rows`` takes its
-coordinate already clipped, as ``packed_medium_constants`` does.
+tie (torch's ``clamp`` would pass 1).
 
 On CPU tensors the plain versions run (``*_plain``; the backward's plain
 versions write the gradient out, as the kernels do); on CUDA tensors the
@@ -59,12 +59,9 @@ __all__ = [
     "read_packed_plain",
     "read_packed_grad",
     "read_packed_grad_plain",
-    "read_rows",
-    "read_rows_plain",
-    "read_rows_grad",
-    "read_rows_grad_plain",
     "gather_rows",
     "gather_rows_grad",
+    "MAX_CHANNELS",
     "SHARED_TABLE_MAX",
 ]
 
@@ -220,8 +217,15 @@ read_table_grad.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# packed tables, one value a lane: theia_tpu.material.lookup_packed
+# packed tables: theia_tpu.material.lookup_packed and the const4 read
 # ---------------------------------------------------------------------------
+
+#: the most channels a packed read takes (the const4 read's four)
+MAX_CHANNELS = 4
+
+
+def _channels(values: torch.Tensor) -> int:
+    return values.shape[2] if values.dim() == 3 else 1
 
 
 def _packed_coords(values, sizes, handle, t):
@@ -234,44 +238,66 @@ def _packed_coords(values, sizes, handle, t):
     return n, j, flat, tt - fl, length
 
 
-def _packed_slope(values, j, flat, length):
-    v = values.reshape(-1)[flat]
-    v1 = values.reshape(-1)[torch.clamp_max(flat + 1, values.numel() - 1)]
-    return v, torch.where(j < length - 1, v1 - v, 0.0)
+def _packed_slope(rows, j, flat, length):
+    """(v_j, v_{j+1} - v_j) of each lane's row of ``rows`` (M * L, C), the
+    slope 0 in the last column."""
+    v = rows[flat]
+    v1 = rows[torch.clamp_max(flat + 1, rows.shape[0] - 1)]
+    return v, torch.where((j < length - 1)[:, None], v1 - v, 0.0)
 
 
-def read_packed_plain(values, sizes, handle, t, null_value: float = 0.0) -> torch.Tensor:
-    """Plain version of :func:`read_packed`'s forward (any device)."""
+def _nulls(null_value, channels: int) -> tuple[float, ...]:
+    nulls = (null_value,) * channels if isinstance(null_value, (int, float)) else tuple(null_value)
+    if len(nulls) != channels:
+        raise ValueError(f"read_packed: {channels} channels take {channels} null values, got {len(nulls)}")
+    return tuple(float(v) for v in nulls)
+
+
+def read_packed_plain(values, sizes, handle, t, null_value=0.0) -> torch.Tensor:
+    """Plain version of :func:`read_packed`'s forward (any device; flat
+    ``handle`` and ``t``)."""
+    c = _channels(values)
     n, j, flat, l, length = _packed_coords(values, sizes, handle, t)
-    v, dv = _packed_slope(values, j, flat, length)
-    return torch.where(n == 0, float(null_value), v + l * dv)
+    v, dv = _packed_slope(values.reshape(-1, c), j, flat, length)
+    nulls = torch.tensor(_nulls(null_value, c), dtype=torch.float32, device=t.device)
+    res = torch.where((n == 0)[:, None], nulls, v + l[:, None] * dv)
+    return res if values.dim() == 3 else res[:, 0]
 
 
 def read_packed_grad_plain(values, sizes, handle, t, grad_out, need_values=True, need_t=True):
     """Plain version of :func:`read_packed_grad`."""
+    c = _channels(values)
+    rows = values.reshape(-1, c)
     n, j, flat, l, length = _packed_coords(values, sizes, handle, t)
-    g = torch.where(n == 0, 0.0, grad_out)
+    g = torch.where((n == 0)[:, None], 0.0, grad_out.reshape(-1, c))
+    l = l[:, None]
     grad_values = grad_t = None
     if need_values:
-        last = j == length - 1
-        grad = torch.zeros(values.numel(), dtype=values.dtype, device=values.device)
+        last = (j == length - 1)[:, None]
+        grad = torch.zeros_like(rows)
         grad.index_add_(0, flat, torch.where(last, g, g - g * l))
-        grad.index_add_(0, torch.clamp_max(flat + 1, values.numel() - 1), torch.where(last, 0.0, g * l))
+        grad.index_add_(0, torch.clamp_max(flat + 1, rows.shape[0] - 1), torch.where(last, 0.0, g * l))
         grad_values = grad.reshape(values.shape)
     if need_t:
-        _, dv = _packed_slope(values, j, flat, length)
-        grad_t = g * dv * torch.clamp_min(n - 1, 1).to(torch.float32) * _clip_grad(t)
+        _, dv = _packed_slope(rows, j, flat, length)
+        prod = g * dv
+        dt = prod[:, 0]
+        for k in range(1, c):  # the kernel's order
+            dt = dt + prod[:, k]
+        grad_t = dt * torch.clamp_min(n - 1, 1).to(torch.float32) * _clip_grad(t)
     return grad_values, grad_t
 
 
-def _read_packed_forward(values, sizes, handle, t, null_value):
+def _read_packed_forward(values, sizes, handle, t, nulls):
     if not _on_card(values, sizes, handle, t):
-        return read_packed_plain(values, sizes, handle, t, null_value)
-    out = torch.empty_like(t)
+        return read_packed_plain(values, sizes, handle, t, nulls)
+    c = _channels(values)
+    out = torch.empty((t.shape[0], c) if values.dim() == 3 else t.shape, dtype=torch.float32, device=t.device)
     if t.numel():
-        _launch(read_packed, "theia_packed_read", values.data_ptr(), values.shape[0],
-                values.shape[1], sizes.data_ptr(), handle.data_ptr(), t.data_ptr(),
-                ctypes.c_float(null_value), t.numel(), out.data_ptr(), _stream(t))
+        _launch(read_packed, "theia_packed_read", values.data_ptr(), values.shape[0], values.shape[1], c,
+                sizes.data_ptr(), handle.data_ptr(), t.data_ptr(),
+                *(ctypes.c_float(v) for v in nulls + (0.0,) * (MAX_CHANNELS - c)), t.numel(),
+                out.data_ptr(), _stream(t))
     return out
 
 
@@ -285,7 +311,7 @@ def read_packed_grad(values, sizes, handle, t, grad_out, need_values=True, need_
     grad_t = torch.empty_like(t) if need_t else None
     if t.numel() and (need_values or need_t):
         _launch(read_packed_grad, "theia_packed_read_grad", values.data_ptr(), values.shape[0],
-                values.shape[1], sizes.data_ptr(), handle.data_ptr(), t.data_ptr(),
+                values.shape[1], _channels(values), sizes.data_ptr(), handle.data_ptr(), t.data_ptr(),
                 grad_out.data_ptr(), t.numel(), _ptr(grad_values), _ptr(grad_t), _stream(t))
     elif need_t:
         grad_t.zero_()
@@ -294,9 +320,9 @@ def read_packed_grad(values, sizes, handle, t, grad_out, need_values=True, need_
 
 class _PackedRead(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, values, sizes, handle, t, null_value):
+    def forward(ctx, values, sizes, handle, t, nulls):
         ctx.save_for_backward(values, sizes, handle, t)
-        return _read_packed_forward(values, sizes, handle, t, null_value)
+        return _read_packed_forward(values, sizes, handle, t, nulls)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -306,15 +332,19 @@ class _PackedRead(torch.autograd.Function):
         return gv, None, None, gt, None
 
 
-def read_packed(values, sizes, handle, t, null_value: float = 0.0) -> torch.Tensor:
-    """Per-lane read of packed tables: ``values`` f32 (M, L), ``sizes``
-    i32 (M,), ``handle`` integer (any shape), ``t`` f32 (``handle``'s
-    shape) clipped to [0, 1]. Row ``j = floor(t * max(n - 1, 1))`` of the
-    lane's medium gives ``v_j + l * (v_{j+1} - v_j)`` (slope 0 in the last
-    column, so a table shorter than L reads its padding there); lanes
-    whose table is null (n = 0) give ``null_value``. Differentiable in
-    ``values`` and ``t``."""
-    _check("values", values, torch.float32, 2)
+def read_packed(values, sizes, handle, t, null_value=0.0) -> torch.Tensor:
+    """Per-lane read of packed tables: ``values`` f32 (M, L), or (M, L, C)
+    for C <= :data:`MAX_CHANNELS` tables read at once, ``sizes`` i32 (M,),
+    ``handle`` integer (any shape), ``t`` f32 (``handle``'s shape)
+    clipped to [0, 1]. Row ``j = floor(t * max(n - 1, 1))`` of the lane's
+    medium gives ``v_j + l * (v_{j+1} - v_j)`` in each channel (slope 0
+    in the last column, so a table shorter than L reads its padding
+    there); lanes whose table is null (n = 0) give ``null_value`` (a
+    float, or C floats). Returns ``t``'s shape, with a last axis of C
+    for a 3-d ``values``; differentiable in ``values`` and ``t``."""
+    if values.dim() not in (2, 3) or (values.dim() == 3 and not 1 <= values.shape[2] <= MAX_CHANNELS):
+        raise ValueError(f"read_packed: values must be (M, L) or (M, L, C) with C <= {MAX_CHANNELS}")
+    _check("values", values, torch.float32, values.dim())
     _check("sizes", sizes, torch.int32, 1)
     shape = t.shape
     t = t.reshape(-1).contiguous()
@@ -322,119 +352,16 @@ def read_packed(values, sizes, handle, t, null_value: float = 0.0) -> torch.Tens
     _check("t", t, torch.float32, 1)
     if handle.shape != t.shape:
         raise ValueError("read_packed: handle and t must have the same shape")
+    nulls = _nulls(null_value, _channels(values))
     if _differentiable(values, t):
-        out = _PackedRead.apply(values, sizes, handle, t, float(null_value))
+        out = _PackedRead.apply(values, sizes, handle, t, nulls)
     else:
-        out = _read_packed_forward(values, sizes, handle, t, float(null_value))
-    return out.reshape(shape)
+        out = _read_packed_forward(values, sizes, handle, t, nulls)
+    return out.reshape(shape + out.shape[1:])
 
 
 read_packed.launches = 0
 read_packed_grad.launches = 0
-
-
-# ---------------------------------------------------------------------------
-# the stacked value/slope rows of packed_medium_constants
-# ---------------------------------------------------------------------------
-
-
-def _rows_coords(rows, sizes, handle, t, pad):
-    n = sizes[handle]
-    tt = t * torch.clamp_min(n - 1, 1).to(torch.float32)
-    fl = torch.floor(tt)
-    flat = handle.to(torch.int64) * pad + _index(fl, pad)
-    return n, flat, (tt - fl)[:, None]
-
-
-def read_rows_plain(rows, sizes, handle, t, pad: int, nulls) -> torch.Tensor:
-    """Plain version of :func:`read_rows`'s forward (any device)."""
-    n, flat, l = _rows_coords(rows, sizes, handle, t, pad)
-    row = rows[flat]
-    res = row[:, :4] + l * row[:, 4:]
-    nulls = torch.tensor(nulls, dtype=torch.float32, device=res.device)
-    return torch.where((n == 0)[:, None], nulls, res)
-
-
-def read_rows_grad_plain(rows, sizes, handle, t, pad: int, grad_out, need_rows=True, need_t=True):
-    """Plain version of :func:`read_rows_grad`."""
-    n, flat, l = _rows_coords(rows, sizes, handle, t, pad)
-    g = torch.where((n == 0)[:, None], 0.0, grad_out)
-    grad_rows = grad_t = None
-    if need_rows:
-        grad_rows = torch.zeros_like(rows).index_add_(0, flat, torch.cat([g, g * l], dim=1))
-    if need_t:
-        grad_t = (g * rows[flat][:, 4:]).sum(dim=1) * torch.clamp_min(n - 1, 1).to(torch.float32)
-    return grad_rows, grad_t
-
-
-def _read_rows_forward(rows, sizes, handle, t, pad, nulls):
-    if not _on_card(rows, sizes, handle, t):
-        return read_rows_plain(rows, sizes, handle, t, pad, nulls)
-    out = torch.empty((t.shape[0], 4), dtype=torch.float32, device=t.device)
-    if t.numel():
-        _launch(read_rows, "theia_rows_read", rows.data_ptr(), rows.shape[0] // pad, pad,
-                sizes.data_ptr(), handle.data_ptr(), t.data_ptr(),
-                *(ctypes.c_float(v) for v in nulls), t.numel(), out.data_ptr(), _stream(t))
-    return out
-
-
-def read_rows_grad(rows, sizes, handle, t, pad: int, grad_out, need_rows=True, need_t=True):
-    """Backward of :func:`read_rows`: (d rows, d t), either None where not
-    asked for; null lanes give exact zeros. CUDA tensors launch
-    ``theia_rows_read_grad``, CPU tensors run the plain version."""
-    if not _on_card(rows, sizes, handle, t, grad_out):
-        return read_rows_grad_plain(rows, sizes, handle, t, pad, grad_out, need_rows, need_t)
-    grad_rows = torch.zeros_like(rows) if need_rows else None
-    grad_t = torch.empty_like(t) if need_t else None
-    if t.numel() and (need_rows or need_t):
-        _launch(read_rows_grad, "theia_rows_read_grad", rows.data_ptr(), rows.shape[0] // pad, pad,
-                sizes.data_ptr(), handle.data_ptr(), t.data_ptr(), grad_out.data_ptr(), t.numel(),
-                _ptr(grad_rows), _ptr(grad_t), _stream(t))
-    elif need_t:
-        grad_t.zero_()
-    return grad_rows, grad_t
-
-
-class _RowsRead(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, rows, sizes, handle, t, pad, nulls):
-        ctx.save_for_backward(rows, sizes, handle, t)
-        ctx.pad = pad
-        return _read_rows_forward(rows, sizes, handle, t, pad, nulls)
-
-    @staticmethod
-    def backward(ctx, grad_out):
-        rows, sizes, handle, t = ctx.saved_tensors
-        need = ctx.needs_input_grad
-        gr, gt = read_rows_grad(rows, sizes, handle, t, ctx.pad, grad_out.contiguous(), need[0], need[3])
-        return gr, None, None, gt, None, None
-
-
-def read_rows(rows, sizes, handle, t, pad: int, nulls) -> torch.Tensor:
-    """Four values a lane from stacked value/slope rows: ``rows`` f32 (M *
-    pad, 8) (a medium's ``pad`` rows of four values and their four
-    slopes), ``sizes`` i32 (M,) (the longest of the medium's four tables),
-    ``handle`` integer (N,), ``t`` f32 (N,) in [0, 1] (not clipped here).
-    Row ``j = floor(t * max(n - 1, 1))`` gives ``row[:4] + l * row[4:]``;
-    lanes of a medium with n = 0 give ``nulls`` (four floats). Returns f32
-    (N, 4), differentiable in ``rows`` and ``t``."""
-    _check("rows", rows, torch.float32, 2)
-    _check("sizes", sizes, torch.int32, 1)
-    if rows.shape[1] != 8 or rows.shape[0] != sizes.shape[0] * pad:
-        raise ValueError("read_rows: rows must be (M * pad, 8) for M = len(sizes)")
-    t = t.contiguous()
-    handle = handle.to(torch.int32).contiguous()
-    _check("t", t, torch.float32, 1)
-    if handle.shape != t.shape:
-        raise ValueError("read_rows: handle and t must have the same shape")
-    nulls = tuple(float(v) for v in nulls)
-    if _differentiable(rows, t):
-        return _RowsRead.apply(rows, sizes, handle, t, pad, nulls)
-    return _read_rows_forward(rows, sizes, handle, t, pad, nulls)
-
-
-read_rows.launches = 0
-read_rows_grad.launches = 0
 
 
 # ---------------------------------------------------------------------------
