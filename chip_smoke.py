@@ -54,10 +54,14 @@ Phases, one line each, any failure raises and exits non-zero:
    524,288 items over 100 bins, with and without a detector axis, odd N,
    offset views, a state past shared memory, an all-masked record and
    NaN/inf times; the table reads and their backward
-   (``csrc/table_read.cu``) on the flagship scene's packed refractive
-   indices, its four constants tables read at once (the const4 read)
-   and a 1024-sample volume table at N = 262,144 with lanes at t = 0
-   and 1 (and a table of 100,000 samples); the hit reconstruction's row
+   (``csrc/table_read.cu``) in every form of every read site at N =
+   262,144 with lanes at t = 0 and 1 (``read_cases``: on the flagship
+   scene's store the refractive index at t and at the wavelength clipped
+   twice, the log phase function and the phase matrix's four tables at
+   the cosine, the four constants tables by the const4 rule; on the
+   volume flagship's medium its absorption at t, its log phase function
+   at the cosine, its four constants tables at the wavelength and four
+   phase-matrix tables; and a table of 100,000 samples); the hit reconstruction's row
    gather and its backward (``gather_rows``) on the flagship's
    ``tri_data`` and ``inst_data``, and on ``tri_data`` with half the
    lanes missed (row 0, zero gradient); each timed as called and queued
@@ -69,19 +73,24 @@ Phases, one line each, any failure raises and exits non-zero:
 3. the first main path at full width: the flagship scene tracer
    (262,144 lanes, path length 10, 3840 triangles, 100 bins,
    ``accel="mt"``) through ``run()``, one warm-up batch and three timed
-   ones, with the kernels' launch counts; then seconds per batch with
+   ones, with the kernels' launch counts, and one batch with each table-read
+   site counted (``read_sites``: one launch a read, at most two a
+   medium's constants); then seconds per batch with
    the winners' rows from the kernel and from a separate gather, in turns;
 3b. the second main path at full width: the polarized flagship on the
-   Woop query (``accel="woop", polarized=True``), the same way;
+   Woop query (``accel="woop", polarized=True``), the same way, its read
+   sites counted too;
 3c. its gradient at full width: one ``trace_fn()`` forward and backward
    of sum(histogram state) with respect to the water absorption table,
    then one step under the profiler (device busy, the table reads'
-   backward launches, no ``indexing_backward_kernel_small_stride``);
+   launches a step, forward and backward, no
+   ``indexing_backward_kernel_small_stride``);
 3d. the third main path at full width: the brute-force flagship, the
    scene with no ``accel`` named (``"auto"`` resolves to ``"brute"``),
    with its launches a batch (10 primary nearest hits with winner rows,
    9 shadow pairs, each one ``target_in_table`` launch, no separate
-   any-hit, none of the other nearest-hit kernels); then seconds per
+   any-hit, none of the other nearest-hit kernels; its read sites counted,
+   nothing stacked for the constants' read); then seconds per
    batch with the winners' rows from the kernel and from a separate gather,
    in turns; then the ``mt``, unpolarized ``woop`` and brute-force
    flagships in turns, for seconds per batch that can be compared;
@@ -90,8 +99,9 @@ Phases, one line each, any failure raises and exits non-zero:
 3f. the volume flagship (``examples/01_volume_tracing.py``'s
    ``VolumeForwardTracer``: water, a 5 m sphere target, 10 scatterings)
    at 262,144 lanes: seconds per batch, bounces/s, peak memory, the
-   kernels' launches a batch (21 records, no triangle query) and one
-   batch under ``torch.profiler`` (device busy, kernels and copies);
+   kernels' launches a batch (21 records, no triangle query), one
+   batch under ``torch.profiler`` (device busy, kernels and copies) and
+   one with its read sites counted;
    phase 2 holds its 21 recorded records against the plain version;
 3g. the photon flagship (``ScenePhotonTracer`` on the brute-force scene,
    3 runs of 2 segments) at 262,144 lanes: ``run_compacted()`` against
@@ -535,12 +545,15 @@ def check_record_replay(records, path, add_report, grad_report):
 #: backward's: the same 12 to the weight, then 2 for d value, 4 for d t,
 #: 7 for d binSize and 5 for d bandwidth, and the read of g
 KDE_PAIR_FLOP, KDE_GRAD_PAIR_FLOP = 17, 31
-#: float32 operations of a lane's table read of C channels: the clip, the
-#: scale, floor and the fraction (6), then a channel's slope, lerp and null
-#: select (4); its backward's: the same 6, a channel's two shares of the
-#: table, its slope and its product into d u (8)
-READ_FLOP = lambda c: 6 + 4 * c
-READ_GRAD_FLOP = lambda c: 6 + 8 * c
+#: float32 operations of a lane's table read of K tables: the clip, the
+#: scale, floor and the fraction (6), the coordinate's form (affine: a
+#: product and a sum; the wavelength: two differences and a division),
+#: then a table's slope, lerp and null select (4); its backward's: the same
+#: 6 and the form, a table's two shares of its table, its slope and its
+#: product into d x (8), and the chain's product or division (1)
+FORM_FLOP = {"t": 0, "affine": 2, "wavelength": 3}
+READ_FLOP = lambda k, form: 6 + FORM_FLOP[form] + 4 * k
+READ_GRAD_FLOP = lambda k, form: 7 + FORM_FLOP[form] + 8 * k
 
 
 def kde_case(n: int, seed: int, bins: int = 100, n_det=None, kept: float = 0.5, offset: int = 0):
@@ -687,84 +700,154 @@ def check_kernel_histogram(add_report, grad_report):
                        ("d t0", "d binSize", "d bandwidth")], **b)
 
 
-def read_cases(store, table) -> dict:
+def read_cases(store, medium) -> dict:
     """The table reads' inputs at the main paths' shapes, N = 262,144
-    lanes, 1 % of them exactly at t = 0 and 1 % at t = 1: the flagship
-    scene's packed refractive indices (3 media, 256 columns), its four
-    constants tables read at once (``material.const4_table``; BK7's
-    absorption is infinite below 235 nm, so rows there read inf and NaN,
-    as they would in the plain version) and a 1024-sample single table
-    (``table``); each with the handles of every medium, vacuum (null)
-    included. Returns label -> dict(kernel=the wrapper's name, args,
-    forward, plain, grad, grad_plain, channels)."""
+    lanes, one case a read site's form: inputs u uniform over [-0.05,
+    1.05], 1 % of them exactly at 0 and 1 % at 1, seen as each form's
+    input (t = u; cos = 2u - 1, so t = 0.5 * cos + 0.5 is u again; the
+    wavelength lambda_min + u * (lambda_max - lambda_min) of the lane's
+    medium, so the bounds are met exactly). The packed reads on the
+    flagship scene's store (3 media, 256 columns; every medium's handle,
+    vacuum, null, included): the refractive index at t (``lookup_packed``),
+    at the wavelength clipped twice (``_fresnel``), the log phase function
+    at the cosine (``_scatter_prob_packed``), the four phase-matrix tables
+    at the cosine (``_phase_matrix_packed``; the flagship's water has none,
+    HG, so three media of 0, 256 and 200 samples made from the seed) and
+    the four constants tables by the const4 rule at the wavelength
+    (``packed_medium_constants``; BK7's absorption is infinite below 235
+    nm, so lanes there read inf and NaN, as they do in the plain version).
+    The single reads on the volume flagship's medium (1024 samples a
+    table): the absorption at t (``lookup``), the log phase function at the
+    cosine, its four constants tables at the wavelength clipped twice
+    (``medium_constants``) and four phase-matrix tables at the cosine
+    (``phase_matrix_elements``; from the seed: 1024, 1024 and 512 samples
+    and a null one). Returns label -> dict(kernel=the wrapper's name, args
+    (tables, [sizes, handle,] x, null values), kw (the form's keywords),
+    form, site)."""
     import numpy as np
     import torch
 
-    from theia_tpu_torch.material import _CONST4_NULLS, const4_table
-    from theia_tpu_torch.ops import table_read as tr
+    from theia_tpu_torch.material import _CONST4_KINDS, _CONST4_NULLS
+    from theia_tpu_torch.ops.table_read import PHASE
+    from theia_tpu_torch.trace.scene import _LOG_INV_4PI
 
     rng = np.random.default_rng(41)
     n = BATCH
     u = rng.uniform(-0.05, 1.05, n)
     u[: n // 100], u[n // 100 : n // 50] = 0.0, 1.0
-    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device="cuda")
-    handle = torch.as_tensor(rng.integers(0, store.sizes["refractive_index"].shape[0], n).astype(np.int32),
-                             device="cuda")
-    const4, n4 = const4_table(store)
-    case = lambda kernel, args, forward, plain, channels: dict(
-        kernel=kernel, args=args, forward=forward, plain=plain, grad=getattr(tr, kernel + "_grad"),
-        grad_plain=getattr(tr, kernel + "_grad_plain"), channels=channels)
+    dev = lambda a, dtype=np.float32: torch.as_tensor(np.asarray(a, dtype), device="cuda")
+    m = store.sizes["refractive_index"].shape[0]
+    h = rng.integers(0, m, n).astype(np.int32)
+    handle = dev(h, np.int32)
+    lo, hi = (b.cpu().numpy().astype(np.float64) for b in (store.lambda_min, store.lambda_max))
+    lam = dev(lo[h] + u * (hi - lo)[h])
+    cos = dev(2.0 * u - 1.0)
+    vlo, vhi = float(medium.lambda_min), float(medium.lambda_max)
+    kinds = ("phase_m12", "phase_m22", "phase_m33", "phase_m34")
+    pm_sizes = np.array([0, 256, 200], np.int32)
+    columns = np.arange(256)[None] < pm_sizes[:, None]
+    pm = tuple(dev(np.where(columns, rng.uniform(-1.0, 1.0, (3, 256)), 0.0)) for _ in kinds)
+    pm_sizes = tuple(dev(pm_sizes, np.int32) for _ in kinds)
+    single_pm = (dev(rng.uniform(-1.0, 1.0, 1024)), dev(rng.uniform(-1.0, 1.0, 1024)),
+                 dev(rng.uniform(-1.0, 1.0, 512)), None)
+    bounds = (store.lambda_min, store.lambda_max)
+    tab, size = store.tables, store.sizes
+    packed = lambda tables, sizes, x, null, form, site, **kw: dict(
+        kernel="read_packed", args=(tables, sizes, handle, x, null), kw=kw, form=form, site=site)
+    single = lambda tables, x, null, form, site, **kw: dict(
+        kernel="read_table", args=(tables, x, null), kw=kw, form=form, site=site)
     return {
-        "read_table": case("read_table", (table, f32(u)), tr.read_table, tr.read_table_plain, 1),
-        "read_packed": case("read_packed", (store.tables["refractive_index"], store.sizes["refractive_index"],
-                                            handle, f32(u)), tr.read_packed, tr.read_packed_plain, 1),
-        "read_packed, const4": case("read_packed", (const4.contiguous(), n4, handle, f32(u)),
-                                    lambda *a: tr.read_packed(*a, _CONST4_NULLS),
-                                    lambda *a: tr.read_packed_plain(*a, _CONST4_NULLS), 4),
+        "read_packed": packed(tab["refractive_index"], size["refractive_index"], dev(u), 1.0, "t",
+                              "material.lookup_packed"),
+        "read_packed, fresnel": packed(tab["refractive_index"], size["refractive_index"], lam, 1.0, "wavelength",
+                                       "trace/scene.py _fresnel", bounds=bounds, clips=2),
+        "read_packed, scatter prob": packed(tab["log_phase_function"], size["log_phase_function"], cos, _LOG_INV_4PI,
+                                            "affine", "trace/scene.py _scatter_prob_packed", affine=PHASE),
+        "read_packed, phase matrix": packed(pm, pm_sizes, cos, 0.0, "affine", "trace/scene.py _phase_matrix_packed",
+                                            affine=PHASE),
+        "read_packed, const4": packed(tuple(tab[k] for k in _CONST4_KINDS), tuple(size[k] for k in _CONST4_KINDS),
+                                      lam, _CONST4_NULLS, "wavelength", "material.packed_medium_constants",
+                                      bounds=bounds, shared=True),
+        "read_table": single(medium.absorption_coef, dev(u), 0.0, "t", "lookup.lookup"),
+        "read_table, phase": single(medium.log_phase_function, cos, 0.0, "affine",
+                                    "trace/core.py, volume.py, photon.py: the log phase function", affine=PHASE),
+        "read_table, medium constants": single(
+            tuple(getattr(medium, k) for k in _CONST4_KINDS), dev(vlo + u * (vhi - vlo)), _CONST4_NULLS,
+            "wavelength", "material.medium_constants", bounds=(medium.lambda_min, medium.lambda_max), clips=2),
+        "read_table, phase matrix": single(single_pm, cos, 0.0, "affine", "polarization.phase_matrix_elements",
+                                           affine=PHASE),
     }
 
 
-def hold_table_reads(store, table) -> dict:
+def _outputs(out) -> tuple:
+    return out if isinstance(out, tuple) else (out,)
+
+
+def read_calls(c, g=None):
+    """(forward, plain, backward, plain backward) of read case ``c`` as
+    functions of nothing, the backward for the upstream gradient ``g`` (a
+    tuple, one a table)."""
+    from theia_tpu_torch.ops import table_read as tr
+
+    kernel, args, kw = c["kernel"], c["args"], c["kw"]
+    one = not isinstance(args[0], tuple)
+    gg = None if g is None else (g[0] if one else g)
+    grad_args = lambda go: (*args[:-1], go, args[-1])
+    return (lambda: getattr(tr, kernel)(*args, **kw), lambda: getattr(tr, kernel + "_plain")(*args, **kw),
+            lambda: getattr(tr, kernel + "_grad")(*grad_args(gg), **kw),
+            lambda go=gg: getattr(tr, kernel + "_grad_plain")(*grad_args(go), **kw))
+
+
+def hold_table_reads(store, medium) -> dict:
     """The table reads (K2) against their plain versions on the same card
-    tensors (``read_cases``): the forward and the backward's d t bit for
-    bit (the same float32 ops in the same order, the channels' products
-    summed in the same order), and d table within 2e-5 of each entry's
-    sum of absolute shares (the plain version's backward run on
+    tensors (``read_cases``): the forward and the backward's d x bit for
+    bit (the same float32 ops in the same order, the tables' products
+    summed in the same order), and each d table within 2e-5 of each
+    entry's sum of absolute shares (the plain version's backward run on
     |grad_out|): atomics in shared memory and then in device memory
     against index_add_'s, each in an order that changes from run to run.
     Also a table of 100,000 samples, whose gradient takes the variant
     without shared memory. Returns the cases and, per case, the max abs
-    error of d table at the main shape."""
+    error of d tables at the main shape."""
     import numpy as np
     import torch
 
     from theia_tpu_torch.ops import table_read as tr
 
-    cases = read_cases(store, table)
+    cases = read_cases(store, medium)
     big = torch.as_tensor(np.random.default_rng(5).normal(size=100_000).astype(np.float32), device="cuda")
     assert big.numel() > tr.SHARED_TABLE_MAX
-    extra = {"read_table": [("a table of 100,000 samples", (big, cases["read_table"]["args"][1]))]}
+    main = cases["read_table"]
+    extra = {"read_table": [("a table of 100,000 samples", dict(main, args=(big, *main["args"][1:])))]}
     errors = {}
-    for name, c in cases.items():
-        for label, a in [("the main path's shape", c["args"])] + extra.get(name, []):
-            got, want = c["forward"](*a), c["plain"](*a)
+    for name, case in cases.items():
+        for label, c in [("the main path's shape", case)] + extra.get(name, []):
+            forward, plain, _, _ = read_calls(c)
+            got, want = _outputs(forward()), _outputs(plain())
             torch.cuda.synchronize()
-            assert same(got, want), f"{name} forward differs from plain on {label}"
-            g = torch.randn_like(want)
-            got_t, got_u = c["grad"](*a, g)
-            want_t, want_u = c["grad_plain"](*a, g)
-            abs_t, _ = c["grad_plain"](*a, g.abs())
+            assert all(same(a, b) for a, b in zip(got, want)), f"{name} forward differs from plain on {label}"
+            g = tuple(torch.randn_like(w) for w in want)
+            _, _, grad, grad_plain = read_calls(c, g)
+            got_t, got_x = grad()
+            want_t, want_x = grad_plain()
+            abs_t, _ = grad_plain(tuple(x.abs() for x in g) if len(g) > 1 else g[0].abs())
             torch.cuda.synchronize()
-            assert same(got_u, want_u), f"{name} backward d t differs from plain on {label}"
-            assert torch.equal(torch.isnan(got_t), torch.isnan(want_t)), f"{name} d table NaNs differ on {label}"
-            finite = torch.isfinite(want_t)
-            diff = (got_t - want_t)[finite].abs()
-            excess = float((diff - 2e-5 * abs_t[finite]).max())
-            assert excess <= 0.0, f"{name} backward d table off by {excess} on {label}"
-            err = float(diff.max())
+            assert same(got_x, want_x), f"{name} backward d x differs from plain on {label}"
+            err = 0.0
+            for k, (a, b, s) in enumerate(zip(_outputs(got_t), _outputs(want_t), _outputs(abs_t))):
+                if b is None:
+                    assert a is None, f"{name}: a null table got a gradient"
+                    continue
+                assert torch.equal(torch.isnan(a), torch.isnan(b)), f"{name} d table {k} NaNs differ on {label}"
+                finite = torch.isfinite(b)
+                diff = (a - b)[finite].abs()
+                excess = float((diff - 2e-5 * s[finite]).max())
+                assert excess <= 0.0, f"{name} backward d table {k} off by {excess} on {label}"
+                err = max(err, float(diff.max()))
             errors.setdefault(name, err)
-            print(f"kernel {name} on {label} ({a[0].numel()} table floats, {a[-1].numel()} lanes): forward "
-                  f"bit-equal, d t bit-equal, d table within 2e-5 of its absolute sums (max abs err {err:.3g})")
+            x = c["args"][-2]
+            print(f"kernel {name} on {label} ({len(got)} table(s), {x.numel()} lanes): forward bit-equal, d x "
+                  f"bit-equal, d tables within 2e-5 of their absolute sums (max abs err {err:.3g})")
     return cases, errors
 
 
@@ -776,85 +859,124 @@ def same(a, b) -> bool:
     return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan])
 
 
-def grid_sample_read(name, args):
-    """The library call that computes the read ``name`` of ``read_cases``:
-    one ``grid_sample`` (bilinear, ``align_corners=True``, border padding)
-    over the table seen as a (1, C, M, L) image, on a grid made
-    beforehand: x the clipped coordinate scaled by the table's own size,
-    y the lane's medium row. The null tables' select is left out.
-    Returns (call, the image and grid's bytes)."""
+def _read_reader(c):
+    """The validated table set of read case ``c`` and its flat parts:
+    (reader, tables, sizes, bounds, handle, x)."""
+    from theia_tpu_torch.ops import table_read as tr
+
+    args, kw = c["args"], c["kw"]
+    packed = c["kernel"] == "read_packed"
+    tables = args[0] if isinstance(args[0], tuple) else (args[0],)
+    sizes = (args[1] if isinstance(args[1], tuple) else (args[1],)) if packed else None
+    handle = args[2] if packed else None
+    x, null, bounds = args[-2], args[-1], kw.get("bounds")
+    reader = tr._reader(packed, tables, sizes, null, kw.get("affine"), bounds, kw.get("clips", 1),
+                        kw.get("shared", False), x.device)
+    return reader, tables, sizes, bounds, handle, x
+
+
+def grid_sample_read(c):
+    """The library call that computes read case ``c``: one ``grid_sample``
+    (bilinear, ``align_corners=True``, border padding) over the tables seen
+    as a (1, K, M, L) image (null tables as the const4 rule reads them:
+    their null value, 0 beyond a table's width; a single table's M is 1), on
+    a grid made beforehand from the formed and clipped coordinate: x scaled
+    by the lane's size, y the lane's medium row. Forming the coordinate
+    (the wavelength bounds' gathers, the affine map) and the null select
+    are left out of its time. Returns (call, the lanes and tables on which
+    it computes what the read does: a (K, N) mask)."""
     import torch
     import torch.nn.functional as F
 
-    if name == "read_table":
-        table, u = args
-        image = table.reshape(1, 1, 1, -1)
-        x, y = 2.0 * u.clamp(0.0, 1.0) - 1.0, torch.zeros_like(u)
+    from theia_tpu_torch.ops.table_read import clip01
+
+    reader, tables, sizes, bounds, handle, x = _read_reader(c)
+    r, _ = reader.coordinate(bounds, handle, x)
+    t = clip01(r)
+    live = [k for k, tab in enumerate(tables) if tab is not None]
+    width = max(tables[k].shape[-1] for k in live)
+    pad = lambda a: torch.nn.functional.pad(a, (0, width - a.shape[-1]))
+    if reader.packed:
+        h = handle.long()
+        nk = torch.stack([s[h] for s in sizes])
+        n = nk.max(0).values if reader.shared else nk[0]
+        image = torch.stack([pad(torch.where((s == 0)[:, None], null, tab))
+                             for tab, s, null in zip(tables, sizes, reader.nulls)])[None]
+        m = image.shape[2]
+        gx = 2.0 * (t * torch.clamp_min(n - 1, 1).float()) / (width - 1) - 1.0
+        gy = 2.0 * h.float() / (m - 1) - 1.0
+        kept = (n > 0)[None] & ((nk == n[None]) | reader.shared)
     else:
-        values, sizes, handle, t = args
-        m, length = values.shape[0], values.shape[1]
-        image = (values if values.dim() == 3 else values[..., None]).permute(2, 0, 1)[None].contiguous()
-        scale = torch.clamp_min(sizes[handle] - 1, 1).float()
-        x = 2.0 * (t.clamp(0.0, 1.0) * scale) / (length - 1) - 1.0
-        y = 2.0 * handle.float() / (m - 1) - 1.0
-    grid = torch.stack([x, y], dim=-1).reshape(1, 1, -1, 2).contiguous()
+        image = torch.stack([pad(tables[k]) for k in live])[:, None][None]
+        gx, gy = 2.0 * t - 1.0, torch.zeros_like(t)
+        same_width = torch.tensor([tables[k].shape[0] == width for k in live], device=t.device)
+        kept = same_width[:, None].expand(-1, t.shape[0])
+    grid = torch.stack([gx, gy], dim=-1).reshape(1, 1, -1, 2).contiguous()
+    image = image.contiguous()
     call = lambda: F.grid_sample(image, grid, mode="bilinear", padding_mode="border", align_corners=True)
-    return call, 4 * (image.numel() + grid.numel())
+    return call, live, kept
 
 
-def check_table_read(reports, store, table):
-    """``hold_table_reads``, then each read's forward and backward timed at
-    the main shape beside the plain versions', the library calls that
-    compute the same on inputs made beforehand (``grid_sample`` for the
-    forward, checked against the kernel on the lanes whose table is not
-    null; ``index_add_`` of the lanes' shares for the backward: what
-    autograd's index backward computes) and the bounds. The one-channel
-    packed read reports at ``read_packed``, the const4 read under its
-    ``const4`` key."""
+def check_table_read(reports, store, medium):
+    """``hold_table_reads``, then each read case's forward and backward
+    timed at the main shape as called and queued, beside the plain
+    versions', the library calls that compute the same on inputs made
+    beforehand (``grid_sample`` for the forward, checked against the kernel
+    where it computes the same; ``index_add_`` of the lanes' shares for the
+    backward: what autograd's index backward computes) and the bounds
+    (each lane's input, handle, outputs and, for the backward, its upstream
+    gradient and d x; the tables, their sizes and the wavelength bounds
+    once, the tables' gradients once). The first packed and single cases
+    report at ``read_packed`` and ``read_table``, the others under their
+    labels in ``forms``."""
     import torch
 
-    cases, errors = hold_table_reads(store, table)
+    cases, errors = hold_table_reads(store, medium)
     for name, c in cases.items():
-        kernel, args, channels = c["kernel"], c["args"], c["channels"]
+        kernel = c["kernel"]
         report, grad_report = reports[kernel], reports[kernel + "_grad"]
-        if name.endswith("const4"):
-            report, grad_report = report.setdefault("const4", {}), grad_report.setdefault("const4", {})
-        report.update(max_abs_err=0.0)
-        grad_report.update(max_abs_err=errors[name])
-        out = c["forward"](*args)
-        g = torch.randn_like(out)
-        n = args[-1].shape[0]
-        table_bytes = 4 * args[0].numel()
-        lane_bytes = 4 if name == "read_table" else 8  # coordinate (and handle)
-        out_bytes = 4 * channels
+        if name != kernel:
+            report = report.setdefault("forms", {}).setdefault(name, {})
+            grad_report = grad_report.setdefault("forms", {}).setdefault(name, {})
+        report.update(max_abs_err=0.0, site=c["site"], form=c["form"])
+        grad_report.update(max_abs_err=errors[name], site=c["site"], form=c["form"])
+        reader, tables, sizes, bounds, handle, x = _read_reader(c)
+        forward, plain, _, _ = read_calls(c)
+        out = _outputs(forward())
+        g = tuple(torch.randn_like(o) for o in out)
+        _, _, grad, grad_plain = read_calls(c, g)
+        n, k = x.numel(), len(tables)
+        table_bytes = 4 * sum(tab.numel() for tab in tables if tab is not None)
+        once = table_bytes + (4 * sum(s.numel() for s in sizes) if sizes else 0)
+        once += 0 if bounds is None else 4 * sum(b.numel() for b in bounds if isinstance(b, torch.Tensor))
+        lane_bytes = 4 + (4 if handle is not None else 0)
         for rep, fn, plain_fn, flop, n_bytes in (
-            (report, lambda: c["forward"](*args), lambda: c["plain"](*args), READ_FLOP(channels) * n,
-             n * (lane_bytes + out_bytes) + table_bytes),
-            (grad_report, lambda: c["grad"](*args, g), lambda: c["grad_plain"](*args, g),
-             READ_GRAD_FLOP(channels) * n, n * (lane_bytes + out_bytes + 4) + 2 * table_bytes),
+            (report, forward, plain, READ_FLOP(k, c["form"]) * n, n * (lane_bytes + 4 * k) + once),
+            (grad_report, grad, grad_plain, READ_GRAD_FLOP(k, c["form"]) * n,
+             n * (lane_bytes + 4 * k + 4) + once + table_bytes),
         ):
             ms, queued_ms = cuda_ms(fn, 50), cuda_ms_queued(fn, 50)
             plain_ms = cuda_ms(plain_fn, 10)
             rep.update(ms=ms, queued_ms=queued_ms, plain_ms=plain_ms, **bound(n_bytes, flop))
-        library, _ = grid_sample_read(kernel if name == "read_table" else "packed", args)
-        lib_out = library().reshape(channels, -1).t().reshape(out.shape)
-        kept = torch.isfinite(out) & torch.isfinite(lib_out)
-        if kernel == "read_packed":
-            nonnull = args[1][args[2]] > 0
-            kept &= nonnull[:, None] if channels > 1 else nonnull
-        scale = float(out[kept].abs().max())
-        lib_err = float((lib_out - out)[kept].abs().max()) / scale
+            rep.update(share_of_bound=rep["bound_ms"] / ms, queued_share_of_bound=rep["bound_ms"] / queued_ms)
+        library, live, kept = grid_sample_read(c)
+        lib_out = library().reshape(len(live), -1)
+        got = torch.stack([out[j] for j in live])
+        kept = kept & torch.isfinite(got) & torch.isfinite(lib_out)
+        scale = float(got[kept].abs().max())
+        lib_err = float((lib_out - got)[kept].abs().max()) / scale
         assert lib_err <= 1e-4, f"grid_sample does not compute {name}: {lib_err}"
         report["library_ms"] = cuda_ms(library, 50)
-        entries, shares = read_shares(args, g)
-        acc = torch.zeros_like(args[0]).reshape(-1)
+        entries, shares = read_shares(c, g)
+        acc = torch.zeros(table_bytes // 4, dtype=torch.float32, device=x.device)
         grad_report["library_ms"] = cuda_ms(lambda: acc.index_add_(0, entries, shares), 50)
         for rep, what, lib in ((report, "forward", "grid_sample"), (grad_report, "backward", "index_add_")):
-            print(f"kernel {name} {what} N={n}: kernel {rep['ms']:.4f} ms ({rep['queued_ms']:.4f} queued), plain "
-                  f"{rep['plain_ms']:.4f} ms, {lib} {rep['library_ms']:.4f} ms; bound {rep['bound_ms']:.4f} ms by "
-                  f"{rep['bound_by']}, share {rep['bound_ms'] / rep['ms']:.3f} "
-                  f"({rep['bound_ms'] / rep['queued_ms']:.3f} queued)")
-        print(f"kernel {name}: grid_sample within {lib_err:.3g} of the kernel's largest value on the lanes it computes")
+            print(f"kernel {name} {what} ({c['site']}, {k} table(s), form {c['form']}) N={n}: kernel "
+                  f"{rep['ms']:.4f} ms ({rep['queued_ms']:.4f} queued), plain {rep['plain_ms']:.4f} ms, {lib} "
+                  f"{rep['library_ms']:.4f} ms; bound {rep['bound_ms']:.4f} ms by {rep['bound_by']}, share "
+                  f"{rep['share_of_bound']:.3f} ({rep['queued_share_of_bound']:.3f} queued)")
+        print(f"kernel {name}: grid_sample within {lib_err:.3g} of the kernel's largest value where it computes the "
+              f"same (the coordinate formed and the nulls selected beforehand, outside its time)")
 
 
 def check_gather_rows(report, grad_report, pack):
@@ -929,26 +1051,38 @@ def check_gather_rows(report, grad_report, pack):
     report["index_select_ms"] = select_ms
 
 
-def read_shares(args, g):
-    """(entries, shares) of a table read's backward: every lane's adds into
-    the table's gradient, made beforehand for the index_add_ yardstick."""
+def read_shares(c, g):
+    """(entries, shares) of read case ``c``'s backward: every lane's two
+    adds a table into the tables' gradients laid end to end, made
+    beforehand for the index_add_ yardstick."""
     import torch
 
     from theia_tpu_torch.ops import table_read as tr
 
-    if len(args) == 2:
-        table, u = args
-        n = table.shape[0]
-        x, fl, l = tr._single_coords(n, u)
-        return torch.cat([tr._index(fl, n), tr._index(torch.ceil(x), n)]), torch.cat([g * (1.0 - l), g * l])
-    values, sizes, handle, t = args
-    c = values.shape[2] if values.dim() == 3 else 1
-    _, j, flat, l, length = tr._packed_coords(values, sizes, handle, t)
-    g, l, last = g.reshape(-1, c), l[:, None], (j == length - 1)[:, None]
-    base = flat[:, None] * c + torch.arange(c, device=flat.device)
-    entries = torch.cat([base.reshape(-1), torch.clamp_max(base + c, values.numel() - 1).reshape(-1)])
-    shares = torch.cat([torch.where(last, g, g - g * l).reshape(-1), torch.where(last, 0.0, g * l).reshape(-1)])
-    return entries, shares
+    reader, tables, sizes, bounds, handle, x = _read_reader(c)
+    r, _ = reader.coordinate(bounds, handle, x)
+    t = tr.clip01(r)
+    entries, shares, offset = [], [], 0
+    if reader.packed:
+        h = handle.long()
+        for k, (_, pad, _, j, l, _) in enumerate(reader.cells(sizes, h, t)):
+            length, last = reader.lens[k], j == pad - 1
+            base = offset + h * length
+            entries += [base + torch.clamp_max(j, length - 1), base + torch.clamp_max(j + 1, length - 1)]
+            shares += [torch.where(last, g[k], g[k] - g[k] * l), torch.where(last, 0.0, g[k] * l)]
+            offset += tables[k].numel()
+    else:
+        for k, table in enumerate(tables):
+            if table is None:
+                continue
+            n = table.shape[0]
+            xx = t * float(n - 1)
+            fl = torch.floor(xx)
+            l = xx - fl
+            entries += [offset + tr._index(fl, n), offset + tr._index(torch.ceil(xx), n)]
+            shares += [g[k] * (1.0 - l), g[k] * l]
+            offset += n
+    return torch.cat(entries), torch.cat(shares)
 
 
 def bound(n_bytes: float, flop: float, peak: float = PEAK_F32) -> dict:
@@ -1541,6 +1675,79 @@ def abc_experiment(nearest_rows: Nearest, report):
     report.update(experiment_ms=times)
 
 
+#: the table-read sites of each path, (module, names): the reads the scene
+#: tracer calls and the reads of the volume and photon tracers
+SCENE_READS = (("theia_tpu_torch.trace.scene", ("packed_medium_constants", "read_packed", "lookup_packed")),)
+VOLUME_READS = (
+    ("theia_tpu_torch.trace.volume", ("medium_constants", "lookup", "phase_matrix_elements")),
+    ("theia_tpu_torch.trace.core", ("lookup",)),
+)
+#: aten operations that launch nothing on the card besides views
+NO_LAUNCH = ("empty", "empty_like", "empty_strided", "detach", "alias", "lift_fresh")
+
+
+def read_sites(step, sites) -> dict:
+    """One call of ``step`` with each table-read site of ``sites`` wrapped:
+    per site, its calls, the table-read kernels they launched and the
+    launches of torch that they made (every aten operation that is not a
+    view or an allocation, counted by a ``TorchDispatchMode``), and the
+    most launches of one call."""
+    import importlib
+
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from theia_tpu_torch.ops import table_read as tr
+
+    ops = [0]
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not (func.is_view or func.overloadpacket.__name__ in NO_LAUNCH):
+                ops[0] += 1
+            return func(*args, **(kwargs or {}))
+
+    stats, patched = {}, []
+
+    def wrap(fn, label):
+        def site(*args, **kwargs):
+            before = ops[0], tr.read_table.launches + tr.read_packed.launches
+            out = fn(*args, **kwargs)
+            reads = tr.read_table.launches + tr.read_packed.launches - before[1]
+            s = stats.setdefault(label, dict(calls=0, read_launches=0, torch_launches=0, most=0))
+            s["calls"] += 1
+            s["read_launches"] += reads
+            s["torch_launches"] += ops[0] - before[0]
+            s["most"] = max(s["most"], reads + ops[0] - before[0])
+            return out
+        return site
+
+    for module, names in sites:
+        mod = importlib.import_module(module)
+        for name in names:
+            patched.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, wrap(getattr(mod, name), f"{name} ({module.rsplit('.', 1)[1]}.py)"))
+    try:
+        with Count():
+            step()
+            torch.cuda.synchronize()
+    finally:
+        for mod, name, fn in patched:
+            setattr(mod, name, fn)
+    return stats
+
+
+def check_read_sites(label, stats) -> None:
+    """Print a batch's read sites and hold each to its launches: one a
+    table read, at most two a medium's constants (the read and mu_e's
+    add)."""
+    for site, s in stats.items():
+        print(f"{label} read site {site}: {s['calls']} calls, {s['read_launches']} table-read launches, "
+              f"{s['torch_launches']} torch launches, at most {s['most']} a call")
+        assert s["read_launches"] <= s["calls"], (site, s)
+        assert s["most"] <= (2 if "constants" in site else 1), (site, s)
+
+
 def timed_runs(tracer, wrappers, label):
     """One warm-up and three timed ``run()``s of ``tracer`` with the launch
     counts of ``wrappers`` set to 0 just before the timed runs; returns
@@ -1941,7 +2148,7 @@ def main() -> int:
     # scene's packed tables and the volume flagship's 1024-sample table
     lap("the volume and photon flagships' records and queries")
     check_kernel_histogram(kernels["kernel_histogram_add"], kernels["kernel_histogram_grad"])
-    check_table_read(kernels, brute_tracer.scene.pack.media, volume_tracer.params()["medium"].absorption_coef)
+    check_table_read(kernels, brute_tracer.scene.pack.media, volume_tracer.params()["medium"])
     check_gather_rows(kernels["gather_rows"], kernels["gather_rows_grad"], brute_tracer.scene.pack)
     lap("the kernel histogram and the table reads")
 
@@ -1988,6 +2195,11 @@ def main() -> int:
     for name in ("nearest_triangle_mt_rows", "philox_uniform", "histogram_add"):
         kernels[name].update(launches=counts[name], launches_per_batch=counts[name] // 3,
                              path="mt flagship, 3 batches")
+    # every read site of a batch is one launch, a medium's constants at most two (one read, mu_e's add)
+    mt_sites = read_sites(tracer.run, SCENE_READS)
+    check_read_sites("main path (mt)", mt_sites)
+    print(f"main path (mt): table-read launches a batch: read_packed {counts['read_packed'] // 3}, "
+          f"read_table {counts['read_table'] // 3}")
     # the winners' rows from the kernel and from a separate gather (gather_rows), in turns
     turns = []
     for from_query in (True, False, False, True):
@@ -2030,6 +2242,10 @@ def main() -> int:
         launches=pol_counts["nearest_triangle_woop"], launches_per_batch=19,
         path="polarized woop flagship, 3 batches",
     )
+    pol_sites = read_sites(pol_tracer.run, SCENE_READS)
+    check_read_sites("main path (woop, polarized)", pol_sites)
+    print(f"main path (woop, polarized): table-read launches a batch: read_packed {pol_counts['read_packed'] // 3}, "
+          f"read_table {pol_counts['read_table'] // 3}")
 
     phase("3c")
     # phase 3c: the gradient at full width, on the same tracer (the
@@ -2082,6 +2298,9 @@ def main() -> int:
           f"51.048 ms of 168.09 ms)")
     for entry in grad_prof["top"][:8] + grad_prof["own"]:
         print(f"    {entry['ms']:9.3f} ms {entry['count']:6d} x {entry['name'][:90]}")
+    print("gradient (woop, polarized): table-read launches a step: " + ", ".join(
+        f"{name} {grad_counts.get(name, 0)}" for name in ("read_packed", "read_packed_grad", "read_table",
+                                                          "read_table_grad")))
     assert not small_stride, f"the table reads' backward still runs torch's index backward: {small_stride}"
     del pol_tracer
     torch.cuda.empty_cache()
@@ -2107,6 +2326,12 @@ def main() -> int:
     for name in ("nearest_in_table_rows", "target_in_table"):
         kernels[name].update(launches=brute_counts[name], launches_per_batch=brute_counts[name] // 3,
                              path="brute-force flagship, 3 batches")
+    # the constants tables are read where they lie: nothing stacks them (const4_table is gone)
+    assert not hasattr(theia_tpu_torch.material, "const4_table")
+    brute_sites = read_sites(brute_tracer.run, SCENE_READS)
+    check_read_sites("main path (brute)", brute_sites)
+    print(f"main path (brute): table-read launches a batch: read_packed {brute_counts['read_packed'] // 3}, "
+          f"read_table {brute_counts['read_table'] // 3}")
     # the winners' rows from the kernel and from a separate gather (gather_rows), in turns
     brute_turns = []
     for from_query in (True, False, False, True):
@@ -2178,6 +2403,8 @@ def main() -> int:
     )
     for entry in vol_prof["top"][:6] + vol_prof["own"]:
         print(f"    {entry['ms']:9.3f} ms {entry['count']:6d} x {entry['name'][:90]}")
+    vol_sites = read_sites(volume_tracer.run, VOLUME_READS)
+    check_read_sites("volume path", vol_sites)
     del volume_tracer
     torch.cuda.empty_cache()
 
@@ -2360,6 +2587,7 @@ def main() -> int:
                         peak_bytes=brute_peak, histogram_sums=brute_sums, launches=brute_counts,
                         row_source_turns=brute_turns),
         backends_in_turns=backend_turns,
+        read_sites=dict(mt=mt_sites, woop_polarized=pol_sites, brute=brute_sites, volume=vol_sites),
         woop_polarized_path=dict(seconds_per_batch=pol_seconds, bounces_per_s=BATCH * MAX_PATH / pol_med,
                                  peak_bytes=pol_peak, histogram_sums=pol_sums, launches=pol_counts),
         volume_path=dict(seconds_per_batch=vol_seconds, bounces_per_s=BATCH * 10 / vol_med, peak_bytes=vol_peak,

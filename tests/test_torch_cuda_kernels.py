@@ -310,18 +310,19 @@ def test_kernel_histogram_kernels(cuda, label, args):
 
 
 def test_table_read_kernels(cuda):
-    """The table reads (``csrc/table_read.cu``) on the flagship
-    scene's tables and a volume table against their plain versions, under
-    ``chip_smoke.hold_table_reads``' stated tolerances."""
+    """The table reads (``csrc/table_read.cu``), every form of every read
+    site, on the flagship scene's tables and the volume flagship's medium
+    against their plain versions, under ``chip_smoke.hold_table_reads``'
+    stated tolerances."""
     import theia_tpu_torch
     from chip_smoke import hold_table_reads
     from theia_tpu_torch.ops import table_read
     from torch_flagship import build_flagship, build_volume_flagship, icosphere
 
     store = build_flagship(theia_tpu_torch, icosphere(1), 64, 2, accel="auto", device=cuda).scene.pack.media
-    table = build_volume_flagship(theia_tpu_torch, 64, cuda).params()["medium"].absorption_coef
+    medium = build_volume_flagship(theia_tpu_torch, 64, cuda).params()["medium"]
     before = table_read.read_packed.launches
-    hold_table_reads(store, table)
+    hold_table_reads(store, medium)
     assert table_read.read_packed.launches > before and table_read.read_table_grad.launches > 0
 
 

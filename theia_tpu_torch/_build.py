@@ -24,7 +24,7 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["KernelLibrary", "library", "build", "check", "stream_handle"]
+__all__ = ["KernelLibrary", "library", "build", "check", "stream_handle", "raw_stream"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "theia_tpu_torch"
@@ -44,7 +44,6 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint32
-_F = ctypes.c_float
 #: argument types of each C entry point (pointers and the stream as void*)
 _SIGNATURES = {
     "theia_woop_nearest": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P),
@@ -58,10 +57,8 @@ _SIGNATURES = {
     "theia_empty_launch": (_P,),
     "theia_kde_add": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
     "theia_kde_grad": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
-    "theia_table_read": (_P, _I, _P, _I, _P, _P),
-    "theia_table_read_grad": (_P, _I, _P, _P, _I, _P, _P, _P),
-    "theia_packed_read": (_P, _I, _I, _I, _P, _P, _P, _F, _F, _F, _F, _I, _P, _P),
-    "theia_packed_read_grad": (_P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P),
+    "theia_table_read": (_P, _P, _P, _I, _I, _P, _P, _P, _P, _P),
+    "theia_table_read_grad": (_P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P),
     "theia_gather_rows": (_P, _I, _P, _I, _P, _P),
     "theia_gather_rows_grad": (_P, _I, _P, _I, _I, _P, _P),
 }
@@ -176,3 +173,12 @@ def stream_handle(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def raw_stream(t) -> int:
+    """Raw handle of PyTorch's current stream on the device of the CUDA
+    tensor ``t``: what :func:`stream_handle` gives, without building a
+    ``torch.cuda.Stream`` (a call's few microseconds of host time)."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

@@ -5,11 +5,22 @@
 // samples over [0, 1], v_lo * (1 - l) + v_hi * l) and theia_tpu/material.py
 // lookup_packed (l.355: a medium's row of packed (M, L) tables, v_j + l *
 // (v_{j+1} - v_j), the last column's slope 0, null_value where the table
-// is null), which takes C <= 4 tables stacked (M, L, C) for the const4 read
-// of packed_medium_constants (l.397: four values and their four slopes a
-// row; the slope here is the same float32 difference, taken in the kernel).
-// The coordinate is clipped to [0, 1] with jnp.clip's gradient: 1/2 on a
-// bound, where JAX's max and min split a tie.
+// is null), and what their callers compute around them:
+// - up to four tables read at one coordinate in one launch: the phase
+//   matrix's four (theia_tpu/trace/scene.py:80-88, polarization.py:94-98),
+//   the medium's four constants (material.py:164-172), and the const4 read
+//   of packed_medium_constants (material.py:397-441), which stacks the four
+//   kinds' packed tables into one (M, pad, 4) table: the kernel applies
+//   that rule to the kinds' own tables (n the largest of the four sizes, a
+//   null table its null constant across its own width and 0 in the padding
+//   beyond, the last column's slope 0), so nothing is stacked;
+// - the coordinate, formed from each lane's input x: x itself, a * x + b
+//   (the phase reads' 0.5 * (cos_theta + 1), exact as 0.5 * cos_theta +
+//   0.5), or the wavelength's (x - lambda_min) / (lambda_max -
+//   lambda_min) with the bounds read here (a medium's, by handle, or the
+//   one medium's), clipped once or twice as the JAX composition clips.
+// The clip to [0, 1] takes jnp.clip's gradient: 1/2 on a bound, where
+// JAX's max and min split a tie, so 1/4 where two clips meet a bound.
 // A third form reads whole rows, the gathers of theia_tpu/accel.py
 // _reconstruct_hit (l.614, 640: a winner's 32-float tri_data row and its
 // instance's inst_data row), and adds their gradient back, which eager
@@ -19,34 +30,60 @@
 // element, the zero shares of the lanes that missed included, all on row 0.
 //
 // What bounds them on an H100. The forward: bytes. A lane reads its
-// coordinate (and handle) and writes its value, 8 to 12 bytes against
-// some ten float operations a channel; the tables, 3 KB to 12 KB on the
-// port's paths, stay in L1 and L2. The backward writes a lane's gradient
-// of the coordinate (4 bytes) and adds its share of the table's gradient
-// to one to eight table entries; what limits it is where those adds meet.
-// On the flagship's const4 tables 262,144 lanes add into 3 x 256 x 4
-// floats, and the lanes of one wavelength add into the same rows. Eager
-// PyTorch runs this backward as a sort of the indices and a segmented sum
-// (indexing_backward_kernel_small_stride): 51 ms of a 168 ms polarized
-// gradient step on this card, for work that moves a few megabytes.
+// input (and handle) and writes a value a table, 8 to 24 bytes against
+// some ten float operations a table; the tables, 3 KB to 12 KB on the
+// port's paths, stay in L1 and L2. Called eagerly, a read costs more on the
+// host than on the card: a launch a read site, with the coordinate, the
+// bounds' gathers and the stacking in the kernel, is what this design buys.
+// The backward writes a lane's gradient of the input (4 bytes) and adds its
+// share of each table's gradient to two entries; what limits it is where
+// those adds meet. On the flagship's constants tables 262,144 lanes add into
+// 3 x 256 floats a kind, and the lanes of one wavelength add into the same
+// rows. Eager PyTorch runs this backward as a sort of the indices and a
+// segmented sum (indexing_backward_kernel_small_stride): 51 ms of a 168 ms
+// polarized gradient step on this card, for work that moves a few
+// megabytes.
 //
-// Design. The forward kernels are elementwise, a thread a lane in a grid
-// of a few blocks an SM with a loop, and do the plain versions' float32
-// ops in the same order (built with -fmad=false), so they are bit-equal
-// to them: one ulp of an index of refraction, a coefficient or a group
-// velocity could flip a Fresnel or scatter decision. The backward kernels
-// keep a copy of the whole table's gradient in each block's shared memory
-// (zeroed at every launch), add each lane's share there, and then add each
-// entry that is not zero to the output with one global atomic; tables
-// above kSharedMaxFloats (what a block can opt into of the SM's 227 KB)
-// take the same kernel with the adds going straight to the output. Few
-// blocks (at most two an SM) take many lanes each, so that a block's flush
-// is small against its lanes' adds. The coordinate's gradient is written
-// a lane, without atomics, and is bit-equal to the plain version's; the
-// table's sums land in an order that changes from run to run, so they
+// Design. The forward kernel is elementwise, a thread a lane in a grid of a
+// few blocks an SM with a loop, and does the plain versions' float32 ops in
+// the same order (built with -fmad=false, IEEE division), so it is
+// bit-equal to them: one ulp of an index of refraction, a coefficient or a
+// group velocity could flip a Fresnel or scatter decision. It reads x at a
+// stride (a column of the RNG's draws needs no copy) and writes table
+// k's values to an output row of its own. The
+// read's constants (pointers, widths, nulls, the form) travel as one Spec
+// by value, built once a table set by the wrapper. The backward kernel
+// keeps a copy of every table's gradient in each block's shared memory
+// (zeroed at every launch), adds each lane's share there, and then adds
+// each entry that is not zero to its table's gradient with one global
+// atomic; table sets above kSharedMaxFloats (what a block can opt into of
+// the SM's 227 KB) take the same kernel with the adds going straight to the
+// outputs. Few blocks (at most two an SM) take many lanes each, so that a
+// block's flush is small against its lanes' adds. The input's gradient is
+// written a lane, without atomics, and is bit-equal to the plain version's;
+// the tables' sums land in an order that changes from run to run, so they
 // agree with the plain version's sequential sums to float32 rounding.
 
 #include <cuda_runtime.h>
+
+// A read's constants, field for field ops/table_read.py _Spec; outside the
+// unnamed namespace, so that the C entry points that take it keep external
+// linkage.
+struct TheiaTableSpec {
+  const float* values[4];   // kMaxTables; packed: (M, len[k]); single: (len[k],)
+  const int* sizes[4];      // packed: (M,); single: unused
+  const float* lambda_min;  // wavelength: (M,) packed, one value single
+  const float* lambda_max;
+  int len[4];  // packed: a row's width; single: the samples, 0 = null
+  float nulls[4];
+  int tables;  // K
+  int packed;  // 1: material.lookup_packed's read, 0: lookup.lookup's
+  int shared;  // packed: the const4 rule across the K tables
+  int form;
+  int clips;  // the clips to [0, 1] between the formed coordinate and the read
+  int media;  // M
+  float a, b;  // affine: t = a * x + b
+};
 
 namespace {
 
@@ -58,6 +95,12 @@ constexpr int kSmemPerSm = 227 * 1024;
 // the largest table gradient that a block sums in shared memory, in floats;
 // equals ops/table_read.py SHARED_TABLE_MAX
 constexpr int kSharedMaxFloats = (kSmemPerSm - 1024) / 4;
+// the most tables a read takes; equals ops/table_read.py MAX_TABLES
+constexpr int kMaxTables = 4;
+// the coordinate's forms; equal ops/table_read.py T, AFFINE, WAVELENGTH
+constexpr int kT = 0, kAffine = 1, kWavelength = 2;
+
+using Spec = TheiaTableSpec;
 
 // jnp.clip(x, 0, 1); a NaN stays NaN
 __device__ __forceinline__ float clip01(float x) {
@@ -80,155 +123,211 @@ __device__ __forceinline__ void add(float* acc, long long k, float v) {
   if (v != 0.0f) atomicAdd(acc + k, v);
 }
 
-// ---- one table (lookup.lookup) ----
+// A lane's coordinate: r as formed from x, before any clip; span the
+// wavelength range that divided it (for the chain rule)
+struct Coordinate {
+  float r, span;
+};
+
+__device__ __forceinline__ Coordinate coordinate(const Spec& s, int h, float x) {
+  Coordinate c{x, 1.0f};
+  if (s.form == kAffine) {
+    c.r = s.a * x + s.b;
+  } else if (s.form == kWavelength) {
+    const int k = s.packed ? h : 0;
+    const float lo = __ldg(s.lambda_min + k);
+    c.span = __ldg(s.lambda_max + k) - lo;
+    c.r = (x - lo) / c.span;
+  }
+  return c;
+}
+
+// d read / d r from the read's d / d t: the clips' gradients (the read's
+// own clip was taken at the clipped t when there are two), then the form's
+__device__ __forceinline__ float chain(const Spec& s, const Coordinate& c, float du) {
+  if (s.clips == 2) du = du * clip_grad(c.r);
+  if (s.form == kAffine) return du * s.a;
+  if (s.form == kWavelength) return du / c.span;
+  return du;
+}
+
+// the t at which the read takes its clip's gradient
+__device__ __forceinline__ float clipped_input(const Spec& s, const Coordinate& c) {
+  return s.clips == 2 ? clip01(c.r) : c.r;
+}
+
+// ---- single tables (lookup.lookup): table k of len[k] samples ----
 struct Single {
-  const float* table;
-  int n;
-  const float* u;
+  int lo, hi;
+  float l, nm1;
 
-  __device__ float forward(int i) const {
-    const float x = clip01(u[i]) * static_cast<float>(n - 1);
+  __device__ Single(int n, float t) {
+    nm1 = static_cast<float>(n - 1);
+    const float x = t * nm1;
     const float fl = floorf(x);
-    const float l = x - fl;
-    const float lo = __ldg(table + row_of(fl, n));
-    const float hi = __ldg(table + row_of(ceilf(x), n));
-    return lo * (1.0f - l) + hi * l;
-  }
-
-  // adds the lane's share of d table into acc (if any), returns d u
-  __device__ float backward(int i, const float* grad_out, float* acc) const {
-    const float g = grad_out[i];
-    const float ui = u[i];
-    const float nm1 = static_cast<float>(n - 1);
-    const float x = clip01(ui) * nm1;
-    const float fl = floorf(x);
-    const float l = x - fl;
-    const int lo = row_of(fl, n), hi = row_of(ceilf(x), n);
-    if (acc != nullptr) {
-      add(acc, lo, g * (1.0f - l));
-      add(acc, hi, g * l);
-    }
-    return (g * __ldg(table + hi) - g * __ldg(table + lo)) * nm1 * clip_grad(ui);
+    l = x - fl;
+    lo = row_of(fl, n);
+    hi = row_of(ceilf(x), n);
   }
 };
 
-// ---- packed tables, C channels a lane (material.lookup_packed and the
-// const4 read) ----
-constexpr int kMaxChannels = 4;  // equals ops/table_read.py MAX_CHANNELS
+// ---- packed tables (material.lookup_packed): a lane's cell in its row ----
+struct Cell {
+  int n, pad, j;
+  float l, scale;
 
-struct Nulls {
-  float v[kMaxChannels];
-};
-
-struct Packed {
-  const float* values;  // (M, len, channels)
-  int len, channels;
-  const int* sizes;
-  const int* handle;
-  const float* t;
-
-  struct Lane {
-    long long row;  // the lane's row j of (M * len) rows
-    int n, j;
-    float l, scale;
-  };
-
-  __device__ Lane locate(int i) const {
-    const int h = handle[i];
-    Lane a;
-    a.n = __ldg(sizes + h);
-    a.scale = static_cast<float>(a.n - 1 > 1 ? a.n - 1 : 1);
-    const float tt = clip01(t[i]) * a.scale;
+  __device__ Cell(int n_, int pad_, float t) : n(n_), pad(pad_) {
+    scale = static_cast<float>(n - 1 > 1 ? n - 1 : 1);
+    const float tt = t * scale;
     const float fl = floorf(tt);
-    a.l = tt - fl;
-    a.j = row_of(fl, len);
-    a.row = static_cast<long long>(h) * len + a.j;
-    return a;
+    l = tt - fl;
+    j = row_of(fl, pad);
   }
+};
 
-  __device__ float value(const Lane& a, int c) const {
-    return __ldg(values + a.row * channels + c);
-  }
+// column c of table k's row h as the const4 rule reads it: the table's own
+// value, its null constant where the table is null (size nk 0), and 0
+// beyond its own width
+__device__ __forceinline__ float column(const Spec& s, int k, int h, int nk, int c) {
+  if (c >= s.len[k]) return 0.0f;
+  if (nk == 0) return s.nulls[k];
+  return __ldg(s.values[k] + static_cast<long long>(h) * s.len[k] + c);
+}
 
-  __device__ float slope(const Lane& a, int c, float v) const {
-    return a.j < len - 1 ? __ldg(values + (a.row + 1) * channels + c) - v : 0.0f;
-  }
-
-  __device__ void forward(int i, const Nulls& nulls, float* out) const {
-    const Lane a = locate(i);
-    float* o = out + static_cast<long long>(i) * channels;
-    for (int c = 0; c < channels; ++c) {
-      const float v = value(a, c);
-      const float res = v + a.l * slope(a, c, v);
-      o[c] = a.n == 0 ? nulls.v[c] : res;
+// the largest of the K tables' sizes and widths at handle h (the const4 rule)
+__device__ __forceinline__ void shared_extent(const Spec& s, int h, int* n, int* pad) {
+  *n = 0;
+  *pad = 0;
+#pragma unroll
+  for (int k = 0; k < kMaxTables; ++k) {
+    if (k < s.tables) {
+      const int nk = __ldg(s.sizes[k] + h);
+      *n = nk > *n ? nk : *n;
+      *pad = s.len[k] > *pad ? s.len[k] : *pad;
     }
   }
+}
 
-  __device__ float backward(int i, const float* grad_out, float* acc) const {
-    const Lane a = locate(i);
-    if (a.n == 0) return 0.0f;
-    const float* go = grad_out + static_cast<long long>(i) * channels;
-    float dt = 0.0f;
-    for (int c = 0; c < channels; ++c) {
-      const float g = go[c];
-      const long long k = a.row * channels + c;
-      if (acc != nullptr) {
-        if (a.j < len - 1) {
-          add(acc, k, g - g * a.l);
-          add(acc, k + channels, g * a.l);
-        } else {
-          add(acc, k, g);
+// a row of N values a table: the forward's outputs, the backward's upstream
+// gradients
+struct Rows {
+  float* p[kMaxTables];
+};
+struct ConstRows {
+  const float* p[kMaxTables];
+};
+
+__global__ void __launch_bounds__(kThreads)
+    read_tables(Spec s, const int* __restrict__ handle, const float* __restrict__ x,
+                int x_stride, int count, Rows out) {
+  const int stride = gridDim.x * kThreads;
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < count; i += stride) {
+    const int h = s.packed ? handle[i] : 0;
+    const Coordinate c = coordinate(s, h, x[static_cast<long long>(i) * x_stride]);
+    const float t = clip01(c.r);
+    int n = 0, pad = 0;
+    if (s.packed && s.shared) shared_extent(s, h, &n, &pad);
+#pragma unroll
+    for (int k = 0; k < kMaxTables; ++k) {
+      if (k >= s.tables) break;
+      float v = s.nulls[k];
+      if (!s.packed) {
+        if (s.len[k] > 0) {
+          const Single a(s.len[k], t);
+          v = __ldg(s.values[k] + a.lo) * (1.0f - a.l) + __ldg(s.values[k] + a.hi) * a.l;
+        }
+      } else {
+        const int nk = __ldg(s.sizes[k] + h);
+        const Cell a(s.shared ? n : nk, s.shared ? pad : s.len[k], t);
+        if (a.n != 0) {
+          const float v0 = column(s, k, h, nk, a.j);
+          const float slope = a.j < a.pad - 1 ? column(s, k, h, nk, a.j + 1) - v0 : 0.0f;
+          v = v0 + a.l * slope;
         }
       }
-      // the channels' products summed in order, as the plain version does
-      const float p = g * slope(a, c, value(a, c));
-      dt = c == 0 ? p : dt + p;
+      out.p[k][i] = v;
     }
-    return dt * a.scale * clip_grad(t[i]);
   }
+}
+
+// The backward: x strided, grad_out one row a table (a null row is a zero
+// gradient); table k's gradient goes to grads[k] (may be null), at
+// offset[k] of the block's shared copy with kShared; grad_x may be null.
+struct Grads {
+  float* table[kMaxTables];
+  long long offset[kMaxTables];
 };
 
-__global__ void __launch_bounds__(kThreads)
-    read_single(Single f, int count, float* __restrict__ out) {
-  const int stride = gridDim.x * kThreads;
-  for (int i = blockIdx.x * kThreads + threadIdx.x; i < count; i += stride) {
-    out[i] = f.forward(i);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-    read_packed(Packed f, Nulls nulls, int count, float* __restrict__ out) {
-  const int stride = gridDim.x * kThreads;
-  for (int i = blockIdx.x * kThreads + threadIdx.x; i < count; i += stride) {
-    f.forward(i, nulls, out);
-  }
-}
-
-// the backward: kShared sums the table's gradient in shared memory first;
-// grad_table and grad_u may each be null
-template <class Form, bool kShared>
+template <bool kShared>
 __global__ void __launch_bounds__(kGradThreads)
-    read_grad(Form f, const float* __restrict__ grad_out, int count,
-              float* __restrict__ grad_table, long long table_size,
-              float* __restrict__ grad_u) {
+    read_tables_grad(Spec s, const int* __restrict__ handle, const float* __restrict__ x,
+                     int x_stride, ConstRows grad_out, int count, Grads grads,
+                     long long total, float* __restrict__ grad_x) {
   extern __shared__ float sums[];
-  float* acc = grad_table;
   if (kShared) {
-    for (long long k = threadIdx.x; k < table_size; k += kGradThreads) sums[k] = 0.0f;
+    for (long long k = threadIdx.x; k < total; k += kGradThreads) sums[k] = 0.0f;
     __syncthreads();
-    acc = sums;
   }
   const int stride = gridDim.x * kGradThreads;
   for (int i = blockIdx.x * kGradThreads + threadIdx.x; i < count; i += stride) {
-    const float du = f.backward(i, grad_out, acc);
-    if (grad_u != nullptr) grad_u[i] = du;
+    const int h = s.packed ? handle[i] : 0;
+    const Coordinate c = coordinate(s, h, x[static_cast<long long>(i) * x_stride]);
+    const float t = clip01(c.r);
+    const float cg = clip_grad(clipped_input(s, c));
+    int n = 0, pad = 0;
+    if (s.packed && s.shared) shared_extent(s, h, &n, &pad);
+    // shared: the tables' products summed, then scaled once; otherwise each
+    // table's d t, summed in order
+    float du = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kMaxTables; ++k) {
+      if (k >= s.tables) break;
+      const float go = grad_out.p[k] == nullptr ? 0.0f : grad_out.p[k][i];
+      float* acc = grads.table[k] == nullptr
+                       ? nullptr
+                       : (kShared ? sums + grads.offset[k] : grads.table[k]);
+      if (!s.packed) {
+        if (s.len[k] == 0) continue;
+        const Single a(s.len[k], t);
+        if (acc != nullptr) {
+          add(acc, a.lo, go * (1.0f - a.l));
+          add(acc, a.hi, go * a.l);
+        }
+        const float p = go * __ldg(s.values[k] + a.hi) - go * __ldg(s.values[k] + a.lo);
+        du = du + p * a.nm1 * cg;
+        continue;
+      }
+      const int nk = __ldg(s.sizes[k] + h);
+      const Cell a(s.shared ? n : nk, s.shared ? pad : s.len[k], t);
+      const float g = a.n == 0 ? 0.0f : go;
+      const bool last = a.j == a.pad - 1;
+      if (acc != nullptr && a.n != 0 && nk != 0) {
+        const long long base = static_cast<long long>(h) * s.len[k];
+        if (a.j < s.len[k]) add(acc, base + a.j, last ? g : g - g * a.l);
+        if (!last && a.j + 1 < s.len[k]) add(acc, base + a.j + 1, g * a.l);
+      }
+      const float v0 = column(s, k, h, nk, a.j);
+      const float slope = a.j < a.pad - 1 ? column(s, k, h, nk, a.j + 1) - v0 : 0.0f;
+      const float p = g * slope;
+      du = s.shared ? du + p : du + p * a.scale * cg;
+    }
+    if (s.packed && s.shared) {
+      const Cell a(n, pad, t);
+      du = du * a.scale * cg;
+    }
+    if (grad_x != nullptr) grad_x[i] = chain(s, c, du);
   }
   if (kShared) {
     // every thread arrives here: the loop has no return
     __syncthreads();
-    for (long long k = threadIdx.x; k < table_size; k += kGradThreads) {
-      const float s = sums[k];
-      if (s != 0.0f) atomicAdd(grad_table + k, s);
+#pragma unroll
+    for (int k = 0; k < kMaxTables; ++k) {
+      if (k >= s.tables || grads.table[k] == nullptr) continue;
+      const long long size = (k + 1 < s.tables ? grads.offset[k + 1] : total) - grads.offset[k];
+      for (long long e = threadIdx.x; e < size; e += kGradThreads) {
+        const float v = sums[grads.offset[k] + e];
+        if (v != 0.0f) atomicAdd(grads.table[k] + e, v);
+      }
     }
   }
 }
@@ -247,7 +346,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // its backward: a warp adds one row's 32 neighbouring entries (distinct
-// addresses); kShared sums in shared memory first, as read_grad does
+// addresses); kShared sums in shared memory first, as read_tables_grad does
 template <bool kShared>
 __global__ void __launch_bounds__(kGradThreads)
     gather_grad(const float* __restrict__ grad_out, int width,
@@ -304,84 +403,60 @@ int shared_blocks(Kernel k, int bytes, cudaError_t* err) {
   return per_sm > kGradBlocksPerSm ? kGradBlocksPerSm : (per_sm < 1 ? 1 : per_sm);
 }
 
-template <class Form>
-cudaError_t launch_grad(const Form& f, const float* grad_out, int count,
-                        float* grad_table, long long table_size, float* grad_u,
-                        cudaStream_t stream) {
-  if (count <= 0 || (grad_table == nullptr && grad_u == nullptr)) {
-    return cudaGetLastError();
-  }
-  cudaError_t err = cudaSuccess;
-  const bool shared = grad_table != nullptr && table_size <= kSharedMaxFloats;
-  if (!shared) {
-    const int grid = grid_for(count, kGradThreads, 4, &err);
-    if (err != cudaSuccess) return err;
-    read_grad<Form, false><<<grid, kGradThreads, 0, stream>>>(
-        f, grad_out, count, grad_table, table_size, grad_u);
-    return cudaGetLastError();
-  }
-  const int bytes = static_cast<int>(table_size * sizeof(float));
-  const int per_sm = shared_blocks(read_grad<Form, true>, bytes, &err);
-  if (err != cudaSuccess) return err;
-  const int grid = grid_for(count, kGradThreads, per_sm, &err);
-  if (err != cudaSuccess) return err;
-  read_grad<Form, true><<<grid, kGradThreads, bytes, stream>>>(
-      f, grad_out, count, grad_table, table_size, grad_u);
-  return cudaGetLastError();
+bool valid(const Spec* s) {
+  return s != nullptr && s->tables >= 1 && s->tables <= kMaxTables && s->form >= kT &&
+         s->form <= kWavelength && (s->clips == 1 || s->clips == 2);
 }
 
 }  // namespace
 
-extern "C" int theia_table_read(const float* table, int n, const float* u,
-                                int count, float* out, cudaStream_t stream) {
+extern "C" int theia_table_read(const Spec* spec, const int* handle, const float* x,
+                                int x_stride, int count, float* out0, float* out1, float* out2,
+                                float* out3, cudaStream_t stream) {
+  if (!valid(spec)) return static_cast<int>(cudaErrorInvalidValue);
   if (count <= 0) return static_cast<int>(cudaGetLastError());
   cudaError_t err = cudaSuccess;
   const int grid = grid_for(count, kThreads, kBlocksPerSm, &err);
   if (err != cudaSuccess) return static_cast<int>(err);
-  read_single<<<grid, kThreads, 0, stream>>>(Single{table, n, u}, count, out);
+  read_tables<<<grid, kThreads, 0, stream>>>(*spec, handle, x, x_stride, count,
+                                             Rows{{out0, out1, out2, out3}});
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int theia_table_read_grad(const float* table, int n, const float* u,
-                                     const float* grad_out, int count,
-                                     float* grad_table, float* grad_u,
-                                     cudaStream_t stream) {
-  return static_cast<int>(launch_grad(Single{table, n, u}, grad_out, count,
-                                      grad_table, n, grad_u, stream));
-}
-
-extern "C" int theia_packed_read(const float* values, int m, int len,
-                                 int channels, const int* sizes,
-                                 const int* handle, const float* t,
-                                 float null0, float null1, float null2,
-                                 float null3, int count, float* out,
-                                 cudaStream_t stream) {
-  if (count <= 0) return static_cast<int>(cudaGetLastError());
-  if (channels < 1 || channels > kMaxChannels) {
-    return static_cast<int>(cudaErrorInvalidValue);
+extern "C" int theia_table_read_grad(const Spec* spec, const int* handle, const float* x,
+                                     int x_stride, const float* grad_out0,
+                                     const float* grad_out1, const float* grad_out2,
+                                     const float* grad_out3, int count, float* grad0,
+                                     float* grad1, float* grad2, float* grad3,
+                                     float* grad_x, cudaStream_t stream) {
+  if (!valid(spec)) return static_cast<int>(cudaErrorInvalidValue);
+  Grads grads{{grad0, grad1, grad2, grad3}, {0, 0, 0, 0}};
+  const ConstRows grad_out{{grad_out0, grad_out1, grad_out2, grad_out3}};
+  bool any = grad_x != nullptr;
+  long long total = 0;
+  for (int k = 0; k < spec->tables; ++k) {
+    grads.offset[k] = total;
+    total += static_cast<long long>(spec->packed ? spec->media : 1) * spec->len[k];
+    any = any || grads.table[k] != nullptr;
   }
+  if (count <= 0 || !any) return static_cast<int>(cudaGetLastError());
   cudaError_t err = cudaSuccess;
-  const int grid = grid_for(count, kThreads, kBlocksPerSm, &err);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  read_packed<<<grid, kThreads, 0, stream>>>(
-      Packed{values, len, channels, sizes, handle, t}, Nulls{{null0, null1, null2, null3}},
-      count, out);
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int theia_packed_read_grad(const float* values, int m, int len,
-                                      int channels, const int* sizes,
-                                      const int* handle, const float* t,
-                                      const float* grad_out, int count,
-                                      float* grad_values, float* grad_t,
-                                      cudaStream_t stream) {
-  if (channels < 1 || channels > kMaxChannels) {
-    return static_cast<int>(cudaErrorInvalidValue);
+  const bool tables = grad0 != nullptr || grad1 != nullptr || grad2 != nullptr || grad3 != nullptr;
+  if (!tables || total > kSharedMaxFloats) {
+    const int grid = grid_for(count, kGradThreads, 4, &err);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    read_tables_grad<false><<<grid, kGradThreads, 0, stream>>>(
+        *spec, handle, x, x_stride, grad_out, count, grads, total, grad_x);
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(launch_grad(Packed{values, len, channels, sizes, handle, t},
-                                      grad_out, count, grad_values,
-                                      static_cast<long long>(m) * len * channels, grad_t,
-                                      stream));
+  const int bytes = static_cast<int>(total * sizeof(float));
+  const int per_sm = shared_blocks(read_tables_grad<true>, bytes, &err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = grid_for(count, kGradThreads, per_sm, &err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  read_tables_grad<true><<<grid, kGradThreads, bytes, stream>>>(
+      *spec, handle, x, x_stride, grad_out, count, grads, total, grad_x);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int theia_gather_rows(const float* table, int width, const int* index,

@@ -19,25 +19,35 @@ from scipy.interpolate import CubicSpline
 
 from .ops.table_read import read_table
 
-__all__ = ["lookup", "sample_table1d", "eval_table"]
+__all__ = ["lookup", "as_table", "sample_table1d", "eval_table"]
 
 
-def lookup(table, u: torch.Tensor, null_value=0.0) -> torch.Tensor:
+def as_table(table, device) -> torch.Tensor | None:
+    """``table`` as a float32 tensor on ``device`` (a tensor already so is
+    returned as it is, so that its gradient flows), or None for a null
+    table (``None`` or empty)."""
+    if table is None:
+        return None
+    table = torch.as_tensor(table, dtype=torch.float32, device=device)
+    return None if table.shape[-1] == 0 else table.contiguous()
+
+
+def lookup(table, u: torch.Tensor, null_value=0.0, *, affine=None) -> torch.Tensor:
     """Linearly interpolate ``table`` (``n`` equidistant samples over
     [0, 1]; a tensor on ``u``'s device, differentiable in its values, or
     a host array, which is copied there) at the normalized
-    coordinates ``u``, clamped to [0, 1]. ``None`` (or an empty table)
+    coordinates ``u``, clamped to [0, 1]; with ``affine=(a, b)`` at ``a *
+    u + b``, formed in the same launch (``ops.table_read.PHASE`` for the
+    phase reads' ``0.5 * (cos_theta + 1)``). ``None`` (or an empty table)
     returns ``null_value`` (the reference's null-pointer convention). The
     same ops in the same order as ``theia_tpu.lookup.lookup``: ``v_lo *
     (1 - l) + v_hi * l``, through :func:`~theia_tpu_torch.ops.table_read.read_table`
     (a kernel on the card, with its backward), differentiable in the
     table and in ``u`` with ``jnp.clip``'s gradient at the bounds."""
+    table = as_table(table, u.device)
     if table is None:
         return torch.full_like(u, null_value)
-    table = torch.as_tensor(table, dtype=torch.float32, device=u.device)
-    if table.shape[-1] == 0:
-        return torch.full_like(u, null_value)
-    return read_table(table.contiguous(), u)
+    return read_table(table, u, null_value, affine=affine)
 
 
 def _parse_boundary(data: np.ndarray, boundary, n: int) -> np.ndarray:

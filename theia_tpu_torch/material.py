@@ -16,7 +16,6 @@ import re
 import warnings
 from dataclasses import dataclass, field
 from enum import IntFlag
-from functools import reduce
 from typing import Final
 
 import numpy as np
@@ -24,8 +23,8 @@ import torch
 
 from . import units as u
 from .component import resolve_device
-from .lookup import lookup
-from .ops.table_read import clip01, read_packed
+from .lookup import as_table
+from .ops.table_read import clip01, read_packed, read_table
 
 __all__ = [
     "speed_of_light",
@@ -40,7 +39,6 @@ __all__ = [
     "MaterialStore",
     "packed_medium_constants",
     "lookup_packed",
-    "const4_table",
     "MediumModel",
     "SellmeierEquation",
     "BK7Model",
@@ -126,15 +124,13 @@ def medium_constants(medium: Medium | None, wavelength: torch.Tensor) -> MediumC
     if medium is None:
         one, zero = torch.ones_like(wavelength), torch.zeros_like(wavelength)
         return MediumConstants(n=one, vg=one * speed_of_light, mu_s=zero, mu_e=zero)
-    t = normalize_lambda(medium, wavelength)
-    mu_a = lookup(medium.absorption_coef, t, 0.0)
-    mu_s = lookup(medium.scattering_coef, t, 0.0)
-    return MediumConstants(
-        n=lookup(medium.refractive_index, t, 1.0),
-        vg=lookup(medium.group_velocity, t, speed_of_light),
-        mu_s=mu_s,
-        mu_e=mu_a + mu_s,
+    # the four tables at normalize_lambda's t, which each read clips again,
+    # in one read
+    tables = tuple(as_table(getattr(medium, kind), wavelength.device) for kind in _CONST4_KINDS)
+    mu_a, mu_s, n, vg = read_table(
+        tables, wavelength, _CONST4_NULLS, bounds=(medium.lambda_min, medium.lambda_max), clips=2
     )
+    return MediumConstants(n=n, vg=vg, mu_s=mu_s, mu_e=mu_a + mu_s)
 
 
 #################################### MATERIAL ##################################
@@ -316,55 +312,25 @@ def lookup_packed(
     return read_packed(values, sizes, handle, t, null_value)
 
 
-def const4_table(store: MediumStore) -> tuple[torch.Tensor, torch.Tensor]:
-    """The four constants tables stacked into one (M, pad, 4) table (null
-    tables replaced by their defaults) and the longest of each medium's
-    four sizes: what :func:`packed_medium_constants` reads with
-    ``const4_ok``. Built from the store's tensors every call, so
-    gradients reach the tables."""
-    sz = [store.sizes[k] for k in _CONST4_KINDS]
-    eff = [
-        torch.where((s == 0)[:, None], null, store.tables[k])
-        for k, s, null in zip(_CONST4_KINDS, sz, _CONST4_NULLS)
-    ]
-    pad = max(e.shape[1] for e in eff)
-    eff = [torch.nn.functional.pad(e, (0, pad - e.shape[1])) for e in eff]
-    return torch.stack(eff, dim=-1), reduce(torch.maximum, sz)
-
-
 def packed_medium_constants(
     store: MediumStore, handle: torch.Tensor, wavelength: torch.Tensor
 ) -> MediumConstants:
     """Per-lane medium constants by handle (handle 0 = vacuum).
 
-    With ``const4_ok`` the four constants tables are stacked into one
-    (M, Lmax, 4) table and each lane reads its row of all four at once,
-    as ``theia_tpu.material.packed_medium_constants`` reads its (M, Lmax,
-    8) value/slope rows (:func:`~theia_tpu_torch.ops.table_read.read_packed`
-    with four channels, which clips the coordinate as JAX's clip here
-    does)."""
-    lmin = store.lambda_min[handle]
-    lmax = store.lambda_max[handle]
-    ratio = (wavelength - lmin) / (lmax - lmin)
-    if store.const4_ok:
-        table, n4 = const4_table(store)
-        res = read_packed(table, n4, handle, ratio, _CONST4_NULLS)
-        mu_a, mu_s = res[..., 0], res[..., 1]
-        return MediumConstants(
-            n=res[..., 2], vg=res[..., 3], mu_s=mu_s, mu_e=mu_a + mu_s
-        )
-    t = clip01(ratio)
-    g = lambda kind, null: lookup_packed(
-        store.tables[kind], store.sizes[kind], handle, t, null
+    One :func:`~theia_tpu_torch.ops.table_read.read_packed` of the four
+    constants tables at each lane's wavelength, normalized by its medium's
+    bounds in the read. With ``const4_ok`` the tables are read as
+    ``theia_tpu.material.packed_medium_constants`` stacks them into one
+    (M, Lmax, 4) table (``shared``: one size, the largest; a null table its
+    default across its own width, 0 in the padding) after one clip;
+    otherwise as four ``lookup_packed`` reads of the clipped coordinate,
+    which clip it again."""
+    mu_a, mu_s, n, vg = read_packed(
+        tuple(store.tables[k] for k in _CONST4_KINDS), tuple(store.sizes[k] for k in _CONST4_KINDS),
+        handle, wavelength, _CONST4_NULLS, bounds=(store.lambda_min, store.lambda_max),
+        clips=1 if store.const4_ok else 2, shared=store.const4_ok,
     )
-    mu_a = g("absorption_coef", 0.0)
-    mu_s = g("scattering_coef", 0.0)
-    return MediumConstants(
-        n=g("refractive_index", 1.0),
-        vg=g("group_velocity", speed_of_light),
-        mu_s=mu_s,
-        mu_e=mu_a + mu_s,
-    )
+    return MediumConstants(n=n, vg=vg, mu_s=mu_s, mu_e=mu_a + mu_s)
 
 
 @dataclass(frozen=True)

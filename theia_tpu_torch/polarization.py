@@ -16,9 +16,10 @@ from __future__ import annotations
 
 import torch
 
-from .lookup import lookup
+from .lookup import as_table
 from .material import Medium
 from .ops.math3d import cross, dot
+from .ops.table_read import PHASE, read_table
 
 __all__ = [
     "rotation_coeffs",
@@ -93,11 +94,8 @@ def phase_matrix_elements(medium: Medium | None, cos_theta: torch.Tensor):
         zeros = torch.zeros_like(cos_theta)
         ones = torch.ones_like(cos_theta)
         return zeros, ones, ones, zeros
-    t = 0.5 * (cos_theta + 1.0)
-    return tuple(
-        lookup(getattr(medium, f"phase_{m}"), t, 0.0)
-        for m in ("m12", "m22", "m33", "m34")
-    )
+    tables = tuple(as_table(getattr(medium, f"phase_{m}"), cos_theta.device) for m in ("m12", "m22", "m33", "m34"))
+    return read_table(tables, cos_theta, 0.0, affine=PHASE)
 
 
 def apply_phase_matrix(stokes, m12, m22, m33, m34):

@@ -20,6 +20,7 @@ from ..lookup import lookup
 from ..material import Medium, MediumConstants
 from ..ops.math3d import dot, matvec, normalize, perpendicular_to2
 from ..ops.sampling import INV_4PI, TWO_PI, scatter_dir
+from ..ops.table_read import PHASE
 from ..polarization import apply_rotation, rotation_coeffs
 
 __all__ = [
@@ -326,7 +327,7 @@ def sample_scatter_dir_medium(medium: Medium | None, in_dir, wavelength, u1, u2)
     phi = TWO_PI * u1
     if medium is not None and medium.phase_sampling is not None:
         cos_theta = torch.clamp(lookup(medium.phase_sampling, u2), -1.0, 1.0)
-        pdf = torch.exp(lookup(medium.log_phase_function, 0.5 * (cos_theta + 1.0)))
+        pdf = torch.exp(lookup(medium.log_phase_function, cos_theta, affine=PHASE))
     else:
         cos_theta = 2.0 * u2 - 1.0
         pdf = torch.full_like(cos_theta, INV_4PI)
@@ -339,7 +340,7 @@ def scatter_prob(medium: Medium | None, in_dir, out_dir) -> torch.Tensor:
     if medium is None or medium.log_phase_function is None:
         return torch.full(in_dir.shape[:-1], INV_4PI, dtype=torch.float32, device=in_dir.device)
     cos_theta = dot(in_dir, out_dir)
-    return torch.exp(lookup(medium.log_phase_function, 0.5 * (cos_theta + 1.0)))
+    return torch.exp(lookup(medium.log_phase_function, cos_theta, affine=PHASE))
 
 
 def scatter_ray_is(ray: RayState, new_dir: torch.Tensor) -> RayState:
@@ -366,7 +367,7 @@ def scatter_ray_sampled(ray: RayState, medium: Medium | None, u1, u2) -> RayStat
     cos_theta = cos_theta.detach()
     ray = scatter_ray_is(ray, scatter_dir(ray.direction, cos_theta, phi).detach())
     if medium is not None and medium.log_phase_function is not None:
-        log_p = lookup(medium.log_phase_function, 0.5 * (cos_theta + 1.0))
+        log_p = lookup(medium.log_phase_function, cos_theta, affine=PHASE)
         ray = replace(ray, log_contrib=ray.log_contrib + log_p - log_p.detach())
     return ray
 

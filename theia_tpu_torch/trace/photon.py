@@ -33,6 +33,7 @@ from ..lookup import lookup
 from ..material import Medium, medium_constants
 from ..ops.math3d import dot
 from ..ops.sampling import scatter_dir
+from ..ops.table_read import PHASE
 from ..random import PhiloxRNG, RNGState
 from ..target import Target
 from .core import (
@@ -339,7 +340,7 @@ class VolumePhotonTracer(_CompactedRuns, TracerBase):
         cos_theta = cos_theta.detach()
         scattered = scatter_ray_is(ray, scatter_dir(ray.direction, cos_theta, phi))
         if medium is not None and medium.log_phase_function is not None:
-            log_p = lookup(medium.log_phase_function, 0.5 * (cos_theta + 1.0))
+            log_p = lookup(medium.log_phase_function, cos_theta, affine=PHASE)
             scattered = replace(scattered, log_contrib=scattered.log_contrib + log_p - log_p.detach())
         ray = select_ray(step_ok, scattered, ray)
 

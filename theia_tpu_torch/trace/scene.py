@@ -39,6 +39,7 @@ from ..light import LightSource, WavelengthSource
 from ..material import MaterialFlags, MediumConstants, lookup_packed, packed_medium_constants
 from ..ops.math3d import dot, local_frame, normalize
 from ..ops.sampling import scatter_dir
+from ..ops.table_read import PHASE, read_packed
 from ..polarization import (
     apply_phase_matrix,
     apply_polarizer,
@@ -80,10 +81,10 @@ _LOG_INV_4PI = float(np.log(np.float32(1.0 / (4.0 * np.pi))))
 def _phase_matrix_packed(store, handle, cos_theta):
     """(m12, m22, m33, m34) from the packed per-medium tables
     (reference: polarization.glsl:88-107)."""
-    t = 0.5 * (cos_theta + 1.0)
-    return tuple(
-        lookup_packed(store.tables[k], store.sizes[k], handle, t, 0.0)
-        for k in ("phase_m12", "phase_m22", "phase_m33", "phase_m34")
+    kinds = ("phase_m12", "phase_m22", "phase_m33", "phase_m34")
+    return read_packed(
+        tuple(store.tables[k] for k in kinds), tuple(store.sizes[k] for k in kinds), handle, cos_theta, 0.0,
+        affine=PHASE,
     )
 
 
@@ -286,15 +287,16 @@ class SceneForwardTracer(TracerBase):
         cos_i = torch.clamp(dot(ray.direction, hit.ray_nrm), -1.0, 1.0)
         sin_i = torch.sqrt(torch.clamp_min(1.0 - cos_i * cos_i, 0.0))
         n_i = ray.constants.n
-        lmin = pack.media.lambda_min[hit.medium_tr]
-        lmax = pack.media.lambda_max[hit.medium_tr]
-        t = torch.clamp((ray.wavelength - lmin) / (lmax - lmin), 0.0, 1.0)
-        n_t = lookup_packed(
+        # the wavelength normalized by the medium's bounds and clipped, then
+        # read (which clips again), in one read
+        n_t = read_packed(
             pack.media.tables["refractive_index"],
             pack.media.sizes["refractive_index"],
             hit.medium_tr,
-            t,
+            ray.wavelength,
             1.0,
+            bounds=(pack.media.lambda_min, pack.media.lambda_max),
+            clips=2,
         )
         sin_t = sin_i * n_i / n_t
         s2 = 1.0 - sin_t * sin_t
@@ -308,12 +310,13 @@ class SceneForwardTracer(TracerBase):
     def _scatter_prob_packed(self, pack: ScenePack, medium, in_dir, out_dir):
         """Phase function value via the packed log-phase tables."""
         cos_theta = dot(in_dir, out_dir)
-        log_p = lookup_packed(
+        log_p = read_packed(
             pack.media.tables["log_phase_function"],
             pack.media.sizes["log_phase_function"],
             medium,
-            0.5 * (cos_theta + 1.0),
+            cos_theta,
             _LOG_INV_4PI,
+            affine=PHASE,
         )
         return torch.exp(log_p), log_p
 

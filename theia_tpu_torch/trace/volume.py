@@ -27,6 +27,7 @@ from ..lookup import lookup
 from ..material import Medium, medium_constants
 from ..ops.math3d import dot, local_frame, normalize
 from ..ops.sampling import scatter_dir
+from ..ops.table_read import PHASE
 from ..polarization import (
     apply_phase_matrix,
     apply_rotation,
@@ -69,7 +70,7 @@ def _jacobian_dA_dW(obs, pos, nrm):
 def _log_phase(medium: Medium | None, cos_theta):
     if medium is None or medium.log_phase_function is None:
         return None
-    return lookup(medium.log_phase_function, 0.5 * (cos_theta + 1.0))
+    return lookup(medium.log_phase_function, cos_theta, affine=PHASE)
 
 
 def _pol_scatter(medium, direction, new_dir, pol):
