@@ -62,14 +62,17 @@ Phases, one line each, any failure raises and exits non-zero:
    volume flagship's medium its absorption at t, its log phase function
    at the cosine, its four constants tables at the wavelength and four
    phase-matrix tables; and a table of 100,000 samples); the hit reconstruction's row
-   gather and its backward (``gather_rows``) on the flagship's
-   ``tri_data`` and ``inst_data``, and on ``tri_data`` with half the
-   lanes missed (row 0, zero gradient); each timed as called and queued
-   beside its plain version, its bound, and the library call that
-   computes the same on inputs made beforehand (``grid_sample`` for the
-   reads, ``index_add_`` for their backward, ``index_select`` of the
-   pairs' bins for the kernel histogram's, the plain versions for the
-   gather);
+   gathers and their backward (``gather_rows``) with the reconstruction's
+   spans and as whole rows, on the flagship's ``tri_data`` and
+   ``inst_data``, on ``tri_data`` with half the lanes missed (row 0, zero
+   gradient) and on a recorded shadow pair's winners and their instances
+   (``gather_cases``), then on ragged, empty, unaligned and 12-wide
+   tables (``odd_gather_cases``); each timed as called and queued beside
+   its plain version, its bound, and the library call that computes the
+   same on inputs made beforehand (``grid_sample`` for the reads,
+   ``index_add_`` for their backward and the gathers', ``index_select``
+   of the pairs' bins for the kernel histogram's and of the whole rows
+   for the gathers);
 3. the first main path at full width: the flagship scene tracer
    (262,144 lanes, path length 10, 3840 triangles, 100 bins,
    ``accel="mt"``) through ``run()``, one warm-up batch and three timed
@@ -979,25 +982,20 @@ def check_table_read(reports, store, medium):
               f"same (the coordinate formed and the nulls selected beforehand, outside its time)")
 
 
-def check_gather_rows(report, grad_report, pack):
-    """The row gather of the hit reconstruction and its backward against
-    their plain versions (``table[index]`` and ``index_add_``) on the card:
-    the brute flagship's ``tri_data`` (3840 x 32, past shared memory: the
-    backward adds to device memory) and ``inst_data`` (3 x 32, in shared
-    memory) at N = 262,144, half the lanes on the detector's rows, as a
-    shadow query's winners are; and ``tri_data`` as the reconstruction
-    reads it, with half the lanes missed: they read row 0 (the clamp of
-    -1) and carry a zero gradient. The forward bit for bit (a copy); the
-    backward within 2e-5 of each entry's sum of absolute shares (atomics
-    against index_add_'s, both in an order that changes from run to run).
-    Then the times on the case with misses beside the plain versions and
-    the bounds; the library call is the plain version itself
-    (index_select, index_add_), made once. The kernel skips a zero share,
-    index_add_ adds every one, all the misses' on row 0."""
+def gather_cases(pack, winners) -> dict:
+    """The row gathers' cases at N = 262,144: label -> (table, columns,
+    index, hit). Synthetic: the brute flagship's ``tri_data`` (3840 x 32,
+    past shared memory: the backward adds to device memory) with half the
+    lanes on the detector's rows, as a shadow query's winners are, and
+    again with half the lanes missed (they read row 0, the clamp of -1,
+    and carry a zero gradient); ``inst_data`` (3 x 32, in shared memory)
+    at random rows. The path's own: the winners of one recorded shadow
+    pair of a brute batch (``winners``, -1 on a miss) and their instances,
+    the rows the reconstruction gathers from them."""
     import numpy as np
     import torch
 
-    from theia_tpu_torch.ops.table_read import gather_rows, gather_rows_grad
+    from theia_tpu_torch.accel import INST_COLUMNS, TRI_COLUMNS
 
     rng = np.random.default_rng(43)
     n = BATCH
@@ -1005,50 +1003,157 @@ def check_gather_rows(report, grad_report, pack):
     rows = np.where(rng.uniform(size=n) < 0.5, rng.choice(det, n), rng.integers(0, pack.tri_data.shape[0], n))
     missed = rng.uniform(size=n) < 0.5
     index = lambda a: torch.as_tensor(a.astype(np.int32), device="cuda")
-    cases = {
-        "tri_data": (pack.tri_data, index(rows), None),
-        "inst_data": (pack.inst_data, index(rng.integers(0, 3, n)), None),
-        "tri_data with misses": (pack.tri_data, index(np.where(missed, 0, rows)),
-                                 torch.as_tensor(~missed, device="cuda")[:, None]),
+    found = winners >= 0
+    tri = torch.clamp_min(winners, 0).to(torch.int32)
+    inst = pack.tri_data[tri.long(), 27].to(torch.int32)
+    return {
+        "tri_data": (pack.tri_data, TRI_COLUMNS, index(rows), None),
+        "tri_data with misses": (pack.tri_data, TRI_COLUMNS, index(np.where(missed, 0, rows)),
+                                 torch.as_tensor(~missed, device="cuda")),
+        "inst_data": (pack.inst_data, INST_COLUMNS, index(rng.integers(0, 3, n)), None),
+        "tri_data, a shadow query's winners": (pack.tri_data, TRI_COLUMNS, tri, found),
+        "inst_data, a shadow query's instances": (pack.inst_data, INST_COLUMNS, inst, found),
     }
-    for label, (table, index, hit) in cases.items():
-        got, want = gather_rows(table, index), table[index.long()]
-        g = torch.randn_like(want)
-        if hit is not None:
-            g = torch.where(hit, g, 0.0)
-        got_t = gather_rows_grad(table.shape[0], index, g)
-        want_t = torch.zeros_like(table).index_add_(0, index.long(), g)
-        abs_t = torch.zeros_like(table).index_add_(0, index.long(), g.abs())
-        torch.cuda.synchronize()
-        assert torch.equal(got, want), f"gather_rows differs from plain on {label}"
-        excess = float(((got_t - want_t).abs() - 2e-5 * abs_t).max())
-        assert excess <= 0.0, f"gather_rows_grad off by {excess} on {label}"
-        err = float((got_t - want_t).abs().max())
-        print(f"kernel gather_rows on the flagship's {label} ({tuple(table.shape)}, {n} lanes): forward bit-equal, "
-              f"backward within 2e-5 of its absolute sums (max abs err {err:.3g})")
+
+
+def odd_gather_cases(pack) -> dict:
+    """Cases that only check the row gathers, at sizes and layouts off the
+    path: ragged tiles (N = 1037 and 1), an empty index, a ``tri_data``
+    copy that is not 16-byte aligned and a table 12 floats wide (both take
+    the element-a-thread kernels), with the reconstruction's spans or
+    spans of their own."""
+    import numpy as np
+    import torch
+
+    from theia_tpu_torch.accel import INST_COLUMNS, TRI_COLUMNS
+
+    rng = np.random.default_rng(44)
+    index = lambda n, rows: torch.as_tensor(rng.integers(0, rows, n).astype(np.int32), device="cuda")
+    hit = lambda n: torch.as_tensor(rng.uniform(size=n) < 0.7, device="cuda")
+    tri, inst = pack.tri_data, pack.inst_data
+    buf = torch.empty(tri.numel() + 1, device="cuda")
+    unaligned = buf[1:].view(tri.shape)
+    unaligned.copy_(tri)
+    narrow = torch.as_tensor(rng.normal(0.0, 20.0, (50, 12)).astype(np.float32), device="cuda")
+    return {
+        "tri_data, N = 1037": (tri, TRI_COLUMNS, index(1037, tri.shape[0]), hit(1037)),
+        "inst_data, N = 1037": (inst, INST_COLUMNS, index(1037, inst.shape[0]), None),
+        "tri_data, N = 1": (tri, TRI_COLUMNS, index(1, tri.shape[0]), None),
+        "tri_data, N = 0": (tri, TRI_COLUMNS, index(0, tri.shape[0]), None),
+        "tri_data not 16-byte aligned": (unaligned, TRI_COLUMNS, index(5000, tri.shape[0]), hit(5000)),
+        "a table 12 wide": (narrow, ((0, 5), (5, 12, torch.int32)), index(5000, 50), None),
+        "a table 12 wide, whole rows": (narrow, None, index(5000, 50), None),
+    }
+
+
+def hold_gather(name, table, cols, index, hit):
+    """``gather_rows`` on ``table`` with ``cols`` against its plain version,
+    bit for bit, and its backward on a random gradient a float span (0 on
+    the lanes where ``hit`` is False) within 2e-5 of each entry's sum of
+    absolute shares; returns (the gradient as ``gather_rows_grad`` takes
+    it, the spans' gradients, the largest error)."""
+    import torch
+
+    from theia_tpu_torch.ops.table_read import (
+        gather_rows, gather_rows_grad, gather_rows_grad_plain, gather_rows_plain,
+    )
+
+    n = index.shape[0]
+    spans = [(s[0], s[1], len(s) == 3) for s in (cols or ((0, table.shape[1]),))]
+    got = gather_rows(table, index, columns=cols)
+    got = (got,) if cols is None else got
+    want = gather_rows_plain(table, index, cols)
+    grads = [None if integer else torch.randn(n, stop - start, device="cuda") for start, stop, integer in spans]
+    if hit is not None:
+        grads = [None if g is None else torch.where(hit[:, None], g, 0.0) for g in grads]
+    arg = grads[0] if cols is None else grads
+    got_t = gather_rows_grad(table.shape, index, arg, cols)
+    want_t = gather_rows_grad_plain(table.shape, index, arg, cols)
+    abs_arg = arg.abs() if cols is None else [None if g is None else g.abs() for g in grads]
+    abs_t = gather_rows_grad_plain(table.shape, index, abs_arg, cols)
+    torch.cuda.synchronize()
+    assert all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(got, want)), (
+        f"gather_rows differs from plain on {name}")
+    excess = float(((got_t - want_t).abs() - 2e-5 * abs_t).max())
+    assert excess <= 0.0, f"gather_rows_grad off by {excess} on {name}"
+    return arg, grads, float((got_t - want_t).abs().max())
+
+
+def check_gather_rows(report, grad_report, pack, winners):
+    """The hit reconstruction's row gathers and their backward against
+    their plain versions on the card (``gather_rows_plain``: ``table[:,
+    a:b][index]`` a span; ``gather_rows_grad_plain``: ``index_add_`` of
+    each span's gradient into its columns) by ``hold_gather``: with the
+    reconstruction's spans (``accel.TRI_COLUMNS``, ``INST_COLUMNS``) on
+    every case of ``gather_cases`` and as whole rows on the first two, and
+    on ``odd_gather_cases``. Each case of ``gather_cases`` is then timed as
+    called and queued beside the plain versions and the library calls
+    (``index_select`` of the whole rows; ``index_add_`` of the whole rows'
+    gradient into a zero table, the gradient assembled beforehand), with
+    its bound: the forward's bytes are each lane's index and used columns
+    written and the used columns of the distinct rows it reads, the
+    backward's each lane's index and float columns read and the table's
+    float columns written, its operations an add a nonzero share. The
+    kernels line reports the case with misses."""
+    import torch
+
+    from theia_tpu_torch.ops.table_read import (
+        gather_rows, gather_rows_grad, gather_rows_grad_plain, gather_rows_plain,
+    )
+
+    odd = odd_gather_cases(pack)
+    for name, case in odd.items():
+        err = hold_gather(name, *case)[2]
+        grad_report["max_abs_err"] = max(grad_report.get("max_abs_err", 0.0), err)
+    print(f"kernel gather_rows: forward bit-equal, backward within 2e-5 of its absolute sums on {', '.join(odd)}")
+    del odd
+    items = []
+    for label, (table, columns, index, hit) in gather_cases(pack, winners).items():
+        items.append((label, table, columns, index, hit))
+        if label in ("tri_data", "tri_data with misses"):
+            items.append((f"{label}, whole rows", table, None, index, hit))
+    cases = {}
+    for name, table, cols, index, hit in items:
+        arg, grads, err = hold_gather(name, table, cols, index, hit)
         report.update(max_abs_err=0.0)
         grad_report["max_abs_err"] = max(grad_report.get("max_abs_err", 0.0), err)
-    table_, index_, g_ = table, index, g
-    width, n_rows = table_.shape[1], table_.shape[0]
-    long_index = index_.long()
-    for rep, fn, plain_fn, n_bytes in (
-        (report, lambda: gather_rows(table_, index_), lambda: table_[long_index],
-         4 * n + 4 * n * width + 4 * n_rows * width),
-        (grad_report, lambda: gather_rows_grad(n_rows, index_, g_),
-         lambda: torch.zeros_like(table_).index_add_(0, long_index, g_), 4 * n + 4 * n * width + 4 * n_rows * width),
-    ):
-        ms, queued_ms = cuda_ms(fn, 50), cuda_ms_queued(fn, 50)
-        plain_ms = cuda_ms(plain_fn, 10)
-        b = bound(n_bytes, n * width if rep is grad_report else 0)
-        rep.update(ms=ms, queued_ms=queued_ms, plain_ms=plain_ms, library_ms=plain_ms, **b)
-        print(f"kernel {'gather_rows_grad' if rep is grad_report else 'gather_rows'} on tri_data with misses N={n}: "
-              f"kernel {ms:.4f} ms ({queued_ms:.4f} queued), plain = library "
-              f"({'index_add_' if rep is grad_report else 'index'}) {plain_ms:.4f} ms; bound {b['bound_ms']:.4f} ms "
-              f"by {b['bound_by']}, share {b['bound_ms'] / ms:.3f} ({b['bound_ms'] / queued_ms:.3f} queued)")
-    select_ms = cuda_ms(lambda: torch.index_select(table_, 0, index_), 10)
-    print(f"index_select of the same rows {select_ms:.4f} ms (the forward the reconstruction would run without "
-          f"gather_rows; its backward is the index_add_ above)")
-    report["index_select_ms"] = select_ms
+        n = index.shape[0]
+        spans = [(s[0], s[1], len(s) == 3) for s in (cols or ((0, table.shape[1]),))]
+        long_index = index.long()
+        full = torch.zeros(n, table.shape[1], device="cuda")
+        for g, (start, stop, _) in zip(grads, spans):
+            if g is not None:
+                full[:, start:stop] = g
+        used = sum(stop - start for start, stop, _ in spans)
+        used_f = sum(stop - start for start, stop, integer in spans if not integer)
+        distinct = int(torch.unique(index).numel())
+        shares = sum(int((g != 0).sum()) for g in grads if g is not None)
+        entry = {}
+        for kind, fn, plain_fn, library_fn, n_bytes, flop in (
+            ("forward", lambda: gather_rows(table, index, columns=cols),
+             lambda: gather_rows_plain(table, index, cols), lambda: torch.index_select(table, 0, index),
+             4 * n + 4 * n * used + 4 * distinct * used, 0),
+            ("backward", lambda: gather_rows_grad(table.shape, index, arg, cols),
+             lambda: gather_rows_grad_plain(table.shape, index, arg, cols),
+             lambda: torch.zeros_like(table).index_add_(0, long_index, full),
+             4 * n + 4 * n * used_f + 4 * table.shape[0] * used_f, shares),
+        ):
+            ms, queued_ms = cuda_ms(fn, 50), cuda_ms_queued(fn, 50)
+            plain_ms, library_ms = cuda_ms(plain_fn, 10), cuda_ms(library_fn, 10)
+            b = bound(n_bytes, flop)
+            entry[kind] = dict(ms=ms, queued_ms=queued_ms, plain_ms=plain_ms, library_ms=library_ms,
+                               queued_share_of_bound=b["bound_ms"] / queued_ms, **b)
+            lib = "index_select" if kind == "forward" else "index_add_"
+            print(f"kernel gather_rows{'_grad' if kind == 'backward' else ''} on {name} "
+                  f"({tuple(table.shape)}, N={n}, {len(spans)} spans, {used} columns, {distinct} rows read): "
+                  f"{ms:.4f} ms ({queued_ms:.4f} queued), plain {plain_ms:.4f} ms, {lib} {library_ms:.4f} ms; "
+                  f"bound {b['bound_ms']:.4f} ms by {b['bound_by']}, share {b['bound_ms'] / ms:.3f} "
+                  f"({b['bound_ms'] / queued_ms:.3f} queued)")
+        print(f"kernel gather_rows on {name}: forward bit-equal, backward within 2e-5 of its absolute sums "
+              f"(max abs err {err:.3g})")
+        cases[name] = entry
+    for rep, kind in ((report, "forward"), (grad_report, "backward")):
+        rep.update(cases={name: entry[kind] for name, entry in cases.items()}, **cases["tri_data with misses"][kind])
 
 
 def read_shares(c, g):
@@ -1772,11 +1877,18 @@ def timed_runs(tracer, wrappers, label):
     return seconds, sums, counts, torch.cuda.max_memory_allocated()
 
 
+#: kinds of eager kernels that a profile sums: fragments of their names
+#: (lower case), e.g. the zero fills, copies and adds that the backward of
+#: a slice makes
+KINDS = {"fills": ("fillfunctor", "memset"), "copies": ("copy_kernel", "memcpy"), "adds": ("functor_add",)}
+
+
 def profile_step(step, watch=()) -> dict:
     """One call of ``step`` under ``torch.profiler``: the device's busy
     time (the sum of its kernels' and copies' times), their count, the
-    twelve largest items, the hand-written kernels' items and, for each
-    name fragment in ``watch``, the items whose name holds it."""
+    twelve largest items, the hand-written kernels' items, the ``KINDS``
+    summed and, for each name fragment in ``watch``, the items whose name
+    holds it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1792,9 +1904,13 @@ def profile_step(step, watch=()) -> dict:
     mine = ("histogram", "theia::scan", "philox", "kde_", "read_", "::gather")
     own = sorted((n, t) for n, t in by_name.items() if any(k in n for k in mine))
     watched = {w: [item(n, t) for n, t in by_name.items() if w in n] for w in watch}
+    kinds = {
+        kind: item(kind, [x for n, t in by_name.items() if any(f in n.lower() for f in frags) for x in t])
+        for kind, frags in KINDS.items()
+    }
     return dict(
         device_busy_ms=sum(map(sum, by_name.values())) / 1e3, kernels=len(events),
-        top=[item(n, t) for n, t in top], own=[item(n, t) for n, t in own], watched=watched,
+        top=[item(n, t) for n, t in top], own=[item(n, t) for n, t in own], watched=watched, kinds=kinds,
     )
 
 
@@ -1940,7 +2056,7 @@ def time_step(step, wrappers, label, reps: int = 3) -> dict:
           f"{peak / 2**20:.1f} MiB, launches a step {counts}; profiled: device busy {prof['device_busy_ms']:.2f} ms, "
           f"{prof['kernels']} kernels and copies, index backward {prof['watched']['indexing_backward']}; loss {loss:.6g}, "
           f"gradient {np.array2string(grad[:6], precision=6)}{' ...' if grad.size > 6 else ''}")
-    for entry in prof["top"][:6] + prof["own"]:
+    for entry in prof["top"][:6] + prof["own"] + list(prof["kinds"].values()):
         print(f"    {entry['ms']:9.3f} ms {entry['count']:6d} x {entry['name'][:90]}")
     return dict(seconds_per_step=seconds, median_s=med, peak_bytes=peak, launches=counts, profile=prof,
                 loss=loss, grad=grad.tolist())
@@ -2107,6 +2223,8 @@ def main() -> int:
         check_soup(Soup(name, brute_tracer.scene.pack), adversarial, queries, kernels[name])
     # the shadow pair without the winners' rows, as the flagship takes it where tri_data is differentiated
     bare = Soup("target_in_table", brute_tracer.scene.pack, rows=False)
+    # the winners of one shadow pair: the rows that the reconstruction gathers (phase 2's gather cases)
+    shadow_winners = bare.run(bare.kernel, bare.tables[0], shadow[0][:3], shadow[0][3], shadow[0][4])[1]
     for o, d, t_max, groups, active in shadow:
         bare.check((o, d, t_max), "a recorded shadow pair without rows", on_cpu=False, groups=groups, active=active)
     o, d, t_max, active = (q[: BATCH // 8].contiguous() for q in (*shadow[0][:3], shadow[0][4]))
@@ -2149,7 +2267,7 @@ def main() -> int:
     lap("the volume and photon flagships' records and queries")
     check_kernel_histogram(kernels["kernel_histogram_add"], kernels["kernel_histogram_grad"])
     check_table_read(kernels, brute_tracer.scene.pack.media, volume_tracer.params()["medium"])
-    check_gather_rows(kernels["gather_rows"], kernels["gather_rows_grad"], brute_tracer.scene.pack)
+    check_gather_rows(kernels["gather_rows"], kernels["gather_rows_grad"], brute_tracer.scene.pack, shadow_winners)
     lap("the kernel histogram and the table reads")
 
     phase("3")

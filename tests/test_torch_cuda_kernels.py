@@ -327,16 +327,21 @@ def test_table_read_kernels(cuda):
 
 
 def test_gather_rows_kernels(cuda):
-    """The hit reconstruction's row gather and its backward
-    (``csrc/table_read.cu``) on the brute flagship's ``tri_data`` (the
-    backward in device memory) and ``inst_data`` (in shared memory), under
-    ``chip_smoke.check_gather_rows``' stated tolerances."""
+    """The hit reconstruction's row gathers and their backward
+    (``csrc/table_read.cu``), with the reconstruction's spans and as whole
+    rows, on the brute flagship's ``tri_data`` (the backward in device
+    memory) and ``inst_data`` (in shared memory), with winners drawn at
+    random (-1 on a miss), and on ragged, unaligned and narrow tables,
+    under ``chip_smoke.check_gather_rows``' stated tolerances."""
     import theia_tpu_torch
-    from chip_smoke import check_gather_rows
-    from theia_tpu_torch.ops.table_read import gather_rows
+    from chip_smoke import BATCH, check_gather_rows
+    from theia_tpu_torch.ops.table_read import gather_rows, gather_rows_grad
     from torch_flagship import build_flagship, icosphere
 
     pack = build_flagship(theia_tpu_torch, icosphere(3), 64, 2, accel="auto", device=cuda).scene.pack
-    before = gather_rows.launches
-    check_gather_rows({}, {}, pack)
-    assert gather_rows.launches > before
+    rng = np.random.default_rng(3)
+    rows = np.where(rng.uniform(size=BATCH) < 0.5, rng.integers(0, pack.tri_data.shape[0], BATCH), -1)
+    winners = torch.as_tensor(rows.astype(np.int32), device=cuda)
+    before = gather_rows.launches, gather_rows_grad.launches
+    check_gather_rows({}, {}, pack, winners)
+    assert gather_rows.launches > before[0] and gather_rows_grad.launches > before[1]

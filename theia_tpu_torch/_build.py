@@ -59,8 +59,8 @@ _SIGNATURES = {
     "theia_kde_grad": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
     "theia_table_read": (_P, _P, _P, _I, _I, _P, _P, _P, _P, _P),
     "theia_table_read_grad": (_P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P),
-    "theia_gather_rows": (_P, _I, _P, _I, _P, _P),
-    "theia_gather_rows_grad": (_P, _I, _P, _I, _I, _P, _P),
+    "theia_gather_rows": (_P, _I, _I, _P, _I, _P, _P, _P),
+    "theia_gather_rows_grad": (_P, _P, _P, _I, _I, _I, _P, _P),
 }
 
 

@@ -182,19 +182,34 @@ def intersect_scene(
     return _reconstruct_hit(pack, medium_handle, origin, direction, t_sel, tri, row)
 
 
+#: the spans of a ``tri_data`` row that the reconstruction reads: the
+#: object-space v0, e1, e2, the vertex normals n0, n1, n2 and the world v0,
+#: e1, e2 (3 columns each), then the instance (column 27, an integer)
+TRI_COLUMNS = tuple((c, c + 3) for c in range(0, 27, 3)) + ((27, 28, torch.int32),)
+#: of an ``inst_data`` row: world_to_obj and obj_to_world (3 x 4 each),
+#: then the integers inside and outside medium, the flags of the inward
+#: and the outward side, and the detector id (columns 24-28)
+INST_COLUMNS = ((0, 12), (12, 24), (24, 29, torch.int32))
+
+
 def _reconstruct_hit(
     pack: ScenePack, medium_handle, origin, direction, t_sel, tri, row=None
 ) -> SurfaceHit:
     """Rebuild the full SurfaceHit for per-lane winning triangles ``tri``
     (``tri_data`` rows, -1 on miss); ``row`` is ``tri_data[max(tri, 0)]``
-    (N, 32) where the query already fetched it."""
+    (N, 32) where the query already fetched it, and its pieces are views
+    of it. Otherwise one ``gather_rows`` launch hands over the pieces, as
+    one more does those of ``inst_data``: the backward then takes their
+    gradients alone, where slices of one (N, 32) gather cost a zero (N,
+    32) tensor, a copy and an add of that width a piece."""
     valid = tri >= 0
     if row is None:
-        row = gather_rows(pack.tri_data, torch.clamp_min(tri, 0))  # (N, 32)
-    o_v0, o_e1, o_e2 = row[:, 0:3], row[:, 3:6], row[:, 6:9]
-    n0, n1, n2 = row[:, 9:12], row[:, 12:15], row[:, 15:18]
-    wv0, we1, we2 = row[:, 18:21], row[:, 21:24], row[:, 24:27]
-    inst = row[:, 27].to(torch.int32)
+        *pieces, inst = gather_rows(pack.tri_data, torch.clamp_min(tri, 0), columns=TRI_COLUMNS)
+        inst = inst[:, 0]
+    else:
+        pieces = [row[:, start:stop] for start, stop in TRI_COLUMNS[:-1]]
+        inst = row[:, 27].to(torch.int32)
+    o_v0, o_e1, o_e2, n0, n1, n2, wv0, we1, we2 = pieces
 
     # winner barycentrics (Moeller-Trumbore on the world triangle)
     b1, b2, t_win, inv = moeller_trumbore_rowwise(origin, direction, wv0, we1, we2)
@@ -209,16 +224,15 @@ def _reconstruct_hit(
     # match sign of the geometric normal to the authored vertex normals
     obj_nrm = normalize(obj_nrm * sign_bit(dot(obj_nrm, int_nrm))[:, None])
 
-    irow = gather_rows(pack.inst_data, inst)  # (N, 32)
-    w2o = irow[:, 0:12].reshape(-1, 3, 4)
-    o2w = irow[:, 12:24].reshape(-1, 3, 4)
+    w2o, o2w, ints = gather_rows(pack.inst_data, inst, columns=INST_COLUMNS)
+    w2o = w2o.reshape(-1, 3, 4)
+    o2w = o2w.reshape(-1, 3, 4)
     lin_w2o = w2o[:, :, :3]
     obj_dir = normalize(matvec(lin_w2o, direction))
     inward = dot(obj_dir, obj_nrm) <= 0.0
 
-    flags = torch.where(inward, irow[:, 26], irow[:, 27]).to(torch.int32)
-    inside = irow[:, 24].to(torch.int32)
-    outside = irow[:, 25].to(torch.int32)
+    inside, outside, flags_in, flags_out, custom_id = ints.unbind(1)
+    flags = torch.where(inward, flags_in, flags_out)
     medium_expected = torch.where(inward, outside, inside)
     medium_tr = torch.where(inward, inside, outside)
     mismatch = valid & (medium_handle != medium_expected)
@@ -238,7 +252,7 @@ def _reconstruct_hit(
         valid=valid,
         t=t,
         instance=inst,
-        custom_id=irow[:, 28].to(torch.int32),
+        custom_id=custom_id,
         flags=flags,
         inward=inward,
         medium_in=medium_handle,

@@ -23,11 +23,14 @@
 // JAX's max and min split a tie, so 1/4 where two clips meet a bound.
 // A third form reads whole rows, the gathers of theia_tpu/accel.py
 // _reconstruct_hit (l.614, 640: a winner's 32-float tri_data row and its
-// instance's inst_data row), and adds their gradient back, which eager
-// PyTorch runs as a sorting index backward (2.64 s of a 2.78 s geometry
-// gradient step on this card, where translate_instance gives both tables a
-// graph) or, through index_select, as index_add_ with an atomic for every
-// element, the zero shares of the lanes that missed included, all on row 0.
+// instance's inst_data row), handing the reconstruction the spans of the
+// row that it reads (the nine 3-float pieces of tri_data, the two 3x4
+// transforms of inst_data, their integer columns converted), one output a
+// span, and adds the spans' gradients back into the table. Eager PyTorch
+// runs that backward as a sorting index backward (2.64 s of a 2.78 s
+// geometry gradient step on this card, where translate_instance gives both
+// tables a graph), and slicing one (N, 32) gather costs, for each piece, a
+// zero (N, 32) tensor, a copy and a full-width add in the backward.
 //
 // What bounds them on an H100. The forward: bytes. A lane reads its
 // input (and handle) and writes a value a table, 8 to 24 bytes against
@@ -63,6 +66,29 @@
 // written a lane, without atomics, and is bit-equal to the plain version's;
 // the tables' sums land in an order that changes from run to run, so they
 // agree with the plain version's sequential sums to float32 rounding.
+//
+// The row gather is a copy: bytes bound it, 4 bytes a lane's index and 4
+// a used column written (read back and added in the backward), against a
+// table of 480 KB (tri_data) or 384 bytes (inst_data) that L2 and L1 keep.
+// What held its first version back was latency and transactions: a thread
+// an element, a 64-bit division and a reread index each, and in the
+// backward a scalar atomic an element. Here a block takes a tile of rows
+// at a time, 8 threads a row with a float4 each (the row's index read once
+// and shuffled to them), staged in shared memory with a row stride of 33
+// floats, and every global load and store moves 16 bytes a thread over
+// whole lines: the forward writes each span's part of a tile as one
+// contiguous run of its output, four elements a thread over all spans'
+// runs (the element's row from a float reciprocal: 32-bit arithmetic, no
+// division), and starts the next tile's loads, with its indices a tile
+// earlier still, before those writes. The backward reads the spans'
+// gradients of the next tile (128 rows) into registers before it adds
+// this one's, takes a row's four columns a thread, skips the ones that are
+// all zero (missed lanes, uncovered columns), merges a warp's lanes of one
+// row (__match_any_sync, a shuffle sum) and adds four floats an atomic
+// (atomicAdd on float4, red.global.add.v4.f32); tables that fit beside the
+// tile (inst_data) are summed in a thread's registers and a block's shared
+// copy first. Rows of another width, or tables not 16-byte aligned, take
+// an element a thread.
 
 #include <cuda_runtime.h>
 
@@ -83,6 +109,18 @@ struct TheiaTableSpec {
   int clips;  // the clips to [0, 1] between the formed coordinate and the read
   int media;  // M
   float a, b;  // affine: t = a * x + b
+};
+
+// The spans of a row that a gather hands out, field for field
+// ops/table_read.py _Spans: span k is columns [start[k], start[k] +
+// width[k]) of every row, an (N, width[k]) output of its own, float32 or,
+// where integer[k], int32 (the float truncated toward zero, as
+// .to(torch.int32)). Outside the unnamed namespace, as TheiaTableSpec.
+struct TheiaSpans {
+  int count;
+  int start[16];  // kMaxSpans
+  int width[16];
+  int integer[16];
 };
 
 namespace {
@@ -332,44 +370,417 @@ __global__ void __launch_bounds__(kGradThreads)
   }
 }
 
-// ---- whole rows of a table (the hit reconstruction's tri_data and
-// inst_data rows): out[i, :] = table[index[i], :], element by element ----
-__global__ void __launch_bounds__(kThreads)
-    gather(const float* __restrict__ table, int width, const int* __restrict__ index,
-           long long count, float* __restrict__ out) {
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  for (long long e = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x; e < count;
-       e += stride) {
-    const long long i = e / width;
-    out[e] = __ldg(table + static_cast<long long>(index[i]) * width + (e - i * width));
+// ---- whole rows of a table and their spans (the hit reconstruction's
+// tri_data and inst_data rows) ----
+
+// the most spans a gather hands out; equals ops/table_read.py MAX_SPANS
+constexpr int kMaxSpans = 16;
+// the rows of the vector kernels: 32 floats, 8 threads a row with a float4
+// each, a tile of kPasses x 32 rows a block at a time, staged in shared
+// memory
+constexpr int kRowWidth = 32;
+constexpr int kLanesPerRow = kRowWidth / 4;
+constexpr int kGatherThreads = 256;
+constexpr int kRowsPerPass = kGatherThreads / kLanesPerRow;
+constexpr int kWarpRows = 32 / kLanesPerRow;  // a warp's rows: slots 0-3
+// a staged row's stride: odd, so that a warp's 8 threads of each of its 4
+// rows write 32 distinct banks
+constexpr int kTileStride = kRowWidth + 1;
+// the passes of 32 rows a tile: the forward's 64 rows keep a block's loads
+// and writes balanced; the backward, whose loads are its upstream
+// gradients, reads 128 rows ahead
+constexpr int kPasses = 2;
+constexpr int kGradPasses = 4;
+// the grids: a forward block takes kForwardTiles tiles (reading one ahead),
+// a backward block on device memory one, and the hardware overlaps the
+// blocks (theia_tpu_torch.tools.card_measure gather-builds times both
+// against a loop over tiles in 8 blocks an SM, 2048 threads); a backward
+// block with the table in shared memory loops over its tiles, so that its
+// copy is added to the gradient once for many tiles
+constexpr int kForwardTiles = 4;
+constexpr int kGatherBlocksPerSm = 8;
+constexpr int kMostBlocksPerSm = 64;
+
+template <int kP>
+struct Tile {
+  static constexpr int kRows = kRowsPerPass * kP;
+  static constexpr int kFloats = kRows * kTileStride;
+  // a full tile's runs are moved four elements a thread at a time (16-byte
+  // loads and stores): kRows x width is a multiple of 4 for any width, and
+  // so is a run's offset in its output; the most such groups a thread takes
+  static constexpr int kGroups = kRows * kRowWidth / 4 / kGatherThreads;
+};
+// the table rows whose gradient a thread sums in registers on the shared
+// path (inst_data has one a scene instance: 3 on the flagship)
+constexpr int kRegRows = 4;
+
+// a span as the kernels take it: its output (forward) or upstream gradient
+// (backward; null where it takes none), its first column, width, kind
+struct Span {
+  void* p;
+  int start, width, integer;
+  float rcp;  // 1 / width: the row of an element of a tile's run
+};
+struct Spans {
+  Span s[kMaxSpans];
+  int count;
+  int columns;  // the spans' widths summed
+  int vector;  // every span's pointer 16-byte aligned: full tiles move float4s
+  unsigned covered;  // backward, 32-float rows: bit c where column c takes a gradient
+};
+
+// e / width for 0 <= e < 128 * kRowWidth (a tile's elements) and width <=
+// kRowWidth: (e + 0.5) / width lies at least 1 / 64 from an integer, and
+// the two roundings below move it by less than 4096.5 * 2^-23
+__device__ __forceinline__ int row_in_tile(int e, float rcp) {
+  return __float2int_rz((static_cast<float>(e) + 0.5f) * rcp);
+}
+
+__device__ __forceinline__ bool nonzero(float4 v) {
+  return v.x != 0.0f || v.y != 0.0f || v.z != 0.0f || v.w != 0.0f;
+}
+
+__device__ __forceinline__ float4 plus(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+__device__ __forceinline__ float4 shfl4(float4 v, int src) {
+  return make_float4(__shfl_sync(0xffffffffu, v.x, src), __shfl_sync(0xffffffffu, v.y, src),
+                     __shfl_sync(0xffffffffu, v.z, src), __shfl_sync(0xffffffffu, v.w, src));
+}
+
+__device__ __forceinline__ float4 shfl4_xor(float4 v, int mask) {
+  return make_float4(__shfl_xor_sync(0xffffffffu, v.x, mask), __shfl_xor_sync(0xffffffffu, v.y, mask),
+                     __shfl_xor_sync(0xffffffffu, v.z, mask), __shfl_xor_sync(0xffffffffu, v.w, mask));
+}
+
+// four floats added to a 16-byte aligned address of device memory in one
+// operation (sm_90's red.global.add.v4.f32)
+__device__ __forceinline__ void add4(float* p, float4 v) {
+  atomicAdd(reinterpret_cast<float4*>(p), v);
+}
+
+// each of four floats that is not zero added to shared memory
+__device__ __forceinline__ void add4_shared(float* p, float4 v) {
+  if (v.x != 0.0f) atomicAdd(p, v.x);
+  if (v.y != 0.0f) atomicAdd(p + 1, v.y);
+  if (v.z != 0.0f) atomicAdd(p + 2, v.z);
+  if (v.w != 0.0f) atomicAdd(p + 3, v.w);
+}
+
+// The indices of the tile at `base`, read once a row by its first thread
+// (-1 for the other threads and past the end); shuffled to the row's 8
+// threads by take_index, an iteration later where the kernel reads ahead
+template <int kP>
+__device__ __forceinline__ void read_index(const int* __restrict__ index, int base, int count, int sub,
+                                           int slot, int (&row)[kP]) {
+#pragma unroll
+  for (int u = 0; u < kP; ++u) {
+    const int i = base + u * kRowsPerPass + slot;
+    row[u] = sub == 0 && i < count ? __ldg(index + i) : -1;
   }
 }
 
-// its backward: a warp adds one row's 32 neighbouring entries (distinct
-// addresses); kShared sums in shared memory first, as read_tables_grad does
+template <int kP>
+__device__ __forceinline__ void take_index(int (&row)[kP]) {
+#pragma unroll
+  for (int u = 0; u < kP; ++u) row[u] = __shfl_sync(0xffffffffu, row[u], 0, kLanesPerRow);
+}
+
+// The spans' runs of a tile of `rows` rows, laid end to end: element E of
+// them is element e of span k's run (rows x width_k, row-major). A thread
+// walks its E in increasing order, so k only grows.
+struct Runs {
+  int k, first, end;
+
+  __device__ Runs(const Spans& s, int rows) : k(0), first(0), end(rows * s.s[0].width) {}
+
+  // span k and e for E; E no smaller than at the last call
+  __device__ __forceinline__ int at(const Spans& s, int rows, int E) {
+    while (E >= end) {
+      first = end;
+      end += rows * s.s[++k].width;
+    }
+    return E - first;
+  }
+};
+
+// the place in the tile of element e of span sp's run
+__device__ __forceinline__ int tile_place(const Span& sp, int e) {
+  const int r = row_in_tile(e, sp.rcp);
+  return r * kTileStride + sp.start + (e - r * sp.width);
+}
+
+// the places of elements e to e + 3 of span sp's run
+__device__ __forceinline__ void tile_places(const Span& sp, int e, int (&at)[4]) {
+  int r = row_in_tile(e, sp.rcp), c = e - r * sp.width;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    at[j] = r * kTileStride + sp.start + c;
+    if (++c == sp.width) {
+      c = 0;
+      ++r;
+    }
+  }
+}
+
+// out_k[i, :] = table[index[i], start_k : start_k + width_k] for a
+// 16-byte aligned table of 32-float rows. A block takes 64 lanes at a
+// time: 8 threads a row load it as float4s into shared memory, then the
+// block writes the spans' parts of the tile, each one contiguous run of
+// its output, over all spans' runs four elements a thread (one a thread
+// on a ragged last tile). The loads of the next tile start before
+// those writes (and its indices a tile earlier still), so that a block
+// keeps loads in flight while it writes.
+__global__ void __launch_bounds__(kGatherThreads)
+    gather_rows32(const float* __restrict__ table, const int* __restrict__ index, int count,
+                  const __grid_constant__ Spans s) {
+  using T = Tile<kPasses>;
+  __shared__ float tile[T::kFloats];
+  const int sub = threadIdx.x % kLanesPerRow, slot = threadIdx.x / kLanesPerRow;
+  const int step = gridDim.x * T::kRows;
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  int base = blockIdx.x * T::kRows;
+  int row[kPasses];
+  float4 v[kPasses];
+  read_index(index, base, count, sub, slot, row);
+  take_index(row);
+#pragma unroll
+  for (int u = 0; u < kPasses; ++u) {
+    v[u] = row[u] < 0 ? zero : __ldg(reinterpret_cast<const float4*>(table + row[u] * kRowWidth) + sub);
+  }
+  read_index(index, base + step, count, sub, slot, row);
+  for (; base < count; base += step) {
+    const int rows = min(T::kRows, count - base);
+#pragma unroll
+    for (int u = 0; u < kPasses; ++u) {
+      float* d = tile + (u * kRowsPerPass + slot) * kTileStride + sub * 4;
+      d[0] = v[u].x;
+      d[1] = v[u].y;
+      d[2] = v[u].z;
+      d[3] = v[u].w;
+    }
+    __syncthreads();
+    take_index(row);
+#pragma unroll
+    for (int u = 0; u < kPasses; ++u) {
+      v[u] = row[u] < 0 ? zero : __ldg(reinterpret_cast<const float4*>(table + row[u] * kRowWidth) + sub);
+    }
+    read_index(index, base + 2 * step, count, sub, slot, row);
+    Runs runs(s, rows);
+    if (rows == T::kRows && s.vector) {
+      for (int E = 4 * threadIdx.x; E < rows * s.columns; E += 4 * kGatherThreads) {
+        const int e = runs.at(s, rows, E);
+        const Span& sp = s.s[runs.k];
+        int at[4];
+        tile_places(sp, e, at);
+        const float4 x = make_float4(tile[at[0]], tile[at[1]], tile[at[2]], tile[at[3]]);
+        const int out = base * sp.width + e;
+        if (sp.integer) {
+          *reinterpret_cast<int4*>(static_cast<int*>(sp.p) + out) =
+              make_int4(static_cast<int>(x.x), static_cast<int>(x.y), static_cast<int>(x.z), static_cast<int>(x.w));
+        } else {
+          *reinterpret_cast<float4*>(static_cast<float*>(sp.p) + out) = x;
+        }
+      }
+    } else {
+      for (int E = threadIdx.x; E < rows * s.columns; E += kGatherThreads) {
+        const int e = runs.at(s, rows, E);
+        const Span& sp = s.s[runs.k];
+        const float x = tile[tile_place(sp, e)];
+        const int out = base * sp.width + e;
+        if (sp.integer) {
+          static_cast<int*>(sp.p)[out] = static_cast<int>(x);
+        } else {
+          static_cast<float*>(sp.p)[out] = x;
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// The backward's read of a full tile's gradients at `base`: this thread's
+// groups of four elements of the spans' runs, into registers
+template <class T>
+__device__ __forceinline__ void read_groups(const Spans& s, int base, float4 (&g)[T::kGroups]) {
+  Runs runs(s, T::kRows);
+#pragma unroll
+  for (int i = 0; i < T::kGroups; ++i) {
+    const int E = 4 * (threadIdx.x + i * kGatherThreads);
+    if (E < T::kRows * s.columns) {
+      const int e = runs.at(s, T::kRows, E);
+      const Span& sp = s.s[runs.k];
+      g[i] = __ldg(reinterpret_cast<const float4*>(static_cast<const float*>(sp.p) + base * sp.width + e));
+    }
+  }
+}
+
+// ... and their places in the tile
+template <class T>
+__device__ __forceinline__ void stage_groups(const Spans& s, const float4 (&g)[T::kGroups], float* tile) {
+  Runs runs(s, T::kRows);
+#pragma unroll
+  for (int i = 0; i < T::kGroups; ++i) {
+    const int E = 4 * (threadIdx.x + i * kGatherThreads);
+    if (E < T::kRows * s.columns) {
+      const int e = runs.at(s, T::kRows, E);
+      int at[4];
+      tile_places(s.s[runs.k], e, at);
+      tile[at[0]] = g[i].x;
+      tile[at[1]] = g[i].y;
+      tile[at[2]] = g[i].z;
+      tile[at[3]] = g[i].w;
+    }
+  }
+}
+
+// Its backward: the table's gradient from the spans' gradients alone (the
+// spans here are those that take one). A block stages the spans'
+// gradients of a tile into their columns of the tile's rows, over all
+// spans' runs four elements a thread (one a thread on a ragged last tile),
+// the next full tile's read into registers, and its indices, started
+// before this tile's adds. 8 threads a row then take a float4 each, and a thread
+// whose four are all zero (a missed lane, a column no span covers) adds
+// nothing. Without kShared a warp first merges its lanes of one row
+// (__match_any_sync on the row, a sum over the match in slot order), then
+// adds four floats an atomic. With kShared (a table that fits beside the
+// tile) a thread sums its lanes of the first kRegRows rows in registers
+// and adds the others to the block's copy of the table; the four slots of
+// a warp merge their registers, and the block adds its copy to the
+// gradient at the end, four floats an atomic.
 template <bool kShared>
-__global__ void __launch_bounds__(kGradThreads)
-    gather_grad(const float* __restrict__ grad_out, int width,
-                const int* __restrict__ index, long long count,
-                float* __restrict__ grad_table, long long table_size) {
-  extern __shared__ float sums[];
-  float* acc = grad_table;
+__global__ void __launch_bounds__(kGatherThreads)
+    gather_rows32_grad(const __grid_constant__ Spans s, const int* __restrict__ index, int count,
+                       float* __restrict__ grad_table, int table_rows) {
+  using T = Tile<kGradPasses>;
+  extern __shared__ float4 smem4[];
+  float* tile = reinterpret_cast<float*>(smem4);
+  float* sums = tile + T::kFloats;  // kShared: the block's copy of the gradient
+  const int sub = threadIdx.x % kLanesPerRow, slot = threadIdx.x / kLanesPerRow;
+  const int lane = threadIdx.x % 32;
+  const int step = gridDim.x * T::kRows;
+  const unsigned mine = (s.covered >> (sub * 4)) & 0xFu;
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  float4 acc[kRegRows];
+#pragma unroll
+  for (int q = 0; q < kRegRows; ++q) acc[q] = zero;
   if (kShared) {
-    for (long long k = threadIdx.x; k < table_size; k += kGradThreads) sums[k] = 0.0f;
-    __syncthreads();
-    acc = sums;
+    // ordered before the first add by the loop's first __syncthreads
+    for (int e = threadIdx.x; e < table_rows * kRowWidth; e += kGatherThreads) sums[e] = 0.0f;
   }
-  const long long stride = static_cast<long long>(gridDim.x) * kGradThreads;
-  for (long long e = static_cast<long long>(blockIdx.x) * kGradThreads + threadIdx.x; e < count;
-       e += stride) {
-    const long long i = e / width;
-    add(acc, static_cast<long long>(index[i]) * width + (e - i * width), grad_out[e]);
+  int base = blockIdx.x * T::kRows;
+  int row[kGradPasses];
+  float4 ahead[T::kGroups];
+  read_index(index, base, count, sub, slot, row);
+  if (count - base >= T::kRows && s.vector) read_groups<T>(s, base, ahead);
+  for (; base < count; base += step) {
+    const int rows = min(T::kRows, count - base);
+    if (rows == T::kRows && s.vector) {
+      stage_groups<T>(s, ahead, tile);
+    } else {
+      Runs runs(s, rows);
+      for (int E = threadIdx.x; E < rows * s.columns; E += kGatherThreads) {
+        const int e = runs.at(s, rows, E);
+        const Span& sp = s.s[runs.k];
+        tile[tile_place(sp, e)] = __ldg(static_cast<const float*>(sp.p) + base * sp.width + e);
+      }
+    }
+    take_index(row);
+    __syncthreads();
+    int at_row[kGradPasses];
+#pragma unroll
+    for (int u = 0; u < kGradPasses; ++u) at_row[u] = row[u];
+    read_index(index, base + step, count, sub, slot, row);
+    if (count - (base + step) >= T::kRows && s.vector) read_groups<T>(s, base + step, ahead);
+#pragma unroll
+    for (int u = 0; u < kGradPasses; ++u) {
+      const float* t = tile + (u * kRowsPerPass + slot) * kTileStride + sub * 4;
+      float4 g = make_float4((mine & 1u) ? t[0] : 0.0f, (mine & 2u) ? t[1] : 0.0f,
+                             (mine & 4u) ? t[2] : 0.0f, (mine & 8u) ? t[3] : 0.0f);
+      const int at = at_row[u];
+      const bool live = at >= 0 && nonzero(g);
+      if (kShared) {
+        if (live) {
+          if (at < kRegRows) {
+#pragma unroll
+            for (int q = 0; q < kRegRows; ++q) {
+              if (at == q) acc[q] = plus(acc[q], g);
+            }
+          } else {
+            add4_shared(sums + at * kRowWidth + sub * 4, g);
+          }
+        }
+        continue;
+      }
+      // the warp's lanes of one row and of this thread's four columns (one
+      // thread in each of the warp's 4 rows: lanes sub, sub + 8, ...)
+      const unsigned peers = __match_any_sync(0xffffffffu, live ? at : -1) & (0x01010101u << sub);
+      if (__any_sync(0xffffffffu, live && __popc(peers) > 1)) {
+        float4 sum = zero;
+#pragma unroll
+        for (int q = 0; q < kWarpRows; ++q) {
+          const int src = q * kLanesPerRow + sub;
+          const float4 o = shfl4(g, src);
+          if ((peers >> src) & 1u) sum = plus(sum, o);
+        }
+        g = sum;
+      }
+      if (live && lane == __ffs(peers) - 1) add4(grad_table + at * kRowWidth + sub * 4, g);
+    }
+    __syncthreads();
   }
   if (kShared) {
+#pragma unroll
+    for (int q = 0; q < kRegRows; ++q) {
+      acc[q] = plus(acc[q], shfl4_xor(acc[q], kLanesPerRow));
+      acc[q] = plus(acc[q], shfl4_xor(acc[q], 2 * kLanesPerRow));
+      if (lane < kLanesPerRow && q < table_rows) add4_shared(sums + q * kRowWidth + sub * 4, acc[q]);
+    }
     __syncthreads();
-    for (long long k = threadIdx.x; k < table_size; k += kGradThreads) {
-      const float s = sums[k];
-      if (s != 0.0f) atomicAdd(grad_table + k, s);
+    for (int e = threadIdx.x; e < table_rows * kLanesPerRow; e += kGatherThreads) {
+      const float4 v = smem4[T::kFloats / 4 + e];
+      if (nonzero(v)) add4(grad_table + e * 4, v);
+    }
+  }
+}
+
+// Any other table (another width, or not 16-byte aligned): an element a
+// thread over each span's output
+__global__ void __launch_bounds__(kThreads)
+    gather_rows_any(const float* __restrict__ table, int width, const int* __restrict__ index,
+                    int count, const __grid_constant__ Spans s) {
+  const int stride = gridDim.x * kThreads;
+  for (int k = 0; k < s.count; ++k) {
+    const Span& sp = s.s[k];
+    const int n = count * sp.width;
+    for (int e = blockIdx.x * kThreads + threadIdx.x; e < n; e += stride) {
+      const int i = e / sp.width;
+      const float x = __ldg(table + __ldg(index + i) * width + sp.start + (e - i * sp.width));
+      if (sp.integer) {
+        static_cast<int*>(sp.p)[e] = static_cast<int>(x);
+      } else {
+        static_cast<float*>(sp.p)[e] = x;
+      }
+    }
+  }
+}
+
+// its backward: an atomic an element that is not zero
+__global__ void __launch_bounds__(kThreads)
+    gather_rows_any_grad(const __grid_constant__ Spans s, const int* __restrict__ index, int count,
+                         float* __restrict__ grad_table, int width) {
+  const int stride = gridDim.x * kThreads;
+  for (int k = 0; k < s.count; ++k) {
+    const Span& sp = s.s[k];
+    if (sp.p == nullptr) continue;
+    const float* g = static_cast<const float*>(sp.p);
+    const int n = count * sp.width;
+    for (int e = blockIdx.x * kThreads + threadIdx.x; e < n; e += stride) {
+      const float v = __ldg(g + e);
+      if (v == 0.0f) continue;
+      const int i = e / sp.width;
+      atomicAdd(grad_table + __ldg(index + i) * width + sp.start + (e - i * sp.width), v);
     }
   }
 }
@@ -392,15 +803,43 @@ int grid_for(long long count, int threads, int per_sm, cudaError_t* err) {
 }
 
 // dynamic shared memory of `bytes` for kernel k, opted into above 48 KB;
-// returns how many such blocks an SM takes, at most kGradBlocksPerSm
+// returns how many such blocks an SM takes, at most `most`
 template <class Kernel>
-int shared_blocks(Kernel k, int bytes, cudaError_t* err) {
+int shared_blocks(Kernel k, int bytes, int most, cudaError_t* err) {
   *err = cudaSuccess;
   if (bytes > 48 * 1024) {
     *err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   }
   const int per_sm = kSmemPerSm / (bytes + 1024);
-  return per_sm > kGradBlocksPerSm ? kGradBlocksPerSm : (per_sm < 1 ? 1 : per_sm);
+  return per_sm > most ? most : (per_sm < 1 ? 1 : per_sm);
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<unsigned long long>(p) % 16 == 0; }
+
+// the kernels' spans from the caller's, with their outputs or, for the
+// backward (`grad`), their gradients `p`, of which it keeps the float spans
+// that take one (a non-null gradient); false if a span does not fit a row
+// of `width` floats, or a row's or an output's offsets overflow 32 bits
+bool make_spans(const TheiaSpans* in, void* const* p, int rows, int width, int count, bool grad,
+                Spans* out) {
+  if (in == nullptr || p == nullptr || in->count < 1 || in->count > kMaxSpans || width < 1 ||
+      rows < 1 || count < 0 || static_cast<long long>(rows) * width > 0x7fffffffLL ||
+      static_cast<long long>(count) * width > 0x7fffffffLL) {
+    return false;
+  }
+  out->count = out->columns = 0;
+  out->vector = 1;
+  out->covered = 0u;
+  for (int k = 0; k < in->count; ++k) {
+    const int a = in->start[k], w = in->width[k];
+    if (a < 0 || w < 1 || a + w > width) return false;
+    if (grad && (p[k] == nullptr || in->integer[k])) continue;
+    out->s[out->count++] = Span{p[k], a, w, in->integer[k] != 0, 1.0f / static_cast<float>(w)};
+    out->columns += w;
+    if (!aligned16(p[k])) out->vector = 0;
+    if (width == kRowWidth) out->covered |= (w == 32 ? 0xffffffffu : ((1u << w) - 1u)) << a;
+  }
+  return true;
 }
 
 bool valid(const Spec* s) {
@@ -450,7 +889,7 @@ extern "C" int theia_table_read_grad(const Spec* spec, const int* handle, const 
     return static_cast<int>(cudaGetLastError());
   }
   const int bytes = static_cast<int>(total * sizeof(float));
-  const int per_sm = shared_blocks(read_tables_grad<true>, bytes, &err);
+  const int per_sm = shared_blocks(read_tables_grad<true>, bytes, kGradBlocksPerSm, &err);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = grid_for(count, kGradThreads, per_sm, &err);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -459,37 +898,58 @@ extern "C" int theia_table_read_grad(const Spec* spec, const int* handle, const 
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int theia_gather_rows(const float* table, int width, const int* index,
-                                 int count, float* out, cudaStream_t stream) {
-  const long long elements = static_cast<long long>(count) * width;
-  if (elements <= 0) return static_cast<int>(cudaGetLastError());
+// out: the spans' (N, width[k]) outputs, f32 or int32 as the span says
+extern "C" int theia_gather_rows(const float* table, int rows, int width, const int* index,
+                                 int count, const TheiaSpans* spans, void* const* out,
+                                 cudaStream_t stream) {
+  Spans s;
+  if (!make_spans(spans, out, rows, width, count, false, &s)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (count == 0) return static_cast<int>(cudaGetLastError());
   cudaError_t err = cudaSuccess;
-  const int grid = grid_for(elements, kThreads, kBlocksPerSm, &err);
+  if (width == kRowWidth && aligned16(table)) {
+    const int grid = grid_for(count, kForwardTiles * Tile<kPasses>::kRows, kMostBlocksPerSm, &err);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    gather_rows32<<<grid, kGatherThreads, 0, stream>>>(table, index, count, s);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int grid = grid_for(static_cast<long long>(count) * width, kThreads, kBlocksPerSm, &err);
   if (err != cudaSuccess) return static_cast<int>(err);
-  gather<<<grid, kThreads, 0, stream>>>(table, width, index, elements, out);
+  gather_rows_any<<<grid, kThreads, 0, stream>>>(table, width, index, count, s);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int theia_gather_rows_grad(const float* grad_out, int width,
-                                      const int* index, int count, int rows,
+// grad_out: the spans' (N, width[k]) f32 gradients, null where a span takes none
+extern "C" int theia_gather_rows_grad(const TheiaSpans* spans, void* const* grad_out,
+                                      const int* index, int count, int rows, int width,
                                       float* grad_table, cudaStream_t stream) {
-  const long long elements = static_cast<long long>(count) * width;
-  const long long table_size = static_cast<long long>(rows) * width;
-  if (elements <= 0) return static_cast<int>(cudaGetLastError());
+  Spans s;
+  if (!make_spans(spans, grad_out, rows, width, count, true, &s)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (count == 0 || s.count == 0) return static_cast<int>(cudaGetLastError());
   cudaError_t err = cudaSuccess;
-  if (table_size > kSharedMaxFloats) {
-    const int grid = grid_for(elements, kGradThreads, 4, &err);
+  if (width != kRowWidth || !aligned16(grad_table)) {
+    const int grid = grid_for(static_cast<long long>(count) * width, kThreads, 4, &err);
     if (err != cudaSuccess) return static_cast<int>(err);
-    gather_grad<false><<<grid, kGradThreads, 0, stream>>>(grad_out, width, index, elements,
-                                                          grad_table, table_size);
+    gather_rows_any_grad<<<grid, kThreads, 0, stream>>>(s, index, count, grad_table, width);
     return static_cast<int>(cudaGetLastError());
   }
-  const int bytes = static_cast<int>(table_size * sizeof(float));
-  const int per_sm = shared_blocks(gather_grad<true>, bytes, &err);
+  using T = Tile<kGradPasses>;
+  const long long floats = T::kFloats + static_cast<long long>(rows) * kRowWidth;
+  if (floats > kSharedMaxFloats) {
+    const int bytes = T::kFloats * static_cast<int>(sizeof(float));
+    const int grid = grid_for(count, T::kRows, kMostBlocksPerSm, &err);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    gather_rows32_grad<false><<<grid, kGatherThreads, bytes, stream>>>(s, index, count, grad_table, rows);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int bytes = static_cast<int>(floats * sizeof(float));
+  const int per_sm = shared_blocks(gather_rows32_grad<true>, bytes, kGatherBlocksPerSm, &err);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = grid_for(elements, kGradThreads, per_sm, &err);
+  const int grid = grid_for(count, T::kRows, per_sm, &err);
   if (err != cudaSuccess) return static_cast<int>(err);
-  gather_grad<true><<<grid, kGradThreads, bytes, stream>>>(grad_out, width, index, elements,
-                                                           grad_table, table_size);
+  gather_rows32_grad<true><<<grid, kGatherThreads, bytes, stream>>>(s, index, count, grad_table, rows);
   return static_cast<int>(cudaGetLastError());
 }

@@ -19,9 +19,12 @@ Three forms, each the read of a ``theia_tpu`` function, op for op:
   stacks them (one size for all, the largest; a null table its null value
   across its own width, 0 in the padding beyond), read from the kinds' own
   tables without stacking;
-* :func:`gather_rows` - whole rows of a table, ``table[index]``, the
-  ``tri_data`` and ``inst_data`` rows that ``accel._reconstruct_hit``
-  rebuilds a hit from (``jnp.take`` in ``theia_tpu.accel``).
+* :func:`gather_rows` - whole rows of a table, ``table[index]``, or with
+  ``columns=`` the spans of them that a caller reads, one output a span
+  (integer columns converted): the pieces of the ``tri_data`` and
+  ``inst_data`` rows that ``accel._reconstruct_hit`` rebuilds a hit from
+  (``jnp.take`` and the slices of it in ``theia_tpu.accel``); its
+  backward takes the spans' gradients alone.
 
 The coordinate of the first two is formed from each lane's input ``x``
 in the kernel, as the JAX composition at the call site forms it: ``x``
@@ -66,7 +69,7 @@ from __future__ import annotations
 
 import ctypes
 import weakref
-from functools import reduce
+from functools import lru_cache, reduce
 
 import torch
 
@@ -83,7 +86,10 @@ __all__ = [
     "read_packed_grad",
     "read_packed_grad_plain",
     "gather_rows",
+    "gather_rows_plain",
     "gather_rows_grad",
+    "gather_rows_grad_plain",
+    "MAX_SPANS",
     "MAX_TABLES",
     "PHASE",
     "SHARED_TABLE_MAX",
@@ -120,10 +126,6 @@ def _index(f: torch.Tensor, n: int) -> torch.Tensor:
 def _launch(fn, name: str, *args) -> None:
     _build.check(getattr(_build.library(), name)(*args), name)
     fn.launches += 1
-
-
-def _stream(t: torch.Tensor) -> int:
-    return _build.stream_handle(t.device)
 
 
 def _ptr(t: torch.Tensor | None):
@@ -636,59 +638,182 @@ read_packed_grad.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def _gather_forward(table, index):
+#: the most spans one gather hands out; equals kMaxSpans of ``csrc/table_read.cu``
+MAX_SPANS = 16
+
+
+class _Spans(ctypes.Structure):
+    """TheiaSpans of ``csrc/table_read.cu``, field for field."""
+
+    _fields_ = [
+        ("count", ctypes.c_int),
+        ("start", ctypes.c_int * MAX_SPANS),
+        ("width", ctypes.c_int * MAX_SPANS),
+        ("integer", ctypes.c_int * MAX_SPANS),
+    ]
+
+
+def _span_set(columns, width: int):
+    """``columns`` (None: the whole row) checked against rows of ``width``
+    floats: ((start, stop, integer), ...) and the kernels' struct."""
+    try:
+        hash(columns)
+    except TypeError:
+        raise ValueError(f"gather_rows: columns is a tuple of tuples, got {columns!r}") from None
+    return _checked_spans(columns, width)
+
+
+@lru_cache(maxsize=64)
+def _checked_spans(columns, width: int):
+    spans = []
+    for span in ((0, width),) if columns is None else columns:
+        start, stop, *kind = span
+        if kind not in ([], [torch.int32]) or not 0 <= start < stop <= width:
+            raise ValueError(f"gather_rows: a span is (start, stop) or (start, stop, torch.int32) "
+                             f"within the row's {width} columns, got {span}")
+        spans.append((int(start), int(stop), bool(kind)))
+    if not 1 <= len(spans) <= MAX_SPANS:
+        raise ValueError(f"gather_rows: 1 to {MAX_SPANS} spans, got {len(spans)}")
+    # the kernel's backward stages a row's spans into one tile, so a column belongs to one span
+    ordered = sorted(spans)
+    if any(b[0] < a[1] for a, b in zip(ordered, ordered[1:])):
+        raise ValueError(f"gather_rows: spans must not overlap, got {columns}")
+    spec = _Spans(len(spans))
+    for k, (start, stop, integer) in enumerate(spans):
+        spec.start[k], spec.width[k], spec.integer[k] = start, stop - start, integer
+    return tuple(spans), spec
+
+
+def _pointers(tensors):
+    return (ctypes.c_void_p * len(tensors))(*(_ptr(t) for t in tensors))
+
+
+def _gather_forward(table, index, columns):
+    spans, spec = _span_set(columns, table.shape[1])
     if not _on_card(table, index):
-        return table[index]
-    out = torch.empty((index.shape[0], table.shape[1]), dtype=table.dtype, device=table.device)
-    if index.numel():
-        _launch(gather_rows, "theia_gather_rows", table.data_ptr(), table.shape[1], index.data_ptr(),
-                index.shape[0], out.data_ptr(), _stream(table))
-    return out
+        return gather_rows_plain(table, index, columns)
+    n = index.shape[0]
+    outs = tuple(
+        torch.empty((n, stop - start), dtype=torch.int32 if integer else torch.float32, device=table.device)
+        for start, stop, integer in spans
+    )
+    if n:
+        _launch(gather_rows, "theia_gather_rows", table.data_ptr(), table.shape[0], table.shape[1],
+                index.data_ptr(), n, ctypes.byref(spec), _pointers(outs), _build.raw_stream(table))
+    return outs
 
 
-def gather_rows_grad(n_rows: int, index, grad_out):
-    """Backward of :func:`gather_rows`: d table (``n_rows`` rows as wide
-    as ``grad_out``), each row the sum of the gradients of the lanes that
-    read it. CUDA tensors launch ``theia_gather_rows_grad`` (atomics, in
-    a block's shared copy of the table where it fits), CPU tensors run
-    ``index_add_``."""
-    grad = torch.zeros((n_rows, grad_out.shape[1]), dtype=grad_out.dtype, device=grad_out.device)
-    if not _on_card(grad_out, index):
-        return grad.index_add_(0, index.to(torch.int64), grad_out)
-    if index.numel():
-        _launch(gather_rows_grad, "theia_gather_rows_grad", grad_out.data_ptr(), grad_out.shape[1],
-                index.data_ptr(), index.shape[0], n_rows, grad.data_ptr(), _stream(grad_out))
+def gather_rows_plain(table, index, columns=None):
+    """Plain version of :func:`gather_rows`' forward (any device): one
+    tensor a span, ``table[index][:, start:stop]``, the integer spans
+    converted; a tuple, also without ``columns``."""
+    spans, _ = _span_set(columns, table.shape[1])
+    rows = [table[:, start:stop][index] for start, stop, _ in spans]
+    return tuple(r.to(torch.int32) if integer else r for r, (_, _, integer) in zip(rows, spans))
+
+
+def _gradients(spans, index, grad_out):
+    """The spans' upstream gradients, contiguous, None where a span takes
+    none (an integer span, or one not used)."""
+    if len(grad_out) != len(spans):
+        raise ValueError(f"gather_rows_grad: one gradient a span ({len(spans)}), got {len(grad_out)}")
+    grads = []
+    for g, (start, stop, integer) in zip(grad_out, spans):
+        if g is None or integer:
+            grads.append(None)
+            continue
+        if g.dtype != torch.float32 or g.shape != (index.shape[0], stop - start):
+            raise ValueError(f"gather_rows_grad: the gradient of columns {start}:{stop} must be f32 "
+                             f"({index.shape[0]}, {stop - start}), got {g.dtype} {tuple(g.shape)}")
+        grads.append(g.contiguous())
+    return grads
+
+
+def gather_rows_grad(shape, index, grad_out, columns=None):
+    """Backward of :func:`gather_rows`: d table of ``shape`` (T, W), each
+    row the sum of the gradients of the lanes that read it. ``grad_out``
+    is the (N, W) gradient without ``columns``, else one gradient a span,
+    None where a span takes none (the integer spans take none); nothing
+    of width W is built. CUDA tensors launch ``theia_gather_rows_grad``
+    (four floats an atomic, a warp's lanes of one row merged first; a
+    block's registers and shared copy where the table fits), CPU tensors
+    run the plain version."""
+    spans, spec = _span_set(columns, shape[1])
+    grads = _gradients(spans, index, (grad_out,) if columns is None else tuple(grad_out))
+    present = [g for g in grads if g is not None]
+    if not _on_card(index, *present):
+        return _grad_plain(shape, index, spans, grads)
+    grad = torch.zeros(shape, dtype=torch.float32, device=index.device)
+    if index.shape[0] and present:
+        _launch(gather_rows_grad, "theia_gather_rows_grad", ctypes.byref(spec), _pointers(grads),
+                index.data_ptr(), index.shape[0], shape[0], shape[1], grad.data_ptr(), _build.raw_stream(grad))
     return grad
 
 
+def _grad_plain(shape, index, spans, grads):
+    grad = torch.zeros(shape, dtype=torch.float32, device=index.device)
+    for g, (start, stop, _) in zip(grads, spans):
+        if g is not None:
+            grad[:, start:stop].index_add_(0, index, g)
+    return grad
+
+
+def gather_rows_grad_plain(shape, index, grad_out, columns=None):
+    """Plain version of :func:`gather_rows_grad` (any device): ``index_add_``
+    of each span's gradient into its columns of a zero table."""
+    spans, _ = _span_set(columns, shape[1])
+    grads = _gradients(spans, index, (grad_out,) if columns is None else tuple(grad_out))
+    return _grad_plain(shape, index, spans, grads)
+
+
 class _GatherRows(torch.autograd.Function):
+    """One output a span; the integer spans are not differentiable, and an
+    unused span's gradient arrives as None."""
+
     @staticmethod
-    def forward(ctx, table, index):
+    def forward(ctx, table, index, columns):
+        outs = _gather_forward(table, index, columns)
+        spans, _ = _span_set(columns, table.shape[1])
+        ctx.mark_non_differentiable(*(o for o, (_, _, integer) in zip(outs, spans) if integer))
+        ctx.set_materialize_grads(False)
         ctx.save_for_backward(index)
-        ctx.n_rows = table.shape[0]
-        return _gather_forward(table, index)
+        ctx.shape, ctx.columns = table.shape, columns
+        return outs
 
     @staticmethod
-    def backward(ctx, grad_out):
+    def backward(ctx, *grads):
+        if all(g is None for g in grads):
+            return None, None, None
         (index,) = ctx.saved_tensors
-        return gather_rows_grad(ctx.n_rows, index, grad_out.contiguous()), None
+        columns = ctx.columns or ((0, ctx.shape[1]),)
+        return gather_rows_grad(ctx.shape, index, grads, columns), None, None
 
 
-def gather_rows(table: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+def gather_rows(table: torch.Tensor, index: torch.Tensor, columns=None):
     """``table[index]`` for an f32 (T, W) table and row indices (N,) in
-    [0, T): the (N, W) rows, differentiable in the table (a row's
-    gradient sums the lanes that read it). The scene tables' rows that
-    ``accel._reconstruct_hit`` rebuilds a hit from: where ``tri_data`` or
+    [0, T): the (N, W) rows, or with ``columns`` only the spans of them
+    that a caller reads, one tensor a span from one launch. ``columns`` is
+    a tuple of spans ``(start, stop)`` (f32 (N, stop - start)) or ``(start,
+    stop, torch.int32)`` (columns that hold integers as floats, converted as
+    ``.to(torch.int32)`` converts them). Differentiable in the table (a
+    row's gradient sums the lanes that read it) through the float spans
+    alone: an unused span adds nothing and nothing (N, W) is built. The
+    scene tables' rows that ``accel._reconstruct_hit`` rebuilds a hit from
+    (``TRI_COLUMNS``, ``INST_COLUMNS`` there); where ``tri_data`` or
     ``inst_data`` carries a graph (an instance moved by
     ``translate_instance``) torch's index backward sorted 262,144 lanes
-    for each of them, and the card's gather kernel copies bit for bit."""
+    for each of them, and slicing one (N, 32) gather cost a zero (N, 32)
+    tensor, a copy and an add of that width a piece. The card's kernel
+    copies bit for bit. ``columns`` must be hashable (a tuple)."""
     _check("table", table, torch.float32, 2)
     index = index.to(torch.int32).contiguous()
     if index.dim() != 1:
         raise ValueError("gather_rows: index must be 1-d")
     if _differentiable(table):
-        return _GatherRows.apply(table, index)
-    return _gather_forward(table, index)
+        outs = _GatherRows.apply(table, index, columns)
+    else:
+        outs = _gather_forward(table, index, columns)
+    return outs[0] if columns is None else outs
 
 
 gather_rows.launches = 0

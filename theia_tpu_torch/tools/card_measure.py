@@ -7,6 +7,8 @@
     python3 -m theia_tpu_torch.tools.card_measure soup DIR
     python3 -m theia_tpu_torch.tools.card_measure soup-builds
     python3 -m theia_tpu_torch.tools.card_measure histogram
+    python3 -m theia_tpu_torch.tools.card_measure gather-builds
+    python3 -m theia_tpu_torch.tools.card_measure gather-skew
     python3 -m theia_tpu_torch.tools.card_measure profile
 
 ``tiles`` builds the scan of ``csrc/nearest_scan.cuh`` with 256 and 512
@@ -64,6 +66,21 @@ from a build with ``THEIA_HISTOGRAM_SHARED_MAX=0``, which puts it on every
 state) against each other on states of 100 to 57,856 flat bins, with half, a hundredth and
 all of the lanes kept and with every kept lane in one of four bins: the
 numbers behind the size at which ``theia_histogram_add`` changes variant.
+
+``gather-builds`` times measurement builds of the row gathers, each from
+a copy of ``csrc`` with ``table_read.cu`` patched in the build directory
+(``GATHER_BUILDS``: the forward's tiles of 128 rows, the backward's of
+64, one tile a forward block, the forward or the backward on device
+memory looping over tiles in 8 blocks an SM, the backward held to 32
+registers (8 blocks an SM), the backward without its warp merge or with
+four scalar atomics where it adds a float4), in turns with the
+package's on ``chip_smoke.py``'s gather cases with the reconstruction's
+spans (the winners of a recorded brute shadow pair among them), forward
+and backward, queued.
+
+``gather-skew`` times the package's row gathers on ``tri_data`` with
+a share of the lanes on row 0 (0 to 100 %) and with every lane on 1 to
+1280 rows, with the reconstruction's spans and as whole rows.
 
 ``profile`` traces one batch of the ``mt`` flagship, one of the
 brute-force flagship (``accel="auto"``) and one of the polarized ``woop``
@@ -497,21 +514,21 @@ SOUP_BUILDS = {
 }
 
 
-def patched_build(label: str, patches):
+def patched_build(label: str, patches, source: str = "nearest_scan.cuh"):
     """The package's kernels built from a copy of ``csrc`` in the build
-    directory with ``patches`` ((text, replacement) pairs of
-    ``nearest_scan.cuh``, each text found once) made."""
+    directory with ``patches`` ((text, replacement) pairs of ``source``,
+    each text found once) made."""
     import shutil
 
     copy = _build.BUILD_DIR / "patched" / label.replace(" ", "-")
     shutil.rmtree(copy, ignore_errors=True)
     shutil.copytree(_build.CSRC, copy)
-    header = copy / "nearest_scan.cuh"
-    text = header.read_text()
+    path = copy / source
+    text = path.read_text()
     for old, new in patches:
-        assert text.count(old) == 1, f"{label}: {old!r} is not in nearest_scan.cuh once"
+        assert text.count(old) == 1, f"{label}: {old!r} is not in {source} once"
         text = text.replace(old, new)
-    header.write_text(text)
+    path.write_text(text)
     return _build.build(copy, (), tuple(_build._SIGNATURES.items()))
 
 
@@ -563,6 +580,148 @@ def soup_builds() -> dict:
         for line in ptxas:
             print("   ", line)
     out["compacted any-hit"] = soup_compacted(base)
+    return out
+
+
+#: measurement builds of the row gathers: a copy of ``csrc`` with each
+#: (text, replacement) of ``csrc/table_read.cu`` made; their results are
+#: the package's
+GATHER_BUILDS = {
+    "forward tiles of 128 rows": (("constexpr int kPasses = 2;", "constexpr int kPasses = 4;"),),
+    "backward tiles of 64 rows": (("constexpr int kGradPasses = 4;", "constexpr int kGradPasses = 2;"),),
+    "forward one tile a block": (("constexpr int kForwardTiles = 4;", "constexpr int kForwardTiles = 1;"),),
+    "forward in 8 blocks an SM": (
+        ("grid_for(count, kForwardTiles * Tile<kPasses>::kRows, kMostBlocksPerSm, &err)",
+         "grid_for(count, Tile<kPasses>::kRows, kGatherBlocksPerSm, &err)"),),
+    "backward in 8 blocks an SM": (("grid_for(count, T::kRows, kMostBlocksPerSm, &err)",
+                                    "grid_for(count, T::kRows, kGatherBlocksPerSm, &err)"),),
+    "backward held to 32 registers": (("__launch_bounds__(kGatherThreads)\n    gather_rows32_grad(",
+                                       "__launch_bounds__(kGatherThreads, kGatherBlocksPerSm)\n    gather_rows32_grad("),),
+    "no warp merge": (("& (0x01010101u << sub);", "& (1u << lane);"),),
+    "scalar atomics": (("  atomicAdd(reinterpret_cast<float4*>(p), v);",
+                        "  atomicAdd(p, v.x);\n  atomicAdd(p + 1, v.y);\n  atomicAdd(p + 2, v.z);\n  atomicAdd(p + 3, v.w);"),),
+}
+
+
+class GatherCalls:
+    """The row gather and its backward of one built library on one case of
+    ``chip_smoke.gather_cases``, through the C entry points, outputs made
+    beforehand: ``forward`` and ``backward`` (the zero fill of the table's
+    gradient, which the wrapper makes, and the launch)."""
+
+    def __init__(self, lib, table, columns, index, hit) -> None:
+        from theia_tpu_torch.ops import table_read
+
+        self.lib, self.table, self.index = lib, table, index
+        spans, self.spec = table_read._span_set(columns, table.shape[1])
+        n = index.shape[0]
+        self.outs = tuple(torch.empty((n, b - a), dtype=torch.int32 if i else torch.float32, device="cuda")
+                          for a, b, i in spans)
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        self.grads = [None if i else torch.randn(n, b - a, device="cuda", generator=gen) for a, b, i in spans]
+        if hit is not None:
+            self.grads = [None if g is None else torch.where(hit[:, None], g, 0.0) for g in self.grads]
+        self.out_ptrs, self.grad_ptrs = table_read._pointers(self.outs), table_read._pointers(self.grads)
+        self.grad = torch.zeros(table.shape, device="cuda")
+        self.stream = torch.cuda.current_stream().cuda_stream
+
+    def forward(self):
+        t = self.table
+        _build.check(self.lib.theia_gather_rows(t.data_ptr(), t.shape[0], t.shape[1], self.index.data_ptr(),
+                                                self.index.shape[0], ctypes.byref(self.spec), self.out_ptrs,
+                                                self.stream), "theia_gather_rows")
+        return self.outs
+
+    def backward(self):
+        self.grad.zero_()
+        t = self.table
+        _build.check(self.lib.theia_gather_rows_grad(ctypes.byref(self.spec), self.grad_ptrs, self.index.data_ptr(),
+                                                     self.index.shape[0], t.shape[0], t.shape[1],
+                                                     self.grad.data_ptr(), self.stream), "theia_gather_rows_grad")
+        return self.grad
+
+
+def _gather_ptxas(log: str) -> list:
+    """ptxas's registers, spills and shared memory of each gather kernel."""
+    lines, out = log.splitlines(), []
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and "gather_rows" in line:
+            tail = [x.strip() for x in lines[i + 1 : i + 4] if "bytes" in x or "registers" in x]
+            out.append(line.split("gather_rows")[1][:24] + ": " + "; ".join(tail))
+    return out
+
+
+def gather_builds() -> dict:
+    """The row gathers of each build of ``GATHER_BUILDS`` in turns with the
+    package's (package, build, build, package) on ``chip_smoke``'s gather
+    cases with the reconstruction's spans, the winners those of one
+    recorded shadow pair of a brute batch: the forward bit-equal to the
+    package's, the backward within 2e-5 of the absolute shares; ms as
+    called and queued."""
+    tracer = build_flagship(theia_tpu_torch, icosphere(3), chip_smoke.BATCH, chip_smoke.MAX_PATH, accel="auto",
+                            device="cuda")
+    pack = tracer.scene.pack
+    shadow = chip_smoke.record_soup_queries(tracer, "target_in_table")
+    bare = chip_smoke.Soup("target_in_table", pack, rows=False)
+    winners = bare.run(bare.kernel, bare.tables[0], shadow[0][:3], shadow[0][3], shadow[0][4])[1]
+    from theia_tpu_torch.ops.table_read import gather_rows_grad_plain
+
+    cases = chip_smoke.gather_cases(pack, winners)
+    base = {label: GatherCalls(_build.library(), *case) for label, case in cases.items()}
+    out = {"package": dict(ptxas=_gather_ptxas(_build.library().build_log))}
+    for line in out["package"]["ptxas"]:
+        print("    package:", line)
+    for label, patches in GATHER_BUILDS.items():
+        lib = patched_build(label, patches, "table_read.cu")
+        entry = out[label] = dict(patches=patches, ptxas=_gather_ptxas(lib.build_log))
+        for name, case in cases.items():
+            calls = GatherCalls(lib, *case)
+            assert all(torch.equal(a, b) for a, b in zip(base[name].forward(), calls.forward())), (label, name)
+            # each within 2e-5 of the exact sums, so within 4e-5 of each other
+            want, got = base[name].backward().clone(), calls.backward()
+            table, columns, index = case[:3]
+            shares = gather_rows_grad_plain(table.shape, index, [None if g is None else g.abs() for g in calls.grads],
+                                            columns)
+            assert float(((got - want).abs() - 4e-5 * shares).max()) <= 0.0, (label, name)
+            for kind in ("forward", "backward"):
+                t = entry[f"{name}, {kind}"] = _in_turns(base[name], calls, kind, 20)
+                print(f"gather {kind} on {name} (N = {case[2].shape[0]}), {label}: package {t['old_queued_ms'][0]:.4f} / "
+                      f"{t['old_queued_ms'][1]:.4f} ms, build {t['new_queued_ms'][0]:.4f} / "
+                      f"{t['new_queued_ms'][1]:.4f} ms (queued; package, build, build, package)")
+        for line in entry["ptxas"]:
+            print("   ", line)
+    return out
+
+
+def gather_skew() -> dict:
+    """The package's row gathers, forward and backward, queued, on the
+    flagship's ``tri_data`` with the reconstruction's spans and as whole
+    rows at N = 262,144 as the rows' distribution is skewed: a share of the
+    lanes on row 0 (as a shadow query's misses are), and every lane on a
+    few rows; the backward's gradient 0 on the lanes of row 0 where they
+    stand for misses, random elsewhere."""
+    from theia_tpu_torch.accel import TRI_COLUMNS
+
+    pack = build_flagship(theia_tpu_torch, icosphere(3), 64, 2, accel="auto", device="cuda").scene.pack
+    table, n = pack.tri_data, chip_smoke.BATCH
+    rng = np.random.default_rng(9)
+    cases = {}
+    for share in (0.0, 0.5, 0.9, 1.0):
+        on_zero = rng.uniform(size=n) < share
+        rows = np.where(on_zero, 0, rng.integers(0, table.shape[0], n))
+        cases[f"{share:.0%} of the lanes on row 0"] = (rows, ~on_zero)
+    for hot in (1, 4, 32, 1280):
+        cases[f"every lane on {hot} rows"] = (rng.integers(0, hot, n), np.ones(n, bool))
+    out = {}
+    for label, (rows, hit) in cases.items():
+        index = torch.as_tensor(rows.astype(np.int32), device="cuda")
+        hit = torch.as_tensor(hit, device="cuda")
+        for columns in (TRI_COLUMNS, None):
+            calls = GatherCalls(_build.library(), table, columns, index, hit)
+            name = f"{label}, {'spans' if columns else 'whole rows'}"
+            out[name] = {kind: chip_smoke.cuda_ms_queued(getattr(calls, kind), 20) for kind in ("forward", "backward")}
+            print(f"gather on {name}: forward {out[name]['forward']:.4f} ms, backward {out[name]['backward']:.4f} ms "
+                  f"(queued)")
     return out
 
 
@@ -640,7 +799,7 @@ def _profiled(label: str, step, plain_seconds: float) -> dict:
     prof = chip_smoke.profile_step(step)
     print(f"{label}: {plain_seconds:.4f} s unprofiled, device busy {prof['device_busy_ms']:.2f} ms, "
           f"{prof['kernels']} kernels and copies")
-    for entry in prof["top"] + prof["own"]:
+    for entry in prof["top"] + prof["own"] + list(prof["kinds"].values()):
         print(f"    {entry['ms']:9.3f} ms  {entry['count']:6d} x  {entry['name'][:100]}")
     return dict(unprofiled_seconds=plain_seconds, **prof)
 
@@ -712,6 +871,10 @@ def main(argv: list[str]) -> int:
         result = baseline_soup(_build.build(Path(argv[2]).resolve(), (), OLD_SOUP_SIGNATURES))
     elif mode == "histogram":
         result = histogram_variants()
+    elif mode == "gather-builds":
+        result = gather_builds()
+    elif mode == "gather-skew":
+        result = gather_skew()
     elif mode == "profile":
         result = profile()
     else:
