@@ -8,7 +8,10 @@ Phases, one line each, any failure raises and exits non-zero:
 1. the card's name and power limit (nvidia-smi), then the kernels' build
    from ``theia_tpu_torch/csrc`` with nvcc (one process per source, run
    together) and its seconds;
-2. each hand-written kernel against its plain PyTorch version at the main
+2. the port's square root on the card (``ops.math3d.sqrt``, CUDA's
+   float32 ``torch.sqrt``) bit for bit against the float64 route that it
+   takes on the CPU, on 2^20 values; then each hand-written kernel
+   against its plain PyTorch version at the main
    paths' shapes (the plain version runs on the inputs moved to the CPU),
    with its time beside the plain version's on the card (CUDA events),
    its bound (the larger of bytes over 3.35 TB/s and operations over 67
@@ -25,7 +28,8 @@ Phases, one line each, any failure raises and exits non-zero:
    the polarized path, which records unfused), replayed
    for the time and the bound that a batch sees. The three nearest-hit
    kernels are also held bit for bit against their
-   plain versions on adversarial rays (through vertices, along edges, in
+   plain versions (on the card on every lane, on the CPU on a seeded
+   eighth of the lanes of N = 262,144) on adversarial rays (through vertices, along edges, in
    a triangle's plane, off a surface) and on the 19 queries of one
    recorded flagship batch, which are replayed for the time and bound
    that a batch sees; the share of pairs that survive the kernels'
@@ -52,8 +56,11 @@ Phases, one line each, any failure raises and exits non-zero:
    that shares stay comparable. The gradient path's kernels: the kernel
    histogram's record and backward (``csrc/kernel_histogram.cu``) at
    524,288 items over 100 bins, with and without a detector axis, odd N,
-   offset views, a state past shared memory, an all-masked record and
-   NaN/inf times; the table reads and their backward
+   offset views, a state past shared memory, an all-masked record,
+   NaN/inf times and the records that the backward's lists of kept lanes
+   single out (``kde_cases``: every lane kept, none, every lane in one
+   bin, a detector axis; each timed queued beside its bound and an empty
+   launch); the table reads and their backward
    (``csrc/table_read.cu``) in every form of every read site at N =
    262,144 with lanes at t = 0 and 1 (``read_cases``: on the flagship
    scene's store the refractive index at t and at the wavelength clipped
@@ -61,7 +68,11 @@ Phases, one line each, any failure raises and exits non-zero:
    the cosine, the four constants tables by the const4 rule; on the
    volume flagship's medium its absorption at t, its log phase function
    at the cosine, its four constants tables at the wavelength and four
-   phase-matrix tables; and a table of 100,000 samples); the hit reconstruction's row
+   phase-matrix tables; and tables of 100,000 and 16,384 samples), each
+   also with every lane at one coordinate (``hot_read_case``) and with
+   upstream gradients on ``READ_LIVE_SHARE`` of the lanes, as the
+   gradient steps' calls mostly see (``hold_read_grad``);
+   the hit reconstruction's row
    gathers and their backward (``gather_rows``) with the reconstruction's
    spans and as whole rows, on the flagship's ``tri_data`` and
    ``inst_data``, on ``tri_data`` with half the lanes missed (row 0, zero
@@ -262,6 +273,33 @@ def empty_launch_ms() -> dict:
     lib, stream = _build.library(), torch.cuda.current_stream().cuda_stream
     launch = lambda: _build.check(lib.theia_empty_launch(stream), "empty_launch")
     return dict(ms=cuda_ms(launch, 200), queued_ms=cuda_ms_queued(launch, 200))
+
+
+def check_sqrt() -> dict:
+    """The port's square root on the card (``ops.math3d.sqrt``, which
+    calls ``torch.sqrt`` there) against the float64 route that it takes on
+    the CPU, bit for bit on 2^20 float32 values: every positive finite
+    float32 bit pattern drawn at random (subnormals included) and values
+    log-uniform over [1e-6, 1e4]. CUDA's float32 sqrt is IEEE, correctly
+    rounded, as XLA's is; so the plain versions, run on the CPU, and the
+    kernels see the same square roots."""
+    import numpy as np
+    import torch
+
+    from theia_tpu_torch.ops.math3d import sqrt
+
+    rng = np.random.default_rng(20)
+    n = 1 << 20
+    bits = rng.integers(1, 0x7F800000, n // 2, dtype=np.int64).astype(np.int32).view(np.float32)
+    logs = np.exp(rng.uniform(np.log(1e-6), np.log(1e4), n - n // 2)).astype(np.float32)
+    x = torch.as_tensor(np.concatenate([bits, logs]), device="cuda")
+    got = sqrt(x)
+    want = torch.sqrt(x.double()).float()
+    torch.cuda.synchronize()
+    differ = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    assert differ == 0, f"CUDA's float32 sqrt differs from the float64 route on {differ} of {n} values"
+    print(f"sqrt: CUDA's float32 torch.sqrt equals the float64 route bit for bit on {n} values")
+    return dict(values=n, differ=differ)
 
 
 def random_rays(n: int, seed: int, device):
@@ -582,6 +620,31 @@ def kde_pairs(case) -> tuple[int, int, int]:
     return int(mask.sum()), int(kept.sum()), int(sum(int(k.sum()) for k, *_ in terms))
 
 
+def kde_cases(n: int) -> dict:
+    """The kernel histogram records that the backward's lists of kept
+    lanes single out, at N = ``n``: every lane kept, none kept, every lane
+    kept in one bin (bin 50 of 100), and a detector axis."""
+    import torch
+
+    every = kde_case(n, 21, kept=1.0)
+    return {
+        "every lane kept": every,
+        "no lane kept": kde_case(n, 22, kept=0.0),
+        "every lane in one bin": (every[0], torch.full_like(every[1], 252.5), *every[2:]),
+        "a detector axis (3), mask 0.5": kde_case(n, 23, n_det=3),
+    }
+
+
+def kde_grad_bound(case) -> dict:
+    """The kernel histogram backward's bound on ``case``: the record's reads
+    (every lane's mask, the unmasked lanes' time and value), g read, two
+    floats a lane and three scalars written; KDE_GRAD_PAIR_FLOP a (lane,
+    bin) pair in range and 4 an unmasked lane."""
+    n, bins = case[1].shape[0], case[6] * (case[9] or 1)
+    unmasked, _, pairs = kde_pairs(case)
+    return bound(n + 8 * unmasked + 4 * bins + 8 * n + 12, KDE_GRAD_PAIR_FLOP * pairs + 4 * unmasked)
+
+
 def hold_kde(case, label) -> dict:
     """The kernel histogram's record and backward on ``case`` against the
     plain versions on the CPU copy of the inputs. Tolerances: the record
@@ -645,6 +708,7 @@ def check_kernel_histogram(add_report, grad_report):
         (f"views at element 1, N={n + 1}", kde_case(n + 1, 7, offset=1)),
         ("views at element 3 with a detector axis", kde_case(100_003, 8, bins=50, n_det=3, offset=3)),
         ("a state past shared memory (64,000 flat bins)", kde_case(100_000, 9, bins=1000, n_det=64)),
+        *kde_cases(n).items(),
     ):
         if label.startswith("a state past"):
             assert case[6] * case[9] > SHARED_STATE_MAX
@@ -667,6 +731,16 @@ def check_kernel_histogram(add_report, grad_report):
           f"{len(errors)} cases and on all-masked and NaN/inf records (unchanged, zero gradients); max abs err at "
           f"N={n}: {worst}")
 
+    # the backward on the cases that its kept-lane lists single out, queued, beside its bound and an empty launch
+    empty = empty_launch_ms()
+    grad_report["cases"] = {}
+    for label, case in kde_cases(n).items():
+        g = torch.randn(case[6] * (case[9] or 1), device="cuda")
+        ms = cuda_ms_queued(lambda: kernel_histogram_grad(g, *case), 50)
+        b = kde_grad_bound(case)
+        grad_report["cases"][label] = dict(queued_ms=ms, queued_share_of_bound=b["bound_ms"] / ms, **b)
+        print(f"kernel kernel_histogram_grad on {label} (N={n}): {ms:.4f} ms queued, bound {b['bound_ms']:.4f} ms by "
+              f"{b['bound_by']}, share {b['bound_ms'] / ms:.3f}; an empty launch {empty['queued_ms']:.4f} ms queued")
     value, time_, mask, t0, bin_size, bandwidth, bins, support, oid, n_det = main
     unmasked, kept, pairs = kde_pairs(main)
     state = torch.zeros(bins, device="cuda")
@@ -693,13 +767,13 @@ def check_kernel_histogram(add_report, grad_report):
     plain_ms = cuda_ms(lambda: kernel_histogram_grad_plain(grad_state, *main), 10)
     select = lambda: torch.index_select(grad_state, 0, flat)
     library_ms = cuda_ms(select, 50)
-    # the add's reads, g read, two floats a lane and three scalars written
-    b = bound(n + 8 * unmasked + 4 * bins + 8 * n + 12, KDE_GRAD_PAIR_FLOP * pairs + 4 * unmasked)
+    b = kde_grad_bound(main)
     print(f"kernel kernel_histogram_grad N={n} bins={bins}: kernel {ms:.4f} ms ({queued_ms:.4f} queued), plain "
           f"{plain_ms:.4f} ms, index_select of the pairs' bins {library_ms:.4f} ms; bound {b['bound_ms']:.4f} ms by "
-          f"{b['bound_by']}, share {b['bound_ms'] / ms:.3f} ({b['bound_ms'] / queued_ms:.3f} queued)")
+          f"{b['bound_by']}, share {b['bound_ms'] / ms:.3f} ({b['bound_ms'] / queued_ms:.3f} queued); an empty "
+          f"launch {empty['queued_ms']:.4f} ms queued")
     grad_report.update(max_abs_err=max(worst["d value"], worst["d time"]), ms=ms, queued_ms=queued_ms,
-                       plain_ms=plain_ms, library_ms=library_ms, scalar_errors=[worst[k] for k in
+                       plain_ms=plain_ms, library_ms=library_ms, empty_launch=empty, scalar_errors=[worst[k] for k in
                        ("d t0", "d binSize", "d bandwidth")], **b)
 
 
@@ -782,6 +856,55 @@ def read_cases(store, medium) -> dict:
     }
 
 
+def hot_read_case(c, t: float = 0.37) -> dict:
+    """Read case ``c`` with every lane at one coordinate: the formed and
+    clipped coordinate ``t`` for all lanes and, for a packed read, every
+    lane on the medium whose first table is the largest, so that each
+    table's gradient takes every lane's shares on the same two entries."""
+    import torch
+
+    args, kw = c["args"], c["kw"]
+    x = args[-2]
+    packed = c["kernel"] == "read_packed"
+    h = 0
+    if packed:
+        sizes = args[1] if isinstance(args[1], tuple) else (args[1],)
+        h = int(torch.argmax(sizes[0]))
+    if c["form"] == "affine":
+        a, b = kw["affine"]
+        value = (t - b) / a
+    elif c["form"] == "wavelength":
+        lo, hi = (float(torch.as_tensor(bound).reshape(-1)[h]) for bound in kw["bounds"])
+        value = lo + t * (hi - lo)
+    else:
+        value = t
+    lanes = torch.full_like(x, value)
+    if packed:
+        args = (args[0], args[1], torch.full_like(args[2], h), lanes, args[-1])
+    else:
+        args = (args[0], lanes, args[-1])
+    return dict(c, args=args)
+
+
+def sized_read_case(c, samples: int, seed: int = 5) -> dict:
+    """Single read case ``c`` on one table of ``samples`` normal values made
+    from ``seed``."""
+    import numpy as np
+    import torch
+
+    table = torch.as_tensor(np.random.default_rng(seed).normal(size=samples).astype(np.float32), device="cuda")
+    return dict(c, args=(table, *c["args"][1:]))
+
+
+def live_grads(g, share: float, gen=None) -> tuple:
+    """Upstream gradients ``g`` (one a table) kept on a random ``share`` of
+    the lanes and zero on the rest, as a tracer's dead lanes leave them."""
+    import torch
+
+    live = torch.rand(g[0].shape, device=g[0].device, generator=gen) < share
+    return tuple(torch.where(live, a, 0.0) for a in g)
+
+
 def _outputs(out) -> tuple:
     return out if isinstance(out, tuple) else (out,)
 
@@ -801,57 +924,85 @@ def read_calls(c, g=None):
             lambda go=gg: getattr(tr, kernel + "_grad_plain")(*grad_args(go), **kw))
 
 
+def hold_read_grad(name, c, label, live: float | None = None) -> float:
+    """Read case ``c``'s backward against its plain version on the same
+    card tensors, for random upstream gradients (nonzero on a ``live``
+    share of the lanes alone, where given):
+    d x bit for bit (the same float32 ops in the same order, the tables'
+    products summed in the same order), each d table within 2e-5 of each
+    entry's sum of absolute shares (the plain version's backward run on
+    |g|: the kernel sums the shares in another order than index_add_'s),
+    NaN where the plain version's is. Returns the max abs error of d
+    tables."""
+    import torch
+
+    _, plain, _, _ = read_calls(c)
+    g = tuple(torch.randn_like(w) for w in _outputs(plain()))
+    if live is not None:
+        g = live_grads(g, live)
+    _, _, grad, grad_plain = read_calls(c, g)
+    got_t, got_x = grad()
+    want_t, want_x = grad_plain()
+    abs_t, _ = grad_plain(tuple(x.abs() for x in g) if len(g) > 1 else g[0].abs())
+    torch.cuda.synchronize()
+    assert same(got_x, want_x), f"{name} backward d x differs from plain on {label}"
+    err = 0.0
+    for k, (a, b, s) in enumerate(zip(_outputs(got_t), _outputs(want_t), _outputs(abs_t))):
+        if b is None:
+            assert a is None, f"{name}: a null table got a gradient"
+            continue
+        assert torch.equal(torch.isnan(a), torch.isnan(b)), f"{name} d table {k} NaNs differ on {label}"
+        finite = torch.isfinite(b)
+        diff = (a - b)[finite].abs()
+        excess = float((diff - 2e-5 * s[finite]).max())
+        assert excess <= 0.0, f"{name} backward d table {k} off by {excess} on {label}"
+        err = max(err, float(diff.max()))
+    return err
+
+
 def hold_table_reads(store, medium) -> dict:
     """The table reads (K2) against their plain versions on the same card
-    tensors (``read_cases``): the forward and the backward's d x bit for
-    bit (the same float32 ops in the same order, the tables' products
-    summed in the same order), and each d table within 2e-5 of each
-    entry's sum of absolute shares (the plain version's backward run on
-    |grad_out|): atomics in shared memory and then in device memory
-    against index_add_'s, each in an order that changes from run to run.
-    Also a table of 100,000 samples, whose gradient takes the variant
-    without shared memory. Returns the cases and, per case, the max abs
-    error of d tables at the main shape."""
-    import numpy as np
+    tensors (``read_cases``): the forward bit for bit, the backward as
+    ``hold_read_grad`` holds it. Also tables of 100,000 samples, whose
+    gradient takes the variant that adds to device memory, and of 16,384
+    samples, and each case with every lane at one coordinate
+    (``hot_read_case``) and with upstream gradients nonzero on
+    ``READ_LIVE_SHARE`` of the lanes. Returns the
+    cases and, per case, the max abs error of d tables at the main shape."""
     import torch
 
     from theia_tpu_torch.ops import table_read as tr
 
     cases = read_cases(store, medium)
-    big = torch.as_tensor(np.random.default_rng(5).normal(size=100_000).astype(np.float32), device="cuda")
-    assert big.numel() > tr.SHARED_TABLE_MAX
     main = cases["read_table"]
-    extra = {"read_table": [("a table of 100,000 samples", dict(main, args=(big, *main["args"][1:])))]}
+    big, band = sized_read_case(main, 100_000), sized_read_case(main, 16_384)
+    assert big["args"][0].numel() > tr.SHARED_TABLE_MAX >= band["args"][0].numel()
+    extra = {"read_table": [("a table of 100,000 samples", big, None), ("a table of 16,384 samples", band, None)]}
     errors = {}
     for name, case in cases.items():
-        for label, c in [("the main path's shape", case)] + extra.get(name, []):
+        for label, c, live in [("the main path's shape", case, None), (HOT, hot_read_case(case), None),
+                               (LIVE, case, READ_LIVE_SHARE)] + extra.get(name, []):
             forward, plain, _, _ = read_calls(c)
             got, want = _outputs(forward()), _outputs(plain())
             torch.cuda.synchronize()
             assert all(same(a, b) for a, b in zip(got, want)), f"{name} forward differs from plain on {label}"
-            g = tuple(torch.randn_like(w) for w in want)
-            _, _, grad, grad_plain = read_calls(c, g)
-            got_t, got_x = grad()
-            want_t, want_x = grad_plain()
-            abs_t, _ = grad_plain(tuple(x.abs() for x in g) if len(g) > 1 else g[0].abs())
-            torch.cuda.synchronize()
-            assert same(got_x, want_x), f"{name} backward d x differs from plain on {label}"
-            err = 0.0
-            for k, (a, b, s) in enumerate(zip(_outputs(got_t), _outputs(want_t), _outputs(abs_t))):
-                if b is None:
-                    assert a is None, f"{name}: a null table got a gradient"
-                    continue
-                assert torch.equal(torch.isnan(a), torch.isnan(b)), f"{name} d table {k} NaNs differ on {label}"
-                finite = torch.isfinite(b)
-                diff = (a - b)[finite].abs()
-                excess = float((diff - 2e-5 * s[finite]).max())
-                assert excess <= 0.0, f"{name} backward d table {k} off by {excess} on {label}"
-                err = max(err, float(diff.max()))
+            err = hold_read_grad(name, c, label, live)
             errors.setdefault(name, err)
             x = c["args"][-2]
             print(f"kernel {name} on {label} ({len(got)} table(s), {x.numel()} lanes): forward bit-equal, d x "
                   f"bit-equal, d tables within 2e-5 of their absolute sums (max abs err {err:.3g})")
     return cases, errors
+
+
+#: the label of a read case with every lane at one coordinate
+HOT = "every lane at one coordinate"
+#: the share of lanes with a nonzero upstream gradient in a read backward's
+#: sparse case. On the gradient steps most calls see few live lanes (the
+#: polarized step's median call 0.5 %, the geometry step's 0.02 %) and a
+#: few see most lanes live (card_measure.py read-grad-live)
+READ_LIVE_SHARE = 0.005
+#: the label of a read case with READ_LIVE_SHARE of the lanes live
+LIVE = f"{READ_LIVE_SHARE:g} of the lanes' upstream gradients nonzero"
 
 
 def same(a, b) -> bool:
@@ -920,6 +1071,25 @@ def grid_sample_read(c):
     return call, live, kept
 
 
+def read_bound(c, backward: bool) -> dict:
+    """The bound of read case ``c``'s forward or backward: each lane's
+    input, handle and outputs (backward: its upstream gradients and d x)
+    once, the tables, their sizes and the wavelength bounds once (backward:
+    and the tables' gradients written); the operations of READ_FLOP /
+    READ_GRAD_FLOP a lane."""
+    import torch
+
+    reader, tables, sizes, bounds, handle, x = _read_reader(c)
+    n, k = x.numel(), len(tables)
+    table_bytes = 4 * sum(tab.numel() for tab in tables if tab is not None)
+    once = table_bytes + (4 * sum(s.numel() for s in sizes) if sizes else 0)
+    once += 0 if bounds is None else 4 * sum(b.numel() for b in bounds if isinstance(b, torch.Tensor))
+    lane_bytes = 4 + (4 if handle is not None else 0)
+    if backward:
+        return bound(n * (lane_bytes + 4 * k + 4) + once + table_bytes, READ_GRAD_FLOP(k, c["form"]) * n)
+    return bound(n * (lane_bytes + 4 * k) + once, READ_FLOP(k, c["form"]) * n)
+
+
 def check_table_read(reports, store, medium):
     """``hold_table_reads``, then each read case's forward and backward
     timed at the main shape as called and queued, beside the plain
@@ -935,6 +1105,7 @@ def check_table_read(reports, store, medium):
     import torch
 
     cases, errors = hold_table_reads(store, medium)
+    empty = empty_launch_ms()
     for name, c in cases.items():
         kernel = c["kernel"]
         report, grad_report = reports[kernel], reports[kernel + "_grad"]
@@ -950,18 +1121,31 @@ def check_table_read(reports, store, medium):
         _, _, grad, grad_plain = read_calls(c, g)
         n, k = x.numel(), len(tables)
         table_bytes = 4 * sum(tab.numel() for tab in tables if tab is not None)
-        once = table_bytes + (4 * sum(s.numel() for s in sizes) if sizes else 0)
-        once += 0 if bounds is None else 4 * sum(b.numel() for b in bounds if isinstance(b, torch.Tensor))
-        lane_bytes = 4 + (4 if handle is not None else 0)
-        for rep, fn, plain_fn, flop, n_bytes in (
-            (report, forward, plain, READ_FLOP(k, c["form"]) * n, n * (lane_bytes + 4 * k) + once),
-            (grad_report, grad, grad_plain, READ_GRAD_FLOP(k, c["form"]) * n,
-             n * (lane_bytes + 4 * k + 4) + once + table_bytes),
+        for rep, fn, plain_fn, b in (
+            (report, forward, plain, read_bound(c, backward=False)),
+            (grad_report, grad, grad_plain, read_bound(c, backward=True)),
         ):
             ms, queued_ms = cuda_ms(fn, 50), cuda_ms_queued(fn, 50)
             plain_ms = cuda_ms(plain_fn, 10)
-            rep.update(ms=ms, queued_ms=queued_ms, plain_ms=plain_ms, **bound(n_bytes, flop))
+            rep.update(ms=ms, queued_ms=queued_ms, plain_ms=plain_ms, empty_launch=empty, **b)
             rep.update(share_of_bound=rep["bound_ms"] / ms, queued_share_of_bound=rep["bound_ms"] / queued_ms)
+        # the backward with every lane at one coordinate: the same bound, every share on two entries a table
+        hot = hot_read_case(c)
+        _, _, hot_grad, _ = read_calls(hot, g)
+        hot_ms = cuda_ms_queued(hot_grad, 50)
+        grad_report[HOT] = dict(queued_ms=hot_ms, queued_share_of_bound=grad_report["bound_ms"] / hot_ms)
+        # and with most upstream gradients zero, as on the gradient steps: the same bound
+        _, _, live_grad, _ = read_calls(c, live_grads(g, READ_LIVE_SHARE))
+        live_ms = cuda_ms_queued(live_grad, 50)
+        grad_report[LIVE] = dict(queued_ms=live_ms, queued_share_of_bound=grad_report["bound_ms"] / live_ms)
+        for label, t in ((HOT, hot_ms), (LIVE, live_ms)):
+            print(f"kernel {name} backward, {label}: {t:.4f} ms queued, bound {grad_report['bound_ms']:.4f} ms, "
+                  f"share {grad_report['bound_ms'] / t:.3f}; an empty launch {empty['queued_ms']:.4f} ms queued")
+        if name == "read_table":
+            band_grad = read_calls(sized_read_case(c, 16_384), g)[2]
+            band_ms = cuda_ms_queued(band_grad, 50)
+            grad_report["a table of 16,384 samples"] = dict(queued_ms=band_ms)
+            print(f"kernel {name} backward on a table of 16,384 samples: {band_ms:.4f} ms queued")
         library, live, kept = grid_sample_read(c)
         lib_out = library().reshape(len(live), -1)
         got = torch.stack([out[j] for j in live])
@@ -977,7 +1161,8 @@ def check_table_read(reports, store, medium):
             print(f"kernel {name} {what} ({c['site']}, {k} table(s), form {c['form']}) N={n}: kernel "
                   f"{rep['ms']:.4f} ms ({rep['queued_ms']:.4f} queued), plain {rep['plain_ms']:.4f} ms, {lib} "
                   f"{rep['library_ms']:.4f} ms; bound {rep['bound_ms']:.4f} ms by {rep['bound_by']}, share "
-                  f"{rep['share_of_bound']:.3f} ({rep['queued_share_of_bound']:.3f} queued)")
+                  f"{rep['share_of_bound']:.3f} ({rep['queued_share_of_bound']:.3f} queued); an empty launch "
+                  f"{empty['queued_ms']:.4f} ms queued")
         print(f"kernel {name}: grid_sample within {lib_err:.3g} of the kernel's largest value where it computes the "
               f"same (the coordinate formed and the nulls selected beforehand, outside its time)")
 
@@ -1308,17 +1493,20 @@ class Nearest:
         tables = (pack,) if self.table is None else (pack, self.table.to(rays[0].device))
         return fn(*tables, *rays, **kw)
 
-    def check(self, rays, label, on_cpu: bool):
+    def check(self, rays, label, on_cpu: bool, lanes=None):
         """Kernel against plain (on the CPU copy of the inputs, or on the
-        card), bit for bit; returns (max |t diff| over hits, hit share)."""
+        card), bit for bit; on the CPU only at ``lanes`` where given (the
+        kernel runs on every lane, and a lane's answer is its own); returns
+        (max |t diff| over hits, hit share)."""
         import torch
 
         got = self.run(self.kernel, self.pack, rays)
         torch.cuda.synchronize()
         pack = self.cpu_pack if on_cpu else self.pack
         if on_cpu:
-            want = self.run(self.plain, pack, [r.cpu() for r in rays])
-            got = [g.cpu() for g in got]
+            at = slice(None) if lanes is None else lanes
+            want = self.run(self.plain, pack, [r[at].cpu() for r in rays])
+            got = [g[at].cpu() for g in got]
         else:
             want = self.run(self.plain, pack, rays)
         for what, g, w in zip(("t", "idx", "rows"), got, want):
@@ -1356,16 +1544,29 @@ def yardstick(b: dict, ms: float, rule: str) -> dict:
 FIRST_SCAN_RULE = "chunk rule, sphere test from the ray's origin (the bounds of the first scans)"
 
 
+def seeded_lanes(n: int, share: int, seed: int):
+    """A seeded eighth (one in ``share``) of ``n`` lanes, sorted, on the
+    card: where a plain version on the CPU checks a kernel's lanes."""
+    import torch
+
+    gen = torch.Generator("cuda").manual_seed(seed)
+    return torch.sort(torch.randperm(n, device="cuda", generator=gen)[: n // share]).values
+
+
 def check_nearest(nearest: Nearest, adversarial, queries, report):
     """A nearest-hit kernel against its plain version, bit-equal t and idx
     (and rows): random rays at N = 262,144 and 524,288 with times and
-    bound, adversarial rays, and the recorded queries of one flagship
-    batch, replayed for the time and bound a batch sees."""
+    bound (the plain version on the card on every lane, and on the CPU on a
+    seeded eighth of the first size's), adversarial rays, and the recorded
+    queries of one flagship batch, replayed for the time and bound a batch
+    sees."""
     name, worst = nearest.name, 0.0
     for n in (BATCH, 2 * BATCH):
         rays = random_rays(n, n + len(name), "cuda")
-        err, hits = nearest.check(rays, f"random rays N={n}", on_cpu=True)
-        nearest.check(rays, f"random rays N={n} (plain on the card)", on_cpu=False)
+        err, hits = nearest.check(rays, f"random rays N={n} (plain on the card)", on_cpu=False)
+        if n == BATCH:
+            nearest.check(rays, f"random rays N={n} (plain on the CPU, an eighth of the lanes)", on_cpu=True,
+                          lanes=seeded_lanes(n, 8, n + len(name)))
         own, yard = nearest.stats(rays), nearest.stats(rays, layout=False)
         worst = max(worst, err)
         ms = cuda_ms(lambda: nearest.run(nearest.kernel, nearest.pack, rays), 20)
@@ -1510,10 +1711,10 @@ class Soup:
         out = fn(*head, *rays, groups=groups, active=active, **kw)
         return (out,) if self.any_hit else out
 
-    def check(self, rays, label, on_cpu: bool, groups=None, active=None, tables=None):
+    def check(self, rays, label, on_cpu: bool, groups=None, active=None, tables=None, lanes=None):
         """Kernel against plain (on the CPU copy of the inputs and the CPU
-        table, or on the card), bit for bit; returns the share of lanes
-        with a hit."""
+        table, at ``lanes`` where given, or on the card), bit for bit;
+        returns the share of lanes with a hit."""
         import torch
 
         card, host = tables or self.tables
@@ -1521,8 +1722,9 @@ class Soup:
         torch.cuda.synchronize()
         table = host if on_cpu else card
         if on_cpu:
-            rays, active = [r.cpu() for r in rays], None if active is None else active.cpu()
-            got = [g.cpu() for g in got]
+            at = slice(None) if lanes is None else lanes
+            rays, active = [r[at].cpu() for r in rays], None if active is None else active[at].cpu()
+            got = [g[at].cpu() for g in got]
         want = self.run(self.plain, table, rays, groups, active)
         for what, g, w in zip(("flag",) if self.any_hit else ("t", "idx", "rows"), got, want):
             assert torch.equal(g, w), f"{self.name}: {what} differs from plain on {label}"
@@ -1576,9 +1778,11 @@ def small_soups(table):
 
 def check_soup(soup: Soup, adversarial, queries, report):
     """A soup kernel against its plain version, bit-equal: random rays at
-    N = 262,144 and 524,288 with times and bound, lane masks, group
-    ranges, bounds at and beside a hit, adversarial rays, small and oddly
-    cut soups, and the recorded queries of one brute-force flagship
+    N = 262,144 and 524,288 with times and bound (the plain version on the
+    card on every lane, and on the CPU on a seeded eighth of the first
+    size's), lane masks, group ranges (on the card), bounds at and beside a
+    hit, small and oddly cut soups (on the CPU, 8,192 rays), adversarial
+    rays, and the recorded queries of one brute-force flagship
     batch, replayed for the time and bound a batch sees. Bounds count the
     work of the table's own layout; the first soup kernels' yardstick
     (``soup_stats`` without ``layout``) is kept beside."""
@@ -1589,8 +1793,10 @@ def check_soup(soup: Soup, adversarial, queries, report):
     name, card = soup.name, soup.tables[0]
     for n in (BATCH, 2 * BATCH):
         rays = random_rays(n, n + len(name), "cuda")
-        hits = soup.check(rays, f"random rays N={n}", on_cpu=(n == BATCH))
-        soup.check(rays, f"random rays N={n} (plain on the card)", on_cpu=False)
+        hits = soup.check(rays, f"random rays N={n} (plain on the card)", on_cpu=False)
+        if n == BATCH:
+            soup.check(rays, f"random rays N={n} (plain on the CPU, an eighth of the lanes)", on_cpu=True,
+                       lanes=seeded_lanes(n, 8, n + len(name)))
         own, yard = soup.stats(card, rays), soup.stats(card, rays, layout=False)
         ms = cuda_ms(lambda: soup.run(soup.kernel, card, rays), 20)
         queued_ms = cuda_ms_queued(lambda: soup.run(soup.kernel, card, rays), 20)
@@ -1620,8 +1826,8 @@ def check_soup(soup: Soup, adversarial, queries, report):
         for groups in (None, [2], [0, 1], [1, 2]):
             soup.check(rays, f"mask {kept}, groups {groups}", on_cpu=False, groups=groups, active=active)
             cases += 1
-    # the plain version runs on the CPU for the rest: an eighth of the rays
-    rays = tuple(r[: BATCH // 8].contiguous() for r in rays)
+    # the plain version runs on the CPU for the rest: a 32nd of the rays
+    rays = tuple(r[: BATCH // 32].contiguous() for r in rays)
     t_hit = nearest_in_table(card, rays[0], rays[1], torch.inf)[0]
     t_hit = torch.where(torch.isfinite(t_hit), t_hit, 3.0)
     for label, t_max in (
@@ -2137,6 +2343,7 @@ def main() -> int:
 
     phase("2")
     # phase 2: kernels against their plain versions at the main path's shapes
+    sqrt_check = check_sqrt()
     mesh = icosphere(3)
     tracer = build_flagship(theia_tpu_torch, mesh, BATCH, MAX_PATH, device="cuda")
     brute_tracer = build_flagship(theia_tpu_torch, mesh, BATCH, MAX_PATH, accel="auto", device="cuda")
@@ -2227,7 +2434,7 @@ def main() -> int:
     shadow_winners = bare.run(bare.kernel, bare.tables[0], shadow[0][:3], shadow[0][3], shadow[0][4])[1]
     for o, d, t_max, groups, active in shadow:
         bare.check((o, d, t_max), "a recorded shadow pair without rows", on_cpu=False, groups=groups, active=active)
-    o, d, t_max, active = (q[: BATCH // 8].contiguous() for q in (*shadow[0][:3], shadow[0][4]))
+    o, d, t_max, active = (q[: BATCH // 32].contiguous() for q in (*shadow[0][:3], shadow[0][4]))
     for n_tri, tables in small_soups(bare.tables[0]):
         bare.check((o, d, t_max), f"a soup of {n_tri} without rows", on_cpu=True, active=active, tables=tables)
     print(f"kernel target_in_table: bit-equal to plain without rows on the {len(shadow)} recorded shadow pairs "
@@ -2698,7 +2905,7 @@ def main() -> int:
         info.update(card_ms=info["ms"], share_of_bound=info["bound_ms"] / info["ms"])
     line = {"kernels": [dict(name=name, **info) for name, info in kernels.items()]}
     (OUT / "chip_smoke.json").write_text(json.dumps(dict(
-        nvidia_smi=smi, build_seconds=lib.build_seconds,
+        nvidia_smi=smi, build_seconds=lib.build_seconds, sqrt=sqrt_check,
         mt_path=dict(seconds_per_batch=seconds, bounces_per_s=BATCH * MAX_PATH / med,
                      peak_bytes=peak, histogram_sums=sums, launches=counts, row_source_turns=turns),
         brute_path=dict(seconds_per_batch=brute_seconds, bounces_per_s=BATCH * MAX_PATH / brute_med,

@@ -345,3 +345,55 @@ def test_gather_rows_kernels(cuda):
     before = gather_rows.launches, gather_rows_grad.launches
     check_gather_rows({}, {}, pack, winners)
     assert gather_rows.launches > before[0] and gather_rows_grad.launches > before[1]
+
+
+#: chip_smoke.read_cases' labels: every form of every read site
+READ_CASES = [
+    "read_packed", "read_packed, fresnel", "read_packed, scatter prob", "read_packed, phase matrix",
+    "read_packed, const4", "read_table", "read_table, phase", "read_table, medium constants",
+    "read_table, phase matrix",
+]
+
+
+@pytest.mark.parametrize("traffic", ["lanes spread", "every lane at one coordinate", "most lanes dead"])
+@pytest.mark.parametrize("name", READ_CASES)
+def test_table_read_backward_kernel(cuda, name, traffic):
+    """The table reads' backward (``read_tables_grad``: a block's shared
+    copy of the tables' gradients) on each
+    read case of ``chip_smoke.read_cases``, with every lane at one
+    coordinate and with upstream gradients nonzero on
+    ``chip_smoke.READ_LIVE_SHARE`` of the lanes, under
+    ``chip_smoke.hold_read_grad``: d x bit-equal to the plain version, the
+    tables' gradients within 2e-5 of their absolute sums; one launch a
+    backward."""
+    import theia_tpu_torch
+    from chip_smoke import HOT, LIVE, READ_LIVE_SHARE, hold_read_grad, hot_read_case, read_cases
+    from theia_tpu_torch.ops import table_read
+    from torch_flagship import build_flagship, build_volume_flagship, icosphere
+
+    store = build_flagship(theia_tpu_torch, icosphere(1), 64, 2, accel="auto", device=cuda).scene.pack.media
+    medium = build_volume_flagship(theia_tpu_torch, 64, cuda).params()["medium"]
+    c = read_cases(store, medium)[name]
+    label, live = {"lanes spread": ("the main path's shape", None), "every lane at one coordinate": (HOT, None),
+                   "most lanes dead": (LIVE, READ_LIVE_SHARE)}[traffic]
+    if label == HOT:
+        c = hot_read_case(c)
+    wrapper = table_read.read_packed_grad if c["kernel"] == "read_packed" else table_read.read_table_grad
+    before = wrapper.launches
+    hold_read_grad(name, c, label, live)
+    assert wrapper.launches == before + 1
+
+
+@pytest.mark.parametrize(
+    "label", ["every lane kept", "no lane kept", "every lane in one bin", "a detector axis (3), mask 0.5"]
+)
+def test_kernel_histogram_backward_on_kept_lane_cases(cuda, label):
+    """The kernel histogram's backward (lists of kept lanes dealt a round
+    at a time) on ``chip_smoke.kde_cases`` against the plain versions,
+    under ``chip_smoke.hold_kde``'s stated tolerances."""
+    from chip_smoke import BATCH, kde_cases, hold_kde
+    from theia_tpu_torch.response import kernel_histogram_grad
+
+    before = kernel_histogram_grad.launches
+    hold_kde(kde_cases(2 * BATCH)[label], label)
+    assert kernel_histogram_grad.launches == before + 1

@@ -95,7 +95,33 @@ def _close(got, want, rtol):
 
 @pytest.mark.parametrize("n,n_det", [(1, None), (7, 3), (1023, None), (4099, 3)])
 def test_record_and_vjp_match_jax(n, n_det):
-    time, value, object_id, mask = _lanes(n, 100 + n, n_det)
+    state, grads = _match_jax(n, n_det, *_lanes(n, 100 + n, n_det))
+    if n > 1:
+        assert np.abs(state).sum() > 0 and np.abs(grads[1]).sum() > 0
+
+
+@pytest.mark.parametrize("case", ["every lane kept", "every lane in one bin", "no lane kept, ids out of range",
+                                  "every lane kept, a detector axis"])
+def test_kept_lane_cases_match_jax(case):
+    """The records that the backward kernel's lists of kept lanes single
+    out: every lane kept, every lane in one bin, none kept (every lane
+    unmasked with an id out of range) and a detector axis."""
+    n = 1024
+    n_det = None if case in ("every lane kept", "every lane in one bin") else 3
+    time, value, object_id, mask = _lanes(n, 200 + len(case), n_det, mask_share=1.0)
+    if case == "every lane in one bin":
+        time[:] = 98.8  # bin 20 of 40, off its centre (99.5)
+    elif case.startswith("no lane"):
+        object_id[:] = np.where(np.arange(n) % 2 == 0, -1, n_det)
+    else:
+        object_id = object_id.clip(0, (n_det or 1) - 1)
+    state, grads = _match_jax(n, n_det, time, value, object_id, mask)
+    assert bool(np.abs(state).sum() > 0) == (not case.startswith("no lane"))
+    if case.startswith("no lane"):
+        assert not any(np.asarray(g).any() for g in grads)
+
+
+def _match_jax(n, n_det, time, value, object_id, mask):
     jr, tr = _responses(n, n_det)
     grad_state = np.random.default_rng(n).normal(size=jr._size()).astype(np.float32)
     want_state, vjp = _jax_record(jr, time, value, object_id, mask)
@@ -106,9 +132,8 @@ def test_record_and_vjp_match_jax(n, n_det):
     _close(grads[1], np.asarray(d_time), 1e-5)
     for got, name in zip(grads[2:], ("t0", "binSize", "bandwidth")):
         _close(got, np.asarray(d_params[name]), 1e-4)
-    if n > 1:
-        assert np.abs(state).sum() > 0 and np.abs(grads[1]).sum() > 0
     assert tresp.kernel_histogram_add.launches == tresp.kernel_histogram_grad.launches == 0
+    return state, grads
 
 
 def test_all_masked_record_is_zero():

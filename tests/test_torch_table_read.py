@@ -135,6 +135,45 @@ def test_read_packed_matches_jax(lengths, width):
         assert bool(leaf_v.grad[m, 1].any()) == (n > 0)
 
 
+@pytest.mark.parametrize("read", ["lookup", "lookup_packed", "packed_medium_constants"])
+def test_every_lane_at_one_coordinate_matches_jax(read):
+    """Every lane reads one coordinate (and one medium): each table's
+    gradient takes all the lanes' shares on the same two entries, the case
+    that the backward kernel's warps merge before they add."""
+    rng = np.random.default_rng(7)
+    n = 2048
+    ct = rng.normal(size=n).astype(np.float32)
+    if read == "lookup":
+        table = rng.normal(size=1024).astype(np.float32)
+        u = np.full(n, 0.37, np.float32)
+        want, vjp = jax.vjp(lambda tab, uu: jlookup.lookup(tab, uu), jnp.asarray(table), jnp.asarray(u))
+        leaves = [torch.tensor(table, requires_grad=True), torch.tensor(u, requires_grad=True)]
+        got = tlookup.lookup(*leaves)
+    elif read == "lookup_packed":
+        values, sizes = _packed(rng, (0, 64, 17), 64)
+        t, handle = np.full(n, 0.37, np.float32), np.ones(n, np.int32)
+        jfn = lambda v, tt: jmat.lookup_packed(v, jnp.asarray(sizes), jnp.asarray(handle), tt, 0.25)
+        want, vjp = jax.vjp(jfn, jnp.asarray(values), jnp.asarray(t))
+        leaves = [torch.tensor(values, requires_grad=True), torch.tensor(t, requires_grad=True)]
+        got = tmat.lookup_packed(leaves[0], torch.tensor(sizes), torch.tensor(handle), leaves[1], 0.25)
+    else:
+        store_j = jmat.MediumStore.pack(_media(jmat, np.random.default_rng(3)))
+        store_t = tmat.MediumStore.pack(_media(tmat, np.random.default_rng(3)), device="cpu")
+        lam, handle = np.full(n, 450.0, np.float32), np.ones(n, np.int32)
+        jfn = lambda tab, wl: jmat.packed_medium_constants(
+            dataclasses.replace(store_j, tables={**store_j.tables, "refractive_index": tab}), jnp.asarray(handle), wl).n
+        want, vjp = jax.vjp(jfn, store_j.tables["refractive_index"], jnp.asarray(lam))
+        leaves = [store_t.tables["refractive_index"].clone().requires_grad_(True), torch.tensor(lam, requires_grad=True)]
+        store = dataclasses.replace(store_t, tables={**store_t.tables, "refractive_index": leaves[0]})
+        got = tmat.packed_medium_constants(store, torch.tensor(handle), leaves[1]).n
+    want_table, want_x = (np.asarray(a) for a in vjp(jnp.asarray(ct)))
+    np.testing.assert_array_equal(got.detach().numpy(), np.asarray(want))
+    got.backward(torch.tensor(ct))
+    _close(leaves[1].grad.numpy(), want_x, 1e-6)
+    _close(leaves[0].grad.numpy(), want_table, 1e-5)
+    assert np.count_nonzero(want_table) == 2
+
+
 def _media(pkg, rng):
     """Three media whose four constants tables are each 64 samples, 2
     samples with two of them null, and 1024 samples: ``const4_ok``."""

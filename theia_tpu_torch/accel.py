@@ -41,7 +41,7 @@ import torch
 from .ops.intersect_mt import nearest_triangle_mt, nearest_triangle_mt_rows
 from .ops.intersect_soup import anyhit_in_table, nearest_in_table, nearest_in_table_rows, target_in_table
 from .ops.intersect_woop import nearest_triangle_woop
-from .ops.math3d import cross, dot, matvec, moeller_trumbore_rowwise, normalize, sign_bit, vec3
+from .ops.math3d import cross, dot, matvec, moeller_trumbore_rowwise, normalize, sign_bit, sqrt, vec3
 from .ops.table_read import gather_rows
 from .scene import ScenePack
 from .trace.core import EventResultCode
@@ -317,7 +317,7 @@ def is_visible(pack: ScenePack, observer: torch.Tensor, target: torch.Tensor, *,
     """True where observer and target see each other
     (reference: scene.intersect.glsl:104-124)."""
     d = (target - observer).detach()
-    dist = torch.sqrt(torch.clamp_min(dot(d, d), 1e-30))
+    dist = sqrt(torch.clamp_min(dot(d, d), 1e-30))
     direction = d / dist[:, None]
     if pack.soup is not None:
         return ~anyhit_culled(pack, observer, direction, dist)

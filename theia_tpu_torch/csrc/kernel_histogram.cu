@@ -31,13 +31,21 @@
 // adds each bin whose sum is not zero to the state with one global atomic;
 // states above kSharedMaxFloats add straight to the state. The backward
 // stages the state's gradient in shared memory once a block (a few hundred
-// floats on the port's paths; read from device memory above
-// kSharedMaxFloats), writes a lane's two gradients without atomics, and
+// floats on the port's paths; read from device memory past
+// kGradStageMaxFloats), writes a lane's two gradients without atomics, and
 // sums the three scalars over the block (warp shuffles, then one warp)
-// into one atomic a block each. The arithmetic repeats the plain versions'
-// float32 ops in their order (built with -fmad=false); atomics make the
-// order of the state's and the scalars' sums change from run to run, so
-// they agree with the plain versions' sequential sums to float32 rounding.
+// into one atomic a block each. A warp that ran each of its lanes' nine
+// bins in the thread that read the lane would run the bin loop whenever one
+// of its lanes was kept, and a tracer keeps a share of its lanes; so a
+// block lists its kept lanes in shared memory and deals them a round of
+// threads at a time (PERF.md section 6 has the measurements), and the three
+// gradient terms divided by h take a reciprocal of h
+// taken once a thread (an ulp apart from the divisions; z itself is still
+// divided, as the record divides it). The arithmetic otherwise repeats the
+// plain versions' float32 ops in their order (built with -fmad=false);
+// atomics make the order of the state's and the scalars' sums change from
+// run to run, so they agree with the plain versions' sequential sums to
+// float32 rounding.
 
 #include <cuda_runtime.h>
 
@@ -75,19 +83,35 @@ __device__ __forceinline__ Params params(const Lanes& in) {
   return Params{__ldg(in.t0), __ldg(in.bin_size), __ldg(in.bandwidth)};
 }
 
-// whether lane i is kept; then its time, base bin (as a float) and the
-// flat offset of its detector's histogram
-__device__ __forceinline__ bool kept(const Lanes& in, int i, const Params& p,
-                                     float* t, float* base, int* offset) {
-  if (!in.mask[i]) return false;
-  *t = in.time[i];
-  const float center = __fdiv_rn(*t - p.t0, p.bin_size);
+// a lane's inputs (the backward reads them a round ahead): time and value
+// only where unmasked
+struct LaneIn {
+  bool mask;
+  float t, value;
+  int id;
+};
+
+__device__ __forceinline__ LaneIn lane_in(const Lanes& in, long long i) {
+  LaneIn a{false, 0.0f, 0.0f, 0};
+  if (i >= in.n || !in.mask[i]) return a;
+  a.mask = true;
+  a.t = in.time[i];
+  a.value = in.value[i];
+  if (in.n_det > 0) a.id = in.object_id[i];
+  return a;
+}
+
+// whether the lane of inputs `a` is kept; then its base bin (as a float)
+// and the flat offset of its detector's histogram
+__device__ __forceinline__ bool kept(const Lanes& in, const LaneIn& a, const Params& p, float* base,
+                                     int* offset) {
+  if (!a.mask) return false;
+  const float center = __fdiv_rn(a.t - p.t0, p.bin_size);
   if (!isfinite(center)) return false;
   *offset = 0;
   if (in.n_det > 0) {
-    const int d = in.object_id[i];
-    if (d < 0 || d >= in.n_det) return false;
-    *offset = d * in.n_bins;
+    if (a.id < 0 || a.id >= in.n_det) return false;
+    *offset = a.id * in.n_bins;
   }
   *base = floorf(center);
   return true;
@@ -117,10 +141,11 @@ __global__ void __launch_bounds__(kThreads)
   const float norm = __fdiv_rn(p.bin_size, p.h * kSqrt2Pi);
   const int stride = gridDim.x * kThreads;
   for (int i = blockIdx.x * kThreads + threadIdx.x; i < in.n; i += stride) {
-    float t, base;
+    const LaneIn a = lane_in(in, i);
+    float base;
     int offset;
-    if (!kept(in, i, p, &t, &base, &offset)) continue;
-    const float v = in.value[i];
+    if (!kept(in, a, p, &base, &offset)) continue;
+    const float t = a.t, v = a.value;
     for (int o = -in.support; o <= in.support; ++o) {
       const float bf = base + static_cast<float>(o);
       if (!in_range(bf, in.n_bins)) continue;
@@ -146,61 +171,135 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// the backward: blocks of kGradThreads, kGradBlocksPerSm an SM; a block's
+// list of kept lanes holds two rounds of lanes
+constexpr int kGradThreads = 256;
+constexpr int kGradBlocksPerSm = 4;
+constexpr int kQueue = 2 * kGradThreads;
+
+struct Queue {
+  int lane[kQueue], offset[kQueue];
+  float t[kQueue], base[kQueue], value[kQueue];
+};
+
+// the largest state the backward stages beside its list, in flat bins
+constexpr int kGradStageMaxFloats = (kSmemPerSm - static_cast<int>(sizeof(Queue)) - 1024) / 4;
+
+// A kept lane's bins, in the plain version's order: its two gradients
+// written, its terms of the three scalars added to the thread's sums. The
+// three gradient terms divided by h are taken as products by rh = 1 / h.
+__device__ __forceinline__ void kde_lane(const Lanes& in, const float* g_state, const Params& p, float inv,
+                                         float norm, float rh, int i, float t, float base, float v,
+                                         int offset, float* __restrict__ grad_value,
+                                         float* __restrict__ grad_time, float* sums) {
+  float dv = 0.0f, dt = 0.0f, dbs = 0.0f, dh = 0.0f;
+  for (int o = -in.support; o <= in.support; ++o) {
+    const float bf = base + static_cast<float>(o);
+    if (!in_range(bf, in.n_bins)) continue;
+    const float g = g_state[offset + static_cast<int>(bf)];
+    const float z = z_of(p, bf, t);
+    const float e = expf(-0.5f * (z * z));
+    const float w = e * norm;
+    const float gv = g * v;
+    dv = dv + g * w;
+    dt = dt + gv * w * z * rh;
+    dbs = dbs + gv * (e * inv - w * z * (bf + 0.5f) * rh);
+    dh = dh + gv * w * (z * z - 1.0f) * rh;
+  }
+  if (grad_value != nullptr) grad_value[i] = dv;
+  if (grad_time != nullptr) grad_time[i] = dt;
+  sums[0] += dt, sums[1] += dbs, sums[2] += dh;
+}
+
+// The backward. A block takes kGradThreads lanes a round (the next round's
+// inputs read before this one's work), writes the dropped lanes' zero
+// gradients at once, and appends its kept lanes to a list in shared
+// memory (a ballot a warp, the warps' counts summed in warp order); each
+// time the list holds a round's worth, every thread takes one of them and
+// runs its nine bins, so no thread idles through a bin loop beside a kept
+// neighbour. What is left at the end is dealt once more, to the first
+// threads.
 template <bool kStage>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kGradThreads)
     kde_grad(Lanes in, const float* __restrict__ grad_state, int n_state,
              float* __restrict__ grad_value, float* __restrict__ grad_time,
              float* __restrict__ grad_params) {
   extern __shared__ float staged[];
-  __shared__ float partial[kThreads / 32][3];
+  __shared__ Queue q;
+  __shared__ int counts[kGradThreads / 32];
+  __shared__ float partial[kGradThreads / 32][3];
   const float* g_state = grad_state;
   if (kStage) {
-    for (int k = threadIdx.x; k < n_state; k += kThreads) staged[k] = grad_state[k];
-    __syncthreads();
+    for (int k = threadIdx.x; k < n_state; k += kGradThreads) staged[k] = grad_state[k];
     g_state = staged;
   }
   const Params p = params(in);
   const float inv = __fdiv_rn(1.0f, p.h * kSqrt2Pi);
   const float norm = p.bin_size * inv;
-  float sum_t = 0.0f, sum_bs = 0.0f, sum_h = 0.0f;
-  const int stride = gridDim.x * kThreads;
-  for (int i = blockIdx.x * kThreads + threadIdx.x; i < in.n; i += stride) {
-    float dv = 0.0f, dt = 0.0f, dbs = 0.0f, dh = 0.0f;
-    float t, base;
-    int offset;
-    if (kept(in, i, p, &t, &base, &offset)) {
-      const float v = in.value[i];
-      for (int o = -in.support; o <= in.support; ++o) {
-        const float bf = base + static_cast<float>(o);
-        if (!in_range(bf, in.n_bins)) continue;
-        const float g = g_state[offset + static_cast<int>(bf)];
-        const float z = z_of(p, bf, t);
-        const float e = expf(-0.5f * (z * z));
-        const float w = e * norm;
-        const float gv = g * v;
-        dv = dv + g * w;
-        dt = dt + __fdiv_rn(gv * w * z, p.h);
-        dbs = dbs + gv * (e * inv - __fdiv_rn(w * z * (bf + 0.5f), p.h));
-        dh = dh + __fdiv_rn(gv * w * (z * z - 1.0f), p.h);
-      }
+  const float rh = __fdiv_rn(1.0f, p.h);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  float sums[3] = {0.0f, 0.0f, 0.0f};
+  int queued = 0;  // the same in every thread of the block
+  const long long step = static_cast<long long>(gridDim.x) * kGradThreads;
+  long long i = static_cast<long long>(blockIdx.x) * kGradThreads + threadIdx.x;
+  LaneIn next = lane_in(in, i);
+  for (; i - threadIdx.x < in.n; i += step) {
+    const LaneIn a = next;
+    next = lane_in(in, i + step);
+    float base = 0.0f;
+    int offset = 0;
+    const bool ok = kept(in, a, p, &base, &offset);
+    if (i < in.n && !ok) {
+      if (grad_value != nullptr) grad_value[i] = 0.0f;
+      if (grad_time != nullptr) grad_time[i] = 0.0f;
     }
-    if (grad_value != nullptr) grad_value[i] = dv;
-    if (grad_time != nullptr) grad_time[i] = dt;
-    sum_t += dt, sum_bs += dbs, sum_h += dh;
+    const unsigned ballot = __ballot_sync(0xffffffffu, ok);
+    if (lane == 0) counts[warp] = __popc(ballot);
+    __syncthreads();  // also orders the staged state before the first reads
+    int at = queued, added = 0;
+#pragma unroll
+    for (int w = 0; w < kGradThreads / 32; ++w) {
+      at += w < warp ? counts[w] : 0;
+      added += counts[w];
+    }
+    if (ok) {
+      at += __popc(ballot & ((1u << lane) - 1u));
+      q.lane[at] = static_cast<int>(i), q.offset[at] = offset;
+      q.t[at] = a.t, q.base[at] = base, q.value[at] = a.value;
+    }
+    queued += added;
+    __syncthreads();
+    if (queued >= kGradThreads) {
+      const int k = threadIdx.x;
+      kde_lane(in, g_state, p, inv, norm, rh, q.lane[k], q.t[k], q.base[k], q.value[k], q.offset[k],
+               grad_value, grad_time, sums);
+      queued -= kGradThreads;
+      __syncthreads();
+      if (k < queued) {
+        q.lane[k] = q.lane[k + kGradThreads], q.offset[k] = q.offset[k + kGradThreads];
+        q.t[k] = q.t[k + kGradThreads], q.base[k] = q.base[k + kGradThreads];
+        q.value[k] = q.value[k + kGradThreads];
+      }
+      __syncthreads();
+    }
+  }
+  if (threadIdx.x < queued) {
+    const int k = threadIdx.x;
+    kde_lane(in, g_state, p, inv, norm, rh, q.lane[k], q.t[k], q.base[k], q.value[k], q.offset[k],
+             grad_value, grad_time, sums);
   }
   if (grad_params == nullptr) return;
   // every thread of the block arrives here
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  sum_t = warp_sum(sum_t), sum_bs = warp_sum(sum_bs), sum_h = warp_sum(sum_h);
+  sums[0] = warp_sum(sums[0]), sums[1] = warp_sum(sums[1]), sums[2] = warp_sum(sums[2]);
   if (lane == 0) {
-    partial[warp][0] = sum_t, partial[warp][1] = sum_bs, partial[warp][2] = sum_h;
+    partial[warp][0] = sums[0], partial[warp][1] = sums[1], partial[warp][2] = sums[2];
   }
   __syncthreads();
   if (warp == 0) {
     float s[3];
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
-      s[k] = warp_sum(lane < kThreads / 32 ? partial[lane][k] : 0.0f);
+      s[k] = warp_sum(lane < kGradThreads / 32 ? partial[lane][k] : 0.0f);
     }
     if (lane == 0) {
       atomicAdd(grad_params + 0, -s[0]);  // d t0 = - sum of d t
@@ -210,14 +309,14 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-int grid_size(int n, int per_sm, cudaError_t* err) {
+int grid_size(int n, int threads, int per_sm, cudaError_t* err) {
   int device = 0, sms = 0;
   *err = cudaGetDevice(&device);
   if (*err == cudaSuccess) {
     *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   }
   if (*err != cudaSuccess) return 0;
-  const long long want = (static_cast<long long>(n) + kThreads - 1) / kThreads;
+  const long long want = (static_cast<long long>(n) + threads - 1) / threads;
   const long long most = static_cast<long long>(sms) * per_sm;
   return static_cast<int>(want < most ? want : most);
 }
@@ -251,11 +350,11 @@ extern "C" int theia_kde_add(const float* value, const float* time,
     const int bytes = static_cast<int>(n_state * sizeof(float));
     const int per_sm = shared_blocks(kde_add<true>, bytes, &err);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const int grid = grid_size(n, per_sm, &err);
+    const int grid = grid_size(n, kThreads, per_sm, &err);
     if (err != cudaSuccess) return static_cast<int>(err);
     kde_add<true><<<grid, kThreads, bytes, stream>>>(in, static_cast<int>(n_state), state);
   } else {
-    const int grid = grid_size(n, kBlocksPerSm, &err);
+    const int grid = grid_size(n, kThreads, kBlocksPerSm, &err);
     if (err != cudaSuccess) return static_cast<int>(err);
     kde_add<false><<<grid, kThreads, 0, stream>>>(in, static_cast<int>(n_state), state);
   }
@@ -274,18 +373,21 @@ extern "C" int theia_kde_grad(const float* grad_state, const float* value,
                  n, n_bins, n_det, support};
   const long long n_state = in.state_size();
   cudaError_t err = cudaSuccess;
-  if (n_state <= kSharedMaxFloats) {
+  if (n_state <= kGradStageMaxFloats) {
     const int bytes = static_cast<int>(n_state * sizeof(float));
-    const int per_sm = shared_blocks(kde_grad<true>, bytes, &err);
+    if (bytes + static_cast<int>(sizeof(Queue)) > 48 * 1024) {
+      err = cudaFuncSetAttribute(kde_grad<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    const int fit = kSmemPerSm / (bytes + static_cast<int>(sizeof(Queue)) + 1024);
+    const int grid = grid_size(n, kGradThreads, fit < kGradBlocksPerSm ? (fit < 1 ? 1 : fit) : kGradBlocksPerSm, &err);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const int grid = grid_size(n, per_sm, &err);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kde_grad<true><<<grid, kThreads, bytes, stream>>>(
+    kde_grad<true><<<grid, kGradThreads, bytes, stream>>>(
         in, grad_state, static_cast<int>(n_state), grad_value, grad_time, grad_params);
   } else {
-    const int grid = grid_size(n, kBlocksPerSm, &err);
+    const int grid = grid_size(n, kGradThreads, kGradBlocksPerSm, &err);
     if (err != cudaSuccess) return static_cast<int>(err);
-    kde_grad<false><<<grid, kThreads, 0, stream>>>(
+    kde_grad<false><<<grid, kGradThreads, 0, stream>>>(
         in, grad_state, static_cast<int>(n_state), grad_value, grad_time, grad_params);
   }
   return static_cast<int>(cudaGetLastError());

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from .math3d import sqrt
 
 __all__ = [
     "MTPack",
@@ -528,7 +529,7 @@ def sphere_miss_plain(aos, sub_box, o, d, guard, fused: bool = True):
         q = _fma(w2, ddk, -(p * p), fused)
         det = _fma(dz, n2, _fma(dy, n1, dx * n0, fused), fused)
         g = guard(a, wx.abs() + wy.abs() + wz.abs() + sigma, kd, ko)
-        rad = r2.sqrt() + delta
+        rad = sqrt(r2) + delta
         out.append((q > rad * rad * dd) & (det.abs() > g))
     return torch.cat(out, dim=1)
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 __all__ = [
+    "sqrt",
     "vec3",
     "dot",
     "cross",
@@ -26,6 +27,45 @@ __all__ = [
     "matvec",
     "moeller_trumbore_rowwise",
 ]
+
+
+def _sqrt_value(x: torch.Tensor) -> torch.Tensor:
+    if x.dtype == torch.float32 and x.device.type == "cpu":
+        # torch's CPU float32 sqrt is not correctly rounded (1 ulp off on
+        # some inputs); through float64 it is: rounding a correctly rounded
+        # 53-bit sqrt to 24 bits gives the correctly rounded 24-bit one
+        return torch.sqrt(x.double()).float()
+    return torch.sqrt(x)
+
+
+#: JAX's sqrt JVP divides this by the root; a 0-d CPU tensor, so that the
+#: division is one kernel on any device (``0.5 / ans`` would take a
+#: reciprocal and a product)
+_HALF = torch.tensor(0.5)
+
+
+class _Sqrt(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ans = _sqrt_value(x)
+        ctx.save_for_backward(ans)
+        return ans
+
+    @staticmethod
+    def backward(ctx, g):
+        (ans,) = ctx.saved_tensors
+        return g * torch.div(_HALF.to(ans.dtype), ans)
+
+
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded square root, as XLA's: on CPU float32 tensors
+    through float64, on the card ``torch.sqrt`` (CUDA's IEEE sqrt). Its
+    gradient is JAX's, ``g * (0.5 / sqrt(x))`` in the input's type. Every
+    square root of the port's lanes goes through here, never
+    ``torch.sqrt``."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Sqrt.apply(x)
+    return _sqrt_value(x)
 
 
 def vec3(x, y, z) -> torch.Tensor:
@@ -47,7 +87,7 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def norm(a: torch.Tensor) -> torch.Tensor:
     # the eps floor keeps norm/normalize finite on zero vectors (masked
     # dead lanes); 1e-30 is a normal float32
-    return torch.sqrt(torch.clamp_min(dot(a, a), 1e-30))
+    return sqrt(torch.clamp_min(dot(a, a), 1e-30))
 
 
 def normalize(a: torch.Tensor) -> torch.Tensor:
@@ -107,7 +147,7 @@ def intersect_sphere(center, radius, origin: torch.Tensor, direction: torch.Tens
     fd = f - b2[..., None] * direction
     discr = r2 - dot(fd, fd)
     c = dot(f, f) - r2
-    q = -b2 - sign_bit(b2) * torch.sqrt(torch.clamp_min(discr, 0.0))
+    q = -b2 - sign_bit(b2) * sqrt(torch.clamp_min(discr, 0.0))
     t1 = c / q
     t_near = torch.minimum(t1, q)
     t_far = torch.maximum(t1, q)

@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import torch
 
-from .math3d import local_frame, normalize, vec3
+from .math3d import local_frame, normalize, sqrt, vec3
 
 __all__ = [
     "spherical_to_cartesian",
@@ -26,7 +26,7 @@ PI_OVER_FOUR = 0.7853981633974483096
 
 def spherical_to_cartesian(phi, cos_theta) -> torch.Tensor:
     """Note the reference's (sin, cos) convention: x = sinθ·sinφ, y = sinθ·cosφ."""
-    sin_theta = torch.sqrt(torch.clamp_min(1.0 - cos_theta * cos_theta, 0.0))
+    sin_theta = sqrt(torch.clamp_min(1.0 - cos_theta * cos_theta, 0.0))
     return vec3(sin_theta * torch.sin(phi), sin_theta * torch.cos(phi), cos_theta)
 
 
@@ -63,7 +63,7 @@ def scatter_dir(prev_dir: torch.Tensor, cos_theta, phi) -> torch.Tensor:
     The local direction uses the (cos, sin) convention here, unlike
     :func:`spherical_to_cartesian` — matching the reference."""
     prev_dir = normalize(prev_dir)
-    sin_theta = torch.sqrt(torch.clamp_min(1.0 - cos_theta * cos_theta, 0.0))
+    sin_theta = sqrt(torch.clamp_min(1.0 - cos_theta * cos_theta, 0.0))
     local = normalize(
         vec3(sin_theta * torch.cos(phi), sin_theta * torch.sin(phi), cos_theta)
     )

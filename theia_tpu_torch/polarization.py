@@ -18,7 +18,7 @@ import torch
 
 from .lookup import as_table
 from .material import Medium
-from .ops.math3d import cross, dot
+from .ops.math3d import cross, dot, sqrt
 from .ops.table_read import PHASE, read_table
 
 __all__ = [
@@ -71,7 +71,7 @@ def rotate_pol_ref(direction, ref, new_direction):
     Returns (new_ref, c, s); degenerate (parallel) case keeps the old
     frame with the identity rotation."""
     new_ref = cross(direction, new_direction)
-    length = torch.sqrt(torch.clamp_min(dot(new_ref, new_ref), 1e-30))
+    length = sqrt(torch.clamp_min(dot(new_ref, new_ref), 1e-30))
     degenerate = length <= 1.0e-7
     safe_ref = new_ref / length[..., None]
     new_ref = torch.where(degenerate[..., None], ref, safe_ref)

@@ -20,7 +20,7 @@ import torch
 
 from . import units as u
 from .component import Component
-from .ops.math3d import distance, dot, intersect_sphere, local_frame, matvec, normalize, sign_bit, vec3
+from .ops.math3d import distance, dot, intersect_sphere, local_frame, matvec, normalize, sign_bit, sqrt, vec3
 from .ops.sampling import sample_direction_cone, sample_unit_disk, sample_unit_sphere
 from .random import RNGState
 
@@ -393,7 +393,7 @@ def _sqrt_positive(x: torch.Tensor) -> torch.Tensor:
     position) and d/d(detector position) NaN
     (tests/test_torch_grad_geometry.py holds both)."""
     positive = x > 0.0
-    return torch.where(positive, torch.sqrt(torch.where(positive, x, 1.0)), 0.0)
+    return torch.where(positive, sqrt(torch.where(positive, x, 1.0)), 0.0)
 
 
 class SphereTargetGuide(TargetGuide):

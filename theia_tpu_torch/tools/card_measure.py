@@ -9,6 +9,9 @@
     python3 -m theia_tpu_torch.tools.card_measure histogram
     python3 -m theia_tpu_torch.tools.card_measure gather-builds
     python3 -m theia_tpu_torch.tools.card_measure gather-skew
+    python3 -m theia_tpu_torch.tools.card_measure read-grad-builds [DIR]
+    python3 -m theia_tpu_torch.tools.card_measure read-grad-live
+    python3 -m theia_tpu_torch.tools.card_measure kde-builds [DIR]
     python3 -m theia_tpu_torch.tools.card_measure profile
 
 ``tiles`` builds the scan of ``csrc/nearest_scan.cuh`` with 256 and 512
@@ -81,6 +84,26 @@ and backward, queued.
 ``gather-skew`` times the package's row gathers on ``tri_data`` with
 a share of the lanes on row 0 (0 to 100 %) and with every lane on 1 to
 1280 rows, with the reconstruction's spans and as whole rows.
+
+``read-grad-builds [DIR]`` times the table reads' backward, queued, at
+``chip_smoke.py``'s four read cases (packed at t, the const4 rule, single
+at t, four single tables at the wavelength), with every lane at one
+coordinate, with 30 %, 10 % and 0.5 % of the lanes' upstream gradients
+nonzero (``READ_GRAD_LIVE``) and on a table of 16,384 samples, with the
+tables' gradients and with d x alone: with ``DIR`` (an earlier commit's
+``csrc``, e.g. the parent's from ``git archive``) first that commit's
+kernels in turns with the package's, then measurement builds of the
+package's design (``READ_GRAD_BUILDS``: patches of ``csrc/table_read.cu``
+in a copy, chosen by a line of the design's source) in turns with it.
+
+``read-grad-live`` counts, in each table-read backward of one step of
+each gradient path that ``profile`` traces, the lanes whose upstream
+gradient is not zero: the traffic that the backward sees on those paths.
+
+``kde-builds [DIR]`` does the same for the kernel histogram's backward
+(``KDE_BUILDS``, patches of ``csrc/kernel_histogram.cu``) at N = 524,288
+with 10 %, 50 % and 100 % of the lanes unmasked, every lane in one bin,
+and a detector axis.
 
 ``profile`` traces one batch of the ``mt`` flagship, one of the
 brute-force flagship (``accel="auto"``) and one of the polarized ``woop``
@@ -514,22 +537,23 @@ SOUP_BUILDS = {
 }
 
 
-def patched_build(label: str, patches, source: str = "nearest_scan.cuh"):
-    """The package's kernels built from a copy of ``csrc`` in the build
-    directory with ``patches`` ((text, replacement) pairs of ``source``,
-    each text found once) made."""
+def patched_build(label: str, patches, source: str = "nearest_scan.cuh", csrc: Path = _build.CSRC,
+                  signatures: tuple | None = None):
+    """The kernels of ``csrc`` (the package's by default) built from a copy
+    in the build directory with ``patches`` ((text, replacement) pairs of
+    ``source``, each text found once) made."""
     import shutil
 
-    copy = _build.BUILD_DIR / "patched" / label.replace(" ", "-")
+    copy = _build.BUILD_DIR / "patched" / label.replace(" ", "-").replace("(", "").replace(")", "")
     shutil.rmtree(copy, ignore_errors=True)
-    shutil.copytree(_build.CSRC, copy)
+    shutil.copytree(csrc, copy)
     path = copy / source
     text = path.read_text()
     for old, new in patches:
         assert text.count(old) == 1, f"{label}: {old!r} is not in {source} once"
         text = text.replace(old, new)
     path.write_text(text)
-    return _build.build(copy, (), tuple(_build._SIGNATURES.items()))
+    return _build.build(copy, (), signatures or tuple(_build._SIGNATURES.items()))
 
 
 def _scan_ptxas(log: str) -> list:
@@ -641,16 +665,6 @@ class GatherCalls:
         return self.grad
 
 
-def _gather_ptxas(log: str) -> list:
-    """ptxas's registers, spills and shared memory of each gather kernel."""
-    lines, out = log.splitlines(), []
-    for i, line in enumerate(lines):
-        if "Compiling entry function" in line and "gather_rows" in line:
-            tail = [x.strip() for x in lines[i + 1 : i + 4] if "bytes" in x or "registers" in x]
-            out.append(line.split("gather_rows")[1][:24] + ": " + "; ".join(tail))
-    return out
-
-
 def gather_builds() -> dict:
     """The row gathers of each build of ``GATHER_BUILDS`` in turns with the
     package's (package, build, build, package) on ``chip_smoke``'s gather
@@ -668,12 +682,12 @@ def gather_builds() -> dict:
 
     cases = chip_smoke.gather_cases(pack, winners)
     base = {label: GatherCalls(_build.library(), *case) for label, case in cases.items()}
-    out = {"package": dict(ptxas=_gather_ptxas(_build.library().build_log))}
+    out = {"package": dict(ptxas=_kernel_ptxas(_build.library().build_log, "gather_rows"))}
     for line in out["package"]["ptxas"]:
         print("    package:", line)
     for label, patches in GATHER_BUILDS.items():
         lib = patched_build(label, patches, "table_read.cu")
-        entry = out[label] = dict(patches=patches, ptxas=_gather_ptxas(lib.build_log))
+        entry = out[label] = dict(patches=patches, ptxas=_kernel_ptxas(lib.build_log, "gather_rows"))
         for name, case in cases.items():
             calls = GatherCalls(lib, *case)
             assert all(torch.equal(a, b) for a, b in zip(base[name].forward(), calls.forward())), (label, name)
@@ -722,6 +736,332 @@ def gather_skew() -> dict:
             out[name] = {kind: chip_smoke.cuda_ms_queued(getattr(calls, kind), 20) for kind in ("forward", "backward")}
             print(f"gather on {name}: forward {out[name]['forward']:.4f} ms, backward {out[name]['backward']:.4f} ms "
                   f"(queued)")
+    return out
+
+
+#: the read cases of ``chip_smoke.read_cases`` whose backward the
+#: measurement builds time: packed at t, the const4 rule, single at t, four
+#: single tables at the wavelength
+READ_GRAD_CASES = ("read_packed", "read_packed, const4", "read_table", "read_table, medium constants")
+#: measurement builds of the table reads' backward, by design: a copy of
+#: ``csrc`` with each (text, replacement) of ``csrc/table_read.cu`` made;
+#: a design is told by a line that only its source holds
+READ_GRAD_BUILDS = {
+    # a block's shared copy of every table's gradient, flushed with a global
+    # atomic a nonzero entry, 512 threads, 2 blocks an SM
+    "constexpr int kGradBlocksPerSm = 2;": {
+        "no flush (results wrong)": (("        if (v != 0.0f) atomicAdd(grads.table[k] + e, v);",
+                                      "        (void)v;"),),
+        "1 block an SM": (("constexpr int kGradBlocksPerSm = 2;", "constexpr int kGradBlocksPerSm = 1;"),),
+        "4 blocks an SM": (("constexpr int kGradBlocksPerSm = 2;", "constexpr int kGradBlocksPerSm = 4;"),),
+        "8 blocks an SM": (("constexpr int kGradBlocksPerSm = 2;", "constexpr int kGradBlocksPerSm = 8;"),),
+    },
+}
+#: the shares of lanes with a nonzero upstream gradient at which
+#: ``read_grad_builds`` also times each read case (the rest zero, as a
+#: tracer's dead lanes are)
+READ_GRAD_LIVE = (0.3, 0.1, 0.005)
+
+
+class ReadGradCalls:
+    """The table reads' backward of one built library on read case ``c``
+    with upstream gradients ``g`` (one a table), through the C entry point:
+    ``backward`` (the tables' gradients, views of one buffer, zeroed in one
+    fill, and the launch) with the tables' gradients, or with ``grad_x``
+    alone."""
+
+    def __init__(self, lib, c, g, tables: bool) -> None:
+        self.lib = lib
+        self.reader, self.tables, _, _, self.handle, self.x = chip_smoke._read_reader(c)
+        live = [t for t in self.tables if tables and t is not None]
+        self.buffer = torch.zeros(max(sum(t.numel() for t in live), 1), device="cuda")
+        self.grads, at = [], 0
+        for t in self.tables:
+            self.grads.append(self.buffer[at : at + t.numel()].view(t.shape) if tables and t is not None else None)
+            at += t.numel() if tables and t is not None else 0
+        self.grad_x = torch.empty_like(self.x)
+        self.stream = torch.cuda.current_stream().cuda_stream
+        pad = [None] * (4 - len(self.tables))
+        self.rows = [_ptr(r) for r in g] + pad
+        self.outs = [_ptr(r) for r in self.grads] + pad
+
+    def backward(self):
+        x = self.x
+        if any(grad is not None for grad in self.grads):
+            self.buffer.zero_()
+        _build.check(self.lib.theia_table_read_grad(
+            self.reader.spec_address, _ptr(self.handle), x.data_ptr(), x.stride(0), *self.rows, x.shape[0],
+            *self.outs, self.grad_x.data_ptr(), self.stream), "theia_table_read_grad")
+        return self.grads, self.grad_x
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _kernel_ptxas(log: str, name: str) -> list:
+    """ptxas's registers, spills and shared memory of each kernel whose
+    mangled name holds ``name``."""
+    lines, out = log.splitlines(), []
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and name in line:
+            tail = [x.strip() for x in lines[i + 1 : i + 4] if "bytes" in x or "registers" in x]
+            out.append(line.split(name)[1][:24] + ": " + "; ".join(tail))
+    return out
+
+
+def _base_sources(parent: Path | None) -> tuple:
+    """(csrc, signatures) of the base kernels: ``parent``'s (an earlier
+    commit's, with the package's C entry points) or the package's."""
+    return parent or _build.CSRC, tuple(_build._SIGNATURES.items())
+
+
+def _design(source: Path, builds: dict) -> dict:
+    """The measurement builds of the design whose marker ``source`` holds."""
+    text = source.read_text()
+    found = [b for marker, b in builds.items() if marker in text]
+    assert len(found) == 1, f"{source}: no measurement builds for its design"
+    return found[0]
+
+
+def read_grad_builds(parent: Path | None) -> dict:
+    """The table reads' backward at ``chip_smoke``'s read cases
+    (``READ_GRAD_CASES``, N = 262,144), with every lane at one coordinate
+    (``chip_smoke.hot_read_case``), with a share of the lanes' upstream
+    gradients nonzero (``READ_GRAD_LIVE``: a tracer's dead lanes) and on a
+    single table of 16,384 samples, with the tables' gradients and with d
+    x alone, queued: with ``parent`` (an earlier commit's ``csrc``) first
+    the package's kernels in turns with the parent's (parent, package,
+    package, parent), then each measurement build of the package's design
+    (``READ_GRAD_BUILDS``) in turns with the package's (package, build,
+    build, package). d x is held bit-equal to the first's everywhere, the
+    tables' gradients within 4e-5 of the absolute shares where the build
+    keeps the results."""
+    store = build_flagship(theia_tpu_torch, icosphere(1), 64, 2, accel="auto", device="cuda").scene.pack.media
+    medium = build_volume_flagship(theia_tpu_torch, 64, "cuda").params()["medium"]
+    every = chip_smoke.read_cases(store, medium)
+    cases = {}
+    for name in READ_GRAD_CASES:
+        cases[name] = every[name]
+        cases[f"{name}, every lane at one coordinate"] = chip_smoke.hot_read_case(every[name])
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    ups = {name: tuple(torch.randn(c["args"][-2].shape, device="cuda", generator=gen) for _ in
+                       (c["args"][0] if isinstance(c["args"][0], tuple) else (c["args"][0],))) for name, c in cases.items()}
+    # a share of the lanes live (the rest with zero upstream gradients, as a tracer's dead lanes)
+    for name in READ_GRAD_CASES:
+        for share in READ_GRAD_LIVE:
+            live = f"{name}, {share:g} of the lanes live"
+            cases[live] = every[name]
+            ups[live] = chip_smoke.live_grads(ups[name], share, gen)
+    # a single table of 16,384 samples: its gradient still in a block's shared copy
+    band = chip_smoke.sized_read_case(every["read_table"], 16_384)
+    cases["read_table, 16,384 samples"] = band
+    ups["read_table, 16,384 samples"] = ups["read_table"]
+    package = _build.library()
+    out = {"package": dict(ptxas=_kernel_ptxas(package.build_log, "read_tables_grad"))}
+    for line in out["package"]["ptxas"]:
+        print("    package:", line)
+    # label -> (patches of the package's source, or None; the library the build is timed against)
+    builds = {}
+    if parent is not None:
+        builds["package against the parent"] = (None, _build.build(parent, (), tuple(_build._SIGNATURES.items())))
+    builds.update({label: (patches, package) for label, patches in
+                   _design(_build.CSRC / "table_read.cu", READ_GRAD_BUILDS).items()})
+    for label, (patches, base_lib) in builds.items():
+        lib = package if patches is None else patched_build(label, patches, "table_read.cu")
+        entry = out[label] = dict(patches=patches, ptxas=_kernel_ptxas(lib.build_log, "read_tables_grad"))
+        for name, c in cases.items():
+            for tables in (True, False):
+                base, calls = ReadGradCalls(base_lib, c, ups[name], tables), ReadGradCalls(lib, c, ups[name], tables)
+                base.backward()
+                got_t, got_x = calls.backward()
+                torch.cuda.synchronize()
+                if not label.endswith("(results wrong)"):
+                    assert chip_smoke.same(got_x, base.grad_x), (label, name, "d x")
+                if tables and not label.endswith("(results wrong)"):
+                    for a, b, s in zip(got_t, base.grads, _abs_shares(c, ups[name])):
+                        if b is not None:
+                            finite = torch.isfinite(b)
+                            assert float(((a - b)[finite].abs() - 4e-5 * s[finite]).max()) <= 0.0, (label, name)
+                key = f"{name}, {'tables and d x' if tables else 'd x alone'}"
+                t = entry[key] = _in_turns(base, calls, "backward", 20)
+                print(f"read backward on {key}, {label}: base {t['old_queued_ms'][0]:.4f} / "
+                      f"{t['old_queued_ms'][1]:.4f} ms, build {t['new_queued_ms'][0]:.4f} / "
+                      f"{t['new_queued_ms'][1]:.4f} ms (queued; base, build, build, base)")
+        for line in entry["ptxas"] if patches is not None else _kernel_ptxas(base_lib.build_log, "read_tables_grad"):
+            print("    " + ("" if patches is not None else "parent: ") + line)
+    out["empty launch"] = chip_smoke.empty_launch_ms()
+    print(f"empty launch: {out['empty launch']['queued_ms']:.4f} ms queued")
+    return out
+
+
+def read_grad_live() -> dict:
+    """The table reads' backward calls of one step of each gradient path
+    (``chip_smoke.absorption_grad`` of the polarized ``woop`` flagship, the
+    volume flagship's absorption and group-velocity steps, the brute
+    flagship's geometry step, as ``profile`` runs them): for each call its
+    lanes, the lanes with a nonzero upstream gradient (in any table), and
+    the floats of the tables' gradients it takes."""
+    from theia_tpu_torch.ops import table_read as tr
+
+    calls, inner = [], tr._backward
+
+    def counting(reader, tables, sizes, bounds, handle, x, grad_out, need_tables, need_x):
+        live = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+        for g in grad_out:
+            if g is not None:
+                live |= g.reshape(-1) != 0
+        floats = sum(t.numel() for t, need in zip(tables, need_tables) if need and t is not None)
+        calls.append(dict(lanes=int(x.shape[0]), live=int(live.sum()), tables=len(tables), floats=int(floats),
+                          packed=bool(reader.packed)))
+        return inner(reader, tables, sizes, bounds, handle, x, grad_out, need_tables, need_x)
+
+    mesh = icosphere(3)
+    kde = lambda: KernelHistogramHitResponse(nBins=100, t0=0.0, binSize=5.0, bandwidth=5.0)
+    polarized = lambda: build_flagship(theia_tpu_torch, mesh, chip_smoke.BATCH, chip_smoke.MAX_PATH, device="cuda",
+                                       accel="woop", polarized=True)
+    steps = (
+        ("woop polarized gradient", polarized, chip_smoke.absorption_grad),
+        ("volume gradient, absorption", lambda: build_volume_flagship(theia_tpu_torch, chip_smoke.BATCH, "cuda"),
+         lambda t: chip_smoke.scale_step(t, "absorption_coef", float(np.log(1.35)))()),
+        ("volume gradient, group velocity",
+         lambda: build_volume_flagship(theia_tpu_torch, chip_smoke.BATCH, "cuda", response=kde()),
+         lambda t: chip_smoke.scale_step(t, "group_velocity", float(np.log(0.92)))()),
+        ("brute geometry gradient", lambda: build_flagship(theia_tpu_torch, mesh, chip_smoke.BATCH, chip_smoke.MAX_PATH,
+                                                            accel="auto", device="cuda", response=kde()),
+         lambda t: chip_smoke.geometry_step(t)()),
+    )
+    out = {}
+    tr._backward = counting
+    try:
+        for label, make, run in steps:
+            tracer = make()
+            calls.clear()
+            run(tracer)
+            torch.cuda.synchronize()
+            lanes, live = sum(c["lanes"] for c in calls), sum(c["live"] for c in calls)
+            shares = sorted(c["live"] / max(c["lanes"], 1) for c in calls)
+            out[label] = dict(calls=list(calls), lanes=lanes, live=live)
+            print(f"{label}: {len(calls)} read backwards, {lanes} lanes, {live} live ({live / max(lanes, 1):.4f}); "
+                  f"a call's live share min {shares[0] if shares else 0:.4f}, median "
+                  f"{shares[len(shares) // 2] if shares else 0:.4f}, max {shares[-1] if shares else 0:.4f}")
+            for c in calls:
+                print(f"    {c['lanes']} lanes, {c['live']} live, {c['tables']} table(s), {c['floats']} floats of "
+                      f"gradient, {'packed' if c['packed'] else 'single'}")
+            del tracer
+            torch.cuda.empty_cache()
+    finally:
+        tr._backward = inner
+    return out
+
+
+def _abs_shares(c, g):
+    """The plain backward's tables' gradients on |g|: each entry's sum of
+    absolute shares."""
+    _, _, _, grad_plain = chip_smoke.read_calls(c, g)
+    one = not isinstance(c["args"][0], tuple)
+    got, _ = grad_plain(g[0].abs() if one else tuple(a.abs() for a in g))
+    return chip_smoke._outputs(got)
+
+
+#: kde measurement builds, by design (as ``READ_GRAD_BUILDS``). The first: a
+#: thread a lane, a lane's 9 bins in a loop, five IEEE divisions a pair
+_KDE_FIRST_LOOP = ("    if (kept(in, i, p, &t, &base, &offset)) {\n      const float v = in.value[i];\n"
+                 "      for (int o = -in.support; o <= in.support; ++o) {")
+KDE_BUILDS = {
+    "        dt = dt + __fdiv_rn(gv * w * z, p.h);": {
+        "the three gradient divisions as products": (
+            ("  const float norm = p.bin_size * inv;\n  float sum_t",
+             "  const float norm = p.bin_size * inv;\n  const float rh = __fdiv_rn(1.0f, p.h);\n  float sum_t"),
+            ("        dt = dt + __fdiv_rn(gv * w * z, p.h);", "        dt = dt + gv * w * z * rh;"),
+            ("        dbs = dbs + gv * (e * inv - __fdiv_rn(w * z * (bf + 0.5f), p.h));",
+             "        dbs = dbs + gv * (e * inv - w * z * (bf + 0.5f) * rh);"),
+            ("        dh = dh + __fdiv_rn(gv * w * (z * z - 1.0f), p.h);",
+             "        dh = dh + gv * w * (z * z - 1.0f) * rh;"),
+        ),
+        "one bin a lane (results wrong)": ((_KDE_FIRST_LOOP, _KDE_FIRST_LOOP.replace("o = -in.support", "o = 0")
+                                            .replace("o <= in.support", "o <= 0")),),
+    },
+    # the current one: a block's list of kept lanes dealt a round of threads at a
+    # time, the three gradient divisions by h as products by 1 / h
+    "    dt = dt + gv * w * z * rh;": {
+        "the three gradient divisions kept": (
+            ("    dt = dt + gv * w * z * rh;", "    dt = dt + __fdiv_rn(gv * w * z, p.h);"),
+            ("    dbs = dbs + gv * (e * inv - w * z * (bf + 0.5f) * rh);",
+             "    dbs = dbs + gv * (e * inv - __fdiv_rn(w * z * (bf + 0.5f), p.h));"),
+            ("    dh = dh + gv * w * (z * z - 1.0f) * rh;", "    dh = dh + __fdiv_rn(gv * w * (z * z - 1.0f), p.h);"),
+        ),
+        "2 blocks an SM": (("constexpr int kGradBlocksPerSm = 4;", "constexpr int kGradBlocksPerSm = 2;"),),
+        "8 blocks an SM": (("constexpr int kGradBlocksPerSm = 4;", "constexpr int kGradBlocksPerSm = 8;"),),
+        "no bins (results wrong)": (("  for (int o = -in.support; o <= in.support; ++o) {\n    const float bf",
+                                     "  for (int o = 0; o < 0; ++o) {\n    const float bf"),),
+    },
+}
+
+
+class KdeCalls:
+    """The kernel histogram's backward of one built library on one
+    ``chip_smoke.kde_case``, through its C entry point (the scalars'
+    zero fill, which the wrapper makes, and the launch)."""
+
+    def __init__(self, lib, case, grad_state) -> None:
+        value, time_, mask, t0, bs, bw, bins, support, oid, n_det = case
+        self.lib, self.case, self.grad_state = lib, case, grad_state
+        self.grad_value, self.grad_time = torch.empty_like(time_), torch.empty_like(time_)
+        self.params = torch.zeros(3, device="cuda")
+        self.args = (grad_state.data_ptr(), value.data_ptr(), time_.data_ptr(), mask.data_ptr(), _ptr(oid),
+                     t0.data_ptr(), bs.data_ptr(), bw.data_ptr(), time_.shape[0], bins, n_det or 0, support,
+                     self.grad_value.data_ptr(), self.grad_time.data_ptr(), self.params.data_ptr(),
+                     torch.cuda.current_stream().cuda_stream)
+
+    def backward(self):
+        self.params.zero_()
+        _build.check(self.lib.theia_kde_grad(*self.args), "theia_kde_grad")
+        return self.grad_value, self.grad_time, self.params
+
+
+def kde_builds(parent: Path | None) -> dict:
+    """The kernel histogram's backward at ``chip_smoke.kde_case``'s N =
+    524,288 with 10 %, 50 % and 100 % of the lanes unmasked, all lanes in
+    one bin, and with a detector axis, queued: the kernels of ``parent``
+    or of the package in turns with each measurement build of their design
+    (``KDE_BUILDS``: base, build, build, base), with ``parent`` also the
+    package's in turns with the parent's. The builds that keep the results
+    hold ``chip_smoke.hold_kde``'s tolerances against the base."""
+    n = 2 * chip_smoke.BATCH
+    cases = {f"mask {kept}": chip_smoke.kde_case(n, 3, kept=kept) for kept in (0.1, 0.5, 1.0)}
+    one = chip_smoke.kde_case(n, 3, kept=1.0)
+    cases["every lane in one bin"] = (one[0], torch.full_like(one[1], 252.5), *one[2:])
+    cases["a detector axis (3), mask 0.5"] = chip_smoke.kde_case(n, 6, n_det=3)
+    csrc, sigs = _base_sources(parent)
+    base_lib = _build.build(csrc, (), sigs)
+    out = {"base": dict(csrc=str(csrc), ptxas=_kernel_ptxas(base_lib.build_log, "kde_grad"))}
+    builds = {label: (patches, base_lib) for label, patches in
+              _design(csrc / "kernel_histogram.cu", KDE_BUILDS).items()}
+    if parent is not None:
+        builds["package"] = (None, _build.library())
+    for label, (patches, lib) in builds.items():
+        if patches is not None:
+            lib = patched_build(label, patches, "kernel_histogram.cu", csrc, sigs)
+        entry = out[label] = dict(patches=patches, ptxas=_kernel_ptxas(lib.build_log, "kde_grad"))
+        for name, case in cases.items():
+            g = torch.randn(case[6] * (case[9] or 1), device="cuda", generator=torch.Generator("cuda").manual_seed(3))
+            base, calls = KdeCalls(base_lib, case, g), KdeCalls(lib, case, g)
+            want = [a.clone() for a in base.backward()]
+            got = calls.backward()
+            torch.cuda.synchronize()
+            if not label.endswith("(results wrong)"):
+                for what, a, b, rtol in zip(("d value", "d time", "d params"), got, want, (1e-5, 1e-5, 1e-4)):
+                    atol = rtol * (float(b.abs().max()) or 1.0)
+                    torch.testing.assert_close(a, b, rtol=rtol, atol=atol, msg=lambda m: f"{label}, {name}, {what}: {m}")
+            t = entry[name] = _in_turns(base, calls, "backward", 20)
+            print(f"kde backward on {name}, {label}: base {t['old_queued_ms'][0]:.4f} / {t['old_queued_ms'][1]:.4f} "
+                  f"ms, build {t['new_queued_ms'][0]:.4f} / {t['new_queued_ms'][1]:.4f} ms (queued; base, build, "
+                  f"build, base)")
+        for line in entry["ptxas"]:
+            print("   ", line)
+    out["empty launch"] = chip_smoke.empty_launch_ms()
+    print(f"empty launch: {out['empty launch']['queued_ms']:.4f} ms queued")
     return out
 
 
@@ -875,6 +1215,11 @@ def main(argv: list[str]) -> int:
         result = gather_builds()
     elif mode == "gather-skew":
         result = gather_skew()
+    elif mode in ("read-grad-builds", "kde-builds") and len(argv) <= 3:
+        parent = Path(argv[2]).resolve() if len(argv) == 3 else None
+        result = (read_grad_builds if mode == "read-grad-builds" else kde_builds)(parent)
+    elif mode == "read-grad-live":
+        result = read_grad_live()
     elif mode == "profile":
         result = profile()
     else:

@@ -18,7 +18,7 @@ import torch
 from ..component import Component
 from ..lookup import lookup
 from ..material import Medium, MediumConstants
-from ..ops.math3d import dot, matvec, normalize, perpendicular_to2
+from ..ops.math3d import dot, matvec, normalize, perpendicular_to2, sqrt
 from ..ops.sampling import INV_4PI, TWO_PI, scatter_dir
 from ..ops.table_read import PHASE
 from ..polarization import apply_rotation, rotation_coeffs
@@ -289,7 +289,7 @@ def propagate_ray_to_hit(
     ray.propagate.glsl:245-258). The distance to a known hit is
     geometric, so its gradient is re-attached."""
     delta = hit_pos - ray.position
-    dist = torch.sqrt(dot(delta, delta))
+    dist = sqrt(dot(delta, delta))
     new, code = update_ray(replace(ray, position=hit_pos), dist, params)
     return reattach_geometry(new, dist), code
 

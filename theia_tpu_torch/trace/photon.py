@@ -31,7 +31,7 @@ from ..component import Component, TraceConfig, resolve_device
 from ..light import LightSource, WavelengthSource
 from ..lookup import lookup
 from ..material import Medium, medium_constants
-from ..ops.math3d import dot
+from ..ops.math3d import dot, sqrt
 from ..ops.sampling import scatter_dir
 from ..ops.table_read import PHASE
 from ..random import PhiloxRNG, RNGState
@@ -254,7 +254,7 @@ class VolumePhotonTracer(_CompactedRuns, TracerBase):
             lower_bbox=lo,
             upper_bbox=hi,
             max_time=p["tracer"]["maxTime"],
-            max_dist=torch.sqrt(dot(extent, extent)),
+            max_dist=sqrt(dot(extent, extent)),
         )
 
     def _init_photons(self, p, rng: RNGState, streams):

@@ -37,7 +37,7 @@ from ..callback import EmptyEventCallback, TraceEventCallback
 from ..component import Component, TraceConfig, resolve_device
 from ..light import LightSource, WavelengthSource
 from ..material import MaterialFlags, MediumConstants, lookup_packed, packed_medium_constants
-from ..ops.math3d import dot, local_frame, normalize
+from ..ops.math3d import dot, local_frame, normalize, sqrt
 from ..ops.sampling import scatter_dir
 from ..ops.table_read import PHASE, read_packed
 from ..polarization import (
@@ -134,7 +134,7 @@ def _refract(i, n, eta):
     k = 1.0 - eta * eta * (1.0 - cos_i * cos_i)
     tir = k <= 0.0
     k_safe = torch.where(tir, 1.0, k)
-    out = eta[..., None] * i - (eta * cos_i + torch.sqrt(k_safe))[..., None] * n
+    out = eta[..., None] * i - (eta * cos_i + sqrt(k_safe))[..., None] * n
     return torch.where(tir[..., None], -n, out)
 
 
@@ -276,7 +276,7 @@ class SceneForwardTracer(TracerBase):
             lower_bbox=pack.lower_bbox,
             upper_bbox=pack.upper_bbox,
             max_time=p["tracer"]["maxTime"],
-            max_dist=torch.sqrt(dot(extent, extent)),
+            max_dist=sqrt(dot(extent, extent)),
         )
 
     # -- physics helpers -------------------------------------------------
@@ -285,7 +285,7 @@ class SceneForwardTracer(TracerBase):
         """(n_in, n_tr, r_s, r_p) per lane
         (reference: shader/scatter.surface.glsl:21-51)."""
         cos_i = torch.clamp(dot(ray.direction, hit.ray_nrm), -1.0, 1.0)
-        sin_i = torch.sqrt(torch.clamp_min(1.0 - cos_i * cos_i, 0.0))
+        sin_i = sqrt(torch.clamp_min(1.0 - cos_i * cos_i, 0.0))
         n_i = ray.constants.n
         # the wavelength normalized by the medium's bounds and clipped, then
         # read (which clips again), in one read
@@ -301,7 +301,7 @@ class SceneForwardTracer(TracerBase):
         sin_t = sin_i * n_i / n_t
         s2 = 1.0 - sin_t * sin_t
         tir = s2 <= 0.0
-        cos_t = torch.where(tir, 0.0, torch.sqrt(torch.where(tir, 1.0, s2)))
+        cos_t = torch.where(tir, 0.0, sqrt(torch.where(tir, 1.0, s2)))
         cos_i = torch.abs(cos_i)
         r_s = (n_i * cos_i - n_t * cos_t) / (n_i * cos_i + n_t * cos_t)
         r_p = (n_t * cos_i - n_i * cos_t) / (n_t * cos_i + n_i * cos_t)
@@ -366,7 +366,7 @@ class SceneForwardTracer(TracerBase):
 
     def _propagate_to_hit(self, ray: RayState, hit: SurfaceHit, prop):
         delta = hit.world_pos - ray.position
-        dist = torch.sqrt(torch.clamp_min(dot(delta, delta), 1e-30))
+        dist = sqrt(torch.clamp_min(dot(delta, delta), 1e-30))
         new, code = update_ray(replace(ray, position=hit.world_pos), dist, prop)
         # deterministic connection distance: reattach its gradient
         return reattach_geometry(new, dist), code

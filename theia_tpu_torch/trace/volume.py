@@ -25,7 +25,7 @@ from ..component import Component, TraceConfig, resolve_device
 from ..light import LightSource, WavelengthSource
 from ..lookup import lookup
 from ..material import Medium, medium_constants
-from ..ops.math3d import dot, local_frame, normalize
+from ..ops.math3d import dot, local_frame, normalize, sqrt
 from ..ops.sampling import scatter_dir
 from ..ops.table_read import PHASE
 from ..polarization import (
@@ -226,7 +226,7 @@ class VolumeForwardTracer(TracerBase):
             lower_bbox=lo,
             upper_bbox=hi,
             max_time=p["tracer"]["maxTime"],
-            max_dist=torch.sqrt(dot(extent, extent)),
+            max_dist=sqrt(dot(extent, extent)),
         )
 
     def _create_response(
