@@ -29,7 +29,7 @@ Phases, one line each, any failure raises and exits non-zero:
    for the time and the bound that a batch sees. The three nearest-hit
    kernels are also held bit for bit against their
    plain versions (on the card on every lane, on the CPU on a seeded
-   eighth of the lanes of N = 262,144) on adversarial rays (through vertices, along edges, in
+   sixteenth of the lanes of N = 262,144) on adversarial rays (through vertices, along edges, in
    a triangle's plane, off a surface) and on the 19 queries of one
    recorded flagship batch, which are replayed for the time and bound
    that a batch sees; the share of pairs that survive the kernels'
@@ -83,7 +83,17 @@ Phases, one line each, any failure raises and exits non-zero:
    same on inputs made beforehand (``grid_sample`` for the reads,
    ``index_add_`` for their backward and the gathers', ``index_select``
    of the pairs' bins for the kernel histogram's and of the whole rows
-   for the gathers);
+   for the gathers); the four walk entry points (the instanced walk's
+   nearest and any hit, ``csrc/instanced_walk.cu``, and the threaded
+   BVH's, ``csrc/bvh_walk.cu``) on random rays at N = 262,144 (the plain
+   walk on the card on every lane and on the CPU on a seeded eighth), on
+   adversarial rays (``walk_adversarial``: grazing, along edges and in
+   triangle planes, lying in box faces, dead lanes, t_max inf, 0, -1 and
+   NaN) and on the queries of one recorded batch of flagship-array (8)
+   and flagship-bvh (19; the any-hit on the same rays bounded at half
+   their nearest hit), each timed as called and queued beside the plain
+   walk and a bound from the plain walk's counts of box, sphere and
+   triangle tests and transforms (``Walk.bound``);
 3. the first main path at full width: the flagship scene tracer
    (262,144 lanes, path length 10, 3840 triangles, 100 bins,
    ``accel="mt"``) through ``run()``, one warm-up batch and three timed
@@ -106,8 +116,8 @@ Phases, one line each, any failure raises and exits non-zero:
    any-hit, none of the other nearest-hit kernels; its read sites counted,
    nothing stacked for the constants' read); then seconds per
    batch with the winners' rows from the kernel and from a separate gather,
-   in turns; then the ``mt``, unpolarized ``woop`` and brute-force
-   flagships in turns, for seconds per batch that can be compared;
+   in turns; then the ``mt``, unpolarized ``woop``, brute-force and
+   ``bvh`` flagships in turns, for seconds per batch that can be compared;
 3e. ``accel.is_visible`` on the brute-force scene, the any-hit kernel's
    path: 262,144 observer-target pairs, three calls;
 3f. the volume flagship (``examples/01_volume_tracing.py``'s
@@ -133,12 +143,22 @@ Phases, one line each, any failure raises and exits non-zero:
    detector's shift (``translate_instance``), the source's position and
    the packed ``log_phase_function`` and ``refractive_index`` tables,
    reported the same way;
+3j. flagship-array (``examples/08_detector_array.py``: 26 BK7-shelled
+   modules of 1280 triangles, ``accel="auto"`` -> ``"instanced"``, a
+   ``HitRecorder``, path length 8) and flagship-bvh (the flagship scene
+   with ``accel="bvh"``, leaf size 8) at 262,144 lanes: seconds per batch
+   (median of 3), launches a batch (8 instanced walks; 19 BVH walks, the
+   shadow rays on the full walk), peak memory, one batch profiled, then
+   ``is_visible`` on each scene (three any-hit walks); then the crossover
+   sweep (``sweep``): 65,536 random rays through 1, 8, 26 and 124
+   modules on the brute-force soup, the instanced walk and the BVH;
 4. the port on the CPU against the port on the card at batch 4096: the
    unpolarized ``mt`` flagship, the brute-force flagship, the polarized
    ``woop`` flagship with the source off centre, the volume flagship
    unpolarized and polarized, a volume photon tracer, the photon
-   flagship and the unguided brute-force flagship with a
-   ``StoreTimeHitResponse`` (the same detections, times within 1e-5);
+   flagship, the unguided brute-force flagship with a
+   ``StoreTimeHitResponse`` and flagship-array's ``HitRecorder`` (the same
+   detections, times within 1e-5) and flagship-bvh;
    then the gradients at batch 2048, path length 3: the polarized
    medium gradient, the volume steps of 3h and the geometry step of 3i,
    each by ``PERF.md``'s gradient agreement.
@@ -1545,7 +1565,7 @@ FIRST_SCAN_RULE = "chunk rule, sphere test from the ray's origin (the bounds of 
 
 
 def seeded_lanes(n: int, share: int, seed: int):
-    """A seeded eighth (one in ``share``) of ``n`` lanes, sorted, on the
+    """A seeded share (one in ``share``) of ``n`` lanes, sorted, on the
     card: where a plain version on the CPU checks a kernel's lanes."""
     import torch
 
@@ -1557,7 +1577,7 @@ def check_nearest(nearest: Nearest, adversarial, queries, report):
     """A nearest-hit kernel against its plain version, bit-equal t and idx
     (and rows): random rays at N = 262,144 and 524,288 with times and
     bound (the plain version on the card on every lane, and on the CPU on a
-    seeded eighth of the first size's), adversarial rays, and the recorded
+    seeded sixteenth of the first size's), adversarial rays, and the recorded
     queries of one flagship batch, replayed for the time and bound a batch
     sees."""
     name, worst = nearest.name, 0.0
@@ -1565,8 +1585,8 @@ def check_nearest(nearest: Nearest, adversarial, queries, report):
         rays = random_rays(n, n + len(name), "cuda")
         err, hits = nearest.check(rays, f"random rays N={n} (plain on the card)", on_cpu=False)
         if n == BATCH:
-            nearest.check(rays, f"random rays N={n} (plain on the CPU, an eighth of the lanes)", on_cpu=True,
-                          lanes=seeded_lanes(n, 8, n + len(name)))
+            nearest.check(rays, f"random rays N={n} (plain on the CPU, a sixteenth of the lanes)", on_cpu=True,
+                          lanes=seeded_lanes(n, 16, n + len(name)))
         own, yard = nearest.stats(rays), nearest.stats(rays, layout=False)
         worst = max(worst, err)
         ms = cuda_ms(lambda: nearest.run(nearest.kernel, nearest.pack, rays), 20)
@@ -1779,7 +1799,7 @@ def small_soups(table):
 def check_soup(soup: Soup, adversarial, queries, report):
     """A soup kernel against its plain version, bit-equal: random rays at
     N = 262,144 and 524,288 with times and bound (the plain version on the
-    card on every lane, and on the CPU on a seeded eighth of the first
+    card on every lane, and on the CPU on a seeded sixteenth of the first
     size's), lane masks, group ranges (on the card), bounds at and beside a
     hit, small and oddly cut soups (on the CPU, 8,192 rays), adversarial
     rays, and the recorded queries of one brute-force flagship
@@ -1795,8 +1815,8 @@ def check_soup(soup: Soup, adversarial, queries, report):
         rays = random_rays(n, n + len(name), "cuda")
         hits = soup.check(rays, f"random rays N={n} (plain on the card)", on_cpu=False)
         if n == BATCH:
-            soup.check(rays, f"random rays N={n} (plain on the CPU, an eighth of the lanes)", on_cpu=True,
-                       lanes=seeded_lanes(n, 8, n + len(name)))
+            soup.check(rays, f"random rays N={n} (plain on the CPU, a sixteenth of the lanes)", on_cpu=True,
+                       lanes=seeded_lanes(n, 16, n + len(name)))
         own, yard = soup.stats(card, rays), soup.stats(card, rays, layout=False)
         ms = cuda_ms(lambda: soup.run(soup.kernel, card, rays), 20)
         queued_ms = cuda_ms_queued(lambda: soup.run(soup.kernel, card, rays), 20)
@@ -1826,8 +1846,8 @@ def check_soup(soup: Soup, adversarial, queries, report):
         for groups in (None, [2], [0, 1], [1, 2]):
             soup.check(rays, f"mask {kept}, groups {groups}", on_cpu=False, groups=groups, active=active)
             cases += 1
-    # the plain version runs on the CPU for the rest: a 32nd of the rays
-    rays = tuple(r[: BATCH // 32].contiguous() for r in rays)
+    # the plain version runs on the CPU for the rest: a 64th of the rays
+    rays = tuple(r[: BATCH // 64].contiguous() for r in rays)
     t_hit = nearest_in_table(card, rays[0], rays[1], torch.inf)[0]
     t_hit = torch.where(torch.isfinite(t_hit), t_hit, 3.0)
     for label, t_max in (
@@ -2059,10 +2079,30 @@ def check_read_sites(label, stats) -> None:
         assert s["most"] <= (2 if "constants" in site else 1), (site, s)
 
 
-def timed_runs(tracer, wrappers, label):
+def histogram_total(hist, label) -> float:
+    """The sum of a 100-bin light curve, which must be finite and not 0."""
+    import torch
+
+    assert hist.shape == (100,) and bool(torch.isfinite(hist).all()), f"{label}: bad histogram"
+    assert float(hist.sum()) > 0.0, f"{label}: empty histogram"
+    return float(hist.sum())
+
+
+def recorded_total(hits, label) -> float:
+    """The summed contribution of a ``HitRecorder``'s valid hits, of which
+    there must be some, all with finite times and contributions."""
+    import torch
+
+    valid = hits["valid"]
+    assert int(valid.sum()) > 0, f"{label}: no hit recorded"
+    assert bool(torch.isfinite(hits["time"][valid]).all() & torch.isfinite(hits["contrib"][valid]).all()), label
+    return float(hits["contrib"][valid].sum())
+
+
+def timed_runs(tracer, wrappers, label, total=histogram_total):
     """One warm-up and three timed ``run()``s of ``tracer`` with the launch
     counts of ``wrappers`` set to 0 just before the timed runs; returns
-    (seconds, histogram sums, launch counts, peak bytes)."""
+    (seconds, ``total``s of the results, launch counts, peak bytes)."""
     import torch
 
     tracer.run()  # warm-up batch
@@ -2073,12 +2113,10 @@ def timed_runs(tracer, wrappers, label):
     seconds, sums = [], []
     for _ in range(3):
         start = time.perf_counter()
-        hist, _ = tracer.run()
+        out, _ = tracer.run()
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - start)
-        assert hist.shape == (100,) and bool(torch.isfinite(hist).all()), f"{label}: bad histogram"
-        sums.append(float(hist.sum()))
-        assert sums[-1] > 0.0, f"{label}: empty histogram"
+        sums.append(total(out, label))
     counts = {name: w.launches for name, w in wrappers.items()}
     return seconds, sums, counts, torch.cuda.max_memory_allocated()
 
@@ -2107,7 +2145,7 @@ def profile_step(step, watch=()) -> dict:
         by_name.setdefault(e.name, []).append(e.device_time if hasattr(e, "device_time") else e.cuda_time)
     item = lambda n, t: dict(name=n, ms=sum(t) / 1e3, count=len(t))
     top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:12]
-    mine = ("histogram", "theia::scan", "philox", "kde_", "read_", "::gather")
+    mine = ("histogram", "theia::scan", "philox", "kde_", "read_", "::gather", "_walk")
     own = sorted((n, t) for n, t in by_name.items() if any(k in n for k in mine))
     watched = {w: [item(n, t) for n, t in by_name.items() if w in n] for w in watch}
     kinds = {
@@ -2284,6 +2322,252 @@ def gradient_agreement(label, g_cpu, g_card) -> dict:
     return dict(worst_entry_rel=worst, sum_rel=sum_rel)
 
 
+#: the four walk entry points: (source, the theia_tpu function each replaces)
+WALK_KERNELS = {
+    "nearest_triangle_instanced": ("theia_tpu_torch/csrc/instanced_walk.cu", "theia_tpu/ops/instanced.py:618"),
+    "occluded_instanced": ("theia_tpu_torch/csrc/instanced_walk.cu", "theia_tpu/ops/instanced.py:602"),
+    "nearest_triangle_bvh": ("theia_tpu_torch/csrc/bvh_walk.cu", "theia_tpu/ops/bvh_traverse.py:95"),
+    "occluded_bvh": ("theia_tpu_torch/csrc/bvh_walk.cu", "theia_tpu/ops/bvh_traverse.py:184"),
+}
+WALK_LIBRARY = "none: no PyTorch call walks a BVH or an instance list"
+#: float32 operations of the walks' work (counted from csrc/walk.cuh and
+#: csrc/instanced_walk.cu): an instance's sphere pretest, where its box lets
+#: the ray in (3 differences, 5 for b, 1 product, 2 for the clip, 6 for p,
+#: 5 for s, 5 for |oc|^2, 4 for the right side, 1 comparison), and a ray's
+#: move into an instance's object space (3 rows of 3 products and 3 sums,
+#: 3 of 3 products and 2 sums); a node's or an instance box's slab test is
+#: BOX_FLOP, a triangle's exact test PAIR_FLOP["mt"][2]
+SPHERE_TEST_FLOP = 32
+TRANSFORM_FLOP = 33
+#: the sweep's module counts (1 x 1 x 1, 2 x 2 x 2, 3 x 3 x 3 and 5 x 5 x 5
+#: lattices, the centre of an odd one left free) and its rays
+SWEEP_SIDES = (1, 2, 3, 5)
+SWEEP_RAYS = 65_536
+#: the path length of flagship-array (example 08's)
+ARRAY_PATH = 8
+
+
+class Walk:
+    """One of the four walk entry points with its plain version and the
+    tables it walks (a scene pack's ``instanced`` or ``bvh``)."""
+
+    def __init__(self, name, scene_pack):
+        from theia_tpu_torch.ops import bvh_traverse as tbvh
+        from theia_tpu_torch.ops import instanced as tinst
+
+        self.name = name
+        kind = "instanced" if name.endswith("instanced") else "bvh"
+        module = tinst if kind == "instanced" else tbvh
+        self.kernel, self.plain = getattr(module, name), getattr(module, f"{name}_plain")
+        self.pack = getattr(scene_pack, kind)
+        self.cpu_pack = self.pack.to("cpu")
+        self.any_hit = name.startswith("occluded")
+
+    def results(self, fn, pack, rays, stats=None):
+        out = fn(pack, *rays) if stats is None else fn(pack, *rays, stats=stats)
+        return out if isinstance(out, tuple) else (out,)
+
+    def check(self, rays, label, on_cpu: bool, lanes=None, stats=None):
+        """Kernel against plain (on the card, or on the CPU copy of the
+        inputs at ``lanes``), bit for bit; ``stats`` takes the plain walk's
+        counts. Returns (max |t diff| over hits, hit share)."""
+        import torch
+
+        got = self.results(self.kernel, self.pack, rays)
+        torch.cuda.synchronize()
+        if on_cpu:
+            at = slice(None) if lanes is None else lanes
+            want = self.results(self.plain, self.cpu_pack, [r[at].cpu() for r in rays], stats)
+            got = [g[at].cpu() for g in got]
+        else:
+            want = self.results(self.plain, self.pack, rays, stats)
+        for what, g, w in zip(("occluded",) if self.any_hit else ("t", "idx"), got, want):
+            assert torch.equal(g, w), f"{self.name}: {what} differs from plain on {label}"
+        hit = want[0] if self.any_hit else want[1] >= 0
+        err = 0.0 if self.any_hit or not bool(hit.any()) else float((got[0][hit] - want[0][hit]).abs().max())
+        return err, float(hit.float().mean())
+
+    def bound(self, n_rays: int, stats: dict) -> dict:
+        """The least time for queries of ``n_rays`` rays in all whose work
+        ``stats`` counts: each ray and answer moved once (29 bytes a lane
+        for the any-hit, 36 for the nearest hit), the tables once."""
+        flop = (stats.get("box_tests", 0) * BOX_FLOP + stats.get("sphere_tests", 0) * SPHERE_TEST_FLOP
+                + stats.get("transforms", 0) * TRANSFORM_FLOP + stats.get("tri_tests", 0) * PAIR_FLOP["mt"][2])
+        if hasattr(self.pack, "groups"):
+            tables = sum(g.tri.numel() + g.w2o.numel() + g.boxes.numel() + g.base.numel() for g in self.pack.groups)
+        else:
+            tables = self.pack.nodes.numel() + self.pack.tri.numel() + self.pack.order.numel()
+        return bound(n_rays * (29 if self.any_hit else 36) + tables * 4, flop)
+
+
+def walk_adversarial(scene_pack, seed: int, per_kind: int = 256, device="cuda"):
+    """Hard rays for a walk over ``scene_pack`` (card tensors origin,
+    direction, t_max): ``adversarial_rays`` on its world soup (through
+    vertices, along edges, in a triangle's plane, off a surface), rays
+    lying in a face of a node's or an instance's box (the direction's
+    component across the face 0, -0 or below the 1e-12 clamp, either sign),
+    and dead lanes (NaN in the origin or the direction, a zero direction);
+    t_max cycles through inf, a finite bound, 0, -1 and NaN."""
+    import numpy as np
+    import torch
+
+    from torch_flagship import adversarial_rays
+
+    soup = [a.cpu().numpy() for a in (scene_pack.w_v0, scene_pack.w_e1, scene_pack.w_e2)]
+    o, d = adversarial_rays(*soup, seed=seed, per_kind=per_kind)
+    if scene_pack.bvh is not None:
+        boxes = scene_pack.bvh.nodes[:, 0:6].cpu().numpy()
+    else:
+        g = scene_pack.instanced.groups[0]
+        boxes = np.stack([a.reshape(-1)[: g.base.shape[0]].cpu().numpy() for a in g.box], axis=1)
+    rng = np.random.default_rng(seed)
+    pick = boxes[rng.integers(0, len(boxes), 6 * per_kind)]
+    lo, hi = pick[:, 0:3], pick[:, 3:6]
+    axis = rng.integers(0, 3, len(pick))
+    face = np.where(rng.uniform(size=(len(pick), 1)) < 0.5, lo, hi)[np.arange(len(pick)), axis]
+    fo = lo - (hi - lo) + rng.uniform(size=lo.shape) * 3.0 * (hi - lo)
+    fo[np.arange(len(pick)), axis] = face
+    fd = rng.normal(size=lo.shape)
+    fd /= np.linalg.norm(fd, axis=1, keepdims=True)
+    across = np.asarray([0.0, -0.0, 1e-13, -1e-13, 5e-13, -5e-13])[rng.integers(0, 6, len(pick))]
+    fd[np.arange(len(pick)), axis] = across
+    dead_o = rng.uniform(-3.0, 3.0, (4 * 8, 3))
+    dead_d = rng.normal(size=(4 * 8, 3))
+    dead_o[:8, 1] = np.nan
+    dead_d[8:16, 2] = np.nan
+    dead_d[16:24] = 0.0
+    dead_o[24:] = np.inf
+    o = np.concatenate([o, fo, dead_o]).astype(np.float32)
+    d = np.concatenate([d, fd, dead_d]).astype(np.float32)
+    kinds = np.asarray([np.inf, 3.0, 0.0, -1.0, np.nan], np.float32)
+    t_max = kinds[np.arange(len(o)) % len(kinds)]
+    t_max = np.where(t_max == 3.0, rng.uniform(0.5, 6.0, len(o)), t_max).astype(np.float32)
+    return tuple(torch.as_tensor(a, device=device) for a in (o, d, t_max))
+
+
+def walk_rays(scene_pack, n: int, seed: int, device="cuda"):
+    """Random rays for a walk over ``scene_pack``: through the detector
+    array (``array_rays``) on an instanced pack, around the flagship's
+    spheres (``random_rays``) on a BVH pack."""
+    import torch
+
+    from torch_flagship import array_rays
+
+    if scene_pack.instanced is not None:
+        return tuple(torch.as_tensor(a, device=device) for a in array_rays(n, seed))
+    return random_rays(n, seed, device)
+
+
+def check_walk(walk: Walk, scene_pack, queries, report):
+    """A walk entry point against its plain version, bit for bit: random
+    rays at N = 262,144 (the plain walk on the card on every lane and on
+    the CPU on a seeded eighth of them), with its time as called and
+    queued, the plain walk's, and the bound from the plain walk's counts;
+    the adversarial rays (``walk_adversarial``, on the card and on the
+    CPU); and the queries that one batch of the walk's cell recorded, with
+    an any-hit on each of them bounded at half its nearest hit's t,
+    replayed for ms a batch."""
+    import torch
+
+    name, worst = walk.name, 0.0
+    rays = walk_rays(scene_pack, BATCH, len(name))
+    stats = {}
+    err, hits = walk.check(rays, f"random rays N={BATCH} (plain on the card)", on_cpu=False, stats=stats)
+    walk.check(rays, f"random rays N={BATCH} (plain on the CPU, an eighth of the lanes)", on_cpu=True,
+               lanes=seeded_lanes(BATCH, 8, len(name)))
+    worst = max(worst, err)
+    call = lambda: walk.kernel(walk.pack, *rays)
+    ms, queued = cuda_ms(call, 20), cuda_ms_queued(call, 20)
+    plain_ms = cuda_ms(lambda: walk.plain(walk.pack, *rays), 1)
+    b = walk.bound(BATCH, stats)
+    print(f"kernel {name} N={BATCH}: bit-equal to plain, hits {hits:.4f}; kernel {ms:.4f} ms as called, {queued:.4f} "
+          f"queued; plain {plain_ms:.4f} ms; work {stats}; bound {b['bound_ms']:.4f} ms by {b['bound_by']}, share of "
+          f"bound (queued) {b['bound_ms'] / queued:.4f}")
+    report.update(ms=ms, queued_ms=queued, plain_ms=plain_ms, **b, n=BATCH, work=stats, library_ms=None,
+                  library=WALK_LIBRARY, share_of_bound_queued=b["bound_ms"] / queued)
+    adversarial = walk_adversarial(scene_pack, 11 + len(name))
+    for on_cpu in (False, True):
+        err, hits = walk.check(adversarial, "adversarial rays", on_cpu=on_cpu)
+        worst = max(worst, err)
+    print(f"kernel {name}: bit-equal to plain on {adversarial[0].shape[0]} adversarial rays (card and CPU), hits "
+          f"{hits:.4f}")
+    batch_stats, n_rays = {}, 0
+    for q in queries:
+        err, _ = walk.check(q, "a recorded query", on_cpu=False, stats=batch_stats)
+        worst, n_rays = max(worst, err), n_rays + q[0].shape[0]
+
+    def replay():
+        for q in queries:
+            walk.kernel(walk.pack, *q)
+
+    batch_ms, batch_queued = cuda_ms(replay, 5), cuda_ms_queued(replay, 5)
+    bb = walk.bound(n_rays, batch_stats)
+    print(f"kernel {name}: bit-equal to plain on the {len(queries)} recorded queries of a batch ({n_rays} rays); "
+          f"replayed {batch_ms:.4f} ms a batch as called, {batch_queued:.4f} queued; work {batch_stats}; bound "
+          f"{bb['bound_ms']:.4f} ms, share (queued) {bb['bound_ms'] / batch_queued:.4f}")
+    report.update(max_abs_err=worst, batch=dict(queries=len(queries), rays=n_rays, ms=batch_ms,
+                                                 queued_ms=batch_queued, work=batch_stats, **bb))
+
+
+def walk_queries(tracer, name):
+    """The (origin, direction, t_max) of every nearest-hit query of one
+    batch of ``tracer`` (its calls of ``accel._nearest``'s walk ``name``)."""
+    import torch
+
+    from theia_tpu_torch import accel
+
+    def rays(pack, o, d, t_max):
+        t_max = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32, device=o.device), o.shape[:1])
+        return o.clone(), d.clone(), t_max.clone().contiguous()
+
+    return record_calls(tracer, accel, (name,), rays)
+
+
+def anyhit_queries(nearest: Walk, queries):
+    """For each recorded nearest-hit query, the any-hit's rays bounded at
+    half the nearest hit's t (``nearest``'s kernel; the query's t_max where
+    it missed), so that some lanes find a blocker and some do not."""
+    import torch
+
+    out = []
+    for o, d, t_max in queries:
+        t, _ = nearest.kernel(nearest.pack, o, d, t_max)
+        out.append((o, d, torch.where(torch.isfinite(t), t * 0.5, t_max).contiguous()))
+    return out
+
+
+def sweep(mesh, report):
+    """The crossover sweep: the nearest hit of SWEEP_RAYS random rays
+    through lattices of SWEEP_SIDES (1, 8, 26 and 124 modules of
+    ``mesh``), on the brute-force soup, the instanced walk and the BVH,
+    each timed as called (one launch each; the instanced walk one a
+    group). Recorded only: ``accel="auto"`` keeps theia_tpu's rule."""
+    import torch
+
+    import theia_tpu_torch
+    from torch_flagship import array_rays, build_array
+
+    from theia_tpu_torch import accel
+
+    rows = []
+    for n_side in SWEEP_SIDES:
+        row = dict(n_side=n_side)
+        rays = tuple(torch.as_tensor(a, device="cuda") for a in array_rays(SWEEP_RAYS, 100 + n_side, n_side))
+        for backend in ("brute", "instanced", "bvh"):
+            scene = build_array(theia_tpu_torch, mesh, 1, 2, accel=backend, device="cuda", n_side=n_side).scene
+            query = lambda: accel._nearest(scene.pack, *rays)
+            row["modules"], row["triangles"] = len(scene.instances), sum(len(i.mesh.indices) for i in scene.instances)
+            row[backend] = cuda_ms(query, 10)
+            row[f"{backend}_hits"] = float((query()[1] >= 0).float().mean())
+        row["auto"] = build_array(theia_tpu_torch, mesh, 1, 2, device="cuda", n_side=n_side).scene.accel
+        assert row["brute_hits"] == row["instanced_hits"] or abs(row["brute_hits"] - row["instanced_hits"]) < 1e-3, row
+        print(f"sweep: {row['modules']} modules ({row['triangles']} triangles), {SWEEP_RAYS} rays: brute "
+              f"{row['brute']:.4f} ms, instanced {row['instanced']:.4f} ms, bvh {row['bvh']:.4f} ms as called; hits "
+              f"{row['brute_hits']:.4f}; auto picks {row['auto']}")
+        rows.append(row)
+    report["sweep"] = rows
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2300,6 +2584,8 @@ def main() -> int:
         anyhit_in_table, nearest_in_table, nearest_in_table_rows, target_in_table,
     )
     from theia_tpu_torch.ops.intersect_woop import nearest_triangle_woop
+    from theia_tpu_torch.ops.bvh_traverse import nearest_triangle_bvh, occluded_bvh
+    from theia_tpu_torch.ops.instanced import nearest_triangle_instanced, occluded_instanced
     from theia_tpu_torch.random import philox_uniform
     from theia_tpu_torch.ops import table_read
     from theia_tpu_torch.response import histogram_add, histogram_grad
@@ -2307,7 +2593,8 @@ def main() -> int:
         KernelHistogramHitResponse, StoreTimeHitResponse, kernel_histogram_add, kernel_histogram_grad,
     )
     from torch_flagship import (
-        adversarial_rays, build_flagship, build_photon_flagship, build_volume_flagship, build_volume_photon, icosphere,
+        adversarial_rays, build_array, build_flagship, build_photon_flagship, build_volume_flagship, build_volume_photon,
+        icosphere,
     )
 
     # the seconds of each phase, printed as it ends
@@ -2318,12 +2605,13 @@ def main() -> int:
         clock[name] = lap_clock[0] = time.perf_counter()
         print(f"phase {last}: {clock[name] - clock[last]:.1f} s")
 
-    lap_clock = [time.perf_counter()]
+    lap_clock, laps = [time.perf_counter()], {}
 
     def lap(what: str) -> None:
         """The seconds since the last lap, inside a phase."""
         now = time.perf_counter()
         print(f"    ({what}: {now - lap_clock[0]:.1f} s)")
+        laps[what] = now - lap_clock[0]
         lap_clock[0] = now
 
     # phase 1: the card and the build
@@ -2383,6 +2671,10 @@ def main() -> int:
         **{
             name: dict(route="cuda", source=source, replaces=replaces)
             for name, (source, replaces) in GRADIENT_KERNELS.items()
+        },
+        **{
+            name: dict(route="cuda", source=source, replaces=replaces)
+            for name, (source, replaces) in WALK_KERNELS.items()
         },
     }
     rows = tracer.scene.pack.tri_data[:, 18:27].cpu().numpy()
@@ -2476,6 +2768,28 @@ def main() -> int:
     check_table_read(kernels, brute_tracer.scene.pack.media, volume_tracer.params()["medium"])
     check_gather_rows(kernels["gather_rows"], kernels["gather_rows_grad"], brute_tracer.scene.pack, shadow_winners)
     lap("the kernel histogram and the table reads")
+    # the walks: flagship-array (example 08's detector array, which accel="auto" sends to the instanced walk)
+    # and flagship-bvh (the flagship scene on the threaded BVH, leaf size 8), each on its recorded batch
+    array_tracer = build_array(theia_tpu_torch, mesh, BATCH, ARRAY_PATH, device="cuda")
+    array_pack = array_tracer.scene.pack
+    assert array_tracer.scene.accel == "instanced" and array_pack.tri_data.shape[0] == 26 * 1280, array_tracer.scene.accel
+    bvh_tracer = build_flagship(theia_tpu_torch, mesh, BATCH, MAX_PATH, accel="bvh", device="cuda")
+    assert bvh_tracer.scene.pack.bvh.leaf_size == 8
+    walk_batches = {
+        "instanced": walk_queries(array_tracer, "nearest_triangle_instanced"),
+        "bvh": walk_queries(bvh_tracer, "nearest_triangle_bvh"),
+    }
+    # the array's 8 primary queries (no guide, so no shadow query); the flagship's 10 primary and 9 shadow
+    assert len(walk_batches["instanced"]) == ARRAY_PATH and len(walk_batches["bvh"]) == 2 * MAX_PATH - 1
+    for name in WALK_KERNELS:
+        kind = "instanced" if name.endswith("instanced") else "bvh"
+        walk_pack = (array_tracer if kind == "instanced" else bvh_tracer).scene.pack
+        walk, queries = Walk(name, walk_pack), walk_batches[kind]
+        if walk.any_hit:
+            queries = anyhit_queries(Walk(name.replace("occluded", "nearest_triangle"), walk_pack), queries)
+        check_walk(walk, walk_pack, queries, kernels[name])
+    del walk_batches, queries
+    lap("the instanced and BVH walks")
 
     phase("3")
     # phase 3: the first main path (accel="mt") at full width
@@ -2492,6 +2806,10 @@ def main() -> int:
         "read_table": table_read.read_table,
         "read_packed": table_read.read_packed,
         "gather_rows": table_read.gather_rows,
+        "nearest_triangle_instanced": nearest_triangle_instanced,
+        "occluded_instanced": occluded_instanced,
+        "nearest_triangle_bvh": nearest_triangle_bvh,
+        "occluded_bvh": occluded_bvh,
     }
     # the gradient steps' launches: every wrapper, the backward kernels and the kernel histogram too
     grad_wrappers = {
@@ -2683,9 +3001,10 @@ def main() -> int:
         "mt": build_flagship(theia_tpu_torch, mesh, BATCH, MAX_PATH, accel="mt", device="cuda"),
         "woop": build_flagship(theia_tpu_torch, mesh, BATCH, MAX_PATH, accel="woop", device="cuda"),
         "brute": brute_tracer,
+        "bvh": bvh_tracer,
     }
     backend_turns = []
-    for label in ("mt", "woop", "brute", "brute", "woop", "mt"):
+    for label in ("mt", "woop", "brute", "bvh", "bvh", "brute", "woop", "mt"):
         turn_seconds, turn_sums, _, _ = timed_runs(backends[label], wrappers, f"{label} path")
         backend_turns.append(dict(accel=label, seconds_per_batch=turn_seconds, histogram_sums=turn_sums))
     print("main paths in turns, unpolarized: " + "; ".join(
@@ -2828,6 +3147,55 @@ def main() -> int:
     del geo_tracer
     torch.cuda.empty_cache()
 
+    phase("3j")
+    # phase 3j: flagship-array (example 08's detector array: 26 modules of 1280 triangles, accel="auto" ->
+    # "instanced", HitRecorder, path length 8) and flagship-bvh (the flagship scene, accel="bvh") at full width
+    walk_cells = {}
+    for label, cell_tracer, total, own, per_batch in (
+        ("flagship-array", array_tracer, recorded_total, "nearest_triangle_instanced", ARRAY_PATH),
+        ("flagship-bvh", bvh_tracer, histogram_total, "nearest_triangle_bvh", 2 * MAX_PATH - 1),
+    ):
+        cell_seconds, cell_sums, cell_counts, cell_peak = timed_runs(cell_tracer, wrappers, label, total)
+        assert cell_counts[own] == per_batch * 3, cell_counts
+        others = [name for name, n in cell_counts.items() if n and name not in (own, "philox_uniform", "histogram_add",
+                                                                                 "read_packed", "read_table", "gather_rows")]
+        assert not others, f"{label}: other queries launched: {cell_counts}"
+        cell_prof = profile_step(cell_tracer.run)
+        cell_med = statistics.median(cell_seconds)
+        print(
+            f"{label}: batch {BATCH}, path length {cell_tracer.maxPathLength}, {cell_tracer.scene.pack.tri_data.shape[0]} "
+            f"triangles, accel {cell_tracer.scene.accel}: {cell_med:.4f} s/batch (median of "
+            f"{[round(x, 4) for x in cell_seconds]}), {BATCH * cell_tracer.maxPathLength / cell_med:.6g} bounces/s, peak "
+            f"memory {cell_peak / 2**20:.1f} MiB, launches per batch "
+            f"{{{', '.join(f'{k}: {v // 3}' for k, v in cell_counts.items() if v)}}}; one batch profiled: device busy "
+            f"{cell_prof['device_busy_ms']:.2f} ms, {cell_prof['kernels']} kernels and copies; totals {cell_sums}"
+        )
+        for entry in cell_prof["top"][:6] + cell_prof["own"]:
+            print(f"    {entry['ms']:9.3f} ms {entry['count']:6d} x {entry['name'][:90]}")
+        kernels[own].update(launches=cell_counts[own], launches_per_batch=per_batch, path=f"{label}, 3 batches")
+        # is_visible on the cell's scene, the any-hit walk's entry point: observers through the scene,
+        # targets up to 4 m along random rays
+        o, d, _ = walk_rays(cell_tracer.scene.pack, BATCH, 41)
+        target = o + 4.0 * d
+        for w in wrappers.values():
+            w.launches = 0
+        seen = [accel.is_visible(cell_tracer.scene.pack, o, target) for _ in range(3)]
+        torch.cuda.synchronize()
+        vis_counts = {name: w.launches for name, w in wrappers.items() if w.launches}
+        anyhit = own.replace("nearest_triangle", "occluded")
+        assert vis_counts == {anyhit: 3}, vis_counts
+        assert all(torch.equal(v, seen[0]) for v in seen) and 0.0 < float(seen[0].float().mean()) < 1.0
+        kernels[anyhit].update(launches=3, launches_per_batch=1, path=f"is_visible on {label}'s scene, 3 calls")
+        print(f"is_visible ({label}): {BATCH} observer-target pairs, visible {float(seen[0].float().mean()):.4f}, "
+              f"launches {vis_counts}")
+        walk_cells[label] = dict(seconds_per_batch=cell_seconds, totals=cell_sums, launches=cell_counts,
+                                 peak_bytes=cell_peak, profile=cell_prof, visible=float(seen[0].float().mean()))
+    del array_tracer, bvh_tracer, cell_tracer
+    torch.cuda.empty_cache()
+    # the crossover sweep: brute soup, instanced walk and BVH on 1, 8, 26 and 124 modules
+    sweep_report = {}
+    sweep(mesh, sweep_report)
+
     phase("4")
     # phase 4: the port on the CPU against the port on the card
     cpu_vs_card = {}
@@ -2841,6 +3209,9 @@ def main() -> int:
         ("volume photon", lambda dev: build_volume_photon(theia_tpu_torch, SMALL_BATCH, dev)),
         ("scene photon", lambda dev: build_photon_flagship(theia_tpu_torch, mesh, SMALL_BATCH, dev)),
         ("unguided, StoreTimeHitResponse", flagship(accel="auto", guided=False, response=StoreTimeHitResponse())),
+        ("flagship-array (instanced), HitRecorder", lambda dev: build_array(
+            theia_tpu_torch, mesh, SMALL_BATCH, ARRAY_PATH, device=dev)),
+        ("flagship-bvh", flagship(accel="bvh")),
     ):
         dims, results = {}, {}
         for dev in ("cpu", "cuda"):
@@ -2911,7 +3282,7 @@ def main() -> int:
         brute_path=dict(seconds_per_batch=brute_seconds, bounces_per_s=BATCH * MAX_PATH / brute_med,
                         peak_bytes=brute_peak, histogram_sums=brute_sums, launches=brute_counts,
                         row_source_turns=brute_turns),
-        backends_in_turns=backend_turns,
+        backends_in_turns=backend_turns, walk_cells=walk_cells, crossover_sweep=sweep_report["sweep"],
         read_sites=dict(mt=mt_sites, woop_polarized=pol_sites, brute=brute_sites, volume=vol_sites),
         woop_polarized_path=dict(seconds_per_batch=pol_seconds, bounces_per_s=BATCH * MAX_PATH / pol_med,
                                  peak_bytes=pol_peak, histogram_sums=pol_sums, launches=pol_counts),
@@ -2924,6 +3295,7 @@ def main() -> int:
                       launches=grad_counts, profile=grad_prof),
         volume_gradient_steps=volume_steps, geometry_gradient_step=geo,
         cpu_vs_card=cpu_vs_card, phase_seconds={k: clock[n] - clock[k] for k, n in zip(clock, list(clock)[1:])},
+        lap_seconds=laps,
         **line,
     ), indent=1))
     print(json.dumps(line))

@@ -397,3 +397,26 @@ def test_kernel_histogram_backward_on_kept_lane_cases(cuda, label):
     before = kernel_histogram_grad.launches
     hold_kde(kde_cases(2 * BATCH)[label], label)
     assert kernel_histogram_grad.launches == before + 1
+
+
+@pytest.mark.parametrize(
+    "name", ["nearest_triangle_instanced", "occluded_instanced", "nearest_triangle_bvh", "occluded_bvh"]
+)
+def test_walk_kernels_bit_equal(cuda, name):
+    """The four walk entry points against their plain walks, bit for bit,
+    on random and adversarial rays (``chip_smoke.walk_adversarial``), the
+    plain walk on the card and on the CPU; one launch a call (a group)."""
+    import theia_tpu_torch
+    from chip_smoke import Walk, walk_adversarial, walk_rays
+    from torch_flagship import build_array, build_flagship, icosphere
+
+    if name.endswith("instanced"):
+        scene = build_array(theia_tpu_torch, icosphere(2), 64, 2, device=cuda).scene
+    else:
+        scene = build_flagship(theia_tpu_torch, icosphere(2), 64, 2, accel="bvh", device=cuda).scene
+    walk = Walk(name, scene.pack)
+    for rays in (walk_rays(scene.pack, 10_000, 3), walk_adversarial(scene.pack, 4, per_kind=32)):
+        before = walk.kernel.launches
+        walk.check(rays, "rays", on_cpu=False)
+        assert walk.kernel.launches == before + 1
+        walk.check(rays, "rays", on_cpu=True)

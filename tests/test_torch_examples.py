@@ -1,9 +1,11 @@
-"""The port's example scripts (``theia_tpu_torch/examples/``: 05, 06 and
-10 of theia_tpu's examples) run end to end on the CPU at a small batch
-and print their result lines; each is the script's own ``main`` with
-``device="cpu"``. Example 10's calibration is held to its 6 cm only at
-its own batch (on the card): here, at 1024 lanes and 6 iterations, its
-error must fall below the offset it starts from."""
+"""The port's example scripts (``theia_tpu_torch/examples/``: 02, 05, 06,
+08, 09 and 10 of theia_tpu's examples) run end to end on the CPU at a
+small batch and print their result lines; each is the script's own
+``main`` with ``device="cpu"``. Example 10's calibration and example 09's
+reconstruction are held to their 6 cm and 12 cm only at their own batch
+(on the card): here, at 1024 lanes and a few iterations, the error must
+fall below the offset it starts from. Example 02 traces on the threaded
+BVH, 08 and 09 on the instanced walk (08's ``"auto"`` picks it)."""
 
 import importlib.util
 from pathlib import Path
@@ -30,6 +32,9 @@ def _main(script):
         ("05_inverse_problem.py", dict(batch=2048), "recovered absorption scale"),
         ("06_timing_calibration.py", dict(batch=2048), "recovered group-velocity scale"),
         ("10_geometry_calibration.py", dict(batch=1024, iterations=6, check=False), "calibrated offset"),
+        ("02_scene_tracing.py", dict(batch=2048, runs=1), "detector light curve"),
+        ("08_detector_array.py", dict(batch=2048, check=False), "accel backend picked by auto: instanced"),
+        ("09_source_reconstruction.py", dict(batch=1024, iterations=4, check=False), "reconstructed"),
     ],
 )
 def test_port_example_runs(script, kw, expect, capsys):
@@ -40,6 +45,12 @@ def test_port_example_runs(script, kw, expect, capsys):
     assert np.isfinite(result)
     if script.startswith("10"):
         assert result < float(np.linalg.norm(module.TRUE_OFFSET)), out
+    elif script.startswith("09"):
+        assert result < float(np.linalg.norm(module.TRUE_POS)), out
+    elif script.startswith("02"):
+        assert result > 0.0, out
+    elif script.startswith("08"):
+        assert 1 <= result <= 26, out
     else:  # the scale moved from 1 towards the truth (1.35, 0.92)
         truth = 1.35 if script.startswith("05") else 0.92
         assert abs(result - truth) < abs(1.0 - truth), out

@@ -1,5 +1,6 @@
 """theia_tpu_torch must run without jax: importing every module and
-tracing a small batch of each backend's flagship, the volume flagship,
+tracing a small batch of each backend's flagship (the BVH and the
+instanced walk too, the BVH's builder compiled from the port's own copy), the volume flagship,
 the volume photon tracer (run and run_compacted) and the photon flagship,
 and taking a gradient step through the table reads and the kernel
 histogram (the volume tracer in its group velocity, the brute-force
@@ -24,11 +25,18 @@ import theia_tpu_torch.callback, theia_tpu_torch.interop, theia_tpu_torch.light,
 import theia_tpu_torch.target, theia_tpu_torch.response, theia_tpu_torch.material
 import theia_tpu_torch.trace.volume, theia_tpu_torch.trace.photon
 import theia_tpu_torch.testing, theia_tpu_torch.ops.table_read
+import theia_tpu_torch.native, theia_tpu_torch.ops.bvh_traverse, theia_tpu_torch.ops.instanced
+import theia_tpu_torch.render
 import dataclasses, importlib.util, pathlib, torch
 for script in sorted(pathlib.Path(theia_tpu_torch.__file__).parent.joinpath("examples").glob("*.py")):
     spec = importlib.util.spec_from_file_location("example_" + script.stem[:2], script)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
-from torch_flagship import build_flagship, build_photon_flagship, build_volume_flagship, icosphere
+from torch_flagship import build_array, build_flagship, build_photon_flagship, build_volume_flagship, icosphere
+for accel in ("bvh", "instanced"):
+    hist, _ = build_flagship(theia_tpu_torch, icosphere(1), 64, 2, accel=accel, device="cpu").run()
+    assert hist.shape == (100,)
+array = build_array(theia_tpu_torch, icosphere(2), 64, 2, device="cpu")
+assert array.scene.accel == "instanced" and array.run()[0]["valid"].shape == (128,)
 for pol in (False, True):
     hist, _ = build_volume_flagship(theia_tpu_torch, 64, "cpu", polarized=pol).run()
     assert hist.shape == (100,)

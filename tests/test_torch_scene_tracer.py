@@ -206,26 +206,25 @@ def test_brute_path_queries(runs):
 
 
 def test_unported_configurations_raise():
-    """What is still unported raises: the BVH and the instanced traversal,
-    named or picked by ``accel="auto"`` for a large scene that instances
-    its meshes (polarized tracing, the brute-force scan and the tracer
-    without a target guide are ported now, the last with theia_tpu's
-    unguided draw budget). No other backend stands in."""
+    """Only an unknown backend raises now: the BVH and the instanced
+    traversal, named or picked by ``accel="auto"`` for a large scene that
+    instances its meshes, build their packs (tests/test_torch_bvh.py and
+    tests/test_torch_instanced.py hold them against theia_tpu). No other
+    backend stands in for one that is named."""
     from theia_tpu_torch import material, scene as tscene
     from theia_tpu_torch.mesh import Mesh
 
     mesh = icosphere(1)
     for name in ("bvh", "instanced"):
-        with pytest.raises(NotImplementedError, match="Instanced and BVH"):
-            build_flagship(theia_tpu_torch, mesh, 64, 2, accel=name, device="cpu")
+        pack = build_flagship(theia_tpu_torch, mesh, 64, 2, accel=name, device="cpu").scene.pack
+        assert getattr(pack, name) is not None and pack.soup is None and pack.mt is None and pack.woop is None
     with pytest.raises(ValueError, match="accel must be"):
         build_flagship(theia_tpu_torch, mesh, 64, 2, accel="octree", device="cpu")
     # 7 instances of one 1280-triangle sphere: 8960 >= 8192 triangles, 7x the prototype
     mats = material.MaterialStore.pack([material.Material("wall", None, None, flags="TR")], device="cpu")
     meshes = tscene.MeshStore({"sphere": Mesh.from_geometry(*icosphere(3))})
     many = [meshes.createInstance("sphere", "wall", tscene.Transform.Translation(3.0 * k, 0, 0)) for k in range(7)]
-    with pytest.raises(NotImplementedError, match="instanced"):
-        tscene.Scene(many, mats, device="cpu")
+    assert tscene.Scene(many, mats, device="cpu").accel == "instanced"
     assert tscene.Scene(many[:6], mats, device="cpu").accel == "brute"  # 7680 triangles: below the threshold
     assert tscene.Scene(many, mats, accel="brute", device="cpu").pack.soup.n_tri == 8960
     tracer = build_flagship(theia_tpu_torch, mesh, 64, 2, device="cpu")

@@ -13,8 +13,10 @@ volume tracer, :func:`build_volume_photon` a volume photon tracer of
 ``tests/test_trace_photon.py`` and :func:`build_photon_flagship` the
 photon tracer of ``__graft_entry__._dryrun_photon_compacted`` on the
 flagship's scene.
-:func:`adversarial_rays` makes rays on the boundaries of the nearest-hit
-tests from a soup's triangles.
+:func:`build_array` is ``examples/08_detector_array.py``'s detector array
+(what ``accel="auto"`` sends to the instanced walk), :func:`array_rays`
+random rays through it. :func:`adversarial_rays` makes rays on the
+boundaries of the nearest-hit tests from a soup's triangles.
 """
 
 from __future__ import annotations
@@ -235,6 +237,136 @@ def build_photon_flagship(pkg, mesh, batch: int, device=None, **kw):
     )
 
 
+def array_scene(pkg, accel: str, *, n_side: int = 3, mixed: bool = False, scale: float = 1.0, device=None):
+    """``tests/test_instanced.py``'s ``array_scene`` in package ``pkg`` on
+    in-code meshes: an ``n_side``^3 grid of ``icosphere(2)`` spheres of
+    radius 0.4 ``scale``, 2 ``scale`` apart, and with ``mixed`` a second
+    prototype (``icosphere(1)`` of radius 0.8 ``scale``, where the JAX test
+    has suzanne) at (-3 ``scale``, 0, 0); one black material, no medium."""
+    dev = {} if device is None else {"device": device}
+    mod = lambda name: importlib.import_module(f"{pkg.__name__}.{name}")
+    material, scene_mod = mod("material"), mod("scene")
+    mats = material.MaterialStore.pack([material.Material("m", None, None, flags="B")], **dev)
+    Mesh = mod("mesh").Mesh
+    meshes = scene_mod.MeshStore({"sphere": Mesh.from_geometry(*icosphere(2)), "other": Mesh.from_geometry(*icosphere(1))})
+    T = scene_mod.Transform
+    insts = [
+        meshes.createInstance("sphere", "m", T.TRS(scale=0.4 * scale, translate=(2.0 * scale * i, 2.0 * scale * j, 2.0 * scale * k)))
+        for i in range(n_side) for j in range(n_side) for k in range(n_side)
+    ]
+    if mixed:
+        insts.append(meshes.createInstance("other", "m", T.TRS(scale=0.8 * scale, translate=(-3.0 * scale, 0.0, 0.0))))
+    return scene_mod.Scene(insts, mats, medium=None, accel=accel, **dev)
+
+
+#: the walks' t against theia_tpu's (tests/test_torch_brute.py's limits)
+T_ULPS, T_RTOL = 4, 3e-4
+
+
+def _ulps(a, b):
+    """Distance in float32 steps."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    return np.abs(a.view(np.int32).astype(np.int64) - b.view(np.int32).astype(np.int64))
+
+
+def assert_winners_match(t, idx, jt, jidx, hit_share=0.999, same_share=0.995):
+    """A walk's (t, idx) against ``theia_tpu``'s (jt, jidx), as
+    tests/test_torch_bvh.py's tolerance (b) states: hit or miss the same on
+    ``hit_share`` of the lanes, the same winner on ``same_share`` of those
+    both hit, t within T_ULPS ulps on 90 % of them and T_RTOL on all."""
+    t, idx, jt, jidx = (np.asarray(a) for a in (t, idx, jt, jidx))
+    hit, jhit = idx >= 0, jidx >= 0
+    assert jhit.any() and (~jhit).any()
+    assert (hit == jhit).mean() >= hit_share, (hit == jhit).mean()
+    both = hit & jhit
+    assert (idx[both] == jidx[both]).mean() >= same_share
+    same = both & (idx == jidx)
+    assert np.percentile(_ulps(t[same], jt[same]), 90) <= T_ULPS
+    np.testing.assert_allclose(t[same], jt[same], rtol=T_RTOL, atol=0.0)
+
+
+def uniform_rays(n: int, seed: int, lo: float = -4.0, hi: float = 7.0):
+    """Rays with origins uniform in the cube [lo, hi)^3 and isotropic unit
+    directions, numpy float32, from ``seed``: ``tests/test_instanced.py``'s
+    ``random_rays`` drawn with numpy."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(lo, hi, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return o, d.astype(np.float32)
+
+
+#: example 08's lattice: 3 x 3 x 3 places 2 m apart, the centre left free
+ARRAY_SIDE, ARRAY_SPACING = 3, 2.0
+
+
+def array_transforms(n_side: int = ARRAY_SIDE, spacing: float = ARRAY_SPACING, pkg=None):
+    """The translations of ``examples/08_detector_array.py``'s lattice:
+    ``n_side``^3 places ``spacing`` apart around the origin, the centre
+    left free for the flash where there is one (26 for 3 x 3 x 3, 1 for
+    1 x 1 x 1), as ``pkg.scene.Transform``s."""
+    T = importlib.import_module(f"{pkg.__name__}.scene").Transform
+    c = (n_side - 1) / 2.0
+    return [
+        T.TRS(translate=((i - c) * spacing, (j - c) * spacing, (k - c) * spacing))
+        for i in range(n_side) for j in range(n_side) for k in range(n_side)
+        if not (n_side % 2 == 1 and n_side > 1 and i == j == k == (n_side - 1) // 2)
+    ]
+
+
+def build_array(
+    pkg, mesh, batch: int, max_path: int = 8, accel: str = "auto", device=None, *, response=None,
+    n_side: int = ARRAY_SIDE, scale: float = 0.35, key: int = 0xA11CE,
+):
+    """``examples/08_detector_array.py``'s tracer of ``pkg``: BK7-shelled
+    detector modules (flags ``"DB"``, the sphere ``mesh`` at ``scale`` m)
+    stamped by ``render.SceneTemplate`` across :func:`array_transforms`,
+    in water at 10 degC and 35 PSU with HG g = 0.9 on 64 x 64 tables
+    (glass 64 x 4), a flash at the origin (budget 1e9), 400-500 nm,
+    ``PhiloxRNG(key=0xA11CE)``, no target guide, path length 8, 120 ns, a
+    ``HitRecorder`` (``response`` replaces it). 26 modules of
+    ``icosphere(3)`` are 33,280 triangles and ``accel="auto"`` resolves to
+    ``"instanced"``; 26 of ``icosphere(2)`` are 8,320, still past the
+    threshold."""
+    mod = lambda name: importlib.import_module(f"{pkg.__name__}.{name}")
+    u, light, material, rnd, scene_mod = mod("units"), mod("light"), mod("material"), mod("random"), mod("scene")
+    dev = {} if device is None else {"device": device}
+    water = water_medium(material, num_lambda=64, num_theta=64)
+    glass = material.BK7Model().createMedium(num_lambda=64, num_theta=4)
+    mats = material.MaterialStore.pack([material.Material("det_shell", glass, water, flags="DB")], **dev)
+    meshes = scene_mod.MeshStore({"sphere": mod("mesh").Mesh.from_geometry(*mesh)})
+    proto = meshes.createInstance("sphere", "det_shell", scene_mod.Transform.TRS(scale=scale * u.m))
+    template = mod("render").SceneTemplate([proto])
+    scene = template.createScene(array_transforms(n_side, pkg=pkg), mats, medium="water", accel=accel, **dev)
+    return mod("trace.scene").SceneForwardTracer(
+        batch,
+        light.SphericalLightSource(position=(0.0, 0.0, 0.0), timeRange=(0.0, 0.0), budget=1e9),
+        light.UniformWavelengthSource(lambdaRange=(400.0 * u.nm, 500.0 * u.nm)),
+        response or mod("response").HitRecorder(),
+        rnd.PhiloxRNG(key=key),
+        scene,
+        maxPathLength=max_path,
+        maxTime=120.0 * u.ns,
+        **dev,
+    )
+
+
+def array_rays(n: int, seed: int, n_side: int = ARRAY_SIDE, spacing: float = ARRAY_SPACING):
+    """Random rays (numpy float32 origin, unit direction and t_max) in and
+    around the lattice: origins spread over the lattice's box and 1 m
+    beyond, half of the directions aimed at a random module's centre, a
+    mix of finite and infinite t_max."""
+    rng = np.random.default_rng(seed)
+    reach = (n_side - 1) / 2.0 * spacing + 1.0
+    o = rng.uniform(-reach, reach, size=(n, 3))
+    grid = np.asarray([t for t in np.ndindex(n_side, n_side, n_side)], np.float64)
+    aim = (grid[rng.integers(0, len(grid), n)] - (n_side - 1) / 2.0) * spacing + rng.normal(scale=0.3, size=(n, 3))
+    d = np.where(rng.uniform(size=(n, 1)) < 0.5, aim - o, rng.normal(size=(n, 3)))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t_max = np.where(rng.uniform(size=n) < 0.5, rng.uniform(0.5, 4.0 * reach, size=n), np.inf)
+    return o.astype(np.float32), d.astype(np.float32), t_max.astype(np.float32)
+
+
 def adversarial_rays(v0, e1, e2, seed, per_kind=96):
     """Rays that sit on the rejection test's boundaries, from a soup's
     world triangles: through vertices, through points on edges, along
@@ -306,7 +438,7 @@ def numpy_tree(x):
     return np.asarray(x)
 
 
-def build_grad_scene(pkg, kind: str, batch: int, device=None, *, mesh=None, max_path=None):
+def build_grad_scene(pkg, kind: str, batch: int, device=None, *, mesh=None, max_path=None, accel="brute"):
     """The scene tracers of ``tests/test_grad_scene.py`` (and golden c5's)
     in package ``pkg``, on the in-code icosphere ``mesh`` (default
     ``icosphere(2)``) where those load ``sphere.stl`` or ``suzanne.stl``:
@@ -327,8 +459,9 @@ def build_grad_scene(pkg, kind: str, batch: int, device=None, *, mesh=None, max_
       in water, the detector, which in c5 is suzanne, at (0, 4, 0), a
       ``SphereTargetGuide``; ``tools/ref_conformance.c5_suzanne_polarized_grad``).
 
-    ``max_path`` replaces the path length. Scene media keep the names the
-    tests patch: ``homogenous``, ``water_test``, ``water`` and ``bk7``."""
+    ``max_path`` replaces the path length; ``accel`` the backend of
+    ``"source"`` and ``"detector"`` (``"instanced"`` is the JAX test's). Scene
+    media keep the names the tests patch: ``homogenous``, ``water_test``, ``water`` and ``bk7``."""
     mod = lambda name: importlib.import_module(f"{pkg.__name__}.{name}")
     light, material, rnd, response = mod("light"), mod("material"), mod("random"), mod("response")
     scene_mod, target, u = mod("scene"), mod("target"), mod("units")
@@ -380,7 +513,7 @@ def build_grad_scene(pkg, kind: str, batch: int, device=None, *, mesh=None, max_
             insts = [meshes.createInstance("sphere", "det", T.TRS(scale=0.5, translate=(3.0, 0.0, 0.0)), detectorId=0)]
             resp = response.KernelHistogramHitResponse(nBins=30, t0=0.0, binSize=1.5)
             key, lam, max_time = 0xD07, (450.0, 450.0), 40.0
-        scene = scene_mod.Scene(insts, mats, medium="water_test", accel="brute", **dev)
+        scene = scene_mod.Scene(insts, mats, medium="water_test", accel=accel, **dev)
         return tracer(scene, origin(0.0, 1e6), resp, key, 4, lam=lam, maxTime=max_time)
     if kind == "c5":
         water = water_medium(material, num_lambda=64, num_theta=256)

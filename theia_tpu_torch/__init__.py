@@ -3,17 +3,20 @@
 A second package beside ``theia_tpu`` (the JAX reference) with the same
 module layout and public names, so the same builder code drives either.
 Plain tensor code is PyTorch; the hot kernels of the scene tracer's main
-path (the nearest-hit and any-hit scans over the triangle soup, Philox
-draws, the histogram record and its backward, the kernel histogram and
-the table reads with their backward) are hand-written CUDA kernels for
-Hopper in ``csrc/``, built with nvcc at first use. On CPU tensors every
-kernel's plain PyTorch version runs instead. This package never imports
-jax or theia_tpu.
+path (the nearest-hit and any-hit scans over the triangle soup, the
+instanced and BVH walks, Philox draws, the histogram record and its
+backward, the kernel histogram and the table reads with their backward)
+are hand-written CUDA kernels for Hopper in ``csrc/``, built with nvcc at
+first use (the BVH builder in ``native/`` with g++). On CPU tensors
+every kernel's plain PyTorch version runs instead. This package never
+imports jax or theia_tpu.
 
 Ported so far: the scene forward tracer, guided or not, unpolarized and
-polarized, on the default brute-force scene (``accel="auto"``) and with
-``accel="mt"`` or ``accel="woop"``; the volume forward tracer and the two
-photon tracers on analytic targets and scenes; the forward tracers'
+polarized, on the default brute-force scene (``accel="auto"``), with
+``accel="mt"`` or ``accel="woop"``, and on the two-level instanced walk
+(what ``"auto"`` picks for a detector array) and the threaded BVH
+(``accel="instanced"``, ``accel="bvh"``); the volume forward tracer and
+the two photon tracers on analytic targets and scenes; the forward tracers'
 gradients through ``trace_fn()`` (medium tables, phase and refractive
 index, group velocity, source and detector position) (see ROADMAP.md
 for what comes next).

@@ -30,7 +30,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "theia_tpu_torch"
 SOURCES = (
     "intersect_woop.cu", "intersect_soup.cu", "philox.cu", "histogram.cu",
-    "kernel_histogram.cu", "table_read.cu",
+    "kernel_histogram.cu", "table_read.cu", "bvh_walk.cu", "instanced_walk.cu",
 )
 #: -fmad=false: no contraction of a*b+c into FMAs, so every product and sum
 #: rounds exactly as the plain PyTorch versions' separate ops do (explicit
@@ -61,6 +61,10 @@ _SIGNATURES = {
     "theia_table_read_grad": (_P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P),
     "theia_gather_rows": (_P, _I, _I, _P, _I, _P, _P, _P),
     "theia_gather_rows_grad": (_P, _P, _P, _I, _I, _I, _P, _P),
+    "theia_bvh_nearest": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P),
+    "theia_bvh_occluded": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _P),
+    "theia_instanced_nearest": (_P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P),
+    "theia_instanced_occluded": (_P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P),
 }
 
 

@@ -2,10 +2,11 @@
 
 The nearest-hit selection goes through the scene's tables (the soup
 kernels on brute-force packs, the Moeller-Trumbore kernel with
-``accel="mt"``, the Woop kernel with ``accel="woop"``) on detached
-tensors. On brute-force and ``mt`` packs the query also returns each
-winner's ``tri_data`` row (the kernel copies it), unless ``tri_data`` is
-being differentiated. The winner is then rebuilt from its two table rows
+``accel="mt"``, the Woop kernel with ``accel="woop"``, the two-level walk
+with ``accel="instanced"``, the threaded-BVH walk with ``accel="bvh"``)
+on detached tensors, under ``torch.no_grad()``. On brute-force and
+``mt`` packs the query also returns each winner's ``tri_data`` row (the
+kernel copies it), unless ``tri_data`` is being differentiated. The winner is then rebuilt from its two table rows
 in ordinary torch code — barycentrics, object-space position and normal,
 inward test, media-mismatch check, world position via object-to-world —
 the only part of intersection that autograd could differentiate, as with
@@ -38,6 +39,8 @@ from dataclasses import dataclass
 
 import torch
 
+from .ops.bvh_traverse import nearest_triangle_bvh, occluded_bvh
+from .ops.instanced import nearest_triangle_instanced, occluded_instanced
 from .ops.intersect_mt import nearest_triangle_mt, nearest_triangle_mt_rows
 from .ops.intersect_soup import anyhit_in_table, nearest_in_table, nearest_in_table_rows, target_in_table
 from .ops.intersect_woop import nearest_triangle_woop
@@ -142,6 +145,12 @@ def _nearest(pack: ScenePack, origin, direction, t_max, rows: bool = False):
     t_max = torch.as_tensor(t_max, dtype=torch.float32, device=origin.device)
     rays = (origin.detach().contiguous(), direction.detach().contiguous(), t_max.detach())
     rows = rows and ROWS_FROM_QUERY
+    if pack.instanced is not None:
+        with torch.no_grad():
+            return (*nearest_triangle_instanced(pack.instanced, *rays), None)
+    if pack.bvh is not None:
+        with torch.no_grad():
+            return (*nearest_triangle_bvh(pack.bvh, *rays), None)
     if pack.woop is not None:
         return (*nearest_triangle_woop(pack.woop, *rays), None)
     if pack.mt is not None:
@@ -287,9 +296,10 @@ def intersect_target(
     is an any-hit query bounded by the winner's distance (strictly before:
     the winner's own t is not < t). Both halves run in one launch,
     ``target_in_table``, on one exact test, which is what makes the split
-    exact; accelerated packs (``mt``, ``woop``) compute t another way and
-    run the full :func:`intersect_scene`, as does a pack without a
-    detector.
+    exact; accelerated packs (``mt``, ``woop``, ``bvh``, ``instanced``)
+    run the full :func:`intersect_scene`, as ``theia_tpu``'s do (an
+    accelerated occlusion query can land an ulp below the bound on the
+    winner itself), and so does a pack without a detector.
 
     ``active``: optional bool[N] — lanes whose result is never consumed
     downstream (e.g. non-miss lanes of the MIS block). Inactive lanes are
@@ -319,6 +329,12 @@ def is_visible(pack: ScenePack, observer: torch.Tensor, target: torch.Tensor, *,
     d = (target - observer).detach()
     dist = sqrt(torch.clamp_min(dot(d, d), 1e-30))
     direction = d / dist[:, None]
+    observer = observer.detach().contiguous()
+    if pack.instanced is not None:
+        # occlusion needs no ordering: a lane stops at its first blocking candidate
+        return ~occluded_instanced(pack.instanced, observer, direction, dist)
+    if pack.bvh is not None:
+        return ~occluded_bvh(pack.bvh, observer, direction, dist)
     if pack.soup is not None:
         return ~anyhit_culled(pack, observer, direction, dist)
     return _nearest(pack, observer, direction, dist)[1] < 0

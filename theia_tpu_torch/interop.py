@@ -15,8 +15,9 @@ tensors; every other stage (``tracer``, ``photons``, ``lightSource``,
 ``target``, ``response``, ``callback``, ``guide``) maps to tensors.
 The Woop pack's chunk-skip boxes come from the world triangles of
 ``tri_data``, which are in the same Morton order. A pack with ``bvh`` or
-``instanced`` tables raises ``NotImplementedError``: those traversals are
-not ported. A pack with none of ``mt``, ``woop``, ``bvh`` and
+``instanced`` tables raises ``NotImplementedError``: carrying those tables
+across is not ported (the port builds them itself, from the same scene, to
+the same bits). A pack with none of ``mt``, ``woop``, ``bvh`` and
 ``instanced`` is a brute-force pack: its ``cull`` comes across as it is,
 and the soup kernels' table is derived from the soup with one group an
 instance. Every pack's soup ``w_v0``/``w_e1``/``w_e2`` and
@@ -80,13 +81,13 @@ def _brute_tables(s, device) -> dict:
 
 def _accel_tables(s, device) -> dict:
     """``{"mt": MTPack}``, ``{"woop": WoopPack}`` or the brute-force
-    fields from the JAX pack's; a ``bvh`` or ``instanced`` pack raises, as
-    ``Scene`` does for those names."""
+    fields from the JAX pack's; a ``bvh`` or ``instanced`` pack raises
+    (the port's ``Scene`` builds those tables itself)."""
     for accel in ("bvh", "instanced"):
         if s.get(accel) is not None:
             raise NotImplementedError(
-                f"a theia_tpu pack with accel={accel!r} cannot be carried over: that traversal is not ported "
-                "yet (ROADMAP.md: 'Instanced and BVH traversal'); accel='brute', 'mt' and 'woop' are"
+                f"a theia_tpu pack with accel={accel!r} cannot be carried over yet: build the scene with "
+                f"theia_tpu_torch.scene.Scene(accel={accel!r}), which packs the same tables"
             )
     if "mt" in s:
         mt = s["mt"]

@@ -424,8 +424,13 @@ def _columns(o: torch.Tensor, d: torch.Tensor):
 def _mt_exact_plain(rows: torch.Tensor, o: torch.Tensor, d: torch.Tensor):
     """(t, hit), each (lanes, T), of rays against the (9, T) component
     rows: the kernel's exact test, op for op."""
-    ox, oy, oz, dx, dy, dz = _columns(o, d)
-    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = (rows[k : k + 1] for k in range(9))
+    return mt_exact(*_columns(o, d), *(rows[k : k + 1] for k in range(9)))
+
+
+def mt_exact(ox, oy, oz, dx, dy, dz, v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z):
+    """(t, hit) of rays against triangles given as broadcastable
+    components: the kernels' exact test in its operation order, 1/det as a
+    correctly rounded reciprocal plus one Newton step."""
     px = dy * e2z - dz * e2y
     py = dz * e2x - dx * e2z
     pz = dx * e2y - dy * e2x

@@ -13,10 +13,12 @@ instance order with the detector split of the MIS shadow rays
 (:class:`ShadowSplit`), the per-instance bounding spheres and spans
 (:class:`CullTables`) and the soup kernels' table (``soup``);
 ``accel="mt"`` and ``accel="woop"`` Morton-order the triangles for their
-nearest-hit kernels.
-
-``accel="bvh"`` and ``accel="instanced"`` are not ported yet (ROADMAP.md,
-"Instanced and BVH traversal").
+nearest-hit kernels; ``accel="instanced"`` (what ``"auto"`` picks for a
+large scene that instances its meshes, a detector array) groups the
+instances by mesh for the two-level walk (``ops/instanced.py``), and
+``accel="bvh"`` builds a threaded BVH over the world soup with
+``native``'s builder (``ops/bvh_traverse.py``); both keep the triangles in
+instance order.
 """
 
 from __future__ import annotations
@@ -30,6 +32,9 @@ from . import units as u
 from .component import resolve_device
 from .material import MaterialFlags, MaterialStore, MediumStore
 from .mesh import Mesh
+from .native import build_bvh
+from .ops.bvh_traverse import PackedBVH, pack_bvh
+from .ops.instanced import InstancedPack, pack_instanced
 from .ops.intersect_mt import MTPack, morton_order, pack_mt
 from .ops.intersect_soup import SoupTable
 from .ops.intersect_woop import WoopPack, pack_woop
@@ -148,6 +153,12 @@ class MeshInstance:
         self.transform = transform
         self.detectorId = detectorId
 
+    @property
+    def bbox(self) -> RectBBox:
+        """The world bounds of the transformed vertices."""
+        pts = self.transform.apply(self.mesh.vertices[:, :3])
+        return RectBBox(tuple(pts.min(0)), tuple(pts.max(0)))
+
 
 class MeshStore:
     """Named mesh registry (reference: src/theia/scene.py:529-605). Takes
@@ -232,11 +243,15 @@ class ScenePack:
     3x4 (12:24), inside/outside medium handle (24, 25), inward/outward
     flags (26, 27), detector id (28).
 
-    At most one of ``mt`` and ``woop`` is set, by the scene's ``accel``;
-    the triangles are then in the Morton order that the kernel's tables
-    index. A brute-force pack sets neither: its triangles are in instance
-    order, ``soup`` holds the soup kernels' table with one group an
-    instance, ``soup_is_det`` which of them are detectors. The queries
+    At most one of ``mt``, ``woop``, ``bvh`` and ``instanced`` is set, by
+    the scene's ``accel``; with ``mt`` or ``woop`` the triangles are in the
+    Morton order that the kernel's tables index, with ``bvh`` (the threaded
+    BVH's tables, whose ``order`` maps its leaf rows back) and
+    ``instanced`` (one group a mesh, each instance's triangles at its
+    ``base``) in instance order. A brute-force pack sets none: its
+    triangles are in instance order, ``soup`` holds the soup kernels'
+    table with one group an instance, ``soup_is_det`` which of them are
+    detectors. The queries
     read these. Every pack carries the world soup ``w_v0``/``w_e1``/
     ``w_e2`` and ``shadow_split`` (the detector subsoup, None without a
     detector) in its own triangle order, as ``theia_tpu``'s do;
@@ -254,6 +269,8 @@ class ScenePack:
     upper_bbox: torch.Tensor
     mt: MTPack | None = None
     woop: WoopPack | None = None
+    bvh: PackedBVH | None = None
+    instanced: InstancedPack | None = None
     w_v0: torch.Tensor | None = None  # (T, 3) world-space soup
     w_e1: torch.Tensor | None = None  # v1 - v0
     w_e2: torch.Tensor | None = None  # v2 - v0
@@ -275,7 +292,7 @@ class ScenePack:
         kernels' table, which only selects the winners, is rebuilt
         detached (``stop_gradient`` in ``theia_tpu``), in the order of the
         table it came from."""
-        if self.mt is not None or self.woop is not None:
+        if any(x is not None for x in (self.bvh, self.woop, self.mt, self.instanced)):
             raise ValueError(
                 "translate_instance requires accel='brute' (accelerated "
                 "packs bake world-space geometry)"
@@ -330,7 +347,9 @@ class Scene:
     ``device``: the card unless the caller names another; without a card
     the default raises, and ``device="cpu"`` runs on the CPU. ``cull`` is
     ``theia_tpu``'s keyword: it decides only whether the pack carries
-    :class:`CullTables`, which no query of the port reads.
+    :class:`CullTables`, which no query of the port reads. ``leaf_size``
+    is the most triangles a leaf of ``accel="bvh"``'s tree holds (below
+    32).
 
     ``materials``: a :class:`MaterialStore`, or a dict of materials by
     name, which is packed on ``device`` (as ``theia_tpu`` packs one)."""
@@ -343,6 +362,7 @@ class Scene:
         medium: str | None = None,
         bbox: RectBBox | None = None,
         accel: str = "auto",
+        leaf_size: int = 8,
         cull: bool = True,
         device="cuda",
     ) -> None:
@@ -368,15 +388,11 @@ class Scene:
                 accel = "instanced"
             else:
                 accel = "brute" if n_tri < AUTO_BVH_THRESHOLD else "bvh"
-        if accel in ("bvh", "instanced"):
-            raise NotImplementedError(
-                f"accel={accel!r} is not ported yet (ROADMAP.md: 'Instanced "
-                "and BVH traversal'); accel='brute', 'mt' and 'woop' are"
-            )
         self.instances = instances
         self.materials = materials
         self.medium = medium
         self.accel = accel
+        self.leaf_size = leaf_size
         self.cullEnabled = cull
         self.device = resolve_device(device)
         self.bbox = bbox if bbox is not None else RectBBox(
@@ -429,6 +445,17 @@ class Scene:
         inst_data = np.stack(inst_rows)
         if self.accel == "brute":
             tables = self._brute_tables(cat, inst_data, dev)
+        elif self.accel == "instanced":
+            w2o = inst_data[:, 0:12].reshape(-1, 3, 4)
+            tables = dict(self._soup_tables(cat, inst_data, dev), instanced=pack_instanced(
+                self.instances, w2o, device=self.device))
+        elif self.accel == "bvh":
+            soup = [cat[k] for k in ("w_v0", "w_e1", "w_e2")]
+            if not 1 <= self.leaf_size < 32:  # the packed leaf count has 5 bits
+                raise ValueError(f"leaf_size must be from 1 to 31, not {self.leaf_size}")
+            bvh = build_bvh(*soup, leaf_size=self.leaf_size)
+            tables = dict(self._soup_tables(cat, inst_data, dev), bvh=pack_bvh(
+                bvh, *soup, self.leaf_size, device=self.device))
         else:
             # Morton-order triangles so each kernel tile is spatially tight
             perm = morton_order(cat["w_v0"], cat["w_e1"], cat["w_e2"])
