@@ -2359,9 +2359,19 @@ class Walk:
         kind = "instanced" if name.endswith("instanced") else "bvh"
         module = tinst if kind == "instanced" else tbvh
         self.kernel, self.plain = getattr(module, name), getattr(module, f"{name}_plain")
+        self.scene_pack = scene_pack
         self.pack = getattr(scene_pack, kind)
         self.cpu_pack = self.pack.to("cpu")
         self.any_hit = name.startswith("occluded")
+        self.module = module
+
+    def placement(self) -> str:
+        """Where the kernel reads the tables from, with their bytes."""
+        m = self.module
+        if hasattr(self.pack, "groups"):
+            return "; ".join(f"{m.PLACES[m.placement(g)]} ({4 * (g.boxes.numel() + g.rows.numel())} bytes)"
+                             for g in self.pack.groups)
+        return f"{m.PLACES[m.placement(self.pack)]} ({4 * (self.pack.nodes.numel() + self.pack.tri.numel())} bytes)"
 
     def results(self, fn, pack, rays, stats=None):
         out = fn(pack, *rays) if stats is None else fn(pack, *rays, stats=stats)
@@ -2470,9 +2480,11 @@ def check_walk(walk: Walk, scene_pack, queries, report):
     import torch
 
     name, worst = walk.name, 0.0
+    print(f"kernel {name}: tables placed {walk.placement()}")
     rays = walk_rays(scene_pack, BATCH, len(name))
     stats = {}
     err, hits = walk.check(rays, f"random rays N={BATCH} (plain on the card)", on_cpu=False, stats=stats)
+    lanes = {"random": lane_report(stats.pop("lane_counts"))}
     walk.check(rays, f"random rays N={BATCH} (plain on the CPU, an eighth of the lanes)", on_cpu=True,
                lanes=seeded_lanes(BATCH, 8, len(name)))
     worst = max(worst, err)
@@ -2484,7 +2496,7 @@ def check_walk(walk: Walk, scene_pack, queries, report):
           f"queued; plain {plain_ms:.4f} ms; work {stats}; bound {b['bound_ms']:.4f} ms by {b['bound_by']}, share of "
           f"bound (queued) {b['bound_ms'] / queued:.4f}")
     report.update(ms=ms, queued_ms=queued, plain_ms=plain_ms, **b, n=BATCH, work=stats, library_ms=None,
-                  library=WALK_LIBRARY, share_of_bound_queued=b["bound_ms"] / queued)
+                  library=WALK_LIBRARY, share_of_bound_queued=b["bound_ms"] / queued, placement=walk.placement())
     adversarial = walk_adversarial(scene_pack, 11 + len(name))
     for on_cpu in (False, True):
         err, hits = walk.check(adversarial, "adversarial rays", on_cpu=on_cpu)
@@ -2501,12 +2513,132 @@ def check_walk(walk: Walk, scene_pack, queries, report):
             walk.kernel(walk.pack, *q)
 
     batch_ms, batch_queued = cuda_ms(replay, 5), cuda_ms_queued(replay, 5)
+    lanes["recorded"] = lane_report(batch_stats.pop("lane_counts"))
     bb = walk.bound(n_rays, batch_stats)
     print(f"kernel {name}: bit-equal to plain on the {len(queries)} recorded queries of a batch ({n_rays} rays); "
           f"replayed {batch_ms:.4f} ms a batch as called, {batch_queued:.4f} queued; work {batch_stats}; bound "
           f"{bb['bound_ms']:.4f} ms, share (queued) {bb['bound_ms'] / batch_queued:.4f}")
-    report.update(max_abs_err=worst, batch=dict(queries=len(queries), rays=n_rays, ms=batch_ms,
-                                                 queued_ms=batch_queued, work=batch_stats, **bb))
+    for label, r in lanes.items():
+        print(f"kernel {name}: lanes 32 a warp, {label} rays: " + ", ".join(f"{k} {v:.4f}" for k, v in r.items()))
+    report.update(max_abs_err=worst, lanes=lanes, batch=dict(queries=len(queries), rays=n_rays, ms=batch_ms,
+                                                             queued_ms=batch_queued, work=batch_stats, **bb))
+    worst = max(worst, check_walk_cases(walk, report.setdefault("cases", {})))
+    report["max_abs_err"] = worst
+
+
+def lane_report(lane_counts, warps_a_block: int = 8) -> dict:
+    """How a thread-a-lane walk's warps spend their steps, from the plain
+    walk's per-lane counts of each call (``stats["lane_counts"]``), lanes
+    grouped 32 a warp in their order, as the kernel groups them (lanes past
+    the rays count 0). The BVH's (node visits, triangle tests): each
+    efficiency is the lanes' steps over 32 times the warps' largest
+    (mean / max a warp, weighted by the max), of the node visits, of the
+    triangle tests and of both together; the leaf loop's share is the
+    triangle tests' of both. The instanced walk's candidates: the same
+    efficiency of a lane's candidate loop, and the balance of the warps'
+    candidates (a warp scans them together) over ``warps_a_block`` warps,
+    what a block-level queue could even out."""
+    import torch
+
+    sums: dict = {}
+
+    def add(key, value):
+        sums[key] = sums.get(key, 0) + int(value)
+
+    for counts in lane_counts:
+        warps = [torch.nn.functional.pad(c.long(), (0, -c.shape[0] % 32)).view(-1, 32) for c in counts]
+        parts = {"nodes": warps[0], "triangles": warps[1], "both": warps[0] + warps[1]} if len(warps) == 2 else {
+            "candidates": warps[0]}
+        for key, w in parts.items():
+            add(f"{key} lane steps", w.sum())
+            add(f"{key} warp steps", 32 * w.amax(dim=1).sum())
+        if len(warps) == 1:
+            per_warp = warps[0].sum(dim=1)
+            blocks = torch.nn.functional.pad(per_warp, (0, -per_warp.shape[0] % warps_a_block)).view(-1, warps_a_block)
+            add("block pairs", blocks.sum())
+            add("block pair slots", warps_a_block * blocks.amax(dim=1).sum())
+    out = {f"{key} efficiency": sums[f"{key} lane steps"] / max(sums[f"{key} warp steps"], 1)
+           for key in ("nodes", "triangles", "both", "candidates") if f"{key} lane steps" in sums}
+    if "both lane steps" in sums:
+        out["leaf loop share"] = sums["triangles lane steps"] / max(sums["both lane steps"], 1)
+    else:
+        out["candidates a lane"] = sums["candidates lane steps"] / sum(c[0].shape[0] for c in lane_counts)
+        out["warps' balance in a block"] = sums["block pairs"] / max(sums["block pair slots"], 1)
+    return out
+
+
+def case_rays(scene_pack, n: int, seed: int, device="cuda"):
+    """Random rays for a walk over any scene: origins in the box of its
+    world triangles and 1 m beyond, half of the directions aimed near a
+    random triangle's first vertex, t_max half finite, half infinite."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    v0 = scene_pack.w_v0.cpu().numpy().astype(np.float64)
+    lo, hi = v0.min(axis=0) - 1.0, v0.max(axis=0) + 1.0
+    o = rng.uniform(lo, hi, (n, 3))
+    aim = v0[rng.integers(0, len(v0), n)] + rng.normal(scale=0.05, size=(n, 3))
+    d = np.where(rng.uniform(size=(n, 1)) < 0.5, aim - o, rng.normal(size=(n, 3)))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t_max = np.where(rng.uniform(size=n) < 0.5, rng.uniform(0.5, float(np.linalg.norm(hi - lo)), n), np.inf)
+    return tuple(torch.as_tensor(a.astype(np.float32), device=device) for a in (o, d, t_max))
+
+
+#: the rays of each of a walk's cases (walk_cases)
+CASE_RAYS = 65_536
+
+
+def walk_cases(kind: str, device="cuda") -> dict:
+    """The scenes a walk of ``kind`` ("instanced" or "bvh") is held on
+    besides its cell's, each with the placement its tables must get: the
+    tie scenes (``torch_flagship.tie_scene``), and a scene for each
+    placement the cells do not reach: for the instanced walk a prototype
+    over the shared-memory budget (8 modules of ``icosphere(5)``, 20,480
+    rows: the boxes staged, the rows read from global memory); for the BVH
+    the tests' 27-module array (3,239 nodes staged, its 8,640 rows not)
+    and the sweep's 124-module scene (neither). Values: (a function that
+    makes the scene, the start of its placement's name, empty where any
+    will do)."""
+    import theia_tpu_torch
+    from torch_flagship import TIE_KINDS, array_scene, build_array, icosphere, tie_scene
+
+    cases = {f"tie, {k}": ((lambda k=k: tie_scene(theia_tpu_torch, kind, k, device=device)), "") for k in TIE_KINDS}
+    if kind == "instanced":
+        cases["a prototype over the budget: 8 modules of icosphere(5)"] = (lambda: build_array(
+            theia_tpu_torch, icosphere(5), 64, 2, accel="instanced", device=device, n_side=2).scene, "boxes")
+    else:
+        cases["the tests' 27-module array"] = (lambda: array_scene(theia_tpu_torch, "bvh", device=device), "nodes")
+        cases["the sweep's 124 modules"] = (lambda: build_array(
+            theia_tpu_torch, icosphere(3), 64, 2, accel="bvh", device=device, n_side=5).scene, "global")
+    return cases
+
+
+def check_walk_cases(walk: "Walk", report: dict, n: int = CASE_RAYS) -> float:
+    """``walk``'s kernel against its plain version, bit for bit, on each
+    of :func:`walk_cases` (random rays, ``case_rays``, and adversarial
+    rays; the plain walk on the card, and on the CPU on the tie scenes),
+    after checking the case's placement. Returns the largest |t diff|."""
+    import torch
+
+    worst = 0.0
+    kind = "instanced" if walk.name.endswith("instanced") else "bvh"
+    for label, (build, place) in walk_cases(kind).items():
+        case = Walk(walk.name, build().pack)
+        assert case.placement().startswith(place), (label, case.placement())
+        hits = []
+        for rays, what in ((case_rays(case.scene_pack, n, 5), f"random rays N={n}"),
+                           (walk_adversarial(case.scene_pack, 6, per_kind=64), "adversarial rays")):
+            err, hit = case.check(rays, f"{label}, {what}", on_cpu=False)
+            if label.startswith("tie"):
+                case.check(rays, f"{label}, {what}", on_cpu=True)
+            worst, hits = max(worst, err), hits + [hit]
+        report[label] = dict(placement=case.placement(), hits=hits)
+        print(f"kernel {walk.name}: bit-equal to plain on {label} (tables placed {case.placement()}): {n} random "
+              f"rays (hits {hits[0]:.4f}) and the adversarial rays (hits {hits[1]:.4f})")
+        del case
+        torch.cuda.empty_cache()
+    return worst
 
 
 def walk_queries(tracer, name):

@@ -23,6 +23,11 @@ Tolerances and why:
 (e) a traced batch of the flagship on ``accel="bvh"``: RNG dims equal on
     >= 99.5 % of lanes, histogram sum rtol 1e-3, per-bin L1 <= 1 %
     (tests/test_torch_scene_tracer.py's limits, for the same reasons).
+(f) scenes whose hits tie exactly (``torch_flagship.tie_scene``: every
+    triangle twice in neighbouring rows, or two instances in one place):
+    (b) against ``theia_tpu`` and (c) against the brute scan (here the
+    first triangle in threaded order wins a tie, there the lowest row;
+    the tests hold them to (c)'s share all the same); the any-hit as (d).
 """
 
 import numpy as np
@@ -39,7 +44,9 @@ from theia_tpu.ops import bvh_traverse as jbvh
 from theia_tpu_torch import accel as taccel
 from theia_tpu_torch.native import _build_numpy, build_bvh
 from theia_tpu_torch.ops import bvh_traverse as tbvh
-from torch_flagship import array_scene, assert_winners_match, build_flagship, icosphere, uniform_rays
+from torch_flagship import (
+    TIE_KINDS, array_rays, array_scene, assert_winners_match, build_flagship, icosphere, tie_scene, uniform_rays,
+)
 
 torch.set_num_threads(1)
 
@@ -161,6 +168,27 @@ def test_matches_the_brute_scan(scenes, mixed):
     # and is_visible takes the any-hit walk to the brute any-hit's answer
     target = o + 3.0 * d
     assert torch.equal(taccel.is_visible(tscene.pack, o, target), taccel.is_visible(brute.pack, o, target))
+
+
+@pytest.mark.parametrize("kind", TIE_KINDS)
+def test_tie_scenes_match_jax_and_brute(kind):
+    """Tolerance (f): exact ties inside a leaf (duplicated rows) and
+    across leaves (coincident instances)."""
+    tscene = tie_scene(theia_tpu_torch, "bvh", kind, device="cpu")
+    brute = tie_scene(theia_tpu_torch, "brute", kind, device="cpu")
+    jscene = tie_scene(theia_tpu, "bvh", kind)
+    o, d, t_max = array_rays(N_RAYS, 22, n_side=2)
+    o_t, d_t, tm = (torch.as_tensor(a) for a in (o, d, t_max))
+    t, idx = tbvh.nearest_triangle_bvh(tscene.pack.bvh, o_t, d_t, torch.inf)
+    jt, jidx = jbvh.nearest_triangle_bvh(jscene.pack.bvh, jnp.asarray(o), jnp.asarray(d), jnp.inf)
+    assert_winners_match(t, idx, jt, jidx)
+    tb, ib, _ = taccel._nearest(brute.pack, o_t, d_t, torch.inf)
+    assert torch.equal(idx >= 0, ib >= 0) and bool((ib >= 0).any())
+    same = idx == ib
+    assert float(same.float().mean()) >= 0.999 and torch.equal(t[same], tb[same])
+    occ = tbvh.occluded_bvh(tscene.pack.bvh, o_t, d_t, tm)
+    _, idx_tm = tbvh.nearest_triangle_bvh(tscene.pack.bvh, o_t, d_t, tm)
+    assert torch.equal(occ, idx_tm >= 0) and 0.0 < float(occ.float().mean()) < 1.0
 
 
 def test_translate_instance_raises():

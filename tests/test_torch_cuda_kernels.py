@@ -399,23 +399,44 @@ def test_kernel_histogram_backward_on_kept_lane_cases(cuda, label):
     assert kernel_histogram_grad.launches == before + 1
 
 
-@pytest.mark.parametrize(
-    "name", ["nearest_triangle_instanced", "occluded_instanced", "nearest_triangle_bvh", "occluded_bvh"]
-)
-def test_walk_kernels_bit_equal(cuda, name):
+#: the scenes of ``chip_smoke.walk_cases`` besides each walk's cell scene
+#: (None): the tie scenes and one for each table placement
+WALK_CASES = {
+    "instanced": ("tie, duplicated rows", "tie, coincident instances",
+                  "a prototype over the budget: 8 modules of icosphere(5)"),
+    "bvh": ("tie, duplicated rows", "tie, coincident instances", "the tests' 27-module array",
+            "the sweep's 124 modules"),
+}
+
+
+@pytest.mark.parametrize("name, case", [
+    (name, case)
+    for name in ("nearest_triangle_instanced", "occluded_instanced", "nearest_triangle_bvh", "occluded_bvh")
+    for case in (None, *WALK_CASES["instanced" if name.endswith("instanced") else "bvh"])
+])
+def test_walk_kernels_bit_equal(cuda, name, case):
     """The four walk entry points against their plain walks, bit for bit,
     on random and adversarial rays (``chip_smoke.walk_adversarial``), the
-    plain walk on the card and on the CPU; one launch a call (a group)."""
+    plain walk on the card and on the CPU; one launch a call (a group). On
+    a cell's scene (``case`` None) and on each of ``chip_smoke.walk_cases``,
+    whose tables must get the placement the case names."""
     import theia_tpu_torch
-    from chip_smoke import Walk, walk_adversarial, walk_rays
+    from chip_smoke import Walk, case_rays, walk_adversarial, walk_cases, walk_rays
     from torch_flagship import build_array, build_flagship, icosphere
 
-    if name.endswith("instanced"):
+    kind = "instanced" if name.endswith("instanced") else "bvh"
+    if case is not None:
+        build, place = walk_cases(kind, device=cuda)[case]
+        scene = build()
+    elif kind == "instanced":
         scene = build_array(theia_tpu_torch, icosphere(2), 64, 2, device=cuda).scene
     else:
         scene = build_flagship(theia_tpu_torch, icosphere(2), 64, 2, accel="bvh", device=cuda).scene
     walk = Walk(name, scene.pack)
-    for rays in (walk_rays(scene.pack, 10_000, 3), walk_adversarial(scene.pack, 4, per_kind=32)):
+    if case is not None:
+        assert walk.placement().startswith(place), walk.placement()
+    random = walk_rays(scene.pack, 10_000, 3) if case is None else case_rays(scene.pack, 10_000, 3)
+    for rays in (random, walk_adversarial(scene.pack, 4, per_kind=32)):
         before = walk.kernel.launches
         walk.check(rays, "rays", on_cpu=False)
         assert walk.kernel.launches == before + 1

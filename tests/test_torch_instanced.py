@@ -33,6 +33,17 @@ Tolerances and why:
 (f) the source-position gradient of tests/test_grad_scene.py:245 on
     ``"instanced"``: value and gradient rtol 1e-3 against ``jax.grad``
     (tests/test_torch_grad_geometry.py's limits and reasons).
+(g) scenes whose hits tie exactly (``torch_flagship.tie_scene``: every
+    prototype triangle twice, or two instances in one place): (b) against
+    ``theia_tpu`` and (c) against the brute scan, whose rule (the lowest
+    row) the walk's keeps: the first candidate in (t_entry, k) order, the
+    lowest prototype row in it; the any-hit as (d).
+(h) the kernel's rejection test in front of the exact test, on the
+    prototype's rows with the rays in each instance's object space: no
+    pair that the exact test accepts is rejected (the property
+    tests/test_torch_intersect_filter.py holds on world-space soups, on
+    which bit-equality with the plain walk rests), products rounded once
+    and twice.
 """
 
 import dataclasses
@@ -49,8 +60,10 @@ import theia_tpu_torch
 from theia_tpu.ops import instanced as jinst
 from theia_tpu_torch import accel as taccel
 from theia_tpu_torch.ops import instanced as tinst
+from theia_tpu_torch.ops import intersect_mt as tmt
 from torch_flagship import (
-    array_scene, assert_winners_match, build_array, build_grad_scene, icosphere, uniform_rays,
+    TIE_KINDS, adversarial_rays, array_rays, array_scene, assert_winners_match, build_array, build_grad_scene,
+    icosphere, tie_scene, uniform_rays,
 )
 
 torch.set_num_threads(1)
@@ -178,6 +191,56 @@ def _assert_close_to_brute(t, idx, tb, ib, scale):
     both = hit & hit_b
     assert float((idx[both] == ib[both]).float().mean()) >= 0.995
     np.testing.assert_allclose(t[both].numpy(), tb[both].numpy(), rtol=1e-4, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("kind", TIE_KINDS)
+def test_tie_scenes_match_jax_and_brute(kind):
+    """Tolerance (g): exact ties inside a candidate (duplicated rows) and
+    across candidates (coincident instances)."""
+    tscene = tie_scene(theia_tpu_torch, "instanced", kind, device="cpu")
+    brute = tie_scene(theia_tpu_torch, "brute", kind, device="cpu")
+    jscene = tie_scene(theia_tpu, "instanced", kind)
+    o, d, t_max = array_rays(N_RAYS, 21, n_side=2)
+    o_t, d_t, tm = (torch.as_tensor(a) for a in (o, d, t_max))
+    t, idx = tinst.nearest_triangle_instanced(tscene.pack.instanced, o_t, d_t, torch.inf)
+    jt, jidx = _jax_query(jscene.pack.instanced, o, d, np.inf)
+    assert_winners_match(t, idx, jt, jidx)
+    tb, ib, _ = taccel._nearest(brute.pack, o_t, d_t, torch.inf)
+    _assert_close_to_brute(t, idx, tb, ib, 1.0)
+    occ = tinst.occluded_instanced(tscene.pack.instanced, o_t, d_t, tm)
+    _, idx_tm = tinst.nearest_triangle_instanced(tscene.pack.instanced, o_t, d_t, tm)
+    assert torch.equal(occ, idx_tm >= 0) and 0.0 < float(occ.float().mean()) < 1.0
+
+
+@pytest.mark.parametrize("scene", ["array", "duplicated rows"])
+def test_rejection_never_drops_an_exact_hit_in_object_space(scene):
+    """Tolerance (h), on example 08's array (26 modules of
+    ``icosphere(2)``) and the tie scene's duplicated rows: random and
+    adversarial rays moved into every instance's object space, against
+    the rows the kernel reads (``GroupPack.rows``: the Moeller-Trumbore
+    table's, ``intersect_mt.mt_aos``)."""
+    if scene == "array":
+        pack = build_array(theia_tpu_torch, icosphere(2), 64, 2, device="cpu").scene.pack
+    else:
+        pack = tie_scene(theia_tpu_torch, "instanced", scene, device="cpu").pack
+    g = pack.instanced.groups[0]
+    n_tri = g.v0.shape[0]
+    aos = tmt.mt_aos(g.tri.T)[:n_tri]
+    assert torch.equal(g.rows, aos[:, 4:20].reshape(n_tri, 4, 4).transpose(0, 1))
+    o, d, _ = array_rays(1024, 23, n_side=3 if scene == "array" else 2)
+    o_adv, d_adv = adversarial_rays(*(a.numpy() for a in (pack.w_v0, pack.w_e1, pack.w_e2)), seed=24, per_kind=32)
+    o, d = (torch.as_tensor(np.concatenate(a)) for a in ((o, o_adv), (d, d_adv)))
+    accepted, kept = 0, 0
+    for k in range(g.w2o.shape[0]):
+        o_obj, d_obj = tinst._transform(g.w2o[k].expand(o.shape[0], 12), o, d)
+        _, hit = tmt._mt_exact_plain(g.tri.T, o_obj, d_obj)
+        for fused in (True, False):
+            rejected = tmt._mt_reject_plain(aos, o_obj, d_obj, fused)
+            assert not bool((hit & rejected).any()), (k, fused)
+            kept += int((~rejected).sum())
+        accepted += int(hit.sum())
+    # the test has hits to keep, and rejects nearly every pair
+    assert accepted > 0 and kept < 0.05 * 2 * g.w2o.shape[0] * o.shape[0] * n_tri
 
 
 @pytest.mark.parametrize("scale", [1e-3, 1e3])

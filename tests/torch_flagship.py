@@ -15,8 +15,9 @@ photon tracer of ``__graft_entry__._dryrun_photon_compacted`` on the
 flagship's scene.
 :func:`build_array` is ``examples/08_detector_array.py``'s detector array
 (what ``accel="auto"`` sends to the instanced walk), :func:`array_rays`
-random rays through it. :func:`adversarial_rays` makes rays on the
-boundaries of the nearest-hit tests from a soup's triangles.
+random rays through it, :func:`tie_scene` arrays whose hits tie exactly.
+:func:`adversarial_rays` makes rays on the boundaries of the nearest-hit
+tests from a soup's triangles.
 """
 
 from __future__ import annotations
@@ -256,6 +257,36 @@ def array_scene(pkg, accel: str, *, n_side: int = 3, mixed: bool = False, scale:
     ]
     if mixed:
         insts.append(meshes.createInstance("other", "m", T.TRS(scale=0.8 * scale, translate=(-3.0 * scale, 0.0, 0.0))))
+    return scene_mod.Scene(insts, mats, medium=None, accel=accel, **dev)
+
+
+#: the tie scenes of :func:`tie_scene`
+TIE_KINDS = ("duplicated rows", "coincident instances")
+
+
+def tie_scene(pkg, accel: str, kind: str, *, device=None):
+    """A scene whose hits tie exactly, in package ``pkg``: a 2 x 2 x 2
+    grid of ``icosphere(2)`` spheres of radius 0.4, 2 apart around the
+    origin (:func:`array_rays` with ``n_side=2`` aims at them), and
+    - ``"duplicated rows"``: every triangle of the prototype twice, in
+      neighbouring rows (ties inside a candidate and inside a leaf);
+    - ``"coincident instances"``: a ninth instance placed exactly on the
+      first (ties across candidates, and across leaves)."""
+    dev = {} if device is None else {"device": device}
+    mod = lambda name: importlib.import_module(f"{pkg.__name__}.{name}")
+    material, scene_mod = mod("material"), mod("scene")
+    mats = material.MaterialStore.pack([material.Material("m", None, None, flags="B")], **dev)
+    pos, faces = icosphere(2)
+    if kind == "duplicated rows":
+        faces = np.repeat(faces, 2, axis=0)
+    elif kind != "coincident instances":
+        raise ValueError(f"kind must be one of {TIE_KINDS}, not {kind!r}")
+    meshes = scene_mod.MeshStore({"sphere": mod("mesh").Mesh.from_geometry(pos, faces)})
+    T = scene_mod.Transform
+    places = [(2.0 * i - 1.0, 2.0 * j - 1.0, 2.0 * k - 1.0) for i in range(2) for j in range(2) for k in range(2)]
+    if kind == "coincident instances":
+        places.append(places[0])
+    insts = [meshes.createInstance("sphere", "m", T.TRS(scale=0.4, translate=p)) for p in places]
     return scene_mod.Scene(insts, mats, medium=None, accel=accel, **dev)
 
 

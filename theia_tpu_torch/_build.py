@@ -61,10 +61,10 @@ _SIGNATURES = {
     "theia_table_read_grad": (_P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P),
     "theia_gather_rows": (_P, _I, _I, _P, _I, _P, _P, _P),
     "theia_gather_rows_grad": (_P, _P, _P, _I, _I, _I, _P, _P),
-    "theia_bvh_nearest": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P),
-    "theia_bvh_occluded": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _P),
-    "theia_instanced_nearest": (_P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P),
-    "theia_instanced_occluded": (_P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P),
+    "theia_bvh_nearest": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
+    "theia_bvh_occluded": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
+    "theia_instanced_nearest": (_P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P),
+    "theia_instanced_occluded": (_P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P),
 }
 
 

@@ -11,7 +11,9 @@ leaf-order row back to the scene's ``tri_data`` row. The builder is
 ``theia_tpu_torch.native``'s copy of ``theia_tpu``'s.
 
 :func:`nearest_triangle_bvh` and :func:`occluded_bvh` launch the walk of
-``csrc/bvh_walk.cu`` (a thread a lane) on CUDA tensors and run their plain
+``csrc/bvh_walk.cu`` (a thread a lane along the nodes, a warp testing its
+lanes' leaves together, the tables in shared memory where they fit:
+:func:`placement`) on CUDA tensors and run their plain
 versions (:func:`nearest_triangle_bvh_plain`, :func:`occluded_bvh_plain`:
 every live lane a step at a time, as JAX's ``while_loop``) on CPU tensors.
 Both use the exact Moeller-Trumbore test of the soup kernels
@@ -40,12 +42,18 @@ __all__ = [
     "occluded_bvh",
     "occluded_bvh_plain",
     "inv_dir",
+    "placement",
 ]
 
 #: bits of the leaf triangle count in the packed start/count field;
 #: leaf_size must stay below 2^5 and start below 2^26 (kCountBits in
 #: csrc/bvh_walk.cu)
 _COUNT_BITS = 5
+#: the most bytes of tables the walk stages in a block's shared memory: an
+#: H100 block's 232,448 less the held leaves' lists of 32 warps (4,096)
+SHARED_MAX = 232_448 - 4_096
+#: the kernel's placements (``Place`` in csrc/bvh_walk.cu), by code
+PLACES = ("global", "nodes", "nodes and rows")
 
 
 @dataclass(frozen=True)
@@ -114,7 +122,8 @@ def _walk(packed: PackedBVH, origin, direction, t_max, any_hit: bool, stats=None
     with row the leaf-order row of the winner (-1 on a miss); with
     ``any_hit`` a lane ends at its first hit strictly before ``t_max`` and
     keeps ``t_max``. ``stats`` (a dict) counts the node visits
-    ("box_tests") and the triangle tests ("tri_tests")."""
+    ("box_tests") and the triangle tests ("tri_tests"), and appends each
+    lane's two counts, int32 (N,) tensors, to its "lane_counts" list."""
     n = origin.shape[0]
     dev = origin.device
     nodes, bits = packed.nodes, packed.nodes.view(torch.int32)
@@ -124,6 +133,8 @@ def _walk(packed: PackedBVH, origin, direction, t_max, any_hit: bool, stats=None
     row_best = torch.full((n,), -1, dtype=torch.int32, device=dev)
     node = torch.zeros(n, dtype=torch.int64, device=dev)
     live = torch.arange(n, device=dev) if nodes.shape[0] else torch.zeros(0, dtype=torch.int64, device=dev)
+    lane_nodes = torch.zeros(n, dtype=torch.int32, device=dev)
+    lane_tris = torch.zeros(n, dtype=torch.int32, device=dev)
     while live.numel():
         o, d, iv, nd = origin[live], direction[live], inv[live], node[live]
         tb, rb = t_best[live], row_best[live]
@@ -146,6 +157,8 @@ def _walk(packed: PackedBVH, origin, direction, t_max, any_hit: bool, stats=None
         if stats is not None:
             stats["box_tests"] = stats.get("box_tests", 0) + int(live.numel())
             stats["tri_tests"] = stats.get("tri_tests", 0) + int(act.sum())
+            lane_nodes[live] += 1
+            lane_tris[live] += act.sum(dim=1, dtype=torch.int32)
         nxt = torch.where(hit & ~is_leaf, nd + 1, link[:, 6].long())
         if any_hit:
             rb = torch.where(found, 0, rb)
@@ -156,6 +169,8 @@ def _walk(packed: PackedBVH, origin, direction, t_max, any_hit: bool, stats=None
             tb = torch.where(found, t_leaf, tb)
         t_best[live], row_best[live], node[live] = tb, rb, nxt
         live = live[nxt >= 0]
+    if stats is not None:
+        stats.setdefault("lane_counts", []).append((lane_nodes, lane_tris))
     return t_best, row_best
 
 
@@ -179,14 +194,31 @@ def _check(packed: PackedBVH, origin, direction, t_max):
     ))
 
 
+def placement(packed: PackedBVH) -> int:
+    """Where the walk reads ``packed``'s tables from, a code of
+    :data:`PLACES`: the nodes and the rows in shared memory where both fit
+    :data:`SHARED_MAX` bytes, the nodes alone where they fit, else neither
+    (through the read-only cache)."""
+    nodes, rows = 4 * packed.nodes.numel(), 4 * packed.tri.numel()
+    if nodes + rows <= SHARED_MAX:
+        return 2
+    return 1 if nodes <= SHARED_MAX else 0
+
+
+def leaf_slot(leaf_size: int) -> int:
+    """Threads a held leaf gets in the walk's leaf tests: ``leaf_size``
+    rounded up to a power of two (at most 32)."""
+    return min(32, 1 << max(leaf_size - 1, 0).bit_length())
+
+
 def _launch(entry: str, packed: PackedBVH, origin, direction, t_max, *outputs) -> None:
     n = origin.shape[0]
     if packed.order.dtype != torch.int32 or packed.order.device != origin.device:
         raise ValueError(f"packed.order must be int32 on {origin.device}")
     err = getattr(_build.library(), entry)(
         origin.data_ptr(), direction.data_ptr(), t_max.data_ptr(), packed.nodes.data_ptr(), packed.tri.data_ptr(),
-        packed.order.data_ptr(), packed.nodes.shape[0], n, *(a.data_ptr() for a in outputs),
-        _build.raw_stream(origin),
+        packed.order.data_ptr(), packed.nodes.shape[0], packed.tri.shape[0], leaf_slot(packed.leaf_size),
+        placement(packed), n, *(a.data_ptr() for a in outputs), _build.raw_stream(origin),
     )
     _build.check(err, entry)
 

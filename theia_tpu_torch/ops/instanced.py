@@ -20,9 +20,12 @@ test's absolute ``|det|`` cutoff means what it means for the world-space
 scan.
 
 :func:`nearest_triangle_instanced` and :func:`occluded_instanced` launch
-the walk of ``csrc/instanced_walk.cu`` (a thread a lane, a launch a group)
-on CUDA tensors and run their plain versions on CPU tensors; kernel and
-plain version agree bit for bit. They use the soup kernels' exact
+the walk of ``csrc/instanced_walk.cu`` (a block deals its lanes'
+candidates to its warps, a warp scans one candidate's prototype together,
+the soup kernels' rejection test in front of the exact one; the group's
+tables in shared memory where they fit :data:`SHARED_MAX`; a launch a
+group) on CUDA tensors and run their plain versions on CPU tensors;
+kernel and plain version agree bit for bit. They use the soup kernels' exact
 Moeller-Trumbore test (``intersect_mt.mt_exact``) and the ray transform
 in a fixed summation order, where JAX divides and leaves the transform
 to XLA's einsum: against ``theia_tpu`` the winners agree except where a
@@ -42,7 +45,7 @@ import torch
 
 from .. import _build
 from .bvh_traverse import inv_dir
-from .intersect_mt import RAY_BLOCK, check_rays, mt_exact
+from .intersect_mt import RAY_BLOCK, check_rays, mt_aos, mt_exact
 
 __all__ = [
     "GroupPack",
@@ -52,6 +55,7 @@ __all__ = [
     "nearest_triangle_instanced_plain",
     "occluded_instanced",
     "occluded_instanced_plain",
+    "placement",
 ]
 
 #: instance boxes a row of the packed box tables (theia_tpu's scan chunk)
@@ -60,6 +64,14 @@ BOX_CHUNK = 64
 #: tighter than its boxes' circumspheres: mean radius < SPHERE_TIGHT x mean
 #: half-diagonal (theia_tpu's gate; the pretest never changes a winner)
 SPHERE_TIGHT = 0.95
+#: the most bytes of a group's tables the walk stages in a block's shared
+#: memory: two blocks of 512 threads, each with its 20,484 bytes of pair
+#: queue, then fit an H100 SM. The boxes go there where they fit, the
+#: prototype's rows (``GroupPack.rows``, 64 bytes a row) too where both fit
+#: (:func:`placement`)
+SHARED_MAX = 94_208
+#: the kernel's placements (``Place`` in csrc/instanced_walk.cu), by code
+PLACES = ("global", "boxes", "boxes and rows")
 
 
 @dataclass(frozen=True)
@@ -71,9 +83,13 @@ class GroupPack:
     tables (lo xyz, hi xyz; padding inverted far boxes), ``base`` (K,) i32
     the ``tri_data`` row of each instance's first triangle, ``sph`` four
     (ceil(K / 64), 64) tables (centre xyz, r^2 with the build's slack) or
-    None. ``tri`` (T, 9) ``[v0, e1, e2]`` and ``boxes`` (6 or 10, ceil(K /
-    64) * 64), the box and sphere tables stacked, are the kernel's copies,
-    derived on the same device."""
+    None. Derived on the same device: ``tri`` (T, 9) ``[v0, e1, e2]``;
+    ``rows`` (4, T, 4), the kernel's copy of the prototype, the four
+    16-byte planes of the Moeller-Trumbore table's rows past their sphere
+    (``intersect_mt.mt_aos`` columns 4-19: n, alpha | beta_w, beta, e2 z,
+    0 | v0, e1 x | e1 yz, e2 xy), what the kernel's rejection and exact
+    tests read; ``boxes`` (6 or 10, ceil(K / 64) * 64), the box and sphere
+    tables stacked."""
 
     v0: torch.Tensor
     e1: torch.Tensor
@@ -83,10 +99,13 @@ class GroupPack:
     base: torch.Tensor
     sph: tuple | None = None
     tri: torch.Tensor = field(init=False, repr=False, compare=False)
+    rows: torch.Tensor = field(init=False, repr=False, compare=False)
     boxes: torch.Tensor = field(init=False, repr=False, compare=False)
 
     def __post_init__(self) -> None:
         object.__setattr__(self, "tri", torch.cat([self.v0, self.e1, self.e2], dim=1).contiguous())
+        aos = mt_aos(self.tri.T)[: self.v0.shape[0], 4:20]
+        object.__setattr__(self, "rows", aos.reshape(-1, 4, 4).transpose(0, 1).contiguous())
         tables = (*self.box, *(self.sph or ()))
         object.__setattr__(self, "boxes", torch.stack([a.reshape(-1) for a in tables]).contiguous())
 
@@ -269,9 +288,10 @@ def _prototype_nearest(g: GroupPack, o, d, t_best, stats=None):
     return t_out, j_out
 
 
-def _group_walk(g: GroupPack, origin, direction, t_best, idx_best, any_hit: bool, stats=None) -> None:
+def _group_walk(g: GroupPack, origin, direction, t_best, idx_best, any_hit: bool, stats=None, lane_pairs=None) -> None:
     """One group's walk, every lane that has a candidate one candidate a
-    step; updates ``t_best`` and ``idx_best`` in place. With ``any_hit``
+    step; updates ``t_best`` and ``idx_best`` in place, and counts each
+    lane's candidates into ``lane_pairs`` where given. With ``any_hit``
     a lane that has a hit takes no candidate (its bound is -inf)."""
     inv = inv_dir(direction)
     n = origin.shape[0]
@@ -289,6 +309,8 @@ def _group_walk(g: GroupPack, origin, direction, t_best, idx_best, any_hit: bool
     live = every[k >= 0]
     while live.numel():
         kl = k[live].long()
+        if lane_pairs is not None:
+            lane_pairs[live] += 1
         o, d = origin[live], direction[live]
         o_obj, d_obj = _transform(g.w2o[kl], o, d)
         t_loc, j_loc = _prototype_nearest(g, o_obj, d_obj, t_best[live], stats)
@@ -304,8 +326,11 @@ def _walk(pack: InstancedPack, origin, direction, t_max, any_hit: bool, stats=No
     n = origin.shape[0]
     t_best = t_max.clone()
     idx_best = torch.full((n,), -1, dtype=torch.int32, device=origin.device)
+    lane_pairs = None if stats is None else torch.zeros(n, dtype=torch.int32, device=origin.device)
     for g in pack.groups:
-        _group_walk(g, origin, direction, t_best, idx_best, any_hit, stats)
+        _group_walk(g, origin, direction, t_best, idx_best, any_hit, stats, lane_pairs)
+    if stats is not None:
+        stats.setdefault("lane_counts", []).append((lane_pairs,))
     return t_best, idx_best
 
 
@@ -315,7 +340,8 @@ def nearest_triangle_instanced_plain(pack: InstancedPack, origin, direction, t_m
     and an instance each time a lane looks for a candidate), the sphere
     tests of the boxes that let a ray in ("sphere_tests"), the
     candidates' transforms ("transforms") and triangle tests
-    ("tri_tests")."""
+    ("tri_tests"), and appends each lane's candidates, an int32 (N,)
+    tensor, to its "lane_counts" list."""
     t, idx = _walk(pack, origin, direction, t_max, False, stats)
     return torch.where(idx < 0, torch.inf, t), idx
 
@@ -330,13 +356,25 @@ def _check(pack: InstancedPack, origin, direction, t_max):
     for i, g in enumerate(pack.groups):
         n_pad = g.box[0].numel()
         tables += [
-            (f"groups[{i}].tri", g.tri, (g.v0.shape[0], 9)),
+            (f"groups[{i}].rows", g.rows, (4, g.v0.shape[0], 4)),
             (f"groups[{i}].w2o", g.w2o, (g.base.shape[0], 12)),
             (f"groups[{i}].boxes", g.boxes, (6 if g.sph is None else 10, n_pad)),
         ]
         if g.base.dtype != torch.int32 or g.base.device != origin.device:
             raise ValueError(f"groups[{i}].base must be int32 on {origin.device}")
     return check_rays(origin, direction, t_max, tables)
+
+
+def placement(g: GroupPack) -> int:
+    """Where the walk reads group ``g``'s tables from, a code of
+    :data:`PLACES`: the boxes and the prototype's rows in shared memory
+    where both fit :data:`SHARED_MAX` bytes, the boxes alone where they
+    fit, else neither (the rows read in the same order from global
+    memory)."""
+    boxes, rows = 4 * g.boxes.numel(), 4 * g.rows.numel()
+    if boxes + rows <= SHARED_MAX:
+        return 2
+    return 1 if boxes <= SHARED_MAX else 0
 
 
 def _launch(entry: str, pack: InstancedPack, origin, direction, t_best, idx_best) -> int:
@@ -346,9 +384,9 @@ def _launch(entry: str, pack: InstancedPack, origin, direction, t_best, idx_best
     n = origin.shape[0]
     for g in pack.groups:
         err = getattr(lib, entry)(
-            origin.data_ptr(), direction.data_ptr(), g.tri.data_ptr(), g.v0.shape[0], g.w2o.data_ptr(),
-            g.boxes.data_ptr(), int(g.sph is not None), g.base.data_ptr(), g.base.shape[0], g.box[0].numel(), n,
-            t_best.data_ptr(), idx_best.data_ptr(), _build.raw_stream(origin),
+            origin.data_ptr(), direction.data_ptr(), g.rows.data_ptr(), g.v0.shape[0], g.w2o.data_ptr(),
+            g.boxes.data_ptr(), int(g.sph is not None), g.base.data_ptr(), g.base.shape[0], g.box[0].numel(),
+            placement(g), n, t_best.data_ptr(), idx_best.data_ptr(), _build.raw_stream(origin),
         )
         _build.check(err, entry)
     return len(pack.groups)

@@ -12,6 +12,7 @@
     python3 -m theia_tpu_torch.tools.card_measure read-grad-builds [DIR]
     python3 -m theia_tpu_torch.tools.card_measure read-grad-live
     python3 -m theia_tpu_torch.tools.card_measure kde-builds [DIR]
+    python3 -m theia_tpu_torch.tools.card_measure walk-builds [DIR]
     python3 -m theia_tpu_torch.tools.card_measure profile
 
 ``tiles`` builds the scan of ``csrc/nearest_scan.cuh`` with 256 and 512
@@ -105,6 +106,28 @@ gradient is not zero: the traffic that the backward sees on those paths.
 with 10 %, 50 % and 100 % of the lanes unmasked, every lane in one bin,
 and a detector axis.
 
+``walk-builds [DIR]`` times the instanced and BVH walks' four entry
+points, queued and as called, on their cells' cases: random rays at N =
+262,144 (``chip_smoke.walk_rays``), the recorded queries of one batch of
+flagship-array (8) and flagship-bvh (19; the any-hits bounded at half the
+nearest hit, ``chip_smoke.anyhit_queries``), 65,536 rays through the
+sweep's 124 modules on either walk, and for the BVH 65,536 rays
+(``chip_smoke.case_rays``) through the tests' 27-module array, whose
+nodes alone go to shared memory. With ``DIR`` (an earlier commit's
+``csrc`` with the walks' first C interface, a thread a lane) first that
+commit's walks in turns with the package's (old, new, new, old), results
+held equal; then measurement builds (``WALK_BUILDS``: patches of
+``csrc/instanced_walk.cu`` or ``csrc/bvh_walk.cu`` in a copy: the BVH's
+blocks of 512 threads alone, its node-step cap, a warp's lanes taking
+new rays only when all are done, node + 1's rows loaded ahead; the
+instanced walk's pairs each warp's own instead of a block's queue, its
+box scans lane by lane, no rejection test in front of the exact one,
+blocks of 256 or 1024 threads) in turns with the package's; then the
+instanced walk on the same rays with the lanes dealt to warps so that
+every warp holds as many candidates as the others (what a block-level
+queue of pairs could even out at best) and sorted by their candidates,
+in turns with the rays as they come.
+
 ``profile`` traces one batch of the ``mt`` flagship, one of the
 brute-force flagship (``accel="auto"``) and one of the polarized ``woop``
 flagship (262,144 lanes, path length 10) with ``torch.profiler``, one
@@ -141,7 +164,9 @@ import chip_smoke  # noqa: E402
 import theia_tpu_torch  # noqa: E402
 from theia_tpu_torch import _build  # noqa: E402
 from theia_tpu_torch.response import KernelHistogramHitResponse  # noqa: E402
-from torch_flagship import build_flagship, build_photon_flagship, build_volume_flagship, icosphere  # noqa: E402
+from torch_flagship import (  # noqa: E402
+    array_rays, build_array, build_flagship, build_photon_flagship, build_volume_flagship, icosphere,
+)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: the entry points of the first kernels (tiled tables, MT with its tile width)
@@ -1134,6 +1159,265 @@ def baseline(csrc: Path, tiled: bool) -> dict:
     return out
 
 
+#: the walks' first C entry points, a thread a lane (no placement, no slot)
+OLD_WALK_SIGNATURES = (
+    ("theia_bvh_nearest", (_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P)),
+    ("theia_bvh_occluded", (_P, _P, _P, _P, _P, _P, _I, _I, _P, _P)),
+    ("theia_instanced_nearest", (_P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P)),
+    ("theia_instanced_occluded", (_P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P)),
+)
+#: the instanced walk's rounds as the package runs them (a block-level
+#: queue of pairs), and with each warp scanning its own lanes' pairs
+_QUEUE_ROUNDS = """  while (__syncthreads_or(L.k >= 0)) {
+    int slot = -1;
+    if (L.k >= 0) {
+      const Ray q = to_object(g.w2o + 12 * L.k, L.r);
+      slot = atomicAdd(&n_items, 1);
+      item_o[slot] = make_float4(q.ox, q.oy, q.oz, L.t_best);
+      item_d[slot] = make_float4(q.dx, q.dy, q.dz, ray_slack(q));
+    }
+    __syncthreads();
+    const int items = n_items;
+    for (int it = warp; it < items; it += kThreads / 32) {
+      const float4 a = item_o[it], b = item_d[it];
+      Ray q{};
+      q.ox = a.x, q.oy = a.y, q.oz = a.z, q.dx = b.x, q.dy = b.y, q.dz = b.z, q.kd = b.w;
+      const unsigned long long key = scan_prototype<kAnyHit, kPlace >= kRows>(g, rows, q, a.w);
+      if ((threadIdx.x & 31) == 0) item_key[it] = key;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) n_items = 0;
+    if (slot >= 0) L.take(g, item_key[slot]);
+    L.next(g, boxes, __ballot_sync(kFullMask, slot >= 0));
+  }
+"""
+_WARP_ROUNDS = """\
+  for (unsigned holders; (holders = __ballot_sync(kFullMask, L.k >= 0)) != 0;) {
+    Ray q = L.k >= 0 ? to_object(g.w2o + 12 * L.k, L.r) : Ray{};
+    q.kd = ray_slack(q);
+    theia::for_each_holder(holders, [&](int h) {
+      Ray qh = theia::shfl_ray(q, h);
+      qh.kd = __shfl_sync(kFullMask, q.kd, h);
+      const unsigned long long key = scan_prototype<kAnyHit, kPlace >= kRows>(
+          g, rows, qh, __shfl_sync(kFullMask, L.t_best, h));
+      if ((threadIdx.x & 31) == h) L.take(g, key);
+    });
+    L.next(g, boxes, holders);
+  }
+"""
+#: the BVH's node step with node + 1's rows loaded while node's box is
+#: tested (where the segment enters an interior node the walk goes there)
+_NODE_LOADS = """\
+      const float4 a = ld<kSharedNodes>(nodes + 2 * node), b = ld<kSharedNodes>(nodes + 2 * node + 1);
+"""
+_NODE_LOADS_AHEAD = """\
+      if (!loaded) a = ld<kSharedNodes>(nodes + 2 * node), b = ld<kSharedNodes>(nodes + 2 * node + 1);
+      const bool more = node + 1 < n_nodes;
+      const float4 a1 = more ? ld<kSharedNodes>(nodes + 2 * node + 2) : a;
+      const float4 b1 = more ? ld<kSharedNodes>(nodes + 2 * node + 3) : b;
+"""
+_NODE_NEXT = """\
+      node = (hit && link < 0) ? node + 1 : __float_as_int(b.z);
+"""
+#: measurement builds of the walks: (source, its (text, replacement)
+#: patches, the walk they change); their results are the package's
+WALK_BUILDS = {
+    "bvh blocks of 512 threads only": (
+        "bvh_walk.cu", (("const bool use_large = ", "const bool use_large = false && "),), "bvh"),
+    "bvh node cap 4": ("bvh_walk.cu", (("kNodeCap = 8;", "kNodeCap = 4;"),), "bvh"),
+    "bvh node cap 16": ("bvh_walk.cu", (("kNodeCap = 8;", "kNodeCap = 16;"),), "bvh"),
+    "bvh warps take 32 rays when all their lanes are done": ("bvh_walk.cu", ((
+        "    const bool want = !drained && i < 0;\n",
+        "    const bool idle = __all_sync(kFullMask, i < 0);\n"
+        "    const bool want = !drained && i < 0 && idle;\n"),), "bvh"),
+    "bvh with node + 1's rows loaded ahead": ("bvh_walk.cu", (
+        ("  while (true) {\n", "  float4 a, b;\n  bool loaded = false;\n  while (true) {\n"),
+        (_NODE_LOADS, _NODE_LOADS_AHEAD),
+        (_NODE_NEXT, "      loaded = more && hit && link < 0;\n" + _NODE_NEXT + "      a = a1, b = b1;\n"),
+    ), "bvh"),
+    "instanced pairs each warp's own": ("instanced_walk.cu", ((_QUEUE_ROUNDS, _WARP_ROUNDS),), "instanced"),
+    "instanced box scans lane by lane": ("instanced_walk.cu", ((
+        "    L.next(g, boxes, __ballot_sync(kFullMask, slot >= 0));",
+        "    if (slot >= 0) next_candidate<(kPlace >= kBoxes)>(g, boxes, L.r, L.ix, L.iy, L.iz, L.neg_inv_d2,"
+        " L.bound(), L.tn, L.k);"),), "instanced"),
+    "instanced without the rejection test": (
+        "instanced_walk.cu", (("pass = !theia::MollerTrumbore::reject(q, w);", "pass = true;"),), "instanced"),
+    "instanced 256 threads a block": ("instanced_walk.cu", (("kThreads = 512;", "kThreads = 256;"),), "instanced"),
+    "instanced 1024 threads a block": ("instanced_walk.cu", (
+        ("kThreads = 512;", "kThreads = 1024;"), ("__launch_bounds__(kThreads, 2)", "__launch_bounds__(kThreads, 1)")),
+        "instanced"),
+}
+
+
+class WalkCalls:
+    """One walk entry point (``name``, of ``chip_smoke.WALK_KERNELS``) of
+    ``lib`` on fixed queries over ``pack`` (a scene pack's ``instanced``
+    or ``bvh``): ``run()`` launches it on each query as the wrapper does
+    (the instanced walk's running hit reset from t_max first), ``results()``
+    gives the outputs; ``old`` takes the walks' first C interface (the prototype as
+    ``tri``, no placement, no slot)."""
+
+    def __init__(self, lib, name: str, pack, queries, old: bool) -> None:
+        self.lib, self.name, self.pack, self.queries, self.old = lib, name, pack, queries, old
+        any_hit = name.startswith("occluded")
+        if name.endswith("instanced"):
+            self.entry = "theia_instanced_occluded" if any_hit else "theia_instanced_nearest"
+            self.outs = [(torch.empty_like(q[2]), torch.empty(q[2].shape, dtype=torch.int32, device="cuda"))
+                         for q in queries]
+        else:
+            self.entry = "theia_bvh_occluded" if any_hit else "theia_bvh_nearest"
+            self.outs = [(torch.empty(q[2].shape, dtype=torch.bool, device="cuda"),) if any_hit else
+                         (torch.empty_like(q[2]), torch.empty(q[2].shape, dtype=torch.int32, device="cuda"))
+                         for q in queries]
+
+    def run(self):
+        from theia_tpu_torch.ops import bvh_traverse, instanced
+
+        fn, stream = getattr(self.lib, self.entry), _build.raw_stream(self.queries[0][0])
+        for (o, d, t_max), outs in zip(self.queries, self.outs):
+            n = o.shape[0]
+            if self.entry.startswith("theia_instanced"):
+                outs[0].copy_(t_max)
+                outs[1].fill_(-1)
+                for g in self.pack.groups:
+                    place = () if self.old else (instanced.placement(g),)
+                    table = g.tri if self.old else g.rows
+                    _build.check(fn(o.data_ptr(), d.data_ptr(), table.data_ptr(), g.v0.shape[0], g.w2o.data_ptr(),
+                                    g.boxes.data_ptr(), int(g.sph is not None), g.base.data_ptr(), g.base.shape[0],
+                                    g.box[0].numel(), *place, n, outs[0].data_ptr(), outs[1].data_ptr(), stream),
+                                 self.entry)
+            else:
+                p = self.pack
+                extra = () if self.old else (p.tri.shape[0], bvh_traverse.leaf_slot(p.leaf_size),
+                                             bvh_traverse.placement(p))
+                _build.check(fn(o.data_ptr(), d.data_ptr(), t_max.data_ptr(), p.nodes.data_ptr(), p.tri.data_ptr(),
+                                p.order.data_ptr(), p.nodes.shape[0], *extra, n, *(a.data_ptr() for a in outs),
+                                stream), self.entry)
+
+    def results(self):
+        self.run()
+        torch.cuda.synchronize()
+        if self.entry == "theia_instanced_occluded":
+            return [outs[1] >= 0 for outs in self.outs]
+        return [a.clone() for outs in self.outs for a in outs]
+
+
+def _walk_cases() -> dict:
+    """The walks' timing cases (see ``walk-builds``): kind -> label ->
+    (scene pack, nearest-hit queries)."""
+    mesh = icosphere(3)
+    array = build_array(theia_tpu_torch, mesh, chip_smoke.BATCH, chip_smoke.ARRAY_PATH, device="cuda")
+    flagship = build_flagship(theia_tpu_torch, mesh, chip_smoke.BATCH, chip_smoke.MAX_PATH, accel="bvh", device="cuda")
+    rays = lambda sp, seed: [chip_smoke.walk_rays(sp, chip_smoke.BATCH, seed)]
+    sweep = {kind: build_array(theia_tpu_torch, mesh, 1, 2, accel=kind, device="cuda", n_side=5).scene.pack
+             for kind in ("instanced", "bvh")}
+    sweep_rays = [tuple(torch.as_tensor(a, device="cuda") for a in array_rays(chip_smoke.SWEEP_RAYS, 105, 5))]
+    nodes_only = chip_smoke.walk_cases("bvh")["the tests' 27-module array"][0]().pack
+    return {
+        "instanced": {
+            f"random rays N={chip_smoke.BATCH}": (array.scene.pack, rays(array.scene.pack, 5)),
+            "flagship-array's 8 recorded queries": (
+                array.scene.pack, chip_smoke.walk_queries(array, "nearest_triangle_instanced")),
+            f"the sweep's 124 modules, {chip_smoke.SWEEP_RAYS} rays": (sweep["instanced"], sweep_rays),
+        },
+        "bvh": {
+            f"random rays N={chip_smoke.BATCH}": (flagship.scene.pack, rays(flagship.scene.pack, 5)),
+            "flagship-bvh's 19 recorded queries": (
+                flagship.scene.pack, chip_smoke.walk_queries(flagship, "nearest_triangle_bvh")),
+            f"the tests' 27-module array (nodes placed), {chip_smoke.SWEEP_RAYS} rays": (
+                nodes_only, [chip_smoke.case_rays(nodes_only, chip_smoke.SWEEP_RAYS, 7)]),
+            f"the sweep's 124 modules, {chip_smoke.SWEEP_RAYS} rays": (sweep["bvh"], sweep_rays),
+        },
+    }
+
+
+def _walk_queries(name: str, scene_pack, queries) -> list:
+    """The queries of entry point ``name``: the any-hits bounded at half
+    the nearest hit."""
+    if not name.startswith("occluded"):
+        return queries
+    return chip_smoke.anyhit_queries(chip_smoke.Walk(name.replace("occluded", "nearest_triangle"), scene_pack), queries)
+
+
+def _walk_turns(base_lib, lib, cases, names, label: str, old: bool = False) -> dict:
+    """``lib``'s walks against the package's (``base_lib``) in turns on
+    ``cases``: results equal first, then base, lib, lib, base."""
+    out = {}
+    for name in names:
+        kind = "instanced" if name.endswith("instanced") else "bvh"
+        for case, (scene_pack, queries) in cases[kind].items():
+            pack = getattr(scene_pack, kind)
+            qs = _walk_queries(name, scene_pack, queries)
+            base, other = WalkCalls(base_lib, name, pack, qs, False), WalkCalls(lib, name, pack, qs, old)
+            assert all(torch.equal(a, b) for a, b in zip(base.results(), other.results())), (label, name, case)
+            t = _in_turns(base, other, "run", 5 if len(qs) > 1 else 20)
+            out[f"{name}, {case}"] = t
+            print(f"walk {name}, {case}: package {t['old_queued_ms'][0]:.4f} / {t['old_queued_ms'][1]:.4f} ms, "
+                  f"{label} {t['new_queued_ms'][0]:.4f} / {t['new_queued_ms'][1]:.4f} ms queued (package, "
+                  f"{label}, {label}, package); as called {t['old_ms'][0]:.4f} / {t['old_ms'][1]:.4f} against "
+                  f"{t['new_ms'][0]:.4f} / {t['new_ms'][1]:.4f}", flush=True)
+    return out
+
+
+class _Permuted:
+    """The package's instanced nearest hit on rays as they come (``base``)
+    and on the same rays permuted (``other``), for ``_in_turns``."""
+
+    def __init__(self, lib, pack, rays, perm) -> None:
+        self.base = WalkCalls(lib, "nearest_triangle_instanced", pack, [rays], False)
+        self.other = WalkCalls(lib, "nearest_triangle_instanced", pack, [tuple(r[perm].contiguous() for r in rays)],
+                               False)
+
+
+def _balance(cases) -> dict:
+    """The instanced nearest hit with the lanes dealt so that each warp
+    holds as many candidates as the others (the lanes sorted by their
+    candidates, dealt round-robin to the warps), and sorted by them, each
+    in turns with the rays as they come."""
+    from theia_tpu_torch.ops import instanced
+
+    lib, out = _build.library(), {}
+    for case, (scene_pack, queries) in cases["instanced"].items():
+        rays = queries[0]
+        stats = {}
+        instanced.nearest_triangle_instanced_plain(scene_pack.instanced, *rays, stats=stats)
+        pairs = stats["lane_counts"][0][0].long()
+        n = pairs.shape[0]
+        assert n % 32 == 0, n
+        order = torch.argsort(pairs, descending=True, stable=True)
+        # the k-th lane of that order to warp k % warps: every warp takes one of each 'warps' ranks
+        k = torch.arange(n, device="cuda")
+        dealt = torch.empty_like(order)
+        dealt[(k % (n // 32)) * 32 + k // (n // 32)] = order
+        perms = {"dealt evenly": dealt, "sorted by candidates": order}
+        for label, perm in perms.items():
+            p = _Permuted(lib, scene_pack.instanced, rays, perm)
+            t = _in_turns(p.base, p.other, "run", 20)
+            per_warp = torch.nn.functional.pad(pairs[perm], (0, -n % 32)).view(-1, 32).sum(dim=1).float()
+            out[f"{case}, {label}"] = dict(turns=t, warp_candidates_max_over_mean=float(per_warp.max() / per_warp.mean()))
+            print(f"walk balance, {case}, {label}: as they come {t['old_queued_ms'][0]:.4f} / "
+                  f"{t['old_queued_ms'][1]:.4f} ms, permuted {t['new_queued_ms'][0]:.4f} / {t['new_queued_ms'][1]:.4f} "
+                  f"ms queued", flush=True)
+    return out
+
+
+def walk_builds(parent: Path | None) -> dict:
+    """See ``walk-builds`` in the module's docstring."""
+    base_lib = _build.library()
+    cases = _walk_cases()
+    names = tuple(chip_smoke.WALK_KERNELS)
+    out = {"package ptxas": [x for x in _kernel_ptxas(base_lib.build_log, "walk")]}
+    if parent is not None:
+        old = _build.build(parent, (), OLD_WALK_SIGNATURES)
+        out["parent"] = _walk_turns(base_lib, old, cases, names, "parent", old=True)
+    for label, (source, patches, kind) in WALK_BUILDS.items():
+        lib = patched_build(label, patches, source)
+        out[label] = dict(ptxas=_kernel_ptxas(lib.build_log, "walk"), turns=_walk_turns(
+            base_lib, lib, cases, [n for n in names if n.endswith(kind)], label))
+    out["balance"] = _balance(cases)
+    return out
+
+
 def _profiled(label: str, step, plain_seconds: float) -> dict:
     """Trace one call of ``step`` and print where its device time went."""
     prof = chip_smoke.profile_step(step)
@@ -1220,6 +1504,8 @@ def main(argv: list[str]) -> int:
         result = (read_grad_builds if mode == "read-grad-builds" else kde_builds)(parent)
     elif mode == "read-grad-live":
         result = read_grad_live()
+    elif mode == "walk-builds" and len(argv) <= 3:
+        result = walk_builds(Path(argv[2]).resolve() if len(argv) == 3 else None)
     elif mode == "profile":
         result = profile()
     else:
