@@ -93,7 +93,13 @@ Phases, one line each, any failure raises and exits non-zero:
    and flagship-bvh (19; the any-hit on the same rays bounded at half
    their nearest hit), each timed as called and queued beside the plain
    walk and a bound from the plain walk's counts of box, sphere and
-   triangle tests and transforms (``Walk.bound``);
+   triangle tests and transforms (``Walk.bound``); and the Owen-scrambled
+   Sobol draw (``csrc/sobol.cu``, ``check_sobol``) bit for bit on 2^20
+   lanes x 2 draws with the flagship's generator (128 dims, the path's 74)
+   and example 11's (64 dims, 160 drawn: the Philox tail) and on the edge
+   indices, dims, seeds, tables and a wrapping offset, timed as called and
+   queued beside its plain version and a bound from its integer
+   operations;
 3. the first main path at full width: the flagship scene tracer
    (262,144 lanes, path length 10, 3840 triangles, 100 bins,
    ``accel="mt"``) through ``run()``, one warm-up batch and three timed
@@ -152,13 +158,29 @@ Phases, one line each, any failure raises and exits non-zero:
    ``is_visible`` on each scene (three any-hit walks); then the crossover
    sweep (``sweep``): 65,536 random rays through 1, 8, 26 and 124
    modules on the brute-force soup, the instanced walk and the BVH;
+3k. (``sobol_and_camera_runs``) flagship-brute-sobol (the brute-force
+   flagship with ``_build_scene_tracer(rng="sobol")``'s ``SobolQRNG(seed=42,
+   dims=128)``: 50 Sobol launches a batch in Philox's place; one batch's
+   Sobol calls recorded, held bit for bit and replayed, ``time_sobol_path``,
+   whose time a call is the kernel's row), then flagship-brute profiled in
+   the same call and in turns with it; flagship-volume-sobol (the volume flagship
+   with example 11's ``SobolQRNG(seed=1, dims=64)``, the lanes' last dim
+   reported); volume-backward (``VolumeBackwardTracer`` of
+   ``test_backward_energy_conservation``, 30 scatterings, a
+   ``HitRecorder``: the energy estimate of 4 batches within 5 % of the
+   budget) and direct (``DirectLightTracer`` of
+   ``test_direct_tracer_analytic``: 4 batches within 5 % of the closed
+   form, the peak within a bin of the arrival time), each at 262,144
+   lanes: seconds a batch (median of 3 after a warm-up), launches a
+   batch, peak memory, one profiled batch;
 4. the port on the CPU against the port on the card at batch 4096: the
    unpolarized ``mt`` flagship, the brute-force flagship, the polarized
    ``woop`` flagship with the source off centre, the volume flagship
    unpolarized and polarized, a volume photon tracer, the photon
    flagship, the unguided brute-force flagship with a
    ``StoreTimeHitResponse`` and flagship-array's ``HitRecorder`` (the same
-   detections, times within 1e-5) and flagship-bvh;
+   detections, times within 1e-5), flagship-bvh and the four runs of 3k
+   (the volume backward run's ``HitRecorder`` as flagship-array's);
    then the gradients at batch 2048, path length 3: the polarized
    medium gradient, the volume steps of 3h and the geometry step of 3i,
    each by ``PERF.md``'s gradient agreement.
@@ -204,6 +226,10 @@ VOLUME_RECORDS = 21
 #: and one record each; its wavefront shrinks between runs down to this
 PHOTON_PATH = 6
 PHOTON_MIN_LANES = 1024
+#: the volume backward run's batches for its energy check (4 x 262,144 =
+#: test_backward_energy_conservation's 1,048,576 samples) and the direct
+#: run's for its closed form: timed_runs' warm-up and its three timed runs
+CAMERA_RUN_BATCHES = 4
 #: published peaks of one H100 SXM: HBM bytes/s and float32 flop/s outside
 #: the tensor cores (132 SMs x 128 lanes x 2 flop an FMA x 1.98 GHz)
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
@@ -226,6 +252,34 @@ PEAK_I32 = PEAK_F32 / 4
 #: so the integer pipe's larger count is what bounds.
 PHILOX_SHARED_OPS, PHILOX_DRAW_OPS = 5 + 20 + 1, 9 + 20 + 6 + 1
 PHILOX_PAIR_OPS = max(PHILOX_SHARED_OPS + 2 * PHILOX_DRAW_OPS, 2 * 20)
+#: int32 operations that sobol_owen_uniform needs, counted at the least
+#: form of each step, with a three-input logic op as one and the 32-bit
+#: products (which go to the multiply-add pipe beside the integer pipe,
+#: as Philox's do) left out, since the integer pipe's count is the
+#: larger. A lane: the index + offset 1, its nested scramble 7 (two bit
+#: reversals, the seed's add, four xors); a draw after its first, dim + j
+#: 1. A draw in the table: the tail test 1, the row's address 2, the XOR fold
+#: 40, the Owen scramble 7 (as the index's), the conversion to float 1.
+#: The fold's least form xors each row word under a predicate set from
+#: its bit of the index: four R2P moves put bits 0-6 of each byte into
+#: predicates, four tests set bits 7, 15, 23 and 31, and 32 predicated
+#: xors apply them. The scramble's seed hash32(dim ^ hash32(seed))
+#: depends on the dimension alone, so it is made once a call for each
+#: dimension drawn (7 operations, 4 bytes read beside the row) and costs
+#: a draw nothing. A draw past the table: the tail test 1 and the Philox
+#: draw's own 61 (its key set up again, csrc/philox.cuh).
+SOBOL_LANE_OPS, SOBOL_TABLE_OPS, SOBOL_TAIL_OPS = 1 + 7, 1 + 2 + 40 + 7 + 1, 1 + 61
+SOBOL_DIM_OPS = 7
+#: the flagship's generator (``_build_scene_tracer(rng="sobol")``) and
+#: example 11's (``examples/11_quasirandom_sampling.py``)
+FLAGSHIP_SOBOL = dict(seed=42, dims=128)
+EXAMPLE_11_SOBOL = dict(seed=1, dims=64)
+
+
+def sobol(gen: dict):
+    """The ``rng`` argument of the flagship builders for a SobolQRNG."""
+    return lambda rnd: rnd.SobolQRNG(**gen)
+
 #: cycles that torch.cuda._sleep spins in front of queued launches (~50 ms)
 SPIN_CYCLES = 100_000_000
 #: float32 operations a (ray, triangle) pair costs in the scan's two
@@ -371,6 +425,125 @@ def check_philox(report):
           f"({PHILOX_PAIR_OPS} int32 operations a lane at {PEAK_I32:.4g}/s), share of bound "
           f"{b['bound_ms'] / ms:.3f} ({b['bound_ms'] / queued_ms:.3f} queued), library call: none")
     report.update(max_abs_err=0.0, ms=ms, queued_ms=queued_ms, plain_ms=plain_ms, library_ms=None, **b)
+
+
+def sobol_bound(table_dims: int, dim, width: int) -> dict:
+    """The bound of one ``sobol_owen_uniform`` call: each lane's stream and
+    dim read and its ``width`` floats written, the table's rows and seeds
+    of the dimensions drawn once; the integer operations of this call's
+    draws, in the table or past it, and of its dimensions' seeds."""
+    import torch
+
+    draws = torch.stack([dim.to(torch.int64) + j for j in range(width)])
+    tail = int((draws >= table_dims).sum())
+    rows = int(torch.unique(draws[draws < table_dims]).numel())
+    n = dim.shape[0]
+    ops = n * (SOBOL_LANE_OPS + width - 1) + (n * width - tail) * SOBOL_TABLE_OPS + tail * SOBOL_TAIL_OPS + rows * SOBOL_DIM_OPS
+    return bound((8 + 4 * width) * n + (128 + 4) * rows, ops, PEAK_I32)
+
+
+def check_sobol(report):
+    """``sobol_owen_uniform`` against its plain version, bit for bit: 2^20
+    lanes x 2 draws at the flagship's generator (128 dims) over the
+    path's 74 dims, and example 11's (64 dims) over 160 dims, so that
+    the Philox tail runs too; then the edge values (indices 0, 2^31 - 1,
+    2^31, 2^32 - 1, dims 0, dims - 1, dims, dims + 50, seeds 0,
+    0x80000000, 0xFFFFFFFF, tables of 1, 64 and 128 dims, an offset that
+    wraps). The flagship's case is timed as called and queued beside its
+    plain version and its bound. No library call: torch's SobolEngine
+    scrambles its own way and draws other points."""
+    import numpy as np
+    import torch
+
+    from theia_tpu_torch.random import _direction_table, sobol_owen_uniform, sobol_owen_uniform_plain
+
+    n = 1 << 20
+    rng = np.random.default_rng(3)
+    stream = torch.arange(n, dtype=torch.int32, device="cuda")
+    same = lambda got, want: torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    for gen, top in ((FLAGSHIP_SOBOL, 74), (EXAMPLE_11_SOBOL, 160)):
+        table = _direction_table(gen["dims"], "cuda")
+        dim = torch.as_tensor(rng.integers(0, top, size=n).astype(np.int32), device="cuda")
+        for width in (1, 2):
+            got = sobol_owen_uniform(table, gen["seed"], stream, dim, width, offset=n)
+            torch.cuda.synchronize()
+            want = sobol_owen_uniform_plain(table.cpu(), gen["seed"], stream.cpu(), dim.cpu(), width, offset=n)
+            assert same(got, want), f"sobol {gen} width {width} differs"
+    edges = torch.tensor([0, 2**31 - 1, -(2**31), -1], dtype=torch.int32, device="cuda")
+    for dims in (1, 64, 128):
+        table = _direction_table(dims, "cuda")
+        dim = torch.tensor([0, dims - 1, dims, dims + 50], dtype=torch.int32, device="cuda")
+        s, d = edges.repeat_interleave(4), dim.repeat(4)
+        for seed in (0, 0x80000000, 0xFFFFFFFF):
+            for offset in (0, 2**32 - 2):
+                got = sobol_owen_uniform(table, seed, s, d, 2, offset)
+                want = sobol_owen_uniform_plain(table.cpu(), seed, s.cpu(), d.cpu(), 2, offset)
+                assert same(got, want), f"sobol edge case dims {dims} seed {seed:#x} offset {offset} differs"
+    table = _direction_table(FLAGSHIP_SOBOL["dims"], "cuda")
+    dim = torch.as_tensor(rng.integers(0, 74, size=n).astype(np.int32), device="cuda")
+    draw = lambda: sobol_owen_uniform(table, FLAGSHIP_SOBOL["seed"], stream, dim, 2, n)
+    ms, queued_ms = cuda_ms(draw, 50), cuda_ms_queued(draw, 50)
+    plain_ms = cuda_ms(lambda: sobol_owen_uniform_plain(table, FLAGSHIP_SOBOL["seed"], stream, dim, 2, n), 5)
+    b = sobol_bound(FLAGSHIP_SOBOL["dims"], dim, 2)
+    print(f"kernel sobol_owen_uniform N={n}: bit-exact (width 1 and 2; 128 dims over 74, 64 dims over 160 with "
+          f"the Philox tail; 48 edge cases x 6); kernel {ms:.4f} ms ({queued_ms:.4f} queued), plain {plain_ms:.4f} ms; "
+          f"bound {b['bound_ms']:.4f} ms by {b['bound_by']} ({SOBOL_LANE_OPS + 1} + 2 x {SOBOL_TABLE_OPS} int32 "
+          f"operations a lane at {PEAK_I32:.4g}/s), share of bound {b['bound_ms'] / ms:.3f} "
+          f"({b['bound_ms'] / queued_ms:.3f} queued), library call: none")
+    report.update(max_abs_err=0.0, ms=ms, queued_ms=queued_ms, plain_ms=plain_ms, library_ms=None, **b)
+
+
+def record_sobol_calls(tracer):
+    """(table, seed, stream, dim, width, offset) of every
+    ``sobol_owen_uniform`` call of one batch of ``tracer``."""
+    from theia_tpu_torch import random
+
+    def draw(dirs, seed, stream, dim, width=1, offset=0):
+        return dirs, seed, stream.clone(), dim.clone(), width, offset
+
+    return record_calls(tracer, random, ("sobol_owen_uniform",), draw)
+
+
+def time_sobol_path(report, calls):
+    """``sobol_owen_uniform`` on the path's own inputs: one batch's
+    ``calls`` (:func:`record_sobol_calls`) held bit for bit against the
+    plain version and replayed, as called and queued; the mean a call
+    with the calls' mean bound becomes the kernel's row, and the 2^20-lane
+    case of :func:`check_sobol` stays beside it as ``synthetic``."""
+    import torch
+
+    from theia_tpu_torch.random import sobol_owen_uniform, sobol_owen_uniform_plain
+
+    for dirs, seed, stream, dim, width, offset in calls:
+        got = sobol_owen_uniform(dirs, seed, stream, dim, width, offset)
+        torch.cuda.synchronize()
+        want = sobol_owen_uniform_plain(dirs.cpu(), seed, stream.cpu(), dim.cpu(), width, offset)
+        assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32)), "sobol on the path's inputs differs"
+
+    def replay():
+        for c in calls:
+            sobol_owen_uniform(*c)
+
+    def replay_plain():
+        for c in calls:
+            sobol_owen_uniform_plain(*c)
+
+    n = len(calls)
+    ms, queued_ms = cuda_ms(replay, 10) / n, cuda_ms_queued(replay, max(1, 400 // n)) / n
+    plain_ms = cuda_ms(replay_plain, 1) / n
+    bounds = [sobol_bound(c[0].shape[0], c[3], c[4]) for c in calls]
+    kinds = [x["bound_by"] for x in bounds]
+    b = dict(bound_ms=sum(x["bound_ms"] for x in bounds) / n, bound_by=max(set(kinds), key=kinds.count))
+    lanes = sorted({int(c[2].shape[0]) for c in calls})
+    widths = [c[4] for c in calls]
+    distinct = [int(torch.unique(c[3]).numel()) for c in calls]
+    print(f"kernel sobol_owen_uniform on flagship-brute-sobol's inputs: {n} calls of a batch ({lanes} lanes, "
+          f"{widths.count(2)} of width 2, at most {max(distinct)} distinct dims a call), bit-exact; "
+          f"{ms:.4f} ms a call ({queued_ms:.4f} queued), plain {plain_ms:.4f} ms; bound {b['bound_ms']:.4f} ms a "
+          f"call by {b['bound_by']}, share of bound {b['bound_ms'] / ms:.3f} ({b['bound_ms'] / queued_ms:.3f} queued)")
+    synthetic = {k: report[k] for k in ("ms", "queued_ms", "plain_ms", "bound_ms", "bound_by")}
+    report.update(ms=ms, queued_ms=queued_ms, plain_ms=plain_ms, path_calls=n, path_lanes=lanes,
+                  synthetic=dict(synthetic, lanes=1 << 20, width=2), **b)
 
 
 def hist_case(n: int, seed: int, bins: int = 100, n_det=None, kept: float = 0.5, offset: int = 0):
@@ -2099,18 +2272,20 @@ def recorded_total(hits, label) -> float:
     return float(hits["contrib"][valid].sum())
 
 
-def timed_runs(tracer, wrappers, label, total=histogram_total):
+def timed_runs(tracer, wrappers, label, total=histogram_total, keep_warmup: bool = False):
     """One warm-up and three timed ``run()``s of ``tracer`` with the launch
     counts of ``wrappers`` set to 0 just before the timed runs; returns
-    (seconds, ``total``s of the results, launch counts, peak bytes)."""
+    (seconds, ``total``s of the results, the warm-up's first where
+    ``keep_warmup`` asks for it, launch counts, peak bytes)."""
     import torch
 
-    tracer.run()  # warm-up batch
+    out, _ = tracer.run()  # warm-up batch
+    sums = [total(out, label)] if keep_warmup else []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for w in wrappers.values():
         w.launches = 0
-    seconds, sums = [], []
+    seconds = []
     for _ in range(3):
         start = time.perf_counter()
         out, _ = tracer.run()
@@ -2125,6 +2300,14 @@ def timed_runs(tracer, wrappers, label, total=histogram_total):
 #: (lower case), e.g. the zero fills, copies and adds that the backward of
 #: a slice makes
 KINDS = {"fills": ("fillfunctor", "memset"), "copies": ("copy_kernel", "memcpy"), "adds": ("functor_add",)}
+
+
+def light_curve(hist, label):
+    """A light curve on the host, which must be finite and not 0."""
+    import torch
+
+    assert bool(torch.isfinite(hist).all()) and float(hist.sum()) > 0.0, f"{label}: bad light curve"
+    return hist.double().cpu()
 
 
 def profile_step(step, watch=()) -> dict:
@@ -2145,7 +2328,7 @@ def profile_step(step, watch=()) -> dict:
         by_name.setdefault(e.name, []).append(e.device_time if hasattr(e, "device_time") else e.cuda_time)
     item = lambda n, t: dict(name=n, ms=sum(t) / 1e3, count=len(t))
     top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:12]
-    mine = ("histogram", "theia::scan", "philox", "kde_", "read_", "::gather", "_walk")
+    mine = ("histogram", "theia::scan", "philox", "sobol", "kde_", "read_", "::gather", "_walk")
     own = sorted((n, t) for n, t in by_name.items() if any(k in n for k in mine))
     watched = {w: [item(n, t) for n, t in by_name.items() if w in n] for w in watch}
     kinds = {
@@ -2700,6 +2883,123 @@ def sweep(mesh, report):
     report["sweep"] = rows
 
 
+def sobol_and_camera_runs(mesh, wrappers, kernels, batch: int = BATCH, device="cuda") -> dict:
+    """Phase 3k: the Sobol generator on the brute-force flagship
+    (``_build_scene_tracer(rng="sobol")``, then in turns with its Philox
+    twin) and on the volume flagship (example 11's generator), then the
+    volume backward and direct runs with their physics checks, each at
+    ``batch`` lanes: seconds a batch, launches a batch, peak memory and
+    one profiled batch. Returns the runs' report."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    import theia_tpu_torch
+    from torch_flagship import (
+        DIRECT_CAMERA, DIRECT_MU_A, DIRECT_RADIUS, build_direct, build_flagship, build_volume_backward,
+        build_volume_flagship,
+    )
+
+    camera_runs = {}
+
+    def report_run(label, seconds, counts, peak, prof, extra=""):
+        med = statistics.median(seconds)
+        print(f"{label}: batch {batch}: {med:.4f} s/batch (median of {[round(x, 4) for x in seconds]}), peak memory "
+              f"{peak / 2**20:.1f} MiB, launches per batch {counts}; one batch profiled: device busy "
+              f"{prof['device_busy_ms']:.2f} ms, {prof['kernels']} kernels and copies{extra}")
+        for entry in prof["top"][:5] + prof["own"]:
+            print(f"    {entry['ms']:9.3f} ms {entry['count']:6d} x {entry['name'][:90]}")
+        camera_runs[label] = dict(seconds_per_batch=seconds, launches_per_batch=counts, peak_bytes=peak, profile=prof)
+
+    brute_sobol = build_flagship(theia_tpu_torch, mesh, batch, MAX_PATH, accel="auto", device=device,
+                                 rng=sobol(FLAGSHIP_SOBOL))
+    assert brute_sobol.scene.accel == "brute"
+    seconds_, sums_, counts_, peak_ = timed_runs(brute_sobol, wrappers, "flagship-brute-sobol")
+    per_batch = {k: v // 3 for k, v in counts_.items() if v}
+    assert counts_["philox_uniform"] == 0 and counts_["sobol_owen_uniform"] > 0, per_batch
+    assert counts_["nearest_in_table_rows"] == MAX_PATH * 3 and counts_["target_in_table"] == (MAX_PATH - 1) * 3
+    report_run("flagship-brute-sobol", seconds_, per_batch, peak_, profile_step(brute_sobol.run),
+               f"; histogram sums {sums_}")
+    kernels["sobol_owen_uniform"].update(launches=counts_["sobol_owen_uniform"],
+                                         launches_per_batch=per_batch["sobol_owen_uniform"],
+                                         path="flagship-brute-sobol, 3 batches")
+    time_sobol_path(kernels["sobol_owen_uniform"], record_sobol_calls(brute_sobol))
+    # flagship-brute-sobol in turns with flagship-brute (Philox): the one generator's launches in the other's place
+    brute_philox = build_flagship(theia_tpu_torch, mesh, batch, MAX_PATH, accel="auto", device=device)
+    brute_philox.run()  # warm-up batch
+    prof = profile_step(brute_philox.run, watch=("philox",))
+    print(f"flagship-brute (PhiloxRNG) in the same call: one batch profiled: device busy {prof['device_busy_ms']:.2f} "
+          f"ms, {prof['kernels']} kernels and copies; its draws {prof['watched']['philox']}")
+    camera_runs["flagship-brute-sobol"]["philox_profile"] = prof
+    sobol_turns = []
+    for label, cell in (("sobol", brute_sobol), ("philox", brute_philox), ("philox", brute_philox),
+                        ("sobol", brute_sobol)):
+        turn_seconds, turn_sums, turn_counts, _ = timed_runs(cell, wrappers, f"flagship-brute ({label})")
+        draws = turn_counts["sobol_owen_uniform" if label == "sobol" else "philox_uniform"]
+        assert draws == per_batch["sobol_owen_uniform"] * 3, (label, turn_counts)
+        sobol_turns.append(dict(rng=label, seconds_per_batch=turn_seconds, histogram_sums=turn_sums))
+    print("flagship-brute with SobolQRNG / PhiloxRNG in turns: " + "; ".join(
+        f"{t['rng']} {statistics.median(t['seconds_per_batch']):.4f} s {[round(x, 4) for x in t['seconds_per_batch']]}"
+        for t in sobol_turns))
+    camera_runs["flagship-brute-sobol"]["turns_with_philox"] = sobol_turns
+    del brute_sobol, brute_philox
+    torch.cuda.empty_cache()
+
+    with warnings.catch_warnings():  # its path's budget of 72 dims is past example 11's 64
+        warnings.simplefilter("ignore")
+        vol_sobol = build_volume_flagship(theia_tpu_torch, batch, device, rng=sobol(EXAMPLE_11_SOBOL))
+    seconds_, sums_, counts_, peak_ = timed_runs(vol_sobol, wrappers, "flagship-volume-sobol")
+    per_batch = {k: v // 3 for k, v in counts_.items() if v}
+    assert counts_["philox_uniform"] == 0 and counts_["sobol_owen_uniform"] > 0, per_batch
+    assert counts_["histogram_add"] == VOLUME_RECORDS * 3, per_batch
+    vol_sobol._debug_rng = True
+    with torch.no_grad():
+        dims_ = vol_sobol._trace_batch(vol_sobol.params(), vol_sobol.rng.counter_words, vol_sobol.streams())[2]
+    vol_sobol._debug_rng = False
+    past = float((dims_ > EXAMPLE_11_SOBOL["dims"]).double().mean())
+    report_run("flagship-volume-sobol", seconds_, per_batch, peak_, profile_step(vol_sobol.run),
+               f"; histogram sums {sums_}; lanes' last dim at most {int(dims_.max())}, past the table on {past:.6f} "
+               f"of the lanes (budget {vol_sobol.nRNGSamples})")
+    camera_runs["flagship-volume-sobol"].update(max_dim=int(dims_.max()), share_past_table=past)
+    del vol_sobol
+    torch.cuda.empty_cache()
+
+    backward = build_volume_backward(theia_tpu_torch, batch, device)
+    seconds_, totals_, counts_, peak_ = timed_runs(backward, wrappers, "volume-backward", recorded_total, True)
+    assert len(totals_) == CAMERA_RUN_BATCHES
+    counts_ = {k: v // 3 for k, v in counts_.items() if v}
+    assert counts_["philox_uniform"] > 0 and counts_.get("histogram_add", 0) == 0, counts_
+    # test_backward_energy_conservation: with mu_a = 0 the recorded contributions sum to the budget
+    energy = sum(totals_) / (batch * CAMERA_RUN_BATCHES) / 1e9
+    assert abs(energy - 1.0) < 0.05, f"volume-backward: energy estimate {energy} of the budget"
+    report_run("volume-backward", seconds_, counts_, peak_, profile_step(backward.run),
+               f"; energy estimate over {CAMERA_RUN_BATCHES} x {batch} samples {energy:.6f} of the budget "
+               f"(limit 5 %)")
+    camera_runs["volume-backward"].update(energy_over_budget=energy, batches=CAMERA_RUN_BATCHES)
+    del backward
+    torch.cuda.empty_cache()
+
+    direct = build_direct(theia_tpu_torch, batch, device)
+    seconds_, curves_, counts_, peak_ = timed_runs(direct, wrappers, "direct", light_curve, True)
+    assert len(curves_) == CAMERA_RUN_BATCHES
+    counts_ = {k: v // 3 for k, v in counts_.items() if v}
+    assert counts_["philox_uniform"] > 0 and counts_["histogram_add"] == 1, counts_
+    curve = sum(curves_) / CAMERA_RUN_BATCHES
+    d = float(np.linalg.norm(DIRECT_CAMERA))
+    expected = 1e9 * DIRECT_RADIUS**2 / (6 * d * d) * np.exp(-DIRECT_MU_A * d)
+    t_arr = 10.0 + d / (theia_tpu_torch.units.c / 1.33)
+    closed = float(curve.sum()) / expected
+    assert abs(closed - 1.0) < 0.05 and abs(int(curve.argmax()) - int(t_arr / 10.0)) <= 1, (closed, curve.argmax())
+    report_run("direct", seconds_, counts_, peak_, profile_step(direct.run),
+               f"; total over {CAMERA_RUN_BATCHES} x {batch} samples {closed:.6f} of the closed form (limit 5 %), "
+               f"peak bin {int(curve.argmax())} (arrival {t_arr:.2f} ns)")
+    camera_runs["direct"].update(total_over_closed_form=closed, peak_bin=int(curve.argmax()))
+    del direct
+    torch.cuda.empty_cache()
+    return camera_runs
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2718,15 +3018,15 @@ def main() -> int:
     from theia_tpu_torch.ops.intersect_woop import nearest_triangle_woop
     from theia_tpu_torch.ops.bvh_traverse import nearest_triangle_bvh, occluded_bvh
     from theia_tpu_torch.ops.instanced import nearest_triangle_instanced, occluded_instanced
-    from theia_tpu_torch.random import philox_uniform
+    from theia_tpu_torch.random import philox_uniform, sobol_owen_uniform
     from theia_tpu_torch.ops import table_read
     from theia_tpu_torch.response import histogram_add, histogram_grad
     from theia_tpu_torch.response import (
         KernelHistogramHitResponse, StoreTimeHitResponse, kernel_histogram_add, kernel_histogram_grad,
     )
     from torch_flagship import (
-        adversarial_rays, build_array, build_flagship, build_photon_flagship, build_volume_flagship, build_volume_photon,
-        icosphere,
+        adversarial_rays, build_array, build_direct, build_flagship, build_photon_flagship, build_volume_backward,
+        build_volume_flagship, build_volume_photon, icosphere,
     )
 
     # the seconds of each phase, printed as it ends
@@ -2779,6 +3079,10 @@ def main() -> int:
         "philox_uniform": dict(
             route="cuda", source="theia_tpu_torch/csrc/philox.cu",
             replaces="theia_tpu/random.py:121",
+        ),
+        "sobol_owen_uniform": dict(
+            route="cuda", source="theia_tpu_torch/csrc/sobol.cu",
+            replaces="theia_tpu/random.py:385",
         ),
         "histogram_add": dict(
             route="cuda", source="theia_tpu_torch/csrc/histogram.cu",
@@ -2866,13 +3170,14 @@ def main() -> int:
     del primary, shadow, occluder_halves, queries
     lap("the soup kernels")
     check_philox(kernels["philox_uniform"])
+    check_sobol(kernels["sobol_owen_uniform"])
     check_histogram(kernels["histogram_add"], kernels["histogram_grad"])
     brute_records = record_records(brute_tracer)
     assert sorted(r[2].shape[0] for r in brute_records) == [BATCH] * MAX_PATH + [2 * BATCH] * (MAX_PATH - 1)
     for path, records in (("mt", mt_records), ("polarized woop", woop_records), ("brute", brute_records)):
         check_record_replay(records, path, kernels["histogram_add"], kernels["histogram_grad"])
     del mt_records, woop_records, brute_records, records
-    lap("philox and the histogram")
+    lap("philox, sobol and the histogram")
     # the volume flagship's records (one direct extension, then two MIS candidates a segment) and the
     # photon flagship's: its primary queries and records, of run() and of run_compacted()
     volume_tracer = build_volume_flagship(theia_tpu_torch, BATCH, "cuda")
@@ -2934,6 +3239,7 @@ def main() -> int:
         "anyhit_in_table": anyhit_in_table,
         "target_in_table": target_in_table,
         "philox_uniform": philox_uniform,
+        "sobol_owen_uniform": sobol_owen_uniform,
         "histogram_add": histogram_add,
         "read_table": table_read.read_table,
         "read_packed": table_read.read_packed,
@@ -3328,6 +3634,10 @@ def main() -> int:
     sweep_report = {}
     sweep(mesh, sweep_report)
 
+    phase("3k")
+    # phase 3k: the Sobol generator and the camera tracers at full width
+    camera_runs = sobol_and_camera_runs(mesh, wrappers, kernels)
+
     phase("4")
     # phase 4: the port on the CPU against the port on the card
     cpu_vs_card = {}
@@ -3344,6 +3654,11 @@ def main() -> int:
         ("flagship-array (instanced), HitRecorder", lambda dev: build_array(
             theia_tpu_torch, mesh, SMALL_BATCH, ARRAY_PATH, device=dev)),
         ("flagship-bvh", flagship(accel="bvh")),
+        ("flagship-brute-sobol", flagship(accel="auto", rng=sobol(FLAGSHIP_SOBOL))),
+        ("flagship-volume-sobol", lambda dev: build_volume_flagship(
+            theia_tpu_torch, SMALL_BATCH, dev, rng=sobol(EXAMPLE_11_SOBOL))),
+        ("volume-backward, HitRecorder", lambda dev: build_volume_backward(theia_tpu_torch, SMALL_BATCH, dev)),
+        ("direct", lambda dev: build_direct(theia_tpu_torch, SMALL_BATCH, dev)),
     ):
         dims, results = {}, {}
         for dev in ("cpu", "cuda"):
@@ -3366,6 +3681,7 @@ def main() -> int:
             cpu_vs_card[label] = dict(dims_equal=same, detections=n_kept, time_rel=t_rel)
             continue
         hists = {dev: r.double().cpu() for dev, r in results.items()}
+        assert float(hists["cpu"].sum()) > 0.0, f"empty light curve ({label})"
         d_sum = abs(float(hists["cuda"].sum() / hists["cpu"].sum()) - 1.0)
         l1 = float((hists["cuda"] - hists["cpu"]).abs().sum() / hists["cpu"].sum())
         print(f"cpu vs card ({label}) at batch {SMALL_BATCH}: rng dims equal {same:.6f}, "
@@ -3425,7 +3741,7 @@ def main() -> int:
         gradient=dict(batch=grad_batch, seconds=grad_seconds, peak_bytes=grad_peak, loss=loss,
                       grad_sum=float(grad.sum()), grad=grad.tolist(), histogram_grad_launches=grad_launches,
                       launches=grad_counts, profile=grad_prof),
-        volume_gradient_steps=volume_steps, geometry_gradient_step=geo,
+        volume_gradient_steps=volume_steps, geometry_gradient_step=geo, sobol_and_camera_runs=camera_runs,
         cpu_vs_card=cpu_vs_card, phase_seconds={k: clock[n] - clock[k] for k, n in zip(clock, list(clock)[1:])},
         lap_seconds=laps,
         **line,

@@ -51,6 +51,26 @@ def test_philox_kernel_bit_exact(cuda):
         assert torch.equal(got.cpu(), philox_uniform_plain(key, ctr, stream.cpu(), dim.cpu(), width))
 
 
+def test_sobol_kernel_bit_exact(cuda):
+    """csrc/sobol.cu against its plain version: table and tail dims, the
+    high-bit indices, an offset that wraps, each width; a CUDA tensor
+    launches the kernel."""
+    from theia_tpu_torch.random import _direction_table, sobol_owen_uniform, sobol_owen_uniform_plain
+
+    n = 5000
+    stream = torch.arange(n, dtype=torch.int32, device=cuda) * 858_993 - 2**31
+    dim = (torch.arange(n, dtype=torch.int32, device=cuda) * 7) % 80
+    for dims, seed in ((1, 0), (64, 0x80000000), (128, 0xFFFFFFFF)):
+        table = _direction_table(dims, cuda)
+        for width in (1, 2):
+            before = sobol_owen_uniform.launches
+            got = sobol_owen_uniform(table, seed, stream, dim, width, offset=2**32 - 3)
+            torch.cuda.synchronize()
+            assert sobol_owen_uniform.launches == before + 1
+            want = sobol_owen_uniform_plain(table.cpu(), seed, stream.cpu(), dim.cpu(), width, offset=2**32 - 3)
+            assert torch.equal(got.cpu(), want)
+
+
 def test_histogram_kernel(cuda):
     from theia_tpu_torch.response import histogram_add, histogram_add_plain
 

@@ -1,11 +1,14 @@
-"""The port's example scripts (``theia_tpu_torch/examples/``: 02, 05, 06,
-08, 09 and 10 of theia_tpu's examples) run end to end on the CPU at a
+"""The port's example scripts (``theia_tpu_torch/examples/``: 01, 02, 04,
+05, 06, 08, 09, 10 and 11 of theia_tpu's examples) run end to end on the CPU at a
 small batch and print their result lines; each is the script's own
 ``main`` with ``device="cpu"``. Example 10's calibration and example 09's
 reconstruction are held to their 6 cm and 12 cm only at their own batch
 (on the card): here, at 1024 lanes and a few iterations, the error must
 fall below the offset it starts from. Example 02 traces on the threaded
-BVH, 08 and 09 on the instanced walk (08's ``"auto"`` picks it)."""
+BVH, 08 and 09 on the instanced walk (08's ``"auto"`` picks it). Example
+04's reflected shares are held to Fresnel's r_s^2 within 1e-4; example
+11's Sobol replicates must scatter less than Philox's (its own check,
+here at 2048 lanes and 4 replicates)."""
 
 import importlib.util
 from pathlib import Path
@@ -35,6 +38,9 @@ def _main(script):
         ("02_scene_tracing.py", dict(batch=2048, runs=1), "detector light curve"),
         ("08_detector_array.py", dict(batch=2048, check=False), "accel backend picked by auto: instanced"),
         ("09_source_reconstruction.py", dict(batch=1024, iterations=4, check=False), "reconstructed"),
+        ("01_volume_tracing.py", dict(batch=2048, runs=1), "d(total)/d(mu_a)"),
+        ("04_polarization.py", dict(), "s-polarized reflected"),
+        ("11_quasirandom_sampling.py", dict(batch=2048, reps=4), "sobol variance win confirmed"),
     ],
 )
 def test_port_example_runs(script, kw, expect, capsys):
@@ -51,6 +57,12 @@ def test_port_example_runs(script, kw, expect, capsys):
         assert result > 0.0, out
     elif script.startswith("08"):
         assert 1 <= result <= 26, out
+    elif script.startswith("01"):
+        assert result < 0.0, out
+    elif script.startswith("04"):
+        assert result < 1e-4, out
+    elif script.startswith("11"):
+        assert result > 1.5, out
     else:  # the scale moved from 1 towards the truth (1.35, 0.92)
         truth = 1.35 if script.startswith("05") else 0.92
         assert abs(result - truth) < abs(1.0 - truth), out

@@ -2,10 +2,11 @@
 tracing a small batch of each backend's flagship (the BVH and the
 instanced walk too, the BVH's builder compiled from the port's own copy), the volume flagship,
 the volume photon tracer (run and run_compacted) and the photon flagship,
-and taking a gradient step through the table reads and the kernel
+taking a gradient step through the table reads and the kernel
 histogram (the volume tracer in its group velocity, the brute-force
-scene in its detector's position), in a fresh interpreter leaves jax and
-theia_tpu unloaded; the port's example scripts import neither."""
+scene in its detector's position), and tracing the brute-force flagship
+with a SobolQRNG, a polarized VolumeBackwardTracer and a DirectLightTracer
+on a scene, in a fresh interpreter leaves jax and theia_tpu unloaded; the port's example scripts import neither."""
 
 import subprocess
 import sys
@@ -27,6 +28,7 @@ import theia_tpu_torch.trace.volume, theia_tpu_torch.trace.photon
 import theia_tpu_torch.testing, theia_tpu_torch.ops.table_read
 import theia_tpu_torch.native, theia_tpu_torch.ops.bvh_traverse, theia_tpu_torch.ops.instanced
 import theia_tpu_torch.render
+import theia_tpu_torch.camera, theia_tpu_torch.trace.backward, theia_tpu_torch.trace.direct
 import dataclasses, importlib.util, pathlib, torch
 for script in sorted(pathlib.Path(theia_tpu_torch.__file__).parent.joinpath("examples").glob("*.py")):
     spec = importlib.util.spec_from_file_location("example_" + script.stem[:2], script)
@@ -73,6 +75,21 @@ fn, (p, counter, streams) = tracer.trace_fn()
 shift = torch.zeros(3, requires_grad=True)
 fn(dict(p, scene=p["scene"].translate_instance(2, shift)), counter, streams)[0].sum().backward()
 assert shift.grad is not None
+sobol = lambda rnd: rnd.SobolQRNG(seed=42, dims=128)
+hist, _ = build_flagship(P, icosphere(1), 64, 2, accel="auto", device="cpu", rng=sobol).run()
+assert hist.shape == (100,)
+cam = P.camera.SphereCamera(position=(5.0, 0.0, 0.0), radius=1.0)
+light, lam = P.light.SphericalLightSource(timeRange=(0.0, 0.0)), P.light.ConstWavelengthSource(450.0)
+back = P.trace.VolumeBackwardTracer(
+    64, light, cam, lam, P.response.HistogramHitResponse(nBins=10, binSize=20.0), P.random.SobolQRNG(dims=16),
+    medium=P.testing.WaterTestModel().createMedium(), nScattering=3, polarized=True, device="cpu",
+)
+assert back.run()[0].shape == (10,)
+direct = P.trace.DirectLightTracer(
+    64, light, cam, lam, P.response.HistogramHitResponse(nBins=10, binSize=20.0), P.random.PhiloxRNG(key=3),
+    build_flagship(P, icosphere(1), 1, 2, accel="auto", device="cpu").scene, device="cpu",
+)
+assert direct.run()[0].shape == (10,)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "theia_tpu"))
 print("LOADED", loaded)
 """

@@ -13,6 +13,8 @@ volume tracer, :func:`build_volume_photon` a volume photon tracer of
 ``tests/test_trace_photon.py`` and :func:`build_photon_flagship` the
 photon tracer of ``__graft_entry__._dryrun_photon_compacted`` on the
 flagship's scene.
+:func:`build_volume_backward` and :func:`build_direct` are the camera
+tracers of ``tests/test_trace_backward.py``'s energy and analytic tests.
 :func:`build_array` is ``examples/08_detector_array.py``'s detector array
 (what ``accel="auto"`` sends to the instanced walk), :func:`array_rays`
 random rays through it, :func:`tie_scene` arrays whose hits tie exactly.
@@ -65,7 +67,7 @@ def icosphere(subdivisions: int = 3) -> tuple[np.ndarray, np.ndarray]:
 
 def build_flagship(
     pkg, mesh, batch: int, max_path: int, accel: str = "mt", device=None, *,
-    polarized: bool = False, source_position=(3.0, 0.0, 0.0), guided: bool = True, response=None,
+    polarized: bool = False, source_position=(3.0, 0.0, 0.0), guided: bool = True, response=None, rng=None,
 ):
     """The flagship tracer of package ``pkg`` (``theia_tpu`` or
     ``theia_tpu_torch``) on the sphere ``mesh`` = (positions, faces).
@@ -115,7 +117,7 @@ def build_flagship(
         ),
         light.UniformWavelengthSource(lambdaRange=(300.0, 700.0)),
         response or mod("response").HistogramHitResponse(nBins=100, t0=0.0, binSize=5.0 * u.ns),
-        rnd.PhiloxRNG(key=42),
+        rng(rnd) if rng else rnd.PhiloxRNG(key=42),
         scene,
         maxPathLength=max_path,
         sourceMedium="vacuum",  # the source sits inside the air-filled shell
@@ -153,10 +155,13 @@ def build_volume_flagship(pkg, batch: int, device=None, **kw):
     ``SphereTarget`` at the origin, 400-500 nm, 100 bins of 5 ns,
     ``PhiloxRNG(key=0xC0FFEE)``, 10 scatterings, 500 ns. ``kw`` goes to
     the tracer (``polarized``, the flags, ``medium``, ``response`` or
-    ``nScattering`` to replace the water, the histogram or the depth)."""
+    ``nScattering`` to replace the water, the histogram or the depth);
+    ``rng``, a function of the package's ``random`` module, replaces the
+    Philox generator."""
     mod = lambda name: importlib.import_module(f"{pkg.__name__}.{name}")
     light, rnd, response, target = mod("light"), mod("random"), mod("response"), mod("target")
     dev = {} if device is None else {"device": device}
+    rng = kw.pop("rng", None)
     kw.setdefault("medium", water_medium(mod("material")))
     resp = kw.pop("response", None) or response.HistogramHitResponse(nBins=100, binSize=5.0, t0=0.0)
     return mod("trace.volume").VolumeForwardTracer(
@@ -165,7 +170,7 @@ def build_volume_flagship(pkg, batch: int, device=None, **kw):
         target.SphereTarget(position=(0.0, 0.0, 0.0), radius=5.0),
         light.UniformWavelengthSource(lambdaRange=(400.0, 500.0)),
         resp,
-        rnd.PhiloxRNG(key=0xC0FFEE),
+        rng(rnd) if rng else rnd.PhiloxRNG(key=0xC0FFEE),
         nScattering=kw.pop("nScattering", 10),
         maxTime=500.0,
         **kw,
@@ -179,9 +184,11 @@ def build_volume_photon(pkg, batch: int, device=None, **kw):
     (mu_a 0.05, mu_s 0.02 /m, HG g = 0.3) around a source inside a 60 m
     ``InnerSphereTarget``, 4 scatterings a run, 6 runs, a 40-bin
     histogram of 25 ns. ``kw`` goes to the tracer (the response as
-    ``response=``)."""
+    ``response=``, a function of the package's ``random`` module as
+    ``rng=``)."""
     mod = lambda name: importlib.import_module(f"{pkg.__name__}.{name}")
     mat, light, response = mod("material"), mod("light"), mod("response")
+    rng = kw.pop("rng", None)
 
     class Model(mat.DispersionFreeMedium, mat.HenyeyGreensteinPhaseFunction, mat.MediumModel):
         ModelName = "homogenous"
@@ -198,11 +205,82 @@ def build_volume_photon(pkg, batch: int, device=None, **kw):
         mod("target").InnerSphereTarget(position=(0.0, 0.0, 0.0), radius=60.0),
         light.UniformWavelengthSource(lambdaRange=(450.0, 450.0)),
         resp,
-        mod("random").PhiloxRNG(key=0xFADE),
+        rng(mod("random")) if rng else mod("random").PhiloxRNG(key=0xFADE),
         medium=Model().createMedium(),
         nScatteringPerRun=4,
         nRuns=6,
         maxTime=float("inf"),
+        **kw,
+        **dev,
+    )
+
+
+def _homogeneous(mat, mu_a: float, mu_s: float, g: float):
+    """A dispersion-free medium (n = n_g = 1.33) with HG scattering."""
+
+    class Model(mat.DispersionFreeMedium, mat.HenyeyGreensteinPhaseFunction, mat.MediumModel):
+        ModelName = "homogenous"
+
+        def __init__(self):
+            mat.DispersionFreeMedium.__init__(self, n=1.33, ng=1.33, mu_a=mu_a, mu_s=mu_s)
+            mat.HenyeyGreensteinPhaseFunction.__init__(self, g)
+
+    return Model().createMedium()
+
+
+#: the volume backward run's light and camera centre, camera radius (the
+#: camera faces inward) and scattering coefficient
+BACKWARD_POSITION, BACKWARD_RADIUS, BACKWARD_MU_S = (12.0, 15.0, 0.2), 100.0, 0.02
+
+
+def build_volume_backward(pkg, batch: int, device=None, **kw):
+    """``tests/test_trace_backward.py``'s ``VolumeBackwardTracer`` of
+    ``test_backward_energy_conservation``: a spherical light (budget 1e9,
+    at 10 ns) at (12, 15, 0.2) inside a ``SphereCamera`` of radius -100
+    (its surface facing inward) and an ``InnerSphereTarget`` of radius
+    100.1, mu_a 0, mu_s 0.02, HG g = -0.4, 450 nm, 30 scatterings, no time
+    limit, a ``HitRecorder``, ``PhiloxRNG(key=0xC0FFEE)``. ``kw`` goes to
+    the tracer (``response``, ``nScattering``, ``polarized``)."""
+    mod = lambda name: importlib.import_module(f"{pkg.__name__}.{name}")
+    light = mod("light")
+    dev = {} if device is None else {"device": device}
+    return mod("trace.backward").VolumeBackwardTracer(
+        batch,
+        light.SphericalLightSource(position=BACKWARD_POSITION, timeRange=(10.0, 10.0), budget=1e9),
+        mod("camera").SphereCamera(position=BACKWARD_POSITION, radius=-BACKWARD_RADIUS),
+        light.UniformWavelengthSource(lambdaRange=(450.0, 450.0)),
+        kw.pop("response", None) or mod("response").HitRecorder(),
+        mod("random").PhiloxRNG(key=0xC0FFEE),
+        medium=_homogeneous(mod("material"), 0.0, BACKWARD_MU_S, -0.4),
+        nScattering=kw.pop("nScattering", 30),
+        target=mod("target").InnerSphereTarget(position=BACKWARD_POSITION, radius=BACKWARD_RADIUS * 1.001),
+        maxTime=float("inf"),
+        **kw,
+        **dev,
+    )
+
+
+#: the direct run's camera centre and radius, and its medium's absorption
+DIRECT_CAMERA, DIRECT_RADIUS, DIRECT_MU_A = (8.0, 0.0, 0.0), 1.0, 0.02
+
+
+def build_direct(pkg, batch: int, device=None, **kw):
+    """``tests/test_trace_backward.py``'s ``DirectLightTracer`` of
+    ``test_direct_tracer_analytic``: a spherical light (budget 1e9, at
+    10 ns) at the origin, a ``SphereCamera`` of radius 1 at (8, 0, 0), a
+    purely absorbing medium (mu_a 0.02, n = n_g = 1.33), 450 nm, 60 bins of
+    10 ns, ``PhiloxRNG(key=0xC0FFEE)``. ``kw`` goes to the tracer."""
+    mod = lambda name: importlib.import_module(f"{pkg.__name__}.{name}")
+    light = mod("light")
+    dev = {} if device is None else {"device": device}
+    return mod("trace.direct").DirectLightTracer(
+        batch,
+        light.SphericalLightSource(position=(0.0, 0.0, 0.0), timeRange=(10.0, 10.0), budget=1e9),
+        mod("camera").SphereCamera(position=DIRECT_CAMERA, radius=DIRECT_RADIUS),
+        light.UniformWavelengthSource(lambdaRange=(450.0, 450.0)),
+        mod("response").HistogramHitResponse(nBins=60, t0=0.0, binSize=10.0),
+        mod("random").PhiloxRNG(key=0xC0FFEE),
+        medium=_homogeneous(mod("material"), DIRECT_MU_A, 0.0, 0.0),
         **kw,
         **dev,
     )
@@ -215,9 +293,11 @@ def build_photon_flagship(pkg, mesh, batch: int, device=None, **kw):
     (3, 0, 0) over 0-10 ns with budget 1e5, 300-700 nm, 50 bins of 10 ns,
     ``PhiloxRNG(key=7)``, 2 scatterings a run, 3 runs, the source in
     vacuum, scatter coefficient 0.05, target id 1. ``kw`` goes to the
-    tracer (the response as ``response=``)."""
+    tracer (the response as ``response=``, a function of the package's
+    ``random`` module as ``rng=``)."""
     mod = lambda name: importlib.import_module(f"{pkg.__name__}.{name}")
     light, rnd, response = mod("light"), mod("random"), mod("response")
+    rng = kw.pop("rng", None)
     dev = {} if device is None else {"device": device}
     scene = build_flagship(pkg, mesh, 1, 2, accel="auto", device=device).scene
     resp = kw.pop("response", None) or response.HistogramHitResponse(nBins=50, t0=0.0, binSize=10.0)
@@ -226,7 +306,7 @@ def build_photon_flagship(pkg, mesh, batch: int, device=None, **kw):
         light.SphericalLightSource(position=(3.0, 0.0, 0.0), timeRange=(0.0, 10.0), budget=1e5),
         light.UniformWavelengthSource(lambdaRange=(300.0, 700.0)),
         resp,
-        rnd.PhiloxRNG(key=7),
+        rng(rnd) if rng else rnd.PhiloxRNG(key=7),
         scene,
         nScatteringPerRun=2,
         nRuns=3,

@@ -4,8 +4,9 @@ A second package beside ``theia_tpu`` (the JAX reference) with the same
 module layout and public names, so the same builder code drives either.
 Plain tensor code is PyTorch; the hot kernels of the scene tracer's main
 path (the nearest-hit and any-hit scans over the triangle soup, the
-instanced and BVH walks, Philox draws, the histogram record and its
-backward, the kernel histogram and the table reads with their backward)
+instanced and BVH walks, Philox and Owen-scrambled Sobol draws, the
+histogram record and its backward, the kernel histogram and the table
+reads with their backward)
 are hand-written CUDA kernels for Hopper in ``csrc/``, built with nvcc at
 first use (the BVH builder in ``native/`` with g++). On CPU tensors
 every kernel's plain PyTorch version runs instead. This package never
@@ -16,26 +17,28 @@ polarized, on the default brute-force scene (``accel="auto"``), with
 ``accel="mt"`` or ``accel="woop"``, and on the two-level instanced walk
 (what ``"auto"`` picks for a detector array) and the threaded BVH
 (``accel="instanced"``, ``accel="bvh"``); the volume forward tracer and
-the two photon tracers on analytic targets and scenes; the forward tracers'
+the two photon tracers on analytic targets and scenes; the volume backward
+and direct-light tracers with the cameras; any tracer with ``PhiloxRNG``
+or ``SobolQRNG``; the forward tracers'
 gradients through ``trace_fn()`` (medium tables, phase and refractive
 index, group velocity, source and detector position) (see ROADMAP.md
 for what comes next).
 """
 
 from . import units
-from .random import PhiloxRNG, RNGState
+from .random import PhiloxRNG, RNGState, SobolQRNG, SobolState
 
 __version__ = "0.1.0"
 
 #: submodules reachable as ``theia_tpu_torch.<name>`` without an explicit
 #: import, loaded lazily so importing the root stays cheap
 _SUBMODULES = {
-    "accel", "callback", "component", "interop", "light", "lookup",
+    "accel", "callback", "camera", "component", "interop", "light", "lookup",
     "material", "mesh", "ops", "random", "response", "scene", "target", "testing",
     "trace",
 }
 
-__all__ = sorted(_SUBMODULES | {"units", "PhiloxRNG", "RNGState"})
+__all__ = sorted(_SUBMODULES | {"units", "PhiloxRNG", "RNGState", "SobolQRNG", "SobolState"})
 
 
 def __getattr__(name: str):

@@ -29,7 +29,7 @@ __all__ = ["KernelLibrary", "library", "build", "check", "stream_handle", "raw_s
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "theia_tpu_torch"
 SOURCES = (
-    "intersect_woop.cu", "intersect_soup.cu", "philox.cu", "histogram.cu",
+    "intersect_woop.cu", "intersect_soup.cu", "philox.cu", "sobol.cu", "histogram.cu",
     "kernel_histogram.cu", "table_read.cu", "bvh_walk.cu", "instanced_walk.cu",
 )
 #: -fmad=false: no contraction of a*b+c into FMAs, so every product and sum
@@ -52,6 +52,7 @@ _SIGNATURES = {
     "theia_soup_anyhit": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P),
     "theia_soup_target": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P),
     "theia_philox_uniform": (_U, _U, _U, _U, _U, _U, _P, _P, _I, _I, _P, _P),
+    "theia_sobol_uniform": (_P, _I, _U, _U, _U, _U, _P, _P, _I, _I, _P, _P),
     "theia_histogram_add": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
     "theia_histogram_grad": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
     "theia_empty_launch": (_P,),

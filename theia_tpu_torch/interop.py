@@ -11,8 +11,12 @@ returns the port tracer's params on ``device``. A volume or photon
 tracer's ``medium`` comes as the mapping of a ``theia_tpu`` ``Medium``'s
 fields (its tables, ``lambda_min``, ``lambda_max`` and ``name``; None for
 vacuum) and becomes a :class:`~theia_tpu_torch.material.Medium` of
-tensors; every other stage (``tracer``, ``photons``, ``lightSource``,
-``target``, ``response``, ``callback``, ``guide``) maps to tensors.
+tensors; a ``rng`` entry, the fields of a ``theia_tpu`` ``SobolState``
+(its direction table, seed, offset, streams and dims), becomes the port's
+:class:`~theia_tpu_torch.random.SobolState`; every other stage
+(``tracer``, ``photons``, ``lightSource``, ``camera``, ``target``,
+``response``, ``callback``, ``guide``) maps to tensors, a camera's
+parameters included.
 The Woop pack's chunk-skip boxes come from the world triangles of
 ``tri_data``, which are in the same Morton order. A pack with ``bvh`` or
 ``instanced`` tables raises ``NotImplementedError``: carrying those tables
@@ -31,6 +35,7 @@ import numpy as np
 import torch
 
 from .material import Medium, MediumStore
+from .random import SobolState
 from .ops.intersect_mt import MTPack, chunk_boxes, sub_boxes
 from .ops.intersect_woop import WoopPack
 from .ops.intersect_soup import SoupTable
@@ -131,9 +136,27 @@ def _medium(m, device) -> Medium | None:
     return Medium(**_tensors(fields, device), name=m.get("name", "unnamed"))
 
 
+def _int32_bits(a, device) -> torch.Tensor:
+    """uint32 words as the int32 tensor of their bits."""
+    return torch.as_tensor(np.asarray(a, np.uint32).view(np.int32).copy(), device=device)
+
+
+def _sobol_state(s, device) -> SobolState:
+    """A ``theia_tpu`` ``SobolState``'s fields as the port's state: the
+    direction table and the lanes' streams and dims as int32 bits, the
+    seed and offset as host ints."""
+    return SobolState(
+        dirs=_int32_bits(s["dirs"], device),
+        seed=int(np.asarray(s["seed"], np.uint32)),
+        offset=int(np.asarray(s["offset"], np.uint32)),
+        stream=_int32_bits(s["stream"], device),
+        dim=_int32_bits(s["dim"], device),
+    )
+
+
 def params_from_numpy(tree, device) -> dict:
     """The port's tracer params from a JAX tracer's params as numpy."""
-    convert = {"scene": _scene_pack, "medium": _medium}
+    convert = {"scene": _scene_pack, "medium": _medium, "rng": _sobol_state}
     return {
         stage: convert.get(stage, _tensors)(sub, device) for stage, sub in tree.items()
     }

@@ -295,6 +295,18 @@ class MediumStore:
             return VACUUM_HANDLE
         return self.names.index(name)
 
+    def medium(self, name: str) -> Medium:
+        """The named medium as a standalone :class:`Medium` of this
+        store's tensors (its tables cut to their own lengths)."""
+        i = self.handle(name)
+        if i == VACUUM_HANDLE:
+            raise ValueError("cannot extract vacuum")
+        kwargs = {}
+        for kind in _TABLE_PROPS:
+            n = int(self.sizes[kind][i])
+            kwargs[kind] = self.tables[kind][i, :n] if n > 0 else None
+        return Medium(self.lambda_min[i], self.lambda_max[i], name=name, **kwargs)
+
 
 def lookup_packed(
     values: torch.Tensor, sizes: torch.Tensor, handle: torch.Tensor, t,

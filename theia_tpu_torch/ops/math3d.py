@@ -23,6 +23,7 @@ __all__ = [
     "local_frame",
     "perpendicular_to",
     "perpendicular_to2",
+    "perpendicular_to_z_and",
     "intersect_sphere",
     "matvec",
     "moeller_trumbore_rowwise",
@@ -134,6 +135,16 @@ def perpendicular_to2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     degenerate = length < 1e-5
     safe = c / torch.clamp_min(length, 1e-20)[..., None]
     return torch.where(degenerate[..., None], perpendicular_to(a), safe)
+
+
+def perpendicular_to_z_and(a: torch.Tensor) -> torch.Tensor:
+    """Unit vector normal to both a and the z axis (x-axis fallback)."""
+    b = vec3(a[..., 1], -a[..., 0], torch.zeros_like(a[..., 0]))
+    length = norm(b)
+    degenerate = length < 1e-5
+    safe = b / torch.clamp_min(length, 1e-20)[..., None]
+    x_axis = torch.tensor([1.0, 0.0, 0.0], dtype=a.dtype, device=a.device).expand(a.shape)
+    return torch.where(degenerate[..., None], x_axis, safe)
 
 
 def intersect_sphere(center, radius, origin: torch.Tensor, direction: torch.Tensor):

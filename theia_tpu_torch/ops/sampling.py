@@ -13,12 +13,15 @@ __all__ = [
     "sample_direction_cone",
     "sample_unit_sphere",
     "sample_unit_disk",
+    "sample_hemisphere",
     "scatter_dir",
     "TWO_PI",
+    "FOUR_PI",
     "INV_4PI",
 ]
 
 TWO_PI = 6.283185307179586477
+FOUR_PI = 12.56637061435917295
 INV_4PI = 0.0795774715459476679
 PI_OVER_TWO = 1.570796326794896619
 PI_OVER_FOUR = 0.7853981633974483096
@@ -55,6 +58,11 @@ def sample_unit_disk(u1, u2) -> torch.Tensor:
     )
     r = torch.where((x == 0.0) & (y == 0.0), 0.0, r)
     return vec3(r * torch.cos(phi), r * torch.sin(phi), torch.zeros_like(r))
+
+
+def sample_hemisphere(u1, u2) -> torch.Tensor:
+    """Uniform direction on the +z hemisphere; cos theta = 1 - u2 > 0."""
+    return spherical_to_cartesian(TWO_PI * u1, 1.0 - u2)
 
 
 def scatter_dir(prev_dir: torch.Tensor, cos_theta, phi) -> torch.Tensor:

@@ -42,6 +42,7 @@ from .ops.intersect_woop import WoopPack, pack_woop
 __all__ = [
     "Transform",
     "RectBBox",
+    "SphereBBox",
     "MeshInstance",
     "MeshStore",
     "Scene",
@@ -76,6 +77,13 @@ class Transform:
     def apply(self, points):
         return np.asarray(points) @ self._arr[:3, :3].T + self._arr[:3, 3]
 
+    def applyVec(self, vectors):
+        """The linear part alone, for directions."""
+        return np.asarray(vectors) @ self._arr[:3, :3].T
+
+    def copy(self) -> "Transform":
+        return Transform(self._arr[:3, :].copy())
+
     def inverse(self) -> "Transform":
         inv = Transform()
         inv._arr = np.linalg.inv(self._arr)
@@ -83,6 +91,14 @@ class Transform:
 
     def numpy(self) -> np.ndarray:
         return np.ascontiguousarray(self._arr[:3, :], dtype=np.float32)
+
+    @property
+    def innerMatrix(self) -> np.ndarray:
+        return self.numpy()[:3, :3]
+
+    @property
+    def offset(self) -> np.ndarray:
+        return self.numpy()[:3, 3]
 
     def __matmul__(self, other: "Transform") -> "Transform":
         res = Transform()
@@ -126,6 +142,31 @@ class Transform:
             t = rotate @ t
         return Transform.Translation(*translate) @ t
 
+    @staticmethod
+    def View(*, direction=(0.0, 0.0, 1.0), up=(0.0, 1.0, 0.0), position=(0.0, 0.0, 0.0)) -> "Transform":
+        """+z onto ``direction`` with the given up vector, then moved to
+        ``position`` (reference: src/theia/scene.py View)."""
+        d = np.asarray(direction, np.float64)
+        d = d / np.linalg.norm(d)
+        upv = np.asarray(up, np.float64)
+        x = np.cross(upv, d)
+        if np.linalg.norm(x) < 1e-12:
+            # up along the direction: any perpendicular will do
+            upv = np.array([0.0, 1.0, 0.0]) if abs(d[1]) < 0.9 else np.array([1.0, 0.0, 0.0])
+            x = np.cross(upv, d)
+        x = x / np.linalg.norm(x)
+        res = Transform()
+        res._arr[:3, 0] = x
+        res._arr[:3, 1] = np.cross(d, x)
+        res._arr[:3, 2] = d
+        res._arr[:3, 3] = position
+        return res
+
+    @staticmethod
+    def LookAt(*, position=(0.0, 0.0, 0.0), target=(0.0, 0.0, 0.0), up=(0.0, 1.0, 0.0)) -> "Transform":
+        direction = np.asarray(target, np.float64) - np.asarray(position, np.float64)
+        return Transform.View(direction=direction, up=up, position=position)
+
 
 class RectBBox:
     """Axis-aligned bounding box (reference: src/theia/scene.py:299-380)."""
@@ -133,6 +174,27 @@ class RectBBox:
     def __init__(self, lowerCorner, upperCorner) -> None:
         self.lowerCorner = tuple(float(c) for c in lowerCorner)
         self.upperCorner = tuple(float(c) for c in upperCorner)
+
+    @property
+    def diagonal(self) -> float:
+        d = np.subtract(self.upperCorner, self.lowerCorner)
+        return float(np.sqrt(np.square(d).sum()))
+
+    def transform(self, trafo: Transform) -> "RectBBox":
+        """The box around this box's eight corners moved by ``trafo``."""
+        corners = np.array(
+            [[(self.lowerCorner, self.upperCorner)[b][k] for k, b in enumerate(bits)] for bits in np.ndindex(2, 2, 2)]
+        )
+        pts = trafo.apply(corners)
+        return RectBBox(tuple(pts.min(0)), tuple(pts.max(0)))
+
+
+class SphereBBox:
+    """Spherical bounds (reference: src/theia/scene.py:383-431)."""
+
+    def __init__(self, center, radius: float) -> None:
+        self.center = tuple(float(c) for c in center)
+        self.radius = float(radius)
 
 
 class MeshInstance:

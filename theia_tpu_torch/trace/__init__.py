@@ -1,5 +1,6 @@
 """Tracers of the PyTorch port: the scene forward tracer, the volume
-forward tracer and the two photon tracers."""
+forward and backward tracers, the direct-light tracer and the two photon
+tracers."""
 
 from .core import EventResultCode, TracerBase
 
@@ -8,6 +9,8 @@ __all__ = [
     "TracerBase",
     "SceneForwardTracer",
     "VolumeForwardTracer",
+    "VolumeBackwardTracer",
+    "DirectLightTracer",
     "VolumePhotonTracer",
     "ScenePhotonTracer",
 ]
@@ -15,6 +18,8 @@ __all__ = [
 _LAZY = {
     "SceneForwardTracer": "scene",
     "VolumeForwardTracer": "volume",
+    "VolumeBackwardTracer": "backward",
+    "DirectLightTracer": "direct",
     "VolumePhotonTracer": "photon",
     "ScenePhotonTracer": "photon",
 }

@@ -295,9 +295,10 @@ def propagate_ray_to_hit(
 
 
 def merge_dim(after, before, take_after: torch.Tensor):
-    """``before`` (an ``RNGState``) with the dims of ``after`` on the lanes
-    of ``take_after``: a lane's dim advances only where the reference's
-    control flow would have drawn, though the wavefront drew everywhere."""
+    """``before`` (an ``RNGState`` or a ``SobolState``) with the dims of
+    ``after`` on the lanes of ``take_after``: a lane's dim advances only
+    where the reference's control flow would have drawn, though the
+    wavefront drew everywhere."""
     return replace(before, dim=torch.where(take_after, after.dim, before.dim))
 
 

@@ -34,7 +34,7 @@ from ..material import Medium, medium_constants
 from ..ops.math3d import dot, sqrt
 from ..ops.sampling import scatter_dir
 from ..ops.table_read import PHASE
-from ..random import PhiloxRNG, RNGState
+from ..random import RNG, RNGState
 from ..target import Target
 from .core import (
     EventResultCode,
@@ -171,7 +171,7 @@ class VolumePhotonTracer(_CompactedRuns, TracerBase):
         target: Target,
         wavelengthSource: WavelengthSource,
         response,
-        rng: PhiloxRNG,
+        rng: RNG,
         *,
         medium: Medium | None,
         objectId: int = 0,
@@ -380,7 +380,7 @@ class ScenePhotonTracer(_CompactedRuns, SceneForwardTracer):
         source: LightSource,
         wavelengthSource: WavelengthSource,
         response,
-        rng: PhiloxRNG,
+        rng: RNG,
         scene,
         *,
         nScatteringPerRun: int = 10,

@@ -48,7 +48,7 @@ from ..polarization import (
     rotate_pol_ref,
     unpolarized_stokes,
 )
-from ..random import PhiloxRNG
+from ..random import RNG
 from ..scene import Scene, ScenePack
 from ..target import TargetGuide
 from .core import (
@@ -161,7 +161,7 @@ class SceneForwardTracer(TracerBase):
         source: LightSource,
         wavelengthSource: WavelengthSource,
         response,
-        rng: PhiloxRNG,
+        rng: RNG,
         scene: Scene,
         *,
         capacity: int | None = None,

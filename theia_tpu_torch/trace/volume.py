@@ -35,7 +35,7 @@ from ..polarization import (
     rotate_pol_ref,
     unpolarized_stokes,
 )
-from ..random import PhiloxRNG, RNGState
+from ..random import RNG, RNGState
 from ..target import Target, TargetSample
 from .core import (
     EventResultCode,
@@ -111,7 +111,7 @@ class VolumeForwardTracer(TracerBase):
         target: Target,
         wavelengthSource: WavelengthSource,
         response,
-        rng: PhiloxRNG,
+        rng: RNG,
         *,
         medium: Medium | None,
         objectId: int = 0,
