@@ -173,17 +173,33 @@ Phases, one line each, any failure raises and exits non-zero:
    form, the peak within a bin of the arrival time), each at 262,144
    lanes: seconds a batch (median of 3 after a warm-up), launches a
    batch, peak memory, one profiled batch;
+3l. (``scene_camera_runs``) the scene camera tracers at 262,144 lanes, in
+   the same measures: scene-backward-target (``SceneBackwardTargetTracer``
+   in ``tests/test_scene_backward.py``'s emissive sphere: more than 99 %
+   of the lanes recorded, 4 pi within rtol 1e-5, times between the
+   icosphere's nearest face and 10.01 m over c), scene-backward-target-grad
+   (one gradient step of sum(histogram) in the glass's index,
+   ``tests/test_grad_scene.py:199``: the gradient > 0), scene-backward
+   (``SceneBackwardTracer``, path length 12: the total of 4 batches within
+   5 % of a ``VolumeBackwardTracer`` of 12 scatterings in the same call)
+   and bidirectional (``BidirectionalPathTracer``, L = C = 12: the total
+   of 4 batches within 10 % of the budget less the direct and the
+   single-scatter light, a ``VolumeBackwardTracer`` of 2 scatterings in
+   the same call; one any-hit and one record a camera vertex; one camera
+   vertex's connection step profiled alone), then one polarized
+   bidirectional batch against the unpolarized one;
 4. the port on the CPU against the port on the card at batch 4096: the
    unpolarized ``mt`` flagship, the brute-force flagship, the polarized
    ``woop`` flagship with the source off centre, the volume flagship
    unpolarized and polarized, a volume photon tracer, the photon
    flagship, the unguided brute-force flagship with a
    ``StoreTimeHitResponse`` and flagship-array's ``HitRecorder`` (the same
-   detections, times within 1e-5), flagship-bvh and the four runs of 3k
-   (the volume backward run's ``HitRecorder`` as flagship-array's);
+   detections, times within 1e-5), flagship-bvh, the four runs of 3k
+   (the volume backward run's ``HitRecorder`` as flagship-array's) and
+   those of 3l (scene-backward on ``accel="auto"`` and ``"mt"``);
    then the gradients at batch 2048, path length 3: the polarized
-   medium gradient, the volume steps of 3h and the geometry step of 3i,
-   each by ``PERF.md``'s gradient agreement.
+   medium gradient, the volume steps of 3h, the geometry step of 3i and
+   3l's index step, each by ``PERF.md``'s gradient agreement.
 
 Every path's launch counts are set to 0 just before it runs and read
 just after. Then one JSON line of kernels (name, route, source,
@@ -2883,6 +2899,18 @@ def sweep(mesh, report):
     report["sweep"] = rows
 
 
+def report_run(runs: dict, batch: int, label, seconds, counts, peak, prof, extra=""):
+    """Print a run's seconds a batch, peak memory, launches a batch and
+    profiled batch, and keep them in ``runs[label]``."""
+    med = statistics.median(seconds)
+    print(f"{label}: batch {batch}: {med:.4f} s/batch (median of {[round(x, 4) for x in seconds]}), peak memory "
+          f"{peak / 2**20:.1f} MiB, launches per batch {counts}; one batch profiled: device busy "
+          f"{prof['device_busy_ms']:.2f} ms, {prof['kernels']} kernels and copies{extra}")
+    for entry in prof["top"][:5] + prof["own"]:
+        print(f"    {entry['ms']:9.3f} ms {entry['count']:6d} x {entry['name'][:90]}")
+    runs[label] = dict(seconds_per_batch=seconds, launches_per_batch=counts, peak_bytes=peak, profile=prof)
+
+
 def sobol_and_camera_runs(mesh, wrappers, kernels, batch: int = BATCH, device="cuda") -> dict:
     """Phase 3k: the Sobol generator on the brute-force flagship
     (``_build_scene_tracer(rng="sobol")``, then in turns with its Philox
@@ -2902,15 +2930,7 @@ def sobol_and_camera_runs(mesh, wrappers, kernels, batch: int = BATCH, device="c
     )
 
     camera_runs = {}
-
-    def report_run(label, seconds, counts, peak, prof, extra=""):
-        med = statistics.median(seconds)
-        print(f"{label}: batch {batch}: {med:.4f} s/batch (median of {[round(x, 4) for x in seconds]}), peak memory "
-              f"{peak / 2**20:.1f} MiB, launches per batch {counts}; one batch profiled: device busy "
-              f"{prof['device_busy_ms']:.2f} ms, {prof['kernels']} kernels and copies{extra}")
-        for entry in prof["top"][:5] + prof["own"]:
-            print(f"    {entry['ms']:9.3f} ms {entry['count']:6d} x {entry['name'][:90]}")
-        camera_runs[label] = dict(seconds_per_batch=seconds, launches_per_batch=counts, peak_bytes=peak, profile=prof)
+    report_run_ = lambda *args, **kw: report_run(camera_runs, batch, *args, **kw)
 
     brute_sobol = build_flagship(theia_tpu_torch, mesh, batch, MAX_PATH, accel="auto", device=device,
                                  rng=sobol(FLAGSHIP_SOBOL))
@@ -2919,7 +2939,7 @@ def sobol_and_camera_runs(mesh, wrappers, kernels, batch: int = BATCH, device="c
     per_batch = {k: v // 3 for k, v in counts_.items() if v}
     assert counts_["philox_uniform"] == 0 and counts_["sobol_owen_uniform"] > 0, per_batch
     assert counts_["nearest_in_table_rows"] == MAX_PATH * 3 and counts_["target_in_table"] == (MAX_PATH - 1) * 3
-    report_run("flagship-brute-sobol", seconds_, per_batch, peak_, profile_step(brute_sobol.run),
+    report_run_("flagship-brute-sobol", seconds_, per_batch, peak_, profile_step(brute_sobol.run),
                f"; histogram sums {sums_}")
     kernels["sobol_owen_uniform"].update(launches=counts_["sobol_owen_uniform"],
                                          launches_per_batch=per_batch["sobol_owen_uniform"],
@@ -2958,7 +2978,7 @@ def sobol_and_camera_runs(mesh, wrappers, kernels, batch: int = BATCH, device="c
         dims_ = vol_sobol._trace_batch(vol_sobol.params(), vol_sobol.rng.counter_words, vol_sobol.streams())[2]
     vol_sobol._debug_rng = False
     past = float((dims_ > EXAMPLE_11_SOBOL["dims"]).double().mean())
-    report_run("flagship-volume-sobol", seconds_, per_batch, peak_, profile_step(vol_sobol.run),
+    report_run_("flagship-volume-sobol", seconds_, per_batch, peak_, profile_step(vol_sobol.run),
                f"; histogram sums {sums_}; lanes' last dim at most {int(dims_.max())}, past the table on {past:.6f} "
                f"of the lanes (budget {vol_sobol.nRNGSamples})")
     camera_runs["flagship-volume-sobol"].update(max_dim=int(dims_.max()), share_past_table=past)
@@ -2973,7 +2993,7 @@ def sobol_and_camera_runs(mesh, wrappers, kernels, batch: int = BATCH, device="c
     # test_backward_energy_conservation: with mu_a = 0 the recorded contributions sum to the budget
     energy = sum(totals_) / (batch * CAMERA_RUN_BATCHES) / 1e9
     assert abs(energy - 1.0) < 0.05, f"volume-backward: energy estimate {energy} of the budget"
-    report_run("volume-backward", seconds_, counts_, peak_, profile_step(backward.run),
+    report_run_("volume-backward", seconds_, counts_, peak_, profile_step(backward.run),
                f"; energy estimate over {CAMERA_RUN_BATCHES} x {batch} samples {energy:.6f} of the budget "
                f"(limit 5 %)")
     camera_runs["volume-backward"].update(energy_over_budget=energy, batches=CAMERA_RUN_BATCHES)
@@ -2991,13 +3011,241 @@ def sobol_and_camera_runs(mesh, wrappers, kernels, batch: int = BATCH, device="c
     t_arr = 10.0 + d / (theia_tpu_torch.units.c / 1.33)
     closed = float(curve.sum()) / expected
     assert abs(closed - 1.0) < 0.05 and abs(int(curve.argmax()) - int(t_arr / 10.0)) <= 1, (closed, curve.argmax())
-    report_run("direct", seconds_, counts_, peak_, profile_step(direct.run),
+    report_run_("direct", seconds_, counts_, peak_, profile_step(direct.run),
                f"; total over {CAMERA_RUN_BATCHES} x {batch} samples {closed:.6f} of the closed form (limit 5 %), "
                f"peak bin {int(curve.argmax())} (arrival {t_arr:.2f} ns)")
     camera_runs["direct"].update(total_over_closed_form=closed, peak_bin=int(curve.argmax()))
     del direct
     torch.cuda.empty_cache()
     return camera_runs
+
+
+def index_step(tracer, medium: str = "glass", weighted: bool = False):
+    """One gradient step of sum(histogram state) in the packed refractive
+    index of ``medium`` (every entry of its row one scalar, as
+    ``tests/test_grad_scene.py``'s ``patch_media`` sets it) through
+    ``trace_fn()``: a step that returns (loss, d loss / d n) as float64
+    numpy. ``weighted``: the loss is ``time_weighted`` of the light curve,
+    the signal whose gradient phase 4 compares."""
+    import torch
+
+    fn, (p, counter, streams) = tracer.trace_fn()
+    media = p["scene"].media
+    h = media.handle(medium)
+    n0 = float(media.tables["refractive_index"][h, 0])
+
+    def step():
+        leaf = torch.tensor(n0, device=streams.device, requires_grad=True)
+        table = media.tables["refractive_index"].clone()
+        table[h] = leaf
+        tables = {**media.tables, "refractive_index": table}
+        scene = dataclasses.replace(p["scene"], media=dataclasses.replace(media, tables=tables))
+        state = fn({**p, "scene": scene}, counter, streams)[0]
+        loss = time_weighted(tracer.response.result(p["response"], state)) if weighted else state.sum()
+        loss.backward()
+        return loss.item(), leaf.grad.double().cpu().numpy().reshape(1)
+
+    return step
+
+
+def emissive_check(batch: int, lower: float, upper: float):
+    """``tests/test_scene_backward.py``'s check of the emissive sphere as a
+    ``timed_runs`` total: more than 99 % of the lanes recorded, each with
+    4 pi within rtol 1e-5, at a time in [``lower``, ``upper``]."""
+    import numpy as np
+
+    def check(hits, label):
+        valid = hits["valid"]
+        n = int(valid.sum())
+        contrib = hits["contrib"][valid].double()
+        t = hits["time"][valid]
+        rel = float(((contrib - 4 * np.pi) / (4 * np.pi)).abs().max())
+        t_min, t_max = float(t.min()), float(t.max())
+        assert n > 0.99 * batch and rel <= 1e-5 and t_min >= lower and t_max <= upper, (label, n, rel, t_min, t_max)
+        return dict(valid_share=n / batch, contrib_rel=rel, t_min=t_min, t_max=t_max)
+
+    return check
+
+
+def connection_step(tracer):
+    """The first camera vertex of a ``BidirectionalPathTracer`` batch, made
+    once, and a step that connects it to the light subpath's L vertices
+    and records the L * N items: one vertex's (L, N) work of a batch, for
+    the profiler."""
+    import torch
+
+    from theia_tpu_torch.material import packed_medium_constants
+    from theia_tpu_torch.trace.core import active_lanes
+    from theia_tpu_torch.trace.scene import scene_propagation
+    from theia_tpu_torch.trace.scene_backward import camera_ray, trace_to_surface
+
+    p, streams = tracer.params(), tracer.streams()
+    pack, rng = p["scene"], tracer.rng.state_for(tracer.rng.counter_words, streams)
+    prop = scene_propagation(pack, p["tracer"])
+    with torch.no_grad():
+        (lam, lam_c), rng = tracer.wavelengthSource.sample(p["photons"], rng)
+        verts, rng = tracer._light_subpath(p, pack, prop, lam, lam_c, streams, rng)
+        cam, rng = tracer.camera.sample_ray(p["camera"], lam, rng)
+        medium = torch.full_like(streams, pack.media.handle(tracer.cameraMedium))
+        cray = camera_ray(cam, lam, cam.contrib, packed_medium_constants(pack.media, medium, lam))
+        alive = active_lanes(streams, p)
+        cray, *_ = trace_to_surface(pack, prop, cray, medium, alive, rng)
+
+    def step():
+        with torch.no_grad():
+            item, ok = tracer._connect_all(pack, prop, p, verts, cray, medium, alive, 0, None, cam)
+            tracer.response.record(p["response"], tracer.response.init(streams.device), item, ok, rng)
+
+    return step
+
+
+def scene_camera_runs(mesh, wrappers, grad_wrappers, batch: int = BATCH, device="cuda") -> dict:
+    """Phase 3l: the scene camera tracers at ``batch`` lanes, each with its
+    physics check (``tests/test_scene_backward.py``, ``test_grad_scene.py``
+    and ``test_bidirectional.py``'s): scene-backward-target (the emissive
+    sphere), scene-backward-target-grad (one step in the glass's index),
+    scene-backward (against a ``VolumeBackwardTracer`` of 12 scatterings in
+    the same call), bidirectional (against the budget less the direct and
+    the single-scatter light, the latter a ``VolumeBackwardTracer`` in the
+    same call; then one polarized batch against the unpolarized one):
+    seconds a batch (median of 3 after a warm-up), launches a batch, peak
+    memory, one profiled batch. Returns the runs' report."""
+    import numpy as np
+    import torch
+
+    import theia_tpu_torch
+    from torch_flagship import (
+        SCENE_BUDGET, SCENE_CAMERA_RADIUS, build_backward_eta2, build_bidirectional, build_scene_backward,
+        build_scene_backward_target, build_volume_backward, nearest_face_distance,
+    )
+
+    P, runs = theia_tpu_torch, {}
+    report = lambda *args, **kw: report_run(runs, batch, *args, **kw)
+    per_batch = lambda counts: {k: v // 3 for k, v in counts.items() if v}
+
+    target = build_scene_backward_target(P, batch, device, mesh=mesh)
+    bounds = nearest_face_distance(mesh, 10.0) / P.units.c, 10.01 / P.units.c
+    seconds_, checks_, counts_, peak_ = timed_runs(
+        target, wrappers, "scene-backward-target", emissive_check(batch, *bounds), True
+    )
+    counts_ = per_batch(counts_)
+    assert counts_["nearest_in_table_rows"] == target.maxPathLength and "target_in_table" not in counts_, counts_
+    report("scene-backward-target", seconds_, counts_, peak_, profile_step(target.run),
+           f"; every batch: > 99 % of lanes recorded, 4 pi within {max(c['contrib_rel'] for c in checks_):.3g}, "
+           f"times in [{min(c['t_min'] for c in checks_):.6g}, {max(c['t_max'] for c in checks_):.6g}] ns "
+           f"(bounds [{bounds[0]:.6g}, {bounds[1]:.6g}])")
+    runs["scene-backward-target"].update(checks=checks_)
+    del target
+    torch.cuda.empty_cache()
+
+    eta2 = build_backward_eta2(P, batch, device, mesh=mesh)
+    step = time_step(index_step(eta2), grad_wrappers, "scene-backward-target-grad")
+    assert step["grad"][0] > 0.0, f"scene-backward-target-grad: d sum / d n = {step['grad'][0]} (eta^2 makes it > 0)"
+    runs["scene-backward-target-grad"] = step
+    del eta2
+    torch.cuda.empty_cache()
+
+    backward = build_scene_backward(P, batch, device, mesh=mesh)
+    seconds_, totals_, counts_, peak_ = timed_runs(backward, wrappers, "scene-backward", recorded_total, True)
+    counts_ = per_batch(counts_)
+    # one shadow ray a segment and the direct connection's: the any-hit on the brute-force pack
+    assert counts_["anyhit_in_table"] == backward.maxPathLength, counts_
+    volume = build_volume_backward(P, batch, device, nScattering=backward.maxPathLength, target=None)
+    vol_totals = [recorded_total(volume.run()[0], "volume-backward, 12 scatterings") for _ in range(CAMERA_RUN_BATCHES)]
+    ratio = sum(totals_) / sum(vol_totals)
+    assert abs(ratio - 1.0) < 0.05, f"scene-backward: {ratio} of the volume backward tracer's total"
+    report("scene-backward", seconds_, counts_, peak_, profile_step(backward.run),
+           f"; total over {CAMERA_RUN_BATCHES} x {batch} samples {ratio:.6f} of VolumeBackwardTracer's (limit 5 %)")
+    runs["scene-backward"].update(over_volume_backward=ratio)
+    del backward, volume
+    torch.cuda.empty_cache()
+
+    bdpt = build_bidirectional(P, batch, device, mesh=mesh)
+    seconds_, curves_, counts_, peak_ = timed_runs(bdpt, wrappers, "bidirectional", light_curve, True)
+    counts_ = per_batch(counts_)
+    # a camera vertex's L x N connections: one any-hit query and one record
+    assert counts_["anyhit_in_table"] == counts_["histogram_add"] == bdpt.cameraPathLength, counts_
+    single = build_volume_backward(
+        P, batch, device, nScattering=2, g=0.3, key=11, disableDirectLighting=True,
+        response=P.response.HistogramHitResponse(nBins=60, t0=0.0, binSize=80.0),
+    )
+    single_total = sum(float(light_curve(single.run()[0], "single scatter").sum()) for _ in range(4)) / 4
+    direct = SCENE_BUDGET * np.exp(-0.02 * SCENE_CAMERA_RADIUS)
+    expected = SCENE_BUDGET - direct - single_total
+    total = float(sum(curves_).sum()) / CAMERA_RUN_BATCHES
+    assert expected > 0 and abs(total / expected - 1.0) < 0.1, f"bidirectional: {total} against {expected}"
+    report("bidirectional", seconds_, counts_, peak_, profile_step(bdpt.run),
+           f"; total over {CAMERA_RUN_BATCHES} x {batch} samples {total / expected:.6f} of budget - direct - "
+           f"single scatter ({expected:.6g}; single {single_total:.6g}; limit 10 %)")
+    runs["bidirectional"].update(over_expected=total / expected, expected=expected, single_scatter=single_total)
+    step = connection_step(bdpt)
+    step()  # warm-up
+    conn = profile_step(step)
+    print(f"bidirectional: one camera vertex's connection step ({bdpt.lightPathLength} x {batch} pairs, one "
+          f"any-hit, one record): device busy {conn['device_busy_ms']:.2f} ms in {conn['kernels']} kernels and "
+          f"copies; x {bdpt.cameraPathLength} a batch")
+    for entry in conn["top"][:5] + conn["own"]:
+        print(f"    {entry['ms']:9.3f} ms {entry['count']:6d} x {entry['name'][:90]}")
+    runs["bidirectional"].update(connection_step=conn)
+    del bdpt, single, step
+    torch.cuda.empty_cache()
+
+    # polarized, one batch: a scalar medium's Stokes and Mueller chains leave S0 as the unpolarized batch's
+    pol = build_bidirectional(P, batch, device, mesh=mesh, polarized=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    pol_curve = light_curve(pol.run()[0], "bidirectional polarized")
+    torch.cuda.synchronize()
+    pol_seconds = time.perf_counter() - start
+    pol_peak = torch.cuda.max_memory_allocated()
+    first = curves_[0]
+    assert np.allclose(pol_curve.numpy(), first.numpy(), rtol=1e-4, atol=1e-3 * float(first.max())), "polarized BDPT"
+    pol_rel = float((pol_curve.sum() / first.sum() - 1.0).abs())
+    print(f"bidirectional polarized: one batch of {batch} lanes {pol_seconds:.4f} s (its first, compiled already), "
+          f"peak memory {pol_peak / 2**20:.1f} MiB; light curve within rtol 1e-4 of the unpolarized first batch's "
+          f"(sum rel diff {pol_rel:.3g})")
+    runs["bidirectional"].update(polarized=dict(seconds=pol_seconds, peak_bytes=pol_peak, sum_rel=pol_rel))
+    del pol
+    torch.cuda.empty_cache()
+    return runs
+
+
+def hold_cpu_vs_card(label, build) -> dict:
+    """One batch of ``build(device)``'s tracer on the CPU and on the card,
+    held by ``PERF.md``'s histogram agreement: the lanes' RNG dims equal on
+    at least 99.5 % of them, the histograms' sums within 1e-3 and their
+    per-bin L1 within 1 %, or a ``HitRecorder``'s detections the same in
+    number with sorted times within 1e-5 relative."""
+    import torch
+
+    dims, results = {}, {}
+    for dev in ("cpu", "cuda"):
+        small = build(dev)
+        small._debug_rng = True
+        p = small.params()
+        with torch.no_grad():
+            state, _, dim = small._trace_batch(p, small.rng.counter_words, small.streams())
+        results[dev] = small.response.result(p["response"], state)
+        dims[dev] = dim.cpu()
+    same = float((dims["cpu"] == dims["cuda"]).double().mean())
+    if isinstance(results["cpu"], dict):  # the stored detections
+        kept = {dev: r["time"][r["valid"]].cpu().sort().values for dev, r in results.items()}
+        n_kept = int(kept["cpu"].shape[0])
+        assert n_kept == kept["cuda"].shape[0] > 0, f"cpu and card accept other counts ({label})"
+        t_rel = float(((kept["cuda"] - kept["cpu"]).abs() / kept["cpu"].abs()).max())
+        print(f"cpu vs card ({label}) at batch {SMALL_BATCH}: rng dims equal {same:.6f}, {n_kept} detections "
+              f"on both, sorted times within {t_rel:.3g} relative")
+        assert same >= 0.995 and t_rel <= 1e-5, f"cpu and card disagree ({label})"
+        return dict(dims_equal=same, detections=n_kept, time_rel=t_rel)
+    hists = {dev: r.double().cpu() for dev, r in results.items()}
+    assert float(hists["cpu"].sum()) > 0.0, f"empty light curve ({label})"
+    d_sum = abs(float(hists["cuda"].sum() / hists["cpu"].sum()) - 1.0)
+    l1 = float((hists["cuda"] - hists["cpu"]).abs().sum() / hists["cpu"].sum())
+    print(f"cpu vs card ({label}) at batch {SMALL_BATCH}: rng dims equal {same:.6f}, "
+          f"histogram sum rel diff {d_sum:.3g}, per-bin L1 {l1:.3g}")
+    assert same >= 0.995 and d_sum <= 1e-3 and l1 <= 1e-2, f"cpu and card disagree ({label})"
+    return dict(dims_equal=same, sum_rel=d_sum, l1=l1)
 
 
 def main() -> int:
@@ -3025,7 +3273,8 @@ def main() -> int:
         KernelHistogramHitResponse, StoreTimeHitResponse, kernel_histogram_add, kernel_histogram_grad,
     )
     from torch_flagship import (
-        adversarial_rays, build_array, build_direct, build_flagship, build_photon_flagship, build_volume_backward,
+        adversarial_rays, build_array, build_backward_eta2, build_bidirectional, build_direct, build_flagship,
+        build_photon_flagship, build_scene_backward, build_scene_backward_target, build_volume_backward,
         build_volume_flagship, build_volume_photon, icosphere,
     )
 
@@ -3638,6 +3887,14 @@ def main() -> int:
     # phase 3k: the Sobol generator and the camera tracers at full width
     camera_runs = sobol_and_camera_runs(mesh, wrappers, kernels)
 
+    phase("3l")
+    # phase 3l: the scene camera tracers at full width
+    scene_runs = scene_camera_runs(mesh, wrappers, grad_wrappers)
+    for run, info in scene_runs.items():
+        for name, n in (info.get("launches_per_batch") or info.get("launches") or {}).items():
+            if name in kernels:
+                kernels[name].setdefault("scene_camera_launches", {})[run] = n
+
     phase("4")
     # phase 4: the port on the CPU against the port on the card
     cpu_vs_card = {}
@@ -3659,35 +3916,14 @@ def main() -> int:
             theia_tpu_torch, SMALL_BATCH, dev, rng=sobol(EXAMPLE_11_SOBOL))),
         ("volume-backward, HitRecorder", lambda dev: build_volume_backward(theia_tpu_torch, SMALL_BATCH, dev)),
         ("direct", lambda dev: build_direct(theia_tpu_torch, SMALL_BATCH, dev)),
+        ("scene-backward-target, HitRecorder", lambda dev: build_scene_backward_target(
+            theia_tpu_torch, SMALL_BATCH, dev, mesh=mesh)),
+        ("scene-backward, HitRecorder", lambda dev: build_scene_backward(theia_tpu_torch, SMALL_BATCH, dev, mesh=mesh)),
+        ("scene-backward (mt), HitRecorder", lambda dev: build_scene_backward(
+            theia_tpu_torch, SMALL_BATCH, dev, mesh=mesh, accel="mt")),
+        ("bidirectional", lambda dev: build_bidirectional(theia_tpu_torch, SMALL_BATCH, dev, mesh=mesh)),
     ):
-        dims, results = {}, {}
-        for dev in ("cpu", "cuda"):
-            small = build(dev)
-            small._debug_rng = True
-            p = small.params()
-            with torch.no_grad():
-                state, _, dim = small._trace_batch(p, small.rng.counter_words, small.streams())
-            results[dev] = small.response.result(p["response"], state)
-            dims[dev] = dim.cpu()
-        same = float((dims["cpu"] == dims["cuda"]).double().mean())
-        if isinstance(results["cpu"], dict):  # the stored detections
-            kept = {dev: r["time"][r["valid"]].cpu().sort().values for dev, r in results.items()}
-            n_kept = int(kept["cpu"].shape[0])
-            assert n_kept == kept["cuda"].shape[0] > 0, f"cpu and card accept other counts ({label})"
-            t_rel = float(((kept["cuda"] - kept["cpu"]).abs() / kept["cpu"].abs()).max())
-            print(f"cpu vs card ({label}) at batch {SMALL_BATCH}: rng dims equal {same:.6f}, {n_kept} detections "
-                  f"on both, sorted times within {t_rel:.3g} relative")
-            assert same >= 0.995 and t_rel <= 1e-5, f"cpu and card disagree ({label})"
-            cpu_vs_card[label] = dict(dims_equal=same, detections=n_kept, time_rel=t_rel)
-            continue
-        hists = {dev: r.double().cpu() for dev, r in results.items()}
-        assert float(hists["cpu"].sum()) > 0.0, f"empty light curve ({label})"
-        d_sum = abs(float(hists["cuda"].sum() / hists["cpu"].sum()) - 1.0)
-        l1 = float((hists["cuda"] - hists["cpu"]).abs().sum() / hists["cpu"].sum())
-        print(f"cpu vs card ({label}) at batch {SMALL_BATCH}: rng dims equal {same:.6f}, "
-              f"histogram sum rel diff {d_sum:.3g}, per-bin L1 {l1:.3g}")
-        assert same >= 0.995 and d_sum <= 1e-3 and l1 <= 1e-2, f"cpu and card disagree ({label})"
-        cpu_vs_card[label] = dict(dims_equal=same, sum_rel=d_sum, l1=l1)
+        cpu_vs_card[label] = hold_cpu_vs_card(label, build)
     grads = {}
     for dev in ("cpu", "cuda"):
         small = build_flagship(
@@ -3714,6 +3950,8 @@ def main() -> int:
         ("brute geometry", lambda dev: build_flagship(theia_tpu_torch, mesh, GRAD_BATCH, GRAD_PATH, accel="auto",
                                                       device=dev, response=kde()),
          lambda t: geometry_step(t, fit=False)),
+        ("scene-backward-target, glass index", lambda dev: build_backward_eta2(
+            theia_tpu_torch, GRAD_BATCH, dev, mesh=mesh, max_path=GRAD_PATH), lambda t: index_step(t, weighted=True)),
     ):
         grads = {dev: make(build(dev))()[1] for dev in ("cpu", "cuda")}
         cpu_vs_card[f"gradient, {label}"] = gradient_agreement(label, grads["cpu"], grads["cuda"])
@@ -3742,6 +3980,7 @@ def main() -> int:
                       grad_sum=float(grad.sum()), grad=grad.tolist(), histogram_grad_launches=grad_launches,
                       launches=grad_counts, profile=grad_prof),
         volume_gradient_steps=volume_steps, geometry_gradient_step=geo, sobol_and_camera_runs=camera_runs,
+        scene_camera_runs=scene_runs,
         cpu_vs_card=cpu_vs_card, phase_seconds={k: clock[n] - clock[k] for k, n in zip(clock, list(clock)[1:])},
         lap_seconds=laps,
         **line,

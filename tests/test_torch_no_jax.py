@@ -6,7 +6,9 @@ taking a gradient step through the table reads and the kernel
 histogram (the volume tracer in its group velocity, the brute-force
 scene in its detector's position), and tracing the brute-force flagship
 with a SobolQRNG, a polarized VolumeBackwardTracer and a DirectLightTracer
-on a scene, in a fresh interpreter leaves jax and theia_tpu unloaded; the port's example scripts import neither."""
+on a scene, the two scene backward tracers and the polarized
+bidirectional tracer, and the volume flagship from a TargetLightSource,
+in a fresh interpreter leaves jax and theia_tpu unloaded; the port's example scripts import neither."""
 
 import subprocess
 import sys
@@ -90,6 +92,17 @@ direct = P.trace.DirectLightTracer(
     build_flagship(P, icosphere(1), 1, 2, accel="auto", device="cpu").scene, device="cpu",
 )
 assert direct.run()[0].shape == (10,)
+import theia_tpu_torch.trace.scene_backward, theia_tpu_torch.trace.bidirectional
+from torch_flagship import build_bidirectional, build_lamp, build_scene_backward, build_scene_backward_target
+assert build_scene_backward_target(P, 64, "cpu", mesh=icosphere(1)).run()[0]["valid"].any()
+assert build_lamp(P, 64, "cpu", mesh=icosphere(1), detector=True).run()[0].shape == (50,)
+back = build_scene_backward(
+    P, 64, "cpu", mesh=icosphere(1), max_path=3, polarized=True, response=P.response.HistogramHitResponse(nBins=10, binSize=100.0),
+)
+assert back.run()[0].shape == (10,)
+assert build_bidirectional(P, 64, "cpu", mesh=icosphere(1), path=2, polarized=True).run()[0].shape == (60,)
+focused = P.light.TargetLightSource(P.light.SphericalLightSource(), P.light.FlatLightSourceTarget(position=(0.0, -3.0, 0.0)))
+assert build_volume_flagship(P, 64, "cpu", source=focused).run()[0].shape == (100,)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "theia_tpu"))
 print("LOADED", loaded)
 """

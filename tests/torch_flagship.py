@@ -14,7 +14,13 @@ volume tracer, :func:`build_volume_photon` a volume photon tracer of
 photon tracer of ``__graft_entry__._dryrun_photon_compacted`` on the
 flagship's scene.
 :func:`build_volume_backward` and :func:`build_direct` are the camera
-tracers of ``tests/test_trace_backward.py``'s energy and analytic tests.
+tracers of ``tests/test_trace_backward.py``'s energy and analytic tests;
+:func:`build_scene_backward_target`, :func:`build_backward_eta2`,
+:func:`build_lamp`, :func:`build_backward_glass`,
+:func:`build_scene_backward` and :func:`build_bidirectional` the scene
+camera tracers of ``tests/test_scene_backward.py``,
+``tests/test_grad_scene.py`` and ``tests/test_bidirectional.py`` on
+in-code icospheres.
 :func:`build_array` is ``examples/08_detector_array.py``'s detector array
 (what ``accel="auto"`` sends to the instanced walk), :func:`array_rays`
 random rays through it, :func:`tie_scene` arrays whose hits tie exactly.
@@ -154,8 +160,9 @@ def build_volume_flagship(pkg, batch: int, device=None, **kw):
     sizes, a spherical source at (-1, -7, 0) m with budget 1e9, a 5 m
     ``SphereTarget`` at the origin, 400-500 nm, 100 bins of 5 ns,
     ``PhiloxRNG(key=0xC0FFEE)``, 10 scatterings, 500 ns. ``kw`` goes to
-    the tracer (``polarized``, the flags, ``medium``, ``response`` or
-    ``nScattering`` to replace the water, the histogram or the depth);
+    the tracer (``polarized``, the flags, ``medium``, ``response``,
+    ``nScattering`` or ``source`` to replace the water, the histogram, the
+    depth or the light source);
     ``rng``, a function of the package's ``random`` module, replaces the
     Philox generator."""
     mod = lambda name: importlib.import_module(f"{pkg.__name__}.{name}")
@@ -166,7 +173,7 @@ def build_volume_flagship(pkg, batch: int, device=None, **kw):
     resp = kw.pop("response", None) or response.HistogramHitResponse(nBins=100, binSize=5.0, t0=0.0)
     return mod("trace.volume").VolumeForwardTracer(
         batch,
-        light.SphericalLightSource(position=(-1.0, -7.0, 0.0), timeRange=(0.0, 0.0), budget=1e9),
+        kw.pop("source", None) or light.SphericalLightSource(position=(-1.0, -7.0, 0.0), timeRange=(0.0, 0.0), budget=1e9),
         target.SphereTarget(position=(0.0, 0.0, 0.0), radius=5.0),
         light.UniformWavelengthSource(lambdaRange=(400.0, 500.0)),
         resp,
@@ -240,20 +247,23 @@ def build_volume_backward(pkg, batch: int, device=None, **kw):
     (its surface facing inward) and an ``InnerSphereTarget`` of radius
     100.1, mu_a 0, mu_s 0.02, HG g = -0.4, 450 nm, 30 scatterings, no time
     limit, a ``HitRecorder``, ``PhiloxRNG(key=0xC0FFEE)``. ``kw`` goes to
-    the tracer (``response``, ``nScattering``, ``polarized``)."""
+    the tracer (``response``, ``nScattering``, ``polarized``, ``target``:
+    None drops the target); ``g`` and ``key`` replace the phase function's
+    asymmetry and the Philox key."""
     mod = lambda name: importlib.import_module(f"{pkg.__name__}.{name}")
     light = mod("light")
     dev = {} if device is None else {"device": device}
+    inner = mod("target").InnerSphereTarget(position=BACKWARD_POSITION, radius=BACKWARD_RADIUS * 1.001)
     return mod("trace.backward").VolumeBackwardTracer(
         batch,
         light.SphericalLightSource(position=BACKWARD_POSITION, timeRange=(10.0, 10.0), budget=1e9),
         mod("camera").SphereCamera(position=BACKWARD_POSITION, radius=-BACKWARD_RADIUS),
         light.UniformWavelengthSource(lambdaRange=(450.0, 450.0)),
         kw.pop("response", None) or mod("response").HitRecorder(),
-        mod("random").PhiloxRNG(key=0xC0FFEE),
-        medium=_homogeneous(mod("material"), 0.0, BACKWARD_MU_S, -0.4),
+        mod("random").PhiloxRNG(key=kw.pop("key", 0xC0FFEE)),
+        medium=_homogeneous(mod("material"), 0.0, BACKWARD_MU_S, kw.pop("g", -0.4)),
         nScattering=kw.pop("nScattering", 30),
-        target=mod("target").InnerSphereTarget(position=BACKWARD_POSITION, radius=BACKWARD_RADIUS * 1.001),
+        target=kw.pop("target", inner),
         maxTime=float("inf"),
         **kw,
         **dev,
@@ -281,6 +291,232 @@ def build_direct(pkg, batch: int, device=None, **kw):
         mod("response").HistogramHitResponse(nBins=60, t0=0.0, binSize=10.0),
         mod("random").PhiloxRNG(key=0xC0FFEE),
         medium=_homogeneous(mod("material"), DIRECT_MU_A, 0.0, 0.0),
+        **kw,
+        **dev,
+    )
+
+
+def _mod(pkg):
+    return lambda name: importlib.import_module(f"{pkg.__name__}.{name}")
+
+
+def nearest_face_distance(mesh, scale: float = 1.0) -> float:
+    """The least distance from the mesh's centre (the origin) to the plane
+    of one of its faces, times ``scale``: no ray from the centre meets the
+    mesh nearer."""
+    pos, faces = mesh
+    v0, v1, v2 = (pos[faces[:, k]] for k in range(3))
+    n = np.cross(v1 - v0, v2 - v0)
+    return float(scale * np.min(np.abs(np.sum(n * v0, axis=1)) / np.linalg.norm(n, axis=1)))
+
+
+def build_scene_backward_target(pkg, batch: int, device=None, *, mesh=None, max_path: int = 3, guided: bool = False,
+                                rng=None, response=None, accel: str = "auto"):
+    """``tests/test_scene_backward.py``'s emissive sphere: a
+    ``SceneBackwardTargetTracer`` with a ``PointCamera`` at the origin
+    inside an emissive (``"LB"``) sphere of radius 10 in vacuum, 450 nm, a
+    ``HitRecorder``, ``PhiloxRNG(key=3)``, no time limit; ``mesh`` (default
+    ``icosphere(3)``) replaces ``sphere.stl``. ``guided`` adds a
+    ``SphereTargetGuide`` on the wall (radius 10), whose MIS shadow rays
+    take the brute-force pack's detector split."""
+    mod = _mod(pkg)
+    material, scene_mod = mod("material"), mod("scene")
+    dev = {} if device is None else {"device": device}
+    store = material.MaterialStore.pack([material.Material("emit", None, None, flags="LB")], **dev)
+    meshes = scene_mod.MeshStore({"sphere": mod("mesh").Mesh.from_geometry(*(mesh or icosphere(3)))})
+    inst = meshes.createInstance("sphere", "emit", scene_mod.Transform.TRS(scale=10.0))
+    scene = scene_mod.Scene([inst], store, medium=None, accel=accel, **dev)
+    guide = {"targetGuide": mod("target").SphereTargetGuide(radius=10.0)} if guided else {}
+    return mod("trace.scene_backward").SceneBackwardTargetTracer(
+        batch,
+        mod("camera").PointCamera(position=(0.0, 0.0, 0.0)),
+        mod("light").UniformWavelengthSource(lambdaRange=(450.0, 450.0)),
+        response or mod("response").HitRecorder(),
+        rng(mod("random")) if rng else mod("random").PhiloxRNG(key=3),
+        scene,
+        maxPathLength=max_path,
+        maxTime=float("inf"),
+        **guide,
+        **dev,
+    )
+
+
+def build_backward_eta2(pkg, batch: int, device=None, *, mesh=None, max_path: int = 4):
+    """``tests/test_grad_scene.py``'s ``test_grad_backward_eta2_statistical``:
+    a point camera at the centre of a glass ball (n = 1.5, radius 1) inside
+    an emissive wall of radius 10 in vacuum, 50 bins of 2 ns,
+    ``PhiloxRNG(key=7)``; the camera's medium is the glass (media
+    ``glass``), ``mesh`` (default ``icosphere(2)``) replaces ``sphere.stl``."""
+    mod = _mod(pkg)
+    material, scene_mod = mod("material"), mod("scene")
+    dev = {} if device is None else {"device": device}
+    glass = material.DispersionFreeMedium(n=1.5, ng=1.5, mu_a=0.0, mu_s=0.0).createMedium(name="glass")
+    Material, T = material.Material, scene_mod.Transform
+    store = material.MaterialStore.pack(
+        [Material("shell", glass, None), Material("emit", None, None, flags="LB")], **dev
+    )
+    meshes = scene_mod.MeshStore({"sphere": mod("mesh").Mesh.from_geometry(*(mesh or icosphere(2)))})
+    ball = meshes.createInstance("sphere", "shell", T.TRS(scale=1.0))
+    wall = meshes.createInstance("sphere", "emit", T.TRS(scale=10.0))
+    scene = scene_mod.Scene([ball, wall], store, medium=None, **dev)
+    return mod("trace.scene_backward").SceneBackwardTargetTracer(
+        batch,
+        mod("camera").PointCamera(position=(0.0, 0.0, 0.0)),
+        mod("light").UniformWavelengthSource(lambdaRange=(450.0, 450.0)),
+        mod("response").HistogramHitResponse(nBins=50, t0=0.0, binSize=2.0),
+        mod("random").PhiloxRNG(key=7),
+        scene,
+        medium="glass",
+        maxPathLength=max_path,
+        maxTime=float("inf"),
+        **dev,
+    )
+
+
+def build_lamp(pkg, batch: int, device=None, *, mesh=None, guided: bool = True, detector: bool = False,
+               max_path: int = 4, accel: str = "auto"):
+    """A ``SceneBackwardTargetTracer`` in scattering water (mu_a 0.01, mu_s
+    0.05, HG g = 0.3, n 1.33): a ``PointCamera`` at the origin sees an
+    emissive (``"LB"``) lamp of radius 0.5 at (3, 0, 0), guided by a
+    ``SphereTargetGuide`` on the lamp where ``guided``; ``detector`` adds a
+    detector (``"DB"``) sphere of radius 0.5 at (-3, 0, 0), which moves the
+    brute-force pack's MIS shadow query onto the detector split. 50 bins of
+    1 ns, ``PhiloxRNG(key=5)``, ``mesh`` default ``icosphere(2)``."""
+    mod = _mod(pkg)
+    material, scene_mod = mod("material"), mod("scene")
+    dev = {} if device is None else {"device": device}
+    water = dataclasses.replace(_homogeneous(material, 0.01, 0.05, 0.3), name="water")
+    Material, T = material.Material, scene_mod.Transform
+    store = material.MaterialStore.pack(
+        [Material("lamp", None, water, flags="LB"), Material("det", None, water, flags="DB")], **dev
+    )
+    meshes = scene_mod.MeshStore({"sphere": mod("mesh").Mesh.from_geometry(*(mesh or icosphere(2)))})
+    insts = [meshes.createInstance("sphere", "lamp", T.TRS(scale=0.5, translate=(3.0, 0.0, 0.0)))]
+    if detector:
+        insts.append(meshes.createInstance("sphere", "det", T.TRS(scale=0.5, translate=(-3.0, 0.0, 0.0)), detectorId=1))
+    scene = scene_mod.Scene(insts, store, medium="water", accel=accel, **dev)
+    guide = {"targetGuide": mod("target").SphereTargetGuide(position=(3.0, 0.0, 0.0), radius=0.5)} if guided else {}
+    return mod("trace.scene_backward").SceneBackwardTargetTracer(
+        batch,
+        mod("camera").PointCamera(position=(0.0, 0.0, 0.0)),
+        mod("light").UniformWavelengthSource(lambdaRange=(450.0, 450.0)),
+        mod("response").HistogramHitResponse(nBins=50, t0=0.0, binSize=1.0),
+        mod("random").PhiloxRNG(key=5),
+        scene,
+        maxPathLength=max_path,
+        maxTime=float("inf"),
+        **guide,
+        **dev,
+    )
+
+
+def build_backward_glass(pkg, batch: int, device=None, *, mesh=None, flags: str = "T", response=None,
+                         camera=(0.0, 0.0, 0.0), camera_medium: str = "glass", **kw):
+    """``tests/test_grad_scene.py``'s ``test_backward_geometry_gradient_through_bounce``:
+    a ``SceneBackwardTracer`` whose ``PointCamera`` sits at the centre of a
+    glass ball (n = 1.8, radius 3, material flags ``flags``) in water (mu_a
+    0.005, mu_s 0.05, HG g = 0.3), a spherical light (budget 1e6) at (8, 0,
+    0), 450 nm, path length 4, 80 ns, no direct light (a point camera has
+    none), ``PhiloxRNG(key=0x5EED)``; the response a ``KernelHistogramHitResponse``
+    of 40 bins of 2 ns unless ``response`` is given, ``mesh`` default
+    ``icosphere(2)``; ``camera`` and ``camera_medium`` move the camera (into
+    the water: ``"water"``). ``kw`` goes to the tracer."""
+    mod = _mod(pkg)
+    material, scene_mod, light = mod("material"), mod("scene"), mod("light")
+    dev = {} if device is None else {"device": device}
+    glass = material.DispersionFreeMedium(n=1.8, ng=1.8, mu_a=0.0, mu_s=0.0).createMedium(name="glass")
+    water = dataclasses.replace(_homogeneous(material, 0.005, 0.05, 0.3), name="water")
+    store = material.MaterialStore.pack([material.Material("glass_water", glass, water, flags=flags)], **dev)
+    meshes = scene_mod.MeshStore({"sphere": mod("mesh").Mesh.from_geometry(*(mesh or icosphere(2)))})
+    inst = meshes.createInstance("sphere", "glass_water", scene_mod.Transform.TRS(scale=3.0))
+    scene = scene_mod.Scene([inst], store, medium="water", accel=kw.pop("accel", "auto"), **dev)
+    return mod("trace.scene_backward").SceneBackwardTracer(
+        batch,
+        light.SphericalLightSource(position=(8.0, 0.0, 0.0), timeRange=(0.0, 0.0), budget=1e6),
+        mod("camera").PointCamera(position=camera),
+        light.UniformWavelengthSource(lambdaRange=(450.0, 450.0)),
+        response or mod("response").KernelHistogramHitResponse(nBins=40, t0=0.0, binSize=2.0),
+        mod("random").PhiloxRNG(key=0x5EED),
+        scene,
+        medium=camera_medium,
+        maxPathLength=kw.pop("max_path", 4),
+        maxTime=80.0,
+        disableDirectLighting=True,
+        **kw,
+        **dev,
+    )
+
+
+#: the scene backward and bidirectional runs' light (and camera centre),
+#: camera radius, budget and start time
+SCENE_CAMERA_POSITION, SCENE_CAMERA_RADIUS, SCENE_BUDGET, SCENE_T0 = (12.0, 15.0, 0.2), 100.0, 1e9, 10.0
+
+
+def build_scene_backward(pkg, batch: int, device=None, *, mesh=None, max_path: int = 12, accel: str = "auto",
+                         response=None, rng=None, **kw):
+    """``tests/test_scene_backward.py``'s ``SceneBackwardTracer``: water of
+    mu_a 0, mu_s 0.02, HG g = -0.4, n 1.33; a spherical light (budget 1e9,
+    at 10 ns) at (12, 15, 0.2) inside a ``SphereCamera`` of radius -100;
+    the scene a black sphere of radius 1 at (500, 0, 0) (``mesh``, default
+    ``icosphere(3)``, replaces ``sphere.stl``), 450 nm, path length 12, no
+    time limit, a ``HitRecorder``, ``PhiloxRNG(key=0xC0FFEE)``. ``kw`` goes
+    to the tracer (``polarized``, ``disableDirectLighting``, ...)."""
+    mod = _mod(pkg)
+    material, scene_mod, light = mod("material"), mod("scene"), mod("light")
+    dev = {} if device is None else {"device": device}
+    medium = _homogeneous(material, 0.0, 0.02, -0.4)
+    medium = dataclasses.replace(medium, name="water")
+    store = material.MaterialStore.pack([material.Material("bb", None, medium, flags="B")], **dev)
+    meshes = scene_mod.MeshStore({"sphere": mod("mesh").Mesh.from_geometry(*(mesh or icosphere(3)))})
+    far = meshes.createInstance("sphere", "bb", scene_mod.Transform.TRS(scale=1.0, translate=(500.0, 0.0, 0.0)))
+    scene = scene_mod.Scene([far], store, medium="water", accel=accel, **dev)
+    return mod("trace.scene_backward").SceneBackwardTracer(
+        batch,
+        light.SphericalLightSource(position=SCENE_CAMERA_POSITION, timeRange=(SCENE_T0, SCENE_T0), budget=SCENE_BUDGET),
+        mod("camera").SphereCamera(position=SCENE_CAMERA_POSITION, radius=-SCENE_CAMERA_RADIUS),
+        light.UniformWavelengthSource(lambdaRange=(450.0, 450.0)),
+        response or mod("response").HitRecorder(),
+        rng(mod("random")) if rng else mod("random").PhiloxRNG(key=0xC0FFEE),
+        scene,
+        medium="water",
+        maxPathLength=max_path,
+        maxTime=float("inf"),
+        **kw,
+        **dev,
+    )
+
+
+def build_bidirectional(pkg, batch: int, device=None, *, mesh=None, path: int = 12, key: int = 61, response=None,
+                        rng=None, **kw):
+    """``tests/test_bidirectional.py``'s ``BidirectionalPathTracer``: water
+    of mu_a 0, mu_s 0.02, HG g = 0.3, n 1.33 inside an absorbing detector
+    (``"DB"``) sphere of radius 100 at (12, 15, 0.2) (``mesh``, default
+    ``icosphere(3)``, replaces ``sphere.stl``), a spherical light (budget
+    1e9, at 10 ns) at its centre, a ``SphereCamera`` of radius -99, 450 nm,
+    light and camera paths of ``path`` segments, 60 bins of 80 ns,
+    ``PhiloxRNG(key=key)``, no time limit. ``kw`` goes to the tracer."""
+    mod = _mod(pkg)
+    material, scene_mod, light = mod("material"), mod("scene"), mod("light")
+    dev = {} if device is None else {"device": device}
+    medium = dataclasses.replace(_homogeneous(material, 0.0, 0.02, 0.3), name="water")
+    store = material.MaterialStore.pack([material.Material("det", medium, None, flags="DB")], **dev)
+    meshes = scene_mod.MeshStore({"sphere": mod("mesh").Mesh.from_geometry(*(mesh or icosphere(3)))})
+    T = scene_mod.Transform
+    sphere = meshes.createInstance(
+        "sphere", "det", T.TRS(scale=SCENE_CAMERA_RADIUS, translate=SCENE_CAMERA_POSITION)
+    )
+    scene = scene_mod.Scene([sphere], store, medium="water", **dev)
+    return mod("trace.bidirectional").BidirectionalPathTracer(
+        batch,
+        light.SphericalLightSource(position=SCENE_CAMERA_POSITION, timeRange=(SCENE_T0, SCENE_T0), budget=SCENE_BUDGET),
+        mod("camera").SphereCamera(position=SCENE_CAMERA_POSITION, radius=-0.99 * SCENE_CAMERA_RADIUS),
+        light.UniformWavelengthSource(lambdaRange=(450.0, 450.0)),
+        response or mod("response").HistogramHitResponse(nBins=60, t0=0.0, binSize=80.0),
+        rng(mod("random")) if rng else mod("random").PhiloxRNG(key=key),
+        scene,
+        lightPathLength=path,
+        cameraPathLength=path,
+        maxTime=float("inf"),
         **kw,
         **dev,
     )

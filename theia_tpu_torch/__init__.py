@@ -18,8 +18,10 @@ polarized, on the default brute-force scene (``accel="auto"``), with
 (what ``"auto"`` picks for a detector array) and the threaded BVH
 (``accel="instanced"``, ``accel="bvh"``); the volume forward tracer and
 the two photon tracers on analytic targets and scenes; the volume backward
-and direct-light tracers with the cameras; any tracer with ``PhiloxRNG``
-or ``SobolQRNG``; the forward tracers'
+and direct-light tracers with the cameras; the scene backward tracers
+(``SceneBackwardTargetTracer``, ``SceneBackwardTracer``) and the
+bidirectional path tracer, with the light-source targets; any tracer with
+``PhiloxRNG`` or ``SobolQRNG``; the forward tracers'
 gradients through ``trace_fn()`` (medium tables, phase and refractive
 index, group velocity, source and detector position) (see ROADMAP.md
 for what comes next).

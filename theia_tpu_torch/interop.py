@@ -8,15 +8,17 @@ mapping of numpy arrays keyed by the JAX field names — for example
 ``scene.media.const4_ok``, ``scene.mt.n_tri``, ``scene.woop.n_tri``,
 ``scene.cull.spans``, ``scene.cull.is_det``) as plain Python values, and
 returns the port tracer's params on ``device``. A volume or photon
-tracer's ``medium`` comes as the mapping of a ``theia_tpu`` ``Medium``'s
-fields (its tables, ``lambda_min``, ``lambda_max`` and ``name``; None for
-vacuum) and becomes a :class:`~theia_tpu_torch.material.Medium` of
-tensors; a ``rng`` entry, the fields of a ``theia_tpu`` ``SobolState``
-(its direction table, seed, offset, streams and dims), becomes the port's
+tracer's ``medium`` (and a scene backward tracer's ``camMedium``) comes as
+the mapping of a ``theia_tpu`` ``Medium``'s fields (its tables,
+``lambda_min``, ``lambda_max`` and ``name``; None for vacuum) and becomes
+a :class:`~theia_tpu_torch.material.Medium` of tensors; a ``rng`` entry,
+the fields of a ``theia_tpu`` ``SobolState`` (its direction table, seed,
+offset, streams and dims), becomes the port's
 :class:`~theia_tpu_torch.random.SobolState`; every other stage
 (``tracer``, ``photons``, ``lightSource``, ``camera``, ``target``,
 ``response``, ``callback``, ``guide``) maps to tensors, a camera's
-parameters included.
+parameters and a ``TargetLightSource``'s nested ``principal`` and
+``target`` included.
 The Woop pack's chunk-skip boxes come from the world triangles of
 ``tri_data``, which are in the same Morton order. A pack with ``bvh`` or
 ``instanced`` tables raises ``NotImplementedError``: carrying those tables
@@ -156,7 +158,7 @@ def _sobol_state(s, device) -> SobolState:
 
 def params_from_numpy(tree, device) -> dict:
     """The port's tracer params from a JAX tracer's params as numpy."""
-    convert = {"scene": _scene_pack, "medium": _medium, "rng": _sobol_state}
+    convert = {"scene": _scene_pack, "medium": _medium, "camMedium": _medium, "rng": _sobol_state}
     return {
         stage: convert.get(stage, _tensors)(sub, device) for stage, sub in tree.items()
     }

@@ -18,7 +18,7 @@ from . import units as u
 from .component import Component
 from .material import MediumConstants
 from .ops.math3d import dot, local_frame, normalize, sqrt, vec3
-from .ops.sampling import TWO_PI, sample_unit_sphere
+from .ops.sampling import TWO_PI, sample_unit_disk, sample_unit_sphere
 from .random import RNGState
 
 __all__ = [
@@ -30,6 +30,11 @@ __all__ = [
     "SphericalLightSource",
     "PencilLightSource",
     "ConeLightSource",
+    "LightSourceTarget",
+    "PointLightSourceTarget",
+    "DiskLightSourceTarget",
+    "FlatLightSourceTarget",
+    "TargetLightSource",
     "dw_dA",
 ]
 
@@ -323,3 +328,144 @@ class ConeLightSource(LightSource):
         start = _start_time(params, uu)
         stokes, pol_ref = self._pol(direction, start.shape)
         return SourceRay(pos, direction, start, contrib, stokes, pol_ref), rng
+
+
+# ---------------------------------------------------------------------------
+# light-source targets: focus a backward-capable source on sampled points
+# (reference: src/theia/target.py:738-1106, shader/lightsource.target.*.glsl,
+# shader/lightsource.guided.glsl)
+# ---------------------------------------------------------------------------
+
+
+class LightSourceTarget(Component):
+    """Samples the target points that focus a light source
+    (``sampleLightTarget``)."""
+
+    name = "Light Source Target"
+    nRNGSamples: int = 0
+
+    def sample(self, params, wavelength, rng: RNGState):
+        """Returns ((position, normal, contrib), rng)."""
+        raise NotImplementedError
+
+
+class PointLightSourceTarget(LightSourceTarget):
+    """A single point with a volume (zero) normal
+    (reference: shader/lightsource.target.point.glsl)."""
+
+    name = "Point Light Source Target"
+    nRNGSamples = 0
+    _param_names = ("position",)
+
+    def __init__(self, *, position=(0.0, 0.0, 0.0)) -> None:
+        self.position = position
+
+    def sample(self, params, wavelength, rng: RNGState):
+        shape = rng.stream.shape
+        pos = torch.broadcast_to(params["position"], (*shape, 3))
+        return (pos, torch.zeros_like(pos), torch.ones(shape, dtype=torch.float32, device=pos.device)), rng
+
+
+class _PlanarLightSourceTarget(LightSourceTarget):
+    """A point on a plane through ``position`` with normal ``normal``,
+    drawn in the plane's own frame; its contribution is the area."""
+
+    nRNGSamples = 2
+    _extra_names = ("normal", "up")
+
+    def update(self) -> None:
+        from .target import _orient_frame
+
+        m = _orient_frame(self.normal, self.up)
+        self._objToWorld = m
+        self._normal = m[:, 2]
+        self._area = self._area_of()
+
+    def params(self, device):
+        self.update()
+        return super().params(device)
+
+    def _frame(self, params, shape):
+        o2w = torch.broadcast_to(params["_objToWorld"], (*shape, 3, 3))
+        pos = torch.broadcast_to(params["position"], (*shape, 3))
+        nrm = torch.broadcast_to(params["_normal"], (*shape, 3))
+        return o2w, pos, nrm
+
+    def sample(self, params, wavelength, rng: RNGState):
+        shape = rng.stream.shape
+        o2w, offset, nrm = self._frame(params, shape)
+        local, rng = self._sample_local(params, rng)
+        pos = (o2w @ local[..., None])[..., 0] + offset
+        return (pos, nrm, torch.broadcast_to(params["_area"], shape)), rng
+
+
+class DiskLightSourceTarget(_PlanarLightSourceTarget):
+    """Disk target (reference: src/theia/target.py:770-868)."""
+
+    name = "Disk Light Source Target"
+    _param_names = ("radius", "position", "_normal", "_area", "_objToWorld")
+
+    def __init__(self, *, position=(0.0, 0.0, 0.0), radius=1.0, normal=(0.0, 0.0, 1.0), up=(0.0, 1.0, 0.0)) -> None:
+        self.position = position
+        self.radius = radius
+        self.normal = normal
+        self.up = up
+        self.update()
+
+    def _area_of(self) -> float:
+        return np.pi * self.radius**2
+
+    def _sample_local(self, params, rng):
+        (u1, u2), rng = rng.uniform2d()
+        return params["radius"] * sample_unit_disk(u1, u2), rng
+
+
+class FlatLightSourceTarget(_PlanarLightSourceTarget):
+    """Rectangular target (reference: src/theia/target.py:869-1004)."""
+
+    name = "Flat Light Source Target"
+    _param_names = ("width", "height", "position", "_normal", "_area", "_objToWorld")
+
+    def __init__(
+        self, *, width=1.0, height=1.0, position=(0.0, 0.0, 0.0), normal=(0.0, 0.0, 1.0), up=(0.0, 1.0, 0.0)
+    ) -> None:
+        self.width = width
+        self.height = height
+        self.position = position
+        self.normal = normal
+        self.up = up
+        self.update()
+
+    def _area_of(self) -> float:
+        return self.width * self.height
+
+    def _sample_local(self, params, rng):
+        (u1, u2), rng = rng.uniform2d()
+        return vec3(params["width"] * (u1 - 0.5), params["height"] * (u2 - 0.5), torch.zeros_like(u1)), rng
+
+
+class TargetLightSource(LightSource):
+    """A backward-capable source focused on a target: a target point is
+    sampled, then the principal source toward it
+    (reference: src/theia/target.py:1006-1106, shader/lightsource.guided.glsl)."""
+
+    name = "Target Light Source"
+    supportForward = True
+    supportBackward = False
+
+    def __init__(self, source: LightSource, target: LightSourceTarget) -> None:
+        if not source.supportBackward:
+            raise ValueError("principal source must support backward mode")
+        self.source = source
+        self.target = target
+        self.nRNGForward = target.nRNGSamples + source.nRNGBackward
+
+    def params(self, device):
+        return {"principal": self.source.params(device), "target": self.target.params(device)}
+
+    def sample_forward(self, params, wavelength, constants, rng: RNGState):
+        (pos, nrm, contrib), rng = self.target.sample(params["target"], wavelength, rng)
+        ray, rng = self.source.sample_backward(params["principal"], pos, nrm, wavelength, constants, rng)
+        return SourceRay(
+            ray.position, ray.direction, ray.start_time, ray.contrib * contrib, ray.stokes, ray.pol_ref
+        ), rng

@@ -306,7 +306,11 @@ class _Reader:
     def grad_plain(self, tables, sizes, bounds, handle, x, grad_out, need_tables, need_x):
         """(d tables, d x) for the upstream gradient ``grad_out`` (one row a
         table, None for a zero one), None where not asked for; the kernel's
-        float32 ops in its order."""
+        float32 ops in its order, each table entry's sum over the lanes
+        accumulated in float64 and rounded once: lanes' terms of both signs
+        cancel in an entry, and a float32 running sum in lane order then
+        drifts by 1e-5 of it (the glass index's gradient of chip_smoke.py's
+        phase 4), where the kernel's blocked sums do not."""
         grad_out = [torch.zeros_like(x) if g is None else g for g in grad_out]
         need_tables = [bool(need) and t is not None for need, t in zip(need_tables, tables)]
         r, span = self.coordinate(bounds, handle, x)
@@ -324,9 +328,10 @@ class _Reader:
                 l = xx - fl
                 lo, hi = _index(fl, n), _index(torch.ceil(xx), n)
                 if need_tables[k]:
-                    grads[k] = torch.zeros_like(table)
-                    grads[k].index_add_(0, lo, g * (1.0 - l))
-                    grads[k].index_add_(0, hi, g * l)
+                    grad = torch.zeros_like(table, dtype=torch.float64)
+                    grad.index_add_(0, lo, (g * (1.0 - l)).double())
+                    grad.index_add_(0, hi, (g * l).double())
+                    grads[k] = grad.float()
                 du = du + (g * table[hi] - g * table[lo]) * float(n - 1) * cg
         else:
             h = handle.to(torch.int64)
@@ -338,12 +343,12 @@ class _Reader:
                 if need_tables[k]:
                     real = (n != 0) & (nk != 0)
                     base = h * length
-                    grad = torch.zeros(tables[k].numel(), dtype=torch.float32, device=x.device)
+                    grad = torch.zeros(tables[k].numel(), dtype=torch.float64, device=x.device)
                     grad.index_add_(0, base + torch.clamp_max(j, length - 1),
-                                    torch.where(real & (j < length), torch.where(last, g, g - g * l), 0.0))
+                                    torch.where(real & (j < length), torch.where(last, g, g - g * l), 0.0).double())
                     grad.index_add_(0, base + torch.clamp_max(j + 1, length - 1),
-                                    torch.where(real & ~last & (j + 1 < length), g * l, 0.0))
-                    grads[k] = grad.reshape(tables[k].shape)
+                                    torch.where(real & ~last & (j + 1 < length), g * l, 0.0).double())
+                    grads[k] = grad.float().reshape(tables[k].shape)
                 v = self.column(k, tables[k], h, nk, j)
                 slope = torch.where(j < pad - 1, self.column(k, tables[k], h, nk, j + 1) - v, 0.0)
                 du = du + g * slope if self.shared else du + g * slope * scale * cg

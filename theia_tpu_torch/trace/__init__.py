@@ -1,6 +1,7 @@
 """Tracers of the PyTorch port: the scene forward tracer, the volume
-forward and backward tracers, the direct-light tracer and the two photon
-tracers."""
+forward and backward tracers, the direct-light tracer, the two photon
+tracers, the two scene backward tracers and the bidirectional path
+tracer."""
 
 from .core import EventResultCode, TracerBase
 
@@ -13,6 +14,9 @@ __all__ = [
     "DirectLightTracer",
     "VolumePhotonTracer",
     "ScenePhotonTracer",
+    "SceneBackwardTargetTracer",
+    "SceneBackwardTracer",
+    "BidirectionalPathTracer",
 ]
 
 _LAZY = {
@@ -22,6 +26,9 @@ _LAZY = {
     "DirectLightTracer": "direct",
     "VolumePhotonTracer": "photon",
     "ScenePhotonTracer": "photon",
+    "SceneBackwardTargetTracer": "scene_backward",
+    "SceneBackwardTracer": "scene_backward",
+    "BidirectionalPathTracer": "bidirectional",
 }
 
 

@@ -70,10 +70,13 @@ def _light_pol(light):
     return stokes, pol_ref
 
 
-def _mueller_scatter(medium, direction, new_dir, mueller, pol_ref):
-    """Backward scatter: mueller <- mueller @ rotation^T @ phase
-    (reference: ray.scatter.glsl _scatterPolRay_impl, backward)."""
-    m12, m22, m33, m34 = phase_matrix_elements(medium, dot(direction, new_dir))
+def _mueller_scatter(phase_matrix, direction, new_dir, mueller, pol_ref):
+    """Backward scatter: mueller <- mueller @ rotation^T @ phase, where
+    ``phase_matrix(cos_theta)`` gives the medium's (m12, m22, m33, m34): a
+    volume medium's (``phase_matrix_elements``) or a packed store's by
+    handle (``trace.scene._phase_matrix_packed``) (reference:
+    ray.scatter.glsl _scatterPolRay_impl, backward)."""
+    m12, m22, m33, m34 = phase_matrix(dot(direction, new_dir))
     new_ref, c, s = rotate_pol_ref(direction, pol_ref, new_dir)
     rot_t = rotation_mueller(c, s).transpose(-1, -2)
     return mueller @ rot_t @ phase_mueller(m12, m22, m33, m34), new_ref
@@ -307,6 +310,7 @@ class VolumeBackwardTracer(TracerBase):
         if self.polarized:
             _require_frames(self, cam)
             pol = (cam.mueller, cam.pol_ref)
+            volume_phase = lambda cos_theta: phase_matrix_elements(medium, cos_theta)
         ray = RayState(
             position=cam.position,
             direction=cam.direction,
@@ -352,7 +356,7 @@ class VolumeBackwardTracer(TracerBase):
             if pol is not None:
                 # extend the Mueller chain by the connection's scatter, then
                 # carry the light's Stokes vector through it
-                conn_mueller, conn_ref = _mueller_scatter(medium, ray.direction, -light.direction, *pol)
+                conn_mueller, conn_ref = _mueller_scatter(volume_phase, ray.direction, -light.direction, *pol)
                 stokes, s0 = _connect_stokes(conn_mueller, conn_ref, light)
                 contrib = contrib * s0
                 ok = ok & (contrib > 0.0)
@@ -387,7 +391,7 @@ class VolumeBackwardTracer(TracerBase):
                 scattered = replace(scattered, log_contrib=scattered.log_contrib + log_p - log_p.detach())
             do_scatter = alive & (i < self.nScattering - 2)
             if pol is not None:
-                new_mueller, new_ref = _mueller_scatter(medium, ray.direction, new_dir, *pol)
+                new_mueller, new_ref = _mueller_scatter(volume_phase, ray.direction, new_dir, *pol)
                 pol = (
                     torch.where(do_scatter[..., None, None], new_mueller, pol[0]),
                     torch.where(do_scatter[..., None], new_ref, pol[1]),

@@ -88,6 +88,15 @@ def _phase_matrix_packed(store, handle, cos_theta):
     )
 
 
+def _log_phase_packed(store, handle, cos_theta):
+    """The log phase function at the cosine from the packed tables,
+    log(1/4pi) where a medium has none."""
+    return read_packed(
+        store.tables["log_phase_function"], store.sizes["log_phase_function"], handle, cos_theta, _LOG_INV_4PI,
+        affine=PHASE,
+    )
+
+
 def _pol_scatter_packed(store, handle, direction, new_dir, pol):
     """Rotate to the scattering plane and apply the phase matrix
     (reference: ray.scatter.glsl:46-69)."""
@@ -136,6 +145,58 @@ def _refract(i, n, eta):
     k_safe = torch.where(tir, 1.0, k)
     out = eta[..., None] * i - (eta * cos_i + sqrt(k_safe))[..., None] * n
     return torch.where(tir[..., None], -n, out)
+
+
+def _fresnel(pack: ScenePack, ray: RayState, hit: SurfaceHit):
+    """(n_in, n_tr, r_s, r_p) per lane
+    (reference: shader/scatter.surface.glsl:21-51)."""
+    cos_i = torch.clamp(dot(ray.direction, hit.ray_nrm), -1.0, 1.0)
+    sin_i = sqrt(torch.clamp_min(1.0 - cos_i * cos_i, 0.0))
+    n_i = ray.constants.n
+    # the wavelength normalized by the medium's bounds and clipped, then
+    # read (which clips again), in one read
+    n_t = read_packed(
+        pack.media.tables["refractive_index"],
+        pack.media.sizes["refractive_index"],
+        hit.medium_tr,
+        ray.wavelength,
+        1.0,
+        bounds=(pack.media.lambda_min, pack.media.lambda_max),
+        clips=2,
+    )
+    sin_t = sin_i * n_i / n_t
+    # double where: the square root's slope at a clamped 0 is infinite and
+    # would make the index's gradient NaN on total-internal-reflection lanes
+    s2 = 1.0 - sin_t * sin_t
+    tir = s2 <= 0.0
+    cos_t = torch.where(tir, 0.0, sqrt(torch.where(tir, 1.0, s2)))
+    cos_i = torch.abs(cos_i)
+    r_s = (n_i * cos_i - n_t * cos_t) / (n_i * cos_i + n_t * cos_t)
+    r_p = (n_t * cos_i - n_i * cos_t) / (n_t * cos_i + n_i * cos_t)
+    return n_i, n_t, r_s, r_p
+
+
+def scene_propagation(pack: ScenePack, tracer_params) -> PropagateParams:
+    """A scene tracer's propagation bounds: the scene's box, its diagonal
+    as the longest step, the tracer's scatter coefficient and time limit."""
+    extent = pack.upper_bbox - pack.lower_bbox
+    return PropagateParams(
+        scatter_coefficient=tracer_params["scatterCoefficient"],
+        lower_bbox=pack.lower_bbox,
+        upper_bbox=pack.upper_bbox,
+        max_time=tracer_params["maxTime"],
+        max_dist=sqrt(dot(extent, extent)),
+    )
+
+
+def _sample_cos_packed(pack: ScenePack, medium, u):
+    """The phase function's sampled cosine from the packed sampling
+    tables, detached (a sampler's state); uniform where the medium has no
+    table. Returns (cos_theta, has_table)."""
+    sizes = pack.media.sizes["phase_sampling"]
+    cos_tab = lookup_packed(pack.media.tables["phase_sampling"], sizes, medium, u, 0.0)
+    has_tab = sizes[medium] > 0
+    return torch.where(has_tab, torch.clamp(cos_tab, -1.0, 1.0), 2.0 * u - 1.0).detach(), has_tab
 
 
 class SceneForwardTracer(TracerBase):
@@ -269,55 +330,13 @@ class SceneForwardTracer(TracerBase):
         return p
 
     def _propagation(self, p) -> PropagateParams:
-        pack: ScenePack = p["scene"]
-        extent = pack.upper_bbox - pack.lower_bbox
-        return PropagateParams(
-            scatter_coefficient=p["tracer"]["scatterCoefficient"],
-            lower_bbox=pack.lower_bbox,
-            upper_bbox=pack.upper_bbox,
-            max_time=p["tracer"]["maxTime"],
-            max_dist=sqrt(dot(extent, extent)),
-        )
+        return scene_propagation(p["scene"], p["tracer"])
 
     # -- physics helpers -------------------------------------------------
 
-    def _fresnel(self, pack: ScenePack, ray: RayState, hit: SurfaceHit):
-        """(n_in, n_tr, r_s, r_p) per lane
-        (reference: shader/scatter.surface.glsl:21-51)."""
-        cos_i = torch.clamp(dot(ray.direction, hit.ray_nrm), -1.0, 1.0)
-        sin_i = sqrt(torch.clamp_min(1.0 - cos_i * cos_i, 0.0))
-        n_i = ray.constants.n
-        # the wavelength normalized by the medium's bounds and clipped, then
-        # read (which clips again), in one read
-        n_t = read_packed(
-            pack.media.tables["refractive_index"],
-            pack.media.sizes["refractive_index"],
-            hit.medium_tr,
-            ray.wavelength,
-            1.0,
-            bounds=(pack.media.lambda_min, pack.media.lambda_max),
-            clips=2,
-        )
-        sin_t = sin_i * n_i / n_t
-        s2 = 1.0 - sin_t * sin_t
-        tir = s2 <= 0.0
-        cos_t = torch.where(tir, 0.0, sqrt(torch.where(tir, 1.0, s2)))
-        cos_i = torch.abs(cos_i)
-        r_s = (n_i * cos_i - n_t * cos_t) / (n_i * cos_i + n_t * cos_t)
-        r_p = (n_t * cos_i - n_i * cos_t) / (n_t * cos_i + n_i * cos_t)
-        return n_i, n_t, r_s, r_p
-
     def _scatter_prob_packed(self, pack: ScenePack, medium, in_dir, out_dir):
         """Phase function value via the packed log-phase tables."""
-        cos_theta = dot(in_dir, out_dir)
-        log_p = read_packed(
-            pack.media.tables["log_phase_function"],
-            pack.media.sizes["log_phase_function"],
-            medium,
-            cos_theta,
-            _LOG_INV_4PI,
-            affine=PHASE,
-        )
+        log_p = _log_phase_packed(pack.media, medium, dot(in_dir, out_dir))
         return torch.exp(log_p), log_p
 
     def _sample_phase_packed(self, pack: ScenePack, medium, in_dir, u1, u2):
@@ -325,12 +344,7 @@ class SceneForwardTracer(TracerBase):
         Returns (direction, pdf, log_p) — uniform-sphere fallback where the
         medium has no sampling table."""
         phi = 2.0 * np.pi * u1
-        sizes = pack.media.sizes["phase_sampling"]
-        cos_tab = lookup_packed(pack.media.tables["phase_sampling"], sizes, medium, u2, 0.0)
-        has_tab = sizes[medium] > 0
-        cos_theta = torch.where(
-            has_tab, torch.clamp(cos_tab, -1.0, 1.0), 2.0 * u2 - 1.0
-        ).detach()
+        cos_theta, has_tab = _sample_cos_packed(pack, medium, u2)
         direction = scatter_dir(in_dir, cos_theta, phi)
         p, log_p = self._scatter_prob_packed(pack, medium, in_dir, direction)
         pdf = torch.where(has_tab, p, float(np.float32(1.0 / (4.0 * np.pi))))
@@ -382,7 +396,7 @@ class SceneForwardTracer(TracerBase):
         ok = mask & hit.valid & is_target & correct & (hit.error == 0)
         moved, code = self._propagate_to_hit(ray, hit, prop)
         ok = ok & (code >= 0)
-        n_i, n_t, r_s, r_p = self._fresnel(pack, moved, hit)
+        n_i, n_t, r_s, r_p = _fresnel(pack, moved, hit)
         absorb = (hit.flags & _BLACK) != 0
         item, pos_mask = self._create_response_item(
             moved, hit, r_s, r_p, n_i, n_t, absorb, pol=pol
@@ -487,7 +501,7 @@ class SceneForwardTracer(TracerBase):
         ray = replace(
             ray, position=torch.where(surf[..., None], hit.world_pos, ray.position)
         )
-        n_i, n_t, r_s, r_p = self._fresnel(pack, ray, hit)
+        n_i, n_t, r_s, r_p = _fresnel(pack, ray, hit)
         flags = hit.flags
         no = torch.zeros_like(surf)
         is_abs = (flags & _BLACK) != 0
