@@ -7,7 +7,9 @@ Phases, one line each, any failure raises and exits non-zero:
 
 1. the card's name and power limit (nvidia-smi), then the kernels' build
    from ``theia_tpu_torch/csrc`` with nvcc (one process per source, run
-   together) and its seconds;
+   together) and its seconds, and the SASS of the kernel histogram's
+   record and the Sobol draw (``sass_report``: cuobjdump's opcodes, the
+   atomics apart);
 2. the port's square root on the card (``ops.math3d.sqrt``, CUDA's
    float32 ``torch.sqrt``) bit for bit against the float64 route that it
    takes on the CPU, on 2^20 values; then each hand-written kernel
@@ -60,7 +62,13 @@ Phases, one line each, any failure raises and exits non-zero:
    NaN/inf times and the records that the backward's lists of kept lanes
    single out (``kde_cases``: every lane kept, none, every lane in one
    bin, a detector axis; each timed queued beside its bound and an empty
-   launch); the table reads and their backward
+   launch, the record also on 1 lane in 1000 kept), and the recorded
+   calls of one step of flagship-volume-grad (21) and of
+   flagship-brute-geom-grad (19) (``kde_path_calls``), each held under
+   ``hold_kde``'s tolerances with its kept share, distinct base bins and
+   top-ten share printed (``kde_call_stats``), then replayed as called
+   and queued: the mean a call is the record's row, the 524,288-lane case
+   beside it as ``synthetic`` (``time_kde_path``); the table reads and their backward
    (``csrc/table_read.cu``) in every form of every read site at N =
    262,144 with lanes at t = 0 and 1 (``read_cases``: on the flagship
    scene's store the refractive index at t and at the wavelength clipped
@@ -99,7 +107,8 @@ Phases, one line each, any failure raises and exits non-zero:
    and example 11's (64 dims, 160 drawn: the Philox tail) and on the edge
    indices, dims, seeds, tables and a wrapping offset, timed as called and
    queued beside its plain version and a bound from its integer
-   operations;
+   operations (the fold by byte's; the bit fold's beside it as
+   ``yardstick_ms``);
 3. the first main path at full width: the flagship scene tracer
    (262,144 lanes, path length 10, 3840 triangles, 100 bins,
    ``accel="mt"``) through ``run()``, one warm-up batch and three timed
@@ -161,8 +170,9 @@ Phases, one line each, any failure raises and exits non-zero:
 3k. (``sobol_and_camera_runs``) flagship-brute-sobol (the brute-force
    flagship with ``_build_scene_tracer(rng="sobol")``'s ``SobolQRNG(seed=42,
    dims=128)``: 50 Sobol launches a batch in Philox's place; one batch's
-   Sobol calls recorded, held bit for bit and replayed, ``time_sobol_path``,
-   whose time a call is the kernel's row), then flagship-brute profiled in
+   Sobol calls recorded, with flagship-volume-sobol's 42, held bit for bit
+   and replayed, ``time_sobol_path``, whose mean a call is the kernel's
+   row), then flagship-brute profiled in
    the same call and in turns with it; flagship-volume-sobol (the volume flagship
    with example 11's ``SobolQRNG(seed=1, dims=64)``, the lanes' last dim
    reported); volume-backward (``VolumeBackwardTracer`` of
@@ -274,18 +284,23 @@ PHILOX_PAIR_OPS = max(PHILOX_SHARED_OPS + 2 * PHILOX_DRAW_OPS, 2 * 20)
 #: as Philox's do) left out, since the integer pipe's count is the
 #: larger. A lane: the index + offset 1, its nested scramble 7 (two bit
 #: reversals, the seed's add, four xors); a draw after its first, dim + j
-#: 1. A draw in the table: the tail test 1, the row's address 2, the XOR fold
-#: 40, the Owen scramble 7 (as the index's), the conversion to float 1.
-#: The fold's least form xors each row word under a predicate set from
-#: its bit of the index: four R2P moves put bits 0-6 of each byte into
-#: predicates, four tests set bits 7, 15, 23 and 31, and 32 predicated
-#: xors apply them. The scramble's seed hash32(dim ^ hash32(seed))
-#: depends on the dimension alone, so it is made once a call for each
-#: dimension drawn (7 operations, 4 bytes read beside the row) and costs
-#: a draw nothing. A draw past the table: the tail test 1 and the Philox
-#: draw's own 61 (its key set up again, csrc/philox.cuh).
-SOBOL_LANE_OPS, SOBOL_TABLE_OPS, SOBOL_TAIL_OPS = 1 + 7, 1 + 2 + 40 + 7 + 1, 1 + 61
+#: 1. A draw in the table: the tail test 1, the table's address 2, the XOR
+#: fold 10, the Owen scramble 7 (as the index's), the conversion to float
+#: 1. The fold's least form takes the index a byte at a time, as
+#: csrc/sobol.cu does from random._byte_table: four byte extracts, four
+#: lookups' addresses and two three-input xors. The scramble's seed
+#: hash32(dim ^ hash32(seed)) depends on the dimension alone, so it is
+#: made once a call for each dimension drawn (7 operations, 4 bytes read
+#: beside the row) and costs a draw nothing. A draw past the table: the
+#: tail test 1 and the Philox draw's own 61 (its key set up again,
+#: csrc/philox.cuh).
+SOBOL_LANE_OPS, SOBOL_TABLE_OPS, SOBOL_TAIL_OPS = 1 + 7, 1 + 2 + 10 + 7 + 1, 1 + 61
 SOBOL_DIM_OPS = 7
+#: a draw in the table with the fold's least form over the rows a bit at a
+#: time (four R2P moves put bits 0-6 of each byte into predicates, four
+#: tests set bits 7, 15, 23 and 31, 32 predicated xors apply them: 40), the
+#: count of the bounds before the byte tables; kept beside as ``yardstick``
+SOBOL_ROW_TABLE_OPS = 1 + 2 + 40 + 7 + 1
 #: the flagship's generator (``_build_scene_tracer(rng="sobol")``) and
 #: example 11's (``examples/11_quasirandom_sampling.py``)
 FLAGSHIP_SOBOL = dict(seed=42, dims=128)
@@ -443,19 +458,27 @@ def check_philox(report):
     report.update(max_abs_err=0.0, ms=ms, queued_ms=queued_ms, plain_ms=plain_ms, library_ms=None, **b)
 
 
-def sobol_bound(table_dims: int, dim, width: int) -> dict:
+def sobol_bound(table_dims: int, dim, width: int, table_ops: int = SOBOL_TABLE_OPS) -> dict:
     """The bound of one ``sobol_owen_uniform`` call: each lane's stream and
     dim read and its ``width`` floats written, the table's rows and seeds
     of the dimensions drawn once; the integer operations of this call's
-    draws, in the table or past it, and of its dimensions' seeds."""
+    draws, in the table (``table_ops`` a draw) or past it, and of its
+    dimensions' seeds."""
     import torch
 
     draws = torch.stack([dim.to(torch.int64) + j for j in range(width)])
     tail = int((draws >= table_dims).sum())
     rows = int(torch.unique(draws[draws < table_dims]).numel())
     n = dim.shape[0]
-    ops = n * (SOBOL_LANE_OPS + width - 1) + (n * width - tail) * SOBOL_TABLE_OPS + tail * SOBOL_TAIL_OPS + rows * SOBOL_DIM_OPS
+    ops = n * (SOBOL_LANE_OPS + width - 1) + (n * width - tail) * table_ops + tail * SOBOL_TAIL_OPS + rows * SOBOL_DIM_OPS
     return bound((8 + 4 * width) * n + (128 + 4) * rows, ops, PEAK_I32)
+
+
+def sobol_bounds(table_dims: int, dim, width: int) -> dict:
+    """``sobol_bound`` at the byte fold's count, with the bound at the bit
+    fold's count (``SOBOL_ROW_TABLE_OPS``) beside it as ``yardstick_ms``."""
+    b = sobol_bound(table_dims, dim, width)
+    return dict(b, yardstick_ms=sobol_bound(table_dims, dim, width, SOBOL_ROW_TABLE_OPS)["bound_ms"])
 
 
 def check_sobol(report):
@@ -500,12 +523,12 @@ def check_sobol(report):
     draw = lambda: sobol_owen_uniform(table, FLAGSHIP_SOBOL["seed"], stream, dim, 2, n)
     ms, queued_ms = cuda_ms(draw, 50), cuda_ms_queued(draw, 50)
     plain_ms = cuda_ms(lambda: sobol_owen_uniform_plain(table, FLAGSHIP_SOBOL["seed"], stream, dim, 2, n), 5)
-    b = sobol_bound(FLAGSHIP_SOBOL["dims"], dim, 2)
+    b = sobol_bounds(FLAGSHIP_SOBOL["dims"], dim, 2)
     print(f"kernel sobol_owen_uniform N={n}: bit-exact (width 1 and 2; 128 dims over 74, 64 dims over 160 with "
           f"the Philox tail; 48 edge cases x 6); kernel {ms:.4f} ms ({queued_ms:.4f} queued), plain {plain_ms:.4f} ms; "
           f"bound {b['bound_ms']:.4f} ms by {b['bound_by']} ({SOBOL_LANE_OPS + 1} + 2 x {SOBOL_TABLE_OPS} int32 "
-          f"operations a lane at {PEAK_I32:.4g}/s), share of bound {b['bound_ms'] / ms:.3f} "
-          f"({b['bound_ms'] / queued_ms:.3f} queued), library call: none")
+          f"operations a lane at {PEAK_I32:.4g}/s; {b['yardstick_ms']:.4f} ms at the bit fold's {SOBOL_ROW_TABLE_OPS} a "
+          f"draw), share of bound {b['bound_ms'] / ms:.3f} ({b['bound_ms'] / queued_ms:.3f} queued), library call: none")
     report.update(max_abs_err=0.0, ms=ms, queued_ms=queued_ms, plain_ms=plain_ms, library_ms=None, **b)
 
 
@@ -520,46 +543,67 @@ def record_sobol_calls(tracer):
     return record_calls(tracer, random, ("sobol_owen_uniform",), draw)
 
 
-def time_sobol_path(report, calls):
-    """``sobol_owen_uniform`` on the path's own inputs: one batch's
-    ``calls`` (:func:`record_sobol_calls`) held bit for bit against the
-    plain version and replayed, as called and queued; the mean a call
-    with the calls' mean bound becomes the kernel's row, and the 2^20-lane
-    case of :func:`check_sobol` stays beside it as ``synthetic``."""
+def sobol_call_stats(calls, table_dims: int) -> dict:
+    """What one path's ``sobol_owen_uniform`` calls turn on: their count,
+    lanes and widths, the most distinct dims a call draws, and the share
+    of draws past the direction table (the Philox tail)."""
+    import torch
+
+    draws = [torch.stack([c[3].to(torch.int64) + j for j in range(c[4])]) for c in calls]
+    total = sum(d.numel() for d in draws)
+    return dict(calls=len(calls), lanes=sorted({int(c[2].shape[0]) for c in calls}),
+                width_2=sum(c[4] == 2 for c in calls), max_distinct_dims=max(int(torch.unique(d).numel()) for d in draws),
+                share_past_table=sum(int((d >= table_dims).sum()) for d in draws) / max(total, 1))
+
+
+def time_sobol_path(report, paths: dict) -> None:
+    """``sobol_owen_uniform`` on the paths' own inputs: each path's calls
+    (``record_sobol_calls`` of one batch: flagship-brute-sobol's 50,
+    flagship-volume-sobol's 42) held bit for bit against the plain version
+    and replayed, as called and queued; the mean a call over both paths,
+    with the calls' mean bound, becomes the kernel's row, each path's
+    beside it under ``paths``, and the 2^20-lane case of
+    :func:`check_sobol` as ``synthetic``."""
     import torch
 
     from theia_tpu_torch.random import sobol_owen_uniform, sobol_owen_uniform_plain
 
-    for dirs, seed, stream, dim, width, offset in calls:
-        got = sobol_owen_uniform(dirs, seed, stream, dim, width, offset)
-        torch.cuda.synchronize()
-        want = sobol_owen_uniform_plain(dirs.cpu(), seed, stream.cpu(), dim.cpu(), width, offset)
-        assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32)), "sobol on the path's inputs differs"
+    rows, every = {}, []
+    for label, calls in paths.items():
+        for dirs, seed, stream, dim, width, offset in calls:
+            got = sobol_owen_uniform(dirs, seed, stream, dim, width, offset)
+            torch.cuda.synchronize()
+            want = sobol_owen_uniform_plain(dirs.cpu(), seed, stream.cpu(), dim.cpu(), width, offset)
+            assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32)), f"sobol on {label}'s inputs differs"
 
-    def replay():
-        for c in calls:
-            sobol_owen_uniform(*c)
+        def replay(fn=sobol_owen_uniform):
+            for c in calls:
+                fn(*c)
 
-    def replay_plain():
-        for c in calls:
-            sobol_owen_uniform_plain(*c)
-
-    n = len(calls)
-    ms, queued_ms = cuda_ms(replay, 10) / n, cuda_ms_queued(replay, max(1, 400 // n)) / n
-    plain_ms = cuda_ms(replay_plain, 1) / n
-    bounds = [sobol_bound(c[0].shape[0], c[3], c[4]) for c in calls]
-    kinds = [x["bound_by"] for x in bounds]
-    b = dict(bound_ms=sum(x["bound_ms"] for x in bounds) / n, bound_by=max(set(kinds), key=kinds.count))
-    lanes = sorted({int(c[2].shape[0]) for c in calls})
-    widths = [c[4] for c in calls]
-    distinct = [int(torch.unique(c[3]).numel()) for c in calls]
-    print(f"kernel sobol_owen_uniform on flagship-brute-sobol's inputs: {n} calls of a batch ({lanes} lanes, "
-          f"{widths.count(2)} of width 2, at most {max(distinct)} distinct dims a call), bit-exact; "
-          f"{ms:.4f} ms a call ({queued_ms:.4f} queued), plain {plain_ms:.4f} ms; bound {b['bound_ms']:.4f} ms a "
-          f"call by {b['bound_by']}, share of bound {b['bound_ms'] / ms:.3f} ({b['bound_ms'] / queued_ms:.3f} queued)")
-    synthetic = {k: report[k] for k in ("ms", "queued_ms", "plain_ms", "bound_ms", "bound_by")}
-    report.update(ms=ms, queued_ms=queued_ms, plain_ms=plain_ms, path_calls=n, path_lanes=lanes,
-                  synthetic=dict(synthetic, lanes=1 << 20, width=2), **b)
+        n = len(calls)
+        bounds = [sobol_bounds(c[0].shape[0], c[3], c[4]) for c in calls]
+        kinds = [x["bound_by"] for x in bounds]
+        row = dict(ms=cuda_ms(replay, 10) / n, queued_ms=cuda_ms_queued(replay, max(1, 400 // n)) / n,
+                   plain_ms=cuda_ms(lambda: replay(sobol_owen_uniform_plain), 1) / n,
+                   bound_ms=sum(x["bound_ms"] for x in bounds) / n, bound_by=max(set(kinds), key=kinds.count),
+                   yardstick_ms=sum(x["yardstick_ms"] for x in bounds) / n,
+                   **sobol_call_stats(calls, calls[0][0].shape[0]))
+        rows[label] = row
+        every += bounds
+        print(f"kernel sobol_owen_uniform on {label}'s inputs: {n} calls of a batch ({row['lanes']} lanes, "
+              f"{row['width_2']} of width 2, at most {row['max_distinct_dims']} distinct dims a call, "
+              f"{row['share_past_table']:.4f} of the draws past the table), bit-exact; {row['ms']:.4f} ms a call "
+              f"({row['queued_ms']:.4f} queued), plain {row['plain_ms']:.4f} ms; bound {row['bound_ms']:.5f} ms a "
+              f"call by {row['bound_by']} (yardstick {row['yardstick_ms']:.5f}), share of bound "
+              f"{row['bound_ms'] / row['queued_ms']:.3f} queued")
+    n = sum(r["calls"] for r in rows.values())
+    mean = lambda key: sum(r[key] * r["calls"] for r in rows.values()) / n
+    kinds = [x["bound_by"] for x in every]
+    synthetic = {k: report[k] for k in ("ms", "queued_ms", "plain_ms", "bound_ms", "bound_by", "yardstick_ms")}
+    report.update(ms=mean("ms"), queued_ms=mean("queued_ms"), plain_ms=mean("plain_ms"),
+                  bound_ms=sum(x["bound_ms"] for x in every) / n, bound_by=max(set(kinds), key=kinds.count),
+                  yardstick_ms=sum(x["yardstick_ms"] for x in every) / n, path_calls=n, paths=rows,
+                  synthetic=dict(synthetic, lanes=1 << 20, width=2))
 
 
 def hist_case(n: int, seed: int, bins: int = 100, n_det=None, kept: float = 0.5, offset: int = 0):
@@ -854,6 +898,187 @@ def kde_grad_bound(case) -> dict:
     return bound(n + 8 * unmasked + 4 * bins + 8 * n + 12, KDE_GRAD_PAIR_FLOP * pairs + 4 * unmasked)
 
 
+def kde_add_bound(case) -> dict:
+    """The kernel histogram record's bound on ``case``: the mask of every
+    lane, time and value of the unmasked ones (ids beside them with a
+    detector axis), the state read and written; KDE_PAIR_FLOP a (lane,
+    bin) pair in range and 4 an unmasked lane."""
+    n, bins = case[1].shape[0], case[6] * (case[9] or 1)
+    unmasked, _, pairs = kde_pairs(case)
+    return bound(n + (8 if case[9] is None else 12) * unmasked + 8 * bins, KDE_PAIR_FLOP * pairs + 4 * unmasked)
+
+
+def kde_call_stats(case) -> dict:
+    """What a kernel histogram record's work turns on: its lanes, the
+    shares unmasked and kept (a lane with a bin in range), the distinct
+    base bins of its kept lanes (per detector), its (lane, bin) pairs in
+    range and the share of them in the call's ten most-hit bins."""
+    import torch
+
+    from theia_tpu_torch.response import _kde_terms
+
+    value, time_, mask, t0, bin_size, bandwidth, bins, support, oid, n_det = case
+    terms = _kde_terms(time_, mask, t0, bin_size, bandwidth, bins, support, oid, n_det)
+    kept = torch.stack([k for k, *_ in terms]).any(0)
+    counts = torch.bincount(torch.cat([f[k] for k, f, *_ in terms]), minlength=bins * (n_det or 1))
+    pairs = int(counts.sum())
+    base = torch.floor((time_ - t0) / bin_size)[kept].to(torch.int64)
+    if n_det is not None:
+        base = base + oid[kept].to(torch.int64) * (1 << 32)
+    n = mask.shape[0]
+    return dict(
+        lanes=n, unmasked=int(mask.sum()) / max(n, 1), kept=int(kept.sum()) / max(n, 1),
+        distinct_bases=int(torch.unique(base).numel()), pairs=pairs,
+        top10_share=float(counts.topk(min(10, counts.numel())).values.sum()) / max(pairs, 1),
+    )
+
+
+def record_kde_calls(tracer, step):
+    """The inputs of every ``kernel_histogram_add`` call of one ``step`` of
+    ``tracer``, as the tuples that ``kde_case`` makes."""
+    from theia_tpu_torch import response
+
+    def inputs(state, value, time_, mask, t0, bin_size, bandwidth, n_bins, support=4, object_id=None,
+               n_detectors=None):
+        oid = None if object_id is None else object_id.clone()
+        return (value.detach().clone(), time_.detach().clone(), mask.clone(), t0.detach(), bin_size.detach(),
+                bandwidth.detach(), n_bins, support, oid, n_detectors)
+
+    return record_calls(tracer, response, ("kernel_histogram_add",), inputs, step)
+
+
+def kde_path_calls(mesh) -> dict:
+    """The recorded ``kernel_histogram_add`` calls of one gradient step of
+    each path that records through the kernel histogram (100 bins of 5 ns,
+    bandwidth 5 ns, 262,144 lanes): flagship-volume-grad's step in the
+    group velocity (example 06's loss; its other step, example 05's in the
+    absorption, records through ``histogram_add``) and
+    flagship-brute-geom-grad's step (example 10's loss)."""
+    import numpy as np
+
+    import theia_tpu_torch
+    from theia_tpu_torch.response import KernelHistogramHitResponse
+    from torch_flagship import build_flagship, build_volume_flagship
+
+    kde = lambda: KernelHistogramHitResponse(nBins=100, t0=0.0, binSize=5.0, bandwidth=5.0)
+    volume = build_volume_flagship(theia_tpu_torch, BATCH, "cuda", response=kde())
+    paths = {"flagship-volume-grad": record_kde_calls(
+        volume, scale_step(volume, "group_velocity", float(np.log(0.92))))}
+    del volume
+    geo = build_flagship(theia_tpu_torch, mesh, BATCH, MAX_PATH, accel="auto", device="cuda", response=kde())
+    paths["flagship-brute-geom-grad"] = record_kde_calls(geo, geometry_step(geo))
+    assert [len(c) for c in paths.values()] == [VOLUME_RECORDS, 2 * MAX_PATH - 1], {k: len(c) for k, c in paths.items()}
+    return paths
+
+
+def kde_library_call(case):
+    """``index_add_`` of the pairs' weights on bins made beforehand from
+    ``case``: (flat bins, weights), the record's library yardstick."""
+    import torch
+
+    from theia_tpu_torch.response import _kde_terms
+
+    value, time_, mask, t0, bin_size, bandwidth, bins, support, oid, n_det = case
+    terms = _kde_terms(time_, mask, t0, bin_size, bandwidth, bins, support, oid, n_det)
+    norm = bin_size / (bandwidth * 2.5066282749176025)
+    return (torch.cat([f[k] for k, f, *_ in terms]), torch.cat([(value * e * norm)[k] for k, _, _, _, e in terms]))
+
+
+def time_kde_path(report, paths: dict) -> None:
+    """``kernel_histogram_add`` on the paths' own inputs (``kde_path_calls``):
+    each call held against the plain versions under ``hold_kde``'s
+    tolerances (record and backward), its ``kde_call_stats`` printed, then
+    each path's calls replayed, as called and queued, beside the plain
+    version, ``index_add_`` of the pairs' weights and the calls' mean
+    bound. The mean a call over both paths becomes the kernel's row; the
+    N = 524,288 case of ``check_kernel_histogram`` stays beside it as
+    ``synthetic``."""
+    import torch
+
+    from theia_tpu_torch.response import kernel_histogram_add, kernel_histogram_add_plain
+
+    worst, rows, every = 0.0, {}, []
+    for label, calls in paths.items():
+        stats = []
+        for k, case in enumerate(calls):
+            worst = max(worst, hold_kde(case, f"call {k} of {label}")["add"])
+            stats.append(kde_call_stats(case))
+        state = torch.zeros(calls[0][6] * (calls[0][9] or 1), device="cuda")
+        library = [kde_library_call(c) for c in calls]
+
+        def replay(fn=kernel_histogram_add):
+            for c in calls:
+                fn(state, *c)
+
+        def replay_library():
+            for flat, weights in library:
+                state.index_add_(0, flat, weights)
+
+        n = len(calls)
+        bounds = [kde_add_bound(c) for c in calls]
+        kinds = [b["bound_by"] for b in bounds]
+        row = dict(
+            calls=n, lanes=sorted({s["lanes"] for s in stats}),
+            ms=cuda_ms(replay, 10) / n, queued_ms=cuda_ms_queued(replay, max(1, 400 // n)) / n,
+            plain_ms=cuda_ms(lambda: replay(kernel_histogram_add_plain), 1) / n,
+            library_ms=cuda_ms(replay_library, 10) / n,
+            bound_ms=sum(b["bound_ms"] for b in bounds) / n, bound_by=max(set(kinds), key=kinds.count),
+            stats=stats,
+        )
+        rows[label] = row
+        every += [(row, b) for b in bounds]
+        print(f"kernel kernel_histogram_add on {label}'s {n} calls of a step ({row['lanes']} lanes): "
+              f"{row['ms']:.4f} ms a call ({row['queued_ms']:.4f} queued), plain {row['plain_ms']:.4f} ms, index_add_ "
+              f"{row['library_ms']:.4f} ms; bound {row['bound_ms']:.5f} ms a call by {row['bound_by']}, share "
+              f"{row['bound_ms'] / row['queued_ms']:.3f} queued")
+        for key, form in (("unmasked", ".4f"), ("kept", ".4f"), ("distinct_bases", "d"), ("top10_share", ".3f")):
+            print(f"    {key} of each call: " + " ".join(format(s[key], form) for s in stats))
+    n = sum(r["calls"] for r in rows.values())
+    mean = lambda key: sum(r[key] * r["calls"] for r in rows.values()) / n
+    kinds = [b["bound_by"] for _, b in every]
+    synthetic = {k: report[k] for k in ("ms", "queued_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+    report.update(ms=mean("ms"), queued_ms=mean("queued_ms"), plain_ms=mean("plain_ms"), library_ms=mean("library_ms"),
+                  bound_ms=sum(b["bound_ms"] for _, b in every) / n, bound_by=max(set(kinds), key=kinds.count),
+                  path_calls=n, path_max_abs_err=worst, paths=rows, synthetic=dict(synthetic, lanes=2 * BATCH))
+    print(f"kernel kernel_histogram_add on the paths' {n} recorded calls: {report['ms']:.4f} ms a call "
+          f"({report['queued_ms']:.4f} queued), bound {report['bound_ms']:.5f} ms; max abs err {worst:.3g}")
+
+
+def sass_report(lib, names) -> dict:
+    """The SASS of the kernels of ``lib`` whose mangled names hold one of
+    ``names`` (``cuobjdump -sass`` of the built library): each kernel's
+    instruction count and its opcodes counted, with the atomics (a shared
+    float add is ``ATOMS.ADD.F32`` where native, a CAS loop ``ATOMS.CAS``
+    otherwise) listed apart. Empty where the toolkit has no cuobjdump."""
+    import collections
+    import re
+
+    from theia_tpu_torch import _build
+
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    if not tool.is_file():
+        return {}
+    text = subprocess.run([str(tool), "-sass", str(lib.path)], capture_output=True, text=True, timeout=600,
+                          check=True).stdout
+    out, name, ops = {}, None, None
+    instruction = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)")
+    for line in text.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            name, ops = (fn, collections.Counter()) if any(k in fn for k in names) else (None, None)
+            if name:
+                out[name] = ops
+        elif ops is not None:
+            m = instruction.search(line)
+            if m:
+                ops[m.group(1)] += 1
+    return {
+        fn: dict(instructions=sum(c.values()), atomics={k: v for k, v in c.items() if k.startswith(("ATOM", "RED"))},
+                 opcodes=dict(c.most_common(24)))
+        for fn, c in out.items()
+    }
+
+
 def hold_kde(case, label) -> dict:
     """The kernel histogram's record and backward on ``case`` against the
     plain versions on the CPU copy of the inputs. Tolerances: the record
@@ -902,7 +1127,7 @@ def check_kernel_histogram(add_report, grad_report):
     import torch
 
     from theia_tpu_torch.response import (
-        SHARED_STATE_MAX, _kde_terms, kernel_histogram_add, kernel_histogram_add_plain, kernel_histogram_grad,
+        SHARED_STATE_MAX, kernel_histogram_add, kernel_histogram_add_plain, kernel_histogram_grad,
         kernel_histogram_grad_plain,
     )
 
@@ -950,20 +1175,25 @@ def check_kernel_histogram(add_report, grad_report):
         grad_report["cases"][label] = dict(queued_ms=ms, queued_share_of_bound=b["bound_ms"] / ms, **b)
         print(f"kernel kernel_histogram_grad on {label} (N={n}): {ms:.4f} ms queued, bound {b['bound_ms']:.4f} ms by "
               f"{b['bound_by']}, share {b['bound_ms'] / ms:.3f}; an empty launch {empty['queued_ms']:.4f} ms queued")
-    value, time_, mask, t0, bin_size, bandwidth, bins, support, oid, n_det = main
+    # the record on the same cases and on a sparse one, queued
+    add_report["cases"] = {}
+    for label, case in (*kde_cases(n).items(), ("1 lane in 1000 kept", kde_case(n, 24, kept=1e-3))):
+        state = torch.zeros(case[6] * (case[9] or 1), device="cuda")
+        ms = cuda_ms_queued(lambda: kernel_histogram_add(state, *case), 50)
+        b = kde_add_bound(case)
+        add_report["cases"][label] = dict(queued_ms=ms, queued_share_of_bound=b["bound_ms"] / ms, **b)
+        print(f"kernel kernel_histogram_add on {label} (N={n}): {ms:.4f} ms queued, bound {b['bound_ms']:.4f} ms by "
+              f"{b['bound_by']}, share {b['bound_ms'] / ms:.3f}")
+    bins = main[6]
     unmasked, kept, pairs = kde_pairs(main)
     state = torch.zeros(bins, device="cuda")
     add = lambda: kernel_histogram_add(state, *main)
     ms, queued_ms = cuda_ms(add, 50), cuda_ms_queued(add, 50)
     plain_ms = cuda_ms(lambda: kernel_histogram_add_plain(state, *main), 10)
     # the yardstick: one index_add_ of the pairs' weights on bins made beforehand
-    terms = _kde_terms(time_, mask, t0, bin_size, bandwidth, bins, support, oid, n_det)
-    norm = bin_size / (bandwidth * 2.5066282749176025)
-    flat = torch.cat([f[k] for k, f, *_ in terms])
-    weights = torch.cat([(value * e * norm)[k] for k, _, _, _, e in terms])
+    flat, weights = kde_library_call(main)
     library_ms = cuda_ms(lambda: state.index_add_(0, flat, weights), 50)
-    # mask of every lane, time and value of the unmasked ones, the state read and written
-    b = bound(n + 8 * unmasked + 8 * bins, KDE_PAIR_FLOP * pairs + 4 * unmasked)
+    b = kde_add_bound(main)
     print(f"kernel kernel_histogram_add N={n} bins={bins}: {unmasked} unmasked, {kept} kept, {pairs} (lane, bin) pairs; "
           f"kernel {ms:.4f} ms ({queued_ms:.4f} queued), plain {plain_ms:.4f} ms, index_add_ {library_ms:.4f} ms; "
           f"bound {b['bound_ms']:.4f} ms by {b['bound_by']}, share {b['bound_ms'] / ms:.3f} "
@@ -2944,7 +3174,7 @@ def sobol_and_camera_runs(mesh, wrappers, kernels, batch: int = BATCH, device="c
     kernels["sobol_owen_uniform"].update(launches=counts_["sobol_owen_uniform"],
                                          launches_per_batch=per_batch["sobol_owen_uniform"],
                                          path="flagship-brute-sobol, 3 batches")
-    time_sobol_path(kernels["sobol_owen_uniform"], record_sobol_calls(brute_sobol))
+    sobol_paths = {"flagship-brute-sobol": record_sobol_calls(brute_sobol)}
     # flagship-brute-sobol in turns with flagship-brute (Philox): the one generator's launches in the other's place
     brute_philox = build_flagship(theia_tpu_torch, mesh, batch, MAX_PATH, accel="auto", device=device)
     brute_philox.run()  # warm-up batch
@@ -2982,7 +3212,10 @@ def sobol_and_camera_runs(mesh, wrappers, kernels, batch: int = BATCH, device="c
                f"; histogram sums {sums_}; lanes' last dim at most {int(dims_.max())}, past the table on {past:.6f} "
                f"of the lanes (budget {vol_sobol.nRNGSamples})")
     camera_runs["flagship-volume-sobol"].update(max_dim=int(dims_.max()), share_past_table=past)
+    sobol_paths["flagship-volume-sobol"] = record_sobol_calls(vol_sobol)
     del vol_sobol
+    time_sobol_path(kernels["sobol_owen_uniform"], sobol_paths)
+    del sobol_paths
     torch.cuda.empty_cache()
 
     backward = build_volume_backward(theia_tpu_torch, batch, device)
@@ -3309,6 +3542,10 @@ def main() -> int:
     for line in lib.build_log.splitlines():
         if "registers" in line or "spill" in line:
             print("ptxas:", line.strip())
+    # the SASS of the two kernels redesigned last: the KDE record's shared adds, the Sobol fold
+    sass = sass_report(lib, ("kde_add", "sobol_uniform"))
+    for fn, info in sass.items():
+        print(f"sass {fn}: {info['instructions']} instructions, atomics {info['atomics']}, most used {info['opcodes']}")
 
     phase("2")
     # phase 2: kernels against their plain versions at the main path's shapes
@@ -3451,9 +3688,12 @@ def main() -> int:
     # scene's packed tables and the volume flagship's 1024-sample table
     lap("the volume and photon flagships' records and queries")
     check_kernel_histogram(kernels["kernel_histogram_add"], kernels["kernel_histogram_grad"])
+    time_kde_path(kernels["kernel_histogram_add"], kde_path_calls(mesh))
+    torch.cuda.empty_cache()
+    lap("the kernel histogram, synthetic and on its paths' calls")
     check_table_read(kernels, brute_tracer.scene.pack.media, volume_tracer.params()["medium"])
     check_gather_rows(kernels["gather_rows"], kernels["gather_rows_grad"], brute_tracer.scene.pack, shadow_winners)
-    lap("the kernel histogram and the table reads")
+    lap("the table reads and the row gathers")
     # the walks: flagship-array (example 08's detector array, which accel="auto" sends to the instanced walk)
     # and flagship-bvh (the flagship scene on the threaded BVH, leaf size 8), each on its recorded batch
     array_tracer = build_array(theia_tpu_torch, mesh, BATCH, ARRAY_PATH, device="cuda")
@@ -3962,7 +4202,7 @@ def main() -> int:
         info.update(card_ms=info["ms"], share_of_bound=info["bound_ms"] / info["ms"])
     line = {"kernels": [dict(name=name, **info) for name, info in kernels.items()]}
     (OUT / "chip_smoke.json").write_text(json.dumps(dict(
-        nvidia_smi=smi, build_seconds=lib.build_seconds, sqrt=sqrt_check,
+        nvidia_smi=smi, build_seconds=lib.build_seconds, sass=sass, sqrt=sqrt_check,
         mt_path=dict(seconds_per_batch=seconds, bounces_per_s=BATCH * MAX_PATH / med,
                      peak_bytes=peak, histogram_sums=sums, launches=counts, row_source_turns=turns),
         brute_path=dict(seconds_per_batch=brute_seconds, bounces_per_s=BATCH * MAX_PATH / brute_med,

@@ -461,3 +461,69 @@ def test_walk_kernels_bit_equal(cuda, name, case):
         walk.check(rays, "rays", on_cpu=False)
         assert walk.kernel.launches == before + 1
         walk.check(rays, "rays", on_cpu=True)
+
+
+#: the record's cases beside ``chip_smoke.kde_cases``: (label, kde_case arguments)
+KDE_RECORD_CASES = {
+    "1 lane in 1000 kept": dict(n=524_288, seed=24, kept=1e-3),
+    "every lane kept with a detector axis": dict(n=524_288, seed=25, n_det=3, kept=1.0),
+    "a state of 56,000 flat bins (219 KB of shared memory)": dict(n=100_000, seed=26, bins=1000, n_det=56),
+    "a state past shared memory (64,000 flat bins)": dict(n=100_000, seed=9, bins=1000, n_det=64),
+    "views at element 5, N=4099": dict(n=4099, seed=27, offset=5),
+}
+
+
+@pytest.mark.parametrize(
+    "label", ["every lane kept", "no lane kept", "every lane in one bin", "a detector axis (3), mask 0.5",
+              *KDE_RECORD_CASES]
+)
+def test_kernel_histogram_record_on_cases(cuda, label):
+    """The kernel histogram's record (a block's shared histogram or, past
+    57,856 flat bins, adds straight to the state) on
+    ``chip_smoke.kde_cases`` and on sparse, detector-axis, large-state and
+    unaligned records, one launch a call, under ``chip_smoke.hold_kde``'s
+    stated tolerances."""
+    from chip_smoke import BATCH, hold_kde, kde_case, kde_cases
+    from theia_tpu_torch.response import kernel_histogram_add
+
+    case = kde_cases(2 * BATCH)[label] if label not in KDE_RECORD_CASES else kde_case(**KDE_RECORD_CASES[label])
+    before = kernel_histogram_add.launches
+    hold_kde(case, label)
+    assert kernel_histogram_add.launches == before + 1
+
+
+@pytest.mark.parametrize("label", ["one dim", "dims into the tail", "a table of 300 dims, lanes over all of them",
+                                   "offsets that wrap"])
+def test_sobol_kernel_byte_table_cases(cuda, label):
+    """``csrc/sobol.cu`` (the fold as four lookups in the index's byte
+    tables, ``random._byte_table``; the dims past the table on the Philox
+    tail) bit for bit against its plain version, width 1 and 2: every lane
+    on one dim; dims that cross the table's end; a table of 300 dims with
+    the lanes of a warp over all of them and past; offsets that wrap mod
+    2^32."""
+    from theia_tpu_torch.random import _direction_table, sobol_owen_uniform, sobol_owen_uniform_plain
+
+    n = 20_000
+    rng = np.random.default_rng(16)
+    stream = torch.as_tensor(rng.integers(-2**31, 2**31, n).astype(np.int32), device=cuda)
+    dims, offsets = 128, (0, 12_345)
+    if label == "one dim":
+        dim = torch.full((n,), 37, dtype=torch.int32, device=cuda)
+    elif label == "dims into the tail":
+        dims = 64
+        dim = torch.as_tensor(rng.integers(58, 70, n).astype(np.int32), device=cuda)
+    elif label == "a table of 300 dims, lanes over all of them":
+        dims = 300
+        dim = torch.as_tensor(rng.integers(0, 320, n).astype(np.int32), device=cuda)
+    else:
+        dim = torch.as_tensor(rng.integers(0, 74, n).astype(np.int32), device=cuda)
+        offsets = (2**32 - 1, 2**32 - 7_000, 2**31)
+    table = _direction_table(dims, cuda)
+    for offset in offsets:
+        for width in (1, 2):
+            before = sobol_owen_uniform.launches
+            got = sobol_owen_uniform(table, 0xC0FFEE, stream, dim, width, offset)
+            torch.cuda.synchronize()
+            assert sobol_owen_uniform.launches == before + 1
+            want = sobol_owen_uniform_plain(table.cpu(), 0xC0FFEE, stream.cpu(), dim.cpu(), width, offset)
+            assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32)), (label, offset, width)

@@ -1,0 +1,121 @@
+"""Public names of ``theia_tpu`` that the port must answer to as well:
+``theia_tpu_torch.render``, ``accel.anyhit_in_soup`` / ``nearest_in_soup``,
+and the JAX keywords of the MT and Woop nearest-hit queries, which the port
+accepts and ignores.
+
+Tolerances and why: the soup queries against ``theia_tpu``'s as in
+tests/test_torch_brute.py (b): JAX divides by det, the port takes a
+reciprocal and a Newton step, so t agrees to T_RTOL relative and the
+winner on all but 0.1 % of the lanes (two hits that close), any-hit
+flags likewise; the keywords change nothing, bit for bit."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+import theia_tpu.accel as jaccel
+import theia_tpu_torch
+from torch_flagship import build_flagship, icosphere
+
+torch.set_num_threads(1)
+
+CHUNK = 256
+N_RAYS = 2048
+T_RTOL = 3e-4
+
+
+def test_render_is_a_submodule():
+    import theia_tpu
+    import theia_tpu.render
+
+    assert "render" in theia_tpu_torch.__all__ and "render" in theia_tpu.__all__
+    render = theia_tpu_torch.render
+    assert render.__name__ == "theia_tpu_torch.render"
+    assert render.SceneTemplate.__name__ == "SceneTemplate"
+    assert set(render.__all__) <= set(theia_tpu.render.__all__)
+
+
+def test_accel_exports_the_soup_queries():
+    import theia_tpu_torch.accel as taccel
+    from theia_tpu_torch.ops import intersect_soup
+
+    assert taccel.anyhit_in_soup is intersect_soup.anyhit_in_soup
+    assert taccel.nearest_in_soup is intersect_soup.nearest_in_soup
+    assert sorted(taccel.__all__) == sorted(jaccel.__all__)
+    assert "anyhit_in_soup" in taccel.__all__
+
+
+@pytest.fixture(scope="module")
+def small_soup():
+    pack = build_flagship(theia_tpu_torch, icosphere(2), 64, 2, accel="brute", device="cpu").scene.pack
+    return pack.w_v0.numpy(), pack.w_e1.numpy(), pack.w_e2.numpy()
+
+
+def _aimed(n: int, seed: int):
+    """Rays from around the flagship's spheres, half aimed at their centres,
+    with finite bounds on half of them."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-1.5, 4.5, (n, 3)).astype(np.float32)
+    centres = np.asarray([[3.0, 0.0, 0.0], [0.0, 3.0, 0.0], [0.0, 0.0, 0.0]])[rng.integers(0, 3, n)]
+    aim = centres + rng.normal(scale=0.4, size=(n, 3)) - o
+    d = np.where(rng.uniform(size=(n, 1)) < 0.5, aim, rng.normal(size=(n, 3))).astype(np.float32)
+    t = np.where(rng.uniform(size=n) < 0.5, rng.uniform(0.2, 3.0, n), np.inf).astype(np.float32)
+    return o, d, t
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_accel_soup_queries_match_jax(small_soup, seed):
+    import theia_tpu_torch.accel as taccel
+
+    v0, e1, e2 = small_soup
+    o, d, t = _aimed(N_RAYS, seed)
+    jt, ji = (np.asarray(a) for a in jax.jit(lambda *a: jaccel.nearest_in_soup(*a, CHUNK))(v0, e1, e2, o, d, t))
+    tt, ti = (a.numpy() for a in taccel.nearest_in_soup(*(torch.as_tensor(a) for a in (v0, e1, e2, o, d, t))))
+    assert (ji >= 0).mean() > 0.1, "the rays hit the soup"
+    assert (ti != ji).mean() <= 1e-3
+    both = (ti >= 0) & (ji >= 0)
+    np.testing.assert_allclose(tt[both], jt[both], rtol=T_RTOL, atol=0.0)
+    jocc = np.asarray(jax.jit(lambda *a: jaccel.anyhit_in_soup(*a, CHUNK))(v0, e1, e2, o, d, jnp.asarray(t)))
+    tocc = taccel.anyhit_in_soup(*(torch.as_tensor(a) for a in (v0, e1, e2, o, d, t))).numpy()
+    assert 0.0 < jocc.mean() < 1.0
+    assert (tocc != jocc).mean() <= 1e-3
+
+
+def _rays_t(seed: int):
+    o, d, t = _aimed(N_RAYS, seed)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return tuple(torch.as_tensor(a) for a in (o, d, t))
+
+
+@pytest.mark.parametrize("keywords", [
+    dict(interpret=None, binned=None, bn=256),
+    dict(interpret=True, binned=True, bn=512),
+    dict(binned=False),
+])
+def test_nearest_triangle_mt_takes_jax_keywords(keywords):
+    from theia_tpu_torch.ops.intersect_mt import nearest_triangle_mt
+
+    pack = build_flagship(theia_tpu_torch, icosphere(2), 64, 2, accel="mt", device="cpu").scene.pack.mt
+    o, d, t = _rays_t(3)
+    want_t, want_i = nearest_triangle_mt(pack, o, d, t)
+    got_t, got_i = nearest_triangle_mt(pack, o, d, t, **keywords)
+    assert (want_i >= 0).any()
+    assert torch.equal(got_i, want_i) and torch.equal(got_t.view(torch.int32), want_t.view(torch.int32))
+
+
+@pytest.mark.parametrize("keywords", [
+    dict(precision="highest", binned=None),
+    dict(interpret=None, precision="default", binned=True),
+])
+def test_nearest_triangle_woop_takes_jax_keywords(keywords):
+    from theia_tpu_torch.ops.intersect_woop import nearest_triangle_woop
+
+    pack = build_flagship(theia_tpu_torch, icosphere(2), 64, 2, accel="woop", device="cpu").scene.pack.woop
+    o, d, t = _rays_t(4)
+    want_t, want_i = nearest_triangle_woop(pack, o, d, t)
+    got_t, got_i = nearest_triangle_woop(pack, o, d, t, **keywords)
+    assert (want_i >= 0).any()
+    assert torch.equal(got_i, want_i) and torch.equal(got_t.view(torch.int32), want_t.view(torch.int32))

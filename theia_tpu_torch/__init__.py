@@ -36,8 +36,8 @@ __version__ = "0.1.0"
 #: import, loaded lazily so importing the root stays cheap
 _SUBMODULES = {
     "accel", "callback", "camera", "component", "interop", "light", "lookup",
-    "material", "mesh", "ops", "random", "response", "scene", "target", "testing",
-    "trace",
+    "material", "mesh", "ops", "random", "render", "response", "scene", "target",
+    "testing", "trace",
 }
 
 __all__ = sorted(_SUBMODULES | {"units", "PhiloxRNG", "RNGState", "SobolQRNG", "SobolState"})

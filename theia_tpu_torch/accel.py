@@ -42,7 +42,9 @@ import torch
 from .ops.bvh_traverse import nearest_triangle_bvh, occluded_bvh
 from .ops.instanced import nearest_triangle_instanced, occluded_instanced
 from .ops.intersect_mt import nearest_triangle_mt, nearest_triangle_mt_rows
-from .ops.intersect_soup import anyhit_in_table, nearest_in_table, nearest_in_table_rows, target_in_table
+from .ops.intersect_soup import (
+    anyhit_in_soup, anyhit_in_table, nearest_in_soup, nearest_in_table, nearest_in_table_rows, target_in_table,
+)
 from .ops.intersect_woop import nearest_triangle_woop
 from .ops.math3d import cross, dot, matvec, moeller_trumbore_rowwise, normalize, sign_bit, sqrt, vec3
 from .ops.table_read import gather_rows
@@ -52,6 +54,7 @@ from .trace.core import EventResultCode
 __all__ = [
     "SurfaceHit",
     "anyhit_culled",
+    "anyhit_in_soup",
     "intersect_scene",
     "intersect_target",
     "is_visible",

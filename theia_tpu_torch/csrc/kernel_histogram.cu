@@ -17,20 +17,37 @@
 //
 // What bounds them on an H100. A lane reads 9 bytes of mask, time and
 // value (13 with ids) and evaluates nine exponentials: some 15 float
-// operations and one MUFU exp a bin, ~140 a lane, against 9 to 13 bytes,
-// so the operations bound it at the flagship's 262,144 lanes (the state,
-// 100 floats, stays on chip). The backward reads the same lanes and the
-// state's gradient, writes two floats a lane and three scalars, and does
-// some 25 operations a bin. The second limit of the record is where its
-// adds meet: a light curve's lanes fall into a hundred bins.
+// operations and one MUFU exp a bin, ~140 a lane, against 9 to 13 bytes
+// (the state, 100 floats, stays on chip). The backward reads the same lanes
+// and the state's gradient, writes two floats a lane and three scalars, and
+// does some 25 operations a bin. What the record's calls on the paths are
+// (card_measure.py kde-builds and chip_smoke.py's kde_call_stats on an
+// NVIDIA H100 80GB HBM3 at 700 W; PERF.md section 6): of a volume gradient
+// step's 21 calls of 262,144 lanes, 12 keep no lane and the others up to
+// 19 %; of a geometry step's 19 (of 262,144 or 524,288 lanes), seven keep
+// 1.8-43 % over 91-101 base bins and the others at most 0.5 %. So a call
+// is mostly its launch (1.9 us queued empty) and its reads: the adds are
+// 0.0007 ms of a volume call's 0.0048 and 0.0011 of a geometry call's
+// 0.0067. A shared float add compiles to a compare-and-swap loop
+// (ATOMS.CAST.SPIN), which retries whenever lanes of a warp meet at one
+// address: with every lane in one bin, 0.126 ms for 524,288 lanes against
+// 0.012 without the adds; no path's call looks like that.
 //
 // Design, after csrc/histogram.cu: a thread a lane in a grid of a few
 // blocks an SM with a loop; t0, binSize and the bandwidth are read once a
 // thread from device memory (no host sync); the record adds into a
 // block-private histogram in shared memory (zeroed at every launch), then
 // adds each bin whose sum is not zero to the state with one global atomic;
-// states above kSharedMaxFloats add straight to the state. The backward
-// stages the state's gradient in shared memory once a block (a few hundred
+// states above kSharedMaxFloats add straight to the state. Five other
+// designs of the record were timed on the paths' calls in turns with this
+// one and lost there (PERF.md section 6): a warp's or a block's list of kept
+// lanes for full warps (fewer warps an SM hid less latency, and full warps
+// of kept lanes with clustered times meet in the CAS loop), masks read 2 to
+// 8 lanes a load, each lane's run of bins started at its rank among the
+// lanes on its bins, a warp on one bin summed by shuffles (the match alone
+// cost a geometry call 0.0013 ms); they won on dense or one-bin records,
+// which no path makes. The backward stages the state's gradient in shared
+// memory once a block (a few hundred
 // floats on the port's paths; read from device memory past
 // kGradStageMaxFloats), writes a lane's two gradients without atomics, and
 // sums the three scalars over the block (warp shuffles, then one warp)

@@ -1,4 +1,4 @@
-// Owen-scrambled Sobol draws, one thread per lane.
+// Owen-scrambled Sobol draws, one thread per lane, folded by byte.
 //
 // Replaces theia_tpu/random.py sobol_owen_uniform (jnp code that XLA fused
 // into the tracers; with _reverse_bits32, _laine_karras,
@@ -12,14 +12,26 @@
 // word becomes a float by uniform_from_bits. __brev is the same bit
 // reversal as the mask-and-shift form.
 //
-// What bounds it on an H100: integer issue. A draw in the table is ~120
-// integer operations (the 32-step fold three a step: two shifts build the
-// bit's mask, one three-input logic op applies it; the scrambles' four
-// multiply-xor steps and the hash), against 8 bytes read and 4 written a
-// draw and the 128-byte row, which the read-only cache serves (16 KB at
-// 128 dims); so it is far from the memory roofline. Design: one thread per
-// lane, the index shuffle once a lane, `width` 2 writes the (dim, dim + 1)
-// pair of uniform2d from one launch, the row read as eight 16-byte loads.
+// What bounds it on an H100. A draw needs 8 bytes read and 4 written and,
+// folded by byte, ~21 integer operations (chip_smoke.SOBOL_TABLE_OPS), so
+// the bound of a path's call (262,144 lanes, 1-2 draws) is by bytes, ~1 us,
+// beside an empty launch's 1.9 us queued. What held the first kernel (a
+// thread a lane, the 32-word row folded bit by bit: two shifts make a bit's
+// mask, a three-input op applies it; a predicated form compiles to a test,
+// a select and an xor) back, measured on the card in turns with builds of
+// it (card_measure.py sobol-builds on an NVIDIA H100 80GB HBM3 at 700 W;
+// PERF.md section 6): the fold, 0.0036 of a flagship-brute-sobol
+// call's 0.0081 ms queued, where a warp mostly draws one dim (a call draws
+// at most 37 distinct dims, no draw past the table); and with the lanes of
+// a warp on 32 dims (2^20 random dims) the row's eight 16-byte loads, 32
+// L1 wavefronts each, 0.0643 of 0.0726 ms. Design: the fold as four
+// independent lookups by the index's bytes in XOR tables of each row
+// (random._byte_table, (dims, 4, 256) words, 4 KB a dimension, made once a
+// table on the host), ~10 integer operations; the tables of the dims a
+// warp draws stay in L1. The index shuffle once a lane, `width` 2 in one
+// thread. Rows staged in shared memory (a design measured and dropped) cost the paths'
+// short blocks more in barriers than they saved; hashing the scramble seed
+// once a call saves nothing measurable.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -53,7 +65,7 @@ __device__ __forceinline__ uint32_t hash32(uint32_t x) {
 }
 
 struct SobolArgs {
-  const uint4* dirs;  // (dims, 32) words, a row as eight uint4
+  const uint32_t* bytes;  // (dims, 4, 256) words: random._byte_table of the direction rows
   uint32_t dims, seed, shuffle_seed, seed_hash, offset;
 };
 
@@ -62,20 +74,10 @@ __device__ __forceinline__ float sobol_draw(const SobolArgs& a, uint32_t idx, ui
     const theia::PhiloxBase tail{a.seed, a.seed_hash, 0u, 0u, 0u, 0u};
     return theia::philox_draw(tail, idx, d);
   }
-  const uint4* row = a.dirs + static_cast<size_t>(d) * 8;
-  uint32_t v = 0u;
-#pragma unroll
-  for (int q = 0; q < 8; ++q) {
-    const uint4 w = __ldg(row + q);
-    const uint32_t words[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int b = 4 * q + k;
-      // all ones where bit b of the index is set
-      const uint32_t mask = static_cast<uint32_t>(static_cast<int32_t>(idx << (31 - b)) >> 31);
-      v ^= words[k] & mask;
-    }
-  }
+  // the fold a byte of the index at a time: four independent lookups
+  const uint32_t* t = a.bytes + static_cast<size_t>(d) * 1024;
+  const uint32_t v = __ldg(t + (idx & 0xffu)) ^ __ldg(t + 256 + __byte_perm(idx, 0u, 0x4441)) ^
+                     __ldg(t + 512 + __byte_perm(idx, 0u, 0x4442)) ^ __ldg(t + 768 + (idx >> 24));
   return theia::uniform_from_bits(nested_uniform_scramble(v, hash32(d ^ a.seed_hash)));
 }
 
@@ -94,13 +96,13 @@ __global__ void __launch_bounds__(kThreads) sobol_uniform(
 
 }  // namespace
 
-extern "C" int theia_sobol_uniform(const void* dirs, int dims, uint32_t seed,
+extern "C" int theia_sobol_uniform(const void* bytes, int dims, uint32_t seed,
                                    uint32_t shuffle_seed, uint32_t seed_hash,
                                    uint32_t offset, const int* stream, const int* dim,
                                    int n, int width, float* out,
                                    cudaStream_t cuda_stream) {
   if (n > 0) {
-    const SobolArgs a{static_cast<const uint4*>(dirs), static_cast<uint32_t>(dims), seed,
+    const SobolArgs a{static_cast<const uint32_t*>(bytes), static_cast<uint32_t>(dims), seed,
                       shuffle_seed, seed_hash, offset};
     sobol_uniform<<<(n + kThreads - 1) / kThreads, kThreads, 0, cuda_stream>>>(
         a, stream, dim, n, width, out);

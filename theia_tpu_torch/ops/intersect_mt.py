@@ -622,14 +622,19 @@ def scan_tables(pack) -> tuple:
 
 
 def nearest_triangle_mt(
-    pack: MTPack, origin: torch.Tensor, direction: torch.Tensor, t_max
+    pack: MTPack, origin: torch.Tensor, direction: torch.Tensor, t_max, *,
+    interpret: bool | None = None, binned: bool | None = None, bn: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Nearest-hit query: returns (t, tri_idx) with t=inf / idx=-1 on miss.
 
     ``origin``/``direction``: f32 (N, 3); ``t_max``: scalar or f32 (N,).
     A hit counts only if strictly closer than ``t_max``; the lowest index
     wins ties. CUDA tensors launch the scan (``theia_soup_nearest`` over
-    every chunk of the pack), CPU tensors run the plain version."""
+    every chunk of the pack), CPU tensors run the plain version.
+    ``interpret``, ``binned`` and ``bn``, the JAX query's Pallas mode,
+    wavefront sort and rays a grid step, are accepted and ignored, as
+    ``chunk`` is by the soup queries: the port has no sort and the scan
+    chooses its own tiling."""
     n = origin.shape[0]
     t_max = check_rays(origin, direction, t_max, _mt_tables(pack))
     if origin.device.type == "cpu":

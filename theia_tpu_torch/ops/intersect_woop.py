@@ -285,14 +285,19 @@ def _woop_reject_plain(aos: torch.Tensor, o: torch.Tensor, d: torch.Tensor, fuse
 
 
 def nearest_triangle_woop(
-    pack: WoopPack, origin: torch.Tensor, direction: torch.Tensor, t_max
+    pack: WoopPack, origin: torch.Tensor, direction: torch.Tensor, t_max, *,
+    interpret: bool | None = None, precision: str = "highest", binned: bool | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Nearest-hit query: returns (t, tri_idx) with t=inf / idx=-1 on miss.
 
     ``origin``/``direction``: f32 (N, 3); ``t_max``: scalar or f32 (N,).
     A hit counts only if strictly closer than ``t_max``; the lowest index
     wins ties. CUDA tensors launch ``theia_woop_nearest`` of
-    ``csrc/intersect_woop.cu``, CPU tensors run the plain version."""
+    ``csrc/intersect_woop.cu``, CPU tensors run the plain version.
+    ``interpret``, ``precision`` and ``binned``, the JAX query's Pallas
+    mode, transform precision and wavefront sort, are accepted and
+    ignored: the transform is float32 in a fixed order, and the port has
+    no sort."""
     n = origin.shape[0]
     n_chunks = -(-pack.n_tri // CHUNK)
     t_max = check_rays(

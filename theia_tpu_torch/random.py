@@ -394,6 +394,26 @@ def _direction_table(dims: int, device) -> torch.Tensor:
     return _SOBOL_TABLES[key]
 
 
+def _byte_table(dirs: torch.Tensor) -> torch.Tensor:
+    """The direction rows of ``dirs`` as XOR tables of the index's bytes,
+    what the kernel of ``csrc/sobol.cu`` reads: (dims, 4, 256) int32 on the
+    table's device, entry [d, k, x] the XOR of words 8k + j of row d over
+    the set bits j of x, so that a draw's fold is four lookups. Made on the
+    host from the table's words once, and kept on ``dirs`` until it is
+    edited (its version moves)."""
+    held = getattr(dirs, "_theia_byte_table", None)
+    if held is not None and held[0] == dirs._version:
+        return held[1]
+    rows = dirs.detach().cpu().numpy().view(np.uint32).reshape(-1, 4, 8)  # (dims, byte k, bit j)
+    x = np.arange(256)
+    table = np.zeros((rows.shape[0], 4, 256), dtype=np.uint32)
+    for j in range(8):
+        table ^= np.where(((x >> j) & 1)[None, None, :] == 1, rows[:, :, j, None], np.uint32(0))
+    out = torch.as_tensor(table.view(np.int32), device=dirs.device)
+    dirs._theia_byte_table = (dirs._version, out)
+    return out
+
+
 def _check_table(dirs: torch.Tensor, stream: torch.Tensor) -> None:
     if dirs.dtype != torch.int32 or dirs.dim() != 2 or dirs.shape[1] != 32 or not dirs.is_contiguous():
         raise ValueError("dirs must be a contiguous (dims, 32) int32 tensor")
@@ -464,8 +484,9 @@ def sobol_owen_uniform(
 
     ``dirs``: the (dims, 32) direction numbers as int32 bits on the lanes'
     device; ``seed``: the scramble seed (host int); ``stream``, ``dim``:
-    int32 (N,). A CUDA tensor launches the kernel of ``csrc/sobol.cu``, a
-    CPU tensor runs the plain version."""
+    int32 (N,). A CUDA tensor launches the kernel of ``csrc/sobol.cu``,
+    which reads the table's byte tables (:func:`_byte_table`, made at the
+    table's first draw), a CPU tensor runs the plain version."""
     _check_lanes(stream, dim)
     _check_table(dirs, stream)
     if stream.device.type == "cpu":
@@ -478,7 +499,7 @@ def sobol_owen_uniform(
     seed = int(seed) & _MASK
     lib = _build.library()
     err = lib.theia_sobol_uniform(
-        dirs.data_ptr(), dirs.shape[0], seed, _hash32(seed ^ _SHUFFLE_SALT), _hash32(seed),
+        _byte_table(dirs).data_ptr(), dirs.shape[0], seed, _hash32(seed ^ _SHUFFLE_SALT), _hash32(seed),
         int(offset) & _MASK, stream.data_ptr(), dim.data_ptr(), n, width, out.data_ptr(),
         _build.stream_handle(stream.device),
     )

@@ -1058,9 +1058,10 @@ def kde_builds(parent: Path | None) -> dict:
     one = chip_smoke.kde_case(n, 3, kept=1.0)
     cases["every lane in one bin"] = (one[0], torch.full_like(one[1], 252.5), *one[2:])
     cases["a detector axis (3), mask 0.5"] = chip_smoke.kde_case(n, 6, n_det=3)
+    record = kde_record_builds(parent, kde_record_cases())
     csrc, sigs = _base_sources(parent)
     base_lib = _build.build(csrc, (), sigs)
-    out = {"base": dict(csrc=str(csrc), ptxas=_kernel_ptxas(base_lib.build_log, "kde_grad"))}
+    out = {"record": record, "base": dict(csrc=str(csrc), ptxas=_kernel_ptxas(base_lib.build_log, "kde_grad"))}
     builds = {label: (patches, base_lib) for label, patches in
               _design(csrc / "kernel_histogram.cu", KDE_BUILDS).items()}
     if parent is not None:
@@ -1085,6 +1086,256 @@ def kde_builds(parent: Path | None) -> dict:
                   f"build, base)")
         for line in entry["ptxas"]:
             print("   ", line)
+    out["empty launch"] = chip_smoke.empty_launch_ms()
+    print(f"empty launch: {out['empty launch']['queued_ms']:.4f} ms queued")
+    return out
+
+
+#: the record's measurement builds, by design (as ``KDE_BUILDS``): a thread a
+#: lane in up to 8 blocks an SM, a block's shared histogram flushed with a
+#: global atomic a bin
+_KDE_ADD = "      if (add != 0.0f) atomicAdd(dst + offset + static_cast<int>(bf), add);"
+KDE_ADD_BUILDS = {
+    _KDE_ADD: {
+        "record, 2 blocks an SM": (("constexpr int kBlocksPerSm = 8;", "constexpr int kBlocksPerSm = 2;"),),
+        "record without adds (results wrong)": ((_KDE_ADD, _KDE_ADD.replace("add != 0.0f", "add != add")),),
+    },
+}
+
+
+class KdeAddCalls:
+    """The kernel histogram's record of one built library on fixed calls
+    (``chip_smoke.kde_case`` tuples, one state size), through its C entry
+    point: ``add()`` runs every call once into one state."""
+
+    def __init__(self, lib, calls) -> None:
+        stream = torch.cuda.current_stream().cuda_stream
+        self.calls = calls  # keeps the tensors alive
+        self.state = torch.zeros(calls[0][6] * (calls[0][9] or 1), device="cuda")
+        self.fn = lib.theia_kde_add
+        self.args = [(value.data_ptr(), time_.data_ptr(), mask.data_ptr(), _ptr(oid), t0.data_ptr(), bs.data_ptr(),
+                      bw.data_ptr(), time_.shape[0], bins, n_det or 0, support, self.state.data_ptr(), stream)
+                     for value, time_, mask, t0, bs, bw, bins, support, oid, n_det in calls]
+
+    def add(self):
+        for args in self.args:
+            _build.check(self.fn(*args), "theia_kde_add")
+
+    def result(self):
+        """The state after one ``add()`` from zero."""
+        self.state.zero_()
+        self.add()
+        torch.cuda.synchronize()
+        out = self.state.clone()
+        self.state.zero_()
+        return out
+
+
+def _turns(base, build, name: str, launches: int) -> dict:
+    """``name`` of ``base`` and ``build`` (each ``launches`` launches) timed
+    base, build, build, base, as called and queued: ms a launch."""
+    order = (base, build, build, base)
+    ms = [chip_smoke.cuda_ms(getattr(c, name), max(1, 200 // launches)) / launches for c in order]
+    queued = [chip_smoke.cuda_ms_queued(getattr(c, name), max(1, 400 // launches)) / launches for c in order]
+    return dict(base_ms=[ms[0], ms[3]], build_ms=[ms[1], ms[2]], base_queued_ms=[queued[0], queued[3]],
+                build_queued_ms=[queued[1], queued[2]])
+
+
+def _print_turns(what: str, label: str, t: dict) -> None:
+    print(f"{what}, {label}: base {t['base_queued_ms'][0]:.4f} / {t['base_queued_ms'][1]:.4f} ms, build "
+          f"{t['build_queued_ms'][0]:.4f} / {t['build_queued_ms'][1]:.4f} ms a launch queued; as called base "
+          f"{t['base_ms'][0]:.4f} / {t['base_ms'][1]:.4f}, build {t['build_ms'][0]:.4f} / {t['build_ms'][1]:.4f} "
+          f"(base, build, build, base)")
+
+
+def _builds(parent: Path | None, source: str, designs: dict) -> dict:
+    """label -> (base library, library, patches, which of the two are the
+    parent's kernels) of a ``*-builds`` mode: with ``parent`` (an earlier
+    commit's ``csrc``, the same C entry points) first the package against
+    the parent's kernels and the measurement builds of the parent's design
+    against the parent ("parent, ..."), then each measurement build of the
+    package's design (``designs``, keyed by a line of ``source``) against
+    the package."""
+    package = _build.library()
+    out = {}
+    if parent is not None:
+        csrc, sigs = _base_sources(parent)
+        parent_lib = _build.build(csrc, (), sigs)
+        out["package against the parent"] = (parent_lib, package, None, (True, False))
+        text = (csrc / source).read_text()
+        for marker, builds in designs.items():
+            if marker in text and marker not in (_build.CSRC / source).read_text():
+                for label, patches in builds.items():
+                    lib = patched_build(f"parent, {label}", patches, source, csrc, sigs)
+                    out[f"parent, {label}"] = (parent_lib, lib, patches, (True, True))
+    for label, patches in _design(_build.CSRC / source, designs).items():
+        out[label] = (package, patched_build(label, patches, source), patches, (False, False))
+    return out
+
+
+def kde_record_cases() -> dict:
+    """The record's timing cases: label -> calls. The synthetic ones at N =
+    524,288 (mask 0.5 as ``chip_smoke.check_kernel_histogram``'s main case,
+    ``chip_smoke.kde_cases``, 1 lane in 1000 kept), the large-state case,
+    and the recorded calls of one step of each gradient path
+    (``chip_smoke.kde_path_calls``), whose ``kde_call_stats`` are printed."""
+    n = 2 * chip_smoke.BATCH
+    cases = {"synthetic, mask 0.5": [chip_smoke.kde_case(n, 3)]}
+    cases.update({label: [case] for label, case in chip_smoke.kde_cases(n).items()})
+    cases["1 lane in 1000 kept"] = [chip_smoke.kde_case(n, 24, kept=1e-3)]
+    cases["a state past shared memory (64,000 flat bins)"] = [chip_smoke.kde_case(100_000, 9, bins=1000, n_det=64)]
+    for label, calls in chip_smoke.kde_path_calls(icosphere(3)).items():
+        cases[label] = calls
+        stats = [chip_smoke.kde_call_stats(c) for c in calls]
+        print(f"{label}: {len(calls)} calls a step, lanes {sorted({s['lanes'] for s in stats})}")
+        for key, form in (("unmasked", ".4f"), ("kept", ".4f"), ("distinct_bases", "d"), ("top10_share", ".3f")):
+            print(f"    {key} of each call: " + " ".join(format(st[key], form) for st in stats))
+    return cases
+
+
+def kde_record_builds(parent: Path | None, cases: dict) -> dict:
+    """The record on ``cases``: with ``parent`` (an earlier commit's
+    ``csrc``) the package's kernels in turns with the parent's (parent,
+    package, package, parent), then each measurement build of the
+    package's design (``KDE_ADD_BUILDS``) in turns with the package; the
+    builds that keep the results hold ``chip_smoke.hold_kde``'s record
+    tolerance (rtol 1e-4 a bin) against their base. Each library's SASS of
+    ``kde_add``."""
+    package = _build.library()
+    out = {"package": dict(sass=chip_smoke.sass_report(package, ("kde_add",)),
+                           ptxas=_kernel_ptxas(package.build_log, "kde_add"))}
+    for label, (base_lib, lib, patches, _) in _builds(parent, "kernel_histogram.cu", KDE_ADD_BUILDS).items():
+        entry = out[label] = dict(patches=patches, sass=chip_smoke.sass_report(lib, ("kde_add",)),
+                                  ptxas=_kernel_ptxas(lib.build_log, "kde_add"))
+        for name, calls in cases.items():
+            base, other = KdeAddCalls(base_lib, calls), KdeAddCalls(lib, calls)
+            want, got = base.result(), other.result()
+            if not label.endswith("(results wrong)"):
+                scale = float(want.abs().max()) or 1.0
+                torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6 * scale, msg=lambda m: f"{label}, {name}: {m}")
+            t = entry[name] = _turns(base, other, "add", len(calls))
+            _print_turns(f"kde record on {name} ({len(calls)} calls)", label, t)
+        for line in entry["ptxas"]:
+            print("   ", line)
+    out["empty launch"] = chip_smoke.empty_launch_ms()
+    print(f"empty launch: {out['empty launch']['queued_ms']:.4f} ms queued")
+    return out
+
+
+#: the Sobol draw's measurement builds, by design (as ``KDE_BUILDS``). The
+#: first: a thread a lane, the row read as eight 16-byte loads, each bit's
+#: mask made with two shifts
+_SOBOL_FIRST_FOLD = ("      const uint32_t mask = static_cast<uint32_t>(static_cast<int32_t>(idx << (31 - b)) >> 31);\n"
+                     "      v ^= words[k] & mask;")
+SOBOL_BUILDS = {
+    _SOBOL_FIRST_FOLD: {
+        "predicated fold": ((_SOBOL_FIRST_FOLD, "      if (idx & (1u << b)) v ^= words[k];"),),
+        "scramble seed not hashed (results wrong)": (("hash32(d ^ a.seed_hash)", "(d ^ a.seed_hash)"),),
+        "no fold (results wrong)": (("  for (int q = 0; q < 8; ++q) {\n    const uint4 w",
+                                     "  for (int q = 0; q < 0; ++q) {\n    const uint4 w"),),
+    },
+    # the current one: the fold as four lookups in the index's byte tables (random._byte_table)
+    "  // the fold a byte of the index at a time: four independent lookups": {
+        "scramble seed hashed once a call (results wrong)": (("hash32(d ^ a.seed_hash)", "(d ^ a.seed_hash)"),),
+        "no lookups (results wrong)": ((
+            "  const uint32_t v = __ldg(t + (idx & 0xffu)) ^ __ldg(t + 256 + __byte_perm(idx, 0u, 0x4441)) ^\n"
+            "                     __ldg(t + 512 + __byte_perm(idx, 0u, 0x4442)) ^ __ldg(t + 768 + (idx >> 24));",
+            "  const uint32_t v = idx ^ static_cast<uint32_t>(reinterpret_cast<uintptr_t>(t));"),),
+    },
+}
+
+
+class SobolCalls:
+    """The Sobol draw of one built library on fixed calls ((table, seed,
+    stream, dim, width, offset) tuples, as ``chip_smoke.record_sobol_calls``
+    makes them), through its C entry point: ``draw()`` runs every call once.
+    ``rows``: the library's kernel reads the direction rows (the kernels
+    before the byte tables), not ``random._byte_table``."""
+
+    def __init__(self, lib, calls, rows: bool = False) -> None:
+        from theia_tpu_torch.random import _MASK, _SHUFFLE_SALT, _byte_table, _hash32
+
+        stream = torch.cuda.current_stream().cuda_stream
+        self.calls = calls
+        self.outs = [torch.empty((c[2].shape[0], c[4]), device="cuda") for c in calls]
+        self.fn = lib.theia_sobol_uniform
+        self.args = []
+        for (dirs, seed, lanes, dim, width, offset), out in zip(calls, self.outs):
+            seed = int(seed) & _MASK
+            self.args.append(((dirs if rows else _byte_table(dirs)).data_ptr(), dirs.shape[0], seed, _hash32(seed ^ _SHUFFLE_SALT), _hash32(seed),
+                              int(offset) & _MASK, lanes.data_ptr(), dim.data_ptr(), lanes.shape[0], width,
+                              out.data_ptr(), stream))
+
+    def draw(self):
+        for args in self.args:
+            _build.check(self.fn(*args), "theia_sobol_uniform")
+
+    def result(self):
+        self.draw()
+        torch.cuda.synchronize()
+        return [o.clone() for o in self.outs]
+
+
+def sobol_cases() -> dict:
+    """The Sobol draw's timing cases: label -> calls. ``chip_smoke.check_sobol``'s
+    2^20 lanes x 2 draws of the flagship's generator over the path's 74
+    dims and of example 11's over 160 (the Philox tail), and one batch's
+    recorded calls of flagship-brute-sobol and flagship-volume-sobol
+    (262,144 lanes), with their ``chip_smoke.sobol_call_stats``."""
+    import warnings
+
+    from theia_tpu_torch.random import _direction_table
+
+    n = 1 << 20
+    rng = np.random.default_rng(3)
+    lanes = torch.arange(n, dtype=torch.int32, device="cuda")
+    cases = {}
+    for label, gen, top in (("synthetic, 2^20 x 2, 128 dims over 74", chip_smoke.FLAGSHIP_SOBOL, 74),
+                            ("synthetic, 2^20 x 2, 64 dims over 160", chip_smoke.EXAMPLE_11_SOBOL, 160)):
+        dim = torch.as_tensor(rng.integers(0, top, size=n).astype(np.int32), device="cuda")
+        cases[label] = [(_direction_table(gen["dims"], "cuda"), gen["seed"], lanes, dim, 2, n)]
+    mesh = icosphere(3)
+    brute = build_flagship(theia_tpu_torch, mesh, chip_smoke.BATCH, chip_smoke.MAX_PATH, accel="auto", device="cuda",
+                           rng=chip_smoke.sobol(chip_smoke.FLAGSHIP_SOBOL))
+    cases["flagship-brute-sobol"] = chip_smoke.record_sobol_calls(brute)
+    del brute
+    with warnings.catch_warnings():  # its path's budget of 72 dims is past example 11's 64
+        warnings.simplefilter("ignore")
+        volume = build_volume_flagship(theia_tpu_torch, chip_smoke.BATCH, "cuda",
+                                       rng=chip_smoke.sobol(chip_smoke.EXAMPLE_11_SOBOL))
+    cases["flagship-volume-sobol"] = chip_smoke.record_sobol_calls(volume)
+    del volume
+    for label in ("flagship-brute-sobol", "flagship-volume-sobol"):
+        calls = cases[label]
+        print(f"{label}: {chip_smoke.sobol_call_stats(calls, calls[0][0].shape[0])}")
+    return cases
+
+
+def sobol_builds(parent: Path | None) -> dict:
+    """The Sobol draw on ``sobol_cases``, as ``kde_record_builds`` times the
+    record: with ``parent`` the package's kernel in turns with the
+    parent's, then the measurement builds of the package's design
+    (``SOBOL_BUILDS``) in turns with the package; results held bit for bit
+    against their base where the build keeps them. Each library's SASS of
+    ``sobol_uniform``."""
+    cases = sobol_cases()
+    package = _build.library()
+    out = {"package": dict(sass=chip_smoke.sass_report(package, ("sobol_uniform",)),
+                           ptxas=_kernel_ptxas(package.build_log, "sobol_uniform"))}
+    for label, (base_lib, lib, patches, (base_rows, rows)) in _builds(parent, "sobol.cu", SOBOL_BUILDS).items():
+        entry = out[label] = dict(patches=patches, sass=chip_smoke.sass_report(lib, ("sobol_uniform",)),
+                                  ptxas=_kernel_ptxas(lib.build_log, "sobol_uniform"))
+        for name, calls in cases.items():
+            base, other = SobolCalls(base_lib, calls, base_rows), SobolCalls(lib, calls, rows)
+            if not label.endswith("(results wrong)"):
+                for a, b in zip(other.result(), base.result()):
+                    assert torch.equal(a.view(torch.int32), b.view(torch.int32)), (label, name)
+            t = entry[name] = _turns(base, other, "draw", len(calls))
+            _print_turns(f"sobol on {name} ({len(calls)} calls)", label, t)
+        for line in entry["ptxas"]:
+            print("   ", line)
+        for fn, info in entry["sass"].items():
+            print(f"    sass {fn[:60]}: {info['instructions']} instructions, {info['opcodes']}")
     out["empty launch"] = chip_smoke.empty_launch_ms()
     print(f"empty launch: {out['empty launch']['queued_ms']:.4f} ms queued")
     return out
@@ -1504,6 +1755,8 @@ def main(argv: list[str]) -> int:
         result = (read_grad_builds if mode == "read-grad-builds" else kde_builds)(parent)
     elif mode == "read-grad-live":
         result = read_grad_live()
+    elif mode == "sobol-builds" and len(argv) <= 3:
+        result = sobol_builds(Path(argv[2]).resolve() if len(argv) == 3 else None)
     elif mode == "walk-builds" and len(argv) <= 3:
         result = walk_builds(Path(argv[2]).resolve() if len(argv) == 3 else None)
     elif mode == "profile":
