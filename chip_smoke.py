@@ -198,6 +198,23 @@ Phases, one line each, any failure raises and exits non-zero:
    the same call; one any-hit and one record a camera vertex; one camera
    vertex's connection step profiled alone), then one polarized
    bidirectional batch against the unpolarized one;
+3m. (``cherenkov_runs``) Cherenkov light at 262,144 lanes, in the same
+   measures: cherenkov-muon and cherenkov-cascade (flagship-volume's tracer
+   with ``tests/test_muon_backward.py``'s 1 TeV muon, or the 1 TeV EM
+   cascade of ``createParamsFromParticle``, onto its detector sphere:
+   one ``sample_gamma`` a cascade batch), cascade-backward and
+   track-backward (``tests/test_trace_backward.py``'s volume backward
+   tracer with the cascade, 3 ``sample_gamma`` a batch, and with the
+   track's 3 vertices and the same line in 256 segments, 3
+   ``track_backward_sample`` a batch: their light curves within 5 % of
+   each other and of the simple source's on the line, the peaks within a
+   bin), flagship-brute-disk-guide (the brute-force flagship with a
+   ``DiskTargetGuide``); then kernels K1 (``csrc/gamma.cu``) and K2
+   (``csrc/cherenkov_track.cu``) bit for bit against their plain versions
+   on the runs' recorded calls and on synthetic 2^20-lane calls (K1 with
+   both generators and the edge lanes alpha 0 and -1, R = 64; K2 on 2 and
+   256 segments, and its gradient), timed as called and queued a call,
+   with their bounds and, for K1, ``torch._standard_gamma`` as a yardstick;
 4. the port on the CPU against the port on the card at batch 4096: the
    unpolarized ``mt`` flagship, the brute-force flagship, the polarized
    ``woop`` flagship with the source off centre, the volume flagship
@@ -206,7 +223,8 @@ Phases, one line each, any failure raises and exits non-zero:
    ``StoreTimeHitResponse`` and flagship-array's ``HitRecorder`` (the same
    detections, times within 1e-5), flagship-bvh, the four runs of 3k
    (the volume backward run's ``HitRecorder`` as flagship-array's) and
-   those of 3l (scene-backward on ``accel="auto"`` and ``"mt"``);
+   those of 3l (scene-backward on ``accel="auto"`` and ``"mt"``) and of
+   3m (the simple source's run aside);
    then the gradients at batch 2048, path length 3: the polarized
    medium gradient, the volume steps of 3h, the geometry step of 3i and
    3l's index step, each by ``PERF.md``'s gradient agreement.
@@ -2574,7 +2592,7 @@ def profile_step(step, watch=()) -> dict:
         by_name.setdefault(e.name, []).append(e.device_time if hasattr(e, "device_time") else e.cuda_time)
     item = lambda n, t: dict(name=n, ms=sum(t) / 1e3, count=len(t))
     top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:12]
-    mine = ("histogram", "theia::scan", "philox", "sobol", "kde_", "read_", "::gather", "_walk")
+    mine = ("histogram", "theia::scan", "philox", "sobol", "kde_", "read_", "::gather", "_walk", "gamma", "track_sample")
     own = sorted((n, t) for n, t in by_name.items() if any(k in n for k in mine))
     watched = {w: [item(n, t) for n, t in by_name.items() if w in n] for w in watch}
     kinds = {
@@ -3444,6 +3462,426 @@ def scene_camera_runs(mesh, wrappers, grad_wrappers, batch: int = BATCH, device=
     return runs
 
 
+#: float32 operations of the gamma kernel (csrc/gamma.cu), from its
+#: arithmetic: a lane's set-up (the small test, max, reciprocal, pow and its
+#: select, a_eff's add and select, 2 a - 1, sqrt, b, c) and its end (the
+#: product with the scale) 12; a round (the clip 2, 1 - u1, the quotient,
+#: log, / lam, exp, * a_eff, c v, + b, - cand, u1 u1 u2, log, the compare) 15.
+GAMMA_LANE_FLOP, GAMMA_ROUND_FLOP = 12, 15
+#: int32 operations of Philox's key set-up, which a lane's draws share (its
+#: key is key + stream for every dim): the 64-bit add with its carries 5 and
+#: the round keys' adds 20, that is PHILOX_SHARED_OPS less the dim + 1
+PHILOX_KEY_OPS = PHILOX_SHARED_OPS - 1
+#: float32 operations of a (lane, segment) pair of the track's backward
+#: sample (csrc/cherenkov_track.cu), at the least form of each step, a
+#: square root or a division counted as one. Every lane: mu 8, the
+#: perpendicular's vector 9, its length 7, mu - cot d 2, the segment test 3,
+#: the contribution ft / d and its select 2, the sum 1. A lane on a surface
+#: (a nonzero normal) adds the point 6, the direction to the observer 3 + 7
+#: + 3, the cosine 5 + 1 and its product 1; a volume point's cosine is 1.
+TRACK_PAIR_FLOP, TRACK_SURFACE_FLOP = 32, 26
+#: the second pass's compare of the running sum with u total, a pair; and
+#: the chosen candidate's outputs, once a lane: its time 5 and, for a
+#: volume point (whose pairs did not form them), the point 6 and the
+#: direction 13
+TRACK_COUNT_FLOP, TRACK_TIME_FLOP, TRACK_POINT_FLOP = 1, 5, 19
+#: the synthetic gamma case's alphas, a lane each in turn (the cascades'
+#: alpha_long runs from 1.6 at 1 GeV to 10.8 at 1 PeV; 6.38 for phase 3m's
+#: 1 TeV EM cascade), and
+#: its edge lanes: alpha 0 gives 0 (its scale u^(1/1e-6) underflows, as in
+#: theia_tpu) and alpha -1 never accepts: NaN after 64 rounds, so R = 64
+GAMMA_SWEEP = (0.5, 1.0, 4.0, 20.0)
+GAMMA_EDGES = (0.0, -1.0)
+
+
+def _copy_rng(rng):
+    return dataclasses.replace(rng, stream=rng.stream.clone(), dim=rng.dim.clone())
+
+
+def record_gamma_calls(tracer):
+    """(alpha, rng) of every ``sample_gamma`` call of one batch of ``tracer``."""
+    from theia_tpu_torch.ops import gamma
+
+    keep = lambda alpha, rng: (alpha.detach().clone() if hasattr(alpha, "detach") else alpha, _copy_rng(rng))
+    return record_calls(tracer, gamma, ("sample_gamma",), keep)
+
+
+def record_track_calls(tracer):
+    """The six tensors of every ``track_backward_sample`` call of one batch."""
+    from theia_tpu_torch.ops import cherenkov_track
+
+    keep = lambda *args: tuple(a.detach().clone() for a in args)
+    return record_calls(tracer, cherenkov_track, ("track_backward_sample",), keep)
+
+
+def same_bits(a, b) -> int:
+    """Lanes whose float32 bits differ, NaN equal to NaN."""
+    import torch
+
+    nan = torch.isnan(a) & torch.isnan(b)
+    return int(((a.contiguous().view(torch.int32) != b.contiguous().view(torch.int32)) & ~nan).sum())
+
+
+def gamma_int_ops(rng, rounds) -> int:
+    """int32 operations of the draws of one ``sample_gamma`` call whose
+    lanes ran ``rounds`` each (1 + 2 rounds draws at dims dim, dim + 1, ...):
+    a draw after a lane's first forms its dim (1). Philox: the key once a
+    lane (``PHILOX_KEY_OPS``) and ``PHILOX_DRAW_OPS`` a draw. Sobol: the
+    lane's index (``SOBOL_LANE_OPS``), a draw in the table
+    ``SOBOL_TABLE_OPS``, the seed of each dimension drawn in the table once
+    (``SOBOL_DIM_OPS``), and a draw past the table its tail test and
+    Philox's draw, with Philox's key once a lane that reaches the tail."""
+    import torch
+
+    from theia_tpu_torch.random import SobolState
+
+    lane_draws = 1 + 2 * rounds.to(torch.int64)
+    n, draws = lane_draws.numel(), int(lane_draws.sum())
+    if not isinstance(rng, SobolState):
+        return n * PHILOX_KEY_OPS + (draws - n) + draws * PHILOX_DRAW_OPS
+    table = rng.dirs.shape[0]
+    first = rng.dim.to(torch.int64)
+    end = first + lane_draws
+    tail = torch.clamp_min(end - torch.clamp_min(first, table), 0)
+    in_table = int((lane_draws - tail).sum())
+    rows = sum(bool(((first <= j) & (j < end)).any()) for j in range(table))
+    return (n * SOBOL_LANE_OPS + (draws - n) + in_table * SOBOL_TABLE_OPS + rows * SOBOL_DIM_OPS
+            + int(tail.sum()) * (1 + PHILOX_DRAW_OPS) + int((tail > 0).sum()) * PHILOX_KEY_OPS)
+
+
+def hold_gamma(alpha, rng, label) -> dict:
+    """``sample_gamma``'s kernel against its plain version on the card on
+    one call: x bit for bit (NaN lanes alike) and every lane's new dim;
+    returns R, the lanes' rounds and the call's bound."""
+    import torch
+
+    from theia_tpu_torch.ops.gamma import sample_gamma, sample_gamma_plain
+
+    x, got = sample_gamma(alpha, rng)
+    torch.cuda.synchronize()
+    stats = {}
+    y, want = sample_gamma_plain(alpha, rng, stats)
+    differ = same_bits(x, y)
+    assert differ == 0 and torch.equal(got.dim, want.dim), f"sample_gamma on {label}: {differ} lanes differ"
+    n = x.shape[0]
+    rounds = stats["rounds"]
+    r_total = int(rounds.sum())
+    per_lane = torch.as_tensor(alpha).numel() != 1
+    b = bound(n * (12 + 4 * per_lane) + 4, n * GAMMA_LANE_FLOP + r_total * GAMMA_ROUND_FLOP)
+    int_ms = gamma_int_ops(rng, rounds) / PEAK_I32 * 1e3
+    if int_ms > b["bound_ms"]:
+        b = dict(bound_ms=int_ms, bound_by="operations")
+    R = int(got.dim[0] - rng.dim[0] - 1) // 2 if n else 0
+    return dict(b, lanes=n, R=R, mean_rounds=r_total / max(n, 1), nan_lanes=int(torch.isnan(x).sum()), differ=0)
+
+
+def gamma_cases(n: int) -> dict:
+    """The synthetic calls of ``sample_gamma``: ``n`` lanes sweeping
+    ``GAMMA_SWEEP`` with the ``GAMMA_EDGES`` lanes first, drawn by Philox
+    (a key and counter with carries, lanes at dims 0-9) and by the
+    flagship's SobolQRNG (128 dims, the rounds of the edge lane past the
+    table into its Philox tail)."""
+    import torch
+
+    from theia_tpu_torch.random import PhiloxRNG, SobolQRNG
+
+    lanes = torch.arange(n, dtype=torch.int32, device="cuda")
+    alpha = torch.tensor(GAMMA_SWEEP, device="cuda")[lanes % len(GAMMA_SWEEP)]
+    alpha[: len(GAMMA_EDGES)] = torch.tensor(GAMMA_EDGES, device="cuda")
+    philox = PhiloxRNG(key=(1 << 64) - 5, offset=(1 << 30) - 3).state(lanes)
+    philox = dataclasses.replace(philox, dim=(lanes * 7) % 10)
+    return {"philox": (alpha, philox), "sobol": (alpha, SobolQRNG(**FLAGSHIP_SOBOL).state(lanes))}
+
+
+def check_gamma(report, paths: dict) -> None:
+    """Kernel K1 (``sample_gamma``, ``csrc/gamma.cu``) against its plain
+    version, bit for bit: the synthetic 2^20-lane calls of both generators
+    (``gamma_cases``) and each path's recorded calls (``paths``: label ->
+    calls); then the paths' calls replayed, as called and queued (the
+    kernel's row: the mean a call), beside the plain version, the bound at
+    the lanes' own rounds and ``torch._standard_gamma`` on the same alphas
+    (a yardstick: it draws other numbers, from torch's generator)."""
+    import torch
+
+    from theia_tpu_torch.ops.gamma import sample_gamma, sample_gamma_plain
+
+    synthetic = {}
+    for gen, (alpha, rng) in gamma_cases(1 << 20).items():
+        info = synthetic[gen] = hold_gamma(alpha, rng, f"2^20 lanes, {gen}")
+        assert info["R"] == 64 and info["nan_lanes"] == 1, info
+        print(f"kernel sample_gamma, 2^20 lanes ({gen}; alphas {GAMMA_SWEEP}, edge lanes {GAMMA_EDGES}): bit-exact, "
+              f"R = {info['R']}, mean rounds {info['mean_rounds']:.4f}, {info['nan_lanes']} NaN lane")
+    alpha, rng = gamma_cases(1 << 20)["philox"]
+    call = lambda: sample_gamma(alpha, rng)
+    synthetic.update(ms=cuda_ms(call, 20), queued_ms=cuda_ms_queued(call, 20),
+                     plain_ms=cuda_ms(lambda: sample_gamma_plain(alpha, rng), 1),
+                     library_ms=cuda_ms(lambda: torch._standard_gamma(alpha.clamp_min(1e-6)), 20), **synthetic["philox"])
+    rows, every = {}, []
+    for label, calls in paths.items():
+        held = [hold_gamma(a, r, label) for a, r in calls]
+
+        def replay(fn=sample_gamma):
+            for a, r in calls:
+                fn(a, r)
+
+        n = len(calls)
+        dense = [torch.broadcast_to(torch.as_tensor(a, device="cuda"), r.stream.shape).contiguous() for a, r in calls]
+        rows[label] = dict(
+            calls=n, lanes=sorted({h["lanes"] for h in held}), R=[h["R"] for h in held],
+            mean_rounds=sum(h["mean_rounds"] for h in held) / n, ms=cuda_ms(replay, 10) / n,
+            queued_ms=cuda_ms_queued(replay, max(1, 300 // n)) / n,
+            plain_ms=cuda_ms(lambda: replay(sample_gamma_plain), 1) / n,
+            bound_ms=sum(h["bound_ms"] for h in held) / n, bound_by=held[0]["bound_by"],
+            library_ms=cuda_ms(lambda: [torch._standard_gamma(a) for a in dense], 10) / n,
+        )
+        every += held
+        r = rows[label]
+        print(f"kernel sample_gamma on {label}'s inputs: {n} calls a batch ({r['lanes']} lanes, R {r['R']}, mean "
+              f"rounds {r['mean_rounds']:.4f}), bit-exact; {r['ms']:.4f} ms a call ({r['queued_ms']:.4f} queued), plain "
+              f"{r['plain_ms']:.4f} ms; bound {r['bound_ms']:.5f} ms by {r['bound_by']}, share {r['bound_ms'] / r['queued_ms']:.3f} "
+              f"queued; torch._standard_gamma (yardstick: other numbers) {r['library_ms']:.4f} ms")
+    n = sum(r["calls"] for r in rows.values())
+    mean = lambda key: sum(r[key] * r["calls"] for r in rows.values()) / n
+    report.update(max_abs_err=0.0, ms=mean("ms"), queued_ms=mean("queued_ms"), plain_ms=mean("plain_ms"),
+                  bound_ms=sum(h["bound_ms"] for h in every) / n, bound_by=every[0]["bound_by"],
+                  library_ms=mean("library_ms"), library="torch._standard_gamma on the same alphas, a yardstick: "
+                  "it draws other numbers", path_calls=n, paths=rows, synthetic=synthetic)
+    print(f"kernel sample_gamma synthetic (2^20 lanes, Philox): {synthetic['ms']:.4f} ms ({synthetic['queued_ms']:.4f} "
+          f"queued), plain {synthetic['plain_ms']:.4f} ms, bound {synthetic['bound_ms']:.5f} ms by "
+          f"{synthetic['bound_by']}, torch._standard_gamma {synthetic['library_ms']:.4f} ms")
+
+
+def track_case(n: int, segments: int, seed: int):
+    """A synthetic call of ``track_backward_sample``: the straight line of
+    the track run cut into ``segments`` (and bent after its middle),
+    observers around it, half of them on a surface, photon-count factors
+    and cotangents at n 1.33-1.36, uniforms."""
+    import numpy as np
+    import torch
+
+    from theia_tpu_torch.light import _ft_factor
+    from theia_tpu_torch.ops.cherenkov_track import segment_table
+
+    rs = np.random.default_rng(seed)
+    x = np.linspace(-50.0, 50.0, segments + 1)
+    verts = np.stack([x, np.where(x > 0, 0.3 * x, 0.0), 0 * x, x / 0.3], axis=1).astype(np.float32)
+    obs = rs.uniform(-60.0, 60.0, (n, 3)).astype(np.float32)
+    nrm = rs.normal(size=(n, 3)).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    nrm[: n // 2] = 0.0
+    dev = lambda a: torch.as_tensor(a, device="cuda")
+    n_refr, lam = dev(rs.uniform(1.33, 1.36, n).astype(np.float32)), dev(rs.uniform(420.0, 480.0, n).astype(np.float32))
+    cos = 1.0 / n_refr
+    cot = cos / torch.clamp_min(torch.sqrt(1.0 - cos * cos), 1e-7)
+    return (segment_table(dev(verts)), dev(obs), dev(nrm), _ft_factor(True, n_refr, lam), cot,
+            dev(rs.uniform(size=n).astype(np.float32)))
+
+
+def hold_track(args, label) -> dict:
+    """``track_backward_sample``'s kernel against its plain version on the
+    card on one call, bit for bit in each output; returns its bound."""
+    import torch
+
+    from theia_tpu_torch.ops.cherenkov_track import track_backward_sample, track_backward_sample_plain
+
+    got = track_backward_sample(*args)
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        want = track_backward_sample_plain(*args)
+    differ = {name: same_bits(g, w) if g.dtype == torch.float32 else int((g != w).sum())
+              for name, g, w in zip(("total", "position", "direction", "time", "k"), got, want)}
+    assert not any(differ.values()), f"track_backward_sample on {label}: {differ}"
+    n, segments = args[1].shape[0], args[0].shape[0]
+    flop, full = track_flop(args[2], got[4], segments)
+    return dict(bound(n * (36 + 36) + segments * 36, flop), lanes=n, segments=segments,
+                live=float((got[0] > 0).double().mean()), two_full_passes_ms=full / PEAK_F32 * 1e3)
+
+
+def track_flop(normal, k, segments: int) -> tuple[int, int]:
+    """float32 operations that one ``track_backward_sample`` call needs,
+    from its lanes' normals and chosen segments ``k``: the first pass over
+    every segment; the second pass, whose running sum only grows, up to and
+    including segment k, where it first reaches u total; the chosen
+    candidate's outputs. Second, the count with both passes over every
+    segment, as the kernel runs them."""
+    import torch
+
+    surface = (normal * normal).sum(1) != 0
+    n, n_surface = normal.shape[0], int(surface.sum())
+    upto = k.to(torch.int64) + 1
+    pair = n * TRACK_PAIR_FLOP + n_surface * TRACK_SURFACE_FLOP
+    ends = n * TRACK_TIME_FLOP + (n - n_surface) * TRACK_POINT_FLOP
+    second = int(upto.sum()) * (TRACK_PAIR_FLOP + TRACK_COUNT_FLOP) + int(upto[surface].sum()) * TRACK_SURFACE_FLOP
+    return segments * pair + second + ends, segments * (2 * pair + n * TRACK_COUNT_FLOP) + ends
+
+
+def track_gradient_rel(args) -> float:
+    """The gradient of ``track_backward_sample`` on the card (the kernel's
+    forward, the plain loop recomputed in its backward) against the CPU
+    port's on the same inputs (the plain loop, which
+    tests/test_torch_cherenkov.py holds to ``jax.grad``): the chosen
+    segments equal, then the largest difference in each input's gradient
+    over that gradient's largest entry, the worst of the five."""
+    import torch
+
+    from theia_tpu_torch.ops.cherenkov_track import track_backward_sample
+
+    grads, chosen = [], []
+    for device in ("cuda", "cpu"):
+        x = [a.detach().to(device).requires_grad_(i < 5) for i, a in enumerate(args)]
+        out = track_backward_sample(*x)
+        loss = out[0].sum() + out[1].sum() + out[2].sum() + out[3].sum()
+        grads.append([g.cpu() for g in torch.autograd.grad(loss, x[:5])])
+        chosen.append(out[4].cpu())
+    assert torch.equal(*chosen), f"k differs on {int((chosen[0] != chosen[1]).sum())} lanes between card and CPU"
+    return max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30)) for a, b in zip(*grads))
+
+
+def check_track(report, paths: dict) -> None:
+    """Kernel K2 (``track_backward_sample``, ``csrc/cherenkov_track.cu``)
+    against its plain version, bit for bit: synthetic 2^20-lane calls on
+    2 and 256 segments and each path's recorded calls (``paths``); its
+    gradient on the card against the CPU port's on a small call
+    (``track_gradient_rel``); then the paths' calls
+    replayed as called and queued (the kernel's row: the mean a call of
+    the 256-segment run; the 3-vertex run's beside it), beside the plain
+    version and the bound. No library call computes it."""
+    import torch
+
+    from theia_tpu_torch.ops.cherenkov_track import track_backward_sample, track_backward_sample_plain
+
+    synthetic = {}
+    for segments in (2, 256):
+        args = track_case(1 << 20, segments, segments)
+        info = synthetic[f"{segments} segments"] = hold_track(args, f"2^20 lanes, {segments} segments")
+        call = lambda: track_backward_sample(*args)
+        info.update(ms=cuda_ms(call, 10), queued_ms=cuda_ms_queued(call, 10))
+        print(f"kernel track_backward_sample, 2^20 lanes, {segments} segments: bit-exact ({info['live']:.3f} of the "
+              f"lanes lit); {info['ms']:.4f} ms ({info['queued_ms']:.4f} queued), bound {info['bound_ms']:.4f} ms by "
+              f"{info['bound_by']}, share {info['bound_ms'] / info['queued_ms']:.3f} queued (with two full passes "
+              f"{info['two_full_passes_ms']:.4f} ms)")
+    worst = track_gradient_rel(track_case(4096, 8, 1))
+    assert worst <= 1e-5, f"track_backward_sample's gradient on the card differs from the CPU port's: {worst}"
+    print(f"kernel track_backward_sample's gradient (4096 lanes, 8 segments): within {worst:.3g} of the CPU port's, "
+          f"relative to each input's largest")
+    rows = {}
+    for label, calls in paths.items():
+        held = [hold_track(c, label) for c in calls]
+
+        def replay(fn=track_backward_sample):
+            with torch.no_grad():
+                for c in calls:
+                    fn(*c)
+
+        n = len(calls)
+        rows[label] = r = dict(
+            calls=n, lanes=held[0]["lanes"], segments=held[0]["segments"], live=[h["live"] for h in held],
+            ms=cuda_ms(replay, 5) / n, queued_ms=cuda_ms_queued(replay, max(1, 60 // n)) / n,
+            plain_ms=cuda_ms(lambda: replay(track_backward_sample_plain), 1) / n,
+            bound_ms=sum(h["bound_ms"] for h in held) / n, bound_by=held[0]["bound_by"],
+            two_full_passes_ms=sum(h["two_full_passes_ms"] for h in held) / n,
+        )
+        print(f"kernel track_backward_sample on {label}'s inputs: {n} calls a batch ({r['lanes']} lanes, "
+              f"{r['segments']} segments, lit {[round(x, 4) for x in r['live']]}), bit-exact; {r['ms']:.4f} ms a call "
+              f"({r['queued_ms']:.4f} queued), plain {r['plain_ms']:.4f} ms; bound {r['bound_ms']:.5f} ms by "
+              f"{r['bound_by']}, share {r['bound_ms'] / r['queued_ms']:.3f} queued (with two full passes "
+              f"{r['two_full_passes_ms']:.5f} ms); library call: none")
+    main_row = rows["track-backward, 256 segments"]
+    report.update(max_abs_err=0.0, **{k: main_row[k] for k in ("ms", "queued_ms", "plain_ms", "bound_ms", "bound_by")},
+                  library_ms=None, paths=rows, synthetic=synthetic, gradient_worst_rel=worst)
+
+
+#: the track runs' light curves agree with each other and with the simple
+#: source's on the same line as tests/test_trace_backward.py's
+#: test_track_backward_matches_simple_cherenkov holds them
+TRACK_SUM_RTOL, TRACK_PEAK_BINS = 0.05, 1
+
+
+def cherenkov_runs(mesh, wrappers, kernels, batch: int = BATCH, device="cuda") -> dict:
+    """Phase 3m: Cherenkov light at ``batch`` lanes: cherenkov-muon and
+    cherenkov-cascade (flagship-volume's tracer with a 1 TeV muon or a 1 TeV
+    EM cascade), cascade-backward and track-backward (the volume backward
+    tracer of tests/test_trace_backward.py with the cascade, the track's 3
+    vertices and the same line in 256 segments, and the simple source on
+    it for the curves' check), then flagship-brute-disk-guide; each run's
+    seconds a batch (median of 3 after a warm-up), launches a batch, peak
+    memory and one profiled batch; then kernels K1 and K2 on the runs'
+    recorded calls (``check_gamma``, ``check_track``). Returns the runs."""
+    import numpy as np
+    import torch
+
+    import theia_tpu_torch as P
+    from torch_flagship import (
+        build_cherenkov_backward, build_cherenkov_volume, build_flagship, cascade_source, track_line_source,
+    )
+
+    runs, gamma_paths, track_paths, curves = {}, {}, {}, {}
+    report_run_ = lambda *args, **kw: report_run(runs, batch, *args, **kw)
+    for kind in ("muon", "cascade"):
+        label = f"cherenkov-{kind}"
+        tracer = build_cherenkov_volume(P, batch, device, source=kind)
+        seconds_, sums_, counts_, peak_ = timed_runs(tracer, wrappers, label)
+        per_batch = {k: v // 3 for k, v in counts_.items() if v}
+        assert counts_["histogram_add"] == VOLUME_RECORDS * 3, per_batch
+        assert per_batch.get("sample_gamma", 0) == (kind == "cascade"), per_batch
+        report_run_(label, seconds_, per_batch, peak_, profile_step(tracer.run), f"; histogram sums {sums_}")
+        if kind == "cascade":
+            gamma_paths[label] = record_gamma_calls(tracer)
+        del tracer
+        torch.cuda.empty_cache()
+
+    lines = (
+        ("cascade-backward", cascade_source(P)), ("track-backward", track_line_source(P, "track")),
+        ("track-backward, 256 segments", track_line_source(P, "track", 256)),
+        ("simple Cherenkov on the track's line", track_line_source(P, "simple")),
+    )
+    for label, source in lines:
+        tracer = build_cherenkov_backward(P, batch, device, source=source)
+        seconds_, curves_, counts_, peak_ = timed_runs(tracer, wrappers, label, light_curve, True)
+        per_batch = {k: v // 3 for k, v in counts_.items() if v}
+        calls = tracer.nScattering - 1  # one sample_backward a scattering vertex
+        assert per_batch.get("sample_gamma", 0) == (calls if label.startswith("cascade") else 0), per_batch
+        assert per_batch.get("track_backward_sample", 0) == (calls if label.startswith("track") else 0), per_batch
+        curves[label] = sum(curves_) / len(curves_)
+        report_run_(label, seconds_, per_batch, peak_, profile_step(tracer.run),
+                    f"; light curve sum over {len(curves_)} batches {float(curves[label].sum()):.6g}")
+        if label.startswith("cascade"):
+            gamma_paths[label] = record_gamma_calls(tracer)
+        elif label.startswith("track"):
+            track_paths[label] = record_track_calls(tracer)
+        del tracer
+        torch.cuda.empty_cache()
+    simple = curves["simple Cherenkov on the track's line"]
+    for label in ("track-backward", "track-backward, 256 segments"):
+        ratio = float(curves[label].sum() / simple.sum())
+        peaks = int(curves[label].argmax()), int(simple.argmax())
+        runs[label].update(sum_over_simple=ratio, peak_bins=peaks)
+        print(f"    {label}: light curve sum {ratio:.6f} of the simple source's on the same line, peak bin {peaks[0]} "
+              f"(simple {peaks[1]})")
+        assert abs(ratio - 1.0) < TRACK_SUM_RTOL and abs(peaks[0] - peaks[1]) <= TRACK_PEAK_BINS, (label, ratio, peaks)
+    pair = float(curves["track-backward, 256 segments"].sum() / curves["track-backward"].sum())
+    assert abs(pair - 1.0) < TRACK_SUM_RTOL, pair
+    assert abs(int(curves["track-backward, 256 segments"].argmax()) - int(curves["track-backward"].argmax())) <= 1
+
+    disk = build_flagship(P, mesh, batch, MAX_PATH, accel="auto", guide="disk", device=device)
+    assert disk.scene.accel == "brute"
+    seconds_, sums_, counts_, peak_ = timed_runs(disk, wrappers, "flagship-brute-disk-guide")
+    per_batch = {k: v // 3 for k, v in counts_.items() if v}
+    assert counts_["nearest_in_table_rows"] == MAX_PATH * 3 and counts_["target_in_table"] == (MAX_PATH - 1) * 3
+    report_run_("flagship-brute-disk-guide", seconds_, per_batch, peak_, profile_step(disk.run),
+                f"; histogram sums {sums_}")
+    del disk
+    torch.cuda.empty_cache()
+
+    check_gamma(kernels["sample_gamma"], gamma_paths)
+    check_track(kernels["track_backward_sample"], track_paths)
+    for name in ("sample_gamma", "track_backward_sample"):
+        launches = {label: info["launches_per_batch"].get(name, 0) for label, info in runs.items()}
+        kernels[name].update(launches=3 * sum(launches.values()), launches_per_batch=launches,
+                             path="phase 3m's runs, 3 batches each")
+    return runs
+
+
 def hold_cpu_vs_card(label, build) -> dict:
     """One batch of ``build(device)``'s tracer on the CPU and on the card,
     held by ``PERF.md``'s histogram agreement: the lanes' RNG dims equal on
@@ -3500,15 +3938,18 @@ def main() -> int:
     from theia_tpu_torch.ops.bvh_traverse import nearest_triangle_bvh, occluded_bvh
     from theia_tpu_torch.ops.instanced import nearest_triangle_instanced, occluded_instanced
     from theia_tpu_torch.random import philox_uniform, sobol_owen_uniform
+    from theia_tpu_torch.ops.cherenkov_track import track_backward_sample
+    from theia_tpu_torch.ops.gamma import sample_gamma
     from theia_tpu_torch.ops import table_read
     from theia_tpu_torch.response import histogram_add, histogram_grad
     from theia_tpu_torch.response import (
         KernelHistogramHitResponse, StoreTimeHitResponse, kernel_histogram_add, kernel_histogram_grad,
     )
     from torch_flagship import (
-        adversarial_rays, build_array, build_backward_eta2, build_bidirectional, build_direct, build_flagship,
-        build_photon_flagship, build_scene_backward, build_scene_backward_target, build_volume_backward,
-        build_volume_flagship, build_volume_photon, icosphere,
+        adversarial_rays, build_array, build_backward_eta2, build_bidirectional, build_cherenkov_backward,
+        build_cherenkov_volume, build_direct, build_flagship, build_photon_flagship, build_scene_backward,
+        build_scene_backward_target, build_volume_backward, build_volume_flagship, build_volume_photon, cascade_source,
+        icosphere, track_line_source,
     )
 
     # the seconds of each phase, printed as it ends
@@ -3598,6 +4039,12 @@ def main() -> int:
             name: dict(route="cuda", source=source, replaces=replaces)
             for name, (source, replaces) in WALK_KERNELS.items()
         },
+        "sample_gamma": dict(
+            route="cuda", source="theia_tpu_torch/csrc/gamma.cu", replaces="theia_tpu/ops/gamma.py:22",
+        ),
+        "track_backward_sample": dict(
+            route="cuda", source="theia_tpu_torch/csrc/cherenkov_track.cu", replaces="theia_tpu/light.py:654",
+        ),
     }
     rows = tracer.scene.pack.tri_data[:, 18:27].cpu().numpy()
     adversarial = tuple(
@@ -3737,6 +4184,8 @@ def main() -> int:
         "occluded_instanced": occluded_instanced,
         "nearest_triangle_bvh": nearest_triangle_bvh,
         "occluded_bvh": occluded_bvh,
+        "sample_gamma": sample_gamma,
+        "track_backward_sample": track_backward_sample,
     }
     # the gradient steps' launches: every wrapper, the backward kernels and the kernel histogram too
     grad_wrappers = {
@@ -4135,6 +4584,10 @@ def main() -> int:
             if name in kernels:
                 kernels[name].setdefault("scene_camera_launches", {})[run] = n
 
+    phase("3m")
+    # phase 3m: Cherenkov light from a muon, a cascade and a track at full width, and the disk guide
+    cherenkov = cherenkov_runs(mesh, wrappers, kernels)
+
     phase("4")
     # phase 4: the port on the CPU against the port on the card
     cpu_vs_card = {}
@@ -4162,6 +4615,15 @@ def main() -> int:
         ("scene-backward (mt), HitRecorder", lambda dev: build_scene_backward(
             theia_tpu_torch, SMALL_BATCH, dev, mesh=mesh, accel="mt")),
         ("bidirectional", lambda dev: build_bidirectional(theia_tpu_torch, SMALL_BATCH, dev, mesh=mesh)),
+        ("cherenkov-muon", lambda dev: build_cherenkov_volume(theia_tpu_torch, SMALL_BATCH, dev, source="muon")),
+        ("cherenkov-cascade", lambda dev: build_cherenkov_volume(theia_tpu_torch, SMALL_BATCH, dev, source="cascade")),
+        ("cascade-backward", lambda dev: build_cherenkov_backward(
+            theia_tpu_torch, SMALL_BATCH, dev, source=cascade_source(theia_tpu_torch))),
+        ("track-backward", lambda dev: build_cherenkov_backward(
+            theia_tpu_torch, SMALL_BATCH, dev, source=track_line_source(theia_tpu_torch, "track"))),
+        ("track-backward, 256 segments", lambda dev: build_cherenkov_backward(
+            theia_tpu_torch, SMALL_BATCH, dev, source=track_line_source(theia_tpu_torch, "track", 256))),
+        ("flagship-brute-disk-guide", flagship(accel="auto", guide="disk")),
     ):
         cpu_vs_card[label] = hold_cpu_vs_card(label, build)
     grads = {}
@@ -4220,7 +4682,7 @@ def main() -> int:
                       grad_sum=float(grad.sum()), grad=grad.tolist(), histogram_grad_launches=grad_launches,
                       launches=grad_counts, profile=grad_prof),
         volume_gradient_steps=volume_steps, geometry_gradient_step=geo, sobol_and_camera_runs=camera_runs,
-        scene_camera_runs=scene_runs,
+        scene_camera_runs=scene_runs, cherenkov_runs=cherenkov,
         cpu_vs_card=cpu_vs_card, phase_seconds={k: clock[n] - clock[k] for k, n in zip(clock, list(clock)[1:])},
         lap_seconds=laps,
         **line,

@@ -6,6 +6,8 @@ with a card: ``python -m pytest tests/test_torch_cuda_kernels.py -m cuda``.
 lends its helpers: run ``python -m pytest`` from the repository root, which
 puts ``chip_smoke.py`` on the path."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -527,3 +529,39 @@ def test_sobol_kernel_byte_table_cases(cuda, label):
             assert sobol_owen_uniform.launches == before + 1
             want = sobol_owen_uniform_plain(table.cpu(), 0xC0FFEE, stream.cpu(), dim.cpu(), width, offset)
             assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32)), (label, offset, width)
+
+
+@pytest.mark.parametrize("gen", ["philox", "sobol"])
+def test_gamma_kernel_bit_exact(cuda, gen):
+    """csrc/gamma.cu against its plain version on the card: a lane per
+    alpha of chip_smoke.GAMMA_SWEEP, the edge lanes alpha 0 (x = 0) and -1
+    (NaN, so R = 64 and the Sobol draws run into the Philox tail), 5000
+    lanes (not a multiple of the block); then a scalar alpha, one launch,
+    and a call without lanes."""
+    import chip_smoke
+    from theia_tpu_torch.ops.gamma import sample_gamma
+
+    alpha, rng = chip_smoke.gamma_cases(5000)[gen]
+    before = sample_gamma.launches
+    info = chip_smoke.hold_gamma(alpha, rng, gen)
+    assert sample_gamma.launches == before + 1
+    assert info["R"] == 64 and info["nan_lanes"] == 1
+    assert chip_smoke.hold_gamma(torch.tensor(2.7, device=cuda), rng, gen)["R"] < 64
+    x, empty = sample_gamma(1.5, dataclasses.replace(rng, stream=rng.stream[:0], dim=rng.dim[:0]))
+    assert x.shape == (0,) and empty.dim.shape == (0,)
+
+
+@pytest.mark.parametrize("segments", [1, 2, 300])
+def test_track_kernel_bit_exact(cuda, segments):
+    """csrc/cherenkov_track.cu against its plain version on the card, bit
+    for bit, with 1, 2 and 300 segments (past one shared-memory tile of
+    256) and 10,000 lanes; then its gradient on the card against the CPU
+    port's on the same inputs, within 1e-5 of each input's largest entry."""
+    import chip_smoke
+    from theia_tpu_torch.ops.cherenkov_track import track_backward_sample
+
+    args = chip_smoke.track_case(10_000, segments, segments)
+    before = track_backward_sample.launches
+    chip_smoke.hold_track(args, f"{segments} segments")
+    assert track_backward_sample.launches == before + 1
+    assert chip_smoke.track_gradient_rel(args) <= 1e-5

@@ -7,8 +7,11 @@ histogram (the volume tracer in its group velocity, the brute-force
 scene in its detector's position), and tracing the brute-force flagship
 with a SobolQRNG, a polarized VolumeBackwardTracer and a DirectLightTracer
 on a scene, the two scene backward tracers and the polarized
-bidirectional tracer, and the volume flagship from a TargetLightSource,
-in a fresh interpreter leaves jax and theia_tpu unloaded; the port's example scripts import neither."""
+bidirectional tracer, the volume flagship from a TargetLightSource, the Cherenkov runs (a muon
+and a cascade forward, a cascade and a track backward), the flagship
+guided by a disk and the value queue with its estimator, in a fresh
+interpreter leaves jax and theia_tpu unloaded; the port's example scripts
+import neither."""
 
 import subprocess
 import sys
@@ -103,6 +106,16 @@ assert back.run()[0].shape == (10,)
 assert build_bidirectional(P, 64, "cpu", mesh=icosphere(1), path=2, polarized=True).run()[0].shape == (60,)
 focused = P.light.TargetLightSource(P.light.SphericalLightSource(), P.light.FlatLightSourceTarget(position=(0.0, -3.0, 0.0)))
 assert build_volume_flagship(P, 64, "cpu", source=focused).run()[0].shape == (100,)
+import theia_tpu_torch.cascades, theia_tpu_torch.items, theia_tpu_torch.ops.gamma, theia_tpu_torch.ops.cherenkov_track
+from torch_flagship import build_cherenkov_backward, build_cherenkov_volume, cascade_source, track_line_source
+for kind in ("muon", "cascade"):
+    assert build_cherenkov_volume(P, 64, "cpu", source=kind, nScattering=2).run()[0].shape == (100,)
+for source in (cascade_source(P), track_line_source(P, "track", 8)):
+    assert build_cherenkov_backward(P, 64, "cpu", source=source, nScattering=2).run()[0].shape == (60,)
+assert build_flagship(P, icosphere(1), 64, 2, accel="auto", device="cpu", guide="disk").run()[0].shape == (100,)
+queue, _ = build_volume_flagship(P, 64, "cpu", response=P.response.StoreValueHitResponse()).run()
+assert P.response.HistogramEstimator(nBins=10, binSize=50.0)(queue).shape == (10,)
+assert P.items.ValueItem.from_queue(queue).dtype.itemsize == 8
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "theia_tpu"))
 print("LOADED", loaded)
 """

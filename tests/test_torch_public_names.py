@@ -1,13 +1,17 @@
 """Public names of ``theia_tpu`` that the port must answer to as well:
 ``theia_tpu_torch.render``, ``accel.anyhit_in_soup`` / ``nearest_in_soup``,
-and the JAX keywords of the MT and Woop nearest-hit queries, which the port
-accepts and ignores.
+the JAX keywords of the MT and Woop nearest-hit queries, which the port
+accepts and ignores, and the names of the Cherenkov slice: the planar
+target guides, the Cherenkov, particle, host and tabulated light sources,
+``cascades``, ``items``, ``ops.gamma`` and the value queue's estimators.
 
 Tolerances and why: the soup queries against ``theia_tpu``'s as in
 tests/test_torch_brute.py (b): JAX divides by det, the port takes a
 reciprocal and a Newton step, so t agrees to T_RTOL relative and the
 winner on all but 0.1 % of the lanes (two hits that close), any-hit
 flags likewise; the keywords change nothing, bit for bit."""
+
+import importlib
 
 import numpy as np
 import pytest
@@ -119,3 +123,41 @@ def test_nearest_triangle_woop_takes_jax_keywords(keywords):
     got_t, got_i = nearest_triangle_woop(pack, o, d, t, **keywords)
     assert (want_i >= 0).any()
     assert torch.equal(got_i, want_i) and torch.equal(got_t.view(torch.int32), want_t.view(torch.int32))
+
+
+def test_cherenkov_slice_names():
+    """Every name of the slice importable from the port under theia_tpu's
+    name (``light.LightSampler`` lives in ``testing``, not yet ported)."""
+    import theia_tpu.cascades, theia_tpu.items, theia_tpu.light, theia_tpu.ops.gamma, theia_tpu.response
+    import theia_tpu.target
+    import theia_tpu_torch.cascades, theia_tpu_torch.items, theia_tpu_torch.ops.gamma
+
+    for name in ("cascades", "items"):
+        assert sorted(getattr(theia_tpu_torch, name).__all__) == sorted(getattr(theia_tpu, name).__all__), name
+    assert set(theia_tpu.target.__all__) <= set(theia_tpu_torch.target.__all__)
+    assert set(theia_tpu.response.__all__) <= set(theia_tpu_torch.response.__all__)
+    assert set(theia_tpu.light.__all__) - {"LightSampler"} <= set(theia_tpu_torch.light.__all__)
+    assert set(theia_tpu.ops.gamma.__all__) <= set(theia_tpu_torch.ops.gamma.__all__)
+    for module in ("light", "response", "target", "cascades", "items"):
+        m = importlib.import_module(f"theia_tpu_torch.{module}")
+        missing = [n for n in m.__all__ if not hasattr(m, n)]
+        assert not missing, (module, missing)
+    slice_names = dict(
+        target="FlatTargetGuide DiskTargetGuide _PlanarTargetGuide _guide_sample_from_point",
+        light="frankTamm _frank_tamm_photons _frank_tamm_energy _rotate_to CherenkovLightSource ParticleTrack "
+        "CherenkovTrackLightSource _sample_emission_angle _eval_emission_angle MuonTrackLightSource "
+        "ParticleCascadeLightSource FunctionWavelengthSource HostWavelengthSource HostLightSource "
+        "StreamingHostWavelengthSource StreamingHostLightSource LightSampleItem PolarizedLightSampleItem "
+        "WavelengthSampleItem",
+        response="CustomValueResponse EmptyResponse SampleValueResponse StoreValueHitResponse Estimator "
+        "HistogramReducer createHitTimeQueue createValueQueue HistogramEstimator HostEstimator replay_hits "
+        "sample_camera_hits HitReplay CameraHitResponseSampler ValueItem HitTimeItem HitTimeAndIdItem",
+    )
+    for module, names in slice_names.items():
+        for pkg in ("theia_tpu", "theia_tpu_torch"):
+            m = importlib.import_module(f"{pkg}.{module}")
+            missing = [n for n in names.split() if not hasattr(m, n)]
+            assert not missing, (pkg, module, missing)
+    assert theia_tpu_torch.light.LightSampleItem is theia_tpu_torch.items.LightSampleItem
+    assert theia_tpu_torch.response.ValueItem is theia_tpu_torch.items.ValueItem
+    assert {"cascades", "items"} <= set(theia_tpu_torch.__all__)

@@ -74,6 +74,7 @@ def icosphere(subdivisions: int = 3) -> tuple[np.ndarray, np.ndarray]:
 def build_flagship(
     pkg, mesh, batch: int, max_path: int, accel: str = "mt", device=None, *,
     polarized: bool = False, source_position=(3.0, 0.0, 0.0), guided: bool = True, response=None, rng=None,
+    guide: str = "sphere",
 ):
     """The flagship tracer of package ``pkg`` (``theia_tpu`` or
     ``theia_tpu_torch``) on the sphere ``mesh`` = (positions, faces).
@@ -83,8 +84,10 @@ def build_flagship(
     source alone; the glass shells stay centred at (3, 0, 0). Off centre,
     direct rays meet the shells at oblique incidence, where the Fresnel
     polarizers are not the identity. ``guided=False`` drops the
-    ``SphereTargetGuide`` (the unguided tracer); ``response`` replaces the
-    histogram."""
+    ``SphereTargetGuide`` (the unguided tracer); ``guide="disk"`` puts a
+    ``DiskTargetGuide`` of the detector sphere's centre and radius, its
+    normal facing the glass shells' centre, in its place; ``response``
+    replaces the histogram."""
     mod = lambda name: importlib.import_module(f"{pkg.__name__}.{name}")
     u = mod("units")
     light, material, rnd = mod("light"), mod("material"), mod("random")
@@ -129,10 +132,22 @@ def build_flagship(
         sourceMedium="vacuum",  # the source sits inside the air-filled shell
         scatterCoefficient=0.05,
         targetId=1,
-        targetGuide=target.SphereTargetGuide(position=det_pos, radius=0.6) if guided else None,
+        targetGuide=flagship_guide(target, guide, det_pos, light_pos) if guided else None,
         polarized=polarized,
         **dev,
     )
+
+
+def flagship_guide(target, kind: str, det_pos, light_pos):
+    """The flagship's MIS guide toward its detector sphere (radius 0.6):
+    ``"sphere"`` (``_build_scene_tracer``'s) or ``"disk"``, a disk of the
+    sphere's centre and radius facing the shells' centre."""
+    if kind == "sphere":
+        return target.SphereTargetGuide(position=det_pos, radius=0.6)
+    if kind == "disk":
+        normal = np.subtract(light_pos, det_pos)
+        return target.DiskTargetGuide(position=det_pos, radius=0.6, normal=tuple(normal / np.linalg.norm(normal)))
+    raise ValueError(f"unknown guide {kind!r}")
 
 
 def water_medium(material, **sizes):
@@ -161,8 +176,8 @@ def build_volume_flagship(pkg, batch: int, device=None, **kw):
     ``SphereTarget`` at the origin, 400-500 nm, 100 bins of 5 ns,
     ``PhiloxRNG(key=0xC0FFEE)``, 10 scatterings, 500 ns. ``kw`` goes to
     the tracer (``polarized``, the flags, ``medium``, ``response``,
-    ``nScattering`` or ``source`` to replace the water, the histogram, the
-    depth or the light source);
+    ``nScattering``, ``source`` or ``target`` to replace the water, the
+    histogram, the depth, the light source or the detector);
     ``rng``, a function of the package's ``random`` module, replaces the
     Philox generator."""
     mod = lambda name: importlib.import_module(f"{pkg.__name__}.{name}")
@@ -174,7 +189,7 @@ def build_volume_flagship(pkg, batch: int, device=None, **kw):
     return mod("trace.volume").VolumeForwardTracer(
         batch,
         kw.pop("source", None) or light.SphericalLightSource(position=(-1.0, -7.0, 0.0), timeRange=(0.0, 0.0), budget=1e9),
-        target.SphereTarget(position=(0.0, 0.0, 0.0), radius=5.0),
+        kw.pop("target", None) or target.SphereTarget(position=(0.0, 0.0, 0.0), radius=5.0),
         light.UniformWavelengthSource(lambdaRange=(400.0, 500.0)),
         resp,
         rng(rnd) if rng else rnd.PhiloxRNG(key=0xC0FFEE),
@@ -519,6 +534,85 @@ def build_bidirectional(pkg, batch: int, device=None, *, mesh=None, path: int = 
         maxTime=float("inf"),
         **kw,
         **dev,
+    )
+
+
+#: the muon of tests/test_muon_backward.py: 1 TeV from (0, 0, -5) to (0, 0, 5) m, its detector sphere
+MUON_START, MUON_END, MUON_ENERGY = (0.0, 0.0, -5.0), (0.0, 0.0, 5.0), 1.0e3
+MUON_DETECTOR, MUON_DETECTOR_RADIUS = (6.0, 0.0, 1.0), 1.0
+#: tests/test_trace_backward.py's track: -50 -> 50 m on x at c, seen from a point camera at (0, 10, 0)
+TRACK_X, TRACK_CAMERA = 50.0, (0.0, 10.0, 0.0)
+
+
+def muon_source(pkg):
+    """``tests/test_muon_backward.py``'s ``MuonTrackLightSource``: 1 TeV,
+    ``MUON_START`` to ``MUON_END``, ``endTime`` = length / c."""
+    u = importlib.import_module(f"{pkg.__name__}.units")
+    length = float(np.linalg.norm(np.subtract(MUON_END, MUON_START)))
+    return importlib.import_module(f"{pkg.__name__}.light").MuonTrackLightSource(
+        startPosition=MUON_START, startTime=0.0, endPosition=MUON_END, endTime=length / u.speed_of_light,
+        muonEnergy=MUON_ENERGY,
+    )
+
+
+def cascade_source(pkg):
+    """The 1 TeV EM cascade of ``tests/test_light_sources.py``:
+    ``createParamsFromParticle(Particle(E_MINUS, (0, 0, 0), (0, 0, 1),
+    energy=1000.0))``, its class built on its parameters."""
+    cascades = importlib.import_module(f"{pkg.__name__}.cascades")
+    particle = cascades.Particle(cascades.ParticleType.E_MINUS, (0.0, 0.0, 0.0), (0.0, 0.0, 1.0), energy=1000.0)
+    cls, params, _ = cascades.createParamsFromParticle(particle, lightSourceName="")
+    return cls(**params)
+
+
+def build_cherenkov_volume(pkg, batch: int, device=None, *, source: str = "muon", **kw):
+    """flagship-volume's ``VolumeForwardTracer`` (its water, wavelengths,
+    histogram, generator and 10 scatterings) with a particle's light:
+    ``source="muon"`` (:func:`muon_source`) or ``"cascade"``
+    (:func:`cascade_source`), seen by ``tests/test_muon_backward.py``'s
+    detector sphere of radius 1 at (6, 0, 1). ``kw`` goes to
+    :func:`build_volume_flagship`."""
+    make = {"muon": muon_source, "cascade": cascade_source}[source]
+    target = importlib.import_module(f"{pkg.__name__}.target")
+    return build_volume_flagship(
+        pkg, batch, device, source=make(pkg),
+        target=target.SphereTarget(position=MUON_DETECTOR, radius=MUON_DETECTOR_RADIUS), **kw,
+    )
+
+
+def track_line_source(pkg, kind: str, segments: int = 2):
+    """The straight line of ``tests/test_trace_backward.py``'s
+    ``test_track_backward_matches_simple_cherenkov`` (-50 -> 50 m on x,
+    times x / c, photon counts): ``kind="track"`` as a ``ParticleTrack`` of
+    ``segments`` equal segments (the test's 3 vertices at 2), ``"simple"``
+    as a ``CherenkovLightSource``."""
+    u = importlib.import_module(f"{pkg.__name__}.units")
+    light = importlib.import_module(f"{pkg.__name__}.light")
+    if kind == "simple":
+        return light.CherenkovLightSource(
+            trackStart=(-TRACK_X, 0.0, 0.0), trackEnd=(TRACK_X, 0.0, 0.0), startTime=-TRACK_X / u.c,
+            endTime=TRACK_X / u.c, usePhotonCount=True,
+        )
+    x = np.linspace(-TRACK_X, TRACK_X, segments + 1)
+    verts = np.stack([x, 0 * x, 0 * x, x / u.c], axis=1).astype(np.float32)
+    return light.CherenkovTrackLightSource(light.ParticleTrack(verts), usePhotonCount=True)
+
+
+def build_cherenkov_backward(pkg, batch: int, device=None, *, source, key: int = 3, **kw):
+    """``tests/test_trace_backward.py``'s ``VolumeBackwardTracer`` of the
+    track test: ``source`` (a light source of ``pkg``: the cascade of
+    :func:`cascade_source`, a line of :func:`track_line_source`) seen by a
+    ``PointCamera`` at (0, 10, 0) in ``WaterTestModel(mu_a=0.01, mu_s=0.03,
+    g=0.4)``, 420-480 nm, 60 bins of 2 ns, 4 scatterings, 120 ns, direct
+    lighting off, ``PhiloxRNG(key=3)``. ``kw`` goes to the tracer."""
+    mod = lambda name: importlib.import_module(f"{pkg.__name__}.{name}")
+    dev = {} if device is None else {"device": device}
+    return mod("trace.backward").VolumeBackwardTracer(
+        batch, source, mod("camera").PointCamera(position=TRACK_CAMERA),
+        mod("light").UniformWavelengthSource(lambdaRange=(420.0, 480.0)),
+        kw.pop("response", None) or mod("response").HistogramHitResponse(nBins=60, t0=0.0, binSize=2.0),
+        mod("random").PhiloxRNG(key=key), medium=mod("testing").WaterTestModel(mu_a=0.01, mu_s=0.03, g=0.4).createMedium(),
+        nScattering=kw.pop("nScattering", 4), maxTime=120.0, disableDirectLighting=True, **kw, **dev,
     )
 
 

@@ -6,7 +6,8 @@ Plain tensor code is PyTorch; the hot kernels of the scene tracer's main
 path (the nearest-hit and any-hit scans over the triangle soup, the
 instanced and BVH walks, Philox and Owen-scrambled Sobol draws, the
 histogram record and its backward, the kernel histogram and the table
-reads with their backward)
+reads with their backward, the gamma draw of a cascade's depth and a
+Cherenkov track's backward sample)
 are hand-written CUDA kernels for Hopper in ``csrc/``, built with nvcc at
 first use (the BVH builder in ``native/`` with g++). On CPU tensors
 every kernel's plain PyTorch version runs instead. This package never
@@ -23,8 +24,10 @@ and direct-light tracers with the cameras; the scene backward tracers
 bidirectional path tracer, with the light-source targets; any tracer with
 ``PhiloxRNG`` or ``SobolQRNG``; the forward tracers'
 gradients through ``trace_fn()`` (medium tables, phase and refractive
-index, group velocity, source and detector position) (see ROADMAP.md
-for what comes next).
+index, group velocity, source and detector position); Cherenkov light
+from tracks, muons and cascades (``cascades``), the host-fed and
+tabulated sources, the planar target guides and the value queue with its
+estimators (see ROADMAP.md for what comes next).
 """
 
 from . import units
@@ -35,7 +38,7 @@ __version__ = "0.1.0"
 #: submodules reachable as ``theia_tpu_torch.<name>`` without an explicit
 #: import, loaded lazily so importing the root stays cheap
 _SUBMODULES = {
-    "accel", "callback", "camera", "component", "interop", "light", "lookup",
+    "accel", "callback", "camera", "cascades", "component", "interop", "items", "light", "lookup",
     "material", "mesh", "ops", "random", "render", "response", "scene", "target",
     "testing", "trace",
 }

@@ -30,7 +30,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "theia_tpu_torch"
 SOURCES = (
     "intersect_woop.cu", "intersect_soup.cu", "philox.cu", "sobol.cu", "histogram.cu",
-    "kernel_histogram.cu", "table_read.cu", "bvh_walk.cu", "instanced_walk.cu",
+    "kernel_histogram.cu", "table_read.cu", "bvh_walk.cu", "instanced_walk.cu", "gamma.cu",
+    "cherenkov_track.cu",
 )
 #: -fmad=false: no contraction of a*b+c into FMAs, so every product and sum
 #: rounds exactly as the plain PyTorch versions' separate ops do (explicit
@@ -66,6 +67,9 @@ _SIGNATURES = {
     "theia_bvh_occluded": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
     "theia_instanced_nearest": (_P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P),
     "theia_instanced_occluded": (_P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P),
+    "theia_gamma_philox": (_U, _U, _U, _U, _U, _U, _P, _I, _P, _P, _I, _P, _P, _P),
+    "theia_gamma_sobol": (_P, _I, _U, _U, _U, _U, _P, _I, _P, _P, _I, _P, _P, _P),
+    "theia_track_sample": (_P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P),
 }
 
 

@@ -1,4 +1,6 @@
-// Owen-scrambled Sobol draws, one thread per lane, folded by byte.
+// Owen-scrambled Sobol draws, one thread per lane, folded by byte. The
+// draw of one (index, dim) pair is theia::sobol_draw in csrc/sobol.cuh,
+// which csrc/gamma.cu shares.
 //
 // Replaces theia_tpu/random.py sobol_owen_uniform (jnp code that XLA fused
 // into the tracers; with _reverse_bits32, _laine_karras,
@@ -36,58 +38,21 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "philox.cuh"
+#include "sobol.cuh"
 
 namespace {
 
+using theia::SobolArgs;
+using theia::sobol_draw;
+
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ uint32_t laine_karras(uint32_t x, uint32_t seed) {
-  x += seed;
-  x ^= x * 0x6C50B47Cu;
-  x ^= x * 0xB82F1E52u;
-  x ^= x * 0xC7AFE638u;
-  x ^= x * 0x8D22F6E6u;
-  return x;
-}
-
-__device__ __forceinline__ uint32_t nested_uniform_scramble(uint32_t x, uint32_t seed) {
-  return __brev(laine_karras(__brev(x), seed));
-}
-
-__device__ __forceinline__ uint32_t hash32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x21F0AAADu;
-  x ^= x >> 15;
-  x *= 0xD35A2D97u;
-  x ^= x >> 15;
-  return x;
-}
-
-struct SobolArgs {
-  const uint32_t* bytes;  // (dims, 4, 256) words: random._byte_table of the direction rows
-  uint32_t dims, seed, shuffle_seed, seed_hash, offset;
-};
-
-__device__ __forceinline__ float sobol_draw(const SobolArgs& a, uint32_t idx, uint32_t d) {
-  if (d >= a.dims) {
-    const theia::PhiloxBase tail{a.seed, a.seed_hash, 0u, 0u, 0u, 0u};
-    return theia::philox_draw(tail, idx, d);
-  }
-  // the fold a byte of the index at a time: four independent lookups
-  const uint32_t* t = a.bytes + static_cast<size_t>(d) * 1024;
-  const uint32_t v = __ldg(t + (idx & 0xffu)) ^ __ldg(t + 256 + __byte_perm(idx, 0u, 0x4441)) ^
-                     __ldg(t + 512 + __byte_perm(idx, 0u, 0x4442)) ^ __ldg(t + 768 + (idx >> 24));
-  return theia::uniform_from_bits(nested_uniform_scramble(v, hash32(d ^ a.seed_hash)));
-}
 
 __global__ void __launch_bounds__(kThreads) sobol_uniform(
     SobolArgs a, const int* __restrict__ stream, const int* __restrict__ dim, int n,
     int width, float* __restrict__ out) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
-  const uint32_t idx =
-      nested_uniform_scramble(static_cast<uint32_t>(stream[i]) + a.offset, a.shuffle_seed);
+  const uint32_t idx = theia::sobol_index(a, static_cast<uint32_t>(stream[i]));
   const uint32_t d = static_cast<uint32_t>(dim[i]);
   for (int j = 0; j < width; ++j) {
     out[(size_t)i * width + j] = sobol_draw(a, idx, d + j);

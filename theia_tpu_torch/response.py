@@ -29,19 +29,50 @@ import warnings
 
 import torch
 
+import numpy as np
+
 from . import _build
-from .component import Component, TraceConfig
+from .component import Component, TraceConfig, _to_tensor, resolve_device
+from .items import (
+    CameraHitResponseItem,
+    HitTimeAndIdItem,
+    HitTimeItem,
+    PolarizedCameraHitResponseItem,
+    PolarizedHitItem,
+    ValueItem,
+)
 from .random import RNGState
 from .trace.core import HitItem
 
 __all__ = [
     "ValueResponse",
     "UniformValueResponse",
+    "CustomValueResponse",
     "HitResponse",
+    "EmptyResponse",
     "HistogramHitResponse",
     "KernelHistogramHitResponse",
     "HitRecorder",
     "StoreTimeHitResponse",
+    "StoreValueHitResponse",
+    "SampleValueResponse",
+    "Estimator",
+    "HistogramEstimator",
+    "HistogramReducer",
+    "HostEstimator",
+    "createHitTimeQueue",
+    "createValueQueue",
+    "replay_hits",
+    "sample_camera_hits",
+    "HitReplay",
+    "CameraHitResponseSampler",
+    # the reference's record layouts (theia_tpu_torch.items)
+    "PolarizedHitItem",
+    "HitTimeItem",
+    "HitTimeAndIdItem",
+    "ValueItem",
+    "CameraHitResponseItem",
+    "PolarizedCameraHitResponseItem",
     "histogram_add",
     "histogram_add_plain",
     "histogram_grad",
@@ -83,6 +114,26 @@ class UniformValueResponse(ValueResponse):
         return item.contrib, rng
 
 
+class CustomValueResponse(ValueResponse):
+    """User-provided value function ``fn(params, item, rng) -> (value, rng)``
+    (reference: src/theia/response.py:498-530). ``params``: a dict whose
+    numbers and arrays :meth:`params` hands to ``fn`` as float32 tensors on
+    the tracer's device (tensors as they are)."""
+
+    name = "Custom Value Response"
+
+    def __init__(self, fn, *, nRNGSamples: int = 0, params=None) -> None:
+        self._fn = fn
+        self.nRNGSamples = nRNGSamples
+        self._custom_params = params or {}
+
+    def params(self, device):
+        return {k: _to_tensor(v, device) for k, v in self._custom_params.items()}
+
+    def value(self, params, item: HitItem, rng: RNGState):
+        return self._fn(params, item, rng)
+
+
 class HitResponse(Component):
     """Base class for hit responses (reference: src/theia/response.py:125-188)."""
 
@@ -107,6 +158,21 @@ class HitResponse(Component):
     def result(self, params, state):
         """Finalize the batch (applies normalization)."""
         return state
+
+
+class EmptyResponse(HitResponse):
+    """Ignores all hits (reference: src/theia/response.py EmptyResponse)."""
+
+    name = "Empty Response"
+
+    def init(self, device):
+        return ()
+
+    def record(self, params, state, item, mask, rng):
+        return state, rng
+
+    def result(self, params, state):
+        return None
 
 
 def _hist_bins(time, mask, t0, bin_size, n_bins, object_id, n_detectors):
@@ -637,6 +703,11 @@ class KernelHistogramHitResponse(HistogramHitResponse):
         return state, rng
 
 
+#: the stored fields of the two queues of records: name -> (row shape, dtype)
+_TIME_FIELDS = dict(time=((), torch.float32), objectId=((), torch.int32))
+_VALUE_FIELDS = dict(value=((), torch.float32), time=((), torch.float32))
+
+
 class _SlotQueue(HitResponse):
     """Stores accepted hits in slots of a fixed buffer, record-call-major:
     a record puts its accepted lanes at ``cursor + cumsum(accept) - 1`` in
@@ -748,7 +819,7 @@ class StoreTimeHitResponse(_SlotQueue):
         self._capacity = config.capacity * config.max_hits_per_thread
 
     def init(self, device):
-        return self._init_queue(device, dict(time=((), torch.float32), objectId=((), torch.int32)))
+        return self._init_queue(device, _TIME_FIELDS)
 
     def record(self, params, state, item: HitItem, mask, rng: RNGState):
         value, rng = self.value_response.value(params.get("value", {}), item, rng)
@@ -758,3 +829,214 @@ class StoreTimeHitResponse(_SlotQueue):
 
     def result(self, params, state):
         return self._result(state, "detections")
+
+
+class StoreValueHitResponse(_SlotQueue):
+    """Stores each hit's (value, time) in a queue, the input of
+    :class:`HistogramEstimator` and :class:`HostEstimator`; slots as
+    :class:`HitRecorder`'s (reference: src/theia/response.py:532-623)."""
+
+    name = "Store Value Hit Response"
+
+    def __init__(self, value_response: ValueResponse | None = None) -> None:
+        self.value_response = UniformValueResponse() if value_response is None else value_response
+        self.nRNGSamples = self.value_response.nRNGSamples
+
+    def params(self, device):
+        return {"value": self.value_response.params(device)}
+
+    def prepare(self, config: TraceConfig) -> None:
+        super().prepare(config)
+        self.value_response.prepare(config)
+        self._capacity = config.capacity * config.max_hits_per_thread
+
+    def init(self, device):
+        return self._init_queue(device, _VALUE_FIELDS)
+
+    def record(self, params, state, item: HitItem, mask, rng: RNGState):
+        value, rng = self.value_response.value(params.get("value", {}), item, rng)
+        return self._push(state, mask, dict(value=value, time=item.time)), rng
+
+    def result(self, params, state):
+        return self._result(state, "hits")
+
+
+class SampleValueResponse(HitResponse):
+    """A lane's response value of the first hit it records: a (capacity,)
+    tensor, NaN where a lane recorded none (testing detector models;
+    reference: src/theia/response.py:800-881)."""
+
+    name = "Sample Value Response"
+
+    def __init__(self, value_response: ValueResponse | None = None) -> None:
+        self.value_response = UniformValueResponse() if value_response is None else value_response
+        self.nRNGSamples = self.value_response.nRNGSamples
+
+    def params(self, device):
+        return {"value": self.value_response.params(device)}
+
+    def prepare(self, config: TraceConfig) -> None:
+        super().prepare(config)
+        self.value_response.prepare(config)
+
+    def init(self, device):
+        return torch.full((self._config.capacity,), torch.nan, dtype=torch.float32, device=device)
+
+    def record(self, params, state, item: HitItem, mask, rng: RNGState):
+        value, rng = self.value_response.value(params.get("value", {}), item, rng)
+        return torch.where(mask & torch.isnan(state), value, state), rng
+
+
+class Estimator:
+    """Base class for estimators that turn a (value, time) queue into a
+    final output (reference: src/theia/response.py:1676-1718)."""
+
+    def __call__(self, queue):  # pragma: no cover - interface
+        raise NotImplementedError
+
+
+class HistogramReducer:
+    """Reduces a stack of partial histograms into one, times the
+    normalization (reference: src/theia/response.py:1065-1180,
+    estimator.reduce.glsl: a workgroup reduction of partials; here one
+    differentiable sum)."""
+
+    def __init__(self, *, nBins: int = 100, normalization: float = 1.0):
+        self.nBins = nBins
+        self.normalization = normalization
+
+    def __call__(self, hists):
+        hists = torch.as_tensor(hists).reshape(-1, self.nBins)
+        return hists.sum(dim=0) * self.normalization
+
+
+def _queue(capacity: int, fields: dict, device) -> dict:
+    device = resolve_device(device)
+    queue = dict(
+        cursor=torch.zeros((), dtype=torch.int64, device=device),
+        overflow=torch.zeros((), dtype=torch.int64, device=device),
+        valid=torch.zeros(capacity + 1, dtype=torch.bool, device=device),
+    )
+    for name, (width, dtype) in fields.items():
+        queue[name] = torch.zeros((capacity + 1, *width), dtype=dtype, device=device)
+    return queue
+
+
+def createHitTimeQueue(capacity: int, *, objectId: bool = True, device="cuda") -> dict:
+    """An empty queue of :class:`StoreTimeHitResponse`'s layout (reference:
+    src/theia/response.py:638-652; ``items.HitTimeAndIdItem`` /
+    ``items.HitTimeItem`` describe a record): the state its ``init`` makes
+    for a tracer of ``capacity`` slots (lanes x maxHitsPerThread), each
+    buffer one row longer than ``capacity`` (the drop slot that takes
+    rejected and overflowing lanes, which ``result`` cuts off), with
+    ``cursor`` and ``overflow``. ``objectId=False`` leaves out the ids."""
+    fields = _TIME_FIELDS if objectId else dict(time=_TIME_FIELDS["time"])
+    return _queue(capacity, fields, device)
+
+
+def createValueQueue(capacity: int, *, device="cuda") -> dict:
+    """An empty queue of :class:`StoreValueHitResponse`'s layout, the input
+    of the estimators (reference: src/theia/response.py:434-441;
+    ``items.ValueItem`` describes a record). ``theia_tpu``'s has
+    ``capacity`` rows and a ``cursor``; this one is the port's queue state
+    as ``StoreValueHitResponse.init`` makes it for a tracer of ``capacity``
+    slots: ``value``, ``time`` and ``valid`` of ``capacity + 1`` rows (the
+    drop slot last), ``cursor`` and ``overflow``. ``result`` cuts the drop
+    slot off; the estimators take either, since the drop slot counts only
+    where ``valid`` is set, which a result never has past ``capacity``."""
+    return _queue(capacity, _VALUE_FIELDS, device)
+
+
+def _valid_rows(queue) -> tuple[np.ndarray, np.ndarray]:
+    """(value, time) of a queue's valid rows on the host, float64 values."""
+    host = lambda key: queue[key].detach().cpu().numpy() if hasattr(queue[key], "detach") else np.asarray(queue[key])
+    valid = host("valid").astype(bool)
+    return host("value")[valid], host("time")[valid]
+
+
+class HistogramEstimator(Estimator):
+    """Turns a (value, time) queue into a time histogram on the host
+    (reference: src/theia/response.py:1721-1850, shader/estimator.hist.glsl)."""
+
+    def __init__(self, *, nBins: int = 100, t0: float = 0.0, binSize: float = 1.0, normalization: float = 1.0):
+        self.nBins = nBins
+        self.t0 = t0
+        self.binSize = binSize
+        self.normalization = normalization
+
+    def __call__(self, queue) -> np.ndarray:
+        value, time = _valid_rows(queue)
+        hist, _ = np.histogram(
+            time, bins=self.nBins, range=(self.t0, self.t0 + self.nBins * self.binSize),
+            weights=value.astype(np.float64),
+        )
+        return hist * self.normalization
+
+
+class HostEstimator:
+    """The (value, time) queue's valid rows as host arrays
+    (reference: src/theia/response.py:1853-1905)."""
+
+    def __call__(self, queue):
+        value, time = _valid_rows(queue)
+        return {"value": value, "time": time}
+
+
+def _drive(response: HitResponse, item: HitItem, mask, rng: RNGState, params=None):
+    """One record of ``item`` into a fresh state of ``response``, prepared
+    for one slot a lane; returns its result."""
+    n = mask.shape[0]
+    response.prepare(TraceConfig(batch_size=n, capacity=n, max_hits_per_thread=1, normalization=1.0,
+                                 polarized=item.stokes is not None))
+    params = response.params(mask.device) if params is None else params
+    state, _ = response.record(params, response.init(mask.device), item, mask, rng)
+    return response.result(params, state)
+
+
+def replay_hits(hits: dict, response: HitResponse, params=None, *, rng=None, device=None):
+    """Feeds stored hits (a :class:`HitRecorder` result) back through any
+    response (reference: src/theia/response.py:278-422 HitReplay). The hits
+    go to ``device``, by default the device of their tensors (the card for
+    host arrays); ``rng`` (default ``PhiloxRNG(key=0xC0FFEE)``) gives the
+    response's draws, stream = slot."""
+    from .random import PhiloxRNG
+
+    if device is None:
+        device = hits["valid"].device if hasattr(hits["valid"], "device") else "cuda"
+    device = resolve_device(device)
+    get = lambda key: torch.as_tensor(hits[key], device=device)
+    valid = get("valid").to(torch.bool)
+    item = HitItem(
+        position=get("position"), direction=get("direction"), normal=get("normal"),
+        wavelength=get("wavelength"), time=get("time"), contrib=get("contrib"),
+        object_id=get("objectId").to(torch.int32),
+        stokes=get("stokes") if "stokes" in hits else None,
+        pol_ref=get("polRef") if "polRef" in hits else None,
+    )
+    rng = rng if rng is not None else PhiloxRNG(key=0xC0FFEE)
+    lanes = rng.state(torch.arange(valid.shape[0], dtype=torch.int32, device=device))
+    return _drive(response, item, valid, lanes, params)
+
+
+def sample_camera_hits(camera, response: HitResponse, n: int, *, wavelength=450.0, rng=None, device="cuda"):
+    """Drives a response with ``n`` camera-sampled hits at one wavelength
+    (testing detector models; reference: src/theia/response.py:908-1062
+    CameraHitResponseSampler); ``rng`` defaults to
+    ``PhiloxRNG(key=0xC0FFEE)``, stream = lane."""
+    from .random import PhiloxRNG
+
+    device = resolve_device(device)
+    rng = rng if rng is not None else PhiloxRNG(key=0xC0FFEE)
+    state = rng.state(torch.arange(n, dtype=torch.int32, device=device))
+    lam = torch.full((n,), wavelength, dtype=torch.float32, device=device)
+    ray, state = camera.sample_ray(camera.params(device), lam, state)
+    item = HitItem(
+        position=ray.hit_position, direction=ray.hit_direction, normal=ray.hit_normal, wavelength=lam,
+        time=ray.time_delta, contrib=ray.contrib, object_id=ray.object_id,
+    )
+    return _drive(response, item, torch.ones(n, dtype=torch.bool, device=device), state)
+
+
+# the reference's names (src/theia/response.py API)
+HitReplay = replay_hits
+CameraHitResponseSampler = sample_camera_hits

@@ -6,7 +6,7 @@ estimation), ``intersect`` and ``occluded``, returning a
 :class:`TargetSample` whose lanes carry a ``valid`` mask (reference:
 src/theia/target.py:37-424, shader/target.*.glsl). A target guide steers
 a scene tracer's shadow rays toward a detector (reference:
-src/theia/target.py:427-527, shader/target_guide.sphere.glsl). Same
+src/theia/target.py:427-736, shader/target_guide.*.glsl). Same
 sampling and the same float32 op order as ``theia_tpu.target``, so the
 same Philox words give the same samples to float32 rounding.
 """
@@ -34,6 +34,8 @@ __all__ = [
     "TargetGuideSample",
     "TargetGuide",
     "SphereTargetGuide",
+    "FlatTargetGuide",
+    "DiskTargetGuide",
 ]
 
 
@@ -440,3 +442,138 @@ class SphereTargetGuide(TargetGuide):
         cos_dir = dot(view_dir, direction)
         prob = prob * (cos_min >= 1.0 - cos_dir).to(torch.float32)
         return TargetGuideSample(direction, dist, prob)
+
+
+def _guide_sample_from_point(observer, pos, normal, prob_area, dist=None):
+    """createTargetGuideSample: an area pdf turned into a solid-angle pdf,
+    zero from the wrong side of the surface and where the conversion
+    overflows (reference: shader/target_guide.common.glsl:10-32)."""
+    d = pos - observer
+    d2 = torch.clamp_min(dot(d, d), 1e-30)
+    direction = d / sqrt(d2)[..., None]
+    cos_normal = dot(direction, normal)
+    prob = prob_area * d2 / torch.clamp_min(torch.abs(cos_normal), 1e-30)
+    prob = torch.where(torch.isinf(prob), 0.0, prob)
+    prob = prob * (cos_normal < 0.0).to(torch.float32)
+    if dist is None:
+        dist = sqrt(d2)
+    return TargetGuideSample(direction, dist, prob)
+
+
+class _PlanarTargetGuide(TargetGuide):
+    """Shared rect/disk guide machinery: a point drawn on the plane in its
+    own frame, or the plane hit along a direction
+    (reference: shader/target_guide.flat.glsl, target_guide.disk.glsl)."""
+
+    nRNGSamples = 2
+    _extra_names = ("normal", "up")
+
+    def __init__(self, *, position, normal, up) -> None:
+        self.position = position
+        self.normal = normal
+        self.up = up
+        self.update()
+
+    def update(self) -> None:
+        m = _orient_frame(self.normal, self.up)
+        self._objToWorld = m
+        self._normal = m[:, 2]
+        self._prob = 1.0 / self._area()
+
+    def params(self, device):
+        self.update()
+        return super().params(device)
+
+    def _frame(self, params, shape):
+        o2w = torch.broadcast_to(params["_objToWorld"], (*shape, 3, 3))
+        offset = torch.broadcast_to(params["position"], (*shape, 3))
+        nrm = torch.broadcast_to(params["_normal"], (*shape, 3))
+        return o2w, offset, nrm
+
+    def sample(self, params, observer, rng: RNGState):
+        shape = observer.shape[:-1]
+        o2w, offset, nrm = self._frame(params, shape)
+        local, rng = self._sample_local(params, rng)
+        pos = matvec(o2w, local) + offset
+        prob = torch.broadcast_to(params["_prob"], shape)
+        return _guide_sample_from_point(observer, pos, nrm, prob), rng
+
+    def eval(self, params, observer, direction) -> TargetGuideSample:
+        shape = observer.shape[:-1]
+        o2w, offset, nrm = self._frame(params, shape)
+        w2o = o2w.transpose(-1, -2)
+        local_obs = matvec(w2o, observer - offset)
+        local_dir = matvec(w2o, direction)
+        dz = local_dir[..., 2]
+        t = -local_obs[..., 2] / torch.where(torch.abs(dz) > 1e-12, dz, 1e-12)
+        local_pos = local_obs + t[..., None] * local_dir
+        inside = (t > 0.0) & self._inside(params, local_pos)
+        cos_normal = dot(direction, nrm)
+        prob_area = torch.broadcast_to(params["_prob"], shape)
+        prob = prob_area * t * t / torch.clamp_min(torch.abs(cos_normal), 1e-30)
+        prob = torch.where(torch.isinf(prob), 0.0, prob)
+        prob = prob * (cos_normal < 0.0).to(torch.float32)
+        prob = prob * inside.to(torch.float32)
+        return TargetGuideSample(direction, torch.where(inside, t, torch.inf), prob)
+
+
+class FlatTargetGuide(_PlanarTargetGuide):
+    """Rectangular target guide (reference: src/theia/target.py:528-637)."""
+
+    name = "Flat Target Guide"
+    _param_names = ("width", "height", "position", "_normal", "_prob", "_objToWorld")
+
+    def __init__(
+        self,
+        *,
+        width: float = 1.0 * u.m,
+        height: float = 1.0 * u.m,
+        position=(0.0, 0.0, 0.0),
+        normal=(0.0, 0.0, 1.0),
+        up=(0.0, 1.0, 0.0),
+    ) -> None:
+        self.width = width
+        self.height = height
+        super().__init__(position=position, normal=normal, up=up)
+
+    def _area(self) -> float:
+        return self.width * self.height
+
+    def _sample_local(self, params, rng):
+        (u1, u2), rng = rng.uniform2d()
+        local = vec3(params["width"] * (u1 - 0.5), params["height"] * (u2 - 0.5), torch.zeros_like(u1))
+        return local, rng
+
+    def _inside(self, params, local_pos):
+        return (2.0 * torch.abs(local_pos[..., 0]) <= params["width"]) & (
+            2.0 * torch.abs(local_pos[..., 1]) <= params["height"]
+        )
+
+
+class DiskTargetGuide(_PlanarTargetGuide):
+    """Disk target guide (reference: src/theia/target.py:639-736)."""
+
+    name = "Disk Target Guide"
+    _param_names = ("radius", "position", "_normal", "_prob", "_objToWorld")
+
+    def __init__(
+        self,
+        *,
+        radius: float = 1.0 * u.m,
+        position=(0.0, 0.0, 0.0),
+        normal=(0.0, 0.0, 1.0),
+        up=(0.0, 1.0, 0.0),
+    ) -> None:
+        self.radius = radius
+        super().__init__(position=position, normal=normal, up=up)
+
+    def _area(self) -> float:
+        return np.pi * self.radius**2
+
+    def _sample_local(self, params, rng):
+        (u1, u2), rng = rng.uniform2d()
+        return params["radius"] * sample_unit_disk(u1, u2), rng
+
+    def _inside(self, params, local_pos):
+        r2 = local_pos[..., 0] ** 2 + local_pos[..., 1] ** 2
+        return r2 <= params["radius"] ** 2

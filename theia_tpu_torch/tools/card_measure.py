@@ -837,8 +837,12 @@ def _kernel_ptxas(log: str, name: str) -> list:
 
 def _base_sources(parent: Path | None) -> tuple:
     """(csrc, signatures) of the base kernels: ``parent``'s (an earlier
-    commit's, with the package's C entry points) or the package's."""
-    return parent or _build.CSRC, tuple(_build._SIGNATURES.items())
+    commit's, with those of the package's C entry points that its sources
+    define) or the package's."""
+    if parent is None:
+        return _build.CSRC, tuple(_build._SIGNATURES.items())
+    text = "".join(path.read_text() for path in parent.glob("*.cu"))
+    return parent, tuple((name, args) for name, args in _build._SIGNATURES.items() if name in text)
 
 
 def _design(source: Path, builds: dict) -> dict:
@@ -889,7 +893,7 @@ def read_grad_builds(parent: Path | None) -> dict:
     # label -> (patches of the package's source, or None; the library the build is timed against)
     builds = {}
     if parent is not None:
-        builds["package against the parent"] = (None, _build.build(parent, (), tuple(_build._SIGNATURES.items())))
+        builds["package against the parent"] = (None, _build.build(parent, (), _base_sources(parent)[1]))
     builds.update({label: (patches, package) for label, patches in
                    _design(_build.CSRC / "table_read.cu", READ_GRAD_BUILDS).items()})
     for label, (patches, base_lib) in builds.items():
@@ -1162,7 +1166,8 @@ def _builds(parent: Path | None, source: str, designs: dict) -> dict:
         csrc, sigs = _base_sources(parent)
         parent_lib = _build.build(csrc, (), sigs)
         out["package against the parent"] = (parent_lib, package, None, (True, False))
-        text = (csrc / source).read_text()
+        # a parent from before a source was split off has none of its designs
+        text = (csrc / source).read_text() if (csrc / source).is_file() else ""
         for marker, builds in designs.items():
             if marker in text and marker not in (_build.CSRC / source).read_text():
                 for label, patches in builds.items():
@@ -1322,7 +1327,7 @@ def sobol_builds(parent: Path | None) -> dict:
     package = _build.library()
     out = {"package": dict(sass=chip_smoke.sass_report(package, ("sobol_uniform",)),
                            ptxas=_kernel_ptxas(package.build_log, "sobol_uniform"))}
-    for label, (base_lib, lib, patches, (base_rows, rows)) in _builds(parent, "sobol.cu", SOBOL_BUILDS).items():
+    for label, (base_lib, lib, patches, (base_rows, rows)) in _builds(parent, "sobol.cuh", SOBOL_BUILDS).items():
         entry = out[label] = dict(patches=patches, sass=chip_smoke.sass_report(lib, ("sobol_uniform",)),
                                   ptxas=_kernel_ptxas(lib.build_log, "sobol_uniform"))
         for name, calls in cases.items():
