@@ -8,8 +8,8 @@ Phases, one line each, any failure raises and exits non-zero:
 1. the card's name and power limit (nvidia-smi), then the kernels' build
    from ``theia_tpu_torch/csrc`` with nvcc (one process per source, run
    together) and its seconds, and the SASS of the kernel histogram's
-   record and the Sobol draw (``sass_report``: cuobjdump's opcodes, the
-   atomics apart);
+   record, the Sobol draw, the gamma draw and the track's backward sample
+   (``sass_report``: cuobjdump's opcodes, the atomics apart);
 2. the port's square root on the card (``ops.math3d.sqrt``, CUDA's
    float32 ``torch.sqrt``) bit for bit against the float64 route that it
    takes on the CPU, on 2^20 values; then each hand-written kernel
@@ -466,14 +466,19 @@ def check_philox(report):
     plain_ms = cuda_ms(lambda: philox_uniform_plain(key, ctr, stream, dim, 2), 5)
     # per lane: 8 bytes read, 8 written, and two ciphers under one key, as
     # dims d and d + 1 of the timed width-2 launch sit in different counter
-    # blocks of one stream. No library call: torch's Philox draws other
-    # words from the same key.
+    # blocks of one stream. The library call is a yardstick: torch.rand
+    # draws the same count of uniforms with its own Philox, other words.
     b = bound(16 * n, PHILOX_PAIR_OPS * n, PEAK_I32)
+    library = lambda: torch.rand(n, 2, device="cuda")
+    library_ms, library_queued_ms = cuda_ms(library, 50), cuda_ms_queued(library, 50)
     print(f"kernel philox N={n}: bit-exact (width 1 and 2); kernel {ms:.4f} ms ({queued_ms:.4f} queued), "
           f"plain {plain_ms:.4f} ms; bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
           f"({PHILOX_PAIR_OPS} int32 operations a lane at {PEAK_I32:.4g}/s), share of bound "
-          f"{b['bound_ms'] / ms:.3f} ({b['bound_ms'] / queued_ms:.3f} queued), library call: none")
-    report.update(max_abs_err=0.0, ms=ms, queued_ms=queued_ms, plain_ms=plain_ms, library_ms=None, **b)
+          f"{b['bound_ms'] / ms:.3f} ({b['bound_ms'] / queued_ms:.3f} queued); torch.rand of {n} x 2 (yardstick: "
+          f"other words) {library_ms:.4f} ms ({library_queued_ms:.4f} queued)")
+    report.update(max_abs_err=0.0, ms=ms, queued_ms=queued_ms, plain_ms=plain_ms, library_ms=library_ms,
+                  library_queued_ms=library_queued_ms, library="torch.rand of the same 2^20 x 2 uniforms, a "
+                  "yardstick: torch's Philox draws other words", **b)
 
 
 def sobol_bound(table_dims: int, dim, width: int, table_ops: int = SOBOL_TABLE_OPS) -> dict:
@@ -2592,7 +2597,8 @@ def profile_step(step, watch=()) -> dict:
         by_name.setdefault(e.name, []).append(e.device_time if hasattr(e, "device_time") else e.cuda_time)
     item = lambda n, t: dict(name=n, ms=sum(t) / 1e3, count=len(t))
     top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:12]
-    mine = ("histogram", "theia::scan", "philox", "sobol", "kde_", "read_", "::gather", "_walk", "gamma", "track_sample")
+    mine = ("histogram", "theia::scan", "philox", "sobol", "kde_", "read_", "::gather", "_walk", "gamma", "advance_dims",
+            "track_sample")
     own = sorted((n, t) for n, t in by_name.items() if any(k in n for k in mine))
     watched = {w: [item(n, t) for n, t in by_name.items() if w in n] for w in watch}
     kinds = {
@@ -3472,19 +3478,22 @@ GAMMA_LANE_FLOP, GAMMA_ROUND_FLOP = 12, 15
 #: key is key + stream for every dim): the 64-bit add with its carries 5 and
 #: the round keys' adds 20, that is PHILOX_SHARED_OPS less the dim + 1
 PHILOX_KEY_OPS = PHILOX_SHARED_OPS - 1
-#: float32 operations of a (lane, segment) pair of the track's backward
-#: sample (csrc/cherenkov_track.cu), at the least form of each step, a
-#: square root or a division counted as one. Every lane: mu 8, the
-#: perpendicular's vector 9, its length 7, mu - cot d 2, the segment test 3,
-#: the contribution ft / d and its select 2, the sum 1. A lane on a surface
-#: (a nonzero normal) adds the point 6, the direction to the observer 3 + 7
-#: + 3, the cosine 5 + 1 and its product 1; a volume point's cosine is 1.
-TRACK_PAIR_FLOP, TRACK_SURFACE_FLOP = 32, 26
-#: the second pass's compare of the running sum with u total, a pair; and
-#: the chosen candidate's outputs, once a lane: its time 5 and, for a
-#: volume point (whose pairs did not form them), the point 6 and the
-#: direction 13
-TRACK_COUNT_FLOP, TRACK_TIME_FLOP, TRACK_POINT_FLOP = 1, 5, 19
+#: float32 operations of the track's backward sample
+#: (csrc/cherenkov_track.cu) at the least form of each step, a square root
+#: or a division counted as one (``track_flop``). A (lane, segment) pair
+#: off the segment: mu 8, the perpendicular's vector 9, its length 7, the
+#: shift mu - cot d 2, the segment test 3. A pair on the segment adds its
+#: contribution ft cos / d and its select 2 and the sum 1; on a surface
+#: (a nonzero normal) also the point 6, the direction to the observer 3 + 7
+#: + 3, the cosine 5 + 1 and its product 1 (a volume point's cosine is 1).
+TRACK_OFF_FLOP, TRACK_ON_FLOP, TRACK_SURFACE_FLOP = 29, 3, 26
+#: the two-pass design's count (``track_flop_yardstick``): the on-segment
+#: form in every pair, and a second pass of compares up to k
+TRACK_PAIR_FLOP, TRACK_COUNT_FLOP = TRACK_OFF_FLOP + TRACK_ON_FLOP, 1
+#: the chosen candidate's outputs, once a lane: its time 5 and, where its
+#: pair did not form them (a volume point, or a pair off the segment), the
+#: point 6 and the direction 13
+TRACK_TIME_FLOP, TRACK_POINT_FLOP = 5, 19
 #: the synthetic gamma case's alphas, a lane each in turn (the cascades'
 #: alpha_long runs from 1.6 at 1 GeV to 10.8 at 1 PeV; 6.38 for phase 3m's
 #: 1 TeV EM cascade), and
@@ -3567,7 +3576,8 @@ def hold_gamma(alpha, rng, label) -> dict:
     rounds = stats["rounds"]
     r_total = int(rounds.sum())
     per_lane = torch.as_tensor(alpha).numel() != 1
-    b = bound(n * (12 + 4 * per_lane) + 4, n * GAMMA_LANE_FLOP + r_total * GAMMA_ROUND_FLOP)
+    # a lane reads its stream and dim (and alpha) and writes x and its new dim
+    b = bound(n * (16 + 4 * per_lane), n * GAMMA_LANE_FLOP + r_total * GAMMA_ROUND_FLOP)
     int_ms = gamma_int_ops(rng, rounds) / PEAK_I32 * 1e3
     if int_ms > b["bound_ms"]:
         b = dict(bound_ms=int_ms, bound_by="operations")
@@ -3593,11 +3603,66 @@ def gamma_cases(n: int) -> dict:
     return {"philox": (alpha, philox), "sobol": (alpha, SobolQRNG(**FLAGSHIP_SOBOL).state(lanes))}
 
 
-def check_gamma(report, paths: dict) -> None:
+#: the alphas of ``gamma_mixed_case``'s lanes, and the lanes of its first
+#: blocks that take the edge alphas (0, -1, NaN): spread over every warp
+GAMMA_MIXED = (0.05, 0.5, 1.0, 2.5, 6.38, 40.0)
+#: the kernels that one sample_gamma call runs on the card: the draws,
+#: then the new dims (a programmatic dependent launch)
+GAMMA_KERNELS_A_CALL = 2
+GAMMA_EDGE_LANES = (3, 37, 70, 101, 140, 199, 230, 255, 300, 777, 1023)
+
+
+def gamma_mixed_case(n: int, device="cuda") -> dict:
+    """Calls of ``sample_gamma`` whose lanes' rounds differ widely within
+    a block: ``n`` lanes of ``GAMMA_MIXED`` at random (seeded numpy), the
+    edge alphas 0, -1 and NaN in turn at ``GAMMA_EDGE_LANES`` (64 rounds for
+    -1 and NaN, in several warps of one block and in later blocks), drawn
+    by Philox (lanes at dims 0-12) and by the flagship's SobolQRNG, as
+    ``gamma_cases``."""
+    import numpy as np
+    import torch
+
+    from theia_tpu_torch.random import PhiloxRNG, SobolQRNG
+
+    rs = np.random.default_rng(9)
+    alpha = rs.choice(np.asarray(GAMMA_MIXED, np.float32), n)
+    edges = [j for j in GAMMA_EDGE_LANES if j < n]
+    alpha[edges] = np.resize(np.asarray([0.0, -1.0, np.nan], np.float32), len(edges))
+    lanes = torch.arange(n, dtype=torch.int32, device=device)
+    alpha = torch.as_tensor(alpha, device=device)
+    philox = PhiloxRNG(key=0xF00D, offset=77).state(lanes)
+    philox = dataclasses.replace(philox, dim=(lanes * 5) % 13)
+    return {"philox": (alpha, philox), "sobol": (alpha, SobolQRNG(**FLAGSHIP_SOBOL).state(lanes))}
+
+
+def gamma_kernels(prof, calls: int) -> dict:
+    """The kernels of ``calls`` ``sample_gamma`` calls in a ``profile_step``
+    report ``prof``, by name, each count divided by ``calls``."""
+    found = {}
+    for item in prof["own"]:
+        name = next((k for k in ("sample_gamma", "advance_dims") if k in item["name"]), None)
+        if name:
+            found[name] = found.get(name, 0) + item["count"] / calls
+    return found
+
+
+def gamma_launches(alpha, rng, calls: int = 4) -> dict:
+    """The kernels that one ``sample_gamma`` call runs on the card, by
+    name: ``profile_step`` of ``calls`` calls (after a warm-up call)."""
+    from theia_tpu_torch.ops.gamma import sample_gamma
+
+    sample_gamma(alpha, rng)
+    return gamma_kernels(profile_step(lambda: [sample_gamma(alpha, rng) for _ in range(calls)]), calls)
+
+
+def check_gamma(report, paths: dict, profiled: dict) -> None:
     """Kernel K1 (``sample_gamma``, ``csrc/gamma.cu``) against its plain
     version, bit for bit: the synthetic 2^20-lane calls of both generators
-    (``gamma_cases``) and each path's recorded calls (``paths``: label ->
-    calls); then the paths' calls replayed, as called and queued (the
+    (``gamma_cases``), the mixed rounds of ``gamma_mixed_case`` and each
+    path's recorded calls (``paths``: label -> calls); the kernels of one
+    call in each path's profiled batch (``profiled``: label -> name ->
+    count, ``gamma_kernels``); then the paths' calls replayed, as called
+    and queued (the
     kernel's row: the mean a call), beside the plain version, the bound at
     the lanes' own rounds and ``torch._standard_gamma`` on the same alphas
     (a yardstick: it draws other numbers, from torch's generator)."""
@@ -3611,11 +3676,20 @@ def check_gamma(report, paths: dict) -> None:
         assert info["R"] == 64 and info["nan_lanes"] == 1, info
         print(f"kernel sample_gamma, 2^20 lanes ({gen}; alphas {GAMMA_SWEEP}, edge lanes {GAMMA_EDGES}): bit-exact, "
               f"R = {info['R']}, mean rounds {info['mean_rounds']:.4f}, {info['nan_lanes']} NaN lane")
+    for gen, (alpha, rng) in gamma_mixed_case(1 << 16).items():
+        info = synthetic[f"mixed rounds, {gen}"] = hold_gamma(alpha, rng, f"mixed rounds, {gen}")
+        edges = int(torch.isnan(alpha).sum() + (alpha < 0).sum())
+        assert info["R"] == 64 and info["nan_lanes"] == edges, info
+        print(f"kernel sample_gamma, 2^16 lanes of mixed rounds ({gen}; alphas {GAMMA_MIXED}, 0, -1 and NaN at lanes "
+              f"{GAMMA_EDGE_LANES}): bit-exact, R = {info['R']}, mean rounds {info['mean_rounds']:.4f}, "
+              f"{info['nan_lanes']} NaN lanes")
     alpha, rng = gamma_cases(1 << 20)["philox"]
     call = lambda: sample_gamma(alpha, rng)
     synthetic.update(ms=cuda_ms(call, 20), queued_ms=cuda_ms_queued(call, 20),
                      plain_ms=cuda_ms(lambda: sample_gamma_plain(alpha, rng), 1),
-                     library_ms=cuda_ms(lambda: torch._standard_gamma(alpha.clamp_min(1e-6)), 20), **synthetic["philox"])
+                     library_ms=cuda_ms(lambda: torch._standard_gamma(alpha.clamp_min(1e-6)), 20),
+                     library_queued_ms=cuda_ms_queued(lambda: torch._standard_gamma(alpha.clamp_min(1e-6)), 20),
+                     **synthetic["philox"])
     rows, every = {}, []
     for label, calls in paths.items():
         held = [hold_gamma(a, r, label) for a, r in calls]
@@ -3633,56 +3707,158 @@ def check_gamma(report, paths: dict) -> None:
             plain_ms=cuda_ms(lambda: replay(sample_gamma_plain), 1) / n,
             bound_ms=sum(h["bound_ms"] for h in held) / n, bound_by=held[0]["bound_by"],
             library_ms=cuda_ms(lambda: [torch._standard_gamma(a) for a in dense], 10) / n,
+            library_queued_ms=cuda_ms_queued(lambda: [torch._standard_gamma(a) for a in dense], max(1, 300 // n)) / n,
         )
         every += held
         r = rows[label]
         print(f"kernel sample_gamma on {label}'s inputs: {n} calls a batch ({r['lanes']} lanes, R {r['R']}, mean "
               f"rounds {r['mean_rounds']:.4f}), bit-exact; {r['ms']:.4f} ms a call ({r['queued_ms']:.4f} queued), plain "
               f"{r['plain_ms']:.4f} ms; bound {r['bound_ms']:.5f} ms by {r['bound_by']}, share {r['bound_ms'] / r['queued_ms']:.3f} "
-              f"queued; torch._standard_gamma (yardstick: other numbers) {r['library_ms']:.4f} ms")
+              f"queued; torch._standard_gamma (yardstick: other numbers) {r['library_ms']:.4f} ms "
+              f"({r['library_queued_ms']:.4f} queued)")
     n = sum(r["calls"] for r in rows.values())
     mean = lambda key: sum(r[key] * r["calls"] for r in rows.values()) / n
+    for label, launches in profiled.items():
+        print(f"kernel sample_gamma: one call of {label}'s profiled batch runs {sum(launches.values()):g} kernels on the "
+              f"card (torch.profiler: {launches}; {GAMMA_KERNELS_A_CALL} by design)")
+    for label, launches in profiled.items():
+        assert launches.get("sample_gamma") == 1 and sum(launches.values()) == GAMMA_KERNELS_A_CALL, (label, profiled)
+    launches = next(iter(profiled.values()))
     report.update(max_abs_err=0.0, ms=mean("ms"), queued_ms=mean("queued_ms"), plain_ms=mean("plain_ms"),
                   bound_ms=sum(h["bound_ms"] for h in every) / n, bound_by=every[0]["bound_by"],
-                  library_ms=mean("library_ms"), library="torch._standard_gamma on the same alphas, a yardstick: "
-                  "it draws other numbers", path_calls=n, paths=rows, synthetic=synthetic)
+                  library_ms=mean("library_ms"), library_queued_ms=mean("library_queued_ms"),
+                  library="torch._standard_gamma on the same alphas, a yardstick: "
+                  "it draws other numbers", path_calls=n, paths=rows, synthetic=synthetic,
+                  kernels_a_call=sum(launches.values()), kernels_of_a_call=profiled)
     print(f"kernel sample_gamma synthetic (2^20 lanes, Philox): {synthetic['ms']:.4f} ms ({synthetic['queued_ms']:.4f} "
           f"queued), plain {synthetic['plain_ms']:.4f} ms, bound {synthetic['bound_ms']:.5f} ms by "
-          f"{synthetic['bound_by']}, torch._standard_gamma {synthetic['library_ms']:.4f} ms")
+          f"{synthetic['bound_by']}, torch._standard_gamma {synthetic['library_ms']:.4f} ms "
+          f"({synthetic['library_queued_ms']:.4f} queued)")
 
 
-def track_case(n: int, segments: int, seed: int):
+def track_case(n: int, segments: int, seed: int, device="cuda"):
     """A synthetic call of ``track_backward_sample``: the straight line of
     the track run cut into ``segments`` (and bent after its middle),
     observers around it, half of them on a surface, photon-count factors
     and cotangents at n 1.33-1.36, uniforms."""
+    import numpy as np
+
+    x = np.linspace(-50.0, 50.0, segments + 1)
+    verts = np.stack([x, np.where(x > 0, 0.3 * x, 0.0), 0 * x, x / 0.3], axis=1)
+    rs = np.random.default_rng(seed)
+    return _track_call(verts, rs.uniform(-60.0, 60.0, (n, 3)), rs, device)
+
+
+def _track_call(verts, obs, rs, device):
+    """``track_backward_sample``'s arguments for the vertices ``verts`` and
+    observers ``obs``: half of them on a surface (a random unit normal),
+    photon-count factors and cotangents at n 1.33-1.36, uniforms; float32
+    on ``device``."""
     import numpy as np
     import torch
 
     from theia_tpu_torch.light import _ft_factor
     from theia_tpu_torch.ops.cherenkov_track import segment_table
 
-    rs = np.random.default_rng(seed)
-    x = np.linspace(-50.0, 50.0, segments + 1)
-    verts = np.stack([x, np.where(x > 0, 0.3 * x, 0.0), 0 * x, x / 0.3], axis=1).astype(np.float32)
-    obs = rs.uniform(-60.0, 60.0, (n, 3)).astype(np.float32)
+    n = obs.shape[0]
     nrm = rs.normal(size=(n, 3)).astype(np.float32)
     nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
     nrm[: n // 2] = 0.0
-    dev = lambda a: torch.as_tensor(a, device="cuda")
-    n_refr, lam = dev(rs.uniform(1.33, 1.36, n).astype(np.float32)), dev(rs.uniform(420.0, 480.0, n).astype(np.float32))
+    dev = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    n_refr, lam = dev(rs.uniform(1.33, 1.36, n)), dev(rs.uniform(420.0, 480.0, n))
     cos = 1.0 / n_refr
     cot = cos / torch.clamp_min(torch.sqrt(1.0 - cos * cos), 1e-7)
     return (segment_table(dev(verts)), dev(obs), dev(nrm), _ft_factor(True, n_refr, lam), cot,
-            dev(rs.uniform(size=n).astype(np.float32)))
+            dev(rs.uniform(size=n)))
+
+
+#: the first lanes of ``track_rule_cases``' "edge lanes", in order
+TRACK_EDGE_LANES = (
+    "ft NaN", "observer +inf", "observer -inf", "normal NaN", "cot NaN", "cot 1e8 (not tame)", "u 0",
+    "u 1 - 2^-24", "u 1", "u NaN", "ft 0", "on the line past its end (total 0)", "a surface facing away",
+    "observer at TAME_POSITION", "ft at TAME_WEIGHT",
+)
+
+
+def zigzag(n: int, rs, step: float = 4.0):
+    """(vertices, observers) of a track that crosses x = -20 .. 20 m 300
+    times, ``step`` m further along z each time, and ``n`` observers in the
+    box around it, from the numpy generator ``rs``."""
+    import numpy as np
+
+    z = np.arange(301) * step
+    verts = np.stack([np.where(np.arange(301) % 2 == 0, -20.0, 20.0), 0 * z, z, np.arange(301) * 40.0 / 0.3], axis=1)
+    return verts, rs.uniform([-30.0, -15.0, -10.0], [30.0, 15.0, 300 * step + 10.0], (n, 3))
+
+
+def track_rule_cases(n: int, device="cuda") -> dict:
+    """The calls that single out the track kernel's shortcuts, ``n`` lanes
+    each (``n`` >= 64), seeded numpy, half of the lanes on a surface:
+    "edge lanes" (``track_case``'s bent line at 256 segments with the
+    ``TRACK_EDGE_LANES`` first), "equal running sums" (a 128-segment line
+    with every row twice and u = 0.5: a lit lane's two equal contributions
+    put its running sum exactly at u total after the first), "zigzag, 300
+    segments" (``zigzag``, 4 m a crossing: lanes lit on 1 to 12
+    segments), "dense zigzag, 300 segments" (2 m a crossing: lanes lit on 2
+    to 23 segments, about half of them past ``TRACK_LIST``, so the second
+    pass), "a wild row" (the edge lanes' line with one row's
+    start at 1e16: no lane of the call is tame, every lane takes two full
+    passes)."""
+    import numpy as np
+    import torch
+
+    from theia_tpu_torch.ops.cherenkov_track import TAME_POSITION, TAME_WEIGHT
+
+    cases = {"edge lanes": track_case(n, 256, 7, device)}
+    seg, obs, nrm, ft, cot, u = (a.clone() for a in cases["edge lanes"])
+
+    def lit(j, value):  # a volume point that the line's first half lights, at the given u
+        obs[j] = torch.tensor([-20.0, 5.0, 3.0])
+        u[j] = value
+
+    edits = {
+        "ft NaN": lambda j: ft.__setitem__(j, float("nan")),
+        "observer +inf": lambda j: obs.__setitem__((j, 0), float("inf")),
+        "observer -inf": lambda j: obs.__setitem__((j, 2), -float("inf")),
+        "normal NaN": lambda j: nrm.__setitem__((j, 1), float("nan")),
+        "cot NaN": lambda j: cot.__setitem__(j, float("nan")),
+        "cot 1e8 (not tame)": lambda j: cot.__setitem__(j, 1e8),
+        "u 0": lambda j: lit(j, 0.0),
+        "u 1 - 2^-24": lambda j: lit(j, 1.0 - 2.0**-24),
+        "u 1": lambda j: lit(j, 1.0),
+        "u NaN": lambda j: lit(j, float("nan")),
+        "ft 0": lambda j: ft.__setitem__(j, 0.0),
+        "on the line past its end (total 0)": lambda j: obs.__setitem__(j, torch.tensor([70.0, 21.0, 0.0])),
+        "a surface facing away": lambda j: (obs.__setitem__(j, torch.tensor([-20.0, 0.0, 8.0])),
+                                            nrm.__setitem__(j, torch.tensor([0.0, 0.0, -1.0]))),
+        "observer at TAME_POSITION": lambda j: obs.__setitem__((j, 1), TAME_POSITION),
+        "ft at TAME_WEIGHT": lambda j: ft.__setitem__(j, TAME_WEIGHT),
+    }
+    for j, label in enumerate(TRACK_EDGE_LANES):
+        edits[label](j)
+    cases["edge lanes"] = (seg, obs, nrm, ft, cot, u)
+    rs = np.random.default_rng(8)
+    x = np.linspace(-50.0, 50.0, 129)
+    line = np.stack([x, 0 * x, 0 * x, x / 0.3], axis=1)
+    call = _track_call(line, rs.uniform(-60.0, 60.0, (n, 3)), rs, device)
+    twice = torch.repeat_interleave(call[0], 2, dim=0)
+    cases["equal running sums"] = (twice, *call[1:5], torch.full_like(call[5], 0.5))
+    cases["zigzag, 300 segments"] = _track_call(*zigzag(n, rs), rs, device)
+    cases["dense zigzag, 300 segments"] = _track_call(*zigzag(n, rs, 2.0), rs, device)
+    wild = seg.clone()
+    wild[100, 0] = 1e16
+    cases["a wild row"] = (wild, *cases["edge lanes"][1:])
+    return cases
 
 
 def hold_track(args, label) -> dict:
     """``track_backward_sample``'s kernel against its plain version on the
-    card on one call, bit for bit in each output; returns its bound."""
+    card on one call, bit for bit in each output; returns its bound, with
+    the two-pass design's count as ``yardstick``, and the lanes that the kernel
+    sends to its second pass (lit on more than ``TRACK_LIST`` segments)."""
     import torch
 
-    from theia_tpu_torch.ops.cherenkov_track import track_backward_sample, track_backward_sample_plain
+    from theia_tpu_torch.ops.cherenkov_track import TRACK_LIST, track_backward_sample, track_backward_sample_plain
 
     got = track_backward_sample(*args)
     torch.cuda.synchronize()
@@ -3692,18 +3868,52 @@ def hold_track(args, label) -> dict:
               for name, g, w in zip(("total", "position", "direction", "time", "k"), got, want)}
     assert not any(differ.values()), f"track_backward_sample on {label}: {differ}"
     n, segments = args[1].shape[0], args[0].shape[0]
-    flop, full = track_flop(args[2], got[4], segments)
+    lit = track_lit(args, got[4])
+    flop = track_flop(args[2], lit)
+    old, full = track_flop_yardstick(args[2], got[4], segments)
     return dict(bound(n * (36 + 36) + segments * 36, flop), lanes=n, segments=segments,
-                live=float((got[0] > 0).double().mean()), two_full_passes_ms=full / PEAK_F32 * 1e3)
+                live=float((got[0] > 0).double().mean()), yardstick_ms=old / PEAK_F32 * 1e3,
+                two_full_passes_ms=full / PEAK_F32 * 1e3, lit_pairs=int(lit["on"].sum()),
+                past_list=int((lit["on"] > TRACK_LIST).sum()))
 
 
-def track_flop(normal, k, segments: int) -> tuple[int, int]:
-    """float32 operations that one ``track_backward_sample`` call needs,
-    from its lanes' normals and chosen segments ``k``: the first pass over
+def track_lit(args, k) -> dict:
+    """Each lane's segments on the segment (``on``), those of surface lanes
+    (``surface``), and whether its chosen candidate ``k`` is on its segment
+    (``chosen_on``), from the plain version's candidates."""
+    import torch
+
+    from theia_tpu_torch.ops.cherenkov_track import _candidate
+
+    seg, observer, normal, _, cot, _ = args
+    on = torch.zeros(observer.shape[0], dtype=torch.int64, device=observer.device)
+    with torch.no_grad():
+        for s in range(seg.shape[0]):
+            *_, mu, length = _candidate(seg[s], observer, cot)
+            on += (mu >= 0.0) & (mu <= length)
+        *_, mu, length = _candidate(seg[k.long()], observer, cot)
+    return dict(on=on, surface=(normal * normal).sum(1) != 0, chosen_on=(mu >= 0.0) & (mu <= length),
+                segments=seg.shape[0])
+
+
+def track_flop(normal, lit) -> int:
+    """float32 operations that one ``track_backward_sample`` call needs
+    at the function's least form: every pair's short form, the lit pairs'
+    contributions and sums (and, on a surface, their direction and
+    cosine), the chosen candidate's outputs once; no second pass."""
+    n = normal.shape[0]
+    on, surface = lit["on"], lit["surface"]
+    reuse = int((surface & lit["chosen_on"]).sum())  # a surface lane's lit pair formed its point and direction
+    pairs = int(on.sum()) * TRACK_ON_FLOP + int(on[surface].sum()) * TRACK_SURFACE_FLOP
+    return n * TRACK_OFF_FLOP * lit["segments"] + pairs + n * TRACK_TIME_FLOP + (n - reuse) * TRACK_POINT_FLOP
+
+
+def track_flop_yardstick(normal, k, segments: int) -> tuple[int, int]:
+    """The two-pass design's count, from the lanes' normals and chosen segments
+    ``k``: the whole pair form (a surface lane's direction and cosine) over
     every segment; the second pass, whose running sum only grows, up to and
-    including segment k, where it first reaches u total; the chosen
-    candidate's outputs. Second, the count with both passes over every
-    segment, as the kernel runs them."""
+    including segment k; the chosen candidate's outputs. Second, the count
+    with both passes over every segment."""
     import torch
 
     surface = (normal * normal).sum(1) != 0
@@ -3740,12 +3950,15 @@ def track_gradient_rel(args) -> float:
 def check_track(report, paths: dict) -> None:
     """Kernel K2 (``track_backward_sample``, ``csrc/cherenkov_track.cu``)
     against its plain version, bit for bit: synthetic 2^20-lane calls on
-    2 and 256 segments and each path's recorded calls (``paths``); its
-    gradient on the card against the CPU port's on a small call
-    (``track_gradient_rel``); then the paths' calls
-    replayed as called and queued (the kernel's row: the mean a call of
-    the 256-segment run; the 3-vertex run's beside it), beside the plain
-    version and the bound. No library call computes it."""
+    2 and 256 segments, 2^16-lane calls on 1 and 300 segments and on
+    ``track_rule_cases`` (the edge lanes, equal running sums, the zigzag
+    whose lanes overflow the kernel's list, a row that is not tame), and
+    each path's recorded calls (``paths``); its gradient on the card
+    against the CPU port's on a small call (``track_gradient_rel``); then
+    the paths' calls replayed as called and queued (the kernel's row: the
+    mean a call of the 256-segment run; the 3-vertex run's beside it),
+    beside the plain version and the bound (the two-pass design's count as
+    ``yardstick``). No library call computes it."""
     import torch
 
     from theia_tpu_torch.ops.cherenkov_track import track_backward_sample, track_backward_sample_plain
@@ -3757,9 +3970,15 @@ def check_track(report, paths: dict) -> None:
         call = lambda: track_backward_sample(*args)
         info.update(ms=cuda_ms(call, 10), queued_ms=cuda_ms_queued(call, 10))
         print(f"kernel track_backward_sample, 2^20 lanes, {segments} segments: bit-exact ({info['live']:.3f} of the "
-              f"lanes lit); {info['ms']:.4f} ms ({info['queued_ms']:.4f} queued), bound {info['bound_ms']:.4f} ms by "
-              f"{info['bound_by']}, share {info['bound_ms'] / info['queued_ms']:.3f} queued (with two full passes "
-              f"{info['two_full_passes_ms']:.4f} ms)")
+              f"lanes lit, {info['past_list']} past the list); {info['ms']:.4f} ms ({info['queued_ms']:.4f} queued), "
+              f"bound {info['bound_ms']:.4f} ms by {info['bound_by']}, share {info['bound_ms'] / info['queued_ms']:.3f} "
+              f"queued (yardstick {info['yardstick_ms']:.4f} ms, with two full passes {info['two_full_passes_ms']:.4f})")
+    cases = {f"{s} segments": track_case(1 << 16, s, s) for s in (1, 300)}
+    cases.update(track_rule_cases(1 << 16))
+    for label, args in cases.items():
+        info = synthetic[label] = hold_track(args, label)
+        print(f"kernel track_backward_sample, 2^16 lanes, {label}: bit-exact ({info['live']:.3f} of the lanes lit, "
+              f"{info['lit_pairs']} lit pairs, {info['past_list']} lanes past the list)")
     worst = track_gradient_rel(track_case(4096, 8, 1))
     assert worst <= 1e-5, f"track_backward_sample's gradient on the card differs from the CPU port's: {worst}"
     print(f"kernel track_backward_sample's gradient (4096 lanes, 8 segments): within {worst:.3g} of the CPU port's, "
@@ -3776,19 +3995,40 @@ def check_track(report, paths: dict) -> None:
         n = len(calls)
         rows[label] = r = dict(
             calls=n, lanes=held[0]["lanes"], segments=held[0]["segments"], live=[h["live"] for h in held],
+            past_list=[h["past_list"] for h in held],
             ms=cuda_ms(replay, 5) / n, queued_ms=cuda_ms_queued(replay, max(1, 60 // n)) / n,
             plain_ms=cuda_ms(lambda: replay(track_backward_sample_plain), 1) / n,
             bound_ms=sum(h["bound_ms"] for h in held) / n, bound_by=held[0]["bound_by"],
+            yardstick_ms=sum(h["yardstick_ms"] for h in held) / n,
             two_full_passes_ms=sum(h["two_full_passes_ms"] for h in held) / n,
         )
         print(f"kernel track_backward_sample on {label}'s inputs: {n} calls a batch ({r['lanes']} lanes, "
-              f"{r['segments']} segments, lit {[round(x, 4) for x in r['live']]}), bit-exact; {r['ms']:.4f} ms a call "
-              f"({r['queued_ms']:.4f} queued), plain {r['plain_ms']:.4f} ms; bound {r['bound_ms']:.5f} ms by "
-              f"{r['bound_by']}, share {r['bound_ms'] / r['queued_ms']:.3f} queued (with two full passes "
-              f"{r['two_full_passes_ms']:.5f} ms); library call: none")
+              f"{r['segments']} segments, lit {[round(x, 4) for x in r['live']]}, past the list {r['past_list']}), "
+              f"bit-exact; {r['ms']:.4f} ms a call ({r['queued_ms']:.4f} queued), plain {r['plain_ms']:.4f} ms; bound "
+              f"{r['bound_ms']:.5f} ms by {r['bound_by']}, share {r['bound_ms'] / r['queued_ms']:.3f} queued (yardstick "
+              f"{r['yardstick_ms']:.5f} ms, with two full passes {r['two_full_passes_ms']:.5f}); library call: none")
     main_row = rows["track-backward, 256 segments"]
-    report.update(max_abs_err=0.0, **{k: main_row[k] for k in ("ms", "queued_ms", "plain_ms", "bound_ms", "bound_by")},
+    report.update(max_abs_err=0.0, **{k: main_row[k] for k in ("ms", "queued_ms", "plain_ms", "bound_ms", "bound_by",
+                                                                "yardstick_ms")},
                   library_ms=None, paths=rows, synthetic=synthetic, gradient_worst_rel=worst)
+
+
+def cherenkov_path_calls(batch: int = BATCH) -> tuple[dict, dict]:
+    """The ``sample_gamma`` and ``track_backward_sample`` calls of one
+    batch of each phase 3m run that makes them (cherenkov-cascade,
+    cascade-backward; track-backward at 3 vertices and at 256 segments),
+    recorded as ``cherenkov_runs`` records them: (gamma, track), each
+    label -> calls."""
+    import theia_tpu_torch as P
+    from torch_flagship import build_cherenkov_backward, build_cherenkov_volume, cascade_source, track_line_source
+
+    gamma = {"cherenkov-cascade": record_gamma_calls(build_cherenkov_volume(P, batch, "cuda", source="cascade")),
+             "cascade-backward": record_gamma_calls(build_cherenkov_backward(P, batch, "cuda",
+                                                                             source=cascade_source(P)))}
+    track = {label: record_track_calls(build_cherenkov_backward(P, batch, "cuda",
+                                                                source=track_line_source(P, "track", segments)))
+             for label, segments in (("track-backward", 2), ("track-backward, 256 segments", 256))}
+    return gamma, track
 
 
 #: the track runs' light curves agree with each other and with the simple
@@ -3815,7 +4055,7 @@ def cherenkov_runs(mesh, wrappers, kernels, batch: int = BATCH, device="cuda") -
         build_cherenkov_backward, build_cherenkov_volume, build_flagship, cascade_source, track_line_source,
     )
 
-    runs, gamma_paths, track_paths, curves = {}, {}, {}, {}
+    runs, gamma_paths, track_paths, curves, gamma_profiled = {}, {}, {}, {}, {}
     report_run_ = lambda *args, **kw: report_run(runs, batch, *args, **kw)
     for kind in ("muon", "cascade"):
         label = f"cherenkov-{kind}"
@@ -3824,9 +4064,11 @@ def cherenkov_runs(mesh, wrappers, kernels, batch: int = BATCH, device="cuda") -
         per_batch = {k: v // 3 for k, v in counts_.items() if v}
         assert counts_["histogram_add"] == VOLUME_RECORDS * 3, per_batch
         assert per_batch.get("sample_gamma", 0) == (kind == "cascade"), per_batch
-        report_run_(label, seconds_, per_batch, peak_, profile_step(tracer.run), f"; histogram sums {sums_}")
+        prof = profile_step(tracer.run)
+        report_run_(label, seconds_, per_batch, peak_, prof, f"; histogram sums {sums_}")
         if kind == "cascade":
             gamma_paths[label] = record_gamma_calls(tracer)
+            gamma_profiled[label] = gamma_kernels(prof, per_batch["sample_gamma"])
         del tracer
         torch.cuda.empty_cache()
 
@@ -3843,10 +4085,12 @@ def cherenkov_runs(mesh, wrappers, kernels, batch: int = BATCH, device="cuda") -
         assert per_batch.get("sample_gamma", 0) == (calls if label.startswith("cascade") else 0), per_batch
         assert per_batch.get("track_backward_sample", 0) == (calls if label.startswith("track") else 0), per_batch
         curves[label] = sum(curves_) / len(curves_)
-        report_run_(label, seconds_, per_batch, peak_, profile_step(tracer.run),
+        prof = profile_step(tracer.run)
+        report_run_(label, seconds_, per_batch, peak_, prof,
                     f"; light curve sum over {len(curves_)} batches {float(curves[label].sum()):.6g}")
         if label.startswith("cascade"):
             gamma_paths[label] = record_gamma_calls(tracer)
+            gamma_profiled[label] = gamma_kernels(prof, calls)
         elif label.startswith("track"):
             track_paths[label] = record_track_calls(tracer)
         del tracer
@@ -3873,7 +4117,7 @@ def cherenkov_runs(mesh, wrappers, kernels, batch: int = BATCH, device="cuda") -
     del disk
     torch.cuda.empty_cache()
 
-    check_gamma(kernels["sample_gamma"], gamma_paths)
+    check_gamma(kernels["sample_gamma"], gamma_paths, gamma_profiled)
     check_track(kernels["track_backward_sample"], track_paths)
     for name in ("sample_gamma", "track_backward_sample"):
         launches = {label: info["launches_per_batch"].get(name, 0) for label, info in runs.items()}
@@ -3983,8 +4227,9 @@ def main() -> int:
     for line in lib.build_log.splitlines():
         if "registers" in line or "spill" in line:
             print("ptxas:", line.strip())
-    # the SASS of the two kernels redesigned last: the KDE record's shared adds, the Sobol fold
-    sass = sass_report(lib, ("kde_add", "sobol_uniform"))
+    # the SASS of the kernels redesigned last: the KDE record's shared adds, the Sobol fold, the gamma
+    # draw and the track's one pass
+    sass = sass_report(lib, ("kde_add", "sobol_uniform", "sample_gamma", "track_sample"))
     for fn, info in sass.items():
         print(f"sass {fn}: {info['instructions']} instructions, atomics {info['atomics']}, most used {info['opcodes']}")
 

@@ -536,8 +536,12 @@ def test_gamma_kernel_bit_exact(cuda, gen):
     """csrc/gamma.cu against its plain version on the card: a lane per
     alpha of chip_smoke.GAMMA_SWEEP, the edge lanes alpha 0 (x = 0) and -1
     (NaN, so R = 64 and the Sobol draws run into the Philox tail), 5000
-    lanes (not a multiple of the block); then a scalar alpha, one launch,
-    and a call without lanes."""
+    lanes (not a multiple of the block); the mixed rounds of
+    chip_smoke.gamma_mixed_case (lanes of alphas 0.05-40 with 0, -1 and
+    NaN spread over a block's warps and later blocks, 70,000 lanes: more
+    tiles than the persistent grid has blocks); one call's kernels counted
+    by the profiler; then a scalar alpha, one launch, and a call without
+    lanes."""
     import chip_smoke
     from theia_tpu_torch.ops.gamma import sample_gamma
 
@@ -546,22 +550,35 @@ def test_gamma_kernel_bit_exact(cuda, gen):
     info = chip_smoke.hold_gamma(alpha, rng, gen)
     assert sample_gamma.launches == before + 1
     assert info["R"] == 64 and info["nan_lanes"] == 1
+    mixed_alpha, mixed = chip_smoke.gamma_mixed_case(70_000)[gen]
+    info = chip_smoke.hold_gamma(mixed_alpha, mixed, f"mixed rounds, {gen}")
+    assert info["R"] == 64 and info["nan_lanes"] == int(torch.isnan(mixed_alpha).sum() + (mixed_alpha < 0).sum())
+    assert sum(chip_smoke.gamma_launches(mixed_alpha, mixed).values()) == chip_smoke.GAMMA_KERNELS_A_CALL
     assert chip_smoke.hold_gamma(torch.tensor(2.7, device=cuda), rng, gen)["R"] < 64
     x, empty = sample_gamma(1.5, dataclasses.replace(rng, stream=rng.stream[:0], dim=rng.dim[:0]))
     assert x.shape == (0,) and empty.dim.shape == (0,)
 
 
-@pytest.mark.parametrize("segments", [1, 2, 300])
+@pytest.mark.parametrize("segments", [1, 2, 300, "edge lanes", "equal running sums", "zigzag, 300 segments",
+                                      "dense zigzag, 300 segments", "a wild row"])
 def test_track_kernel_bit_exact(cuda, segments):
     """csrc/cherenkov_track.cu against its plain version on the card, bit
     for bit, with 1, 2 and 300 segments (past one shared-memory tile of
-    256) and 10,000 lanes; then its gradient on the card against the CPU
-    port's on the same inputs, within 1e-5 of each input's largest entry."""
+    256) and on chip_smoke.track_rule_cases (the edge lanes: NaN and
+    infinite inputs, lanes that are not tame, u at 0, 1 - 2^-24, 1 and NaN,
+    totals of 0; equal running sums at u total; the zigzags, the dense one's
+    lanes past the kernel's list; a row that is not tame), 10,000 lanes; then
+    its gradient on the card against the CPU port's on the same inputs,
+    within 1e-5 of each input's largest entry."""
     import chip_smoke
     from theia_tpu_torch.ops.cherenkov_track import track_backward_sample
 
-    args = chip_smoke.track_case(10_000, segments, segments)
+    if isinstance(segments, int):
+        args = chip_smoke.track_case(10_000, segments, segments)
+    else:
+        args = chip_smoke.track_rule_cases(10_000)[segments]
     before = track_backward_sample.launches
     chip_smoke.hold_track(args, f"{segments} segments")
     assert track_backward_sample.launches == before + 1
-    assert chip_smoke.track_gradient_rel(args) <= 1e-5
+    if isinstance(segments, int):
+        assert chip_smoke.track_gradient_rel(args) <= 1e-5

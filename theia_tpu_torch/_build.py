@@ -45,6 +45,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint32
+_U64 = ctypes.c_uint64
 #: argument types of each C entry point (pointers and the stream as void*)
 _SIGNATURES = {
     "theia_woop_nearest": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P),
@@ -67,8 +68,8 @@ _SIGNATURES = {
     "theia_bvh_occluded": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
     "theia_instanced_nearest": (_P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P),
     "theia_instanced_occluded": (_P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P),
-    "theia_gamma_philox": (_U, _U, _U, _U, _U, _U, _P, _I, _P, _P, _I, _P, _P, _P),
-    "theia_gamma_sobol": (_P, _I, _U, _U, _U, _U, _P, _I, _P, _P, _I, _P, _P, _P),
+    "theia_gamma_philox": (_U, _U, _U, _U, _U, _U, _P, _I, _P, _P, _I, _P, _P, _P, _U64, _P),
+    "theia_gamma_sobol": (_P, _I, _U, _U, _U, _U, _P, _I, _P, _P, _I, _P, _P, _P, _U64, _P),
     "theia_track_sample": (_P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P),
 }
 

@@ -7,7 +7,9 @@
 // word dim % 4 of the block keyed by key + stream (64-bit add, the final
 // carry rolls into the low word) at counter + 4 * dim (128-bit add, the
 // final carry rolls into the lowest word), mapped to
-// min(float(bits) * 2^-32, 1 - 2^-24).
+// min(float(bits) * 2^-32, 1 - 2^-24). A caller that draws many dims of
+// one stream sets its key up once (philox_key) and draws by the counter
+// alone (philox_keyed), as csrc/gamma.cu does; philox_draw is the two in one.
 
 #pragma once
 
@@ -24,12 +26,36 @@ __device__ __forceinline__ float uniform_from_bits(uint32_t word) {
   return fminf(__uint2float_rn(word) * 0x1p-32f, __int_as_float(0x3F7FFFFF));
 }
 
-__device__ __forceinline__ float philox_draw(const PhiloxBase& b, uint32_t stream,
-                                             uint32_t dim) {
-  constexpr uint32_t kM0 = 0xD2511F53u;
-  constexpr uint32_t kM1 = 0xCD9E8D57u;
-  constexpr uint32_t kW0 = 0x9E3779B9u;
-  constexpr uint32_t kW1 = 0xBB67AE85u;
+constexpr uint32_t kPhiloxM0 = 0xD2511F53u;
+constexpr uint32_t kPhiloxM1 = 0xCD9E8D57u;
+constexpr uint32_t kPhiloxW0 = 0x9E3779B9u;
+constexpr uint32_t kPhiloxW1 = 0xBB67AE85u;
+
+// A stream's key, set up once for all of its draws: key + stream (64-bit
+// add, the final carry rolls into the low word) and the ten round keys.
+struct PhiloxKey {
+  uint32_t k0[10], k1[10];
+};
+
+__device__ __forceinline__ PhiloxKey philox_key(const PhiloxBase& b, uint32_t stream) {
+  uint32_t k0 = b.k0 + stream;
+  uint32_t carry = k0 < stream;
+  uint32_t k1 = b.k1 + carry;
+  carry = k1 < carry;
+  k0 += carry;
+  PhiloxKey k;
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    k.k0[r] = k0;
+    k.k1[r] = k1;
+    k0 += kPhiloxW0;
+    k1 += kPhiloxW1;
+  }
+  return k;
+}
+
+// draw `dim` of the stream whose key is `k`, by the counter alone
+__device__ __forceinline__ float philox_keyed(const PhiloxKey& k, const PhiloxBase& b, uint32_t dim) {
   // 128-bit counter += 4 * dim, final carry rolls into the lowest word
   const uint32_t inc = dim << 2;
   uint32_t c0 = b.c0 + inc;
@@ -41,27 +67,23 @@ __device__ __forceinline__ float philox_draw(const PhiloxBase& b, uint32_t strea
   uint32_t c3 = b.c3 + carry;
   carry = c3 < carry;
   c0 += carry;
-  // 64-bit key += stream, final carry rolls into the low word
-  uint32_t k0 = b.k0 + stream;
-  carry = k0 < stream;
-  uint32_t k1 = b.k1 + carry;
-  carry = k1 < carry;
-  k0 += carry;
 
   uint32_t x = c0, y = c1, z = c2, w = c3;
 #pragma unroll
   for (int r = 0; r < 10; ++r) {
-    const uint32_t hi0 = __umulhi(kM0, x), lo0 = kM0 * x;
-    const uint32_t hi1 = __umulhi(kM1, z), lo1 = kM1 * z;
-    x = hi1 ^ y ^ k0;
-    z = hi0 ^ w ^ k1;
+    const uint32_t hi0 = __umulhi(kPhiloxM0, x), lo0 = kPhiloxM0 * x;
+    const uint32_t hi1 = __umulhi(kPhiloxM1, z), lo1 = kPhiloxM1 * z;
+    x = hi1 ^ y ^ k.k0[r];
+    z = hi0 ^ w ^ k.k1[r];
     y = lo1;
     w = lo0;
-    k0 += kW0;
-    k1 += kW1;
   }
   const uint32_t sel = dim & 3u;
   return uniform_from_bits(sel == 0 ? x : sel == 1 ? y : sel == 2 ? z : w);
+}
+
+__device__ __forceinline__ float philox_draw(const PhiloxBase& b, uint32_t stream, uint32_t dim) {
+  return philox_keyed(philox_key(b, stream), b, dim);
 }
 
 }  // namespace theia

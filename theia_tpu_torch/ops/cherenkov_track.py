@@ -11,8 +11,10 @@ sample_backward``, theia_tpu/light.py:654, which builds (N, S, 3) tensors,
 a ``cumsum`` and a ``take_along_axis``).
 
 :func:`track_backward_sample` launches the kernel of
-``csrc/cherenkov_track.cu`` on CUDA tensors (a thread a lane loops over
-the segments twice, the segment table in shared memory) and runs
+``csrc/cherenkov_track.cu`` on CUDA tensors (a thread a lane, one pass
+over the segments in the short form of a pair, listing the segments on
+the segment, then the listed pairs whole; a lane that is not tame or
+lists more than ``TRACK_LIST`` takes two full passes) and runs
 :func:`track_backward_sample_plain` on CPU tensors: a loop over the
 segments of (N,) tensors, never an (N, S) one. Both sum the candidates in
 segment order, which differs from JAX's association (its ``sum`` and
@@ -22,6 +24,16 @@ of ``u total``. The outputs are differentiable in the segment table and in
 the lanes' observer, normal, Frank-Tamm factor and cotangent; k is not. On
 the card the gradient recomputes the total and the chosen candidate by
 the plain loop under autograd, so the forward stays the kernel.
+
+The kernel's shortcut rests on one fact: off the segment, a tame lane's
+pair contributes a zero (``ft cos / d_perp`` is finite there), and a zero
+leaves the running sum's bits as they were. A row is tame where its start
+lies within ``TAME_POSITION`` and its direction within
+``TAME_DIRECTION`` in each coordinate; a lane where its observer lies
+within ``TAME_POSITION``, ``|cot| <= TAME_COT``, and ``|ft|``, the L1 norm
+of its normal and the product of the two, each floored at 1, are at most
+``TAME_WEIGHT``. ``tests/test_torch_track_sample_rule.py`` mirrors the
+rule on the CPU and holds the constants equal to the kernel's.
 """
 
 from __future__ import annotations
@@ -36,6 +48,12 @@ __all__ = ["segment_table", "track_backward_sample", "track_backward_sample_plai
 #: columns of a segment's row: start x, y, z, start and end time, unit
 #: direction x, y, z, length
 SEGMENT_COLUMNS = 9
+#: the kernel's list of a lane's segments on the segment (kList)
+TRACK_LIST = 16
+#: the bounds of a tame row and lane (kTamePosition, kTameDirection,
+#: kTameCot, kTameWeight): within them every intermediate of a pair's full
+#: form is finite, so ft cos / d_perp is, and a pair off the segment adds a zero
+TAME_POSITION, TAME_DIRECTION, TAME_COT, TAME_WEIGHT = 1e15, 2.0, 1e7, 1e20
 
 
 def segment_table(track: torch.Tensor) -> torch.Tensor:

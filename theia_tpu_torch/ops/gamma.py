@@ -6,14 +6,18 @@ slowest lane's rounds R: after the call every lane's dim is
 ``dim + 1 + 2 R`` (reference: src/theia/shader/random.gamma.glsl; the
 reference documents the draw count as data-dependent,
 src/theia/light.py:1633-1640). On a CUDA tensor :func:`sample_gamma`
-launches the kernel of ``csrc/gamma.cu`` (one thread a lane runs its own
-rejection loop; R is taken on the card, so no host wait); on a CPU tensor
-it runs :func:`sample_gamma_plain`, ``theia_tpu``'s loop in torch. The
-call sites detach the result (sampled geometry is frozen).
+launches the kernels of ``csrc/gamma.cu`` (a thread a lane runs round 1,
+a block's queue the later rounds; R is taken on the card into a word
+tagged with the call's number, and a second kernel, the first's
+programmatic dependent, writes the new dims: no fill, no add, no host
+wait); on a CPU tensor it runs :func:`sample_gamma_plain`,
+``theia_tpu``'s loop in torch. The call sites detach the result (sampled
+geometry is frozen).
 """
 
 from __future__ import annotations
 
+import threading
 from dataclasses import replace
 
 import numpy as np
@@ -24,6 +28,15 @@ from ..random import RNGState, SobolState, _MASK, _SHUFFLE_SALT, _byte_table, _c
 from .math3d import sqrt
 
 __all__ = ["sample_gamma", "sample_gamma_plain", "MAX_ROUNDS"]
+
+#: (device index, stream handle) -> [the int64 word that the kernels' calls
+#: on that stream share (the largest 1 + 2 rounds tagged with the call's
+#: number), the last call's tag]; ``_SYNC_LOCK`` holds a call's tag and its
+#: launches together, so the tags rise in the order of the launches on the
+#: stream whatever host thread makes them. (A CUDA graph would replay a
+#: captured tag: the port captures none.)
+_SYNC: dict = {}
+_SYNC_LOCK = threading.Lock()
 
 #: rounds after which a lane that never accepted (alpha < 0 or NaN) exits
 #: with NaN; Cheng's GA accepts with probability > 1/3 a round for valid alpha
@@ -86,23 +99,31 @@ def sample_gamma(alpha, rng):
     else:
         a, a_stride = torch.broadcast_to(a, (n,)).contiguous(), 1
     out = torch.empty(n, dtype=torch.float32, device=stream.device)
-    advance = torch.zeros(1, dtype=torch.int32, device=stream.device)
-    lanes = (a.data_ptr(), a_stride, stream.data_ptr(), rng.dim.data_ptr(), n, out.data_ptr(), advance.data_ptr(),
-             _build.stream_handle(stream.device))
-    lib = _build.library()
+    dim_out = torch.empty(n, dtype=rng.dim.dtype, device=stream.device)
     if isinstance(rng, SobolState):
         seed = int(rng.seed) & _MASK
-        err = lib.theia_gamma_sobol(
-            _byte_table(rng.dirs).data_ptr(), rng.dirs.shape[0], seed, _hash32(seed ^ _SHUFFLE_SALT), _hash32(seed),
-            int(rng.offset) & _MASK, *lanes,
-        )
+        gen = (_byte_table(rng.dirs).data_ptr(), rng.dirs.shape[0], seed, _hash32(seed ^ _SHUFFLE_SALT),
+               _hash32(seed), int(rng.offset) & _MASK)
     elif isinstance(rng, RNGState):
-        err = lib.theia_gamma_philox(*(int(k) & _MASK for k in rng.key), *(int(c) & _MASK for c in rng.counter), *lanes)
+        gen = (*(int(k) & _MASK for k in rng.key), *(int(c) & _MASK for c in rng.counter))
     else:
         raise TypeError(f"sample_gamma: no kernel for {type(rng).__name__}")
+    lib = _build.library()
+    fn = lib.theia_gamma_sobol if isinstance(rng, SobolState) else lib.theia_gamma_philox
+    handle = _build.raw_stream(stream)
+    key = (stream.get_device(), handle)
+    with _SYNC_LOCK:
+        sync = _SYNC.get(key)
+        if sync is None or sync[1] >= _MASK:  # tags run 1, 2, ... below 2^32: a fill once in 2^32 calls
+            sync = _SYNC[key] = [torch.zeros(1, dtype=torch.int64, device=stream.device), 0]
+        sync[1] += 1
+        word, tag = sync
+        err = fn(*gen, a.data_ptr(), a_stride, stream.data_ptr(), rng.dim.data_ptr(), n, out.data_ptr(),
+                 dim_out.data_ptr(), word.data_ptr(), tag, handle)
     _build.check(err, "sample_gamma")
-    sample_gamma.launches += 1
-    return out, replace(rng, dim=rng.dim + advance)
+    if n:
+        sample_gamma.launches += 1
+    return out, replace(rng, dim=dim_out)
 
 
 sample_gamma.launches = 0

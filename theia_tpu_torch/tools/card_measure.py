@@ -13,6 +13,8 @@
     python3 -m theia_tpu_torch.tools.card_measure read-grad-live
     python3 -m theia_tpu_torch.tools.card_measure kde-builds [DIR]
     python3 -m theia_tpu_torch.tools.card_measure walk-builds [DIR]
+    python3 -m theia_tpu_torch.tools.card_measure gamma-track-builds [DIR]
+    python3 -m theia_tpu_torch.tools.card_measure cherenkov-turns DIR
     python3 -m theia_tpu_torch.tools.card_measure profile
 
 ``tiles`` builds the scan of ``csrc/nearest_scan.cuh`` with 256 and 512
@@ -127,6 +129,37 @@ instanced walk on the same rays with the lanes dealt to warps so that
 every warp holds as many candidates as the others (what a block-level
 queue of pairs could even out at best) and sorted by their candidates,
 in turns with the rays as they come.
+
+``gamma-track-builds [DIR]`` times the gamma draw (K1, ``csrc/gamma.cu``)
+and the track's backward sample (K2, ``csrc/cherenkov_track.cu``) through
+their C entry points, as called and queued, on ``gamma_track_cases``: the
+recorded calls of one batch of each ``chip_smoke.py`` phase 3m run that
+makes them, the 2^20-lane synthetic calls, and the gamma's mixed rounds
+and the track's zigzag and edge lanes at 2^16 lanes. With ``DIR`` (the
+``csrc`` of the commit before the redesign, ``git archive <commit>
+theia_tpu_torch/csrc``) first that commit's kernels, with its wrapper's
+fill and dim add around K1, in turns with the package's (old, new, new,
+old), results held bit for bit; then the measurement builds
+(``GAMMA_TRACK_BUILDS``, patches of ``csrc/gamma.cu`` and
+``csrc/cherenkov_track.cu``: K1 as one cooperative launch on a
+persistent grid with a grid-wide barrier, its second launch not a
+programmatic dependent, without the queue, with Philox's key set up for
+every draw, with the scale's pow skipped by a warp without a small
+alpha, at 6 and 8 blocks an SM, and two builds whose results are wrong,
+to split its time: a hash in each Philox draw's place, and the rounds'
+logs, exp and divisions by the fast approximate intrinsics; K2 with
+lists of 8 and 4 and tiles of 128 and 512 rows) in turns with the
+package's.
+
+``cherenkov-turns DIR`` times seconds a batch of the Cherenkov runs
+(``chip_smoke.py`` phase 3m's cherenkov-muon, cherenkov-cascade,
+cascade-backward and track-backward at 3 vertices and at 256 segments,
+262,144 lanes, a warm-up and ``CHERENKOV_REPS`` timed batches each) with
+the package of the tree ``DIR`` (an earlier commit, ``git archive``) and
+with this one in turns (DIR, this tree, this tree, DIR), each a process of
+its own that imports its tree's package and ``tests/torch_flagship.py``.
+cherenkov-muon runs neither K1 nor K2: it shows how far the host moves
+seconds between processes.
 
 ``profile`` traces one batch of the ``mt`` flagship, one of the
 brute-force flagship (``accel="auto"``) and one of the polarized ``woop``
@@ -1135,12 +1168,13 @@ class KdeAddCalls:
         return out
 
 
-def _turns(base, build, name: str, launches: int) -> dict:
+def _turns(base, build, name: str, launches: int, reps: int = 200) -> dict:
     """``name`` of ``base`` and ``build`` (each ``launches`` launches) timed
-    base, build, build, base, as called and queued: ms a launch."""
+    base, build, build, base, as called and queued (twice the launches of
+    ``reps`` calls): ms a launch."""
     order = (base, build, build, base)
-    ms = [chip_smoke.cuda_ms(getattr(c, name), max(1, 200 // launches)) / launches for c in order]
-    queued = [chip_smoke.cuda_ms_queued(getattr(c, name), max(1, 400 // launches)) / launches for c in order]
+    ms = [chip_smoke.cuda_ms(getattr(c, name), max(1, reps // launches)) / launches for c in order]
+    queued = [chip_smoke.cuda_ms_queued(getattr(c, name), max(1, 2 * reps // launches)) / launches for c in order]
     return dict(base_ms=[ms[0], ms[3]], build_ms=[ms[1], ms[2]], base_queued_ms=[queued[0], queued[3]],
                 build_queued_ms=[queued[1], queued[2]])
 
@@ -1674,6 +1708,307 @@ def walk_builds(parent: Path | None) -> dict:
     return out
 
 
+#: the gamma draw's first C entry points: the rounds into one int
+#: that the caller zeroes, the dims advanced by the caller
+_U = ctypes.c_uint32
+OLD_GAMMA_SIGNATURES = (
+    ("theia_gamma_philox", (_U, _U, _U, _U, _U, _U, _P, _I, _P, _P, _I, _P, _P, _P)),
+    ("theia_gamma_sobol", (_P, _I, _U, _U, _U, _U, _P, _I, _P, _P, _I, _P, _P, _P)),
+    ("theia_track_sample", _build._SIGNATURES["theia_track_sample"]),
+)
+#: the gamma draw's one-launch form: a cooperative grid of resident blocks
+#: takes the tiles in turn (round 1, then the tile's queue), meets at a
+#: grid-wide barrier and writes the new dims itself
+_GAMMA_BARRIER_KERNEL = """
+__device__ unsigned barrier_count, barrier_generation;
+
+template <class Gen>
+__global__ void __launch_bounds__(kThreads) sample_gamma_barrier(
+    Gen gen, const float* __restrict__ alpha, int alpha_stride, const int* __restrict__ stream,
+    const int* __restrict__ dim, int n, float* __restrict__ out, int* __restrict__ dim_out,
+    unsigned long long* sync, unsigned long long tag) {
+  __shared__ Queue q;
+  __shared__ int block_max;
+  if (threadIdx.x == 0) block_max = 0;
+  int adv = 0;
+  for (int base = blockIdx.x * kThreads; base < n; base += gridDim.x * kThreads) {
+    if (threadIdx.x == 0) q.count = 0;
+    __syncthreads();
+    if (base + threadIdx.x < n)
+      adv = max(adv, first_round(gen, alpha, alpha_stride, stream, dim, base + threadIdx.x, out, q));
+    __syncthreads();
+    adv = max(adv, drain(gen, q, out));
+    __syncthreads();
+  }
+  block_max_into(sync, tag, adv, &block_max);
+  if (threadIdx.x == 0) {  // the barrier, self-resetting: the last block in moves the generation
+    volatile unsigned* generation = &barrier_generation;
+    const unsigned seen = *generation;
+    __threadfence();
+    if (atomicAdd(&barrier_count, 1u) == gridDim.x - 1) {
+      barrier_count = 0;
+      __threadfence();
+      atomicAdd(&barrier_generation, 1u);
+    } else {
+      while (*generation == seen) {
+      }
+    }
+    __threadfence();
+    block_max = static_cast<int>(atomicAdd(sync, 0ull) & 0xffffffffu);
+  }
+  __syncthreads();
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < n; i += gridDim.x * kThreads) dim_out[i] = dim[i] + block_max;
+}
+
+template <class Gen>
+int launch(Gen gen,"""
+_GAMMA_BARRIER_LAUNCH = """
+  static int resident = 0;  // the card's resident blocks, asked once (one card)
+  if (resident == 0) {
+    int per_sm = 0, sms = 0, device = 0;
+    cudaGetDevice(&device);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sample_gamma_barrier<Gen>, kThreads, 0);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    resident = per_sm * sms;
+  }
+  void* args[] = {&gen, &alpha, &alpha_stride, &stream, &dim, &n, &out, &dim_out, &sync, &tag};
+  return static_cast<int>(cudaLaunchCooperativeKernel(reinterpret_cast<void*>(sample_gamma_barrier<Gen>),
+                                                      dim3(tiles < resident ? tiles : resident), dim3(kThreads),
+                                                      args, 0, cuda_stream));"""
+_GAMMA_PHILOX_LANE = "return theia::philox_keyed(key, base, d); }"
+_GAMMA_KERNEL = "__global__ void __launch_bounds__(kThreads) sample_gamma("
+#: measurement builds of the package's K1 and K2: (kind, source, patches of
+#: that source in ``csrc``), each patch a (text, replacement) pair
+GAMMA_TRACK_BUILDS = {
+    "gamma: one cooperative launch, a persistent grid and a barrier": ("gamma", "gamma.cu", (
+        ("template <class Gen>\nint launch(Gen gen,", _GAMMA_BARRIER_KERNEL),
+        ("  sample_gamma<Gen><<<tiles, kThreads, 0, cuda_stream>>>(", _GAMMA_BARRIER_LAUNCH
+         + "\n  sample_gamma<Gen><<<tiles, kThreads, 0, cuda_stream>>>("))),
+    "gamma: the second launch not a programmatic dependent": ("gamma", "gamma.cu", ((
+        "programmaticStreamSerializationAllowed = 1;", "programmaticStreamSerializationAllowed = 0;"),)),
+    "gamma: no queue, a lane's own rounds": ("gamma", "gamma.cu", ((
+        "  const int s = atomicAdd(&q.count, 1);",
+        "  return finish(lane, d, 1, k, out + i);\n  const int s = atomicAdd(&q.count, 1);"),)),
+    "gamma: Philox's key set up for every draw": ("gamma", "gamma.cu", ((
+        _GAMMA_PHILOX_LANE, "return theia::philox_draw(base, idx, d); }"),)),
+    "gamma: the scale's pow only in a warp with a small alpha": ("gamma", "gamma.cu", ((
+        "k.scale = small ? powf(u0, 1.0f / fmaxf(a, 1e-6f)) : 1.0f;",
+        "k.scale = __any_sync(__activemask(), small) ? (small ? powf(u0, 1.0f / fmaxf(a, 1e-6f)) : 1.0f) : 1.0f;"),)),
+    "gamma: a hash for each draw, no Philox (results wrong)": ("gamma", "gamma.cu", ((
+        _GAMMA_PHILOX_LANE, "return theia::uniform_from_bits((d * 0x9E3779B9u) ^ idx); }"),)),
+    "gamma: the rounds' logs, exp and divisions approximate (results wrong)": ("gamma", "gamma.cu", (
+        ("const float v = logf(u1 / (1.0f - u1)) / k.lam;",
+         "const float v = __fdividef(__logf(__fdividef(u1, 1.0f - u1)), k.lam);"),
+        ("*x = k.a_eff * expf(v);", "*x = k.a_eff * __expf(v);"),
+        ("return k.b + k.c * v - *x >= logf(u1 * u1 * u2);", "return k.b + k.c * v - *x >= __logf(u1 * u1 * u2);"))),
+    "gamma: 6 blocks an SM": ("gamma", "gamma.cu", ((
+        _GAMMA_KERNEL, "__global__ void __launch_bounds__(kThreads, 6) sample_gamma("),)),
+    "gamma: 8 blocks an SM": ("gamma", "gamma.cu", ((
+        _GAMMA_KERNEL, "__global__ void __launch_bounds__(kThreads, 8) sample_gamma("),)),
+    **{f"track: a list of {m}": ("track", "cherenkov_track.cu", ((
+        "constexpr int kList = 16;", f"constexpr int kList = {m};"),)) for m in (8, 4)},
+    **{f"track: tiles of {rows} rows": ("track", "cherenkov_track.cu", ((
+        "constexpr int kTile = 256;", f"constexpr int kTile = {rows};"),)) for rows in (128, 512)},
+}
+
+
+class GammaCalls:
+    """``sample_gamma``'s calls ((alpha, rng) pairs) through one library's
+    C entry points, each with its commit's wrapper work: ``old`` (the first)
+    zeroes an int, launches and adds the int to the dims in torch; the
+    package's keeps one tagged word for its calls and calls its C entry point once.
+    ``draw()`` runs every call once."""
+
+    def __init__(self, lib, calls, old: bool) -> None:
+        from theia_tpu_torch.random import SobolState, _MASK, _SHUFFLE_SALT, _byte_table, _hash32
+
+        self.lib, self.old, self.calls = lib, old, calls
+        self.stream = torch.cuda.current_stream().cuda_stream
+        self.sync, self.tag = torch.zeros(1, dtype=torch.int64, device="cuda"), 0
+        self.heads, self.dims = [], []
+        for alpha, rng in calls:
+            n = rng.stream.shape[0]
+            a = torch.as_tensor(alpha, dtype=torch.float32, device="cuda")
+            a, stride = (a.reshape(1).contiguous(), 0) if a.numel() == 1 else (a.contiguous(), 1)
+            out = torch.empty(n, device="cuda")
+            if isinstance(rng, SobolState):
+                seed = int(rng.seed) & _MASK
+                fn, gen = lib.theia_gamma_sobol, (_byte_table(rng.dirs).data_ptr(), rng.dirs.shape[0], seed,
+                                                   _hash32(seed ^ _SHUFFLE_SALT), _hash32(seed), int(rng.offset) & _MASK)
+            else:
+                fn, gen = lib.theia_gamma_philox, (*(int(k) & _MASK for k in rng.key),
+                                                    *(int(c) & _MASK for c in rng.counter))
+            self.heads.append((fn, gen, (a.data_ptr(), stride, rng.stream.data_ptr(), rng.dim.data_ptr(), n,
+                                         out.data_ptr()), rng.dim, out, a))
+
+    def draw(self):
+        self.dims = []
+        for fn, gen, lanes, dim, out, _ in self.heads:
+            if self.old:
+                advance = torch.zeros(1, dtype=torch.int32, device="cuda")
+                _build.check(fn(*gen, *lanes, advance.data_ptr(), self.stream), "old sample_gamma")
+                self.dims.append(dim + advance)
+            else:
+                new_dim = torch.empty_like(dim)
+                self.tag += 1
+                _build.check(fn(*gen, *lanes, new_dim.data_ptr(), self.sync.data_ptr(), self.tag, self.stream),
+                             "sample_gamma")
+                self.dims.append(new_dim)
+
+    def result(self):
+        self.draw()
+        torch.cuda.synchronize()
+        return [(h[4].clone(), d.clone()) for h, d in zip(self.heads, self.dims)]
+
+
+class TrackCalls:
+    """``track_backward_sample``'s calls through one library's C entry
+    point (the same since the first kernel): ``sample()`` runs every call once."""
+
+    def __init__(self, lib, calls) -> None:
+        self.fn, self.stream, self.args = lib.theia_track_sample, torch.cuda.current_stream().cuda_stream, []
+        for seg, observer, normal, ft, cot, u in calls:
+            n = observer.shape[0]
+            outs = (torch.empty(n, device="cuda"), torch.empty(n, dtype=torch.int32, device="cuda"),
+                    torch.empty_like(observer), torch.empty_like(observer), torch.empty(n, device="cuda"))
+            self.args.append(((seg.data_ptr(), seg.shape[0], observer.data_ptr(), normal.data_ptr(), ft.data_ptr(),
+                               cot.data_ptr(), u.data_ptr(), n, *(o.data_ptr() for o in outs), self.stream), outs))
+
+    def sample(self):
+        for args, _ in self.args:
+            _build.check(self.fn(*args), "track_sample")
+
+    def result(self):
+        self.sample()
+        torch.cuda.synchronize()
+        return [tuple(o.clone() for o in outs) for _, outs in self.args]
+
+
+def _bits_equal(a, b) -> bool:
+    return all(torch.equal(x.view(torch.int32) if x.dtype == torch.float32 else x,
+                           y.view(torch.int32) if y.dtype == torch.float32 else y)
+               for p, q in zip(a, b) for x, y in zip(p, q))
+
+
+def gamma_track_cases() -> tuple[dict, dict]:
+    """K1's and K2's timing cases: label -> calls. The recorded calls of
+    one batch of each phase 3m run that makes them
+    (``chip_smoke.cherenkov_path_calls``), the 2^20-lane synthetic calls
+    (``chip_smoke.gamma_cases``, ``chip_smoke.track_case`` at 256 and 2
+    segments), and at 2^16 lanes the gamma's mixed rounds and the track's
+    zigzag and edge lanes (``chip_smoke.gamma_mixed_case``,
+    ``chip_smoke.track_rule_cases``)."""
+    gamma_paths, track_paths = chip_smoke.cherenkov_path_calls()
+    gamma = dict(gamma_paths)
+    gamma.update({f"synthetic, 2^20 lanes, {gen}": [call] for gen, call in chip_smoke.gamma_cases(1 << 20).items()})
+    gamma["mixed rounds, 2^16 lanes, philox"] = [chip_smoke.gamma_mixed_case(1 << 16)["philox"]]
+    track = dict(track_paths)
+    track.update({f"synthetic, 2^20 lanes, {s} segments": [chip_smoke.track_case(1 << 20, s, s)] for s in (256, 2)})
+    rules = chip_smoke.track_rule_cases(1 << 16)
+    track.update({f"{label}, 2^16 lanes": [rules[label]] for label in ("zigzag, 300 segments", "edge lanes")})
+    return gamma, track
+
+
+def _gamma_track_turns(kind: str, base_lib, lib, cases: dict, label: str, base_old: bool = False) -> dict:
+    """``kind``'s kernel of ``lib`` in turns with ``base_lib``'s on every case
+    (base, build, build, base), the results held bit for bit first."""
+    out = {}
+    for name, calls in cases.items():
+        if kind == "gamma":
+            base, other = GammaCalls(base_lib, calls, base_old), GammaCalls(lib, calls, False)
+            fn = "draw"
+        else:
+            base, other = TrackCalls(base_lib, calls), TrackCalls(lib, calls)
+            fn = "sample"
+        same = _bits_equal(base.result(), other.result())
+        assert same or label.endswith("(results wrong)"), f"{label} differs from its base on {name}"
+        # the first gamma wrapper enqueues a fill, a launch and an add a call: 40 calls stay inside the spin
+        t = out[name] = _turns(base, other, fn, len(calls), reps=20)
+        _print_turns(f"{kind} on {name} ({len(calls)} calls)", label, t)
+    return out
+
+
+def gamma_track_builds(parent: Path | None) -> dict:
+    """See ``gamma-track-builds`` in the module's docstring."""
+    gamma, track = gamma_track_cases()
+    package = _build.library()
+    out = {"package ptxas": _kernel_ptxas(package.build_log, "sample_gamma")
+           + _kernel_ptxas(package.build_log, "track_sample")}
+    if parent is not None:
+        old = _build.build(parent, (), OLD_GAMMA_SIGNATURES)
+        out["the parent (base) against the package (build)"] = dict(
+            gamma=_gamma_track_turns("gamma", old, package, gamma, "package", base_old=True),
+            track=_gamma_track_turns("track", old, package, track, "package"))
+    for label, (kind, source, patches) in GAMMA_TRACK_BUILDS.items():
+        lib = patched_build(label, patches, source)
+        name = "sample_gamma" if kind == "gamma" else "track_sample"
+        out[label] = dict(ptxas=_kernel_ptxas(lib.build_log, name), turns=_gamma_track_turns(
+            kind, package, lib, gamma if kind == "gamma" else track, label))
+        for line in out[label]["ptxas"]:
+            print("   ", line)
+    out["empty launch"] = chip_smoke.empty_launch_ms()
+    print(f"empty launch: {out['empty launch']['queued_ms']:.4f} ms queued")
+    return out
+
+
+#: timed batches of each run in a ``cherenkov-turns`` process
+CHERENKOV_REPS = 10
+#: one process of ``cherenkov-turns``: seconds a batch of each run with the
+#: package of the tree argv[1] (batch argv[2], argv[3] timed batches)
+_CHERENKOV_CHILD = """
+import json, sys, time
+root, batch, reps = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+sys.path[:0] = [root, root + "/tests"]
+import torch
+import theia_tpu_torch as P
+from torch_flagship import build_cherenkov_backward, build_cherenkov_volume, cascade_source, track_line_source
+assert P.__file__.startswith(root), P.__file__
+runs = {
+    "cherenkov-muon": lambda: build_cherenkov_volume(P, batch, "cuda", source="muon"),
+    "cherenkov-cascade": lambda: build_cherenkov_volume(P, batch, "cuda", source="cascade"),
+    "cascade-backward": lambda: build_cherenkov_backward(P, batch, "cuda", source=cascade_source(P)),
+    "track-backward": lambda: build_cherenkov_backward(P, batch, "cuda", source=track_line_source(P, "track")),
+    "track-backward, 256 segments": lambda: build_cherenkov_backward(
+        P, batch, "cuda", source=track_line_source(P, "track", 256)),
+}
+out = {}
+for label, build in runs.items():
+    tracer = build()
+    tracer.run()
+    torch.cuda.synchronize()
+    seconds = []
+    for _ in range(reps):
+        start = time.perf_counter()
+        tracer.run()
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - start)
+    out[label] = seconds
+    del tracer
+    torch.cuda.empty_cache()
+print("SECONDS " + json.dumps(out))
+"""
+
+
+def cherenkov_turns(parent: Path) -> dict:
+    """See ``cherenkov-turns`` in the module's docstring: each run's
+    seconds a batch (the median of its timed batches) in each turn."""
+    turns = []
+    for name, root in (("parent", parent), ("tree", ROOT), ("tree", ROOT), ("parent", parent)):
+        proc = subprocess.run([sys.executable, "-c", _CHERENKOV_CHILD, str(root), str(chip_smoke.BATCH),
+                               str(CHERENKOV_REPS)], cwd=root, capture_output=True, text=True, timeout=900)
+        assert proc.returncode == 0, f"{name} at {root}: {proc.stderr[-3000:]}"
+        line = next(x for x in proc.stdout.splitlines() if x.startswith("SECONDS "))
+        turns.append((name, json.loads(line[len("SECONDS "):])))
+    out = {}
+    for label in turns[0][1]:
+        medians = [float(np.median(seconds[label])) for _, seconds in turns]
+        out[label] = dict(parent_s=[medians[0], medians[3]], tree_s=[medians[1], medians[2]],
+                          seconds=[seconds[label] for _, seconds in turns])
+        print(f"{label}: seconds a batch, median of {CHERENKOV_REPS}, parent {medians[0]:.4f} / tree {medians[1]:.4f} "
+              f"/ tree {medians[2]:.4f} / parent {medians[3]:.4f}")
+    return out
+
+
 def _profiled(label: str, step, plain_seconds: float) -> dict:
     """Trace one call of ``step`` and print where its device time went."""
     prof = chip_smoke.profile_step(step)
@@ -1764,6 +2099,10 @@ def main(argv: list[str]) -> int:
         result = sobol_builds(Path(argv[2]).resolve() if len(argv) == 3 else None)
     elif mode == "walk-builds" and len(argv) <= 3:
         result = walk_builds(Path(argv[2]).resolve() if len(argv) == 3 else None)
+    elif mode == "gamma-track-builds" and len(argv) <= 3:
+        result = gamma_track_builds(Path(argv[2]).resolve() if len(argv) == 3 else None)
+    elif mode == "cherenkov-turns" and len(argv) == 3:
+        result = cherenkov_turns(Path(argv[2]).resolve())
     elif mode == "profile":
         result = profile()
     else:
