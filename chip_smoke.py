@@ -215,6 +215,32 @@ Phases, one line each, any failure raises and exits non-zero:
    both generators and the edge lanes alpha 0 and -1, R = 64; K2 on 2 and
    256 segments, and its gradient), timed as called and queued a call,
    with their bounds and, for K1, ``torch._standard_gamma`` as a yardstick;
+3n. (``single_card_runs``) the last single-card modules at 262,144 lanes,
+   each with the card's name and power limit beside its numbers:
+   pipeline-example03 (example 03's flash and beam, 8 scatterings, 4
+   batches each under ``PipelineScheduler`` synchronous and on its
+   dispatch thread and as a bare ``run()`` loop: the same histogram
+   records bit for bit in every mode (``RecordDigests``, int64 digests of
+   each record's inputs made on the card), light curves within 1e-5 of
+   their largest bin, which is as far as the record's float atomics let
+   two runs of one batch agree; seconds a batch in turns, the host syncs
+   of a launch and of a wait, launches, one profiled schedule),
+   converge-brute (``ConvergeHistogramTask`` on the brute-force flagship,
+   its batches and error; then 2 + 2 batches across a checkpoint resumed
+   by a fresh pipeline: the resumed records bit for bit), ocean-ff-volume
+   (flagship-volume with ``FournierForandPhaseFunction(1.175, 4.065)``)
+   and kokhanovsky-backward-pol (the polarized backward tracer on ocean
+   water with the Kokhanovsky phase matrix), each held against the CPU
+   port at batch 4096, flagship-brute-from-stl (the flagship's meshes
+   from a binary STL that the run writes: arrays, pack tables, one
+   batch's ``HitRecorder`` hits and histogram records bit for bit against
+   the scene built in memory from the written corners; ASCII STL, PLY and
+   OBJ of the same mesh), array-from-obj (example 08's 26 modules from an
+   OBJ through ``SceneTemplate.fromFile``: detector ids, tables and one
+   batch bit for bit against the array stamped in memory, on the
+   instanced walk) and render-flagship (``SceneRender`` at 1024 x 1024 of
+   the flagship scene, ms a render; the card's image at 128 x 128 against
+   the CPU port's);
 4. the port on the CPU against the port on the card at batch 4096: the
    unpolarized ``mt`` flagship, the brute-force flagship, the polarized
    ``woop`` flagship with the source off centre, the volume flagship
@@ -4126,6 +4152,454 @@ def cherenkov_runs(mesh, wrappers, kernels, batch: int = BATCH, device="cuda") -
     return runs
 
 
+# -- phase 3n: the last single-card modules --------------------------------
+
+#: example 03's scatterings and batches of each source a schedule
+PIPELINE_SCATTER, PIPELINE_BATCHES = 8, 4
+#: the order of phase 3n's schedules in turns: 3 of each mode
+PIPELINE_TURNS = ("sync", "threaded", "bare", "bare", "threaded", "sync", "sync", "threaded", "bare")
+#: converge-brute's task: the total of one batch of 262,144 lanes scatters by about 3.7 %
+#: (one H100 run), so the error of the mean falls below 1.5 % in about 6-10 batches
+CONVERGE = dict(initialBatchCount=4, extraBatchCount=2, maxBatchCount=16, atol=0.0, rtol=1.5e-2)
+#: batches before the checkpoint, and after it
+CHECKPOINT_SPLIT = (2, 2)
+#: render-flagship's view of the flagship (the renderer's default 1024 x
+#: 1024 pixels), and the CPU comparison's width
+RENDER_VIEW = dict(dimension=(5.0, 5.0), position=(1.5, -6.0, 0.5), direction=(0.0, 1.0, 0.0), up=(0.0, 0.0, 1.0),
+                   maxDistance=20.0)
+RENDER_SMALL = 128
+#: a light curve on the card against its twin: each bin within this share
+#: of the largest bin (the record's float atomics add in another order on
+#: every run; the records' inputs are held bit for bit)
+ATOMIC_ORDER_RTOL = 1e-5
+
+
+def count_syncs(fn):
+    """(``fn()``, the host syncs it made), counted by torch's sync debug
+    mode in its warning mode on this thread."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def record_digest(value, time_, mask):
+    """An int64 fingerprint of one histogram record's inputs, made on the
+    device with integer sums (which add in any order to the same bits):
+    the kept lanes' count, the sums of their time and value bits, and the
+    same weighted by lane number (1, 2, ...), which moves if two lanes
+    trade their hits."""
+    import torch
+
+    m = mask.to(torch.int64)
+    lane = torch.arange(1, m.shape[0] + 1, device=m.device)
+    tb = time_.detach().contiguous().view(torch.int32).to(torch.int64) * m
+    vb = value.detach().contiguous().view(torch.int32).to(torch.int64) * m
+    return torch.stack([m.sum(), tb.sum(), vb.sum(), (tb * lane).sum(), (vb * lane).sum()])
+
+
+class RecordDigests:
+    """While active, every ``histogram_add`` call (on any thread) also
+    appends :func:`record_digest` of its inputs, in call order. Launches
+    made meanwhile count on the wrapper, not on the kernel's wrapper."""
+
+    def __enter__(self):
+        from theia_tpu_torch import response
+
+        self.digests, self.module, fn = [], response, response.histogram_add
+
+        def wrapper(state, value, time_, mask, *args, **kw):
+            self.digests.append(record_digest(value, time_, mask))
+            return fn(state, value, time_, mask, *args, **kw)
+
+        wrapper.launches, self.fn = fn.launches, fn
+        response.histogram_add = wrapper
+        return self
+
+    def __exit__(self, *exc):
+        self.module.histogram_add = self.fn
+
+    def stacked(self):
+        import torch
+
+        return torch.stack(self.digests).cpu() if self.digests else torch.zeros((0, 5), dtype=torch.int64)
+
+
+def curves_twin(label, a, b) -> dict:
+    """Two lists of light curves that traced the same records: how many
+    bins differ in their bits, and the largest difference over the largest
+    bin, held within ``ATOMIC_ORDER_RTOL``."""
+    import numpy as np
+
+    a, b = np.stack([np.asarray(x, np.float32) for x in a]), np.stack([np.asarray(x, np.float32) for x in b])
+    assert a.shape == b.shape and np.isfinite(a).all() and a.sum() > 0, label
+    bins = int((a.view(np.int32) != b.view(np.int32)).sum())
+    rel = float(np.abs(a.astype(np.float64) - b).max() / np.abs(a).max())
+    assert rel <= ATOMIC_ORDER_RTOL, (label, rel)
+    return dict(bins_differing=bins, bins=int(a.size), max_rel=rel)
+
+
+def pipeline_example03(runs, wrappers, smi, batch: int) -> None:
+    """pipeline-example03: example 03's flash and beam at ``batch`` lanes,
+    ``PIPELINE_BATCHES`` batches each, under ``PipelineScheduler`` in both
+    modes and as a bare ``run()`` loop. The modes trace the same records
+    bit for bit (``RecordDigests``) and give light curves that differ
+    only by the record's atomic order (so does a second synchronous
+    schedule); then seconds a batch in turns, the host syncs of a launch
+    and of a wait, launches a batch and one profiled schedule."""
+    import torch
+
+    import theia_tpu_torch as P
+    from theia_tpu_torch.pipeline import Pipeline, PipelineScheduler
+    from torch_flagship import build_example03
+
+    label = "pipeline-example03"
+    flash, beam = build_example03(P, batch, PIPELINE_SCATTER, "cuda")
+    pipes = [("flash", Pipeline(flash)), ("beam", Pipeline(beam))]
+    n_batches = 2 * PIPELINE_BATCHES
+
+    def rewind():
+        flash.rng.offset = beam.rng.offset = 0
+
+    def scheduled(threaded):
+        rewind()
+        curves = []
+        PipelineScheduler(pipes, processFn=lambda c, b, r: curves.append(r[0]), dispatchThread=threaded).schedule(
+            [("flash", {}), ("beam", {})] * PIPELINE_BATCHES)
+        return curves
+
+    def bare():
+        rewind()
+        return [t.run()[0].cpu().numpy() for _ in range(PIPELINE_BATCHES) for t in (flash, beam)]
+
+    modes = {"sync": lambda: scheduled(False), "threaded": lambda: scheduled(True), "bare": bare}
+    for fn in modes.values():
+        fn()  # warm-up
+    torch.cuda.synchronize()
+    traced = {}
+    for name in ("sync", "threaded", "bare", "sync again"):
+        with RecordDigests() as d:
+            curves = modes[name.split()[0]]()
+        traced[name] = (d.stacked(), curves)
+    digests = traced["sync"][0]
+    records = 2 * PIPELINE_SCATTER + 1  # a volume batch's records: the direct light and two a scattering
+    assert digests.shape[0] == n_batches * records and int(digests[:, 0].sum()) > 0
+    for name in ("threaded", "bare", "sync again"):
+        assert torch.equal(traced[name][0], digests), f"{label}: {name} traced other records than sync"
+    twins = {name: curves_twin(f"{label} {name}", traced["sync"][1], traced[name][1])
+             for name in ("threaded", "bare", "sync again")}
+    seconds = {name: [] for name in modes}
+    for name in PIPELINE_TURNS:
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        modes[name]()
+        seconds[name].append((time.perf_counter() - start) / n_batches)
+    rewind()
+    pl = Pipeline(flash)
+    launched, launch_syncs = count_syncs(lambda: pl.launch({}))
+    _, wait_syncs = count_syncs(launched.materialize)
+    _, bare_syncs = count_syncs(lambda: flash.run()[0].cpu())
+    for w in wrappers.values():
+        w.launches = 0
+    scheduled(True)
+    counts = {k: w.launches // n_batches for k, w in wrappers.items() if w.launches}
+    assert counts["histogram_add"] == records, counts
+    prof = profile_step(lambda: scheduled(False))
+    busy = prof["device_busy_ms"] / n_batches
+    med = {k: statistics.median(v) for k, v in seconds.items()}
+    print(f"{label}: batch {batch} x {n_batches} batches a schedule [{smi}]: s/batch in turns (median of 3) sync "
+          f"{med['sync']:.4f}, threaded {med['threaded']:.4f}, bare run() {med['bare']:.4f} (all {seconds}); "
+          f"device busy {busy:.2f} ms a batch ({prof['kernels']} kernels and copies a schedule); launches a batch "
+          f"{counts}; host syncs a batch: launch {launch_syncs}, wait {wait_syncs}, bare run() with its copy "
+          f"{bare_syncs}")
+    for name, t in twins.items():
+        print(f"    {name} against sync: the same {digests.shape[0]} records bit for bit, light curves differ in "
+              f"{t['bins_differing']} of {t['bins']} bins by at most {t['max_rel']:.3g} of the largest bin")
+    runs[label] = dict(seconds_per_batch=seconds, median=med, launches_per_batch=counts, device_busy_ms=busy,
+                       host_syncs=dict(launch=launch_syncs, wait=wait_syncs, bare_run=bare_syncs),
+                       records=int(digests.shape[0]), twins=twins, profile=prof, smi=smi)
+
+
+def converge_brute(runs, wrappers, mesh, smi, batch: int) -> None:
+    """converge-brute: ``ConvergeHistogramTask`` on the brute-force
+    flagship under the threaded scheduler (its batches, final error,
+    seconds and launches a batch, and one profiled batch);
+    then 2 + 2 batches with a checkpoint between them, resumed by a fresh
+    pipeline on a fresh tracer, against 4 without the break: the RNG
+    cursor, the batch count and the resumed batches' records bit for bit,
+    the Welford result within the record's atomic order."""
+    import tempfile
+
+    import torch
+
+    import theia_tpu_torch as P
+    from theia_tpu_torch.pipeline import (
+        ConvergeHistogramTask, Pipeline, PipelineScheduler, loadCheckpoint, saveCheckpoint,
+    )
+    from torch_flagship import build_flagship
+
+    label = "converge-brute"
+    tracer = build_flagship(P, mesh, batch, MAX_PATH, accel="auto", device="cuda")
+    assert tracer.scene.accel == "brute"
+    tracer.run()  # warm-up
+    tracer.rng.offset = 0
+    task = ConvergeHistogramTask(**CONVERGE)
+    for w in wrappers.values():
+        w.launches = 0
+    start = time.perf_counter()
+    PipelineScheduler(Pipeline(tracer)).schedule([task])
+    elapsed = time.perf_counter() - start
+    counts = {k: w.launches // task.totalBatches for k, w in wrappers.items() if w.launches}
+    assert counts["nearest_in_table_rows"] == MAX_PATH and counts["histogram_add"] == 2 * MAX_PATH - 1, counts
+    prof = profile_step(tracer.run)
+    rel = task.error / task._totalMean
+    print(f"{label}: batch {batch} [{smi}]: {task.totalBatches} batches, converged {task.converged}, error "
+          f"{task.error:.6g} ({rel:.3g} of the total {task._totalMean:.6g}; asked {CONVERGE['rtol']:g}), "
+          f"{elapsed / task.totalBatches:.4f} s/batch over the task, launches a batch {counts}; one batch "
+          f"profiled: device busy {prof['device_busy_ms']:.2f} ms, {prof['kernels']} kernels and copies")
+
+    def batches(pipe, task, n):
+        for _ in range(n):
+            task.processBatch(pipe.run())
+
+    before, after = CHECKPOINT_SPLIT
+    tracer.rng.offset = 0
+    ref, ref_task = Pipeline(tracer), ConvergeHistogramTask(maxBatchCount=50)
+    with RecordDigests() as d_ref:
+        batches(ref, ref_task, before + after)
+    ref_offset = tracer.rng.offset
+    tracer.rng.offset = 0
+    first, first_task = Pipeline(tracer), ConvergeHistogramTask(maxBatchCount=50)
+    batches(first, first_task, before)
+    with tempfile.TemporaryDirectory() as tmp:
+        saveCheckpoint(f"{tmp}/run.npz", first, first_task)
+        resumed = Pipeline(build_flagship(P, mesh, batch, MAX_PATH, accel="auto", device="cuda"))
+        resumed_task = ConvergeHistogramTask(maxBatchCount=50)
+        loadCheckpoint(f"{tmp}/run.npz", resumed, resumed_task)
+    assert resumed.tracer.rng.offset == first.tracer.rng.offset and resumed_task.totalBatches == before
+    with RecordDigests() as d_res:
+        batches(resumed, resumed_task, after)
+    per_batch = d_ref.stacked().shape[0] // (before + after)
+    assert per_batch == 2 * MAX_PATH - 1, per_batch
+    assert torch.equal(d_res.stacked(), d_ref.stacked()[before * per_batch:]), f"{label}: resumed records differ"
+    assert resumed_task.totalBatches == ref_task.totalBatches and resumed.tracer.rng.offset == ref_offset
+    twin = curves_twin(f"{label} resumed", [ref_task.result], [resumed_task.result])
+    err_rel = abs(resumed_task.error / ref_task.error - 1.0)
+    print(f"    checkpoint after {before} batches, a fresh pipeline resumed {after}: RNG offset "
+          f"{resumed.tracer.rng.offset} and {resumed_task.totalBatches} batches as without the break, the resumed "
+          f"{after * per_batch} records bit for bit; the mean light curve differs in {twin['bins_differing']} of "
+          f"{twin['bins']} bins by at most {twin['max_rel']:.3g} of the largest, the error by {err_rel:.3g}")
+    assert err_rel <= 1e-3, err_rel
+    runs[label] = dict(batches=task.totalBatches, converged=task.converged, error=task.error, error_rel=rel,
+                       seconds_per_batch=elapsed / task.totalBatches, launches_per_batch=counts, profile=prof,
+                       resume=dict(twin, error_rel=err_rel), smi=smi)
+
+
+def mesh_file_runs(runs, wrappers, mesh, smi, batch: int, cpu_vs_card: dict) -> None:
+    """flagship-brute-from-stl and array-from-obj: the flagship's three
+    meshes loaded from a binary STL that this run writes, against the same
+    scene built in memory from the written float32 corners (the loaded
+    arrays, every pack table and one batch's ``HitRecorder`` hits bit for
+    bit, one histogram batch's records too), the same mesh from ASCII
+    STL, PLY and OBJ (the arrays); example 08's 26-module array built by
+    ``SceneTemplate.fromFile`` from an OBJ, against the array stamped in
+    memory from the loaded mesh with the same stride (``"auto"`` picks the
+    instanced walk; detector ids, pack tables and one batch bit for bit).
+    Each timed as the other runs."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    import theia_tpu_torch as P
+    from theia_tpu_torch.scene import MeshInstance, Transform
+    from torch_flagship import (
+        array_obj, build_array_from_template, build_flagship, write_obj, write_ply, write_stl,
+    )
+
+    report_run_ = lambda *args, **kw: report_run(runs, batch, *args, **kw)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        tri = write_stl(tmp / "sphere.stl", mesh)
+        corners = (tri.reshape(-1, 3).astype(np.float64), np.arange(3 * len(tri)).reshape(-1, 3))
+        written = P.mesh.Mesh.from_geometry(*corners)
+        pos32 = (np.asarray(mesh[0], np.float32).astype(np.float64), mesh[1])
+        indexed = P.mesh.Mesh.from_geometry(*pos32)
+        write_stl(tmp / "ascii.stl", mesh, ascii=True)
+        write_ply(tmp / "ascii.ply", mesh)
+        write_ply(tmp / "binary.ply", mesh, binary=True)
+        write_obj(tmp / "sphere.obj", [("sphere", "m", *mesh)])
+        files = {"sphere.stl": written, "ascii.stl": written, "ascii.ply": indexed, "binary.ply": indexed,
+                 "sphere.obj": indexed}
+        for name, want in files.items():
+            got = P.mesh.loadMesh(tmp / name)
+            assert np.array_equal(got.vertices, want.vertices) and np.array_equal(got.indices, want.indices), name
+        print(f"mesh files: {len(tri)} triangles loaded from {', '.join(files)}: the arrays equal Mesh.from_geometry "
+              f"of the float32 values written, bit for bit")
+
+        label = "flagship-brute-from-stl"
+        hits = {}
+        for kind, source in (("stl", tmp / "sphere.stl"), ("memory", corners)):
+            t = build_flagship(P, source, batch, MAX_PATH, accel="auto", device="cuda", response=P.response.HitRecorder())
+            assert t.scene.accel == "brute"
+            hits[kind] = (t.scene.pack, t.run()[0])
+        (pa, ha), (pb, hb) = hits["stl"], hits["memory"]
+        for name in ("tri_data", "inst_data"):
+            assert torch.equal(getattr(pa, name), getattr(pb, name)), name
+        assert torch.equal(pa.soup.aos, pb.soup.aos)
+        assert int(ha["valid"].sum()) > 0 and all(torch.equal(ha[k], hb[k]) for k in ha), f"{label}: hits differ"
+        n_hits = int(ha["valid"].sum())
+        del hits, pa, pb, ha, hb
+        stl = build_flagship(P, tmp / "sphere.stl", batch, MAX_PATH, accel="auto", device="cuda")
+        twin = build_flagship(P, corners, batch, MAX_PATH, accel="auto", device="cuda")
+        traced = {}
+        for kind, t in (("stl", stl), ("memory", twin)):
+            with RecordDigests() as d:
+                curve = t.run()[0].cpu().numpy()
+            t.rng.offset = 0
+            traced[kind] = (d.stacked(), curve)
+        assert torch.equal(traced["stl"][0], traced["memory"][0]), f"{label}: histogram records differ"
+        hist_twin = curves_twin(label, [traced["stl"][1]], [traced["memory"][1]])
+        del twin
+        seconds_, sums_, counts_, peak_ = timed_runs(stl, wrappers, label)
+        per_batch = {k: v // 3 for k, v in counts_.items() if v}
+        report_run_(label, seconds_, per_batch, peak_, profile_step(stl.run),
+                    f"; {n_hits} HitRecorder hits and {traced['stl'][0].shape[0]} histogram records bit for bit as "
+                    f"the in-memory twin's, light curves differ in {hist_twin['bins_differing']} bins by at most "
+                    f"{hist_twin['max_rel']:.3g} of the largest; [{smi}]")
+        runs[label].update(hits=n_hits, histogram_twin=hist_twin, smi=smi)
+        del stl
+        torch.cuda.empty_cache()
+
+        label = "array-from-obj"
+        array_obj(tmp / "module.obj", mesh)
+        tpl = P.render.SceneTemplate.fromFile(tmp / "module.obj")
+        loaded = P.mesh.loadObjScene(tmp / "module.obj")[0]
+        twin_tpl = P.render.SceneTemplate([MeshInstance("module", loaded.mesh, "det_shell", Transform(), 1)], idStride=1)
+        ids = tpl.detectorIds(26)
+        assert ids == twin_tpl.detectorIds(26) and sorted(ids.values()) == list(range(1, 27))
+        a = build_array_from_template(P, tpl, batch, ARRAY_PATH, device="cuda")
+        b = build_array_from_template(P, twin_tpl, batch, ARRAY_PATH, device="cuda")
+        assert a.scene.accel == b.scene.accel == "instanced"
+        assert [i.detectorId for i in a.scene.instances] == [i.detectorId for i in b.scene.instances]
+        for name in ("tri_data", "inst_data"):
+            assert torch.equal(getattr(a.scene.pack, name), getattr(b.scene.pack, name)), name
+        ha, hb = a.run()[0], b.run()[0]
+        assert int(ha["valid"].sum()) > 0 and all(torch.equal(ha[k], hb[k]) for k in ha), f"{label}: hits differ"
+        n_hits = int(ha["valid"].sum())
+        del b, ha, hb
+        seconds_, sums_, counts_, peak_ = timed_runs(a, wrappers, label, recorded_total)
+        per_batch = {k: v // 3 for k, v in counts_.items() if v}
+        assert per_batch.get("nearest_triangle_instanced", 0) == ARRAY_PATH, per_batch
+        report_run_(label, seconds_, per_batch, peak_, profile_step(a.run),
+                    f"; {len(a.scene.instances)} modules, {int(a.scene.pack.tri_data.shape[0])} triangles, detector ids "
+                    f"1-26 as the in-memory array's, {n_hits} hits of one batch bit for bit; [{smi}]")
+        runs[label].update(hits=n_hits, smi=smi)
+        del a
+        torch.cuda.empty_cache()
+
+
+def ocean_runs(runs, wrappers, smi, batch: int, cpu_vs_card: dict) -> None:
+    """ocean-ff-volume (flagship-volume with ``FournierForandPhaseFunction
+    (1.175, 4.065)`` in Henyey-Greenstein's place) and
+    kokhanovsky-backward-pol (tests/test_polarized_backward.py's polarized
+    ``VolumeBackwardTracer`` on ``PolWater``), each timed at ``batch``
+    lanes and held against the CPU port at ``SMALL_BATCH`` by
+    ``hold_cpu_vs_card``."""
+    import torch
+
+    import theia_tpu_torch as P
+    from torch_flagship import build_pol_backward, build_volume_flagship, ff_water_medium
+
+    report_run_ = lambda *args, **kw: report_run(runs, batch, *args, **kw)
+    curve_total = lambda h, label: float(light_curve(h, label).sum())
+    builds = {
+        "ocean-ff-volume": lambda b, dev: build_volume_flagship(P, b, dev, medium=ff_water_medium(P.material)),
+        "kokhanovsky-backward-pol": lambda b, dev: build_pol_backward(P, b, dev),
+    }
+    for label, build in builds.items():
+        tracer = build(batch, "cuda")
+        seconds_, sums_, counts_, peak_ = timed_runs(tracer, wrappers, label, curve_total)
+        per_batch = {k: v // 3 for k, v in counts_.items() if v}
+        assert per_batch.get("read_table", 0) > 0 and per_batch.get("histogram_add", 0) > 0, per_batch
+        report_run_(label, seconds_, per_batch, peak_, profile_step(tracer.run), f"; light curve sums {sums_}; [{smi}]")
+        del tracer
+        torch.cuda.empty_cache()
+        cpu_vs_card[label] = runs[label]["cpu_vs_card"] = hold_cpu_vs_card(label, lambda dev: build(SMALL_BATCH, dev))
+
+
+def render_flagship(runs, wrappers, mesh, smi) -> None:
+    """render-flagship: ``SceneRender`` at its default 1024 x 1024 pixels
+    (1,048,576 rays) of the brute-force flagship scene, ms a render
+    (median of 3 after a warm-up, the image copied to the host), launches
+    and one profiled render; then the card's image at ``RENDER_SMALL``
+    squared against the CPU port's: equal pixels except on at most 0.1 %
+    of them, each within one level (grazing hits)."""
+    import numpy as np
+    import torch
+
+    import theia_tpu_torch as P
+    from torch_flagship import build_flagship
+
+    label = "render-flagship"
+    scene = build_flagship(P, mesh, 16, MAX_PATH, accel="auto", device="cuda").scene
+    assert scene.accel == "brute"
+    render = P.render.SceneRender(**RENDER_VIEW)
+    assert (render.width, render.height) == (1024, 1024)
+    img = render.render(scene)
+    hit = float((img[..., :3].astype(int).sum(-1) < 3 * 255).mean())
+    for w in wrappers.values():
+        w.launches = 0
+    ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        render.render(scene)
+        ms.append(1e3 * (time.perf_counter() - start))
+    counts = {k: w.launches // 3 for k, w in wrappers.items() if w.launches}
+    assert counts.get("nearest_in_table_rows", 0) + counts.get("nearest_in_table", 0) == 1, counts
+    prof = profile_step(lambda: render.render(scene))
+    small = P.render.SceneRender(width=RENDER_SMALL, height=RENDER_SMALL, **RENDER_VIEW)
+    card = small.render(scene)
+    cpu = small.render(build_flagship(P, mesh, 16, MAX_PATH, accel="auto", device="cpu").scene)
+    diff = np.abs(card.astype(int) - cpu.astype(int)).max(-1)
+    share = float((diff > 0).mean())
+    print(f"{label}: 1024 x 1024 rays [{smi}]: {statistics.median(ms):.3f} ms a render (median of "
+          f"{[round(x, 3) for x in ms]}, image on the host), {hit:.4f} of the pixels hit, launches a render {counts}; "
+          f"one render profiled: device busy {prof['device_busy_ms']:.3f} ms, {prof['kernels']} kernels and copies; "
+          f"card against CPU at {RENDER_SMALL} x {RENDER_SMALL}: {int((diff > 0).sum())} pixels differ, by at most "
+          f"{int(diff.max())} levels")
+    for entry in prof["top"][:5] + prof["own"]:
+        print(f"    {entry['ms']:9.3f} ms {entry['count']:6d} x {entry['name'][:90]}")
+    assert share <= 1e-3 and diff.max() <= 1, (share, int(diff.max()))
+    runs[label] = dict(ms=ms, hit_share=hit, launches_per_batch=counts, profile=prof,
+                       cpu_vs_card=dict(pixels_differing=int((diff > 0).sum()), max_levels=int(diff.max())), smi=smi)
+
+
+def single_card_runs(mesh, wrappers, smi, batch: int = BATCH) -> tuple[dict, dict]:
+    """Phase 3n: the last single-card modules at ``batch`` lanes:
+    pipeline-example03, converge-brute, ocean-ff-volume,
+    kokhanovsky-backward-pol, flagship-brute-from-stl, array-from-obj and
+    render-flagship, each with the card's name and power limit (``smi``)
+    beside its numbers. Returns (runs, their CPU-against-card checks)."""
+    runs, cpu_vs_card = {}, {}
+    pipeline_example03(runs, wrappers, smi, batch)
+    converge_brute(runs, wrappers, mesh, smi, batch)
+    ocean_runs(runs, wrappers, smi, batch, cpu_vs_card)
+    mesh_file_runs(runs, wrappers, mesh, smi, batch, cpu_vs_card)
+    render_flagship(runs, wrappers, mesh, smi)
+    return runs, cpu_vs_card
+
+
 def hold_cpu_vs_card(label, build) -> dict:
     """One batch of ``build(device)``'s tracer on the CPU and on the card,
     held by ``PERF.md``'s histogram agreement: the lanes' RNG dims equal on
@@ -4833,9 +5307,18 @@ def main() -> int:
     # phase 3m: Cherenkov light from a muon, a cascade and a track at full width, and the disk guide
     cherenkov = cherenkov_runs(mesh, wrappers, kernels)
 
+    phase("3n")
+    # phase 3n: the last single-card modules: the pipeline and its scheduler, a converging task and its
+    # checkpoint, the ocean-water phase functions, scenes from mesh files and the debug renderer
+    single_card, single_card_cpu = single_card_runs(mesh, wrappers, smi)
+    for run, info in single_card.items():
+        for name, n in (info.get("launches_per_batch") or {}).items():
+            if name in kernels:
+                kernels[name].setdefault("single_card_launches", {})[run] = n
+
     phase("4")
     # phase 4: the port on the CPU against the port on the card
-    cpu_vs_card = {}
+    cpu_vs_card = dict(single_card_cpu)
     flagship = lambda **kw: lambda dev: build_flagship(theia_tpu_torch, mesh, SMALL_BATCH, MAX_PATH, device=dev, **kw)
     for label, build in (
         ("mt", flagship()),
@@ -4927,7 +5410,7 @@ def main() -> int:
                       grad_sum=float(grad.sum()), grad=grad.tolist(), histogram_grad_launches=grad_launches,
                       launches=grad_counts, profile=grad_prof),
         volume_gradient_steps=volume_steps, geometry_gradient_step=geo, sobol_and_camera_runs=camera_runs,
-        scene_camera_runs=scene_runs, cherenkov_runs=cherenkov,
+        scene_camera_runs=scene_runs, cherenkov_runs=cherenkov, single_card_runs=single_card,
         cpu_vs_card=cpu_vs_card, phase_seconds={k: clock[n] - clock[k] for k, n in zip(clock, list(clock)[1:])},
         lap_seconds=laps,
         **line,

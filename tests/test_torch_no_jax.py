@@ -9,9 +9,12 @@ with a SobolQRNG, a polarized VolumeBackwardTracer and a DirectLightTracer
 on a scene, the two scene backward tracers and the polarized
 bidirectional tracer, the volume flagship from a TargetLightSource, the Cherenkov runs (a muon
 and a cascade forward, a cascade and a track backward), the flagship
-guided by a disk and the value queue with its estimator, in a fresh
-interpreter leaves jax and theia_tpu unloaded; the port's example scripts
-import neither."""
+guided by a disk and the value queue with its estimator, then the last
+single-card modules (a two-batch threaded PipelineScheduler with a
+ConvergeHistogramTask, a checkpoint, a SceneRender of a scene loaded
+from an STL file, a material archive written and read back, the 2-D
+tables and the samplers), in a fresh interpreter leaves jax, theia_tpu
+and jsonschema unloaded; the port's example scripts import none of them."""
 
 import subprocess
 import sys
@@ -116,7 +119,28 @@ assert build_flagship(P, icosphere(1), 64, 2, accel="auto", device="cpu", guide=
 queue, _ = build_volume_flagship(P, 64, "cpu", response=P.response.StoreValueHitResponse()).run()
 assert P.response.HistogramEstimator(nBins=10, binSize=50.0)(queue).shape == (10,)
 assert P.items.ValueItem.from_queue(queue).dtype.itemsize == 8
-loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "theia_tpu"))
+import tempfile
+import theia_tpu_torch.pipeline, theia_tpu_torch.task, theia_tpu_torch.testing, theia_tpu_torch.mesh
+from torch_flagship import build_example03, write_stl
+flash, beam = build_example03(P, 64, 2, "cpu")
+seen = []
+task = P.pipeline.ConvergeHistogramTask(initialBatchCount=2, maxBatchCount=2)
+sched = P.pipeline.PipelineScheduler([("flash", P.pipeline.Pipeline(flash)), ("beam", P.pipeline.Pipeline(beam))],
+                                     processFn=lambda c, b, r: seen.append(r[0].shape))
+sched.schedule([("flash", task), ("beam", {{}})])
+assert set(seen) == {{(100,)}} and len(seen) == task.totalBatches + 1 >= 3
+with tempfile.TemporaryDirectory() as tmp:
+    P.pipeline.saveCheckpoint(tmp + "/c.npz", sched.pipelines["flash"], task)
+    write_stl(tmp + "/s.stl", icosphere(1))
+    scene = build_flagship(P, tmp + "/s.stl", 1, 2, accel="auto", device="cpu").scene
+    img = P.render.SceneRender(width=16, height=16, dimension=(6.0, 6.0), position=(1.5, -6.0, 0.0)).render(scene)
+    assert img.shape == (16, 16, 4) and (img[..., :3] < 255).any()
+    water = P.testing.WaterTestModel().createMedium(num_lambda=8, num_theta=8)
+    P.material.saveMaterials(tmp + "/m.zip", [P.material.Material("m", water, None)])
+    assert "water_test" in P.material.loadMaterials(tmp + "/m.zip")[1]
+assert P.lookup.lookup2d(torch.ones(3, 4), torch.rand(8), torch.rand(8)).shape == (8,)
+assert P.testing.sampleLight(P.light.SphericalLightSource(), 8, device="cpu").position.shape == (8, 3)
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "theia_tpu", "jsonschema"))
 print("LOADED", loaded)
 """
 

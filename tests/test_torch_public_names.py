@@ -3,7 +3,10 @@
 the JAX keywords of the MT and Woop nearest-hit queries, which the port
 accepts and ignores, and the names of the Cherenkov slice: the planar
 target guides, the Cherenkov, particle, host and tabulated light sources,
-``cascades``, ``items``, ``ops.gamma`` and the value queue's estimators.
+``cascades``, ``items``, ``ops.gamma`` and the value queue's estimators;
+and every name of ``__all__`` of the last single-card modules (``lookup``,
+``material``, ``mesh``, ``render``, ``testing``, ``ops.sampling``,
+``pipeline``, ``task``, ``trace`` and ``native``).
 
 Tolerances and why: the soup queries against ``theia_tpu``'s as in
 tests/test_torch_brute.py (b): JAX divides by det, the port takes a
@@ -127,7 +130,7 @@ def test_nearest_triangle_woop_takes_jax_keywords(keywords):
 
 def test_cherenkov_slice_names():
     """Every name of the slice importable from the port under theia_tpu's
-    name (``light.LightSampler`` lives in ``testing``, not yet ported)."""
+    name (``light.LightSampler`` resolves to ``testing``'s, as in theia_tpu)."""
     import theia_tpu.cascades, theia_tpu.items, theia_tpu.light, theia_tpu.ops.gamma, theia_tpu.response
     import theia_tpu.target
     import theia_tpu_torch.cascades, theia_tpu_torch.items, theia_tpu_torch.ops.gamma
@@ -136,7 +139,7 @@ def test_cherenkov_slice_names():
         assert sorted(getattr(theia_tpu_torch, name).__all__) == sorted(getattr(theia_tpu, name).__all__), name
     assert set(theia_tpu.target.__all__) <= set(theia_tpu_torch.target.__all__)
     assert set(theia_tpu.response.__all__) <= set(theia_tpu_torch.response.__all__)
-    assert set(theia_tpu.light.__all__) - {"LightSampler"} <= set(theia_tpu_torch.light.__all__)
+    assert set(theia_tpu.light.__all__) <= set(theia_tpu_torch.light.__all__)
     assert set(theia_tpu.ops.gamma.__all__) <= set(theia_tpu_torch.ops.gamma.__all__)
     for module in ("light", "response", "target", "cascades", "items"):
         m = importlib.import_module(f"theia_tpu_torch.{module}")
@@ -161,3 +164,37 @@ def test_cherenkov_slice_names():
     assert theia_tpu_torch.light.LightSampleItem is theia_tpu_torch.items.LightSampleItem
     assert theia_tpu_torch.response.ValueItem is theia_tpu_torch.items.ValueItem
     assert {"cascades", "items"} <= set(theia_tpu_torch.__all__)
+
+
+SINGLE_CARD_MODULES = ("lookup", "material", "mesh", "render", "testing", "ops.sampling", "ops.math3d", "pipeline",
+                       "task", "trace", "native", "light")
+
+
+@pytest.mark.parametrize("module", SINGLE_CARD_MODULES)
+def test_single_card_slice_names(module):
+    """Every name of ``theia_tpu``'s ``__all__`` in the modules of the last
+    single-card slice exists in the port's module (``trace`` has no
+    ``__all__`` in theia_tpu: its ``Tracer`` alias is checked by name), and
+    the port's ``__all__`` lists only names it has."""
+    jmod = importlib.import_module(f"theia_tpu.{module}")
+    tmod = importlib.import_module(f"theia_tpu_torch.{module}")
+    names = set(getattr(jmod, "__all__", ())) | ({"Tracer"} if module == "trace" else set())
+    if module == "ops.math3d":
+        names |= {"INF"}
+    if module == "ops.sampling":
+        names |= {"INV_PI"}
+    missing = sorted(n for n in names if not hasattr(tmod, n))
+    assert not missing, (module, missing)
+    assert not [n for n in getattr(tmod, "__all__", ()) if not hasattr(tmod, n)], module
+    assert set(getattr(jmod, "__all__", ())) <= set(getattr(tmod, "__all__", names)), module
+
+
+def test_single_card_submodules_and_aliases():
+    assert {"pipeline", "task"} <= set(theia_tpu_torch.__all__)
+    assert theia_tpu_torch.pipeline.__name__ == "theia_tpu_torch.pipeline"
+    assert theia_tpu_torch.task.ConvergeHistogramTask is theia_tpu_torch.pipeline.ConvergeHistogramTask
+    assert theia_tpu_torch.trace.Tracer is theia_tpu_torch.trace.TracerBase
+    lk = theia_tpu_torch.lookup
+    assert (lk.evalTable, lk.sampleTable1D, lk.sampleTable2D) == (lk.eval_table, lk.sample_table1d, lk.sample_table2d)
+    assert isinstance(theia_tpu_torch.native.native_available(), bool)
+    assert theia_tpu_torch.material.Medium.save and theia_tpu_torch.material.Medium.load

@@ -24,6 +24,9 @@ in-code icospheres.
 :func:`build_array` is ``examples/08_detector_array.py``'s detector array
 (what ``accel="auto"`` sends to the instanced walk), :func:`array_rays`
 random rays through it, :func:`tie_scene` arrays whose hits tie exactly.
+:func:`write_stl`, :func:`write_ply` and :func:`write_obj` write meshes
+as the files that the mesh loaders read, and :func:`array_obj` example
+08's module as an OBJ template.
 :func:`adversarial_rays` makes rays on the boundaries of the nearest-hit
 tests from a soup's triangles.
 """
@@ -32,6 +35,8 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
+import struct
+from pathlib import Path
 
 import numpy as np
 
@@ -77,7 +82,8 @@ def build_flagship(
     guide: str = "sphere",
 ):
     """The flagship tracer of package ``pkg`` (``theia_tpu`` or
-    ``theia_tpu_torch``) on the sphere ``mesh`` = (positions, faces).
+    ``theia_tpu_torch``) on the sphere ``mesh`` = (positions, faces), or
+    the path of a mesh file that ``MeshStore`` loads.
     ``device`` goes to ``theia_tpu_torch``'s constructors, which default
     to the card when it is None; it must be None for ``theia_tpu``. ``polarized`` is passed through as
     ``_build_scene_tracer`` does. ``source_position`` moves the light
@@ -106,7 +112,8 @@ def build_flagship(
         ],
         **dev,
     )
-    sphere = mod("mesh").Mesh.from_geometry(*mesh)
+    # a mesh file's path goes to MeshStore, which loads it
+    sphere = mesh if isinstance(mesh, (str, Path)) else mod("mesh").Mesh.from_geometry(*mesh)
     meshes = scene_mod.MeshStore({"sphere": sphere})
     T = scene_mod.Transform
     light_pos = (3.0, 0.0, 0.0)
@@ -976,3 +983,194 @@ def build_grad_scene(pkg, kind: str, batch: int, device=None, *, mesh=None, max_
             polarized=True, refCompatRNG=True,
         )
     raise ValueError(f"unknown gradient scene {kind!r}")
+
+
+# -- mesh files: written here, loaded by the packages' loaders --------------
+
+
+def triangles32(mesh) -> np.ndarray:
+    """The (T, 3, 3) float32 corners of ``mesh`` = (positions, faces)."""
+    pos, faces = mesh
+    return np.asarray(pos, np.float64)[np.asarray(faces)].astype(np.float32)
+
+
+def write_stl(path, mesh, ascii: bool = False) -> np.ndarray:
+    """Write ``mesh``'s triangles as a binary (or ASCII) STL file; returns
+    the float32 corners written. ASCII writes each float with
+    ``repr``, which reads back to the same float32."""
+    tri = triangles32(mesh)
+    if ascii:
+        lines = ["solid written"]
+        for t in tri:
+            lines += ["facet normal 0 0 0", "outer loop"]
+            lines += [f"vertex {float(x)!r} {float(y)!r} {float(z)!r}" for x, y, z in t]
+            lines += ["endloop", "endfacet"]
+        Path(path).write_text("\n".join(lines + ["endsolid written", ""]))
+        return tri
+    rec = np.zeros(len(tri), np.dtype([("n", "<f4", 3), ("v", "<f4", (3, 3)), ("attr", "<u2")]))
+    rec["v"] = tri
+    Path(path).write_bytes(b"binary STL".ljust(80, b" ") + struct.pack("<I", len(tri)) + rec.tobytes())
+    return tri
+
+
+def write_ply(path, mesh, binary: bool = False, quads: bool = False) -> None:
+    """Write ``mesh`` = (positions, faces) as a PLY file (ASCII, or binary
+    little-endian with float32 positions and int32 indices); ``quads``
+    joins neighbouring triangle pairs (a, b, c), (a, c, d) into quads
+    where the faces come in such pairs, which the loader fans back."""
+    pos = np.asarray(mesh[0], np.float32)
+    faces = [list(f) for f in np.asarray(mesh[1])]
+    if quads:
+        faces = [f + [g[2]] if (f[0], f[2]) == (g[0], g[1]) else None for f, g in zip(faces[::2], faces[1::2])]
+        assert all(f is not None for f in faces), "faces do not come in quad pairs"
+    head = [
+        "ply", f"format {'binary_little_endian' if binary else 'ascii'} 1.0", f"element vertex {len(pos)}",
+        "property float x", "property float y", "property float z", f"element face {len(faces)}",
+        "property list uchar int vertex_indices", "end_header",
+    ]
+    if binary:
+        body = pos.astype("<f4").tobytes() + b"".join(
+            struct.pack("<B", len(f)) + np.asarray(f, "<i4").tobytes() for f in faces
+        )
+        Path(path).write_bytes(("\n".join(head) + "\n").encode() + body)
+        return
+    rows = [" ".join(repr(float(x)) for x in p) for p in pos] + [" ".join(map(str, [len(f), *f])) for f in faces]
+    Path(path).write_text("\n".join(head + rows) + "\n")
+
+
+def write_obj(path, objects) -> None:
+    """Write ``objects``, (name, material, positions, faces) tuples, as one
+    OBJ file with an ``o`` and a ``usemtl`` line each and 1-based indices
+    (the second object's indices negative, relative to its own vertices,
+    to cover the loader's relative form); faces of four indices are quads."""
+    lines, base = ["# written by the port's tests"], 0
+    for k, (name, material, pos, faces) in enumerate(objects):
+        lines.append(f"o {name}")
+        if material is not None:
+            lines.append(f"usemtl {material}")
+        pos = np.asarray(pos, np.float32)
+        lines += [f"v {float(x)!r} {float(y)!r} {float(z)!r}" for x, y, z in pos]
+        for f in np.asarray(faces):
+            idx = [int(i) - len(pos) if k == 1 else int(i) + base + 1 for i in f]
+            lines.append("f " + " ".join(f"{i}/{i}" if j == 0 else str(i) for j, i in enumerate(idx)))
+        base += len(pos)
+    Path(path).write_text("\n".join(lines) + "\n")
+
+
+def array_obj(path, mesh, scale: float = 0.35) -> None:
+    """Example 08's module as an OBJ template file: one sphere of radius
+    ``scale`` m, named ``module`` and tagged with material ``det_shell``."""
+    pos, faces = mesh
+    write_obj(path, [("module", "det_shell", np.asarray(pos) * scale, faces)])
+
+
+def build_array_from_template(pkg, template, batch: int, max_path: int = 8, accel: str = "auto", device=None, *,
+                              response=None, n_side: int = ARRAY_SIDE, key: int = 0xA11CE):
+    """:func:`build_array`'s tracer on a scene that ``template`` (a
+    ``render.SceneTemplate`` whose instances use material ``det_shell``)
+    stamps across :func:`array_transforms`."""
+    mod = lambda name: importlib.import_module(f"{pkg.__name__}.{name}")
+    u, light, material, rnd = mod("units"), mod("light"), mod("material"), mod("random")
+    dev = {} if device is None else {"device": device}
+    water = water_medium(material, num_lambda=64, num_theta=64)
+    glass = material.BK7Model().createMedium(num_lambda=64, num_theta=4)
+    mats = material.MaterialStore.pack([material.Material("det_shell", glass, water, flags="DB")], **dev)
+    scene = template.createScene(array_transforms(n_side, pkg=pkg), mats, medium="water", accel=accel, **dev)
+    return mod("trace.scene").SceneForwardTracer(
+        batch,
+        light.SphericalLightSource(position=(0.0, 0.0, 0.0), timeRange=(0.0, 0.0), budget=1e9),
+        light.UniformWavelengthSource(lambdaRange=(400.0 * u.nm, 500.0 * u.nm)),
+        response or mod("response").HitRecorder(),
+        rnd.PhiloxRNG(key=key),
+        scene,
+        maxPathLength=max_path,
+        maxTime=120.0 * u.ns,
+        **dev,
+    )
+
+
+def build_example03(pkg, batch: int, n_scattering: int = 8, device=None):
+    """``examples/03_multiple_lightsources.py``'s two tracers of ``pkg``:
+    the flash (a spherical source at (-1, -7, 0), budget 1e9, key 0xAAAA)
+    and the beam (a cone from (8, 0, 0) toward -x, opening cosine 0.9, at
+    50 ns, budget 5e8, key 0xBBBB), each a ``VolumeForwardTracer`` in water
+    at 10 degC and 35 PSU with HG g = 0.9 toward a 5 m sphere, 400-500 nm,
+    ``n_scattering`` scatterings, 500 ns, sharing one 100-bin histogram of
+    5 ns. Returns (flash, beam)."""
+    mod = lambda name: importlib.import_module(f"{pkg.__name__}.{name}")
+    light, rnd, target = mod("light"), mod("random"), mod("target")
+    dev = {} if device is None else {"device": device}
+    water = water_medium(mod("material"))
+    response = mod("response").HistogramHitResponse(nBins=100, binSize=5.0, t0=0.0)
+
+    def tracer(source, key):
+        return mod("trace.volume").VolumeForwardTracer(
+            batch, source, target.SphereTarget(position=(0.0, 0.0, 0.0), radius=5.0),
+            light.UniformWavelengthSource(lambdaRange=(400.0, 500.0)), response, rnd.PhiloxRNG(key=key),
+            medium=water, nScattering=n_scattering, maxTime=500.0, **dev,
+        )
+
+    flash = tracer(light.SphericalLightSource(position=(-1.0, -7.0, 0.0), timeRange=(0.0, 0.0), budget=1e9), 0xAAAA)
+    beam = tracer(light.ConeLightSource(position=(8.0, 0.0, 0.0), direction=(-1.0, 0.0, 0.0), cosOpeningAngle=0.9,
+                                        timeRange=(50.0, 50.0), budget=5e8), 0xBBBB)
+    return flash, beam
+
+
+#: tests/test_material.py's Fournier-Forand parameters (n, mu) and
+#: tests/test_polarized_backward.py's Kokhanovsky phase matrix
+FF_PARAMETERS = (1.175, 4.065)
+KOKHANOVSKY = dict(p90=0.66, theta0=0.25, alpha=4.0, xi=25.6)
+
+
+def ff_water_medium(material, **sizes):
+    """The flagship's water (10 degC, 35 PSU) with the Fournier-Forand
+    phase function of ``FF_PARAMETERS`` in Henyey-Greenstein's place."""
+
+    class FFWater(material.WaterBaseModel, material.FournierForandPhaseFunction, material.MediumModel):
+        ModelName = "ff_water"
+
+        def __init__(self):
+            material.WaterBaseModel.__init__(self, 10.0, 0.0, 35.0)
+            material.FournierForandPhaseFunction.__init__(self, *FF_PARAMETERS)
+
+    return FFWater().createMedium(**sizes)
+
+
+def pol_water_medium(material):
+    """tests/test_polarized_backward.py's ``PolWater``: the water with HG
+    g = 0.4 and the Kokhanovsky ocean-water phase matrix."""
+
+    class PolWater(material.WaterBaseModel, material.HenyeyGreensteinPhaseFunction,
+                   material.KokhanovskyOceanWaterPhaseMatrix, material.MediumModel):
+        def __init__(self):
+            material.WaterBaseModel.__init__(self, 10.0, 0.0, 35.0)
+            material.HenyeyGreensteinPhaseFunction.__init__(self, 0.4)
+            material.KokhanovskyOceanWaterPhaseMatrix.__init__(self, **KOKHANOVSKY)
+
+    return PolWater().createMedium(name="pol_water")
+
+
+def build_pol_backward(pkg, batch: int, device=None, **kw):
+    """tests/test_polarized_backward.py's polarized ``VolumeBackwardTracer``
+    (its ``run``): a spherical light (budget 1e9) at the origin, a 5 m
+    ``SphereCamera`` at (20, 0, 0), 450 nm, ``PolWater``, 8 scatterings,
+    250 ns, a 50-bin histogram of 5 ns, ``PhiloxRNG(key=0xD00D)``. ``kw``
+    goes to the tracer (``polarized``, ``medium``, ``response``,
+    ``nScattering``)."""
+    mod = lambda name: importlib.import_module(f"{pkg.__name__}.{name}")
+    light = mod("light")
+    dev = {} if device is None else {"device": device}
+    return mod("trace.backward").VolumeBackwardTracer(
+        batch,
+        light.SphericalLightSource(position=(0.0, 0.0, 0.0), timeRange=(0.0, 0.0), budget=1e9),
+        mod("camera").SphereCamera(position=(20.0, 0.0, 0.0), radius=5.0),
+        light.UniformWavelengthSource(lambdaRange=(450.0, 450.0)),
+        kw.pop("response", None) or mod("response").HistogramHitResponse(nBins=50, binSize=5.0, t0=0.0),
+        mod("random").PhiloxRNG(key=0xD00D),
+        medium=kw.pop("medium", None) or pol_water_medium(mod("material")),
+        nScattering=kw.pop("nScattering", 8),
+        maxTime=250.0,
+        polarized=kw.pop("polarized", True),
+        **kw,
+        **dev,
+    )

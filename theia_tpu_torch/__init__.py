@@ -27,7 +27,10 @@ gradients through ``trace_fn()`` (medium tables, phase and refractive
 index, group velocity, source and detector position); Cherenkov light
 from tracks, muons and cascades (``cascades``), the host-fed and
 tabulated sources, the planar target guides and the value queue with its
-estimators (see ROADMAP.md for what comes next).
+estimators; mesh files, material archives and the ocean-water phase
+functions, 2-D tables, the samplers of ``testing``, the debug renderer
+``render.SceneRender``, and ``pipeline`` with its scheduler, tasks and
+checkpoints (see ROADMAP.md for what comes next: the multi-device layer).
 """
 
 from . import units
@@ -39,8 +42,8 @@ __version__ = "0.1.0"
 #: import, loaded lazily so importing the root stays cheap
 _SUBMODULES = {
     "accel", "callback", "camera", "cascades", "component", "interop", "items", "light", "lookup",
-    "material", "mesh", "ops", "random", "render", "response", "scene", "target",
-    "testing", "trace",
+    "material", "mesh", "ops", "pipeline", "random", "render", "response", "scene", "target",
+    "task", "testing", "trace",
 }
 
 __all__ = sorted(_SUBMODULES | {"units", "PhiloxRNG", "RNGState", "SobolQRNG", "SobolState"})

@@ -6,7 +6,10 @@ source, all started together, and linked into one shared library with a
 plain C interface, loaded with ``ctypes``. The build happens at first use
 (never at import), goes to ``build/theia_tpu_torch/`` beside the package,
 and is reused until the sources or flags change (the file name carries
-their hash). A failed build raises with nvcc's output.
+their hash). A failed build raises with nvcc's output. The first build
+runs under a process lock, so two threads that reach a kernel at once
+(the pipeline's dispatch thread and a ``processFn`` on the main thread)
+compile once and load the same library.
 
 Every C entry point launches on the stream it is given, allocates nothing,
 and returns ``cudaGetLastError()``; :func:`check` turns a nonzero code
@@ -16,11 +19,11 @@ into an exception.
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -118,7 +121,6 @@ def library() -> KernelLibrary:
     return build()
 
 
-@functools.cache
 def build(
     csrc: Path = CSRC, defines: tuple[str, ...] = (), signatures: tuple | None = None
 ) -> KernelLibrary:
@@ -128,7 +130,27 @@ def build(
     (``THEIA_RAYS_PER_THREAD``), the record's large-state variant on every
     state (``THEIA_HISTOGRAM_SHARED_MAX=0``), or the sources of an earlier
     commit or of a patched copy with their ``signatures`` as ``(name,
-    argtypes)`` pairs, to time them beside the current kernels."""
+    argtypes)`` pairs, to time them beside the current kernels. A miss
+    builds under ``_BUILD_LOCK``: a second thread asking for the same
+    library waits for the first one's build and gets its result."""
+    key = (csrc, defines, signatures)
+    lib = _BUILT.get(key)
+    if lib is None:
+        with _BUILD_LOCK:
+            lib = _BUILT.get(key)
+            if lib is None:
+                lib = _BUILT[key] = _compile(csrc, defines, signatures)
+    return lib
+
+
+#: the libraries built or loaded in this process, by ``build``'s arguments
+_BUILT: dict = {}
+_BUILD_LOCK = threading.Lock()
+
+
+def _compile(csrc: Path, defines: tuple[str, ...], signatures: tuple | None) -> KernelLibrary:
+    """Compile ``csrc`` with nvcc into the build directory (or load the
+    library already there) and load it: ``build``'s miss."""
     flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
     sigs = dict(signatures) if signatures is not None else _SIGNATURES
     out = BUILD_DIR / f"libtheia_kernels-{_digest(csrc, flags)}.so"

@@ -8,12 +8,13 @@ them between batches (the reference's double-buffered UBO analogue).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import numpy as np
 import torch
 
-__all__ = ["Component", "TraceConfig", "resolve_device"]
+__all__ = ["Component", "TraceConfig", "resolve_device", "map_tensors"]
 
 
 def resolve_device(device) -> torch.device:
@@ -27,6 +28,22 @@ def resolve_device(device) -> torch.device:
             "torch.cuda.is_available() is false; pass device='cpu' to run on the CPU"
         )
     return device
+
+
+def map_tensors(fn, tree):
+    """``tree`` (tensors in tuples, lists, dicts and dataclasses, any other
+    leaf kept as it is) with ``fn`` applied to every tensor."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: map_tensors(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(map_tensors(fn, v) for v in tree)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(
+            tree, **{f.name: map_tensors(fn, getattr(tree, f.name)) for f in dataclasses.fields(tree) if f.init}
+        )
+    return tree
 
 
 def _to_tensor(value, device):

@@ -22,6 +22,7 @@ from .ops.sampling import TWO_PI, sample_unit_disk, sample_unit_sphere, spherica
 from .random import RNGState
 
 __all__ = [
+    "LightSampler",
     "WavelengthSampleItem",
     "LightSampleItem",
     "PolarizedLightSampleItem",
@@ -1056,3 +1057,13 @@ class ParticleCascadeLightSource(LightSource):
 
 
 from .items import LightSampleItem, PolarizedLightSampleItem, WavelengthSampleItem  # noqa: E402
+
+
+def __getattr__(name):
+    # the sampler lives in theia_tpu_torch.testing, which imports this
+    # module; resolved lazily as theia_tpu.light resolves it
+    if name == "LightSampler":
+        from .testing import LightSampler
+
+        return LightSampler
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

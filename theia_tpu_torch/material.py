@@ -12,14 +12,19 @@ addressed by integer handles, which :func:`lookup_packed` and
 from __future__ import annotations
 
 import importlib.resources
+import json
 import re
 import warnings
 from dataclasses import dataclass, field
 from enum import IntFlag
+from io import TextIOBase
+from pathlib import Path
 from typing import Final
+from zipfile import ZipFile
 
 import numpy as np
 import torch
+from scipy.interpolate import CubicSpline
 
 from . import units as u
 from .component import resolve_device
@@ -39,12 +44,17 @@ __all__ = [
     "MaterialStore",
     "packed_medium_constants",
     "lookup_packed",
+    "loadMaterials",
+    "saveMaterials",
+    "serializeMedium",
     "MediumModel",
     "SellmeierEquation",
     "BK7Model",
     "HenyeyGreensteinPhaseFunction",
+    "FournierForandPhaseFunction",
     "DispersionFreeMedium",
     "WaterBaseModel",
+    "KokhanovskyOceanWaterPhaseMatrix",
 ]
 
 speed_of_light: Final[float] = 1.0 * u.c
@@ -100,6 +110,38 @@ class Medium:
             f32(self.lambda_min), f32(self.lambda_max),
             **{k: f32(getattr(self, k)) for k in _TABLE_PROPS}, name=self.name,
         )
+
+    # -- serialization: the reference's npz layout (src/theia/material.py:
+    #    389-438), as theia_tpu.material.Medium writes and reads it --
+
+    def save(self, file) -> None:
+        """Write the tables and ``lambda_range`` as an ``.npz`` to ``file``
+        (a path or a binary file); tensors are copied to the host."""
+        if isinstance(file, TextIOBase):
+            raise ValueError("file must be opened in binary mode!")
+        arrays = {p: _host(getattr(self, p)) for p in _TABLE_PROPS if getattr(self, p) is not None}
+        arrays["lambda_range"] = np.array([float(self.lambda_min), float(self.lambda_max)])
+        np.savez(file, **arrays)
+
+    @staticmethod
+    def load(file, *, name: str = "unnamed") -> "Medium":
+        """The medium that :meth:`save` wrote (or ``theia_tpu``'s), with
+        numpy tables."""
+        if isinstance(file, TextIOBase):
+            raise ValueError("file must be opened in binary mode!")
+        data = np.load(file)
+        lam = data.get("lambda_range")
+        if lam is None or lam.shape != (2,):
+            raise ValueError("File does not contain valid lambda range!")
+        tables = {p: data.get(p) for p in _TABLE_PROPS if p in data}
+        return Medium(lam[0], lam[1], name=name, **tables)
+
+
+def _host(a) -> np.ndarray:
+    """A table or scalar as a numpy array (tensors copied to the host)."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
 
 
 @dataclass(frozen=True)
@@ -401,6 +443,121 @@ class MaterialStore:
         return self.material_names.index(name)
 
 
+# -- persistence: a zip of media/<name>.npz and material.json, the
+#    reference's format (src/theia/material.py:715-881), which
+#    theia_tpu.material reads and writes too --
+
+
+def saveMaterials(path, materials: list[Material], *, media: list[Medium] = []):
+    """Write ``materials`` and every medium they name (plus ``media``) to
+    the zip archive ``path``."""
+    med: dict[str, Medium] = {m.name: m for m in media}
+
+    def name_of(x):
+        if x is None:
+            return None
+        if isinstance(x, Medium):
+            med[x.name] = x
+            return x.name
+        return x
+
+    entries = [
+        {
+            "name": m.name,
+            "inside": name_of(m.inside),
+            "outside": name_of(m.outside),
+            "flagsInward": int(m.flagsInward),
+            "flagsOutward": int(m.flagsOutward),
+        }
+        for m in materials
+    ]
+    with ZipFile(path, "w") as zf:
+        zf.writestr("material.json", json.dumps(entries))
+        for name, medium in med.items():
+            with zf.open(f"media/{name}.npz", "w") as f:
+                medium.save(f)
+
+
+#: material.json's entries: each key and the JSON types it may take
+#: (theia_tpu.material._MATERIAL_JSON_SCHEMA, checked by hand here:
+#: ``jsonschema`` is not a dependency of the port)
+_MATERIAL_KEYS = {
+    "name": (str,),
+    "inside": (str, type(None)),
+    "outside": (str, type(None)),
+    "flagsInward": (int, float),
+    "flagsOutward": (int, float),
+}
+
+
+def _validate_materials(entries) -> None:
+    """Raise ``ValueError`` where ``theia_tpu``'s JSON schema check raises:
+    not an array, an entry not an object, a key missing or extra, a value
+    of another type (a JSON boolean is not a number), a flag below 0."""
+    if not isinstance(entries, list):
+        raise ValueError(f'invalid "material.json": expected an array, got {type(entries).__name__}')
+    for i, e in enumerate(entries):
+        if not isinstance(e, dict):
+            raise ValueError(f'invalid "material.json": entry {i} is not an object')
+        missing = [k for k in _MATERIAL_KEYS if k not in e]
+        extra = [k for k in e if k not in _MATERIAL_KEYS]
+        if missing or extra:
+            raise ValueError(f'invalid "material.json": entry {i} misses {missing} or has extra keys {extra}')
+        for key, types in _MATERIAL_KEYS.items():
+            value = e[key]
+            if isinstance(value, bool) or not isinstance(value, types):
+                raise ValueError(f'invalid "material.json": entry {i} has {key}={value!r}')
+            if key.startswith("flags") and not value >= 0:
+                raise ValueError(f'invalid "material.json": entry {i} has {key}={value!r} < 0')
+
+
+def loadMaterials(path, *, skipValidation: bool = False) -> tuple[dict[str, Material], dict[str, Medium]]:
+    """Read an archive that :func:`saveMaterials` (or ``theia_tpu``'s)
+    wrote: (materials by name, media by name). ``material.json`` is
+    checked against the schema unless ``skipValidation``; a material that
+    names an unknown medium, or a name given twice, raises ``ValueError``."""
+    media: dict[str, Medium] = {}
+    materials: dict[str, Material] = {}
+    with ZipFile(path) as zf:
+        for info in zf.infolist():
+            p = Path(info.filename)
+            if p.parts[0] == "media" and p.suffix == ".npz":
+                with zf.open(info) as f:
+                    media[p.stem] = Medium.load(f, name=p.stem)
+        try:
+            entries = json.loads(zf.read("material.json"))
+        except KeyError:
+            raise ValueError('missing "material.json" in material archive')
+        except json.JSONDecodeError as ex:
+            raise ValueError(f'invalid "material.json": {ex}') from ex
+    if not skipValidation:
+        _validate_materials(entries)
+
+    def resolve(mat: str, name: str | None) -> Medium | None:
+        if name is None:
+            return None
+        if name not in media:
+            raise ValueError(f"material {mat!r} references unknown medium {name!r}")
+        return media[name]
+
+    for e in entries:
+        if e["name"] in materials:
+            raise ValueError(f"duplicate material {e['name']!r}")
+        materials[e["name"]] = Material(
+            e["name"],
+            resolve(e["name"], e["inside"]),
+            resolve(e["name"], e["outside"]),
+            flags=(MaterialFlags(e["flagsInward"]), MaterialFlags(e["flagsOutward"])),
+        )
+    return materials, media
+
+
+def serializeMedium(med) -> str | None:
+    """A medium's name for (de)serialization; names and None pass through
+    (reference: src/theia/material.py:775-779)."""
+    return med.name if isinstance(med, Medium) else med
+
+
 ################################ MEDIUM MODELS #################################
 
 
@@ -572,6 +729,64 @@ class HenyeyGreensteinPhaseFunction:
         )
 
 
+class FournierForandPhaseFunction:
+    """Fournier-Forand phase function for a hyperbolic particle-size
+    distribution (ocean water); sampled by inverting its analytic CDF with
+    a cubic spline on the host (reference: src/theia/material.py:1420-1514).
+    The tables it gives go through the same reads as any phase function's."""
+
+    def __init__(self, n: float, mu: float) -> None:
+        self._n = n
+        self._mu = mu
+        self._update()
+
+    @property
+    def n(self):
+        return self._n
+
+    @n.setter
+    def n(self, value):
+        self._n = value
+        self._update()
+
+    @property
+    def mu(self):
+        return self._mu
+
+    @mu.setter
+    def mu(self, value):
+        self._mu = value
+        self._update()
+
+    def log_phase_function(self, cos_theta):
+        x = np.clip(cos_theta, -1.0, 1.0 - 1e-7)
+        nu = 0.5 * (3.0 - self.mu)
+        d = 2.0 * (1.0 - x) / (3.0 * (self.n - 1.0) ** 2)
+        d_nu = np.float_power(d, nu)
+        d180 = 4.0 / (3.0 * (self.n - 1.0) ** 2)
+        d180_nu = np.float_power(d180, nu)
+        A = nu * (1 - d) - (1 - d_nu) + 2 * (d * (1 - d_nu) - nu * (1 - d)) / (1 - x)
+        B = 4 * np.pi * (1 - d) ** 2 * d_nu
+        C = (1 - d180_nu) * (3 * x**2 - 1)
+        D = 16 * np.pi * (d180 - 1) * d180_nu
+        return np.log(A / B + C / D)
+
+    def phase_sampling(self, eta):
+        return self._sample_spline(np.asarray(eta))
+
+    def _update(self) -> None:
+        # the analytic CDF on a fine grid, inverted by a spline
+        cos_theta = np.linspace(1.0 - 1e-7, -1.0, 2048)
+        nu = 0.5 * (3.0 - self.mu)
+        d = 2.0 * (1.0 - cos_theta) / (3.0 * (self.n - 1.0) ** 2)
+        d_nu = np.float_power(d, nu)
+        d180 = 4.0 / (3.0 * (self.n - 1.0) ** 2)
+        d180_nu = np.float_power(d180, nu)
+        A = ((1 - d_nu * d) - 0.5 * (1 - d_nu) * (1 - cos_theta)) / ((1 - d) * d_nu)
+        B = ((1 - d180_nu) * (1 - cos_theta) * cos_theta) / (16 * (d180 - 1) * d180_nu)
+        self._sample_spline = CubicSpline(A + B, cos_theta)
+
+
 class DispersionFreeMedium(MediumModel):
     """Constant optical properties regardless of wavelength (debugging)
     (reference: src/theia/material.py:1517-1593)."""
@@ -718,3 +933,35 @@ class WaterBaseModel:
     def scattering_coef(self, wavelength):
         tbl = WaterBaseModel.DataTable
         return np.interp(np.asarray(wavelength) / u.nm, tbl[:, 0], tbl[:, 2]) / u.m
+
+
+class KokhanovskyOceanWaterPhaseMatrix:
+    """Empirical parameterization of the oceanic-water Mueller phase matrix
+    (Kokhanovsky 2003; reference: src/theia/material.py:1793-1878): the
+    m12, m22 and m33 tables that the polarized tracers read through
+    ``polarization.phase_matrix_elements`` / ``read_packed``."""
+
+    def __init__(self, p90, theta0, alpha, xi) -> None:
+        self.p90 = p90
+        self.theta0 = theta0
+        self.alpha = alpha
+        self.xi = xi
+
+    def phase_m12(self, cos_theta):
+        ct2 = np.square(cos_theta)
+        st2 = 1.0 - ct2
+        return -self.p90 * st2 / (1.0 + self.p90 * ct2)
+
+    def phase_m22(self, cos_theta):
+        theta = np.arccos(cos_theta)
+        z = theta - self.theta0
+        cz2 = np.square(np.cos(z))
+        e = self.xi * np.exp(-self.alpha * theta)
+        return (self.p90 * (1.0 + cz2) + e) / (1.0 + self.p90 * cz2 + e)
+
+    def phase_m33(self, cos_theta):
+        cos_theta = np.asarray(cos_theta)
+        theta = np.arccos(cos_theta)
+        ct2 = np.square(cos_theta)
+        e = self.xi * np.exp(-self.alpha * theta)
+        return (2 * self.p90 * cos_theta + e) / (1.0 + self.p90 * ct2 + e)

@@ -23,7 +23,7 @@ import numpy as np
 
 from .._build import BUILD_DIR
 
-__all__ = ["BVH", "build_bvh"]
+__all__ = ["BVH", "build_bvh", "native_available"]
 
 SOURCE = Path(__file__).resolve().parent / "bvh.cpp"
 #: no contraction of a*b+c: the SAH costs round as the numpy twin's do
@@ -52,6 +52,16 @@ def _library() -> ctypes.CDLL:
         f32p, f32p, f32p, ctypes.c_int32, ctypes.c_int32, f32p, f32p, i32p, i32p, i32p, i32p,
     ]
     return lib
+
+
+def native_available() -> bool:
+    """Whether the compiled builder builds and loads here (``g++`` on the
+    path and the compile passing): ``theia_tpu.native.native_available``."""
+    try:
+        _library()
+    except (OSError, RuntimeError):
+        return False
+    return True
 
 
 @dataclass

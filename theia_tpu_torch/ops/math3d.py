@@ -29,6 +29,9 @@ __all__ = [
     "moeller_trumbore_rowwise",
 ]
 
+#: float32 infinity (``theia_tpu.ops.math3d.INF``)
+INF = float("inf")
+
 
 def _sqrt_value(x: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.float32 and x.device.type == "cpu":

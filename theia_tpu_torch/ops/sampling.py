@@ -14,14 +14,18 @@ __all__ = [
     "sample_unit_sphere",
     "sample_unit_disk",
     "sample_hemisphere",
+    "sample_hemisphere_cosine",
+    "sample_hemisphere_cosine_pdf",
     "scatter_dir",
     "TWO_PI",
     "FOUR_PI",
+    "INV_PI",
     "INV_4PI",
 ]
 
 TWO_PI = 6.283185307179586477
 FOUR_PI = 12.56637061435917295
+INV_PI = 0.318309886183790672
 INV_4PI = 0.0795774715459476679
 PI_OVER_TWO = 1.570796326794896619
 PI_OVER_FOUR = 0.7853981633974483096
@@ -63,6 +67,18 @@ def sample_unit_disk(u1, u2) -> torch.Tensor:
 def sample_hemisphere(u1, u2) -> torch.Tensor:
     """Uniform direction on the +z hemisphere; cos theta = 1 - u2 > 0."""
     return spherical_to_cartesian(TWO_PI * u1, 1.0 - u2)
+
+
+def sample_hemisphere_cosine(u1, u2) -> torch.Tensor:
+    """Cosine-weighted direction on the +z hemisphere: Malley's method,
+    the concentric disk projected up."""
+    d = sample_unit_disk(u1, u2)
+    z = sqrt(torch.clamp_min(1.0 - d[..., 0] ** 2 - d[..., 1] ** 2, 0.0))
+    return vec3(d[..., 0], d[..., 1], z)
+
+
+def sample_hemisphere_cosine_pdf(direction: torch.Tensor) -> torch.Tensor:
+    return INV_PI * direction[..., 2]
 
 
 def scatter_dir(prev_dir: torch.Tensor, cos_theta, phi) -> torch.Tensor:

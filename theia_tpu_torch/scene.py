@@ -31,7 +31,7 @@ import torch
 from . import units as u
 from .component import resolve_device
 from .material import MaterialFlags, MaterialStore, MediumStore
-from .mesh import Mesh
+from .mesh import Mesh, loadMesh
 from .native import build_bvh
 from .ops.bvh_traverse import PackedBVH, pack_bvh
 from .ops.instanced import InstancedPack, pack_instanced
@@ -224,17 +224,14 @@ class MeshInstance:
 
 class MeshStore:
     """Named mesh registry (reference: src/theia/scene.py:529-605). Takes
-    :class:`~theia_tpu_torch.mesh.Mesh` objects; file paths need the mesh
-    loaders, which are not ported yet."""
+    :class:`~theia_tpu_torch.mesh.Mesh` objects or paths of STL, PLY and
+    OBJ files, which :func:`~theia_tpu_torch.mesh.loadMesh` loads."""
 
     def __init__(self, meshes: dict) -> None:
-        for k, v in meshes.items():
-            if isinstance(v, str) or hasattr(v, "__fspath__"):
-                raise NotImplementedError(
-                    f"mesh {k!r}: loading mesh files is not ported yet; "
-                    "pass a Mesh built with Mesh.from_geometry"
-                )
-        self._meshes = dict(meshes)
+        self._meshes = {
+            k: (loadMesh(v) if isinstance(v, str) or hasattr(v, "__fspath__") else v)
+            for k, v in meshes.items()
+        }
 
     def createInstance(
         self,

@@ -5,9 +5,13 @@ tracer."""
 
 from .core import EventResultCode, TracerBase
 
+#: the reference's name for the tracer base class (ref trace.py ``Tracer``)
+Tracer = TracerBase
+
 __all__ = [
     "EventResultCode",
     "TracerBase",
+    "Tracer",
     "SceneForwardTracer",
     "VolumeForwardTracer",
     "VolumeBackwardTracer",
