@@ -241,6 +241,28 @@ Phases, one line each, any failure raises and exits non-zero:
    instanced walk) and render-flagship (``SceneRender`` at 1024 x 1024 of
    the flagship scene, ms a render; the card's image at 128 x 128 against
    the CPU port's);
+3o. (``last_slice_runs``) the multi-device layer, profiling and the
+   wavefront sort, each with the card's name and power limit: (a)
+   flagship-brute at 262,144 lanes through ``Pipeline(tracer,
+   runner=ShardedRunner(tracer))`` over an NCCL process group of one, 4
+   batches a schedule under ``PipelineScheduler`` synchronous and threaded
+   in turns with ``Pipeline(tracer)``: the records bit for bit, the curves
+   within 1e-5 of the largest bin, seconds a batch in each mode, the
+   all-reduce's ms; (b) two gloo ranks sharing the card
+   (``torch.multiprocessing`` spawn), 131,072 lanes each: each rank's RNG
+   dims equal to the single run's slice, the summed curve within 1e-5 of
+   its largest bin, a sharded gradient step at batch 2048 against the
+   single one; (c) ``profiling.profile_batch`` on flagship-brute: the
+   trace and its statistics beside phase 3d's median; (d) the sort's path,
+   flagship-array (33,280 triangles) with ``accel="mt"`` and ``"woop"``,
+   built with ``binned=True`` (the port does not sort by default), one
+   batch each (8 ``sort_rays`` and 8 ``scatter_back`` launches a batch),
+   the sort and its scatter back (``csrc/wavefront_sort.cu``) bit for bit
+   against their plain twins on synthetic rays (NaN and infinite origins)
+   and on the batch's recorded queries, binned winners bit-equal to
+   unbinned, each kernel's time as called and queued beside
+   ``torch.argsort(stable=True)`` with gathers / ``index_copy_`` and the
+   bound, the binned query against the unbinned one in turns;
 4. the port on the CPU against the port on the card at batch 4096: the
    unpolarized ``mt`` flagship, the brute-force flagship, the polarized
    ``woop`` flagship with the source off centre, the volume flagship
@@ -250,7 +272,8 @@ Phases, one line each, any failure raises and exits non-zero:
    detections, times within 1e-5), flagship-bvh, the four runs of 3k
    (the volume backward run's ``HitRecorder`` as flagship-array's) and
    those of 3l (scene-backward on ``accel="auto"`` and ``"mt"``) and of
-   3m (the simple source's run aside);
+   3m (the simple source's run aside) and flagship-array with
+   ``accel="mt"`` and ``"woop"`` (binned);
    then the gradients at batch 2048, path length 3: the polarized
    medium gradient, the volume steps of 3h, the geometry step of 3i and
    3l's index step, each by ``PERF.md``'s gradient agreement.
@@ -2041,13 +2064,15 @@ def seeded_lanes(n: int, share: int, seed: int):
     return torch.sort(torch.randperm(n, device="cuda", generator=gen)[: n // share]).values
 
 
-def check_nearest(nearest: Nearest, adversarial, queries, report):
+def check_nearest(nearest: Nearest, adversarial, queries, report, memo: dict):
     """A nearest-hit kernel against its plain version, bit-equal t and idx
     (and rows): random rays at N = 262,144 and 524,288 with times and
     bound (the plain version on the card on every lane, and on the CPU on a
     seeded sixteenth of the first size's), adversarial rays, and the recorded
     queries of one flagship batch, replayed for the time and bound a batch
-    sees."""
+    sees. ``memo`` keeps the recorded queries' scan statistics by policy,
+    pack and query, so a second entry point on the same tables and queries
+    (the MT query with rows) does not walk them again."""
     name, worst = nearest.name, 0.0
     for n in (BATCH, 2 * BATCH):
         rays = random_rays(n, n + len(name), "cuda")
@@ -2080,8 +2105,11 @@ def check_nearest(nearest: Nearest, adversarial, queries, report):
     for q in queries:
         err, _ = nearest.check(q, "a recorded flagship query", on_cpu=False)
         worst, n_rays = max(worst, err), n_rays + q[0].shape[0]
-        add_stats(own, nearest.stats(q))
-        add_stats(yard, nearest.stats(q, layout=False))
+        key = (nearest.policy, id(nearest.pack), id(q))
+        if key not in memo:
+            memo[key] = nearest.stats(q), nearest.stats(q, layout=False)
+        add_stats(own, memo[key][0])
+        add_stats(yard, memo[key][1])
 
     def replay():
         for q in queries:
@@ -2264,7 +2292,7 @@ def small_soups(table):
         yield n_tri, (small, small.to("cpu"))
 
 
-def check_soup(soup: Soup, adversarial, queries, report):
+def check_soup(soup: Soup, adversarial, queries, report, memo: dict):
     """A soup kernel against its plain version, bit-equal: random rays at
     N = 262,144 and 524,288 with times and bound (the plain version on the
     card on every lane, and on the CPU on a seeded sixteenth of the first
@@ -2273,7 +2301,9 @@ def check_soup(soup: Soup, adversarial, queries, report):
     rays, and the recorded queries of one brute-force flagship
     batch, replayed for the time and bound a batch sees. Bounds count the
     work of the table's own layout; the first soup kernels' yardstick
-    (``soup_stats`` without ``layout``) is kept beside."""
+    (``soup_stats`` without ``layout``) is kept beside. ``memo`` keeps the
+    recorded queries' statistics by query kind, table and query, so the
+    nearest hit with and without rows walks each query once."""
     import torch
 
     from theia_tpu_torch.ops.intersect_soup import SoupTable, nearest_in_table
@@ -2345,8 +2375,12 @@ def check_soup(soup: Soup, adversarial, queries, report):
     n_rays, n_chunks, unmasked, ray_bytes = 0, 0, 0, 0
     for o, d, t_max, groups, active in queries:
         soup.check((o, d, t_max), "a recorded flagship query", on_cpu=False, groups=groups, active=active)
-        add_stats(own, soup.stats(card, (o, d, t_max), groups, active))
-        add_stats(yard, soup.stats(card, (o, d, t_max), groups, active, layout=False))
+        key = (soup.any_hit, soup.target, id(card), id(o), id(groups), id(active))
+        if key not in memo:
+            memo[key] = (soup.stats(card, (o, d, t_max), groups, active),
+                         soup.stats(card, (o, d, t_max), groups, active, layout=False))
+        add_stats(own, memo[key][0])
+        add_stats(yard, memo[key][1])
         n_rays, n_chunks = n_rays + o.shape[0], n_chunks + soup.visited(card, groups)
         unmasked += o.shape[0] if active is None else int(active.sum())
         ray_bytes += soup.ray_bytes(o.shape[0], active)
@@ -2637,12 +2671,19 @@ def profile_step(step, watch=()) -> dict:
     )
 
 
-def absorption_grad(tracer):
+def absorption_grad(tracer, mesh=None):
     """d sum(histogram state) / d (water absorption_coef row) through
-    ``trace_fn()``; returns (loss, gradient) as float64 numpy."""
+    ``trace_fn()``; returns (loss, gradient) as float64 numpy. With a photon
+    ``mesh`` this rank traces its block of the lanes through
+    ``parallel.shard_trace`` (the state summed over the group) and the
+    gradient is its share summed over the group (``reduce_gradients``)."""
     import torch
 
     fn, (p, counter, streams) = tracer.trace_fn()
+    if mesh is not None:
+        from theia_tpu_torch import parallel
+
+        fn, streams = parallel.shard_trace(tracer, mesh), parallel.sharded_streams(tracer.capacity, mesh)
     media = p["scene"].media
     h = media.handle("water")
     leaf = media.tables["absorption_coef"][h].clone().requires_grad_(True)
@@ -2651,9 +2692,11 @@ def absorption_grad(tracer):
     tables = {**media.tables, "absorption_coef": table}
     pp = dict(p)
     pp["scene"] = dataclasses.replace(p["scene"], media=dataclasses.replace(media, tables=tables))
-    state, _ = fn(pp, counter, streams)
+    state = fn(pp, counter, streams)[0]
     loss = state.sum()
     loss.backward()
+    if mesh is not None:
+        parallel.reduce_gradients([leaf], mesh)
     return loss.item(), leaf.grad.double().cpu().numpy()
 
 
@@ -2785,16 +2828,16 @@ def time_step(step, wrappers, label, reps: int = 3) -> dict:
                 loss=loss, grad=grad.tolist())
 
 
-def gradient_agreement(label, g_cpu, g_card) -> dict:
+def gradient_agreement(label, g_cpu, g_card, what: str = "cpu vs card") -> dict:
     """``PERF.md``'s gradient agreement between the port on the CPU and on
-    the card: the same nonzero entries, each within rtol 1e-3, the sum
-    within 1e-5."""
+    the card (or two runs ``what`` names): the same nonzero entries, each
+    within rtol 1e-3, the sum within 1e-5."""
     import numpy as np
 
     rel = np.abs(g_card - g_cpu) / np.maximum(np.abs(g_cpu), 1e-300)
     worst = float(rel[g_cpu != 0].max())
     sum_rel = abs(g_card.sum() / g_cpu.sum() - 1.0)
-    print(f"cpu vs card ({label}) at batch {GRAD_BATCH}, path length {GRAD_PATH}: "
+    print(f"{what} ({label}) at batch {GRAD_BATCH}, path length {GRAD_PATH}: "
           f"{int((g_cpu != 0).sum())} nonzero entries, worst entry rel diff {worst:.3g}, sum rel diff {sum_rel:.3g}")
     assert np.array_equal(g_cpu != 0, g_card != 0), f"gradient nonzero pattern differs ({label})"
     assert worst <= 1e-3 and sum_rel <= 1e-5, f"cpu and card gradients disagree ({label})"
@@ -4600,6 +4643,460 @@ def single_card_runs(mesh, wrappers, smi, batch: int = BATCH) -> tuple[dict, dic
     return runs, cpu_vs_card
 
 
+#: batches of flagship-brute in each schedule of the sharded pipeline's runs
+SHARDED_BATCHES = 4
+#: the sharded pipeline's schedules in turns: (pipeline, scheduler mode)
+SHARDED_TURNS = (("plain", "sync"), ("sharded", "sync"), ("sharded", "threaded"), ("plain", "threaded"),
+                 ("plain", "threaded"), ("sharded", "threaded"), ("sharded", "sync"), ("plain", "sync"))
+#: gloo ranks sharing the one card, and the seconds a rank may take
+GLOO_RANKS = 2
+RANK_TIMEOUT = 300.0
+#: bytes a lane that the wavefront sort must move: the rays read (o, d,
+#: t_max: 28), the key, order and the rays' copy written (4 + 4 + 28)
+SORT_LANE_BYTES = 28 + 36
+#: bytes a lane of the scatter back: order and the query's t and idx read
+#: (12), t and idx written (8); a winner's row of 32 floats read and
+#: written where the query fetches rows
+SCATTER_LANE_BYTES = 12 + 8
+SCATTER_ROW_BYTES = 2 * 128
+#: operations a lane of the key: three cells of a subtract, a divide, a
+#: multiply, a cast and two clamps, the octant's three compares, the sums
+SORT_KEY_FLOP = 3 * 6 + 3 + 6
+
+
+def wild_sort_rays(n: int, seed: int, device="cuda"):
+    """Rays for the sort's kernel checks, with bounds (lo, hi): origins
+    around and in the bounds, NaN, infinite and huge origins, origins on a
+    cell's edge, zero, negative-zero and NaN directions."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    lo, hi = np.array([-1.0, -2.0, -1.5], np.float32), np.array([2.0, 1.0, 1.0], np.float32)
+    o = rng.uniform(-3.0, 3.0, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    k = n // 16
+    o[0:k, 0] = np.nan
+    o[k:2 * k, 1] = np.inf
+    o[2 * k:3 * k, 2] = -np.inf
+    o[3 * k:4 * k] = rng.choice([1e30, -1e30, 3e9, -3e9], (k, 3))
+    o[4 * k:5 * k] = rng.choice([-1.0, 2.0, 0.5, -0.25], (k, 3))
+    d[5 * k:6 * k] = rng.choice([0.0, -0.0], (k, 3))
+    d[6 * k:7 * k, 1] = np.nan
+    t = rng.uniform(0.0, 10.0, n).astype(np.float32)
+    return lo, hi, *(torch.as_tensor(a, device=device) for a in (o, d, t))
+
+
+def same_sort(got, want) -> int:
+    """The sort's outputs (key, order, origin, direction, t_max) against
+    its plain twin's: the count of differing bits' elements (0 is
+    bit-equal; NaNs compare by their bits)."""
+    import torch
+
+    bits = lambda x: x.contiguous().view(torch.int32) if x.dtype == torch.float32 else x.to(torch.int32)
+    return sum(int((bits(a).cpu() != bits(b).cpu()).sum()) for a, b in zip(got, want))
+
+
+def check_sort_kernel() -> dict:
+    """The sort and the scatter back against their plain twins on the card,
+    bit for bit, on ``wild_sort_rays`` of 1, 2047, 2048, 2049, 100,003 and
+    262,144 lanes and on a degenerate grid (lo = hi); the scatter with and
+    without rows, and on an order of 0 lanes."""
+    import torch
+
+    from theia_tpu_torch.ops import _intersect_tiles as tiles
+
+    checked = []
+    for n in (1, 2047, 2048, 2049, 100_003, BATCH):
+        for grid in ("bounds", "degenerate"):
+            lo, hi, o, d, t = wild_sort_rays(n, n, "cuda")
+            if grid == "degenerate":
+                hi = lo
+            got = tiles.sort_rays(lo, hi, o, d, t)
+            want = tiles.sort_rays_plain(lo, hi, o, d, t)
+            assert same_sort(got, want) == 0, f"the sort differs from its twin at {n} lanes ({grid})"
+            assert same_sort(got[1:2], (torch.argsort(want[0].cpu(), stable=True),)) == 0
+            t_s, idx_s = torch.rand(n, device=o.device), torch.randint(-1, 99, (n,), dtype=torch.int32, device=o.device)
+            rows_s = torch.rand(n, 32, device=o.device)
+            for outs in ((t_s, idx_s), (t_s, idx_s, rows_s)):
+                back = tiles.scatter_back(got[1], *outs)
+                plain = tiles.scatter_back_plain(got[1], *outs)
+                assert all(torch.equal(a, b) for a, b in zip(back, plain)), f"the scatter differs at {n} lanes"
+            checked.append((n, grid))
+    empty = torch.empty(0, dtype=torch.int32, device=o.device)
+    assert [x.shape[0] for x in tiles.scatter_back(empty, empty.float(), empty)] == [0, 0]
+    torch.cuda.synchronize()
+    print(f"kernels sort_rays and scatter_back (csrc/wavefront_sort.cu): the sort (key, order, the rays' copy) and "
+          f"the scatter back "
+          f"(with and without rows) bit-equal to their plain twins on {len(checked)} cases of 1-{BATCH} lanes with "
+          f"NaN, infinite and huge origins, zero and NaN directions, on the scene's grid and a degenerate one; "
+          f"order equal to torch.argsort(stable=True)")
+    return dict(cases=checked)
+
+
+def time_sort_path(reports: dict, runs: dict, paths: dict) -> None:
+    """The wavefront sort on the recorded queries of one batch of each
+    path (``paths``: label -> (pack, query, queries); ``query(o, d, t,
+    binned)``): the sort's order, key and copy bit-equal to its plain twin
+    and the binned winners (and rows) bit-equal to the unbinned ones; then
+    each kernel as called and queued (its row in ``reports["sort_rays"]``
+    and ``reports["scatter_back"]``: the mean a call), beside its plain
+    twin, the library column (``torch.argsort(stable=True)`` with the
+    rays' gathers; the outputs' ``index_copy_``) and the bound from the
+    bytes forced; then each binned query against the unbinned one in
+    turns, as called and queued (``runs``)."""
+    import torch
+
+    from theia_tpu_torch.ops import _intersect_tiles as tiles
+
+    rows, every = {"sort_rays": {}, "scatter_back": {}}, {"sort_rays": [], "scatter_back": []}
+    for label, (pack, query, queries) in paths.items():
+        n_calls, lanes, calls = len(queries), [q[0].shape[0] for q in queries], []
+        for o, d, t in queries:
+            got = tiles.sort_rays(pack.lo, pack.hi, o, d, t)
+            assert same_sort(got, tiles.sort_rays_plain(pack.lo, pack.hi, o, d, t)) == 0, label
+            binned, plain = query(o, d, t, True), query(o, d, t, False)
+            assert all(torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+                       for a, b in zip(binned, plain)), f"{label}: binned winners differ"
+            calls.append(dict(rays=(o, d, t), key=got[0], order=got[1], outs=plain, with_rows=len(plain) == 3))
+
+        def sort(fn=tiles.sort_rays):
+            for c in calls:
+                fn(pack.lo, pack.hi, *c["rays"])
+
+        def scatter(fn=tiles.scatter_back):
+            for c in calls:
+                fn(c["order"], *c["outs"])
+
+        def sort_library():
+            for c in calls:
+                order = torch.argsort(c["key"], stable=True)
+                o, d, t = (x[order] for x in c["rays"])
+
+        def scatter_library():
+            for c in calls:
+                order = c["order"].long()
+                for x in c["outs"]:
+                    torch.empty_like(x).index_copy_(0, order, x)
+
+        def queries_of(binned: bool):
+            return lambda: [query(*c["rays"], binned) for c in calls]
+
+        turns = {True: dict(ms=[], queued_ms=[]), False: dict(ms=[], queued_ms=[])}
+        for binned in (False, True, True, False):
+            turns[binned]["ms"].append(cuda_ms(queries_of(binned), 3) / n_calls)
+            turns[binned]["queued_ms"].append(cuda_ms_queued(queries_of(binned), 3) / n_calls)
+        q = {("binned" if k else "unbinned"): {m: statistics.median(v) for m, v in t.items()}
+             for k, t in turns.items()}
+        runs[f"{label}, binned / unbinned query in turns"] = dict(calls=n_calls, lanes=lanes, turns=turns)
+        for name, run, plain, library, lane_bytes, flop in (
+            ("sort_rays", sort, lambda: sort(tiles.sort_rays_plain), sort_library, lambda c: SORT_LANE_BYTES,
+             SORT_KEY_FLOP),
+            ("scatter_back", scatter, lambda: scatter(tiles.scatter_back_plain), scatter_library,
+             lambda c: SCATTER_LANE_BYTES + SCATTER_ROW_BYTES * c["with_rows"], 0),
+        ):
+            bounds = [bound(c["rays"][0].shape[0] * lane_bytes(c), c["rays"][0].shape[0] * flop) for c in calls]
+            r = rows[name][label] = dict(
+                calls=n_calls, lanes=lanes, with_rows=calls[0]["with_rows"],
+                ms=cuda_ms(run, 10) / n_calls,
+                queued_ms=cuda_ms_queued(run, max(1, 100 // n_calls)) / n_calls,
+                plain_ms=cuda_ms(plain, 3) / n_calls,
+                library_ms=cuda_ms(library, 10) / n_calls,
+                library_queued_ms=cuda_ms_queued(library, max(1, 24 // n_calls)) / n_calls,
+                bound_ms=sum(b["bound_ms"] for b in bounds) / n_calls, bound_by=bounds[0]["bound_by"],
+            )
+            every[name] += bounds
+            print(f"kernel {name} on {label}'s {n_calls} recorded queries ({lanes} rays"
+                  f"{', with rows' if r['with_rows'] else ''}): {r['ms']:.4f} ms a call ({r['queued_ms']:.4f} queued), "
+                  f"plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f} ({r['library_queued_ms']:.4f} queued); "
+                  f"bound {r['bound_ms']:.5f} ms by {r['bound_by']}, share {r['bound_ms'] / r['queued_ms']:.3f} queued")
+        print(f"{label}: order, key and copy bit-equal to the plain twin, binned winners bit-equal to unbinned; the "
+              f"query binned / unbinned in turns, ms a call: {q['binned']['ms']:.4f} / {q['unbinned']['ms']:.4f} as "
+              f"called, {q['binned']['queued_ms']:.4f} / {q['unbinned']['queued_ms']:.4f} queued (all {turns})")
+    library = dict(sort_rays="torch.argsort(key, stable=True) and the rays' gathers",
+                   scatter_back="the outputs' index_copy_")
+    for name, report in reports.items():
+        paths_of = rows[name]
+        n = sum(r["calls"] for r in paths_of.values())
+        mean = lambda key: sum(r[key] * r["calls"] for r in paths_of.values()) / n
+        report.update(max_abs_err=0.0, ms=mean("ms"), queued_ms=mean("queued_ms"), plain_ms=mean("plain_ms"),
+                      bound_ms=sum(b["bound_ms"] for b in every[name]) / n, bound_by=every[name][0]["bound_by"],
+                      library_ms=mean("library_ms"), library_queued_ms=mean("library_queued_ms"),
+                      library=library[name], path_calls=n, paths=paths_of)
+
+
+def sort_path_runs(runs, wrappers, kernels, mesh, smi, batch: int) -> dict:
+    """(d) the wavefront sort's path: flagship-array (33,280 triangles) with
+    ``accel="mt"`` and with ``accel="woop"``, one batch each at ``batch``
+    lanes: the launches of the batch (the counts set to 0 just before it),
+    then its recorded queries through ``time_sort_path``. The scenes are
+    built with ``binned=True``: the port's queries do not sort by default.
+    Returns the paths' (pack, query, queries) for the kernels' rows."""
+    import torch
+
+    import theia_tpu_torch as P
+    from theia_tpu_torch.ops import _intersect_tiles as tiles
+    from theia_tpu_torch.ops.intersect_mt import nearest_triangle_mt_rows
+    from theia_tpu_torch.ops.intersect_woop import nearest_triangle_woop
+    from torch_flagship import build_array
+
+    paths, launched = {}, 0
+    for accel, name in (("mt", "nearest_triangle_mt_rows"), ("woop", "nearest_triangle_woop")):
+        label = f"flagship-array ({accel})"
+        tracer = build_array(P, mesh, batch, ARRAY_PATH, accel=accel, device="cuda", binned=True)
+        pack = tracer.scene.pack
+        sub = pack.mt if accel == "mt" else pack.woop
+        assert sub.binned and sub.n_tri == pack.tri_data.shape[0] >= tiles.BIN_THRESHOLD, sub.n_tri
+        tracer.run()  # warm-up
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+        start = time.perf_counter()
+        result, _ = tracer.run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        counts = {k: w.launches for k, w in wrappers.items() if w.launches}
+        # every query of the batch sorts its rays, runs the scan and scatters the winners back
+        assert counts["sort_rays"] == counts["scatter_back"] == counts[name] == ARRAY_PATH, (label, counts)
+        launched += counts["sort_rays"]
+        detected = int(result["valid"].sum())
+        assert detected > 0, label
+        queries = record_queries(tracer, (name,))
+        assert len(queries) == ARRAY_PATH, len(queries)
+        if accel == "mt":
+            query = lambda o, d, t, binned, p=sub, table=pack.tri_data: nearest_triangle_mt_rows(
+                p, table, o, d, t, binned=binned)
+        else:
+            query = lambda o, d, t, binned, p=sub: nearest_triangle_woop(p, o, d, t, binned=binned)
+        paths[label] = (sub, query, queries)
+        print(f"{label}: batch {batch}, path length {ARRAY_PATH}, {sub.n_tri} triangles, Scene(binned=True) "
+              f"[{smi}]: one batch {seconds:.4f} s, launches {counts}, {detected} detections")
+        runs[label] = dict(seconds=seconds, launches=counts, detections=detected, smi=smi)
+    for name in ("sort_rays", "scatter_back"):
+        kernels[name].update(launches=launched, launches_per_batch=ARRAY_PATH,
+                             path="flagship-array (binned=True) with accel='mt' and with accel='woop', a batch each")
+    return paths
+
+
+def sharded_pipeline_runs(runs, wrappers, mesh, smi, batch: int) -> None:
+    """(a) flagship-brute at ``batch`` lanes through ``Pipeline(tracer,
+    runner=ShardedRunner(tracer))`` over an NCCL process group of one
+    (``file://`` rendezvous, destroyed after), ``SHARDED_BATCHES`` batches
+    a schedule under ``PipelineScheduler`` synchronous and threaded, in
+    turns with ``Pipeline(tracer)``: the records bit for bit
+    (``RecordDigests``), the light curves within ``ATOMIC_ORDER_RTOL`` of
+    the largest bin, seconds a batch in each mode, the launches of a
+    sharded schedule and the all-reduce's ms."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    import theia_tpu_torch as P
+    from theia_tpu_torch.pipeline import Pipeline, PipelineScheduler
+    from torch_flagship import build_flagship
+
+    label = "sharded-flagship-brute"
+    with tempfile.TemporaryDirectory() as tmp:
+        P.parallel.initialize(f"file://{tmp}/rendezvous", 1, 0, backend="nccl")
+        try:
+            assert dist.get_backend() == "nccl"
+            tracer = build_flagship(P, mesh, batch, MAX_PATH, accel="auto", device="cuda")
+            runner = P.parallel.ShardedRunner(tracer)
+            assert runner.mesh.group is not None and runner.mesh.size == 1 and not runner.multihost
+            pipes = {"sharded": Pipeline(tracer, runner=runner), "plain": Pipeline(tracer)}
+
+            def schedule(kind, mode):
+                tracer.rng.offset = 0
+                curves = []
+                PipelineScheduler(pipes[kind], processFn=lambda c, b, r: curves.append(r[0]),
+                                  dispatchThread=mode == "threaded").schedule([{}] * SHARDED_BATCHES)
+                return curves
+
+            schedule("sharded", "sync")  # warm-up
+            for w in wrappers.values():
+                w.launches = 0
+            schedule("sharded", "threaded")
+            counts = {k: w.launches // SHARDED_BATCHES for k, w in wrappers.items() if w.launches}
+            assert counts["nearest_in_table_rows"] == MAX_PATH and counts["target_in_table"] == MAX_PATH - 1, counts
+            traced, seconds = {}, {}
+            for kind, mode in SHARDED_TURNS:
+                torch.cuda.synchronize()
+                with RecordDigests() as rec:
+                    start = time.perf_counter()
+                    curves = schedule(kind, mode)
+                    torch.cuda.synchronize()
+                    seconds.setdefault(f"{kind} {mode}", []).append((time.perf_counter() - start) / SHARDED_BATCHES)
+                traced.setdefault(f"{kind} {mode}", []).append((rec.stacked(), curves))
+            ref_digests, ref_curves = traced["plain sync"][0]
+            assert ref_digests.shape[0] == SHARDED_BATCHES * (2 * MAX_PATH - 1), ref_digests.shape
+            twins = {}
+            for key, tries in traced.items():
+                for i, (dig, curves) in enumerate(tries):
+                    assert torch.equal(dig, ref_digests), f"{label}: {key} traced other records"
+                    if (key, i) != ("plain sync", 0):
+                        twins[f"{key} #{i + 1}"] = curves_twin(f"{label} {key}", ref_curves, curves)
+            x = torch.zeros(100, device=runner.mesh.device)
+            reduce_ms = cuda_ms(lambda: dist.all_reduce(x, group=runner.mesh.group), 200)
+        finally:
+            dist.destroy_process_group()
+    med = {k: statistics.median(v) for k, v in seconds.items()}
+    worst = max(t["max_rel"] for t in twins.values())
+    print(f"{label}: batch {batch}, path length {MAX_PATH}, {SHARDED_BATCHES} batches a schedule, ShardedRunner over "
+          f"an NCCL group of one [{smi}]: s/batch in turns (median of 2): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in med.items())
+          + f" (all {seconds}); launches a sharded batch {counts}; the same {ref_digests.shape[0]} records bit for bit "
+          f"in every mode, light curves within {worst:.3g} of the largest bin; an all-reduce of the 100-bin state "
+          f"{reduce_ms:.4f} ms")
+    runs[label] = dict(seconds_per_batch=seconds, median=med, launches_per_batch=counts,
+                       records=int(ref_digests.shape[0]), twins=twins, all_reduce_ms=reduce_ms, smi=smi)
+
+
+def gloo_rank(rank: int, world: int, url: str, out: str) -> None:
+    """(b) one gloo rank on the card, started by ``gloo_ranks_on_one_card``:
+    its block of flagship-brute's ``BATCH`` lanes through ``shard_trace``
+    (the summed histogram state, its lanes' RNG dims), and a sharded
+    gradient step of sum(state) in the water's absorption at
+    ``GRAD_BATCH`` lanes, path length ``GRAD_PATH``."""
+    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch
+
+    import theia_tpu_torch as P
+    import theia_tpu_torch.parallel  # noqa: F401
+    from torch_flagship import build_flagship, icosphere
+
+    P.parallel.initialize(url, world, rank, backend="gloo")
+    try:
+        mesh = P.parallel.make_photon_mesh(["cuda"])
+        tracer = build_flagship(P, icosphere(3), BATCH, MAX_PATH, accel="auto", device="cuda")
+        tracer._debug_rng = True
+        fn = P.parallel.shard_trace(tracer, mesh)
+        with torch.no_grad():
+            state, _, dims = fn(tracer.params(), tracer.rng.counter_words, P.parallel.sharded_streams(BATCH, mesh))
+        small = build_flagship(P, icosphere(3), GRAD_BATCH, GRAD_PATH, accel="auto", device="cuda")
+        loss, grad = absorption_grad(small, mesh)
+        torch.save(dict(state=state.cpu(), dims=dims.cpu(), loss=loss, grad=grad, device=str(mesh.device),
+                        size=mesh.size), Path(out) / f"rank-{rank}.pt")
+        torch.distributed.barrier()
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def gloo_ranks_on_one_card(runs, mesh, smi) -> None:
+    """(b) ``GLOO_RANKS`` gloo ranks sharing the card (``torch.multiprocessing``
+    spawn; NCCL takes one rank a card), each ``BATCH / GLOO_RANKS`` lanes:
+    each rank's final RNG dims equal to the single run's slice bit for bit,
+    the summed light curve within ``ATOMIC_ORDER_RTOL`` of the single run's
+    largest bin, and the sharded gradient step against the single one by
+    ``gradient_agreement``'s limits. A rank that fails, or outlasts
+    ``RANK_TIMEOUT``, fails the phase."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    import theia_tpu_torch as P
+    from torch_flagship import build_flagship
+
+    label = "gloo-ranks-one-card"
+    single = build_flagship(P, mesh, BATCH, MAX_PATH, accel="auto", device="cuda")
+    single._debug_rng = True
+    p = single.params()
+    with torch.no_grad():
+        state, _, dims = single._trace_batch(p, single.rng.counter_words, single.streams())
+    state, dims = state.cpu(), dims.cpu()
+    _, g_single = absorption_grad(build_flagship(P, mesh, GRAD_BATCH, GRAD_PATH, accel="auto", device="cuda"))
+    del single
+    torch.cuda.empty_cache()
+    ctx = mp.get_context("spawn")
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=gloo_rank, args=(r, GLOO_RANKS, f"file://{tmp}/rendezvous", tmp))
+                 for r in range(GLOO_RANKS)]
+        for proc in procs:
+            proc.start()
+        deadline = time.monotonic() + RANK_TIMEOUT
+        for proc in procs:
+            proc.join(timeout=max(deadline - time.monotonic(), 1.0))
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+        codes = [proc.exitcode for proc in procs]
+        assert codes == [0] * GLOO_RANKS, f"{label}: the ranks exited with {codes}"
+        ranks = [torch.load(Path(tmp) / f"rank-{r}.pt", weights_only=False) for r in range(GLOO_RANKS)]
+    seconds = time.perf_counter() - start
+    per = BATCH // GLOO_RANKS
+    for r, got in enumerate(ranks):
+        assert got["size"] == GLOO_RANKS and got["device"].startswith("cuda"), got["device"]
+        assert torch.equal(got["dims"], dims[r * per:(r + 1) * per]), f"{label}: rank {r}'s RNG dims"
+        assert torch.equal(got["state"].view(torch.int32), ranks[0]["state"].view(torch.int32)), label
+        assert np.array_equal(got["grad"], ranks[0]["grad"]), label
+    twin = curves_twin(label, [state.numpy()], [ranks[0]["state"].numpy()])
+    agreement = gradient_agreement(label, g_single, ranks[0]["grad"], "single against sharded")
+    print(f"{label}: {GLOO_RANKS} gloo ranks on the card, {per} of flagship-brute's {BATCH} lanes each [{smi}], "
+          f"{seconds:.1f} s with the ranks' start: each rank's RNG dims equal to the single run's slice, the summed "
+          f"state within {twin['max_rel']:.3g} of its largest bin ({twin['bins_differing']} of {twin['bins']} bins "
+          f"differ in their bits); the gradient step at batch {GRAD_BATCH}: worst entry {agreement['worst_entry_rel']:.3g}, "
+          f"sum {agreement['sum_rel']:.3g} from the single step")
+    runs[label] = dict(ranks=GLOO_RANKS, seconds=seconds, twin=twin, gradient=agreement, smi=smi)
+
+
+def profile_batch_run(runs, mesh, smi, timed_median: float) -> None:
+    """(c) ``profiling.profile_batch`` on flagship-brute: the trace file
+    written and loadable, with the card's kernels in it, the statistics
+    ordered; its fastest batch beside ``timed_runs``' median of phase 3d."""
+    import json as json_
+    import os
+    import tempfile
+
+    import theia_tpu_torch as P
+    from torch_flagship import build_flagship
+
+    label = "profile-batch-brute"
+    tracer = build_flagship(P, mesh, BATCH, MAX_PATH, accel="auto", device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        stats = P.profiling.profile_batch(tracer, tmp, runs=2)
+        files = [os.path.join(r, f) for r, _, fs in os.walk(tmp) for f in fs]
+        assert len(files) == 1 and files[0].endswith(".pt.trace.json"), files
+        size = os.path.getsize(files[0])
+        with open(files[0]) as f:
+            events = json_.load(f)["traceEvents"]
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    names = {e.get("name") for e in events}
+    assert "theia_tpu_torch.batch" in names and kernels > 0, (kernels, len(events))
+    assert 0 < stats["min"] <= stats["median"] <= stats["max"] and stats["bounces_per_s"] > 0, stats
+    print(f"{label}: profile_batch(runs=2) [{smi}]: min {stats['min']:.4f} s, median {stats['median']:.4f} s a batch "
+          f"under the profiler, against timed_runs' median {timed_median:.4f} s (phase 3d); trace {size / 2**20:.1f} MiB, "
+          f"{len(events)} events, {kernels} kernels")
+    runs[label] = dict(stats=stats, timed_runs_median=timed_median, trace_bytes=size, events=len(events),
+                       kernels=kernels, smi=smi)
+
+
+def last_slice_runs(mesh, wrappers, kernels, smi, brute_median: float, batch: int = BATCH) -> dict:
+    """Phase 3o: the multi-device layer, profiling and the wavefront sort:
+    (a) ``sharded_pipeline_runs``, (b) ``gloo_ranks_on_one_card``, (c)
+    ``profile_batch_run``, (d) ``sort_path_runs`` with the sort's kernel
+    checks (``check_sort_kernel``) and its rows (``time_sort_path``)."""
+    import torch
+
+    runs = {}
+    sharded_pipeline_runs(runs, wrappers, mesh, smi, batch)
+    torch.cuda.empty_cache()
+    gloo_ranks_on_one_card(runs, mesh, smi)
+    torch.cuda.empty_cache()
+    profile_batch_run(runs, mesh, smi, brute_median)
+    torch.cuda.empty_cache()
+    paths = sort_path_runs(runs, wrappers, kernels, mesh, smi, batch)
+    runs["sort kernel checks"] = check_sort_kernel()
+    time_sort_path({name: kernels[name] for name in ("sort_rays", "scatter_back")}, runs, paths)
+    del paths
+    torch.cuda.empty_cache()
+    return runs
+
+
 def hold_cpu_vs_card(label, build) -> dict:
     """One batch of ``build(device)``'s tracer on the CPU and on the card,
     held by ``PERF.md``'s histogram agreement: the lanes' RNG dims equal on
@@ -4658,6 +5155,7 @@ def main() -> int:
     from theia_tpu_torch.random import philox_uniform, sobol_owen_uniform
     from theia_tpu_torch.ops.cherenkov_track import track_backward_sample
     from theia_tpu_torch.ops.gamma import sample_gamma
+    from theia_tpu_torch.ops._intersect_tiles import scatter_back, sort_rays
     from theia_tpu_torch.ops import table_read
     from theia_tpu_torch.response import histogram_add, histogram_grad
     from theia_tpu_torch.response import (
@@ -4764,6 +5262,14 @@ def main() -> int:
         "track_backward_sample": dict(
             route="cuda", source="theia_tpu_torch/csrc/cherenkov_track.cu", replaces="theia_tpu/light.py:654",
         ),
+        "sort_rays": dict(
+            route="cuda", source="theia_tpu_torch/csrc/wavefront_sort.cu",
+            replaces="theia_tpu/ops/_intersect_tiles.py:203",
+        ),
+        "scatter_back": dict(
+            route="cuda", source="theia_tpu_torch/csrc/wavefront_sort.cu",
+            replaces="theia_tpu/ops/_intersect_tiles.py:209",
+        ),
     }
     rows = tracer.scene.pack.tri_data[:, 18:27].cpu().numpy()
     adversarial = tuple(
@@ -4779,6 +5285,7 @@ def main() -> int:
     assert sorted(r[2].shape[0] for r in mt_records) == [BATCH] * MAX_PATH + [2 * BATCH] * (MAX_PATH - 1)
     assert [r[2].shape[0] for r in woop_records] == [BATCH] * POL_RECORDS, len(woop_records)
     lap("recording the flagship batches")
+    scan_memo = {}
     for name, queries in (
         ("nearest_triangle_mt", mt_queries),
         ("nearest_triangle_woop", woop_queries),
@@ -4786,10 +5293,10 @@ def main() -> int:
     ):
         scene_pack = (pol_tracer if name == "nearest_triangle_woop" else tracer).scene.pack
         nearest = Nearest(name, scene_pack)
-        check_nearest(nearest, adversarial, queries, kernels[name])
+        check_nearest(nearest, adversarial, queries, kernels[name], scan_memo)
         if name == "nearest_triangle_mt_rows":
             abc_experiment(nearest, kernels[name])
-    del mt_queries, woop_queries, queries, nearest
+    del mt_queries, woop_queries, queries, nearest, scan_memo
     lap("the three nearest-hit kernels")
     soup_rows = brute_tracer.scene.pack.tri_data[:, 18:27].cpu().numpy()
     assert (soup_rows[:, 0:3] != rows[:, 0:3]).any(), "the brute-force soup is in instance order, not Morton order"
@@ -4804,10 +5311,11 @@ def main() -> int:
     for o, d, t_max, groups, active in shadow:
         t_det, idx_det = nearest_in_table(brute_tracer.scene.pack.soup, o, d, t_max, groups=groups, active=active)
         occluder_halves.append((o, d, t_det, [0, 1], idx_det >= 0))
+    soup_memo = {}
     for name in SOUP_KERNELS:
         queries = dict(nearest_in_table_rows=primary, anyhit_in_table=occluder_halves, target_in_table=shadow)
         queries = queries.get(name, primary + shadow)
-        check_soup(Soup(name, brute_tracer.scene.pack), adversarial, queries, kernels[name])
+        check_soup(Soup(name, brute_tracer.scene.pack), adversarial, queries, kernels[name], soup_memo)
     # the shadow pair without the winners' rows, as the flagship takes it where tri_data is differentiated
     bare = Soup("target_in_table", brute_tracer.scene.pack, rows=False)
     # the winners of one shadow pair: the rows that the reconstruction gathers (phase 2's gather cases)
@@ -4819,7 +5327,7 @@ def main() -> int:
         bare.check((o, d, t_max), f"a soup of {n_tri} without rows", on_cpu=True, active=active, tables=tables)
     print(f"kernel target_in_table: bit-equal to plain without rows on the {len(shadow)} recorded shadow pairs "
           f"and on soups of 1, 255, 257 and 3840 triangles (no occluder)")
-    del primary, shadow, occluder_halves, queries
+    del primary, shadow, occluder_halves, queries, soup_memo
     lap("the soup kernels")
     check_philox(kernels["philox_uniform"])
     check_sobol(kernels["sobol_owen_uniform"])
@@ -4905,6 +5413,8 @@ def main() -> int:
         "occluded_bvh": occluded_bvh,
         "sample_gamma": sample_gamma,
         "track_backward_sample": track_backward_sample,
+        "sort_rays": sort_rays,
+        "scatter_back": scatter_back,
     }
     # the gradient steps' launches: every wrapper, the backward kernels and the kernel histogram too
     grad_wrappers = {
@@ -5316,6 +5826,11 @@ def main() -> int:
             if name in kernels:
                 kernels[name].setdefault("single_card_launches", {})[run] = n
 
+    phase("3o")
+    # phase 3o: the multi-device layer (ShardedRunner over NCCL, gloo ranks sharing the card), profiling, and
+    # the wavefront sort on its path (flagship-array with accel="mt" and "woop")
+    last_slice = last_slice_runs(mesh, wrappers, kernels, smi, brute_med)
+
     phase("4")
     # phase 4: the port on the CPU against the port on the card
     cpu_vs_card = dict(single_card_cpu)
@@ -5352,6 +5867,10 @@ def main() -> int:
         ("track-backward, 256 segments", lambda dev: build_cherenkov_backward(
             theia_tpu_torch, SMALL_BATCH, dev, source=track_line_source(theia_tpu_torch, "track", 256))),
         ("flagship-brute-disk-guide", flagship(accel="auto", guide="disk")),
+        ("flagship-array (mt, binned), HitRecorder", lambda dev: build_array(
+            theia_tpu_torch, mesh, SMALL_BATCH, ARRAY_PATH, accel="mt", device=dev, binned=True)),
+        ("flagship-array (woop, binned), HitRecorder", lambda dev: build_array(
+            theia_tpu_torch, mesh, SMALL_BATCH, ARRAY_PATH, accel="woop", device=dev, binned=True)),
     ):
         cpu_vs_card[label] = hold_cpu_vs_card(label, build)
     grads = {}
@@ -5411,6 +5930,7 @@ def main() -> int:
                       launches=grad_counts, profile=grad_prof),
         volume_gradient_steps=volume_steps, geometry_gradient_step=geo, sobol_and_camera_runs=camera_runs,
         scene_camera_runs=scene_runs, cherenkov_runs=cherenkov, single_card_runs=single_card,
+        last_slice_runs=last_slice,
         cpu_vs_card=cpu_vs_card, phase_seconds={k: clock[n] - clock[k] for k, n in zip(clock, list(clock)[1:])},
         lap_seconds=laps,
         **line,

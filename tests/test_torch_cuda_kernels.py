@@ -582,3 +582,28 @@ def test_track_kernel_bit_exact(cuda, segments):
     assert track_backward_sample.launches == before + 1
     if isinstance(segments, int):
         assert chip_smoke.track_gradient_rel(args) <= 1e-5
+
+
+def test_wavefront_sort_kernel_bit_equal(cuda):
+    """csrc/wavefront_sort.cu against its plain twin (chip_smoke's cases:
+    NaN, infinite and huge origins, 1 to 262,144 lanes), and a binned MT
+    query, which launches the sort and the scatter back once each,
+    bit-equal to the unbinned one."""
+    import theia_tpu_torch
+    from chip_smoke import check_sort_kernel
+    from theia_tpu_torch.ops import _intersect_tiles as tiles
+    from theia_tpu_torch.ops.intersect_mt import nearest_triangle_mt
+    from torch_flagship import build_flagship, icosphere
+
+    check_sort_kernel()
+    pack = build_flagship(theia_tpu_torch, icosphere(2), 64, 2, device=cuda).scene.pack.mt
+    rng = np.random.default_rng(4)
+    n = 10_001
+    o = torch.as_tensor(rng.uniform(-1, 4, (n, 3)).astype(np.float32), device=cuda)
+    d = torch.nn.functional.normalize(torch.as_tensor(rng.normal(size=(n, 3)).astype(np.float32), device=cuda), dim=1)
+    before = tiles.sort_rays.launches, tiles.scatter_back.launches
+    t, i = nearest_triangle_mt(pack, o, d, 6.0, binned=True)
+    torch.cuda.synchronize()
+    assert (tiles.sort_rays.launches, tiles.scatter_back.launches) == (before[0] + 1, before[1] + 1)
+    t_u, i_u = nearest_triangle_mt(pack, o, d, 6.0, binned=False)
+    assert (i >= 0).any() and torch.equal(i, i_u) and torch.equal(t.view(torch.int32), t_u.view(torch.int32))

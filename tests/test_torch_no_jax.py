@@ -13,8 +13,11 @@ guided by a disk and the value queue with its estimator, then the last
 single-card modules (a two-batch threaded PipelineScheduler with a
 ConvergeHistogramTask, a checkpoint, a SceneRender of a scene loaded
 from an STL file, a material archive written and read back, the 2-D
-tables and the samplers), in a fresh interpreter leaves jax, theia_tpu
-and jsonschema unloaded; the port's example scripts import none of them."""
+tables and the samplers), and the last slice (the multi-device layer in
+a world of one process, ``ShardedRunner`` under a pipeline,
+``profiling.profile_batch`` and a binned MT query), in a fresh interpreter
+leaves jax, theia_tpu and jsonschema unloaded; the port's example scripts
+import none of them."""
 
 import subprocess
 import sys
@@ -140,6 +143,18 @@ with tempfile.TemporaryDirectory() as tmp:
     assert "water_test" in P.material.loadMaterials(tmp + "/m.zip")[1]
 assert P.lookup.lookup2d(torch.ones(3, 4), torch.rand(8), torch.rand(8)).shape == (8,)
 assert P.testing.sampleLight(P.light.SphericalLightSource(), 8, device="cpu").position.shape == (8, 3)
+import theia_tpu_torch.parallel, theia_tpu_torch.profiling, theia_tpu_torch.ops._intersect_tiles
+mesh = P.parallel.make_photon_mesh(["cpu"])
+vol = build_volume_flagship(P, 64, "cpu")
+hist, _ = P.parallel.shard_trace(vol, mesh)(vol.params(), vol.rng.counter_words, P.parallel.sharded_streams(64, mesh))
+assert hist.shape == (100,)
+assert P.pipeline.Pipeline(vol, runner=P.parallel.ShardedRunner(vol)).run()[0].shape == (100,)
+with tempfile.TemporaryDirectory() as tmp:
+    assert P.profiling.profile_batch(vol, tmp, runs=1)["min"] > 0
+mt = build_flagship(P, icosphere(1), 64, 2, accel="mt", device="cpu").scene.pack.mt
+o, d = torch.rand(64, 3), torch.nn.functional.normalize(torch.randn(64, 3), dim=1)
+assert torch.equal(P.ops.intersect_mt.nearest_triangle_mt(mt, o, d, 5.0, binned=True)[1],
+                   P.ops.intersect_mt.nearest_triangle_mt(mt, o, d, 5.0, binned=False)[1])
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "theia_tpu", "jsonschema"))
 print("LOADED", loaded)
 """

@@ -1,12 +1,16 @@
 """Public names of ``theia_tpu`` that the port must answer to as well:
 ``theia_tpu_torch.render``, ``accel.anyhit_in_soup`` / ``nearest_in_soup``,
-the JAX keywords of the MT and Woop nearest-hit queries, which the port
-accepts and ignores, and the names of the Cherenkov slice: the planar
+the JAX keywords of the MT and Woop nearest-hit queries (``binned`` sorts
+the rays and changes no bit; the others are accepted and ignored), and
+the names of the Cherenkov slice: the planar
 target guides, the Cherenkov, particle, host and tabulated light sources,
 ``cascades``, ``items``, ``ops.gamma`` and the value queue's estimators;
 and every name of ``__all__`` of the last single-card modules (``lookup``,
 ``material``, ``mesh``, ``render``, ``testing``, ``ops.sampling``,
-``pipeline``, ``task``, ``trace`` and ``native``).
+``pipeline``, ``task``, ``trace`` and ``native``); and, walking every module
+of ``theia_tpu`` with pkgutil, each module's counterpart with every name
+of its ``__all__`` but one explicit list of exclusions, each with its
+reason.
 
 Tolerances and why: the soup queries against ``theia_tpu``'s as in
 tests/test_torch_brute.py (b): JAX divides by det, the port takes a
@@ -198,3 +202,70 @@ def test_single_card_submodules_and_aliases():
     assert (lk.evalTable, lk.sampleTable1D, lk.sampleTable2D) == (lk.eval_table, lk.sample_table1d, lk.sample_table2d)
     assert isinstance(theia_tpu_torch.native.native_available(), bool)
     assert theia_tpu_torch.material.Medium.save and theia_tpu_torch.material.Medium.load
+
+
+#: names of theia_tpu's ``__all__`` that the port leaves out, by module,
+#: each with its reason (ROADMAP.md's "Not to port")
+NOT_PORTED = {
+    "ops._intersect_tiles": {
+        "rcp": "the Pallas kernels' approximate reciprocal; the port's scans take __frcp_rn and a Newton step",
+        "block_slab_hit": "a Pallas kernel body's per-(ray block, tile) slab test; the scans test chunk boxes",
+        "select_winner": "a Pallas kernel body's min/iota winner reduction; the scans keep (t bits, index) keys",
+        "pack_rays": "pads rays to a Pallas grid of ray blocks; the CUDA scans take any N",
+        "check_vmem_budget": "the TPU's VMEM budget for a resident triangle table; the scans stream their tables",
+    },
+}
+#: theia_tpu modules with no counterpart module of that name in the port
+MODULE_MAP = {"ops.intersect_mt_pallas": "ops.intersect_mt"}
+#: theia_tpu modules that are no Python module of names
+NOT_MODULES = {"native.libbvh": "the compiled BVH builder, a shared library; the port builds its own copy of "
+                                "native/bvh.cpp with g++ at first use"}
+
+
+def jax_modules():
+    import pkgutil
+
+    import theia_tpu
+
+    names = [m.name[len("theia_tpu."):] for m in pkgutil.walk_packages(theia_tpu.__path__, "theia_tpu.")]
+    return [""] + sorted(n for n in names if n not in NOT_MODULES)
+
+
+@pytest.mark.parametrize("module", jax_modules())
+def test_port_has_every_module_and_name(module):
+    """Every module of theia_tpu (walked with pkgutil: parallel.*,
+    profiling and ops._intersect_tiles too) has its counterpart in the
+    port, with every name of its ``__all__`` but the listed exclusions."""
+    jmod = importlib.import_module("theia_tpu" + (f".{module}" if module else ""))
+    tname = MODULE_MAP.get(module, module)
+    tmod = importlib.import_module("theia_tpu_torch" + (f".{tname}" if tname else ""))
+    skip = NOT_PORTED.get(module, {})
+    missing = sorted(n for n in getattr(jmod, "__all__", ()) if n not in skip and not hasattr(tmod, n))
+    assert not missing, (module, missing)
+    assert not [n for n in skip if hasattr(tmod, n)], "an excluded name is ported: take it off the list"
+
+
+def test_exclusions_name_real_names():
+    import pkgutil
+
+    import theia_tpu
+
+    for module, names in NOT_PORTED.items():
+        assert set(names) <= set(importlib.import_module(f"theia_tpu.{module}").__all__), module
+    walked = {m.name[len("theia_tpu."):] for m in pkgutil.walk_packages(theia_tpu.__path__, "theia_tpu.")}
+    assert set(NOT_MODULES) | set(MODULE_MAP) <= walked
+    assert {"parallel", "parallel.dataparallel", "parallel.runner", "parallel.multihost", "profiling",
+            "ops._intersect_tiles"} <= walked
+
+
+def test_last_slice_names():
+    import theia_tpu_torch.ops._intersect_tiles as tiles
+    import theia_tpu_torch.parallel as par
+    import theia_tpu_torch.profiling as prof
+
+    assert len(par.__all__) == 9 and all(hasattr(par, n) for n in par.__all__)
+    assert sorted(prof.__all__) == ["batch_timings", "profile_batch", "trace_profile"]
+    assert {"octant_cell_key", "run_binned", "BIN_CELLS", "BIN_THRESHOLD"} <= set(tiles.__all__)
+    assert (tiles.BIN_CELLS, tiles.BIN_THRESHOLD) == (4, 8192)
+    assert {"parallel", "profiling"} <= set(theia_tpu_torch.__all__)
+    assert theia_tpu_torch.parallel.dataparallel.BATCH_AXIS == "batch"

@@ -764,7 +764,7 @@ def array_transforms(n_side: int = ARRAY_SIDE, spacing: float = ARRAY_SPACING, p
 
 def build_array(
     pkg, mesh, batch: int, max_path: int = 8, accel: str = "auto", device=None, *, response=None,
-    n_side: int = ARRAY_SIDE, scale: float = 0.35, key: int = 0xA11CE,
+    n_side: int = ARRAY_SIDE, scale: float = 0.35, key: int = 0xA11CE, binned: bool = False,
 ):
     """``examples/08_detector_array.py``'s tracer of ``pkg``: BK7-shelled
     detector modules (flags ``"DB"``, the sphere ``mesh`` at ``scale`` m)
@@ -775,7 +775,8 @@ def build_array(
     ``HitRecorder`` (``response`` replaces it). 26 modules of
     ``icosphere(3)`` are 33,280 triangles and ``accel="auto"`` resolves to
     ``"instanced"``; 26 of ``icosphere(2)`` are 8,320, still past the
-    threshold."""
+    threshold. ``binned=True`` (``theia_tpu_torch`` only) builds the scene
+    with ``binned=True``: the ``mt`` and ``woop`` queries sort their rays."""
     mod = lambda name: importlib.import_module(f"{pkg.__name__}.{name}")
     u, light, material, rnd, scene_mod = mod("units"), mod("light"), mod("material"), mod("random"), mod("scene")
     dev = {} if device is None else {"device": device}
@@ -785,7 +786,8 @@ def build_array(
     meshes = scene_mod.MeshStore({"sphere": mod("mesh").Mesh.from_geometry(*mesh)})
     proto = meshes.createInstance("sphere", "det_shell", scene_mod.Transform.TRS(scale=scale * u.m))
     template = mod("render").SceneTemplate([proto])
-    scene = template.createScene(array_transforms(n_side, pkg=pkg), mats, medium="water", accel=accel, **dev)
+    scene = template.createScene(array_transforms(n_side, pkg=pkg), mats, medium="water", accel=accel, **dev,
+                                 **({"binned": True} if binned else {}))
     return mod("trace.scene").SceneForwardTracer(
         batch,
         light.SphericalLightSource(position=(0.0, 0.0, 0.0), timeRange=(0.0, 0.0), budget=1e9),

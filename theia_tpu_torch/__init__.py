@@ -6,8 +6,8 @@ Plain tensor code is PyTorch; the hot kernels of the scene tracer's main
 path (the nearest-hit and any-hit scans over the triangle soup, the
 instanced and BVH walks, Philox and Owen-scrambled Sobol draws, the
 histogram record and its backward, the kernel histogram and the table
-reads with their backward, the gamma draw of a cascade's depth and a
-Cherenkov track's backward sample)
+reads with their backward, the gamma draw of a cascade's depth, a
+Cherenkov track's backward sample and the wavefront sort)
 are hand-written CUDA kernels for Hopper in ``csrc/``, built with nvcc at
 first use (the BVH builder in ``native/`` with g++). On CPU tensors
 every kernel's plain PyTorch version runs instead. This package never
@@ -29,8 +29,11 @@ from tracks, muons and cascades (``cascades``), the host-fed and
 tabulated sources, the planar target guides and the value queue with its
 estimators; mesh files, material archives and the ocean-water phase
 functions, 2-D tables, the samplers of ``testing``, the debug renderer
-``render.SceneRender``, and ``pipeline`` with its scheduler, tasks and
-checkpoints (see ROADMAP.md for what comes next: the multi-device layer).
+``render.SceneRender``, ``pipeline`` with its scheduler, tasks and
+checkpoints, the multi-device layer ``parallel`` (``ShardedRunner`` over
+``torch.distributed``, one process a device), ``profiling`` on
+``torch.profiler`` and the wavefront sort of the MT and Woop queries
+(``ops._intersect_tiles.run_binned``): every module of ``theia_tpu``.
 """
 
 from . import units
@@ -42,8 +45,8 @@ __version__ = "0.1.0"
 #: import, loaded lazily so importing the root stays cheap
 _SUBMODULES = {
     "accel", "callback", "camera", "cascades", "component", "interop", "items", "light", "lookup",
-    "material", "mesh", "ops", "pipeline", "random", "render", "response", "scene", "target",
-    "task", "testing", "trace",
+    "material", "mesh", "ops", "parallel", "pipeline", "polarization", "profiling", "random", "render",
+    "response", "scene", "target", "task", "testing", "trace",
 }
 
 __all__ = sorted(_SUBMODULES | {"units", "PhiloxRNG", "RNGState", "SobolQRNG", "SobolState"})

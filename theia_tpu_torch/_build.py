@@ -34,7 +34,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "theia_tpu_torch"
 SOURCES = (
     "intersect_woop.cu", "intersect_soup.cu", "philox.cu", "sobol.cu", "histogram.cu",
     "kernel_histogram.cu", "table_read.cu", "bvh_walk.cu", "instanced_walk.cu", "gamma.cu",
-    "cherenkov_track.cu",
+    "cherenkov_track.cu", "wavefront_sort.cu",
 )
 #: -fmad=false: no contraction of a*b+c into FMAs, so every product and sum
 #: rounds exactly as the plain PyTorch versions' separate ops do (explicit
@@ -49,6 +49,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint32
 _U64 = ctypes.c_uint64
+_F = ctypes.c_float
 #: argument types of each C entry point (pointers and the stream as void*)
 _SIGNATURES = {
     "theia_woop_nearest": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P),
@@ -74,6 +75,8 @@ _SIGNATURES = {
     "theia_gamma_philox": (_U, _U, _U, _U, _U, _U, _P, _I, _P, _P, _I, _P, _P, _P, _U64, _P),
     "theia_gamma_sobol": (_P, _I, _U, _U, _U, _U, _P, _I, _P, _P, _I, _P, _P, _P, _U64, _P),
     "theia_track_sample": (_P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P),
+    "theia_wavefront_sort": (_P, _P, _P, _F, _F, _F, _F, _F, _F, _I, _P, _P, _P, _P, _P, _P, _P, _P),
+    "theia_wavefront_scatter": (_P, _P, _P, _P, _I, _P, _P, _P, _P),
 }
 
 

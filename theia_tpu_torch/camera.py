@@ -47,6 +47,9 @@ __all__ = [
     "PointCamera",
     "MeshCamera",
     "HostCamera",
+    "CameraRayItem",
+    "PolarizedCameraRayItem",
+    "CameraRaySampler",
 ]
 
 
@@ -683,3 +686,16 @@ class HostCamera(Camera):
             ),
             rng,
         )
+
+
+from .items import CameraRayItem, PolarizedCameraRayItem  # noqa: E402
+
+
+def __getattr__(name):
+    # the sampler lives in theia_tpu_torch.testing, which imports this
+    # module; resolved lazily as theia_tpu.camera resolves it
+    if name == "CameraRaySampler":
+        from .testing import CameraRaySampler
+
+        return CameraRaySampler
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -5,8 +5,8 @@ The port of ``theia_tpu/ops/intersect_mt_pallas.py`` and the host half of
 triangles as (T_tiles, 9, BT) rows (v0xyz, e1xyz, e2xyz), padding with
 v0 = 3e38 that never hits, per-tile AABBs and tight scene bounds — so the
 two packages' packs compare equal. Only ``tri`` goes to the device: the
-per-tile AABBs and scene bounds stay host arrays, since nothing on the
-port's path reads them until ``run_binned`` is ported. The kernel reads
+per-tile AABBs and scene bounds stay host arrays (the wavefront sort reads
+the bounds on the host, ``_intersect_tiles.run_binned``). The kernel reads
 its own copy of the triangles, ``tri_aos``: one 20-float row a triangle
 (:func:`mt_aos`, with the row's index in column :data:`INDEX_COLUMN`),
 derived from ``tri`` on its device, with the boxes of its chunks and
@@ -33,8 +33,15 @@ inequalities without the division); :func:`_mt_sphere_miss_plain` and
 The kernel walks the table 256 triangles at a time, one a thread, with a
 fixed block of rays in shared memory, so no capacity check is needed
 where the TPU version checks its VMEM budget.
-The wavefront binning of the TPU version (``run_binned``, for scenes of
-8192 triangles and more) is not ported yet.
+With ``binned=True`` both queries sort their rays by direction octant
+and position cell first and scatter the winners (and rows) back
+(``_intersect_tiles.run_binned``, the kernels of
+``csrc/wavefront_sort.cu``); the winners are the same bits either way.
+The TPU version sorts by default from
+:data:`~theia_tpu_torch.ops._intersect_tiles.BIN_THRESHOLD` triangles on;
+the port does not (``binned=None`` takes ``pack.binned``, which only
+``Scene(binned=True)`` sets): its scan culls each ray on its own, and the
+sorted query measured slower on the card.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ._intersect_tiles import run_binned, safe as _safe, tile_aabbs
 from .math3d import sqrt
 
 __all__ = [
@@ -98,11 +106,14 @@ class MTPack:
     ``sub_box`` hold the inflated bounds of each run of :data:`CHUNK` and
     of :data:`SUB` triangles, derived from ``tri`` on its device by
     :func:`chunk_boxes`. ``aabb``, ``lo`` and ``hi`` are the JAX pack's
-    per-tile AABBs and scene bounds as host numpy arrays; no query reads
-    them yet. ``tri_aos`` is the kernel's table (:func:`mt_aos`, each
+    per-tile AABBs and scene bounds as host numpy arrays; the wavefront
+    sort reads the bounds. ``tri_aos`` is the kernel's table (:func:`mt_aos`, each
     row's index in column :data:`INDEX_COLUMN`), ``chunk_count`` and
     ``chunks`` the real rows of each chunk and the list of every chunk
-    (:func:`whole_table`)."""
+    (:func:`whole_table`). ``binned``: whether the queries sort their rays
+    when called with ``binned=None`` (``Scene(binned=True)`` sets it)."""
+
+    binned = False
 
     def __init__(self, tri, aabb, lo, hi, n_tri: int) -> None:
         self.tri = tri  # f32 (T_tiles, 9, BT): v0xyz, e1xyz, e2xyz rows
@@ -230,32 +241,6 @@ def morton_order(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray) -> np.ndarray:
     return np.argsort(code, kind="stable")
 
 
-def tile_aabbs(v0, e1, e2, n_tri: int, n_tiles: int, bt: int) -> np.ndarray:
-    """(n_tiles, 8) per-tile AABBs (lo xyz, pad, hi xyz, pad) over the
-    real triangles, rounded outward to float32; all-padding tiles get an
-    inverted box."""
-    aabb = np.zeros((n_tiles, 8), np.float32)
-    pts = np.concatenate(
-        [v0[:n_tri], v0[:n_tri] + e1[:n_tri], v0[:n_tri] + e2[:n_tri]], axis=0
-    )
-    for k in range(n_tiles):
-        s = slice(k * bt, min((k + 1) * bt, n_tri))
-        if s.start >= n_tri:  # tile entirely padding
-            aabb[k, 0:3] = 1.0
-            aabb[k, 4:7] = -1.0
-            continue
-        p = np.concatenate([pts[s], pts[n_tri:][s], pts[2 * n_tri:][s]], axis=0)
-        lo = p.min(0)
-        hi = p.max(0)
-        lo32 = lo.astype(np.float32)
-        hi32 = hi.astype(np.float32)
-        lo32 = np.where(lo32 > lo, np.nextafter(lo32, -np.inf), lo32)
-        hi32 = np.where(hi32 < hi, np.nextafter(hi32, np.inf), hi32)
-        aabb[k, 0:3] = lo32
-        aabb[k, 4:7] = hi32
-    return aabb
-
-
 def scene_bounds(v0, e1, e2, n_tri: int):
     """Tight (lo, hi) bounds over the real triangles."""
     pts = np.concatenate(
@@ -292,12 +277,6 @@ def _rcp(v: torch.Tensor) -> torch.Tensor:
     ``__frcp_rn`` and ``r*(2-v*r)``)."""
     r = 1.0 / v
     return r * (2.0 - v * r)
-
-
-def _safe(v: torch.Tensor) -> torch.Tensor:
-    """Keep the reciprocal finite, preserving the sign."""
-    tiny = torch.where(v < 0.0, -1e-20, 1e-20)
-    return torch.where(torch.abs(v) < 1e-20, tiny, v)
 
 
 def _slab(box, o, inv):
@@ -631,12 +610,22 @@ def nearest_triangle_mt(
     A hit counts only if strictly closer than ``t_max``; the lowest index
     wins ties. CUDA tensors launch the scan (``theia_soup_nearest`` over
     every chunk of the pack), CPU tensors run the plain version.
-    ``interpret``, ``binned`` and ``bn``, the JAX query's Pallas mode,
-    wavefront sort and rays a grid step, are accepted and ignored, as
-    ``chunk`` is by the soup queries: the port has no sort and the scan
-    chooses its own tiling."""
+    ``binned=True`` sorts the rays by direction octant and position cell
+    before the scan and scatters the results back
+    (``_intersect_tiles.run_binned``; the same bits, other blocks of
+    coherent rays); ``None``, the default, takes ``pack.binned``, False
+    unless the scene was built with ``binned=True``, where ``theia_tpu``
+    bins from ``BIN_THRESHOLD`` triangles on. ``interpret`` and
+    ``bn``, the JAX query's Pallas mode and rays a grid step, are accepted
+    and ignored, as ``chunk`` is by the soup queries: the scan chooses its
+    own tiling."""
     n = origin.shape[0]
     t_max = check_rays(origin, direction, t_max, _mt_tables(pack))
+    if pack.binned if binned is None else binned:
+        return run_binned(
+            lambda o, d, tm: nearest_triangle_mt(pack, o, d, tm, binned=False),
+            pack.lo, pack.hi, origin, direction, t_max,
+        )
     if origin.device.type == "cpu":
         return nearest_triangle_mt_plain(pack, origin, direction, t_max)
     t = torch.empty(n, dtype=torch.float32, device=origin.device)
@@ -663,14 +652,17 @@ def nearest_triangle_mt_rows_plain(
 
 
 def nearest_triangle_mt_rows(
-    pack: MTPack, table: torch.Tensor, origin: torch.Tensor, direction: torch.Tensor, t_max
+    pack: MTPack, table: torch.Tensor, origin: torch.Tensor, direction: torch.Tensor, t_max, *,
+    binned: bool | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """:func:`nearest_triangle_mt` plus each winner's table row: returns
     (t, idx, rows) with rows f32 (N, 32) = ``table[max(idx, 0)]`` (row 0
     on a miss), ``table`` f32 (R >= n_tri, 32), e.g. the scene's
     ``tri_data``. The port of ``tools/exp_mt_fused.py``'s fused kernel:
     CUDA tensors launch the row-copying variant of the scan
-    (``theia_soup_nearest_rows``), CPU tensors run the plain version."""
+    (``theia_soup_nearest_rows``), CPU tensors run the plain version.
+    ``binned`` as in :func:`nearest_triangle_mt`: the rows are scattered
+    back with the winners."""
     n = origin.shape[0]
     if table.shape[0] < pack.n_tri:
         raise ValueError(f"table has {table.shape[0]} rows, fewer than {pack.n_tri} triangles")
@@ -678,6 +670,11 @@ def nearest_triangle_mt_rows(
         origin, direction, t_max,
         (*_mt_tables(pack), ("table", table, (table.shape[0], ROW_WIDTH))),
     )
+    if pack.binned if binned is None else binned:
+        return run_binned(
+            lambda o, d, tm: nearest_triangle_mt_rows(pack, table, o, d, tm, binned=False),
+            pack.lo, pack.hi, origin, direction, t_max,
+        )
     if origin.device.type == "cpu":
         return nearest_triangle_mt_rows_plain(pack, table, origin, direction, t_max)
     t = torch.empty(n, dtype=torch.float32, device=origin.device)

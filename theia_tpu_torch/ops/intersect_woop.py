@@ -19,7 +19,8 @@ table ``b`` whose columns are the o' and d' parts of the TPU kernel's
 and offset 3e38 that never hit, per-tile AABBs and tight scene bounds —
 so the two packages' packs compare equal. Only ``b`` and the skip boxes
 go to the device; ``aabb``, ``lo`` and ``hi`` stay host arrays, as in
-:class:`~theia_tpu_torch.ops.intersect_mt.MTPack`. The kernel reads its
+:class:`~theia_tpu_torch.ops.intersect_mt.MTPack` (the wavefront sort
+reads the bounds on the host). The kernel reads its
 own copy of the transforms, ``tri_aos``: one 20-float row a triangle
 (:func:`woop_aos`, with the row's index in the index column), derived
 from ``b`` on its device.
@@ -39,9 +40,12 @@ of the exact test the kernel runs two rejection tests that never reject
 a pair the exact test accepts (the ray's line against the triangle's
 bounding sphere, then the exact test's inequalities without the
 division); :func:`_woop_sphere_miss_plain` and :func:`_woop_reject_plain`
-are their plain twins. The
-wavefront binning of the TPU version (``run_binned``, for scenes of 8192
-triangles and more) is not ported yet.
+are their plain twins. With ``binned=True`` the query sorts its rays by
+direction octant and position cell first and scatters the winners back
+(``_intersect_tiles.run_binned``, the kernels of
+``csrc/wavefront_sort.cu``); the TPU version does so by default from
+:data:`~theia_tpu_torch.ops._intersect_tiles.BIN_THRESHOLD` triangles on,
+the port only when asked.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ._intersect_tiles import run_binned
 from .intersect_mt import (
     CHUNK,
     SUB,
@@ -95,10 +100,14 @@ class WoopPack:
     triangles (see :func:`~theia_tpu_torch.ops.intersect_mt.chunk_boxes`:
     they come from the world triangles, which ``b`` does not hold);
     ``aabb``, ``lo`` and ``hi`` are the JAX pack's per-tile AABBs and
-    scene bounds as host numpy arrays, which no query reads yet.
+    scene bounds as host numpy arrays; the wavefront sort reads the bounds.
     ``tri_aos`` is the kernel's table (:func:`woop_aos`), ``chunk_count``
     and ``chunks`` the real rows of each chunk and the list of every chunk
-    (:func:`~theia_tpu_torch.ops.intersect_mt.whole_table`)."""
+    (:func:`~theia_tpu_torch.ops.intersect_mt.whole_table`). ``binned``:
+    whether the query sorts its rays when called with ``binned=None``
+    (``Scene(binned=True)`` sets it)."""
+
+    binned = False
 
     def __init__(self, b, aabb, lo, hi, n_tri: int, chunk_box, sub_box) -> None:
         self.b = b  # f32 (T_tiles, 8, 6*BT)
@@ -294,10 +303,12 @@ def nearest_triangle_woop(
     A hit counts only if strictly closer than ``t_max``; the lowest index
     wins ties. CUDA tensors launch ``theia_woop_nearest`` of
     ``csrc/intersect_woop.cu``, CPU tensors run the plain version.
-    ``interpret``, ``precision`` and ``binned``, the JAX query's Pallas
-    mode, transform precision and wavefront sort, are accepted and
-    ignored: the transform is float32 in a fixed order, and the port has
-    no sort."""
+    ``binned=True`` sorts the rays first and scatters the winners back;
+    ``None`` takes ``pack.binned``, as in
+    :func:`~theia_tpu_torch.ops.intersect_mt.nearest_triangle_mt`.
+    ``interpret`` and ``precision``, the JAX query's Pallas mode and
+    transform precision, are accepted and ignored: the transform is
+    float32 in a fixed order."""
     n = origin.shape[0]
     n_chunks = -(-pack.n_tri // CHUNK)
     t_max = check_rays(
@@ -309,6 +320,11 @@ def nearest_triangle_woop(
             ("pack.sub_box", pack.sub_box, (n_chunks * CHUNK // SUB, 8)),
         ),
     )
+    if pack.binned if binned is None else binned:
+        return run_binned(
+            lambda o, d, tm: nearest_triangle_woop(pack, o, d, tm, binned=False),
+            pack.lo, pack.hi, origin, direction, t_max,
+        )
     if origin.device.type == "cpu":
         return nearest_triangle_woop_plain(pack, origin, direction, t_max)
     t = torch.empty(n, dtype=torch.float32, device=origin.device)

@@ -176,6 +176,7 @@ class SceneTemplate:
         leaf_size: int = 8,
         detectorIdStride: int | None = None,
         sceneTransform: Transform | None = None,
+        binned: bool = False,
         device="cuda",
     ) -> Scene:
         """Stamp the template once per transform (reference:
@@ -197,5 +198,6 @@ class SceneTemplate:
                     t = sceneTransform @ t
                 out.append(MeshInstance(proto.key, proto.mesh, proto.material, t, det_id))
         return Scene(
-            out, materials, medium=medium, bbox=bbox, accel=accel, leaf_size=leaf_size, device=device,
+            out, materials, medium=medium, bbox=bbox, accel=accel, leaf_size=leaf_size, binned=binned,
+            device=device,
         )

@@ -408,7 +408,11 @@ class Scene:
     ``theia_tpu``'s keyword: it decides only whether the pack carries
     :class:`CullTables`, which no query of the port reads. ``leaf_size``
     is the most triangles a leaf of ``accel="bvh"``'s tree holds (below
-    32).
+    32). ``binned=True`` has the ``mt`` and ``woop`` queries sort each
+    wavefront of rays first (``ops._intersect_tiles.run_binned``): the
+    same winners, other blocks of rays. ``theia_tpu`` has no such
+    keyword and sorts from ``BIN_THRESHOLD`` triangles on; the port's
+    queries do not by default.
 
     ``materials``: a :class:`MaterialStore`, or a dict of materials by
     name, which is packed on ``device`` (as ``theia_tpu`` packs one)."""
@@ -423,6 +427,7 @@ class Scene:
         accel: str = "auto",
         leaf_size: int = 8,
         cull: bool = True,
+        binned: bool = False,
         device="cuda",
     ) -> None:
         if not isinstance(materials, MaterialStore):
@@ -453,6 +458,7 @@ class Scene:
         self.accel = accel
         self.leaf_size = leaf_size
         self.cullEnabled = cull
+        self.binned = binned
         self.device = resolve_device(device)
         self.bbox = bbox if bbox is not None else RectBBox(
             (-1.0 * u.km,) * 3, (1.0 * u.km,) * 3
@@ -521,6 +527,7 @@ class Scene:
             cat = {k: v[perm] for k, v in cat.items()}
             pack = pack_mt if self.accel == "mt" else pack_woop
             tables = {self.accel: pack(cat["w_v0"], cat["w_e1"], cat["w_e2"], device=self.device)}
+            tables[self.accel].binned = self.binned
             tables.update(self._soup_tables(cat, inst_data, dev))
 
         tri_data = np.zeros((len(cat["inst"]), 32), np.float32)

@@ -16,6 +16,7 @@
     python3 -m theia_tpu_torch.tools.card_measure gamma-track-builds [DIR]
     python3 -m theia_tpu_torch.tools.card_measure cherenkov-turns DIR
     python3 -m theia_tpu_torch.tools.card_measure profile
+    python3 -m theia_tpu_torch.tools.card_measure sharded [RANKS]
 
 ``tiles`` builds the scan of ``csrc/nearest_scan.cuh`` with 256 and 512
 rays a block, prints what ptxas reports for each (registers, shared
@@ -171,6 +172,19 @@ geometry), one batch of the volume flagship and one of the photon
 flagship by ``run()`` and by ``run_compacted()``, and prints device-busy
 time, kernel count, the largest items and the hand-written kernels'
 device time (the scans, Philox, the histograms, the table reads).
+
+``sharded [RANKS]`` runs flagship-brute over ``RANKS`` cards (all the
+cards by default), one process a card (``torch.multiprocessing`` spawn,
+``parallel.initialize`` over NCCL with a ``file://`` rendezvous), each rank
+262,144 of the global batch's ``RANKS`` x 262,144 lanes: one batch through
+``parallel.shard_trace`` with its lanes' RNG dims, then
+``SHARDED_BATCHES`` batches a schedule through ``Pipeline(tracer,
+runner=ShardedRunner(tracer))`` synchronously and on the dispatch thread
+in turns, and the all-reduce of a 100-bin state. Then, on card 0 alone,
+the same global batch in one process: each rank's dims equal to its slice
+bit for bit, the summed state within ``chip_smoke.ATOMIC_ORDER_RTOL`` of
+the largest bin, and seconds a batch of the same schedules, for the
+ranks' speed-up.
 
 Every mode prints the card's name and power limit first and writes its
 numbers to ``card_measure_<mode>.json`` (``card_measure_baseline_aos.json``
@@ -2069,6 +2083,117 @@ def profile() -> dict:
     return out
 
 
+def _sharded_rank(rank: int, ranks: int, url: str, out: str) -> None:
+    """One rank of ``sharded``: its card, its block of the lanes."""
+    from theia_tpu_torch import parallel
+    from theia_tpu_torch.pipeline import Pipeline
+
+    parallel.initialize(url, ranks, rank, backend="nccl")
+    try:
+        mesh = parallel.make_photon_mesh()
+        tracer = build_flagship(theia_tpu_torch, icosphere(3), ranks * chip_smoke.BATCH, chip_smoke.MAX_PATH,
+                                accel="auto", device=mesh.device)
+        tracer._debug_rng = True
+        with torch.no_grad():
+            state, _, dims = parallel.shard_trace(tracer, mesh)(
+                tracer.params(), tracer.rng.counter_words, parallel.sharded_streams(tracer.capacity, mesh))
+        tracer._debug_rng = False
+        pipe = Pipeline(tracer, runner=parallel.ShardedRunner(tracer))
+        seconds, curves = _schedules(pipe, tracer)
+        x = torch.zeros(100, device=mesh.device)
+        reduce_ms = chip_smoke.cuda_ms(lambda: torch.distributed.all_reduce(x), 200)
+        torch.save(dict(device=str(mesh.device), state=state.cpu(), dims=dims.cpu(), seconds=seconds, curves=curves,
+                        all_reduce_ms=reduce_ms), Path(out) / f"rank-{rank}.pt")
+        torch.distributed.barrier()
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _schedules(pipe, tracer) -> tuple[dict, list]:
+    """Seconds a batch of ``SHARDED_BATCHES``-batch schedules of ``pipe``,
+    synchronous and threaded in turns after a warm-up, and the light
+    curves of the first synchronous one."""
+    from theia_tpu_torch.pipeline import PipelineScheduler
+
+    seconds, first = {"sync": [], "threaded": []}, None
+    for mode in ("sync", "sync", "threaded", "threaded", "sync"):
+        tracer.rng.offset = 0
+        curves = []
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        PipelineScheduler(pipe, processFn=lambda c, b, r: curves.append(r[0]),
+                          dispatchThread=mode == "threaded").schedule([{}] * chip_smoke.SHARDED_BATCHES)
+        torch.cuda.synchronize()
+        if first is None:
+            first = curves  # the warm-up
+        else:
+            seconds[mode].append((time.perf_counter() - start) / chip_smoke.SHARDED_BATCHES)
+    return seconds, first
+
+
+def sharded(ranks: int) -> dict:
+    """``sharded``: see the module docstring."""
+    import statistics
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from theia_tpu_torch.pipeline import Pipeline
+
+    smis = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()
+    assert torch.cuda.device_count() >= ranks, (torch.cuda.device_count(), ranks)
+    ctx = mp.get_context("spawn")
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=_sharded_rank, args=(r, ranks, f"file://{tmp}/rendezvous", tmp))
+                 for r in range(ranks)]
+        for proc in procs:
+            proc.start()
+        deadline = time.monotonic() + chip_smoke.RANK_TIMEOUT
+        for proc in procs:
+            proc.join(timeout=max(deadline - time.monotonic(), 1.0))
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+        codes = [proc.exitcode for proc in procs]
+        assert codes == [0] * ranks, f"the ranks exited with {codes}"
+        got = [torch.load(Path(tmp) / f"rank-{r}.pt", weights_only=False) for r in range(ranks)]
+    ranks_seconds = time.perf_counter() - start
+    tracer = build_flagship(theia_tpu_torch, icosphere(3), ranks * chip_smoke.BATCH, chip_smoke.MAX_PATH,
+                            accel="auto", device="cuda:0")
+    tracer._debug_rng = True
+    with torch.no_grad():
+        state, _, dims = tracer._trace_batch(tracer.params(), tracer.rng.counter_words, tracer.streams())
+    tracer._debug_rng = False
+    seconds, curves = _schedules(Pipeline(tracer), tracer)
+    per = chip_smoke.BATCH
+    for r, g in enumerate(got):
+        assert g["device"] == f"cuda:{r}", g["device"]
+        assert torch.equal(g["dims"], dims[r * per:(r + 1) * per].cpu()), f"rank {r}'s RNG dims"
+        assert torch.equal(g["state"].view(torch.int32), got[0]["state"].view(torch.int32))
+    twin = chip_smoke.curves_twin("sharded against one card", [state.cpu().numpy()], [got[0]["state"].numpy()])
+    curves_twin = chip_smoke.curves_twin("sharded schedule against one card's", curves, got[0]["curves"])
+    med = {mode: statistics.median(v) for mode, v in seconds.items()}
+    rank_med = {mode: statistics.median(v) for mode, v in got[0]["seconds"].items()}
+    result = dict(
+        ranks=ranks, lanes_a_rank=per, global_batch=ranks * per, smi=smis, seconds_with_start=ranks_seconds,
+        one_card_seconds_per_batch=seconds, one_card_median=med,
+        rank_seconds_per_batch=[g["seconds"] for g in got], rank0_median=rank_med,
+        speedup={m: med[m] / rank_med[m] for m in med}, all_reduce_ms=[g["all_reduce_ms"] for g in got],
+        state_twin=twin, curves_twin=curves_twin,
+    )
+    print(f"sharded: flagship-brute over {ranks} cards ({'; '.join(smis)}), {per} lanes a rank, global batch "
+          f"{ranks * per}: every rank's RNG dims equal to one card's slice; the summed state within "
+          f"{twin['max_rel']:.3g} of its largest bin, the schedules' curves within {curves_twin['max_rel']:.3g}; "
+          f"s/batch (median) sync {rank_med['sync']:.4f} / threaded {rank_med['threaded']:.4f} on {ranks} cards "
+          f"against {med['sync']:.4f} / {med['threaded']:.4f} on one card: x{result['speedup']['sync']:.2f} / "
+          f"x{result['speedup']['threaded']:.2f}; an all-reduce of 100 bins "
+          f"{[round(x, 4) for x in result['all_reduce_ms']]} ms; {ranks_seconds:.1f} s with the ranks' start")
+    return result
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("card_measure: torch.cuda.is_available() is false", file=sys.stderr)
@@ -2105,6 +2230,8 @@ def main(argv: list[str]) -> int:
         result = cherenkov_turns(Path(argv[2]).resolve())
     elif mode == "profile":
         result = profile()
+    elif mode == "sharded" and len(argv) <= 3:
+        result = sharded(int(argv[2]) if len(argv) == 3 else torch.cuda.device_count())
     else:
         print(__doc__, file=sys.stderr)
         return 2
