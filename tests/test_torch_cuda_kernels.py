@@ -210,7 +210,8 @@ HIST_CASES = {
     "above_1024_bins": dict(n=4099, bins=600, n_det=3),
     "views_at_element_1": dict(n=20_001, offset=1),  # the bool mask starts at an odd byte
     "views_at_element_3_detector_axis": dict(n=20_002, bins=50, n_det=3, offset=3),
-    "state_of_200_KB": dict(n=20_000, bins=1000, n_det=50),
+    "state_of_200_KB": dict(n=20_000, bins=1000, n_det=50),  # past 2^19 tiles x bins: the sparse pass
+    "state_of_200_KB_dense_pass": dict(n=4099, bins=1000, n_det=50),  # 5 tiles: the dense pass, 7 ranges
     "large_state": dict(n=20_000, bins=1000, n_det=64),
     "large_state_views_at_element_1": dict(n=20_001, bins=1000, n_det=64, offset=1),
     "large_state_all_kept": dict(n=20_000, bins=1000, n_det=64, kept=1.0),
@@ -219,15 +220,16 @@ HIST_CASES = {
 
 @pytest.mark.parametrize("name", sorted(HIST_CASES))
 def test_histogram_kernels_on_cases(cuda, name):
-    """The record (rtol 1e-4 a bin: atomic order) and its backward (bit for
-    bit) against their plain versions, with times on exact bin edges, NaN
-    and infinite times among the lanes."""
+    """The record and its backward against their plain versions on the CPU
+    copy, bit for bit, the record launched twice to the same bits, with
+    times on exact bin edges, NaN and infinite times among the lanes."""
     import chip_smoke
-    from theia_tpu_torch.response import SHARED_STATE_MAX, histogram_add, histogram_grad
+    from theia_tpu_torch.response import RECORD_RANGE, histogram_add, histogram_grad
 
     kw = HIST_CASES[name]
     value, time, mask, t0, bin_size, bins, oid, n_det = chip_smoke.hist_case(seed=len(name), **kw)
-    assert (bins * (n_det or 1) > SHARED_STATE_MAX) == name.startswith("large_state")
+    # the large states take more ranges than a block's shared memory holds (8)
+    assert (bins * (n_det or 1) > 8 * RECORD_RANGE) == name.startswith("large_state")
     assert value.data_ptr() % 16 == 4 * kw.get("offset", 0) and mask.data_ptr() % 4 == kw.get("offset", 0)
     lane = torch.arange(time.shape[0], device=cuda)
     time[lane % 7 == 1] = 5.0 * (lane[lane % 7 == 1] % (bins + 3) - 1).float()  # edges, from below t0 to past the end
@@ -236,7 +238,7 @@ def test_histogram_kernels_on_cases(cuda, name):
     time[lane % 17 == 7] = float("-inf")
     before = histogram_add.launches, histogram_grad.launches
     chip_smoke.hold_record((value, time, mask, t0, bin_size, bins, oid, n_det), name)
-    assert (histogram_add.launches, histogram_grad.launches) == (before[0] + 1, before[1] + 1)
+    assert (histogram_add.launches, histogram_grad.launches) == (before[0] + 2, before[1] + 1)
 
 
 @pytest.mark.parametrize("name", ["n4099", "views_at_element_1", "large_state", "large_state_views_at_element_1"])
@@ -322,13 +324,13 @@ def test_soup_kernels_on_hard_rays(cuda, name):
 def test_kernel_histogram_kernels(cuda, label, args):
     """The kernel histogram's record and backward (``csrc/kernel_histogram.cu``)
     against their plain versions, under ``chip_smoke.hold_kde``'s stated
-    tolerances."""
+    tolerances (the record bit for bit, launched twice)."""
     from chip_smoke import hold_kde, kde_case
     from theia_tpu_torch.response import kernel_histogram_add, kernel_histogram_grad
 
     before = kernel_histogram_add.launches, kernel_histogram_grad.launches
     hold_kde(kde_case(**args), label)
-    assert (kernel_histogram_add.launches, kernel_histogram_grad.launches) == (before[0] + 1, before[1] + 1)
+    assert (kernel_histogram_add.launches, kernel_histogram_grad.launches) == (before[0] + 2, before[1] + 1)
 
 
 def test_table_read_kernels(cuda):
@@ -471,6 +473,8 @@ KDE_RECORD_CASES = {
     "every lane kept with a detector axis": dict(n=524_288, seed=25, n_det=3, kept=1.0),
     "a state of 56,000 flat bins (219 KB of shared memory)": dict(n=100_000, seed=26, bins=1000, n_det=56),
     "a state past shared memory (64,000 flat bins)": dict(n=100_000, seed=9, bins=1000, n_det=64),
+    "support 8 on 64,000 flat bins (the dense pass's ranges)": dict(n=100_000, seed=28, bins=1000, n_det=64,
+                                                                    support=8),
     "views at element 5, N=4099": dict(n=4099, seed=27, offset=5),
 }
 
@@ -480,18 +484,20 @@ KDE_RECORD_CASES = {
               *KDE_RECORD_CASES]
 )
 def test_kernel_histogram_record_on_cases(cuda, label):
-    """The kernel histogram's record (a block's shared histogram or, past
-    57,856 flat bins, adds straight to the state) on
+    """The kernel histogram's record (the tiles' sums, then the groups', in
+    the records' fixed order; past 7,232 flat bins by the sparse pass, or
+    in several ranges where its tables do not fit: support 8) on
     ``chip_smoke.kde_cases`` and on sparse, detector-axis, large-state and
-    unaligned records, one launch a call, under ``chip_smoke.hold_kde``'s
-    stated tolerances."""
+    unaligned records, one call a launch of the wrapper, under
+    ``chip_smoke.hold_kde``'s stated tolerances (the record bit for bit,
+    launched twice)."""
     from chip_smoke import BATCH, hold_kde, kde_case, kde_cases
     from theia_tpu_torch.response import kernel_histogram_add
 
     case = kde_cases(2 * BATCH)[label] if label not in KDE_RECORD_CASES else kde_case(**KDE_RECORD_CASES[label])
     before = kernel_histogram_add.launches
     hold_kde(case, label)
-    assert kernel_histogram_add.launches == before + 1
+    assert kernel_histogram_add.launches == before + 2
 
 
 @pytest.mark.parametrize("label", ["one dim", "dims into the tail", "a table of 300 dims, lanes over all of them",
@@ -607,3 +613,30 @@ def test_wavefront_sort_kernel_bit_equal(cuda):
     assert (tiles.sort_rays.launches, tiles.scatter_back.launches) == (before[0] + 1, before[1] + 1)
     t_u, i_u = nearest_triangle_mt(pack, o, d, 6.0, binned=False)
     assert (i >= 0).any() and torch.equal(i, i_u) and torch.equal(t.view(torch.int32), t_u.view(torch.int32))
+
+
+def test_params_snapshot_makes_no_host_sync(cuda):
+    """``Pipeline.launch`` of example 03's flash behind a queued spin
+    kernel: no host sync (torch's sync debug mode, ``chip_smoke.sync_sites``
+    names any), and the launch's snapshot equals the CPU tracer's; two
+    launches of the same batch give the same light curve bit for bit."""
+    import chip_smoke
+    import theia_tpu_torch as P
+    from theia_tpu_torch.component import map_tensors
+    from theia_tpu_torch.pipeline import Pipeline
+    from torch_flagship import build_example03
+
+    flash = build_example03(P, 4096, 2, cuda)[0]
+    pl = Pipeline(flash)
+    pl.launch({}).materialize()  # builds the kernels
+    flash.rng.offset = 0
+    torch.cuda._sleep(50_000_000)
+    launched, sites = chip_smoke.sync_sites(lambda: pl.launch({}))
+    assert sites == [], sites
+    first = launched.materialize()
+    flash.rng.offset = 0
+    second = pl.launch({}).materialize()
+    assert np.array_equal(first[0].view(np.int32), second[0].view(np.int32)) and first[0].sum() > 0
+    card = map_tensors(lambda t: t.cpu(), flash.params())
+    host = build_example03(P, 4096, 2, "cpu")[0].params()
+    chip_smoke.same_params(card, host)

@@ -5,9 +5,11 @@ its written-out backward, ``kernel_histogram_grad_plain``, which the
 kernel of ``csrc/kernel_histogram.cu`` repeats).
 
 Tolerances and why:
-- state: rtol 1e-6 of the largest bin. Both add the same float32 terms,
-  one scatter an offset in the same offset order; the port's weights are
-  the same ops in the same order.
+- state: rtol 1e-6 of the largest bin. Both add the same pairs, JAX one
+  scatter an offset, the port in the records' fixed order; the port's
+  weights are the same float32 ops in the same order but for exp, which
+  the port takes in explicit float32 ops (``response._kde_exp``, within an
+  ulp of exp).
 - d value, d time: rtol 1e-5 of the largest entry. Nine terms a lane,
   summed in another order than JAX's transposed scatters; d time is
   ``g v w z / h`` where JAX chains it through ``jnp.square`` and the

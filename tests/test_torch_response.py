@@ -1,8 +1,8 @@
 """theia_tpu_torch HistogramHitResponse.record against theia_tpu's.
 
 Tolerance: rtol 1e-6 per bin. JAX accumulates by a one-hot matmul and
-the port by index_add_ (CPU), so each bin sums the same float32 values
-in another order."""
+the port in the records' fixed order (``response.ordered_bin_sums``), so
+each bin sums the same float32 values in another order."""
 
 import numpy as np
 import pytest
@@ -142,15 +142,17 @@ def test_plain_record_on_edges_matches_jax(n_bins, n_det, n):
 
 
 def test_shared_state_max_is_the_kernel_files():
-    """``SHARED_STATE_MAX`` is the state size at which ``csrc/histogram.cu``
-    changes variant: what a block's shared memory holds less its 1 KB."""
+    """The records' shared memory as ``csrc/ordered_sum.cuh`` takes it: a
+    block's rows (``ordered::kRowFloats``) are what a block may hold less
+    its 1 KB, a range of flat bins (``RECORD_RANGE``, ``ordered::kRange``)
+    the rows of one of its 8 warps."""
     import re
     from pathlib import Path
 
-    source = (Path(tresp.__file__).parent / "csrc" / "histogram.cu").read_text()
+    source = (Path(tresp.__file__).parent / "csrc" / "ordered_sum.cuh").read_text()
     kib = int(re.search(r"constexpr int kSmemPerSm = (\d+) \* 1024;", source).group(1))
-    assert "kSharedMaxFloats = (kSmemPerSm - 1024) / 4;" in source
-    assert (kib * 1024 - 1024) // 4 == tresp.SHARED_STATE_MAX
+    assert "kRowFloats = (kSmemPerSm - 1024) / 4;" in source and "kRange = kRowFloats / kWarps;" in source
+    assert (kib * 1024 - 1024) // 4 // 8 == tresp.RECORD_RANGE
 
 
 @pytest.mark.parametrize("n_bins,n_det", STATES)

@@ -56,7 +56,7 @@ from theia_tpu_torch.interop import params_from_numpy
 from test_torch_grad_scene import patch_media
 from torch_flagship import (
     build_backward_eta2, build_backward_glass, build_lamp, build_scene_backward, build_scene_backward_target,
-    icosphere, nearest_face_distance, numpy_tree,
+    icosphere, jax_record_sums, nearest_face_distance, numpy_tree,
 )
 
 torch.set_num_threads(1)
@@ -228,24 +228,46 @@ def test_backward_tracer_surfaces_match_jax(case, polarized):
 # ------------------------------------------------------------------- gradients
 
 
-def test_eta2_gradient_matches_jax():
+def test_eta2_gradient_matches_jax(monkeypatch):
     """d sum(histogram) / d n_glass: the camera in the glass sees the wall
     through one refracting interface, and eta^2 on transmission makes the
-    gradient positive (``test_grad_backward_eta2_statistical``'s sign)."""
+    gradient positive (``test_grad_backward_eta2_statistical``'s sign).
+    The value: the port's records add in a fixed order of spans, tiles and
+    groups, ``theia_tpu``'s as its one-hot product does; at these seeds
+    ``theia_tpu``'s float32 sum is 2.6e-5 from the exact sum of what it
+    recorded and the port's 8e-7. So the port's sum is held at rtol 1e-5
+    against the exact (float64) sum of the values it recorded, and that sum
+    at rtol 1e-5 against the exact sum of the values ``theia_tpu``
+    recorded, record by record."""
+    record, exact = theia_tpu_torch.response.histogram_add, []
+
+    def summed(state, value, time, mask, t0, bin_size, n_bins, object_id=None, n_detectors=None):
+        keep, _ = theia_tpu_torch.response._hist_bins(time, mask, t0, bin_size, n_bins, object_id, n_detectors)
+        exact.append(float(value.detach().double()[keep].sum()))
+        return record(state, value, time, mask, t0, bin_size, n_bins, object_id, n_detectors)
+
+    monkeypatch.setattr(theia_tpu_torch.response, "histogram_add", summed)
     jt = build_backward_eta2(theia_tpu, 4096)
     fn, (p0, counter, streams) = jt.trace_fn()
     handle = p0["scene"].media.handle("glass")
     j_value, j_grad = jax.jit(jax.value_and_grad(
         lambda n0: jnp.sum(fn(patch_media(p0, handle, refractive_index=n0), counter, streams)[0])
     ))(jnp.float32(1.5))
+    # the same forward pass again, its records' exact sums collected
+    jsums = jax_record_sums(monkeypatch)
+    jax.block_until_ready(jax.jit(lambda n0: fn(patch_media(p0, handle, refractive_index=n0), counter, streams)[0])(
+        jnp.float32(1.5)
+    ))
 
     tt = build_backward_eta2(theia_tpu_torch, 4096, "cpu")
     fn, (p0, counter, streams) = tt.trace_fn()
     n0 = torch.tensor(1.5, requires_grad=True)
     t_value = fn(patch_media(p0, p0["scene"].media.handle("glass"), refractive_index=n0), counter, streams)[0].sum()
     t_value.backward()
-    assert float(j_grad) > 0.0 and n0.grad.item() > 0.0
-    np.testing.assert_allclose(t_value.item(), float(j_value), rtol=1e-5)
+    assert float(j_grad) > 0.0 and n0.grad.item() > 0.0 and len(exact) > 1 and len(jsums) == len(exact)
+    np.testing.assert_allclose(t_value.item(), sum(exact), rtol=1e-5)
+    np.testing.assert_allclose(exact, [s.sum() for s in jsums], rtol=1e-5, atol=1e-6 * max(exact))
+    np.testing.assert_allclose(sum(exact), sum(s.sum() for s in jsums), rtol=1e-5)
     np.testing.assert_allclose(n0.grad.item(), float(j_grad), rtol=1e-3)
 
 

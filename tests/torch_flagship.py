@@ -1176,3 +1176,34 @@ def build_pol_backward(pkg, batch: int, device=None, **kw):
         **kw,
         **dev,
     )
+
+
+def jax_record_sums(monkeypatch) -> list:
+    """Have ``theia_tpu``'s ``HistogramHitResponse.record`` hand, beside
+    its own float32 record, the float64 sums by flat bin of the values it
+    records (its kept lanes, by its own bins) to the list returned, one
+    array a record (a ``jax.debug.callback``): what ``theia_tpu`` recorded,
+    free of the order its sum takes. A test holds the port's recorded
+    values against these, and the port's records against its own exact
+    sums, each at the tolerance it held."""
+    import jax
+    import jax.numpy as jnp
+
+    response = importlib.import_module("theia_tpu.response")
+    record, sums = response.HistogramHitResponse.record, []
+
+    def recorded(self, params, state, item, mask, rng):
+        value, _ = self.value_response.value(params.get("value", {}), item, rng)
+        bin_f = jnp.floor((jax.lax.stop_gradient(item.time) - params["t0"]) / params["binSize"])
+        oob = (bin_f < 0) | (bin_f >= self.nBins) | ~mask
+        bins, size = self._flat_bins(item, bin_f.astype(jnp.int32), oob), self._size()
+
+        def collect(v, b):
+            keep = np.asarray(b) < size
+            sums.append(np.bincount(np.asarray(b)[keep], np.asarray(v, np.float64)[keep], minlength=size))
+
+        jax.debug.callback(collect, jax.lax.stop_gradient(value), bins)
+        return record(self, params, state, item, mask, rng)
+
+    monkeypatch.setattr(response.HistogramHitResponse, "record", recorded)
+    return sums

@@ -49,6 +49,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint32
 _U64 = ctypes.c_uint64
+_LL = ctypes.c_longlong
 _F = ctypes.c_float
 #: argument types of each C entry point (pointers and the stream as void*)
 _SIGNATURES = {
@@ -59,10 +60,10 @@ _SIGNATURES = {
     "theia_soup_target": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P),
     "theia_philox_uniform": (_U, _U, _U, _U, _U, _U, _P, _P, _I, _I, _P, _P),
     "theia_sobol_uniform": (_P, _I, _U, _U, _U, _U, _P, _P, _I, _I, _P, _P),
-    "theia_histogram_add": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
+    "theia_histogram_add": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _LL, _P, _P, _P),
     "theia_histogram_grad": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
     "theia_empty_launch": (_P,),
-    "theia_kde_add": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
+    "theia_kde_add": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _LL, _P, _P, _P),
     "theia_kde_grad": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
     "theia_table_read": (_P, _P, _P, _I, _I, _P, _P, _P, _P, _P),
     "theia_table_read_grad": (_P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P),
@@ -130,8 +131,7 @@ def build(
     """Build (if needed) and load the sources of ``csrc`` with extra
     ``-D`` flags ``defines``; cached per process. Only measurement scripts
     pass arguments: another count of rays a block of the nearest-hit scan
-    (``THEIA_RAYS_PER_THREAD``), the record's large-state variant on every
-    state (``THEIA_HISTOGRAM_SHARED_MAX=0``), or the sources of an earlier
+    (``THEIA_RAYS_PER_THREAD``), or the sources of an earlier
     commit or of a patched copy with their ``signatures`` as ``(name,
     argtypes)`` pairs, to time them beside the current kernels. A miss
     builds under ``_BUILD_LOCK``: a second thread asking for the same

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from . import units as u
-from .component import Component
+from .component import Component, host_dict
 from .ops.math3d import (
     cross,
     dot,
@@ -490,8 +490,8 @@ class MeshCamera(Camera):
         idx = m.indices
         pos, nrm = m.vertices[:, :3], m.vertices[:, 3:6]
         v0 = pos[idx[:, 0]]
-        f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
-        return {
+        f32 = lambda a: (a, np.float32)
+        return host_dict({
             "timeDelta": f32(self.timeDelta),
             "outward": f32(-1.0 if self.inward else 1.0),
             "v0": f32(v0),
@@ -502,7 +502,7 @@ class MeshCamera(Camera):
             "n2": f32(nrm[idx[:, 2]]),
             "o2w": f32(self.mesh.transform.numpy()),
             "w2o": f32(self.mesh.transform.inverse().numpy()),
-        }
+        }, device)
 
     def _sample_surface(self, params, rng: RNGState):
         """sampleCamera's three draws: the point in world and object space
@@ -658,9 +658,8 @@ class HostCamera(Camera):
     def params(self, device):
         p = super().params(device)
         if self.polRef is not None:
-            p["polRef"] = torch.as_tensor(self.polRef, device=device)
             hit_ref = self.hitPolRef if self.hitPolRef is not None else self.polRef
-            p["hitPolRef"] = torch.as_tensor(hit_ref, device=device)
+            p.update(host_dict({"polRef": (self.polRef, None), "hitPolRef": (hit_ref, None)}, device))
         return p
 
     def sample_ray(self, params, wavelength, rng: RNGState):

@@ -14,7 +14,7 @@ from typing import Any
 import numpy as np
 import torch
 
-__all__ = ["Component", "TraceConfig", "resolve_device", "map_tensors"]
+__all__ = ["Component", "TraceConfig", "resolve_device", "map_tensors", "host_tensors", "host_dict"]
 
 
 def resolve_device(device) -> torch.device:
@@ -46,10 +46,47 @@ def map_tensors(fn, tree):
     return tree
 
 
-def _to_tensor(value, device):
-    if isinstance(value, (tuple, list, np.ndarray, float, int)):
-        return torch.as_tensor(np.asarray(value, np.float32), device=device)
-    return value
+def _is_host(value) -> bool:
+    return isinstance(value, (tuple, list, np.ndarray, np.generic, float, int))
+
+
+def host_tensors(values, device) -> list:
+    """``values``, pairs (host value, dtype), as tensors on ``device``: a
+    number (numpy's scalars too), tuple, list or array becomes a tensor of
+    ``dtype`` (None: the array's own); anything else (a tensor, with its
+    graph, or None) passes through as it is. On a card all of them come
+    from ONE pinned host buffer, a fresh one each call, by one non-blocking
+    copy: a launch that snapshots its parameters queues the copy and waits
+    for no batch queued before it, and a later ``setParams`` fills another
+    buffer, so a snapshot already queued keeps its values (the caching
+    host allocator reuses a buffer only after the copy that read it). On
+    the CPU the tensors are views of the one host buffer, each of its own
+    span."""
+    device = torch.device(device)
+    arrays = [(np.array(v, dtype, order="C") if _is_host(v) else None) for v, dtype in values]
+    spans, size = [], 0
+    for a in arrays:
+        spans.append(size)
+        if a is not None:
+            size += -(-a.nbytes // 16) * 16  # 16-byte aligned spans
+    if all(a is None for a in arrays):
+        return [v for v, _ in values]
+    host = torch.empty(size, dtype=torch.uint8, pin_memory=device.type == "cuda")
+    flat = host.numpy()
+    for a, at in zip(arrays, spans):
+        if a is not None:
+            flat[at:at + a.nbytes] = a.reshape(-1).view(np.uint8)
+    buf = host if device.type == "cpu" else host.to(device, non_blocking=device.type == "cuda")
+    return [
+        v if a is None else buf[at:at + a.nbytes].view(torch.from_numpy(np.empty(0, a.dtype)).dtype).reshape(a.shape)
+        for (v, _), a, at in zip(values, arrays, spans)
+    ]
+
+
+def host_dict(spec: dict, device) -> dict:
+    """``{name: (host value, dtype)}`` as ``{name: tensor}`` through one
+    :func:`host_tensors` call."""
+    return dict(zip(spec, host_tensors(list(spec.values()), device)))
 
 
 class Component:
@@ -66,8 +103,10 @@ class Component:
     _extra_names: tuple[str, ...] = ()
 
     def params(self, device) -> dict[str, Any]:
-        """Snapshot runtime parameters as float32 tensors on ``device``."""
-        return {name: _to_tensor(getattr(self, name), device) for name in self._param_names}
+        """Snapshot runtime parameters as float32 tensors on ``device``
+        (:func:`host_tensors`: one non-blocking copy on a card, no host
+        sync; a parameter that is already a tensor passes through)."""
+        return host_dict({k: (getattr(self, k), np.float32) for k in self._param_names}, device)
 
     def setParams(self, **kwargs) -> None:
         allowed = set(self._param_names) | set(self._extra_names)

@@ -18,69 +18,44 @@
 // lanes that is a microsecond or two, the order of a launch. Of a
 // flagship batch's 19 records the ten of the primary hits keep next to no
 // lane, so what must move there is the mask and little else; the nine of
-// the guided hits keep 1 to 43 % of their lanes, in 87 to 97 bins. The
-// record's second limit is therefore the serialisation of float atomics
-// where many lanes hit few bins: a flagship state is 100 floats, four
-// 128-byte L2 lines.
+// the guided hits keep 1 to 43 % of their lanes, in 87 to 97 bins.
 //
-// Design, common to the three kernels: a thread takes groups of four
-// neighbouring lanes, reads their four mask bytes as one word first and
-// skips every other load of a group whose lanes are all masked; time,
-// value and ids come as 16-byte loads, neighbouring threads on neighbouring
-// addresses; t0 and binSize are read once a thread, from device memory so
-// that no host sync is needed; the grid is a few blocks an SM with a loop
-// inside. The host function picks the instantiation with 16-byte loads
-// only where every pointer is aligned for them (a contiguous view such as
-// x[1:] is not); the other reads lane by lane, and only unmasked lanes.
-// Lanes past n read as masked in both, so a group never reads out of
-// bounds.
+// The record adds in the fixed order of csrc/ordered_sum.cuh, so a light
+// curve is the same bits on every run of the same inputs: a warp's span of
+// 128 lanes in lane order, the tile's 8 spans, the tiles in 32 groups, the
+// groups (response.ordered_bin_sums is its plain twin). Its source here
+// reads a span's four rows of 32 lanes (the masks; where one is set, every
+// lane's time, ids and value in one round of loads, neighbouring lanes on
+// neighbouring addresses), skips a span with no unmasked lane, and hands
+// each row's kept lanes to the ordered add; t0 and binSize are read once a
+// thread, from device memory so that no host sync is needed. A NaN value
+// is added like any other; a NaN time drops its lane. The record's scratch
+// (the dense pass's table of tile sums, the sparse pass's lists past one
+// range of bins) is allocated by the wrapper.
 //
-// The record comes in two variants, chosen by the host function from the
-// state's size alone. Up to kSharedMaxFloats flat bins (what a block's
-// shared memory holds) a block adds into a private histogram in shared
-// memory, zeroed at every launch, and then adds each bin whose sum is not
-// zero to the state with one global atomicAdd: a sparse record never
-// issues more global atomics than it has kept lanes, a dense one at most
-// bins x blocks. Above that, lanes add straight to the state, but the
-// lanes of a warp that hold the same bin are merged first
-// (__match_any_sync; every lane of such a group sums the group's values in
-// lane order, the lowest lane adds). The merge is there for records whose
-// lanes meet in few bins, as a light curve's do: measured on 524,288 lanes
-// over 64,000 bins, it costs a quarter more than one plain atomic a kept
-// lane where the bins are filled evenly and takes a quarter of the time
-// where four bins are in use. Atomic order varies from run to run, so the
-// sums agree with a sequential sum only to float32 rounding. A
-// float atomicAdd in shared memory is a compare-and-swap loop on this card
-// (ATOMS.CAST.SPIN), so lanes that meet in a bin retry; the same merge in
-// front of it was measured slower at the mask-0.5 input and on a flagship
-// batch's records, as were 256 and 1024 threads a block.
-//
-// The backward reads grad_state through the read-only path (a copy of it
-// staged in shared memory was measured slower: the copy and its barrier
-// stand in front of every lane's first load); as it sums nothing it is
-// bit-exact against the plain version. All kernels compute the bin with
-// one function.
+// The backward: a thread takes groups of four neighbouring lanes, reads
+// their four mask bytes as one word first and skips every other load of a
+// group whose lanes are all masked; time and ids come as 16-byte loads; the
+// grid is a few blocks an SM with a loop inside. The host function picks
+// the instantiation with 16-byte loads only where every pointer is aligned
+// for them (a contiguous view such as x[1:] is not); the other reads lane
+// by lane, and only unmasked lanes. Lanes past n read as masked in both, so
+// a group never reads out of bounds. It reads grad_state through the
+// read-only path (a copy of it staged in shared memory was measured slower:
+// the copy and its barrier stand in front of every lane's first load); as
+// it sums nothing it is bit-exact against the plain version. Both compute
+// the bin with one function.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "ordered_sum.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 // grid-stride kernels: blocks an SM
 constexpr int kBlocksPerSm = 8;
-// the record's shared-memory variant: threads a block, and what one block
-// may take of an SM's 227 KB (1 KB a block is the system's)
-constexpr int kAddThreads = 512;
-constexpr int kSmemPerSm = 227 * 1024;
-// the largest state of the shared-memory variant, in flat bins; a
-// measurement build sets it to 0 to put the large-state variant on states
-// of any size
-#ifdef THEIA_HISTOGRAM_SHARED_MAX
-constexpr int kSharedMaxFloats = THEIA_HISTOGRAM_SHARED_MAX;
-#else
-constexpr int kSharedMaxFloats = (kSmemPerSm - 1024) / 4;
-#endif
 
 // flat bin of a lane that is not masked, or -1 where the lane is dropped
 __device__ __forceinline__ int flat_bin(float time, int det, float t0,
@@ -173,77 +148,44 @@ __device__ __forceinline__ void group_bins(const Lanes& in, long long g,
   }
 }
 
-template <bool kVec>
-__global__ void __launch_bounds__(kAddThreads) histogram_add_shared(
-    const float* __restrict__ value, Lanes in, int n_state,
-    float* __restrict__ state) {
-  extern __shared__ float hist[];  // n_state floats, this block's sums
-  for (int k = threadIdx.x; k < n_state; k += kAddThreads) hist[k] = 0.0f;
-  __syncthreads();
-  const float t0 = __ldg(in.t0), bin_size = __ldg(in.bin_size);
-  const long long stride = static_cast<long long>(gridDim.x) * kAddThreads;
-  for (long long g = static_cast<long long>(blockIdx.x) * kAddThreads +
-                     threadIdx.x;
-       g < in.groups(); g += stride) {
-    const unsigned m = load_mask<kVec>(in.mask, g, in.n);
-    if (m == 0) continue;
-    int bin[4];
-    group_bins<kVec>(in, g, m, t0, bin_size, bin);
-    if ((bin[0] & bin[1] & bin[2] & bin[3]) < 0) continue;  // all dropped
-    float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    load_group<kVec, float, float4>(value, g, in.n, m, v);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (bin[j] >= 0) atomicAdd(hist + bin[j], v[j]);
-    }
-  }
-  // every thread arrives here: the loop has no return
-  __syncthreads();
-  for (int k = threadIdx.x; k < n_state; k += kAddThreads) {
-    const float sum = hist[k];
-    if (sum != 0.0f) atomicAdd(state + k, sum);  // a NaN sum is added too
-  }
-}
+// the record's items: a kept lane's flat bin and value
+struct HistSource {
+  const float* value;
+  Lanes in;
 
-template <bool kVec>
-__global__ void __launch_bounds__(kThreads) histogram_add_global(
-    const float* __restrict__ value, Lanes in, float* __restrict__ state) {
-  constexpr unsigned kAll = 0xffffffffu;
-  const float t0 = __ldg(in.t0), bin_size = __ldg(in.bin_size);
-  const int lane = threadIdx.x & 31;
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  // the loop runs on the warp's first group, so that all 32 lanes make the
-  // same trips and meet at the warp-wide calls; groups past the end read
-  // as masked
-  for (long long first = static_cast<long long>(blockIdx.x) * kThreads +
-                         threadIdx.x - lane;
-       first < in.groups(); first += stride) {
-    const long long g = first + lane;
-    const unsigned m = load_mask<kVec>(in.mask, g, in.n);
-    if (!__any_sync(kAll, m != 0)) continue;
-    int bin[4] = {-1, -1, -1, -1};
-    float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    if (m != 0) {
-      group_bins<kVec>(in, g, m, t0, bin_size, bin);
-      if ((bin[0] & bin[1] & bin[2] & bin[3]) >= 0) {
-        load_group<kVec, float, float4>(value, g, in.n, m, v);
-      }
-    }
+  template <class Acc>
+  __device__ __forceinline__ void span(long long first, const Acc& acc) const {
+    constexpr int kRows = ordered::kRowsPerSpan;
+    const int lane = threadIdx.x & 31;
+    // the rows' masks, then, where one is set, every lane's time, id and
+    // value in one round of loads
+    bool on[kRows];
+    bool any = false;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (!__any_sync(kAll, bin[j] >= 0)) continue;
-      // the lanes that hold the same bin; they share `peers`, so they make
-      // the same trips through the loop below
-      const unsigned peers = __match_any_sync(kAll, bin[j]);
-      if (bin[j] < 0) continue;
-      float sum = 0.0f;
-      for (unsigned rest = peers; rest != 0; rest &= rest - 1) {
-        sum += __shfl_sync(peers, v[j], __ffs(rest) - 1);
-      }
-      if (lane == __ffs(peers) - 1) atomicAdd(state + bin[j], sum);
+    for (int r = 0; r < kRows; ++r) {
+      const long long i = first + 32 * r + lane;
+      on[r] = i < in.n && in.mask[i] != 0;
+      any = any || on[r];
+    }
+    if (!__any_sync(ordered::kAll, any)) return;
+    float t[kRows], v[kRows];
+    int det[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const long long i = first + 32 * r + lane;
+      const bool live = i < in.n;
+      t[r] = live ? in.time[i] : 0.0f;
+      v[r] = live ? value[i] : 0.0f;
+      det[r] = live && in.n_det > 0 ? in.object_id[i] : 0;
+    }
+    const float t0 = __ldg(in.t0), bin_size = __ldg(in.bin_size);
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int bin = on[r] ? flat_bin(t[r], det[r], t0, bin_size, in.n_bins, in.n_det) : -1;
+      ordered::add_in_lane_order(acc, bin, v[r]);
     }
   }
-}
+};
 
 template <bool kVec>
 __global__ void __launch_bounds__(kThreads) histogram_grad(
@@ -304,58 +246,20 @@ int grid_size(const Lanes& in, int threads, int per_sm, cudaError_t* err) {
   return static_cast<int>(want < most ? want : most);
 }
 
-template <bool kVec>
-cudaError_t launch_add_shared(const float* value, const Lanes& in,
-                              float* state, cudaStream_t stream) {
-  const int n_state = static_cast<int>(in.state_size());
-  const int bytes = n_state * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaSuccess;
-  if (bytes > 48 * 1024) {
-    err = cudaFuncSetAttribute(histogram_add_shared<kVec>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               bytes);
-    if (err != cudaSuccess) return err;
-  }
-  int per_sm = kSmemPerSm / (bytes + 1024);
-  per_sm = per_sm > 4 ? 4 : per_sm;  // 4 x 512 threads fill an SM
-  const int grid = grid_size(in, kAddThreads, per_sm, &err);
-  if (err != cudaSuccess) return err;
-  histogram_add_shared<kVec>
-      <<<grid, kAddThreads, bytes, stream>>>(value, in, n_state, state);
-  return cudaGetLastError();
-}
-
-template <bool kVec>
-cudaError_t launch_add_global(const float* value, const Lanes& in,
-                              float* state, cudaStream_t stream) {
-  cudaError_t err = cudaSuccess;
-  const int grid = grid_size(in, kThreads, kBlocksPerSm, &err);
-  if (err != cudaSuccess) return err;
-  histogram_add_global<kVec><<<grid, kThreads, 0, stream>>>(value, in, state);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
-// the record; the variant follows from the state's size alone
+// the record; table: scratch of table_floats floats (ordered::batch_bins
+// must find a batch in it), counters: ordered::kMaxRanges x
+// ordered::kCounters words at 0 (csrc/ordered_sum.cuh)
 extern "C" int theia_histogram_add(const float* value, const float* time,
                                    const unsigned char* mask,
                                    const int* object_id, const float* t0,
                                    const float* bin_size, int n, int n_bins,
-                                   int n_det, float* state,
-                                   cudaStream_t stream) {
-  if (n <= 0) return static_cast<int>(cudaGetLastError());
+                                   int n_det, float* table, long long table_floats,
+                                   unsigned long long* counters, float* state, cudaStream_t stream) {
   const Lanes in{time, mask, object_id, t0, bin_size, n, n_bins, n_det};
-  const bool vec = vector_loads(in, value);
-  cudaError_t err;
-  if (in.state_size() <= kSharedMaxFloats) {
-    err = vec ? launch_add_shared<true>(value, in, state, stream)
-              : launch_add_shared<false>(value, in, state, stream);
-  } else {
-    err = vec ? launch_add_global<true>(value, in, state, stream)
-              : launch_add_global<false>(value, in, state, stream);
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(ordered::record(HistSource{value, in}, n, 1, static_cast<int>(in.state_size()), table,
+                                          table_floats, counters, state, stream));
 }
 
 extern "C" int theia_histogram_grad(const float* grad_state, const float* time,

@@ -17,38 +17,38 @@
 //
 // What bounds them on an H100. A lane reads 9 bytes of mask, time and
 // value (13 with ids) and evaluates nine exponentials: some 15 float
-// operations and one MUFU exp a bin, ~140 a lane, against 9 to 13 bytes
-// (the state, 100 floats, stays on chip). The backward reads the same lanes
-// and the state's gradient, writes two floats a lane and three scalars, and
+// operations a bin and the exponential (the record's, kde_exp, some 20
+// float operations; the backward's, expf), against 9 to 13 bytes (the
+// state, 100 floats, stays on chip). The backward reads the same lanes and
+// the state's gradient, writes two floats a lane and three scalars, and
 // does some 25 operations a bin. What the record's calls on the paths are
 // (card_measure.py kde-builds and chip_smoke.py's kde_call_stats on an
 // NVIDIA H100 80GB HBM3 at 700 W; PERF.md section 6): of a volume gradient
 // step's 21 calls of 262,144 lanes, 12 keep no lane and the others up to
 // 19 %; of a geometry step's 19 (of 262,144 or 524,288 lanes), seven keep
 // 1.8-43 % over 91-101 base bins and the others at most 0.5 %. So a call
-// is mostly its launch (1.9 us queued empty) and its reads: the adds are
-// 0.0007 ms of a volume call's 0.0048 and 0.0011 of a geometry call's
-// 0.0067. A shared float add compiles to a compare-and-swap loop
-// (ATOMS.CAST.SPIN), which retries whenever lanes of a warp meet at one
-// address: with every lane in one bin, 0.126 ms for 524,288 lanes against
-// 0.012 without the adds; no path's call looks like that.
+// is mostly its launches (1.9 us queued empty) and its reads.
 //
-// Design, after csrc/histogram.cu: a thread a lane in a grid of a few
-// blocks an SM with a loop; t0, binSize and the bandwidth are read once a
-// thread from device memory (no host sync); the record adds into a
-// block-private histogram in shared memory (zeroed at every launch), then
-// adds each bin whose sum is not zero to the state with one global atomic;
-// states above kSharedMaxFloats add straight to the state. Five other
-// designs of the record were timed on the paths' calls in turns with this
-// one and lost there (PERF.md section 6): a warp's or a block's list of kept
-// lanes for full warps (fewer warps an SM hid less latency, and full warps
-// of kept lanes with clustered times meet in the CAS loop), masks read 2 to
-// 8 lanes a load, each lane's run of bins started at its rank among the
-// lanes on its bins, a warp on one bin summed by shuffles (the match alone
-// cost a geometry call 0.0013 ms); they won on dense or one-bin records,
-// which no path makes. The backward stages the state's gradient in shared
-// memory once a block (a few hundred
-// floats on the port's paths; read from device memory past
+// Design of the record: the fixed order of csrc/ordered_sum.cuh, as the
+// histogram's record takes it (a warp's span of 128 lanes, the tile's 8
+// spans, the tiles in 32 groups, the groups), so a light curve is the same
+// bits on every run; in a span the rows of 32 lanes in order, in a row the
+// offsets from -support up, for each the lanes in order. Its source reads a
+// span's four rows (the masks; where one is set, every lane's time, value and
+// id in one round of loads), skips a span with no unmasked lane and a row
+// with no kept lane, finds a row's groups of lanes with the same base bin
+// once (they, and only they, share a bin at each offset), and hands each
+// (row, offset)'s pairs to the ordered add; t0, binSize and the bandwidth are
+// read from device memory (no host sync). A pair's weight takes exp through
+// kde_exp, explicit float32 products and sums that response._kde_exp
+// repeats op for op, so the weights, and with them the state, equal the
+// plain version's on the CPU bit for bit (the card's expf and the CPU's exp
+// are an ulp apart on many inputs; the same polynomial in double ops took
+// the record's 40 path calls 0.0113 ms a call against this one's 0.0096
+// and expf's 0.0088, card_measure.py record-builds).
+//
+// The backward stages the state's gradient in shared memory once a block
+// (a few hundred floats on the port's paths; read from device memory past
 // kGradStageMaxFloats), writes a lane's two gradients without atomics, and
 // sums the three scalars over the block (warp shuffles, then one warp)
 // into one atomic a block each. A warp that ran each of its lanes' nine
@@ -59,21 +59,18 @@
 // gradient terms divided by h take a reciprocal of h
 // taken once a thread (an ulp apart from the divisions; z itself is still
 // divided, as the record divides it). The arithmetic otherwise repeats the
-// plain versions' float32 ops in their order (built with -fmad=false);
-// atomics make the order of the state's and the scalars' sums change from
-// run to run, so they agree with the plain versions' sequential sums to
-// float32 rounding.
+// plain versions' float32 ops in their order (built with -fmad=false), with
+// expf for exp; atomics make the order of the scalars' sums change from run
+// to run, so they agree with the plain versions' sequential sums to float32
+// rounding.
 
 #include <cuda_runtime.h>
 
+#include "ordered_sum.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBlocksPerSm = 8;
 constexpr int kSmemPerSm = 227 * 1024;
-// the largest state kept in a block's shared memory, in flat bins; equals
-// response.SHARED_STATE_MAX and csrc/histogram.cu's kSharedMaxFloats
-constexpr int kSharedMaxFloats = (kSmemPerSm - 1024) / 4;
 // sqrt(2 pi) rounded to float32, as jnp.sqrt(2.0 * jnp.pi) gives it
 constexpr float kSqrt2Pi = 2.5066282749176025f;
 
@@ -144,43 +141,86 @@ __device__ __forceinline__ bool in_range(float bf, int n_bins) {
   return bf >= 0.0f && bf < static_cast<float>(n_bins);
 }
 
-template <bool kShared>
-__global__ void __launch_bounds__(kThreads)
-    kde_add(Lanes in, int n_state, float* __restrict__ state) {
-  extern __shared__ float hist[];
-  float* dst = state;
-  if (kShared) {
-    for (int k = threadIdx.x; k < n_state; k += kThreads) hist[k] = 0.0f;
-    __syncthreads();
-    dst = hist;
-  }
-  const Params p = params(in);
-  const float norm = __fdiv_rn(p.bin_size, p.h * kSqrt2Pi);
-  const int stride = gridDim.x * kThreads;
-  for (int i = blockIdx.x * kThreads + threadIdx.x; i < in.n; i += stride) {
-    const LaneIn a = lane_in(in, i);
-    float base;
-    int offset;
-    if (!kept(in, a, p, &base, &offset)) continue;
-    const float t = a.t, v = a.value;
-    for (int o = -in.support; o <= in.support; ++o) {
-      const float bf = base + static_cast<float>(o);
-      if (!in_range(bf, in.n_bins)) continue;
-      const float z = z_of(p, bf, t);
-      const float w = expf(-0.5f * (z * z)) * norm;
-      const float add = v * w;
-      if (add != 0.0f) atomicAdd(dst + offset + static_cast<int>(bf), add);
-    }
-  }
-  if (kShared) {
-    // every thread arrives here: the loop has no return
-    __syncthreads();
-    for (int k = threadIdx.x; k < n_state; k += kThreads) {
-      const float sum = hist[k];
-      if (sum != 0.0f) atomicAdd(state + k, sum);  // a NaN sum is added too
-    }
-  }
+// exp(x) for the record's x = -z^2 / 2 (<= 0, or NaN) in float32 products
+// and sums: n = rint(x / ln 2), r = x - n ln 2 in two parts (Cody and
+// Waite's; n times the high part is exact), e^r = 1 + r + r^2 p(r) by
+// Cephes' expf polynomial, times 2^n as two powers of two made from their
+// bits, so that a subnormal result rounds once; 0 below -104, where exp is
+// under half the least subnormal. Within an ulp of exp. Built with
+// -fmad=false, every product and sum rounds as the plain version's
+// separate float32 ops (response._kde_exp) do.
+__device__ __forceinline__ float kde_exp(float x) {
+  if (x < -104.0f) return 0.0f;
+  const float n = rintf(x * 1.44269504088896341f);
+  const float r = (x - n * 0.693359375f) - n * -2.12194440e-4f;
+  float p = 1.9875691500e-4f;
+  p = p * r + 1.3981999507e-3f;
+  p = p * r + 8.3334519073e-3f;
+  p = p * r + 4.1665795894e-2f;
+  p = p * r + 1.6666665459e-1f;
+  p = p * r + 5.0000001201e-1f;
+  const float y = (p * (r * r) + r) + 1.0f;
+  const int e = static_cast<int>(n), half = e / 2;  // a NaN's n converts to 0
+  return (y * __int_as_float((half + 127) << 23)) * __int_as_float((e - half + 127) << 23);
 }
+
+// the record's items: each kept lane's pairs (flat bin, value * w)
+struct KdeSource {
+  Lanes in;
+
+  template <class Acc>
+  __device__ __forceinline__ void span(long long first, const Acc& acc) const {
+    constexpr int kRows = ordered::kRowsPerSpan;
+    const int lane = threadIdx.x & 31;
+    // the rows' masks, then, where one is set, every lane's time, value and
+    // id in one round of loads
+    LaneIn a[kRows];
+    bool any = false;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const long long i = first + 32 * r + lane;
+      a[r].mask = i < in.n && in.mask[i] != 0;
+      any = any || a[r].mask;
+    }
+    if (!__any_sync(ordered::kAll, any)) return;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const long long i = first + 32 * r + lane;
+      const bool live = i < in.n;
+      a[r].t = live ? in.time[i] : 0.0f;
+      a[r].value = live ? in.value[i] : 0.0f;
+      a[r].id = live && in.n_det > 0 ? in.object_id[i] : 0;
+    }
+    const Params p = params(in);
+    const float norm = __fdiv_rn(p.bin_size, p.h * kSqrt2Pi);
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      float base = 0.0f;
+      int offset = 0;
+      const bool ok = kept(in, a[r], p, &base, &offset);
+      if (!__any_sync(ordered::kAll, ok)) continue;
+      // at one offset two kept lanes share a bin only where they share the
+      // base bin and the detector: their peers, found once for the row
+      const unsigned long long key =
+          ok ? (static_cast<unsigned long long>(offset) << 32) | static_cast<unsigned>(__float2int_rz(base))
+             : ~0ull;
+      const unsigned peers = __match_any_sync(ordered::kAll, key);
+      const int rounds = ordered::rounds_of(peers, ok);
+      for (int o = -in.support; o <= in.support; ++o) {
+        const float bf = base + static_cast<float>(o);
+        int bin = -1;
+        float add = 0.0f;
+        if (ok && in_range(bf, in.n_bins)) {
+          const float z = z_of(p, bf, a[r].t);
+          const float w = kde_exp(-0.5f * (z * z)) * norm;
+          add = a[r].value * w;
+          bin = offset + static_cast<int>(bf);
+        }
+        ordered::add_ranked(acc.vals, acc.slot(acc.local(bin), peers), add, peers, rounds);
+      }
+    }
+  }
+};
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -338,44 +378,23 @@ int grid_size(int n, int threads, int per_sm, cudaError_t* err) {
   return static_cast<int>(want < most ? want : most);
 }
 
-// dynamic shared memory of `bytes` for kernel k: opted into above 48 KB;
-// returns how many such blocks an SM holds, at most kBlocksPerSm
-template <class Kernel>
-int shared_blocks(Kernel k, int bytes, cudaError_t* err) {
-  *err = cudaSuccess;
-  if (bytes > 48 * 1024) {
-    *err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  }
-  const int per_sm = kSmemPerSm / (bytes + 1024);
-  return per_sm > kBlocksPerSm ? kBlocksPerSm : (per_sm < 1 ? 1 : per_sm);
-}
-
 }  // namespace
 
+// the record; table: scratch of table_floats floats (ordered::batch_bins
+// must find a batch in it), counters: ordered::kMaxRanges x
+// ordered::kCounters words at 0 (csrc/ordered_sum.cuh)
 extern "C" int theia_kde_add(const float* value, const float* time,
                              const unsigned char* mask, const int* object_id,
                              const float* t0, const float* bin_size,
                              const float* bandwidth, int n, int n_bins,
-                             int n_det, int support, float* state,
+                             int n_det, int support, float* table,
+                             long long table_floats,
+                             unsigned long long* counters, float* state,
                              cudaStream_t stream) {
-  if (n <= 0) return static_cast<int>(cudaGetLastError());
   const Lanes in{value, time, mask, object_id, t0, bin_size, bandwidth,
                  n, n_bins, n_det, support};
-  const long long n_state = in.state_size();
-  cudaError_t err = cudaSuccess;
-  if (n_state <= kSharedMaxFloats) {
-    const int bytes = static_cast<int>(n_state * sizeof(float));
-    const int per_sm = shared_blocks(kde_add<true>, bytes, &err);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const int grid = grid_size(n, kThreads, per_sm, &err);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kde_add<true><<<grid, kThreads, bytes, stream>>>(in, static_cast<int>(n_state), state);
-  } else {
-    const int grid = grid_size(n, kThreads, kBlocksPerSm, &err);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kde_add<false><<<grid, kThreads, 0, stream>>>(in, static_cast<int>(n_state), state);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(ordered::record(KdeSource{in}, n, 2 * support + 1, static_cast<int>(in.state_size()), table,
+                                          table_floats, counters, state, stream));
 }
 
 extern "C" int theia_kde_grad(const float* grad_state, const float* value,

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from . import units as u
-from .component import Component
+from .component import Component, host_dict
 from .material import MediumConstants
 from .ops.math3d import cross, distance, dot, local_frame, normalize, sqrt, vec3
 from .ops.sampling import TWO_PI, sample_unit_disk, sample_unit_sphere, spherical_to_cartesian
@@ -800,7 +800,7 @@ class CherenkovTrackLightSource(LightSource):
         self.usePhotonCount = usePhotonCount
 
     def params(self, device):
-        return {"track": torch.as_tensor(self.track.vertices, device=device)}
+        return host_dict({"track": (self.track.vertices, None)}, device)
 
     def sample_forward(self, params, wavelength, constants, rng: RNGState):
         track = params["track"]  # (L, 4)

@@ -27,7 +27,7 @@ import torch
 from scipy.interpolate import CubicSpline
 
 from . import units as u
-from .component import resolve_device
+from .component import host_dict, resolve_device
 from .lookup import as_table
 from .ops.table_read import clip01, read_packed, read_table
 
@@ -99,17 +99,17 @@ class Medium:
     def to(self, device) -> "Medium":
         """This medium with the wavelength range and every table as float32
         tensors on ``device``."""
-        def f32(a):
-            if a is None:
-                return None
-            if not isinstance(a, torch.Tensor):
-                a = np.asarray(a, np.float32)
-            return torch.as_tensor(a, dtype=torch.float32, device=device)
+        device = torch.device(device)
+        names = ("lambda_min", "lambda_max", *_TABLE_PROPS)
 
-        return Medium(
-            f32(self.lambda_min), f32(self.lambda_max),
-            **{k: f32(getattr(self, k)) for k in _TABLE_PROPS}, name=self.name,
-        )
+        def on_host(a):
+            # a table on the CPU without a graph joins the one copy to a card
+            cpu = isinstance(a, torch.Tensor) and a.device.type == "cpu" and not a.requires_grad
+            return a.numpy() if cpu and device.type != "cpu" else a
+
+        host = host_dict({k: (on_host(getattr(self, k)), np.float32) for k in names}, device)
+        f32 = lambda a: None if a is None else torch.as_tensor(a, dtype=torch.float32, device=device)
+        return Medium(**{k: f32(host[k]) for k in names}, name=self.name)
 
     # -- serialization: the reference's npz layout (src/theia/material.py:
     #    389-438), as theia_tpu.material.Medium writes and reads it --

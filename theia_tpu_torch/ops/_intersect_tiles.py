@@ -58,7 +58,7 @@ BIN_KEYS = 8 * BIN_CELLS**3
 
 #: lanes a block of the sort's kernels counts and scatters; kTile in
 #: csrc/wavefront_sort.cu
-SORT_TILE = 2048
+SORT_TILE = 1024
 
 #: floats per row that the scatter back moves besides t and idx (the mt
 #: query's winner rows, ``intersect_mt.ROW_WIDTH``)
@@ -148,7 +148,8 @@ def sort_rays(lo, hi, origin: torch.Tensor, direction: torch.Tensor, t_max: torc
     ``key`` each lane's :func:`octant_cell_key` (int32), ``order`` the
     stable argsort of it (int32) and the rays permuted by it. ``origin``,
     ``direction``: contiguous f32 (N, 3); ``t_max`` contiguous f32 (N,).
-    CUDA tensors launch ``theia_wavefront_sort`` (three kernels; each call
+    CUDA tensors launch ``theia_wavefront_sort`` (three kernels, each over all
+    the card's SMs; each call
     adds one to ``sort_rays.launches``), CPU tensors run
     :func:`sort_rays_plain`."""
     n, dev = origin.shape[0], origin.device
@@ -161,12 +162,12 @@ def sort_rays(lo, hi, origin: torch.Tensor, direction: torch.Tensor, t_max: torc
     lo, span = _grid(lo, hi)
     n_tiles = -(-n // SORT_TILE)
     scratch = torch.empty(n + (n_tiles + 1) * BIN_KEYS, dtype=torch.int32, device=dev)
-    key, counts, key_base = scratch[:n], scratch[n:-BIN_KEYS], scratch[-BIN_KEYS:]
+    key, counts, totals = scratch[:n], scratch[n:-BIN_KEYS], scratch[-BIN_KEYS:]
     order = torch.empty(n, dtype=torch.int32, device=dev)
     o_s, d_s, t_s = torch.empty_like(origin), torch.empty_like(direction), torch.empty_like(t_max)
     err = _build.library().theia_wavefront_sort(
         origin.data_ptr(), direction.data_ptr(), t_max.data_ptr(), *map(float, lo), *map(float, span), n,
-        key.data_ptr(), counts.data_ptr(), key_base.data_ptr(), order.data_ptr(), o_s.data_ptr(),
+        key.data_ptr(), counts.data_ptr(), totals.data_ptr(), order.data_ptr(), o_s.data_ptr(),
         d_s.data_ptr(), t_s.data_ptr(), _build.raw_stream(origin),
     )
     _build.check(err, "sort_rays")

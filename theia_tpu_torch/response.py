@@ -6,25 +6,27 @@ normalization (reference: src/theia/response.py,
 shader/response.histogram.glsl, estimator.reduce.glsl:17-35).
 
 :func:`histogram_add` is the histogram's accumulation: on CUDA tensors it
-launches a kernel of ``csrc/histogram.cu`` (a block-private histogram in
-shared memory for states of up to :data:`SHARED_STATE_MAX` flat bins, adds
-merged by warp straight to the state above), on CPU tensors it runs
-:func:`histogram_add_plain`. It is differentiable in ``value``: its
-backward, :func:`histogram_grad`, gathers the state's gradient at each
-kept lane's bin (the gather kernel of ``csrc/histogram.cu`` on CUDA,
+launches the record of ``csrc/histogram.cu``, on CPU tensors it runs
+:func:`histogram_add_plain`. Both add in one fixed order
+(:func:`ordered_bin_sums`: a warp's span of lanes, a tile of spans, groups
+of tiles), so a light curve is the same bits on every run and on either
+device. It is differentiable in ``value``: its backward,
+:func:`histogram_grad`, gathers the state's gradient at each kept lane's
+bin (the gather kernel of ``csrc/histogram.cu`` on CUDA,
 :func:`histogram_grad_plain` on the CPU).
 
 :func:`kernel_histogram_add` is the kernel histogram's (binned KDE)
 accumulation, on ``csrc/kernel_histogram.cu``: each lane adds its value,
 weighted by a Gaussian of its time, to the ``2 * support + 1`` bins
-around its own. It is differentiable in the value, the time and the
-three parameters (``t0``, ``binSize``, ``bandwidth``); its backward is
-:func:`kernel_histogram_grad`.
+around its own, in the same fixed order. It is differentiable in the
+value, the time and the three parameters (``t0``, ``binSize``,
+``bandwidth``); its backward is :func:`kernel_histogram_grad`.
 """
 
 from __future__ import annotations
 
 import math
+import threading
 import warnings
 
 import torch
@@ -32,7 +34,7 @@ import torch
 import numpy as np
 
 from . import _build
-from .component import Component, TraceConfig, _to_tensor, resolve_device
+from .component import Component, TraceConfig, host_dict, resolve_device
 from .items import (
     CameraHitResponseItem,
     HitTimeAndIdItem,
@@ -81,13 +83,134 @@ __all__ = [
     "kernel_histogram_add_plain",
     "kernel_histogram_grad",
     "kernel_histogram_grad_plain",
-    "SHARED_STATE_MAX",
 ]
 
-#: the largest state (flat bins) that the record's kernel keeps as a
-#: block-private histogram in shared memory: 226 KB of floats; equals
-#: kSharedMaxFloats of ``csrc/histogram.cu``
-SHARED_STATE_MAX = 57_856
+#: the records' fixed order (``csrc/ordered_sum.cuh``): lanes a warp's span
+#: (kSpanLanes), lanes a tile (kTileLanes), groups of tiles (kGroups)
+SPAN_LANES, TILE_LANES, TILE_GROUPS = 128, 1024, 32
+
+#: flat bins one range of the records' first pass covers (ordered::kRange:
+#: a block's 8 warps' rows of sums take what a block may have of an SM's
+#: 227 KB of shared memory less its 1 KB)
+RECORD_RANGE = (227 * 1024 - 1024) // 4 // 8
+
+#: the dense pass takes a record of up to this many tiles x bins, the
+#: sparse pass a larger one where its tables fit (ordered::kDenseCells);
+#: the sparse pass stages RECORD_STAGE entries of the tiles' lists at once
+#: (ordered::kStage)
+RECORD_DENSE_CELLS, RECORD_STAGE = 1 << 19, 8192
+
+#: the most floats of a record's scratch: a larger (tiles x bins) table of
+#: tile sums is taken in batches of ranges (at most RECORD_MAX_RANGES a
+#: launch, ordered::kMaxRanges), each range with RECORD_COUNTERS 64-bit
+#: counters (ordered::kCounters)
+RECORD_TABLE_MAX = 1 << 26
+RECORD_MAX_RANGES, RECORD_COUNTERS = 64, TILE_GROUPS + 1
+
+
+def _in_order(keys: torch.Tensor, values: torch.Tensor):
+    """(distinct keys ascending, sums): each key's values added one after
+    another in the order given, from +0.0, in float32 (unique indices
+    each step, never an ``index_add_`` whose order is not fixed)."""
+    keys, perm = torch.sort(keys, stable=True)
+    values = values[perm]
+    uniq, counts = torch.unique_consecutive(keys, return_counts=True)
+    start = torch.cumsum(counts, 0) - counts
+    sums = torch.zeros(uniq.shape[0], dtype=torch.float32, device=values.device)
+    for r in range(int(counts.max()) if counts.numel() else 0):
+        live = torch.nonzero(counts > r).squeeze(1)
+        sums[live] = sums[live] + values[start[live] + r]
+    return uniq, sums
+
+
+def ordered_bin_sums(lane: torch.Tensor, bins: torch.Tensor, values: torch.Tensor, n: int, n_state: int):
+    """The records' sums, (n_state,) float32, in their fixed order
+    (``csrc/ordered_sum.cuh``). Items are given in the records' order, each
+    with its lane and flat bin: a bin's items of a warp's span of
+    :data:`SPAN_LANES` lanes are added in that order, then the spans of a
+    tile of :data:`TILE_LANES` lanes, then the tiles in :data:`TILE_GROUPS`
+    groups of ``ceil(tiles / TILE_GROUPS)``, then the groups; each sum from
+    +0.0. ``n``: the record's lanes."""
+    tiles = -(-n // TILE_LANES)
+    group = max(1, -(-tiles // TILE_GROUPS))
+    keys, sums = _in_order((lane // SPAN_LANES) * n_state + bins, values)
+    for per in (TILE_LANES // SPAN_LANES, group):
+        keys, sums = _in_order((keys // n_state) // per * n_state + keys % n_state, sums)
+    keys, sums = _in_order(keys % n_state, sums)
+    total = torch.zeros(n_state, dtype=torch.float32, device=values.device)
+    total[keys] = sums
+    return total
+
+
+def _add_sums(state: torch.Tensor, total: torch.Tensor) -> torch.Tensor:
+    """``state + total`` in place where ``total`` is not 0, as a record's
+    last block adds."""
+    nz = total != 0
+    state[nz] += total[nz]
+    return state
+
+
+def _scratch_floats(tiles: int, width: int) -> int:
+    """ordered::scratch_floats: a batch's tile sums and group sums."""
+    return (tiles + TILE_GROUPS) * width
+
+
+def _sparse_words(tiles: int, slots: int, n_state: int) -> int | None:
+    """The words of the sparse pass's scratch (``ordered::sparse_size``):
+    the tiles' lists of bins and sums, where each range of
+    :data:`RECORD_RANGE` bins starts in them, and the groups' sums;
+    None where the record takes the dense pass (up to
+    :data:`RECORD_DENSE_CELLS` tiles x bins, or tables past a block's
+    shared memory)."""
+    if tiles * n_state <= RECORD_DENSE_CELLS:
+        return None
+    cap = lambda items: min(items, n_state) + min(items, n_state) // 4 + 1
+    warp_cap, tile_cap = cap(SPAN_LANES * slots), cap(TILE_LANES * slots)
+    group, ranges, most = -(-tiles // TILE_GROUPS), -(-n_state // RECORD_RANGE), 4 * 8 * RECORD_RANGE
+    tiles_smem = 8 * (8 * warp_cap + tile_cap) + 4 * (ranges + 1)
+    groups_smem = 4 * (2 * RECORD_STAGE + RECORD_RANGE + 2 * group + 1)
+    if tiles_smem > most or groups_smem > most:
+        return None
+    return 2 * tiles * min(TILE_LANES * slots, n_state) + tiles * (ranges + 1) + -(-tiles // group) * n_state
+
+
+def _record_table(n: int, n_state: int, device, slots: int = 1) -> torch.Tensor:
+    """Scratch for a record's sums (``csrc/ordered_sum.cuh``) of ``n``
+    lanes of up to ``slots`` items: the sparse pass's lists where it takes
+    them, else every bin in one batch, or whole ranges of
+    :data:`RECORD_RANGE` bins a batch where that passes
+    :data:`RECORD_TABLE_MAX` floats (``ordered::batch_bins`` finds the same
+    width in it)."""
+    tiles = -(-n // TILE_LANES)
+    words = _sparse_words(tiles, slots, n_state) if tiles else None
+    if words is not None:
+        return torch.empty(words, dtype=torch.float32, device=device)
+    width = min(n_state, RECORD_MAX_RANGES * RECORD_RANGE)
+    while width > RECORD_RANGE and _scratch_floats(tiles, width) > RECORD_TABLE_MAX:
+        width = (-(-width // RECORD_RANGE) - 1) * RECORD_RANGE
+    return torch.empty(_scratch_floats(tiles, width) if tiles else 0, dtype=torch.float32, device=device)
+
+
+#: the records' counters by (device, stream): zero between records; made
+#: under the lock, so two threads on one stream share one set
+_COUNTERS: dict = {}
+_COUNTERS_LOCK = threading.Lock()
+
+
+def _record_counters(state: torch.Tensor) -> torch.Tensor:
+    """The counters of ``csrc/ordered_sum.cuh`` for records on the current
+    stream of ``state``'s card: made zero once; each record's last blocks
+    set them back to 0, and records of one stream run one after another."""
+    key = (state.get_device(), _build.raw_stream(state))
+    counters = _COUNTERS.get(key)
+    if counters is None:
+        with _COUNTERS_LOCK:
+            counters = _COUNTERS.get(key)
+            if counters is None:
+                counters = _COUNTERS[key] = torch.zeros(
+                    RECORD_MAX_RANGES * RECORD_COUNTERS, dtype=torch.int64, device=state.device
+                )
+    return counters
 
 
 class ValueResponse(Component):
@@ -128,7 +251,7 @@ class CustomValueResponse(ValueResponse):
         self._custom_params = params or {}
 
     def params(self, device):
-        return {k: _to_tensor(v, device) for k, v in self._custom_params.items()}
+        return host_dict({k: (v, np.float32) for k, v in self._custom_params.items()}, device)
 
     def value(self, params, item: HitItem, rng: RNGState):
         return self._fn(params, item, rng)
@@ -198,9 +321,12 @@ def histogram_add_plain(
     state, value, time, mask, t0, bin_size, n_bins: int,
     object_id=None, n_detectors: int | None = None,
 ) -> torch.Tensor:
-    """Plain PyTorch version of :func:`histogram_add` (any device)."""
+    """Plain PyTorch version of :func:`histogram_add` (any device): the
+    kept lanes' values summed in the records' fixed order
+    (:func:`ordered_bin_sums`), which the kernel keeps bit for bit."""
     keep, bins = _hist_bins(time, mask, t0, bin_size, n_bins, object_id, n_detectors)
-    return state.index_add_(0, bins[keep], value[keep])
+    lane = torch.nonzero(keep).squeeze(1)
+    return _add_sums(state, ordered_bin_sums(lane, bins[lane], value[lane], time.shape[0], state.shape[0]))
 
 
 def _check_hist(
@@ -243,11 +369,13 @@ class _HistogramAdd(torch.autograd.Function):
                 state, value, time, mask, t0, bin_size, n_bins, object_id, n_detectors
             )
         else:
+            table = _record_table(value.shape[0], state.shape[0], state.device)
             err = _build.library().theia_histogram_add(
                 value.data_ptr(), time.data_ptr(), mask.data_ptr(),
                 object_id.data_ptr() if n_detectors is not None else None,
                 t0.data_ptr(), bin_size.data_ptr(), value.shape[0], n_bins,
-                n_detectors or 0, state.data_ptr(), _build.stream_handle(state.device),
+                n_detectors or 0, table.data_ptr(), table.numel(), _record_counters(state).data_ptr(),
+                state.data_ptr(), _build.stream_handle(state.device),
             )
             _build.check(err, "histogram_add")
             histogram_add.launches += 1
@@ -279,16 +407,12 @@ def histogram_add(
     ``state``: f32 (n_bins * (n_detectors or 1),); ``value``/``time``: f32
     (N,); ``mask``: bool (N,); ``t0``/``bin_size``: f32 0-d tensors on the
     state's device; ``object_id``: i32 (N,) when ``n_detectors`` is set.
-    CUDA tensors launch ``csrc/histogram.cu``, CPU tensors run the plain
-    version. Which of the kernel's two variants runs follows from the
-    state's size alone: up to :data:`SHARED_STATE_MAX` flat bins each
-    block sums into a histogram of its own in shared memory and then adds
-    its non-zero bins to ``state``; above, lanes add straight to ``state``
-    after the lanes of a warp that share a bin are merged. The inputs may
-    be views at any offset (the kernel reads 16 bytes at a time only where
-    every pointer allows it). Atomic adds land in an order that changes
-    from run to run, so a bin agrees with a sequential sum to float32
-    rounding only. Differentiable in ``value`` (and through ``state``); ``time``
+    CUDA tensors launch ``csrc/histogram.cu`` (one kernel: the tiles' sums
+    into a (tiles x bins) table of scratch, the last blocks to finish the
+    groups' and then the record's sums into ``state``), CPU tensors run
+    the plain version. Both add in the fixed order of
+    :func:`ordered_bin_sums`, so a record gives the same bits on every
+    launch and on either device. The inputs may be views at any offset. Differentiable in ``value`` (and through ``state``); ``time``
     takes no gradient, as in JAX where the bins come from a floor of the
     detached time, so an attached ``time`` is refused."""
     if time.requires_grad:
@@ -434,10 +558,42 @@ class HistogramHitResponse(HitResponse):
 _SQRT_2PI = float(torch.tensor(2.0 * math.pi, dtype=torch.float32).sqrt())
 
 
-def _kde_terms(time, mask, t0, bin_size, bandwidth, n_bins, support, object_id, n_detectors):
+#: the record's exp (``csrc/kernel_histogram.cu`` kde_exp): 1 / ln 2, ln 2
+#: in two parts and Cephes' expf polynomial, each a float32
+_EXP_F32 = tuple(float(np.float32(c)) for c in (
+    1.44269504088896341, 0.693359375, -2.12194440e-4,
+    1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3, 4.1665795894e-2, 1.6666665459e-1, 5.0000001201e-1,
+))
+
+
+def _kde_exp(x: torch.Tensor) -> torch.Tensor:
+    """exp of the kernel histogram's float32 ``x = -z^2 / 2`` as the
+    kernel's kde_exp computes it, op for op in float32: n = round(x / ln 2),
+    r = (x - n ln2_hi) - n ln2_lo, e^r = (p(r) r^2 + r) + 1 by Cephes' expf
+    polynomial in Horner's form, times 2^n as two powers of two made from
+    their bits (a subnormal result rounds once); 0 below -104. Separate
+    products and sums on either side, so the kernel's weights equal these
+    bit for bit, where the card's expf and the CPU's exp are an ulp apart
+    on many inputs. Within an ulp of exp. Differentiable: its slope is the
+    polynomial's."""
+    inv_ln2, ln2_hi, ln2_lo, *poly = _EXP_F32
+    n = torch.round(x * inv_ln2)
+    r = (x - n * ln2_hi) - n * ln2_lo
+    p = torch.full_like(x, poly[0])
+    for c in poly[1:]:
+        p = p * r + c
+    y = (p * (r * r) + r) + 1.0
+    e = torch.where(torch.isnan(n), 0.0, n.detach()).to(torch.int32)
+    half = torch.div(e, 2, rounding_mode="trunc")
+    scale = lambda k: ((k + 127) << 23).view(torch.float32)
+    return torch.where(x < -104.0, 0.0, (y * scale(half)) * scale(e - half))
+
+
+def _kde_terms(time, mask, t0, bin_size, bandwidth, n_bins, support, object_id, n_detectors, exp=_kde_exp):
     """Per offset of the kernel's support: (kept, flat bin, bin centre,
     z = (centre - t) / h, E = exp(-z^2 / 2)), in the ops and order of
-    ``theia_tpu``'s record. The bins come from the detached time; a lane
+    ``theia_tpu``'s record; ``exp`` the record's (:func:`_kde_exp`) or,
+    for the backward, ``torch.exp``, as the card's backward takes expf. The bins come from the detached time; a lane
     is dropped where it is masked, where its centre ``(t - t0) / binSize``
     is not finite (a NaN or infinite time; ``theia_tpu`` casts such a
     centre to an integer, see :func:`kernel_histogram_add`) or, with a
@@ -459,7 +615,7 @@ def _kde_terms(time, mask, t0, bin_size, bandwidth, n_bins, support, object_id, 
             flat = flat + offset
         bc = (bin_f + 0.5) * bin_size + t0
         z = (bc - time) / bandwidth
-        terms.append((keep, flat, bin_f, z, torch.exp(-0.5 * (z * z))))
+        terms.append((keep, flat, bin_f, z, exp(-0.5 * (z * z))))
     return terms
 
 
@@ -468,13 +624,24 @@ def kernel_histogram_add_plain(
     object_id=None, n_detectors: int | None = None,
 ) -> torch.Tensor:
     """Plain version of :func:`kernel_histogram_add` (any device; adds in
-    place and returns ``state``)."""
+    place and returns ``state``): the (lane, bin) pairs summed in the
+    records' fixed order (:func:`ordered_bin_sums`; in a span's row of 32
+    lanes the offsets from ``-support`` up, for each the lanes in order),
+    which the kernel keeps bit for bit."""
     norm = bin_size / (bandwidth * _SQRT_2PI)
-    for keep, flat, _, _, e in _kde_terms(
-        time, mask, t0, bin_size, bandwidth, n_bins, support, object_id, n_detectors
+    slots = 2 * support + 1
+    lanes, bins, adds, order = [], [], [], []
+    for s, (keep, flat, _, _, e) in enumerate(
+        _kde_terms(time, mask, t0, bin_size, bandwidth, n_bins, support, object_id, n_detectors)
     ):
-        state.index_add_(0, flat[keep], (value * (e * norm))[keep])
-    return state
+        lane = torch.nonzero(keep).squeeze(1)
+        lanes.append(lane)
+        bins.append(flat[lane])
+        adds.append((value * (e * norm))[lane])
+        order.append(((lane // 32) * slots + s) * 32 + lane % 32)
+    perm = torch.argsort(torch.cat(order))
+    lane, flat, add = (torch.cat(x)[perm] for x in (lanes, bins, adds))
+    return _add_sums(state, ordered_bin_sums(lane, flat, add, time.shape[0], state.shape[0]))
 
 
 def kernel_histogram_grad_plain(
@@ -491,7 +658,7 @@ def kernel_histogram_grad_plain(
     grad_bs = torch.zeros_like(time)
     grad_h = torch.zeros_like(time)
     for keep, flat, bin_f, z, e in _kde_terms(
-        time, mask, t0, bin_size, bandwidth, n_bins, support, object_id, n_detectors
+        time, mask, t0, bin_size, bandwidth, n_bins, support, object_id, n_detectors, torch.exp
     ):
         # a dropped lane's terms may be 0 * inf: select, never multiply by 0
         kept = lambda a: torch.where(keep, a, 0.0)
@@ -527,10 +694,12 @@ def _kde_forward(state, value, time, mask, t0, bin_size, bandwidth, n_bins, supp
             state, value, time, mask, t0, bin_size, bandwidth, n_bins, support, object_id, n_detectors
         )
     if time.shape[0]:
+        table = _record_table(time.shape[0], state.shape[0], state.device, 2 * support + 1)
         err = _build.library().theia_kde_add(
             value.data_ptr(),
             *_kde_args(time, mask, object_id, n_detectors, t0, bin_size, bandwidth, n_bins, support),
-            state.data_ptr(), _build.stream_handle(state.device),
+            table.data_ptr(), table.numel(), _record_counters(state).data_ptr(), state.data_ptr(),
+            _build.stream_handle(state.device),
         )
         _build.check(err, "kernel_histogram_add")
         kernel_histogram_add.launches += 1
@@ -586,11 +755,10 @@ def kernel_histogram_add(
     ``n_detectors``. Differentiable in ``value``, ``time``, ``t0``,
     ``bin_size`` and ``bandwidth`` (and through ``state`` as the
     identity); saves nothing where no gradient is asked for. CUDA tensors
-    launch ``csrc/kernel_histogram.cu`` (a block-private histogram in
-    shared memory for states up to :data:`SHARED_STATE_MAX` flat bins,
-    adds straight to the state above), CPU tensors run the plain version.
-    Atomic adds land in an order that changes from run to run, so a bin
-    agrees with a sequential sum to float32 rounding only."""
+    launch ``csrc/kernel_histogram.cu`` (one kernel, as
+    :func:`histogram_add`'s), CPU tensors run the plain version; both add
+    the pairs in the fixed order of :func:`kernel_histogram_add_plain`, so a
+    record gives the same bits on every launch and on either device."""
     params = (t0, bin_size, bandwidth)
     _check_kde(state, value, time, mask, params, n_bins, object_id, n_detectors)
     if state.device.type not in ("cpu", "cuda"):

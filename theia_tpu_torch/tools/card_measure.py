@@ -6,7 +6,6 @@
     python3 -m theia_tpu_torch.tools.card_measure baseline DIR [aos]
     python3 -m theia_tpu_torch.tools.card_measure soup DIR
     python3 -m theia_tpu_torch.tools.card_measure soup-builds
-    python3 -m theia_tpu_torch.tools.card_measure histogram
     python3 -m theia_tpu_torch.tools.card_measure gather-builds
     python3 -m theia_tpu_torch.tools.card_measure gather-skew
     python3 -m theia_tpu_torch.tools.card_measure read-grad-builds [DIR]
@@ -17,6 +16,9 @@
     python3 -m theia_tpu_torch.tools.card_measure cherenkov-turns DIR
     python3 -m theia_tpu_torch.tools.card_measure profile
     python3 -m theia_tpu_torch.tools.card_measure sharded [RANKS]
+    python3 -m theia_tpu_torch.tools.card_measure sort-turns DIR
+    python3 -m theia_tpu_torch.tools.card_measure record-builds [WORDS]
+    python3 -m theia_tpu_torch.tools.card_measure record-turns DIR
 
 ``tiles`` builds the scan of ``csrc/nearest_scan.cuh`` with 256 and 512
 rays a block, prints what ptxas reports for each (registers, shared
@@ -39,9 +41,9 @@ record and its backward of ``DIR`` are timed in turns with the current
 ones through their C entry points, as a caller sees them and queued
 behind a spin kernel (device time alone): at ``chip_smoke.py``'s
 mask-0.5 input, on the recorded records of one ``mt`` flagship batch, and
-on ``chip_smoke.large_state_cases``' two records over 64,000 flat bins,
-which take the current record's large-state variant (kept lanes spread
-over all bins, and in four bins);
+on ``chip_smoke.large_state_cases``' two records over 64,000 flat bins
+(kept lanes spread over all bins, and in four bins); a record whose C
+entry point takes the table of tile sums (the ordered records) gets it;
 then the ``mt`` flagship's seconds per batch and the polarized ``woop``
 gradient step's seconds with the old and the current histogram kernels
 in turns. With ``aos`` the soup kernels of ``DIR`` are compared too, as
@@ -66,13 +68,6 @@ another count of resident blocks, or the lists and the sphere test
 without reject() and exact(), whose results are then wrong), in turns
 with the package's, on the same recorded queries; then the shadow pairs'
 any-hit halves on masked wavefronts against compacted ones.
-
-``histogram`` times the record's two variants (a block-private histogram
-in shared memory, adds merged by warp straight to the state; the second
-from a build with ``THEIA_HISTOGRAM_SHARED_MAX=0``, which puts it on every
-state) against each other on states of 100 to 57,856 flat bins, with half, a hundredth and
-all of the lanes kept and with every kept lane in one of four bins: the
-numbers behind the size at which ``theia_histogram_add`` changes variant.
 
 ``gather-builds`` times measurement builds of the row gathers, each from
 a copy of ``csrc`` with ``table_read.cu`` patched in the build directory
@@ -108,6 +103,42 @@ gradient is not zero: the traffic that the backward sees on those paths.
 (``KDE_BUILDS``, patches of ``csrc/kernel_histogram.cu``) at N = 524,288
 with 10 %, 50 % and 100 % of the lanes unmasked, every lane in one bin,
 and a detector axis.
+
+``sort-turns DIR`` times the wavefront sort and the scatter back of
+``DIR`` (an earlier commit's ``csrc`` with the same C interface of
+``csrc/wavefront_sort.cu``; only that file is built, its tile read from
+its ``kTile``) in turns with the package's (old, new, new, old), as
+called and queued, on the 8 recorded queries of one batch of
+flagship-array with ``accel="mt"`` (rows) and with ``accel="woop"``
+(``chip_smoke.sort_path_runs``), each call's outputs bit-equal between
+the two; then the binned query against the unbinned one in turns, the
+measurement behind ``binned=None``; then the package's kernels' device
+time a call under ``torch.profiler``.
+
+``record-builds`` times the measurement builds of ``RECORD_BUILDS`` (patches
+of copies of ``csrc``: the records' and the sort's dependent launches
+triggered early or made plain launches, the record's lane loads in one
+round with the masks, fences around relaxed counter adds in place of
+acquire-release adds, spans of 8 rows, which is another order, and the
+kernel histogram's weights by expf or by an exp in double ops in place
+of ``kde_exp``) in turns with the package's, queued: a brute flagship
+batch's 19 records, the mask-0.5 record of 524,288 lanes, the kernel
+histogram's 40 path calls, and the sort and scatter on flagship-array's
+recorded queries; the batch's curve held bit for bit against the
+package's. With ``WORDS``, only the builds whose label holds them.
+
+``record-turns DIR`` times the records of ``DIR`` (an earlier commit's
+``csrc``; only its ``histogram.cu`` and ``kernel_histogram.cu`` are built,
+e.g. the float-atomic records of the commit before the fixed order) in
+turns with the package's (old, new, new, old), through their C entry
+points, as called and queued: the histogram's record on a brute flagship
+batch's 19 records, on the mask-0.5 record of 524,288 lanes and on states
+of 1,000 to 64,000 flat bins (``chip_smoke.hist_case`` with a detector
+axis; and the 64,000 bins with every kept lane in four of them); the
+kernel histogram's on its mask-0.5 record of 524,288 lanes and on the
+gradient paths' recorded calls (``chip_smoke.kde_path_calls``). Each
+pair's states agree within rtol 1e-4 of the largest bin (the order of an
+earlier commit's float atomics), the backward's bit for bit.
 
 ``walk-builds [DIR]`` times the instanced and BVH walks' four entry
 points, queued and as called, on their cells' cases: random rays at N =
@@ -182,7 +213,7 @@ cards by default), one process a card (``torch.multiprocessing`` spawn,
 runner=ShardedRunner(tracer))`` synchronously and on the dispatch thread
 in turns, and the all-reduce of a 100-bin state. Then, on card 0 alone,
 the same global batch in one process: each rank's dims equal to its slice
-bit for bit, the summed state within ``chip_smoke.ATOMIC_ORDER_RTOL`` of
+bit for bit, the summed state within ``chip_smoke.RANK_ORDER_RTOL`` of
 the largest bin, and seconds a batch of the same schedules, for the
 ranks' speed-up.
 
@@ -342,10 +373,13 @@ class HistCalls:
         self.grad_value = torch.empty(max(r[2].shape[0] for r in records), device="cuda")
         self.records = records  # keeps the tensors alive
         self._add, self._grad = [], []
+        self.tables = []
         for value, time_, mask, t0, bin_size, bins, oid, n_det in records:
             tail = (time_.data_ptr(), mask.data_ptr(), None if oid is None else oid.data_ptr(),
                     t0.data_ptr(), bin_size.data_ptr(), mask.shape[0], bins, n_det or 0)
-            self._add.append((lib.theia_histogram_add, value.data_ptr(), *tail, self.state.data_ptr(), stream))
+            self._add.append((lib.theia_histogram_add, value.data_ptr(), *tail,
+                              *_table_args(lib.theia_histogram_add, 14, mask.shape[0], n_state, self.tables),
+                              self.state.data_ptr(), stream))
             self._grad.append(
                 (lib.theia_histogram_grad, self.grad_state.data_ptr(), *tail, self.grad_value.data_ptr(), stream)
             )
@@ -367,6 +401,18 @@ class HistCalls:
         state = self.state.clone()
         self.state.zero_()
         return state, self.grad_value.clone()
+
+
+def _table_args(fn, ordered_args: int, n: int, n_state: int, keep: list, slots: int = 1) -> tuple:
+    """The scratch and counters that an ordered record's C entry point (of
+    ``ordered_args`` arguments) takes after the lanes (``keep`` holds the
+    scratch), or nothing for a float-atomic record's."""
+    if len(fn.argtypes) != ordered_args:
+        return ()
+    table = theia_tpu_torch.response._record_table(n, n_state, "cuda", slots)
+    counters = theia_tpu_torch.response._record_counters(table)
+    keep.append(table)
+    return table.data_ptr(), table.numel(), counters.data_ptr()
 
 
 def _in_turns(old, new, name: str, reps: int) -> dict:
@@ -438,30 +484,6 @@ def baseline_histogram(old_lib) -> dict:
           + "; ".join(f"{t['histogram']} {[round(x, 4) for x in t['mt_seconds_per_batch']]} "
                       f"{t['gradient_step_seconds']:.4f}" for t in turns))
     out["end to end"] = turns
-    return out
-
-
-def histogram_variants() -> dict:
-    """The record's shared-memory variant (``theia_histogram_add`` on
-    states that it takes) against the large-state variant (the same entry
-    point of a build that gives the shared-memory variant no state) on the
-    same inputs, queued ms."""
-    lib, out, n = _build.library(), {}, 2 * chip_smoke.BATCH
-    merged_lib = _build.build(defines=("THEIA_HISTOGRAM_SHARED_MAX=0",))
-    for bins in (100, 1024, 4096, 12_288, 32_768, theia_tpu_torch.response.SHARED_STATE_MAX):
-        for label, kept in (("half kept", 0.5), ("1 % kept", 0.01), ("all kept", 1.0)):
-            cases = {label: chip_smoke.hist_case(n, bins, bins=bins, kept=kept)}
-            if kept == 0.5:  # every kept lane in one of bins 1 to 4
-                c = cases[label]
-                cases["half kept, 4 bins in use"] = (c[0], 5.0 + 5.0 * (c[1] % 4.0).floor(), *c[2:])
-            for name, case in cases.items():
-                shared = HistCalls(lib, [case])
-                merged = HistCalls(merged_lib, [case])
-                torch.testing.assert_close(shared.result()[0], merged.result()[0], rtol=1e-4, atol=0.0)
-                ms = [chip_smoke.cuda_ms_queued(c.add, 50) for c in (shared, merged, merged, shared)]
-                out[f"{bins} bins, {name}"] = dict(shared_ms=[ms[0], ms[3]], merged_ms=[ms[1], ms[2]])
-                print(f"{bins} bins, {name}: shared memory {ms[0]:.4f} / {ms[3]:.4f} ms, "
-                      f"merged by warp {ms[1]:.4f} / {ms[2]:.4f} ms (queued; shared, merged, merged, shared)")
     return out
 
 
@@ -1164,8 +1186,11 @@ class KdeAddCalls:
         self.calls = calls  # keeps the tensors alive
         self.state = torch.zeros(calls[0][6] * (calls[0][9] or 1), device="cuda")
         self.fn = lib.theia_kde_add
+        self.tables, n_state = [], self.state.shape[0]
         self.args = [(value.data_ptr(), time_.data_ptr(), mask.data_ptr(), _ptr(oid), t0.data_ptr(), bs.data_ptr(),
-                      bw.data_ptr(), time_.shape[0], bins, n_det or 0, support, self.state.data_ptr(), stream)
+                      bw.data_ptr(), time_.shape[0], bins, n_det or 0, support,
+                      *_table_args(self.fn, 16, time_.shape[0], n_state, self.tables, 2 * support + 1),
+                      self.state.data_ptr(), stream)
                      for value, time_, mask, t0, bs, bw, bins, support, oid, n_det in calls]
 
     def add(self):
@@ -2194,6 +2219,319 @@ def sharded(ranks: int) -> dict:
     return result
 
 
+def sort_turns(parent: Path) -> dict:
+    """``sort-turns DIR``: the sort and scatter of ``parent`` in turns with
+    the package's on flagship-array's recorded queries, then the binned
+    query against the unbinned one in turns."""
+    import re
+    import shutil
+
+    from theia_tpu_torch.ops import _intersect_tiles as tiles
+    from theia_tpu_torch.ops.intersect_mt import nearest_triangle_mt_rows
+    from theia_tpu_torch.ops.intersect_woop import nearest_triangle_woop
+
+    src = parent / "wavefront_sort.cu"
+    copy = _build.BUILD_DIR / "sort_turns_parent"
+    shutil.rmtree(copy, ignore_errors=True)
+    copy.mkdir(parents=True)
+    shutil.copy(src, copy / src.name)
+    names = ("theia_wavefront_sort", "theia_wavefront_scatter")
+    old_lib = _build.build(copy, (), tuple((k, _build._SIGNATURES[k]) for k in names))
+    old_tile = int(re.search(r"constexpr int kTile = (\d+);", src.read_text()).group(1))
+    new_lib = _build.library()
+    wrappers = {k: v for k, v in (("sort_rays", tiles.sort_rays), ("scatter_back", tiles.scatter_back),
+                                  ("nearest_triangle_mt_rows", nearest_triangle_mt_rows),
+                                  ("nearest_triangle_woop", nearest_triangle_woop))}
+    runs, kernels = {}, {"sort_rays": {}, "scatter_back": {}}
+    paths = chip_smoke.sort_path_runs(runs, wrappers, kernels, icosphere(3), _smi(), chip_smoke.BATCH)
+
+    class Sort:
+        """One library's sort and scatter on fixed calls."""
+
+        def __init__(self, lib, tile, pack, queries, outs):
+            self.lib, self.tile, self.pack, self.queries, self.outs = lib, tile, pack, queries, outs
+            lo, span = tiles._grid(pack.lo, pack.hi)
+            self.grid = (*map(float, lo), *map(float, span))
+            self.sorted = [self._sort(*q) for q in queries]
+
+        def _sort(self, o, d, t):
+            n = o.shape[0]
+            scratch = torch.empty(n + (-(-n // self.tile) + 1) * tiles.BIN_KEYS, dtype=torch.int32, device="cuda")
+            out = (torch.empty(n, dtype=torch.int32, device="cuda"), torch.empty_like(o), torch.empty_like(d),
+                   torch.empty_like(t))
+            _build.check(self.lib.theia_wavefront_sort(
+                o.data_ptr(), d.data_ptr(), t.data_ptr(), *self.grid, n, scratch[:n].data_ptr(),
+                scratch[n:-tiles.BIN_KEYS].data_ptr(), scratch[-tiles.BIN_KEYS:].data_ptr(),
+                *(x.data_ptr() for x in out), _build.raw_stream(o)), "sort")
+            return (scratch[:n], *out)
+
+        def sort(self):
+            for q in self.queries:
+                self._sort(*q)
+
+        def scatter(self):
+            for (_, order, *_), outs in zip(self.sorted, self.outs):
+                back = [torch.empty_like(x) for x in outs]
+                rows = len(outs) == 3
+                _build.check(self.lib.theia_wavefront_scatter(
+                    order.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(), outs[2].data_ptr() if rows else None,
+                    order.shape[0], back[0].data_ptr(), back[1].data_ptr(), back[2].data_ptr() if rows else None,
+                    _build.raw_stream(order)), "scatter")
+            return back
+
+    out = {}
+    for label, (pack, query, queries) in paths.items():
+        outs = [query(o, d, t, False) for o, d, t in queries]
+        old, new = (Sort(lib, tile, pack, queries, outs) for lib, tile in ((old_lib, old_tile), (new_lib, tiles.SORT_TILE)))
+        for a, b in zip(old.sorted, new.sorted):
+            assert chip_smoke.same_sort(a, b) == 0, f"{label}: the two sorts differ"
+        turns = {name: _in_turns(old, new, name, 20) for name in ("sort", "scatter")}
+        q = {True: dict(ms=[], queued_ms=[]), False: dict(ms=[], queued_ms=[])}
+        for binned in (False, True, True, False):
+            calls = lambda: [query(o, d, t, binned) for o, d, t in queries]
+            q[binned]["ms"].append(chip_smoke.cuda_ms(calls, 3) / len(queries))
+            q[binned]["queued_ms"].append(chip_smoke.cuda_ms_queued(calls, 3) / len(queries))
+        per_call = {name: {k: [v / len(queries) for v in vs] for k, vs in t.items()} for name, t in turns.items()}
+        out[label] = dict(calls=len(queries), lanes=[x[0].shape[0] for x in queries], turns=per_call,
+                          query_turns=dict(binned=q[True], unbinned=q[False]))
+        for name, t in per_call.items():
+            print(f"{label} {name}, ms a call (old, new, new, old): as called {t['old_ms'][0]:.4f} / "
+                  f"{t['new_ms'][0]:.4f} / {t['new_ms'][1]:.4f} / {t['old_ms'][1]:.4f}, queued "
+                  f"{t['old_queued_ms'][0]:.4f} / {t['new_queued_ms'][0]:.4f} / {t['new_queued_ms'][1]:.4f} / "
+                  f"{t['old_queued_ms'][1]:.4f}")
+        print(f"{label} query ms a call, binned {q[True]} / unbinned {q[False]} (unbinned, binned, binned, unbinned)")
+        # the package's three sort kernels and the scatter, each kernel's device time a call (torch.profiler)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            new.sort()
+            new.scatter()
+            torch.cuda.synchronize()
+        kernels = {e.key: e.device_time_total / 1000.0 / len(queries) for e in prof.key_averages()
+                   if any(k in e.key for k in ("count_keys", "scan_columns", "scatter_rays", "scatter_back"))}
+        out[label]["kernel_ms"] = kernels
+        print(f"{label}: device ms a call by kernel (profiler) " + ", ".join(f"{k.split('(')[0]} {v:.4f}"
+                                                                           for k, v in kernels.items()))
+    out["runs"] = runs
+    return out
+
+
+#: measurement builds of the ordered records and the sort (patches of
+#: several files: (file, text, replacement), each text found once): the
+#: designs they replaced or lost to, timed in turns with the package's
+_WAIT = '''__device__ __forceinline__ void wait_for_previous() { asm volatile("griddepcontrol.wait;" ::: "memory"); }'''
+_MASK_FIRST = '''    if (!__any_sync(ordered::kAll, any)) return;
+    float t[kRows], v[kRows];
+    int det[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const long long i = first + 32 * r + lane;
+      const bool live = i < in.n;
+      t[r] = live ? in.time[i] : 0.0f;
+      v[r] = live ? value[i] : 0.0f;
+      det[r] = live && in.n_det > 0 ? in.object_id[i] : 0;
+    }'''
+_ONE_ROUND = '''    float t[kRows], v[kRows];
+    int det[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const long long i = first + 32 * r + lane;
+      const bool live = i < in.n;
+      t[r] = live ? in.time[i] : 0.0f;
+      v[r] = live ? value[i] : 0.0f;
+      det[r] = live && in.n_det > 0 ? in.object_id[i] : 0;
+    }
+    if (!__any_sync(ordered::kAll, any)) return;'''
+_ACQ_REL = '''  return cuda::atomic_ref<unsigned long long, cuda::thread_scope_device>(counter).fetch_add(
+      v, cuda::memory_order_acq_rel);'''
+_KDE_WEIGHT = "          const float w = kde_exp(-0.5f * (z * z)) * norm;"
+_KDE_SOURCE = "// the record's items: each kept lane's pairs (flat bin, value * w)\n"
+#: the KDE weights' exp in double products and sums (a Taylor polynomial to
+#: r^13 / 13!), this PR's first form
+_KDE_EXP64 = """// exp(x) rounded to float from a double: n = rint(x / ln 2), r = x - n ln 2
+// in two parts, e^r by its Taylor polynomial in Horner's form, times 2^n
+constexpr double kInvLn2 = 1.4426950408889634;
+constexpr double kLn2Hi = 0.6931471803691238;
+constexpr double kLn2Lo = 1.9082149292705877e-10;
+
+__device__ __forceinline__ float kde_exp64(float x) {
+  constexpr double kC[14] = {1.0, 1.0, 0.5, 0.16666666666666666, 0.041666666666666664, 0.008333333333333333,
+                             0.001388888888888889, 0.0001984126984126984, 2.48015873015873e-05,
+                             2.7557319223985893e-06, 2.755731922398589e-07, 2.505210838544172e-08,
+                             2.08767569878681e-09, 1.6059043836821613e-10};
+  const double d = static_cast<double>(x);
+  if (d < -110.0) return 0.0f;  // below float32's least subnormal
+  const double n = rint(d * kInvLn2);
+  const double r = (d - n * kLn2Hi) - n * kLn2Lo;
+  double p = kC[13];
+#pragma unroll
+  for (int k = 12; k >= 0; --k) p = p * r + kC[k];
+  const double scale = __longlong_as_double((static_cast<long long>(n) + 1023) << 52);
+  return __double2float_rn(p * scale);
+}
+
+"""
+RECORD_BUILDS = {
+    "dependents triggered at the wait (early)": [
+        ("launch.cuh", _WAIT, _WAIT.replace('asm volatile("griddepcontrol.wait;"',
+                                            'asm volatile("griddepcontrol.launch_dependents;");\n  asm volatile("griddepcontrol.wait;"'))],
+    "plain launches, no dependents": [("launch.cuh", "  config.numAttrs = 1;", "  config.numAttrs = 0;")],
+    "a round of loads with the masks": [("histogram.cu", _MASK_FIRST, _ONE_ROUND)],
+    "fences around relaxed adds": [("ordered_sum.cuh", _ACQ_REL,
+                                    "  __threadfence();\n  const unsigned long long old = atomicAdd(&counter, v);\n"
+                                    "  __threadfence();\n  return old;")],
+    "spans of 8 rows (another order)": [("ordered_sum.cuh", "constexpr int kRowsPerSpan = 4;",
+                                         "constexpr int kRowsPerSpan = 8;")],
+    "the kernel histogram's weights by expf (other bits)": [("kernel_histogram.cu", _KDE_WEIGHT,
+                                                             _KDE_WEIGHT.replace("kde_exp(", "expf("))],
+    "the kernel histogram's weights by an exp in double ops (other bits)": [
+        ("kernel_histogram.cu", _KDE_SOURCE, _KDE_EXP64 + _KDE_SOURCE),
+        ("kernel_histogram.cu", _KDE_WEIGHT, _KDE_WEIGHT.replace("kde_exp(", "kde_exp64(")),
+    ],
+}
+
+
+def record_builds(words: str = "") -> dict:
+    """``record-builds``: each of ``RECORD_BUILDS`` in turns with the package
+    (package, build, build, package), queued, on a brute flagship batch's
+    19 records, the mask-0.5 case of 524,288 lanes, the kernel histogram's
+    40 recorded calls of the gradient paths, and the sort and scatter on
+    flagship-array's recorded queries; the records' bits held against the
+    package's where the build keeps the order."""
+    import shutil
+
+    from theia_tpu_torch.ops import _intersect_tiles as tiles
+    from theia_tpu_torch.ops.intersect_mt import nearest_triangle_mt_rows
+    from theia_tpu_torch.ops.intersect_woop import nearest_triangle_woop
+    from theia_tpu_torch.response import histogram_add, kernel_histogram_add
+
+    libs = {}
+    for label, patches in ((k, v) for k, v in RECORD_BUILDS.items() if words in k):
+        copy = _build.BUILD_DIR / "patched" / ("records-" + "".join(c if c.isalnum() else "-" for c in label))
+        shutil.rmtree(copy, ignore_errors=True)
+        shutil.copytree(_build.CSRC, copy)
+        for name, old, new in patches:
+            text = (copy / name).read_text()
+            assert text.count(old) == 1, f"{label}: {old!r} is not in {name} once"
+            (copy / name).write_text(text.replace(old, new))
+        libs[label] = _build.build(copy)
+    mesh = icosphere(3)
+    tracer = build_flagship(theia_tpu_torch, mesh, chip_smoke.BATCH, chip_smoke.MAX_PATH, accel="auto", device="cuda")
+    tracer.run()
+    records = chip_smoke.record_records(tracer)
+    main = chip_smoke.hist_case(2 * chip_smoke.BATCH, 3)
+    kde_calls = [c for calls in chip_smoke.kde_path_calls(mesh).values() for c in calls]
+    wrappers = {"sort_rays": tiles.sort_rays, "scatter_back": tiles.scatter_back,
+                "nearest_triangle_mt_rows": nearest_triangle_mt_rows, "nearest_triangle_woop": nearest_triangle_woop}
+    paths = chip_smoke.sort_path_runs({}, wrappers, {"sort_rays": {}, "scatter_back": {}}, mesh, _smi(),
+                                      chip_smoke.BATCH)
+    state = torch.zeros(100, device="cuda")
+    kde_state = torch.zeros(kde_calls[0][6] * (kde_calls[0][9] or 1), device="cuda")
+    cases = {
+        "19 brute records": (lambda: [histogram_add(state, *c) for c in records], 19),
+        "record, mask 0.5, N=524288": (lambda: histogram_add(state, *main), 1),
+        "kernel histogram, 40 path calls": (lambda: [kernel_histogram_add(kde_state, *c) for c in kde_calls], 40),
+    }
+    for label, (pack, query, queries) in paths.items():
+        outs = [query(o, d, t, False) for o, d, t in queries]
+        orders = [tiles.sort_rays(pack.lo, pack.hi, *q)[1] for q in queries]
+        cases[f"sort, {label}"] = (lambda pack=pack, qs=queries: [tiles.sort_rays(pack.lo, pack.hi, *q) for q in qs],
+                                   len(queries))
+        cases[f"scatter, {label}"] = (lambda outs=outs, orders=orders: [tiles.scatter_back(o, *x)
+                                                                        for o, x in zip(orders, outs)], len(queries))
+
+    def curve():
+        state.zero_()
+        for c in records:
+            histogram_add(state, *c)
+        return state.clone()
+
+    package, out = _build.library, {}
+    try:
+        want = curve()
+        for label, lib in libs.items():
+            row = out[label] = {}
+            for which in ("package", "build", "build", "package"):
+                _build.library = (lambda lib=lib: lib) if which == "build" else package
+                for case, (fn, n) in cases.items():
+                    row.setdefault(case, {}).setdefault(which, []).append(chip_smoke.cuda_ms_queued(fn, 10) / n)
+            _build.library = lambda lib=lib: lib
+            row["same bits as the package"] = bool(torch.equal(curve(), want))
+            _build.library = package
+            print(f"{label}: the batch's curve {'the same bits' if row['same bits as the package'] else 'other bits'}")
+            for case, t in row.items():
+                if isinstance(t, dict):
+                    print(f"    {case}, queued ms a call: package {[round(x, 4) for x in t['package']]}, "
+                          f"build {[round(x, 4) for x in t['build']]}")
+    finally:
+        _build.library = package
+    return out
+
+
+#: the records' entry points before the fixed order (float atomics, no
+#: scratch)
+OLD_RECORD_SIGNATURES = HIST_SIGNATURES + (("theia_kde_add", (_P,) * 7 + (_I,) * 4 + (_P, _P)),)
+
+
+def record_turns(parent: Path) -> dict:
+    """``record-turns DIR``: the records of ``parent`` in turns with the
+    package's on a brute flagship batch, synthetic states of 100 to 64,000
+    flat bins and the kernel histogram's cases."""
+    import shutil
+
+    copy = _build.BUILD_DIR / "record_turns_parent"
+    shutil.rmtree(copy, ignore_errors=True)
+    copy.mkdir(parents=True)
+    for name in ("histogram.cu", "kernel_histogram.cu"):
+        shutil.copy(parent / name, copy / name)
+    old_lib, new_lib = _build.build(copy, (), OLD_RECORD_SIGNATURES), _build.library()
+    mesh = icosphere(3)
+    tracer = build_flagship(theia_tpu_torch, mesh, chip_smoke.BATCH, chip_smoke.MAX_PATH, accel="auto", device="cuda")
+    tracer.run()
+    n = 2 * chip_smoke.BATCH
+    hist = {"19 records of a brute flagship batch": (chip_smoke.record_records(tracer), 20),
+            "mask 0.5, 100 bins": ([chip_smoke.hist_case(n, 3)], 50)}
+    for n_det in (1, 2, 4, 7, 15, 32, 64):
+        hist[f"mask 0.5, {1000 * n_det} bins"] = ([chip_smoke.hist_case(n, 13, bins=1000, n_det=n_det)], 20)
+    hist["mask 0.5, 64,000 bins of which 4 in use"] = ([chip_smoke.large_state_cases(n)[1]], 20)
+    out = {}
+
+    def report(what, label, calls, t):
+        ratio = [x / min(t["old_queued_ms"]) for x in t["new_queued_ms"]]
+        out[f"{what}, {label}"] = dict(t, calls=calls, queued_ratio=ratio)
+        print(f"{what}, {label} ({calls} calls): queued ms old {t['old_queued_ms'][0]:.4f} / "
+              f"{t['old_queued_ms'][1]:.4f}, new {t['new_queued_ms'][0]:.4f} / {t['new_queued_ms'][1]:.4f} "
+              f"(new / old {ratio[0]:.2f}, {ratio[1]:.2f}); as called old {t['old_ms'][0]:.4f} / {t['old_ms'][1]:.4f}, "
+              f"new {t['new_ms'][0]:.4f} / {t['new_ms'][1]:.4f} (old, new, new, old)")
+
+    for label, (records, reps) in hist.items():
+        old, new = HistCalls(old_lib, records), HistCalls(new_lib, records)
+        (old_state, old_grad), (new_state, new_grad) = old.result(), new.result()
+        scale = float(old_state.abs().max()) or 1.0
+        torch.testing.assert_close(new_state, old_state, rtol=1e-4, atol=1e-4 * scale)
+        assert torch.equal(new_grad, old_grad), f"{label}: old and new backward differ"
+        report("histogram_add", label, len(records), _in_turns(old, new, "add", reps))
+    kde = {"mask 0.5, 100 bins": [chip_smoke.kde_case(n, 3)], **chip_smoke.kde_path_calls(mesh)}
+    for label, calls in kde.items():
+        old, new = KdeAddCalls(old_lib, calls), KdeAddCalls(new_lib, calls)
+        want, got = old.result(), new.result()
+        scale = float(want.abs().max()) or 1.0
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)
+        report("kernel_histogram_add", label, len(calls), _in_turns(old, new, "add", max(1, 200 // len(calls))))
+    # the package's record's kernels apart, device time under torch.profiler
+    for label in ("mask 0.5, 100 bins", "mask 0.5, 2000 bins", "mask 0.5, 64000 bins"):
+        calls = HistCalls(new_lib, hist[label][0])
+        calls.add()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                calls.add()
+            torch.cuda.synchronize()
+        kernels = {e.key: e.device_time_total / 1000.0 / 20 for e in prof.key_averages() if e.device_time_total > 0}
+        out[f"histogram_add kernels, {label}"] = kernels
+        print(f"histogram_add kernels, {label}, device ms a record: "
+              + ", ".join(f"{k[:60]} {v:.4f}" for k, v in sorted(kernels.items(), key=lambda kv: -kv[1])))
+    return out
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("card_measure: torch.cuda.is_available() is false", file=sys.stderr)
@@ -2209,8 +2547,6 @@ def main(argv: list[str]) -> int:
         result = soup_builds()
     elif mode == "soup" and len(argv) == 3:
         result = baseline_soup(_build.build(Path(argv[2]).resolve(), (), OLD_SOUP_SIGNATURES))
-    elif mode == "histogram":
-        result = histogram_variants()
     elif mode == "gather-builds":
         result = gather_builds()
     elif mode == "gather-skew":
@@ -2230,6 +2566,12 @@ def main(argv: list[str]) -> int:
         result = cherenkov_turns(Path(argv[2]).resolve())
     elif mode == "profile":
         result = profile()
+    elif mode == "record-builds" and len(argv) <= 3:
+        result = record_builds(argv[2] if len(argv) == 3 else "")
+    elif mode == "record-turns" and len(argv) == 3:
+        result = record_turns(Path(argv[2]).resolve())
+    elif mode == "sort-turns" and len(argv) == 3:
+        result = sort_turns(Path(argv[2]).resolve())
     elif mode == "sharded" and len(argv) <= 3:
         result = sharded(int(argv[2]) if len(argv) == 3 else torch.cuda.device_count())
     else:

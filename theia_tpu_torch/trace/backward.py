@@ -15,12 +15,13 @@ from __future__ import annotations
 
 from dataclasses import replace
 
+import numpy as np
 import torch
 
 from .. import units as u
 from ..callback import EmptyEventCallback, TraceEventCallback
 from ..camera import Camera
-from ..component import Component, TraceConfig, resolve_device
+from ..component import Component, TraceConfig, host_dict, resolve_device
 from ..light import LightSource, WavelengthSource
 from ..lookup import lookup
 from ..material import Medium, medium_constants
@@ -249,15 +250,14 @@ class VolumeBackwardTracer(TracerBase):
 
     def params(self):
         dev = self.device
-        f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
         p = {
-            "tracer": {
-                "batchSize": torch.tensor(self.batchSize, dtype=torch.int64, device=dev),
-                "scatterCoefficient": f32(self.scatterCoefficient),
-                "maxTime": f32(self.maxTime),
-                "lowerBBox": f32(self.traceBBox[0]),
-                "upperBBox": f32(self.traceBBox[1]),
-            },
+            "tracer": host_dict({
+                "batchSize": (self.batchSize, np.int64),
+                "scatterCoefficient": (self.scatterCoefficient, np.float32),
+                "maxTime": (self.maxTime, np.float32),
+                "lowerBBox": (self.traceBBox[0], np.float32),
+                "upperBBox": (self.traceBBox[1], np.float32),
+            }, dev),
             "medium": None if self.medium is None else self.medium.to(dev),
             "photons": self.wavelengthSource.params(dev),
             "lightSource": self.source.params(dev),

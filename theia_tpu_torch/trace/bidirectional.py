@@ -20,13 +20,14 @@ from __future__ import annotations
 
 from dataclasses import replace
 
+import numpy as np
 import torch
 
 from .. import units as u
 from ..accel import is_visible
 from ..callback import EmptyEventCallback, TraceEventCallback
 from ..camera import Camera
-from ..component import Component, TraceConfig, resolve_device
+from ..component import Component, TraceConfig, host_dict, resolve_device
 from ..light import LightSource, SourceRay, WavelengthSource
 from ..material import MaterialFlags, packed_medium_constants
 from ..ops.math3d import distance, dot, local_frame, normalize
@@ -128,13 +129,12 @@ class BidirectionalPathTracer(TracerBase):
 
     def params(self):
         dev = self.device
-        f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
         return {
-            "tracer": {
-                "batchSize": torch.tensor(self.batchSize, dtype=torch.int64, device=dev),
-                "scatterCoefficient": f32(self.scatterCoefficient),
-                "maxTime": f32(self.maxTime),
-            },
+            "tracer": host_dict({
+                "batchSize": (self.batchSize, np.int64),
+                "scatterCoefficient": (self.scatterCoefficient, np.float32),
+                "maxTime": (self.maxTime, np.float32),
+            }, dev),
             "scene": self.scene.pack,
             "photons": self.wavelengthSource.params(dev),
             "lightSource": self.source.params(dev),

@@ -9,13 +9,14 @@ normal alone decides self-shadowing.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import units as u
 from ..accel import is_visible
 from ..callback import EmptyEventCallback, TraceEventCallback
 from ..camera import Camera
-from ..component import Component, TraceConfig, resolve_device
+from ..component import Component, TraceConfig, host_dict, resolve_device
 from ..light import LightSource, WavelengthSource
 from ..material import Medium
 from ..ops.math3d import dot, sqrt
@@ -96,10 +97,7 @@ class DirectLightTracer(TracerBase):
     def params(self):
         dev = self.device
         p = {
-            "tracer": {
-                "batchSize": torch.tensor(self.batchSize, dtype=torch.int64, device=dev),
-                "maxTime": torch.tensor(self.maxTime, dtype=torch.float32, device=dev),
-            },
+            "tracer": host_dict({"batchSize": (self.batchSize, np.int64), "maxTime": (self.maxTime, np.float32)}, dev),
             "photons": self.wavelengthSource.params(dev),
             "lightSource": self.source.params(dev),
             "camera": self.camera.params(dev),
@@ -125,7 +123,7 @@ class DirectLightTracer(TracerBase):
             occluder = None
         extent = hi - lo
         prop = PropagateParams(
-            scatter_coefficient=torch.tensor(float("nan"), device=streams.device),
+            scatter_coefficient=torch.full((), float("nan"), device=streams.device),
             lower_bbox=lo,
             upper_bbox=hi,
             max_time=p["tracer"]["maxTime"],

@@ -23,11 +23,12 @@ from __future__ import annotations
 
 from dataclasses import replace
 
+import numpy as np
 import torch
 
 from .. import units as u
 from ..callback import EmptyEventCallback, TraceEventCallback
-from ..component import Component, TraceConfig, resolve_device
+from ..component import Component, TraceConfig, host_dict, resolve_device
 from ..light import LightSource, WavelengthSource
 from ..lookup import lookup
 from ..material import Medium, medium_constants
@@ -229,15 +230,14 @@ class VolumePhotonTracer(_CompactedRuns, TracerBase):
 
     def params(self):
         dev = self.device
-        f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
         return {
-            "tracer": {
-                "batchSize": torch.tensor(self.batchSize, dtype=torch.int64, device=dev),
-                "maxTime": f32(self.maxTime),
-                "lowerBBox": f32(self.traceBBox[0]),
-                "upperBBox": f32(self.traceBBox[1]),
-                "objectId": torch.tensor(self.objectId, dtype=torch.int32, device=dev),
-            },
+            "tracer": host_dict({
+                "batchSize": (self.batchSize, np.int64),
+                "maxTime": (self.maxTime, np.float32),
+                "lowerBBox": (self.traceBBox[0], np.float32),
+                "upperBBox": (self.traceBBox[1], np.float32),
+                "objectId": (self.objectId, np.int32),
+            }, dev),
             "medium": None if self.medium is None else self.medium.to(dev),
             "photons": self.wavelengthSource.params(dev),
             "lightSource": self.source.params(dev),
@@ -250,7 +250,7 @@ class VolumePhotonTracer(_CompactedRuns, TracerBase):
         lo, hi = p["tracer"]["lowerBBox"], p["tracer"]["upperBBox"]
         extent = hi - lo
         return PropagateParams(
-            scatter_coefficient=torch.tensor(float("nan"), device=lo.device),
+            scatter_coefficient=torch.full((), float("nan"), device=lo.device),
             lower_bbox=lo,
             upper_bbox=hi,
             max_time=p["tracer"]["maxTime"],

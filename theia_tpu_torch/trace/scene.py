@@ -34,7 +34,7 @@ import torch
 from .. import units as u
 from ..accel import SurfaceHit, intersect_scene, intersect_target, offset_ray
 from ..callback import EmptyEventCallback, TraceEventCallback
-from ..component import Component, TraceConfig, resolve_device
+from ..component import Component, TraceConfig, host_dict, resolve_device
 from ..light import LightSource, WavelengthSource
 from ..material import MaterialFlags, MediumConstants, lookup_packed, packed_medium_constants
 from ..ops.math3d import dot, local_frame, normalize, sqrt
@@ -311,14 +311,12 @@ class SceneForwardTracer(TracerBase):
     def params(self):
         dev = self.device
         p = {
-            "tracer": {
-                "batchSize": torch.tensor(self.batchSize, dtype=torch.int64, device=dev),
-                "targetId": torch.tensor(self.targetId, dtype=torch.int32, device=dev),
-                "scatterCoefficient": torch.tensor(
-                    self.scatterCoefficient, dtype=torch.float32, device=dev
-                ),
-                "maxTime": torch.tensor(self.maxTime, dtype=torch.float32, device=dev),
-            },
+            "tracer": host_dict({
+                "batchSize": (self.batchSize, np.int64),
+                "targetId": (self.targetId, np.int32),
+                "scatterCoefficient": (self.scatterCoefficient, np.float32),
+                "maxTime": (self.maxTime, np.float32),
+            }, dev),
             "scene": self.scene.pack,
             "photons": self.wavelengthSource.params(dev),
             "lightSource": self.source.params(dev),
