@@ -1176,14 +1176,16 @@ def sass_report(lib, names) -> dict:
 
 def hold_kde(case, label) -> dict:
     """The kernel histogram's record and backward on ``case`` against the
-    plain versions on the CPU copy of the inputs. The record bit for bit
-    (NaN equal to NaN), and a second launch the same bits: both add the
-    pairs in the records' fixed order, their weights through the same
-    double-precision exp. Tolerances of the backward: d value and d time
-    rtol 1e-5 of the largest lane (nine terms; its kernel takes expf, the
-    plain version the record's exp, an ulp apart); the three scalars rtol
-    1e-4 (a block's tree and one atomic a block against a sequential sum
-    over every lane). Returns the max abs errors."""
+    plain versions. The record bit for bit against the plain version on the
+    CPU copy of the inputs (NaN equal to NaN), and a second launch the same
+    bits: both add the pairs in the records' fixed order, their weights
+    through the same float32 exp. The backward bit for bit against its
+    plain twin on the same card tensors (the same ops, expf as torch's exp
+    on the card, the scalars' terms in the records' order), a second launch
+    the same bits; and against the plain version on the CPU: d value and d
+    time rtol 1e-5 of the largest lane (nine terms; the CPU's exp and the
+    card's expf an ulp apart), the three scalars rtol 1e-4 (sums of those
+    terms). Returns the max abs errors against the CPU."""
     import numpy as np
     import torch
 
@@ -1202,11 +1204,15 @@ def hold_kde(case, label) -> dict:
     )
     grad_state = torch.as_tensor(np.random.default_rng(n_state).normal(size=n_state).astype(np.float32))
     got_g = kernel_histogram_grad(grad_state.cuda(), *case)
+    again_g = kernel_histogram_grad(grad_state.cuda(), *case)
+    twin_g = kernel_histogram_grad_plain(grad_state.cuda(), *case)
     torch.cuda.synchronize()
     want_g = kernel_histogram_grad_plain(grad_state, *cpu(case))
     err = {"add": float(torch.nan_to_num(got.cpu() - want).abs().max())}
-    for name, a, b, rtol in zip(("d value", "d time", "d t0", "d binSize", "d bandwidth"), got_g, want_g,
-                                (1e-5, 1e-5, 1e-4, 1e-4, 1e-4)):
+    for name, a, a2, t, b, rtol in zip(("d value", "d time", "d t0", "d binSize", "d bandwidth"), got_g, again_g,
+                                       twin_g, want_g, (1e-5, 1e-5, 1e-4, 1e-4, 1e-4)):
+        assert same_tensors(a.reshape(-1), a2.reshape(-1)), f"kernel_histogram_grad {name} on {label}: two launches differ"
+        assert same_tensors(a.reshape(-1), t.reshape(-1)), f"kernel_histogram_grad {name} on {label}: off its card twin"
         a = a.cpu()
         atol = rtol * (float(b.abs().max()) or 1.0) if b.dim() else 0.0
         torch.testing.assert_close(a, b, rtol=rtol, atol=atol, msg=lambda m: f"kernel_histogram_grad {name} on {label}: {m}")
@@ -1261,9 +1267,10 @@ def check_kernel_histogram(add_report, grad_report):
         assert torch.equal(state, want), "an all-masked or non-finite record changed the state"
         assert all(not bool(g.any()) for g in grads), "an all-masked or non-finite record has a gradient"
     worst = errors[f"N={n}, mask 0.5"]
-    print(f"kernels kernel_histogram_add / kernel_histogram_grad: bit for bit (two launches the same bits) / rtol "
-          f"1e-5 a lane / 1e-4 a scalar on {len(errors)} cases and on all-masked and NaN/inf records (unchanged, zero "
-          f"gradients); max abs err at N={n}: {worst}")
+    print(f"kernels kernel_histogram_add / kernel_histogram_grad: bit for bit (two launches the same bits), the "
+          f"backward against its twin on the card bit for bit and against the CPU within rtol 1e-5 a lane / 1e-4 a "
+          f"scalar, on {len(errors)} cases and on all-masked and NaN/inf records (unchanged, zero gradients); max abs "
+          f"err against the CPU at N={n}: {worst}")
 
     # the backward on the cases that its kept-lane lists single out, queued, beside its bound and an empty launch
     empty = empty_launch_ms()
@@ -1466,13 +1473,10 @@ def read_calls(c, g=None):
 def hold_read_grad(name, c, label, live: float | None = None) -> float:
     """Read case ``c``'s backward against its plain version on the same
     card tensors, for random upstream gradients (nonzero on a ``live``
-    share of the lanes alone, where given):
-    d x bit for bit (the same float32 ops in the same order, the tables'
-    products summed in the same order), each d table within 2e-5 of each
-    entry's sum of absolute shares (the plain version's backward run on
-    |g|: the kernel sums the shares in another order than index_add_'s),
-    NaN where the plain version's is. Returns the max abs error of d
-    tables."""
+    share of the lanes alone, where given): d x and every d table bit for
+    bit (the same float32 ops in the same order, each entry's shares
+    summed in the records' fixed order by both), and a second launch the
+    same bits. Returns the max abs error of d tables (0)."""
     import torch
 
     _, plain, _, _ = read_calls(c)
@@ -1481,30 +1485,26 @@ def hold_read_grad(name, c, label, live: float | None = None) -> float:
         g = live_grads(g, live)
     _, _, grad, grad_plain = read_calls(c, g)
     got_t, got_x = grad()
+    again_t, again_x = grad()
     want_t, want_x = grad_plain()
-    abs_t, _ = grad_plain(tuple(x.abs() for x in g) if len(g) > 1 else g[0].abs())
     torch.cuda.synchronize()
-    assert same(got_x, want_x), f"{name} backward d x differs from plain on {label}"
+    assert same_tensors(got_x, want_x) and same_tensors(got_x, again_x), f"{name} backward d x differs on {label}"
     err = 0.0
-    for k, (a, b, s) in enumerate(zip(_outputs(got_t), _outputs(want_t), _outputs(abs_t))):
+    for k, (a, a2, b) in enumerate(zip(_outputs(got_t), _outputs(again_t), _outputs(want_t))):
         if b is None:
-            assert a is None, f"{name}: a null table got a gradient"
+            assert a is None and a2 is None, f"{name}: a null table got a gradient"
             continue
-        assert torch.equal(torch.isnan(a), torch.isnan(b)), f"{name} d table {k} NaNs differ on {label}"
-        finite = torch.isfinite(b)
-        diff = (a - b)[finite].abs()
-        excess = float((diff - 2e-5 * s[finite]).max())
-        assert excess <= 0.0, f"{name} backward d table {k} off by {excess} on {label}"
-        err = max(err, float(diff.max()))
+        assert same_tensors(a, a2), f"{name} backward d table {k}: two launches differ on {label}"
+        assert same_tensors(a, b), f"{name} backward d table {k}: {same_bits(a, b)} entries off its twin on {label}"
+        err = max(err, float(torch.nan_to_num(a - b).abs().max()))
     return err
 
 
 def hold_table_reads(store, medium) -> dict:
     """The table reads (K2) against their plain versions on the same card
     tensors (``read_cases``): the forward bit for bit, the backward as
-    ``hold_read_grad`` holds it. Also tables of 100,000 samples, whose
-    gradient takes the variant that adds to device memory, and of 16,384
-    samples, and each case with every lane at one coordinate
+    ``hold_read_grad`` holds it. Also tables of 100,000 samples (the
+    records' sparse pass) and of 16,384 samples, and each case with every lane at one coordinate
     (``hot_read_case``) and with upstream gradients nonzero on
     ``READ_LIVE_SHARE`` of the lanes. Returns the
     cases and, per case, the max abs error of d tables at the main shape."""
@@ -1515,7 +1515,6 @@ def hold_table_reads(store, medium) -> dict:
     cases = read_cases(store, medium)
     main = cases["read_table"]
     big, band = sized_read_case(main, 100_000), sized_read_case(main, 16_384)
-    assert big["args"][0].numel() > tr.SHARED_TABLE_MAX >= band["args"][0].numel()
     extra = {"read_table": [("a table of 100,000 samples", big, None), ("a table of 16,384 samples", band, None)]}
     errors = {}
     for name, case in cases.items():
@@ -1529,7 +1528,7 @@ def hold_table_reads(store, medium) -> dict:
             errors.setdefault(name, err)
             x = c["args"][-2]
             print(f"kernel {name} on {label} ({len(got)} table(s), {x.numel()} lanes): forward bit-equal, d x "
-                  f"bit-equal, d tables within 2e-5 of their absolute sums (max abs err {err:.3g})")
+                  f"and d tables bit-equal to the plain twin, two launches the same bits")
     return cases, errors
 
 
@@ -1773,9 +1772,11 @@ def odd_gather_cases(pack) -> dict:
 def hold_gather(name, table, cols, index, hit):
     """``gather_rows`` on ``table`` with ``cols`` against its plain version,
     bit for bit, and its backward on a random gradient a float span (0 on
-    the lanes where ``hit`` is False) within 2e-5 of each entry's sum of
-    absolute shares; returns (the gradient as ``gather_rows_grad`` takes
-    it, the spans' gradients, the largest error)."""
+    the lanes where ``hit`` is False) bit for bit against its plain twin
+    (both sum a tile's lanes in lane order, then the tiles in the records'
+    groups), a second launch the same bits; returns (the gradient as
+    ``gather_rows_grad`` takes it, the spans' gradients, the largest error,
+    0)."""
     import torch
 
     from theia_tpu_torch.ops.table_read import (
@@ -1792,15 +1793,14 @@ def hold_gather(name, table, cols, index, hit):
         grads = [None if g is None else torch.where(hit[:, None], g, 0.0) for g in grads]
     arg = grads[0] if cols is None else grads
     got_t = gather_rows_grad(table.shape, index, arg, cols)
+    again_t = gather_rows_grad(table.shape, index, arg, cols)
     want_t = gather_rows_grad_plain(table.shape, index, arg, cols)
-    abs_arg = arg.abs() if cols is None else [None if g is None else g.abs() for g in grads]
-    abs_t = gather_rows_grad_plain(table.shape, index, abs_arg, cols)
     torch.cuda.synchronize()
     assert all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(got, want)), (
         f"gather_rows differs from plain on {name}")
-    excess = float(((got_t - want_t).abs() - 2e-5 * abs_t).max())
-    assert excess <= 0.0, f"gather_rows_grad off by {excess} on {name}"
-    return arg, grads, float((got_t - want_t).abs().max())
+    assert same_tensors(got_t, again_t), f"gather_rows_grad: two launches differ on {name}"
+    assert same_tensors(got_t, want_t), f"gather_rows_grad: {same_bits(got_t, want_t)} entries off its twin on {name}"
+    return arg, grads, float((got_t - want_t).abs().max()) if got_t.numel() else 0.0
 
 
 def check_gather_rows(report, grad_report, pack, winners):
@@ -1829,7 +1829,7 @@ def check_gather_rows(report, grad_report, pack, winners):
     for name, case in odd.items():
         err = hold_gather(name, *case)[2]
         grad_report["max_abs_err"] = max(grad_report.get("max_abs_err", 0.0), err)
-    print(f"kernel gather_rows: forward bit-equal, backward within 2e-5 of its absolute sums on {', '.join(odd)}")
+    print(f"kernel gather_rows: forward and backward bit-equal to their twins on {', '.join(odd)}")
     del odd
     items = []
     for label, (table, columns, index, hit) in gather_cases(pack, winners).items():
@@ -1873,8 +1873,8 @@ def check_gather_rows(report, grad_report, pack, winners):
                   f"{ms:.4f} ms ({queued_ms:.4f} queued), plain {plain_ms:.4f} ms, {lib} {library_ms:.4f} ms; "
                   f"bound {b['bound_ms']:.4f} ms by {b['bound_by']}, share {b['bound_ms'] / ms:.3f} "
                   f"({b['bound_ms'] / queued_ms:.3f} queued)")
-        print(f"kernel gather_rows on {name}: forward bit-equal, backward within 2e-5 of its absolute sums "
-              f"(max abs err {err:.3g})")
+        print(f"kernel gather_rows on {name}: forward and backward bit-equal to their twins, two launches the "
+              f"same bits")
         cases[name] = entry
     for rep, kind in ((report, "forward"), (grad_report, "backward")):
         rep.update(cases={name: entry[kind] for name, entry in cases.items()}, **cases["tri_data with misses"][kind])
@@ -2701,7 +2701,8 @@ def profile_step(step, watch=()) -> dict:
 
 def absorption_grad(tracer, mesh=None):
     """d sum(histogram state) / d (water absorption_coef row) through
-    ``trace_fn()``; returns (loss, gradient) as float64 numpy. With a photon
+    ``trace_fn()``; returns (loss, gradient, state), the last two as numpy
+    (the gradient float64). With a photon
     ``mesh`` this rank traces its block of the lanes through
     ``parallel.shard_trace`` (the state summed over the group) and the
     gradient is its share summed over the group (``reduce_gradients``)."""
@@ -2725,7 +2726,7 @@ def absorption_grad(tracer, mesh=None):
     loss.backward()
     if mesh is not None:
         parallel.reduce_gradients([leaf], mesh)
-    return loss.item(), leaf.grad.double().cpu().numpy()
+    return loss.item(), leaf.grad.double().cpu().numpy(), state.detach().cpu().numpy()
 
 
 def time_weighted(curve):
@@ -2744,7 +2745,7 @@ def scale_step(tracer, table: str, truth: float | None):
     """Examples 05 and 06 as one gradient step on ``tracer`` (a volume
     tracer): the light curve with the medium table ``table`` scaled by
     exp(s), the observation at s = ``truth`` made beforehand, and a step
-    that returns (loss, d loss / d s) at s = 0 through ``trace_fn()``:
+    that returns (loss, d loss / d s, light curve) at s = 0 through ``trace_fn()``:
     loss = 1e6 * sum(((curve - observed) / (sum(observed) + 1))^2), or
     ``time_weighted(curve)`` where ``truth`` is None."""
     import torch
@@ -2763,13 +2764,14 @@ def scale_step(tracer, table: str, truth: float | None):
 
     def step():
         s = torch.zeros((), device=base.device, requires_grad=True)
+        c = curve(s)
         if truth is None:
-            loss = time_weighted(curve(s))
+            loss = time_weighted(c)
         else:
-            d = (curve(s) - observed) / (observed.sum() + 1.0)
+            d = (c - observed) / (observed.sum() + 1.0)
             loss = (d * d).sum() * 1e6
         loss.backward()
-        return loss.item(), s.grad.double().cpu().numpy().reshape(1)
+        return loss.item(), s.grad.double().cpu().numpy().reshape(1), c.detach().cpu().numpy()
 
     return step
 
@@ -2784,7 +2786,7 @@ def geometry_step(tracer, fit: bool = True):
     flagship ``tracer`` (with a ``KernelHistogramHitResponse``): the light
     curve with the detector moved by ``translate_instance`` and the source
     moved, the observation at ``GEOMETRY_TRUTH`` made beforehand, and a
-    step that returns (loss, gradient) at the nominal geometry, loss =
+    step that returns (loss, gradient, light curve) at the nominal geometry, loss =
     sum((curve - observed)^2) / sum(observed^2), the gradient in the
     detector's shift, the source's position and the packed
     ``log_phase_function`` and ``refractive_index`` tables (so that the
@@ -2817,7 +2819,8 @@ def geometry_step(tracer, fit: bool = True):
         c = curves(leaves[0], leaves[1], {"log_phase_function": leaves[2], "refractive_index": leaves[3]})
         loss = ((c - observed) ** 2).sum() / (observed**2).sum() if fit else time_weighted(c)
         loss.backward()
-        return loss.item(), np.concatenate([leaf.grad.double().cpu().numpy().reshape(-1) for leaf in leaves])
+        grad = np.concatenate([leaf.grad.double().cpu().numpy().reshape(-1) for leaf in leaves])
+        return loss.item(), grad, c.detach().cpu().numpy()
 
     return step
 
@@ -2826,11 +2829,14 @@ def time_step(step, wrappers, label, reps: int = 3) -> dict:
     """``step`` once to warm up, then ``reps`` times on the host's clock
     ending in a synchronize (the median is seconds per step), with the
     peak memory over them and the launches of ``wrappers`` in the first
-    timed step; then one step under the profiler."""
+    timed step; then one step under the profiler; then
+    ``check_gradient_run``: every step's loss, gradient and light curve
+    the same bits, torch's nondeterministic sites, the step's backward
+    calls against their twins."""
     import numpy as np
     import torch
 
-    step()
+    results = [step()]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     seconds, counts = [], None
@@ -2838,9 +2844,10 @@ def time_step(step, wrappers, label, reps: int = 3) -> dict:
         for w in wrappers.values():
             w.launches = 0
         start = time.perf_counter()
-        loss, grad = step()
+        results.append(step())
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - start)
+        loss, grad, _ = results[-1]
         counts = counts or {name: w.launches for name, w in wrappers.items() if w.launches}
         assert np.isfinite(grad).all() and np.isfinite(loss) and loss > 0.0, f"{label}: non-finite or zero loss"
     peak = torch.cuda.max_memory_allocated()
@@ -2852,8 +2859,157 @@ def time_step(step, wrappers, label, reps: int = 3) -> dict:
           f"gradient {np.array2string(grad[:6], precision=6)}{' ...' if grad.size > 6 else ''}")
     for entry in prof["top"][:6] + prof["own"] + list(prof["kinds"].values()):
         print(f"    {entry['ms']:9.3f} ms {entry['count']:6d} x {entry['name'][:90]}")
+    checks = check_gradient_run(label, step, results)
     return dict(seconds_per_step=seconds, median_s=med, peak_bytes=peak, launches=counts, profile=prof,
-                loss=loss, grad=grad.tolist())
+                loss=loss, grad=grad.tolist(), **checks)
+
+
+def same_tensors(a, b) -> bool:
+    """``a`` and ``b`` the same float32 bits entry for entry (-0.0 and +0.0
+    differ), a NaN equal to a NaN."""
+    return a.shape == b.shape and same_bits(a, b) == 0 and bool((a.isnan() == b.isnan()).all())
+
+
+def record_grad_calls(step) -> list:
+    """One call of ``step`` (a gradient step), and every call its backward
+    makes to the backward kernels' wrappers, in order, as (kind, args,
+    keywords): "read" (``ops.table_read._backward``: the reads' backward),
+    "gather" (``gather_rows_grad``) and "kde" (``kernel_histogram_grad``),
+    the lanes' tensors cloned (the tables, whose addresses a read's spec
+    holds, kept as they are)."""
+    import torch
+
+    from theia_tpu_torch import response
+    from theia_tpu_torch.ops import table_read
+
+    def clone(a):
+        if isinstance(a, torch.Tensor):
+            return a.detach().clone()
+        return type(a)(clone(b) for b in a) if isinstance(a, (tuple, list)) else a
+
+    kept = []
+    lanes = {"read": (4, 5, 6), "gather": (1, 2), "kde": (0, 1, 2, 3, 4, 5, 6, 9)}
+    sites = {"read": (table_read, "_backward"), "gather": (table_read, "gather_rows_grad"),
+             "kde": (response, "kernel_histogram_grad")}
+    saved = {kind: getattr(module, name) for kind, (module, name) in sites.items()}
+
+    def recording(kind, fn):
+        def wrapper(*args, **kw):
+            kept.append((kind, tuple(clone(a) if k in lanes[kind] else a for k, a in enumerate(args)), dict(kw)))
+            return fn(*args, **kw)
+        wrapper.launches = getattr(fn, "launches", 0)  # a wrapper counts on the name it is called by
+        return wrapper
+
+    try:
+        for kind, (module, name) in sites.items():
+            setattr(module, name, recording(kind, saved[kind]))
+        step()
+    finally:
+        for kind, (module, name) in sites.items():
+            setattr(module, name, saved[kind])
+    torch.cuda.synchronize()
+    return kept
+
+
+def grad_call(kind, args, kw, plain: bool = False):
+    """A recorded backward call (``record_grad_calls``) as a function of
+    nothing that runs it through the package's wrapper, or through its
+    plain twin on the same card tensors, and returns its outputs (None
+    where it takes none)."""
+    from theia_tpu_torch import response
+    from theia_tpu_torch.ops import table_read
+
+    if kind == "read":
+        reader, *rest = args
+        flat = lambda g: tuple(g[0]) + (g[1],)
+        if plain:
+            return lambda: flat(reader.grad_plain(*rest))
+        return lambda: flat(table_read._backward(reader, *rest))
+    if kind == "gather":
+        fn = table_read.gather_rows_grad_plain if plain else table_read.gather_rows_grad
+        return lambda: (fn(*args),)
+    if not plain:
+        return lambda: response.kernel_histogram_grad(*args, **kw)
+    need_lanes, need_params = kw.get("need_lanes", True), kw.get("need_params", True)
+
+    def twin():
+        g = response.kernel_histogram_grad_plain(*args)
+        return (*(g[:2] if need_lanes else (None, None)), *(g[2:] if need_params else (None,) * 3))
+
+    return twin
+
+
+def hold_grad_calls(label, calls) -> dict:
+    """Each recorded backward call of a step (``record_grad_calls``) run
+    twice through the package's wrapper and once through its plain twin on
+    the same card tensors: the three the same bits, output for output.
+    Returns the calls held, by kind."""
+    import torch
+
+    counts = {}
+    for kind, args, kw in calls:
+        first, second = grad_call(kind, args, kw)(), grad_call(kind, args, kw)()
+        want = grad_call(kind, args, kw, plain=True)()
+        torch.cuda.synchronize()
+        for k, (a, b, c) in enumerate(zip(first, second, want)):
+            assert (a is None) == (b is None) == (c is None), f"{label}: a {kind} call's output {k}"
+            if a is not None:
+                a, b, c = (x.reshape(-1) for x in (a, b, c))
+                assert same_tensors(a, b), f"{label}: two launches of a {kind} call differ in output {k}"
+                assert same_tensors(a, c), (
+                    f"{label}: a {kind} call's output {k} differs from its twin in {same_bits(a, c)} entries")
+        counts[kind] = counts.get(kind, 0) + 1
+    print(f"{label}: the backward kernels on the step's {len(calls)} recorded calls {counts}: two launches the "
+          f"same bits, equal to their plain twins bit for bit")
+    return counts
+
+
+def nondeterministic_sites(step) -> list:
+    """The ops that torch warns, under ``torch.use_deterministic_algorithms(
+    True, warn_only=True)`` set around one call of ``step`` alone (the
+    package never sets it), have no deterministic implementation: each
+    warning's first line, once. Ops that torch would switch to a
+    deterministic form are not listed; the step's repeat check finds them."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            step()
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message).splitlines()[0][:200] for w in caught if "determinis" in str(w.message)})
+
+
+def step_repeats(label, results) -> int:
+    """Steps' (loss, gradient, light curve, ...) results, each the same
+    bits as the first; returns how many steps were compared."""
+    import numpy as np
+
+    first = results[0]
+    for k, got in enumerate(results[1:], 1):
+        for j, (a, b) in enumerate(zip(first, got)):
+            a, b = np.asarray(a), np.asarray(b)
+            assert a.shape == b.shape and a.dtype == b.dtype and a.tobytes() == b.tobytes(), (
+                f"{label}: step {k} differs from step 0 in result {j}")
+    return len(results)
+
+
+def check_gradient_run(label, step, repeated: list) -> dict:
+    """What every gradient run is held to beyond its timing: its steps'
+    results bit for bit (``repeated``, the results of the steps it took),
+    the ops torch lists as without a deterministic implementation in one
+    step (``nondeterministic_sites``), and one step's recorded backward
+    calls held against their twins (``hold_grad_calls``)."""
+    steps = step_repeats(label, repeated)
+    sites = nondeterministic_sites(step)
+    print(f"{label}: {steps} steps the same bits (loss, gradient, light curve); torch's ops without a deterministic "
+          f"implementation in a step: {sites or 'none'}")
+    return dict(steps_repeated=steps, nondeterministic_sites=sites, calls_held=hold_grad_calls(label, record_grad_calls(step)))
 
 
 def gradient_agreement(label, g_cpu, g_card, what: str = "cpu vs card") -> dict:
@@ -3378,8 +3534,8 @@ def index_step(tracer, medium: str = "glass", weighted: bool = False):
     """One gradient step of sum(histogram state) in the packed refractive
     index of ``medium`` (every entry of its row one scalar, as
     ``tests/test_grad_scene.py``'s ``patch_media`` sets it) through
-    ``trace_fn()``: a step that returns (loss, d loss / d n) as float64
-    numpy. ``weighted``: the loss is ``time_weighted`` of the light curve,
+    ``trace_fn()``: a step that returns (loss, d loss / d n, light curve) as
+    numpy (the gradient float64). ``weighted``: the loss is ``time_weighted`` of the light curve,
     the signal whose gradient phase 4 compares."""
     import torch
 
@@ -3395,9 +3551,10 @@ def index_step(tracer, medium: str = "glass", weighted: bool = False):
         tables = {**media.tables, "refractive_index": table}
         scene = dataclasses.replace(p["scene"], media=dataclasses.replace(media, tables=tables))
         state = fn({**p, "scene": scene}, counter, streams)[0]
-        loss = time_weighted(tracer.response.result(p["response"], state)) if weighted else state.sum()
+        curve = tracer.response.result(p["response"], state)
+        loss = time_weighted(curve) if weighted else state.sum()
         loss.backward()
-        return loss.item(), leaf.grad.double().cpu().numpy().reshape(1)
+        return loss.item(), leaf.grad.double().cpu().numpy().reshape(1), curve.detach().cpu().numpy()
 
     return step
 
@@ -5067,9 +5224,10 @@ def gloo_rank(rank: int, world: int, url: str, out: str) -> None:
         with torch.no_grad():
             state, _, dims = fn(tracer.params(), tracer.rng.counter_words, P.parallel.sharded_streams(BATCH, mesh))
         small = build_flagship(P, icosphere(3), GRAD_BATCH, GRAD_PATH, accel="auto", device="cuda")
-        loss, grad = absorption_grad(small, mesh)
-        torch.save(dict(state=state.cpu(), dims=dims.cpu(), loss=loss, grad=grad, device=str(mesh.device),
-                        size=mesh.size), Path(out) / f"rank-{rank}.pt")
+        steps = [absorption_grad(small, mesh) for _ in range(2)]
+        loss, grad, _ = steps[0]
+        torch.save(dict(state=state.cpu(), dims=dims.cpu(), loss=loss, grad=grad, steps=steps,
+                        device=str(mesh.device), size=mesh.size), Path(out) / f"rank-{rank}.pt")
         torch.distributed.barrier()
     finally:
         torch.distributed.destroy_process_group()
@@ -5099,7 +5257,7 @@ def gloo_ranks_on_one_card(runs, mesh, smi) -> None:
     with torch.no_grad():
         state, _, dims = single._trace_batch(p, single.rng.counter_words, single.streams())
     state, dims = state.cpu(), dims.cpu()
-    _, g_single = absorption_grad(build_flagship(P, mesh, GRAD_BATCH, GRAD_PATH, accel="auto", device="cuda"))
+    g_single = absorption_grad(build_flagship(P, mesh, GRAD_BATCH, GRAD_PATH, accel="auto", device="cuda"))[1]
     del single
     torch.cuda.empty_cache()
     ctx = mp.get_context("spawn")
@@ -5126,13 +5284,16 @@ def gloo_ranks_on_one_card(runs, mesh, smi) -> None:
         assert torch.equal(got["dims"], dims[r * per:(r + 1) * per]), f"{label}: rank {r}'s RNG dims"
         assert torch.equal(got["state"].view(torch.int32), ranks[0]["state"].view(torch.int32)), label
         assert np.array_equal(got["grad"], ranks[0]["grad"]), label
+        # two sharded steps after reduce_gradients: loss, gradient and state the same bits
+        step_repeats(f"{label}, rank {r}", got["steps"])
     twin = curves_twin(label, [state.numpy()], [ranks[0]["state"].numpy()], exact=False)
     agreement = gradient_agreement(label, g_single, ranks[0]["grad"], "single against sharded")
     print(f"{label}: {GLOO_RANKS} gloo ranks on the card, {per} of flagship-brute's {BATCH} lanes each [{smi}], "
           f"{seconds:.1f} s with the ranks' start: each rank's RNG dims equal to the single run's slice, the summed "
           f"state within {twin['max_rel']:.3g} of its largest bin ({twin['bins_differing']} of {twin['bins']} bins "
           f"differ in their bits); the gradient step at batch {GRAD_BATCH}: worst entry {agreement['worst_entry_rel']:.3g}, "
-          f"sum {agreement['sum_rel']:.3g} from the single step")
+          f"sum {agreement['sum_rel']:.3g} from the single step; two sharded steps the same bits (loss, gradient "
+          f"after reduce_gradients, state) on every rank")
     runs[label] = dict(ranks=GLOO_RANKS, seconds=seconds, twin=twin, gradient=agreement, smi=smi)
 
 
@@ -5291,9 +5452,10 @@ def main() -> int:
     for line in lib.build_log.splitlines():
         if "registers" in line or "spill" in line:
             print("ptxas:", line.strip())
-    # the SASS of the kernels redesigned last: the records (both sources), the sort's scatter, the Sobol fold, the gamma
-    # draw and the track's one pass
-    sass = sass_report(lib, ("record_tiles", "scatter_rays", "sobol_uniform", "sample_gamma", "track_sample"))
+    # the SASS of the kernels redesigned last: the records and the backward kernels on their order (their sources),
+    # the sort's scatter, the Sobol fold, the gamma draw and the track's one pass
+    sass = sass_report(lib, ("record_tiles", "scatter_rays", "sobol_uniform", "sample_gamma", "track_sample",
+                             "gather_grad", "lanes_only"))
     for fn, info in sass.items():
         print(f"sass {fn}: {info['instructions']} instructions, atomics {info['atomics']}, most used {info['opcodes']}")
 
@@ -5598,7 +5760,8 @@ def main() -> int:
             for w in grad_wrappers.values():
                 w.launches = 0
             start = time.perf_counter()
-            loss, grad = absorption_grad(pol_tracer)
+            first_step = absorption_grad(pol_tracer)
+            loss, grad, _ = first_step
             torch.cuda.synchronize()
             grad_seconds = time.perf_counter() - start
             grad_launches = histogram_grad.launches
@@ -5642,6 +5805,8 @@ def main() -> int:
         f"{name} {grad_counts.get(name, 0)}" for name in ("read_packed", "read_packed_grad", "read_table",
                                                           "read_table_grad")))
     assert not small_stride, f"the table reads' backward still runs torch's index backward: {small_stride}"
+    pol_checks = check_gradient_run("gradient (woop, polarized)", lambda: absorption_grad(pol_tracer),
+                                    [first_step, absorption_grad(pol_tracer)])
     del pol_tracer
     torch.cuda.empty_cache()
 
@@ -6019,7 +6184,7 @@ def main() -> int:
                          profile=photon_prof),
         gradient=dict(batch=grad_batch, seconds=grad_seconds, peak_bytes=grad_peak, loss=loss,
                       grad_sum=float(grad.sum()), grad=grad.tolist(), histogram_grad_launches=grad_launches,
-                      launches=grad_counts, profile=grad_prof),
+                      launches=grad_counts, profile=grad_prof, **pol_checks),
         volume_gradient_steps=volume_steps, geometry_gradient_step=geo, sobol_and_camera_runs=camera_runs,
         scene_camera_runs=scene_runs, cherenkov_runs=cherenkov, single_card_runs=single_card,
         last_slice_runs=last_slice,

@@ -324,13 +324,14 @@ def test_soup_kernels_on_hard_rays(cuda, name):
 def test_kernel_histogram_kernels(cuda, label, args):
     """The kernel histogram's record and backward (``csrc/kernel_histogram.cu``)
     against their plain versions, under ``chip_smoke.hold_kde``'s stated
-    tolerances (the record bit for bit, launched twice)."""
+    tolerances (the record and the backward bit for bit, each launched
+    twice)."""
     from chip_smoke import hold_kde, kde_case
     from theia_tpu_torch.response import kernel_histogram_add, kernel_histogram_grad
 
     before = kernel_histogram_add.launches, kernel_histogram_grad.launches
     hold_kde(kde_case(**args), label)
-    assert (kernel_histogram_add.launches, kernel_histogram_grad.launches) == (before[0] + 2, before[1] + 1)
+    assert (kernel_histogram_add.launches, kernel_histogram_grad.launches) == (before[0] + 2, before[1] + 2)
 
 
 def test_table_read_kernels(cuda):
@@ -356,7 +357,7 @@ def test_gather_rows_kernels(cuda):
     rows, on the brute flagship's ``tri_data`` (the backward in device
     memory) and ``inst_data`` (in shared memory), with winners drawn at
     random (-1 on a miss), and on ragged, unaligned and narrow tables,
-    under ``chip_smoke.check_gather_rows``' stated tolerances."""
+    under ``chip_smoke.check_gather_rows``' checks (bit for bit)."""
     import theia_tpu_torch
     from chip_smoke import BATCH, check_gather_rows
     from theia_tpu_torch.ops.table_read import gather_rows, gather_rows_grad
@@ -382,13 +383,12 @@ READ_CASES = [
 @pytest.mark.parametrize("traffic", ["lanes spread", "every lane at one coordinate", "most lanes dead"])
 @pytest.mark.parametrize("name", READ_CASES)
 def test_table_read_backward_kernel(cuda, name, traffic):
-    """The table reads' backward (``read_tables_grad``: a block's shared
-    copy of the tables' gradients) on each
-    read case of ``chip_smoke.read_cases``, with every lane at one
-    coordinate and with upstream gradients nonzero on
-    ``chip_smoke.READ_LIVE_SHARE`` of the lanes, under
-    ``chip_smoke.hold_read_grad``: d x bit-equal to the plain version, the
-    tables' gradients within 2e-5 of their absolute sums; one launch a
+    """The table reads' backward (the records' fixed order,
+    ``ReadGradSource``) on each read case of ``chip_smoke.read_cases``,
+    with every lane at one coordinate and with upstream gradients nonzero
+    on ``chip_smoke.READ_LIVE_SHARE`` of the lanes, under
+    ``chip_smoke.hold_read_grad``: d x and the tables' gradients bit-equal
+    to the plain twin, two launches the same bits; one launch a
     backward."""
     import theia_tpu_torch
     from chip_smoke import HOT, LIVE, READ_LIVE_SHARE, hold_read_grad, hot_read_case, read_cases
@@ -405,22 +405,23 @@ def test_table_read_backward_kernel(cuda, name, traffic):
     wrapper = table_read.read_packed_grad if c["kernel"] == "read_packed" else table_read.read_table_grad
     before = wrapper.launches
     hold_read_grad(name, c, label, live)
-    assert wrapper.launches == before + 1
+    assert wrapper.launches == before + 2
 
 
 @pytest.mark.parametrize(
     "label", ["every lane kept", "no lane kept", "every lane in one bin", "a detector axis (3), mask 0.5"]
 )
 def test_kernel_histogram_backward_on_kept_lane_cases(cuda, label):
-    """The kernel histogram's backward (lists of kept lanes dealt a round
-    at a time) on ``chip_smoke.kde_cases`` against the plain versions,
-    under ``chip_smoke.hold_kde``'s stated tolerances."""
+    """The kernel histogram's backward (a thread a lane, the scalars in the
+    records' fixed order) on ``chip_smoke.kde_cases`` against the plain
+    versions, under ``chip_smoke.hold_kde``'s stated checks (bit for bit
+    against the twin on the card, two launches the same bits)."""
     from chip_smoke import BATCH, kde_cases, hold_kde
     from theia_tpu_torch.response import kernel_histogram_grad
 
     before = kernel_histogram_grad.launches
     hold_kde(kde_cases(2 * BATCH)[label], label)
-    assert kernel_histogram_grad.launches == before + 1
+    assert kernel_histogram_grad.launches == before + 2
 
 
 #: the scenes of ``chip_smoke.walk_cases`` besides each walk's cell scene

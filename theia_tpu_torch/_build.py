@@ -64,11 +64,11 @@ _SIGNATURES = {
     "theia_histogram_grad": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
     "theia_empty_launch": (_P,),
     "theia_kde_add": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _LL, _P, _P, _P),
-    "theia_kde_grad": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
+    "theia_kde_grad": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _LL, _P, _P),
     "theia_table_read": (_P, _P, _P, _I, _I, _P, _P, _P, _P, _P),
-    "theia_table_read_grad": (_P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P),
+    "theia_table_read_grad": (_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _LL, _P, _P),
     "theia_gather_rows": (_P, _I, _I, _P, _I, _P, _P, _P),
-    "theia_gather_rows_grad": (_P, _P, _P, _I, _I, _I, _P, _P),
+    "theia_gather_rows_grad": (_P, _P, _P, _I, _I, _I, _P, _P, _LL, _P),
     "theia_bvh_nearest": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     "theia_bvh_occluded": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
     "theia_instanced_nearest": (_P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P),

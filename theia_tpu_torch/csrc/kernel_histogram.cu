@@ -22,8 +22,8 @@
 // state, 100 floats, stays on chip). The backward reads the same lanes and
 // the state's gradient, writes two floats a lane and three scalars, and
 // does some 25 operations a bin. What the record's calls on the paths are
-// (card_measure.py kde-builds and chip_smoke.py's kde_call_stats on an
-// NVIDIA H100 80GB HBM3 at 700 W; PERF.md section 6): of a volume gradient
+// (chip_smoke.py's kde_call_stats on an NVIDIA H100 80GB HBM3 at 700 W;
+// PERF.md section 6): of a volume gradient
 // step's 21 calls of 262,144 lanes, 12 keep no lane and the others up to
 // 19 %; of a geometry step's 19 (of 262,144 or 524,288 lanes), seven keep
 // 1.8-43 % over 91-101 base bins and the others at most 0.5 %. So a call
@@ -47,22 +47,23 @@
 // the record's 40 path calls 0.0113 ms a call against this one's 0.0096
 // and expf's 0.0088, card_measure.py record-builds).
 //
-// The backward stages the state's gradient in shared memory once a block
-// (a few hundred floats on the port's paths; read from device memory past
-// kGradStageMaxFloats), writes a lane's two gradients without atomics, and
-// sums the three scalars over the block (warp shuffles, then one warp)
-// into one atomic a block each. A warp that ran each of its lanes' nine
-// bins in the thread that read the lane would run the bin loop whenever one
-// of its lanes was kept, and a tracer keeps a share of its lanes; so a
-// block lists its kept lanes in shared memory and deals them a round of
-// threads at a time (PERF.md section 6 has the measurements), and the three
-// gradient terms divided by h take a reciprocal of h
-// taken once a thread (an ulp apart from the divisions; z itself is still
-// divided, as the record divides it). The arithmetic otherwise repeats the
-// plain versions' float32 ops in their order (built with -fmad=false), with
-// expf for exp; atomics make the order of the scalars' sums change from run
-// to run, so they agree with the plain versions' sequential sums to float32
-// rounding.
+// The backward runs on the same order: a block a tile, a warp a span, each
+// lane's nine bins in its own thread (the state's gradient read through the
+// read-only cache: a few hundred floats on the port's paths), its two
+// gradients written without atomics, and its terms of the three scalars
+// handed to the ordered add as three bins, so d t0, d binSize and d bandwidth
+// are the same bits on every run and equal the plain version's
+// (kernel_histogram_grad_plain, through response.ordered_bin_sums) on the
+// card. Its exp is expf, which torch's exp on the card calls too (the
+// record's kde_exp is an ulp off exp on some inputs, and d time of a lane
+// whose bins' terms cancel then leaves the tests' rtol 1e-5 of JAX's); its
+// divisions by h are IEEE divisions, as the plain version's; every other op
+// repeats the plain version's float32 ops in their order (built with
+// -fmad=false), so the lanes' gradients are bit-equal to it on the card
+// too. Where no scalar takes a gradient one launch writes the lanes' two
+// (ordered::lanes). The earlier design, which dealt a block's kept lanes to its
+// threads from a queue in shared memory and added the scalars with one
+// atomic a block, is gone; PERF.md section 6 has both designs' times.
 
 #include <cuda_runtime.h>
 
@@ -70,7 +71,6 @@
 
 namespace {
 
-constexpr int kSmemPerSm = 227 * 1024;
 // sqrt(2 pi) rounded to float32, as jnp.sqrt(2.0 * jnp.pi) gives it
 constexpr float kSqrt2Pi = 2.5066282749176025f;
 
@@ -222,161 +222,61 @@ struct KdeSource {
   }
 };
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) x += __shfl_xor_sync(0xffffffffu, x, d);
-  return x;
-}
+// The backward's items (csrc/ordered_sum.cuh): each kept lane's terms of d
+// t0 (its - d t), d binSize and d bandwidth as flat bins 0, 1 and 2, where
+// `scalars`; its two gradients written where the accumulator owns the lanes
+// (0 on a dropped lane). The arithmetic is the plain version's, op for op,
+// with expf for its exp (torch's exp on the card).
+struct KdeGradSource {
+  Lanes in;
+  const float* grad_state;
+  float* grad_value;
+  float* grad_time;
+  int scalars;
 
-// the backward: blocks of kGradThreads, kGradBlocksPerSm an SM; a block's
-// list of kept lanes holds two rounds of lanes
-constexpr int kGradThreads = 256;
-constexpr int kGradBlocksPerSm = 4;
-constexpr int kQueue = 2 * kGradThreads;
-
-struct Queue {
-  int lane[kQueue], offset[kQueue];
-  float t[kQueue], base[kQueue], value[kQueue];
-};
-
-// the largest state the backward stages beside its list, in flat bins
-constexpr int kGradStageMaxFloats = (kSmemPerSm - static_cast<int>(sizeof(Queue)) - 1024) / 4;
-
-// A kept lane's bins, in the plain version's order: its two gradients
-// written, its terms of the three scalars added to the thread's sums. The
-// three gradient terms divided by h are taken as products by rh = 1 / h.
-__device__ __forceinline__ void kde_lane(const Lanes& in, const float* g_state, const Params& p, float inv,
-                                         float norm, float rh, int i, float t, float base, float v,
-                                         int offset, float* __restrict__ grad_value,
-                                         float* __restrict__ grad_time, float* sums) {
-  float dv = 0.0f, dt = 0.0f, dbs = 0.0f, dh = 0.0f;
-  for (int o = -in.support; o <= in.support; ++o) {
-    const float bf = base + static_cast<float>(o);
-    if (!in_range(bf, in.n_bins)) continue;
-    const float g = g_state[offset + static_cast<int>(bf)];
-    const float z = z_of(p, bf, t);
-    const float e = expf(-0.5f * (z * z));
-    const float w = e * norm;
-    const float gv = g * v;
-    dv = dv + g * w;
-    dt = dt + gv * w * z * rh;
-    dbs = dbs + gv * (e * inv - w * z * (bf + 0.5f) * rh);
-    dh = dh + gv * w * (z * z - 1.0f) * rh;
-  }
-  if (grad_value != nullptr) grad_value[i] = dv;
-  if (grad_time != nullptr) grad_time[i] = dt;
-  sums[0] += dt, sums[1] += dbs, sums[2] += dh;
-}
-
-// The backward. A block takes kGradThreads lanes a round (the next round's
-// inputs read before this one's work), writes the dropped lanes' zero
-// gradients at once, and appends its kept lanes to a list in shared
-// memory (a ballot a warp, the warps' counts summed in warp order); each
-// time the list holds a round's worth, every thread takes one of them and
-// runs its nine bins, so no thread idles through a bin loop beside a kept
-// neighbour. What is left at the end is dealt once more, to the first
-// threads.
-template <bool kStage>
-__global__ void __launch_bounds__(kGradThreads)
-    kde_grad(Lanes in, const float* __restrict__ grad_state, int n_state,
-             float* __restrict__ grad_value, float* __restrict__ grad_time,
-             float* __restrict__ grad_params) {
-  extern __shared__ float staged[];
-  __shared__ Queue q;
-  __shared__ int counts[kGradThreads / 32];
-  __shared__ float partial[kGradThreads / 32][3];
-  const float* g_state = grad_state;
-  if (kStage) {
-    for (int k = threadIdx.x; k < n_state; k += kGradThreads) staged[k] = grad_state[k];
-    g_state = staged;
-  }
-  const Params p = params(in);
-  const float inv = __fdiv_rn(1.0f, p.h * kSqrt2Pi);
-  const float norm = p.bin_size * inv;
-  const float rh = __fdiv_rn(1.0f, p.h);
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  float sums[3] = {0.0f, 0.0f, 0.0f};
-  int queued = 0;  // the same in every thread of the block
-  const long long step = static_cast<long long>(gridDim.x) * kGradThreads;
-  long long i = static_cast<long long>(blockIdx.x) * kGradThreads + threadIdx.x;
-  LaneIn next = lane_in(in, i);
-  for (; i - threadIdx.x < in.n; i += step) {
-    const LaneIn a = next;
-    next = lane_in(in, i + step);
-    float base = 0.0f;
-    int offset = 0;
-    const bool ok = kept(in, a, p, &base, &offset);
-    if (i < in.n && !ok) {
-      if (grad_value != nullptr) grad_value[i] = 0.0f;
-      if (grad_time != nullptr) grad_time[i] = 0.0f;
-    }
-    const unsigned ballot = __ballot_sync(0xffffffffu, ok);
-    if (lane == 0) counts[warp] = __popc(ballot);
-    __syncthreads();  // also orders the staged state before the first reads
-    int at = queued, added = 0;
-#pragma unroll
-    for (int w = 0; w < kGradThreads / 32; ++w) {
-      at += w < warp ? counts[w] : 0;
-      added += counts[w];
-    }
-    if (ok) {
-      at += __popc(ballot & ((1u << lane) - 1u));
-      q.lane[at] = static_cast<int>(i), q.offset[at] = offset;
-      q.t[at] = a.t, q.base[at] = base, q.value[at] = a.value;
-    }
-    queued += added;
-    __syncthreads();
-    if (queued >= kGradThreads) {
-      const int k = threadIdx.x;
-      kde_lane(in, g_state, p, inv, norm, rh, q.lane[k], q.t[k], q.base[k], q.value[k], q.offset[k],
-               grad_value, grad_time, sums);
-      queued -= kGradThreads;
-      __syncthreads();
-      if (k < queued) {
-        q.lane[k] = q.lane[k + kGradThreads], q.offset[k] = q.offset[k + kGradThreads];
-        q.t[k] = q.t[k + kGradThreads], q.base[k] = q.base[k + kGradThreads];
-        q.value[k] = q.value[k + kGradThreads];
+  template <class Acc>
+  __device__ __forceinline__ void span(long long first, const Acc& acc) const {
+    const int lane = threadIdx.x & 31;
+    const bool owner = acc.owns_lanes();
+    const Params p = params(in);
+    const float inv = __fdiv_rn(1.0f, p.h * kSqrt2Pi);
+    const float norm = p.bin_size * inv;
+#pragma unroll 1
+    for (int r = 0; r < ordered::kRowsPerSpan; ++r) {
+      const long long i = first + 32 * r + lane;
+      float dv = 0.0f, dt = 0.0f, dbs = 0.0f, dh = 0.0f;
+      bool item = false;
+      if (i < in.n) {
+        const LaneIn a = lane_in(in, i);
+        float base = 0.0f;
+        int offset = 0;
+        if (kept(in, a, p, &base, &offset)) {
+          item = true;
+          for (int o = -in.support; o <= in.support; ++o) {
+            const float bf = base + static_cast<float>(o);
+            if (!in_range(bf, in.n_bins)) continue;
+            const float g = __ldg(grad_state + offset + static_cast<int>(bf));
+            const float z = z_of(p, bf, a.t);
+            const float e = expf(-0.5f * (z * z));
+            const float w = e * norm;
+            const float gv = g * a.value;
+            dv = dv + g * w;
+            dt = dt + __fdiv_rn(gv * w * z, p.h);
+            dbs = dbs + gv * (e * inv - __fdiv_rn(w * z * (bf + 0.5f), p.h));
+            dh = dh + __fdiv_rn(gv * w * (z * z - 1.0f), p.h);
+          }
+        }
+        if (owner && grad_value != nullptr) grad_value[i] = dv;
+        if (owner && grad_time != nullptr) grad_time[i] = dt;
       }
-      __syncthreads();
-    }
-  }
-  if (threadIdx.x < queued) {
-    const int k = threadIdx.x;
-    kde_lane(in, g_state, p, inv, norm, rh, q.lane[k], q.t[k], q.base[k], q.value[k], q.offset[k],
-             grad_value, grad_time, sums);
-  }
-  if (grad_params == nullptr) return;
-  // every thread of the block arrives here
-  sums[0] = warp_sum(sums[0]), sums[1] = warp_sum(sums[1]), sums[2] = warp_sum(sums[2]);
-  if (lane == 0) {
-    partial[warp][0] = sums[0], partial[warp][1] = sums[1], partial[warp][2] = sums[2];
-  }
-  __syncthreads();
-  if (warp == 0) {
-    float s[3];
+      if (!scalars) continue;
+      // d t0 = - sum of d t: each lane's term negated (exact), then summed
+      const float terms[3] = {-dt, dbs, dh};
 #pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      s[k] = warp_sum(lane < kGradThreads / 32 ? partial[lane][k] : 0.0f);
-    }
-    if (lane == 0) {
-      atomicAdd(grad_params + 0, -s[0]);  // d t0 = - sum of d t
-      atomicAdd(grad_params + 1, s[1]);
-      atomicAdd(grad_params + 2, s[2]);
+      for (int b = 0; b < 3; ++b) ordered::add_in_lane_order(acc, item && terms[b] != 0.0f ? b : -1, terms[b]);
     }
   }
-}
-
-int grid_size(int n, int threads, int per_sm, cudaError_t* err) {
-  int device = 0, sms = 0;
-  *err = cudaGetDevice(&device);
-  if (*err == cudaSuccess) {
-    *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  }
-  if (*err != cudaSuccess) return 0;
-  const long long want = (static_cast<long long>(n) + threads - 1) / threads;
-  const long long most = static_cast<long long>(sms) * per_sm;
-  return static_cast<int>(want < most ? want : most);
-}
+};
 
 }  // namespace
 
@@ -397,34 +297,20 @@ extern "C" int theia_kde_add(const float* value, const float* time,
                                           table_floats, counters, state, stream));
 }
 
+// the backward: grad_params (3 floats at 0) gets d t0, d binSize and d
+// bandwidth where not null, table and counters as theia_kde_add's
 extern "C" int theia_kde_grad(const float* grad_state, const float* value,
                               const float* time, const unsigned char* mask,
                               const int* object_id, const float* t0,
                               const float* bin_size, const float* bandwidth,
                               int n, int n_bins, int n_det, int support,
                               float* grad_value, float* grad_time,
-                              float* grad_params, cudaStream_t stream) {
-  if (n <= 0) return static_cast<int>(cudaGetLastError());
+                              float* grad_params, float* table,
+                              long long table_floats,
+                              unsigned long long* counters, cudaStream_t stream) {
   const Lanes in{value, time, mask, object_id, t0, bin_size, bandwidth,
                  n, n_bins, n_det, support};
-  const long long n_state = in.state_size();
-  cudaError_t err = cudaSuccess;
-  if (n_state <= kGradStageMaxFloats) {
-    const int bytes = static_cast<int>(n_state * sizeof(float));
-    if (bytes + static_cast<int>(sizeof(Queue)) > 48 * 1024) {
-      err = cudaFuncSetAttribute(kde_grad<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    const int fit = kSmemPerSm / (bytes + static_cast<int>(sizeof(Queue)) + 1024);
-    const int grid = grid_size(n, kGradThreads, fit < kGradBlocksPerSm ? (fit < 1 ? 1 : fit) : kGradBlocksPerSm, &err);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kde_grad<true><<<grid, kGradThreads, bytes, stream>>>(
-        in, grad_state, static_cast<int>(n_state), grad_value, grad_time, grad_params);
-  } else {
-    const int grid = grid_size(n, kGradThreads, kGradBlocksPerSm, &err);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kde_grad<false><<<grid, kGradThreads, 0, stream>>>(
-        in, grad_state, static_cast<int>(n_state), grad_value, grad_time, grad_params);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const KdeGradSource src{in, grad_state, grad_value, grad_time, grad_params != nullptr};
+  if (grad_params == nullptr) return static_cast<int>(ordered::lanes(src, n, stream));
+  return static_cast<int>(ordered::record(src, n, 3, 3, table, table_floats, counters, grad_params, stream));
 }

@@ -2,9 +2,13 @@
 // add their items into a state, and the two passes that keep it.
 //
 // An item is a (lane, flat bin, value) of a record: one a kept lane in the
-// histogram, up to 2 * support + 1 in the kernel histogram. Float adds do not
-// associate, so a record that adds with atomics in the order its blocks
-// arrive gives other bits on every run. Here a bin's sum is a fixed function
+// histogram, up to 2 * support + 1 in the kernel histogram. The backward
+// kernels take the same order for their sums: the table reads' backward
+// (csrc/table_read.cu; items a lane's two shares of each table), the kernel
+// histogram's (its three scalars as three bins) and the row gathers'
+// backward (a tile pass of its own in csrc/table_read.cu, the same order).
+// Float adds do not associate, so a sum that adds with atomics in the order
+// its blocks arrive gives other bits on every run. Here a bin's sum is a fixed function
 // of the lanes' indices, the lane count n and the state's size:
 //
 //   1. a warp's span of kSpanLanes = 128 lanes (4 rows of 32): the span's
@@ -58,8 +62,8 @@
 //
 // What the dense pass costs against float atomics (PERF.md section 6 has
 // the times): the table, written and read once (tiles x bins floats: 256 x
-// 100 on a flagship record), the last blocks' sums (eight rows' loads in
-// flight a thread), and a match and its rounds a row of a warp. Every
+// 100 on a flagship record), the last blocks' sums (16 loads in flight a
+// thread, sum_rows), and a match and its rounds a row of a warp. Every
 // launch is a programmatic dependent (launch.cuh): its blocks wait for the
 // kernel before it at their first device-memory access rather than behind
 // a launch.
@@ -68,6 +72,8 @@
 
 #include <cuda/atomic>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "launch.cuh"
 
@@ -117,6 +123,10 @@ __device__ __forceinline__ int in_range(int flat, int lo, int width) {
 // slot(at, peers), the index into vals (-1 for none); every lane of the
 // warp calls slot.
 //
+// A source whose lanes also have outputs of their own (a backward's
+// gradient of each lane's inputs) writes them where owns_lanes() is true:
+// in one block of each tile.
+//
 // Row: the dense pass's row of the range [lo, lo + width).
 struct Row {
   float* vals;
@@ -124,6 +134,7 @@ struct Row {
 
   __device__ __forceinline__ int local(int flat) const { return in_range(flat, lo, width); }
   __device__ __forceinline__ int slot(int at, unsigned) const { return at; }
+  __device__ __forceinline__ bool owns_lanes() const { return lo == 0; }
 };
 
 constexpr int kEmpty = -1;
@@ -158,6 +169,16 @@ struct Table {
     if (at >= 0 && (threadIdx.x & 31) == leader) s = probe(keys, cap, at);
     return __shfl_sync(kAll, s, leader);
   }
+  __device__ __forceinline__ bool owns_lanes() const { return true; }
+};
+
+// Nothing: no sums, for a source run for its lanes' own outputs alone
+struct Nothing {
+  float* vals;
+
+  __device__ __forceinline__ int local(int) const { return -1; }
+  __device__ __forceinline__ int slot(int, unsigned) const { return -1; }
+  __device__ __forceinline__ bool owns_lanes() const { return true; }
 };
 
 // add_ranked for lanes whose peers are found by their local bin; every
@@ -199,23 +220,74 @@ __device__ __forceinline__ void reset(unsigned long long& counter) {
   cuda::atomic_ref<unsigned long long, cuda::thread_scope_device>(counter).store(0ull, cuda::memory_order_relaxed);
 }
 
-// one bin's sum of `rows` rows of a table of row stride `stride`, added in
-// row order from +0.0; sixteen rows' loads in flight at once (only the adds
-// wait on one another)
-__device__ __forceinline__ float sum_rows(const float* col, int rows, size_t stride) {
-  constexpr int kAhead = 16;
-  float s = 0.0f;
-  int r = 0;
-  for (; r + kAhead <= rows; r += kAhead) {
-    float v[kAhead];
+// The sums of a block's bins k < bins of `rows` rows of a table of row
+// stride `stride` (a column a bin, from `col`), each added in row order from
+// +0.0, rows whose bit of `mask` is clear left out (mask: rows up to 32;
+// every row where `all`): kBins bins a thread at once, kRows rows of each a
+// round (a row left out, or past the end, adds +0.0, which changes no sum's
+// bits). out(k, sum) takes each bin's sum.
+template <int kBins, int kRows, class Out>
+__device__ __forceinline__ void sum_rows_by(const float* col, int rows, size_t stride, unsigned mask, bool all,
+                                            int bins, Out out) {
+  for (int k0 = threadIdx.x; k0 < bins; k0 += kBins * kThreads) {
+    float s[kBins];
 #pragma unroll
-    for (int u = 0; u < kAhead; ++u) v[u] = __ldcg(col + (r + u) * stride);
+    for (int u = 0; u < kBins; ++u) s[u] = 0.0f;
+    for (int r0 = 0; r0 < rows; r0 += kRows) {
+      float v[kBins][kRows];
 #pragma unroll
-    for (int u = 0; u < kAhead; ++u) s += v[u];
+      for (int u = 0; u < kBins; ++u) {
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          const int k = k0 + u * kThreads, row = r0 + r;
+          const bool kept = k < bins && row < rows && (all || ((mask >> row) & 1u));
+          v[u][r] = kept ? __ldcg(col + row * stride + k) : 0.0f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kBins; ++u) {
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) s[u] += v[u][r];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBins; ++u) {
+      if (k0 + u * kThreads < bins) out(k0 + u * kThreads, s[u]);
+    }
   }
-  for (; r < rows; ++r) s += __ldcg(col + r * stride);
-  return s;
 }
+
+// ... a bin a thread with 16 rows a round where the block's threads cover
+// the bins, else four bins a thread with 4 rows a round: a state of a
+// thousand bins or more gave each thread several bins whose rounds of
+// loads ran one after another (16 loads in flight: 32 raised the records'
+// kernels to 128 registers)
+template <class Out>
+__device__ __forceinline__ void sum_rows(const float* col, int rows, size_t stride, unsigned mask, bool all, int bins,
+                                         Out out) {
+  if (bins <= kThreads) {
+    sum_rows_by<1, 16>(col, rows, stride, mask, all, bins, out);
+  } else {
+    sum_rows_by<4, 4>(col, rows, stride, mask, all, bins, out);
+  }
+}
+
+// The dense pass's blocks an SM the compiler keeps registers for (at most
+// 51 a thread): the last blocks' sums need more registers than a tile's
+// work, and without the bound they took the records' kernels from 40-48
+// registers to 72-128 and slowed every record. A source whose own work
+// needs more (the table reads' backward spilled under it, and its calls
+// ran 5-10 % slower) names its own bound, kTileBlocks.
+constexpr int kTileBlocks = 5;
+
+template <class Source, class = void>
+struct TileBlocks {
+  static constexpr int value = kTileBlocks;
+};
+template <class Source>
+struct TileBlocks<Source, std::void_t<decltype(Source::kTileBlocks)>> {
+  static constexpr int value = Source::kTileBlocks;
+};
 
 // The dense pass: one record in one launch over (tile, range) blocks.
 // Source::span(first, acc) adds the items of the span of lanes first ..
@@ -228,7 +300,7 @@ __device__ __forceinline__ float sum_rows(const float* col, int rows, size_t str
 // order into the state. range0: the batch's first range; width: the
 // batch's bins.
 template <class Source>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, TileBlocks<Source>::value)
     record_tiles(Source src, int n_state, int range0, int width, int tiles, int group, Scratch scratch,
                  float* __restrict__ state) {
   extern __shared__ float rows[];
@@ -243,9 +315,11 @@ __global__ void __launch_bounds__(kThreads)
   pdl::wait_for_previous();
   src.span(static_cast<long long>(blockIdx.x) * kTileLanes + warp * kSpanLanes, Row{row, lo, bins});
   __syncthreads();
-  // the tile's sums: the spans in order
+  // the tile's sums: the spans in order; a group of one tile (a record of
+  // up to kGroups tiles) writes them as its group's sums (+0.0 plus a sum,
+  // which is never -0.0, is that sum)
   bool nonzero = false;
-  float* out = scratch.tiles + static_cast<size_t>(blockIdx.x) * width + col;
+  float* out = (group == 1 ? scratch.groups : scratch.tiles) + static_cast<size_t>(blockIdx.x) * width + col;
   for (int k = threadIdx.x; k < bins; k += kThreads) {
     float x = 0.0f;
 #pragma unroll
@@ -270,10 +344,10 @@ __global__ void __launch_bounds__(kThreads)
   // the group's last block: its tiles' sums in order, where one was not 0
   const bool written = seen != 0;
   if (threadIdx.x == 0) reset(count[g]);
-  if (written) {
-    const float* in = scratch.tiles + static_cast<size_t>(first) * width + col;
+  if (written && group > 1) {
     float* sums = scratch.groups + static_cast<size_t>(g) * width + col;
-    for (int k = threadIdx.x; k < bins; k += kThreads) sums[k] = sum_rows(in + k, in_group, width);
+    sum_rows(scratch.tiles + static_cast<size_t>(first) * width + col, in_group, width, 0u, true, bins,
+             [&](int k, float x) { sums[k] = x; });
   }
   __syncthreads();
   if (threadIdx.x == 0) {
@@ -288,14 +362,9 @@ __global__ void __launch_bounds__(kThreads)
   const unsigned mask = static_cast<unsigned>(seen);
   if (threadIdx.x == 0) reset(count[kGroups]);
   if (mask == 0u) return;
-  for (int k = threadIdx.x; k < bins; k += kThreads) {
-    float total = 0.0f;
-#pragma unroll
-    for (int h = 0; h < kGroups; ++h) {
-      if ((mask >> h) & 1u) total += __ldcg(scratch.groups + static_cast<size_t>(h) * width + col + k);
-    }
+  sum_rows(scratch.groups + col, kGroups, width, mask, false, bins, [&](int k, float total) {
     if (total != 0.0f) state[lo + k] += total;  // a NaN sum is added too
-  }
+  });
 }
 
 // The sparse pass's scratch: each tile's list (bins and sums, list_cap
@@ -544,6 +613,19 @@ cudaError_t record_sparse(const Source& src, int tiles, int slots, int n_state, 
   err = pdl::launch(sparse_state, dim3((n_state + kThreads - 1) / kThreads), dim3(kThreads), 0, stream,
                     static_cast<const float*>(lists.groups), z.groups, n_state, state);
   if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// A source's lanes alone (no sums): a block a tile, a warp a span.
+template <class Source>
+__global__ void __launch_bounds__(kThreads) lanes_only(Source src) {
+  src.span(static_cast<long long>(blockIdx.x) * kTileLanes + (threadIdx.x >> 5) * kSpanLanes, Nothing{nullptr});
+}
+
+template <class Source>
+cudaError_t lanes(const Source& src, int n, cudaStream_t stream) {
+  if (n <= 0) return cudaGetLastError();
+  lanes_only<Source><<<(n + kTileLanes - 1) / kTileLanes, kThreads, 0, stream>>>(src);
   return cudaGetLastError();
 }
 

@@ -55,17 +55,24 @@
 // stride (a column of the RNG's draws needs no copy) and writes table
 // k's values to an output row of its own. The
 // read's constants (pointers, widths, nulls, the form) travel as one Spec
-// by value, built once a table set by the wrapper. The backward kernel
-// keeps a copy of every table's gradient in each block's shared memory
-// (zeroed at every launch), adds each lane's share there, and then adds
-// each entry that is not zero to its table's gradient with one global
-// atomic; table sets above kSharedMaxFloats (what a block can opt into of
-// the SM's 227 KB) take the same kernel with the adds going straight to the
-// outputs. Few blocks (at most two an SM) take many lanes each, so that a
-// block's flush is small against its lanes' adds. The input's gradient is
-// written a lane, without atomics, and is bit-equal to the plain version's;
-// the tables' sums land in an order that changes from run to run, so they
-// agree with the plain version's sequential sums to float32 rounding.
+// by value, built once a table set by the wrapper. The backward adds with
+// no float atomics: every table entry's sum over the lanes is a fixed
+// function of the lanes' indices, their count and the tables' size, the
+// order of the records (csrc/ordered_sum.cuh: a warp's span of 128 lanes in
+// lane order, a tile's 8 spans, 32 groups of tiles, the groups), with a
+// lane's two shares of each table as its items. So two launches give the
+// same bits, and the plain version (the same items through
+// response.ordered_bin_sums) equals the kernel bit for bit; a gradient step
+// repeats. The records' two passes choose themselves: the dense one up to
+// 2^19 tiles x entries (the volume step's 1024-sample table), the sparse one
+// past it (the constants tables' four kinds). Shares of 0 add nothing (a
+// tile, span or row without a live lane skips its adds; +-0.0 changes no
+// sum's bits), and where no table takes a gradient one launch writes the
+// input's gradient alone (ordered::lanes). The input's gradient is written
+// a lane, and is bit-equal to the plain version's. The atomic design this
+// replaces (a copy of the tables in each block's shared memory, flushed
+// with an atomic an entry) has its times beside this one's in PERF.md
+// section 6.
 //
 // The row gather is a copy: bytes bound it, 4 bytes a lane's index and 4
 // a used column written (read back and added in the backward), against a
@@ -80,17 +87,16 @@
 // contiguous run of its output, four elements a thread over all spans'
 // runs (the element's row from a float reciprocal: 32-bit arithmetic, no
 // division), and starts the next tile's loads, with its indices a tile
-// earlier still, before those writes. The backward reads the spans'
-// gradients of the next tile (128 rows) into registers before it adds
-// this one's, takes a row's four columns a thread, skips the ones that are
-// all zero (missed lanes, uncovered columns), merges a warp's lanes of one
-// row (__match_any_sync, a shuffle sum) and adds four floats an atomic
-// (atomicAdd on float4, red.global.add.v4.f32); tables that fit beside the
-// tile (inst_data) are summed in a thread's registers and a block's shared
-// copy first. Rows of another width, or tables not 16-byte aligned, take
-// an element a thread.
+// earlier still, before those writes. Rows of another width, or tables not
+// 16-byte aligned, take an element a thread. The backward (the gathers'
+// section below) sums each (row, column) in the records' order as well: a
+// tile of 1024 lanes sorts its live lanes by row in shared memory and sums
+// each row's lanes a column a thread, then a block a range of rows adds the
+// tiles' sums in order; any width, two launches, no atomics.
 
 #include <cuda_runtime.h>
+
+#include "ordered_sum.cuh"
 
 // A read's constants, field for field ops/table_read.py _Spec; outside the
 // unnamed namespace, so that the C entry points that take it keep external
@@ -127,12 +133,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kBlocksPerSm = 8;
-constexpr int kGradThreads = 512;
-constexpr int kGradBlocksPerSm = 2;
-constexpr int kSmemPerSm = 227 * 1024;
-// the largest table gradient that a block sums in shared memory, in floats;
-// equals ops/table_read.py SHARED_TABLE_MAX
-constexpr int kSharedMaxFloats = (kSmemPerSm - 1024) / 4;
 // the most tables a read takes; equals ops/table_read.py MAX_TABLES
 constexpr int kMaxTables = 4;
 // the coordinate's forms; equal ops/table_read.py T, AFFINE, WAVELENGTH
@@ -155,10 +155,6 @@ __device__ __forceinline__ float clip_grad(float x) {
 __device__ __forceinline__ int row_of(float f, int n) {
   if (!(f >= 0.0f)) return 0;
   return f < static_cast<float>(n - 1) ? static_cast<int>(f) : n - 1;
-}
-
-__device__ __forceinline__ void add(float* acc, long long k, float v) {
-  if (v != 0.0f) atomicAdd(acc + k, v);
 }
 
 // A lane's coordinate: r as formed from x, before any clip; span the
@@ -288,87 +284,93 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// The backward: x strided, grad_out one row a table (a null row is a zero
-// gradient); table k's gradient goes to grads[k] (may be null), at
-// offset[k] of the block's shared copy with kShared; grad_x may be null.
-struct Grads {
-  float* table[kMaxTables];
-  long long offset[kMaxTables];
-};
+// The backward's items (csrc/ordered_sum.cuh): a lane's two shares of each
+// table, (flat entry, value), in slots 2 k and 2 k + 1 (the lower entry, then
+// the upper), flat entries laid end to end over the K tables from
+// offset[k]; a table that takes no gradient (offset -1) and a share of 0
+// give no item. The lane's gradient of x is written where the accumulator
+// owns the lanes. The arithmetic is the plain version's, op for op.
+struct ReadGradSource {
+  // the dense pass's bound: none beyond its 256 threads (csrc/ordered_sum.cuh)
+  static constexpr int kTileBlocks = 1;
+  Spec s;
+  const int* handle;
+  const float* x;
+  int x_stride, count;
+  ConstRows grad_out;
+  int offset[kMaxTables];
+  float* grad_x;
 
-template <bool kShared>
-__global__ void __launch_bounds__(kGradThreads)
-    read_tables_grad(Spec s, const int* __restrict__ handle, const float* __restrict__ x,
-                     int x_stride, ConstRows grad_out, int count, Grads grads,
-                     long long total, float* __restrict__ grad_x) {
-  extern __shared__ float sums[];
-  if (kShared) {
-    for (long long k = threadIdx.x; k < total; k += kGradThreads) sums[k] = 0.0f;
-    __syncthreads();
-  }
-  const int stride = gridDim.x * kGradThreads;
-  for (int i = blockIdx.x * kGradThreads + threadIdx.x; i < count; i += stride) {
-    const int h = s.packed ? handle[i] : 0;
-    const Coordinate c = coordinate(s, h, x[static_cast<long long>(i) * x_stride]);
-    const float t = clip01(c.r);
-    const float cg = clip_grad(clipped_input(s, c));
-    int n = 0, pad = 0;
-    if (s.packed && s.shared) shared_extent(s, h, &n, &pad);
-    // shared: the tables' products summed, then scaled once; otherwise each
-    // table's d t, summed in order
-    float du = 0.0f;
+  template <class Acc>
+  __device__ __forceinline__ void span(long long first, const Acc& acc) const {
+    constexpr int kSlots = 2 * kMaxTables;
+    const bool owner = acc.owns_lanes() && grad_x != nullptr;
+    const int lane = threadIdx.x & 31;
+#pragma unroll 1
+    for (int r = 0; r < ordered::kRowsPerSpan; ++r) {
+      const long long i = first + 32 * r + lane;
+      int flat[kSlots];
+      float v[kSlots];
 #pragma unroll
-    for (int k = 0; k < kMaxTables; ++k) {
-      if (k >= s.tables) break;
-      const float go = grad_out.p[k] == nullptr ? 0.0f : grad_out.p[k][i];
-      float* acc = grads.table[k] == nullptr
-                       ? nullptr
-                       : (kShared ? sums + grads.offset[k] : grads.table[k]);
-      if (!s.packed) {
-        if (s.len[k] == 0) continue;
-        const Single a(s.len[k], t);
-        if (acc != nullptr) {
-          add(acc, a.lo, go * (1.0f - a.l));
-          add(acc, a.hi, go * a.l);
+      for (int q = 0; q < kSlots; ++q) flat[q] = -1, v[q] = 0.0f;
+      if (i < count) {
+        const int h = s.packed ? handle[i] : 0;
+        const Coordinate c = coordinate(s, h, x[i * x_stride]);
+        const float t = clip01(c.r);
+        const float cg = clip_grad(clipped_input(s, c));
+        int n = 0, pad = 0;
+        if (s.packed && s.shared) shared_extent(s, h, &n, &pad);
+        // shared: the tables' products summed, then scaled once; otherwise
+        // each table's d t, summed in order
+        float du = 0.0f;
+#pragma unroll
+        for (int k = 0; k < kMaxTables; ++k) {
+          if (k >= s.tables) break;
+          const float go = grad_out.p[k] == nullptr ? 0.0f : grad_out.p[k][i];
+          const int at = offset[k];
+          if (!s.packed) {
+            if (s.len[k] == 0) continue;
+            const Single a(s.len[k], t);
+            v[2 * k] = go * (1.0f - a.l);
+            v[2 * k + 1] = go * a.l;
+            flat[2 * k] = at + a.lo;
+            flat[2 * k + 1] = at + a.hi;
+            const float p = go * __ldg(s.values[k] + a.hi) - go * __ldg(s.values[k] + a.lo);
+            du = du + p * a.nm1 * cg;
+            continue;
+          }
+          const int nk = __ldg(s.sizes[k] + h);
+          const Cell a(s.shared ? n : nk, s.shared ? pad : s.len[k], t);
+          const float g = a.n == 0 ? 0.0f : go;
+          const bool last = a.j == a.pad - 1;
+          if (a.n != 0 && nk != 0) {
+            const int base = at + h * s.len[k];
+            if (a.j < s.len[k]) flat[2 * k] = base + a.j, v[2 * k] = last ? g : g - g * a.l;
+            if (!last && a.j + 1 < s.len[k]) flat[2 * k + 1] = base + a.j + 1, v[2 * k + 1] = g * a.l;
+          }
+          const float v0 = column(s, k, h, nk, a.j);
+          const float slope = a.j < a.pad - 1 ? column(s, k, h, nk, a.j + 1) - v0 : 0.0f;
+          const float p = g * slope;
+          du = s.shared ? du + p : du + p * a.scale * cg;
         }
-        const float p = go * __ldg(s.values[k] + a.hi) - go * __ldg(s.values[k] + a.lo);
-        du = du + p * a.nm1 * cg;
-        continue;
-      }
-      const int nk = __ldg(s.sizes[k] + h);
-      const Cell a(s.shared ? n : nk, s.shared ? pad : s.len[k], t);
-      const float g = a.n == 0 ? 0.0f : go;
-      const bool last = a.j == a.pad - 1;
-      if (acc != nullptr && a.n != 0 && nk != 0) {
-        const long long base = static_cast<long long>(h) * s.len[k];
-        if (a.j < s.len[k]) add(acc, base + a.j, last ? g : g - g * a.l);
-        if (!last && a.j + 1 < s.len[k]) add(acc, base + a.j + 1, g * a.l);
-      }
-      const float v0 = column(s, k, h, nk, a.j);
-      const float slope = a.j < a.pad - 1 ? column(s, k, h, nk, a.j + 1) - v0 : 0.0f;
-      const float p = g * slope;
-      du = s.shared ? du + p : du + p * a.scale * cg;
-    }
-    if (s.packed && s.shared) {
-      const Cell a(n, pad, t);
-      du = du * a.scale * cg;
-    }
-    if (grad_x != nullptr) grad_x[i] = chain(s, c, du);
-  }
-  if (kShared) {
-    // every thread arrives here: the loop has no return
-    __syncthreads();
+        if (s.packed && s.shared) {
+          const Cell a(n, pad, t);
+          du = du * a.scale * cg;
+        }
+        if (owner) grad_x[i] = chain(s, c, du);
 #pragma unroll
-    for (int k = 0; k < kMaxTables; ++k) {
-      if (k >= s.tables || grads.table[k] == nullptr) continue;
-      const long long size = (k + 1 < s.tables ? grads.offset[k + 1] : total) - grads.offset[k];
-      for (long long e = threadIdx.x; e < size; e += kGradThreads) {
-        const float v = sums[grads.offset[k] + e];
-        if (v != 0.0f) atomicAdd(grads.table[k] + e, v);
+        for (int q = 0; q < kSlots; ++q) {
+          // a table without a gradient, and a share of 0 (adding +-0.0 changes no sum's bits)
+          if (offset[q / 2] < 0 || v[q] == 0.0f) flat[q] = -1;
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kSlots; ++q) {
+        if (q < 2 * s.tables) ordered::add_in_lane_order(acc, flat[q], v[q]);
       }
     }
   }
-}
+};
 
 // ---- whole rows of a table and their spans (the hit reconstruction's
 // tri_data and inst_data rows) ----
@@ -382,23 +384,15 @@ constexpr int kRowWidth = 32;
 constexpr int kLanesPerRow = kRowWidth / 4;
 constexpr int kGatherThreads = 256;
 constexpr int kRowsPerPass = kGatherThreads / kLanesPerRow;
-constexpr int kWarpRows = 32 / kLanesPerRow;  // a warp's rows: slots 0-3
 // a staged row's stride: odd, so that a warp's 8 threads of each of its 4
 // rows write 32 distinct banks
 constexpr int kTileStride = kRowWidth + 1;
-// the passes of 32 rows a tile: the forward's 64 rows keep a block's loads
-// and writes balanced; the backward, whose loads are its upstream
-// gradients, reads 128 rows ahead
+// the passes of 32 rows a tile: 64 rows keep a block's loads and writes
+// balanced
 constexpr int kPasses = 2;
-constexpr int kGradPasses = 4;
-// the grids: a forward block takes kForwardTiles tiles (reading one ahead),
-// a backward block on device memory one, and the hardware overlaps the
-// blocks (theia_tpu_torch.tools.card_measure gather-builds times both
-// against a loop over tiles in 8 blocks an SM, 2048 threads); a backward
-// block with the table in shared memory loops over its tiles, so that its
-// copy is added to the gradient once for many tiles
+// the grid: a block takes kForwardTiles tiles (reading one ahead), and the
+// hardware overlaps the blocks
 constexpr int kForwardTiles = 4;
-constexpr int kGatherBlocksPerSm = 8;
 constexpr int kMostBlocksPerSm = 64;
 
 template <int kP>
@@ -410,9 +404,6 @@ struct Tile {
   // so is a run's offset in its output; the most such groups a thread takes
   static constexpr int kGroups = kRows * kRowWidth / 4 / kGatherThreads;
 };
-// the table rows whose gradient a thread sums in registers on the shared
-// path (inst_data has one a scene instance: 3 on the flagship)
-constexpr int kRegRows = 4;
 
 // a span as the kernels take it: its output (forward) or upstream gradient
 // (backward; null where it takes none), its first column, width, kind
@@ -426,7 +417,6 @@ struct Spans {
   int count;
   int columns;  // the spans' widths summed
   int vector;  // every span's pointer 16-byte aligned: full tiles move float4s
-  unsigned covered;  // backward, 32-float rows: bit c where column c takes a gradient
 };
 
 // e / width for 0 <= e < 128 * kRowWidth (a tile's elements) and width <=
@@ -434,38 +424,6 @@ struct Spans {
 // the two roundings below move it by less than 4096.5 * 2^-23
 __device__ __forceinline__ int row_in_tile(int e, float rcp) {
   return __float2int_rz((static_cast<float>(e) + 0.5f) * rcp);
-}
-
-__device__ __forceinline__ bool nonzero(float4 v) {
-  return v.x != 0.0f || v.y != 0.0f || v.z != 0.0f || v.w != 0.0f;
-}
-
-__device__ __forceinline__ float4 plus(float4 a, float4 b) {
-  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
-}
-
-__device__ __forceinline__ float4 shfl4(float4 v, int src) {
-  return make_float4(__shfl_sync(0xffffffffu, v.x, src), __shfl_sync(0xffffffffu, v.y, src),
-                     __shfl_sync(0xffffffffu, v.z, src), __shfl_sync(0xffffffffu, v.w, src));
-}
-
-__device__ __forceinline__ float4 shfl4_xor(float4 v, int mask) {
-  return make_float4(__shfl_xor_sync(0xffffffffu, v.x, mask), __shfl_xor_sync(0xffffffffu, v.y, mask),
-                     __shfl_xor_sync(0xffffffffu, v.z, mask), __shfl_xor_sync(0xffffffffu, v.w, mask));
-}
-
-// four floats added to a 16-byte aligned address of device memory in one
-// operation (sm_90's red.global.add.v4.f32)
-__device__ __forceinline__ void add4(float* p, float4 v) {
-  atomicAdd(reinterpret_cast<float4*>(p), v);
-}
-
-// each of four floats that is not zero added to shared memory
-__device__ __forceinline__ void add4_shared(float* p, float4 v) {
-  if (v.x != 0.0f) atomicAdd(p, v.x);
-  if (v.y != 0.0f) atomicAdd(p + 1, v.y);
-  if (v.z != 0.0f) atomicAdd(p + 2, v.z);
-  if (v.w != 0.0f) atomicAdd(p + 3, v.w);
 }
 
 // The indices of the tile at `base`, read once a row by its first thread
@@ -600,151 +558,6 @@ __global__ void __launch_bounds__(kGatherThreads)
   }
 }
 
-// The backward's read of a full tile's gradients at `base`: this thread's
-// groups of four elements of the spans' runs, into registers
-template <class T>
-__device__ __forceinline__ void read_groups(const Spans& s, int base, float4 (&g)[T::kGroups]) {
-  Runs runs(s, T::kRows);
-#pragma unroll
-  for (int i = 0; i < T::kGroups; ++i) {
-    const int E = 4 * (threadIdx.x + i * kGatherThreads);
-    if (E < T::kRows * s.columns) {
-      const int e = runs.at(s, T::kRows, E);
-      const Span& sp = s.s[runs.k];
-      g[i] = __ldg(reinterpret_cast<const float4*>(static_cast<const float*>(sp.p) + base * sp.width + e));
-    }
-  }
-}
-
-// ... and their places in the tile
-template <class T>
-__device__ __forceinline__ void stage_groups(const Spans& s, const float4 (&g)[T::kGroups], float* tile) {
-  Runs runs(s, T::kRows);
-#pragma unroll
-  for (int i = 0; i < T::kGroups; ++i) {
-    const int E = 4 * (threadIdx.x + i * kGatherThreads);
-    if (E < T::kRows * s.columns) {
-      const int e = runs.at(s, T::kRows, E);
-      int at[4];
-      tile_places(s.s[runs.k], e, at);
-      tile[at[0]] = g[i].x;
-      tile[at[1]] = g[i].y;
-      tile[at[2]] = g[i].z;
-      tile[at[3]] = g[i].w;
-    }
-  }
-}
-
-// Its backward: the table's gradient from the spans' gradients alone (the
-// spans here are those that take one). A block stages the spans'
-// gradients of a tile into their columns of the tile's rows, over all
-// spans' runs four elements a thread (one a thread on a ragged last tile),
-// the next full tile's read into registers, and its indices, started
-// before this tile's adds. 8 threads a row then take a float4 each, and a thread
-// whose four are all zero (a missed lane, a column no span covers) adds
-// nothing. Without kShared a warp first merges its lanes of one row
-// (__match_any_sync on the row, a sum over the match in slot order), then
-// adds four floats an atomic. With kShared (a table that fits beside the
-// tile) a thread sums its lanes of the first kRegRows rows in registers
-// and adds the others to the block's copy of the table; the four slots of
-// a warp merge their registers, and the block adds its copy to the
-// gradient at the end, four floats an atomic.
-template <bool kShared>
-__global__ void __launch_bounds__(kGatherThreads)
-    gather_rows32_grad(const __grid_constant__ Spans s, const int* __restrict__ index, int count,
-                       float* __restrict__ grad_table, int table_rows) {
-  using T = Tile<kGradPasses>;
-  extern __shared__ float4 smem4[];
-  float* tile = reinterpret_cast<float*>(smem4);
-  float* sums = tile + T::kFloats;  // kShared: the block's copy of the gradient
-  const int sub = threadIdx.x % kLanesPerRow, slot = threadIdx.x / kLanesPerRow;
-  const int lane = threadIdx.x % 32;
-  const int step = gridDim.x * T::kRows;
-  const unsigned mine = (s.covered >> (sub * 4)) & 0xFu;
-  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  float4 acc[kRegRows];
-#pragma unroll
-  for (int q = 0; q < kRegRows; ++q) acc[q] = zero;
-  if (kShared) {
-    // ordered before the first add by the loop's first __syncthreads
-    for (int e = threadIdx.x; e < table_rows * kRowWidth; e += kGatherThreads) sums[e] = 0.0f;
-  }
-  int base = blockIdx.x * T::kRows;
-  int row[kGradPasses];
-  float4 ahead[T::kGroups];
-  read_index(index, base, count, sub, slot, row);
-  if (count - base >= T::kRows && s.vector) read_groups<T>(s, base, ahead);
-  for (; base < count; base += step) {
-    const int rows = min(T::kRows, count - base);
-    if (rows == T::kRows && s.vector) {
-      stage_groups<T>(s, ahead, tile);
-    } else {
-      Runs runs(s, rows);
-      for (int E = threadIdx.x; E < rows * s.columns; E += kGatherThreads) {
-        const int e = runs.at(s, rows, E);
-        const Span& sp = s.s[runs.k];
-        tile[tile_place(sp, e)] = __ldg(static_cast<const float*>(sp.p) + base * sp.width + e);
-      }
-    }
-    take_index(row);
-    __syncthreads();
-    int at_row[kGradPasses];
-#pragma unroll
-    for (int u = 0; u < kGradPasses; ++u) at_row[u] = row[u];
-    read_index(index, base + step, count, sub, slot, row);
-    if (count - (base + step) >= T::kRows && s.vector) read_groups<T>(s, base + step, ahead);
-#pragma unroll
-    for (int u = 0; u < kGradPasses; ++u) {
-      const float* t = tile + (u * kRowsPerPass + slot) * kTileStride + sub * 4;
-      float4 g = make_float4((mine & 1u) ? t[0] : 0.0f, (mine & 2u) ? t[1] : 0.0f,
-                             (mine & 4u) ? t[2] : 0.0f, (mine & 8u) ? t[3] : 0.0f);
-      const int at = at_row[u];
-      const bool live = at >= 0 && nonzero(g);
-      if (kShared) {
-        if (live) {
-          if (at < kRegRows) {
-#pragma unroll
-            for (int q = 0; q < kRegRows; ++q) {
-              if (at == q) acc[q] = plus(acc[q], g);
-            }
-          } else {
-            add4_shared(sums + at * kRowWidth + sub * 4, g);
-          }
-        }
-        continue;
-      }
-      // the warp's lanes of one row and of this thread's four columns (one
-      // thread in each of the warp's 4 rows: lanes sub, sub + 8, ...)
-      const unsigned peers = __match_any_sync(0xffffffffu, live ? at : -1) & (0x01010101u << sub);
-      if (__any_sync(0xffffffffu, live && __popc(peers) > 1)) {
-        float4 sum = zero;
-#pragma unroll
-        for (int q = 0; q < kWarpRows; ++q) {
-          const int src = q * kLanesPerRow + sub;
-          const float4 o = shfl4(g, src);
-          if ((peers >> src) & 1u) sum = plus(sum, o);
-        }
-        g = sum;
-      }
-      if (live && lane == __ffs(peers) - 1) add4(grad_table + at * kRowWidth + sub * 4, g);
-    }
-    __syncthreads();
-  }
-  if (kShared) {
-#pragma unroll
-    for (int q = 0; q < kRegRows; ++q) {
-      acc[q] = plus(acc[q], shfl4_xor(acc[q], kLanesPerRow));
-      acc[q] = plus(acc[q], shfl4_xor(acc[q], 2 * kLanesPerRow));
-      if (lane < kLanesPerRow && q < table_rows) add4_shared(sums + q * kRowWidth + sub * 4, acc[q]);
-    }
-    __syncthreads();
-    for (int e = threadIdx.x; e < table_rows * kLanesPerRow; e += kGatherThreads) {
-      const float4 v = smem4[T::kFloats / 4 + e];
-      if (nonzero(v)) add4(grad_table + e * 4, v);
-    }
-  }
-}
-
 // Any other table (another width, or not 16-byte aligned): an element a
 // thread over each span's output
 __global__ void __launch_bounds__(kThreads)
@@ -766,22 +579,284 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// its backward: an atomic an element that is not zero
-__global__ void __launch_bounds__(kThreads)
-    gather_rows_any_grad(const __grid_constant__ Spans s, const int* __restrict__ index, int count,
-                         float* __restrict__ grad_table, int width) {
-  const int stride = gridDim.x * kThreads;
-  for (int k = 0; k < s.count; ++k) {
-    const Span& sp = s.s[k];
-    if (sp.p == nullptr) continue;
-    const float* g = static_cast<const float*>(sp.p);
-    const int n = count * sp.width;
-    for (int e = blockIdx.x * kThreads + threadIdx.x; e < n; e += stride) {
-      const float v = __ldg(g + e);
-      if (v == 0.0f) continue;
-      const int i = e / sp.width;
-      atomicAdd(grad_table + __ldg(index + i) * width + sp.start + (e - i * sp.width), v);
+// ---- the gathers' backward: each (row, column) entry of the table's
+// gradient summed over the lanes that read the row, in a fixed order of the
+// records' kind (csrc/ordered_sum.cuh; items (lane, row x width +
+// column)) whose first level is the tile: a tile's 1024 lanes in lane
+// order, the tiles in 32 groups of ceil(tiles / 32) in order, the groups in
+// order (ops/ordered.ordered_bin_sums with span = the tile is the twin).
+// Spans of 128 lanes summed apart, the records' first level, drift from the
+// sequential sums of torch's index backward and JAX's scatter-add by more
+// than the tests' rtol 1e-6 where a few rows take many lanes (inst_data);
+// a tile's lanes in order equal them up to 1024 lanes. Two launches for
+// each 32 columns of the row. (1) A block of 1024 threads a tile, a thread
+// a lane: its key (its row, its place in the tile), or none where all its
+// gradients of the pass are 0 (adding +-0.0 changes no sum's bits; every
+// load issued before any is tested); a bitonic sort of the keys (32 bits,
+// so fewer than 2^22 rows; a key a thread, shuffles within a warp, 15
+// exchanges in shared memory), so that a
+// row's lanes lie together in lane order (a run); a thread a (run, column),
+// through the run's lanes in order, reading the gradients staged in
+// shared memory by the first step; the tile's list of (row, sums), by row,
+// and where each range of range_rows rows starts in it. (2) A block a range
+// of rows, a warp a row, a thread a column: the tiles whose lists hold the
+// row, found in a table of a window of tiles in shared memory and listed in
+// order by ballots, their sums loaded 32 at a time and added in tile order,
+// a group's sum closed into the total at each group's end. ----
+
+constexpr int kSortLanes = ordered::kTileLanes;
+constexpr int kSortThreads = kSortLanes;  // a thread a lane
+constexpr int kLaneBits = 10;  // a lane's place in its tile: kSortLanes = 1 << kLaneBits
+// a key (row, place) in 32 bits: the rows a table may have
+constexpr int kMostRows = 1 << (32 - kLaneBits);
+// the columns of one pass (a list entry's sums), staged at an odd stride so
+// that a warp's lanes of one column, and its columns of one lane, fall in
+// distinct banks
+constexpr int kPassColumns = 32;
+constexpr int kStageStride = kPassColumns + 1;
+constexpr int kStageBytes = kSortLanes * kStageStride * static_cast<int>(sizeof(float));
+// a range of the table's rows that a merging block takes: at least
+// kMergeRows, and as many as keep the ranges to kMostRanges; equal
+// ops/table_read.py GATHER_MERGE_ROWS and GATHER_MOST_RANGES
+constexpr int kMergeRows = 8;
+constexpr int kMostRanges = 32768;
+constexpr int kMergeThreads = 256;
+// a merging block's window of tiles (at range_rows = kMergeRows), and the
+// most shared memory its rows' state takes
+constexpr int kMergeWindow = 256;
+constexpr int kMergeMostBytes = 160 * 1024;
+// loads in flight a thread: the tile pass's walk through a run (from shared
+// memory), the merge's
+constexpr int kWalkAhead = 4;
+constexpr int kMergeAhead = 32;
+
+// the tiles' lists of one pass: rows (tiles x cap, ascending), their sums
+// (tiles x cap x kPassColumns) and where each range of range_rows rows
+// starts (tiles x (ranges + 1), the last the list's length)
+struct GradLists {
+  int* rows;
+  float* vals;
+  int* starts;
+  int cap, ranges, range_rows;
+};
+
+struct GradSize {
+  int tiles, cap, ranges, range_rows;
+  long long words;
+};
+
+GradSize grad_size(int rows, int count) {
+  GradSize z{};
+  z.tiles = (count + kSortLanes - 1) / kSortLanes;
+  z.cap = rows < kSortLanes ? rows : kSortLanes;
+  const int per = (rows + kMostRanges - 1) / kMostRanges;
+  z.range_rows = per > kMergeRows ? per : kMergeRows;
+  z.ranges = (rows + z.range_rows - 1) / z.range_rows;
+  z.words = static_cast<long long>(z.tiles) * z.cap * (1 + kPassColumns) +
+            static_cast<long long>(z.tiles) * (z.ranges + 1);
+  return z;
+}
+
+__global__ void __launch_bounds__(kSortThreads)
+    gather_grad_tiles(const __grid_constant__ Spans s, const int* __restrict__ index, int count, int rows, int c0,
+                      int cw, GradLists out) {
+  __shared__ unsigned keys[kSortLanes];
+  __shared__ unsigned exchange[2][kSortLanes];
+  __shared__ int firsts[kSortLanes + 1];
+  __shared__ int warp_sums[kSortThreads / 32];
+  __shared__ const float* col_ptr[kPassColumns];  // column c0 + c of lane 0's gradient, null where none
+  __shared__ int col_stride[kPassColumns];
+  extern __shared__ float stage[];  // a lane's gradients of the pass: kSortLanes x kStageStride
+  constexpr unsigned kNone = ~0u;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long base = static_cast<long long>(blockIdx.x) * kSortLanes;
+  if (tid < kPassColumns) {
+    const float* ptr = nullptr;
+    int stride = 0;
+    for (int k = 0; k < s.count; ++k) {
+      const Span& sp = s.s[k];
+      if (tid < cw && c0 + tid >= sp.start && c0 + tid < sp.start + sp.width) {
+        ptr = static_cast<const float*>(sp.p) + (c0 + tid - sp.start) + base * sp.width;
+        stride = sp.width;
+      }
     }
+    col_ptr[tid] = ptr, col_stride[tid] = stride;
+  }
+  __syncthreads();
+  // the lane's gradients of the pass, every load issued before any is
+  // used, staged in shared memory (0 in a column no span takes); its key
+  {
+    unsigned key = kNone;
+    if (base + tid < count) {
+      const int row = __ldg(index + base + tid);
+      bool live = false;
+#pragma unroll
+      for (int h = 0; h < kPassColumns; h += 16) {
+        float v[16];
+#pragma unroll
+        for (int u = 0; u < 16; ++u) {
+          const float* g = col_ptr[h + u];
+          v[u] = g != nullptr ? __ldg(g + static_cast<long long>(tid) * col_stride[h + u]) : 0.0f;
+        }
+#pragma unroll
+        for (int u = 0; u < 16; ++u) {
+          live |= v[u] != 0.0f;
+          stage[tid * kStageStride + h + u] = v[u];
+        }
+      }
+      if (live && row >= 0 && row < rows) key = (static_cast<unsigned>(row) << kLaneBits) | tid;
+    }
+    keys[tid] = key;
+  }
+  __syncthreads();
+  // bitonic sort, ascending, a key a thread: the keys are distinct, so a
+  // row's lanes end in lane order. Partners within a warp swap by shuffles,
+  // others through two buffers in shared memory (a barrier an exchange).
+  unsigned key = keys[tid];
+  int buffer = 0;
+  for (int size = 2; size <= kSortLanes; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      unsigned other;
+      if (stride < 32) {
+        other = __shfl_xor_sync(0xffffffffu, key, stride);
+      } else {
+        exchange[buffer][tid] = key;
+        __syncthreads();
+        other = exchange[buffer][tid ^ stride];
+        buffer ^= 1;
+      }
+      const bool lower = (tid & stride) == 0, ascending = (tid & size) == 0;
+      key = (lower == ascending) ? min(key, other) : max(key, other);
+    }
+  }
+  keys[tid] = key;
+  __syncthreads();
+  // the runs: each run's first key, in order (the threads' flags scanned),
+  // and the live keys' end
+  const bool first = key != kNone && (tid == 0 || (key >> kLaneBits) != (keys[tid - 1] >> kLaneBits));
+  const unsigned ballot = __ballot_sync(0xffffffffu, first);
+  if (lane == 0) warp_sums[warp] = __popc(ballot);
+  __syncthreads();
+  int before = 0, runs = 0;
+#pragma unroll
+  for (int w = 0; w < kSortThreads / 32; ++w) {
+    before += w < warp ? warp_sums[w] : 0;
+    runs += warp_sums[w];
+  }
+  if (first) firsts[before + __popc(ballot & ((1u << lane) - 1u))] = tid;
+  if (key != kNone && (tid + 1 == kSortLanes || keys[tid + 1] == kNone)) firsts[runs] = tid + 1;
+  if (tid == 0 && key == kNone) firsts[0] = 0;
+  __syncthreads();
+  // a thread a (run, column): the run's lanes in lane order
+  const long long t = blockIdx.x;
+  for (int p = tid; p < runs * kPassColumns; p += kSortThreads) {
+    const int q = p / kPassColumns, c = p - q * kPassColumns;
+    const int a = firsts[q], b = firsts[q + 1];
+    float tile_sum = 0.0f;
+    int e = a;
+    for (; e + kWalkAhead <= b; e += kWalkAhead) {
+      float v[kWalkAhead];
+#pragma unroll
+      for (int u = 0; u < kWalkAhead; ++u) v[u] = stage[(keys[e + u] & (kSortLanes - 1)) * kStageStride + c];
+#pragma unroll
+      for (int u = 0; u < kWalkAhead; ++u) tile_sum += v[u];
+    }
+    for (; e < b; ++e) tile_sum += stage[(keys[e] & (kSortLanes - 1)) * kStageStride + c];
+    out.vals[(t * out.cap + q) * kPassColumns + c] = tile_sum;
+    if (c == 0) out.rows[t * out.cap + q] = static_cast<int>(keys[a] >> kLaneBits);
+  }
+  // where each range of rows starts in the list
+  int* starts = out.starts + t * (out.ranges + 1);
+  for (int r = tid; r <= out.ranges; r += kSortThreads) {
+    const long long lo_row = static_cast<long long>(r) * out.range_rows;
+    int lo = 0, hi = runs;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (static_cast<long long>(keys[firsts[mid]] >> kLaneBits) < lo_row) {
+        lo = mid + 1;
+      } else {
+        hi = mid;
+      }
+    }
+    starts[r] = lo;
+  }
+}
+
+// (2) a block a range of rows, a warp a row, a thread a column: where each
+// tile's list holds the row (a table of a window of tiles in shared memory,
+// filled a thread a tile), then the tiles that hold it listed in order by
+// ballots and their sums loaded kMergeAhead at a time, added in tile order into
+// the open group's sum, which is closed into the total at each group's
+// end; written to columns c0 .. c0 + cw - 1 of the gradient, every row of
+// the range
+__global__ void __launch_bounds__(kMergeThreads)
+    gather_grad_merge(GradLists in, int tiles, int rows, int width, int c0, int cw, int group,
+                      float* __restrict__ grad_table) {
+  constexpr int kWarps = kMergeThreads / 32;
+  __shared__ int pos[kMergeWindow * kMergeRows];       // a window's tiles x the range's rows (range_rows)
+  __shared__ int2 hits[kWarps][kMergeWindow];          // a warp's row: (tile, entry) in tile order
+  extern __shared__ float state[];                     // a row and column's total, open sum, open group
+  const int per = in.range_rows, r0 = blockIdx.x * per, nr = min(per, rows - r0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int window = kMergeWindow * kMergeRows / per;
+  float* total = state;
+  float* open = state + per * 32;
+  int* open_group = reinterpret_cast<int*>(open + per * 32);
+  for (int p = threadIdx.x; p < per * 32; p += kMergeThreads) total[p] = 0.0f, open[p] = 0.0f, open_group[p] = 0;
+  pdl::wait_for_previous();
+  for (int t0 = 0; t0 < tiles; t0 += window) {
+    const int t1 = min(tiles, t0 + window);
+    __syncthreads();
+    for (int p = threadIdx.x; p < (t1 - t0) * per; p += kMergeThreads) pos[p] = -1;
+    __syncthreads();
+    for (int t = t0 + threadIdx.x; t < t1; t += kMergeThreads) {
+      const int* st = in.starts + static_cast<long long>(t) * (in.ranges + 1) + blockIdx.x;
+      const int a = __ldg(st), b = __ldg(st + 1);
+      for (int q = a; q < b; ++q) pos[(t - t0) * per + __ldg(in.rows + static_cast<long long>(t) * in.cap + q) - r0] = q;
+    }
+    __syncthreads();
+    for (int r = warp; r < nr; r += kWarps) {
+      // the window's tiles that hold row r, in order
+      int n = 0;
+      for (int tb = t0; tb < t1; tb += 32) {
+        const int t = tb + lane;
+        const int q = t < t1 ? pos[(t - t0) * per + r] : -1;
+        const unsigned hit = __ballot_sync(0xffffffffu, q >= 0);
+        if (q >= 0) hits[warp][n + __popc(hit & ((1u << lane) - 1u))] = make_int2(t, q);
+        n += __popc(hit);
+      }
+      __syncwarp();
+      float tot = total[r * 32 + lane], sum = open[r * 32 + lane];
+      int g = open_group[r * 32 + lane];
+      for (int h0 = 0; h0 < n; h0 += kMergeAhead) {
+        float v[kMergeAhead];
+        int tt[kMergeAhead];
+#pragma unroll
+        for (int u = 0; u < kMergeAhead; ++u) {
+          const int2 h = h0 + u < n ? hits[warp][h0 + u] : make_int2(-1, 0);
+          tt[u] = h.x;
+          v[u] = h.x >= 0 && lane < cw ? __ldg(in.vals + (static_cast<long long>(h.x) * in.cap + h.y) * kPassColumns + lane)
+                                       : 0.0f;
+        }
+#pragma unroll
+        for (int u = 0; u < kMergeAhead; ++u) {
+          if (tt[u] < 0) break;
+          if (tt[u] / group != g) {  // a group closed (groups without the row add +0.0: no bits change)
+            tot += sum;
+            sum = 0.0f;
+            g = tt[u] / group;
+          }
+          sum += v[u];
+        }
+      }
+      total[r * 32 + lane] = tot, open[r * 32 + lane] = sum, open_group[r * 32 + lane] = g;
+      __syncwarp();
+    }
+  }
+  __syncthreads();
+  for (int p = threadIdx.x; p < nr * 32; p += kMergeThreads) {
+    const int r = p / 32, c = p - r * 32;
+    if (c < cw) grad_table[static_cast<long long>(r0 + r) * width + c0 + c] = total[p] + open[p];
   }
 }
 
@@ -802,18 +877,6 @@ int grid_for(long long count, int threads, int per_sm, cudaError_t* err) {
   return static_cast<int>(want < most ? want : most);
 }
 
-// dynamic shared memory of `bytes` for kernel k, opted into above 48 KB;
-// returns how many such blocks an SM takes, at most `most`
-template <class Kernel>
-int shared_blocks(Kernel k, int bytes, int most, cudaError_t* err) {
-  *err = cudaSuccess;
-  if (bytes > 48 * 1024) {
-    *err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  }
-  const int per_sm = kSmemPerSm / (bytes + 1024);
-  return per_sm > most ? most : (per_sm < 1 ? 1 : per_sm);
-}
-
 bool aligned16(const void* p) { return reinterpret_cast<unsigned long long>(p) % 16 == 0; }
 
 // the kernels' spans from the caller's, with their outputs or, for the
@@ -829,7 +892,6 @@ bool make_spans(const TheiaSpans* in, void* const* p, int rows, int width, int c
   }
   out->count = out->columns = 0;
   out->vector = 1;
-  out->covered = 0u;
   for (int k = 0; k < in->count; ++k) {
     const int a = in->start[k], w = in->width[k];
     if (a < 0 || w < 1 || a + w > width) return false;
@@ -837,7 +899,6 @@ bool make_spans(const TheiaSpans* in, void* const* p, int rows, int width, int c
     out->s[out->count++] = Span{p[k], a, w, in->integer[k] != 0, 1.0f / static_cast<float>(w)};
     out->columns += w;
     if (!aligned16(p[k])) out->vector = 0;
-    if (width == kRowWidth) out->covered |= (w == 32 ? 0xffffffffu : ((1u << w) - 1u)) << a;
   }
   return true;
 }
@@ -862,40 +923,33 @@ extern "C" int theia_table_read(const Spec* spec, const int* handle, const float
   return static_cast<int>(cudaGetLastError());
 }
 
+// the backward: grads, the tables' gradients of those in need (bit k: table
+// k) laid end to end, zeroed, a float a table entry; grad_x may be null;
+// table and counters the ordered sum's scratch (csrc/ordered_sum.cuh, as
+// response._record_table sizes it for 2 x tables items a lane)
 extern "C" int theia_table_read_grad(const Spec* spec, const int* handle, const float* x,
                                      int x_stride, const float* grad_out0,
                                      const float* grad_out1, const float* grad_out2,
-                                     const float* grad_out3, int count, float* grad0,
-                                     float* grad1, float* grad2, float* grad3,
-                                     float* grad_x, cudaStream_t stream) {
+                                     const float* grad_out3, int count, int need,
+                                     float* grads, float* grad_x, float* table,
+                                     long long table_floats, unsigned long long* counters,
+                                     cudaStream_t stream) {
   if (!valid(spec)) return static_cast<int>(cudaErrorInvalidValue);
-  Grads grads{{grad0, grad1, grad2, grad3}, {0, 0, 0, 0}};
-  const ConstRows grad_out{{grad_out0, grad_out1, grad_out2, grad_out3}};
-  bool any = grad_x != nullptr;
+  ReadGradSource src{*spec, handle, x, x_stride, count,
+                     ConstRows{{grad_out0, grad_out1, grad_out2, grad_out3}}, {-1, -1, -1, -1}, grad_x};
   long long total = 0;
   for (int k = 0; k < spec->tables; ++k) {
-    grads.offset[k] = total;
+    if (!((need >> k) & 1) || spec->len[k] == 0) continue;
+    src.offset[k] = static_cast<int>(total);
     total += static_cast<long long>(spec->packed ? spec->media : 1) * spec->len[k];
-    any = any || grads.table[k] != nullptr;
   }
-  if (count <= 0 || !any) return static_cast<int>(cudaGetLastError());
-  cudaError_t err = cudaSuccess;
-  const bool tables = grad0 != nullptr || grad1 != nullptr || grad2 != nullptr || grad3 != nullptr;
-  if (!tables || total > kSharedMaxFloats) {
-    const int grid = grid_for(count, kGradThreads, 4, &err);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    read_tables_grad<false><<<grid, kGradThreads, 0, stream>>>(
-        *spec, handle, x, x_stride, grad_out, count, grads, total, grad_x);
-    return static_cast<int>(cudaGetLastError());
+  if (total > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  if (count <= 0) return static_cast<int>(cudaGetLastError());
+  if (total == 0 || grads == nullptr) {
+    return grad_x == nullptr ? static_cast<int>(cudaGetLastError()) : static_cast<int>(ordered::lanes(src, count, stream));
   }
-  const int bytes = static_cast<int>(total * sizeof(float));
-  const int per_sm = shared_blocks(read_tables_grad<true>, bytes, kGradBlocksPerSm, &err);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = grid_for(count, kGradThreads, per_sm, &err);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  read_tables_grad<true><<<grid, kGradThreads, bytes, stream>>>(
-      *spec, handle, x, x_stride, grad_out, count, grads, total, grad_x);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(ordered::record(src, count, 2 * spec->tables, static_cast<int>(total), table,
+                                          table_floats, counters, grads, stream));
 }
 
 // out: the spans' (N, width[k]) outputs, f32 or int32 as the span says
@@ -920,36 +974,41 @@ extern "C" int theia_gather_rows(const float* table, int rows, int width, const 
   return static_cast<int>(cudaGetLastError());
 }
 
-// grad_out: the spans' (N, width[k]) f32 gradients, null where a span takes none
+// grad_out: the spans' (N, width[k]) f32 gradients, null where a span takes
+// none; grad_table: (rows, width), every entry written; scratch: at least
+// grad_size's words (ops/table_read.py _gather_scratch_words repeats it)
 extern "C" int theia_gather_rows_grad(const TheiaSpans* spans, void* const* grad_out,
                                       const int* index, int count, int rows, int width,
-                                      float* grad_table, cudaStream_t stream) {
+                                      float* grad_table, float* scratch, long long scratch_floats,
+                                      cudaStream_t stream) {
   Spans s;
-  if (!make_spans(spans, grad_out, rows, width, count, true, &s)) {
+  if (!make_spans(spans, grad_out, rows, width, count, true, &s) || rows >= kMostRows) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (count == 0 || s.count == 0) return static_cast<int>(cudaGetLastError());
-  cudaError_t err = cudaSuccess;
-  if (width != kRowWidth || !aligned16(grad_table)) {
-    const int grid = grid_for(static_cast<long long>(count) * width, kThreads, 4, &err);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    gather_rows_any_grad<<<grid, kThreads, 0, stream>>>(s, index, count, grad_table, width);
-    return static_cast<int>(cudaGetLastError());
-  }
-  using T = Tile<kGradPasses>;
-  const long long floats = T::kFloats + static_cast<long long>(rows) * kRowWidth;
-  if (floats > kSharedMaxFloats) {
-    const int bytes = T::kFloats * static_cast<int>(sizeof(float));
-    const int grid = grid_for(count, T::kRows, kMostBlocksPerSm, &err);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    gather_rows32_grad<false><<<grid, kGatherThreads, bytes, stream>>>(s, index, count, grad_table, rows);
-    return static_cast<int>(cudaGetLastError());
-  }
-  const int bytes = static_cast<int>(floats * sizeof(float));
-  const int per_sm = shared_blocks(gather_rows32_grad<true>, bytes, kGatherBlocksPerSm, &err);
+  if (count == 0) return static_cast<int>(cudaGetLastError());
+  const GradSize z = grad_size(rows, count);
+  if (scratch_floats < z.words) return static_cast<int>(cudaErrorInvalidValue);
+  int* list_rows = reinterpret_cast<int*>(scratch);
+  float* vals = scratch + static_cast<size_t>(z.tiles) * z.cap;
+  int* starts = reinterpret_cast<int*>(vals + static_cast<size_t>(z.tiles) * z.cap * kPassColumns);
+  const GradLists lists{list_rows, vals, starts, z.cap, z.ranges, z.range_rows};
+  const int group = (z.tiles + ordered::kGroups - 1) / ordered::kGroups;
+  const int state_bytes = 3 * 32 * z.range_rows * static_cast<int>(sizeof(float));
+  if (state_bytes > kMergeMostBytes) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(gather_grad_tiles, cudaFuncAttributeMaxDynamicSharedMemorySize, kStageBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = grid_for(count, T::kRows, per_sm, &err);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  gather_rows32_grad<true><<<grid, kGatherThreads, bytes, stream>>>(s, index, count, grad_table, rows);
+  if (state_bytes > 16 * 1024) {
+    err = cudaFuncSetAttribute(gather_grad_merge, cudaFuncAttributeMaxDynamicSharedMemorySize, state_bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  for (int c0 = 0; c0 < width; c0 += kPassColumns) {
+    const int cw = width - c0 < kPassColumns ? width - c0 : kPassColumns;
+    gather_grad_tiles<<<z.tiles, kSortThreads, kStageBytes, stream>>>(s, index, count, rows, c0, cw, lists);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = pdl::launch(gather_grad_merge, dim3(z.ranges), dim3(kMergeThreads), state_bytes, stream, lists, z.tiles,
+                      rows, width, c0, cw, group, grad_table);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -47,12 +47,12 @@ kernels run, or the call raises. The forward kernel is bit-equal to its
 plain version (the same float32 ops in the same order, built with
 ``-fmad=false``): one ulp of an index of refraction, a coefficient or a
 group velocity could flip a Fresnel or scatter decision. The backward
-kernel adds each lane's share of the tables' gradient into a copy of all
-of them in a block's shared memory, then into the outputs with one atomic
-a nonzero entry (straight into device memory above
-:data:`SHARED_TABLE_MAX` floats), so the tables' gradients agree with the
-plain version's sequential sums to float32 rounding only; the input's
-gradient is written a lane, without atomics, and is bit-equal.
+kernels add no float with an atomic: a table entry's gradient is its
+lanes' shares summed in the records' fixed order (``ops/ordered.py``:
+spans of 128 lanes, tiles of 1024, 32 groups of tiles), which the plain
+versions repeat, so the tables' gradients too are bit-equal to the plain
+versions' and the same on every launch; the input's gradient is written a
+lane.
 
 A call checks its tables once a table set: the first call with a set of
 tensors validates them and builds the kernel's constants (pointers,
@@ -74,6 +74,7 @@ from functools import lru_cache, reduce
 import torch
 
 from .. import _build
+from .ordered import TILE_LANES, ordered_bin_sums, record_counters, record_table, slot_sums
 
 __all__ = [
     "clip01",
@@ -92,12 +93,8 @@ __all__ = [
     "MAX_SPANS",
     "MAX_TABLES",
     "PHASE",
-    "SHARED_TABLE_MAX",
 ]
 
-#: the largest table set (floats) whose gradient a block sums in shared
-#: memory: 226 KB of floats; equals kSharedMaxFloats of ``csrc/table_read.cu``
-SHARED_TABLE_MAX = 57_856
 #: the most tables one read takes; equals kMaxTables of ``csrc/table_read.cu``
 MAX_TABLES = 4
 #: the coordinate's forms; equal kT, kAffine, kWavelength of ``csrc/table_read.cu``
@@ -303,21 +300,30 @@ class _Reader:
             out.append(torch.where(n == 0, self.nulls[k], v + l * slope))
         return out
 
+    def grad_sizes(self, need_tables) -> list:
+        """The floats of each table's gradient, 0 where it takes none: the
+        tables that take one lie end to end in one buffer, in order."""
+        media = self.media if self.packed else 1
+        return [media * length if need else 0 for need, length in zip(need_tables, self.lens)]
+
     def grad_plain(self, tables, sizes, bounds, handle, x, grad_out, need_tables, need_x):
         """(d tables, d x) for the upstream gradient ``grad_out`` (one row a
         table, None for a zero one), None where not asked for; the kernel's
-        float32 ops in its order, each table entry's sum over the lanes
-        accumulated in float64 and rounded once: lanes' terms of both signs
-        cancel in an entry, and a float32 running sum in lane order then
-        drifts by 1e-5 of it (the glass index's gradient of chip_smoke.py's
-        phase 4), where the kernel's blocked sums do not."""
+        float32 ops in its order. Each table entry's sum over the lanes is
+        the kernel's: a lane's two shares of each table (slots 2 k and 2 k +
+        1), the tables that take a gradient laid end to end, summed in the
+        records' fixed order (:func:`.ordered.slot_sums`)."""
         grad_out = [torch.zeros_like(x) if g is None else g for g in grad_out]
         need_tables = [bool(need) and t is not None for need, t in zip(need_tables, tables)]
+        lengths = self.grad_sizes(need_tables)
+        offsets = [sum(lengths[:k]) for k in range(len(tables))]
         r, span = self.coordinate(bounds, handle, x)
         t = clip01(r)
         cg = _clip_grad(clip01(r) if self.clips == 2 else r)
         du = torch.zeros_like(x)
-        grads = [None] * len(tables)
+        # the slots of tables that take no gradient hold no item: left out,
+        # they change no other slot's place in the order
+        slots = []
         if not self.packed:
             for k, table in enumerate(tables):
                 if table is None:
@@ -328,10 +334,8 @@ class _Reader:
                 l = xx - fl
                 lo, hi = _index(fl, n), _index(torch.ceil(xx), n)
                 if need_tables[k]:
-                    grad = torch.zeros_like(table, dtype=torch.float64)
-                    grad.index_add_(0, lo, (g * (1.0 - l)).double())
-                    grad.index_add_(0, hi, (g * l).double())
-                    grads[k] = grad.float()
+                    every = torch.ones_like(x, dtype=torch.bool)
+                    slots += [(offsets[k] + lo, g * (1.0 - l), every), (offsets[k] + hi, g * l, every)]
                 du = du + (g * table[hi] - g * table[lo]) * float(n - 1) * cg
         else:
             h = handle.to(torch.int64)
@@ -342,18 +346,20 @@ class _Reader:
                 last = j == pad - 1
                 if need_tables[k]:
                     real = (n != 0) & (nk != 0)
-                    base = h * length
-                    grad = torch.zeros(tables[k].numel(), dtype=torch.float64, device=x.device)
-                    grad.index_add_(0, base + torch.clamp_max(j, length - 1),
-                                    torch.where(real & (j < length), torch.where(last, g, g - g * l), 0.0).double())
-                    grad.index_add_(0, base + torch.clamp_max(j + 1, length - 1),
-                                    torch.where(real & ~last & (j + 1 < length), g * l, 0.0).double())
-                    grads[k] = grad.float().reshape(tables[k].shape)
+                    base = offsets[k] + h * length
+                    slots += [(base + j, torch.where(last, g, g - g * l), real & (j < length)),
+                              (base + j + 1, g * l, real & ~last & (j + 1 < length))]
                 v = self.column(k, tables[k], h, nk, j)
                 slope = torch.where(j < pad - 1, self.column(k, tables[k], h, nk, j + 1) - v, 0.0)
                 du = du + g * slope if self.shared else du + g * slope * scale * cg
             if self.shared:
                 du = du * cells[0][2] * cg
+        grads = [None] * len(tables)
+        if any(need_tables):
+            flat = slot_sums(slots, x.shape[0], sum(lengths))
+            for k, table in enumerate(tables):
+                if need_tables[k]:
+                    grads[k] = flat[offsets[k]:offsets[k] + lengths[k]].reshape(table.shape)
         if not need_x:
             return grads, None
         if self.clips == 2:
@@ -426,14 +432,23 @@ def _backward(reader: _Reader, tables, sizes, bounds, handle, x, grad_out, need_
     if x.device.type != "cuda":
         return reader.grad_plain(tables, sizes, bounds, handle, x, grad_out, need_tables, need_x)
     need_tables = [bool(need) and t is not None for need, t in zip(need_tables, tables)]
-    grads = [torch.zeros_like(t) if need else None for need, t in zip(need_tables, tables)]
+    lengths = reader.grad_sizes(need_tables)
+    total, n = sum(lengths), x.shape[0]
+    flat = torch.zeros(total, dtype=torch.float32, device=x.device)
+    grads, at = [], 0
+    for need, t, size in zip(need_tables, tables, lengths):
+        grads.append(flat[at:at + size].view(t.shape) if need else None)
+        at += size
     grad_x = torch.empty(x.shape, dtype=torch.float32, device=x.device) if need_x else None
-    if x.shape[0] and (need_x or any(need_tables)):
-        pad = [None] * (MAX_TABLES - len(grads))
+    if n and (need_x or total):
+        pad = [None] * (MAX_TABLES - len(tables))
         rows = [None if g is None else g.contiguous() for g in grad_out]
+        table = record_table(n, total, x.device, 2 * len(tables)) if total else None
         _launch(read_packed_grad if reader.packed else read_table_grad, "theia_table_read_grad",
-                reader.spec_address, _ptr(handle), x.data_ptr(), x.stride(0), *[_ptr(g) for g in rows + pad],
-                x.shape[0], *[_ptr(g) for g in grads + pad], _ptr(grad_x), _build.raw_stream(x))
+                reader.spec_address, _ptr(handle), x.data_ptr(), x.stride(0), *[_ptr(g) for g in rows + pad], n,
+                sum(1 << k for k, need in enumerate(need_tables) if need), _ptr(flat) if total else None,
+                _ptr(grad_x), _ptr(table), 0 if table is None else table.numel(),
+                record_counters(flat).data_ptr() if total else None, _build.raw_stream(x))
     return grads, grad_x
 
 
@@ -734,38 +749,77 @@ def _gradients(spans, index, grad_out):
     return grads
 
 
+#: the gathers' backward (``csrc/table_read.cu``): a merging block's rows,
+#: at least GATHER_MERGE_ROWS and as many as keep the ranges of rows to
+#: GATHER_MOST_RANGES (kMergeRows, kMostRanges); a pass's columns
+#: (kPassColumns); the rows a table may have (kMostRows: a tile's sort
+#: keys are 32 bits, the row above a lane's 10)
+GATHER_MERGE_ROWS, GATHER_MOST_RANGES, GATHER_PASS_COLUMNS, GATHER_MOST_ROWS = 8, 32768, 32, 1 << 22
+
+
+def _gather_scratch_words(rows: int, count: int) -> int:
+    """The floats of the gathers' backward scratch (grad_size of
+    ``csrc/table_read.cu``): a pass's lists of each tile's rows and their
+    sums, and where each range of rows starts in them."""
+    tiles = -(-count // TILE_LANES)
+    cap = min(rows, TILE_LANES)
+    per = max(GATHER_MERGE_ROWS, -(-rows // GATHER_MOST_RANGES))
+    ranges = -(-rows // per)
+    return tiles * cap * (1 + GATHER_PASS_COLUMNS) + tiles * (ranges + 1)
+
+
 def gather_rows_grad(shape, index, grad_out, columns=None):
     """Backward of :func:`gather_rows`: d table of ``shape`` (T, W), each
-    row the sum of the gradients of the lanes that read it. ``grad_out``
-    is the (N, W) gradient without ``columns``, else one gradient a span,
-    None where a span takes none (the integer spans take none); nothing
-    of width W is built. CUDA tensors launch ``theia_gather_rows_grad``
-    (four floats an atomic, a warp's lanes of one row merged first; a
-    block's registers and shared copy where the table fits), CPU tensors
-    run the plain version."""
+    entry the sum of the gradients of the lanes that read its row, in the
+    order of the records' kind (``ops/ordered.py``; its first level a tile
+    of 1024 lanes in lane order), so the same bits on every launch and on
+    either device. ``grad_out`` is the (N, W) gradient
+    without ``columns``, else one gradient a span, None where a span takes
+    none (the integer spans take none); nothing of width W is built. CUDA
+    tensors launch ``theia_gather_rows_grad`` (two launches: a tile's lanes
+    sorted by row and summed in lane order, then the tiles' sums in order;
+    no atomics), CPU tensors run the plain version."""
     spans, spec = _span_set(columns, shape[1])
     grads = _gradients(spans, index, (grad_out,) if columns is None else tuple(grad_out))
     present = [g for g in grads if g is not None]
     if not _on_card(index, *present):
         return _grad_plain(shape, index, spans, grads)
-    grad = torch.zeros(shape, dtype=torch.float32, device=index.device)
-    if index.shape[0] and present:
-        _launch(gather_rows_grad, "theia_gather_rows_grad", ctypes.byref(spec), _pointers(grads),
-                index.data_ptr(), index.shape[0], shape[0], shape[1], grad.data_ptr(), _build.raw_stream(grad))
+    n = index.shape[0]
+    if not (n and present):
+        return torch.zeros(shape, dtype=torch.float32, device=index.device)
+    if shape[0] >= GATHER_MOST_ROWS:
+        raise ValueError(f"gather_rows_grad: the card's kernel takes fewer than {GATHER_MOST_ROWS} rows, got {shape[0]}")
+    grad = torch.empty(shape, dtype=torch.float32, device=index.device)
+    scratch = torch.empty(_gather_scratch_words(shape[0], n), dtype=torch.float32, device=index.device)
+    _launch(gather_rows_grad, "theia_gather_rows_grad", ctypes.byref(spec), _pointers(grads), index.data_ptr(), n,
+            shape[0], shape[1], grad.data_ptr(), scratch.data_ptr(), scratch.numel(), _build.raw_stream(grad))
     return grad
 
 
 def _grad_plain(shape, index, spans, grads):
-    grad = torch.zeros(shape, dtype=torch.float32, device=index.device)
+    """Each span's gradient as items (lane, row x W + column) in lane
+    order, summed in the kernel's order: a tile's lanes in lane order, then
+    the tiles in groups, then the groups."""
+    n, width = index.shape[0], shape[1]
+    lanes, bins, values = [], [], []
+    row = index.to(torch.int64)[:, None] * width
     for g, (start, stop, _) in zip(grads, spans):
-        if g is not None:
-            grad[:, start:stop].index_add_(0, index, g)
-    return grad
+        if g is None:
+            continue
+        cols = torch.arange(start, stop, device=index.device)
+        lanes.append(torch.arange(n, device=index.device).repeat_interleave(stop - start))
+        bins.append((row + cols).reshape(-1))
+        values.append(g.reshape(-1))
+    if not lanes:
+        return torch.zeros(shape, dtype=torch.float32, device=index.device)
+    lane, flat, value = (torch.cat(x) for x in (lanes, bins, values))
+    live = value != 0
+    return ordered_bin_sums(lane[live], flat[live], value[live], n, shape[0] * width, TILE_LANES).reshape(shape)
 
 
 def gather_rows_grad_plain(shape, index, grad_out, columns=None):
-    """Plain version of :func:`gather_rows_grad` (any device): ``index_add_``
-    of each span's gradient into its columns of a zero table."""
+    """Plain version of :func:`gather_rows_grad` (any device): the spans'
+    gradients summed into a zero table in the kernel's order."""
     spans, _ = _span_set(columns, shape[1])
     grads = _gradients(spans, index, (grad_out,) if columns is None else tuple(grad_out))
     return _grad_plain(shape, index, spans, grads)

@@ -26,7 +26,6 @@ value, the time and the three parameters (``t0``, ``binSize``,
 from __future__ import annotations
 
 import math
-import threading
 import warnings
 
 import torch
@@ -42,6 +41,26 @@ from .items import (
     PolarizedCameraHitResponseItem,
     PolarizedHitItem,
     ValueItem,
+)
+# the records' fixed order and its scratch (ops/ordered.py, which the
+# backward kernels of ops/table_read.py take too) under their names here
+from .ops.ordered import (
+    RECORD_COUNTERS,
+    RECORD_DENSE_CELLS,
+    RECORD_MAX_RANGES,
+    RECORD_RANGE,
+    RECORD_STAGE,
+    RECORD_TABLE_MAX,
+    SPAN_LANES,
+    TILE_GROUPS,
+    TILE_LANES,
+    _add_sums,
+    _scratch_floats,
+    _sparse_words,
+    ordered_bin_sums,
+    record_counters as _record_counters,
+    record_table as _record_table,
+    slot_sums,
 )
 from .random import RNGState
 from .trace.core import HitItem
@@ -84,134 +103,6 @@ __all__ = [
     "kernel_histogram_grad",
     "kernel_histogram_grad_plain",
 ]
-
-#: the records' fixed order (``csrc/ordered_sum.cuh``): lanes a warp's span
-#: (kSpanLanes), lanes a tile (kTileLanes), groups of tiles (kGroups)
-SPAN_LANES, TILE_LANES, TILE_GROUPS = 128, 1024, 32
-
-#: flat bins one range of the records' first pass covers (ordered::kRange:
-#: a block's 8 warps' rows of sums take what a block may have of an SM's
-#: 227 KB of shared memory less its 1 KB)
-RECORD_RANGE = (227 * 1024 - 1024) // 4 // 8
-
-#: the dense pass takes a record of up to this many tiles x bins, the
-#: sparse pass a larger one where its tables fit (ordered::kDenseCells);
-#: the sparse pass stages RECORD_STAGE entries of the tiles' lists at once
-#: (ordered::kStage)
-RECORD_DENSE_CELLS, RECORD_STAGE = 1 << 19, 8192
-
-#: the most floats of a record's scratch: a larger (tiles x bins) table of
-#: tile sums is taken in batches of ranges (at most RECORD_MAX_RANGES a
-#: launch, ordered::kMaxRanges), each range with RECORD_COUNTERS 64-bit
-#: counters (ordered::kCounters)
-RECORD_TABLE_MAX = 1 << 26
-RECORD_MAX_RANGES, RECORD_COUNTERS = 64, TILE_GROUPS + 1
-
-
-def _in_order(keys: torch.Tensor, values: torch.Tensor):
-    """(distinct keys ascending, sums): each key's values added one after
-    another in the order given, from +0.0, in float32 (unique indices
-    each step, never an ``index_add_`` whose order is not fixed)."""
-    keys, perm = torch.sort(keys, stable=True)
-    values = values[perm]
-    uniq, counts = torch.unique_consecutive(keys, return_counts=True)
-    start = torch.cumsum(counts, 0) - counts
-    sums = torch.zeros(uniq.shape[0], dtype=torch.float32, device=values.device)
-    for r in range(int(counts.max()) if counts.numel() else 0):
-        live = torch.nonzero(counts > r).squeeze(1)
-        sums[live] = sums[live] + values[start[live] + r]
-    return uniq, sums
-
-
-def ordered_bin_sums(lane: torch.Tensor, bins: torch.Tensor, values: torch.Tensor, n: int, n_state: int):
-    """The records' sums, (n_state,) float32, in their fixed order
-    (``csrc/ordered_sum.cuh``). Items are given in the records' order, each
-    with its lane and flat bin: a bin's items of a warp's span of
-    :data:`SPAN_LANES` lanes are added in that order, then the spans of a
-    tile of :data:`TILE_LANES` lanes, then the tiles in :data:`TILE_GROUPS`
-    groups of ``ceil(tiles / TILE_GROUPS)``, then the groups; each sum from
-    +0.0. ``n``: the record's lanes."""
-    tiles = -(-n // TILE_LANES)
-    group = max(1, -(-tiles // TILE_GROUPS))
-    keys, sums = _in_order((lane // SPAN_LANES) * n_state + bins, values)
-    for per in (TILE_LANES // SPAN_LANES, group):
-        keys, sums = _in_order((keys // n_state) // per * n_state + keys % n_state, sums)
-    keys, sums = _in_order(keys % n_state, sums)
-    total = torch.zeros(n_state, dtype=torch.float32, device=values.device)
-    total[keys] = sums
-    return total
-
-
-def _add_sums(state: torch.Tensor, total: torch.Tensor) -> torch.Tensor:
-    """``state + total`` in place where ``total`` is not 0, as a record's
-    last block adds."""
-    nz = total != 0
-    state[nz] += total[nz]
-    return state
-
-
-def _scratch_floats(tiles: int, width: int) -> int:
-    """ordered::scratch_floats: a batch's tile sums and group sums."""
-    return (tiles + TILE_GROUPS) * width
-
-
-def _sparse_words(tiles: int, slots: int, n_state: int) -> int | None:
-    """The words of the sparse pass's scratch (``ordered::sparse_size``):
-    the tiles' lists of bins and sums, where each range of
-    :data:`RECORD_RANGE` bins starts in them, and the groups' sums;
-    None where the record takes the dense pass (up to
-    :data:`RECORD_DENSE_CELLS` tiles x bins, or tables past a block's
-    shared memory)."""
-    if tiles * n_state <= RECORD_DENSE_CELLS:
-        return None
-    cap = lambda items: min(items, n_state) + min(items, n_state) // 4 + 1
-    warp_cap, tile_cap = cap(SPAN_LANES * slots), cap(TILE_LANES * slots)
-    group, ranges, most = -(-tiles // TILE_GROUPS), -(-n_state // RECORD_RANGE), 4 * 8 * RECORD_RANGE
-    tiles_smem = 8 * (8 * warp_cap + tile_cap) + 4 * (ranges + 1)
-    groups_smem = 4 * (2 * RECORD_STAGE + RECORD_RANGE + 2 * group + 1)
-    if tiles_smem > most or groups_smem > most:
-        return None
-    return 2 * tiles * min(TILE_LANES * slots, n_state) + tiles * (ranges + 1) + -(-tiles // group) * n_state
-
-
-def _record_table(n: int, n_state: int, device, slots: int = 1) -> torch.Tensor:
-    """Scratch for a record's sums (``csrc/ordered_sum.cuh``) of ``n``
-    lanes of up to ``slots`` items: the sparse pass's lists where it takes
-    them, else every bin in one batch, or whole ranges of
-    :data:`RECORD_RANGE` bins a batch where that passes
-    :data:`RECORD_TABLE_MAX` floats (``ordered::batch_bins`` finds the same
-    width in it)."""
-    tiles = -(-n // TILE_LANES)
-    words = _sparse_words(tiles, slots, n_state) if tiles else None
-    if words is not None:
-        return torch.empty(words, dtype=torch.float32, device=device)
-    width = min(n_state, RECORD_MAX_RANGES * RECORD_RANGE)
-    while width > RECORD_RANGE and _scratch_floats(tiles, width) > RECORD_TABLE_MAX:
-        width = (-(-width // RECORD_RANGE) - 1) * RECORD_RANGE
-    return torch.empty(_scratch_floats(tiles, width) if tiles else 0, dtype=torch.float32, device=device)
-
-
-#: the records' counters by (device, stream): zero between records; made
-#: under the lock, so two threads on one stream share one set
-_COUNTERS: dict = {}
-_COUNTERS_LOCK = threading.Lock()
-
-
-def _record_counters(state: torch.Tensor) -> torch.Tensor:
-    """The counters of ``csrc/ordered_sum.cuh`` for records on the current
-    stream of ``state``'s card: made zero once; each record's last blocks
-    set them back to 0, and records of one stream run one after another."""
-    key = (state.get_device(), _build.raw_stream(state))
-    counters = _COUNTERS.get(key)
-    if counters is None:
-        with _COUNTERS_LOCK:
-            counters = _COUNTERS.get(key)
-            if counters is None:
-                counters = _COUNTERS[key] = torch.zeros(
-                    RECORD_MAX_RANGES * RECORD_COUNTERS, dtype=torch.int64, device=state.device
-                )
-    return counters
-
 
 class ValueResponse(Component):
     """Maps a HitItem to a scalar detector response value
@@ -593,7 +484,8 @@ def _kde_terms(time, mask, t0, bin_size, bandwidth, n_bins, support, object_id, 
     """Per offset of the kernel's support: (kept, flat bin, bin centre,
     z = (centre - t) / h, E = exp(-z^2 / 2)), in the ops and order of
     ``theia_tpu``'s record; ``exp`` the record's (:func:`_kde_exp`) or,
-    for the backward, ``torch.exp``, as the card's backward takes expf. The bins come from the detached time; a lane
+    for the backward, ``torch.exp``, whose card version is the backward
+    kernel's expf. The bins come from the detached time; a lane
     is dropped where it is masked, where its centre ``(t - t0) / binSize``
     is not finite (a NaN or infinite time; ``theia_tpu`` casts such a
     centre to an integer, see :func:`kernel_histogram_add`) or, with a
@@ -629,19 +521,11 @@ def kernel_histogram_add_plain(
     lanes the offsets from ``-support`` up, for each the lanes in order),
     which the kernel keeps bit for bit."""
     norm = bin_size / (bandwidth * _SQRT_2PI)
-    slots = 2 * support + 1
-    lanes, bins, adds, order = [], [], [], []
-    for s, (keep, flat, _, _, e) in enumerate(
-        _kde_terms(time, mask, t0, bin_size, bandwidth, n_bins, support, object_id, n_detectors)
-    ):
-        lane = torch.nonzero(keep).squeeze(1)
-        lanes.append(lane)
-        bins.append(flat[lane])
-        adds.append((value * (e * norm))[lane])
-        order.append(((lane // 32) * slots + s) * 32 + lane % 32)
-    perm = torch.argsort(torch.cat(order))
-    lane, flat, add = (torch.cat(x)[perm] for x in (lanes, bins, adds))
-    return _add_sums(state, ordered_bin_sums(lane, flat, add, time.shape[0], state.shape[0]))
+    slots = [
+        (flat, value * (e * norm), keep)
+        for keep, flat, _, _, e in _kde_terms(time, mask, t0, bin_size, bandwidth, n_bins, support, object_id, n_detectors)
+    ]
+    return _add_sums(state, slot_sums(slots, time.shape[0], state.shape[0]))
 
 
 def kernel_histogram_grad_plain(
@@ -649,7 +533,12 @@ def kernel_histogram_grad_plain(
     object_id=None, n_detectors: int | None = None,
 ):
     """Plain version of :func:`kernel_histogram_grad`: (d value, d time,
-    d t0, d binSize, d bandwidth)."""
+    d t0, d binSize, d bandwidth), the kernel's float32 ops in its order
+    (``torch.exp``: the kernel's expf on the card), a lane's bins from
+    ``-support`` up; the three scalars its terms (d t0's the lane's ``- d
+    time``) summed over the kept lanes in the records' fixed order
+    (:func:`ordered_bin_sums`, three bins), which the kernel keeps bit for
+    bit."""
     h = bandwidth
     inv = 1.0 / (h * _SQRT_2PI)
     norm = bin_size * inv
@@ -657,6 +546,7 @@ def kernel_histogram_grad_plain(
     grad_time = torch.zeros_like(time)
     grad_bs = torch.zeros_like(time)
     grad_h = torch.zeros_like(time)
+    any_kept = torch.zeros_like(mask)
     for keep, flat, bin_f, z, e in _kde_terms(
         time, mask, t0, bin_size, bandwidth, n_bins, support, object_id, n_detectors, torch.exp
     ):
@@ -669,7 +559,12 @@ def kernel_histogram_grad_plain(
         grad_time = grad_time + kept(gv * w * z / h)
         grad_bs = grad_bs + kept(gv * (e * inv - w * z * (bin_f + 0.5) / h))
         grad_h = grad_h + kept(gv * w * (z * z - 1.0) / h)
-    return grad_value, grad_time, -grad_time.sum(), grad_bs.sum(), grad_h.sum()
+        any_kept = any_kept | keep
+    lane = torch.nonzero(any_kept).squeeze(1)
+    items = torch.stack([-grad_time[lane], grad_bs[lane], grad_h[lane]], 1).reshape(-1)
+    scalars = ordered_bin_sums(lane.repeat_interleave(3), torch.arange(3, device=time.device).repeat(lane.shape[0]),
+                               items, time.shape[0], 3)
+    return grad_value, grad_time, *scalars.unbind()
 
 
 def _check_kde(state, value, time, mask, params, n_bins, object_id, n_detectors):
@@ -787,11 +682,10 @@ def kernel_histogram_grad(
     sum of d time over the lanes, d binSize and d bandwidth the sums of
     the weights' derivatives. Dropped lanes get exact zeros. The lanes'
     two are None unless ``need_lanes``, the three scalars unless
-    ``need_params``. CUDA tensors launch ``theia_kde_grad`` (the state's
-    gradient staged in shared memory, a lane's two written without
-    atomics, the scalars summed a block and added with one atomic a
-    block each, so they agree with a sequential sum to float32 rounding
-    only), CPU tensors run the plain version."""
+    ``need_params``. CUDA tensors launch ``theia_kde_grad`` (a lane's two
+    written a thread, the scalars' terms summed in the records' fixed
+    order, no atomics: the same bits on every launch, equal to the plain
+    version's), CPU tensors run the plain version."""
     _check_kde(grad_state, value, time, mask, (t0, bin_size, bandwidth), n_bins, object_id, n_detectors)
     if grad_state.device.type == "cpu":
         grads = kernel_histogram_grad_plain(
@@ -804,10 +698,13 @@ def kernel_histogram_grad(
     lanes = (torch.empty_like(time), torch.empty_like(time)) if need_lanes else (None, None)
     scalars = torch.zeros(3, dtype=torch.float32, device=grad_state.device) if need_params else None
     if n and (need_lanes or need_params):
+        table = _record_table(n, 3, grad_state.device, 3) if need_params else None
         err = _build.library().theia_kde_grad(
             grad_state.data_ptr(), value.data_ptr(),
             *_kde_args(time, mask, object_id, n_detectors, t0, bin_size, bandwidth, n_bins, support),
-            *(None if a is None else a.data_ptr() for a in (*lanes, scalars)),
+            *(None if a is None else a.data_ptr() for a in (*lanes, scalars, table)),
+            0 if table is None else table.numel(),
+            _record_counters(grad_state).data_ptr() if need_params else None,
             _build.stream_handle(grad_state.device),
         )
         _build.check(err, "kernel_histogram_grad")

@@ -6,11 +6,7 @@
     python3 -m theia_tpu_torch.tools.card_measure baseline DIR [aos]
     python3 -m theia_tpu_torch.tools.card_measure soup DIR
     python3 -m theia_tpu_torch.tools.card_measure soup-builds
-    python3 -m theia_tpu_torch.tools.card_measure gather-builds
-    python3 -m theia_tpu_torch.tools.card_measure gather-skew
-    python3 -m theia_tpu_torch.tools.card_measure read-grad-builds [DIR]
     python3 -m theia_tpu_torch.tools.card_measure read-grad-live
-    python3 -m theia_tpu_torch.tools.card_measure kde-builds [DIR]
     python3 -m theia_tpu_torch.tools.card_measure walk-builds [DIR]
     python3 -m theia_tpu_torch.tools.card_measure gamma-track-builds [DIR]
     python3 -m theia_tpu_torch.tools.card_measure cherenkov-turns DIR
@@ -19,6 +15,7 @@
     python3 -m theia_tpu_torch.tools.card_measure sort-turns DIR
     python3 -m theia_tpu_torch.tools.card_measure record-builds [WORDS]
     python3 -m theia_tpu_torch.tools.card_measure record-turns DIR
+    python3 -m theia_tpu_torch.tools.card_measure grad-turns DIR
 
 ``tiles`` builds the scan of ``csrc/nearest_scan.cuh`` with 256 and 512
 rays a block, prints what ptxas reports for each (registers, shared
@@ -69,40 +66,9 @@ without reject() and exact(), whose results are then wrong), in turns
 with the package's, on the same recorded queries; then the shadow pairs'
 any-hit halves on masked wavefronts against compacted ones.
 
-``gather-builds`` times measurement builds of the row gathers, each from
-a copy of ``csrc`` with ``table_read.cu`` patched in the build directory
-(``GATHER_BUILDS``: the forward's tiles of 128 rows, the backward's of
-64, one tile a forward block, the forward or the backward on device
-memory looping over tiles in 8 blocks an SM, the backward held to 32
-registers (8 blocks an SM), the backward without its warp merge or with
-four scalar atomics where it adds a float4), in turns with the
-package's on ``chip_smoke.py``'s gather cases with the reconstruction's
-spans (the winners of a recorded brute shadow pair among them), forward
-and backward, queued.
-
-``gather-skew`` times the package's row gathers on ``tri_data`` with
-a share of the lanes on row 0 (0 to 100 %) and with every lane on 1 to
-1280 rows, with the reconstruction's spans and as whole rows.
-
-``read-grad-builds [DIR]`` times the table reads' backward, queued, at
-``chip_smoke.py``'s four read cases (packed at t, the const4 rule, single
-at t, four single tables at the wavelength), with every lane at one
-coordinate, with 30 %, 10 % and 0.5 % of the lanes' upstream gradients
-nonzero (``READ_GRAD_LIVE``) and on a table of 16,384 samples, with the
-tables' gradients and with d x alone: with ``DIR`` (an earlier commit's
-``csrc``, e.g. the parent's from ``git archive``) first that commit's
-kernels in turns with the package's, then measurement builds of the
-package's design (``READ_GRAD_BUILDS``: patches of ``csrc/table_read.cu``
-in a copy, chosen by a line of the design's source) in turns with it.
-
 ``read-grad-live`` counts, in each table-read backward of one step of
 each gradient path that ``profile`` traces, the lanes whose upstream
 gradient is not zero: the traffic that the backward sees on those paths.
-
-``kde-builds [DIR]`` does the same for the kernel histogram's backward
-(``KDE_BUILDS``, patches of ``csrc/kernel_histogram.cu``) at N = 524,288
-with 10 %, 50 % and 100 % of the lanes unmasked, every lane in one bin,
-and a detector axis.
 
 ``sort-turns DIR`` times the wavefront sort and the scatter back of
 ``DIR`` (an earlier commit's ``csrc`` with the same C interface of
@@ -182,6 +148,22 @@ to split its time: a hash in each Philox draw's place, and the rounds'
 logs, exp and divisions by the fast approximate intrinsics; K2 with
 lists of 8 and 4 and tiles of 128 and 512 rows) in turns with the
 package's.
+
+``grad-turns DIR`` times the backward kernels of ``DIR`` (an earlier
+commit's ``csrc`` whose backward kernels add with float atomics and take
+their C interface, ``ATOMIC_GRAD_SIGNATURES``; only ``table_read.cu`` and
+``kernel_histogram.cu`` are built, with their headers) in turns with the
+package's (atomics, ordered, ordered, atomics), as called and queued, on
+the recorded calls of one step of each gradient run (``_GRAD_RUNS``:
+flagship-woop-pol-grad, flagship-volume-grad's two steps,
+flagship-brute-geom-grad and scene-backward-target-grad at 262,144
+lanes, and the 2,048-lane step that each gloo rank of
+gloo-ranks-one-card takes a share of, in one process): all of a step's
+calls, and the calls of each kernel apart, each call's outputs held
+within float32 rounding of the other's, with the queued ratio. Then
+seconds a step of each run with the tree of ``DIR`` (``DIR``'s grandparent
+directory, e.g. ``build/parent`` for ``build/parent/theia_tpu_torch/csrc``
+from ``git archive HEAD``) and with this one in turns, a process each.
 
 ``cherenkov-turns DIR`` times seconds a batch of the Cherenkov runs
 (``chip_smoke.py`` phase 3m's cherenkov-muon, cherenkov-cascade,
@@ -701,194 +683,6 @@ def soup_builds() -> dict:
     return out
 
 
-#: measurement builds of the row gathers: a copy of ``csrc`` with each
-#: (text, replacement) of ``csrc/table_read.cu`` made; their results are
-#: the package's
-GATHER_BUILDS = {
-    "forward tiles of 128 rows": (("constexpr int kPasses = 2;", "constexpr int kPasses = 4;"),),
-    "backward tiles of 64 rows": (("constexpr int kGradPasses = 4;", "constexpr int kGradPasses = 2;"),),
-    "forward one tile a block": (("constexpr int kForwardTiles = 4;", "constexpr int kForwardTiles = 1;"),),
-    "forward in 8 blocks an SM": (
-        ("grid_for(count, kForwardTiles * Tile<kPasses>::kRows, kMostBlocksPerSm, &err)",
-         "grid_for(count, Tile<kPasses>::kRows, kGatherBlocksPerSm, &err)"),),
-    "backward in 8 blocks an SM": (("grid_for(count, T::kRows, kMostBlocksPerSm, &err)",
-                                    "grid_for(count, T::kRows, kGatherBlocksPerSm, &err)"),),
-    "backward held to 32 registers": (("__launch_bounds__(kGatherThreads)\n    gather_rows32_grad(",
-                                       "__launch_bounds__(kGatherThreads, kGatherBlocksPerSm)\n    gather_rows32_grad("),),
-    "no warp merge": (("& (0x01010101u << sub);", "& (1u << lane);"),),
-    "scalar atomics": (("  atomicAdd(reinterpret_cast<float4*>(p), v);",
-                        "  atomicAdd(p, v.x);\n  atomicAdd(p + 1, v.y);\n  atomicAdd(p + 2, v.z);\n  atomicAdd(p + 3, v.w);"),),
-}
-
-
-class GatherCalls:
-    """The row gather and its backward of one built library on one case of
-    ``chip_smoke.gather_cases``, through the C entry points, outputs made
-    beforehand: ``forward`` and ``backward`` (the zero fill of the table's
-    gradient, which the wrapper makes, and the launch)."""
-
-    def __init__(self, lib, table, columns, index, hit) -> None:
-        from theia_tpu_torch.ops import table_read
-
-        self.lib, self.table, self.index = lib, table, index
-        spans, self.spec = table_read._span_set(columns, table.shape[1])
-        n = index.shape[0]
-        self.outs = tuple(torch.empty((n, b - a), dtype=torch.int32 if i else torch.float32, device="cuda")
-                          for a, b, i in spans)
-        gen = torch.Generator(device="cuda").manual_seed(5)
-        self.grads = [None if i else torch.randn(n, b - a, device="cuda", generator=gen) for a, b, i in spans]
-        if hit is not None:
-            self.grads = [None if g is None else torch.where(hit[:, None], g, 0.0) for g in self.grads]
-        self.out_ptrs, self.grad_ptrs = table_read._pointers(self.outs), table_read._pointers(self.grads)
-        self.grad = torch.zeros(table.shape, device="cuda")
-        self.stream = torch.cuda.current_stream().cuda_stream
-
-    def forward(self):
-        t = self.table
-        _build.check(self.lib.theia_gather_rows(t.data_ptr(), t.shape[0], t.shape[1], self.index.data_ptr(),
-                                                self.index.shape[0], ctypes.byref(self.spec), self.out_ptrs,
-                                                self.stream), "theia_gather_rows")
-        return self.outs
-
-    def backward(self):
-        self.grad.zero_()
-        t = self.table
-        _build.check(self.lib.theia_gather_rows_grad(ctypes.byref(self.spec), self.grad_ptrs, self.index.data_ptr(),
-                                                     self.index.shape[0], t.shape[0], t.shape[1],
-                                                     self.grad.data_ptr(), self.stream), "theia_gather_rows_grad")
-        return self.grad
-
-
-def gather_builds() -> dict:
-    """The row gathers of each build of ``GATHER_BUILDS`` in turns with the
-    package's (package, build, build, package) on ``chip_smoke``'s gather
-    cases with the reconstruction's spans, the winners those of one
-    recorded shadow pair of a brute batch: the forward bit-equal to the
-    package's, the backward within 2e-5 of the absolute shares; ms as
-    called and queued."""
-    tracer = build_flagship(theia_tpu_torch, icosphere(3), chip_smoke.BATCH, chip_smoke.MAX_PATH, accel="auto",
-                            device="cuda")
-    pack = tracer.scene.pack
-    shadow = chip_smoke.record_soup_queries(tracer, "target_in_table")
-    bare = chip_smoke.Soup("target_in_table", pack, rows=False)
-    winners = bare.run(bare.kernel, bare.tables[0], shadow[0][:3], shadow[0][3], shadow[0][4])[1]
-    from theia_tpu_torch.ops.table_read import gather_rows_grad_plain
-
-    cases = chip_smoke.gather_cases(pack, winners)
-    base = {label: GatherCalls(_build.library(), *case) for label, case in cases.items()}
-    out = {"package": dict(ptxas=_kernel_ptxas(_build.library().build_log, "gather_rows"))}
-    for line in out["package"]["ptxas"]:
-        print("    package:", line)
-    for label, patches in GATHER_BUILDS.items():
-        lib = patched_build(label, patches, "table_read.cu")
-        entry = out[label] = dict(patches=patches, ptxas=_kernel_ptxas(lib.build_log, "gather_rows"))
-        for name, case in cases.items():
-            calls = GatherCalls(lib, *case)
-            assert all(torch.equal(a, b) for a, b in zip(base[name].forward(), calls.forward())), (label, name)
-            # each within 2e-5 of the exact sums, so within 4e-5 of each other
-            want, got = base[name].backward().clone(), calls.backward()
-            table, columns, index = case[:3]
-            shares = gather_rows_grad_plain(table.shape, index, [None if g is None else g.abs() for g in calls.grads],
-                                            columns)
-            assert float(((got - want).abs() - 4e-5 * shares).max()) <= 0.0, (label, name)
-            for kind in ("forward", "backward"):
-                t = entry[f"{name}, {kind}"] = _in_turns(base[name], calls, kind, 20)
-                print(f"gather {kind} on {name} (N = {case[2].shape[0]}), {label}: package {t['old_queued_ms'][0]:.4f} / "
-                      f"{t['old_queued_ms'][1]:.4f} ms, build {t['new_queued_ms'][0]:.4f} / "
-                      f"{t['new_queued_ms'][1]:.4f} ms (queued; package, build, build, package)")
-        for line in entry["ptxas"]:
-            print("   ", line)
-    return out
-
-
-def gather_skew() -> dict:
-    """The package's row gathers, forward and backward, queued, on the
-    flagship's ``tri_data`` with the reconstruction's spans and as whole
-    rows at N = 262,144 as the rows' distribution is skewed: a share of the
-    lanes on row 0 (as a shadow query's misses are), and every lane on a
-    few rows; the backward's gradient 0 on the lanes of row 0 where they
-    stand for misses, random elsewhere."""
-    from theia_tpu_torch.accel import TRI_COLUMNS
-
-    pack = build_flagship(theia_tpu_torch, icosphere(3), 64, 2, accel="auto", device="cuda").scene.pack
-    table, n = pack.tri_data, chip_smoke.BATCH
-    rng = np.random.default_rng(9)
-    cases = {}
-    for share in (0.0, 0.5, 0.9, 1.0):
-        on_zero = rng.uniform(size=n) < share
-        rows = np.where(on_zero, 0, rng.integers(0, table.shape[0], n))
-        cases[f"{share:.0%} of the lanes on row 0"] = (rows, ~on_zero)
-    for hot in (1, 4, 32, 1280):
-        cases[f"every lane on {hot} rows"] = (rng.integers(0, hot, n), np.ones(n, bool))
-    out = {}
-    for label, (rows, hit) in cases.items():
-        index = torch.as_tensor(rows.astype(np.int32), device="cuda")
-        hit = torch.as_tensor(hit, device="cuda")
-        for columns in (TRI_COLUMNS, None):
-            calls = GatherCalls(_build.library(), table, columns, index, hit)
-            name = f"{label}, {'spans' if columns else 'whole rows'}"
-            out[name] = {kind: chip_smoke.cuda_ms_queued(getattr(calls, kind), 20) for kind in ("forward", "backward")}
-            print(f"gather on {name}: forward {out[name]['forward']:.4f} ms, backward {out[name]['backward']:.4f} ms "
-                  f"(queued)")
-    return out
-
-
-#: the read cases of ``chip_smoke.read_cases`` whose backward the
-#: measurement builds time: packed at t, the const4 rule, single at t, four
-#: single tables at the wavelength
-READ_GRAD_CASES = ("read_packed", "read_packed, const4", "read_table", "read_table, medium constants")
-#: measurement builds of the table reads' backward, by design: a copy of
-#: ``csrc`` with each (text, replacement) of ``csrc/table_read.cu`` made;
-#: a design is told by a line that only its source holds
-READ_GRAD_BUILDS = {
-    # a block's shared copy of every table's gradient, flushed with a global
-    # atomic a nonzero entry, 512 threads, 2 blocks an SM
-    "constexpr int kGradBlocksPerSm = 2;": {
-        "no flush (results wrong)": (("        if (v != 0.0f) atomicAdd(grads.table[k] + e, v);",
-                                      "        (void)v;"),),
-        "1 block an SM": (("constexpr int kGradBlocksPerSm = 2;", "constexpr int kGradBlocksPerSm = 1;"),),
-        "4 blocks an SM": (("constexpr int kGradBlocksPerSm = 2;", "constexpr int kGradBlocksPerSm = 4;"),),
-        "8 blocks an SM": (("constexpr int kGradBlocksPerSm = 2;", "constexpr int kGradBlocksPerSm = 8;"),),
-    },
-}
-#: the shares of lanes with a nonzero upstream gradient at which
-#: ``read_grad_builds`` also times each read case (the rest zero, as a
-#: tracer's dead lanes are)
-READ_GRAD_LIVE = (0.3, 0.1, 0.005)
-
-
-class ReadGradCalls:
-    """The table reads' backward of one built library on read case ``c``
-    with upstream gradients ``g`` (one a table), through the C entry point:
-    ``backward`` (the tables' gradients, views of one buffer, zeroed in one
-    fill, and the launch) with the tables' gradients, or with ``grad_x``
-    alone."""
-
-    def __init__(self, lib, c, g, tables: bool) -> None:
-        self.lib = lib
-        self.reader, self.tables, _, _, self.handle, self.x = chip_smoke._read_reader(c)
-        live = [t for t in self.tables if tables and t is not None]
-        self.buffer = torch.zeros(max(sum(t.numel() for t in live), 1), device="cuda")
-        self.grads, at = [], 0
-        for t in self.tables:
-            self.grads.append(self.buffer[at : at + t.numel()].view(t.shape) if tables and t is not None else None)
-            at += t.numel() if tables and t is not None else 0
-        self.grad_x = torch.empty_like(self.x)
-        self.stream = torch.cuda.current_stream().cuda_stream
-        pad = [None] * (4 - len(self.tables))
-        self.rows = [_ptr(r) for r in g] + pad
-        self.outs = [_ptr(r) for r in self.grads] + pad
-
-    def backward(self):
-        x = self.x
-        if any(grad is not None for grad in self.grads):
-            self.buffer.zero_()
-        _build.check(self.lib.theia_table_read_grad(
-            self.reader.spec_address, _ptr(self.handle), x.data_ptr(), x.stride(0), *self.rows, x.shape[0],
-            *self.outs, self.grad_x.data_ptr(), self.stream), "theia_table_read_grad")
-        return self.grads, self.grad_x
-
-
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
@@ -920,77 +714,6 @@ def _design(source: Path, builds: dict) -> dict:
     found = [b for marker, b in builds.items() if marker in text]
     assert len(found) == 1, f"{source}: no measurement builds for its design"
     return found[0]
-
-
-def read_grad_builds(parent: Path | None) -> dict:
-    """The table reads' backward at ``chip_smoke``'s read cases
-    (``READ_GRAD_CASES``, N = 262,144), with every lane at one coordinate
-    (``chip_smoke.hot_read_case``), with a share of the lanes' upstream
-    gradients nonzero (``READ_GRAD_LIVE``: a tracer's dead lanes) and on a
-    single table of 16,384 samples, with the tables' gradients and with d
-    x alone, queued: with ``parent`` (an earlier commit's ``csrc``) first
-    the package's kernels in turns with the parent's (parent, package,
-    package, parent), then each measurement build of the package's design
-    (``READ_GRAD_BUILDS``) in turns with the package's (package, build,
-    build, package). d x is held bit-equal to the first's everywhere, the
-    tables' gradients within 4e-5 of the absolute shares where the build
-    keeps the results."""
-    store = build_flagship(theia_tpu_torch, icosphere(1), 64, 2, accel="auto", device="cuda").scene.pack.media
-    medium = build_volume_flagship(theia_tpu_torch, 64, "cuda").params()["medium"]
-    every = chip_smoke.read_cases(store, medium)
-    cases = {}
-    for name in READ_GRAD_CASES:
-        cases[name] = every[name]
-        cases[f"{name}, every lane at one coordinate"] = chip_smoke.hot_read_case(every[name])
-    gen = torch.Generator(device="cuda").manual_seed(11)
-    ups = {name: tuple(torch.randn(c["args"][-2].shape, device="cuda", generator=gen) for _ in
-                       (c["args"][0] if isinstance(c["args"][0], tuple) else (c["args"][0],))) for name, c in cases.items()}
-    # a share of the lanes live (the rest with zero upstream gradients, as a tracer's dead lanes)
-    for name in READ_GRAD_CASES:
-        for share in READ_GRAD_LIVE:
-            live = f"{name}, {share:g} of the lanes live"
-            cases[live] = every[name]
-            ups[live] = chip_smoke.live_grads(ups[name], share, gen)
-    # a single table of 16,384 samples: its gradient still in a block's shared copy
-    band = chip_smoke.sized_read_case(every["read_table"], 16_384)
-    cases["read_table, 16,384 samples"] = band
-    ups["read_table, 16,384 samples"] = ups["read_table"]
-    package = _build.library()
-    out = {"package": dict(ptxas=_kernel_ptxas(package.build_log, "read_tables_grad"))}
-    for line in out["package"]["ptxas"]:
-        print("    package:", line)
-    # label -> (patches of the package's source, or None; the library the build is timed against)
-    builds = {}
-    if parent is not None:
-        builds["package against the parent"] = (None, _build.build(parent, (), _base_sources(parent)[1]))
-    builds.update({label: (patches, package) for label, patches in
-                   _design(_build.CSRC / "table_read.cu", READ_GRAD_BUILDS).items()})
-    for label, (patches, base_lib) in builds.items():
-        lib = package if patches is None else patched_build(label, patches, "table_read.cu")
-        entry = out[label] = dict(patches=patches, ptxas=_kernel_ptxas(lib.build_log, "read_tables_grad"))
-        for name, c in cases.items():
-            for tables in (True, False):
-                base, calls = ReadGradCalls(base_lib, c, ups[name], tables), ReadGradCalls(lib, c, ups[name], tables)
-                base.backward()
-                got_t, got_x = calls.backward()
-                torch.cuda.synchronize()
-                if not label.endswith("(results wrong)"):
-                    assert chip_smoke.same(got_x, base.grad_x), (label, name, "d x")
-                if tables and not label.endswith("(results wrong)"):
-                    for a, b, s in zip(got_t, base.grads, _abs_shares(c, ups[name])):
-                        if b is not None:
-                            finite = torch.isfinite(b)
-                            assert float(((a - b)[finite].abs() - 4e-5 * s[finite]).max()) <= 0.0, (label, name)
-                key = f"{name}, {'tables and d x' if tables else 'd x alone'}"
-                t = entry[key] = _in_turns(base, calls, "backward", 20)
-                print(f"read backward on {key}, {label}: base {t['old_queued_ms'][0]:.4f} / "
-                      f"{t['old_queued_ms'][1]:.4f} ms, build {t['new_queued_ms'][0]:.4f} / "
-                      f"{t['new_queued_ms'][1]:.4f} ms (queued; base, build, build, base)")
-        for line in entry["ptxas"] if patches is not None else _kernel_ptxas(base_lib.build_log, "read_tables_grad"):
-            print("    " + ("" if patches is not None else "parent: ") + line)
-    out["empty launch"] = chip_smoke.empty_launch_ms()
-    print(f"empty launch: {out['empty launch']['queued_ms']:.4f} ms queued")
-    return out
 
 
 def read_grad_live() -> dict:
@@ -1051,129 +774,6 @@ def read_grad_live() -> dict:
     finally:
         tr._backward = inner
     return out
-
-
-def _abs_shares(c, g):
-    """The plain backward's tables' gradients on |g|: each entry's sum of
-    absolute shares."""
-    _, _, _, grad_plain = chip_smoke.read_calls(c, g)
-    one = not isinstance(c["args"][0], tuple)
-    got, _ = grad_plain(g[0].abs() if one else tuple(a.abs() for a in g))
-    return chip_smoke._outputs(got)
-
-
-#: kde measurement builds, by design (as ``READ_GRAD_BUILDS``). The first: a
-#: thread a lane, a lane's 9 bins in a loop, five IEEE divisions a pair
-_KDE_FIRST_LOOP = ("    if (kept(in, i, p, &t, &base, &offset)) {\n      const float v = in.value[i];\n"
-                 "      for (int o = -in.support; o <= in.support; ++o) {")
-KDE_BUILDS = {
-    "        dt = dt + __fdiv_rn(gv * w * z, p.h);": {
-        "the three gradient divisions as products": (
-            ("  const float norm = p.bin_size * inv;\n  float sum_t",
-             "  const float norm = p.bin_size * inv;\n  const float rh = __fdiv_rn(1.0f, p.h);\n  float sum_t"),
-            ("        dt = dt + __fdiv_rn(gv * w * z, p.h);", "        dt = dt + gv * w * z * rh;"),
-            ("        dbs = dbs + gv * (e * inv - __fdiv_rn(w * z * (bf + 0.5f), p.h));",
-             "        dbs = dbs + gv * (e * inv - w * z * (bf + 0.5f) * rh);"),
-            ("        dh = dh + __fdiv_rn(gv * w * (z * z - 1.0f), p.h);",
-             "        dh = dh + gv * w * (z * z - 1.0f) * rh;"),
-        ),
-        "one bin a lane (results wrong)": ((_KDE_FIRST_LOOP, _KDE_FIRST_LOOP.replace("o = -in.support", "o = 0")
-                                            .replace("o <= in.support", "o <= 0")),),
-    },
-    # the current one: a block's list of kept lanes dealt a round of threads at a
-    # time, the three gradient divisions by h as products by 1 / h
-    "    dt = dt + gv * w * z * rh;": {
-        "the three gradient divisions kept": (
-            ("    dt = dt + gv * w * z * rh;", "    dt = dt + __fdiv_rn(gv * w * z, p.h);"),
-            ("    dbs = dbs + gv * (e * inv - w * z * (bf + 0.5f) * rh);",
-             "    dbs = dbs + gv * (e * inv - __fdiv_rn(w * z * (bf + 0.5f), p.h));"),
-            ("    dh = dh + gv * w * (z * z - 1.0f) * rh;", "    dh = dh + __fdiv_rn(gv * w * (z * z - 1.0f), p.h);"),
-        ),
-        "2 blocks an SM": (("constexpr int kGradBlocksPerSm = 4;", "constexpr int kGradBlocksPerSm = 2;"),),
-        "8 blocks an SM": (("constexpr int kGradBlocksPerSm = 4;", "constexpr int kGradBlocksPerSm = 8;"),),
-        "no bins (results wrong)": (("  for (int o = -in.support; o <= in.support; ++o) {\n    const float bf",
-                                     "  for (int o = 0; o < 0; ++o) {\n    const float bf"),),
-    },
-}
-
-
-class KdeCalls:
-    """The kernel histogram's backward of one built library on one
-    ``chip_smoke.kde_case``, through its C entry point (the scalars'
-    zero fill, which the wrapper makes, and the launch)."""
-
-    def __init__(self, lib, case, grad_state) -> None:
-        value, time_, mask, t0, bs, bw, bins, support, oid, n_det = case
-        self.lib, self.case, self.grad_state = lib, case, grad_state
-        self.grad_value, self.grad_time = torch.empty_like(time_), torch.empty_like(time_)
-        self.params = torch.zeros(3, device="cuda")
-        self.args = (grad_state.data_ptr(), value.data_ptr(), time_.data_ptr(), mask.data_ptr(), _ptr(oid),
-                     t0.data_ptr(), bs.data_ptr(), bw.data_ptr(), time_.shape[0], bins, n_det or 0, support,
-                     self.grad_value.data_ptr(), self.grad_time.data_ptr(), self.params.data_ptr(),
-                     torch.cuda.current_stream().cuda_stream)
-
-    def backward(self):
-        self.params.zero_()
-        _build.check(self.lib.theia_kde_grad(*self.args), "theia_kde_grad")
-        return self.grad_value, self.grad_time, self.params
-
-
-def kde_builds(parent: Path | None) -> dict:
-    """The kernel histogram's backward at ``chip_smoke.kde_case``'s N =
-    524,288 with 10 %, 50 % and 100 % of the lanes unmasked, all lanes in
-    one bin, and with a detector axis, queued: the kernels of ``parent``
-    or of the package in turns with each measurement build of their design
-    (``KDE_BUILDS``: base, build, build, base), with ``parent`` also the
-    package's in turns with the parent's. The builds that keep the results
-    hold ``chip_smoke.hold_kde``'s tolerances against the base."""
-    n = 2 * chip_smoke.BATCH
-    cases = {f"mask {kept}": chip_smoke.kde_case(n, 3, kept=kept) for kept in (0.1, 0.5, 1.0)}
-    one = chip_smoke.kde_case(n, 3, kept=1.0)
-    cases["every lane in one bin"] = (one[0], torch.full_like(one[1], 252.5), *one[2:])
-    cases["a detector axis (3), mask 0.5"] = chip_smoke.kde_case(n, 6, n_det=3)
-    record = kde_record_builds(parent, kde_record_cases())
-    csrc, sigs = _base_sources(parent)
-    base_lib = _build.build(csrc, (), sigs)
-    out = {"record": record, "base": dict(csrc=str(csrc), ptxas=_kernel_ptxas(base_lib.build_log, "kde_grad"))}
-    builds = {label: (patches, base_lib) for label, patches in
-              _design(csrc / "kernel_histogram.cu", KDE_BUILDS).items()}
-    if parent is not None:
-        builds["package"] = (None, _build.library())
-    for label, (patches, lib) in builds.items():
-        if patches is not None:
-            lib = patched_build(label, patches, "kernel_histogram.cu", csrc, sigs)
-        entry = out[label] = dict(patches=patches, ptxas=_kernel_ptxas(lib.build_log, "kde_grad"))
-        for name, case in cases.items():
-            g = torch.randn(case[6] * (case[9] or 1), device="cuda", generator=torch.Generator("cuda").manual_seed(3))
-            base, calls = KdeCalls(base_lib, case, g), KdeCalls(lib, case, g)
-            want = [a.clone() for a in base.backward()]
-            got = calls.backward()
-            torch.cuda.synchronize()
-            if not label.endswith("(results wrong)"):
-                for what, a, b, rtol in zip(("d value", "d time", "d params"), got, want, (1e-5, 1e-5, 1e-4)):
-                    atol = rtol * (float(b.abs().max()) or 1.0)
-                    torch.testing.assert_close(a, b, rtol=rtol, atol=atol, msg=lambda m: f"{label}, {name}, {what}: {m}")
-            t = entry[name] = _in_turns(base, calls, "backward", 20)
-            print(f"kde backward on {name}, {label}: base {t['old_queued_ms'][0]:.4f} / {t['old_queued_ms'][1]:.4f} "
-                  f"ms, build {t['new_queued_ms'][0]:.4f} / {t['new_queued_ms'][1]:.4f} ms (queued; base, build, "
-                  f"build, base)")
-        for line in entry["ptxas"]:
-            print("   ", line)
-    out["empty launch"] = chip_smoke.empty_launch_ms()
-    print(f"empty launch: {out['empty launch']['queued_ms']:.4f} ms queued")
-    return out
-
-
-#: the record's measurement builds, by design (as ``KDE_BUILDS``): a thread a
-#: lane in up to 8 blocks an SM, a block's shared histogram flushed with a
-#: global atomic a bin
-_KDE_ADD = "      if (add != 0.0f) atomicAdd(dst + offset + static_cast<int>(bf), add);"
-KDE_ADD_BUILDS = {
-    _KDE_ADD: {
-        "record, 2 blocks an SM": (("constexpr int kBlocksPerSm = 8;", "constexpr int kBlocksPerSm = 2;"),),
-        "record without adds (results wrong)": ((_KDE_ADD, _KDE_ADD.replace("add != 0.0f", "add != add")),),
-    },
-}
 
 
 class KdeAddCalls:
@@ -1251,56 +851,7 @@ def _builds(parent: Path | None, source: str, designs: dict) -> dict:
     return out
 
 
-def kde_record_cases() -> dict:
-    """The record's timing cases: label -> calls. The synthetic ones at N =
-    524,288 (mask 0.5 as ``chip_smoke.check_kernel_histogram``'s main case,
-    ``chip_smoke.kde_cases``, 1 lane in 1000 kept), the large-state case,
-    and the recorded calls of one step of each gradient path
-    (``chip_smoke.kde_path_calls``), whose ``kde_call_stats`` are printed."""
-    n = 2 * chip_smoke.BATCH
-    cases = {"synthetic, mask 0.5": [chip_smoke.kde_case(n, 3)]}
-    cases.update({label: [case] for label, case in chip_smoke.kde_cases(n).items()})
-    cases["1 lane in 1000 kept"] = [chip_smoke.kde_case(n, 24, kept=1e-3)]
-    cases["a state past shared memory (64,000 flat bins)"] = [chip_smoke.kde_case(100_000, 9, bins=1000, n_det=64)]
-    for label, calls in chip_smoke.kde_path_calls(icosphere(3)).items():
-        cases[label] = calls
-        stats = [chip_smoke.kde_call_stats(c) for c in calls]
-        print(f"{label}: {len(calls)} calls a step, lanes {sorted({s['lanes'] for s in stats})}")
-        for key, form in (("unmasked", ".4f"), ("kept", ".4f"), ("distinct_bases", "d"), ("top10_share", ".3f")):
-            print(f"    {key} of each call: " + " ".join(format(st[key], form) for st in stats))
-    return cases
-
-
-def kde_record_builds(parent: Path | None, cases: dict) -> dict:
-    """The record on ``cases``: with ``parent`` (an earlier commit's
-    ``csrc``) the package's kernels in turns with the parent's (parent,
-    package, package, parent), then each measurement build of the
-    package's design (``KDE_ADD_BUILDS``) in turns with the package; the
-    builds that keep the results hold ``chip_smoke.hold_kde``'s record
-    tolerance (rtol 1e-4 a bin) against their base. Each library's SASS of
-    ``kde_add``."""
-    package = _build.library()
-    out = {"package": dict(sass=chip_smoke.sass_report(package, ("kde_add",)),
-                           ptxas=_kernel_ptxas(package.build_log, "kde_add"))}
-    for label, (base_lib, lib, patches, _) in _builds(parent, "kernel_histogram.cu", KDE_ADD_BUILDS).items():
-        entry = out[label] = dict(patches=patches, sass=chip_smoke.sass_report(lib, ("kde_add",)),
-                                  ptxas=_kernel_ptxas(lib.build_log, "kde_add"))
-        for name, calls in cases.items():
-            base, other = KdeAddCalls(base_lib, calls), KdeAddCalls(lib, calls)
-            want, got = base.result(), other.result()
-            if not label.endswith("(results wrong)"):
-                scale = float(want.abs().max()) or 1.0
-                torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6 * scale, msg=lambda m: f"{label}, {name}: {m}")
-            t = entry[name] = _turns(base, other, "add", len(calls))
-            _print_turns(f"kde record on {name} ({len(calls)} calls)", label, t)
-        for line in entry["ptxas"]:
-            print("   ", line)
-    out["empty launch"] = chip_smoke.empty_launch_ms()
-    print(f"empty launch: {out['empty launch']['queued_ms']:.4f} ms queued")
-    return out
-
-
-#: the Sobol draw's measurement builds, by design (as ``KDE_BUILDS``). The
+#: the Sobol draw's measurement builds, by design (keyed by a line of the design's source). The
 #: first: a thread a lane, the row read as eight 16-byte loads, each bit's
 #: mask made with two shifts
 _SOBOL_FIRST_FOLD = ("      const uint32_t mask = static_cast<uint32_t>(static_cast<int32_t>(idx << (31 - b)) >> 31);\n"
@@ -1390,8 +941,7 @@ def sobol_cases() -> dict:
 
 
 def sobol_builds(parent: Path | None) -> dict:
-    """The Sobol draw on ``sobol_cases``, as ``kde_record_builds`` times the
-    record: with ``parent`` the package's kernel in turns with the
+    """The Sobol draw on ``sobol_cases``: with ``parent`` the package's kernel in turns with the
     parent's, then the measurement builds of the package's design
     (``SOBOL_BUILDS``) in turns with the package; results held bit for bit
     against their base where the build keeps them. Each library's SASS of
@@ -2532,6 +2082,222 @@ def record_turns(parent: Path) -> dict:
     return out
 
 
+#: the entry points of the backward kernels before they kept a fixed
+#: order (float atomics; the commit before the ordered backward kernels)
+ATOMIC_GRAD_SIGNATURES = (
+    ("theia_table_read_grad", (_P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P)),
+    ("theia_gather_rows_grad", (_P, _P, _P, _I, _I, _I, _P, _P)),
+    ("theia_kde_grad", (_P,) * 8 + (_I,) * 4 + (_P,) * 4),
+)
+#: the gradient runs whose steps ``grad-turns`` replays and times, written
+#: against a tree's package P, its chip_smoke C and its tests' helpers F, so
+#: that the parent's tree runs them too: label -> (a tracer, its step)
+_GRAD_RUNS = """
+def grad_runs(P, C, F, mesh):
+    import numpy as np
+    from theia_tpu_torch.response import KernelHistogramHitResponse
+
+    kde = lambda: KernelHistogramHitResponse(nBins=100, t0=0.0, binSize=5.0, bandwidth=5.0)
+    absorption = lambda t: (lambda: C.absorption_grad(t))
+    return {
+        "flagship-woop-pol-grad": (lambda: F.build_flagship(P, mesh, C.BATCH, C.MAX_PATH, accel="woop",
+                                                            polarized=True, device="cuda"), absorption),
+        "flagship-volume-grad, absorption": (lambda: F.build_volume_flagship(P, C.BATCH, "cuda"),
+                                             lambda t: C.scale_step(t, "absorption_coef", float(np.log(1.35)))),
+        "flagship-volume-grad, group velocity": (
+            lambda: F.build_volume_flagship(P, C.BATCH, "cuda", response=kde()),
+            lambda t: C.scale_step(t, "group_velocity", float(np.log(0.92)))),
+        "flagship-brute-geom-grad": (lambda: F.build_flagship(P, mesh, C.BATCH, C.MAX_PATH, accel="auto",
+                                                              device="cuda", response=kde()), C.geometry_step),
+        "scene-backward-target-grad": (lambda: F.build_backward_eta2(P, C.BATCH, "cuda", mesh=mesh), C.index_step),
+        "gloo-ranks-one-card's step in one process": (
+            lambda: F.build_flagship(P, mesh, C.GRAD_BATCH, C.GRAD_PATH, accel="auto", device="cuda"), absorption),
+    }
+"""
+#: one process of ``grad-turns``: seconds a step of each gradient run with
+#: the package, chip_smoke and tests' helpers of the tree argv[1] (argv[2]
+#: timed steps after one)
+_GRAD_CHILD = """
+import json, sys, time
+root, reps = sys.argv[1], int(sys.argv[2])
+sys.path[:0] = [root, root + "/tests"]
+import torch
+import chip_smoke as C
+import theia_tpu_torch as P
+import torch_flagship as F
+assert P.__file__.startswith(root) and C.__file__.startswith(root), (P.__file__, C.__file__)
+exec(sys.stdin.read())
+out = {}
+for label, (build, make) in grad_runs(P, C, F, F.icosphere(3)).items():
+    step = make(build())
+    step()
+    torch.cuda.synchronize()
+    seconds = []
+    for _ in range(reps):
+        start = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - start)
+    out[label] = seconds
+    del step
+    torch.cuda.empty_cache()
+print("SECONDS " + json.dumps(out))
+"""
+GRAD_STEP_REPS = 5
+
+
+class AtomicGradCalls:
+    """A step's recorded backward calls (``chip_smoke.record_grad_calls``)
+    through the float-atomic entry points of ``lib``, as that commit's
+    wrappers made them: the outputs' zero fills and the launch a call."""
+
+    def __init__(self, lib, calls) -> None:
+        from theia_tpu_torch import response
+        from theia_tpu_torch.ops import table_read
+
+        self.fns, stream = [], torch.cuda.current_stream().cuda_stream
+        for kind, args, kw in calls:
+            if kind == "read":
+                reader, tables, _, _, handle, x, grad_out, need_tables, need_x = args
+                need = [bool(n) and t is not None for n, t in zip(need_tables, tables)]
+                rows = [None if g is None else g.contiguous() for g in grad_out] + [None] * (4 - len(tables))
+
+                def call(reader=reader, tables=tables, handle=handle, x=x, rows=rows, need=need, need_x=need_x):
+                    grads = [torch.zeros_like(t) if n else None for n, t in zip(need, tables)]
+                    grad_x = torch.empty(x.shape, dtype=torch.float32, device=x.device) if need_x else None
+                    if x.shape[0] and (need_x or any(need)):
+                        _build.check(lib.theia_table_read_grad(
+                            reader.spec_address, _ptr(handle), x.data_ptr(), x.stride(0), *map(_ptr, rows),
+                            x.shape[0], *map(_ptr, grads + [None] * (4 - len(grads))), _ptr(grad_x), stream),
+                            "theia_table_read_grad")
+                    return (*grads, grad_x)
+            elif kind == "gather":
+                shape, index, grad_out, columns = args
+                spans, spec = table_read._span_set(columns, shape[1])
+                grads = table_read._gradients(spans, index, (grad_out,) if columns is None else tuple(grad_out))
+                pointers = table_read._pointers(grads)
+
+                def call(shape=shape, index=index, spec=spec, pointers=pointers, grads=grads):
+                    grad = torch.zeros(shape, dtype=torch.float32, device=index.device)
+                    if index.shape[0] and any(g is not None for g in grads):
+                        _build.check(lib.theia_gather_rows_grad(ctypes.byref(spec), pointers, index.data_ptr(),
+                                                                index.shape[0], shape[0], shape[1], grad.data_ptr(),
+                                                                stream), "theia_gather_rows_grad")
+                    return (grad,)
+            else:
+                grad_state, value, time_, mask, t0, bs, bw, bins, support, oid, n_det = args
+                need_lanes, need_params = kw.get("need_lanes", True), kw.get("need_params", True)
+                lanes = response._kde_args(time_, mask, oid, n_det, t0, bs, bw, bins, support)
+
+                def call(grad_state=grad_state, value=value, time_=time_, lanes=lanes, need_lanes=need_lanes,
+                         need_params=need_params):
+                    out = (torch.empty_like(time_), torch.empty_like(time_)) if need_lanes else (None, None)
+                    scalars = torch.zeros(3, device=time_.device) if need_params else None
+                    if time_.shape[0] and (need_lanes or need_params):
+                        _build.check(lib.theia_kde_grad(grad_state.data_ptr(), value.data_ptr(), *lanes,
+                                                        *map(_ptr, (*out, scalars)), stream), "theia_kde_grad")
+                    return (*out, *(scalars.unbind() if need_params else (None,) * 3))
+            self.fns.append(call)
+
+    def backward(self):
+        return [f() for f in self.fns]
+
+
+class PackageGradCalls:
+    """The same calls through the package's wrappers."""
+
+    def __init__(self, calls) -> None:
+        self.fns = [chip_smoke.grad_call(*call) for call in calls]
+
+    def backward(self):
+        return [f() for f in self.fns]
+
+
+def _agree(old, new, label: str) -> None:
+    """The float-atomic and the ordered kernels' outputs of each call within
+    float32 rounding of each other: rtol 1e-4 of the largest entry."""
+    for k, (a, b) in enumerate(zip(old.backward(), new.backward())):
+        for x, y in zip(a, b):
+            assert (x is None) == (y is None), f"{label}: call {k}"
+            if x is not None:
+                x, y = x.reshape(-1), y.reshape(-1)
+                scale = float(torch.nan_to_num(x).abs().max()) if x.numel() else 0.0
+                torch.testing.assert_close(y, x, rtol=1e-4, atol=1e-4 * (scale or 1.0), equal_nan=True,
+                                           msg=lambda m: f"{label}, call {k}: {m}")
+
+
+def grad_turns(parent: Path) -> dict:
+    """``grad-turns DIR``: the backward kernels of ``parent`` (an earlier
+    commit's ``csrc``, with the float-atomic kernels' C interface) in turns
+    with the package's on each gradient run's recorded calls of one step,
+    all of a step's calls and each kernel's apart; then seconds a step of
+    each run with the parent's tree and this one in turns, a process each."""
+    import shutil
+
+    copy = _build.BUILD_DIR / "grad_turns_parent"
+    shutil.rmtree(copy, ignore_errors=True)
+    copy.mkdir(parents=True)
+    for name in ("table_read.cu", "kernel_histogram.cu", "ordered_sum.cuh", "launch.cuh"):
+        shutil.copy(parent / name, copy / name)
+    old_lib = _build.build(copy, (), ATOMIC_GRAD_SIGNATURES)
+    import torch_flagship
+
+    scope = {}
+    exec(_GRAD_RUNS, scope)
+    out = {}
+    for label, (build, make) in scope["grad_runs"](theia_tpu_torch, chip_smoke, torch_flagship, icosphere(3)).items():
+        step = make(build())
+        step()
+        calls = chip_smoke.record_grad_calls(step)
+        del step
+        kinds = {"every backward call": calls}
+        for kind, name in (("read", "table reads"), ("gather", "row gathers"), ("kde", "kernel histogram")):
+            mine = [c for c in calls if c[0] == kind]
+            if mine and len(mine) < len(calls):
+                kinds[name] = mine
+        entry = out[label] = {}
+        for what, subset in kinds.items():
+            old, new = AtomicGradCalls(old_lib, subset), PackageGradCalls(subset)
+            _agree(old, new, f"{label}, {what}")
+            t = _in_turns(old, new, "backward", max(1, 200 // len(subset)))
+            ratio = [x / min(t["old_queued_ms"]) for x in t["new_queued_ms"]]
+            entry[what] = dict(t, calls=len(subset), queued_ratio=ratio,
+                               kinds={k: sum(c[0] == k for c in subset) for k in ("read", "gather", "kde")})
+            print(f"{label}, {what} ({len(subset)} calls): queued ms a step, float atomics "
+                  f"{t['old_queued_ms'][0]:.4f} / {t['old_queued_ms'][1]:.4f}, ordered {t['new_queued_ms'][0]:.4f} / "
+                  f"{t['new_queued_ms'][1]:.4f} (ordered / atomics {ratio[0]:.2f}, {ratio[1]:.2f}); as called "
+                  f"{t['old_ms'][0]:.4f} / {t['old_ms'][1]:.4f}, {t['new_ms'][0]:.4f} / {t['new_ms'][1]:.4f} "
+                  f"(atomics, ordered, ordered, atomics)")
+        # the package's kernels of the step's calls apart, device time under torch.profiler
+        calls_ = PackageGradCalls(calls)
+        calls_.backward()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            calls_.backward()
+            torch.cuda.synchronize()
+        kernels = {e.key: e.device_time_total / 1000.0 for e in prof.key_averages() if e.device_time_total > 0}
+        entry["kernels a step"] = kernels
+        print(f"{label}, the package's kernels of a step's backward calls, device ms: " + ", ".join(
+            f"{k[:70]} {v:.4f}" for k, v in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]))
+        del calls, calls_
+        torch.cuda.empty_cache()
+    root = parent.parents[1]
+    turns = []
+    for name, tree in (("parent", root), ("tree", ROOT), ("tree", ROOT), ("parent", root)):
+        proc = subprocess.run([sys.executable, "-c", _GRAD_CHILD, str(tree), str(GRAD_STEP_REPS)], input=_GRAD_RUNS,
+                              cwd=tree, capture_output=True, text=True, timeout=1200)
+        assert proc.returncode == 0, f"{name} at {tree}: {proc.stderr[-3000:]}"
+        line = next(x for x in proc.stdout.splitlines() if x.startswith("SECONDS "))
+        turns.append((name, json.loads(line[len("SECONDS "):])))
+    for label in turns[0][1]:
+        medians = [float(np.median(seconds[label])) for _, seconds in turns]
+        out[label]["seconds a step"] = dict(parent_s=[medians[0], medians[3]], tree_s=[medians[1], medians[2]],
+                                            seconds=[seconds[label] for _, seconds in turns])
+        print(f"{label}: seconds a step, median of {GRAD_STEP_REPS}, parent {medians[0]:.4f} / tree {medians[1]:.4f} "
+              f"/ tree {medians[2]:.4f} / parent {medians[3]:.4f}")
+    return out
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("card_measure: torch.cuda.is_available() is false", file=sys.stderr)
@@ -2547,13 +2313,6 @@ def main(argv: list[str]) -> int:
         result = soup_builds()
     elif mode == "soup" and len(argv) == 3:
         result = baseline_soup(_build.build(Path(argv[2]).resolve(), (), OLD_SOUP_SIGNATURES))
-    elif mode == "gather-builds":
-        result = gather_builds()
-    elif mode == "gather-skew":
-        result = gather_skew()
-    elif mode in ("read-grad-builds", "kde-builds") and len(argv) <= 3:
-        parent = Path(argv[2]).resolve() if len(argv) == 3 else None
-        result = (read_grad_builds if mode == "read-grad-builds" else kde_builds)(parent)
     elif mode == "read-grad-live":
         result = read_grad_live()
     elif mode == "sobol-builds" and len(argv) <= 3:
@@ -2572,6 +2331,8 @@ def main(argv: list[str]) -> int:
         result = record_turns(Path(argv[2]).resolve())
     elif mode == "sort-turns" and len(argv) == 3:
         result = sort_turns(Path(argv[2]).resolve())
+    elif mode == "grad-turns" and len(argv) == 3:
+        result = grad_turns(Path(argv[2]).resolve())
     elif mode == "sharded" and len(argv) <= 3:
         result = sharded(int(argv[2]) if len(argv) == 3 else torch.cuda.device_count())
     else:
