@@ -111,11 +111,13 @@ Phases, one line each, any failure raises and exits non-zero:
    ``yardstick_ms``);
 3. the first main path at full width: the flagship scene tracer
    (262,144 lanes, path length 10, 3840 triangles, 100 bins,
-   ``accel="mt"``) through ``run()``, one warm-up batch and three timed
-   ones, with the kernels' launch counts, and one batch with each table-read
-   site counted (``read_sites``: one launch a read, at most two a
-   medium's constants); then seconds per batch with
-   the winners' rows from the kernel and from a separate gather, in turns;
+   ``accel="mt"``) through ``run()`` on the staged route, one warm-up
+   batch and three timed ones, with the kernels' launch counts (19
+   row-less queries, 10 + 9 segment kernels and 19 records a batch); then
+   on the eager route (``trace_fn()``'s forward), one batch with each
+   table-read site counted (``read_sites``: one launch a read, at most two
+   a medium's constants) and seconds per batch with the winners' rows from
+   the kernel and from a separate gather, in turns;
 3b. the second main path at full width: the polarized flagship on the
    Woop query (``accel="woop", polarized=True``), the same way, its read
    sites counted too;
@@ -125,14 +127,16 @@ Phases, one line each, any failure raises and exits non-zero:
    launches a step, forward and backward, no
    ``indexing_backward_kernel_small_stride``);
 3d. the third main path at full width: the brute-force flagship, the
-   scene with no ``accel`` named (``"auto"`` resolves to ``"brute"``),
-   with its launches a batch (10 primary nearest hits with winner rows,
-   9 shadow pairs, each one ``target_in_table`` launch, no separate
-   any-hit, none of the other nearest-hit kernels; its read sites counted,
-   nothing stacked for the constants' read); then seconds per
-   batch with the winners' rows from the kernel and from a separate gather,
-   in turns; then the ``mt``, unpolarized ``woop``, brute-force and
-   ``bvh`` flagships in turns, for seconds per batch that can be compared;
+   scene with no ``accel`` named (``"auto"`` resolves to ``"brute"``), on
+   the staged route, with its launches a batch (10 primary nearest hits
+   without rows, 9 shadow pairs, each one ``target_in_table`` launch, no
+   separate any-hit, none of the other nearest-hit kernels, the segment
+   kernels); then on the eager route its read sites counted (nothing
+   stacked for the constants' read) and seconds per batch with the
+   winners' rows from the kernel and from a separate gather, in turns; then
+   the ``mt``, unpolarized ``woop``, brute-force and ``bvh`` flagships in
+   turns, each on its default route, for seconds per batch that can be
+   compared;
 3e. ``accel.is_visible`` on the brute-force scene, the any-hit kernel's
    path: 262,144 observer-target pairs, three calls;
 3f. the volume flagship (``examples/01_volume_tracing.py``'s
@@ -263,8 +267,29 @@ Phases, one line each, any failure raises and exits non-zero:
    unbinned, each kernel's time as called and queued beside
    ``torch.argsort(stable=True)`` with gathers / ``index_copy_`` and the
    bound, the binned query against the unbinned one in turns;
+3p. (``segment_runs``) the flagship's segment as four kernels
+   (``trace/segment.py``, ``csrc/segment.cu``: K_pre, K_surface,
+   K_scatter, K_shadow) on flagship-brute and flagship-mt at 262,144
+   lanes, path length 10: every call of the four kernels in one staged
+   batch against its plain twin on the card, bit for bit (a NaN equal to
+   a NaN), and 65,536 edge lanes (total internal reflection, grazing
+   incidence, media mismatch, out of the propagation box, past
+   ``maxTime``, dead, NaN and infinite lanes, misses; each case counted);
+   the staged route's light curve, every lane's final RNG dim and each
+   segment's end state equal to the eager route's bit for bit; seconds a
+   batch of the two routes in turns (eager, stages, stages, eager) with
+   the launches of the timed batches, peak memory, one profiled batch of
+   each route (busy ms and kernels; at most ``SEGMENT_LAUNCH_LIMIT`` a
+   staged flagship-brute batch); each kernel's ms as called and queued on
+   the batch's middle call and its calls queued, its twin's ms, its bound
+   (``segment_bound``: the bytes each kernel reads and stores). Phases 3,
+   3d, 3n, 3o and 4 drive flagship-mt and flagship-brute on their default
+   route, the staged one; phase 2 records the eager segment's calls
+   (``torch_flagship.eager_route``) to replay them, and phases 3 and 3d
+   also time the eager route (the autograd path's forward), labelled so;
 4. the port on the CPU against the port on the card at batch 4096: the
-   unpolarized ``mt`` flagship, the brute-force flagship, the polarized
+   unpolarized ``mt`` flagship and the brute-force flagship (both on the
+   staged route: the twins on the CPU, the kernels on the card), the polarized
    ``woop`` flagship with the source off centre, the volume flagship
    unpolarized and polarized, a volume photon tracer, the photon
    flagship, the unguided brute-force flagship with a
@@ -2686,6 +2711,7 @@ def profile_step(step, watch=()) -> dict:
     item = lambda n, t: dict(name=n, ms=sum(t) / 1e3, count=len(t))
     top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:12]
     mine = ("histogram", "theia::scan", "philox", "sobol", "kde_", "read_", "::gather", "_walk", "gamma", "advance_dims",
+            "segment_",
             "track_sample")
     own = sorted((n, t) for n, t in by_name.items() if any(k in n for k in mine))
     watched = {w: [item(n, t) for n, t in by_name.items() if w in n] for w in watch}
@@ -3433,7 +3459,7 @@ def sobol_and_camera_runs(mesh, wrappers, kernels, batch: int = BATCH, device="c
     import theia_tpu_torch
     from torch_flagship import (
         DIRECT_CAMERA, DIRECT_MU_A, DIRECT_RADIUS, build_direct, build_flagship, build_volume_backward,
-        build_volume_flagship,
+        build_volume_flagship, eager_route,
     )
 
     camera_runs = {}
@@ -3453,20 +3479,23 @@ def sobol_and_camera_runs(mesh, wrappers, kernels, batch: int = BATCH, device="c
                                          path="flagship-brute-sobol, 3 batches")
     sobol_paths = {"flagship-brute-sobol": record_sobol_calls(brute_sobol)}
     # flagship-brute-sobol in turns with flagship-brute (Philox): the one generator's launches in the other's place
+    # its Philox twin on the eager route, as the Sobol tracer runs: each draw one launch of its generator
     brute_philox = build_flagship(theia_tpu_torch, mesh, batch, MAX_PATH, accel="auto", device=device)
-    brute_philox.run()  # warm-up batch
-    prof = profile_step(brute_philox.run, watch=("philox",))
-    print(f"flagship-brute (PhiloxRNG) in the same call: one batch profiled: device busy {prof['device_busy_ms']:.2f} "
-          f"ms, {prof['kernels']} kernels and copies; its draws {prof['watched']['philox']}")
-    camera_runs["flagship-brute-sobol"]["philox_profile"] = prof
     sobol_turns = []
-    for label, cell in (("sobol", brute_sobol), ("philox", brute_philox), ("philox", brute_philox),
-                        ("sobol", brute_sobol)):
-        turn_seconds, turn_sums, turn_counts, _ = timed_runs(cell, wrappers, f"flagship-brute ({label})")
-        draws = turn_counts["sobol_owen_uniform" if label == "sobol" else "philox_uniform"]
-        assert draws == per_batch["sobol_owen_uniform"] * 3, (label, turn_counts)
-        sobol_turns.append(dict(rng=label, seconds_per_batch=turn_seconds, histogram_sums=turn_sums))
-    print("flagship-brute with SobolQRNG / PhiloxRNG in turns: " + "; ".join(
+    with eager_route(brute_philox):
+        brute_philox.run()  # warm-up batch
+        prof = profile_step(brute_philox.run, watch=("philox",))
+        print(f"flagship-brute (PhiloxRNG, eager route) in the same call: one batch profiled: device busy "
+              f"{prof['device_busy_ms']:.2f} ms, {prof['kernels']} kernels and copies; its draws "
+              f"{prof['watched']['philox']}")
+        camera_runs["flagship-brute-sobol"]["philox_profile"] = prof
+        for label, cell in (("sobol", brute_sobol), ("philox", brute_philox), ("philox", brute_philox),
+                            ("sobol", brute_sobol)):
+            turn_seconds, turn_sums, turn_counts, _ = timed_runs(cell, wrappers, f"flagship-brute ({label})")
+            draws = turn_counts["sobol_owen_uniform" if label == "sobol" else "philox_uniform"]
+            assert draws == per_batch["sobol_owen_uniform"] * 3, (label, turn_counts)
+            sobol_turns.append(dict(rng=label, seconds_per_batch=turn_seconds, histogram_sums=turn_sums))
+    print("flagship-brute with SobolQRNG / PhiloxRNG (eager route) in turns: " + "; ".join(
         f"{t['rng']} {statistics.median(t['seconds_per_batch']):.4f} s {[round(x, 4) for x in t['seconds_per_batch']]}"
         for t in sobol_turns))
     camera_runs["flagship-brute-sobol"]["turns_with_philox"] = sobol_turns
@@ -4641,13 +4670,23 @@ def converge_brute(runs, wrappers, mesh, smi, batch: int) -> None:
     PipelineScheduler(Pipeline(tracer)).schedule([task])
     elapsed = time.perf_counter() - start
     counts = {k: w.launches // task.totalBatches for k, w in wrappers.items() if w.launches}
-    assert counts["nearest_in_table_rows"] == MAX_PATH and counts["histogram_add"] == 2 * MAX_PATH - 1, counts
+    # the scheduler's batches take the staged route: the row-less scan, the shadow pairs, the segment kernels
+    assert counts["nearest_in_table"] == MAX_PATH and counts["target_in_table"] == MAX_PATH - 1, counts
+    assert counts["histogram_add"] == 2 * MAX_PATH - 1 and "nearest_in_table_rows" not in counts, counts
+    assert [counts.get(name, 0) for name in SEGMENT_WRAPPERS] == [MAX_PATH] * 2 + [MAX_PATH - 1] * 2, counts
     prof = profile_step(tracer.run)
+    # a Pipeline's launch of a staged batch waits for nothing on the card
+    offset = tracer.rng.offset
+    launched, launch_sites = sync_sites(lambda: Pipeline(tracer).launch({}))
+    launched.materialize()
+    tracer.rng.offset = offset
+    assert not launch_sites, f"{label}: a staged batch's launch synced the host at {launch_sites}"
     rel = task.error / task._totalMean
     print(f"{label}: batch {batch} [{smi}]: {task.totalBatches} batches, converged {task.converged}, error "
           f"{task.error:.6g} ({rel:.3g} of the total {task._totalMean:.6g}; asked {CONVERGE['rtol']:g}), "
           f"{elapsed / task.totalBatches:.4f} s/batch over the task, launches a batch {counts}; one batch "
-          f"profiled: device busy {prof['device_busy_ms']:.2f} ms, {prof['kernels']} kernels and copies")
+          f"profiled: device busy {prof['device_busy_ms']:.2f} ms, {prof['kernels']} kernels and copies; host syncs "
+          f"of a Pipeline launch {len(launch_sites)}")
 
     def batches(pipe, task, n):
         for _ in range(n):
@@ -4685,6 +4724,7 @@ def converge_brute(runs, wrappers, mesh, smi, batch: int) -> None:
     assert np.float64(resumed_task.error) == np.float64(ref_task.error), (resumed_task.error, ref_task.error)
     runs[label] = dict(batches=task.totalBatches, converged=task.converged, error=task.error, error_rel=rel,
                        seconds_per_batch=elapsed / task.totalBatches, launches_per_batch=counts, profile=prof,
+                       launch_syncs=len(launch_sites),
                        resume=dict(twin, error_rel=err_rel), held_records=held, smi=smi)
 
 
@@ -5161,7 +5201,9 @@ def sharded_pipeline_runs(runs, wrappers, mesh, smi, batch: int) -> None:
                 w.launches = 0
             schedule("sharded", "threaded")
             counts = {k: w.launches // SHARDED_BATCHES for k, w in wrappers.items() if w.launches}
-            assert counts["nearest_in_table_rows"] == MAX_PATH and counts["target_in_table"] == MAX_PATH - 1, counts
+            # ShardedRunner's batches take the staged route
+            assert counts["nearest_in_table"] == MAX_PATH and counts["target_in_table"] == MAX_PATH - 1, counts
+            assert [counts.get(name, 0) for name in SEGMENT_WRAPPERS] == [MAX_PATH] * 2 + [MAX_PATH - 1] * 2, counts
             traced, seconds = {}, {}
             for kind, mode in SHARDED_TURNS:
                 torch.cuda.synchronize()
@@ -5222,6 +5264,7 @@ def gloo_rank(rank: int, world: int, url: str, out: str) -> None:
         tracer._debug_rng = True
         fn = P.parallel.shard_trace(tracer, mesh)
         with torch.no_grad():
+            assert tracer.segment_route == "stages"
             state, _, dims = fn(tracer.params(), tracer.rng.counter_words, P.parallel.sharded_streams(BATCH, mesh))
         small = build_flagship(P, icosphere(3), GRAD_BATCH, GRAD_PATH, accel="auto", device="cuda")
         steps = [absorption_grad(small, mesh) for _ in range(2)]
@@ -5350,6 +5393,420 @@ def last_slice_runs(mesh, wrappers, kernels, smi, brute_median: float, batch: in
     return runs
 
 
+# -- phase 3p: the flagship's segment as four kernels ------------------------
+
+#: the segment's kernels (``trace/segment.py``, ``csrc/segment.cu``): each
+#: wrapper's name and the part of ``_segment_body`` it replaces
+SEGMENT_WRAPPERS = {
+    "segment_pre": "theia_tpu/trace/scene.py:488",
+    "segment_surface": "theia_tpu/trace/scene.py:547",
+    "segment_scatter": "theia_tpu/trace/scene.py:751",
+    "segment_shadow": "theia_tpu/trace/scene.py:390",
+}
+#: float32 operations a lane of each kernel does, counted from
+#: ``csrc/segment.cu`` with a division, a square root or a transcendental as
+#: one, and its Philox draws (the key once a lane, ``PHILOX_KEY_OPS``, then
+#: ``PHILOX_DRAW_OPS`` a draw, on the integer pipe). K_pre: the health check
+#: 14, the distance 6, the guide's cone 33 and eval 8, the tests 4; K_surface:
+#: the winner's rebuild 150 (Moeller-Trumbore 38, the object point and normals
+#: 42, the transforms 70), the extension 14, the propagation 30, the Fresnel
+#: terms 30 and the read 12, the item 12, reflect and refract 60, the offsets
+#: 12, the constants' read 20; K_scatter: two phase samples at 95 (the read,
+#: scatter_dir's three normalizations and its frame), the guide's cone, sample
+#: and eval 75, the phase read 12, the weights 12, the scatter's selects 6;
+#: K_shadow (a shadow ray): the rebuild 150, the item 70.
+SEGMENT_FLOP = {"segment_pre": 65, "segment_surface": 340, "segment_scatter": 295, "segment_shadow": 220}
+SEGMENT_DRAWS = {"segment_pre": 1, "segment_surface": 1, "segment_scatter": 8, "segment_shadow": 0}
+#: the launches a staged flagship-brute batch may make: 4 segment kernels,
+#: the scan, the records and the shadow query a segment, and the initial rays
+SEGMENT_LAUNCH_LIMIT = 250
+SEGMENT_EDGE_LANES = 65_536
+
+
+def _sync(t) -> None:
+    """Wait for the card where ``t`` lies on it (the segment checks also
+    run on the CPU, in tests/test_torch_segment_host.py)."""
+    import torch
+
+    if t.is_cuda:
+        torch.cuda.synchronize()
+
+
+def _clone_arg(a):
+    """A copy of a segment wrapper's argument: tensors and the tensors of
+    the per-lane dataclasses cloned, the batch's ``Setup`` kept."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return a.clone()
+    if dataclasses.is_dataclass(a):
+        return dataclasses.replace(a, **{f.name: _clone_arg(getattr(a, f.name)) for f in dataclasses.fields(a)})
+    return a
+
+
+def _flat_outputs(out) -> list:
+    """A segment wrapper's outputs as (name, tensor) pairs."""
+    import torch
+
+    if isinstance(out, torch.Tensor):
+        return [("", out)]
+    if isinstance(out, tuple):
+        return [(f"{k}.{n}", t) for k, o in enumerate(out) for n, t in _flat_outputs(o)]
+    if dataclasses.is_dataclass(out):
+        return [(f.name, getattr(out, f.name)) for f in dataclasses.fields(out) if getattr(out, f.name) is not None]
+    return []
+
+
+def record_segment_calls(tracer) -> list:
+    """(name, args) of every call one batch of ``tracer`` makes to the four
+    segment wrappers, the arguments copied; the RNG offset put back."""
+    import torch
+
+    from theia_tpu_torch.trace import segment as seg
+
+    calls, saved = [], {name: getattr(seg, name) for name in SEGMENT_WRAPPERS}
+
+    def recording(name, fn):
+        def wrapper(*args):
+            calls.append((name, tuple(_clone_arg(a) for a in args)))
+            return fn(*args)
+        wrapper.launches = fn.launches  # a wrapper counts on the name it is called by
+        return wrapper
+
+    try:
+        for name, fn in saved.items():
+            setattr(seg, name, recording(name, fn))
+        offset = tracer.rng.offset
+        tracer.run()
+        tracer.rng.offset = offset
+    finally:
+        for name, fn in saved.items():
+            setattr(seg, name, fn)
+    _sync(tracer.scene.pack.tri_data)
+    return calls
+
+
+def hold_segment_call(name, args) -> tuple[int, float]:
+    """One segment kernel against its plain twin on the card, on the same
+    inputs: (outputs compared, the largest absolute difference); raises on
+    any bit that differs (a NaN equal to a NaN)."""
+    import torch
+
+    from theia_tpu_torch.trace import segment as seg
+
+    got = _flat_outputs(getattr(seg, name)(*args))
+    want = _flat_outputs(getattr(seg, f"{name}_plain")(*args))
+    _sync(args[1].position)
+    assert [n for n, _ in got] == [n for n, _ in want], (name, [n for n, _ in got], [n for n, _ in want])
+    worst = 0.0
+    for (field, a), (_, b) in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, (name, field, a.dtype, b.dtype, a.shape, b.shape)
+        if a.dtype == torch.float32:
+            bad = same_bits(a, b)
+            both = torch.isfinite(a) & torch.isfinite(b)
+            if bool(both.any()):
+                worst = max(worst, float((a[both] - b[both]).abs().max()))
+        else:
+            bad = int((a != b).sum())
+        assert bad == 0, f"{name}: {field} differs from the plain twin on {bad} of {a.numel()} entries"
+    return len(got), worst
+
+
+def segment_edge_lanes(s, lanes, seed: int):
+    """A segment's lanes at the edges of its physics, ``SEGMENT_EDGE_LANES``
+    of them: a quarter inside the glass shells near their surfaces in the
+    glass's medium (total internal reflection, grazing incidence), a quarter
+    anywhere in and around the scene's box in a random medium (mismatches,
+    out of the box, misses), a quarter from the batch's own lanes with some
+    past ``maxTime``, and a quarter of dead lanes, NaN and infinite positions
+    and directions, zero directions; random ``alive`` and ``allow`` on all."""
+    import numpy as np
+    import torch
+
+    from theia_tpu_torch.material import packed_medium_constants
+    from theia_tpu_torch.trace.segment import Lanes
+
+    dev = lanes.position.device
+    rng = np.random.default_rng(seed)
+    n, q = SEGMENT_EDGE_LANES, SEGMENT_EDGE_LANES // 4
+    media = s.pack.media
+    glass = media.names.index(next(name for name in media.names if "bk7" in name.lower() or "glass" in name.lower()))
+    unit = rng.normal(size=(n, 3))
+    unit /= np.linalg.norm(unit, axis=1, keepdims=True)
+    direction = rng.normal(size=(n, 3))
+    direction /= np.linalg.norm(direction, axis=1, keepdims=True)
+    hi = s.pack.upper_bbox.cpu().numpy()
+    position = np.empty((n, 3))
+    # the glass shell: radii 0.75 to 0.8 around the light (3, 0, 0)
+    position[:q] = (3.0, 0.0, 0.0) + unit[:q] * rng.uniform(0.7501, 0.7999, (q, 1))
+    position[q:2 * q] = rng.uniform((-2.0, -2.0, -2.0), (6.0, 5.0, 2.0), (q, 3))
+    # an eighth of them at the propagation box's face, heading out, and an eighth beyond it
+    edge = slice(q, q + q // 8)
+    position[edge] = hi * rng.uniform(0.9995, 0.99999, (q // 8, 3))
+    direction[edge] = np.abs(direction[edge])
+    position[q + q // 8:q + q // 4] = hi * 1.5
+    k = rng.integers(0, lanes.wavelength.shape[0], n - 2 * q)
+    position[2 * q:] = lanes.position[torch.as_tensor(k, device=dev)].cpu().numpy()
+    direction[2 * q:] = lanes.direction[torch.as_tensor(k, device=dev)].cpu().numpy()
+    medium = rng.integers(0, len(media.names), n)
+    medium[:q] = glass
+    medium[2 * q:3 * q] = lanes.medium[torch.as_tensor(k[:q], device=dev)].cpu().numpy()
+    bad = slice(3 * q, n)
+    position[bad][rng.random(q) < 0.25] = np.nan
+    direction[bad][rng.random(q) < 0.25] = np.inf
+    direction[bad][rng.random(q) < 0.25] = 0.0
+    alive = rng.random(n) < 0.9
+    alive[bad] = rng.random(q) < 0.5
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev).contiguous()
+    wavelength = f32(rng.uniform(300.0, 700.0, n))
+    medium_t = torch.as_tensor(medium.astype(np.int32), device=dev)
+    c = packed_medium_constants(media, medium_t, wavelength)
+    time = rng.uniform(0.0, 50.0, n)
+    time[2 * q:3 * q][rng.random(q) < 0.25] = 1e6  # past maxTime
+    out = Lanes(
+        position=f32(position), direction=f32(direction), wavelength=wavelength, time=f32(time),
+        lin=f32(rng.uniform(0.0, 2.0, n)), log=f32(rng.normal(0.0, 1.0, n)), n=c.n.contiguous(),
+        vg=c.vg.contiguous(), mu_s=c.mu_s.contiguous(), mu_e=c.mu_e.contiguous(), medium=medium_t,
+        alive=torch.as_tensor(alive, device=dev), allow=torch.as_tensor(rng.random(n) < 0.7, device=dev),
+        stream=torch.arange(n, dtype=torch.int32, device=dev),
+        dim=torch.as_tensor(rng.integers(0, 60, n).astype(np.int32), device=dev),
+    )
+    return out
+
+
+def hold_segment_edges(s, lanes, seed: int) -> dict:
+    """The four kernels against their twins on ``segment_edge_lanes``, one
+    segment through its scans, and what the lanes met (counted by the
+    twins' own helpers)."""
+    import torch
+
+    from theia_tpu_torch import accel
+    from theia_tpu_torch.trace import scene as tscene
+    from theia_tpu_torch.trace import segment as seg
+
+    edge = segment_edge_lanes(s, lanes, seed)
+    pre = seg.segment_pre_plain(s, edge)
+    hold_segment_call("segment_pre", (s, edge))
+    t_hit, tri = seg._nearest(s.pack, edge.position, edge.direction, pre.t_max)
+    hold_segment_call("segment_surface", (s, edge, pre, t_hit, tri))
+    after, miss, _ = seg.segment_surface_plain(s, edge, pre, t_hit, tri)
+    hold_segment_call("segment_scatter", (s, after, miss))
+    after, shadow = seg.segment_scatter_plain(s, after, miss)
+    t2, tri2 = seg._target(s.pack, shadow.origin, shadow.direction, shadow.t_max, shadow.active)
+    hold_segment_call("segment_shadow", (s, after, shadow, t2, tri2))
+    # what the lanes met
+    hit = accel._reconstruct_hit(s.pack, edge.medium, edge.position, edge.direction, t_hit, tri)
+    _, n_t, _, _ = tscene._fresnel(s.pack, edge.ray(), hit)
+    cos_i = tscene.dot(edge.direction, hit.ray_nrm).clamp(-1.0, 1.0)
+    sin_t = tscene.sqrt(torch.clamp_min(1.0 - cos_i * cos_i, 0.0)) * edge.n / n_t
+    live = pre.alive & hit.valid
+    met = dict(
+        lanes=SEGMENT_EDGE_LANES, dead=int((~pre.alive).sum()), nan_or_inf=int((~torch.isfinite(edge.position).all(1)
+                                                                              | ~torch.isfinite(edge.direction).all(1)).sum()),
+        misses=int((pre.alive & ~hit.valid).sum()), media_mismatch=int((live & (hit.error != 0)).sum()),
+        total_internal_reflection=int((live & (hit.error == 0) & (sin_t >= 1.0)).sum()),
+        grazing=int((live & (cos_i.abs() < 0.05)).sum()),
+        out_of_box=int(((edge.position < s.pack.lower_bbox) | (edge.position > s.pack.upper_bbox)).any(1).sum()),
+        past_max_time=int((edge.time > s.prop.max_time).sum()),
+        shadow_rays_recorded=int(seg.segment_shadow_plain(s, after, shadow, t2, tri2).mask.sum()),
+    )
+    assert all(v > 0 for v in met.values()), f"an edge case met no lane: {met}"
+    return met
+
+
+def segment_bound(name: str, args) -> dict:
+    """The least time of one call: every lane array the kernel reads once
+    and each array it stores written once (not the outputs that are its
+    inputs passed through, such as K_scatter's position or K_surface's
+    wavelength), the scene's rows and the tables it reads once, against its
+    float32 operations and Philox's integer ones (``SEGMENT_FLOP``,
+    ``SEGMENT_DRAWS``)."""
+    import torch
+
+    from theia_tpu_torch.trace import segment as seg
+
+    s, lanes = args[0], args[1]
+    n = lanes.wavelength.shape[0]
+    reads, kinds = {
+        "segment_pre": (("position", "direction", "mu_s", "alive", "allow", "stream", "dim"), ()),
+        "segment_surface": (("position", "direction", "wavelength", "time", "lin", "log", "n", "vg", "mu_s", "mu_e",
+                             "medium", "allow", "stream"),
+                            ("refractive_index", "absorption_coef", "scattering_coef", "group_velocity")),
+        "segment_scatter": (("position", "direction", "lin", "log", "mu_s", "medium", "stream", "dim"),
+                            ("phase_sampling", "log_phase_function")),
+        "segment_shadow": (("wavelength", "time", "n", "vg", "mu_e"), ("refractive_index",)),
+    }[name]
+    in_bytes = sum(getattr(lanes, f).numel() * getattr(lanes, f).element_size() for f in reads)
+    for a in args[2:]:
+        parts = [a] if isinstance(a, torch.Tensor) else (
+            [getattr(a, f.name) for f in dataclasses.fields(a) if f.name != "t_max" or name != "segment_shadow"]
+            if dataclasses.is_dataclass(a) else [])
+        in_bytes += sum(t.numel() * t.element_size() for t in parts if isinstance(t, torch.Tensor))
+    # the kernel's outputs that are not its inputs: what it stores (a launch of the wrapper, not counted)
+    fn = getattr(seg, name)
+    launches, given = fn.launches, {t.data_ptr() for a in args[1:] for _, t in _flat_outputs(a)}
+    stored = [t for _, t in _flat_outputs(fn(*args)) if t.data_ptr() not in given]
+    fn.launches = launches
+    out_bytes = sum(t.numel() * t.element_size() for t in stored)
+    media = s.pack.media
+    tables = sum(media.tables[k].numel() * 4 + media.sizes[k].numel() * 4 for k in kinds)
+    rows = (s.pack.tri_data.numel() + s.pack.inst_data.numel()) * 4 if name in ("segment_surface", "segment_shadow") else 0
+    lanes_done = 2 * n if name == "segment_shadow" else n
+    int_ops = (PHILOX_KEY_OPS + SEGMENT_DRAWS[name] * PHILOX_DRAW_OPS) * n if SEGMENT_DRAWS[name] else 0
+    total_bytes = in_bytes + out_bytes + tables + rows
+    by_bytes = total_bytes / PEAK_BYTES * 1e3
+    by_ops = (SEGMENT_FLOP[name] * lanes_done / PEAK_F32 + int_ops / PEAK_I32) * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops), bound_by="bytes" if by_bytes >= by_ops else "operations",
+                bound_bytes=total_bytes, bound_stored_bytes=out_bytes, bound_flop=SEGMENT_FLOP[name] * lanes_done,
+                bound_int_ops=int_ops)
+
+
+def segment_routes_equal(label, build) -> dict:
+    """One batch of ``build()``'s tracer on each route, the staged one
+    first: the light curves, every lane's final dim and each segment's end
+    state bit for bit (a NaN equal to a NaN)."""
+    import torch
+
+    out = {}
+    for staged in (True, False):
+        tracer = build()
+        tracer._debug_rng, tracer._debug_segments = True, []
+        assert tracer.segment_route == "eager"  # autograd is on out here
+        with torch.no_grad():
+            assert tracer.segment_route == "stages", tracer.segment_route
+            trace = tracer._trace_batch if staged else tracer._trace_batch_eager
+            state, _, dims = trace(tracer.params(), tracer.rng.counter_words, tracer.streams())
+        _sync(state)
+        out[staged] = (state, dims, tracer._debug_segments)
+        del tracer
+    (h_s, d_s, seg_s), (h_e, d_e, seg_e) = out[True], out[False]
+    assert same_bits(h_s, h_e) == 0, f"{label}: the staged light curve differs from the eager one"
+    assert torch.equal(d_s, d_e), f"{label}: final dims differ on {int((d_s != d_e).sum())} lanes"
+    assert len(seg_s) == len(seg_e) == MAX_PATH
+    fields_checked = 0
+    for k, (a, b) in enumerate(zip(seg_s, seg_e)):
+        for name in a:
+            x, y = a[name], b[name]
+            bad = same_bits(x, y) if x.dtype == torch.float32 else int((x != y).sum())
+            assert bad == 0, f"{label}: segment {k} {name} differs on {bad} entries"
+            fields_checked += 1
+    print(f"segment routes ({label}): light curve (sum {float(h_s.sum()):.6g}), {d_s.numel()} final dims and "
+          f"{fields_checked} per-segment state arrays of {len(seg_s)} segments bit for bit, staged = eager")
+    return dict(light_curve_sum=float(h_s.sum()), dims=int(d_s.numel()), state_arrays=fields_checked)
+
+
+def segment_runs(mesh, wrappers, kernels, smi, batch: int = BATCH) -> dict:
+    """Phase 3p: the staged route (``trace/segment.py``) on flagship-brute
+    and flagship-mt at full width: (a) every kernel call of one batch
+    against its plain twin bit for bit, and the edge lanes; (b) the routes
+    bit for bit; (c) seconds a batch in turns (eager, stages, stages,
+    eager) with the launches of the timed batches; (d) one profiled batch
+    of each route; (e) each kernel's ms as called and queued, its plain
+    twin's, its bound. Phase 4 holds the staged route of both against the
+    CPU port's at batch 4096 by ``PERF.md`` section 2's limits."""
+    import contextlib
+
+    import torch
+
+    import theia_tpu_torch
+    from theia_tpu_torch.trace import segment as seg
+    from torch_flagship import build_flagship, eager_route
+
+    runs = {}
+    builders = {
+        "flagship-brute": lambda dev="cuda", n=batch: build_flagship(theia_tpu_torch, mesh, n, MAX_PATH, accel="auto",
+                                                                     device=dev),
+        "flagship-mt": lambda dev="cuda", n=batch: build_flagship(theia_tpu_torch, mesh, n, MAX_PATH, device=dev),
+    }
+    route = lambda tracer, staged: contextlib.nullcontext() if staged else eager_route(tracer)
+    wrappers = {**wrappers, **{name: getattr(seg, name) for name in SEGMENT_WRAPPERS}}
+    for label, build in builders.items():
+        report = runs[label] = {}
+        tracer = build()
+        # (a) every call of one batch, and the edge lanes
+        calls = record_segment_calls(tracer)
+        by_name = {name: [a for n, a in calls if n == name] for name in SEGMENT_WRAPPERS}
+        assert [len(by_name[n]) for n in SEGMENT_WRAPPERS] == [MAX_PATH, MAX_PATH, MAX_PATH - 1, MAX_PATH - 1], \
+            {n: len(v) for n, v in by_name.items()}
+        compared, worst = 0, 0.0
+        for name, args in calls:
+            k, w = hold_segment_call(name, args)
+            compared, worst = compared + k, max(worst, w)
+        s, mid = by_name["segment_scatter"][MAX_PATH // 2][:2]
+        edges = hold_segment_edges(s, mid, seed=11 if label == "flagship-brute" else 12)
+        print(f"segment kernels ({label}): the {len(calls)} calls of one batch ({compared} outputs) and "
+              f"{SEGMENT_EDGE_LANES} edge lanes ({edges}) bit for bit against the plain twins")
+        report.update(calls=len(calls), outputs_compared=compared, edges=edges)
+        # (b) the routes
+        report["routes_equal"] = segment_routes_equal(label, build)
+        # (c) seconds in turns, with the launches of the staged turns' batches
+        turns = []
+        for staged in (False, True, True, False):
+            with route(tracer, staged):
+                secs, sums, counts, peak = timed_runs(tracer, wrappers, label)
+            turns.append(dict(route="stages" if staged else "eager", seconds_per_batch=secs, histogram_sums=sums,
+                              peak_bytes=peak, launches={k: v // 3 for k, v in counts.items() if v}))
+            if staged:
+                for name in SEGMENT_WRAPPERS:
+                    assert counts[name] == 3 * len(by_name[name]), (name, counts)
+                if label == "flagship-brute":
+                    for name in SEGMENT_WRAPPERS:
+                        kernels[name].update(launches=counts[name], launches_per_batch=counts[name] // 3,
+                                             path="flagship-brute on the staged route, 3 batches")
+            else:
+                assert not any(counts[name] for name in SEGMENT_WRAPPERS), counts
+        report["turns"] = turns
+        med = {r: statistics.median([x for t in turns if t["route"] == r for x in t["seconds_per_batch"]])
+               for r in ("eager", "stages")}
+        peaks = {r: max(t["peak_bytes"] for t in turns if t["route"] == r) for r in ("eager", "stages")}
+        # (d) one profiled batch of each route
+        profiles = {}
+        for staged in (False, True):
+            with route(tracer, staged):
+                profiles["stages" if staged else "eager"] = profile_step(lambda: tracer.run(advance=False))
+        report["profiles"] = profiles
+        launches = {r: p["kernels"] for r, p in profiles.items()}
+        print(f"segment routes ({label}), in turns eager/stages/stages/eager: "
+              + "; ".join(f"{t['route']} {statistics.median(t['seconds_per_batch']):.4f} s "
+                          f"{[round(x, 4) for x in t['seconds_per_batch']]}" for t in turns)
+              + f"; median eager {med['eager']:.4f} s, stages {med['stages']:.4f} s ({med['eager'] / med['stages']:.2f}x); "
+              f"peak memory eager {peaks['eager'] / 2**20:.1f} MiB, stages {peaks['stages'] / 2**20:.1f} MiB; "
+              f"one batch profiled: eager {profiles['eager']['device_busy_ms']:.2f} ms busy in {launches['eager']} "
+              f"kernels, stages {profiles['stages']['device_busy_ms']:.2f} ms in {launches['stages']}; {smi}")
+        for entry in profiles["stages"]["top"][:10]:
+            print(f"    {entry['ms']:9.3f} ms {entry['count']:6d} x {entry['name'][:90]}")
+        if label == "flagship-brute":
+            assert launches["stages"] <= SEGMENT_LAUNCH_LIMIT, f"a staged batch made {launches['stages']} launches"
+        report.update(median_seconds=med, peak_bytes=peaks, launches=launches)
+        # (e) each kernel on the batch's middle call, and a batch's calls queued
+        if label == "flagship-brute":
+            for name in SEGMENT_WRAPPERS:
+                args = by_name[name][len(by_name[name]) // 2]
+                fn, plain = getattr(seg, name), getattr(seg, f"{name}_plain")
+                saved = fn.launches
+                ms = cuda_ms(lambda: fn(*args), 20)
+                queued = cuda_ms_queued(lambda: fn(*args), 20)
+                batch_queued = sum(cuda_ms_queued(lambda a=a: fn(*a), 5) for a in by_name[name])
+                plain_ms = cuda_ms(lambda: plain(*args), 3)
+                fn.launches = saved
+                b = segment_bound(name, args)
+                assert fn.launches == saved
+                kernels[name].update(
+                    max_abs_err=worst, ms=ms, queued_ms=queued, ms_a_batch_queued=batch_queued, plain_ms=plain_ms,
+                    library_ms=None, library="none: no PyTorch call computes a segment", **b,
+                )
+                print(f"kernel {name} (N = {batch}{', 2N shadow rays' if name == 'segment_shadow' else ''}): "
+                      f"{ms:.4f} ms as called, {queued:.4f} queued, a batch's {len(by_name[name])} calls "
+                      f"{batch_queued:.4f} queued; plain twin {plain_ms:.4f} ms; bound {b['bound_ms']:.4f} ms by "
+                      f"{b['bound_by']} ({b['bound_bytes'] / 2**20:.1f} MiB, {b['bound_stored_bytes'] / 2**20:.1f} MiB "
+                      f"of it stored, {b['bound_flop']:.3g} flop, "
+                      f"{b['bound_int_ops']:.3g} int ops), share {b['bound_ms'] / queued:.3f} queued, "
+                      f"{b['bound_ms'] / ms:.3f} as called")
+        del calls, by_name, tracer, s, mid
+        torch.cuda.empty_cache()
+    return runs
+
+
 def hold_cpu_vs_card(label, build) -> dict:
     """One batch of ``build(device)``'s tracer on the CPU and on the card,
     held by ``PERF.md``'s histogram agreement: the lanes' RNG dims equal on
@@ -5418,8 +5875,9 @@ def main() -> int:
         adversarial_rays, build_array, build_backward_eta2, build_bidirectional, build_cherenkov_backward,
         build_cherenkov_volume, build_direct, build_flagship, build_photon_flagship, build_scene_backward,
         build_scene_backward_target, build_volume_backward, build_volume_flagship, build_volume_photon, cascade_source,
-        icosphere, track_line_source,
+        eager_route, icosphere, track_line_source,
     )
+    from theia_tpu_torch.trace import segment
 
     # the seconds of each phase, printed as it ends
     clock = {"1": time.perf_counter()}
@@ -5460,7 +5918,9 @@ def main() -> int:
         print(f"sass {fn}: {info['instructions']} instructions, atomics {info['atomics']}, most used {info['opcodes']}")
 
     phase("2")
-    # phase 2: kernels against their plain versions at the main path's shapes
+    # phase 2: kernels against their plain versions at the main path's shapes. The flagship batches recorded
+    # here run the eager segment (eager_route), whose reads, draws, queries and records phase 2 replays; phase
+    # 3p holds the staged route's calls
     sqrt_check = check_sqrt()
     mesh = icosphere(3)
     tracer = build_flagship(theia_tpu_torch, mesh, BATCH, MAX_PATH, device="cuda")
@@ -5524,6 +5984,10 @@ def main() -> int:
             route="cuda", source="theia_tpu_torch/csrc/wavefront_sort.cu",
             replaces="theia_tpu/ops/_intersect_tiles.py:209",
         ),
+        **{
+            name: dict(route="cuda", source="theia_tpu_torch/csrc/segment.cu", replaces=replaces)
+            for name, replaces in SEGMENT_WRAPPERS.items()
+        },
     }
     rows = tracer.scene.pack.tri_data[:, 18:27].cpu().numpy()
     adversarial = tuple(
@@ -5531,10 +5995,12 @@ def main() -> int:
         for a in (*adversarial_rays(rows[:, 0:3], rows[:, 3:6], rows[:, 6:9], seed=7, per_kind=512),)
     )
     adversarial += (torch.full((adversarial[0].shape[0],), torch.inf, device="cuda"),)
-    mt_queries = record_queries(tracer, ("nearest_triangle_mt_rows",))
+    with eager_route(tracer):
+        mt_queries = record_queries(tracer, ("nearest_triangle_mt_rows",))
+        mt_records = record_records(tracer)
     woop_queries = record_queries(pol_tracer, ("nearest_triangle_woop",))
     assert len(mt_queries) == len(woop_queries) == 2 * MAX_PATH - 1, (len(mt_queries), len(woop_queries))
-    mt_records, woop_records = record_records(tracer), record_records(pol_tracer)
+    woop_records = record_records(pol_tracer)
     # fused: 10 of N lanes, 9 of 2 N; polarized, unfused: the extension, the surface and two shadow halves
     assert sorted(r[2].shape[0] for r in mt_records) == [BATCH] * MAX_PATH + [2 * BATCH] * (MAX_PATH - 1)
     assert [r[2].shape[0] for r in woop_records] == [BATCH] * POL_RECORDS, len(woop_records)
@@ -5555,8 +6021,9 @@ def main() -> int:
     soup_rows = brute_tracer.scene.pack.tri_data[:, 18:27].cpu().numpy()
     assert (soup_rows[:, 0:3] != rows[:, 0:3]).any(), "the brute-force soup is in instance order, not Morton order"
     # the 10 primary queries (every group, no mask) and the 9 shadow pairs (the detector, masked)
-    primary = record_soup_queries(brute_tracer, "nearest_in_table_rows")
-    shadow = record_soup_queries(brute_tracer, "target_in_table")
+    with eager_route(brute_tracer):
+        primary = record_soup_queries(brute_tracer, "nearest_in_table_rows")
+        shadow = record_soup_queries(brute_tracer, "target_in_table")
     assert len(primary) == MAX_PATH and all(q[3] is None and q[4] is None for q in primary), len(primary)
     assert len(shadow) == MAX_PATH - 1 and all(q[3] == [2] and q[4] is not None for q in shadow), len(shadow)
     # the nearest-hit kernels take the primary queries and the shadow pairs' detector halves; the
@@ -5586,7 +6053,8 @@ def main() -> int:
     check_philox(kernels["philox_uniform"])
     check_sobol(kernels["sobol_owen_uniform"])
     check_histogram(kernels["histogram_add"], kernels["histogram_grad"])
-    brute_records = record_records(brute_tracer)
+    with eager_route(brute_tracer):
+        brute_records = record_records(brute_tracer)
     assert sorted(r[2].shape[0] for r in brute_records) == [BATCH] * MAX_PATH + [2 * BATCH] * (MAX_PATH - 1)
     for path, records in (("mt", mt_records), ("polarized woop", woop_records), ("brute", brute_records)):
         check_record_replay(records, path, kernels["histogram_add"], kernels["histogram_grad"])
@@ -5669,6 +6137,7 @@ def main() -> int:
         "track_backward_sample": track_backward_sample,
         "sort_rays": sort_rays,
         "scatter_back": scatter_back,
+        **{name: getattr(segment, name) for name in SEGMENT_WRAPPERS},
     }
     # the gradient steps' launches: every wrapper, the backward kernels and the kernel histogram too
     grad_wrappers = {
@@ -5680,45 +6149,50 @@ def main() -> int:
         "read_packed_grad": table_read.read_packed_grad,
         "gather_rows_grad": table_read.gather_rows_grad,
     }
+    # the staged route: 10 primary queries and 9 shadow pairs on the query without rows, whose winners the
+    # segment kernels rebuild; the table reads run inside the segment kernels
     seconds, sums, counts, peak = timed_runs(tracer, wrappers, "mt path")
-    assert counts["nearest_triangle_mt_rows"] == 19 * 3, counts  # 10 primary + 9 shadow
-    assert counts["nearest_triangle_mt"] == counts["nearest_triangle_woop"] == 0, counts
-    assert not any(counts[name] for name in SOUP_KERNELS), counts
+    assert counts["nearest_triangle_mt"] == 19 * 3 and counts["nearest_triangle_mt_rows"] == 0, counts
+    assert counts["nearest_triangle_woop"] == 0 and not any(counts[name] for name in SOUP_KERNELS), counts
     assert counts["philox_uniform"] > 0 and counts["histogram_add"] == 19 * 3, counts
-    assert counts["read_packed"] > 0, counts
+    assert [counts[name] for name in SEGMENT_WRAPPERS] == [3 * MAX_PATH] * 2 + [3 * (MAX_PATH - 1)] * 2, counts
     med = statistics.median(seconds)
     print(
-        f"main path (mt): batch {BATCH}, path length {MAX_PATH}, {tracer.scene.pack.mt.n_tri} triangles: "
-        f"{med:.4f} s/batch (median of {[round(s, 4) for s in seconds]}), "
+        f"main path (mt, staged route): batch {BATCH}, path length {MAX_PATH}, {tracer.scene.pack.mt.n_tri} "
+        f"triangles: {med:.4f} s/batch (median of {[round(s, 4) for s in seconds]}), "
         f"{BATCH * MAX_PATH / med:.6g} bounces/s, peak memory {peak / 2**20:.1f} MiB, "
-        f"launches per batch {{{', '.join(f'{k}: {v // 3}' for k, v in counts.items())}}}, "
+        f"launches per batch {{{', '.join(f'{k}: {v // 3}' for k, v in counts.items() if v)}}}, "
         f"histogram sums {sums}"
     )
-    for name in ("nearest_triangle_mt_rows", "philox_uniform", "histogram_add"):
+    for name in ("nearest_triangle_mt", "philox_uniform", "histogram_add"):
         kernels[name].update(launches=counts[name], launches_per_batch=counts[name] // 3,
-                             path="mt flagship, 3 batches")
-    # every read site of a batch is one launch, a medium's constants at most two (one read, mu_e's add)
-    mt_sites = read_sites(tracer.run, SCENE_READS)
-    check_read_sites("main path (mt)", mt_sites)
-    print(f"main path (mt): table-read launches a batch: read_packed {counts['read_packed'] // 3}, "
-          f"read_table {counts['read_table'] // 3}")
-    # the winners' rows from the kernel and from a separate gather (gather_rows), in turns
+                             path="mt flagship on the staged route, 3 batches")
+    # the eager route (trace_fn()'s forward, and what the staged route is held against): every read site of a
+    # batch is one launch, a medium's constants at most two (one read, mu_e's add); then the winners' rows from
+    # the kernel and from a separate gather (gather_rows), in turns
     turns = []
-    for from_query in (True, False, False, True):
-        accel.ROWS_FROM_QUERY = from_query
-        turn_seconds, _, turn_counts, _ = timed_runs(tracer, wrappers, "mt path")
-        own, other = "nearest_triangle_mt_rows", "nearest_triangle_mt"
-        if not from_query:
-            own, other = other, own
-        assert turn_counts[own] == 19 * 3 and turn_counts[other] == 0, turn_counts
-        turns.append(dict(rows_from_kernel=from_query, seconds_per_batch=turn_seconds))
-        if not from_query:
-            kernels["nearest_triangle_mt"].update(
-                launches=turn_counts[own], launches_per_batch=19,
-                path="mt flagship with the separate gather, 3 batches",
-            )
+    with eager_route(tracer):
+        mt_sites = read_sites(tracer.run, SCENE_READS)
+        check_read_sites("mt flagship, eager route", mt_sites)
+        for from_query in (True, False, False, True):
+            accel.ROWS_FROM_QUERY = from_query
+            turn_seconds, _, turn_counts, _ = timed_runs(tracer, wrappers, "mt path, eager route")
+            own, other = "nearest_triangle_mt_rows", "nearest_triangle_mt"
+            if not from_query:
+                own, other = other, own
+            assert turn_counts[own] == 19 * 3 and turn_counts[other] == 0, turn_counts
+            assert not any(turn_counts[name] for name in SEGMENT_WRAPPERS), turn_counts
+            turns.append(dict(rows_from_kernel=from_query, seconds_per_batch=turn_seconds,
+                              launches={k: v // 3 for k, v in turn_counts.items() if v}))
+            if from_query:
+                kernels["nearest_triangle_mt_rows"].update(
+                    launches=turn_counts[own], launches_per_batch=19,
+                    path="mt flagship on the eager route (trace_fn's forward), 3 batches",
+                )
     accel.ROWS_FROM_QUERY = True
-    print("main path (mt), rows from the kernel / a separate gather, in turns: " + "; ".join(
+    print(f"mt flagship, eager route: table-read launches a batch: read_packed {turns[0]['launches']['read_packed']}, "
+          f"read_table {turns[0]['launches'].get('read_table', 0)}")
+    print("mt flagship, eager route, rows from the kernel / a separate gather, in turns: " + "; ".join(
         f"{'kernel' if t['rows_from_kernel'] else 'gather'} {statistics.median(t['seconds_per_batch']):.4f} s "
         f"{[round(x, 4) for x in t['seconds_per_batch']]}" for t in turns
     ))
@@ -5812,49 +6286,55 @@ def main() -> int:
 
     phase("3d")
     # phase 3d: the third main path, the brute-force flagship (no accel named), at full width
+    # the staged route: 10 primary queries without rows and the 9 shadow pairs in one launch each, no separate
+    # any-hit; the segment kernels between them
     brute_seconds, brute_sums, brute_counts, brute_peak = timed_runs(brute_tracer, wrappers, "brute path")
-    # 10 primary queries with rows, and the 9 shadow pairs in one launch each; no separate any-hit
-    assert brute_counts["nearest_in_table_rows"] == MAX_PATH * 3 and brute_counts["nearest_in_table"] == 0, brute_counts
+    assert brute_counts["nearest_in_table"] == MAX_PATH * 3 and brute_counts["nearest_in_table_rows"] == 0, brute_counts
     assert brute_counts["target_in_table"] == (MAX_PATH - 1) * 3 and brute_counts["anyhit_in_table"] == 0, brute_counts
     for name in ("nearest_triangle_mt", "nearest_triangle_mt_rows", "nearest_triangle_woop"):
         assert brute_counts[name] == 0, brute_counts
     assert brute_counts["philox_uniform"] > 0 and brute_counts["histogram_add"] == 19 * 3, brute_counts
+    assert [brute_counts[name] for name in SEGMENT_WRAPPERS] == [3 * MAX_PATH] * 2 + [3 * (MAX_PATH - 1)] * 2
     brute_med = statistics.median(brute_seconds)
     print(
-        f"main path (brute, the default accel): batch {BATCH}, path length {MAX_PATH}, "
+        f"main path (brute, the default accel, staged route): batch {BATCH}, path length {MAX_PATH}, "
         f"{brute_tracer.scene.pack.soup.n_tri} triangles: "
         f"{brute_med:.4f} s/batch (median of {[round(s, 4) for s in brute_seconds]}), "
         f"{BATCH * MAX_PATH / brute_med:.6g} bounces/s, peak memory {brute_peak / 2**20:.1f} MiB, "
-        f"launches per batch {{{', '.join(f'{k}: {v // 3}' for k, v in brute_counts.items())}}}, "
+        f"launches per batch {{{', '.join(f'{k}: {v // 3}' for k, v in brute_counts.items() if v)}}}, "
         f"histogram sums {brute_sums}"
     )
-    for name in ("nearest_in_table_rows", "target_in_table"):
+    for name in ("nearest_in_table", "target_in_table"):
         kernels[name].update(launches=brute_counts[name], launches_per_batch=brute_counts[name] // 3,
-                             path="brute-force flagship, 3 batches")
+                             path="brute-force flagship on the staged route, 3 batches")
     # the constants tables are read where they lie: nothing stacks them (const4_table is gone)
     assert not hasattr(theia_tpu_torch.material, "const4_table")
-    brute_sites = read_sites(brute_tracer.run, SCENE_READS)
-    check_read_sites("main path (brute)", brute_sites)
-    print(f"main path (brute): table-read launches a batch: read_packed {brute_counts['read_packed'] // 3}, "
-          f"read_table {brute_counts['read_table'] // 3}")
-    # the winners' rows from the kernel and from a separate gather (gather_rows), in turns
+    # the eager route (trace_fn()'s forward): its read sites, then the winners' rows from the kernel and from a
+    # separate gather (gather_rows), in turns
     brute_turns = []
-    for from_query in (True, False, False, True):
-        accel.ROWS_FROM_QUERY = from_query
-        turn_seconds, _, turn_counts, _ = timed_runs(brute_tracer, wrappers, "brute path")
-        own, other = "nearest_in_table_rows", "nearest_in_table"
-        if not from_query:
-            own, other = other, own
-        assert turn_counts[own] == MAX_PATH * 3 and turn_counts[other] == 0, turn_counts
-        assert turn_counts["target_in_table"] == (MAX_PATH - 1) * 3, turn_counts
-        brute_turns.append(dict(rows_from_kernel=from_query, seconds_per_batch=turn_seconds))
-        if not from_query:
-            kernels["nearest_in_table"].update(
-                launches=turn_counts[own], launches_per_batch=MAX_PATH,
-                path="brute-force flagship with the separate gather, 3 batches",
-            )
+    with eager_route(brute_tracer):
+        brute_sites = read_sites(brute_tracer.run, SCENE_READS)
+        check_read_sites("brute flagship, eager route", brute_sites)
+        for from_query in (True, False, False, True):
+            accel.ROWS_FROM_QUERY = from_query
+            turn_seconds, _, turn_counts, _ = timed_runs(brute_tracer, wrappers, "brute path, eager route")
+            own, other = "nearest_in_table_rows", "nearest_in_table"
+            if not from_query:
+                own, other = other, own
+            assert turn_counts[own] == MAX_PATH * 3 and turn_counts[other] == 0, turn_counts
+            assert turn_counts["target_in_table"] == (MAX_PATH - 1) * 3, turn_counts
+            assert not any(turn_counts[name] for name in SEGMENT_WRAPPERS), turn_counts
+            brute_turns.append(dict(rows_from_kernel=from_query, seconds_per_batch=turn_seconds,
+                                    launches={k: v // 3 for k, v in turn_counts.items() if v}))
+            if from_query:
+                kernels["nearest_in_table_rows"].update(
+                    launches=turn_counts[own], launches_per_batch=MAX_PATH,
+                    path="brute-force flagship on the eager route (trace_fn's forward), 3 batches",
+                )
     accel.ROWS_FROM_QUERY = True
-    print("main path (brute), rows from the kernel / a separate gather, in turns: " + "; ".join(
+    print(f"brute flagship, eager route: table-read launches a batch: read_packed "
+          f"{brute_turns[0]['launches']['read_packed']}, read_table {brute_turns[0]['launches'].get('read_table', 0)}")
+    print("brute flagship, eager route, rows from the kernel / a separate gather, in turns: " + "; ".join(
         f"{'kernel' if t['rows_from_kernel'] else 'gather'} {statistics.median(t['seconds_per_batch']):.4f} s "
         f"{[round(x, 4) for x in t['seconds_per_batch']]}" for t in brute_turns
     ))
@@ -5869,7 +6349,7 @@ def main() -> int:
     for label in ("mt", "woop", "brute", "bvh", "bvh", "brute", "woop", "mt"):
         turn_seconds, turn_sums, _, _ = timed_runs(backends[label], wrappers, f"{label} path")
         backend_turns.append(dict(accel=label, seconds_per_batch=turn_seconds, histogram_sums=turn_sums))
-    print("main paths in turns, unpolarized: " + "; ".join(
+    print("main paths in turns, unpolarized, each on its default route (mt and brute staged): " + "; ".join(
         f"{t['accel']} {statistics.median(t['seconds_per_batch']):.4f} s "
         f"{[round(x, 4) for x in t['seconds_per_batch']]}" for t in backend_turns
     ))
@@ -6088,13 +6568,17 @@ def main() -> int:
     # the wavefront sort on its path (flagship-array with accel="mt" and "woop")
     last_slice = last_slice_runs(mesh, wrappers, kernels, smi, brute_med)
 
+    phase("3p")
+    # phase 3p: the flagship's segment as four kernels (trace/segment.py) on flagship-brute and flagship-mt
+    segments = segment_runs(mesh, wrappers, kernels, smi)
+
     phase("4")
     # phase 4: the port on the CPU against the port on the card
     cpu_vs_card = dict(single_card_cpu)
     flagship = lambda **kw: lambda dev: build_flagship(theia_tpu_torch, mesh, SMALL_BATCH, MAX_PATH, device=dev, **kw)
     for label, build in (
-        ("mt", flagship()),
-        ("brute", flagship(accel="auto")),
+        ("mt, staged route", flagship()),
+        ("brute, staged route", flagship(accel="auto")),
         ("woop polarized off centre", flagship(accel="woop", polarized=True, source_position=OFF_CENTRE)),
         ("volume", lambda dev: build_volume_flagship(theia_tpu_torch, SMALL_BATCH, dev)),
         ("volume polarized", lambda dev: build_volume_flagship(theia_tpu_torch, SMALL_BATCH, dev, polarized=True)),
@@ -6187,7 +6671,7 @@ def main() -> int:
                       launches=grad_counts, profile=grad_prof, **pol_checks),
         volume_gradient_steps=volume_steps, geometry_gradient_step=geo, sobol_and_camera_runs=camera_runs,
         scene_camera_runs=scene_runs, cherenkov_runs=cherenkov, single_card_runs=single_card,
-        last_slice_runs=last_slice,
+        last_slice_runs=last_slice, segment_runs=segments,
         cpu_vs_card=cpu_vs_card, phase_seconds={k: clock[n] - clock[k] for k, n in zip(clock, list(clock)[1:])},
         lap_seconds=laps,
         **line,

@@ -84,9 +84,11 @@ def runs():
     saved = {name: getattr(accel, name) for name in calls}
     for name, fn in saved.items():
         setattr(accel, name, counting(name, fn))
+    # the eager segment (the staged route's kernels are held in
+    # test_torch_segment_kernels.py); run() below takes the staged route
     try:
         with torch.no_grad():
-            t_state, _, t_dims = tt._trace_batch(tp, tt.rng.counter_words, tt.streams())
+            t_state, _, t_dims = tt._trace_batch_eager(tp, tt.rng.counter_words, tt.streams())
     finally:
         for name, fn in saved.items():
             setattr(accel, name, fn)
@@ -118,7 +120,7 @@ def runs():
         setattr(accel, name, counting_kw(name, fn))
     try:
         with torch.no_grad():
-            b_state, _, b_dims = bt._trace_batch(bt.params(), bt.rng.counter_words, bt.streams())
+            b_state, _, b_dims = bt._trace_batch_eager(bt.params(), bt.rng.counter_words, bt.streams())
     finally:
         for name, fn in saved.items():
             setattr(accel, name, fn)
@@ -163,8 +165,9 @@ def test_cpu_run_launches_no_kernel(runs):
 
 
 def test_mt_path_takes_rows_from_the_query(runs):
-    """Every query of the batch (10 primary, 9 shadow) goes through the
-    query that also returns the winners' rows, none through the other;
+    """On the eager segment, every query of the batch (10 primary, 9
+    shadow) goes through the query that also returns the winners' rows,
+    none through the other;
     with tri_data being differentiated the torch gather takes over, and
     both give the same hit."""
     assert runs["t_query_calls"] == {"nearest_triangle_mt": 0, "nearest_triangle_mt_rows": 2 * MAX_PATH - 1}
@@ -193,7 +196,7 @@ def test_brute_flagship_matches_mt_flagship(runs):
 
 
 def test_brute_path_queries(runs):
-    """The default scene's batch: 10 primary queries through the query
+    """The default scene's batch on the eager segment: 10 primary queries through the query
     that also returns the winners' rows, and each of the 9 MIS shadow
     pairs as one query (the nearest hit over the detector with its rows
     and the any-hit over the occluders together); no separate any-hit and

@@ -28,11 +28,13 @@ random rays through it, :func:`tie_scene` arrays whose hits tie exactly.
 as the files that the mesh loaders read, and :func:`array_obj` example
 08's module as an OBJ template.
 :func:`adversarial_rays` makes rays on the boundaries of the nearest-hit
-tests from a soup's triangles.
+tests from a soup's triangles. :func:`eager_route` runs a scene tracer's
+batches on the eager segment, which the staged one is held against.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib
 import struct
@@ -1207,3 +1209,18 @@ def jax_record_sums(monkeypatch) -> list:
 
     monkeypatch.setattr(response.HistogramHitResponse, "record", recorded)
     return sums
+
+
+@contextlib.contextmanager
+def eager_route(*tracers):
+    """Inside the block, every batch of the ``SceneForwardTracer``s
+    ``tracers`` (``run()``, a ``Pipeline``'s, ``_trace_batch``) takes the
+    eager segment (``_trace_batch_eager``), whatever ``segment_route``
+    says: the route that the staged one is held against."""
+    for tracer in tracers:
+        tracer._trace_batch = tracer._trace_batch_eager
+    try:
+        yield
+    finally:
+        for tracer in tracers:
+            del tracer._trace_batch

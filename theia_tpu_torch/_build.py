@@ -34,7 +34,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "theia_tpu_torch"
 SOURCES = (
     "intersect_woop.cu", "intersect_soup.cu", "philox.cu", "sobol.cu", "histogram.cu",
     "kernel_histogram.cu", "table_read.cu", "bvh_walk.cu", "instanced_walk.cu", "gamma.cu",
-    "cherenkov_track.cu", "wavefront_sort.cu",
+    "cherenkov_track.cu", "wavefront_sort.cu", "segment.cu",
 )
 #: -fmad=false: no contraction of a*b+c into FMAs, so every product and sum
 #: rounds exactly as the plain PyTorch versions' separate ops do (explicit
@@ -78,6 +78,10 @@ _SIGNATURES = {
     "theia_track_sample": (_P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P),
     "theia_wavefront_sort": (_P, _P, _P, _F, _F, _F, _F, _F, _F, _I, _P, _P, _P, _P, _P, _P, _P, _P),
     "theia_wavefront_scatter": (_P, _P, _P, _P, _I, _P, _P, _P, _P),
+    "theia_segment_pre": (_P, _P, _P),
+    "theia_segment_surface": (_P, _P, _P),
+    "theia_segment_scatter": (_P, _P, _P),
+    "theia_segment_shadow": (_P, _P, _P),
 }
 
 

@@ -86,4 +86,27 @@ __device__ __forceinline__ float philox_draw(const PhiloxBase& b, uint32_t strea
   return philox_keyed(philox_key(b, stream), b, dim);
 }
 
+// One lane's cursor, as random.py RNGState moves it: uniform() draws at the
+// lane's dim and advances it by one (uniform2d is two of them), and a
+// lane's dim after a block that the reference's control flow takes only on
+// some lanes is trace/core.py merge_dim's: the dim after the block where
+// it was taken, the dim before it elsewhere (merged). The key is set up
+// once a lane.
+struct PhiloxLane {
+  PhiloxKey key;
+  PhiloxBase base;
+  uint32_t dim;
+
+  __device__ __forceinline__ PhiloxLane(const PhiloxBase& b, uint32_t stream, uint32_t dim_)
+      : key(philox_key(b, stream)), base(b), dim(dim_) {}
+
+  __device__ __forceinline__ float uniform() { return philox_keyed(key, base, dim++); }
+
+  // merge_dim(after, before, taken): keep the draws since `before` only
+  // where `taken`
+  __device__ __forceinline__ void merged(uint32_t before, bool taken) {
+    if (!taken) dim = before;
+  }
+};
+
 }  // namespace theia

@@ -86,6 +86,7 @@ __all__ = [
     "read_packed_plain",
     "read_packed_grad",
     "read_packed_grad_plain",
+    "packed_spec",
     "gather_rows",
     "gather_rows_plain",
     "gather_rows_grad",
@@ -651,6 +652,17 @@ def read_packed_grad_plain(values, sizes, handle, x, grad_out, null_value=0.0, *
 
 read_packed.launches = 0
 read_packed_grad.launches = 0
+
+
+def packed_spec(values, sizes, null_value=0.0, *, affine=None, bounds=None, clips: int = 1, shared: bool = False,
+                device):
+    """The kernel constants (``TheiaTableSpec``, ``csrc/table_read.cuh``) of
+    a :func:`read_packed` table set with these arguments, for kernels that
+    read the tables at their own lanes through ``read_lane`` (the segment
+    kernels of ``csrc/segment.cu``). The struct is checked as a read's is,
+    and its pointers stay valid while the tables live."""
+    _, tables, sizes = _packed(values, sizes)
+    return _reader(True, tables, sizes, null_value, affine, bounds, clips, shared, torch.device(device)).spec
 
 
 # ---------------------------------------------------------------------------

@@ -176,7 +176,9 @@ cherenkov-muon runs neither K1 nor K2: it shows how far the host moves
 seconds between processes.
 
 ``profile`` traces one batch of the ``mt`` flagship, one of the
-brute-force flagship (``accel="auto"``) and one of the polarized ``woop``
+brute-force flagship (``accel="auto"``), each on both segment routes in
+turns (eager, stages, stages, eager; the eager turns through
+``torch_flagship.eager_route``), and one of the polarized ``woop``
 flagship (262,144 lanes, path length 10) with ``torch.profiler``, one
 gradient step of the latter, one step of each of ``chip_smoke.py``'s
 gradient phases 3h and 3i (the volume flagship in its absorption and,
@@ -199,6 +201,10 @@ bit for bit, the summed state within ``chip_smoke.RANK_ORDER_RTOL`` of
 the largest bin, and seconds a batch of the same schedules, for the
 ranks' speed-up.
 
+Every mode but ``profile`` and ``sharded`` runs the flagship's batches
+on the eager segment (``SceneForwardTracer._trace_batch_eager``), whose
+queries, reads and records it was written to measure.
+
 Every mode prints the card's name and power limit first and writes its
 numbers to ``card_measure_<mode>.json`` (``card_measure_baseline_aos.json``
 for ``baseline DIR aos``) in ``chip_smoke.py``'s output directory.
@@ -206,6 +212,7 @@ for ``baseline DIR aos``) in ``chip_smoke.py``'s output directory.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import subprocess
@@ -224,8 +231,9 @@ import chip_smoke  # noqa: E402
 import theia_tpu_torch  # noqa: E402
 from theia_tpu_torch import _build  # noqa: E402
 from theia_tpu_torch.response import KernelHistogramHitResponse  # noqa: E402
+from theia_tpu_torch.trace import SceneForwardTracer  # noqa: E402
 from torch_flagship import (  # noqa: E402
-    array_rays, build_array, build_flagship, build_photon_flagship, build_volume_flagship, icosphere,
+    array_rays, build_array, build_flagship, build_photon_flagship, build_volume_flagship, eager_route, icosphere,
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -1625,7 +1633,16 @@ def profile() -> dict:
         )
         for _ in range(2):
             tracer.run()
-        out[label] = _profiled(f"{label}, one batch", tracer.run, _seconds(tracer.run))
+        if kw.get("polarized"):
+            out[label] = _profiled(f"{label}, one batch", tracer.run, _seconds(tracer.run))
+        else:
+            # the two segment routes in turns: the eager segment and the four kernels
+            for k, staged in enumerate((False, True, True, False)):
+                route = "stages" if staged else "eager"
+                with contextlib.nullcontext() if staged else eager_route(tracer):
+                    tracer.run()  # a warm-up on the route
+                    out[f"{label}, {route}, turn {k + 1}"] = _profiled(
+                        f"{label}, {route}, one batch", tracer.run, _seconds(tracer.run))
         if kw.get("polarized"):
             step = lambda: chip_smoke.absorption_grad(tracer)
             step()
@@ -2305,6 +2322,10 @@ def main(argv: list[str]) -> int:
     mode = argv[1] if len(argv) > 1 else ""
     smi = _smi()
     print(smi)
+    if mode not in ("profile", "sharded"):
+        # these modes record and time the eager segment's calls (its queries, reads and records), as they did
+        # before the staged route; profile takes both routes in turns, sharded the default one
+        SceneForwardTracer._trace_batch = SceneForwardTracer._trace_batch_eager
     if mode == "tiles":
         result = tiles()
     elif mode == "baseline" and (len(argv) == 3 or argv[3:] == ["aos"]):

@@ -18,9 +18,15 @@ response that draws (``StoreTimeHitResponse``) draws in ``theia_tpu``'s
 order. Either way the two MIS shadow rays share one 2N-lane query. The
 final segment is peeled: it never scatters, so it skips the MIS shadow
 and scatter blocks. ``ScenePhotonTracer`` (``trace.photon``) runs this
-tracer in photon mode (``_photon_mode``). The whole batch runs eagerly;
-the intersection queries, the Philox draws and the histogram record
-(and its backward) are hand-written CUDA kernels on a CUDA device.
+tracer in photon mode (``_photon_mode``).
+
+Two routes run a batch (``segment_route``). The flagship's configuration
+without autograd takes ``"stages"`` (``trace.segment``): each segment is
+four hand-written kernels with the scan and the records between them,
+bit-equal to the eager route. Every other batch takes ``"eager"``: the
+segment as torch ops, where the intersection queries, the Philox draws,
+the table reads and the histogram record (and its backward) are
+hand-written CUDA kernels on a CUDA device.
 """
 
 from __future__ import annotations
@@ -199,6 +205,30 @@ def _sample_cos_packed(pack: ScenePack, medium, u):
     return torch.where(has_tab, torch.clamp(cos_tab, -1.0, 1.0), 2.0 * u - 1.0).detach(), has_tab
 
 
+def _mis_contrib(ray: RayState, w, log_p):
+    """A MIS shadow ray's (lin, log) contribution: the vertex's times mu_s
+    and its balance weight, with the sampled log probability's
+    zero-valued correction."""
+    return ray.lin_contrib * ray.constants.mu_s * w.detach(), ray.log_contrib + log_p - log_p.detach()
+
+
+def _result_codes(code, pre_alive, in_bounds, surf, respond, vol_border, absorbed_surf):
+    """A segment's result codes (int32) and the lanes that stay alive."""
+    E = EventResultCode
+    code = torch.where(
+        surf & respond, int(E.RAY_DETECTED),
+        torch.where(
+            surf & vol_border, int(E.VOLUME_HIT),
+            torch.where(
+                surf, int(E.RAY_HIT),
+                torch.where(pre_alive & in_bounds, int(E.RAY_SCATTERED), code),
+            ),
+        ),
+    )
+    code = torch.where(absorbed_surf, int(E.RAY_ABSORBED), code).to(torch.int32)
+    return code, pre_alive & (code >= 0) & ~absorbed_surf
+
+
 class SceneForwardTracer(TracerBase):
     """Forward path tracing against a scene (reference:
     src/theia/trace.py:1048-1336). Lanes and parameters live on
@@ -215,6 +245,9 @@ class SceneForwardTracer(TracerBase):
     #: photon mode (ScenePhotonTracer): contributions start at 1 and each
     #: segment ends in Russian-roulette absorption
     _photon_mode = False
+    #: conformance hook: a list to which either route appends each
+    #: segment's end state (``trace.segment.snapshot``), or None
+    _debug_segments = None
 
     def __init__(
         self,
@@ -292,6 +325,15 @@ class SceneForwardTracer(TracerBase):
                 polarized=polarized,
             )
         )
+
+    @property
+    def segment_route(self) -> str:
+        """``"stages"`` where a batch of this tracer runs now would take the
+        four segment kernels (``trace.segment.route`` says when), else
+        ``"eager"``."""
+        from . import segment
+
+        return segment.route(self)
 
     @property
     def _fused(self) -> bool:
@@ -448,7 +490,6 @@ class SceneForwardTracer(TracerBase):
         skipped (reference: the loop's last iteration never scatters,
         tracer.scene.forward.glsl loop bound)."""
         ray, medium, alive, allow_response, pol, rng, resp_state, cb_state = carry
-        sg = lambda a: a.detach()
         mis = self.targetGuide is not None
         fused = self._fused
 
@@ -500,13 +541,8 @@ class SceneForwardTracer(TracerBase):
             ray, position=torch.where(surf[..., None], hit.world_pos, ray.position)
         )
         n_i, n_t, r_s, r_p = _fresnel(pack, ray, hit)
-        flags = hit.flags
-        no = torch.zeros_like(surf)
-        is_abs = (flags & _BLACK) != 0
-        is_target = (flags & self._target_bit) != 0
-        vol_border = no if self.disableVolumeBorder else (flags & _VOLUME) != 0
-        can_reflect = (flags & self._no_r_bit) == 0
-        can_transmit = no if self.disableTransmission else (flags & self._no_t_bit) == 0
+        kinds = self._surface_kinds(hit.flags, surf)
+        is_abs, is_target, vol_border = kinds[:3]
 
         target_id = p["tracer"]["targetId"]
         correct = (target_id < 0) | (hit.custom_id == target_id)
@@ -530,6 +566,134 @@ class SceneForwardTracer(TracerBase):
         rng = merge_dim(rng_a, rng, rec_mask)
 
         # surface interaction outcome
+        ray, medium, rng, sel_reflect, sel_transmit, eta, absorbed_surf = self._surface_outcome(
+            pack, ray, medium, hit, surf, kinds, r_s, r_p, n_i, n_t, rng
+        )
+        if pol is not None:
+            # Fresnel polarizers in the (already aligned) incidence frame;
+            # the reference frame itself is kept by both outcomes
+            # (reference: ray.surface.glsl reflectRay/transmitRay)
+            stokes, pol_ref = pol
+            _, m12_r, m33_r = polarizer_coeffs(r_p, r_s)
+            _, m12_t, m33_t = polarizer_coeffs((r_p + 1.0) * eta, r_s + 1.0)
+            stokes = torch.where(
+                sel_reflect[..., None], apply_polarizer(stokes, m12_r, m33_r),
+                torch.where(
+                    sel_transmit[..., None], apply_polarizer(stokes, m12_t, m33_t), stokes
+                ),
+            )
+            pol = (stokes, pol_ref)
+
+        # ---- processInteraction: volume scatter (miss) ----
+        if not last:
+            miss = pre_alive & in_bounds & ~hit.valid
+            if mis:
+                resp_state, rng = self._mis_shadow(
+                    p, pack, prop, ray, medium, miss, pol, rng, resp_state
+                )
+            # scatter the real ray
+            incident = ray
+            ray, scat_dir, rng = self._scatter_real(pack, ray, medium, miss, rng)
+            if pol is not None:
+                pol = _where_pol(
+                    miss, _pol_scatter_packed(pack.media, medium, incident.direction, scat_dir, pol), pol
+                )
+
+        # ---- result codes + events ----
+        E = EventResultCode
+        code, alive = _result_codes(code, pre_alive, in_bounds, surf, respond, vol_border, absorbed_surf)
+        if self._photon_mode:
+            # Russian-roulette absorption every segment (no MIS in photon
+            # mode, so a segment's draws are fixed)
+            u_abs, rng_a = rng.uniform()
+            survive = ray.contrib > u_abs
+            rng = merge_dim(rng_a, rng, alive)
+            kept = alive & survive
+            ray = replace(
+                ray,
+                lin_contrib=torch.where(kept, 1.0, ray.lin_contrib),
+                log_contrib=torch.where(kept, 0.0, ray.log_contrib),
+            )
+            code = torch.where(alive & ~survive, int(E.RAY_ABSORBED), code).to(torch.int32)
+            alive = kept
+        cb_state = self.callback.on_event(
+            p["callback"], cb_state, ray, code, pre_alive, i + 1, pol=pol
+        )
+        if mis:
+            allow_response = code != int(E.RAY_SCATTERED)
+        else:
+            allow_response = torch.ones_like(allow_response)
+        return ray, medium, alive, allow_response, pol, rng, resp_state, cb_state
+
+    def _mis_shadow(self, p, pack, prop, ray, medium, miss, pol, rng, resp_state):
+        """The two MIS shadow rays of a scatter vertex (phase sample and
+        guide sample), traced as one 2N-lane query. Fused, they are
+        recorded in one call; else each half is its own record, phase
+        sample first, each with its own Stokes vector scattered into its
+        direction. The RNG dims advance only on ``miss`` lanes."""
+        rng_b = rng
+        dir_phase, guide_sample, phase_eval, w_phase, w_target, log_p_pp, log_p_pt, rng = self._mis_samples(
+            p, pack, ray, medium, rng
+        )
+
+        tile = lambda a: torch.cat([a, a])
+        directions = torch.cat([dir_phase, guide_sample.direction])
+        hit2 = intersect_target(
+            pack, tile(medium), tile(ray.position), directions,
+            torch.cat([phase_eval.dist, guide_sample.dist]),
+            active=tile(miss),
+        )
+        if not self._fused:
+            halves = zip(
+                _split_hit(hit2, miss.shape[0]),
+                ((dir_phase, w_phase, log_p_pp), (guide_sample.direction, w_target, log_p_pt)),
+            )
+            for s_hit, (s_dir, w, log_p) in halves:
+                lin, log = _mis_contrib(ray, w, log_p)
+                shadow = replace(ray, direction=s_dir, lin_contrib=lin, log_contrib=log)
+                shadow_pol = None
+                if pol is not None:
+                    shadow_pol = _pol_scatter_packed(pack.media, medium, ray.direction, s_dir, pol)
+                resp_state, rng = self._shadow_response(
+                    p, resp_state, shadow, s_hit, miss, rng, prop, pol=shadow_pol
+                )
+            return resp_state, merge_dim(rng, rng_b, miss)
+        lin_p, log_p = _mis_contrib(ray, w_phase, log_p_pp)
+        lin_t, log_t = _mis_contrib(ray, w_target, log_p_pt)
+        shadow2 = RayState(
+            position=tile(ray.position),
+            direction=directions,
+            wavelength=tile(ray.wavelength),
+            time=tile(ray.time),
+            lin_contrib=torch.cat([lin_p, lin_t]),
+            log_contrib=torch.cat([log_p, log_t]),
+            constants=_cat_constants(ray.constants),
+        )
+        item2, ok2 = self._shadow_item(p, shadow2, hit2, tile(miss), prop)
+        resp_state, _ = self.response.record(p["response"], resp_state, item2, ok2, rng)
+        return resp_state, merge_dim(rng, rng_b, miss)
+
+    # -- the pieces that the staged route's twins share (trace.segment) ---
+
+    def _surface_kinds(self, flags, surf):
+        """(is_abs, is_target, vol_border, can_reflect, can_transmit) of the
+        hit materials' ``flags``, under the tracer's surface rules."""
+        no = torch.zeros_like(surf)
+        is_abs = (flags & _BLACK) != 0
+        is_target = (flags & self._target_bit) != 0
+        vol_border = no if self.disableVolumeBorder else (flags & _VOLUME) != 0
+        can_reflect = (flags & self._no_r_bit) == 0
+        can_transmit = no if self.disableTransmission else (flags & self._no_t_bit) == 0
+        return is_abs, is_target, vol_border, can_reflect, can_transmit
+
+    def _surface_outcome(self, pack, ray, medium, hit, surf, kinds, r_s, r_p, n_i, n_t, rng):
+        """The surface interaction on ``surf`` lanes: the draw between
+        reflection and transmission, all three outcomes computed and
+        selected per lane, the new medium and its constants. ``kinds`` is
+        :meth:`_surface_kinds`' tuple. Returns (ray, medium, rng,
+        sel_reflect, sel_transmit, eta, absorbed_surf)."""
+        sg = lambda a: a.detach()
+        is_abs, _, vol_border, can_reflect, can_transmit = kinds
         r_coef = 0.5 * (r_s * r_s + r_p * r_p)
         u_surf, rng_a = rng.uniform()
         both = surf & ~is_abs & ~vol_border & can_reflect & can_transmit
@@ -586,22 +750,7 @@ class SceneForwardTracer(TracerBase):
             sel_reflect, ray.log_contrib + refl_corr,
             torch.where(sel_transmit, ray.log_contrib + trans_corr, ray.log_contrib),
         )
-        if pol is not None:
-            # Fresnel polarizers in the (already aligned) incidence frame;
-            # the reference frame itself is kept by both outcomes
-            # (reference: ray.surface.glsl reflectRay/transmitRay)
-            stokes, pol_ref = pol
-            _, m12_r, m33_r = polarizer_coeffs(r_p, r_s)
-            _, m12_t, m33_t = polarizer_coeffs((r_p + 1.0) * eta, r_s + 1.0)
-            stokes = torch.where(
-                sel_reflect[..., None], apply_polarizer(stokes, m12_r, m33_r),
-                torch.where(
-                    sel_transmit[..., None], apply_polarizer(stokes, m12_t, m33_t), stokes
-                ),
-            )
-            pol = (stokes, pol_ref)
-        medium = new_medium
-        new_c = packed_medium_constants(pack.media, medium, ray.wavelength)
+        new_c = packed_medium_constants(pack.media, new_medium, ray.wavelength)
         old_c = ray.constants
         ray = RayState(
             position=new_pos,
@@ -615,80 +764,14 @@ class SceneForwardTracer(TracerBase):
                   for f in ("n", "vg", "mu_s", "mu_e"))
             ),
         )
+        return ray, new_medium, rng, sel_reflect, sel_transmit, eta, absorbed_surf
 
-        # ---- processInteraction: volume scatter (miss) ----
-        if not last:
-            miss = pre_alive & in_bounds & ~hit.valid
-            if mis:
-                resp_state, rng = self._mis_shadow(
-                    p, pack, prop, ray, medium, miss, pol, rng, resp_state
-                )
-            # scatter the real ray
-            rng_b = rng
-            (su1, su2), rng = rng.uniform2d()
-            scat_dir, _, scat_log_p = self._sample_phase_packed(
-                pack, medium, ray.direction, su1, su2
-            )
-            scat_corr = scat_log_p - sg(scat_log_p)
-            if pol is not None:
-                pol = _where_pol(
-                    miss, _pol_scatter_packed(pack.media, medium, ray.direction, scat_dir, pol), pol
-                )
-            ray = replace(
-                ray,
-                direction=torch.where(miss[..., None], scat_dir, ray.direction),
-                lin_contrib=torch.where(
-                    miss, ray.lin_contrib * ray.constants.mu_s, ray.lin_contrib
-                ),
-                log_contrib=torch.where(miss, ray.log_contrib + scat_corr, ray.log_contrib),
-            )
-            rng = merge_dim(rng, rng_b, miss)
-
-        # ---- result codes + events ----
-        E = EventResultCode
-        code = torch.where(
-            surf & respond, int(E.RAY_DETECTED),
-            torch.where(
-                surf & vol_border, int(E.VOLUME_HIT),
-                torch.where(
-                    surf, int(E.RAY_HIT),
-                    torch.where(pre_alive & in_bounds, int(E.RAY_SCATTERED), code),
-                ),
-            ),
-        )
-        code = torch.where(absorbed_surf, int(E.RAY_ABSORBED), code).to(torch.int32)
-        alive = pre_alive & (code >= 0) & ~absorbed_surf
-        if self._photon_mode:
-            # Russian-roulette absorption every segment (no MIS in photon
-            # mode, so a segment's draws are fixed)
-            u_abs, rng_a = rng.uniform()
-            survive = ray.contrib > u_abs
-            rng = merge_dim(rng_a, rng, alive)
-            kept = alive & survive
-            ray = replace(
-                ray,
-                lin_contrib=torch.where(kept, 1.0, ray.lin_contrib),
-                log_contrib=torch.where(kept, 0.0, ray.log_contrib),
-            )
-            code = torch.where(alive & ~survive, int(E.RAY_ABSORBED), code).to(torch.int32)
-            alive = kept
-        cb_state = self.callback.on_event(
-            p["callback"], cb_state, ray, code, pre_alive, i + 1, pol=pol
-        )
-        if mis:
-            allow_response = code != int(E.RAY_SCATTERED)
-        else:
-            allow_response = torch.ones_like(allow_response)
-        return ray, medium, alive, allow_response, pol, rng, resp_state, cb_state
-
-    def _mis_shadow(self, p, pack, prop, ray, medium, miss, pol, rng, resp_state):
-        """The two MIS shadow rays of a scatter vertex (phase sample and
-        guide sample), traced as one 2N-lane query. Fused, they are
-        recorded in one call; else each half is its own record, phase
-        sample first, each with its own Stokes vector scattered into its
-        direction. The RNG dims advance only on ``miss`` lanes."""
+    def _mis_samples(self, p, pack, ray, medium, rng):
+        """A scatter vertex's two MIS directions, the phase sample and the
+        guide sample, with the guide's view of the first and the balance
+        weights of both. Returns (dir_phase, guide_sample, phase_eval,
+        w_phase, w_target, log_p_pp, log_p_pt, rng)."""
         sg = lambda a: a.detach()
-        rng_b = rng
         (u1, u2), rng = rng.uniform2d()
         dir_phase, p_pp, log_p_pp = self._sample_phase_packed(
             pack, medium, ray.direction, u1, u2
@@ -705,51 +788,26 @@ class SceneForwardTracer(TracerBase):
         w_phase = p_pp_d**2 / (p_pp_d**2 + p_tp**2)
         w_target = torch.nan_to_num(w_target, nan=0.0, posinf=0.0, neginf=0.0)
         w_phase = torch.nan_to_num(w_phase, nan=0.0, posinf=0.0, neginf=0.0)
+        return dir_phase, guide_sample, phase_eval, w_phase, w_target, log_p_pp, log_p_pt, rng
 
-        tile = lambda a: torch.cat([a, a])
-        directions = torch.cat([dir_phase, guide_sample.direction])
-        hit2 = intersect_target(
-            pack, tile(medium), tile(ray.position), directions,
-            torch.cat([phase_eval.dist, guide_sample.dist]),
-            active=tile(miss),
+    def _scatter_real(self, pack, ray, medium, miss, rng):
+        """The real ray's phase scatter on ``miss`` lanes, whose RNG dims
+        alone advance. Returns (ray, the sampled direction, rng)."""
+        rng_b = rng
+        (su1, su2), rng = rng.uniform2d()
+        scat_dir, _, scat_log_p = self._sample_phase_packed(
+            pack, medium, ray.direction, su1, su2
         )
-        if not self._fused:
-            halves = zip(
-                _split_hit(hit2, miss.shape[0]),
-                ((dir_phase, w_phase, log_p_pp), (guide_sample.direction, w_target, log_p_pt)),
-            )
-            for s_hit, (s_dir, w, corr) in halves:
-                shadow = replace(
-                    ray,
-                    direction=s_dir,
-                    lin_contrib=ray.lin_contrib * ray.constants.mu_s * sg(w),
-                    log_contrib=ray.log_contrib + corr - sg(corr),
-                )
-                shadow_pol = None
-                if pol is not None:
-                    shadow_pol = _pol_scatter_packed(pack.media, medium, ray.direction, s_dir, pol)
-                resp_state, rng = self._shadow_response(
-                    p, resp_state, shadow, s_hit, miss, rng, prop, pol=shadow_pol
-                )
-            return resp_state, merge_dim(rng, rng_b, miss)
-        shadow2 = RayState(
-            position=tile(ray.position),
-            direction=directions,
-            wavelength=tile(ray.wavelength),
-            time=tile(ray.time),
-            lin_contrib=torch.cat([
-                ray.lin_contrib * ray.constants.mu_s * sg(w_phase),
-                ray.lin_contrib * ray.constants.mu_s * sg(w_target),
-            ]),
-            log_contrib=torch.cat([
-                ray.log_contrib + log_p_pp - sg(log_p_pp),
-                ray.log_contrib + log_p_pt - sg(log_p_pt),
-            ]),
-            constants=_cat_constants(ray.constants),
+        scat_corr = scat_log_p - scat_log_p.detach()
+        ray = replace(
+            ray,
+            direction=torch.where(miss[..., None], scat_dir, ray.direction),
+            lin_contrib=torch.where(
+                miss, ray.lin_contrib * ray.constants.mu_s, ray.lin_contrib
+            ),
+            log_contrib=torch.where(miss, ray.log_contrib + scat_corr, ray.log_contrib),
         )
-        item2, ok2 = self._shadow_item(p, shadow2, hit2, tile(miss), prop)
-        resp_state, _ = self.response.record(p["response"], resp_state, item2, ok2, rng)
-        return resp_state, merge_dim(rng, rng_b, miss)
+        return ray, scat_dir, merge_dim(rng, rng_b, miss)
 
     # -- the batch -------------------------------------------------------
 
@@ -761,6 +819,15 @@ class SceneForwardTracer(TracerBase):
         return ray, medium, alive, allow_response, pol, rng
 
     def _trace_batch(self, p, counter, streams):
+        if self.segment_route == "stages":
+            from . import segment
+
+            return segment.trace_stages(self, p, counter, streams)
+        return self._trace_batch_eager(p, counter, streams)
+
+    def _trace_batch_eager(self, p, counter, streams):
+        """A batch on the eager route, whatever ``segment_route`` says: the
+        autograd path, and what checks hold the staged route against."""
         pack: ScenePack = p["scene"]
         prop = self._propagation(p)
         rng = self.rng.state_for(counter, streams)
@@ -775,6 +842,10 @@ class SceneForwardTracer(TracerBase):
         carry = (ray, medium, alive, allow_response, pol, rng, resp_state, cb_state)
         for i in range(self.maxPathLength):
             carry = self._segment(p, pack, prop, carry, i, i == self.maxPathLength - 1)
+            if self._debug_segments is not None:
+                from .segment import snapshot
+
+                self._debug_segments.append(snapshot(carry[0], carry[1], carry[2], carry[3], carry[5].dim))
         ray, medium, alive, allow_response, pol, rng, resp_state, cb_state = carry
         max_iter = torch.full_like(streams, int(EventResultCode.MAX_ITER))
         cb_state = self.callback.on_event(
